@@ -1,0 +1,52 @@
+"""Carry the JAX package's policy params across to the port.
+
+:func:`flax_to_torch` takes the flax param tree of
+``CausalLMWithValueHead`` as a nested dict of numpy arrays (the caller does
+the ``np.asarray``; nothing here imports JAX) and returns the port's state
+dict. Flax names map one to one:
+
+- ``transformer/h_0/attn/c_attn/kernel`` -> ``transformer.h.0.attn.c_attn.weight``
+  (flax ``Dense`` kernels are [in, out]; ``nn.Linear`` weights are
+  [out, in], so kernels are transposed);
+- ``.../ln_1/scale`` -> ``.../ln_1.weight``; ``.../bias`` -> ``.bias``;
+- ``transformer/wte/embedding`` -> ``transformer.wte.weight``;
+- ``v_head/fc1/kernel`` -> ``v_head.fc1.weight``.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Iterator, Mapping, Tuple
+
+import numpy as np
+import torch
+
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+
+
+def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
+    for key, value in tree.items():
+        if isinstance(value, Mapping):
+            yield from _walk(value, prefix + (str(key),))
+        else:
+            yield prefix + (str(key),), value
+
+
+def torch_name(path: Tuple[str, ...]) -> str:
+    """Flax path -> port parameter name."""
+    *mods, leaf = path
+    if leaf not in _LEAF:
+        raise ValueError(f"unexpected flax param leaf {'/'.join(path)!r}")
+    mods = [re.sub(r"^h_(\d+)$", r"h.\1", m) for m in mods]
+    return ".".join(mods + [_LEAF[leaf]])
+
+
+def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
+    """Nested dict of numpy arrays (flax names) -> the port's state dict."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in _walk(params):
+        arr = np.asarray(value)
+        if path[-1] == "kernel":
+            arr = arr.T
+        out[torch_name(path)] = torch.from_numpy(np.array(arr, order="C"))  # own copy
+    return out

@@ -1,0 +1,204 @@
+"""Token selection for decoding (counterpart of the per-step half of
+:mod:`trlx_tpu.ops.sampling`: ``GenerationConfig``, ``validate_gen_config``,
+``suppress_eos_before_min``, ``filter_logits`` and ``choose_tokens``).
+
+Sampling is ``argmax(filtered_logits + gumbel_noise)``, which is how
+``jax.random.categorical`` samples, so a test that injects the JAX
+package's Gumbel draws gets the same tokens. At runtime the engine draws
+the noise from per-row ``torch.Generator``\\ s seeded from (phase seed, row
+draw index, step) — each row's tokens depend on its own seed and logits,
+never on admission order or batch composition (:func:`row_noise`).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Optional, Sequence
+
+import torch
+
+
+@dataclass(frozen=True)
+class GenerationConfig:
+    """Generation parameters (same fields and defaults as
+    :class:`trlx_tpu.ops.sampling.GenerationConfig`)."""
+
+    max_new_tokens: int = 48
+    min_new_tokens: int = 0
+    min_length: int = 0
+    max_length: int = 0
+    temperature: float = 1.0
+    top_k: int = 0  # 0 = disabled
+    top_p: float = 1.0  # 1.0 = disabled
+    do_sample: bool = True
+    eos_token_id: int = 50256
+    pad_token_id: int = 50256
+    forced_bos_token_id: int = -1
+    decoder_start_token_id: int = 0
+    decode_segment_size: int = 8
+    per_row_rng: bool = False
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "GenerationConfig":
+        d = dict(d)
+        # reference configs write HF's ``max_length`` as their gen budget
+        if "max_length" in d and "max_new_tokens" not in d:
+            d["max_new_tokens"] = d["max_length"]
+        known = {f.name for f in dataclasses.fields(cls)}
+        d = {k: v for k, v in d.items() if k in known}
+        # reference YAMLs write numeric fields as floats (``top_k: 0.0``)
+        for name in ("max_new_tokens", "min_new_tokens", "min_length",
+                     "max_length", "top_k",
+                     "eos_token_id", "pad_token_id", "forced_bos_token_id",
+                     "decoder_start_token_id", "decode_segment_size"):
+            if name in d and d[name] is not None:
+                d[name] = int(d[name])
+        return cls(**d)
+
+
+def validate_gen_config(cfg: GenerationConfig, vocab_size, provided=None) -> None:
+    """Fail loudly on token ids outside the model's vocab. With
+    ``provided`` (the keys the user actually set), only those are checked."""
+    if not vocab_size:
+        return
+    for name in ("eos_token_id", "pad_token_id", "forced_bos_token_id",
+                 "decoder_start_token_id"):
+        if provided is not None and name not in provided:
+            continue
+        tid = getattr(cfg, name)
+        if tid is None or tid < 0:
+            continue
+        if tid >= vocab_size:
+            raise ValueError(
+                f"gen_kwargs {name}={tid} is outside the model vocab "
+                f"(vocab_size={vocab_size}) — check that the generation "
+                f"config matches the checkpoint/arch"
+            )
+
+
+def suppress_eos_before_min(logits, t, cfg: GenerationConfig, min_new=None):
+    """Mask the eos logit while ``t < min_new`` (HF MinLengthLogitsProcessor
+    semantics, applied before top-k/top-p); no-op when eos is unset."""
+    if min_new is None or cfg.eos_token_id is None or cfg.eos_token_id < 0:
+        return logits
+    active = torch.as_tensor(t < min_new, device=logits.device)
+    if active.dim() == 0:
+        active = active[None]
+    eos_col = torch.zeros(logits.shape[-1], dtype=torch.bool, device=logits.device)
+    eos_col[cfg.eos_token_id] = True
+    return logits.masked_fill(active[:, None] & eos_col[None, :], float("-inf"))
+
+
+def topk_mask(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Set every element outside the top-k of the last axis to -inf."""
+    if k >= x.shape[-1]:
+        return x
+    kth = torch.topk(x, k, dim=-1).values[..., -1:]
+    return x.masked_fill(x < kth, float("-inf"))
+
+
+def filter_logits(logits: torch.Tensor, cfg: GenerationConfig) -> torch.Tensor:
+    """Temperature / top-k / top-p filtering (f32 in, f32 out)."""
+    if cfg.temperature != 1.0:
+        logits = logits / cfg.temperature
+    if cfg.top_k > 0:
+        logits = topk_mask(logits, cfg.top_k)
+    if cfg.top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        cum = torch.cumsum(probs, dim=-1)
+        # keep tokens until the cumulative prob exceeds top_p (>= 1 token)
+        kth = (cum - probs < cfg.top_p).sum(-1, keepdim=True)
+        threshold = torch.gather(sorted_logits, -1, kth - 1)
+        logits = logits.masked_fill(logits < threshold, float("-inf"))
+    return logits
+
+
+def choose_tokens(
+    gen_config: GenerationConfig,
+    logits_last: torch.Tensor,  # [B, V] f32 raw logits
+    t,  # int or [B] per-row decode step
+    finished: torch.Tensor,  # [B] bool
+    value_last: torch.Tensor,  # [B] f32
+    n_real: torch.Tensor,  # [B] real prompt lengths
+    min_new=None,  # int/[B] eos-suppression horizon (None = off)
+    noise: Optional[torch.Tensor] = None,  # [B, V] Gumbel draws (sampling)
+):
+    """One decode step's token selection, with the JAX package's exact
+    semantics. Returns ``(token, live_i32, logprob, value_out,
+    finished_next)``: finished rows emit ``(pad, 0, 0.0, 0.0)``; the
+    behaviour logprob is taken under the RAW logits; ``finished_next``
+    folds in eos and the total-length cap. Sampling needs ``noise``."""
+    B = logits_last.shape[0]
+    dev = logits_last.device
+    t = torch.as_tensor(t, device=dev)
+    choice_logits = suppress_eos_before_min(logits_last, t, gen_config, min_new)
+    if gen_config.do_sample:
+        if noise is None:
+            raise ValueError("choose_tokens: do_sample needs Gumbel noise")
+        token = torch.argmax(filter_logits(choice_logits, gen_config) + noise, dim=-1)
+    else:
+        token = torch.argmax(choice_logits, dim=-1)
+    token = token.to(torch.int32)
+    if gen_config.forced_bos_token_id >= 0:
+        token = torch.where(
+            t == 0,
+            torch.full((B,), gen_config.forced_bos_token_id, dtype=torch.int32, device=dev),
+            token,
+        )
+    pad = torch.full_like(token, gen_config.pad_token_id)
+    token = torch.where(finished, pad, token)
+    logprob = (
+        torch.gather(logits_last, -1, token.long()[:, None])[:, 0]
+        - torch.logsumexp(logits_last, dim=-1)
+    )
+    live = ~finished
+    zero = torch.zeros_like(logprob)
+    logprob = torch.where(live, logprob, zero)
+    value_out = torch.where(live, value_last, zero)
+    finished = finished | (token == gen_config.eos_token_id)
+    if gen_config.max_length > 0:
+        finished = finished | (n_real + t + 1 >= gen_config.max_length)
+    return token, live.to(torch.int32), logprob, value_out, finished
+
+
+def _mix64(x: int) -> int:
+    """splitmix64 finaliser: a well-spread 64-bit hash of ``x``."""
+    x &= 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
+    return x ^ (x >> 31)
+
+
+def row_seed(phase_seed: int, row: int, t: int) -> int:
+    """Generator seed of (phase seed, row draw index, step)."""
+    h = _mix64(phase_seed)
+    h = _mix64(h ^ (row + 0x9E3779B97F4A7C15))
+    h = _mix64(h ^ (t + 0xD1B54A32D192ED03))
+    return h & 0x7FFFFFFFFFFFFFFF
+
+
+def row_noise(
+    phase_seed: int,
+    rows: Sequence[Optional[int]],  # draw index per slot, None = idle slot
+    steps: Sequence[int],
+    vocab_size: int,
+    device,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """[B, V] f32 Gumbel noise, row b drawn from a generator seeded with
+    :func:`row_seed` ``(phase_seed, rows[b], steps[b])``. Idle slots
+    (``None``) draw nothing and get a constant row: their emissions are
+    discarded."""
+    device = torch.device(device)
+    gen = generator or torch.Generator(device=device)
+    noise = torch.zeros((len(rows), vocab_size), dtype=torch.float32, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    for b, (row, t) in enumerate(zip(rows, steps)):
+        if row is None:
+            continue
+        gen.manual_seed(row_seed(phase_seed, int(row), int(t)))
+        noise[b] = torch.rand(vocab_size, generator=gen, device=device)
+    u = noise.clamp_(min=tiny)
+    return -torch.log(-torch.log(u))
