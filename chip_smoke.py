@@ -3,32 +3,56 @@
 
 Phases, each fatal on failure:
 
-1. build — compile the flash-attention forward kernel
-   (``trlx_tpu_torch/csrc/flash_fwd.cu``) with ``nvcc`` for ``sm_90a``;
-2. kernel — hold the kernel against its plain PyTorch version on the card
-   at the serving path's shapes (prefill, decode) and the edge cases
-   (causal flag with a padding bias, ragged Q/K, per-head bias), in bf16
-   and f32; time the prefill and decode shapes (kernel, plain version,
-   ``scaled_dot_product_attention`` as a yardstick the port never calls)
-   beside the card's bound;
-3. model — full-width GPT-2 in f32 through the kernel against the plain
-   attention: the forward without a cache, and prefill + decode through
-   the paged cache against the plain full forward of the whole sequence;
+1. build — compile the flash-attention kernels (``trlx_tpu_torch/csrc/
+   flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 dQ and K3 dK/dV) with ``nvcc``
+   for ``sm_90a``, both sources at once, and print ``ptxas``'s report;
+2. kernel — hold K1 against its plain PyTorch version on the card at the
+   serving path's shapes (prefill, decode) and the edge cases (causal flag
+   with a padding bias, ragged Q/K, per-head bias), in bf16 and f32; hold
+   K1 again at the training path's shapes (the cases below and the rollout
+   decode, B=128 Q=1 K=112), all-padding causal rows included; hold K2 and
+   K3 against the plain backward (fed K1's own O and LSE) at the
+   training shape (B=16, T=112, causal + padding bias, and with left
+   padding), the rollout-prefill shape (explicit causal + padding bias),
+   ragged Q/K with a full-rank bias and a per-head bias, in bf16 and f32;
+   hold the autograd ``Function`` against autograd through the plain
+   forward; time K1 at the prefill and decode shapes and K2, K3 (through
+   their C entry points, arguments packed beforehand) at the training
+   shape (kernel, plain version, and a PyTorch yardstick the port
+   never calls: ``scaled_dot_product_attention``, and for the backward
+   ``torch.autograd.grad`` of its output) beside the card's bound;
+3. model — full-width GPT-2 in f32 through the kernels against the plain
+   attention: the forward without a cache, prefill + decode through the
+   paged cache against the plain full forward of the whole sequence, and
+   the gradient of a PPO loss on one minibatch (max relative error per
+   parameter group);
 4. serving — ``InferenceServer`` on CUDA with the ``configs/ppo_sentiments.yml``
    model at full GPT-2-small width (random weights from a seed, bf16
    compute) serves 64 prompts; every request must complete with finite
-   logprobs/values, and the kernel launch count must equal
-   12 x (prefill forwards + decode steps).
+   logprobs/values, and the K1 launch count must equal
+   12 x (prefill forwards + decode steps);
+5. training — ``trlx_tpu_torch.train`` on CUDA with the
+   ``configs/ppo_sentiments.yml`` geometry at full GPT-2-small width
+   (random weights from a seed, bf16 compute, 128 int-list prompts of real
+   lengths 16-64, a host reward from the response ids) for two PPO phases
+   (64 updates); every stat must be finite, the parameters must move, a
+   fresh trainer's ``load`` must restore the saved state exactly, K1 must
+   launch 12 x the trainer's forwards, K2 and K3 12 x 64 times each, and
+   the plain attention not at all.
 
-Prints the card's name and power limit, a ``{"kernels": [...]}`` line, and
-as its last line ``{"ok": true, "device": {...}}``. Exits non-zero without
+Each path (phases 4 and 5) runs with the launch counters set to 0 just
+before it and read just after. Prints the card's name and power limit, a
+``{"kernels": [...]}`` line, and as its last line ``{"ok": true, "device":
+{...}}``. Exits non-zero without
 CUDA, or when any phase fails. ``--profile PATH`` additionally serves the
-same traffic under ``torch.profiler`` and writes a device-time summary (busy
-share, device time by kernel) as JSON to PATH.
+same traffic and runs one training phase under ``torch.profiler`` and
+writes each run's device-time summary (busy share, device time by kernel)
+as JSON to PATH.
 """
 
 from __future__ import annotations
 
+import functools
 import json
 import math
 import os
@@ -46,8 +70,27 @@ TOL = {  # max |dO|, max |dLSE| against the plain version
     # normalises before that rounding, the kernel after the sum
     "bfloat16": (2e-2, 1e-3),
 }
-REPLACES = "trlx_tpu/ops/flash_attention.py:97"
+# max |dQ|, |dK|, |dV| against the plain backward fed the same O and LSE,
+# as a fraction of max(1, max |reference|):
+BWD_TOL = {
+    # f32: only the order of the sums differs
+    "float32": 1e-4,
+    # bf16: both round an f32 sum (taken in another order) to bf16, and dQ
+    # also the bf16 cast of dS: up to 2 bf16 ulps (2^-8 each) at the top
+    "bfloat16": 1 / 128,
+}
+REPLACES = {
+    "flash_fwd": "trlx_tpu/ops/flash_attention.py:97",
+    "flash_bwd_dq": "trlx_tpu/ops/flash_attention.py:211",
+    "flash_bwd_dkv": "trlx_tpu/ops/flash_attention.py:265",
+}
+SOURCES = {
+    "flash_fwd": "trlx_tpu_torch/csrc/flash_fwd.cu",
+    "flash_bwd_dq": "trlx_tpu_torch/csrc/flash_bwd.cu",
+    "flash_bwd_dkv": "trlx_tpu_torch/csrc/flash_bwd.cu",
+}
 L2_BYTES = 50 * 2**20  # H100 SXM
+N_LAYER = 12  # GPT-2 small
 
 
 def log(msg: str) -> None:
@@ -196,6 +239,235 @@ def phase_kernel(torch, fa, attn):
     return results, timed
 
 
+FORWARD_ONLY = ("decode",)  # no backward runs at this shape
+
+
+def backward_cases(torch, attn):
+    """(name, q, k, v, bias, causal) at the training path's shapes (update
+    forward, rollout prefill and decode) and the edge cases, in f32; inputs
+    from a fixed seed. K1 is held at each, K2/K3 at all but
+    ``FORWARD_ONLY``."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+
+    def qkv(B, Q, K, H=12, D=64):
+        return [torch.randn(B, T, H, D, generator=gen, device=dev) for T in (Q, K, K)]
+
+    cases = []
+    # the training forward: [query; response] of 64 + 48 under the causal
+    # flag with a [B,1,1,K] padding bias; first keys valid (no row sees only
+    # padding), and then PPO's left padding, where rows before a row's first
+    # real token see only padding keys (generic dO there: the kernels must
+    # still follow the forward's tile visits, as the TPU kernel defines it)
+    keep = torch.arange(112, device=dev)[None, :] < 4
+    mask = (torch.rand(16, 112, generator=gen, device=dev) > 0.2) | keep
+    cases.append(("train", *qkv(16, 112, 112), attn.padding_bias(mask.long()), True))
+    lens = torch.randint(16, 65, (16,), generator=gen, device=dev)
+    mask = (torch.arange(112, device=dev)[None, :] >= 64 - lens[:, None]).long()
+    cases.append(("train_left_pad", *qkv(16, 112, 112), attn.padding_bias(mask), True))
+    # the rollout prefill: 64 prompt columns over the 112-wide cache, the
+    # causal structure and left padding as one explicit bias
+    cols = torch.arange(112, device=dev)[None, :]
+    mask = ((cols >= 64 - lens[:, None].repeat(8, 1)) & (cols < 64)).long()
+    bias = attn.causal_bias(64, 112, 0, dev) + attn.padding_bias(mask)
+    cases.append(("prefill", *qkv(128, 64, 112), bias, False))
+    # the rollout decode step (K1 only): one query at cache column 64 + t
+    # over the 112-wide cache, the shifted causal mask and left padding as
+    # one explicit bias
+    t = int(torch.randint(0, 48, (), generator=gen, device=dev))
+    mask = ((cols >= 64 - lens[:, None].repeat(8, 1)) & (cols <= 64 + t)).long()
+    bias = attn.causal_bias(1, 112, 64 + t, dev) + attn.padding_bias(mask)
+    cases.append(("decode", *qkv(128, 1, 112), bias, False))
+    cases.append(("ragged_bias", *qkv(2, 77, 141), torch.randn(2, 1, 77, 141, generator=gen, device=dev), False))
+    cases.append(("per_head_bias", *qkv(2, 130, 200), torch.randn(1, 12, 130, 200, generator=gen, device=dev), False))
+    return cases
+
+
+def backward_bound(fa, q, k, bias, causal, dtype_name):
+    """The least time of K2 and of K3 for these inputs: FLOPs over the
+    (query, key) pairs of the tiles the forward visits (all pairs without
+    the causal flag), bytes with each input read once and each output
+    written once."""
+    B, Q, H, D = q.shape
+    K = k.shape[1]
+    pairs = int(fa.visited_keys(Q, K).sum()) if causal else Q * K
+    item = q.element_size()
+    tensor = B * Q * H * D * item  # q, o, dO, dQ
+    kv = B * K * H * D * item  # k, v, dK, dV
+    extra = (bias.numel() * 4 if bias is not None else 0) + B * H * Q * 4  # bias, LSE
+    out = {}
+    for name, flops_per_pair, nbytes in (
+        # S, dP, dQ products; reads q k v o dO, writes dQ
+        ("flash_bwd_dq", 6, 4 * tensor + 2 * kv + extra),
+        # S, dP, dV, dK products; reads q k v o dO, writes dK dV
+        ("flash_bwd_dkv", 8, 3 * tensor + 4 * kv + extra),
+    ):
+        flops = flops_per_pair * D * pairs * B * H
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+        out[name] = {
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops,
+        }
+    return out
+
+
+def visited_reference(torch, fa, q, k, v, bias, causal):
+    """K1's function in plain ops: the plain forward, restricted under the
+    causal flag to the keys of the tiles K1 visits. On a causal row whose
+    visible keys are all padding (PPO's left padding) every visited key
+    sits at NEG_INF, and K1 averages exactly those keys, as the TPU kernel
+    does; the unrestricted plain forward would average all K. On every
+    other row the keys left out carry no weight either way."""
+    if causal:
+        Q, K = q.shape[1], k.shape[1]
+        skip = torch.zeros(Q, K, device=q.device).masked_fill_(
+            ~fa.visited_keys(Q, K, q.device), float("-inf"))
+        bias = skip if bias is None else bias.float() + skip
+    return fa.flash_attention_reference(q, k, v, bias, causal, True)
+
+
+def packed_backward_calls(torch, fa, copies, causal):
+    """Per input copy, zero-argument calls of the dQ and the dK/dV kernels'
+    C entry points, their arguments packed and their outputs allocated
+    once, so that a timed call is the launch and not the Python wrapper
+    around it. Returns ``(dq_calls, dkv_calls, outputs)``; ``outputs``
+    keeps the packed tensors alive."""
+    lib = fa._load()["flash_bwd"]
+    stream = torch.cuda.current_stream().cuda_stream
+    dq_calls, dkv_calls, outputs = [], [], []
+    for c in copies:
+        inputs, common = fa._backward_args(*c, causal)
+        ptrs = fa._pointers(inputs)
+        dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in inputs[:3])
+        outputs.append((inputs, dq, dk, dv))
+        dq_calls.append(functools.partial(
+            lib.trlx_flash_bwd_dq, *ptrs, dq.data_ptr(), *common, stream))
+        dkv_calls.append(functools.partial(
+            lib.trlx_flash_bwd_dkv, *ptrs, dk.data_ptr(), dv.data_ptr(), *common, stream))
+    return dq_calls, dkv_calls, outputs
+
+
+def phase_backward(torch, fa, attn):
+    """K1 against its plain version at the training path's shapes; K2 and
+    K3 against the plain backward; the autograd Function against autograd
+    through the plain forward; K2/K3 times at the training shape. Returns
+    ``(fwd_results, bwd_results, timed)``."""
+    import torch.nn.functional as F
+
+    fwd_results, results, timed = [], [], {}
+    for name, q32, k32, v32, bias, causal in backward_cases(torch, attn):
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            q, k, v = (x.to(dt) for x in (q32, k32, v32))
+            o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+            o_ref, lse_ref = visited_reference(torch, fa, q, k, v, bias, causal)
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            tol_o, tol_lse = TOL[dtype_name]
+            ok = math.isfinite(err_o) and err_o <= tol_o and err_lse <= tol_lse
+            fwd_results.append({
+                "case": "train_path_" + name, "dtype": dtype_name,
+                "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
+                "tol_o": tol_o, "tol_lse": tol_lse, "ok": ok,
+            })
+            log(f"phase 2: fwd {name:14s} {dtype_name:8s} B={q.shape[0]} Q={q.shape[1]} "
+                f"K={k.shape[1]} max|dO|={err_o:.3e} max|dLSE|={err_lse:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if name in FORWARD_ONLY:
+                continue
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(2)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+            got = fa._launch_backward(q, k, v, bias, o, lse, do, causal)
+            want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, causal)
+            torch.cuda.synchronize()
+            row = {"case": name, "dtype": dtype_name}
+            ok = True
+            for key, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - w.float()).abs().max().item()
+                tol = BWD_TOL[dtype_name] * max(1.0, w.float().abs().max().item())
+                row[f"max_abs_err_{key}"], row[f"tol_{key}"] = err, tol
+                ok = ok and math.isfinite(err) and err <= tol
+            row["ok"] = ok
+            results.append(row)
+            log(f"phase 2: bwd {name:14s} {dtype_name:8s} max|ddQ|={row['max_abs_err_dq']:.3e} "
+                f"max|ddK|={row['max_abs_err_dk']:.3e} max|ddV|={row['max_abs_err_dv']:.3e} "
+                f"(tol {row['tol_dq']:.1e}/{row['tol_dk']:.1e}/{row['tol_dv']:.1e}) "
+                f"{'ok' if ok else 'FAIL'}")
+            if name != "train" or dtype_name != "bfloat16":
+                continue
+            B, T = q.shape[:2]
+            tensors = [q, k, v, bias, o, lse, do]
+            nbytes = sum(t.numel() * t.element_size() for t in tensors)
+            copies = input_copies(tensors, nbytes)
+            dq_calls, dkv_calls, packed = packed_backward_calls(torch, fa, copies, causal)
+            kernel_dq = time_ms(dq_calls)
+            kernel_dkv = time_ms(dkv_calls)
+            # the packed calls launch without error and compute what the
+            # wrappers computed (the kernels are deterministic)
+            rcs = [dq_calls[0](), dkv_calls[0]()]
+            torch.cuda.synchronize()
+            same = rcs == [0, 0] and all(
+                torch.equal(a, b) for a, b in zip(packed[0][1:], got))
+            results.append({"case": "packed_calls", "dtype": dtype_name, "ok": same,
+                            "max_abs_err_dq": 0.0, "max_abs_err_dk": 0.0,
+                            "max_abs_err_dv": 0.0})
+            log(f"phase 2: packed K2/K3 calls rc={rcs}, outputs equal the wrappers': "
+                f"{'ok' if same else 'FAIL'}")
+            del packed, dq_calls, dkv_calls
+            plain = time_ms([
+                lambda c=c: fa.flash_attention_backward_reference(*c, causal) for c in copies
+            ])
+            # the yardstick: SDPA's whole backward (dQ, dK, dV in one call)
+            # with its forward taken outside the timed window; the causal
+            # and padding masks as one additive mask in the compute dtype
+            full_mask = (attn.causal_bias(T, T, 0, "cuda") + bias).to(dt)
+            graphs = []
+            for c in copies:
+                ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in c[:3])
+                out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=full_mask)
+                graphs.append((out, (ql, kl, vl), c[6].transpose(1, 2)))
+            library = time_ms([
+                lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
+                for g in graphs
+            ])
+            del copies, graphs
+            bounds = backward_bound(fa, q, k, bias, causal, dtype_name)
+            for kname, ms in (("flash_bwd_dq", kernel_dq), ("flash_bwd_dkv", kernel_dkv)):
+                timed[kname] = {
+                    "shape": f"B={B} H=12 Q=K={T} D=64 causal, bias {list(bias.shape)}",
+                    "ms": ms, "plain_ms": plain, "library_ms": library, **bounds[kname],
+                }
+                log(f"phase 2: {kname} bf16 {timed[kname]['shape']}: kernel_ms={ms} "
+                    f"plain_ms={plain} (whole plain backward) library_ms={library} "
+                    f"(SDPA's whole backward) bound_ms={bounds[kname]['bound_ms']} "
+                    f"({bounds[kname]['bound_by']})")
+
+    # the autograd Function (K1 forward, K2 + K3 backward) end to end
+    # against autograd through the plain forward, f32, training shape
+    name, q32, k32, v32, bias, causal = backward_cases(torch, attn)[0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    w = torch.randn(q32.shape, generator=gen, device="cuda")
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_reference):
+        xs = [x.clone().requires_grad_() for x in (q32, k32, v32)]
+        grads.append(torch.autograd.grad((fn(*xs, bias, causal) * w).sum(), xs))
+    errs = [(g - r).abs().max().item() for g, r in zip(*grads)]
+    tols = [BWD_TOL["float32"] * max(1.0, r.abs().max().item()) for r in grads[1]]
+    ok = all(e <= t for e, t in zip(errs, tols))
+    results.append({"case": "function_vs_autograd", "dtype": "float32", "ok": ok,
+                    "max_abs_err_dq": errs[0], "max_abs_err_dk": errs[1],
+                    "max_abs_err_dv": errs[2]})
+    log(f"phase 2: autograd Function vs autograd of the plain forward (f32, {name}): "
+        f"max|d(dq, dk, dv)|={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} {'ok' if ok else 'FAIL'}")
+    return fwd_results, results, timed
+
+
 def phase_model(torch, fa):
     """Full-width GPT-2 in f32 through the kernel against the plain
     attention: (a) the forward without a cache (causal flag + padding
@@ -205,9 +477,8 @@ def phase_model(torch, fa):
     1e-3 tolerance leaves room only for summation order: a bf16 path
     would miss it."""
     from trlx_tpu_torch.inference.kv_cache import init_paged_cache
-    from trlx_tpu_torch.inference.server import init_params
     from trlx_tpu_torch.models import gpt2
-    from trlx_tpu_torch.models.heads import CausalLMWithValueHead
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
 
     dev = "cuda"
     cfg = gpt2.GPT2Config(dtype="float32")
@@ -275,6 +546,71 @@ def phase_model(torch, fa):
         f"max|d(logits, values)|={err_fwd:.3e}; paged prefill + {R - 1} decode "
         f"steps vs plain full forward max|dlogits|={err_cache:.3e}; "
         f"launches={launched} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_model_backward(torch, fa):
+    """Full-width f32 GPT-2 + value head: the gradient of a PPO loss on
+    one minibatch (B=16, 64 left-padded prompt + 48 response columns)
+    through K1/K2/K3 against the same through the plain attention. The
+    gate, 1e-3 of each group's largest gradient, leaves room for f32
+    summation order through 12 layers of backward, not for an error."""
+    from trlx_tpu_torch.models import gpt2
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+    from trlx_tpu_torch.ops.ppo_math import ppo_loss
+    from trlx_tpu_torch.utils import logprobs_from_logits
+
+    dev = "cuda"
+    cfg = gpt2.GPT2Config(dtype="float32")
+    model = CausalLMWithValueHead(cfg, device=dev)
+    init_params(model, 2)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    B, Q, R = 16, 64, 48
+    lens = torch.randint(16, Q + 1, (B,), generator=gen, device=dev)
+    q_mask = (torch.arange(Q, device=dev)[None] >= Q - lens[:, None]).long()
+    q_ids = torch.randint(0, cfg.vocab_size, (B, Q), generator=gen, device=dev) * q_mask
+    r_ids = torch.randint(0, cfg.vocab_size, (B, R), generator=gen, device=dev)
+    r_len = torch.randint(1, R + 1, (B,), generator=gen, device=dev)
+    r_mask = (torch.arange(R, device=dev)[None] < r_len[:, None]).long()
+    old = [torch.randn(B, R, generator=gen, device=dev) for _ in range(4)]
+    old[0] = old[0] * 0.1 - 10.0  # behaviour logprobs
+    params = [p for p in model.parameters()]
+
+    def plain(q, k, v, bias=None, causal=False):
+        return fa.flash_attention_reference(q, k, v, bias, causal)
+
+    def grads_with(attention):
+        orig = gpt2.dot_product_attention
+        gpt2.dot_product_attention = attention
+        try:
+            logits, values = model.response_forward(
+                torch.cat([q_ids, r_ids], 1), torch.cat([q_mask, r_mask], 1), Q
+            )
+            logprobs = logprobs_from_logits(logits, r_ids)
+            loss, _ = ppo_loss(logprobs, values.float(), *old, r_mask, 0.2, 0.2, 1.0)
+            return torch.autograd.grad(loss, params)
+        finally:
+            gpt2.dot_product_attention = orig
+
+    dq0, dkv0 = fa.FLASH_BWD_DQ_LAUNCHES, fa.FLASH_BWD_DKV_LAUNCHES
+    kernel = grads_with(gpt2.dot_product_attention)
+    launches = (fa.FLASH_BWD_DQ_LAUNCHES - dq0, fa.FLASH_BWD_DKV_LAUNCHES - dkv0)
+    reference = grads_with(plain)
+    groups = {}
+    for (name, _), g, r in zip(model.named_parameters(), kernel, reference):
+        group = ("value head" if name.startswith("v_head") else
+                 "embeddings" if ".wte." in name or ".wpe." in name else
+                 "layer norms" if ".ln_" in name else
+                 "attention" if ".attn." in name else "mlp")
+        err, top = groups.get(group, (0.0, 0.0))
+        groups[group] = (max(err, (g - r).abs().max().item()), max(top, r.abs().max().item()))
+    rel = {k: err / max(top, 1e-30) for k, (err, top) in groups.items()}
+    ok = all(math.isfinite(v) and v <= 1e-3 for v in rel.values()) and launches == (
+        cfg.n_layer, cfg.n_layer)
+    log("phase 3: full-width f32 GPT-2 PPO-loss gradient, kernels vs plain attention: "
+        "max relative error per group " + json.dumps(rel) + f"; K2/K3 launches={launches} "
+        f"{'ok' if ok else 'FAIL'}")
     return ok
 
 
@@ -387,19 +723,173 @@ def phase_serving(torch, fa):
     return ok, record
 
 
-def profile_serving(torch, path: str) -> None:
-    """``--profile PATH``: serve the same 64 prompts again under
-    torch.profiler and summarise the device timeline — busy share of the
-    wall, and device time by kernel — as JSON at ``path``."""
+def training_config(checkpoint_dir: str):
+    """The ``configs/ppo_sentiments.yml`` run at full GPT-2-small width with
+    random weights, cut to two PPO phases (64 updates)."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", "ppo_sentiments.yml")).to_dict()
+    cfg["model"].update({
+        "model_path": "",  # random weights: the checkpoint is not in the repo
+        "tokenizer_path": "",
+        "model_arch": {
+            "vocab_size": 50257, "n_positions": 1024, "n_embd": 768,
+            "n_layer": 12, "n_head": 12,
+        },
+    })
+    cfg["train"].update({
+        "total_steps": 64, "eval_interval": 64, "checkpoint_interval": 64,
+        "checkpoint_dir": checkpoint_dir,
+    })
+    return TRLConfig.from_dict(cfg)
+
+
+def training_prompts(seed: int = 1):
+    """128 int-list prompts, real lengths drawn from 16..64."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [
+        [int(x) for x in rng.integers(0, 50256, int(rng.integers(16, 65)))]
+        for _ in range(128)
+    ]
+
+
+def training_reward(samples, queries, response_gt=None):
+    """The share of response ids below 25000 (a host reward)."""
+    return [
+        sum(int(t) < 25000 for t in s.split()) / max(len(s.split()), 1)
+        for s in samples
+    ]
+
+
+def phase_training(torch, fa):
     import tempfile
 
-    from torch.profiler import ProfilerActivity, profile
+    import numpy as np
 
-    from trlx_tpu_torch.inference.server import InferenceServer
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
-    server = InferenceServer(serving_config(), seed=0)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, _, wall = serve(torch, server, serving_prompts())
+    rows, evals, saved_rng, plain_calls = [], [], [], [0]
+    orig = {
+        "train_on": PPOTrainer._train_on, "evaluate": PPOTrainer.evaluate,
+        "save": PPOTrainer.save,
+        "fwd": fa.flash_attention_reference, "bwd": fa.flash_attention_backward_reference,
+    }
+
+    def train_on(self, *a, **kw):
+        out = orig["train_on"](self, *a, **kw)
+        rows.append(out[0])
+        return out
+
+    def evaluate(self):
+        out = orig["evaluate"](self)
+        evals.append(out)
+        return out
+
+    def save(self, directory=None):
+        # the sampling generator as saved (the final eval draws after it)
+        saved_rng.append(self.generator.get_state())
+        return orig["save"](self, directory)
+
+    def counting(name):
+        def fn(*a, **kw):
+            plain_calls[0] += 1
+            return orig[name](*a, **kw)
+        return fn
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = training_config(tmp)
+        PPOTrainer._train_on, PPOTrainer.evaluate, PPOTrainer.save = train_on, evaluate, save
+        fa.flash_attention_reference = counting("fwd")
+        fa.flash_attention_backward_reference = counting("bwd")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # count the main path's launches only
+        fa.FLASH_FWD_LAUNCHES = fa.FLASH_BWD_DQ_LAUNCHES = fa.FLASH_BWD_DKV_LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            trainer = trlx_tpu_torch.train(
+                reward_fn=training_reward, prompts=training_prompts(), config=config
+            )
+            torch.cuda.synchronize()
+        finally:
+            PPOTrainer._train_on, PPOTrainer.evaluate = orig["train_on"], orig["evaluate"]
+            PPOTrainer.save = orig["save"]
+            fa.flash_attention_reference = orig["fwd"]
+            fa.flash_attention_backward_reference = orig["bwd"]
+        wall = time.perf_counter() - t0
+        launches = {
+            "flash_fwd": fa.FLASH_FWD_LAUNCHES,
+            "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
+            "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES,
+        }
+        peak = torch.cuda.max_memory_allocated()
+        finite = all(np.isfinite(v).all() for r in rows for v in r.values()) and all(
+            math.isfinite(v) for e in evals for v in e.values()
+        )
+        initial = CausalLMWithValueHead(trainer.model_config, device="cuda")
+        init_params(initial, config.train.seed)
+        start = initial.state_dict()
+        changed = sum(
+            not torch.equal(p, start[n]) for n, p in trainer.model.state_dict().items()
+        )
+        del initial, start
+        fresh = PPOTrainer(training_config(tmp))
+        fresh.load(tmp)
+        saved, loaded = trainer.opt.state_dict(), fresh.opt.state_dict()
+        restored = (
+            all(torch.equal(fresh.model.state_dict()[n], p)
+                for n, p in trainer.model.state_dict().items())
+            and all(torch.equal(loaded["adamw"]["state"][i][key], value)
+                    for i, st in saved["adamw"]["state"].items() for key, value in st.items())
+            and (fresh.step, fresh.kl_coef, fresh.mean_kl, loaded["count"])
+            == (trainer.step, trainer.kl_coef, trainer.mean_kl, saved["count"])
+            and torch.equal(fresh.generator.get_state(), saved_rng[-1])
+        )
+        del fresh
+    expected = {
+        "flash_fwd": N_LAYER * trainer.forwards,
+        "flash_bwd_dq": N_LAYER * 64,
+        "flash_bwd_dkv": N_LAYER * 64,
+    }
+    per_phase = trainer.step // len(trainer.phase_times)
+    phases = [
+        dict(p, rollout_tokens_per_s=p["rollout_tokens"] / p["collect_s"],
+             updates_per_s=per_phase / p["train_s"])
+        for p in trainer.phase_times
+    ]
+    record = {
+        "wall_s": wall,
+        "updates": trainer.step,
+        "phases": phases,
+        "evals": evals,
+        "max_memory_allocated_bytes": peak,
+        "forwards": trainer.forwards,
+        "launches": launches,
+        "expected_launches": expected,
+        "plain_attention_calls": plain_calls[0],
+        "params_changed": changed,
+    }
+    log("phase 5: training " + json.dumps(record))
+    ok = (
+        trainer.step == 64 and len(rows) == 2 and finite and changed > 0
+        and restored and launches == expected and plain_calls[0] == 0
+    )
+    log(f"phase 5: {'ok' if ok else 'FAIL'} (updates={trainer.step}, phases={len(rows)}, "
+        f"finite={finite}, changed tensors={changed}, load restores={restored}, "
+        f"launches={launches} vs {expected}, plain attention calls={plain_calls[0]})")
+    return ok, record
+
+
+def device_summary(prof, wall: float) -> dict:
+    """Summarise a torch.profiler run's device timeline: busy share of the
+    wall, and device time by kernel."""
+    import tempfile
+
     with tempfile.TemporaryDirectory() as tmp:
         trace = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(trace)
@@ -416,7 +906,7 @@ def profile_serving(torch, path: str) -> None:
         n, total = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (n + 1, total + e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]
-    summary = {
+    return {
         "wall_ms": wall * 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / 1e3 / (wall * 1e3),
@@ -427,14 +917,46 @@ def profile_serving(torch, path: str) -> None:
             for n, (c, t) in top
         ],
     }
+
+
+def profile_paths(torch, path: str) -> None:
+    """``--profile PATH``: under torch.profiler, serve the same 64 prompts
+    again and run one PPO phase (32 updates) of the training geometry;
+    write each run's device summary as JSON at ``path``."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.inference.server import InferenceServer
+
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    summary = {}
+    server = InferenceServer(serving_config(), seed=0)
+    with profile(activities=activities) as prof:
+        _, _, wall = serve(torch, server, serving_prompts())
+    summary["serving"] = device_summary(prof, wall)
+    del server
+    with tempfile.TemporaryDirectory() as tmp:
+        config = training_config(tmp)
+        config.train.total_steps = 32
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            trlx_tpu_torch.train(reward_fn=training_reward, prompts=training_prompts(),
+                                 config=config)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    summary["training"] = device_summary(prof, wall)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as fh:
         json.dump(summary, fh, indent=1)
-    log("profile: " + json.dumps({k: summary[k] for k in (
-        "wall_ms", "device_busy_ms", "device_idle_share", "kernels_launched")}))
-    for row in summary["top_kernels"][:12]:
-        log(f"profile: {row['device_ms']:9.2f} ms {row['share_of_busy']:6.1%} "
-            f"x{row['count']:<6d} {row['name'][:90]}")
+    for name, run in summary.items():
+        log(f"profile {name}: " + json.dumps({k: run[k] for k in (
+            "wall_ms", "device_busy_ms", "device_idle_share", "kernels_launched")}))
+        for row in run["top_kernels"][:12]:
+            log(f"profile {name}: {row['device_ms']:9.2f} ms {row['share_of_busy']:6.1%} "
+                f"x{row['count']:<6d} {row['name'][:90]}")
 
 
 def main() -> int:
@@ -444,7 +966,8 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--profile", metavar="PATH", default=None,
-                        help="also profile the serving phase; write the summary here")
+                        help="also profile the serving and training paths; "
+                             "write the summaries here")
     args = parser.parse_args()
 
     if not torch.cuda.is_available():
@@ -465,16 +988,20 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    path = fa.build(verbose=True)
+    paths = fa.build(verbose=True)
     fa._load()
-    log(f"phase 1: built {os.path.relpath(path)} in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 1: built {', '.join(os.path.relpath(p) for p in paths.values())} "
+        f"in {time.perf_counter() - t0:.1f} s")
 
-    checks, timed = phase_kernel(torch, fa, attn)
-    kernel_ok = all(c["ok"] for c in checks)
-    model_ok = phase_model(torch, fa)
+    fwd_checks, timed = phase_kernel(torch, fa, attn)
+    train_fwd_checks, bwd_checks, bwd_timed = phase_backward(torch, fa, attn)
+    fwd_checks += train_fwd_checks
+    kernel_ok = all(c["ok"] for c in fwd_checks + bwd_checks)
+    model_ok = phase_model(torch, fa) & phase_model_backward(torch, fa)
     serving_ok, serving = phase_serving(torch, fa)
+    training_ok, training = phase_training(torch, fa)
     if args.profile:
-        profile_serving(torch, args.profile)
+        profile_paths(torch, args.profile)
 
     def entry(shape):
         return {k: timed[(shape, "bfloat16")][k] for k in (
@@ -484,10 +1011,13 @@ def main() -> int:
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
-        "source": "trlx_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": REPLACES,
-        "launches": serving["flash_fwd_launches"],
-        "max_abs_err": max(c["max_abs_err_o"] for c in checks),
+        "source": SOURCES["flash_fwd"],
+        "replaces": REPLACES["flash_fwd"],
+        # K1 runs on both paths; each path's count was read on its own
+        "launches": serving["flash_fwd_launches"] + training["launches"]["flash_fwd"],
+        "launches_by_path": {"serving": serving["flash_fwd_launches"],
+                             "training": training["launches"]["flash_fwd"]},
+        "max_abs_err": max(c["max_abs_err_o"] for c in fwd_checks),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
         "bound_ms": decode["bound_ms"],
@@ -498,11 +1028,24 @@ def main() -> int:
         "f32": {s: {k: timed[(s, "float32")][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
                 for s in ("prefill", "decode")},
     }]
+    for name, outputs in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
+        row = bwd_timed[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": training["launches"][name],
+            "max_abs_err": max(c[f"max_abs_err_{o}"] for c in bwd_checks for o in outputs),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "timed_shape": "training bf16 " + row["shape"],
+        })
     log(", ".join(card) if card else "nvidia-smi: no output")
     print(json.dumps({"kernels": kernels}), flush=True)
-    if not (kernel_ok and model_ok and serving_ok):
-        failed = [n for n, ok in (("kernel", kernel_ok), ("model", model_ok),
-                                  ("serving", serving_ok)) if not ok]
+    phases = (("kernel", kernel_ok), ("model", model_ok), ("serving", serving_ok),
+              ("training", training_ok))
+    if not all(ok for _, ok in phases):
+        failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -91,6 +91,48 @@ def test_forward_without_cache_matches_jax(models, last_only):
     _close(t, j, "values")
 
 
+@pytest.mark.parametrize("loss", ["logprobs_and_values", "values_only"])
+def test_response_forward_gradients_match_jax(models, loss):
+    """Parameter gradients through ``response_forward`` (the PPO update's
+    forward) against ``jax.grad``. The tied ``wte`` gets gradient from the
+    f32 LM head and from the embedding lookup: the ``values_only`` loss
+    never reaches the head, so it holds the embedding part alone, and the
+    other loss both parts together. f32; tolerance 1e-5."""
+    jmodel, params, tmodel = models
+    ids, mask = _prompts()
+    rng = np.random.default_rng(3)
+    resp = rng.integers(0, ARCH["vocab_size"], size=(B, R)).astype(np.int32)
+    full_ids = np.concatenate([ids, resp], 1)
+    full_mask = np.concatenate([mask, np.ones((B, R), np.int32)], 1)
+    w = rng.normal(size=(B, R)).astype(np.float32)
+
+    def jloss(p):
+        logits, values = jmodel.apply({"params": p}, jnp.asarray(full_ids),
+                                      jnp.asarray(full_mask), Q, method=jmodel.response_forward)
+        out = (values * w).sum()
+        if loss == "logprobs_and_values":
+            logp = jax.nn.log_softmax(logits, -1)
+            out = out + (jnp.take_along_axis(logp, jnp.asarray(resp)[..., None], -1)[..., 0] * w).sum()
+        return out
+
+    jgrads = flax_to_torch(jax.tree_util.tree_map(np.asarray, jax.grad(jloss)(params)))
+    logits, values = tmodel.response_forward(
+        torch.from_numpy(full_ids).long(), torch.from_numpy(full_mask).long(), Q
+    )
+    out = (values * torch.from_numpy(w)).sum()
+    if loss == "logprobs_and_values":
+        logp = torch.log_softmax(logits, -1)
+        out = out + (torch.gather(logp, -1, torch.from_numpy(resp).long()[..., None])[..., 0]
+                     * torch.from_numpy(w)).sum()
+    names = [n for n, _ in tmodel.named_parameters()]
+    grads = torch.autograd.grad(out, [p for _, p in tmodel.named_parameters()], allow_unused=True)
+    for name, g in zip(names, grads):
+        want = jgrads[name].numpy()
+        got = np.zeros_like(want) if g is None else g.numpy()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0, err_msg=name)
+    assert np.abs(jgrads["transformer.wte.weight"].numpy()).max() > 0
+
+
 def _jax_paged_cache(turns):
     cache = jkv.init_paged_cache(2, B, CAP, 2, 16, jnp.float32, block_size=BS)
     nb = CAP // BS
@@ -185,9 +227,9 @@ def test_configs_parse_like_jax(path):
 
 
 def test_config_keys_outside_the_schema_raise():
-    cfg = {"model": {}, "train": {"seq_length": 8, "epochs": 2},
+    cfg = {"model": {}, "train": {"seq_length": 8, "project_name": "p"},
            "method": {"name": "PPOConfig"}}
-    assert TTRLConfig.from_dict(cfg).train.training == {"epochs": 2}
+    assert TTRLConfig.from_dict(cfg).train.training == {"project_name": "p"}
     JTRLConfig.from_dict(cfg)  # the same keys parse in the JAX package
     for section, key in (("train", "epoch"), ("model", "n_layer")):
         bad = dict(cfg, **{section: dict(cfg[section], **{key: 1})})

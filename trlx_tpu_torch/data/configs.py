@@ -4,15 +4,15 @@ The port's own copy of :mod:`trlx_tpu.data.configs`: the same three-section
 schema (``model`` / ``train`` / ``method``) and the same method dispatch
 through the method registry, so every ``configs/*.yml`` parses in both
 packages. The ``model`` and ``train`` dataclasses hold only the fields the
-port reads. The section's other keys of the shared schema (the training
-loop's) are carried as given in the section's ``training`` dict, which no
-ported code reads; a key outside the schema raises.
+port reads. The section's other keys of the shared schema are carried as
+given in the section's ``training`` dict; a key outside the schema
+raises.
 """
 
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, field, fields
-from typing import Any, Dict, FrozenSet
+from typing import Any, Dict, FrozenSet, Optional, Tuple
 
 import yaml
 
@@ -38,7 +38,7 @@ def _to_dict(section) -> Dict[str, Any]:
 
 @dataclass
 class ModelConfig:
-    """Which policy model to serve.
+    """Which policy model to serve or train.
 
     :param model_path: HF checkpoint directory, or empty for random weights
         of ``model_arch`` (the port raises on a path until checkpoint
@@ -46,18 +46,32 @@ class ModelConfig:
     :param tokenizer_path: HF tokenizer path (host-side only).
     :param model_type: model family registered in
         :mod:`trlx_tpu_torch.models.registry`.
+    :param num_layers_unfrozen: train only the top-k transformer blocks
+        (plus ln_f and the heads); -1 (or 0) trains everything.
+    :param ref_branch_layers: depth of the hydra KL-reference branch;
+        ``None`` follows ``num_layers_unfrozen`` when positive, 0 is the
+        full-copy reference (the only one the port has).
     :param model_arch: architecture overrides (n_layer, n_embd, n_head,
         vocab_size, n_positions, ...).
-    :param training: the section's training-only keys, as given.
+    :param training: the section's other keys, as given (none today).
     """
 
-    TRAINING_KEYS = frozenset({"num_layers_unfrozen", "ref_branch_layers"})
+    TRAINING_KEYS = frozenset()
 
     model_path: str = ""
     tokenizer_path: str = ""
     model_type: str = "gpt2"
+    num_layers_unfrozen: int = -1
+    ref_branch_layers: Optional[int] = None
     model_arch: Dict[str, Any] = field(default_factory=dict)
     training: Dict[str, Any] = field(default_factory=dict)
+
+    @property
+    def resolved_ref_branch_layers(self) -> int:
+        """Hydra branch depth in effect (0 = full-copy reference)."""
+        if self.ref_branch_layers is not None:
+            return self.ref_branch_layers
+        return max(self.num_layers_unfrozen, 0)
 
     @classmethod
     def from_dict(cls, config: Dict[str, Any]):
@@ -66,34 +80,68 @@ class ModelConfig:
 
 @dataclass
 class TrainConfig:
-    """The ``train`` section.
+    """The ``train`` section. Fields and defaults are the JAX package's.
 
-    :param seq_length: prompt length (the engine's query width).
-    :param batch_size: decode slots when neither ``rollout.slots`` nor the
-        method's ``chunk_size`` gives them.
+    :param seq_length: prompt length (the query width).
+    :param batch_size: PPO minibatch size (and decode slots when neither
+        ``rollout.slots`` nor the method's ``chunk_size`` gives them).
+    :param total_steps / epochs: the run ends after ``min(total_steps,
+        epochs * updates per phase)`` updates.
+    :param lr_init / lr_target: cosine learning-rate schedule endpoints.
+    :param opt_betas / opt_eps / weight_decay: AdamW.
+    :param grad_clip: global-norm gradient clip.
+    :param adam_moment_dtype: Adam moment storage (``float32`` only in the
+        port).
+    :param checkpoint_interval / eval_interval / log_interval: cadence in
+        updates.
+    :param pipeline / orchestrator / trainer: registry names.
+    :param checkpoint_dir: where ``save`` writes.
+    :param detect_anomalies: raise on non-finite loss stats.
+    :param seed: run seed (parameter init, prompt shuffles, update plans).
+    :param phase_overlap: the streamed phase's epoch-major update schedule
+        (run serially in the port); ``False`` takes the minibatch-major
+        schedule.
     :param dtype: compute dtype.
     :param param_dtype: dtype the weights are made in.
     :param rollout: engine geometry, parsed into
         :class:`trlx_tpu_torch.inference.RolloutEngineConfig`.
     :param serving: QoS/streaming section, parsed into
         :class:`trlx_tpu_torch.serving.ServingConfig`.
-    :param training: the section's training-loop keys, as given.
+    :param training: the section's other keys, as given. Those the port
+        does not have are refused by the trainer when set to anything but
+        their default (:data:`trlx_tpu_torch.trainer.UNPORTED_TRAIN_KEYS`).
     """
 
     TRAINING_KEYS = frozenset({
-        "total_steps", "epochs", "lr_init", "lr_target", "opt_betas",
-        "opt_eps", "weight_decay", "grad_clip", "adam_moment_dtype",
-        "checkpoint_interval", "eval_interval", "log_interval", "pipeline",
-        "orchestrator", "trainer", "checkpoint_dir", "resume_from_checkpoint",
-        "async_checkpoint", "detect_anomalies", "health", "flight_dump_phase",
-        "run_dir", "resilience", "project_name", "run_name", "seed", "mesh",
-        "pp_microbatches", "pp_virtual_stages", "pp_remat", "logprob_chunk",
-        "rollout_param_cast", "telemetry", "async_rl", "phase_overlap",
-        "rollout_logging_dir", "profile_dir", "profile_phase", "tags",
+        "resume_from_checkpoint", "async_checkpoint", "health",
+        "flight_dump_phase", "run_dir", "resilience", "project_name",
+        "run_name", "mesh", "pp_microbatches", "pp_virtual_stages",
+        "pp_remat", "logprob_chunk", "rollout_param_cast", "telemetry",
+        "async_rl", "rollout_logging_dir", "profile_dir", "profile_phase",
+        "tags",
     })
 
+    total_steps: int = 10000
     seq_length: int = 64
+    epochs: int = 100
     batch_size: int = 16
+    lr_init: float = 1.0e-4
+    lr_target: float = 1.0e-4
+    opt_betas: Tuple[float, float] = (0.9, 0.95)
+    opt_eps: float = 1.0e-8
+    weight_decay: float = 1.0e-6
+    grad_clip: float = 1.0
+    adam_moment_dtype: str = "float32"
+    checkpoint_interval: int = 10000
+    eval_interval: int = 100
+    log_interval: int = 1
+    pipeline: str = "PromptPipeline"
+    orchestrator: str = "PPOOrchestrator"
+    trainer: str = "PPOTrainer"
+    checkpoint_dir: str = "ckpts"
+    detect_anomalies: bool = True
+    seed: int = 1000
+    phase_overlap: bool = True
     dtype: str = "bfloat16"
     param_dtype: str = "float32"
     rollout: Dict[str, Any] = field(default_factory=dict)
@@ -102,6 +150,8 @@ class TrainConfig:
 
     @classmethod
     def from_dict(cls, config: Dict[str, Any]):
+        if "opt_betas" in config:
+            config = dict(config, opt_betas=tuple(config["opt_betas"]))
         return _from_dict(cls, config, cls.TRAINING_KEYS)
 
 

@@ -31,21 +31,6 @@ from trlx_tpu_torch.serving.scheduler import DEFAULT_TENANT
 from trlx_tpu_torch.utils import monotonic, resolve_device
 
 
-def init_params(model: torch.nn.Module, seed: int) -> None:
-    """Random GPT-2-style init from ``seed``: N(0, 0.02) weights and
-    embeddings, zero biases, unit layer-norm scales."""
-    gen = torch.Generator(device=next(model.parameters()).device)
-    gen.manual_seed(int(seed))
-    with torch.no_grad():
-        for name, p in model.named_parameters():
-            if name.endswith("bias"):
-                p.zero_()
-            elif ".ln_" in name:
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, 0.02, generator=gen)
-
-
 class InferenceServer:
     """Submit/poll multi-tenant batched generation against a policy.
 
@@ -78,7 +63,7 @@ class InferenceServer:
         from trlx_tpu_torch.inference import RolloutEngineConfig
         from trlx_tpu_torch.inference.engine import ContinuousBatchingEngine
         from trlx_tpu_torch.models.gpt2 import torch_dtype
-        from trlx_tpu_torch.models.heads import CausalLMWithValueHead
+        from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
         from trlx_tpu_torch.models.registry import get_model_family
         from trlx_tpu_torch.ops.sampling import (
             GenerationConfig,

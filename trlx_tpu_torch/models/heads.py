@@ -1,5 +1,6 @@
 """Value head and the PPO policy wrapper (counterpart of
-:mod:`trlx_tpu.models.heads`: ``MLPHead`` and ``CausalLMWithValueHead``)."""
+:mod:`trlx_tpu.models.heads`: ``MLPHead`` and ``CausalLMWithValueHead``),
+and the random init of a policy from a seed."""
 
 from __future__ import annotations
 
@@ -70,3 +71,61 @@ class CausalLMWithValueHead(nn.Module):
         else:
             out["values"] = self.v_head(out["hidden"])[..., 0]
         return out
+
+    def response_hidden(
+        self,
+        input_ids: torch.Tensor,  # [B, Q + R]
+        attention_mask: torch.Tensor,  # [B, Q + R]
+        query_length: int,
+    ):
+        """(hidden, values) over the response-predicting positions
+        Q-1..Q+R-2 only: the hidden states are sliced before the value
+        head runs."""
+        out = self.transformer(
+            input_ids, attention_mask=attention_mask, compute_logits=False
+        )
+        h = out["hidden"][:, query_length - 1 : -1]
+        return h, self.v_head(h)[..., 0]
+
+    def response_forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: torch.Tensor,
+        query_length: int,
+    ):
+        """(logits f32, values) over the response-predicting positions:
+        the LM head never runs (or backpropagates) over query positions."""
+        h, values = self.response_hidden(input_ids, attention_mask, query_length)
+        return self.transformer.logits(h), values
+
+    def lm_only(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        position_ids: Optional[torch.Tensor] = None,
+        cache=None,
+        cache_index=None,
+    ):
+        """Backbone forward without the value head."""
+        return self.transformer(
+            input_ids,
+            attention_mask=attention_mask,
+            position_ids=position_ids,
+            cache=cache,
+            cache_index=cache_index,
+        )
+
+
+def init_params(model: nn.Module, seed: int) -> None:
+    """Random GPT-2-style init from ``seed``: N(0, 0.02) weights and
+    embeddings, zero biases, unit layer-norm scales."""
+    gen = torch.Generator(device=next(model.parameters()).device)
+    gen.manual_seed(int(seed))
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("bias"):
+                p.zero_()
+            elif ".ln_" in name:
+                p.fill_(1.0)
+            else:
+                p.normal_(0.0, 0.02, generator=gen)

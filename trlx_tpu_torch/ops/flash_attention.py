@@ -1,22 +1,22 @@
-"""Flash-attention forward: the hand-written Hopper kernel, its plain
-PyTorch version, and the launch counter.
+"""Flash attention: the hand-written Hopper kernels, their plain PyTorch
+versions, the autograd ``Function`` that joins them, and the launch
+counters.
 
-Counterpart of :mod:`trlx_tpu.ops.flash_attention` (the forward half:
-``_fwd_kernel``). The kernel is CUDA C++ for ``sm_90a`` in
-``trlx_tpu_torch/csrc/flash_fwd.cu``; it is compiled with ``nvcc`` at first
-use into ``trlx_tpu_torch/_build/`` (a file named by the source's content
-hash, so an edited source rebuilds) and bound through a plain C function
-loaded with ``ctypes``. Nothing is imported or built when this module is
-imported.
+Counterpart of :mod:`trlx_tpu.ops.flash_attention`: ``_fwd_kernel`` (K1,
+``csrc/flash_fwd.cu``), ``_dq_kernel`` (K2) and ``_dkv_kernel`` (K3, both
+``csrc/flash_bwd.cu``), and the ``jax.custom_vjp`` around them
+(:class:`FlashAttention`). Each source is CUDA C++ for ``sm_90a``, compiled
+with ``nvcc`` at first use into ``trlx_tpu_torch/_build/`` (a file named by
+the source's content hash, so an edited source rebuilds; the two sources
+build in parallel) and bound through plain C functions loaded with
+``ctypes``. Nothing is imported or built when this module is imported.
 
 Dispatch is by the tensor's device, never by a fallback:
 
-- a CPU tensor takes :func:`flash_attention_reference`, the plain version
-  (the CPU tests run it against the JAX package);
-- a CUDA tensor launches the kernel, or raises.
-
-The backward kernels (``_dq_kernel``/``_dkv_kernel``) belong to the
-training slice; until then a CUDA input that requires grad raises.
+- a CPU tensor takes the plain versions (:func:`flash_attention_reference`,
+  :func:`flash_attention_backward_reference`), which the CPU tests run
+  against the JAX package;
+- a CUDA tensor launches the kernels, or raises.
 """
 
 from __future__ import annotations
@@ -26,28 +26,34 @@ import hashlib
 import os
 import subprocess
 import tempfile
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from trlx_tpu_torch.ops.attention import NEG_INF, causal_bias
 
-#: kernel launches since import (or since a caller reset it): incremented
-#: only where :func:`flash_attention` launches the CUDA kernel
+#: kernel launches since import (or since a caller reset them): each is
+#: incremented only where its wrapper launches its CUDA kernel
 FLASH_FWD_LAUNCHES = 0
+FLASH_BWD_DQ_LAUNCHES = 0
+FLASH_BWD_DKV_LAUNCHES = 0
 
-HEAD_DIM = 64  # the head dim the kernel is built for (GPT-2's)
+HEAD_DIM = 64  # the head dim the kernels are built for (GPT-2's)
+KEY_TILE = 64  # the forward kernel's key tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "flash_fwd.cu")
+SOURCES = {
+    "flash_fwd": os.path.join(_PKG_DIR, "csrc", "flash_fwd.cu"),
+    "flash_bwd": os.path.join(_PKG_DIR, "csrc", "flash_bwd.cu"),
+}
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 ]
 
-_lib = None
+_lib: Dict[str, ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -61,47 +67,86 @@ def _nvcc() -> str:
     return "nvcc"
 
 
-def build(verbose: bool = False) -> str:
-    """Compile the kernel (if this source has not been built yet) and
-    return the shared library's path."""
-    with open(SOURCE, "rb") as fh:
+def _library_path(name: str) -> str:
+    with open(SOURCES[name], "rb") as fh:
         digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"libflash_fwd_{digest.hexdigest()[:12]}.so")
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
-            f"{proc.stdout}\n{proc.stderr}"
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+
+
+def build(verbose: bool = False) -> Dict[str, str]:
+    """Compile every kernel source not built yet (one ``nvcc`` each, all
+    started together) and return ``{name: shared library path}``. With
+    ``verbose`` ``ptxas`` reports registers, shared memory and spills."""
+    paths = {name: _library_path(name) for name in SOURCES}
+    jobs = {}
+    for name, out in paths.items():
+        if os.path.exists(out):
+            continue
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
+        if verbose:
+            cmd.insert(1, "-Xptxas=-v")
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
-    if verbose and (proc.stdout or proc.stderr):
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
-    return out
+        jobs[name] = (proc, tmp)
+    failed = []
+    for name, (proc, tmp) in jobs.items():
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(
+                f"nvcc failed ({proc.returncode}) building {SOURCES[name]}:\n"
+                f"{out}\n{err}"
+            )
+            continue
+        if verbose and (out or err):
+            print(out + err)
+        os.replace(tmp, paths[name])  # atomic: no process loads half a file
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def _load():
-    global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(build())
-        fn = lib.trlx_flash_fwd
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
+def _load() -> Dict[str, ctypes.CDLL]:
+    if not _lib:
+        paths = build()
+        fwd = ctypes.CDLL(paths["flash_fwd"])
+        fwd.trlx_flash_fwd.restype = ctypes.c_int
+        fwd.trlx_flash_fwd.argtypes = (
             [ctypes.c_void_p] * 6
             + [ctypes.c_int] * 6
             + [ctypes.c_longlong] * 13
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
-        _lib = lib
+        bwd = ctypes.CDLL(paths["flash_bwd"])
+        for fn, n_out in ((bwd.trlx_flash_bwd_dq, 1), (bwd.trlx_flash_bwd_dkv, 2)):
+            fn.restype = ctypes.c_int
+            fn.argtypes = (
+                [ctypes.c_void_p] * (7 + n_out)
+                + [ctypes.c_int] * 6
+                + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
+                   ctypes.c_int, ctypes.c_void_p]
+            )
+        _lib.update(flash_fwd=fwd, flash_bwd=bwd)
     return _lib
+
+
+def forward_block_q(Q: int) -> int:
+    """The forward kernel's query tile for ``Q`` query rows."""
+    return 16 if Q <= 16 else 64
+
+
+def visited_keys(Q: int, K: int, device=None) -> torch.Tensor:
+    """[Q, K] bool: the keys the forward kernel visits for each query row
+    under the causal flag — the 64-key tiles that start before the end of
+    the row's query tile (``csrc/flash_fwd.cu``)."""
+    bq = forward_block_q(Q)
+    tile_end = (torch.arange(Q, device=device) // bq + 1) * bq
+    tile_start = torch.arange(K, device=device) // KEY_TILE * KEY_TILE
+    return tile_start[None, :] < tile_end[:, None]
 
 
 def flash_attention_reference(
@@ -133,6 +178,74 @@ def flash_attention_reference(
     return out
 
 
+def flash_attention_backward_reference(
+    q: torch.Tensor,  # [B, Q, H, D]
+    k: torch.Tensor,  # [B, K, H, D]
+    v: torch.Tensor,  # [B, K, H, D]
+    bias: Optional[torch.Tensor],  # broadcastable to [B, H, Q, K]
+    o: torch.Tensor,  # [B, Q, H, D], the forward's output
+    lse: torch.Tensor,  # [B, H, Q] f32, the forward's LSE
+    do: torch.Tensor,  # [B, Q, H, D]
+    causal: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain version of the backward kernels: the TPU kernels'
+    recomputation in plain tensor ops. P = exp(S - LSE) in f32 (not
+    rounded), delta = rowsum(dO * O) in f32, dP from dO and V widened to
+    f32, dS = P * (dP - delta); dQ from dS cast to K's dtype, dK and dV
+    from f32 P and dS; dQ and dK scaled once at the end. Under ``causal``
+    keys in the tiles the forward kernel skipped carry no weight
+    (:func:`visited_keys`), so on a row whose visible keys are all masked
+    P sums to 1 over the tiles the kernel visited. Returns ``(dq, dk,
+    dv)`` in the dtypes of q, k, v."""
+    Q, K = q.shape[1], k.shape[1]
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias.float()
+    if causal:
+        logits = logits + causal_bias(Q, K, device=q.device)
+    p = torch.exp(logits - lse[..., None])
+    if causal:
+        p = p * visited_keys(Q, K, q.device)
+    do32 = do.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", do32, o.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", do32, v.float())
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
+    return (dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Differentiable flash attention (the counterpart of ``_flash`` with
+    ``_flash_fwd``/``_flash_bwd``): the forward saves q, k, v, bias, O and
+    LSE; the backward launches the dQ kernel and then the dK/dV kernel on
+    CUDA tensors, or runs the plain backward on CPU tensors. The bias gets
+    no gradient, as the TPU wrapper returns a zero cotangent for it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, causal):
+        if q.device.type == "cpu":
+            o, lse = flash_attention_reference(q, k, v, bias, causal, True)
+        else:
+            o, lse = _launch(q, k, v, bias, causal, True)
+        ctx.save_for_backward(q, k, v, bias, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, bias, o, lse = ctx.saved_tensors
+        if q.device.type == "cpu":
+            dq, dk, dv = flash_attention_backward_reference(
+                q, k, v, bias, o, lse, do, ctx.causal
+            )
+        else:
+            dq, dk, dv = _launch_backward(q, k, v, bias, o, lse, do, ctx.causal)
+        return dq, dk, dv, None, None
+
+
 def flash_attention(
     q: torch.Tensor,  # [B, Q, H, D]
     k: torch.Tensor,  # [B, K, H, D]
@@ -141,75 +254,94 @@ def flash_attention(
     causal: bool = False,
     return_lse: bool = False,
 ):
-    """Attention forward over the [B, T, H, D] layout; returns ``o``
-    [B, Q, H, D] in q's dtype (and ``lse`` [B, H, Q] f32 with
-    ``return_lse``). ``causal=True`` masks query i against keys > i in the
-    kernel and skips wholly-future key tiles. A CPU tensor runs the plain
-    version; a CUDA tensor launches the kernel or raises.
+    """Attention over the [B, T, H, D] layout; returns ``o`` [B, Q, H, D]
+    in q's dtype (and ``lse`` [B, H, Q] f32 with ``return_lse``).
+    ``causal=True`` masks query i against keys > i in the kernel and skips
+    wholly-future key tiles. When q, k or v requires grad (and grad mode
+    is on) the call goes through :class:`FlashAttention`, whose backward
+    runs the backward kernels; otherwise no LSE is allocated unless asked
+    for. A CPU tensor runs the plain versions; a CUDA tensor launches the
+    kernels or raises.
 
     Fully-masked rows: with an explicit bias the kernel averages the K
     real values, as the plain version does. Under ``causal=True`` a query
     row whose visible keys are all padding (a left-padding row, whose
     output callers discard) averages only the keys of the tiles it
     visits, as the TPU kernel does."""
+    if bias is not None and bias.requires_grad and torch.is_grad_enabled():
+        raise NotImplementedError(
+            "flash_attention returns no bias gradient (as the TPU kernel's "
+            "zero cotangent); a learned bias (T5's relative position bias) "
+            "needs the kernel of ROADMAP item 10"
+        )
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        if return_lse:
+            raise ValueError("flash_attention: the LSE has no gradient; "
+                             "call with return_lse=False to differentiate")
+        return FlashAttention.apply(q, k, v, bias, causal)
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, bias, causal, return_lse)
     o, lse = _launch(q, k, v, bias, causal, return_lse)
     return (o, lse) if return_lse else o
 
 
-def _launch(
-    q, k, v, bias, causal, return_lse
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    global FLASH_FWD_LAUNCHES
+def _check(q, k, v, bias, name: str) -> None:
+    """Refuse what the kernels were not built for (before any launch)."""
     if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: unsupported device {q.device}")
+        raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
-            f"flash_attention: q/k/v must share one dtype of "
+            f"{name}: q/k/v must share one dtype of "
             f"{sorted(map(str, _DTYPES))}, got {q.dtype}/{k.dtype}/{v.dtype}"
         )
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
-            f"flash_attention: bad shapes q{tuple(q.shape)} "
-            f"k{tuple(k.shape)} v{tuple(v.shape)}"
+            f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
+            f"v{tuple(v.shape)}"
         )
-    B, Q, H, D = q.shape
-    K = k.shape[1]
+    B, _, H, D = q.shape
     if D != HEAD_DIM or k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
         raise ValueError(
-            f"flash_attention: the kernel is built for head dim {HEAD_DIM} "
-            f"and matching q/k batch and heads; got q{tuple(q.shape)} "
+            f"{name}: the kernel is built for head dim {HEAD_DIM} and "
+            f"matching q/k batch and heads; got q{tuple(q.shape)} "
             f"k{tuple(k.shape)}"
         )
-    if any(
-        t is not None and t.requires_grad for t in (q, k, v, bias)
-    ) and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "flash_attention has no backward on CUDA yet: the dQ and dK/dV "
-            "kernels (trlx_tpu/ops/flash_attention.py::_dq_kernel, "
-            "_dkv_kernel) come with the training slice"
-        )
+    if bias is not None and bias.dim() != 4:
+        raise ValueError(f"{name}: bias must be rank-4, got {tuple(bias.shape)}")
     devices = {t.device for t in (q, k, v, bias) if t is not None}
     if len(devices) != 1:
-        raise ValueError(f"flash_attention: inputs on several devices {devices}")
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
-    if bias is not None:
-        if bias.dim() != 4:
-            raise ValueError(
-                f"flash_attention: bias must be rank-4, got {tuple(bias.shape)}"
-            )
-        bias = bias.float().expand(B, H, Q, K)  # size-1 dims get stride 0
-        sb = bias.stride()
-    else:
-        sb = (0, 0, 0, 0)
+        raise ValueError(f"{name}: inputs on several devices {devices}")
+
+
+def _last_dim_contiguous(*ts):
+    return [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
+
+
+def _bias_view(bias, B, H, Q, K):
+    """The bias as f32 [B, H, Q, K] with stride 0 on broadcast dims (no
+    copy), and its four strides; ``(None, zeros)`` without one."""
+    if bias is None:
+        return None, (0, 0, 0, 0)
+    bias = bias.float().expand(B, H, Q, K)
+    return bias, bias.stride()
+
+
+def _launch(
+    q, k, v, bias, causal, return_lse
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    global FLASH_FWD_LAUNCHES
+    _check(q, k, v, bias, "flash_attention")
+    B, Q, H, D = q.shape
+    K = k.shape[1]
+    q, k, v = _last_dim_contiguous(q, k, v)
+    bias, sb = _bias_view(bias, B, H, Q, K)
     o = torch.empty((B, Q, H, D), dtype=q.dtype, device=q.device)
     lse = (
         torch.empty((B, H, Q), dtype=torch.float32, device=q.device)
         if return_lse
         else None  # the kernel skips the write
     )
-    lib = _load()
+    lib = _load()["flash_fwd"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.trlx_flash_fwd(
@@ -229,10 +361,89 @@ def _launch(
     return o, lse
 
 
+def _backward_args(q, k, v, bias, o, lse, do, causal):
+    """Check the backward's inputs and pack the arguments both backward
+    kernels take: ``(inputs, common, shapes)``."""
+    _check(q, k, v, bias, "flash_attention backward")
+    B, Q, H, D = q.shape
+    K = k.shape[1]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, Q):
+        raise ValueError(
+            f"flash_attention backward: bad shapes o{tuple(o.shape)} "
+            f"do{tuple(do.shape)} lse{tuple(lse.shape)} for q{tuple(q.shape)}"
+        )
+    if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError(
+            f"flash_attention backward: o/do must be {q.dtype} and lse "
+            f"float32, got {o.dtype}/{do.dtype}/{lse.dtype}"
+        )
+    q, k, v, o, do = _last_dim_contiguous(q, k, v, o, do)
+    lse = lse.contiguous()
+    bias, sb = _bias_view(bias, B, H, Q, K)
+    strides = (ctypes.c_longlong * 19)(
+        *(s for t in (q, k, v, o, do) for s in t.stride()[:3]), *sb
+    )
+    # the tensors ride along so their memory outlives the launch
+    inputs = (q, k, v, bias, o, do, lse)
+    common = (_DTYPES[q.dtype], B, H, Q, K, D, strides, float(D ** -0.5),
+              int(bool(causal)))
+    return inputs, common
+
+
+def _pointers(tensors):
+    return [t.data_ptr() if t is not None else None for t in tensors]
+
+
+def _launch_dq(q, k, v, bias, o, lse, do, causal) -> torch.Tensor:
+    """The dQ kernel on the current stream; returns contiguous dq."""
+    global FLASH_BWD_DQ_LAUNCHES
+    inputs, common = _backward_args(q, k, v, bias, o, lse, do, causal)
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lib = _load()["flash_bwd"]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.trlx_flash_bwd_dq(*_pointers(inputs), dq.data_ptr(), *common, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {rc}")
+    FLASH_BWD_DQ_LAUNCHES += 1
+    return dq
+
+
+def _launch_dkv(q, k, v, bias, o, lse, do, causal) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dK/dV kernel on the current stream; returns contiguous (dk, dv)."""
+    global FLASH_BWD_DKV_LAUNCHES
+    inputs, common = _backward_args(q, k, v, bias, o, lse, do, causal)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    lib = _load()["flash_bwd"]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.trlx_flash_bwd_dkv(
+            *_pointers(inputs), dk.data_ptr(), dv.data_ptr(), *common, stream
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {rc}")
+    FLASH_BWD_DKV_LAUNCHES += 1
+    return dk, dv
+
+
+def _launch_backward(
+    q, k, v, bias, o, lse, do, causal
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dQ kernel, then the dK/dV kernel; returns ``(dq, dk, dv)``."""
+    dq = _launch_dq(q, k, v, bias, o, lse, do, causal)
+    return (dq, *_launch_dkv(q, k, v, bias, o, lse, do, causal))
+
+
 __all__ = [
+    "FLASH_BWD_DKV_LAUNCHES",
+    "FLASH_BWD_DQ_LAUNCHES",
     "FLASH_FWD_LAUNCHES",
+    "FlashAttention",
     "NEG_INF",
     "build",
     "flash_attention",
+    "flash_attention_backward_reference",
     "flash_attention_reference",
+    "visited_keys",
 ]

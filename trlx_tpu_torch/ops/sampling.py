@@ -1,22 +1,29 @@
-"""Token selection for decoding (counterpart of the per-step half of
+"""Token selection and the fixed-batch sampler (counterpart of
 :mod:`trlx_tpu.ops.sampling`: ``GenerationConfig``, ``validate_gen_config``,
-``suppress_eos_before_min``, ``filter_logits`` and ``choose_tokens``).
+``suppress_eos_before_min``, ``filter_logits``, ``choose_tokens`` and
+``make_sampler``).
 
 Sampling is ``argmax(filtered_logits + gumbel_noise)``, which is how
 ``jax.random.categorical`` samples, so a test that injects the JAX
 package's Gumbel draws gets the same tokens. At runtime the engine draws
 the noise from per-row ``torch.Generator``\\ s seeded from (phase seed, row
 draw index, step) — each row's tokens depend on its own seed and logits,
-never on admission order or batch composition (:func:`row_noise`).
+never on admission order or batch composition (:func:`row_noise`). The
+fixed-batch sampler draws one [B, V] block of noise per decode step from
+the caller's generator (:func:`gumbel_noise`), or takes it from an
+injected ``noise_fn`` (the tests hand it the JAX package's draws).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
+
+from trlx_tpu_torch.data.ppo_types import SampleOutput
 
 
 @dataclass(frozen=True)
@@ -202,3 +209,107 @@ def row_noise(
         noise[b] = torch.rand(vocab_size, generator=gen, device=device)
     u = noise.clamp_(min=tiny)
     return -torch.log(-torch.log(u))
+
+
+def gumbel_noise(shape, generator: torch.Generator, device) -> torch.Tensor:
+    """Standard Gumbel draws, f32: -log(-log(U)), U clamped off 0."""
+    u = torch.rand(shape, generator=generator, device=device)
+    u = u.clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def make_sampler(
+    apply_fn: Callable,
+    init_cache_fn: Callable,
+    gen_config: GenerationConfig,
+    query_length: int,
+):
+    """Build ``sampler(prompt_ids, prompt_mask, generator=None,
+    noise_fn=None) -> SampleOutput``, the fixed-batch rollout sampler.
+
+    ``apply_fn(input_ids, attention_mask=, position_ids=, cache=,
+    cache_index=, last_only=)`` is the policy forward (logits, values and
+    the in-place KV cache); ``init_cache_fn(batch, capacity)`` builds the
+    linear KV buffers of capacity Q + R. The prompt prefill computes the
+    heads for its last position only; then one token per step for R steps,
+    each row's token, behaviour logprob and value chosen by
+    :func:`choose_tokens` (finished rows emit ``(pad, 0, 0.0, 0.0)``).
+    Decoding runs in segments of ``gcd(R, decode_segment_size)`` steps; at
+    each segment start, once every row is finished, the rest is emitted as
+    pads without another forward (the JAX package's early exit). The
+    forward after the last token, whose logits nothing reads, is not run.
+    Sampling draws each step's noise from ``generator``, or from
+    ``noise_fn(t)`` ([B, V] Gumbel draws) when given."""
+    Q = query_length
+    R = gen_config.max_new_tokens
+    cap = Q + R
+    seg = (
+        math.gcd(R, gen_config.decode_segment_size)
+        if gen_config.decode_segment_size > 0
+        else R
+    )
+
+    @torch.no_grad()
+    def sampler(prompt_ids, prompt_mask, generator=None, noise_fn=None) -> SampleOutput:
+        B = prompt_ids.shape[0]
+        dev = prompt_ids.device
+        prompt_mask = prompt_mask.long()
+        n_real = prompt_mask.sum(-1)
+        min_new = None
+        if gen_config.min_new_tokens > 0 or gen_config.min_length > 0:
+            min_new = (gen_config.min_length - n_real).clamp_min(
+                gen_config.min_new_tokens
+            )
+        cache = init_cache_fn(B, cap)
+        out = apply_fn(
+            prompt_ids,
+            attention_mask=torch.cat([prompt_mask, prompt_mask.new_zeros(B, R)], 1),
+            position_ids=(prompt_mask.cumsum(-1) - 1).clamp_min(0),
+            cache=cache,
+            cache_index=0,
+            last_only=True,
+        )
+        logits_last = out["logits"][:, -1].float()
+        value_last = out["values"][:, -1].float()
+        finished = (
+            n_real >= gen_config.max_length if gen_config.max_length > 0
+            else torch.zeros(B, dtype=torch.bool, device=dev)
+        )
+        tokens = torch.full((B, R), gen_config.pad_token_id, dtype=torch.int32, device=dev)
+        mask = torch.zeros((B, R), dtype=torch.int32, device=dev)
+        logprobs = torch.zeros((B, R), device=dev)
+        values = torch.zeros((B, R), device=dev)
+        full_mask = torch.cat([prompt_mask, prompt_mask.new_ones(B, R)], 1)
+        slots = torch.arange(cap, device=dev)[None, :]
+        for t in range(R):
+            if t % seg == 0 and seg < R and bool(finished.all()):
+                break  # every later step would emit (pad, 0, 0.0, 0.0)
+            noise = None
+            if gen_config.do_sample:
+                noise = (
+                    noise_fn(t) if noise_fn is not None
+                    else gumbel_noise(logits_last.shape, generator, dev)
+                )
+            token, live, lp, value_out, finished = choose_tokens(
+                gen_config, logits_last, t, finished, value_last, n_real,
+                min_new=min_new, noise=noise,
+            )
+            tokens[:, t], mask[:, t], logprobs[:, t], values[:, t] = (
+                token, live, lp, value_out
+            )
+            if t == R - 1:
+                break
+            out = apply_fn(
+                token[:, None].long(),
+                attention_mask=(slots <= Q + t).long() * full_mask,
+                position_ids=(n_real + t)[:, None],
+                cache=cache,
+                cache_index=Q + t,
+            )
+            logits_last = out["logits"][:, 0].float()
+            value_last = out["values"][:, 0].float()
+        return SampleOutput(
+            tokens=tokens, response_mask=mask, logprobs=logprobs, values=values
+        )
+
+    return sampler

@@ -1,0 +1,424 @@
+"""PPO trainer on the fixed-batch sampler (counterpart of
+:mod:`trlx_tpu.trainer.ppo_trainer`).
+
+- The policy is a :class:`CausalLMWithValueHead` and the frozen KL
+  reference a full copy of its backbone, taken at construction (the
+  default config's ``num_layers_unfrozen: -1`` path). The module's
+  parameters and the optimizer are the train state.
+- One update: GAE and whitening on the minibatch, the policy forward over
+  [query; response] with the heads on the response-predicting positions
+  only, ``ppo_loss``, backward (every attention through
+  :class:`~trlx_tpu_torch.ops.flash_attention.FlashAttention`, whose
+  backward is the dQ and dK/dV kernels on CUDA), the global-norm clip and
+  AdamW.
+- Update schedule per phase, as the JAX package chooses it: the streamed
+  phase's :class:`~trlx_tpu_torch.pipeline.ppo_buffer.StreamPlan`
+  (epoch-major) run serially after collection when no eval/checkpoint
+  boundary or ``total_steps`` cutoff falls inside the pass; else (and
+  always under ``phase_overlap: false``) the minibatch-major order. One
+  loop runs either order; after each minibatch's last update the KL
+  controller advances and the boundaries are checked.
+- ``self.forwards`` counts the policy/reference forwards the trainer
+  makes (rollout prefill and decode steps, reference scoring, update
+  forwards): each runs the attention forward once per layer.
+  ``self.phase_times`` records each phase's collect and train seconds
+  and its rollout tokens.
+"""
+
+from __future__ import annotations
+
+import copy
+import functools
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from trlx_tpu_torch.data.ppo_types import PPORolloutBatch, SampleOutput
+from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+from trlx_tpu_torch.models.registry import get_model_family
+from trlx_tpu_torch.ops.ppo_math import (
+    get_advantages_and_returns,
+    kl_controller_update,
+    policy_entropy,
+    ppo_loss,
+)
+from trlx_tpu_torch.ops.sampling import (
+    GenerationConfig,
+    make_sampler,
+    validate_gen_config,
+)
+from trlx_tpu_torch.pipeline.ppo_buffer import PPORolloutBuffer, make_stream_plan
+from trlx_tpu_torch.trainer import BaseRLTrainer, refuse_unported, register_trainer
+from trlx_tpu_torch.trainer.common import freeze_layers, make_optimizer
+from trlx_tpu_torch.utils import (
+    logprobs_from_logits,
+    monotonic,
+    resolve_device,
+    set_seed,
+)
+from trlx_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from trlx_tpu_torch.utils.logging import Logger
+
+
+@register_trainer
+class PPOTrainer(BaseRLTrainer):
+    """
+    :param config: :class:`~trlx_tpu_torch.data.configs.TRLConfig`.
+    :param reward_fn: ``(samples, queries, response_gt) -> [float]``, used
+        by :meth:`evaluate` (the orchestrator scores rollouts).
+    :param metric_fn: optional ``samples -> {name: values}`` for eval.
+    :param tokenizer: optional tokenizer (``encode``/``decode``).
+    :param device: ``None`` means CUDA (raises without it); ``"cpu"`` runs
+        the plain versions of the kernels.
+    """
+
+    def __init__(
+        self,
+        config,
+        reward_fn: Optional[Callable] = None,
+        metric_fn: Optional[Callable] = None,
+        tokenizer=None,
+        device=None,
+    ):
+        super().__init__(config, reward_fn, metric_fn, tokenizer)
+        method, train = config.method, config.train
+        refuse_unported(config)
+        self.device = resolve_device(device)
+        if config.model.model_path:
+            raise NotImplementedError(
+                "model.model_path (HF checkpoint conversion) is not ported "
+                "yet (ROADMAP item 13); set model_arch for random weights"
+            )
+        if tokenizer is None and config.model.tokenizer_path:
+            from transformers import AutoTokenizer
+
+            self.tokenizer = AutoTokenizer.from_pretrained(
+                config.model.tokenizer_path, local_files_only=True
+            )
+            if self.tokenizer.pad_token_id is None:
+                self.tokenizer.pad_token = self.tokenizer.eos_token
+
+        self.family = get_model_family(config.model.model_type)
+        arch = dict(config.model.model_arch)
+        arch.setdefault("dtype", train.dtype)
+        arch.setdefault("param_dtype", train.param_dtype)
+        self.model_config = self.family.config_cls.from_dict(arch)
+        self.model = CausalLMWithValueHead(
+            self.model_config, self.family.backbone_cls, device=self.device
+        )
+        init_params(self.model, train.seed)
+        self.ref = copy.deepcopy(self.model.transformer).requires_grad_(False)
+        freeze_layers(self.model, config.model.num_layers_unfrozen, self.model_config.n_layer)
+        self.opt = make_optimizer(train, train.total_steps, self.model.parameters())
+        self.generator = set_seed(train.seed, self.device)  # sampling noise
+
+        gen_kwargs = dict(method.gen_kwargs)
+        self.apply_tokenizer_gen_defaults(gen_kwargs)
+        self.gen_config = GenerationConfig.from_dict(gen_kwargs)
+        validate_gen_config(self.gen_config, self.model_config.vocab_size, provided=set(gen_kwargs))
+        self._gen_budget_cap = self.gen_config.max_new_tokens
+        self._bound_min_prompts: Dict[str, int] = {}
+        self.query_length = train.seq_length
+
+        self.buffer = PPORolloutBuffer()
+        self.kl_coef = float(method.init_kl_coef)
+        self.mean_kl = 0.0
+        self.step = 0  # updates taken
+        self.forwards = 0
+        self.phase_times: List[Dict[str, float]] = []
+        self._phase_index = -1
+        self._plan = None
+        self._rebuild_sampler()
+
+    # ------------------------------------------------------------------ #
+
+    def _rebuild_sampler(self) -> None:
+        self._sampler = make_sampler(
+            self._apply,
+            functools.partial(self.family.init_cache, self.model_config, device=self.device),
+            self.gen_config,
+            self.query_length,
+        )
+
+    def _apply(self, *args, **kwargs):
+        self.forwards += 1
+        return self.model(*args, **kwargs)
+
+    def bind_prompt_budget(self, pipeline, role: str = "train") -> None:
+        """Check (and size) the decode budget against a pipeline's real
+        prompt lengths when ``gen_kwargs.max_length`` caps prompt +
+        generated: a training prompt that already fills it would leave a
+        zero-length response, whose terminal score PPO drops."""
+        max_len = self.gen_config.max_length
+        longest = pipeline.max_prompt_tokens
+        if max_len <= 0 or not len(pipeline):
+            return
+        if longest >= max_len:
+            msg = (
+                f"a prompt with {longest} real tokens fills gen_kwargs "
+                f"max_length={max_len} (prompt + generated), leaving zero "
+                "response tokens"
+            )
+            if role == "train":
+                raise ValueError(msg)
+            import warnings
+
+            warnings.warn(msg + " (eval will score an empty string)")
+        self._bound_min_prompts[role] = pipeline.min_prompt_tokens
+        budget = max_len - min(self._bound_min_prompts.values())
+        new = min(self._gen_budget_cap, budget) if budget > 0 else self._gen_budget_cap
+        if new != self.gen_config.max_new_tokens:
+            import dataclasses
+
+            self.gen_config = dataclasses.replace(self.gen_config, max_new_tokens=new)
+            self._rebuild_sampler()
+
+    def add_eval_pipeline(self, pipeline) -> None:
+        super().add_eval_pipeline(pipeline)
+        self.bind_prompt_budget(pipeline, role="eval")
+
+    def sample(self, prompt_ids, prompt_mask) -> SampleOutput:
+        """Roll out a prompt batch with the current policy."""
+        return self._sampler(
+            prompt_ids.to(self.device), prompt_mask.to(self.device),
+            generator=self.generator,
+        )
+
+    @torch.no_grad()
+    def score_ref(self, q_ids, q_mask, r_ids, r_mask) -> torch.Tensor:
+        """[B, R] logprobs of the responses under the frozen reference; the
+        LM head runs on the response-predicting positions only."""
+        self.forwards += 1
+        Q = self.query_length
+        out = self.ref(
+            torch.cat([q_ids, r_ids], 1),
+            attention_mask=torch.cat([q_mask, r_mask.to(q_mask.dtype)], 1),
+            compute_logits=False,
+        )
+        logits = self.ref.logits(out["hidden"][:, Q - 1 : -1])
+        return logprobs_from_logits(logits, r_ids)
+
+    @torch.no_grad()
+    def compute_rewards(self, logprobs, ref_logprobs, response_mask, scores) -> torch.Tensor:
+        """Per-token shaped rewards: -kl_coef * (logp - ref_logp), plus the
+        score at each row's last real token. Records the chunk's mean
+        sequence KL in ``mean_kl``."""
+        maskf = response_mask.float()
+        kl = (logprobs - ref_logprobs) * maskf
+        rewards = -self.kl_coef * kl
+        last = (response_mask.sum(1) - 1).clamp_min(0).long()
+        rows = torch.arange(rewards.shape[0], device=rewards.device)
+        rewards[rows, last] += torch.as_tensor(scores, dtype=torch.float32, device=rewards.device)
+        self.mean_kl = float(kl.sum(1).mean())
+        return rewards
+
+    # ------------------------------------------------------------------ #
+
+    def _forward_logprobs_values(self, mb: PPORolloutBatch):
+        """Policy forward over [query; response] -> (logprobs, values,
+        entropy or None) at the response positions."""
+        self.forwards += 1
+        logits, values = self.model.response_forward(
+            torch.cat([mb.query_tokens, mb.response_tokens], 1),
+            torch.cat([mb.query_mask, mb.response_mask.to(mb.query_mask.dtype)], 1),
+            self.query_length,
+        )
+        logprobs = logprobs_from_logits(logits, mb.response_tokens)
+        entropy = policy_entropy(logits) if self.config.method.ent_coef else None
+        return logprobs, values.float(), entropy
+
+    def train_step(self, mb: PPORolloutBatch) -> Dict[str, torch.Tensor]:
+        """One PPO update on a minibatch; returns its stats (device
+        scalars), ``optimizer/grad_norm`` included."""
+        method = self.config.method
+        advantages, returns = get_advantages_and_returns(
+            mb.values, mb.rewards, mb.response_mask, method.gamma, method.lam
+        )
+        logprobs, values, entropy = self._forward_logprobs_values(mb)
+        loss, stats = ppo_loss(
+            logprobs, values, mb.logprobs, mb.values, advantages, returns,
+            mb.response_mask, method.cliprange, method.cliprange_value,
+            method.vf_coef, ent_coef=method.ent_coef, entropy=entropy,
+        )
+        self.opt.zero_grad()
+        loss.backward()
+        stats["optimizer/grad_norm"] = self.opt.step()
+        self.step += 1
+        return stats
+
+    def _record_train_time(self, seconds: float) -> None:
+        if self.phase_times:  # the current phase's entry (none without an orchestrator)
+            self.phase_times[-1]["train_s"] = seconds
+
+    def _train_on(self, order: np.ndarray, ends: np.ndarray, iter_count: int,
+                  total_steps: int, final_stats: Dict[str, Any]):
+        """Run the updates of ``order`` ([n_updates, B] row indices) in
+        turn. Update ``ends[k]`` is minibatch ``k``'s last in the pass;
+        after it the KL controller advances, the loss stats of the updates
+        since the previous end are checked, the minibatch is logged with
+        the stats of that update, and eval, save and the ``total_steps``
+        cutoff are checked (a cutoff ends the run: save, then eval).
+        ``final_stats`` holds the last logged stats. Returns ``(rows,
+        kl_seq, iter_count, done)``: each stat as a host array over the
+        updates run, the KL coefficient on entry and after each
+        minibatch, the update count, and whether the run ended."""
+        train, method = self.config.train, self.config.method
+        t0 = monotonic()
+        pending, fetched, kl_seq, done = [], [], [self.kl_coef], False
+        start = iter_count
+        for u, idx in enumerate(order):
+            pending.append(self.train_step(self.buffer.gather(idx)))
+            if u != ends[len(kl_seq) - 1]:
+                continue
+            keys = list(pending[0])
+            new = torch.stack(
+                [torch.stack([s[k].float() for k in keys]) for s in pending]
+            ).cpu().numpy()  # [updates since the previous end, stats]
+            self.check_anomalies(dict(zip(keys, new.T)), start + len(fetched))
+            fetched.extend(new)
+            pending = []
+            kl_seq.append(kl_controller_update(
+                method, kl_seq[-1], self.mean_kl, train.batch_size
+            ))
+            self.kl_coef = kl_seq[-1]
+            iter_count += method.ppo_epochs
+            seconds = monotonic() - t0
+            self._record_train_time(seconds)
+            step_stats = {k: float(v) for k, v in zip(keys, new[-1])}
+            step_stats["time/batch"] = seconds / (len(kl_seq) - 1)
+            step_stats["policy/kl_coef"] = self.kl_coef
+            step_stats["policy/mean_rollout_kl"] = self.mean_kl
+            iv = self.intervals(iter_count)
+            at_end = iter_count >= total_steps
+            if iv["do_log"]:
+                self.logger.log(step_stats, step=iter_count)
+                final_stats.clear()
+                final_stats.update(step_stats)
+            if iv["do_eval"]:
+                self._eval(iter_count, final_stats)
+            if iv["do_save"] and not at_end:
+                self.save()
+            if at_end:
+                self._finish(iter_count, final_stats)
+                done = True
+                break
+        rows = {k: np.asarray([r[i] for r in fetched], np.float32) for i, k in enumerate(keys)}
+        return rows, kl_seq, iter_count, done
+
+    def _stream_eligible(self, iter_count: int) -> bool:
+        """Whether the coming pass takes the streamed phase's plan: overlap
+        on, at least one minibatch, and no eval/checkpoint boundary or
+        ``total_steps`` cutoff strictly inside the pass."""
+        train, method = self.config.train, self.config.method
+        n_mb = method.num_rollouts // train.batch_size
+        if not train.phase_overlap or self.orch is None or n_mb < 1:
+            return False
+        pass_steps = n_mb * method.ppo_epochs
+        if iter_count + pass_steps > min(train.total_steps, train.epochs * pass_steps):
+            return False
+        return not any(
+            s % train.eval_interval == 0 or s % train.checkpoint_interval == 0
+            for s in (iter_count + method.ppo_epochs * k for k in range(1, n_mb))
+        )
+
+    def _collect_phase(self, iter_count: int, seed: int) -> None:
+        """Collect one phase of experience into the (emptied) buffer and
+        fix its update plan when the pass is eligible for one."""
+        method, train = self.config.method, self.config.train
+        self._phase_index += 1
+        self.buffer.clear_history()
+        self._plan = (
+            make_stream_plan(method.num_rollouts, train.batch_size, method.ppo_epochs, seed)
+            if self._stream_eligible(iter_count)
+            else None
+        )
+        t0 = monotonic()
+        self.orch.make_experience(method.num_rollouts, iter_count)
+        self.phase_times.append({
+            "phase": self._phase_index,
+            "collect_s": monotonic() - t0,
+            "rollout_tokens": int(self.buffer.full.response_mask.sum()),
+        })
+
+    def learn(self) -> Dict[str, Any]:
+        """The PPO loop: per phase, collect ``num_rollouts`` with the
+        current policy, then ``ppo_epochs`` passes of minibatch updates;
+        eval and save on their intervals, and save + eval at the end."""
+        train, method = self.config.train, self.config.method
+        self._phase_index = -1
+        if len(self.buffer) == 0 and self.orch is not None:
+            self._collect_phase(0, seed=train.seed)
+        n_minibatches = (
+            self._plan.n_minibatches if self._plan is not None
+            else max(len(self.buffer) // train.batch_size, 1)
+        )
+        total_steps = min(train.total_steps, train.epochs * method.ppo_epochs * n_minibatches)
+        self.logger = Logger()
+        return self._learn_body(total_steps, n_minibatches)
+
+    def _learn_body(self, total_steps: int, n_minibatches: int) -> Dict[str, Any]:
+        train, method = self.config.train, self.config.method
+        E = method.ppo_epochs
+        self.logger.log(self.evaluate(), step=0)
+        iter_count = 0
+        final_stats: Dict[str, Any] = {}
+        for epoch in range(train.epochs):
+            if self._plan is not None:
+                # epoch-major: minibatch k's last update is in the last epoch
+                order, n_mb = self._plan.updates(), self._plan.n_minibatches
+                ends = (E - 1) * n_mb + np.arange(n_mb)
+            else:
+                # minibatch-major: each minibatch's E updates in a row
+                order = self.buffer.minibatch_order(
+                    train.batch_size, seed=train.seed + epoch, repeat=E,
+                    n_minibatches=n_minibatches,
+                )
+                ends = np.arange(E - 1, len(order), E)
+            _, _, iter_count, done = self._train_on(
+                order, ends, iter_count, total_steps, final_stats
+            )
+            if done:
+                break
+            if self.orch is not None and epoch < train.epochs - 1:
+                self._collect_phase(iter_count, seed=train.seed + epoch + 1)
+        return final_stats
+
+    def _eval(self, step: int, final_stats: Dict[str, Any]) -> None:
+        eval_stats = self.evaluate()
+        self.logger.log(eval_stats, step=step)
+        final_stats.update(eval_stats)
+
+    def _finish(self, step: int, final_stats: Dict[str, Any]) -> None:
+        """The end of the run: save, then a final eval."""
+        self.save()
+        self._eval(step, final_stats)
+
+    # ------------------------------------------------------------------ #
+
+    def save(self, directory: Optional[str] = None) -> None:
+        """Checkpoint the policy, optimizer, update count, KL state,
+        sampling generator and orchestrator state as step ``self.step``."""
+        state = {
+            "model": self.model.state_dict(),
+            "optimizer": self.opt.state_dict(),
+            "step": self.step,
+            "kl_coef": float(self.kl_coef),
+            "mean_kl": float(self.mean_kl),
+            "generator": self.generator.get_state(),
+        }
+        if self.orch is not None:
+            state["orchestrator"] = self.orch.state_dict()
+        save_checkpoint(directory or self.config.train.checkpoint_dir, state, self.step)
+
+    def load(self, directory: str) -> None:
+        """Restore the latest checkpoint under ``directory``."""
+        state = load_checkpoint(directory, device="cpu")
+        self.model.load_state_dict(state["model"])
+        self.opt.load_state_dict(state["optimizer"])
+        self.step = int(state["step"])
+        self.kl_coef = float(state["kl_coef"])
+        self.mean_kl = float(state["mean_kl"])
+        self.generator.set_state(state["generator"])
+        if self.orch is not None and "orchestrator" in state:
+            self.orch.load_state_dict(state["orchestrator"])
