@@ -4,11 +4,20 @@
 Phases, each fatal on failure:
 
 1. build — compile the flash-attention kernels (``trlx_tpu_torch/csrc/
-   flash_fwd.cu``: K1; ``flash_bwd.cu``: K2 dQ and K3 dK/dV) with ``nvcc``
-   for ``sm_90a``, both sources at once, and print ``ptxas``'s report;
+   flash_fwd.cu``: K1 in three variants, ``tile`` for bf16 with Q > 16 on
+   the tensor cores, ``decode`` for bf16 with Q <= 16, ``fma`` for f32;
+   ``flash_bwd.cu``: K2 dQ and K3 dK/dV) with ``nvcc`` for ``sm_90a``, both
+   sources at once, and beside them each source's device code alone with
+   ``ptxas -v`` (every run, so the report holds when the libraries were
+   already built); print ``ptxas``'s registers, shared memory and spills
+   per kernel, and the count of tensor-core instructions (``HMMA`` or
+   ``HGMMA``) in the tile variant's SASS (``cuobjdump -sass``). A spill in
+   K1, a K1 kernel missing from the report, or a tile variant without
+   tensor-core instructions fails the phase;
 2. kernel — hold K1 against its plain PyTorch version on the card at the
    serving path's shapes (prefill, decode) and the edge cases (causal flag
-   with a padding bias, ragged Q/K, per-head bias), in bf16 and f32; hold
+   with a padding bias, ragged Q/K, per-head bias, 64 key tiles with peaked
+   logits), in bf16 and f32; hold
    K1 again at the training path's shapes (the cases below and the rollout
    decode, B=128 Q=1 K=112), all-padding causal rows included; hold K2 and
    K3 against the plain backward (fed K1's own O and LSE) at the
@@ -16,11 +25,13 @@ Phases, each fatal on failure:
    padding), the rollout-prefill shape (explicit causal + padding bias),
    ragged Q/K with a full-rank bias and a per-head bias, in bf16 and f32;
    hold the autograd ``Function`` against autograd through the plain
-   forward; time K1 at the prefill and decode shapes and K2, K3 (through
-   their C entry points, arguments packed beforehand) at the training
-   shape (kernel, plain version, and a PyTorch yardstick the port
-   never calls: ``scaled_dot_product_attention``, and for the backward
-   ``torch.autograd.grad`` of its output) beside the card's bound;
+   forward; time K1 at the five shapes of the two paths (serving prefill
+   and decode, update forward, rollout prefill and decode; the serving
+   two in f32 too) and K2, K3 (through their C entry points, arguments
+   packed beforehand) at the training shape (kernel, plain version, and a
+   PyTorch yardstick the port never calls: ``scaled_dot_product_attention``,
+   and for the backward ``torch.autograd.grad`` of its output) beside the
+   card's bound;
 3. model — full-width GPT-2 in f32 through the kernels against the plain
    attention: the forward without a cache, prefill + decode through the
    paged cache against the plain full forward of the whole sequence, and
@@ -29,15 +40,18 @@ Phases, each fatal on failure:
 4. serving — ``InferenceServer`` on CUDA with the ``configs/ppo_sentiments.yml``
    model at full GPT-2-small width (random weights from a seed, bf16
    compute) serves 64 prompts; every request must complete with finite
-   logprobs/values, and the K1 launch count must equal
-   12 x (prefill forwards + decode steps);
+   logprobs/values, and the K1 launches must be 12 x prefill forwards
+   of the tile variant and 12 x decode steps of the decode variant, with
+   no ``fma`` launch and no input copy;
 5. training — ``trlx_tpu_torch.train`` on CUDA with the
    ``configs/ppo_sentiments.yml`` geometry at full GPT-2-small width
    (random weights from a seed, bf16 compute, 128 int-list prompts of real
    lengths 16-64, a host reward from the response ids) for two PPO phases
    (64 updates); every stat must be finite, the parameters must move, a
    fresh trainer's ``load`` must restore the saved state exactly, K1 must
-   launch 12 x the trainer's forwards, K2 and K3 12 x 64 times each, and
+   launch 12 x the trainer's forwards (the tile variant 12 x those over
+   more than 16 positions, the decode variant 12 x the decode steps, no
+   ``fma`` launch and no input copy), K2 and K3 12 x 64 times each, and
    the plain attention not at all.
 
 Each path (phases 4 and 5) runs with the launch counters set to 0 just
@@ -52,10 +66,12 @@ as JSON to PATH.
 
 from __future__ import annotations
 
+import concurrent.futures
 import functools
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -91,6 +107,11 @@ SOURCES = {
 }
 L2_BYTES = 50 * 2**20  # H100 SXM
 N_LAYER = 12  # GPT-2 small
+FWD_VARIANT_COUNTERS = {
+    "tile": "FLASH_FWD_TILE_LAUNCHES",
+    "decode": "FLASH_FWD_DECODE_LAUNCHES",
+    "fma": "FLASH_FWD_FMA_LAUNCHES",
+}
 
 
 def log(msg: str) -> None:
@@ -127,6 +148,83 @@ def input_copies(tensors, nbytes: int):
     than twice the card's L2 cache (the first copy is the tensors)."""
     n = min(8, 1 + -(-2 * L2_BYTES // nbytes))
     return [tensors] + [[t.clone() for t in tensors] for _ in range(n - 1)]
+
+
+def ptxas_report(log: str) -> dict:
+    """Per kernel (mangled name) from ``nvcc -Xptxas=-v``'s output:
+    registers, shared memory bytes, spill store and load bytes."""
+    rows, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            rows.setdefault(fn, {})["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            smem = re.search(r"(\d+) bytes smem", line)
+            rows.setdefault(fn, {}).update(
+                registers=int(m.group(1)), smem_bytes=int(smem.group(1)) if smem else 0)
+    return rows
+
+
+def tensor_core_instructions(fa, library: str) -> dict:
+    """``{kernel: count of HMMA/HGMMA instructions}`` in each kernel of a
+    built library's SASS (``cuobjdump -sass``)."""
+    cuobjdump = os.path.join(os.path.dirname(fa._nvcc()), "cuobjdump")
+    sass = subprocess.run(
+        [cuobjdump if os.path.exists(cuobjdump) else "cuobjdump", "-sass", library],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.search(r"\bH(G)?MMA\b", line):
+            counts[fn] += 1
+    return counts
+
+
+K1_KERNELS = ("flash_fwd_tile_kernel", "flash_fwd_decode_kernel", "flash_fwd_fma_kernel")
+
+
+def phase_build(fa) -> tuple:
+    """Build both sources and, at the same time, compile their device code
+    again with ``ptxas -v`` (so the report exists whether or not the
+    libraries were already built); report registers, shared memory and
+    spills per kernel and the tensor-core instructions of K1's tile
+    variant. Returns ``(ok, record)``."""
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        reports = pool.submit(fa.ptxas_reports)
+        paths = fa.build()
+        reports = reports.result()
+    fa._load()
+    seconds = time.perf_counter() - t0
+    log(f"phase 1: built {', '.join(os.path.relpath(p) for p in paths.values())} "
+        f"and the ptxas reports in {seconds:.1f} s")
+    ptxas = {}
+    for name in ("flash_fwd", "flash_bwd"):
+        ptxas[name] = ptxas_report(reports[name])
+        for fn, row in sorted(ptxas[name].items()):
+            log(f"phase 1: ptxas {fn}: {json.dumps(row)}")
+    # every K1 kernel must be in the report, with its spill line
+    k1 = {kernel: [r.get("spill_bytes") for fn, r in ptxas["flash_fwd"].items() if kernel in fn]
+          for kernel in K1_KERNELS}
+    reported = all(rows and None not in rows for rows in k1.values())
+    fwd_spills = sum(sum(rows) for rows in k1.values()) if reported else None
+    mma = tensor_core_instructions(fa, paths["flash_fwd"])
+    tile_mma = sum(n for fn, n in mma.items() if "flash_fwd_tile_kernel" in fn)
+    log(f"phase 1: tensor-core instructions (HMMA/HGMMA) per K1 kernel: {json.dumps(mma)}")
+    ok = tile_mma > 0 and fwd_spills == 0
+    log(f"phase 1: {'ok' if ok else 'FAIL'} (tile variant HMMA/HGMMA={tile_mma}, "
+        f"K1 spill bytes={fwd_spills}"
+        f"{'' if reported else ', a K1 kernel is missing from the ptxas report'})")
+    return ok, {"tile_tensor_core_instructions": tile_mma, "k1_spill_bytes": fwd_spills}
 
 
 def kernel_cases(torch, attn):
@@ -170,12 +268,102 @@ def kernel_cases(torch, attn):
     # per-head bias [1, H, Q, K]
     bias = torch.randn(1, 12, 130, 200, generator=gen, device=dev)
     cases.append(("per_head_bias", *qkv(2, 130, 200), bias, False))
+    # 64 key tiles, peaked logits and a per-row bias: P is the register A
+    # operand of O += P V in every key tile of the tile variant, and a P
+    # fragment that went stale or out of order between tiles would weight
+    # the wrong V rows (V / 4 keeps |O| near 1, the scale TOL is set for)
+    q, k, v = qkv(2, 128, 4096)
+    bias = 2 * torch.randn(2, 1, 128, 4096, generator=gen, device=dev)
+    cases.append(("long_k", 3 * q, k, v / 4, bias, False))
     return cases
 
 
-def phase_kernel(torch, fa, attn):
+def packed_forward_calls(torch, fa, copies, causal):
+    """Per input copy, a zero-argument call of K1's C entry point with its
+    arguments packed and its output allocated once (no LSE, as the path's
+    no-grad calls), so that a timed call is the launch and not the Python
+    wrapper around it. Returns ``(calls, outputs)``."""
+    lib = fa._load()["flash_fwd"]
+    stream = torch.cuda.current_stream().cuda_stream
+    calls, outputs = [], []
+    for q, k, v, bias in copies:
+        B, Q, H, D = q.shape
+        K = k.shape[1]
+        b, sb = fa._bias_view(bias, B, H, Q, K)
+        o = torch.empty((B, Q, H, D), dtype=q.dtype, device=q.device)
+        outputs.append((b, o))
+        calls.append(functools.partial(
+            lib.trlx_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            b.data_ptr() if b is not None else None, o.data_ptr(), None,
+            fa.FORWARD_VARIANTS[fa.forward_variant(q.dtype, Q)], fa._DTYPES[q.dtype],
+            B, H, Q, K, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *sb,
+            float(D ** -0.5), int(bool(causal)), stream))
+    return calls, outputs
+
+
+def time_forward(torch, fa, attn, q, k, v, bias, causal) -> dict:
+    """K1's time on these inputs beside its bound, the plain version's time
+    and SDPA's (the yardstick the port never calls; a causal call takes the
+    causal and padding masks as one mask in the compute dtype). ``ms`` is
+    the C entry point's (arguments packed beforehand), ``wrapper_ms`` the
+    Python wrapper's; ``packed_ok`` says the packed call launched and gave
+    the wrapper's output."""
     import torch.nn.functional as F
 
+    B, Q, H, D = q.shape
+    K = k.shape[1]
+    dtype_name = str(q.dtype).replace("torch.", "")
+    # each input read once, the output written once; the operations over
+    # the (query, key) pairs of the tiles K1 visits
+    nbytes = sum(x.numel() * x.element_size() for x in (q, k, v, q)) + (
+        bias.numel() * 4 if bias is not None else 0)
+    pairs = int(fa.visited_keys(Q, K).sum()) if causal else Q * K
+    flops = 4 * B * H * D * pairs
+    copies = input_copies([q, k, v, bias], nbytes)
+    calls, outputs = packed_forward_calls(torch, fa, copies, causal)
+    kernel_ms = time_ms(calls)
+    rc = calls[0]()
+    torch.cuda.synchronize()
+    packed_ok = rc == 0 and torch.equal(outputs[0][1], fa.flash_attention(q, k, v, bias, causal))
+    del calls, outputs
+    wrapper_ms = time_ms([lambda c=c: fa.flash_attention(*c, causal) for c in copies])
+    plain_ms = time_ms([
+        lambda c=c: fa.flash_attention_reference(*c, causal) for c in copies
+    ])
+    mask = bias
+    if causal:
+        mask = attn.causal_bias(Q, K, 0, q.device) + (0 if bias is None else bias)
+    library = [
+        [x.transpose(1, 2) for x in c[:3]] + [None if mask is None else mask.to(q.dtype)]
+        for c in copies
+    ]
+    library_ms = time_ms([
+        lambda c=c: F.scaled_dot_product_attention(*c[:3], attn_mask=c[3])
+        for c in library
+    ])
+    del copies, library
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return {
+        "shape": f"B={B} H={H} Q={Q} K={K} D={D}" + (" causal" if causal else "")
+                 + (f", bias {list(bias.shape)}" if bias is not None else ""),
+        "variant": fa.forward_variant(q.dtype, Q),
+        "ms": kernel_ms, "wrapper_ms": wrapper_ms, "packed_ok": packed_ok,
+        "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bytes": nbytes, "flops": flops,
+    }
+
+
+def log_timed(name, dtype_name, row):
+    log(f"phase 2: time {name} {dtype_name} {row['shape']} ({row['variant']}): "
+        f"kernel_ms={row['ms']} wrapper_ms={row['wrapper_ms']} plain_ms={row['plain_ms']} "
+        f"library_ms={row['library_ms']} bound_ms={row['bound_ms']} ({row['bound_by']}); "
+        f"packed call gives the wrapper's output: {'ok' if row['packed_ok'] else 'FAIL'}")
+
+
+def phase_kernel(torch, fa, attn):
     results, timed = [], {}
     for name, q32, k32, v32, bias, causal in kernel_cases(torch, attn):
         for dtype_name in ("bfloat16", "float32"):
@@ -193,53 +381,19 @@ def phase_kernel(torch, fa, attn):
                 "max_abs_err_lse": err_lse, "tol_o": tol_o, "tol_lse": tol_lse,
                 "ok": ok,
             })
-            log(f"phase 2: {name:15s} {dtype_name:8s} max|dO|={err_o:.3e} "
-                f"max|dLSE|={err_lse:.3e} {'ok' if ok else 'FAIL'}")
-            if name not in ("prefill", "decode"):
-                continue
-            B, Q, H, D = q.shape
-            K = k.shape[1]
-            # each input read once, the output written once
-            nbytes = (
-                sum(x.numel() * x.element_size() for x in (q, k, v, o))
-                + bias.numel() * 4
-            )
-            copies = input_copies([q, k, v, bias], nbytes)
-            kernel_ms = time_ms([
-                lambda c=c: fa.flash_attention(*c, causal) for c in copies
-            ])
-            plain_ms = time_ms([
-                lambda c=c: fa.flash_attention_reference(*c, causal)
-                for c in copies
-            ])
-            # the yardstick in its own layout, the mask in the compute dtype
-            library = [
-                [x.transpose(1, 2) for x in c[:3]] + [c[3].to(dt)] for c in copies
-            ]
-            library_ms = time_ms([
-                lambda c=c: F.scaled_dot_product_attention(*c[:3], attn_mask=c[3])
-                for c in library
-            ])
-            del copies, library
-            flops = 4 * B * H * Q * K * D
-            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-            t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-            timed[(name, dtype_name)] = {
-                "shape": f"B={B} H={H} Q={Q} K={K} D={D}",
-                "ms": kernel_ms, "plain_ms": plain_ms,
-                "library_ms": library_ms,
-                "bound_ms": max(t_bytes, t_ops),
-                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                "bytes": nbytes, "flops": flops,
-            }
-            row = timed[(name, dtype_name)]
-            log(f"phase 2: {name} {dtype_name} {row['shape']}: kernel_ms="
-                f"{kernel_ms} plain_ms={plain_ms} library_ms={library_ms} "
-                f"bound_ms={row['bound_ms']} ({row['bound_by']})")
+            log(f"phase 2: {name:15s} {dtype_name:8s} ({fa.forward_variant(dt, q.shape[1])}) "
+                f"max|dO|={err_o:.3e} max|dLSE|={err_lse:.3e} {'ok' if ok else 'FAIL'}")
+            if name in ("prefill", "decode"):
+                timed[("serving_" + name, dtype_name)] = row = time_forward(
+                    torch, fa, attn, q, k, v, bias, causal)
+                log_timed("serving_" + name, dtype_name, row)
     return results, timed
 
 
 FORWARD_ONLY = ("decode",)  # no backward runs at this shape
+# the training path's K1 shapes, timed in bf16 (backward_cases names)
+TRAINING_SHAPES = {"train": "update_forward", "prefill": "rollout_prefill",
+                   "decode": "rollout_decode"}
 
 
 def backward_cases(torch, attn):
@@ -353,11 +507,12 @@ def packed_backward_calls(torch, fa, copies, causal):
 def phase_backward(torch, fa, attn):
     """K1 against its plain version at the training path's shapes; K2 and
     K3 against the plain backward; the autograd Function against autograd
-    through the plain forward; K2/K3 times at the training shape. Returns
-    ``(fwd_results, bwd_results, timed)``."""
+    through the plain forward; K1 times at the training path's shapes and
+    K2/K3 times at the update's. Returns ``(fwd_results, bwd_results,
+    fwd_timed, timed)``."""
     import torch.nn.functional as F
 
-    fwd_results, results, timed = [], [], {}
+    fwd_results, results, fwd_timed, timed = [], [], {}, {}
     for name, q32, k32, v32, bias, causal in backward_cases(torch, attn):
         for dtype_name in ("bfloat16", "float32"):
             dt = getattr(torch, dtype_name)
@@ -375,8 +530,13 @@ def phase_backward(torch, fa, attn):
                 "tol_o": tol_o, "tol_lse": tol_lse, "ok": ok,
             })
             log(f"phase 2: fwd {name:14s} {dtype_name:8s} B={q.shape[0]} Q={q.shape[1]} "
-                f"K={k.shape[1]} max|dO|={err_o:.3e} max|dLSE|={err_lse:.3e} "
-                f"{'ok' if ok else 'FAIL'}")
+                f"K={k.shape[1]} ({fa.forward_variant(dt, q.shape[1])}) max|dO|={err_o:.3e} "
+                f"max|dLSE|={err_lse:.3e} {'ok' if ok else 'FAIL'}")
+            if name in TRAINING_SHAPES and dtype_name == "bfloat16":
+                shape = TRAINING_SHAPES[name]
+                fwd_timed[(shape, dtype_name)] = row = time_forward(
+                    torch, fa, attn, q, k, v, bias, causal)
+                log_timed(shape, dtype_name, row)
             if name in FORWARD_ONLY:
                 continue
             gen = torch.Generator(device="cuda")
@@ -465,7 +625,7 @@ def phase_backward(torch, fa, attn):
                     "max_abs_err_dv": errs[2]})
     log(f"phase 2: autograd Function vs autograd of the plain forward (f32, {name}): "
         f"max|d(dq, dk, dv)|={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} {'ok' if ok else 'FAIL'}")
-    return fwd_results, results, timed
+    return fwd_results, results, fwd_timed, timed
 
 
 def phase_model(torch, fa):
@@ -652,6 +812,20 @@ def serving_prompts(seed: int = 0):
     ]
 
 
+def reset_forward_counters(fa) -> None:
+    fa.FLASH_FWD_LAUNCHES = fa.FLASH_FWD_COPIES = 0
+    for counter in FWD_VARIANT_COUNTERS.values():
+        setattr(fa, counter, 0)
+
+
+def forward_variant_launches(fa) -> dict:
+    """K1's launches by variant and the wrapper's input copies, since the
+    last ``reset_forward_counters``."""
+    out = {v: getattr(fa, c) for v, c in FWD_VARIANT_COUNTERS.items()}
+    out["copies"] = fa.FLASH_FWD_COPIES
+    return out
+
+
 def serve(torch, server, prompts):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -678,15 +852,22 @@ def phase_serving(torch, fa):
         return orig_ref(*a, **kw)
 
     fa.flash_attention_reference = counting_ref
-    fa.FLASH_FWD_LAUNCHES = 0  # count the main path's launches only
+    reset_forward_counters(fa)  # count the main path's launches only
     try:
         rids, results, wall = serve(torch, server, prompts)
     finally:
         fa.flash_attention_reference = orig_ref
     launches = fa.FLASH_FWD_LAUNCHES
+    variants = forward_variant_launches(fa)
     stats = server.stats()
     n_layer = server.model_config.n_layer
     expected = n_layer * int(stats["engine/prefills"] + stats["engine/decode_steps"])
+    # admission prefills run Q = seq_length (tile), decode steps Q = 1
+    expected_variants = {
+        "tile": n_layer * int(stats["engine/prefills"]),
+        "decode": n_layer * int(stats["engine/decode_steps"]),
+        "fma": 0, "copies": 0,
+    }
     lengths = [results[r]["length"] for r in rids]
     finite = all(
         np.isfinite(results[r]["logprobs"]).all()
@@ -705,6 +886,8 @@ def phase_serving(torch, fa):
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "flash_fwd_launches": launches,
         "expected_launches": expected,
+        "flash_fwd_variants": variants,
+        "expected_variants": expected_variants,
         "plain_attention_calls": plain_calls[0],
         "stats": stats,
     }
@@ -714,12 +897,13 @@ def phase_serving(torch, fa):
         and min(lengths) >= 1
         and finite
         and launches == expected
+        and variants == expected_variants
         and plain_calls[0] == 0
     )
     log(f"phase 4: {'ok' if ok else 'FAIL'} (complete={len(results)}/64, "
         f"min length={min(lengths)}, finite={finite}, launches={launches} "
-        f"vs 12 x (prefills + decode steps) = {expected}, plain attention "
-        f"calls={plain_calls[0]})")
+        f"vs 12 x (prefills + decode steps) = {expected}, by variant {variants} "
+        f"vs {expected_variants}, plain attention calls={plain_calls[0]})")
     return ok, record
 
 
@@ -773,12 +957,18 @@ def phase_training(torch, fa):
     from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
-    rows, evals, saved_rng, plain_calls = [], [], [], [0]
+    rows, evals, saved_rng, plain_calls, decode_forwards = [], [], [], [0], [0]
     orig = {
         "train_on": PPOTrainer._train_on, "evaluate": PPOTrainer.evaluate,
-        "save": PPOTrainer.save,
+        "save": PPOTrainer.save, "apply": PPOTrainer._apply,
         "fwd": fa.flash_attention_reference, "bwd": fa.flash_attention_backward_reference,
     }
+
+    def apply(self, input_ids, *a, **kw):
+        # the sampler's forwards: a prefill over the prompt columns, then
+        # one decode step per token (Q = 1, K1's decode variant)
+        decode_forwards[0] += input_ids.shape[1] <= 16
+        return orig["apply"](self, input_ids, *a, **kw)
 
     def train_on(self, *a, **kw):
         out = orig["train_on"](self, *a, **kw)
@@ -804,12 +994,14 @@ def phase_training(torch, fa):
     with tempfile.TemporaryDirectory() as tmp:
         config = training_config(tmp)
         PPOTrainer._train_on, PPOTrainer.evaluate, PPOTrainer.save = train_on, evaluate, save
+        PPOTrainer._apply = apply
         fa.flash_attention_reference = counting("fwd")
         fa.flash_attention_backward_reference = counting("bwd")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         # count the main path's launches only
-        fa.FLASH_FWD_LAUNCHES = fa.FLASH_BWD_DQ_LAUNCHES = fa.FLASH_BWD_DKV_LAUNCHES = 0
+        reset_forward_counters(fa)
+        fa.FLASH_BWD_DQ_LAUNCHES = fa.FLASH_BWD_DKV_LAUNCHES = 0
         t0 = time.perf_counter()
         try:
             trainer = trlx_tpu_torch.train(
@@ -818,7 +1010,7 @@ def phase_training(torch, fa):
             torch.cuda.synchronize()
         finally:
             PPOTrainer._train_on, PPOTrainer.evaluate = orig["train_on"], orig["evaluate"]
-            PPOTrainer.save = orig["save"]
+            PPOTrainer.save, PPOTrainer._apply = orig["save"], orig["apply"]
             fa.flash_attention_reference = orig["fwd"]
             fa.flash_attention_backward_reference = orig["bwd"]
         wall = time.perf_counter() - t0
@@ -827,6 +1019,7 @@ def phase_training(torch, fa):
             "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
             "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES,
         }
+        variants = forward_variant_launches(fa)
         peak = torch.cuda.max_memory_allocated()
         finite = all(np.isfinite(v).all() for r in rows for v in r.values()) and all(
             math.isfinite(v) for e in evals for v in e.values()
@@ -856,6 +1049,13 @@ def phase_training(torch, fa):
         "flash_bwd_dq": N_LAYER * 64,
         "flash_bwd_dkv": N_LAYER * 64,
     }
+    # decode steps run Q = 1; the rollout prefill (Q = 64), the reference
+    # and the update forwards (Q = 112) the tile variant
+    expected_variants = {
+        "tile": N_LAYER * (trainer.forwards - decode_forwards[0]),
+        "decode": N_LAYER * decode_forwards[0],
+        "fma": 0, "copies": 0,
+    }
     per_phase = trainer.step // len(trainer.phase_times)
     phases = [
         dict(p, rollout_tokens_per_s=p["rollout_tokens"] / p["collect_s"],
@@ -871,17 +1071,22 @@ def phase_training(torch, fa):
         "forwards": trainer.forwards,
         "launches": launches,
         "expected_launches": expected,
+        "decode_forwards": decode_forwards[0],
+        "flash_fwd_variants": variants,
+        "expected_variants": expected_variants,
         "plain_attention_calls": plain_calls[0],
         "params_changed": changed,
     }
     log("phase 5: training " + json.dumps(record))
     ok = (
         trainer.step == 64 and len(rows) == 2 and finite and changed > 0
-        and restored and launches == expected and plain_calls[0] == 0
+        and restored and launches == expected and variants == expected_variants
+        and plain_calls[0] == 0
     )
     log(f"phase 5: {'ok' if ok else 'FAIL'} (updates={trainer.step}, phases={len(rows)}, "
         f"finite={finite}, changed tensors={changed}, load restores={restored}, "
-        f"launches={launches} vs {expected}, plain attention calls={plain_calls[0]})")
+        f"launches={launches} vs {expected}, K1 by variant {variants} vs "
+        f"{expected_variants}, plain attention calls={plain_calls[0]})")
     return ok, record
 
 
@@ -906,11 +1111,19 @@ def device_summary(prof, wall: float) -> dict:
         n, total = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (n + 1, total + e["dur"])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:20]
+    # the port's kernels by name, every variant and instantiation summed
+    ours = {}
+    for kernel in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        rows = [(c, t) for n, (c, t) in by_name.items() if f"{kernel}_" in n]
+        count, total = sum(c for c, _ in rows), sum(t for _, t in rows)
+        ours[kernel] = {"count": count, "device_ms": total / 1e3,
+                        "share_of_busy": total / busy if busy else 0.0}
     return {
         "wall_ms": wall * 1e3,
         "device_busy_ms": busy / 1e3,
         "device_idle_share": 1.0 - busy / 1e3 / (wall * 1e3),
         "kernels_launched": len(kernels),
+        "port_kernels": ours,
         "top_kernels": [
             {"name": n[:120], "count": c, "device_ms": t / 1e3,
              "share_of_busy": t / busy}
@@ -953,7 +1166,8 @@ def profile_paths(torch, path: str) -> None:
         json.dump(summary, fh, indent=1)
     for name, run in summary.items():
         log(f"profile {name}: " + json.dumps({k: run[k] for k in (
-            "wall_ms", "device_busy_ms", "device_idle_share", "kernels_launched")}))
+            "wall_ms", "device_busy_ms", "device_idle_share", "kernels_launched",
+            "port_kernels")}))
         for row in run["top_kernels"][:12]:
             log(f"profile {name}: {row['device_ms']:9.2f} ms {row['share_of_busy']:6.1%} "
                 f"x{row['count']:<6d} {row['name'][:90]}")
@@ -987,16 +1201,13 @@ def main() -> int:
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    t0 = time.perf_counter()
-    paths = fa.build(verbose=True)
-    fa._load()
-    log(f"phase 1: built {', '.join(os.path.relpath(p) for p in paths.values())} "
-        f"in {time.perf_counter() - t0:.1f} s")
-
+    build_ok, build = phase_build(fa)
     fwd_checks, timed = phase_kernel(torch, fa, attn)
-    train_fwd_checks, bwd_checks, bwd_timed = phase_backward(torch, fa, attn)
+    train_fwd_checks, bwd_checks, train_timed, bwd_timed = phase_backward(torch, fa, attn)
     fwd_checks += train_fwd_checks
-    kernel_ok = all(c["ok"] for c in fwd_checks + bwd_checks)
+    timed.update(train_timed)
+    kernel_ok = all(c["ok"] for c in fwd_checks + bwd_checks) and all(
+        row["packed_ok"] for row in timed.values())
     model_ok = phase_model(torch, fa) & phase_model_backward(torch, fa)
     serving_ok, serving = phase_serving(torch, fa)
     training_ok, training = phase_training(torch, fa)
@@ -1005,9 +1216,10 @@ def main() -> int:
 
     def entry(shape):
         return {k: timed[(shape, "bfloat16")][k] for k in (
-            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            "shape", "variant", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")}
 
-    decode = entry("decode")
+    decode = entry("serving_decode")
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -1023,10 +1235,17 @@ def main() -> int:
         "bound_ms": decode["bound_ms"],
         "bound_by": decode["bound_by"],
         "library_ms": decode["library_ms"],
-        "timed_shape": "decode bf16 " + decode["shape"],
-        "prefill": entry("prefill"),
-        "f32": {s: {k: timed[(s, "float32")][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-                for s in ("prefill", "decode")},
+        "timed_shape": "serving decode bf16 " + decode["shape"],
+        "prefill": entry("serving_prefill"),
+        # every path shape of K1 in bf16, with the variant that ran
+        "shapes": {shape: entry(shape) for shape in (
+            "serving_prefill", "serving_decode", *TRAINING_SHAPES.values())},
+        "f32": {s: {k: timed[(s, "float32")][k] for k in (
+                    "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms")}
+                for s in ("serving_prefill", "serving_decode")},
+        "launches_by_variant": {"serving": serving["flash_fwd_variants"],
+                                "training": training["flash_fwd_variants"]},
+        **build,
     }]
     for name, outputs in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
         row = bwd_timed[name]
@@ -1042,8 +1261,8 @@ def main() -> int:
         })
     log(", ".join(card) if card else "nvidia-smi: no output")
     print(json.dumps({"kernels": kernels}), flush=True)
-    phases = (("kernel", kernel_ok), ("model", model_ok), ("serving", serving_ok),
-              ("training", training_ok))
+    phases = (("build", build_ok), ("kernel", kernel_ok), ("model", model_ok),
+              ("serving", serving_ok), ("training", training_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

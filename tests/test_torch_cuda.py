@@ -6,7 +6,11 @@ They skip without a CUDA device. On a machine with an H100 run them with
 port's machine need not have; this file imports no JAX). They hold the
 kernel against its plain version at small shapes and pin the wrapper's
 contract: refusals raise and do not count, launches count one each, and
-the served model runs every attention through the kernel; the backward
+the served model runs every attention through the kernel; K1's two bf16
+variants (``tile`` for Q > 16, ``decode`` for Q <= 16) match the plain
+version at the edges of their shapes, each counter moves only on its own
+variant, f32 takes the ``fma`` variant, and a view the 16-byte loads
+cannot read is copied and counted; the backward
 kernels (dQ, dK/dV) match the plain backward on the same O and LSE, and a
 training step runs every attention backward through them.
 """
@@ -60,6 +64,175 @@ def test_kernel_matches_plain(dev, dtype, case):
     assert (lse - lse_ref).abs().max().item() <= tol_lse
     # without return_lse the kernel skips the LSE write; O is the same
     assert torch.equal(fa.flash_attention(q, k, v, bias, causal), o)
+
+
+FWD_COUNTERS = ("FLASH_FWD_LAUNCHES", "FLASH_FWD_TILE_LAUNCHES",
+                "FLASH_FWD_DECODE_LAUNCHES", "FLASH_FWD_FMA_LAUNCHES", "FLASH_FWD_COPIES")
+
+
+def _fwd_counters():
+    return {c: getattr(fa, c) for c in FWD_COUNTERS}
+
+
+def _moved(before):
+    return {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n}
+
+
+def _visited_reference(q, k, v, bias, causal):
+    """K1's function in plain ops: the plain forward restricted under the
+    causal flag to the keys of the tiles K1 visits (as chip_smoke.py's
+    ``visited_reference``), so all-padding causal rows are held too."""
+    if causal:
+        Q, K = q.shape[1], k.shape[1]
+        skip = torch.zeros(Q, K, device=q.device).masked_fill_(
+            ~fa.visited_keys(Q, K, q.device), float("-inf"))
+        bias = skip if bias is None else bias.float() + skip
+    return fa.flash_attention_reference(q, k, v, bias, causal, True)
+
+
+EDGE_Q = (1, 2, 16, 17, 63, 64, 65, 112)
+EDGE_K = (1, 63, 64, 65, 112, 576)
+
+
+@pytest.mark.parametrize("K", EDGE_K)
+@pytest.mark.parametrize("Q", EDGE_Q)
+def test_bf16_variants_match_plain_at_the_edges(dev, Q, K):
+    """Each bf16 variant at the edges of its tiles: no bias, a full-rank,
+    a per-head and a broadcast padding bias, the causal flag alone and with
+    left padding whose first rows see only padding keys. Only the chosen
+    variant's counter (and the total) moves; nothing is copied."""
+    B, H = 2, 3
+    variant = fa.forward_variant(torch.bfloat16, Q)
+    q, k, v = _qkv(dev, B, Q, K, H=H, dtype=torch.bfloat16, seed=1000 * Q + K)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(K)
+    keep = (torch.rand(B, K, generator=gen, device=dev) > 0.3) | (torch.arange(K, device=dev) < 1)
+    left = torch.ones(B, K, dtype=torch.long, device=dev)
+    left[0, : min(K, 40)] = 0  # row 0: the first 40 keys are padding
+    cases = {
+        "none": (None, False),
+        "full": (torch.randn(B, 1, Q, K, generator=gen, device=dev), False),
+        "per_head": (torch.randn(1, H, Q, K, generator=gen, device=dev), False),
+        "padding": (attn.padding_bias(keep.long()), False),
+        "causal": (None, True),
+        "causal_left_pad": (attn.padding_bias(left), True),
+    }
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    for name, (bias, causal) in cases.items():
+        before = _fwd_counters()
+        o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+        moved = _moved(before)
+        o_ref, lse_ref = _visited_reference(q, k, v, bias, causal)
+        torch.cuda.synchronize()
+        assert moved == {"FLASH_FWD_LAUNCHES": 1, f"FLASH_FWD_{variant.upper()}_LAUNCHES": 1}, name
+        assert o.shape == q.shape and o.dtype == torch.bfloat16 and lse.shape == (B, H, Q)
+        assert torch.isfinite(o).all() and torch.isfinite(lse).all(), name
+        assert (o.float() - o_ref.float()).abs().max().item() <= tol_o, name
+        assert (lse - lse_ref).abs().max().item() <= tol_lse, name
+
+
+@pytest.mark.parametrize("K", [1024, 4096])
+def test_tile_variant_holds_over_many_key_tiles(dev, K):
+    """The tile variant over 16 and 64 key tiles, with peaked logits and V
+    rows that differ: P is the register A operand of O += P V in every key
+    tile, so a P fragment that went stale or out of order between tiles
+    would weight the wrong V rows. A per-row bias makes each row's peak
+    fall in other tiles; V / 4 keeps |O| near 1, the scale TOL is set for."""
+    B, Q, H = 2, 130, 3
+    q, k, v = _qkv(dev, B, Q, K, H=H, dtype=torch.bfloat16, seed=K)
+    q, v = q * 3, v / 4
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(K + 1)
+    bias = 2 * torch.randn(B, 1, Q, K, generator=gen, device=dev)
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    for b in (None, bias):
+        before = _fwd_counters()
+        o, lse = fa.flash_attention(q, k, v, b, False, True)
+        assert _moved(before) == {"FLASH_FWD_LAUNCHES": 1, "FLASH_FWD_TILE_LAUNCHES": 1}
+        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, b, False, True)
+        torch.cuda.synchronize()
+        assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+        assert (lse - lse_ref).abs().max().item() <= tol_lse
+
+
+@pytest.mark.parametrize("Q", [1, 9, 40], ids=lambda q: f"Q{q}")
+def test_bf16_strided_views_read_in_place(dev, Q):
+    """q/k/v as views of one packed bf16 projection (the GPT-2 layout):
+    read in place by both bf16 variants, no copy."""
+    qkv = torch.randn(2, 70, 3 * 128, device=dev).bfloat16()
+    q, k, v = (t.view(2, 70, 2, 64) for t in qkv.split(128, dim=-1))
+    q = q[:, :Q]
+    before = _fwd_counters()
+    o = fa.flash_attention(q, k, v, None, Q > 1)
+    assert _moved(before) == {
+        "FLASH_FWD_LAUNCHES": 1,
+        f"FLASH_FWD_{fa.forward_variant(torch.bfloat16, Q).upper()}_LAUNCHES": 1}
+    ref, _ = _visited_reference(q, k, v, None, Q > 1)
+    assert (o.float() - ref.float()).abs().max().item() <= TOL[torch.bfloat16][0]
+
+
+@pytest.mark.parametrize("Q", [1, 70], ids=lambda q: f"Q{q}")
+def test_misaligned_view_is_copied_and_counted(dev, Q):
+    """A K/V view whose row stride is not a multiple of 8 elements, and a
+    q whose base is off 16 bytes: the wrapper copies each such tensor the
+    variant reads with 16-byte loads, counts the copies, and gives the
+    result of contiguous inputs."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    q, k, v = _qkv(dev, 2, Q, 70, dtype=torch.bfloat16, seed=8)
+    wide = torch.randn(2, 70, 2 * 64 + 4, generator=gen, device=dev).bfloat16()
+    k_odd = wide[..., :128].unflatten(-1, (2, 64))  # row stride 132
+    k_odd.copy_(k)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    q_odd = flat[1:].view(q.shape)  # base 2 bytes past an allocation
+    q_odd.copy_(q)
+    assert not fa.aligned_for_16_byte_loads(k_odd) and not fa.aligned_for_16_byte_loads(q_odd)
+    want = fa.flash_attention(q, k, v, None, False)
+    before = _fwd_counters()
+    got = fa.flash_attention(q_odd, k_odd, v, None, False)
+    copies = 2 if fa.forward_variant(torch.bfloat16, Q) == "tile" else 1  # decode reads q narrow
+    assert _moved(before)["FLASH_FWD_COPIES"] == copies
+    assert torch.equal(got, want)
+
+
+def test_f32_launches_fma_and_bf16_never_does(dev):
+    for Q in (1, 16, 17, 64):
+        q, k, v = _qkv(dev, 2, Q, 80)
+        before = _fwd_counters()
+        fa.flash_attention(q, k, v, None, True)
+        assert _moved(before) == {"FLASH_FWD_LAUNCHES": 1, "FLASH_FWD_FMA_LAUNCHES": 1}
+        before = _fwd_counters()
+        fa.flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(), None, True)
+        assert "FLASH_FWD_FMA_LAUNCHES" not in _moved(before)
+
+
+def test_entry_point_refuses_a_mismatched_variant(dev):
+    """The C entry point returns -1 for a variant that does not fit the
+    dtype, Q or alignment, and launches nothing."""
+    lib = fa._load()["flash_fwd"]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(q, k, v, variant):
+        B, Q, H, D = q.shape
+        o = torch.empty(q.shape, dtype=q.dtype, device=dev)
+        return lib.trlx_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), None,
+            fa.FORWARD_VARIANTS[variant], fa._DTYPES[q.dtype], B, H, Q, k.shape[1], D,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 0, 0, 0, 0,
+            float(D ** -0.5), 0, stream)
+
+    q32, k32, v32 = _qkv(dev, 1, 20, 30)
+    q, k, v = (x.bfloat16() for x in (q32, k32, v32))
+    assert call(q32, k32, v32, "fma") == 0
+    assert call(q, k, v, "tile") == 0
+    assert call(q[:, :4], k, v, "decode") == 0
+    assert call(q, k, v, "fma") == -1          # bf16 never reaches the FMA kernel
+    assert call(q32, k32, v32, "tile") == -1   # nor f32 the tensor cores
+    assert call(q[:, :4], k, v, "tile") == -1  # Q <= 16 is the decode variant's
+    assert call(q, k, v, "decode") == -1       # and Q > 16 the tile's
+    flat = torch.empty(k.numel() + 1, dtype=torch.bfloat16, device=dev)
+    assert call(q, k, flat[1:].view(k.shape), "tile") == -1  # misaligned V
+    torch.cuda.synchronize()
 
 
 def test_strided_inputs_read_in_place(dev):

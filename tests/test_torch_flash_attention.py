@@ -6,7 +6,10 @@ Inputs come from a numpy seed and go through both packages in f32; every
 case of ``tests/test_flash_attention.py``'s forward class plus decode
 (Q = 1) is one parametrised case. Tolerance: atol 1e-5 (f32; the two sum
 in a different order). The CUDA kernel itself is compared with this plain
-version on the card by ``chip_smoke.py``.
+version on the card by ``chip_smoke.py``. The tests at the end pin, on the
+CPU, what the wrapper decides before a launch: which K1 variant a dtype
+and query count take, which views it copies for the 16-byte loads, and
+the causal visit rule the backward kernels repeat.
 """
 
 import jax.numpy as jnp
@@ -181,3 +184,91 @@ def test_causal_bias_matches_jax():
         j = jattn.causal_bias(4, 9, offset=jnp.asarray(offset) if isinstance(offset, np.ndarray) else offset)
         t = tattn.causal_bias(4, 9, offset=torch.from_numpy(offset) if isinstance(offset, np.ndarray) else offset)
         np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
+@pytest.mark.parametrize(
+    "dtype, Q, variant",
+    [
+        (torch.bfloat16, 1, "decode"), (torch.bfloat16, 16, "decode"),
+        (torch.bfloat16, 17, "tile"), (torch.bfloat16, 512, "tile"),
+        (torch.float32, 1, "fma"), (torch.float32, 16, "fma"),
+        (torch.float32, 17, "fma"), (torch.float32, 512, "fma"),
+    ],
+)
+def test_forward_variant_boundaries(dtype, Q, variant):
+    """bf16 takes the decode variant up to 16 query rows and the tensor-core
+    tile above; f32 always takes the FMA parity path. The decode variant
+    covers exactly the rows whose query tile is 16 rows (the causal visit
+    rule's tile), the tile variant those whose tile is 64."""
+    assert tflash.forward_variant(dtype, Q) == variant
+    if dtype == torch.bfloat16:
+        assert (variant == "decode") == (tflash.forward_block_q(Q) == 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8], ids=str)
+def test_unsupported_dtype_is_refused_before_any_launch(dtype):
+    with pytest.raises(ValueError, match="unsupported dtype"):
+        tflash.forward_variant(dtype, 4)
+    q = torch.empty(1, 4, 2, 64, dtype=dtype, device="meta")
+    counters = ("FLASH_FWD_LAUNCHES", "FLASH_FWD_TILE_LAUNCHES",
+                "FLASH_FWD_DECODE_LAUNCHES", "FLASH_FWD_FMA_LAUNCHES", "FLASH_FWD_COPIES")
+    before = [getattr(tflash, c) for c in counters]
+    with pytest.raises(ValueError, match="dtype"):
+        tflash.flash_attention(q, q, q)
+    assert [getattr(tflash, c) for c in counters] == before
+
+
+def test_forward_tiles_and_visit_rule_unchanged():
+    """The causal visit rule the backward kernels repeat: 16-row query tiles
+    up to Q = 16, 64-row tiles above, 64-key tiles that start before the end
+    of the row's query tile."""
+    assert [tflash.forward_block_q(Q) for Q in (1, 2, 16, 17, 63, 64, 65, 112)] == [
+        16, 16, 16, 64, 64, 64, 64, 64]
+    for Q, K in ((1, 576), (16, 65), (17, 150), (112, 112), (130, 300)):
+        bq = 16 if Q <= 16 else 64
+        want = np.array([[(kj // 64) * 64 < (qi // bq + 1) * bq for kj in range(K)]
+                         for qi in range(Q)])
+        np.testing.assert_array_equal(tflash.visited_keys(Q, K).numpy(), want)
+
+
+def test_alignment_rule_for_16_byte_loads():
+    """Which views the bf16 variants read in place: a 16-byte-aligned base
+    and strides in multiples of 8 elements; a size-1 dim's stride is free.
+    Anything else the wrapper copies (and counts) before the launch."""
+    ok = tflash.aligned_for_16_byte_loads
+    x = torch.zeros(2, 5, 3, 64, dtype=torch.bfloat16)
+    assert ok(x)
+    qkv = torch.zeros(2, 5, 3 * 3 * 64, dtype=torch.bfloat16)  # GPT-2's packed layout
+    assert all(ok(t.view(2, 5, 3, 64)) for t in qkv.split(3 * 64, dim=-1))
+    flat = torch.zeros(2 * 5 * 3 * 64 + 8, dtype=torch.bfloat16)
+    assert not ok(flat[1:1 + x.numel()].view(2, 5, 3, 64))  # base off by 2 bytes
+    assert ok(flat[8:8 + x.numel()].view(2, 5, 3, 64))
+    wide = torch.zeros(2, 5, 3 * 64 + 4, dtype=torch.bfloat16)  # row stride 196
+    assert not ok(wide[..., :192].unflatten(-1, (3, 64)))
+    assert ok(torch.zeros(2, 1, 3, 64, dtype=torch.bfloat16).as_strided((2, 1, 3, 64), (192, 3, 64, 1)))
+    assert not ok(torch.zeros(2, 5, 64, 3, dtype=torch.bfloat16).transpose(-1, -2))
+
+
+@pytest.mark.parametrize("variant, copies", [("tile", 3), ("decode", 2), ("fma", 0)])
+def test_kernel_inputs_copy_what_the_variant_cannot_read(variant, copies):
+    """A contiguous view at a misaligned base (q) and a row stride that is
+    no multiple of 8 elements (k, v) are copied for the variants that read
+    them with 16-byte loads, into aligned contiguous tensors with the same
+    values; the decode variant reads q narrow and the FMA variant reads
+    all three in place. An aligned view is passed through uncopied."""
+    shape = (2, 5, 3, 64)
+    flat = torch.arange(2 * 5 * 3 * 64 + 1, dtype=torch.float32).bfloat16()
+    q = flat[1:].view(shape)
+    wide = torch.randn(2, 5, 3 * 64 + 4).bfloat16()
+    k = wide[..., :192].unflatten(-1, (3, 64))
+    v = wide[..., 4:].unflatten(-1, (3, 64))
+    (q2, k2, v2), n = tflash.kernel_inputs(variant, q, k, v)
+    assert n == copies
+    for before, after, wide_load in zip((q, k, v), (q2, k2, v2), tflash._WIDE_LOADS[variant]):
+        assert torch.equal(before, after)
+        assert (after is not before) == wide_load
+        if wide_load:
+            assert tflash.aligned_for_16_byte_loads(after)
+    aligned = torch.zeros(shape, dtype=torch.bfloat16)
+    (a, b, c), n = tflash.kernel_inputs(variant, aligned, aligned, aligned)
+    assert n == 0 and a is aligned and b is aligned and c is aligned

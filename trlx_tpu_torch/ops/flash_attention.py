@@ -5,7 +5,10 @@ counters.
 Counterpart of :mod:`trlx_tpu.ops.flash_attention`: ``_fwd_kernel`` (K1,
 ``csrc/flash_fwd.cu``), ``_dq_kernel`` (K2) and ``_dkv_kernel`` (K3, both
 ``csrc/flash_bwd.cu``), and the ``jax.custom_vjp`` around them
-(:class:`FlashAttention`). Each source is CUDA C++ for ``sm_90a``, compiled
+(:class:`FlashAttention`). K1 has three variants, one per dtype and
+query count (:func:`forward_variant`): ``tile`` (bf16, Q > 16, tensor
+cores), ``decode`` (bf16, Q <= 16, a GEMV on the CUDA cores) and ``fma``
+(f32, the parity path). Each source is CUDA C++ for ``sm_90a``, compiled
 with ``nvcc`` at first use into ``trlx_tpu_torch/_build/`` (a file named by
 the source's content hash, so an edited source rebuilds; the two sources
 build in parallel) and bound through plain C functions loaded with
@@ -33,14 +36,30 @@ import torch
 from trlx_tpu_torch.ops.attention import NEG_INF, causal_bias
 
 #: kernel launches since import (or since a caller reset them): each is
-#: incremented only where its wrapper launches its CUDA kernel
+#: incremented only where its wrapper launches its CUDA kernel.
+#: ``FLASH_FWD_LAUNCHES`` counts every K1 launch, the three after it the
+#: launches of each K1 variant
 FLASH_FWD_LAUNCHES = 0
+FLASH_FWD_TILE_LAUNCHES = 0
+FLASH_FWD_DECODE_LAUNCHES = 0
+FLASH_FWD_FMA_LAUNCHES = 0
+#: q/k/v copies K1's wrapper made before a launch (a last dim that is not
+#: contiguous, or a view the 16-byte loads cannot read in place)
+FLASH_FWD_COPIES = 0
 FLASH_BWD_DQ_LAUNCHES = 0
 FLASH_BWD_DKV_LAUNCHES = 0
 
 HEAD_DIM = 64  # the head dim the kernels are built for (GPT-2's)
 KEY_TILE = 64  # the forward kernel's key tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: K1's variants, by the code its C entry point takes
+FORWARD_VARIANTS = {"fma": 0, "tile": 1, "decode": 2}
+#: per variant, whether it reads (q, k, v) with 16-byte loads
+_WIDE_LOADS = {
+    "fma": (False, False, False),
+    "tile": (True, True, True),
+    "decode": (False, True, True),
+}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {
@@ -48,10 +67,9 @@ SOURCES = {
     "flash_bwd": os.path.join(_PKG_DIR, "csrc", "flash_bwd.cu"),
 }
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
+#: the device code's flags; the library adds the host side's
+NVCC_DEVICE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
+NVCC_FLAGS = [*NVCC_DEVICE_FLAGS, "-shared", "-Xcompiler", "-fPIC"]
 
 _lib: Dict[str, ctypes.CDLL] = {}
 
@@ -73,41 +91,65 @@ def _library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
-def build(verbose: bool = False) -> Dict[str, str]:
+def _run_nvcc(cmds: Dict[str, list]) -> Dict[str, Tuple[int, str]]:
+    """Run one ``nvcc`` per entry, all started together; ``{name:
+    (return code, what it printed)}``."""
+    procs = {
+        name: subprocess.Popen(
+            [_nvcc(), *args], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        )
+        for name, args in cmds.items()
+    }
+    results = {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        results[name] = (proc.returncode, log)
+    return results
+
+
+def build() -> Dict[str, str]:
     """Compile every kernel source not built yet (one ``nvcc`` each, all
-    started together) and return ``{name: shared library path}``. With
-    ``verbose`` ``ptxas`` reports registers, shared memory and spills."""
+    started together) and return ``{name: shared library path}``."""
     paths = {name: _library_path(name) for name in SOURCES}
-    jobs = {}
+    tmps = {}
     for name, out in paths.items():
         if os.path.exists(out):
             continue
         os.makedirs(BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        fd, tmps[name] = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCES[name]]
-        if verbose:
-            cmd.insert(1, "-Xptxas=-v")
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
-        )
-        jobs[name] = (proc, tmp)
+    results = _run_nvcc(
+        {name: [*NVCC_FLAGS, "-o", tmp, SOURCES[name]] for name, tmp in tmps.items()}
+    )
     failed = []
-    for name, (proc, tmp) in jobs.items():
-        out, err = proc.communicate()
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            failed.append(
-                f"nvcc failed ({proc.returncode}) building {SOURCES[name]}:\n"
-                f"{out}\n{err}"
-            )
+    for name, (rc, log) in results.items():
+        if rc != 0:
+            os.unlink(tmps[name])
+            failed.append(f"nvcc failed ({rc}) building {SOURCES[name]}:\n{log}")
             continue
-        if verbose and (out or err):
-            print(out + err)
-        os.replace(tmp, paths[name])  # atomic: no process loads half a file
+        os.replace(tmps[name], paths[name])  # atomic: no process loads half a file
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
+
+
+def ptxas_reports() -> Dict[str, str]:
+    """``{name: ptxas -v output}`` per kernel source (registers, shared
+    memory and spills of each kernel): its device code compiled again with
+    the library's device flags into a temporary directory, so the report
+    holds whether or not :func:`build` compiled the library in this
+    process."""
+    with tempfile.TemporaryDirectory() as tmp:
+        results = _run_nvcc({
+            name: [*NVCC_DEVICE_FLAGS, "-cubin", "-Xptxas=-v",
+                   "-o", os.path.join(tmp, f"{name}.cubin"), src]
+            for name, src in SOURCES.items()
+        })
+    failed = [f"nvcc -cubin failed ({rc}) on {SOURCES[n]}:\n{log}"
+              for n, (rc, log) in results.items() if rc != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return {name: log for name, (_, log) in results.items()}
 
 
 def _load() -> Dict[str, ctypes.CDLL]:
@@ -117,7 +159,7 @@ def _load() -> Dict[str, ctypes.CDLL]:
         fwd.trlx_flash_fwd.restype = ctypes.c_int
         fwd.trlx_flash_fwd.argtypes = (
             [ctypes.c_void_p] * 6
-            + [ctypes.c_int] * 6
+            + [ctypes.c_int] * 7
             + [ctypes.c_longlong] * 13
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
@@ -132,6 +174,21 @@ def _load() -> Dict[str, ctypes.CDLL]:
             )
         _lib.update(flash_fwd=fwd, flash_bwd=bwd)
     return _lib
+
+
+def forward_variant(dtype: torch.dtype, Q: int) -> str:
+    """The K1 variant for ``Q`` query rows in ``dtype``: ``fma`` for f32
+    (the parity path: tensor cores would make it TF32), ``decode`` for bf16
+    with ``Q <= 16`` (the 16-row query tile of :func:`forward_block_q`) and
+    ``tile`` for bf16 with more rows (the 64-row tile)."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype == torch.bfloat16:
+        return "decode" if Q <= 16 else "tile"
+    raise ValueError(
+        f"flash_attention: unsupported dtype {dtype}; the kernel is built "
+        f"for {sorted(map(str, _DTYPES))}"
+    )
 
 
 def forward_block_q(Q: int) -> int:
@@ -287,13 +344,13 @@ def flash_attention(
 
 def _check(q, k, v, bias, name: str) -> None:
     """Refuse what the kernels were not built for (before any launch)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"{name}: q/k/v must share one dtype of "
             f"{sorted(map(str, _DTYPES))}, got {q.dtype}/{k.dtype}/{v.dtype}"
         )
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError(
             f"{name}: bad shapes q{tuple(q.shape)} k{tuple(k.shape)} "
@@ -317,6 +374,37 @@ def _last_dim_contiguous(*ts):
     return [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
 
 
+def aligned_for_16_byte_loads(t: torch.Tensor) -> bool:
+    """Whether the 16-byte loads of K1's ``tile`` and ``decode`` variants
+    read ``t`` [B, T, H, D] in place: a 16-byte-aligned base, a contiguous
+    last dim, and strides in multiples of 8 elements (a dimension of size
+    1 is never stepped, so its stride does not matter). The C entry point
+    refuses what fails this (``csrc/flash_fwd.cu::aligned16``)."""
+    return (
+        t.data_ptr() % 16 == 0
+        and t.stride(-1) == 1
+        and all(n == 1 or s % 8 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]))
+    )
+
+
+def kernel_inputs(variant: str, q, k, v):
+    """``(q, k, v)`` as K1's ``variant`` reads them in place, and how many
+    of them had to be copied for that. A view the kernel cannot read in
+    place is copied, never sent to another variant or to the plain
+    version. The 16-byte loads read K and V in both bf16 variants, and Q in
+    the tile variant (:func:`aligned_for_16_byte_loads`); every other read
+    needs only a contiguous last dim."""
+    out, copies = [], 0
+    for t, wide in zip((q, k, v), _WIDE_LOADS[variant]):
+        if not (aligned_for_16_byte_loads(t) if wide else t.stride(-1) == 1):
+            # clone, not contiguous(): a contiguous view at a misaligned
+            # base must move too
+            t = t.clone(memory_format=torch.contiguous_format)
+            copies += 1
+        out.append(t)
+    return out, copies
+
+
 def _bias_view(bias, B, H, Q, K):
     """The bias as f32 [B, H, Q, K] with stride 0 on broadcast dims (no
     copy), and its four strides; ``(None, zeros)`` without one."""
@@ -329,11 +417,13 @@ def _bias_view(bias, B, H, Q, K):
 def _launch(
     q, k, v, bias, causal, return_lse
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    global FLASH_FWD_LAUNCHES
+    global FLASH_FWD_LAUNCHES, FLASH_FWD_COPIES
     _check(q, k, v, bias, "flash_attention")
     B, Q, H, D = q.shape
     K = k.shape[1]
-    q, k, v = _last_dim_contiguous(q, k, v)
+    variant = forward_variant(q.dtype, Q)
+    (q, k, v), copies = kernel_inputs(variant, q, k, v)
+    FLASH_FWD_COPIES += copies
     bias, sb = _bias_view(bias, B, H, Q, K)
     o = torch.empty((B, Q, H, D), dtype=q.dtype, device=q.device)
     lse = (
@@ -348,7 +438,7 @@ def _launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None,
             o.data_ptr(), lse.data_ptr() if lse is not None else None,
-            _DTYPES[q.dtype], B, H, Q, K, D,
+            FORWARD_VARIANTS[variant], _DTYPES[q.dtype], B, H, Q, K, D,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
             v.stride(0), v.stride(1), v.stride(2),
@@ -356,8 +446,11 @@ def _launch(
             float(D ** -0.5), int(bool(causal)), stream,
         )
     if rc != 0:
-        raise RuntimeError(f"flash_fwd kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(
+            f"flash_fwd kernel launch failed ({variant} variant): CUDA error {rc}"
+        )
     FLASH_FWD_LAUNCHES += 1
+    globals()[f"FLASH_FWD_{variant.upper()}_LAUNCHES"] += 1
     return o, lse
 
 
@@ -438,12 +531,19 @@ def _launch_backward(
 __all__ = [
     "FLASH_BWD_DKV_LAUNCHES",
     "FLASH_BWD_DQ_LAUNCHES",
+    "FLASH_FWD_COPIES",
+    "FLASH_FWD_DECODE_LAUNCHES",
+    "FLASH_FWD_FMA_LAUNCHES",
     "FLASH_FWD_LAUNCHES",
+    "FLASH_FWD_TILE_LAUNCHES",
+    "FORWARD_VARIANTS",
     "FlashAttention",
     "NEG_INF",
     "build",
     "flash_attention",
     "flash_attention_backward_reference",
     "flash_attention_reference",
+    "forward_variant",
+    "kernel_inputs",
     "visited_keys",
 ]
