@@ -6,14 +6,15 @@ Phases, each fatal on failure:
 1. build — compile the flash-attention kernels (``trlx_tpu_torch/csrc/
    flash_fwd.cu``: K1 in three variants, ``tile`` for bf16 with Q > 16 on
    the tensor cores, ``decode`` for bf16 with Q <= 16, ``fma`` for f32;
-   ``flash_bwd.cu``: K2 dQ and K3 dK/dV) with ``nvcc`` for ``sm_90a``, both
+   ``flash_bwd.cu``: K2 dQ and K3 dK/dV, each ``tile`` for bf16 on the
+   tensor cores and ``fma`` for f32) with ``nvcc`` for ``sm_90a``, both
    sources at once, and beside them each source's device code alone with
    ``ptxas -v`` (every run, so the report holds when the libraries were
    already built); print ``ptxas``'s registers, shared memory and spills
    per kernel, and the count of tensor-core instructions (``HMMA`` or
-   ``HGMMA``) in the tile variant's SASS (``cuobjdump -sass``). A spill in
-   K1, a K1 kernel missing from the report, or a tile variant without
-   tensor-core instructions fails the phase;
+   ``HGMMA``) in each kernel's SASS (``cuobjdump -sass``). A spill in K1 or
+   in a backward tile kernel, one of them missing from the report, or a
+   tile kernel without tensor-core instructions fails the phase;
 2. kernel — hold K1 against its plain PyTorch version on the card at the
    serving path's shapes (prefill, decode) and the edge cases (causal flag
    with a padding bias, ragged Q/K, per-head bias, 64 key tiles with peaked
@@ -23,12 +24,15 @@ Phases, each fatal on failure:
    K3 against the plain backward (fed K1's own O and LSE) at the
    training shape (B=16, T=112, causal + padding bias, and with left
    padding), the rollout-prefill shape (explicit causal + padding bias),
-   ragged Q/K with a full-rank bias and a per-head bias, in bf16 and f32;
+   ragged Q/K with a full-rank bias and a per-head bias, and two long
+   cases (16 query chunks and key tiles under the causal flag; 64 key
+   tiles with peaked logits), in bf16 (``tile``) and f32 (``fma``);
    hold the autograd ``Function`` against autograd through the plain
    forward; time K1 at the five shapes of the two paths (serving prefill
    and decode, update forward, rollout prefill and decode; the serving
    two in f32 too) and K2, K3 (through their C entry points, arguments
-   packed beforehand) at the training shape (kernel, plain version, and a
+   packed beforehand, and through their Python wrappers) at the training
+   shape (kernel, plain version, and a
    PyTorch yardstick the port never calls: ``scaled_dot_product_attention``,
    and for the backward ``torch.autograd.grad`` of its output) beside the
    card's bound;
@@ -51,8 +55,9 @@ Phases, each fatal on failure:
    fresh trainer's ``load`` must restore the saved state exactly, K1 must
    launch 12 x the trainer's forwards (the tile variant 12 x those over
    more than 16 positions, the decode variant 12 x the decode steps, no
-   ``fma`` launch and no input copy), K2 and K3 12 x 64 times each, and
-   the plain attention not at all.
+   ``fma`` launch and no input copy), K2 and K3 12 x 64 times each, all of
+   them the ``tile`` variant with no input copy, and the plain attention
+   not at all.
 
 Each path (phases 4 and 5) runs with the launch counters set to 0 just
 before it and read just after. Prints the card's name and power limit, a
@@ -112,6 +117,8 @@ FWD_VARIANT_COUNTERS = {
     "decode": "FLASH_FWD_DECODE_LAUNCHES",
     "fma": "FLASH_FWD_FMA_LAUNCHES",
 }
+BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
+BWD_VARIANTS = ("tile", "fma")
 
 
 def log(msg: str) -> None:
@@ -189,15 +196,23 @@ def tensor_core_instructions(fa, library: str) -> dict:
     return counts
 
 
-K1_KERNELS = ("flash_fwd_tile_kernel", "flash_fwd_decode_kernel", "flash_fwd_fma_kernel")
+# per library, the kernels phase 1 gates: each in the ptxas report with no
+# spill; the tile kernels also with tensor-core instructions in their SASS
+GATED_KERNELS = {
+    "flash_fwd": ("flash_fwd_tile_kernel", "flash_fwd_decode_kernel", "flash_fwd_fma_kernel"),
+    "flash_bwd": ("flash_bwd_dq_tile_kernel", "flash_bwd_dkv_tile_kernel"),
+}
+TILE_KERNELS = ("flash_fwd_tile_kernel", "flash_bwd_dq_tile_kernel", "flash_bwd_dkv_tile_kernel")
 
 
 def phase_build(fa) -> tuple:
     """Build both sources and, at the same time, compile their device code
     again with ``ptxas -v`` (so the report exists whether or not the
     libraries were already built); report registers, shared memory and
-    spills per kernel and the tensor-core instructions of K1's tile
-    variant. Returns ``(ok, record)``."""
+    spills per kernel and the tensor-core instructions of each kernel.
+    Returns ``(ok, record)``; the record holds, per gated kernel, its
+    registers, spill bytes (None when missing from the report) and, for
+    the tile kernels, the HMMA/HGMMA count."""
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         reports = pool.submit(fa.ptxas_reports)
@@ -207,24 +222,29 @@ def phase_build(fa) -> tuple:
     seconds = time.perf_counter() - t0
     log(f"phase 1: built {', '.join(os.path.relpath(p) for p in paths.values())} "
         f"and the ptxas reports in {seconds:.1f} s")
-    ptxas = {}
-    for name in ("flash_fwd", "flash_bwd"):
-        ptxas[name] = ptxas_report(reports[name])
-        for fn, row in sorted(ptxas[name].items()):
+    record, mma = {}, {}
+    for name, kernels in GATED_KERNELS.items():
+        ptxas = ptxas_report(reports[name])
+        for fn, row in sorted(ptxas.items()):
             log(f"phase 1: ptxas {fn}: {json.dumps(row)}")
-    # every K1 kernel must be in the report, with its spill line
-    k1 = {kernel: [r.get("spill_bytes") for fn, r in ptxas["flash_fwd"].items() if kernel in fn]
-          for kernel in K1_KERNELS}
-    reported = all(rows and None not in rows for rows in k1.values())
-    fwd_spills = sum(sum(rows) for rows in k1.values()) if reported else None
-    mma = tensor_core_instructions(fa, paths["flash_fwd"])
-    tile_mma = sum(n for fn, n in mma.items() if "flash_fwd_tile_kernel" in fn)
-    log(f"phase 1: tensor-core instructions (HMMA/HGMMA) per K1 kernel: {json.dumps(mma)}")
-    ok = tile_mma > 0 and fwd_spills == 0
-    log(f"phase 1: {'ok' if ok else 'FAIL'} (tile variant HMMA/HGMMA={tile_mma}, "
-        f"K1 spill bytes={fwd_spills}"
-        f"{'' if reported else ', a K1 kernel is missing from the ptxas report'})")
-    return ok, {"tile_tensor_core_instructions": tile_mma, "k1_spill_bytes": fwd_spills}
+        for kernel in kernels:
+            rows = [r for fn, r in ptxas.items() if kernel in fn]
+            spills = [r.get("spill_bytes") for r in rows]
+            record[kernel] = {
+                "registers": max((r.get("registers", 0) for r in rows), default=None),
+                "spill_bytes": sum(spills) if rows and None not in spills else None,
+            }
+        mma.update(tensor_core_instructions(fa, paths[name]))
+    log(f"phase 1: tensor-core instructions (HMMA/HGMMA) per kernel: {json.dumps(mma)}")
+    for kernel in TILE_KERNELS:
+        record[kernel]["tensor_core_instructions"] = sum(
+            n for fn, n in mma.items() if kernel in fn)
+    missing = [k for k, r in record.items() if r["spill_bytes"] is None]
+    ok = not missing and all(r["spill_bytes"] == 0 for r in record.values()) and all(
+        record[k]["tensor_core_instructions"] > 0 for k in TILE_KERNELS)
+    log(f"phase 1: {'ok' if ok else 'FAIL'} ({json.dumps(record)}"
+        f"{f'; missing from the ptxas report: {missing}' if missing else ''})")
+    return ok, record
 
 
 def kernel_cases(torch, attn):
@@ -435,6 +455,16 @@ def backward_cases(torch, attn):
     cases.append(("decode", *qkv(128, 1, 112), bias, False))
     cases.append(("ragged_bias", *qkv(2, 77, 141), torch.randn(2, 1, 77, 141, generator=gen, device=dev), False))
     cases.append(("per_head_bias", *qkv(2, 130, 200), torch.randn(1, 12, 130, 200, generator=gen, device=dev), False))
+    # long: 16 query chunks and 16 key tiles under the causal flag with a
+    # padding bias; and 64 key tiles with peaked logits (x3 and a per-row
+    # bias) and V / 4, as K1's long_k. A register A operand that went stale
+    # or out of order between chunks or tiles, or a ring fault, shows here
+    keep = torch.arange(1024, device=dev)[None, :] < 4
+    mask = (torch.rand(2, 1024, generator=gen, device=dev) > 0.2) | keep
+    cases.append(("long_causal", *qkv(2, 1024, 1024), attn.padding_bias(mask.long()), True))
+    q, k, v = qkv(2, 128, 4096)
+    bias = 2 * torch.randn(2, 1, 128, 4096, generator=gen, device=dev)
+    cases.append(("long_k", 3 * q, k, v / 4, bias, False))
     return cases
 
 
@@ -493,7 +523,7 @@ def packed_backward_calls(torch, fa, copies, causal):
     stream = torch.cuda.current_stream().cuda_stream
     dq_calls, dkv_calls, outputs = [], [], []
     for c in copies:
-        inputs, common = fa._backward_args(*c, causal)
+        _, inputs, common = fa._backward_args(*c, causal)
         ptrs = fa._pointers(inputs)
         dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in inputs[:3])
         outputs.append((inputs, dq, dk, dv))
@@ -545,7 +575,7 @@ def phase_backward(torch, fa, attn):
             got = fa._launch_backward(q, k, v, bias, o, lse, do, causal)
             want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, causal)
             torch.cuda.synchronize()
-            row = {"case": name, "dtype": dtype_name}
+            row = {"case": name, "dtype": dtype_name, "variant": fa.backward_variant(dt)}
             ok = True
             for key, g, w in zip(("dq", "dk", "dv"), got, want):
                 err = (g.float() - w.float()).abs().max().item()
@@ -554,7 +584,8 @@ def phase_backward(torch, fa, attn):
                 ok = ok and math.isfinite(err) and err <= tol
             row["ok"] = ok
             results.append(row)
-            log(f"phase 2: bwd {name:14s} {dtype_name:8s} max|ddQ|={row['max_abs_err_dq']:.3e} "
+            log(f"phase 2: bwd {name:14s} {dtype_name:8s} ({row['variant']}) "
+                f"max|ddQ|={row['max_abs_err_dq']:.3e} "
                 f"max|ddK|={row['max_abs_err_dk']:.3e} max|ddV|={row['max_abs_err_dv']:.3e} "
                 f"(tol {row['tol_dq']:.1e}/{row['tol_dk']:.1e}/{row['tol_dv']:.1e}) "
                 f"{'ok' if ok else 'FAIL'}")
@@ -579,6 +610,10 @@ def phase_backward(torch, fa, attn):
             log(f"phase 2: packed K2/K3 calls rc={rcs}, outputs equal the wrappers': "
                 f"{'ok' if same else 'FAIL'}")
             del packed, dq_calls, dkv_calls
+            wrapper = {
+                "flash_bwd_dq": time_ms([lambda c=c: fa._launch_dq(*c, causal) for c in copies]),
+                "flash_bwd_dkv": time_ms([lambda c=c: fa._launch_dkv(*c, causal) for c in copies]),
+            }
             plain = time_ms([
                 lambda c=c: fa.flash_attention_backward_reference(*c, causal) for c in copies
             ])
@@ -600,9 +635,11 @@ def phase_backward(torch, fa, attn):
             for kname, ms in (("flash_bwd_dq", kernel_dq), ("flash_bwd_dkv", kernel_dkv)):
                 timed[kname] = {
                     "shape": f"B={B} H=12 Q=K={T} D=64 causal, bias {list(bias.shape)}",
-                    "ms": ms, "plain_ms": plain, "library_ms": library, **bounds[kname],
+                    "variant": fa.backward_variant(dt), "ms": ms, "wrapper_ms": wrapper[kname],
+                    "plain_ms": plain, "library_ms": library, **bounds[kname],
                 }
-                log(f"phase 2: {kname} bf16 {timed[kname]['shape']}: kernel_ms={ms} "
+                log(f"phase 2: {kname} bf16 {timed[kname]['shape']} ({timed[kname]['variant']}): "
+                    f"kernel_ms={ms} wrapper_ms={wrapper[kname]} "
                     f"plain_ms={plain} (whole plain backward) library_ms={library} "
                     f"(SDPA's whole backward) bound_ms={bounds[kname]['bound_ms']} "
                     f"({bounds[kname]['bound_by']})")
@@ -753,9 +790,10 @@ def phase_model_backward(torch, fa):
         finally:
             gpt2.dot_product_attention = orig
 
-    dq0, dkv0 = fa.FLASH_BWD_DQ_LAUNCHES, fa.FLASH_BWD_DKV_LAUNCHES
+    before = backward_variant_launches(fa)
     kernel = grads_with(gpt2.dot_product_attention)
-    launches = (fa.FLASH_BWD_DQ_LAUNCHES - dq0, fa.FLASH_BWD_DKV_LAUNCHES - dkv0)
+    after = backward_variant_launches(fa)
+    launches = {k: {v: after[k][v] - before[k][v] for v in BWD_VARIANTS} for k in BWD_KERNELS}
     reference = grads_with(plain)
     groups = {}
     for (name, _), g, r in zip(model.named_parameters(), kernel, reference):
@@ -766,10 +804,11 @@ def phase_model_backward(torch, fa):
         err, top = groups.get(group, (0.0, 0.0))
         groups[group] = (max(err, (g - r).abs().max().item()), max(top, r.abs().max().item()))
     rel = {k: err / max(top, 1e-30) for k, (err, top) in groups.items()}
-    ok = all(math.isfinite(v) and v <= 1e-3 for v in rel.values()) and launches == (
-        cfg.n_layer, cfg.n_layer)
+    ok = all(math.isfinite(v) and v <= 1e-3 for v in rel.values()) and launches == {
+        k: {"tile": 0, "fma": cfg.n_layer} for k in BWD_KERNELS}
     log("phase 3: full-width f32 GPT-2 PPO-loss gradient, kernels vs plain attention: "
-        "max relative error per group " + json.dumps(rel) + f"; K2/K3 launches={launches} "
+        "max relative error per group " + json.dumps(rel) + f"; K2/K3 launches by variant "
+        f"{json.dumps(launches)} "
         f"{'ok' if ok else 'FAIL'}")
     return ok
 
@@ -816,6 +855,20 @@ def reset_forward_counters(fa) -> None:
     fa.FLASH_FWD_LAUNCHES = fa.FLASH_FWD_COPIES = 0
     for counter in FWD_VARIANT_COUNTERS.values():
         setattr(fa, counter, 0)
+
+
+def reset_backward_counters(fa) -> None:
+    fa.FLASH_BWD_COPIES = 0
+    for kernel in BWD_KERNELS:
+        setattr(fa, kernel.upper() + "_LAUNCHES", 0)
+        for variant in BWD_VARIANTS:
+            setattr(fa, f"{kernel.upper()}_{variant.upper()}_LAUNCHES", 0)
+
+
+def backward_variant_launches(fa) -> dict:
+    """K2's and K3's launches by variant."""
+    return {kernel: {v: getattr(fa, f"{kernel.upper()}_{v.upper()}_LAUNCHES")
+                     for v in BWD_VARIANTS} for kernel in BWD_KERNELS}
 
 
 def forward_variant_launches(fa) -> dict:
@@ -1001,7 +1054,7 @@ def phase_training(torch, fa):
         torch.cuda.reset_peak_memory_stats()
         # count the main path's launches only
         reset_forward_counters(fa)
-        fa.FLASH_BWD_DQ_LAUNCHES = fa.FLASH_BWD_DKV_LAUNCHES = 0
+        reset_backward_counters(fa)
         t0 = time.perf_counter()
         try:
             trainer = trlx_tpu_torch.train(
@@ -1020,6 +1073,8 @@ def phase_training(torch, fa):
             "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES,
         }
         variants = forward_variant_launches(fa)
+        bwd_variants = backward_variant_launches(fa)
+        bwd_copies = fa.FLASH_BWD_COPIES
         peak = torch.cuda.max_memory_allocated()
         finite = all(np.isfinite(v).all() for r in rows for v in r.values()) and all(
             math.isfinite(v) for e in evals for v in e.values()
@@ -1056,6 +1111,8 @@ def phase_training(torch, fa):
         "decode": N_LAYER * decode_forwards[0],
         "fma": 0, "copies": 0,
     }
+    # every update backward runs bf16: the tile variant only
+    expected_bwd_variants = {k: {"tile": N_LAYER * 64, "fma": 0} for k in BWD_KERNELS}
     per_phase = trainer.step // len(trainer.phase_times)
     phases = [
         dict(p, rollout_tokens_per_s=p["rollout_tokens"] / p["collect_s"],
@@ -1074,6 +1131,9 @@ def phase_training(torch, fa):
         "decode_forwards": decode_forwards[0],
         "flash_fwd_variants": variants,
         "expected_variants": expected_variants,
+        "backward_variants": bwd_variants,
+        "expected_backward_variants": expected_bwd_variants,
+        "backward_copies": bwd_copies,
         "plain_attention_calls": plain_calls[0],
         "params_changed": changed,
     }
@@ -1081,12 +1141,14 @@ def phase_training(torch, fa):
     ok = (
         trainer.step == 64 and len(rows) == 2 and finite and changed > 0
         and restored and launches == expected and variants == expected_variants
+        and bwd_variants == expected_bwd_variants and bwd_copies == 0
         and plain_calls[0] == 0
     )
     log(f"phase 5: {'ok' if ok else 'FAIL'} (updates={trainer.step}, phases={len(rows)}, "
         f"finite={finite}, changed tensors={changed}, load restores={restored}, "
         f"launches={launches} vs {expected}, K1 by variant {variants} vs "
-        f"{expected_variants}, plain attention calls={plain_calls[0]})")
+        f"{expected_variants}, K2/K3 by variant {bwd_variants} vs {expected_bwd_variants}, "
+        f"backward input copies={bwd_copies}, plain attention calls={plain_calls[0]})")
     return ok, record
 
 
@@ -1220,6 +1282,7 @@ def main() -> int:
             "bound_by")}
 
     decode = entry("serving_decode")
+    k1_spills = [build[k]["spill_bytes"] for k in GATED_KERNELS["flash_fwd"]]
     kernels = [{
         "name": "flash_fwd",
         "route": "cuda",
@@ -1245,7 +1308,9 @@ def main() -> int:
                 for s in ("serving_prefill", "serving_decode")},
         "launches_by_variant": {"serving": serving["flash_fwd_variants"],
                                 "training": training["flash_fwd_variants"]},
-        **build,
+        "tile_tensor_core_instructions": build["flash_fwd_tile_kernel"]["tensor_core_instructions"],
+        # None, never an unmeasured 0, when a K1 kernel is missing from the report
+        "k1_spill_bytes": None if None in k1_spills else sum(k1_spills),
     }]
     for name, outputs in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
         row = bwd_timed[name]
@@ -1256,8 +1321,12 @@ def main() -> int:
             "replaces": REPLACES[name],
             "launches": training["launches"][name],
             "max_abs_err": max(c[f"max_abs_err_{o}"] for c in bwd_checks for o in outputs),
-            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "variant", "wrapper_ms")},
             "timed_shape": "training bf16 " + row["shape"],
+            "launches_by_variant": training["backward_variants"][name],
+            **{k: build[f"{name}_tile_kernel"][k] for k in (
+                "spill_bytes", "registers", "tensor_core_instructions")},
         })
     log(", ".join(card) if card else "nvidia-smi: no output")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,8 +11,10 @@ variants (``tile`` for Q > 16, ``decode`` for Q <= 16) match the plain
 version at the edges of their shapes, each counter moves only on its own
 variant, f32 takes the ``fma`` variant, and a view the 16-byte loads
 cannot read is copied and counted; the backward
-kernels (dQ, dK/dV) match the plain backward on the same O and LSE, and a
-training step runs every attention backward through them.
+kernels (dQ, dK/dV) match the plain backward on the same O and LSE, bf16
+takes their ``tile`` variant and f32 their ``fma`` variant, the C entry
+points refuse a mismatched variant, a misaligned view is copied and
+counted, and a training step runs every attention backward through them.
 """
 
 import pytest
@@ -306,6 +308,11 @@ BWD_CASES = {  # B, Q, K, causal, bias kind
     "all_masked_rows": (2, 112, 112, True, "left_pad"),
     "causal_long": (2, 300, 300, True, None),
     "causal_ragged": (2, 70, 150, True, "pad"),
+    # 16 query chunks and 16 key tiles; 64 key tiles with peaked logits:
+    # a register A operand gone stale between chunks or tiles, or a ring
+    # fault, shows here
+    "long_causal": (2, 1024, 1024, True, "pad"),
+    "long_k": (2, 128, 4096, False, "peaked"),
 }
 
 
@@ -326,6 +333,9 @@ def _bwd_inputs(dev, case, dtype):
         bias = torch.randn(B, 1, Q, K, generator=gen, device=dev)
     elif kind == "head":
         bias = torch.randn(1, 2, Q, K, generator=gen, device=dev)
+    elif kind == "peaked":  # logits x3 and a per-row bias; V / 4 keeps |O| near 1
+        q, v = q * 3, v / 4
+        bias = 2 * torch.randn(B, 1, Q, K, generator=gen, device=dev)
     do = torch.randn(B, Q, 2, 64, generator=gen, device=dev).to(dtype)
     return q, k, v, bias, causal, do
 
@@ -382,6 +392,83 @@ def test_backward_through_strided_views_matches_autograd_of_plain(dev):
         (fn(q, k, v, None, True) * w).sum().backward()
         grads.append(qkv.grad)
     torch.testing.assert_close(grads[0], grads[1], atol=1e-4, rtol=0)
+
+
+BWD_COUNTERS = ("FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DKV_LAUNCHES",
+                "FLASH_BWD_DQ_TILE_LAUNCHES", "FLASH_BWD_DKV_TILE_LAUNCHES",
+                "FLASH_BWD_DQ_FMA_LAUNCHES", "FLASH_BWD_DKV_FMA_LAUNCHES", "FLASH_BWD_COPIES")
+
+
+def _bwd_counters():
+    return {c: getattr(fa, c) for c in BWD_COUNTERS}
+
+
+@pytest.mark.parametrize("case", ["causal_small_q", "one_key", "causal_padding", "ragged_bias"])
+def test_bf16_backward_never_launches_fma_and_f32_always_does(dev, case):
+    """bf16 takes the tile variant of both backward kernels, f32 the fma
+    variant; each launch moves the total and its variant's counter only."""
+    for dtype, variant in ((torch.bfloat16, "TILE"), (torch.float32, "FMA")):
+        q, k, v, bias, causal, do = _bwd_inputs(dev, case, dtype)
+        o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+        before = _bwd_counters()
+        fa._launch_backward(q, k, v, bias, o, lse, do, causal)
+        moved = {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n}
+        assert moved == {"FLASH_BWD_DQ_LAUNCHES": 1, "FLASH_BWD_DKV_LAUNCHES": 1,
+                         f"FLASH_BWD_DQ_{variant}_LAUNCHES": 1,
+                         f"FLASH_BWD_DKV_{variant}_LAUNCHES": 1}, dtype
+
+
+def test_backward_entry_points_refuse_a_mismatched_variant(dev):
+    """The C entry points return -1 for a variant that does not fit the
+    dtype or the alignment, and launch nothing."""
+    lib = fa._load()["flash_bwd"]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(variant, dtype, misaligned_q=False):
+        q, k, v, bias, causal, do = _bwd_inputs(dev, "causal_padding", dtype)
+        o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+        if misaligned_q:
+            flat = torch.empty(q.numel() + 1, dtype=dtype, device=dev)
+            bad = flat[1:].view(q.shape)
+            bad.copy_(q)
+            q = bad
+        args = [q, k, v, bias, o, lse, do, causal]
+        _, inputs, common = fa._backward_args(*args)
+        # the packing copied the misaligned q: hand the kernel the view
+        inputs = (q, *inputs[1:]) if misaligned_q else inputs
+        common = (fa.BACKWARD_VARIANTS[variant], *common[1:])
+        ptrs = fa._pointers(inputs)
+        dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=dev) for t in inputs[:3])
+        return (lib.trlx_flash_bwd_dq(*ptrs, dq.data_ptr(), *common, stream),
+                lib.trlx_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *common, stream))
+
+    assert call("tile", torch.bfloat16) == (0, 0)
+    assert call("fma", torch.float32) == (0, 0)
+    assert call("fma", torch.bfloat16) == (-1, -1)  # bf16 never reaches the FMA kernels
+    assert call("tile", torch.float32) == (-1, -1)  # nor f32 the tensor cores
+    assert call("tile", torch.bfloat16, misaligned_q=True) == (-1, -1)
+    torch.cuda.synchronize()
+
+
+def test_backward_misaligned_views_are_copied_and_counted(dev):
+    """q at a base off 16 bytes and k with a row stride that is no multiple
+    of 8 elements: the backward's packing copies each once (once for both
+    kernels), counts the copies, and gives the gradients of aligned inputs."""
+    q, k, v, bias, causal, do = _bwd_inputs(dev, "causal_padding", torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+    flat = torch.empty(q.numel() + 1, dtype=torch.bfloat16, device=dev)
+    q_odd = flat[1:].view(q.shape)  # base 2 bytes past an allocation
+    q_odd.copy_(q)
+    wide = torch.empty(*k.shape[:2], 2 * 64 + 4, dtype=torch.bfloat16, device=dev)
+    k_odd = wide[..., :128].unflatten(-1, (2, 64))  # row stride 132
+    k_odd.copy_(k)
+    want = fa._launch_backward(q, k, v, bias, o, lse, do, causal)
+    before = _bwd_counters()
+    got = fa._launch_backward(q_odd, k_odd, v, bias, o, lse, do, causal)
+    assert fa.FLASH_BWD_COPIES - before["FLASH_BWD_COPIES"] == 2
+    assert fa.FLASH_BWD_DQ_TILE_LAUNCHES - before["FLASH_BWD_DQ_TILE_LAUNCHES"] == 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
 
 
 def test_backward_counters_and_refusals(dev):

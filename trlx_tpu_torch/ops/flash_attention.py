@@ -8,9 +8,11 @@ Counterpart of :mod:`trlx_tpu.ops.flash_attention`: ``_fwd_kernel`` (K1,
 (:class:`FlashAttention`). K1 has three variants, one per dtype and
 query count (:func:`forward_variant`): ``tile`` (bf16, Q > 16, tensor
 cores), ``decode`` (bf16, Q <= 16, a GEMV on the CUDA cores) and ``fma``
-(f32, the parity path). Each source is CUDA C++ for ``sm_90a``, compiled
-with ``nvcc`` at first use into ``trlx_tpu_torch/_build/`` (a file named by
-the source's content hash, so an edited source rebuilds; the two sources
+(f32, the parity path). K2 and K3 have two, one per dtype
+(:func:`backward_variant`): ``tile`` (bf16, tensor cores) and ``fma``
+(f32). Each source is CUDA C++ for ``sm_90a``, compiled with ``nvcc`` at
+first use into ``trlx_tpu_torch/_build/`` (a file named by the hash of the
+source and the header it includes, so an edit rebuilds; the two sources
 build in parallel) and bound through plain C functions loaded with
 ``ctypes``. Nothing is imported or built when this module is imported.
 
@@ -46,8 +48,17 @@ FLASH_FWD_FMA_LAUNCHES = 0
 #: q/k/v copies K1's wrapper made before a launch (a last dim that is not
 #: contiguous, or a view the 16-byte loads cannot read in place)
 FLASH_FWD_COPIES = 0
+#: every K2 (dQ) and K3 (dK/dV) launch, then each kernel's launches by
+#: variant
 FLASH_BWD_DQ_LAUNCHES = 0
 FLASH_BWD_DKV_LAUNCHES = 0
+FLASH_BWD_DQ_TILE_LAUNCHES = 0
+FLASH_BWD_DQ_FMA_LAUNCHES = 0
+FLASH_BWD_DKV_TILE_LAUNCHES = 0
+FLASH_BWD_DKV_FMA_LAUNCHES = 0
+#: q/k/v/o/dO copies the backward's argument packing made (a view the
+#: variant cannot read in place), once per packing
+FLASH_BWD_COPIES = 0
 
 HEAD_DIM = 64  # the head dim the kernels are built for (GPT-2's)
 KEY_TILE = 64  # the forward kernel's key tile
@@ -60,12 +71,16 @@ _WIDE_LOADS = {
     "tile": (True, True, True),
     "decode": (False, True, True),
 }
+#: K2's and K3's variants, by the code their C entry points take
+BACKWARD_VARIANTS = {"fma": 0, "tile": 1}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {
     "flash_fwd": os.path.join(_PKG_DIR, "csrc", "flash_fwd.cu"),
     "flash_bwd": os.path.join(_PKG_DIR, "csrc", "flash_bwd.cu"),
 }
+#: the header both sources include (hashed with each)
+HEADER = os.path.join(_PKG_DIR, "csrc", "hopper_tile.cuh")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 #: the device code's flags; the library adds the host side's
 NVCC_DEVICE_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3"]
@@ -86,8 +101,10 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> str:
-    with open(SOURCES[name], "rb") as fh:
-        digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (SOURCES[name], HEADER):
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
 
 
@@ -168,7 +185,7 @@ def _load() -> Dict[str, ctypes.CDLL]:
             fn.restype = ctypes.c_int
             fn.argtypes = (
                 [ctypes.c_void_p] * (7 + n_out)
-                + [ctypes.c_int] * 6
+                + [ctypes.c_int] * 7
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                    ctypes.c_int, ctypes.c_void_p]
             )
@@ -188,6 +205,20 @@ def forward_variant(dtype: torch.dtype, Q: int) -> str:
     raise ValueError(
         f"flash_attention: unsupported dtype {dtype}; the kernel is built "
         f"for {sorted(map(str, _DTYPES))}"
+    )
+
+
+def backward_variant(dtype: torch.dtype) -> str:
+    """The K2/K3 variant for ``dtype``: ``tile`` for bf16 (the tensor
+    cores) and ``fma`` for f32 (the parity path: tensor cores would make it
+    TF32)."""
+    if dtype == torch.float32:
+        return "fma"
+    if dtype == torch.bfloat16:
+        return "tile"
+    raise ValueError(
+        f"flash_attention backward: unsupported dtype {dtype}; the kernels "
+        f"are built for {sorted(map(str, _DTYPES))}"
     )
 
 
@@ -370,16 +401,13 @@ def _check(q, k, v, bias, name: str) -> None:
         raise ValueError(f"{name}: inputs on several devices {devices}")
 
 
-def _last_dim_contiguous(*ts):
-    return [t if t.stride(-1) == 1 else t.contiguous() for t in ts]
-
-
 def aligned_for_16_byte_loads(t: torch.Tensor) -> bool:
-    """Whether the 16-byte loads of K1's ``tile`` and ``decode`` variants
-    read ``t`` [B, T, H, D] in place: a 16-byte-aligned base, a contiguous
-    last dim, and strides in multiples of 8 elements (a dimension of size
-    1 is never stepped, so its stride does not matter). The C entry point
-    refuses what fails this (``csrc/flash_fwd.cu::aligned16``)."""
+    """Whether the 16-byte loads of the bf16 variants (K1's ``tile`` and
+    ``decode``, K2's and K3's ``tile``) read ``t`` [B, T, H, D] in place:
+    a 16-byte-aligned base, a contiguous last dim, and strides in multiples
+    of 8 elements (a dimension of size 1 is never stepped, so its stride
+    does not matter). The C entry points refuse what fails this
+    (``csrc/hopper_tile.cuh::aligned16``)."""
     return (
         t.data_ptr() % 16 == 0
         and t.stride(-1) == 1
@@ -387,15 +415,14 @@ def aligned_for_16_byte_loads(t: torch.Tensor) -> bool:
     )
 
 
-def kernel_inputs(variant: str, q, k, v):
-    """``(q, k, v)`` as K1's ``variant`` reads them in place, and how many
-    of them had to be copied for that. A view the kernel cannot read in
-    place is copied, never sent to another variant or to the plain
-    version. The 16-byte loads read K and V in both bf16 variants, and Q in
-    the tile variant (:func:`aligned_for_16_byte_loads`); every other read
-    needs only a contiguous last dim."""
+def _read_in_place(tensors, wide_loads):
+    """``tensors`` as a kernel reads them in place, and how many of them
+    had to be copied for that: one read with 16-byte loads must pass
+    :func:`aligned_for_16_byte_loads`, any other needs a contiguous last
+    dim. A view the kernel cannot read in place is copied, never sent to
+    another variant or to the plain version."""
     out, copies = [], 0
-    for t, wide in zip((q, k, v), _WIDE_LOADS[variant]):
+    for t, wide in zip(tensors, wide_loads):
         if not (aligned_for_16_byte_loads(t) if wide else t.stride(-1) == 1):
             # clone, not contiguous(): a contiguous view at a misaligned
             # base must move too
@@ -403,6 +430,20 @@ def kernel_inputs(variant: str, q, k, v):
             copies += 1
         out.append(t)
     return out, copies
+
+
+def kernel_inputs(variant: str, q, k, v):
+    """``(q, k, v)`` as K1's ``variant`` reads them in place, and how many
+    were copied (:func:`_read_in_place`). The 16-byte loads read K and V
+    in both bf16 variants, and Q in the tile variant."""
+    return _read_in_place((q, k, v), _WIDE_LOADS[variant])
+
+
+def backward_kernel_inputs(variant: str, q, k, v, o, do):
+    """``(q, k, v, o, do)`` as K2's and K3's ``variant`` reads them in
+    place, and how many were copied (:func:`_read_in_place`). The tile
+    variant reads all five with 16-byte loads, the fma variant none."""
+    return _read_in_place((q, k, v, o, do), (variant == "tile",) * 5)
 
 
 def _bias_view(bias, B, H, Q, K):
@@ -455,8 +496,11 @@ def _launch(
 
 
 def _backward_args(q, k, v, bias, o, lse, do, causal):
-    """Check the backward's inputs and pack the arguments both backward
-    kernels take: ``(inputs, common, shapes)``."""
+    """Check the backward's inputs and pack, once, the arguments both
+    backward kernels take: ``(variant, inputs, common)``. A view the
+    variant cannot read in place is copied here and counted in
+    ``FLASH_BWD_COPIES``."""
+    global FLASH_BWD_COPIES
     _check(q, k, v, bias, "flash_attention backward")
     B, Q, H, D = q.shape
     K = k.shape[1]
@@ -470,7 +514,9 @@ def _backward_args(q, k, v, bias, o, lse, do, causal):
             f"flash_attention backward: o/do must be {q.dtype} and lse "
             f"float32, got {o.dtype}/{do.dtype}/{lse.dtype}"
         )
-    q, k, v, o, do = _last_dim_contiguous(q, k, v, o, do)
+    variant = backward_variant(q.dtype)
+    (q, k, v, o, do), copies = backward_kernel_inputs(variant, q, k, v, o, do)
+    FLASH_BWD_COPIES += copies
     lse = lse.contiguous()
     bias, sb = _bias_view(bias, B, H, Q, K)
     strides = (ctypes.c_longlong * 19)(
@@ -478,59 +524,69 @@ def _backward_args(q, k, v, bias, o, lse, do, causal):
     )
     # the tensors ride along so their memory outlives the launch
     inputs = (q, k, v, bias, o, do, lse)
-    common = (_DTYPES[q.dtype], B, H, Q, K, D, strides, float(D ** -0.5),
-              int(bool(causal)))
-    return inputs, common
+    common = (BACKWARD_VARIANTS[variant], _DTYPES[q.dtype], B, H, Q, K, D,
+              strides, float(D ** -0.5), int(bool(causal)))
+    return variant, inputs, common
 
 
 def _pointers(tensors):
     return [t.data_ptr() if t is not None else None for t in tensors]
 
 
-def _launch_dq(q, k, v, bias, o, lse, do, causal) -> torch.Tensor:
-    """The dQ kernel on the current stream; returns contiguous dq."""
-    global FLASH_BWD_DQ_LAUNCHES
-    inputs, common = _backward_args(q, k, v, bias, o, lse, do, causal)
-    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+def _launch_packed(name: str, args) -> list:
+    """K2 (``name`` ``"dq"``) or K3 (``"dkv"``) on the current stream from
+    the arguments :func:`_backward_args` packed; returns its contiguous
+    outputs (``[dq]`` or ``[dk, dv]``)."""
+    variant, inputs, common = args
+    like = inputs[:1] if name == "dq" else inputs[1:3]
+    outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in like]
     lib = _load()["flash_bwd"]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.trlx_flash_bwd_dq(*_pointers(inputs), dq.data_ptr(), *common, stream)
+    device = inputs[0].device
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"trlx_flash_bwd_{name}")(
+            *_pointers(inputs), *(t.data_ptr() for t in outs), *common, stream
+        )
     if rc != 0:
-        raise RuntimeError(f"flash_bwd_dq kernel launch failed: CUDA error {rc}")
-    FLASH_BWD_DQ_LAUNCHES += 1
-    return dq
+        raise RuntimeError(
+            f"flash_bwd_{name} kernel launch failed ({variant} variant): CUDA error {rc}"
+        )
+    counter = f"FLASH_BWD_{name.upper()}"
+    globals()[f"{counter}_LAUNCHES"] += 1
+    globals()[f"{counter}_{variant.upper()}_LAUNCHES"] += 1
+    return outs
+
+
+def _launch_dq(q, k, v, bias, o, lse, do, causal) -> torch.Tensor:
+    """The dQ kernel alone on the current stream; returns contiguous dq."""
+    return _launch_packed("dq", _backward_args(q, k, v, bias, o, lse, do, causal))[0]
 
 
 def _launch_dkv(q, k, v, bias, o, lse, do, causal) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dK/dV kernel on the current stream; returns contiguous (dk, dv)."""
-    global FLASH_BWD_DKV_LAUNCHES
-    inputs, common = _backward_args(q, k, v, bias, o, lse, do, causal)
-    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
-    lib = _load()["flash_bwd"]
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.trlx_flash_bwd_dkv(
-            *_pointers(inputs), dk.data_ptr(), dv.data_ptr(), *common, stream
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_bwd_dkv kernel launch failed: CUDA error {rc}")
-    FLASH_BWD_DKV_LAUNCHES += 1
+    """The dK/dV kernel alone on the current stream; returns contiguous
+    ``(dk, dv)``."""
+    dk, dv = _launch_packed("dkv", _backward_args(q, k, v, bias, o, lse, do, causal))
     return dk, dv
 
 
 def _launch_backward(
     q, k, v, bias, o, lse, do, causal
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The dQ kernel, then the dK/dV kernel; returns ``(dq, dk, dv)``."""
-    dq = _launch_dq(q, k, v, bias, o, lse, do, causal)
-    return (dq, *_launch_dkv(q, k, v, bias, o, lse, do, causal))
+    """The dQ kernel, then the dK/dV kernel, from one packing of their
+    arguments; returns ``(dq, dk, dv)``."""
+    args = _backward_args(q, k, v, bias, o, lse, do, causal)
+    return (*_launch_packed("dq", args), *_launch_packed("dkv", args))
 
 
 __all__ = [
+    "BACKWARD_VARIANTS",
+    "FLASH_BWD_COPIES",
+    "FLASH_BWD_DKV_FMA_LAUNCHES",
     "FLASH_BWD_DKV_LAUNCHES",
+    "FLASH_BWD_DKV_TILE_LAUNCHES",
+    "FLASH_BWD_DQ_FMA_LAUNCHES",
     "FLASH_BWD_DQ_LAUNCHES",
+    "FLASH_BWD_DQ_TILE_LAUNCHES",
     "FLASH_FWD_COPIES",
     "FLASH_FWD_DECODE_LAUNCHES",
     "FLASH_FWD_FMA_LAUNCHES",
@@ -539,6 +595,8 @@ __all__ = [
     "FORWARD_VARIANTS",
     "FlashAttention",
     "NEG_INF",
+    "backward_kernel_inputs",
+    "backward_variant",
     "build",
     "flash_attention",
     "flash_attention_backward_reference",
