@@ -7,7 +7,8 @@ Phases, each fatal on failure:
    flash_fwd.cu``: K1 in three variants, ``tile`` for bf16 with Q > 16 on
    the tensor cores, ``decode`` for bf16 with Q <= 16, ``fma`` for f32;
    ``flash_bwd.cu``: K2 dQ and K3 dK/dV, each ``tile`` for bf16 on the
-   tensor cores and ``fma`` for f32) with ``nvcc`` for ``sm_90a``, both
+   tensor cores and ``fma`` for f32, K2 in two instantiations, without and
+   with the bias gradient) with ``nvcc`` for ``sm_90a``, both
    sources at once, and beside them each source's device code alone with
    ``ptxas -v`` (every run, so the report holds when the libraries were
    already built); print ``ptxas``'s registers, shared memory and spills
@@ -35,12 +36,19 @@ Phases, each fatal on failure:
    shape (kernel, plain version, and a
    PyTorch yardstick the port never calls: ``scaled_dot_product_attention``,
    and for the backward ``torch.autograd.grad`` of its output) beside the
-   card's bound;
+   card's bound; and at the seq2seq path's attention shapes
+   (``configs/ppo_ul2.yml``: the update's encoder self, decoder self and
+   cross attentions, the sampler's encoder pass and decoder step), hold K1
+   and, at the update's three, K2 (with the bias gradient for the two
+   self-attentions' learned bias) and K3 in bf16 and f32, and time them in
+   bf16 the same way (SDPA's backward with the bias as a grad-carrying
+   mask);
 3. model — full-width GPT-2 in f32 through the kernels against the plain
    attention: the forward without a cache, prefill + decode through the
    paged cache against the plain full forward of the whole sequence, and
    the gradient of a PPO loss on one minibatch (max relative error per
-   parameter group);
+   parameter group); and the same for the full-width f32 T5 of
+   ``configs/ppo_ul2.yml``, its relative position tables included;
 4. serving — ``InferenceServer`` on CUDA with the ``configs/ppo_sentiments.yml``
    model at full GPT-2-small width (random weights from a seed, bf16
    compute) serves 64 prompts; every request must complete with finite
@@ -57,16 +65,24 @@ Phases, each fatal on failure:
    more than 16 positions, the decode variant 12 x the decode steps, no
    ``fma`` launch and no input copy), K2 and K3 12 x 64 times each, all of
    them the ``tile`` variant with no input copy, and the plain attention
-   not at all.
+   not at all;
+6. seq2seq training — ``trlx_tpu_torch.train`` with the
+   ``Seq2SeqPPOTrainer`` on ``configs/ppo_ul2.yml`` at full width (random
+   weights from a seed, bf16 over f32 masters, 128 int-list prompts of
+   real lengths 64-512 with a ground truth each, a host reward that reads
+   it) for two PPO phases (80 updates); the gates of phase 5, with K1's
+   ``tile`` launches = 24 x the teacher-forced forwards + 8 x the
+   sampler's encoder passes, ``decode`` = 16 x its decoder calls, K2 = K3
+   = 24 x the updates and K2 with the bias gradient 16 x the updates.
 
-Each path (phases 4 and 5) runs with the launch counters set to 0 just
+Each path (phases 4, 5 and 6) runs with the launch counters set to 0 just
 before it and read just after. Prints the card's name and power limit, a
 ``{"kernels": [...]}`` line, and as its last line ``{"ok": true, "device":
 {...}}``. Exits non-zero without
 CUDA, or when any phase fails. ``--profile PATH`` additionally serves the
-same traffic and runs one training phase under ``torch.profiler`` and
-writes each run's device-time summary (busy share, device time by kernel)
-as JSON to PATH.
+same traffic, runs one training phase and a cut seq2seq run under
+``torch.profiler`` and writes each run's device-time summary (busy share,
+device time by kernel) as JSON to PATH.
 """
 
 from __future__ import annotations
@@ -196,13 +212,22 @@ def tensor_core_instructions(fa, library: str) -> dict:
     return counts
 
 
-# per library, the kernels phase 1 gates: each in the ptxas report with no
-# spill; the tile kernels also with tensor-core instructions in their SASS
+# per library, the kernels phase 1 gates, each by a piece of its mangled
+# name: each in the ptxas report with no spill; the tile kernels also with
+# tensor-core instructions in their SASS. K2's tile kernel has two
+# instantiations, without the bias gradient (<false>, ILb0E) and with it
+# (<true>, ILb1E), gated apart
 GATED_KERNELS = {
-    "flash_fwd": ("flash_fwd_tile_kernel", "flash_fwd_decode_kernel", "flash_fwd_fma_kernel"),
-    "flash_bwd": ("flash_bwd_dq_tile_kernel", "flash_bwd_dkv_tile_kernel"),
+    "flash_fwd": {k: k for k in (
+        "flash_fwd_tile_kernel", "flash_fwd_decode_kernel", "flash_fwd_fma_kernel")},
+    "flash_bwd": {
+        "flash_bwd_dq_tile_kernel": "flash_bwd_dq_tile_kernelILb0E",
+        "flash_bwd_dq_tile_kernel_dbias": "flash_bwd_dq_tile_kernelILb1E",
+        "flash_bwd_dkv_tile_kernel": "flash_bwd_dkv_tile_kernel",
+    },
 }
-TILE_KERNELS = ("flash_fwd_tile_kernel", "flash_bwd_dq_tile_kernel", "flash_bwd_dkv_tile_kernel")
+TILE_KERNELS = ("flash_fwd_tile_kernel", "flash_bwd_dq_tile_kernel",
+                "flash_bwd_dq_tile_kernel_dbias", "flash_bwd_dkv_tile_kernel")
 
 
 def phase_build(fa) -> tuple:
@@ -222,13 +247,14 @@ def phase_build(fa) -> tuple:
     seconds = time.perf_counter() - t0
     log(f"phase 1: built {', '.join(os.path.relpath(p) for p in paths.values())} "
         f"and the ptxas reports in {seconds:.1f} s")
-    record, mma = {}, {}
+    record, mma, patterns = {}, {}, {}
     for name, kernels in GATED_KERNELS.items():
         ptxas = ptxas_report(reports[name])
         for fn, row in sorted(ptxas.items()):
             log(f"phase 1: ptxas {fn}: {json.dumps(row)}")
-        for kernel in kernels:
-            rows = [r for fn, r in ptxas.items() if kernel in fn]
+        patterns.update(kernels)
+        for kernel, pattern in kernels.items():
+            rows = [r for fn, r in ptxas.items() if pattern in fn]
             spills = [r.get("spill_bytes") for r in rows]
             record[kernel] = {
                 "registers": max((r.get("registers", 0) for r in rows), default=None),
@@ -238,7 +264,7 @@ def phase_build(fa) -> tuple:
     log(f"phase 1: tensor-core instructions (HMMA/HGMMA) per kernel: {json.dumps(mma)}")
     for kernel in TILE_KERNELS:
         record[kernel]["tensor_core_instructions"] = sum(
-            n for fn, n in mma.items() if kernel in fn)
+            n for fn, n in mma.items() if patterns[kernel] in fn)
     missing = [k for k, r in record.items() if r["spill_bytes"] is None]
     ok = not missing and all(r["spill_bytes"] == 0 for r in record.values()) and all(
         record[k]["tensor_core_instructions"] > 0 for k in TILE_KERNELS)
@@ -528,7 +554,7 @@ def packed_backward_calls(torch, fa, copies, causal):
         dq, dk, dv = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in inputs[:3])
         outputs.append((inputs, dq, dk, dv))
         dq_calls.append(functools.partial(
-            lib.trlx_flash_bwd_dq, *ptrs, dq.data_ptr(), *common, stream))
+            lib.trlx_flash_bwd_dq, *ptrs, dq.data_ptr(), None, *common, stream))
         dkv_calls.append(functools.partial(
             lib.trlx_flash_bwd_dkv, *ptrs, dk.data_ptr(), dv.data_ptr(), *common, stream))
     return dq_calls, dkv_calls, outputs
@@ -745,6 +771,191 @@ def phase_model(torch, fa):
         f"launches={launched} {'ok' if ok else 'FAIL'}")
     return ok
 
+UL2_HEADS = 8  # configs/ppo_ul2.yml
+# the seq2seq path's attention shapes (configs/ppo_ul2.yml: batch 12, chunk
+# 16, 512 encoder columns, 49 new tokens, 8 heads): name -> (B, Q, K, bias
+# kind, whether the update differentiates it). The update's two
+# self-attentions carry the learned bias [B, H, Q, K] (relative table plus
+# masks), so K2 returns its gradient; cross-attention has a [B, 1, 1, K]
+# padding bias. The sampler's shapes run K1 only.
+T5_SHAPES = {
+    "t5_encoder_self": (12, 512, 512, "encoder", True),
+    "t5_decoder_self": (12, 49, 49, "decoder", True),
+    "t5_cross": (12, 49, 512, "cross", True),
+    "t5_sampler_encode": (16, 512, 512, "encoder", False),
+    "t5_sampler_self": (16, 1, 50, "decoder_step", False),
+    "t5_sampler_cross": (16, 1, 512, "cross", False),
+}
+
+
+def t5_case(torch, attn, name):
+    """(q, k, v, bias) f32 at one of ``T5_SHAPES``, from a fixed seed: a
+    N(0, 1) relative table, prompt masks of real lengths 64-512 (left
+    padding), the decoder's causal mask and its mask [1, response mask[:-1]],
+    as models/t5.py sums them."""
+    B, Q, K, kind, _ = T5_SHAPES[name]
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20 + list(T5_SHAPES).index(name))
+    q, k, v = (torch.randn(B, T, UL2_HEADS, 64, generator=gen, device=dev) for T in (Q, K, K))
+    if kind in ("encoder", "cross"):
+        lens = torch.randint(64, 513, (B,), generator=gen, device=dev)
+        pad = attn.padding_bias((torch.arange(K, device=dev)[None] >= K - lens[:, None]).long())
+        if kind == "cross":
+            return q, k, v, pad
+        return q, k, v, torch.randn(1, UL2_HEADS, Q, K, generator=gen, device=dev) + pad
+    lens = torch.randint(1, K + 1, (B,), generator=gen, device=dev)
+    dec_mask = (torch.arange(K, device=dev)[None] < lens[:, None]).long()
+    if kind == "decoder":  # teacher-forced: Q = K response positions
+        table = torch.randn(1, UL2_HEADS, Q, K, generator=gen, device=dev)
+        return q, k, v, table + attn.causal_bias(Q, K, 0, dev) + attn.padding_bias(dec_mask)
+    # one sampler step at cache slot t of K: row t of the table, the
+    # causal mask at t and the slots written so far
+    t = int(torch.randint(1, K, (), generator=gen, device=dev))
+    table = torch.randn(1, UL2_HEADS, 1, K, generator=gen, device=dev)
+    written = (torch.arange(K, device=dev)[None] <= t).long().expand(B, K)
+    return q, k, v, table + attn.causal_bias(1, K, t, dev) + attn.padding_bias(written)
+
+
+def packed_dbias_calls(torch, fa, copies):
+    """Per input copy, a zero-argument call of K2's C entry point with the
+    bias gradient (arguments packed, outputs allocated once). Returns
+    ``(calls, outputs)``."""
+    lib = fa._load()["flash_bwd"]
+    stream = torch.cuda.current_stream().cuda_stream
+    calls, outputs = [], []
+    for c in copies:
+        _, inputs, common = fa._backward_args(*c, False)
+        B, H, Q, K = common[2:6]
+        dq = torch.empty(inputs[0].shape, dtype=inputs[0].dtype, device="cuda")
+        dbias = torch.empty((B, H, Q, K), device="cuda")
+        outputs.append((inputs, dq, dbias))
+        calls.append(functools.partial(
+            lib.trlx_flash_bwd_dq, *fa._pointers(inputs), dq.data_ptr(), dbias.data_ptr(),
+            *common, stream))
+    return calls, outputs
+
+
+def phase_t5_kernels(torch, fa, attn):
+    """K1 against its plain version at the seq2seq path's six attention
+    shapes, and K2 (with the bias gradient where the update takes one) and
+    K3 against the plain backward at the update's three, in bf16 and f32;
+    times in bf16: K1 at all six, K2(+dbias) and K3 at the update's three
+    through their C entry points, beside the plain backward, SDPA's whole
+    backward (with the bias as a grad-carrying ``attn_mask`` where the
+    update differentiates it) and the bound. Returns ``(fwd_results,
+    bwd_results, fwd_timed, bwd_timed)``."""
+    import torch.nn.functional as F
+
+    fwd_results, results, fwd_timed, bwd_timed = [], [], {}, {}
+    for name, (B, Q, K, kind, update) in T5_SHAPES.items():
+        q32, k32, v32, bias = t5_case(torch, attn, name)
+        learned = kind in ("encoder", "decoder")
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            q, k, v = (x.to(dt) for x in (q32, k32, v32))
+            o, lse = fa.flash_attention(q, k, v, bias, False, True)
+            o_ref, lse_ref = fa.flash_attention_reference(q, k, v, bias, False, True)
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            tol_o, tol_lse = TOL[dtype_name]
+            ok = math.isfinite(err_o) and err_o <= tol_o and err_lse <= tol_lse
+            fwd_results.append({"case": name, "dtype": dtype_name, "max_abs_err_o": err_o,
+                                "max_abs_err_lse": err_lse, "tol_o": tol_o,
+                                "tol_lse": tol_lse, "ok": ok})
+            log(f"phase 2: fwd {name:17s} {dtype_name:8s} B={B} Q={Q} K={K} "
+                f"({fa.forward_variant(dt, Q)}) max|dO|={err_o:.3e} max|dLSE|={err_lse:.3e} "
+                f"{'ok' if ok else 'FAIL'}")
+            if dtype_name == "bfloat16":
+                fwd_timed[(name, dtype_name)] = row = time_forward(
+                    torch, fa, attn, q, k, v, bias, False)
+                log_timed(name, dtype_name, row)
+            if not update:
+                continue
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(8)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+            got = fa._launch_backward(q, k, v, bias, o, lse, do, False, dbias=learned)
+            want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, False,
+                                                         learned)
+            torch.cuda.synchronize()
+            row = {"case": name, "dtype": dtype_name, "variant": fa.backward_variant(dt)}
+            ok = True
+            for key, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+                err = (g.float() - w.float()).abs().max().item()
+                # dbias is dS in f32 on both sides: only the order of the
+                # sums differs
+                tol = (1e-4 if key == "dbias" else BWD_TOL[dtype_name]) * max(
+                    1.0, w.float().abs().max().item())
+                row[f"max_abs_err_{key}"], row[f"tol_{key}"] = err, tol
+                ok = ok and math.isfinite(err) and err <= tol
+            row["ok"] = ok
+            results.append(row)
+            log(f"phase 2: bwd {name:17s} {dtype_name:8s} ({row['variant']}"
+                f"{', dbias' if learned else ''}) "
+                + " ".join(f"max|d{key}|={row[f'max_abs_err_{key}']:.3e}"
+                           f"(tol {row[f'tol_{key}']:.1e})"
+                           for key in ("dq", "dk", "dv", "dbias") if f"tol_{key}" in row)
+                + f" {'ok' if ok else 'FAIL'}")
+            if dtype_name != "bfloat16":
+                continue
+            tensors = [q, k, v, bias, o, lse, do]
+            nbytes = sum(t.numel() * t.element_size() for t in tensors)
+            copies = input_copies(tensors, nbytes)
+            if learned:
+                dq_calls, packed = packed_dbias_calls(torch, fa, copies)
+                _, dkv_calls, _ = packed_backward_calls(torch, fa, copies, False)
+            else:
+                dq_calls, dkv_calls, packed = packed_backward_calls(torch, fa, copies, False)
+            kernel_dq, kernel_dkv = time_ms(dq_calls), time_ms(dkv_calls)
+            rc = dq_calls[0]()
+            torch.cuda.synchronize()
+            same = rc == 0 and torch.equal(packed[0][1], got[0]) and (
+                not learned or torch.equal(packed[0][2], got[3]))
+            results.append({"case": name + "_packed_calls", "dtype": dtype_name, "ok": same,
+                            "max_abs_err_dq": 0.0, "max_abs_err_dk": 0.0,
+                            "max_abs_err_dv": 0.0})
+            log(f"phase 2: packed K2 call at {name} rc={rc}, outputs equal the wrapper's: "
+                f"{'ok' if same else 'FAIL'}")
+            del packed, dq_calls, dkv_calls
+            plain = time_ms([lambda c=c: fa.flash_attention_backward_reference(
+                *c, False, learned) for c in copies])
+            graphs = []
+            for c in copies:
+                ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in c[:3])
+                mask = c[3].to(dt).detach().requires_grad_(learned)
+                out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+                graphs.append((out, (ql, kl, vl, mask) if learned else (ql, kl, vl),
+                               c[6].transpose(1, 2)))
+            library = time_ms([
+                lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
+                for g in graphs
+            ])
+            del copies, graphs
+            bounds = backward_bound(fa, q, k, bias, False, dtype_name)
+            if learned:  # the dbias write, f32 [B, H, Q, K]
+                extra = B * UL2_HEADS * Q * K * 4
+                flops = bounds["flash_bwd_dq"]["flops"]
+                nb = bounds["flash_bwd_dq"]["bytes"] + extra
+                t_bytes = nb / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+                bounds["flash_bwd_dq"] = {"bound_ms": max(t_bytes, t_ops), "bytes": nb,
+                                          "flops": flops,
+                                          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            shape = (f"B={B} H={UL2_HEADS} Q={Q} K={K} D=64, bias {list(bias.shape)}"
+                     + (" (dbias)" if learned else ""))
+            for kname, ms in (("flash_bwd_dq", kernel_dq), ("flash_bwd_dkv", kernel_dkv)):
+                bwd_timed[(name, kname)] = {
+                    "shape": shape, "variant": fa.backward_variant(dt), "dbias": learned,
+                    "ms": ms, "plain_ms": plain, "library_ms": library, **bounds[kname],
+                }
+                log(f"phase 2: {kname} bf16 {name} {shape} ({fa.backward_variant(dt)}): "
+                    f"kernel_ms={ms} plain_ms={plain} (whole plain backward) "
+                    f"library_ms={library} (SDPA's whole backward) "
+                    f"bound_ms={bounds[kname]['bound_ms']} ({bounds[kname]['bound_by']})")
+    return fwd_results, results, fwd_timed, bwd_timed
+
 
 def phase_model_backward(torch, fa):
     """Full-width f32 GPT-2 + value head: the gradient of a PPO loss on
@@ -809,6 +1020,90 @@ def phase_model_backward(torch, fa):
     log("phase 3: full-width f32 GPT-2 PPO-loss gradient, kernels vs plain attention: "
         "max relative error per group " + json.dumps(rel) + f"; K2/K3 launches by variant "
         f"{json.dumps(launches)} "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def ul2_arch(**overrides):
+    """``configs/ppo_ul2.yml``'s architecture at its published widths."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", "ppo_ul2.yml"))
+    return dict(cfg.model.model_arch, **overrides)
+
+
+def phase_t5_model_backward(torch, fa):
+    """Full-width f32 T5 of ``configs/ppo_ul2.yml`` + value head: the
+    gradient of a PPO loss on one minibatch (B=2, 128 left-padded encoder
+    columns, 49 response columns) through K1/K2(+dbias)/K3 against the
+    same through the plain attention (autograd through the plain forward,
+    the bias included). The gate, 1e-3 of each group's largest gradient,
+    leaves room for f32 summation order through 8 + 8 layers; the relative
+    position tables are their own group."""
+    from trlx_tpu_torch.models import t5
+    from trlx_tpu_torch.models.heads import T5WithValueHead, init_params
+    from trlx_tpu_torch.models.t5 import T5Config, shift_tokens_right
+    from trlx_tpu_torch.ops.ppo_math import ppo_loss
+    from trlx_tpu_torch.utils import logprobs_from_logits
+
+    dev = "cuda"
+    cfg = T5Config.from_dict(ul2_arch(dtype="float32", param_dtype="float32"))
+    model = T5WithValueHead(cfg, device=dev)
+    init_params(model, 3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(9)
+    B, S, R = 2, 128, 49
+    q_mask = (torch.arange(S, device=dev)[None] >= torch.tensor([[0], [70]], device=dev)).long()
+    q_ids = torch.randint(2, 21128, (B, S), generator=gen, device=dev) * q_mask
+    r_ids = torch.randint(2, 21128, (B, R), generator=gen, device=dev)
+    r_mask = (torch.arange(R, device=dev)[None] < torch.tensor([[R], [20]], device=dev)).long()
+    dec_ids = shift_tokens_right(r_ids, 0, 0)
+    dec_mask = torch.cat([torch.ones_like(r_mask[:, :1]), r_mask[:, :-1]], 1)
+    old = [torch.randn(B, R, generator=gen, device=dev) for _ in range(4)]
+    old[0] = old[0] * 0.1 - 10.0
+    names, params = zip(*model.named_parameters())
+
+    def plain(q, k, v, bias=None, causal=False, learned_bias=False):
+        return fa.flash_attention_reference(q, k, v, bias, causal)
+
+    def grads_with(attention):
+        orig = t5.dot_product_attention
+        t5.dot_product_attention = attention
+        try:
+            out = model(q_ids, attention_mask=q_mask, decoder_input_ids=dec_ids,
+                        decoder_attention_mask=dec_mask)
+            logprobs = logprobs_from_logits(out["logits"], r_ids)
+            loss, _ = ppo_loss(logprobs, out["values"].float(), *old, r_mask, 0.2, 0.2, 1.0)
+            return torch.autograd.grad(loss, params)
+        finally:
+            t5.dot_product_attention = orig
+
+    before = backward_variant_launches(fa)
+    dbias0 = fa.FLASH_BWD_DQ_DBIAS_LAUNCHES
+    kernel = grads_with(t5.dot_product_attention)
+    after = backward_variant_launches(fa)
+    launches = {k: {v: after[k][v] - before[k][v] for v in BWD_VARIANTS} for k in BWD_KERNELS}
+    dbias = fa.FLASH_BWD_DQ_DBIAS_LAUNCHES - dbias0
+    reference = grads_with(plain)
+    groups = {}
+    for name, g, r in zip(names, kernel, reference):
+        group = ("value head" if name.startswith("v_head") else
+                 "relative position tables" if "rel_bias" in name else
+                 "embeddings" if "shared" in name or "lm_head" in name else
+                 "layer norms" if "ln" in name else
+                 "attention" if "Attention" in name else "feed-forward")
+        err, top = groups.get(group, (0.0, 0.0))
+        groups[group] = (max(err, (g - r).abs().max().item()), max(top, r.abs().max().item()))
+    rel = {k: err / max(top, 1e-30) for k, (err, top) in groups.items()}
+    n_attn = cfg.num_layers + 2 * cfg.num_decoder_layers
+    n_self = cfg.num_layers + cfg.num_decoder_layers
+    ok = (all(math.isfinite(v) and v <= 1e-3 for v in rel.values())
+          and launches == {k: {"tile": 0, "fma": n_attn} for k in BWD_KERNELS}
+          and dbias == n_self)
+    log("phase 3: full-width f32 UL2 T5 PPO-loss gradient, kernels vs plain attention: "
+        "max relative error per group " + json.dumps(rel) + f"; K2/K3 launches by variant "
+        f"{json.dumps(launches)}, K2 with dbias {dbias} (want {n_self}) "
         f"{'ok' if ok else 'FAIL'}")
     return ok
 
@@ -1152,6 +1447,218 @@ def phase_training(torch, fa):
     return ok, record
 
 
+UL2_UPDATES = 80  # two PPO phases of 128 // 12 = 10 minibatches x 4 epochs
+
+
+def ul2_training_config(checkpoint_dir: str):
+    """``configs/ppo_ul2.yml`` as written (full width, random weights: the
+    fork's UL2 checkpoint is not in the repo), cut from 10 000 updates to
+    two PPO phases. The yml's eval interval (100) and checkpoint interval
+    (10 000) leave the evals at step 0 and the end and the end-of-run
+    save."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", "ppo_ul2.yml")).to_dict()
+    cfg["train"].update({"total_steps": UL2_UPDATES, "checkpoint_dir": checkpoint_dir})
+    return TRLConfig.from_dict(cfg)
+
+
+def ul2_prompts(seed: int = 2):
+    """128 int-list prompts of real lengths 64-512, ids in [2, 21128) (below
+    the forced BOS), and a ground-truth response id for each."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    prompts = [[int(x) for x in rng.integers(2, 21128, int(rng.integers(64, 513)))]
+               for _ in range(128)]
+    return prompts, [str(int(x)) for x in rng.integers(2, 21128, 128)]
+
+
+def ul2_reward(samples, queries, response_gt=None):
+    """A host reward that reads ``response_gt``: 1 if the ground-truth id
+    is among the response ids, plus the share of response ids below 10000."""
+    gts = response_gt if response_gt is not None else [None] * len(samples)
+    return [
+        float(gt in s.split()) + sum(int(t) < 10000 for t in s.split()) / max(len(s.split()), 1)
+        for s, gt in zip(samples, gts)
+    ]
+
+
+def phase_t5_training(torch, fa):
+    """``trlx_tpu_torch.train`` with ``train.trainer: Seq2SeqPPOTrainer`` on
+    ``configs/ppo_ul2.yml`` at full width for two PPO phases; the gates of
+    phase 5 with the seq2seq path's counts: K1 ``tile`` = 24 x the
+    teacher-forced forwards (reference scoring and updates: 8 encoder, 8
+    decoder self and 8 cross attentions) + 8 x the sampler's encoder
+    passes, ``decode`` = 16 x its decoder calls; K2 = K3 = 24 x the
+    updates, K2 with the bias gradient 16 x the updates; no ``fma`` launch,
+    no input copy, no plain call."""
+    import tempfile
+
+    import numpy as np
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models.heads import T5WithValueHead, init_params
+    from trlx_tpu_torch.trainer.seq2seq_ppo_trainer import Seq2SeqPPOTrainer
+
+    rows, evals, saved_rng, plain_calls = [], [], [], [0]
+    calls = {"encode": 0, "decode": 0}
+    orig = {
+        "train_on": Seq2SeqPPOTrainer._train_on, "evaluate": Seq2SeqPPOTrainer.evaluate,
+        "save": Seq2SeqPPOTrainer.save, "encode": T5WithValueHead.encode,
+        "decode": T5WithValueHead.decode,
+        "fwd": fa.flash_attention_reference, "bwd": fa.flash_attention_backward_reference,
+    }
+
+    def counted(name):
+        def fn(self, *a, **kw):
+            calls[name] += 1
+            return orig[name](self, *a, **kw)
+        return fn
+
+    def train_on(self, *a, **kw):
+        out = orig["train_on"](self, *a, **kw)
+        rows.append(out[0])
+        return out
+
+    def evaluate(self):
+        out = orig["evaluate"](self)
+        evals.append(out)
+        return out
+
+    def save(self, directory=None):
+        saved_rng.append(self.generator.get_state())
+        return orig["save"](self, directory)
+
+    def plain(name):
+        def fn(*a, **kw):
+            plain_calls[0] += 1
+            return orig[name](*a, **kw)
+        return fn
+
+    prompts, response_gt = ul2_prompts()
+    with tempfile.TemporaryDirectory() as tmp:
+        config = ul2_training_config(tmp)
+        Seq2SeqPPOTrainer._train_on, Seq2SeqPPOTrainer.evaluate = train_on, evaluate
+        Seq2SeqPPOTrainer.save = save
+        T5WithValueHead.encode, T5WithValueHead.decode = counted("encode"), counted("decode")
+        fa.flash_attention_reference = plain("fwd")
+        fa.flash_attention_backward_reference = plain("bwd")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # count the main path's launches only
+        reset_forward_counters(fa)
+        reset_backward_counters(fa)
+        fa.FLASH_BWD_DQ_DBIAS_LAUNCHES = 0
+        t0 = time.perf_counter()
+        try:
+            trainer = trlx_tpu_torch.train(
+                reward_fn=ul2_reward, prompts=prompts, response_gt=response_gt, config=config
+            )
+            torch.cuda.synchronize()
+        finally:
+            Seq2SeqPPOTrainer._train_on = orig["train_on"]
+            Seq2SeqPPOTrainer.evaluate, Seq2SeqPPOTrainer.save = orig["evaluate"], orig["save"]
+            T5WithValueHead.encode, T5WithValueHead.decode = orig["encode"], orig["decode"]
+            fa.flash_attention_reference = orig["fwd"]
+            fa.flash_attention_backward_reference = orig["bwd"]
+        wall = time.perf_counter() - t0
+        launches = {
+            "flash_fwd": fa.FLASH_FWD_LAUNCHES,
+            "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
+            "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES,
+            "flash_bwd_dq_dbias": fa.FLASH_BWD_DQ_DBIAS_LAUNCHES,
+        }
+        variants = forward_variant_launches(fa)
+        bwd_variants = backward_variant_launches(fa)
+        bwd_copies = fa.FLASH_BWD_COPIES
+        peak = torch.cuda.max_memory_allocated()
+        finite = all(np.isfinite(v).all() for r in rows for v in r.values()) and all(
+            math.isfinite(v) for e in evals for v in e.values()
+        )
+        initial = T5WithValueHead(trainer.model_config, device="cuda")
+        init_params(initial, config.train.seed)
+        start = initial.state_dict()
+        changed = sum(
+            not torch.equal(p, start[n]) for n, p in trainer.model.state_dict().items()
+        )
+        table = "t5.enc_rel_bias.relative_attention_bias.weight"
+        table_moved = not torch.equal(trainer.model.state_dict()[table], start[table])
+        del initial, start
+        fresh = Seq2SeqPPOTrainer(ul2_training_config(tmp))
+        fresh.load(tmp)
+        saved, loaded = trainer.opt.state_dict(), fresh.opt.state_dict()
+        restored = (
+            all(torch.equal(fresh.model.state_dict()[n], p)
+                for n, p in trainer.model.state_dict().items())
+            and all(torch.equal(loaded["adamw"]["state"][i][key], value)
+                    for i, st in saved["adamw"]["state"].items() for key, value in st.items())
+            and (fresh.step, fresh.kl_coef, fresh.mean_kl, loaded["count"])
+            == (trainer.step, trainer.kl_coef, trainer.mean_kl, saved["count"])
+            and torch.equal(fresh.generator.get_state(), saved_rng[-1])
+        )
+        del fresh
+    cfg = trainer.model_config
+    n_enc, n_dec = cfg.num_layers, cfg.num_decoder_layers
+    n_attn = n_enc + 2 * n_dec  # 24 attentions in a teacher-forced forward
+    teacher_forced = trainer.forwards - calls["encode"] - calls["decode"]
+    updates = trainer.step
+    expected_variants = {
+        "tile": n_attn * teacher_forced + n_enc * calls["encode"],
+        "decode": 2 * n_dec * calls["decode"],
+        "fma": 0, "copies": 0,
+    }
+    expected = {
+        "flash_fwd": expected_variants["tile"] + expected_variants["decode"],
+        "flash_bwd_dq": n_attn * updates,
+        "flash_bwd_dkv": n_attn * updates,
+        "flash_bwd_dq_dbias": (n_enc + n_dec) * updates,
+    }
+    expected_bwd_variants = {k: {"tile": n_attn * updates, "fma": 0} for k in BWD_KERNELS}
+    per_phase = updates // len(trainer.phase_times)
+    phases = [
+        dict(p, rollout_tokens_per_s=p["rollout_tokens"] / p["collect_s"],
+             updates_per_s=per_phase / p["train_s"])
+        for p in trainer.phase_times
+    ]
+    record = {
+        "wall_s": wall,
+        "updates": updates,
+        "phases": phases,
+        "evals": evals,
+        "max_memory_allocated_bytes": peak,
+        "forwards": trainer.forwards,
+        "teacher_forced_forwards": teacher_forced,
+        "sampler_encodes": calls["encode"],
+        "sampler_decoder_calls": calls["decode"],
+        "launches": launches,
+        "expected_launches": expected,
+        "flash_fwd_variants": variants,
+        "expected_variants": expected_variants,
+        "backward_variants": bwd_variants,
+        "expected_backward_variants": expected_bwd_variants,
+        "backward_copies": bwd_copies,
+        "plain_attention_calls": plain_calls[0],
+        "params_changed": changed,
+        "relative_table_moved": table_moved,
+    }
+    log("phase 6: seq2seq training " + json.dumps(record))
+    ok = (
+        updates == UL2_UPDATES and len(rows) == 2 and finite and changed > 0 and table_moved
+        and restored and launches == expected and variants == expected_variants
+        and bwd_variants == expected_bwd_variants and bwd_copies == 0
+        and plain_calls[0] == 0
+    )
+    log(f"phase 6: {'ok' if ok else 'FAIL'} (updates={updates}, phases={len(rows)}, "
+        f"finite={finite}, changed tensors={changed}, relative table moved={table_moved}, "
+        f"load restores={restored}, launches={launches} vs {expected}, K1 by variant "
+        f"{variants} vs {expected_variants}, K2/K3 by variant {bwd_variants} vs "
+        f"{expected_bwd_variants}, backward input copies={bwd_copies}, plain attention "
+        f"calls={plain_calls[0]}, peak memory {peak} B)")
+    return ok, record
+
+
 def device_summary(prof, wall: float) -> dict:
     """Summarise a torch.profiler run's device timeline: busy share of the
     wall, and device time by kernel."""
@@ -1196,8 +1703,10 @@ def device_summary(prof, wall: float) -> dict:
 
 def profile_paths(torch, path: str) -> None:
     """``--profile PATH``: under torch.profiler, serve the same 64 prompts
-    again and run one PPO phase (32 updates) of the training geometry;
-    write each run's device summary as JSON at ``path``."""
+    again, run one PPO phase (32 updates) of the training geometry, and a
+    cut seq2seq run (two 16-prompt chunks, 8 updates, one-chunk evals:
+    the full phase's trace would hold some 10^6 events); write each run's
+    device summary as JSON at ``path``."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -1223,6 +1732,19 @@ def profile_paths(torch, path: str) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     summary["training"] = device_summary(prof, wall)
+    prompts, response_gt = ul2_prompts()
+    with tempfile.TemporaryDirectory() as tmp:
+        config = ul2_training_config(tmp)
+        config.method.num_rollouts, config.train.total_steps = 32, 8
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            trlx_tpu_torch.train(reward_fn=ul2_reward, prompts=prompts,
+                                 response_gt=response_gt, eval_prompts=prompts[:16],
+                                 config=config)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    summary["seq2seq_training"] = device_summary(prof, wall)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as fh:
         json.dump(summary, fh, indent=1)
@@ -1266,13 +1788,18 @@ def main() -> int:
     build_ok, build = phase_build(fa)
     fwd_checks, timed = phase_kernel(torch, fa, attn)
     train_fwd_checks, bwd_checks, train_timed, bwd_timed = phase_backward(torch, fa, attn)
-    fwd_checks += train_fwd_checks
+    t5_fwd_checks, t5_bwd_checks, t5_timed, t5_bwd_timed = phase_t5_kernels(torch, fa, attn)
+    fwd_checks += train_fwd_checks + t5_fwd_checks
+    bwd_checks += t5_bwd_checks
     timed.update(train_timed)
+    timed.update(t5_timed)
     kernel_ok = all(c["ok"] for c in fwd_checks + bwd_checks) and all(
         row["packed_ok"] for row in timed.values())
-    model_ok = phase_model(torch, fa) & phase_model_backward(torch, fa)
+    model_ok = (phase_model(torch, fa) & phase_model_backward(torch, fa)
+                & phase_t5_model_backward(torch, fa))
     serving_ok, serving = phase_serving(torch, fa)
     training_ok, training = phase_training(torch, fa)
+    seq2seq_ok, seq2seq = phase_t5_training(torch, fa)
     if args.profile:
         profile_paths(torch, args.profile)
 
@@ -1288,10 +1815,12 @@ def main() -> int:
         "route": "cuda",
         "source": SOURCES["flash_fwd"],
         "replaces": REPLACES["flash_fwd"],
-        # K1 runs on both paths; each path's count was read on its own
-        "launches": serving["flash_fwd_launches"] + training["launches"]["flash_fwd"],
+        # K1 runs on the three paths; each path's count was read on its own
+        "launches": (serving["flash_fwd_launches"] + training["launches"]["flash_fwd"]
+                     + seq2seq["launches"]["flash_fwd"]),
         "launches_by_path": {"serving": serving["flash_fwd_launches"],
-                             "training": training["launches"]["flash_fwd"]},
+                             "training": training["launches"]["flash_fwd"],
+                             "seq2seq_training": seq2seq["launches"]["flash_fwd"]},
         "max_abs_err": max(c["max_abs_err_o"] for c in fwd_checks),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
@@ -1302,16 +1831,18 @@ def main() -> int:
         "prefill": entry("serving_prefill"),
         # every path shape of K1 in bf16, with the variant that ran
         "shapes": {shape: entry(shape) for shape in (
-            "serving_prefill", "serving_decode", *TRAINING_SHAPES.values())},
+            "serving_prefill", "serving_decode", *TRAINING_SHAPES.values(), *T5_SHAPES)},
         "f32": {s: {k: timed[(s, "float32")][k] for k in (
                     "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms")}
                 for s in ("serving_prefill", "serving_decode")},
         "launches_by_variant": {"serving": serving["flash_fwd_variants"],
-                                "training": training["flash_fwd_variants"]},
+                                "training": training["flash_fwd_variants"],
+                                "seq2seq_training": seq2seq["flash_fwd_variants"]},
         "tile_tensor_core_instructions": build["flash_fwd_tile_kernel"]["tensor_core_instructions"],
         # None, never an unmeasured 0, when a K1 kernel is missing from the report
         "k1_spill_bytes": None if None in k1_spills else sum(k1_spills),
     }]
+    t5_update = [n for n, shape in T5_SHAPES.items() if shape[4]]
     for name, outputs in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
         row = bwd_timed[name]
         kernels.append({
@@ -1319,19 +1850,46 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": training["launches"][name],
+            # the two training paths; each path's count was read on its own
+            "launches": training["launches"][name] + seq2seq["launches"][name],
+            "launches_by_path": {"training": training["launches"][name],
+                                 "seq2seq_training": seq2seq["launches"][name]},
             "max_abs_err": max(c[f"max_abs_err_{o}"] for c in bwd_checks for o in outputs),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                    "variant", "wrapper_ms")},
             "timed_shape": "training bf16 " + row["shape"],
-            "launches_by_variant": training["backward_variants"][name],
+            "t5_shapes": {n: {k: t5_bwd_timed[(n, name)][k] for k in (
+                "shape", "dbias", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for n in t5_update},
+            "launches_by_variant": {"training": training["backward_variants"][name],
+                                    "seq2seq_training": seq2seq["backward_variants"][name]},
             **{k: build[f"{name}_tile_kernel"][k] for k in (
                 "spill_bytes", "registers", "tensor_core_instructions")},
         })
+    # K2 with the bias gradient: the same kernel's other instantiation,
+    # timed at the encoder's self-attention (its largest shape)
+    row = t5_bwd_timed[("t5_encoder_self", "flash_bwd_dq")]
+    kernels.append({
+        "name": "flash_bwd_dq_dbias",
+        "route": "cuda",
+        "source": SOURCES["flash_bwd_dq"],
+        "replaces": REPLACES["flash_bwd_dq"],
+        "launches": seq2seq["launches"]["flash_bwd_dq_dbias"],
+        "max_abs_err": max(c["max_abs_err_dbias"] for c in bwd_checks if "max_abs_err_dbias" in c),
+        **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                               "variant")},
+        "timed_shape": "seq2seq update bf16 encoder self-attention " + row["shape"],
+        "t5_shapes": {n: {k: t5_bwd_timed[(n, "flash_bwd_dq")][k] for k in (
+            "shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for n in t5_update if T5_SHAPES[n][3] in ("encoder", "decoder")},
+        **{k: build["flash_bwd_dq_tile_kernel_dbias"][k] for k in (
+            "spill_bytes", "registers", "tensor_core_instructions")},
+    })
     log(", ".join(card) if card else "nvidia-smi: no output")
     print(json.dumps({"kernels": kernels}), flush=True)
     phases = (("build", build_ok), ("kernel", kernel_ok), ("model", model_ok),
-              ("serving", serving_ok), ("training", training_ok))
+              ("serving", serving_ok), ("training", training_ok),
+              ("seq2seq_training", seq2seq_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

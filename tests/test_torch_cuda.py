@@ -15,6 +15,10 @@ kernels (dQ, dK/dV) match the plain backward on the same O and LSE, bf16
 takes their ``tile`` variant and f32 their ``fma`` variant, the C entry
 points refuse a mismatched variant, a misaligned view is copied and
 counted, and a training step runs every attention backward through them.
+K2 with the bias gradient (T5's learned relative position bias) matches the
+plain backward's dbias at the T5 update's three attention shapes in both
+dtypes, counts its own launches, is refused under the causal flag, and a
+T5 update step runs every self-attention backward through it.
 """
 
 import pytest
@@ -439,7 +443,7 @@ def test_backward_entry_points_refuse_a_mismatched_variant(dev):
         common = (fa.BACKWARD_VARIANTS[variant], *common[1:])
         ptrs = fa._pointers(inputs)
         dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=dev) for t in inputs[:3])
-        return (lib.trlx_flash_bwd_dq(*ptrs, dq.data_ptr(), *common, stream),
+        return (lib.trlx_flash_bwd_dq(*ptrs, dq.data_ptr(), None, *common, stream),
                 lib.trlx_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(), *common, stream))
 
     assert call("tile", torch.bfloat16) == (0, 0)
@@ -518,3 +522,138 @@ def test_training_step_runs_every_attention_backward_through_the_kernels(dev):
     assert fa.FLASH_FWD_LAUNCHES - fwd0 == 12
     assert all(torch.isfinite(v).all() for v in stats.values())
     assert any(not torch.equal(before[n], p) for n, p in trainer.model.named_parameters())
+
+
+# the T5 update's attention shapes at H = 8 (configs/ppo_ul2.yml), batch cut
+# to 2: encoder self-attention over 512 prompt columns and decoder
+# self-attention over 49 response columns, each with a [B, H, Q, K] learned
+# bias (relative table + masks); cross-attention, 49 queries over 512 keys
+# with a [B, 1, 1, K] padding bias (its gradient summed from dS)
+DBIAS_CASES = {"encoder_self": (2, 512, 512, "full"), "decoder_self": (2, 49, 49, "full"),
+               "cross": (2, 49, 512, "pad")}
+
+
+def _dbias_inputs(dev, case, dtype):
+    B, Q, K, kind = DBIAS_CASES[case]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    q, k, v = (torch.randn(B, T, 8, 64, generator=gen, device=dev).to(dtype) for T in (Q, K, K))
+    keep = torch.arange(K, device=dev)[None] < 4
+    pad = attn.padding_bias(((torch.rand(B, K, generator=gen, device=dev) > 0.2) | keep).long())
+    if kind == "full":
+        bias = 2 * torch.randn(1, 8, Q, K, generator=gen, device=dev) + pad
+    else:
+        bias = pad
+    do = torch.randn(B, Q, 8, 64, generator=gen, device=dev).to(dtype)
+    return q, k, v, bias, do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", list(DBIAS_CASES))
+def test_backward_dbias_matches_plain(dev, dtype, case):
+    """K2's bias gradient (dS, f32) against the plain backward's on the
+    same O and LSE: only the order of the sums differs (1e-4 of the
+    largest); dQ/dK/dV as without it."""
+    q, k, v, bias, do = _dbias_inputs(dev, case, dtype)
+    o, lse = fa.flash_attention(q, k, v, bias, False, True)
+    before = _bwd_counters()
+    dbias0 = fa.FLASH_BWD_DQ_DBIAS_LAUNCHES
+    *got, dbias = fa._launch_backward(q, k, v, bias, o, lse, do, False, dbias=True)
+    want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, False, True)
+    torch.cuda.synchronize()
+    assert fa.FLASH_BWD_DQ_DBIAS_LAUNCHES - dbias0 == 1
+    variant = "TILE" if dtype == torch.bfloat16 else "FMA"
+    assert {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n} == {
+        "FLASH_BWD_DQ_LAUNCHES": 1, "FLASH_BWD_DKV_LAUNCHES": 1,
+        f"FLASH_BWD_DQ_{variant}_LAUNCHES": 1, f"FLASH_BWD_DKV_{variant}_LAUNCHES": 1}
+    B, Q, K, _ = DBIAS_CASES[case]
+    assert dbias.shape == want[3].shape == (B, 8, Q, K) and dbias.dtype == torch.float32
+    assert torch.isfinite(dbias).all()
+    err = (dbias - want[3]).abs().max().item()
+    assert err <= 1e-4 * max(1.0, want[3].abs().max().item()), err
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert (g.float() - w.float()).abs().max().item() <= _bwd_tol(dtype, w), name
+
+
+def test_dbias_is_refused_under_the_causal_flag(dev):
+    """The C entry point returns -1 for dbias with the causal flag (a
+    learned bias carries its causal mask), and the wrappers raise before
+    launching."""
+    q, k, v, bias, do = _dbias_inputs(dev, "decoder_self", torch.bfloat16)
+    o, lse = fa.flash_attention(q, k, v, bias, False, True)
+    _, inputs, common = fa._backward_args(q, k, v, bias, o, lse, do, True)
+    dq = torch.empty_like(inputs[0])
+    ds = torch.empty(2, 8, 49, 49, device=dev)
+    lib = fa._load()["flash_bwd"]
+    stream = torch.cuda.current_stream().cuda_stream
+    assert lib.trlx_flash_bwd_dq(*fa._pointers(inputs), dq.data_ptr(), ds.data_ptr(),
+                                 *common, stream) == -1
+    before = _bwd_counters()
+    with pytest.raises(ValueError, match="causal=False"):
+        fa._launch_backward(q, k, v, bias, o, lse, do, True, dbias=True)
+    assert _bwd_counters() == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_learned_bias_function_matches_autograd_of_plain(dev, dtype):
+    """The autograd Function with a learned [1, H, Q, K] table under a
+    padding bias: the table's gradient from K2 against autograd through
+    the plain forward."""
+    q0, k0, v0, _, do = _dbias_inputs(dev, "decoder_self", dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    table0 = torch.randn(1, 8, 49, 49, generator=gen, device=dev)
+    pad = attn.padding_bias(torch.ones(2, 49, dtype=torch.long, device=dev))
+    grads = []
+    for fn in (fa.flash_attention, fa.flash_attention_reference):
+        xs = [x.clone().requires_grad_() for x in (q0, k0, v0, table0)]
+        (fn(*xs[:3], xs[3] + pad).float() * do.float()).sum().backward()
+        grads.append([x.grad for x in xs])
+    for g, w in zip(*grads):
+        assert (g.float() - w.float()).abs().max().item() <= _bwd_tol(dtype, w)
+
+
+def test_t5_update_step_runs_every_attention_backward_through_the_kernels(dev):
+    """One PPO update of a small T5 on the card: K2 and K3 launch once per
+    attention (3 per decoder layer, 1 per encoder layer), K2 with the bias
+    gradient once per self-attention, and the relative tables move."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.data.ppo_types import PPORolloutBatch
+    from trlx_tpu_torch.trainer.seq2seq_ppo_trainer import Seq2SeqPPOTrainer
+
+    config = TRLConfig.from_dict({
+        "model": {"model_type": "t5", "model_arch": {
+            "vocab_size": 64, "d_model": 128, "d_kv": 64, "d_ff": 256, "num_layers": 2,
+            "num_decoder_layers": 2, "num_heads": 2, "feed_forward_proj": "gated-gelu",
+            "tie_word_embeddings": False}},
+        "train": {"seq_length": 20, "batch_size": 4, "dtype": "bfloat16", "seed": 0,
+                  "trainer": "Seq2SeqPPOTrainer"},
+        "method": {"name": "PPOConfig", "gen_kwargs": {
+            "max_new_tokens": 6, "do_sample": True, "eos_token_id": 1, "pad_token_id": 0,
+            "forced_bos_token_id": 5}},
+    })
+    trainer = Seq2SeqPPOTrainer(config)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    q_mask = (torch.arange(20, device=dev)[None] >= torch.tensor([[0], [3], [5], [19]], device=dev)).int()
+    q_ids = torch.randint(2, 60, (4, 20), generator=gen, device=dev).int() * q_mask
+    out = trainer.sample(q_ids, q_mask)
+    assert (out.tokens[:, 0] == 5).all()
+    mb = PPORolloutBatch(
+        query_tokens=q_ids, query_mask=q_mask,
+        response_tokens=out.tokens, response_mask=out.response_mask,
+        logprobs=out.logprobs, values=out.values,
+        rewards=torch.randn(4, 6, generator=gen, device=dev) * out.response_mask,
+    )
+    table = trainer.model.t5.enc_rel_bias.relative_attention_bias.weight.detach().clone()
+    before = _bwd_counters()
+    dbias0, fwd0 = fa.FLASH_BWD_DQ_DBIAS_LAUNCHES, fa.FLASH_FWD_LAUNCHES
+    stats = trainer.train_step(mb)
+    torch.cuda.synchronize()
+    assert fa.FLASH_FWD_LAUNCHES - fwd0 == 6
+    assert fa.FLASH_BWD_DQ_DBIAS_LAUNCHES - dbias0 == 4
+    assert {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n} == {
+        "FLASH_BWD_DQ_LAUNCHES": 6, "FLASH_BWD_DKV_LAUNCHES": 6,
+        "FLASH_BWD_DQ_TILE_LAUNCHES": 6, "FLASH_BWD_DKV_TILE_LAUNCHES": 6}
+    assert all(torch.isfinite(v).all() for v in stats.values())
+    assert not torch.equal(table, trainer.model.t5.enc_rel_bias.relative_attention_bias.weight)

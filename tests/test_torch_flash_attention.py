@@ -152,7 +152,8 @@ def test_fully_masked_rows_average_the_real_keys():
 def test_dot_product_attention_is_the_flash_forward(monkeypatch):
     """Every call of the attention entry point goes to the flash forward
     (the kernel on the card); there is no other route and no option that
-    selects one."""
+    selects one. ``learned_bias`` (T5's relative position bias) takes the
+    same route: it only declares that the bias may require grad."""
     calls = []
     monkeypatch.setattr(
         tflash, "flash_attention", lambda *a, **kw: calls.append((a, kw)) or a[0]
@@ -162,10 +163,11 @@ def test_dot_product_attention_is_the_flash_forward(monkeypatch):
     bias = torch.zeros(1, 2, 4, 4)
     tattn.dot_product_attention(q, k, v, bias)
     tattn.dot_product_attention(q, k, v, causal=True)
-    assert [kw["causal"] for _, kw in calls] == [False, True]
-    assert calls[0][0][3] is bias and calls[1][0][3] is None
+    tattn.dot_product_attention(q, k, v, bias.requires_grad_(), learned_bias=True)
+    assert [kw["causal"] for _, kw in calls] == [False, True, False]
+    assert calls[0][0][3] is bias and calls[1][0][3] is None and calls[2][0][3] is bias
     with pytest.raises(TypeError):
-        tattn.dot_product_attention(q, k, v, bias, learned_bias=True)
+        tattn.dot_product_attention(q, k, v, bias, force_flash=True)
 
 
 def test_kernel_wrapper_refuses_other_devices():

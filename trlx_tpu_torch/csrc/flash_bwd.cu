@@ -36,6 +36,16 @@
 //    LSE as [B, H, Q] f32; ragged Q/K edges are masked in the kernel and
 //    keys past K are left out, as in the forward. Padded query rows have
 //    P = 0, so a NEG_INF-sized logit never meets an unloaded LSE.
+//  - The bias gradient (T5's learned relative position bias, which the TPU
+//    wrapper leaves to XLA): the bias is added after the scale, so its
+//    gradient is dS itself. The dQ kernel forms dS per (query, key) anyway,
+//    so with a dbias pointer it also stores that f32 dS, before the bf16
+//    cast, into a contiguous [B, H, Q, K] tensor, masking the Q and K tails.
+//    The store is a template switch (kDbias): the instantiation without it
+//    compiles to the same code as before. A learned bias carries T5's
+//    causal mask itself, so dbias comes only without the causal flag, every
+//    key tile is visited and every element written. The write doubles the
+//    bias's bytes: at T5's encoder shape it bounds the kernel.
 //
 // Two variants, chosen in Python (ops/flash_attention.py::backward_variant)
 // and passed in; a mismatched choice is refused with -1:
@@ -178,13 +188,16 @@ __device__ __forceinline__ void scores(float (&s)[RQ][4], float (&dp)[RQ][4],
   }
 }
 
-// dQ: one block per (query tile of BQ rows, head, batch row)
-template <int BQ>
+// dQ: one block per (query tile of BQ rows, head, batch row); with kDbias
+// also dbias = dS for the block's rows (unscaled: the bias is added after
+// the scale), into a contiguous [B, H, Q, K] f32 tensor
+template <int BQ, bool kDbias>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ bias,
                         const float* __restrict__ o, const float* __restrict__ dout,
                         const float* __restrict__ lse, float* __restrict__ dq,
+                        float* __restrict__ dbias,
                         int H, int Q, int K, Strides sq, Strides sk, Strides sv,
                         Strides so, Strides sdo, BiasStrides sb, float scale,
                         int causal) {
@@ -242,7 +255,10 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
         float p = 0.f;  // padded rows and keys past K carry no weight
         if (qi < Q && kj < K)
           p = expf(logit(s[i][j], scale, biasb, sb, qi, kj, causal) - Ls[r]);
-        dSs[r * kLD + tx + 16 * j] = p * (dp[i][j] - Ds[r]);
+        const float ds = p * (dp[i][j] - Ds[r]);
+        dSs[r * kLD + tx + 16 * j] = ds;
+        if (kDbias && qi < Q && kj < K)
+          dbias[((static_cast<long long>(b) * H + h) * Q + qi) * K + kj] = ds;
       }
     }
     __syncthreads();  // dS complete
@@ -456,12 +472,17 @@ __device__ __forceinline__ void product(float (&d)[8][4], uint32_t x, uint32_t y
 }
 
 // dQ: one warpgroup per (64-row query tile, head, batch row); warp w owns
-// rows 16 w .. 16 w + 15, each thread rows g and g + 8 of them.
+// rows 16 w .. 16 w + 15, each thread rows g and g + 8 of them. With
+// kDbias it also stores dbias = dS (f32, unscaled) from the accumulator
+// fragments into a contiguous [B, H, Q, K] tensor; without it the code is
+// PR 4's (the store is compiled out).
+template <bool kDbias>
 __global__ void __launch_bounds__(kTileThreads, kDqMinBlocks)
 flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const float* __restrict__ bias,
                          const bf16* __restrict__ o, const bf16* __restrict__ dout,
                          const float* __restrict__ lse, bf16* __restrict__ dq,
+                         float* __restrict__ dbias,
                          int H, int Q, int K, Strides sq, Strides sk, Strides sv,
                          Strides so, Strides sdo, BiasStrides sb, float scale,
                          int causal) {
@@ -571,6 +592,18 @@ flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - delta[e >> 1]);
+    if constexpr (kDbias) {
+      // dS of this thread's (row, key) pairs in range, before the bf16 cast;
+      // rows qi[0] and qi[0] + 8 share one base, 8 K floats apart
+      float* drow = dbias + ((static_cast<long long>(b) * H + h) * Q + qi[0]) * K;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+          if (qi[e >> 1] < Q && kj < K) drow[(e >> 1) * 8 * K + kj] = dp[j][e];
+        }
+    }
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) pack_fragment(da[ks], dp, ks);
     fence_registers(acc);
@@ -771,29 +804,6 @@ struct Args {
   cudaStream_t stream;
 };
 
-// Launch `kernel` on a grid of (tiles, H, B) with `smem` bytes of dynamic
-// shared memory; T is the element type of the five inputs and the outputs.
-template <typename T, auto kernel, typename... Out>
-cudaError_t launch(const Args& a, int tiles, int threads, size_t smem,
-                   Out*... out) {
-  cudaError_t err = allow_smem<kernel>(smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(tiles, a.H, a.B), threads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
-      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
-      static_cast<const float*>(a.lse), static_cast<T*>(out)..., a.H, a.Q,
-      a.K, a.sq, a.sk, a.sv, a.so, a.sdo, a.sb, a.scale, a.causal);
-  return cudaGetLastError();
-}
-
-template <int BQ>
-cudaError_t launch_dq_fma(const Args& a, void* dq) {
-  constexpr size_t smem = sizeof(float) * ((3 * BQ + 2 * kBK) * kLD + 2 * BQ);
-  return launch<float, flash_bwd_dq_fma_kernel<BQ>>(a, (a.Q + BQ - 1) / BQ,
-                                                    kThreads, smem, dq);
-}
-
 bool valid(int D, int B, int H, int Q, int K) {
   return D == kD && B >= 1 && H >= 1 && Q >= 1 && K >= 1 && H <= 65535 &&
          B <= 65535;
@@ -804,6 +814,45 @@ bool tile_aligned(const Args& a) {
   return aligned16(a.q, a.sq, a.B, a.Q, a.H) && aligned16(a.o, a.so, a.B, a.Q, a.H) &&
          aligned16(a.dout, a.sdo, a.B, a.Q, a.H) &&
          aligned16(a.k, a.sk, a.B, a.K, a.H) && aligned16(a.v, a.sv, a.B, a.K, a.H);
+}
+
+// Launch `kernel` on a grid of (tiles, H, B) with `smem` bytes of dynamic
+// shared memory; T is the element type of the five inputs, `out` the typed
+// output pointers.
+template <typename T, auto kernel, typename... Out>
+cudaError_t launch(const Args& a, int tiles, int threads, size_t smem,
+                   Out... out) {
+  cudaError_t err = allow_smem<kernel>(smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(tiles, a.H, a.B), threads, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const float*>(a.bias),
+      static_cast<const T*>(a.o), static_cast<const T*>(a.dout),
+      static_cast<const float*>(a.lse), out..., a.H, a.Q, a.K, a.sq, a.sk,
+      a.sv, a.so, a.sdo, a.sb, a.scale, a.causal);
+  return cudaGetLastError();
+}
+
+template <int BQ, bool kDbias>
+cudaError_t launch_dq_fma(const Args& a, void* dq, void* dbias) {
+  constexpr size_t smem = sizeof(float) * ((3 * BQ + 2 * kBK) * kLD + 2 * BQ);
+  return launch<float, flash_bwd_dq_fma_kernel<BQ, kDbias>>(
+      a, (a.Q + BQ - 1) / BQ, kThreads, smem, static_cast<float*>(dq),
+      static_cast<float*>(dbias));
+}
+
+template <bool kDbias>
+cudaError_t launch_dq(const Args& a, int variant, int dtype, void* dq,
+                      void* dbias, bool* refused) {
+  if (variant == kFma && dtype == 0)
+    return forward_block_q(a.Q) == 16 ? launch_dq_fma<16, kDbias>(a, dq, dbias)
+                                      : launch_dq_fma<64, kDbias>(a, dq, dbias);
+  if (variant == kTile && dtype == 1 && tile_aligned(a))
+    return launch<bf16, flash_bwd_dq_tile_kernel<kDbias>>(
+        a, (a.Q + kBQ - 1) / kBQ, kTileThreads, kDqSmem, static_cast<bf16*>(dq),
+        static_cast<float*>(dbias));
+  *refused = true;
+  return cudaSuccess;
 }
 
 Args make_args(const void* q, const void* k, const void* v, const void* bias,
@@ -827,27 +876,28 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
 // h) each (head dim contiguous), then the bias's (b, h, q, k) with 0 for a
 // broadcast dimension; the tile variant needs all five inputs 16-byte
 // aligned as `aligned16` states. bias may be null. lse is [B, H, Q] f32;
-// outputs are contiguous [B, T, H, D] in the inputs' dtype. Each returns 0
-// on success, else the CUDA error code of the launch, or -1 for arguments
-// the chosen variant was not built for.
+// outputs are contiguous [B, T, H, D] in the inputs' dtype. dbias (dQ only)
+// may be null; when given it receives dS, the bias's gradient, as a
+// contiguous [B, H, Q, K] f32 tensor, and the causal flag is refused (a
+// learned bias carries its own causal mask, so every key tile is visited
+// and every element written). Each returns 0 on success, else the CUDA
+// error code of the launch, or -1 for arguments the chosen variant was not
+// built for.
 extern "C" int trlx_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* bias, const void* o,
                                  const void* dout, const void* lse, void* dq,
-                                 int variant, int dtype, int B, int H, int Q,
-                                 int K, int D, const long long* strides,
-                                 float scale, int causal, void* stream) {
-  if (!valid(D, B, H, Q, K)) return -1;
+                                 void* dbias, int variant, int dtype, int B,
+                                 int H, int Q, int K, int D,
+                                 const long long* strides, float scale,
+                                 int causal, void* stream) {
+  if (!valid(D, B, H, Q, K) || (dbias && causal)) return -1;
   const Args a = make_args(q, k, v, bias, o, dout, lse, B, H, Q, K, strides,
                            scale, causal, stream);
-  cudaError_t err;
-  if (variant == kFma && dtype == 0)
-    err = forward_block_q(Q) == 16 ? launch_dq_fma<16>(a, dq) : launch_dq_fma<64>(a, dq);
-  else if (variant == kTile && dtype == 1 && tile_aligned(a))
-    err = launch<bf16, flash_bwd_dq_tile_kernel>(a, (Q + kBQ - 1) / kBQ,
-                                                 kTileThreads, kDqSmem, dq);
-  else
-    return -1;
-  return static_cast<int>(err);
+  bool refused = false;
+  const cudaError_t err =
+      dbias ? launch_dq<true>(a, variant, dtype, dq, dbias, &refused)
+            : launch_dq<false>(a, variant, dtype, dq, nullptr, &refused);
+  return refused ? -1 : static_cast<int>(err);
 }
 
 extern "C" int trlx_flash_bwd_dkv(const void* q, const void* k, const void* v,
@@ -865,10 +915,11 @@ extern "C" int trlx_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (variant == kFma && dtype == 0)
     err = launch<float, flash_bwd_dkv_fma_kernel>(
         a, tiles, kThreads, sizeof(float) * ((2 * kBK + 4 * kBQ) * kLD + 2 * kBQ),
-        dk, dv);
+        static_cast<float*>(dk), static_cast<float*>(dv));
   else if (variant == kTile && dtype == 1 && tile_aligned(a))
     err = launch<bf16, flash_bwd_dkv_tile_kernel>(a, tiles, kTileThreads,
-                                                  kDkvSmem, dk, dv);
+                                                  kDkvSmem, static_cast<bf16*>(dk),
+                                                  static_cast<bf16*>(dv));
   else
     return -1;
   return static_cast<int>(err);

@@ -1,16 +1,23 @@
 """Carry the JAX package's policy params across to the port.
 
 :func:`flax_to_torch` takes the flax param tree of
-``CausalLMWithValueHead`` as a nested dict of numpy arrays (the caller does
-the ``np.asarray``; nothing here imports JAX) and returns the port's state
-dict. Flax names map one to one:
+``CausalLMWithValueHead`` or ``T5WithValueHead`` as a nested dict of numpy
+arrays (the caller does the ``np.asarray``; nothing here imports JAX) and
+returns the port's state dict. Flax names map one to one:
 
 - ``transformer/h_0/attn/c_attn/kernel`` -> ``transformer.h.0.attn.c_attn.weight``
   (flax ``Dense`` kernels are [in, out]; ``nn.Linear`` weights are
   [out, in], so kernels are transposed);
 - ``.../ln_1/scale`` -> ``.../ln_1.weight``; ``.../bias`` -> ``.bias``;
 - ``transformer/wte/embedding`` -> ``transformer.wte.weight``;
-- ``v_head/fc1/kernel`` -> ``v_head.fc1.weight``.
+- ``v_head/fc1/kernel`` -> ``v_head.fc1.weight``;
+- T5: ``t5/enc_0/SelfAttention/q/kernel`` -> ``t5.enc.0.SelfAttention.q.weight``
+  (``enc_<i>``/``dec_<i>`` are module lists), ``t5/dec_0/ln_self/weight``
+  -> ``t5.dec.0.ln_self.weight`` (``T5LayerNorm``'s leaf is ``weight``),
+  ``t5/shared/embedding`` -> ``t5.shared.weight``,
+  ``t5/enc_rel_bias/relative_attention_bias/embedding`` ->
+  ``t5.enc_rel_bias.relative_attention_bias.weight``, ``t5/lm_head/kernel``
+  -> ``t5.lm_head.weight``.
 """
 
 from __future__ import annotations
@@ -21,7 +28,8 @@ from typing import Any, Dict, Iterator, Mapping, Tuple
 import numpy as np
 import torch
 
-_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight", "bias": "bias"}
+_LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
+         "weight": "weight", "bias": "bias"}
 
 
 def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:
@@ -37,7 +45,7 @@ def torch_name(path: Tuple[str, ...]) -> str:
     *mods, leaf = path
     if leaf not in _LEAF:
         raise ValueError(f"unexpected flax param leaf {'/'.join(path)!r}")
-    mods = [re.sub(r"^h_(\d+)$", r"h.\1", m) for m in mods]
+    mods = [re.sub(r"^(h|enc|dec)_(\d+)$", r"\1.\2", m) for m in mods]
     return ".".join(mods + [_LEAF[leaf]])
 
 

@@ -79,8 +79,8 @@ class GPT2Config:
 
 class Linear(nn.Linear):
     """``nn.Linear`` that computes in ``compute_dtype`` (flax ``Dense``
-    with ``dtype``/``param_dtype``): input, weight and bias are cast to
-    the compute dtype per use."""
+    with ``dtype``/``param_dtype``): input, weight and bias (if any) are
+    cast to the compute dtype per use."""
 
     def __init__(self, in_features, out_features, compute_dtype, **kw):
         super().__init__(in_features, out_features, **kw)
@@ -88,7 +88,8 @@ class Linear(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        bias = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 class LayerNorm(nn.LayerNorm):

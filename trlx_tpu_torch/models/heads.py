@@ -1,15 +1,17 @@
-"""Value head and the PPO policy wrapper (counterpart of
-:mod:`trlx_tpu.models.heads`: ``MLPHead`` and ``CausalLMWithValueHead``),
-and the random init of a policy from a seed."""
+"""Value head and the PPO policy wrappers (counterpart of
+:mod:`trlx_tpu.models.heads`: ``MLPHead``, ``CausalLMWithValueHead`` and
+``T5WithValueHead``), and the random init of a policy from a seed."""
 
 from __future__ import annotations
 
+import re
 from typing import Any, Optional
 
 import torch
 from torch import nn
 
 from trlx_tpu_torch.models.gpt2 import GPT2Model, Linear, torch_dtype
+from trlx_tpu_torch.models.t5 import T5Config, T5Model
 
 
 class MLPHead(nn.Module):
@@ -116,16 +118,67 @@ class CausalLMWithValueHead(nn.Module):
         )
 
 
+class T5WithValueHead(nn.Module):
+    """T5/UL2 backbone (``t5``) + scalar value head (``v_head``) on the
+    decoder's hidden states: the fork's seq2seq policy. ``forward`` is the
+    teacher-forced pass; ``encode``, ``init_cross_kv`` and ``decode`` (with
+    values) serve the seq2seq sampler."""
+
+    def __init__(self, config: T5Config, device=None):
+        super().__init__()
+        self.config = config
+        self.t5 = T5Model(config, device=device)
+        self.v_head = MLPHead(
+            config.d_model, 1, dtype=config.dtype, param_dtype=config.param_dtype,
+            device=device,
+        )
+
+    def forward(self, input_ids, attention_mask=None, decoder_input_ids=None,
+                decoder_attention_mask=None):
+        out = self.t5(
+            input_ids,
+            attention_mask=attention_mask,
+            decoder_input_ids=decoder_input_ids,
+            decoder_attention_mask=decoder_attention_mask,
+        )
+        out["values"] = self.v_head(out["hidden"])[..., 0]
+        return out
+
+    def encode(self, input_ids, attention_mask=None):
+        return self.t5.encode(input_ids, attention_mask)
+
+    def init_cross_kv(self, encoder_hidden):
+        return self.t5.init_cross_kv(encoder_hidden)
+
+    def decoder_rel_bias(self, capacity: int):
+        return self.t5.decoder_rel_bias(capacity)
+
+    def decode(self, decoder_input_ids, encoder_mask=None, decoder_mask=None,
+               cache=None, cache_index=None, cross_kv=None, rel_bias=None):
+        out = self.t5.decode(
+            decoder_input_ids,
+            encoder_mask=encoder_mask,
+            decoder_mask=decoder_mask,
+            cache=cache,
+            cache_index=cache_index,
+            cross_kv=cross_kv,
+            rel_bias=rel_bias,
+        )
+        out["values"] = self.v_head(out["hidden"])[..., 0]
+        return out
+
+
 def init_params(model: nn.Module, seed: int) -> None:
-    """Random GPT-2-style init from ``seed``: N(0, 0.02) weights and
-    embeddings, zero biases, unit layer-norm scales."""
+    """Random init from ``seed``: N(0, 0.02) weights, embeddings and
+    relative position tables, zero biases, unit layer-norm scales (GPT-2's
+    ``ln_*``, T5's ``ln_*`` and ``*_ln``)."""
     gen = torch.Generator(device=next(model.parameters()).device)
     gen.manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
             if name.endswith("bias"):
                 p.zero_()
-            elif ".ln_" in name:
+            elif re.search(r"[._]ln[._]", name):
                 p.fill_(1.0)
             else:
                 p.normal_(0.0, 0.02, generator=gen)

@@ -1,5 +1,6 @@
 """Model-family registry: ``model.model_type`` -> architecture kit
-(counterpart of :mod:`trlx_tpu.models.registry`; ``gpt2`` in this slice).
+(counterpart of :mod:`trlx_tpu.models.registry`; ``gpt2``, and ``t5``
+with its alias ``ul2``, the seq2seq family).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ class ModelFamily:
     config_cls: type
     backbone_cls: type
     init_cache: Callable  # (config, batch, capacity, device) -> cache
+    is_seq2seq: bool = False
 
 
 _FAMILIES: Dict[str, ModelFamily] = {}
@@ -46,4 +48,9 @@ def hidden_size_of(config: Any) -> int:
 def _register_builtins() -> None:
     from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model, init_cache
 
+    from trlx_tpu_torch.models.t5 import T5Config, T5Model, init_t5_cache
+
     register_model_family(ModelFamily("gpt2", GPT2Config, GPT2Model, init_cache))
+    register_model_family(
+        ModelFamily("t5", T5Config, T5Model, init_t5_cache, is_seq2seq=True), "ul2"
+    )

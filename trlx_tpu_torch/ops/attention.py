@@ -1,15 +1,15 @@
 """Attention core and mask/bias helpers (counterpart of
 :mod:`trlx_tpu.ops.attention`).
 
-Every attention of the causal families funnels through
+Every attention of the causal families and of T5 funnels through
 :func:`dot_product_attention`. Masks are additive f32 biases with the
 finite ``NEG_INF`` (a fully-masked row degrades to uniform weights instead
 of NaN). Dispatch: every call goes to the flash forward
 (:mod:`trlx_tpu_torch.ops.flash_attention`), which launches the
 hand-written kernel on a CUDA tensor and runs its plain version on a CPU
-tensor. A learned bias (T5's relative position bias, whose gradient the
-forward kernel does not produce) is not ported: the T5 slice decides
-which kernel carries it.
+tensor. A learned bias (T5's relative position bias, ``learned_bias=True``)
+takes the same route: where the reference pins it to XLA's einsum for its
+gradient, the port's dQ kernel returns that gradient.
 """
 
 from __future__ import annotations
@@ -93,8 +93,22 @@ def dot_product_attention(
     bias: Optional[torch.Tensor] = None,  # [B or 1, 1 or H, Q, K] additive
     *,
     causal: bool = False,
+    learned_bias: bool = False,
 ) -> torch.Tensor:
-    """Multi-head attention; returns [B, Q, H, D] in q's dtype."""
+    """Multi-head attention; returns [B, Q, H, D] in q's dtype.
+
+    ``learned_bias=True`` declares that ``bias`` carries trained
+    parameters (T5's relative position table) and may require grad; its
+    gradient then comes from the dQ kernel (the plain backward on a CPU
+    tensor). The route is the same either way: K1 forward, K2 and K3
+    backward. A bias that requires grad without the declaration is
+    refused, since the reference would give it no gradient."""
     from trlx_tpu_torch.ops.flash_attention import flash_attention
 
+    if (not learned_bias and bias is not None and bias.requires_grad
+            and torch.is_grad_enabled()):
+        raise ValueError(
+            "dot_product_attention: the bias requires grad; pass "
+            "learned_bias=True for a learned bias"
+        )
     return flash_attention(q, k, v, bias, causal=causal)

@@ -10,8 +10,9 @@ query count (:func:`forward_variant`): ``tile`` (bf16, Q > 16, tensor
 cores), ``decode`` (bf16, Q <= 16, a GEMV on the CUDA cores) and ``fma``
 (f32, the parity path). K2 and K3 have two, one per dtype
 (:func:`backward_variant`): ``tile`` (bf16, tensor cores) and ``fma``
-(f32). Each source is CUDA C++ for ``sm_90a``, compiled with ``nvcc`` at
-first use into ``trlx_tpu_torch/_build/`` (a file named by the hash of the
+(f32). K2 also returns the bias's gradient (dS, for T5's learned
+relative position bias) when the bias requires grad. Each source is CUDA
+C++ for ``sm_90a``, compiled with ``nvcc`` at first use into ``trlx_tpu_torch/_build/`` (a file named by the hash of the
 source and the header it includes, so an edit rebuilds; the two sources
 build in parallel) and bound through plain C functions loaded with
 ``ctypes``. Nothing is imported or built when this module is imported.
@@ -56,6 +57,9 @@ FLASH_BWD_DQ_TILE_LAUNCHES = 0
 FLASH_BWD_DQ_FMA_LAUNCHES = 0
 FLASH_BWD_DKV_TILE_LAUNCHES = 0
 FLASH_BWD_DKV_FMA_LAUNCHES = 0
+#: K2 launches that also wrote the bias gradient (counted in the two above
+#: as well)
+FLASH_BWD_DQ_DBIAS_LAUNCHES = 0
 #: q/k/v/o/dO copies the backward's argument packing made (a view the
 #: variant cannot read in place), once per packing
 FLASH_BWD_COPIES = 0
@@ -181,10 +185,11 @@ def _load() -> Dict[str, ctypes.CDLL]:
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
         bwd = ctypes.CDLL(paths["flash_bwd"])
-        for fn, n_out in ((bwd.trlx_flash_bwd_dq, 1), (bwd.trlx_flash_bwd_dkv, 2)):
+        # dq and dbias, or dk and dv
+        for fn in (bwd.trlx_flash_bwd_dq, bwd.trlx_flash_bwd_dkv):
             fn.restype = ctypes.c_int
             fn.argtypes = (
-                [ctypes.c_void_p] * (7 + n_out)
+                [ctypes.c_void_p] * 9
                 + [ctypes.c_int] * 7
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                    ctypes.c_int, ctypes.c_void_p]
@@ -266,6 +271,16 @@ def flash_attention_reference(
     return out
 
 
+def sum_to_shape(x: torch.Tensor, shape) -> torch.Tensor:
+    """``x`` summed over the dims where ``shape`` broadcasts (leading dims
+    it lacks, and dims of size 1): a broadcast input's gradient."""
+    lead = x.dim() - len(shape)
+    if lead:
+        x = x.sum(dim=tuple(range(lead)))
+    dims = tuple(i for i, n in enumerate(shape) if n == 1 and x.shape[i] != 1)
+    return x.sum(dim=dims, keepdim=True) if dims else x
+
+
 def flash_attention_backward_reference(
     q: torch.Tensor,  # [B, Q, H, D]
     k: torch.Tensor,  # [B, K, H, D]
@@ -275,7 +290,8 @@ def flash_attention_backward_reference(
     lse: torch.Tensor,  # [B, H, Q] f32, the forward's LSE
     do: torch.Tensor,  # [B, Q, H, D]
     causal: bool = False,
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    with_dbias: bool = False,
+):
     """The plain version of the backward kernels: the TPU kernels'
     recomputation in plain tensor ops. P = exp(S - LSE) in f32 (not
     rounded), delta = rowsum(dO * O) in f32, dP from dO and V widened to
@@ -284,7 +300,10 @@ def flash_attention_backward_reference(
     keys in the tiles the forward kernel skipped carry no weight
     (:func:`visited_keys`), so on a row whose visible keys are all masked
     P sums to 1 over the tiles the kernel visited. Returns ``(dq, dk,
-    dv)`` in the dtypes of q, k, v."""
+    dv)`` in the dtypes of q, k, v; with ``with_dbias`` also dS [B, H, Q,
+    K] f32, the bias's gradient before the sum over the dims where the
+    bias broadcasts (unscaled: the bias is added after the scale; K2's
+    output, which needs ``causal=False``)."""
     Q, K = q.shape[1], k.shape[1]
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -302,15 +321,34 @@ def flash_attention_backward_reference(
     dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), k.float())
     dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float())
     dv = torch.einsum("bhqk,bqhd->bkhd", p, do32)
-    return (dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+    grads = (dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+    if with_dbias:
+        _check_dbias(bias, causal)
+        return (*grads, ds)
+    return grads
+
+
+def _check_dbias(bias, causal) -> None:
+    """A bias gradient needs a bias and no causal flag: a learned bias
+    carries its own causal mask, and K2 then visits every key tile."""
+    if bias is None:
+        raise ValueError("flash_attention backward: no bias to differentiate")
+    if causal:
+        raise ValueError(
+            "flash_attention: a bias that requires grad (a learned bias) "
+            "takes causal=False; fold the causal mask into the bias"
+        )
 
 
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (the counterpart of ``_flash`` with
     ``_flash_fwd``/``_flash_bwd``): the forward saves q, k, v, bias, O and
     LSE; the backward launches the dQ kernel and then the dK/dV kernel on
-    CUDA tensors, or runs the plain backward on CPU tensors. The bias gets
-    no gradient, as the TPU wrapper returns a zero cotangent for it."""
+    CUDA tensors, or runs the plain backward on CPU tensors. A bias that
+    requires grad (T5's learned relative position bias, which the TPU
+    package leaves on XLA's einsum path) gets its gradient from the dQ
+    kernel, summed over the dims where it broadcasts; any other bias gets
+    none, as the TPU wrapper returns a zero cotangent for it."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, causal):
@@ -325,13 +363,14 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, bias, o, lse = ctx.saved_tensors
-        if q.device.type == "cpu":
-            dq, dk, dv = flash_attention_backward_reference(
-                q, k, v, bias, o, lse, do, ctx.causal
-            )
-        else:
-            dq, dk, dv = _launch_backward(q, k, v, bias, o, lse, do, ctx.causal)
-        return dq, dk, dv, None, None
+        with_dbias = ctx.needs_input_grad[3]
+        backward = (
+            flash_attention_backward_reference if q.device.type == "cpu"
+            else _launch_backward
+        )
+        grads = backward(q, k, v, bias, o, lse, do, ctx.causal, with_dbias)
+        dbias = sum_to_shape(grads[3], bias.shape).to(bias.dtype) if with_dbias else None
+        return (*grads[:3], dbias, None)
 
 
 def flash_attention(
@@ -345,9 +384,11 @@ def flash_attention(
     """Attention over the [B, T, H, D] layout; returns ``o`` [B, Q, H, D]
     in q's dtype (and ``lse`` [B, H, Q] f32 with ``return_lse``).
     ``causal=True`` masks query i against keys > i in the kernel and skips
-    wholly-future key tiles. When q, k or v requires grad (and grad mode
-    is on) the call goes through :class:`FlashAttention`, whose backward
-    runs the backward kernels; otherwise no LSE is allocated unless asked
+    wholly-future key tiles. When q, k, v or the bias requires grad (and
+    grad mode is on) the call goes through :class:`FlashAttention`, whose
+    backward runs the backward kernels (a bias that requires grad takes
+    ``causal=False``: its gradient comes from the dQ kernel, which then
+    visits every key tile); otherwise no LSE is allocated unless asked
     for. A CPU tensor runs the plain versions; a CUDA tensor launches the
     kernels or raises.
 
@@ -356,13 +397,10 @@ def flash_attention(
     row whose visible keys are all padding (a left-padding row, whose
     output callers discard) averages only the keys of the tiles it
     visits, as the TPU kernel does."""
-    if bias is not None and bias.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "flash_attention returns no bias gradient (as the TPU kernel's "
-            "zero cotangent); a learned bias (T5's relative position bias) "
-            "needs the kernel of ROADMAP item 10"
-        )
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    grad_bias = bias is not None and bias.requires_grad
+    if torch.is_grad_enabled() and grad_bias:
+        _check_dbias(bias, causal)
+    if torch.is_grad_enabled() and (grad_bias or any(t.requires_grad for t in (q, k, v))):
         if return_lse:
             raise ValueError("flash_attention: the LSE has no gradient; "
                              "call with return_lse=False to differentiate")
@@ -533,27 +571,38 @@ def _pointers(tensors):
     return [t.data_ptr() if t is not None else None for t in tensors]
 
 
-def _launch_packed(name: str, args) -> list:
+def _launch_packed(name: str, args, dbias: bool = False) -> list:
     """K2 (``name`` ``"dq"``) or K3 (``"dkv"``) on the current stream from
     the arguments :func:`_backward_args` packed; returns its contiguous
-    outputs (``[dq]`` or ``[dk, dv]``)."""
+    outputs (``[dq]``, ``[dq, dbias]`` with ``dbias``, or ``[dk, dv]``).
+    ``dbias`` asks K2 for the bias gradient, a contiguous [B, H, Q, K] f32
+    tensor (the C side refuses it under the causal flag)."""
+    global FLASH_BWD_DQ_DBIAS_LAUNCHES
     variant, inputs, common = args
     like = inputs[:1] if name == "dq" else inputs[1:3]
     outs = [torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in like]
+    if dbias:
+        B, H, Q, K = common[2:6]
+        outs.append(torch.empty((B, H, Q, K), dtype=torch.float32, device=like[0].device))
+    ptrs = [t.data_ptr() for t in outs]
+    if name == "dq" and not dbias:
+        ptrs.append(None)
     lib = _load()["flash_bwd"]
     device = inputs[0].device
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"trlx_flash_bwd_{name}")(
-            *_pointers(inputs), *(t.data_ptr() for t in outs), *common, stream
+            *_pointers(inputs), *ptrs, *common, stream
         )
     if rc != 0:
         raise RuntimeError(
-            f"flash_bwd_{name} kernel launch failed ({variant} variant): CUDA error {rc}"
+            f"flash_bwd_{name} kernel launch failed ({variant} variant"
+            f"{', dbias' if dbias else ''}): CUDA error {rc}"
         )
     counter = f"FLASH_BWD_{name.upper()}"
     globals()[f"{counter}_LAUNCHES"] += 1
     globals()[f"{counter}_{variant.upper()}_LAUNCHES"] += 1
+    FLASH_BWD_DQ_DBIAS_LAUNCHES += dbias
     return outs
 
 
@@ -569,13 +618,15 @@ def _launch_dkv(q, k, v, bias, o, lse, do, causal) -> Tuple[torch.Tensor, torch.
     return dk, dv
 
 
-def _launch_backward(
-    q, k, v, bias, o, lse, do, causal
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _launch_backward(q, k, v, bias, o, lse, do, causal, dbias: bool = False):
     """The dQ kernel, then the dK/dV kernel, from one packing of their
-    arguments; returns ``(dq, dk, dv)``."""
+    arguments; returns ``(dq, dk, dv)``, and with ``dbias`` K2's [B, H, Q,
+    K] f32 bias gradient after them."""
+    if dbias:
+        _check_dbias(bias, causal)
     args = _backward_args(q, k, v, bias, o, lse, do, causal)
-    return (*_launch_packed("dq", args), *_launch_packed("dkv", args))
+    dq, *ds = _launch_packed("dq", args, dbias)
+    return (dq, *_launch_packed("dkv", args), *ds)
 
 
 __all__ = [
@@ -584,6 +635,7 @@ __all__ = [
     "FLASH_BWD_DKV_FMA_LAUNCHES",
     "FLASH_BWD_DKV_LAUNCHES",
     "FLASH_BWD_DKV_TILE_LAUNCHES",
+    "FLASH_BWD_DQ_DBIAS_LAUNCHES",
     "FLASH_BWD_DQ_FMA_LAUNCHES",
     "FLASH_BWD_DQ_LAUNCHES",
     "FLASH_BWD_DQ_TILE_LAUNCHES",
@@ -603,5 +655,6 @@ __all__ = [
     "flash_attention_reference",
     "forward_variant",
     "kernel_inputs",
+    "sum_to_shape",
     "visited_keys",
 ]

@@ -1,7 +1,7 @@
-"""Token selection and the fixed-batch sampler (counterpart of
+"""Token selection and the fixed-batch samplers (counterpart of
 :mod:`trlx_tpu.ops.sampling`: ``GenerationConfig``, ``validate_gen_config``,
-``suppress_eos_before_min``, ``filter_logits``, ``choose_tokens`` and
-``make_sampler``).
+``suppress_eos_before_min``, ``filter_logits``, ``choose_tokens``,
+``make_sampler`` and ``make_seq2seq_sampler``).
 
 Sampling is ``argmax(filtered_logits + gumbel_noise)``, which is how
 ``jax.random.categorical`` samples, so a test that injects the JAX
@@ -11,7 +11,9 @@ draw index, step) — each row's tokens depend on its own seed and logits,
 never on admission order or batch composition (:func:`row_noise`). The
 fixed-batch sampler draws one [B, V] block of noise per decode step from
 the caller's generator (:func:`gumbel_noise`), or takes it from an
-injected ``noise_fn`` (the tests hand it the JAX package's draws).
+injected ``noise_fn`` (the tests hand it the JAX package's draws). The
+seq2seq sampler draws the same way: the reference's key lineage there is
+one ``split`` per step of a batch key.
 """
 
 from __future__ import annotations
@@ -308,6 +310,92 @@ def make_sampler(
             )
             logits_last = out["logits"][:, 0].float()
             value_last = out["values"][:, 0].float()
+        return SampleOutput(
+            tokens=tokens, response_mask=mask, logprobs=logprobs, values=values
+        )
+
+    return sampler
+
+
+def make_seq2seq_sampler(model, init_cache_fn: Callable, gen_config: GenerationConfig):
+    """Build ``sampler(prompt_ids, prompt_mask, generator=None,
+    noise_fn=None) -> SampleOutput``, the encoder-decoder rollout sampler
+    (the fork's T5 ``generate`` path).
+
+    ``model`` has ``encode(ids, mask)``, ``init_cross_kv(hidden)``,
+    ``decoder_rel_bias(capacity)`` and ``decode(ids, encoder_mask=,
+    decoder_mask=, cache=, cache_index=, cross_kv=, rel_bias=)`` returning
+    logits and values (:class:`~trlx_tpu_torch.models.heads.T5WithValueHead`);
+    ``init_cache_fn(batch, capacity)`` builds the decoder's linear KV
+    buffers. Per call: the encoder runs once, the cross-attention K/V once,
+    and the decoder's [1, H, C, C] relative bias once (each step reads its
+    row). The decoder-start token fills cache slot 0 (capacity R + 1, the
+    start stripped from the response); ``forced_bos_token_id`` is emitted
+    at step 0 when set. As in the reference, a finished row emits the pad
+    with mask 0 but keeps the pad's behaviour logprob (under the raw
+    logits) and the step's value; ``min_length`` and ``max_length`` count
+    decoder tokens including the start token. The decode after the last
+    token, whose logits nothing reads, is not run. Sampling draws each
+    step's noise from ``generator``, or from ``noise_fn(t)`` ([B, V] Gumbel
+    draws) when given."""
+    R = gen_config.max_new_tokens
+    cap = R + 1  # slot 0 = the decoder start token
+    min_new = None
+    if gen_config.min_new_tokens > 0 or gen_config.min_length > 0:
+        min_new = max(gen_config.min_new_tokens, gen_config.min_length - 1)
+
+    @torch.no_grad()
+    def sampler(prompt_ids, prompt_mask, generator=None, noise_fn=None) -> SampleOutput:
+        B = prompt_ids.shape[0]
+        dev = prompt_ids.device
+        encoder_hidden = model.encode(prompt_ids, prompt_mask)
+        cross_kv = model.init_cross_kv(encoder_hidden)
+        cache = init_cache_fn(B, cap)
+        rel_bias = model.decoder_rel_bias(cap)
+        slots = torch.arange(cap, device=dev)[None, :]
+
+        def decode(ids, t):
+            out = model.decode(
+                ids, encoder_mask=prompt_mask,
+                decoder_mask=(slots <= t).long().expand(B, cap),
+                cache=cache, cache_index=t, cross_kv=cross_kv, rel_bias=rel_bias,
+            )
+            return out["logits"][:, -1].float(), out["values"][:, -1].float()
+
+        start = torch.full((B, 1), gen_config.decoder_start_token_id, dtype=torch.long, device=dev)
+        logits_last, value_last = decode(start, 0)
+        finished = torch.full((B,), gen_config.max_length > 0 and 1 >= gen_config.max_length,
+                              dtype=torch.bool, device=dev)
+        tokens = torch.empty((B, R), dtype=torch.int32, device=dev)
+        mask = torch.empty((B, R), dtype=torch.int32, device=dev)
+        logprobs = torch.empty((B, R), device=dev)
+        values = torch.empty((B, R), device=dev)
+        for t in range(R):
+            choice_logits = suppress_eos_before_min(logits_last, t, gen_config, min_new)
+            if gen_config.do_sample:
+                noise = (
+                    noise_fn(t) if noise_fn is not None
+                    else gumbel_noise(logits_last.shape, generator, dev)
+                )
+                token = torch.argmax(filter_logits(choice_logits, gen_config) + noise, dim=-1)
+            else:
+                token = torch.argmax(choice_logits, dim=-1)
+            token = token.to(torch.int32)
+            if t == 0 and gen_config.forced_bos_token_id >= 0:
+                token = torch.full_like(token, gen_config.forced_bos_token_id)
+            token = torch.where(finished, torch.full_like(token, gen_config.pad_token_id), token)
+            tokens[:, t] = token
+            mask[:, t] = (~finished).to(torch.int32)
+            logprobs[:, t] = (
+                torch.gather(logits_last, -1, token.long()[:, None])[:, 0]
+                - torch.logsumexp(logits_last, dim=-1)
+            )
+            values[:, t] = value_last
+            finished = finished | (token == gen_config.eos_token_id)
+            if gen_config.max_length > 0 and t + 2 >= gen_config.max_length:
+                finished = torch.ones_like(finished)  # start + t + 1 generated
+            if t < R - 1:
+                logits_last, value_last = decode(token[:, None].long(), t + 1)
         return SampleOutput(
             tokens=tokens, response_mask=mask, logprobs=logprobs, values=values
         )

@@ -58,6 +58,7 @@ def get_trainer(name: str) -> type:
     key = name.lower()
     if key not in _TRAINERS:
         import trlx_tpu_torch.trainer.ppo_trainer  # noqa: F401
+        import trlx_tpu_torch.trainer.seq2seq_ppo_trainer  # noqa: F401
     if key in _TRAINERS:
         return _TRAINERS[key]
     raise ValueError(f"Unknown trainer: {name!r}. Registered: {sorted(_TRAINERS)}")

@@ -21,6 +21,11 @@
 - ``self.forwards`` counts the policy/reference forwards the trainer
   makes (rollout prefill and decode steps, reference scoring, update
   forwards): each runs the attention forward once per layer.
+- The family-specific wiring sits in hooks that the seq2seq trainer
+  (:mod:`trlx_tpu_torch.trainer.seq2seq_ppo_trainer`) overrides, as the
+  reference's does: ``_setup_model``, ``_amend_gen_kwargs``,
+  ``_check_response_budget``, ``_make_sampler``, ``bind_prompt_budget``,
+  ``score_ref`` and ``_forward_logprobs_values``.
   ``self.phase_times`` records each phase's collect and train seconds
   and its rollout tokens.
 """
@@ -99,24 +104,16 @@ class PPOTrainer(BaseRLTrainer):
             if self.tokenizer.pad_token_id is None:
                 self.tokenizer.pad_token = self.tokenizer.eos_token
 
-        self.family = get_model_family(config.model.model_type)
-        arch = dict(config.model.model_arch)
-        arch.setdefault("dtype", train.dtype)
-        arch.setdefault("param_dtype", train.param_dtype)
-        self.model_config = self.family.config_cls.from_dict(arch)
-        self.model = CausalLMWithValueHead(
-            self.model_config, self.family.backbone_cls, device=self.device
-        )
-        init_params(self.model, train.seed)
-        self.ref = copy.deepcopy(self.model.transformer).requires_grad_(False)
-        freeze_layers(self.model, config.model.num_layers_unfrozen, self.model_config.n_layer)
+        self._setup_model()
         self.opt = make_optimizer(train, train.total_steps, self.model.parameters())
         self.generator = set_seed(train.seed, self.device)  # sampling noise
 
         gen_kwargs = dict(method.gen_kwargs)
         self.apply_tokenizer_gen_defaults(gen_kwargs)
+        self._amend_gen_kwargs(gen_kwargs)
         self.gen_config = GenerationConfig.from_dict(gen_kwargs)
         validate_gen_config(self.gen_config, self.model_config.vocab_size, provided=set(gen_kwargs))
+        self._check_response_budget()
         self._gen_budget_cap = self.gen_config.max_new_tokens
         self._bound_min_prompts: Dict[str, int] = {}
         self.query_length = train.seq_length
@@ -133,13 +130,47 @@ class PPOTrainer(BaseRLTrainer):
 
     # ------------------------------------------------------------------ #
 
-    def _rebuild_sampler(self) -> None:
-        self._sampler = make_sampler(
+    def _arch(self) -> Dict[str, Any]:
+        """``model.model_arch`` with the train section's dtypes as
+        defaults."""
+        arch = dict(self.config.model.model_arch)
+        arch.setdefault("dtype", self.config.train.dtype)
+        arch.setdefault("param_dtype", self.config.train.param_dtype)
+        return arch
+
+    def _setup_model(self) -> None:
+        """Build the policy of ``model.model_type`` with random weights from
+        ``train.seed``, take its full frozen copy as the KL reference and
+        freeze per ``num_layers_unfrozen``: sets ``family``,
+        ``model_config``, ``model`` and ``ref``."""
+        config = self.config
+        self.family = get_model_family(config.model.model_type)
+        self.model_config = self.family.config_cls.from_dict(self._arch())
+        self.model = CausalLMWithValueHead(
+            self.model_config, self.family.backbone_cls, device=self.device
+        )
+        init_params(self.model, config.train.seed)
+        self.ref = copy.deepcopy(self.model.transformer).requires_grad_(False)
+        freeze_layers(self.model, config.model.num_layers_unfrozen, self.model_config.n_layer)
+
+    def _amend_gen_kwargs(self, gen_kwargs: Dict[str, Any]) -> None:
+        """Family defaults for the generation kwargs (none for causal LMs)."""
+
+    def _check_response_budget(self) -> None:
+        """Every rollout must have a response token. For causal LMs
+        ``max_length`` caps prompt + generated, which only the bound
+        pipeline's real prompt lengths decide (:meth:`bind_prompt_budget`)."""
+
+    def _make_sampler(self):
+        return make_sampler(
             self._apply,
             functools.partial(self.family.init_cache, self.model_config, device=self.device),
             self.gen_config,
             self.query_length,
         )
+
+    def _rebuild_sampler(self) -> None:
+        self._sampler = self._make_sampler()
 
     def _apply(self, *args, **kwargs):
         self.forwards += 1
