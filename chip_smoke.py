@@ -21,7 +21,8 @@ Phases, each fatal on failure:
    with a padding bias, ragged Q/K, per-head bias, 64 key tiles with peaked
    logits), in bf16 and f32; hold
    K1 again at the training path's shapes (the cases below and the rollout
-   decode, B=128 Q=1 K=112), all-padding causal rows included; hold K2 and
+   decode, B=128 Q=1 K=112, and the reference scoring, B=128 Q=K=112
+   causal), all-padding causal rows included; hold K2 and
    K3 against the plain backward (fed K1's own O and LSE) at the
    training shape (B=16, T=112, causal + padding bias, and with left
    padding), the rollout-prefill shape (explicit causal + padding bias),
@@ -47,8 +48,10 @@ Phases, each fatal on failure:
    attention: the forward without a cache, prefill + decode through the
    paged cache against the plain full forward of the whole sequence, and
    the gradient of a PPO loss on one minibatch (max relative error per
-   parameter group); and the same for the full-width f32 T5 of
-   ``configs/ppo_ul2.yml``, its relative position tables included;
+   parameter group); the same for the full-width f32 T5 of
+   ``configs/ppo_ul2.yml``, its relative position tables included; and in
+   bf16, the update's logprobs and PPO-loss gradient with
+   ``train.logprob_chunk: 16`` against the unchunked head;
 4. serving — ``InferenceServer`` on CUDA with the ``configs/ppo_sentiments.yml``
    model at full GPT-2-small width (random weights from a seed, bf16
    compute) serves 64 prompts; every request must complete with finite
@@ -67,22 +70,45 @@ Phases, each fatal on failure:
    them the ``tile`` variant with no input copy, and the plain attention
    not at all;
 6. seq2seq training — ``trlx_tpu_torch.train`` with the
-   ``Seq2SeqPPOTrainer`` on ``configs/ppo_ul2.yml`` at full width (random
-   weights from a seed, bf16 over f32 masters, 128 int-list prompts of
+   ``Seq2SeqPPOTrainer`` on ``configs/ppo_ul2.yml`` at full width, from a
+   UL2 checkpoint in HF layout (gated-GELU, untied head, random weights
+   from a seed) written by the phase and loaded through
+   ``model.model_path`` (bf16 over f32 masters, 128 int-list prompts of
    real lengths 64-512 with a ground truth each, a host reward that reads
-   it) for two PPO phases (80 updates); the gates of phase 5, with K1's
-   ``tile`` launches = 24 x the teacher-forced forwards + 8 x the
-   sampler's encoder passes, ``decode`` = 16 x its decoder calls, K2 = K3
-   = 24 x the updates and K2 with the bias gradient 16 x the updates.
+   it) for two PPO phases (80 updates); the loaded backbone must equal the
+   written tensors, and the gates of phase 5 hold, with K1's ``tile``
+   launches = 24 x the teacher-forced forwards + 8 x the sampler's encoder
+   passes, ``decode`` = 16 x its decoder calls, K2 = K3 = 24 x the updates
+   and K2 with the bias gradient 16 x the updates;
+7. the benchmark workload — ``bench.py::_workload_config`` (copied here)
+   from a GPT-2-small checkpoint in HF layout written by the phase
+   (random weights from a seed, ``transformer.`` names, ``Conv1D`` [in,
+   out], no ``lm_head.weight``) through ``trlx_tpu_torch.train(model_path
+   =...)``, at both freezing definitions, ``(0, 2)`` and ``(2, None)``,
+   each for two PPO phases (64 updates) with a 2-layer hydra KL reference;
+   two named deviations (``kv_cache_dtype`` bf16 for ``"auto"``, health
+   off). Gates: the loaded backbone equals the written tensors before the
+   first update; the reference holds 2 blocks, ``wte`` and ``ln_f``
+   (52 774 656 parameters against the full copy's 124 439 808); 12 K1
+   ``tile`` launches per reference scoring, ``tile`` = 12 x the forwards
+   that are not decode steps and ``decode`` = 12 x those; K2 = K3 = 12 x
+   the updates under ``(0, 2)`` and 2 x under ``(2, None)``, all ``tile``;
+   under ``(2, None)`` the bottom 10 blocks, ``wte`` and ``wpe``
+   bit-identical after training and the top 2 blocks, ``ln_f`` and the
+   value head moved; every stat finite; then an ``InferenceServer``
+   restores the run's checkpoint (bit for bit, after its compute-dtype
+   cast) and serves 8 of the prompts to completion with finite logprobs
+   and values.
 
-Each path (phases 4, 5 and 6) runs with the launch counters set to 0 just
-before it and read just after. Prints the card's name and power limit, a
-``{"kernels": [...]}`` line, and as its last line ``{"ok": true, "device":
-{...}}``. Exits non-zero without
-CUDA, or when any phase fails. ``--profile PATH`` additionally serves the
-same traffic, runs one training phase and a cut seq2seq run under
-``torch.profiler`` and writes each run's device-time summary (busy share,
-device time by kernel) as JSON to PATH.
+Each path (phases 4 to 7, each definition of phase 7 on its own) runs
+with the launch counters set to 0 just before it and read just after, and
+its peak memory is read from a clean start. Prints the card's name and
+power limit, a ``{"kernels": [...]}`` line, and as its last line
+``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, or when
+any phase fails. ``--profile PATH`` additionally serves the
+same traffic, runs one training phase, a cut seq2seq run and one phase of
+each phase-7 definition under ``torch.profiler`` and writes each run's
+device-time summary (busy share, device time by kernel) as JSON to PATH.
 """
 
 from __future__ import annotations
@@ -94,6 +120,7 @@ import math
 import os
 import re
 import statistics
+import struct
 import subprocess
 import sys
 import time
@@ -135,6 +162,31 @@ FWD_VARIANT_COUNTERS = {
 }
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 BWD_VARIANTS = ("tile", "fma")
+
+
+def write_safetensors(tensors: dict, path: str) -> None:
+    """Write ``{name: tensor}`` as a ``.safetensors`` file, the layout HF
+    checkpoints use: an 8-byte little-endian header length, a JSON header
+    (per tensor its dtype, shape and byte offsets), then the tensors'
+    bytes in the header's order."""
+    import torch
+
+    codes = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
+             torch.int64: "I64"}
+    flat = {n: tensors[n].detach().contiguous().cpu().reshape(-1) for n in sorted(tensors)}
+    header, offset = {}, 0
+    for name, t in flat.items():
+        size = t.numel() * t.element_size()
+        header[name] = {"dtype": codes[t.dtype], "shape": list(tensors[name].shape),
+                        "data_offsets": [offset, offset + size]}
+        offset += size
+    raw = json.dumps(header, separators=(",", ":")).encode()
+    raw += b" " * (-len(raw) % 8)  # the format pads the header to 8 bytes
+    with open(path, "wb") as fh:
+        fh.write(struct.pack("<Q", len(raw)))
+        fh.write(raw)
+        for t in flat.values():
+            fh.write(t.view(torch.uint8).numpy())
 
 
 def log(msg: str) -> None:
@@ -436,10 +488,10 @@ def phase_kernel(torch, fa, attn):
     return results, timed
 
 
-FORWARD_ONLY = ("decode",)  # no backward runs at this shape
+FORWARD_ONLY = ("decode", "ref_scoring")  # no backward runs at these shapes
 # the training path's K1 shapes, timed in bf16 (backward_cases names)
 TRAINING_SHAPES = {"train": "update_forward", "prefill": "rollout_prefill",
-                   "decode": "rollout_decode"}
+                   "decode": "rollout_decode", "ref_scoring": "ref_scoring"}
 
 
 def backward_cases(torch, attn):
@@ -479,6 +531,10 @@ def backward_cases(torch, attn):
     mask = ((cols >= 64 - lens[:, None].repeat(8, 1)) & (cols <= 64 + t)).long()
     bias = attn.causal_bias(1, 112, 64 + t, dev) + attn.padding_bias(mask)
     cases.append(("decode", *qkv(128, 1, 112), bias, False))
+    # the reference scoring (K1 only, no grad): all 128 rollouts' [query;
+    # response] under the causal flag with their left padding
+    mask = (torch.arange(112, device=dev)[None, :] >= 64 - lens[:, None].repeat(8, 1)).long()
+    cases.append(("ref_scoring", *qkv(128, 112, 112), attn.padding_bias(mask), True))
     cases.append(("ragged_bias", *qkv(2, 77, 141), torch.randn(2, 1, 77, 141, generator=gen, device=dev), False))
     cases.append(("per_head_bias", *qkv(2, 130, 200), torch.randn(1, 12, 130, 200, generator=gen, device=dev), False))
     # long: 16 query chunks and 16 key tiles under the causal flag with a
@@ -1024,6 +1080,77 @@ def phase_model_backward(torch, fa):
     return ok
 
 
+def phase_logprob_chunk(torch):
+    """Full-width GPT-2 + value head in bf16 over f32 masters: the update's
+    logprobs and the PPO-loss gradient with ``train.logprob_chunk: 16``
+    (``utils.chunked_logprobs``, as ``PPOTrainer._forward_logprobs_values``
+    runs it) against the unchunked head, on one minibatch (B=16, 64
+    left-padded prompt + 48 response columns). Both sides run the same
+    kernels; only the LM head's f32 GEMM takes 16 response positions at a
+    time instead of 48 and may sum in another order. So the logprobs must
+    agree within 1e-4, and each parameter group's gradient within 1/64 of
+    its largest (a bf16 rounding of the hidden state's gradient may fall
+    the other way and carry through 12 layers). Prints each side's peak
+    memory above the model."""
+    from trlx_tpu_torch.models import gpt2
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+    from trlx_tpu_torch.ops.ppo_math import ppo_loss
+    from trlx_tpu_torch.utils import chunked_logprobs, logprobs_from_logits
+
+    dev = "cuda"
+    cfg = gpt2.GPT2Config()  # bf16 compute, f32 parameters
+    model = CausalLMWithValueHead(cfg, device=dev)
+    init_params(model, 5)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    B, Q, R, chunk = 16, 64, 48, 16
+    lens = torch.randint(16, Q + 1, (B,), generator=gen, device=dev)
+    q_mask = (torch.arange(Q, device=dev)[None] >= Q - lens[:, None]).long()
+    q_ids = torch.randint(0, cfg.vocab_size, (B, Q), generator=gen, device=dev) * q_mask
+    r_ids = torch.randint(0, cfg.vocab_size, (B, R), generator=gen, device=dev)
+    r_mask = (torch.arange(R, device=dev)[None] < torch.randint(
+        1, R + 1, (B, 1), generator=gen, device=dev)).long()
+    old = [torch.randn(B, R, generator=gen, device=dev) for _ in range(4)]
+    old[0] = old[0] * 0.1 - 10.0  # behaviour logprobs
+    names, params = zip(*model.named_parameters())
+    ids, mask = torch.cat([q_ids, r_ids], 1), torch.cat([q_mask, r_mask], 1)
+
+    def run(chunked):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if chunked:
+            hidden, values = model.response_hidden(ids, mask, Q)
+            logprobs = chunked_logprobs(model.transformer.logits, hidden, r_ids, chunk)
+        else:
+            logits, values = model.response_forward(ids, mask, Q)
+            logprobs = logprobs_from_logits(logits, r_ids)
+        loss, _ = ppo_loss(logprobs, values.float(), *old, r_mask, 0.2, 0.2, 1.0)
+        grads = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return logprobs.detach(), grads, torch.cuda.max_memory_allocated() - base
+
+    lp_chunk, g_chunk, peak_chunk = run(True)
+    lp_full, g_full, peak_full = run(False)
+    err_lp = (lp_chunk - lp_full).abs().max().item()
+    groups = {}
+    for name, g, r in zip(names, g_chunk, g_full):
+        group = ("value head" if name.startswith("v_head") else
+                 "embeddings" if ".wte." in name or ".wpe." in name else
+                 "layer norms" if ".ln_" in name else
+                 "attention" if ".attn." in name else "mlp")
+        err, top = groups.get(group, (0.0, 0.0))
+        groups[group] = (max(err, (g - r).abs().max().item()), max(top, r.abs().max().item()))
+    rel = {k: err / max(top, 1e-30) for k, (err, top) in groups.items()}
+    ok = math.isfinite(err_lp) and err_lp <= 1e-4 and all(
+        math.isfinite(v) and v <= 1 / 64 for v in rel.values())
+    log(f"phase 3: full-width bf16 GPT-2, logprob_chunk {chunk} vs unchunked at B={B} R={R}: "
+        f"max|dlogprobs|={err_lp:.3e} (tol 1e-4), gradient max relative error per group "
+        f"{json.dumps(rel)} (tol 1/64); peak memory above the model {peak_chunk} B chunked, "
+        f"{peak_full} B unchunked {'ok' if ok else 'FAIL'}")
+    return ok
+
+
 def ul2_arch(**overrides):
     """``configs/ppo_ul2.yml``'s architecture at its published widths."""
     from trlx_tpu_torch.data.configs import TRLConfig
@@ -1174,6 +1301,19 @@ def forward_variant_launches(fa) -> dict:
     return out
 
 
+def reset_peak(torch) -> int:
+    """Free what earlier phases left (a trainer and its orchestrator point
+    at each other, so they wait for a collection), zero the peak counter,
+    and return the bytes still allocated: each path's peak starts clean."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
 def serve(torch, server, prompts):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1188,7 +1328,7 @@ def phase_serving(torch, fa):
 
     from trlx_tpu_torch.inference.server import InferenceServer
 
-    torch.cuda.reset_peak_memory_stats()
+    mem_start = reset_peak(torch)
     server = InferenceServer(serving_config(), seed=0)
     prompts = serving_prompts()
 
@@ -1232,6 +1372,7 @@ def phase_serving(torch, fa):
         "ttft_ms_p50": float(np.percentile(ttft, 50)),
         "ttft_ms_p95": float(np.percentile(ttft, 95)),
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_at_start_bytes": mem_start,
         "flash_fwd_launches": launches,
         "expected_launches": expected,
         "flash_fwd_variants": variants,
@@ -1345,8 +1486,7 @@ def phase_training(torch, fa):
         PPOTrainer._apply = apply
         fa.flash_attention_reference = counting("fwd")
         fa.flash_attention_backward_reference = counting("bwd")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        mem_start = reset_peak(torch)
         # count the main path's launches only
         reset_forward_counters(fa)
         reset_backward_counters(fa)
@@ -1420,6 +1560,7 @@ def phase_training(torch, fa):
         "phases": phases,
         "evals": evals,
         "max_memory_allocated_bytes": peak,
+        "allocated_at_start_bytes": mem_start,
         "forwards": trainer.forwards,
         "launches": launches,
         "expected_launches": expected,
@@ -1447,19 +1588,110 @@ def phase_training(torch, fa):
     return ok, record
 
 
+def random_backbone(torch, module, seed: int) -> dict:
+    """Fill ``module``'s parameters from a seeded generator on the card,
+    N(0, 0.02), layer-norm weights around 1 (so that a name or layout
+    mix-up shows in a load check), and return its state dict on the CPU."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+            if re.search(r"(^|[._])ln[._]", name) and name.endswith("weight"):
+                p.add_(1.0)
+    return {n: t.detach().cpu().contiguous() for n, t in module.state_dict().items()}
+
+
+GPT2_CONV1D = ("attn.c_attn.weight", "attn.c_proj.weight", "mlp.c_fc.weight",
+               "mlp.c_proj.weight")
+
+
+def gpt2_hf_layout(state: dict) -> dict:
+    """The port's ``GPT2Model`` state dict in HF ``GPT2LMHeadModel``'s
+    layout: names under ``transformer.``, ``Conv1D`` weights [in, out], and
+    no ``lm_head.weight`` (tied to ``wte``; safetensors leaves it out)."""
+    return {"transformer." + n: (t.t().contiguous() if n.endswith(GPT2_CONV1D) else t)
+            for n, t in state.items()}
+
+
+# the port's T5Model names -> HF T5ForConditionalGeneration's (no
+# transposes: both store [out, in]; the relative position tables live in
+# block 0 of each stack)
+T5_HF_NAMES = (
+    (r"^enc\.(\d+)\.ln_self\.", r"encoder.block.\1.layer.0.layer_norm."),
+    (r"^enc\.(\d+)\.SelfAttention\.", r"encoder.block.\1.layer.0.SelfAttention."),
+    (r"^enc\.(\d+)\.ln_ff\.", r"encoder.block.\1.layer.1.layer_norm."),
+    (r"^enc\.(\d+)\.DenseReluDense\.", r"encoder.block.\1.layer.1.DenseReluDense."),
+    (r"^dec\.(\d+)\.ln_self\.", r"decoder.block.\1.layer.0.layer_norm."),
+    (r"^dec\.(\d+)\.SelfAttention\.", r"decoder.block.\1.layer.0.SelfAttention."),
+    (r"^dec\.(\d+)\.ln_cross\.", r"decoder.block.\1.layer.1.layer_norm."),
+    (r"^dec\.(\d+)\.EncDecAttention\.", r"decoder.block.\1.layer.1.EncDecAttention."),
+    (r"^dec\.(\d+)\.ln_ff\.", r"decoder.block.\1.layer.2.layer_norm."),
+    (r"^dec\.(\d+)\.DenseReluDense\.", r"decoder.block.\1.layer.2.DenseReluDense."),
+    (r"^enc_rel_bias\.", "encoder.block.0.layer.0.SelfAttention."),
+    (r"^dec_rel_bias\.", "decoder.block.0.layer.0.SelfAttention."),
+    (r"^enc_final_ln\.", "encoder.final_layer_norm."),
+    (r"^dec_final_ln\.", "decoder.final_layer_norm."),
+)
+
+
+def t5_hf_layout(state: dict) -> dict:
+    """The port's ``T5Model`` state dict in HF ``T5ForConditionalGeneration``'s
+    layout (``shared`` and an untied ``lm_head`` keep their names)."""
+    out = {}
+    for name, t in state.items():
+        hf = name
+        for pattern, repl in T5_HF_NAMES:
+            hf = re.sub(pattern, repl, hf)
+        out[hf] = t
+    return out
+
+
+def write_hf_checkpoint(path: str, config: dict, tensors: dict) -> None:
+    """An HF checkpoint directory: ``config.json`` and ``model.safetensors``."""
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as fh:
+        json.dump(config, fh)
+    write_safetensors(tensors, os.path.join(path, "model.safetensors"))
+
+
+def state_equal(torch, module, want: dict) -> bool:
+    """Whether ``module``'s state dict holds exactly ``want``'s names and
+    bits."""
+    got = module.state_dict()
+    return set(got) == set(want) and all(torch.equal(got[n].cpu(), t) for n, t in want.items())
+
+
+def write_ul2_checkpoint(torch, path: str, seed: int = 11) -> dict:
+    """A UL2 checkpoint in HF layout at ``configs/ppo_ul2.yml``'s widths
+    (gated-GELU, untied head) with random weights from ``seed``; returns
+    the port-named backbone state it holds."""
+    from trlx_tpu_torch.models.t5 import T5Config, T5Model
+
+    arch = ul2_arch()
+    state = random_backbone(torch, T5Model(T5Config.from_dict(arch), device="cuda"), seed)
+    config = dict(arch, model_type="t5", architectures=["T5ForConditionalGeneration"],
+                  relative_attention_num_buckets=32, relative_attention_max_distance=128,
+                  layer_norm_epsilon=1e-6, pad_token_id=0, eos_token_id=1)
+    write_hf_checkpoint(path, config, t5_hf_layout(state))
+    return state
+
+
 UL2_UPDATES = 80  # two PPO phases of 128 // 12 = 10 minibatches x 4 epochs
 
 
-def ul2_training_config(checkpoint_dir: str):
-    """``configs/ppo_ul2.yml`` as written (full width, random weights: the
-    fork's UL2 checkpoint is not in the repo), cut from 10 000 updates to
-    two PPO phases. The yml's eval interval (100) and checkpoint interval
-    (10 000) leave the evals at step 0 and the end and the end-of-run
-    save."""
+def ul2_training_config(checkpoint_dir: str, model_path: str = ""):
+    """``configs/ppo_ul2.yml`` as written at full width, from the HF
+    checkpoint at ``model_path`` (the fork's UL2 checkpoint is not in the
+    repo: phase 6 writes one of the same layout with random weights) or
+    random weights without one, cut from 10 000 updates to two PPO phases.
+    The yml's eval interval (100) and checkpoint interval (10 000) leave
+    the evals at step 0 and the end and the end-of-run save."""
     from trlx_tpu_torch.data.configs import TRLConfig
 
     root = os.path.dirname(os.path.abspath(__file__))
     cfg = TRLConfig.load_yaml(os.path.join(root, "configs", "ppo_ul2.yml")).to_dict()
+    cfg["model"]["model_path"] = model_path
     cfg["train"].update({"total_steps": UL2_UPDATES, "checkpoint_dir": checkpoint_dir})
     return TRLConfig.from_dict(cfg)
 
@@ -1487,8 +1719,11 @@ def ul2_reward(samples, queries, response_gt=None):
 
 def phase_t5_training(torch, fa):
     """``trlx_tpu_torch.train`` with ``train.trainer: Seq2SeqPPOTrainer`` on
-    ``configs/ppo_ul2.yml`` at full width for two PPO phases; the gates of
-    phase 5 with the seq2seq path's counts: K1 ``tile`` = 24 x the
+    ``configs/ppo_ul2.yml`` at full width for two PPO phases, from a UL2
+    checkpoint in HF layout that the phase writes and loads through
+    ``model.model_path`` (the loaded backbone must equal the written
+    tensors before the first update); the gates of phase 5 with the
+    seq2seq path's counts: K1 ``tile`` = 24 x the
     teacher-forced forwards (reference scoring and updates: 8 encoder, 8
     decoder self and 8 cross attentions) + 8 x the sampler's encoder
     passes, ``decode`` = 16 x its decoder calls; K2 = K3 = 24 x the
@@ -1502,9 +1737,10 @@ def phase_t5_training(torch, fa):
     from trlx_tpu_torch.models.heads import T5WithValueHead, init_params
     from trlx_tpu_torch.trainer.seq2seq_ppo_trainer import Seq2SeqPPOTrainer
 
-    rows, evals, saved_rng, plain_calls = [], [], [], [0]
+    rows, evals, saved_rng, plain_calls, backbone_loads = [], [], [], [0], []
     calls = {"encode": 0, "decode": 0}
     orig = {
+        "learn": Seq2SeqPPOTrainer.learn,
         "train_on": Seq2SeqPPOTrainer._train_on, "evaluate": Seq2SeqPPOTrainer.evaluate,
         "save": Seq2SeqPPOTrainer.save, "encode": T5WithValueHead.encode,
         "decode": T5WithValueHead.decode,
@@ -1521,6 +1757,10 @@ def phase_t5_training(torch, fa):
         out = orig["train_on"](self, *a, **kw)
         rows.append(out[0])
         return out
+
+    def learn(self):
+        backbone_loads.append(state_equal(torch, self.model.t5, written))  # before the first update
+        return orig["learn"](self)
 
     def evaluate(self):
         out = orig["evaluate"](self)
@@ -1539,14 +1779,15 @@ def phase_t5_training(torch, fa):
 
     prompts, response_gt = ul2_prompts()
     with tempfile.TemporaryDirectory() as tmp:
-        config = ul2_training_config(tmp)
+        ckpt, run_dir = os.path.join(tmp, "ul2"), os.path.join(tmp, "run")
+        written = write_ul2_checkpoint(torch, ckpt)
+        config = ul2_training_config(run_dir, ckpt)
         Seq2SeqPPOTrainer._train_on, Seq2SeqPPOTrainer.evaluate = train_on, evaluate
-        Seq2SeqPPOTrainer.save = save
+        Seq2SeqPPOTrainer.save, Seq2SeqPPOTrainer.learn = save, learn
         T5WithValueHead.encode, T5WithValueHead.decode = counted("encode"), counted("decode")
         fa.flash_attention_reference = plain("fwd")
         fa.flash_attention_backward_reference = plain("bwd")
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        mem_start = reset_peak(torch)
         # count the main path's launches only
         reset_forward_counters(fa)
         reset_backward_counters(fa)
@@ -1558,7 +1799,7 @@ def phase_t5_training(torch, fa):
             )
             torch.cuda.synchronize()
         finally:
-            Seq2SeqPPOTrainer._train_on = orig["train_on"]
+            Seq2SeqPPOTrainer._train_on, Seq2SeqPPOTrainer.learn = orig["train_on"], orig["learn"]
             Seq2SeqPPOTrainer.evaluate, Seq2SeqPPOTrainer.save = orig["evaluate"], orig["save"]
             T5WithValueHead.encode, T5WithValueHead.decode = orig["encode"], orig["decode"]
             fa.flash_attention_reference = orig["fwd"]
@@ -1578,7 +1819,8 @@ def phase_t5_training(torch, fa):
             math.isfinite(v) for e in evals for v in e.values()
         )
         initial = T5WithValueHead(trainer.model_config, device="cuda")
-        init_params(initial, config.train.seed)
+        init_params(initial, config.train.seed)  # the value head
+        initial.t5.load_state_dict(written)
         start = initial.state_dict()
         changed = sum(
             not torch.equal(p, start[n]) for n, p in trainer.model.state_dict().items()
@@ -1586,8 +1828,8 @@ def phase_t5_training(torch, fa):
         table = "t5.enc_rel_bias.relative_attention_bias.weight"
         table_moved = not torch.equal(trainer.model.state_dict()[table], start[table])
         del initial, start
-        fresh = Seq2SeqPPOTrainer(ul2_training_config(tmp))
-        fresh.load(tmp)
+        fresh = Seq2SeqPPOTrainer(ul2_training_config(run_dir, ckpt))
+        fresh.load(run_dir)
         saved, loaded = trainer.opt.state_dict(), fresh.opt.state_dict()
         restored = (
             all(torch.equal(fresh.model.state_dict()[n], p)
@@ -1628,6 +1870,7 @@ def phase_t5_training(torch, fa):
         "phases": phases,
         "evals": evals,
         "max_memory_allocated_bytes": peak,
+        "allocated_at_start_bytes": mem_start,
         "forwards": trainer.forwards,
         "teacher_forced_forwards": teacher_forced,
         "sampler_encodes": calls["encode"],
@@ -1642,21 +1885,342 @@ def phase_t5_training(torch, fa):
         "plain_attention_calls": plain_calls[0],
         "params_changed": changed,
         "relative_table_moved": table_moved,
+        "loaded_equals_written": backbone_loads == [True],
     }
     log("phase 6: seq2seq training " + json.dumps(record))
     ok = (
         updates == UL2_UPDATES and len(rows) == 2 and finite and changed > 0 and table_moved
+        and backbone_loads == [True]
         and restored and launches == expected and variants == expected_variants
         and bwd_variants == expected_bwd_variants and bwd_copies == 0
         and plain_calls[0] == 0
     )
-    log(f"phase 6: {'ok' if ok else 'FAIL'} (updates={updates}, phases={len(rows)}, "
+    log(f"phase 6: {'ok' if ok else 'FAIL'} (loaded backbone equals the written "
+        f"checkpoint: {backbone_loads == [True]}, updates={updates}, phases={len(rows)}, "
         f"finite={finite}, changed tensors={changed}, relative table moved={table_moved}, "
         f"load restores={restored}, launches={launches} vs {expected}, K1 by variant "
         f"{variants} vs {expected_variants}, K2/K3 by variant {bwd_variants} vs "
         f"{expected_bwd_variants}, backward input copies={bwd_copies}, plain attention "
         f"calls={plain_calls[0]}, peak memory {peak} B)")
     return ok, record
+
+
+# bench.py::_workload_config (bench.py:271-378), the headline workload,
+# with its environment switches at their defaults (the fixed rollout
+# engine, async RL off). Copied: bench.py imports trlx_tpu.
+BENCH_WORKLOAD = {
+    "model": {
+        "model_type": "gpt2",
+        "model_arch": {"vocab_size": 50257, "n_positions": 1024, "n_embd": 768,
+                       "n_layer": 12, "n_head": 12, "kv_cache_dtype": "auto"},
+    },
+    "train": {
+        "seq_length": 64, "batch_size": 16, "epochs": 3, "total_steps": 10000,
+        "eval_interval": 100000, "checkpoint_interval": 1000000,
+        "lr_init": 1.412e-4, "lr_target": 1.412e-4,
+        "mesh": {"dp": -1, "fsdp": 1, "tp": 1}, "dtype": "bfloat16",
+        "health": {"enabled": True}, "rollout": {"engine": "fixed"}, "async_rl": {},
+    },
+    "method": {
+        "name": "PPOConfig", "num_rollouts": 128, "chunk_size": 128, "ppo_epochs": 4,
+        "init_kl_coef": 0.2, "target": 6, "horizon": 10000, "cliprange_reward": 10,
+        "scale_reward": "running",
+        "gen_kwargs": {"max_new_tokens": 48, "min_new_tokens": 48, "top_k": 0,
+                       "do_sample": True, "eos_token_id": 50256, "pad_token_id": 50256},
+    },
+}
+# what phase 7 runs differently from bench.py: (setting, bench.py's value,
+# the port's, why)
+BENCH_DEVIATIONS = (
+    ("model.model_arch.kv_cache_dtype", "auto", "bfloat16",
+     "the int8 KV cache that 'auto' resolves to at this shape is not ported (ROADMAP queue 1)"),
+    ("train.health.enabled", True, False, "health monitoring is not ported (ROADMAP item 19)"),
+)
+# bench.py's two freezing definitions: (num_layers_unfrozen, ref_branch_layers)
+BENCH_DEFINITIONS = {"faithful_0_2": (0, 2), "frozen_top2_2_none": (2, None)}
+BENCH_UPDATES = 64  # two PPO phases of 128 // 16 = 8 minibatches x 4 epochs, cut from 10 000
+GPT2_HF_CONFIG = {  # GPT-2 small, as its HF config.json names it
+    "model_type": "gpt2", "architectures": ["GPT2LMHeadModel"], "vocab_size": 50257,
+    "n_positions": 1024, "n_embd": 768, "n_layer": 12, "n_head": 12,
+    "layer_norm_epsilon": 1e-5, "activation_function": "gelu_new",
+    "bos_token_id": 50256, "eos_token_id": 50256,
+}
+
+
+def bench_config(definition, checkpoint_dir: str):
+    """``BENCH_WORKLOAD`` at one freezing definition, with the deviations
+    and cut to ``BENCH_UPDATES`` updates."""
+    import copy
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    cfg = copy.deepcopy(BENCH_WORKLOAD)
+    cfg["model"]["num_layers_unfrozen"], cfg["model"]["ref_branch_layers"] = definition
+    cfg["model"]["model_arch"]["kv_cache_dtype"] = "bfloat16"
+    cfg["train"]["health"] = {"enabled": False}
+    cfg["train"].update(total_steps=BENCH_UPDATES, checkpoint_dir=checkpoint_dir)
+    return TRLConfig.from_dict(cfg)
+
+
+def bench_prompts():
+    """bench.py's prompts (bench.py:405-407): 512 int lists, ids in
+    [100, 40000), lengths 4-32."""
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [[int(x) for x in rng.integers(100, 40000, size=rng.integers(4, 33))]
+            for _ in range(512)]
+
+
+def bench_reward(samples, queries, response_gt=None):
+    """bench.py's host reward (bench.py:409-411): length-normalised
+    character diversity."""
+    return [len(set(s)) / max(len(s), 1) for s in samples]
+
+
+def hydra_sizes(cfg, branch: int) -> tuple:
+    """(parameters of the hydra reference: ``branch`` blocks, ``wte`` and
+    ``ln_f``; parameters of a full copy) of a GPT-2 backbone."""
+    d = cfg.n_embd
+    block = 12 * d * d + 13 * d  # ln_1, c_attn, c_proj, ln_2, c_fc, c_proj
+    wte, wpe, ln_f = cfg.vocab_size * d, cfg.n_positions * d, 2 * d
+    return branch * block + wte + ln_f, cfg.n_layer * block + wte + wpe + ln_f
+
+
+def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tmp):
+    """One freezing definition of phase 7: train, gate, then serve 8 of the
+    prompts from the run's checkpoint. Returns ``(ok, record)``."""
+    import numpy as np
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.inference.server import InferenceServer
+    from trlx_tpu_torch.models.gpt2 import torch_dtype
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils.checkpoint import load_checkpoint
+
+    rows, evals, loaded, scoring_tiles, plain_calls, decode_forwards = [], [], [], [], [0], [0]
+    orig = {
+        "learn": PPOTrainer.learn, "train_on": PPOTrainer._train_on,
+        "evaluate": PPOTrainer.evaluate, "apply": PPOTrainer._apply,
+        "score_ref": PPOTrainer.score_ref,
+        "fwd": fa.flash_attention_reference, "bwd": fa.flash_attention_backward_reference,
+    }
+
+    def learn(self):
+        # before the first update: the loaded backbone and the reference's size
+        loaded.append({
+            "equals_written": state_equal(torch, self.model.transformer, written),
+            "reference": [(p.numel(), p.numel() * p.element_size()) for p in self.ref.parameters()],
+            "full": [(p.numel(), p.numel() * p.element_size())
+                     for p in self.model.transformer.parameters()],
+        })
+        return orig["learn"](self)
+
+    def apply(self, input_ids, *a, **kw):
+        decode_forwards[0] += input_ids.shape[1] <= 16  # the sampler's steps
+        return orig["apply"](self, input_ids, *a, **kw)
+
+    def score_ref(self, *a, **kw):
+        before = fa.FLASH_FWD_TILE_LAUNCHES
+        out = orig["score_ref"](self, *a, **kw)
+        scoring_tiles.append(fa.FLASH_FWD_TILE_LAUNCHES - before)
+        return out
+
+    def train_on(self, *a, **kw):
+        out = orig["train_on"](self, *a, **kw)
+        rows.append(out[0])
+        return out
+
+    def evaluate(self):
+        out = orig["evaluate"](self)
+        evals.append(out)
+        return out
+
+    def counting(key):
+        def fn(*a, **kw):
+            plain_calls[0] += 1
+            return orig[key](*a, **kw)
+        return fn
+
+    run_dir = os.path.join(tmp, name)
+    config = bench_config(definition, run_dir)
+    PPOTrainer.learn, PPOTrainer._train_on, PPOTrainer.evaluate = learn, train_on, evaluate
+    PPOTrainer._apply, PPOTrainer.score_ref = apply, score_ref
+    fa.flash_attention_reference = counting("fwd")
+    fa.flash_attention_backward_reference = counting("bwd")
+    mem_start = reset_peak(torch)
+    # count the main path's launches only
+    reset_forward_counters(fa)
+    reset_backward_counters(fa)
+    t0 = time.perf_counter()
+    try:
+        trainer = trlx_tpu_torch.train(
+            model_path=ckpt, reward_fn=bench_reward, prompts=prompts,
+            eval_prompts=prompts[:128], config=config,
+        )
+        torch.cuda.synchronize()
+    finally:
+        PPOTrainer.learn, PPOTrainer._train_on = orig["learn"], orig["train_on"]
+        PPOTrainer.evaluate, PPOTrainer._apply = orig["evaluate"], orig["apply"]
+        PPOTrainer.score_ref = orig["score_ref"]
+        fa.flash_attention_reference = orig["fwd"]
+        fa.flash_attention_backward_reference = orig["bwd"]
+    wall = time.perf_counter() - t0
+    launches = {
+        "flash_fwd": fa.FLASH_FWD_LAUNCHES,
+        "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
+        "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES,
+    }
+    variants = forward_variant_launches(fa)
+    bwd_variants = backward_variant_launches(fa)
+    bwd_copies = fa.FLASH_BWD_COPIES
+    peak = torch.cuda.max_memory_allocated()
+    finite = all(np.isfinite(v).all() for r in rows for v in r.values()) and all(
+        math.isfinite(v) for e in evals for v in e.values())
+
+    cfg, updates = trainer.model_config, trainer.step
+    n_layer, branch = cfg.n_layer, trainer.ref_branch
+    want_ref, want_full = hydra_sizes(cfg, branch)
+    ref_params = sum(n for n, _ in loaded[0]["reference"]) if loaded else None
+    full_params = sum(n for n, _ in loaded[0]["full"]) if loaded else None
+    # the blocks whose attention backpropagates: all, or the unfrozen top
+    trained = definition[0] if definition[0] > 0 else n_layer
+    expected_variants = {
+        "tile": n_layer * (trainer.forwards - decode_forwards[0]),
+        "decode": n_layer * decode_forwards[0],
+        "fma": 0, "copies": 0,
+    }
+    expected = {"flash_fwd": expected_variants["tile"] + expected_variants["decode"],
+                "flash_bwd_dq": trained * updates, "flash_bwd_dkv": trained * updates}
+    expected_bwd_variants = {k: {"tile": trained * updates, "fma": 0} for k in BWD_KERNELS}
+
+    # which parameters moved, against the loaded backbone and the value
+    # head's seeded init
+    initial = CausalLMWithValueHead(cfg, device="cuda")
+    init_params(initial, config.train.seed)
+    initial.transformer.load_state_dict(written)
+    start = initial.state_dict()
+    final = trainer.model.state_dict()
+    moved = {n: not torch.equal(final[n], start[n]) for n in final}
+    del initial, start
+    first_trained = n_layer - definition[0] if definition[0] > 0 else 0
+
+    def layer(name):
+        m = re.match(r"transformer\.h\.(\d+)\.", name)
+        return int(m.group(1)) if m else None
+
+    # under (k, None): the blocks below the top k and the embeddings
+    # frozen; the top k blocks, ln_f and the value head trained
+    frozen = [n for n in moved if first_trained and (
+        n.startswith(("transformer.wte.", "transformer.wpe."))
+        or (layer(n) is not None and layer(n) < first_trained))]
+    top = [n for n in moved if first_trained and (
+        n.startswith(("transformer.ln_f.", "v_head."))
+        or (layer(n) is not None and layer(n) >= first_trained))]
+    freezing_ok = (not any(moved[n] for n in frozen) and all(moved[n] for n in top)
+                   if first_trained else sum(moved.values()) > 0)
+
+    # serve 8 prompts from the run's checkpoint
+    saved = load_checkpoint(run_dir, device="cpu")["model"]
+    server = InferenceServer(config.to_dict(), checkpoint_dir=run_dir, seed=0)
+    served = server.model.state_dict()
+    # the server casts its weights to the compute dtype (the value head's
+    # last layer stays f32): the same cast of the saved tensors, bit for bit
+    restored = set(served) == set(saved) and all(
+        torch.equal(p.cpu(), saved[n].to(p.dtype)) for n, p in served.items())
+    cast = sum(p.dtype == torch_dtype(cfg.dtype) for p in served.values())
+    results = server.generate(prompts[:8])
+    complete = sum(
+        bool(r["length"] >= 1 and np.isfinite(r["logprobs"]).all()
+             and np.isfinite(r["values"]).all())
+        for r in results)
+    del server, saved, served
+
+    per_phase = updates // len(trainer.phase_times)
+    phases = [dict(p, rollout_tokens_per_s=p["rollout_tokens"] / p["collect_s"],
+                   updates_per_s=per_phase / p["train_s"]) for p in trainer.phase_times]
+    record = {
+        "definition": {"num_layers_unfrozen": definition[0],
+                       "ref_branch_layers": definition[1]},
+        "wall_s": wall, "updates": updates, "phases": phases, "evals": evals,
+        "max_memory_allocated_bytes": peak,
+        "allocated_at_start_bytes": mem_start,
+        "reference_parameters": ref_params,
+        "reference_bytes": sum(b for _, b in loaded[0]["reference"]) if loaded else None,
+        "full_copy_parameters": full_params,
+        "full_copy_bytes": sum(b for _, b in loaded[0]["full"]) if loaded else None,
+        "loaded_equals_written": bool(loaded) and loaded[0]["equals_written"],
+        "k1_tile_per_reference_scoring": scoring_tiles,
+        "forwards": trainer.forwards, "decode_forwards": decode_forwards[0],
+        "launches": launches, "expected_launches": expected,
+        "flash_fwd_variants": variants, "expected_variants": expected_variants,
+        "backward_variants": bwd_variants, "expected_backward_variants": expected_bwd_variants,
+        "backward_copies": bwd_copies, "plain_attention_calls": plain_calls[0],
+        "params_moved": sum(moved.values()), "params": len(moved),
+        "frozen_bit_identical": not any(moved[n] for n in frozen), "frozen_tensors": len(frozen),
+        "top_moved": all(moved[n] for n in top), "top_tensors": len(top),
+        "server_restored": restored, "server_cast_tensors": cast,
+        "served_complete": complete,
+    }
+    log(f"phase 7: {name} " + json.dumps(record))
+    ok = (
+        record["loaded_equals_written"] and trainer.use_hydra and branch == 2
+        and (ref_params, full_params) == (want_ref, want_full)
+        and len(scoring_tiles) == len(trainer.phase_times)
+        and all(n == n_layer for n in scoring_tiles)
+        and updates == BENCH_UPDATES and len(rows) == 2 and finite and freezing_ok
+        and launches == expected and variants == expected_variants
+        and bwd_variants == expected_bwd_variants and bwd_copies == 0 and plain_calls[0] == 0
+        and restored and complete == 8
+    )
+    log(f"phase 7: {name} {'ok' if ok else 'FAIL'} (loaded backbone equals the written "
+        f"checkpoint: {record['loaded_equals_written']}; hydra reference {ref_params} "
+        f"parameters, {record['reference_bytes']} B (want {want_ref}), full copy {full_params}, "
+        f"{record['full_copy_bytes']} B (want {want_full}); K1 tile per reference scoring "
+        f"{scoring_tiles} (want {n_layer} each); updates={updates}, phases={len(rows)}, "
+        f"finite={finite}; frozen {len(frozen)} tensors bit-identical: "
+        f"{record['frozen_bit_identical']}, top {len(top)} tensors moved: {record['top_moved']}, "
+        f"moved {record['params_moved']}/{len(moved)}; launches={launches} vs {expected}, K1 by "
+        f"variant {variants} vs {expected_variants}, K2/K3 by variant {bwd_variants} vs "
+        f"{expected_bwd_variants}, backward input copies={bwd_copies}, plain attention "
+        f"calls={plain_calls[0]}; server restored the checkpoint: {restored}, served "
+        f"{complete}/8; wall {wall:.2f} s, peak memory {peak} B, {mem_start} B allocated at "
+        "the start)")
+    del trainer
+    torch.cuda.empty_cache()
+    return ok, record
+
+
+def phase_bench_workload(torch, fa):
+    """Phase 7, ``bench.py``'s headline workload: a GPT-2-small checkpoint
+    in HF layout with random weights from a seed, written here
+    (``config.json`` + ``model.safetensors``, ``transformer.`` names,
+    ``Conv1D`` [in, out], no ``lm_head.weight``), trained through
+    ``trlx_tpu_torch.train(model_path=...)`` at ``bench.py::_workload_config``
+    for each freezing definition and served from each run's checkpoint.
+    Returns ``(ok, {definition: record})``."""
+    import tempfile
+
+    from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    log("phase 7: bench.py's workload; deviations: " + json.dumps([
+        {"setting": k, "bench.py": b, "port": p, "why": why}
+        for k, b, p, why in BENCH_DEVIATIONS]) + "; one device; total_steps "
+        f"{BENCH_WORKLOAD['train']['total_steps']} cut to {BENCH_UPDATES}; eval prompts: the "
+        "first 128")
+    prompts = bench_prompts()
+    records, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "gpt2")
+        written = random_backbone(
+            torch, GPT2Model(GPT2Config.from_dict(GPT2_HF_CONFIG), device="cuda"), seed=7)
+        write_hf_checkpoint(ckpt, GPT2_HF_CONFIG, gpt2_hf_layout(written))
+        for name, definition in BENCH_DEFINITIONS.items():
+            def_ok, records[name] = run_bench_definition(
+                torch, fa, name, definition, ckpt, written, prompts, tmp)
+            ok = ok and def_ok
+    return ok, records
 
 
 def device_summary(prof, wall: float) -> dict:
@@ -1703,10 +2267,12 @@ def device_summary(prof, wall: float) -> dict:
 
 def profile_paths(torch, path: str) -> None:
     """``--profile PATH``: under torch.profiler, serve the same 64 prompts
-    again, run one PPO phase (32 updates) of the training geometry, and a
-    cut seq2seq run (two 16-prompt chunks, 8 updates, one-chunk evals:
-    the full phase's trace would hold some 10^6 events); write each run's
-    device summary as JSON at ``path``."""
+    again, run one PPO phase (32 updates) of the training geometry, a cut
+    seq2seq run (two 16-prompt chunks, 8 updates, one-chunk evals: the
+    full phase's trace would hold some 10^6 events), and one PPO phase (32
+    updates) of phase 7's workload at each freezing definition (random
+    weights from ``model_arch``: loading is not profiled); write each
+    run's device summary as JSON at ``path``."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -1745,6 +2311,19 @@ def profile_paths(torch, path: str) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     summary["seq2seq_training"] = device_summary(prof, wall)
+    prompts = bench_prompts()
+    for name, definition in BENCH_DEFINITIONS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            config = bench_config(definition, tmp)
+            config.train.total_steps = 32
+            torch.cuda.synchronize()
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                trlx_tpu_torch.train(reward_fn=bench_reward, prompts=prompts,
+                                     eval_prompts=prompts[:128], config=config)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        summary["bench_" + name] = device_summary(prof, wall)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as fh:
         json.dump(summary, fh, indent=1)
@@ -1796,10 +2375,11 @@ def main() -> int:
     kernel_ok = all(c["ok"] for c in fwd_checks + bwd_checks) and all(
         row["packed_ok"] for row in timed.values())
     model_ok = (phase_model(torch, fa) & phase_model_backward(torch, fa)
-                & phase_t5_model_backward(torch, fa))
+                & phase_t5_model_backward(torch, fa) & phase_logprob_chunk(torch))
     serving_ok, serving = phase_serving(torch, fa)
     training_ok, training = phase_training(torch, fa)
     seq2seq_ok, seq2seq = phase_t5_training(torch, fa)
+    bench_ok, bench = phase_bench_workload(torch, fa)
     if args.profile:
         profile_paths(torch, args.profile)
 
@@ -1817,10 +2397,13 @@ def main() -> int:
         "replaces": REPLACES["flash_fwd"],
         # K1 runs on the three paths; each path's count was read on its own
         "launches": (serving["flash_fwd_launches"] + training["launches"]["flash_fwd"]
-                     + seq2seq["launches"]["flash_fwd"]),
+                     + seq2seq["launches"]["flash_fwd"]
+                     + sum(r["launches"]["flash_fwd"] for r in bench.values())),
         "launches_by_path": {"serving": serving["flash_fwd_launches"],
                              "training": training["launches"]["flash_fwd"],
-                             "seq2seq_training": seq2seq["launches"]["flash_fwd"]},
+                             "seq2seq_training": seq2seq["launches"]["flash_fwd"],
+                             **{"bench_" + n: r["launches"]["flash_fwd"]
+                                for n, r in bench.items()}},
         "max_abs_err": max(c["max_abs_err_o"] for c in fwd_checks),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
@@ -1837,7 +2420,9 @@ def main() -> int:
                 for s in ("serving_prefill", "serving_decode")},
         "launches_by_variant": {"serving": serving["flash_fwd_variants"],
                                 "training": training["flash_fwd_variants"],
-                                "seq2seq_training": seq2seq["flash_fwd_variants"]},
+                                "seq2seq_training": seq2seq["flash_fwd_variants"],
+                                **{"bench_" + n: r["flash_fwd_variants"]
+                                   for n, r in bench.items()}},
         "tile_tensor_core_instructions": build["flash_fwd_tile_kernel"]["tensor_core_instructions"],
         # None, never an unmeasured 0, when a K1 kernel is missing from the report
         "k1_spill_bytes": None if None in k1_spills else sum(k1_spills),
@@ -1850,10 +2435,13 @@ def main() -> int:
             "route": "cuda",
             "source": SOURCES[name],
             "replaces": REPLACES[name],
-            # the two training paths; each path's count was read on its own
-            "launches": training["launches"][name] + seq2seq["launches"][name],
+            # the training paths; each path's count was read on its own
+            "launches": (training["launches"][name] + seq2seq["launches"][name]
+                         + sum(r["launches"][name] for r in bench.values())),
             "launches_by_path": {"training": training["launches"][name],
-                                 "seq2seq_training": seq2seq["launches"][name]},
+                                 "seq2seq_training": seq2seq["launches"][name],
+                                 **{"bench_" + n: r["launches"][name]
+                                    for n, r in bench.items()}},
             "max_abs_err": max(c[f"max_abs_err_{o}"] for c in bwd_checks for o in outputs),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                    "variant", "wrapper_ms")},
@@ -1862,7 +2450,9 @@ def main() -> int:
                 "shape", "dbias", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                 for n in t5_update},
             "launches_by_variant": {"training": training["backward_variants"][name],
-                                    "seq2seq_training": seq2seq["backward_variants"][name]},
+                                    "seq2seq_training": seq2seq["backward_variants"][name],
+                                    **{"bench_" + n: r["backward_variants"][name]
+                                       for n, r in bench.items()}},
             **{k: build[f"{name}_tile_kernel"][k] for k in (
                 "spill_bytes", "registers", "tensor_core_instructions")},
         })
@@ -1889,7 +2479,7 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     phases = (("build", build_ok), ("kernel", kernel_ok), ("model", model_ok),
               ("serving", serving_ok), ("training", training_ok),
-              ("seq2seq_training", seq2seq_ok))
+              ("seq2seq_training", seq2seq_ok), ("bench_workload", bench_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

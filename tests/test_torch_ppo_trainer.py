@@ -29,128 +29,35 @@ order):
 One run of each trainer is shared by the module's tests.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 
-from trlx_tpu_torch.models.convert import flax_to_torch
-
-ARCH = {"vocab_size": 40, "n_positions": 32, "n_embd": 32, "n_layer": 2, "n_head": 2}
-N_PROMPTS = 24
+from _torch_ppo_phase import (
+    assert_final_params_match,
+    config,
+    port_trainer,
+    prompts,
+    record,
+    reward_fn,
+    run_jax,
+    run_port,
+)
 
 
 def _config(ckpt_dir):
-    return {
-        "model": {"model_type": "gpt2", "model_arch": dict(ARCH)},
-        "train": {
-            "seq_length": 6, "batch_size": 8, "epochs": 1, "total_steps": 4,
-            "lr_init": 1e-3, "lr_target": 2e-4, "eval_interval": 1000,
-            "checkpoint_interval": 1000, "dtype": "float32", "seed": 5,
-            "checkpoint_dir": str(ckpt_dir), "mesh": {"dp": -1, "fsdp": 1, "tp": 1},
-        },
-        "method": {
-            "name": "PPOConfig", "num_rollouts": 16, "chunk_size": 8,
-            "ppo_epochs": 2, "init_kl_coef": 0.05, "target": 6.0, "horizon": 100,
-            "scale_reward": "running", "cliprange_reward": 10.0,
-            "gen_kwargs": {"max_new_tokens": 7, "min_new_tokens": 2,
-                           "do_sample": False, "eos_token_id": 10, "pad_token_id": 39},
-        },
-    }
-
-
-def _prompts():
-    rng = np.random.default_rng(9)
-    return [[int(x) for x in rng.integers(0, 36, int(rng.integers(1, 7)))]
-            for _ in range(N_PROMPTS)]
-
-
-def _reward_fn(samples, queries, response_gt=None):
-    # a pure function of the response ids (greedy tokens are exact, so the
-    # two runs score identical text)
-    return [float(np.mean([int(t) < 20 for t in s.split()])) if s else 0.0
-            for s in samples]
-
-
-def _record(obj, name, log):
-    orig = getattr(obj, name)
-
-    def wrapper(*args, **kwargs):
-        out = orig(*args, **kwargs)
-        log.append(out)
-        return out
-
-    setattr(obj, name, wrapper)
-
-
-def _run_jax(tmp_path):
-    from trlx_tpu.data.configs import TRLConfig
-    from trlx_tpu.utils.loading import get_orchestrator, get_pipeline, get_trainer
-
-    config = TRLConfig.from_dict(_config(tmp_path / "jax"))
-    trainer = get_trainer("PPOTrainer")(config, reward_fn=_reward_fn)
-    init = jax.tree_util.tree_map(np.asarray, jax.device_get(trainer.state.params))
-    pipeline = get_pipeline("PromptPipeline")(_prompts(), trainer.query_length)
-    get_orchestrator("PPOOrchestrator")(
-        trainer, pipeline, reward_fn=_reward_fn, chunk_size=config.method.chunk_size
-    )
-    trainer.add_eval_pipeline(pipeline)
-    log = {"ref": [], "phase": [], "eval": []}
-    _record(trainer, "score_ref", log["ref"])
-    _record(trainer, "finish_streamed_phase", log["phase"])
-    _record(trainer, "evaluate", log["eval"])
-    trainer.learn()
-    buf = jax.device_get(trainer.buffer.full)
-    return {
-        "init": init,
-        "params": jax.tree_util.tree_map(np.asarray, jax.device_get(trainer.state.params)),
-        "buffer": {k: np.asarray(getattr(buf, k)) for k in (
-            "query_tokens", "query_mask", "response_tokens", "response_mask",
-            "logprobs", "values", "rewards")},
-        "ref": np.concatenate([np.asarray(r) for r in log["ref"]]),
-        "rows": log["phase"][0][1],
-        "kl_seq": log["phase"][0][2],
-        "eval": log["eval"],
-        "kl_coef": trainer.kl_coef,
-    }
+    return config(ckpt_dir)
 
 
 def _port_trainer(tmp_path, init=None):
-    from trlx_tpu_torch.data.configs import TRLConfig
-    from trlx_tpu_torch.utils.loading import get_orchestrator, get_pipeline, get_trainer
-
-    config = TRLConfig.from_dict(_config(tmp_path / "port"))
-    trainer = get_trainer("PPOTrainer")(config, reward_fn=_reward_fn, device="cpu")
-    if init is not None:
-        trainer.model.load_state_dict(flax_to_torch(init))
-        trainer.ref.load_state_dict(trainer.model.transformer.state_dict())
-    pipeline = get_pipeline("PromptPipeline")(_prompts(), trainer.query_length)
-    get_orchestrator("PPOOrchestrator")(
-        trainer, pipeline, reward_fn=_reward_fn, chunk_size=config.method.chunk_size
-    )
-    trainer.add_eval_pipeline(pipeline)
-    return trainer
+    return port_trainer(_config(tmp_path / "port"), init)
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     tmp_path = tmp_path_factory.mktemp("ppo_phase")
-    jax_run = _run_jax(tmp_path)
-    trainer = _port_trainer(tmp_path, jax_run["init"])
-    log = {"ref": [], "phase": [], "eval": []}
-    _record(trainer, "score_ref", log["ref"])
-    _record(trainer, "_train_on", log["phase"])
-    _record(trainer, "evaluate", log["eval"])
-    trainer.learn()
-    buf = trainer.buffer.full
-    port_run = {
-        "trainer": trainer,
-        "buffer": {k: getattr(buf, k).numpy() for k in jax_run["buffer"]},
-        "ref": torch.cat(log["ref"]).numpy(),
-        "rows": log["phase"][0][0],
-        "kl_seq": log["phase"][0][1],
-        "eval": log["eval"],
-    }
+    jax_run = run_jax(_config(tmp_path / "jax"))
+    port_run = run_port(_port_trainer(tmp_path, jax_run["init"]))
     return jax_run, port_run, tmp_path
 
 
@@ -187,22 +94,9 @@ def test_per_update_stats_and_kl_schedule_match(runs):
 
 
 def test_final_params_match(runs):
-    jax_run, port_run, _ = runs
-    want = flax_to_torch(jax_run["params"])
-    init = flax_to_torch(jax_run["init"])
+    jax_run, port_run, tmp_path = runs
     got = port_run["trainer"].model.state_dict()
-    assert set(got) == set(want)
-    C = ARCH["n_embd"]
-    key_bias = slice(C, 2 * C)  # c_attn's bias is [q | k | v]
-    moved = 0.0
-    for name, w in want.items():
-        g = got[name].numpy().copy()
-        w = w.numpy().copy()
-        if name.endswith("attn.c_attn.bias"):
-            np.testing.assert_allclose(g[key_bias], w[key_bias], atol=2 * 4 * 1e-3, rtol=0)
-            g[key_bias] = w[key_bias]
-        np.testing.assert_allclose(g, w, atol=1e-5, rtol=0, err_msg=name)
-        moved = max(moved, float(np.abs(w - init[name].numpy()).max()))
+    moved = assert_final_params_match(got, jax_run, _config(tmp_path))
     assert moved > 1e-4  # the phase did move the parameters
 
 
@@ -232,6 +126,31 @@ def test_save_load_round_trip(runs):
             torch.testing.assert_close(loaded["adamw"]["state"][i][key], value, rtol=0, atol=0)
 
 
+def test_server_restores_the_trainer_checkpoint(runs):
+    """``InferenceServer(checkpoint_dir=...)`` serves the saved policy: its
+    state equals the checkpoint's ``"model"`` and its greedy tokens equal
+    the trainer's fixed sampler's on the same prompts."""
+    from trlx_tpu_torch.inference.server import InferenceServer
+    from trlx_tpu_torch.utils.checkpoint import load_checkpoint
+
+    _, port_run, tmp_path = runs
+    trainer = port_run["trainer"]
+    ckpt = trainer.config.train.checkpoint_dir
+    server = InferenceServer(_config(tmp_path / "port"), checkpoint_dir=ckpt, device="cpu")
+    saved = load_checkpoint(ckpt, device="cpu")["model"]
+    for name, p in server.model.state_dict().items():
+        torch.testing.assert_close(p, saved[name], rtol=0, atol=0)
+    batch, meta = next(iter(trainer.eval_pipeline.create_loader(8, shuffle=False)))
+    out = trainer.sample(batch.input_ids, batch.attention_mask)
+    want = [row[: int(n)].tolist() for row, n in zip(out.tokens, out.response_mask.sum(1))]
+    rows = [[int(t) for t, m in zip(ids, mask) if m]
+            for ids, mask in zip(batch.input_ids.tolist(), batch.attention_mask.tolist())]
+    assert [r["tokens"] for r in server.generate(rows)] == want
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        InferenceServer(_config(tmp_path / "port"), checkpoint_dir=str(tmp_path / "none"),
+                        device="cpu")
+
+
 def _schedule_trainer(tmp_path, **train):
     """A port-only trainer (3 phases of 16 rollouts, 2 epochs) whose
     passes are recorded: each as (the update order it ran, the buffer's
@@ -242,9 +161,9 @@ def _schedule_trainer(tmp_path, **train):
     cfg = _config(tmp_path / "port")
     cfg["train"].update(train, epochs=3)
     config = TRLConfig.from_dict(cfg)
-    trainer = get_trainer("PPOTrainer")(config, reward_fn=_reward_fn, device="cpu")
-    pipeline = get_pipeline("PromptPipeline")(_prompts(), trainer.query_length)
-    get_orchestrator("PPOOrchestrator")(trainer, pipeline, reward_fn=_reward_fn, chunk_size=8)
+    trainer = get_trainer("PPOTrainer")(config, reward_fn=reward_fn, device="cpu")
+    pipeline = get_pipeline("PromptPipeline")(prompts(), trainer.query_length)
+    get_orchestrator("PPOOrchestrator")(trainer, pipeline, reward_fn=reward_fn, chunk_size=8)
     passes = []
     train_on = trainer._train_on
 
@@ -273,7 +192,7 @@ def test_a_total_steps_cutoff_inside_a_pass_runs_stepwise(tmp_path):
     # loop stops there, saves, evaluates
     trainer, passes = _schedule_trainer(tmp_path, total_steps=6)
     logged = []
-    _record(trainer, "_finish", logged)
+    record(trainer, "_finish", logged)
     trainer.learn()
     assert trainer.step == 6 and len(passes) == 2 and len(logged) == 1
     assert passes[0][0].shape == (4, 8)  # the stream plan's epoch-major updates

@@ -179,8 +179,6 @@ def test_unported_features_raise():
     cfg["train"]["serving"] = {"prefix_cache_blocks": 4}
     with pytest.raises(NotImplementedError, match="prefix"):
         InferenceServer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        InferenceServer(_config(), device="cpu", checkpoint_dir="ckpts")
 
 
 def test_entry_point_refuses_missing_cuda():

@@ -37,6 +37,8 @@ def train(
     """Train a policy with PPO against ``reward_fn`` and return the
     trainer.
 
+    :param model_path: an HF checkpoint directory to start from (sets
+        ``config.model.model_path``).
     :param reward_fn: ``(samples, queries, response_gt) -> [float]``.
     :param prompts: strings (tokenized with ``tokenizer``) or token-id lists.
     :param response_gt: optional ground-truth responses for the reward.

@@ -40,9 +40,9 @@ def _to_dict(section) -> Dict[str, Any]:
 class ModelConfig:
     """Which policy model to serve or train.
 
-    :param model_path: HF checkpoint directory, or empty for random weights
-        of ``model_arch`` (the port raises on a path until checkpoint
-        conversion is ported).
+    :param model_path: HF checkpoint directory (GPT-2 or T5/UL2; its
+        ``config.json`` gives the architecture), or empty for random
+        weights of ``model_arch``.
     :param tokenizer_path: HF tokenizer path (host-side only).
     :param model_type: model family registered in
         :mod:`trlx_tpu_torch.models.registry`.
@@ -50,7 +50,7 @@ class ModelConfig:
         (plus ln_f and the heads); -1 (or 0) trains everything.
     :param ref_branch_layers: depth of the hydra KL-reference branch;
         ``None`` follows ``num_layers_unfrozen`` when positive, 0 is the
-        full-copy reference (the only one the port has).
+        full-copy reference.
     :param model_arch: architecture overrides (n_layer, n_embd, n_head,
         vocab_size, n_positions, ...).
     :param training: the section's other keys, as given (none today).

@@ -8,9 +8,14 @@ as they vacate; ``flush``/``wait`` run the pump to completion; results
 ``pop_result``/``wait`` hands them out. ``submit(..., stream=True)`` opens
 a per-request token queue fed by the engine's per-step tap.
 
+The weights, in order: explicit ``params``, then the policy of a port
+trainer checkpoint (``checkpoint_dir``), then a converted HF checkpoint
+(``model.model_path``, whose ``config.json`` also gives the architecture),
+then random weights from the seed. Serving is causal-only, as in the
+reference.
+
 Not yet ported (later slices): the shared-prefix pool
-(``serving.prefix_cache_blocks > 0`` raises), checkpoint loading
-(``checkpoint_dir`` and ``model.model_path`` raise), speculative decoding
+(``serving.prefix_cache_blocks > 0`` raises), speculative decoding
 and chunked prefill (refused by
 :class:`~trlx_tpu_torch.inference.RolloutEngineConfig`), the health
 monitor, request tracing and the ``serve/*`` histograms.
@@ -41,12 +46,14 @@ class InferenceServer:
     :param params: optional state dict of the policy
         (:class:`~trlx_tpu_torch.models.heads.CausalLMWithValueHead` names;
         :func:`trlx_tpu_torch.models.convert.flax_to_torch` carries the JAX
-        package's params across). Without it the weights are random, from
-        ``seed``.
+        package's params across). Without it (and without
+        ``checkpoint_dir``) the backbone comes from ``model.model_path``,
+        else random from ``seed``, and the value head from ``seed``.
     :param seed: seeds the random weights and the sampling noise.
     :param device: ``None`` means CUDA (raises without it).
     :param tokenizer: optional tokenizer for string prompts.
-    :param checkpoint_dir: not ported yet (raises).
+    :param checkpoint_dir: a port trainer's ``checkpoint_dir``: the policy
+        (key ``"model"``) of its latest checkpoint is served.
     :param serving: optional dict overriding ``train.serving``.
     """
 
@@ -64,7 +71,7 @@ class InferenceServer:
         from trlx_tpu_torch.inference.engine import ContinuousBatchingEngine
         from trlx_tpu_torch.models.gpt2 import torch_dtype
         from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
-        from trlx_tpu_torch.models.registry import get_model_family
+        from trlx_tpu_torch.models.registry import get_model_family, load_arch
         from trlx_tpu_torch.ops.sampling import (
             GenerationConfig,
             validate_gen_config,
@@ -72,35 +79,28 @@ class InferenceServer:
         from trlx_tpu_torch.serving import ServingConfig
         from trlx_tpu_torch.serving.scheduler import build_scheduler
         from trlx_tpu_torch.serving.streaming import StreamRouter
+        from trlx_tpu_torch.utils.checkpoint import load_checkpoint
 
         self.device = resolve_device(device)
-        if checkpoint_dir is not None:
-            raise NotImplementedError(
-                "loading a trainer checkpoint comes with the checkpoint slice"
-            )
         if not isinstance(config, TRLConfig):
             config = TRLConfig.from_dict(config)
         self.config = config
         train = config.train
-        if config.model.model_path:
-            raise NotImplementedError(
-                "model.model_path (HF checkpoint conversion) comes with a "
-                "later slice; pass params= or set model_arch"
-            )
         self.family = get_model_family(config.model.model_type)
-        arch = dict(config.model.model_arch)
-        arch.setdefault("dtype", train.dtype)
-        arch.setdefault("param_dtype", train.param_dtype)
-        self.model_config = self.family.config_cls.from_dict(arch)
+        self.model_config, backbone = load_arch(self.family, config.model, train)
         self.model = CausalLMWithValueHead(
             self.model_config, self.family.backbone_cls, device=self.device
         )
-        if params is None:
-            init_params(self.model, seed)
-        else:
+        if params is not None:
             self.model.load_state_dict(
                 {k: torch.as_tensor(np.asarray(v)) for k, v in params.items()}
             )
+        elif checkpoint_dir is not None:
+            self.model.load_state_dict(load_checkpoint(checkpoint_dir, device="cpu")["model"])
+        else:
+            init_params(self.model, seed)
+            if backbone is not None:
+                self.model.transformer.load_state_dict(backbone)
         # serve a compute-dtype copy of the weights: every op casts its
         # parameters to the compute dtype per use, so casting once is
         # exact; the value head's last layer computes in f32 and stays

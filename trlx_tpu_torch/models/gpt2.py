@@ -16,10 +16,12 @@ The same architecture, numerics and cache contract as the flax module:
   returns updated buffers, the port writes them in place.
 
 Parameter names follow the flax tree (``h.{i}.attn.c_attn``, ...);
-:mod:`trlx_tpu_torch.models.convert` carries JAX params across. The int8
-cache and the hydra branch arguments (``start_layer``,
-``hidden_override``, ``capture_hidden_at``) come with later slices and
-raise until then.
+:mod:`trlx_tpu_torch.models.convert` carries JAX params across and
+:mod:`trlx_tpu_torch.models.conversion` loads HF checkpoints. The hydra
+KL reference's arguments are the flax module's (``capture_hidden_at``,
+``start_layer``, ``hidden_override``); :meth:`GPT2Model.hydra_branch`
+builds the frozen branch. The int8 cache comes with a later slice and
+raises until then.
 """
 
 from __future__ import annotations
@@ -168,21 +170,38 @@ class GPT2Model(nn.Module):
     """GPT-2 transformer with the tied-embedding LM head and an explicit KV
     cache. ``cache=None``: full-sequence causal forward. ``cache`` given:
     keys/values are written at ``cache_index`` (an int, or a [B] tensor of
-    per-row positions) and ``attention_mask`` must cover the cache view."""
+    per-row positions) and ``attention_mask`` must cover the cache view.
 
-    def __init__(self, config: GPT2Config, device=None):
+    ``branch_start=k`` builds a hydra branch: blocks ``k`` and up, ``ln_f``
+    and ``wte`` (the tied head) only, under their full model's names; it
+    runs from a captured activation (``start_layer`` and
+    ``hidden_override``)."""
+
+    def __init__(self, config: GPT2Config, device=None, branch_start: Optional[int] = None):
         super().__init__()
         self.config = config
+        self.first_layer = branch_start or 0
         fk = _factory(config, device)
         self.wte = nn.Embedding(config.vocab_size, config.n_embd, **fk)
-        self.wpe = nn.Embedding(config.n_positions, config.n_embd, **fk)
-        self.h = nn.ModuleList(
-            Block(config, device) for _ in range(config.n_layer)
+        if branch_start is None:
+            self.wpe = nn.Embedding(config.n_positions, config.n_embd, **fk)
+        # keyed by layer index, so a branch's blocks keep their names
+        self.h = nn.ModuleDict(
+            {str(i): Block(config, device) for i in range(self.first_layer, config.n_layer)}
         )
         self.ln_f = LayerNorm(
             config.n_embd, config.layer_norm_epsilon,
             torch_dtype(config.dtype), **fk,
         )
+
+    def hydra_branch(self, branch_start: int) -> "GPT2Model":
+        """A frozen copy of blocks ``branch_start`` and up, ``ln_f`` and
+        ``wte``: the hydra KL reference (the trunk blocks and ``wpe`` are
+        left out)."""
+        branch = GPT2Model(self.config, self.wte.weight.device, branch_start)
+        kept = branch.state_dict().keys()
+        branch.load_state_dict({k: v for k, v in self.state_dict().items() if k in kept})
+        return branch.requires_grad_(False)
 
     def embed(self, input_ids, position_ids) -> torch.Tensor:
         # each table rounds to the compute dtype before the add. Engine rows
@@ -210,23 +229,37 @@ class GPT2Model(nn.Module):
         capture_hidden_at: Optional[int] = None,
         compute_logits: bool = True,
     ) -> Dict[str, Any]:
-        """Returns ``{"logits", "hidden", "cache"}``."""
-        if start_layer or hidden_override is not None or capture_hidden_at is not None:
-            raise NotImplementedError(
-                "the hydra branch (start_layer / hidden_override / "
-                "capture_hidden_at) comes with the training slice"
+        """Returns ``{"logits", "hidden", "cache"}``.
+
+        The hydra arguments: ``start_layer=k`` with ``hidden_override``
+        runs blocks ``k`` and up from that activation instead of the
+        embeddings; ``capture_hidden_at=k`` returns the activation entering
+        block ``k`` as ``"branch_hidden"`` and stops there (``logits`` and
+        ``hidden`` are then ``None``). XLA prunes the blocks above the
+        capture from the JAX trunk when only the capture is read; eager
+        PyTorch would run them, so the pass ends at the capture."""
+        if start_layer < self.first_layer:
+            raise ValueError(
+                f"start_layer={start_layer}: this branch holds blocks "
+                f"{self.first_layer} and up"
             )
-        T = input_ids.shape[1]
-        if position_ids is None:
-            if attention_mask is not None and cache is None:
-                position_ids = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
-            else:
-                position_ids = torch.arange(T, device=input_ids.device)[None]
-        x = self.embed(input_ids, position_ids)
+        if hidden_override is not None:
+            T = hidden_override.shape[1]
+            x = hidden_override.to(torch_dtype(self.config.dtype))
+        else:
+            T = input_ids.shape[1]
+            if position_ids is None:
+                if attention_mask is not None and cache is None:
+                    position_ids = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
+                else:
+                    position_ids = torch.arange(T, device=input_ids.device)[None]
+            x = self.embed(input_ids, position_ids)
         bias, causal = causal_dispatch(T, cache, cache_index, attention_mask)
-        for i, block in enumerate(self.h):
-            x = block(x, bias, cache[i] if cache is not None else None,
-                      cache_index, causal)
+        for i in range(start_layer, self.config.n_layer):
+            if i == capture_hidden_at:
+                return {"logits": None, "hidden": None, "cache": cache, "branch_hidden": x}
+            x = self.h[str(i)](x, bias, cache[i] if cache is not None else None,
+                               cache_index, causal)
         x = self.ln_f(x)
         return {
             "logits": self.logits(x) if compute_logits else None,

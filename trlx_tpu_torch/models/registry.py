@@ -1,12 +1,14 @@
 """Model-family registry: ``model.model_type`` -> architecture kit
 (counterpart of :mod:`trlx_tpu.models.registry`; ``gpt2``, and ``t5``
-with its alias ``ul2``, the seq2seq family).
+with its alias ``ul2``, the seq2seq family), and :func:`load_arch`, the
+architecture and weights a config asks for.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -15,6 +17,7 @@ class ModelFamily:
     config_cls: type
     backbone_cls: type
     init_cache: Callable  # (config, batch, capacity, device) -> cache
+    load_checkpoint: Callable  # (HF checkpoint dir, dtype) -> (config, state dict)
     is_seq2seq: bool = False
 
 
@@ -45,12 +48,35 @@ def hidden_size_of(config: Any) -> int:
     raise ValueError(f"no hidden size on {type(config).__name__}")
 
 
-def _register_builtins() -> None:
-    from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model, init_cache
+def load_arch(family: ModelFamily, model, train) -> Tuple[Any, Optional[Dict[str, Any]]]:
+    """(architecture config, backbone state dict or ``None``) for the
+    ``model`` and ``train`` config sections. Without ``model.model_path``
+    the architecture is ``model.model_arch`` and there are no weights; with
+    it the checkpoint's ``config.json`` defines the architecture, its
+    weights are converted in ``train.param_dtype``, and ``model_arch``
+    contributes only ``dtype`` and ``param_dtype``. Both default to the
+    ``train`` section's."""
+    arch = dict(model.model_arch)
+    arch.setdefault("dtype", train.dtype)
+    arch.setdefault("param_dtype", train.param_dtype)
+    if not model.model_path:
+        return family.config_cls.from_dict(arch), None
+    config, state = family.load_checkpoint(model.model_path, dtype=train.param_dtype)
+    return dataclasses.replace(
+        config, dtype=arch["dtype"], param_dtype=arch["param_dtype"]
+    ), state
 
+
+def _register_builtins() -> None:
+    from trlx_tpu_torch.models.conversion import load_gpt2_checkpoint, load_t5_checkpoint
+    from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model, init_cache
     from trlx_tpu_torch.models.t5 import T5Config, T5Model, init_t5_cache
 
-    register_model_family(ModelFamily("gpt2", GPT2Config, GPT2Model, init_cache))
     register_model_family(
-        ModelFamily("t5", T5Config, T5Model, init_t5_cache, is_seq2seq=True), "ul2"
+        ModelFamily("gpt2", GPT2Config, GPT2Model, init_cache, load_gpt2_checkpoint)
+    )
+    register_model_family(
+        ModelFamily("t5", T5Config, T5Model, init_t5_cache, load_t5_checkpoint,
+                    is_seq2seq=True),
+        "ul2",
     )

@@ -21,7 +21,6 @@ _TRAINERS: Dict[str, type] = {}
 #: have yet: (default, the ROADMAP item that brings it). A value other than
 #: the default is refused instead of silently ignored.
 UNPORTED_TRAIN_KEYS = {
-    "logprob_chunk": (0, "6 (chunked logprobs)"),
     "async_rl": ({}, "17 (async actor-learner)"),
     "resilience": ({}, "18 (the supervisor)"),
     "resume_from_checkpoint": (False, "18 (resume)"),
@@ -81,12 +80,6 @@ def refuse_unported(config) -> None:
         raise NotImplementedError(
             f"train.mesh={mesh}: the port runs on one device; multi-GPU "
             "parallelism is ROADMAP item 14"
-        )
-    if config.model.resolved_ref_branch_layers > 0:
-        raise NotImplementedError(
-            "the hydra KL reference (model.ref_branch_layers / a positive "
-            "num_layers_unfrozen) is not ported yet (ROADMAP item 6); set "
-            "model.ref_branch_layers: 0 for the full-copy reference"
         )
     if (train.rollout or {}).get("engine", "fixed") != "fixed":
         raise NotImplementedError(

@@ -1,10 +1,21 @@
 """PPO trainer on the fixed-batch sampler (counterpart of
 :mod:`trlx_tpu.trainer.ppo_trainer`).
 
-- The policy is a :class:`CausalLMWithValueHead` and the frozen KL
-  reference a full copy of its backbone, taken at construction (the
-  default config's ``num_layers_unfrozen: -1`` path). The module's
-  parameters and the optimizer are the train state.
+- The policy is a :class:`CausalLMWithValueHead` with random weights
+  from ``train.seed``, or its backbone loaded from ``model.model_path``
+  (an HF checkpoint directory; the value head still comes from the seed).
+  The module's parameters and the optimizer are the train state;
+  ``model.num_layers_unfrozen > 0`` freezes the blocks below the top ones
+  and the embeddings.
+- The frozen KL reference is taken from the initial weights at
+  construction: a full copy of the backbone, or with a hydra branch
+  (``model.ref_branch_layers``, which follows a positive
+  ``num_layers_unfrozen`` when unset) a copy of its top blocks, ``ln_f``
+  and ``wte`` only, run from the live policy trunk's activation at the
+  branch point.
+- ``train.logprob_chunk > 0`` (with ``ent_coef`` 0) computes the update's
+  logprobs chunk by chunk of response positions under
+  ``torch.utils.checkpoint``, so the [B, R, V] f32 logits never exist.
 - One update: GAE and whitening on the minibatch, the policy forward over
   [query; response] with the heads on the response-predicting positions
   only, ``ppo_loss``, backward (every attention through
@@ -41,7 +52,7 @@ import torch
 
 from trlx_tpu_torch.data.ppo_types import PPORolloutBatch, SampleOutput
 from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
-from trlx_tpu_torch.models.registry import get_model_family
+from trlx_tpu_torch.models.registry import get_model_family, load_arch
 from trlx_tpu_torch.ops.ppo_math import (
     get_advantages_and_returns,
     kl_controller_update,
@@ -57,6 +68,7 @@ from trlx_tpu_torch.pipeline.ppo_buffer import PPORolloutBuffer, make_stream_pla
 from trlx_tpu_torch.trainer import BaseRLTrainer, refuse_unported, register_trainer
 from trlx_tpu_torch.trainer.common import freeze_layers, make_optimizer
 from trlx_tpu_torch.utils import (
+    chunked_logprobs,
     logprobs_from_logits,
     monotonic,
     resolve_device,
@@ -90,11 +102,6 @@ class PPOTrainer(BaseRLTrainer):
         method, train = config.method, config.train
         refuse_unported(config)
         self.device = resolve_device(device)
-        if config.model.model_path:
-            raise NotImplementedError(
-                "model.model_path (HF checkpoint conversion) is not ported "
-                "yet (ROADMAP item 13); set model_arch for random weights"
-            )
         if tokenizer is None and config.model.tokenizer_path:
             from transformers import AutoTokenizer
 
@@ -117,6 +124,8 @@ class PPOTrainer(BaseRLTrainer):
         self._gen_budget_cap = self.gen_config.max_new_tokens
         self._bound_min_prompts: Dict[str, int] = {}
         self.query_length = train.seq_length
+        if train.training.get("logprob_chunk", 0):
+            self._check_logprob_chunk(train.training["logprob_chunk"])
 
         self.buffer = PPORolloutBuffer()
         self.kl_coef = float(method.init_kl_coef)
@@ -130,28 +139,66 @@ class PPOTrainer(BaseRLTrainer):
 
     # ------------------------------------------------------------------ #
 
-    def _arch(self) -> Dict[str, Any]:
-        """``model.model_arch`` with the train section's dtypes as
-        defaults."""
-        arch = dict(self.config.model.model_arch)
-        arch.setdefault("dtype", self.config.train.dtype)
-        arch.setdefault("param_dtype", self.config.train.param_dtype)
-        return arch
-
     def _setup_model(self) -> None:
-        """Build the policy of ``model.model_type`` with random weights from
-        ``train.seed``, take its full frozen copy as the KL reference and
-        freeze per ``num_layers_unfrozen``: sets ``family``,
-        ``model_config``, ``model`` and ``ref``."""
+        """Build the policy of ``model.model_type`` (random weights from
+        ``train.seed``, then the backbone from ``model.model_path`` if
+        set), take the KL reference from those initial weights and freeze
+        per ``num_layers_unfrozen``: sets ``family``, ``model_config``,
+        ``model`` and ``ref``."""
         config = self.config
         self.family = get_model_family(config.model.model_type)
-        self.model_config = self.family.config_cls.from_dict(self._arch())
+        self.model_config, backbone = load_arch(self.family, config.model, config.train)
         self.model = CausalLMWithValueHead(
             self.model_config, self.family.backbone_cls, device=self.device
         )
         init_params(self.model, config.train.seed)
-        self.ref = copy.deepcopy(self.model.transformer).requires_grad_(False)
+        if backbone is not None:
+            self.model.transformer.load_state_dict(backbone)
+        self._setup_reference(self.model.transformer, self.model_config.n_layer)
         freeze_layers(self.model, config.model.num_layers_unfrozen, self.model_config.n_layer)
+
+    def _setup_reference(self, backbone, n_layer: int) -> None:
+        """The frozen KL reference from ``backbone``'s current (initial)
+        weights: the hydra branch of depth ``ref_branch`` when it is
+        positive and the family supports one, else a full copy. Sets
+        ``ref_branch``, ``use_hydra``, ``branch_start`` and ``ref``."""
+        model = self.config.model
+        self.ref_branch = model.resolved_ref_branch_layers
+        if not 0 <= self.ref_branch <= n_layer:
+            # unset, the depth follows num_layers_unfrozen: name the key
+            # the user wrote
+            key = ("model.ref_branch_layers" if model.ref_branch_layers is not None
+                   else "model.num_layers_unfrozen")
+            raise ValueError(f"{key}={self.ref_branch} must be in [0, n_layer={n_layer}]")
+        self.use_hydra = self.ref_branch > 0 and self._supports_hydra()
+        self.branch_start = n_layer - self.ref_branch if self.use_hydra else None
+        if self.use_hydra:
+            self.ref = backbone.hydra_branch(self.branch_start)
+        else:
+            self.ref = copy.deepcopy(backbone).requires_grad_(False)
+
+    def _supports_hydra(self) -> bool:
+        return True
+
+    def _supports_logprob_chunk(self) -> bool:
+        """Whether the trainer's update forward has a chunked logprob path
+        (the seq2seq trainer's does not)."""
+        return True
+
+    def _check_logprob_chunk(self, chunk: int) -> None:
+        if chunk < 0:
+            raise ValueError(f"train.logprob_chunk={chunk} must be >= 0")
+        if not self._supports_logprob_chunk():
+            raise NotImplementedError(
+                f"train.logprob_chunk is not supported by {type(self).__name__} "
+                "(a causal-path feature; the seq2seq forward computes its own "
+                "logits); remove the key"
+            )
+        if self.gen_config.max_new_tokens % chunk:
+            raise ValueError(
+                f"train.logprob_chunk={chunk} must divide gen max_new_tokens="
+                f"{self.gen_config.max_new_tokens}"
+            )
 
     def _amend_gen_kwargs(self, gen_kwargs: Dict[str, Any]) -> None:
         """Family defaults for the generation kwargs (none for causal LMs)."""
@@ -219,14 +266,27 @@ class PPOTrainer(BaseRLTrainer):
     @torch.no_grad()
     def score_ref(self, q_ids, q_mask, r_ids, r_mask) -> torch.Tensor:
         """[B, R] logprobs of the responses under the frozen reference; the
-        LM head runs on the response-predicting positions only."""
+        LM head runs on the response-predicting positions only.
+
+        With the hydra branch, the live policy trunk runs up to the branch
+        point (trained or frozen per ``num_layers_unfrozen``: under
+        ``(0, k)`` the trunk trains and the reference drifts with it, as in
+        the reference), then the frozen branch from that activation: one
+        scoring costs ``n_layer`` blocks, not two full passes."""
         self.forwards += 1
         Q = self.query_length
-        out = self.ref(
-            torch.cat([q_ids, r_ids], 1),
-            attention_mask=torch.cat([q_mask, r_mask.to(q_mask.dtype)], 1),
-            compute_logits=False,
-        )
+        ids = torch.cat([q_ids, r_ids], 1)
+        mask = torch.cat([q_mask, r_mask.to(q_mask.dtype)], 1)
+        if self.use_hydra:
+            trunk = self.model.transformer(
+                ids, attention_mask=mask, capture_hidden_at=self.branch_start
+            )
+            out = self.ref(
+                ids, attention_mask=mask, start_layer=self.branch_start,
+                hidden_override=trunk["branch_hidden"], compute_logits=False,
+            )
+        else:
+            out = self.ref(ids, attention_mask=mask, compute_logits=False)
         logits = self.ref.logits(out["hidden"][:, Q - 1 : -1])
         return logprobs_from_logits(logits, r_ids)
 
@@ -250,11 +310,16 @@ class PPOTrainer(BaseRLTrainer):
         """Policy forward over [query; response] -> (logprobs, values,
         entropy or None) at the response positions."""
         self.forwards += 1
-        logits, values = self.model.response_forward(
-            torch.cat([mb.query_tokens, mb.response_tokens], 1),
-            torch.cat([mb.query_mask, mb.response_mask.to(mb.query_mask.dtype)], 1),
-            self.query_length,
-        )
+        ids = torch.cat([mb.query_tokens, mb.response_tokens], 1)
+        mask = torch.cat([mb.query_mask, mb.response_mask.to(mb.query_mask.dtype)], 1)
+        chunk = self.config.train.training.get("logprob_chunk", 0)
+        if chunk and not self.config.method.ent_coef:  # entropy needs full-vocab terms
+            hidden, values = self.model.response_hidden(ids, mask, self.query_length)
+            logprobs = chunked_logprobs(
+                self.model.transformer.logits, hidden, mb.response_tokens, chunk
+            )
+            return logprobs, values.float(), None
+        logits, values = self.model.response_forward(ids, mask, self.query_length)
         logprobs = logprobs_from_logits(logits, mb.response_tokens)
         entropy = policy_entropy(logits) if self.config.method.ent_coef else None
         return logprobs, values.float(), entropy

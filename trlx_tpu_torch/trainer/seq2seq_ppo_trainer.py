@@ -6,8 +6,9 @@ input (left-padded to ``train.seq_length``), the "response" the decoder
 output. Logprobs and values line up position for position with the
 teacher-forced forward on ``shift_tokens_right(response)`` under the
 decoder mask ``[1, response_mask[:-1]]``. The policy is a
-:class:`~trlx_tpu_torch.models.heads.T5WithValueHead`, the KL reference a
-full frozen copy of its ``t5`` backbone. Generation takes the decoder
+:class:`~trlx_tpu_torch.models.heads.T5WithValueHead` (random weights from
+the seed, or its backbone loaded from ``model.model_path``), the KL
+reference a full frozen copy of its initial ``t5`` backbone. Generation takes the decoder
 start token from the arch unless ``gen_kwargs`` sets it. Every attention
 runs through K1 (and K2, K3 in the update); the two self-attentions' bias
 carries the learned relative position table, whose gradient K2 returns.
@@ -15,7 +16,6 @@ carries the learned relative position table, whose gradient K2 returns.
 
 from __future__ import annotations
 
-import copy
 import functools
 from typing import Any, Dict
 
@@ -23,8 +23,8 @@ import torch
 
 from trlx_tpu_torch.data.ppo_types import PPORolloutBatch
 from trlx_tpu_torch.models.heads import T5WithValueHead, init_params
-from trlx_tpu_torch.models.registry import get_model_family
-from trlx_tpu_torch.models.t5 import T5Config, init_t5_cache, shift_tokens_right
+from trlx_tpu_torch.models.registry import get_model_family, load_arch
+from trlx_tpu_torch.models.t5 import init_t5_cache, shift_tokens_right
 from trlx_tpu_torch.ops.ppo_math import policy_entropy
 from trlx_tpu_torch.ops.sampling import make_seq2seq_sampler
 from trlx_tpu_torch.trainer import register_trainer
@@ -34,8 +34,9 @@ from trlx_tpu_torch.utils import logprobs_from_logits
 
 def refuse_for_seq2seq(config) -> None:
     """Raise on what the reference's seq2seq trainer refuses: layer
-    freezing, the hydra reference, ``logprob_chunk`` and continuous-engine
-    rollouts (pp is refused with the rest of multi-GPU parallelism)."""
+    freezing, the hydra reference and continuous-engine rollouts
+    (``logprob_chunk`` is refused through ``_supports_logprob_chunk``, pp
+    with the rest of multi-GPU parallelism)."""
     model, train = config.model, config.train
     if model.num_layers_unfrozen > 0:
         raise NotImplementedError(
@@ -48,11 +49,6 @@ def refuse_for_seq2seq(config) -> None:
         raise NotImplementedError(
             "the hydra KL reference is not defined for the seq2seq family "
             "(the fork uses a full frozen copy); set model.ref_branch_layers: 0"
-        )
-    if train.training.get("logprob_chunk", 0):
-        raise NotImplementedError(
-            "train.logprob_chunk is not defined for the seq2seq trainer, "
-            "whose encoder-decoder forward has no chunked logprob path"
         )
     if (train.rollout or {}).get("engine", "fixed") != "fixed":
         raise NotImplementedError(
@@ -72,11 +68,22 @@ class Seq2SeqPPOTrainer(PPOTrainer):
         super().__init__(config, *args, **kwargs)
 
     def _setup_model(self) -> None:
+        config = self.config
         self.family = get_model_family("t5")
-        self.model_config = T5Config.from_dict(self._arch())
+        self.model_config, backbone = load_arch(self.family, config.model, config.train)
         self.model = T5WithValueHead(self.model_config, device=self.device)
-        init_params(self.model, self.config.train.seed)
-        self.ref = copy.deepcopy(self.model.t5).requires_grad_(False)
+        init_params(self.model, config.train.seed)
+        if backbone is not None:
+            self.model.t5.load_state_dict(backbone)
+        self._setup_reference(self.model.t5, self.model_config.num_decoder_layers)
+
+    def _supports_hydra(self) -> bool:
+        # the fork keeps a full frozen copy for T5 (ppo_orchestrator.py:41-43)
+        return False
+
+    def _supports_logprob_chunk(self) -> bool:
+        # the encoder-decoder forward computes its own logits
+        return False
 
     def _amend_gen_kwargs(self, gen_kwargs: Dict[str, Any]) -> None:
         gen_kwargs.setdefault(

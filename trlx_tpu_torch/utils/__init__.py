@@ -74,6 +74,35 @@ def logprobs_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Te
     return torch.gather(logp, -1, labels.long()[..., None])[..., 0]
 
 
+def chunked_logprobs(
+    logits_fn: Callable[[torch.Tensor], torch.Tensor],
+    hidden: torch.Tensor,  # [B, R, d]
+    labels: torch.Tensor,  # [B, R]
+    chunk: int,
+) -> torch.Tensor:
+    """``logprobs_from_logits(logits_fn(hidden), labels)``, ``chunk``
+    positions at a time, each chunk under ``torch.utils.checkpoint``: the
+    forward keeps only each chunk's inputs and the backward recomputes its
+    logits, so the [B, R, V] f32 logits never exist at once."""
+    from torch.utils.checkpoint import checkpoint
+
+    R = labels.shape[1]
+    if R % chunk:
+        raise ValueError(
+            f"train.logprob_chunk={chunk} does not divide the bound response "
+            f"width {R} (bind_prompt_budget shrank the decode budget); pick a "
+            "chunk dividing both"
+        )
+
+    def one(h: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+        return logprobs_from_logits(logits_fn(h), t)
+
+    return torch.cat([
+        checkpoint(one, hidden[:, s:s + chunk], labels[:, s:s + chunk], use_reentrant=False)
+        for s in range(0, R, chunk)
+    ], 1)
+
+
 class RunningMoments:
     """Running mean/std of reward scalars across rollout chunks: host
     floats updated per chunk with the parallel variance combination
