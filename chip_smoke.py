@@ -26,15 +26,19 @@ Phases, each fatal on failure:
    K3 against the plain backward (fed K1's own O and LSE) at the
    training shape (B=16, T=112, causal + padding bias, and with left
    padding), the rollout-prefill shape (explicit causal + padding bias),
-   ragged Q/K with a full-rank bias and a per-head bias, and two long
+   ragged Q/K with a full-rank bias and a per-head bias, two long
    cases (16 query chunks and key tiles under the causal flag; 64 key
-   tiles with peaked logits), in bf16 (``tile``) and f32 (``fma``);
+   tiles with peaked logits), and ILQL's update (B=128, T=64, causal +
+   right padding), in bf16 (``tile``) and f32 (``fma``); K1 also at ILQL's
+   eval prefill (B=128, Q=16, K=64, left padding: the ``decode`` variant
+   at its largest Q) and eval decode step (Q=1, K=64);
    hold the autograd ``Function`` against autograd through the plain
    forward; time K1 at the five shapes of the two paths (serving prefill
-   and decode, update forward, rollout prefill and decode; the serving
-   two in f32 too) and K2, K3 (through their C entry points, arguments
-   packed beforehand, and through their Python wrappers) at the training
-   shape (kernel, plain version, and a
+   and decode, update forward, rollout prefill and decode, ILQL's update
+   forward, eval prefill and eval step; the serving two in f32 too) and
+   K2, K3 (through their C entry points, arguments packed beforehand, and
+   through their Python wrappers) at the PPO and ILQL update shapes
+   (kernel, plain version, and a
    PyTorch yardstick the port never calls: ``scaled_dot_product_attention``,
    and for the backward ``torch.autograd.grad`` of its output) beside the
    card's bound; and at the seq2seq path's attention shapes
@@ -100,15 +104,38 @@ Phases, each fatal on failure:
    cast) and serves 8 of the prompts to completion with finite logprobs
    and values.
 
-Each path (phases 4 to 7, each definition of phase 7 on its own) runs
+8. offline ILQL — ``trlx_tpu_torch.train(dataset=..., model_path=...)`` on
+   ``configs/ilql_sentiments.yml`` as written (bf16 over f32 masters,
+   ``seq_length`` 64, batch 128, two Q heads, tau 0.7, gamma 0.99, CQL 0.1,
+   AWAC 1.0, alpha 0.005, a target sync every 5 updates, beta 4; the eval
+   decode's defaults: 48 new tokens, top_k 20, sampled) from a GPT-2-small
+   checkpoint in HF layout written by the phase, on 2048 synthetic
+   (token_list, action_start) samples from a seed, for 32 updates (two
+   epochs of 16 minibatches) with evals at 0, 16 and 32; named
+   deviations: random weights, synthetic data, no tokenizer, 32 of 1000
+   updates. Gates: the loaded backbone equals the written tensors; every
+   stat finite; the parameters and the Q heads moved; after every update
+   the target heads are ``alpha * q + (1 - alpha) * previous`` bit for bit
+   on the 6 sync steps (5, 10, .., 30) and bit-identical to before on the
+   rest; K1 ``tile`` = 12 x the update forwards, ``decode`` = 12 x the eval
+   decode's forwards (its Q = 16 prefills and Q = 1 steps), K2 = K3 = 12 x
+   32, all ``tile``, no ``fma`` launch, input copy or plain-attention call;
+   a fresh trainer's ``load`` restores the saved state exactly, target
+   heads and generator included; every eval's logprobs finite and its
+   sampled tokens within the top 20 of the shifted logits. Prints the wall
+   with the checkpoint load timed apart, updates/s, eval tokens/s and the
+   peak memory from a clean start.
+
+Each path (phases 4 to 8, each definition of phase 7 on its own) runs
 with the launch counters set to 0 just before it and read just after, and
 its peak memory is read from a clean start. Prints the card's name and
 power limit, a ``{"kernels": [...]}`` line, and as its last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, or when
 any phase fails. ``--profile PATH`` additionally serves the
-same traffic, runs one training phase, a cut seq2seq run and one phase of
-each phase-7 definition under ``torch.profiler`` and writes each run's
-device-time summary (busy share, device time by kernel) as JSON to PATH.
+same traffic, runs one training phase, a cut seq2seq run, one phase of
+each phase-7 definition and one epoch of phase 8 under ``torch.profiler``
+and writes each run's device-time summary (busy share, device time by
+kernel) as JSON to PATH.
 """
 
 from __future__ import annotations
@@ -488,10 +515,16 @@ def phase_kernel(torch, fa, attn):
     return results, timed
 
 
-FORWARD_ONLY = ("decode", "ref_scoring")  # no backward runs at these shapes
-# the training path's K1 shapes, timed in bf16 (backward_cases names)
+# no backward runs at these shapes
+FORWARD_ONLY = ("decode", "ref_scoring", "ilql_eval_prefill", "ilql_eval_decode")
+# the training paths' K1 shapes, timed in bf16 (backward_cases names)
 TRAINING_SHAPES = {"train": "update_forward", "prefill": "rollout_prefill",
-                   "decode": "rollout_decode", "ref_scoring": "ref_scoring"}
+                   "decode": "rollout_decode", "ref_scoring": "ref_scoring",
+                   "ilql_update": "ilql_update_forward",
+                   "ilql_eval_prefill": "ilql_eval_prefill",
+                   "ilql_eval_decode": "ilql_eval_decode"}
+# the backward_cases whose K2/K3 are timed in bf16: PPO's and ILQL's update
+TIMED_BACKWARD = ("train", "ilql_update")
 
 
 def backward_cases(torch, attn):
@@ -535,6 +568,23 @@ def backward_cases(torch, attn):
     # response] under the causal flag with their left padding
     mask = (torch.arange(112, device=dev)[None, :] >= 64 - lens[:, None].repeat(8, 1)).long()
     cases.append(("ref_scoring", *qkv(128, 112, 112), attn.padding_bias(mask), True))
+    # ILQL (configs/ilql_sentiments.yml): the update forward over 128
+    # right-padded samples of 9..64 tokens under the causal flag; the eval
+    # prefill, 16 left-padded prompt columns over the 64-wide cache (K1's
+    # decode variant at its largest Q); and an eval decode step at cache
+    # column 16 + t
+    n_tok = torch.randint(9, 65, (128,), generator=gen, device=dev)
+    cols = torch.arange(64, device=dev)[None, :]
+    cases.append(("ilql_update", *qkv(128, 64, 64), attn.padding_bias((cols < n_tok[:, None]).long()),
+                  True))
+    prompt = torch.randint(8, 17, (128,), generator=gen, device=dev)
+    mask = ((cols >= 16 - prompt[:, None]) & (cols < 16)).long()
+    bias = attn.causal_bias(16, 64, 0, dev) + attn.padding_bias(mask)
+    cases.append(("ilql_eval_prefill", *qkv(128, 16, 64), bias, False))
+    t = int(torch.randint(0, 48, (), generator=gen, device=dev))
+    mask = ((cols >= 16 - prompt[:, None]) & (cols <= 16 + t)).long()
+    bias = attn.causal_bias(1, 64, 16 + t, dev) + attn.padding_bias(mask)
+    cases.append(("ilql_eval_decode", *qkv(128, 1, 64), bias, False))
     cases.append(("ragged_bias", *qkv(2, 77, 141), torch.randn(2, 1, 77, 141, generator=gen, device=dev), False))
     cases.append(("per_head_bias", *qkv(2, 130, 200), torch.randn(1, 12, 130, 200, generator=gen, device=dev), False))
     # long: 16 query chunks and 16 key tiles under the causal flag with a
@@ -619,9 +669,9 @@ def packed_backward_calls(torch, fa, copies, causal):
 def phase_backward(torch, fa, attn):
     """K1 against its plain version at the training path's shapes; K2 and
     K3 against the plain backward; the autograd Function against autograd
-    through the plain forward; K1 times at the training path's shapes and
-    K2/K3 times at the update's. Returns ``(fwd_results, bwd_results,
-    fwd_timed, timed)``."""
+    through the plain forward; K1 times at the training paths' shapes and
+    K2/K3 times at PPO's and ILQL's update (``timed`` keyed by (case,
+    kernel)). Returns ``(fwd_results, bwd_results, fwd_timed, timed)``."""
     import torch.nn.functional as F
 
     fwd_results, results, fwd_timed, timed = [], [], {}, {}
@@ -671,7 +721,7 @@ def phase_backward(torch, fa, attn):
                 f"max|ddK|={row['max_abs_err_dk']:.3e} max|ddV|={row['max_abs_err_dv']:.3e} "
                 f"(tol {row['tol_dq']:.1e}/{row['tol_dk']:.1e}/{row['tol_dv']:.1e}) "
                 f"{'ok' if ok else 'FAIL'}")
-            if name != "train" or dtype_name != "bfloat16":
+            if name not in TIMED_BACKWARD or dtype_name != "bfloat16":
                 continue
             B, T = q.shape[:2]
             tensors = [q, k, v, bias, o, lse, do]
@@ -686,10 +736,10 @@ def phase_backward(torch, fa, attn):
             torch.cuda.synchronize()
             same = rcs == [0, 0] and all(
                 torch.equal(a, b) for a, b in zip(packed[0][1:], got))
-            results.append({"case": "packed_calls", "dtype": dtype_name, "ok": same,
+            results.append({"case": name + "_packed_calls", "dtype": dtype_name, "ok": same,
                             "max_abs_err_dq": 0.0, "max_abs_err_dk": 0.0,
                             "max_abs_err_dv": 0.0})
-            log(f"phase 2: packed K2/K3 calls rc={rcs}, outputs equal the wrappers': "
+            log(f"phase 2: packed K2/K3 calls at {name} rc={rcs}, outputs equal the wrappers': "
                 f"{'ok' if same else 'FAIL'}")
             del packed, dq_calls, dkv_calls
             wrapper = {
@@ -715,12 +765,12 @@ def phase_backward(torch, fa, attn):
             del copies, graphs
             bounds = backward_bound(fa, q, k, bias, causal, dtype_name)
             for kname, ms in (("flash_bwd_dq", kernel_dq), ("flash_bwd_dkv", kernel_dkv)):
-                timed[kname] = {
+                row = timed[(name, kname)] = {
                     "shape": f"B={B} H=12 Q=K={T} D=64 causal, bias {list(bias.shape)}",
                     "variant": fa.backward_variant(dt), "ms": ms, "wrapper_ms": wrapper[kname],
                     "plain_ms": plain, "library_ms": library, **bounds[kname],
                 }
-                log(f"phase 2: {kname} bf16 {timed[kname]['shape']} ({timed[kname]['variant']}): "
+                log(f"phase 2: {kname} bf16 {name} {row['shape']} ({row['variant']}): "
                     f"kernel_ms={ms} wrapper_ms={wrapper[kname]} "
                     f"plain_ms={plain} (whole plain backward) library_ms={library} "
                     f"(SDPA's whole backward) bound_ms={bounds[kname]['bound_ms']} "
@@ -2223,6 +2273,281 @@ def phase_bench_workload(torch, fa):
     return ok, records
 
 
+# configs/ilql_sentiments.yml as written, cut to two epochs of the
+# synthetic dataset; what phase 8 runs differently: (setting, the yml's
+# value, the port's, why)
+ILQL_SAMPLES = 2048
+ILQL_UPDATES = 32  # 2 epochs of 2048 // 128 = 16 minibatches, cut from 1000
+ILQL_DEVIATIONS = (
+    ("model.model_path", "gpt2", "GPT-2 small in HF layout, random weights from a seed",
+     "the gpt2 checkpoint is not in the repo"),
+    ("model.tokenizer_path", "gpt2", "", "the gpt2 tokenizer is not in the repo: samples are "
+     "token ids"),
+    ("dataset", "IMDB reviews with sentiment rewards", f"{ILQL_SAMPLES} synthetic (token_list, "
+     "action_start) samples from a seed", "the dataset is not in the repo"),
+    ("train.total_steps", 1000, ILQL_UPDATES, "the smoke's time limit"),
+    ("train.eval_interval", 100, 16, "three evals in the cut run"),
+    ("train.checkpoint_interval", 1000, ILQL_UPDATES, "one checkpoint, at the end"),
+)
+ILQL_TOP_K = 20  # the eval decode's default top_k (DEFAULT_ILQL_GEN_KWARGS)
+
+
+def ilql_config(checkpoint_dir: str):
+    """``configs/ilql_sentiments.yml`` as written, with the deviations
+    (``model_path`` is given to ``train``; without it the weights are
+    random at GPT-2 small's widths)."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", "ilql_sentiments.yml")).to_dict()
+    arch = {k: GPT2_HF_CONFIG[k] for k in ("vocab_size", "n_positions", "n_embd", "n_layer",
+                                            "n_head")}
+    cfg["model"].update(model_path="", tokenizer_path="", model_arch=arch)
+    cfg["train"].update(total_steps=ILQL_UPDATES, eval_interval=16,
+                        checkpoint_interval=ILQL_UPDATES, checkpoint_dir=checkpoint_dir)
+    return TRLConfig.from_dict(cfg)
+
+
+def ilql_dataset(seed: int = 3):
+    """``ILQL_SAMPLES`` (token_list, action_start) samples: prompts of 8-24
+    ids, responses to at most 64 tokens in all; the reward is the share of
+    response ids below 25000 (a host reward, as phase 5's)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    samples, rewards = [], []
+    for _ in range(ILQL_SAMPLES):
+        start = int(rng.integers(8, 25))
+        toks = [int(x) for x in rng.integers(0, 50256, int(rng.integers(start + 1, 65)))]
+        samples.append((toks, start))
+        rewards.append(float(np.mean([t < 25000 for t in toks[start:]])))
+    return samples, rewards
+
+
+def phase_ilql(torch, fa):
+    """Phase 8, offline ILQL: ``trlx_tpu_torch.train(dataset=...,
+    model_path=...)`` on ``configs/ilql_sentiments.yml`` from a GPT-2-small
+    checkpoint in HF layout written here (random weights from a seed),
+    with gates on the loaded bits, the stats, the target sync after every
+    update, the launches, ``load`` and the eval decode's tokens. Returns
+    ``(ok, record)``."""
+    import tempfile
+
+    import numpy as np
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from trlx_tpu_torch.models.heads import CausalLMWithILQLHeads, init_params
+    from trlx_tpu_torch.trainer import ilql_trainer
+    from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer, q_parameters
+
+    log("phase 8: offline ILQL on configs/ilql_sentiments.yml; deviations: " + json.dumps([
+        {"setting": k, "yml": b, "port": p, "why": why} for k, b, p, why in ILQL_DEVIATIONS]))
+    rows, evals, loaded, syncs, sync_ok = [], [], [], [], [True]
+    times = {"load_s": 0.0, "update_s": 0.0, "eval_s": 0.0}
+    sampler_calls, step_logits, plain_calls, saved_rng = [0], [], [0], []
+    decoded = {"tokens": 0, "finite": True, "top_k": True, "live": 0}
+    orig = {
+        "learn": ILQLTrainer.learn, "train_step": ILQLTrainer.train_step,
+        "evaluate": ILQLTrainer.evaluate, "sample": ILQLTrainer.sample,
+        "apply": ILQLTrainer._sample_apply, "save": ILQLTrainer.save,
+        "load_arch": ilql_trainer.load_arch,
+        "fwd": fa.flash_attention_reference, "bwd": fa.flash_attention_backward_reference,
+    }
+
+    def load_arch(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig["load_arch"](*a, **kw)
+        times["load_s"] += time.perf_counter() - t0
+        return out
+
+    def learn(self):
+        loaded.append(state_equal(torch, self.model.transformer, written))
+        return orig["learn"](self)
+
+    def train_step(self, mb):
+        alpha = self.config.method.alpha
+        every = self.config.method.steps_for_target_q_sync
+        before = [t.clone() for t in q_parameters(self.target)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = orig["train_step"](self, mb)
+        torch.cuda.synchronize()
+        times["update_s"] += time.perf_counter() - t0
+        rows.append({k: float(v) for k, v in stats.items()})
+        after = q_parameters(self.target)
+        if self.step % every == 0:
+            syncs.append(self.step)
+            want = [alpha * q + (1 - alpha) * t for q, t in zip(q_parameters(self.model.heads), before)]
+        else:
+            want = before
+        sync_ok[0] &= all(torch.equal(a, w) for a, w in zip(after, want))
+        return stats
+
+    def sample_apply(self, input_ids, *a, **kw):
+        sampler_calls[0] += 1
+        out = orig["apply"](self, input_ids, *a, **kw)
+        step_logits.append(out["logits"][:, -1])
+        return out
+
+    def sample(self, prompt_ids, prompt_mask):
+        step_logits.clear()
+        out = orig["sample"](self, prompt_ids, prompt_mask)
+        live = out.response_mask.bool()
+        decoded["finite"] &= bool(torch.isfinite(out.logprobs[live]).all())
+        for t, logits in enumerate(step_logits):  # the token of step t comes from call t
+            kth = torch.topk(logits, ILQL_TOP_K, dim=-1).values[:, -1]
+            chosen = logits.gather(1, out.tokens[:, t].long()[:, None])[:, 0]
+            decoded["top_k"] &= bool(((chosen >= kth) | ~live[:, t]).all())
+        decoded["live"] += int(live.sum())
+        decoded["tokens"] += int(live[: len(self.eval_pipeline)].sum())  # the real rows'
+        step_logits.clear()
+        return out
+
+    def evaluate(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig["evaluate"](self)
+        torch.cuda.synchronize()
+        times["eval_s"] += time.perf_counter() - t0
+        evals.append(out)
+        return out
+
+    def save(self, directory=None):
+        saved_rng.append(self.generator.get_state())  # the final eval draws after it
+        return orig["save"](self, directory)
+
+    def counting(key):
+        def fn(*a, **kw):
+            plain_calls[0] += 1
+            return orig[key](*a, **kw)
+        return fn
+
+    samples, rewards = ilql_dataset()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, run_dir = os.path.join(tmp, "gpt2"), os.path.join(tmp, "run")
+        written = random_backbone(
+            torch, GPT2Model(GPT2Config.from_dict(GPT2_HF_CONFIG), device="cuda"), seed=13)
+        write_hf_checkpoint(ckpt, GPT2_HF_CONFIG, gpt2_hf_layout(written))
+        config = ilql_config(run_dir)
+        ILQLTrainer.learn, ILQLTrainer.train_step = learn, train_step
+        ILQLTrainer.evaluate, ILQLTrainer.sample = evaluate, sample
+        ILQLTrainer._sample_apply, ILQLTrainer.save = sample_apply, save
+        ilql_trainer.load_arch = load_arch
+        fa.flash_attention_reference = counting("fwd")
+        fa.flash_attention_backward_reference = counting("bwd")
+        mem_start = reset_peak(torch)
+        # count the main path's launches only
+        reset_forward_counters(fa)
+        reset_backward_counters(fa)
+        t0 = time.perf_counter()
+        try:
+            trainer = trlx_tpu_torch.train(dataset=(samples, rewards), model_path=ckpt,
+                                           config=config)
+            torch.cuda.synchronize()
+        finally:
+            ILQLTrainer.learn, ILQLTrainer.train_step = orig["learn"], orig["train_step"]
+            ILQLTrainer.evaluate, ILQLTrainer.sample = orig["evaluate"], orig["sample"]
+            ILQLTrainer._sample_apply, ILQLTrainer.save = orig["apply"], orig["save"]
+            ilql_trainer.load_arch = orig["load_arch"]
+            fa.flash_attention_reference = orig["fwd"]
+            fa.flash_attention_backward_reference = orig["bwd"]
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {
+            "flash_fwd": fa.FLASH_FWD_LAUNCHES,
+            "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
+            "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES,
+        }
+        variants = forward_variant_launches(fa)
+        bwd_variants = backward_variant_launches(fa)
+        bwd_copies = fa.FLASH_BWD_COPIES
+        updates = trainer.step
+        finite = all(math.isfinite(v) for r in rows for v in r.values()) and all(
+            math.isfinite(v) for e in evals for v in e.values())
+
+        # what moved, against the loaded backbone and the heads' seeded init
+        initial = CausalLMWithILQLHeads(trainer.model_config, device="cuda")
+        init_params(initial, config.train.seed)
+        initial.transformer.load_state_dict(written)
+        start = initial.state_dict()
+        final = trainer.model.state_dict()
+        moved = {n: not torch.equal(final[n], start[n]) for n in final}
+        del initial, start, final
+        q_names = [n for n in moved if n.startswith(("heads.q1_head.", "heads.q2_head."))]
+        backbone_moved = sum(moved[n] for n in moved if n.startswith("transformer."))
+
+        fresh = ILQLTrainer(ilql_config(run_dir))
+        fresh.load(run_dir)
+        saved, restored_opt = trainer.opt.state_dict(), fresh.opt.state_dict()
+        restored = (
+            all(torch.equal(fresh.model.state_dict()[n], p)
+                for n, p in trainer.model.state_dict().items())
+            and all(torch.equal(fresh.target.state_dict()[n], p)
+                    for n, p in trainer.target.state_dict().items())
+            and all(torch.equal(restored_opt["adamw"]["state"][i][key], value)
+                    for i, st in saved["adamw"]["state"].items() for key, value in st.items())
+            and (fresh.step, restored_opt["count"]) == (trainer.step, saved["count"])
+            and torch.equal(fresh.generator.get_state(), saved_rng[-1])
+        )
+        del fresh
+    n_layer = trainer.model_config.n_layer
+    expected_variants = {
+        "tile": n_layer * updates, "decode": n_layer * sampler_calls[0], "fma": 0, "copies": 0,
+    }
+    expected = {"flash_fwd": expected_variants["tile"] + expected_variants["decode"],
+                "flash_bwd_dq": n_layer * ILQL_UPDATES, "flash_bwd_dkv": n_layer * ILQL_UPDATES}
+    expected_bwd_variants = {k: {"tile": n_layer * ILQL_UPDATES, "fma": 0} for k in BWD_KERNELS}
+    record = {
+        "wall_s": wall, "checkpoint_load_s": times["load_s"],
+        "wall_without_load_s": wall - times["load_s"],
+        "updates": updates, "update_s": times["update_s"],
+        "updates_per_s": updates / times["update_s"] if times["update_s"] else None,
+        "evals": evals, "eval_s": times["eval_s"], "eval_tokens": decoded["tokens"],
+        "eval_tokens_per_s": decoded["tokens"] / times["eval_s"] if times["eval_s"] else None,
+        "max_memory_allocated_bytes": peak, "allocated_at_start_bytes": mem_start,
+        "loaded_equals_written": bool(loaded) and loaded[0],
+        "target_syncs": syncs, "target_sync_bit_exact": sync_ok[0],
+        "forwards": trainer.forwards, "sampler_calls": sampler_calls[0],
+        "launches": launches, "expected_launches": expected,
+        "flash_fwd_variants": variants, "expected_variants": expected_variants,
+        "backward_variants": bwd_variants, "expected_backward_variants": expected_bwd_variants,
+        "backward_copies": bwd_copies, "plain_attention_calls": plain_calls[0],
+        "params_moved": sum(moved.values()), "params": len(moved),
+        "q_heads_moved": all(moved[n] for n in q_names), "q_head_tensors": len(q_names),
+        "backbone_tensors_moved": backbone_moved,
+        "load_restores": restored, "eval_logprobs_finite": decoded["finite"],
+        "eval_tokens_in_top_k": decoded["top_k"], "eval_live_tokens": decoded["live"],
+        "stats_finite": finite,
+    }
+    log("phase 8: ilql " + json.dumps(record))
+    ok = (
+        record["loaded_equals_written"] and updates == ILQL_UPDATES
+        and len(rows) == ILQL_UPDATES and finite and len(evals) == 3
+        and syncs == list(range(5, ILQL_UPDATES + 1, 5)) and sync_ok[0]
+        and record["q_heads_moved"] and len(q_names) == 8 and backbone_moved > 0
+        and trainer.forwards == updates + sampler_calls[0]
+        and launches == expected and variants == expected_variants
+        and bwd_variants == expected_bwd_variants and bwd_copies == 0 and plain_calls[0] == 0
+        and restored and decoded["finite"] and decoded["top_k"] and decoded["live"] > 0
+    )
+    log(f"phase 8: ilql {'ok' if ok else 'FAIL'} (loaded backbone equals the written checkpoint: "
+        f"{record['loaded_equals_written']}; updates={updates}, stats finite={finite}, "
+        f"evals={len(evals)}; target syncs at {syncs}, bit-exact: {sync_ok[0]}; Q heads moved: "
+        f"{record['q_heads_moved']} ({len(q_names)} tensors), backbone tensors moved "
+        f"{backbone_moved}; launches={launches} vs {expected}, K1 by variant {variants} vs "
+        f"{expected_variants}, K2/K3 by variant {bwd_variants} vs {expected_bwd_variants}, "
+        f"backward input copies={bwd_copies}, plain attention calls={plain_calls[0]}; load "
+        f"restores={restored}; eval logprobs finite={decoded['finite']}, tokens in the top "
+        f"{ILQL_TOP_K} of the shifted logits={decoded['top_k']} ({decoded['live']} live); wall "
+        f"{wall:.2f} s of which checkpoint load {times['load_s']:.2f} s, "
+        f"{record['updates_per_s']} updates/s, {record['eval_tokens_per_s']} eval tokens/s, "
+        f"peak memory {peak} B, {mem_start} B allocated at the start)")
+    del trainer
+    torch.cuda.empty_cache()
+    return ok, record
+
+
 def device_summary(prof, wall: float) -> dict:
     """Summarise a torch.profiler run's device timeline: busy share of the
     wall, and device time by kernel."""
@@ -2269,10 +2594,11 @@ def profile_paths(torch, path: str) -> None:
     """``--profile PATH``: under torch.profiler, serve the same 64 prompts
     again, run one PPO phase (32 updates) of the training geometry, a cut
     seq2seq run (two 16-prompt chunks, 8 updates, one-chunk evals: the
-    full phase's trace would hold some 10^6 events), and one PPO phase (32
-    updates) of phase 7's workload at each freezing definition (random
-    weights from ``model_arch``: loading is not profiled); write each
-    run's device summary as JSON at ``path``."""
+    full phase's trace would hold some 10^6 events), one PPO phase (32
+    updates) of phase 7's workload at each freezing definition, and one
+    epoch (16 updates, evals at 0 and 16, the checkpoint at the end) of
+    phase 8's ILQL run (random weights: loading is not profiled); write
+    each run's device summary as JSON at ``path``."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -2324,6 +2650,17 @@ def profile_paths(torch, path: str) -> None:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
         summary["bench_" + name] = device_summary(prof, wall)
+    samples, rewards = ilql_dataset()
+    with tempfile.TemporaryDirectory() as tmp:
+        config = ilql_config(tmp)
+        config.train.total_steps = config.train.checkpoint_interval = 16
+        torch.cuda.synchronize()
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            trlx_tpu_torch.train(dataset=(samples, rewards), config=config)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    summary["ilql"] = device_summary(prof, wall)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as fh:
         json.dump(summary, fh, indent=1)
@@ -2380,6 +2717,7 @@ def main() -> int:
     training_ok, training = phase_training(torch, fa)
     seq2seq_ok, seq2seq = phase_t5_training(torch, fa)
     bench_ok, bench = phase_bench_workload(torch, fa)
+    ilql_ok, ilql = phase_ilql(torch, fa)
     if args.profile:
         profile_paths(torch, args.profile)
 
@@ -2395,15 +2733,17 @@ def main() -> int:
         "route": "cuda",
         "source": SOURCES["flash_fwd"],
         "replaces": REPLACES["flash_fwd"],
-        # K1 runs on the three paths; each path's count was read on its own
+        # K1 runs on every path; each path's count was read on its own
         "launches": (serving["flash_fwd_launches"] + training["launches"]["flash_fwd"]
                      + seq2seq["launches"]["flash_fwd"]
-                     + sum(r["launches"]["flash_fwd"] for r in bench.values())),
+                     + sum(r["launches"]["flash_fwd"] for r in bench.values())
+                     + ilql["launches"]["flash_fwd"]),
         "launches_by_path": {"serving": serving["flash_fwd_launches"],
                              "training": training["launches"]["flash_fwd"],
                              "seq2seq_training": seq2seq["launches"]["flash_fwd"],
                              **{"bench_" + n: r["launches"]["flash_fwd"]
-                                for n, r in bench.items()}},
+                                for n, r in bench.items()},
+                             "ilql": ilql["launches"]["flash_fwd"]},
         "max_abs_err": max(c["max_abs_err_o"] for c in fwd_checks),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
@@ -2422,14 +2762,16 @@ def main() -> int:
                                 "training": training["flash_fwd_variants"],
                                 "seq2seq_training": seq2seq["flash_fwd_variants"],
                                 **{"bench_" + n: r["flash_fwd_variants"]
-                                   for n, r in bench.items()}},
+                                   for n, r in bench.items()},
+                                "ilql": ilql["flash_fwd_variants"]},
         "tile_tensor_core_instructions": build["flash_fwd_tile_kernel"]["tensor_core_instructions"],
         # None, never an unmeasured 0, when a K1 kernel is missing from the report
         "k1_spill_bytes": None if None in k1_spills else sum(k1_spills),
     }]
     t5_update = [n for n, shape in T5_SHAPES.items() if shape[4]]
     for name, outputs in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
-        row = bwd_timed[name]
+        row = bwd_timed[("train", name)]
+        ilql_row = bwd_timed[("ilql_update", name)]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -2437,22 +2779,27 @@ def main() -> int:
             "replaces": REPLACES[name],
             # the training paths; each path's count was read on its own
             "launches": (training["launches"][name] + seq2seq["launches"][name]
-                         + sum(r["launches"][name] for r in bench.values())),
+                         + sum(r["launches"][name] for r in bench.values())
+                         + ilql["launches"][name]),
             "launches_by_path": {"training": training["launches"][name],
                                  "seq2seq_training": seq2seq["launches"][name],
                                  **{"bench_" + n: r["launches"][name]
-                                    for n, r in bench.items()}},
+                                    for n, r in bench.items()},
+                                 "ilql": ilql["launches"][name]},
             "max_abs_err": max(c[f"max_abs_err_{o}"] for c in bwd_checks for o in outputs),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                    "variant", "wrapper_ms")},
             "timed_shape": "training bf16 " + row["shape"],
+            "ilql_update": {k: ilql_row[k] for k in (
+                "shape", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
             "t5_shapes": {n: {k: t5_bwd_timed[(n, name)][k] for k in (
                 "shape", "dbias", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
                 for n in t5_update},
             "launches_by_variant": {"training": training["backward_variants"][name],
                                     "seq2seq_training": seq2seq["backward_variants"][name],
                                     **{"bench_" + n: r["backward_variants"][name]
-                                       for n, r in bench.items()}},
+                                       for n, r in bench.items()},
+                                    "ilql": ilql["backward_variants"][name]},
             **{k: build[f"{name}_tile_kernel"][k] for k in (
                 "spill_bytes", "registers", "tensor_core_instructions")},
         })
@@ -2479,7 +2826,8 @@ def main() -> int:
     print(json.dumps({"kernels": kernels}), flush=True)
     phases = (("build", build_ok), ("kernel", kernel_ok), ("model", model_ok),
               ("serving", serving_ok), ("training", training_ok),
-              ("seq2seq_training", seq2seq_ok), ("bench_workload", bench_ok))
+              ("seq2seq_training", seq2seq_ok), ("bench_workload", bench_ok),
+              ("ilql", ilql_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

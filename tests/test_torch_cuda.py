@@ -15,6 +15,9 @@ kernels (dQ, dK/dV) match the plain backward on the same O and LSE, bf16
 takes their ``tile`` variant and f32 their ``fma`` variant, the C entry
 points refuse a mismatched variant, a misaligned view is copied and
 counted, and a training step runs every attention backward through them.
+At ILQL's shapes: K1 at the eval prefill (Q = 16, the ``decode`` variant)
+and eval step, K2/K3 at the update (T = 64, right padding), and an ILQL
+update and eval decode run every attention through the kernels.
 K2 with the bias gradient (T5's learned relative position bias) matches the
 plain backward's dbias at the T5 update's three attention shapes in both
 dtypes, counts its own launches, is refused under the causal flag, and a
@@ -317,6 +320,8 @@ BWD_CASES = {  # B, Q, K, causal, bias kind
     # fault, shows here
     "long_causal": (2, 1024, 1024, True, "pad"),
     "long_k": (2, 128, 4096, False, "peaked"),
+    # ILQL's update (configs/ilql_sentiments.yml): T = 64, right padding
+    "ilql_update": (4, 64, 64, True, "right_pad"),
 }
 
 
@@ -329,6 +334,9 @@ def _bwd_inputs(dev, case, dtype):
     if kind == "pad":  # padding with the first keys valid
         keep = torch.arange(K, device=dev)[None] < 4
         bias = attn.padding_bias(((torch.rand(B, K, generator=gen, device=dev) > 0.3) | keep).long())
+    elif kind == "right_pad":  # samples of 9..K tokens, padded at the end
+        n_tok = torch.randint(9, K + 1, (B, 1), generator=gen, device=dev)
+        bias = attn.padding_bias((torch.arange(K, device=dev)[None] < n_tok).long())
     elif kind == "left_pad":  # rows 0..69 of row 0 see only padding keys
         mask = torch.ones(B, K, dtype=torch.long, device=dev)
         mask[0, :70] = 0
@@ -522,6 +530,80 @@ def test_training_step_runs_every_attention_backward_through_the_kernels(dev):
     assert fa.FLASH_FWD_LAUNCHES - fwd0 == 12
     assert all(torch.isfinite(v).all() for v in stats.values())
     assert any(not torch.equal(before[n], p) for n, p in trainer.model.named_parameters())
+
+
+# ILQL's eval decode (configs/ilql_sentiments.yml): 16 left-padded prompt
+# columns over the 64-wide cache (the prefill, K1's decode variant at its
+# largest Q) and one query at column 16 + t; batch cut to 4, H = 2
+ILQL_DECODE_CASES = {"eval_prefill": (16, 0), "eval_step": (1, 16 + 21)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", list(ILQL_DECODE_CASES))
+def test_ilql_eval_decode_shapes_match_plain(dev, dtype, case):
+    Q, offset = ILQL_DECODE_CASES[case]
+    q, k, v = _qkv(dev, 4, Q, 64, dtype=dtype, seed=7)
+    prompt = torch.tensor([[16], [12], [9], [8]], device=dev)
+    cols = torch.arange(64, device=dev)[None]
+    mask = ((cols >= 16 - prompt) & (cols <= max(offset, 15))).long()
+    bias = attn.causal_bias(Q, 64, offset, dev) + attn.padding_bias(mask)
+    before = _fwd_counters()
+    o, lse = fa.flash_attention(q, k, v, bias, False, True)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, bias, False, True)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = TOL[dtype]
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+    assert (lse - lse_ref).abs().max().item() <= tol_lse
+    variant = "DECODE" if dtype == torch.bfloat16 else "FMA"
+    assert _moved(before) == {"FLASH_FWD_LAUNCHES": 1, f"FLASH_FWD_{variant}_LAUNCHES": 1}
+
+
+def test_ilql_update_and_eval_run_every_attention_through_the_kernels(dev, tmp_path):
+    """One ILQL update of a 12-layer model on the card and one eval
+    decode: each update launches K1 ``tile``, K2 and K3 once per layer,
+    the decode K1 ``decode`` once per layer and forward; the parameters
+    and Q heads move, and the target heads stay until the sync."""
+    import numpy as np
+
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.orchestrator.offline_orchestrator import OfflineOrchestrator
+    from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer
+
+    config = TRLConfig.from_dict({
+        "model": {"model_type": "gpt2", "model_arch": {
+            "vocab_size": 64, "n_positions": 64, "n_embd": 128, "n_layer": 12, "n_head": 2}},
+        "train": {"seq_length": 24, "batch_size": 8, "dtype": "bfloat16", "seed": 0,
+                  "checkpoint_dir": str(tmp_path)},
+        "method": {"name": "ILQLConfig", "steps_for_target_q_sync": 2, "gen_kwargs": {
+            "max_new_tokens": 8, "eos_token_id": 62, "pad_token_id": 63}},
+    })
+    trainer = ILQLTrainer(config)
+    rng = np.random.default_rng(0)
+    samples = [([int(t) for t in rng.integers(0, 60, int(rng.integers(9, 25)))], 4)
+               for _ in range(16)]
+    OfflineOrchestrator(trainer).make_experience(samples, rng.random(16).tolist())
+    before = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    target = [p.clone() for p in trainer.target.parameters()]
+    counters = ("FLASH_FWD_TILE_LAUNCHES", "FLASH_FWD_DECODE_LAUNCHES", "FLASH_FWD_FMA_LAUNCHES",
+                "FLASH_BWD_DQ_TILE_LAUNCHES", "FLASH_BWD_DKV_TILE_LAUNCHES")
+    start = {c: getattr(fa, c) for c in counters}
+    stats = trainer.train_step(trainer.store.stacked_slice(np.arange(8)))
+    torch.cuda.synchronize()
+    assert {c: getattr(fa, c) - n for c, n in start.items()} == {
+        "FLASH_FWD_TILE_LAUNCHES": 12, "FLASH_FWD_DECODE_LAUNCHES": 0,
+        "FLASH_FWD_FMA_LAUNCHES": 0, "FLASH_BWD_DQ_TILE_LAUNCHES": 12,
+        "FLASH_BWD_DKV_TILE_LAUNCHES": 12}
+    assert all(torch.isfinite(v).all() for v in stats.values())
+    assert all(not torch.equal(before[n], p) for n, p in trainer.model.named_parameters()
+               if n.startswith("heads.q"))
+    assert all(torch.equal(a, b) for a, b in zip(target, trainer.target.parameters()))
+    decode0, forwards0 = fa.FLASH_FWD_DECODE_LAUNCHES, trainer.forwards
+    mask = (torch.arange(16, device=dev)[None] >= torch.tensor([[0], [4], [8], [12]], device=dev)).int()
+    out = trainer.sample(torch.randint(0, 60, (4, 16), device=dev).int() * mask, mask)
+    torch.cuda.synchronize()
+    calls = trainer.forwards - forwards0
+    assert calls == 8 and fa.FLASH_FWD_DECODE_LAUNCHES - decode0 == 12 * calls
+    assert torch.isfinite(out.logprobs).all() and not out.values.any()
 
 
 # the T5 update's attention shapes at H = 8 (configs/ppo_ul2.yml), batch cut

@@ -198,13 +198,14 @@ def test_unported_arguments_raise():
         tinit_cache(TGPT2Config(**dict(ARCH, kv_cache_dtype="int8")), 1, 8)
 
 
-PPO_CONFIGS = sorted(
+# the methods the port has: PPO and ILQL (GRPO is ROADMAP item 12)
+PORTED_CONFIGS = sorted(
     p for p in glob.glob(os.path.join(ROOT, "configs", "*.yml"))
-    if "PPOConfig" in open(p).read()
+    if "PPOConfig" in open(p).read() or "ILQLConfig" in open(p).read()
 )
 
 
-@pytest.mark.parametrize("path", PPO_CONFIGS, ids=os.path.basename)
+@pytest.mark.parametrize("path", PORTED_CONFIGS, ids=os.path.basename)
 def test_configs_parse_like_jax(path):
     tcfg, jcfg = TTRLConfig.load_yaml(path), JTRLConfig.load_yaml(path)
     td, jd = tcfg.to_dict(), jcfg.to_dict()

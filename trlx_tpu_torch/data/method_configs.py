@@ -1,15 +1,15 @@
 """Method-config registry: string name -> RL-method config class
 (counterpart of :mod:`trlx_tpu.data.method_configs`).
 
-The JAX package registers ``PPOConfig`` from its PPO math module; the port
-keeps the pure-data dataclass here (the PPO math comes with the training
-slice), so parsing a config imports no model or math code.
+The JAX package registers ``PPOConfig`` and ``ILQLConfig`` from its math
+modules; the port keeps the pure-data dataclasses here, so parsing a
+config imports no model or math code.
 """
 
 from __future__ import annotations
 
 from dataclasses import asdict, dataclass, field, fields
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 # name (lowercase) -> method config class
 _METHODS: Dict[str, type] = {}
@@ -93,3 +93,45 @@ class PPOConfig(MethodConfig):
             max_new_tokens=48, top_k=0, top_p=1.0, do_sample=True
         )
     )
+
+
+#: ILQL's eval-decode defaults where a config omits ``gen_kwargs``
+#: (``trlx_tpu.ops.ilql_math.DEFAULT_ILQL_GEN_KWARGS``).
+DEFAULT_ILQL_GEN_KWARGS: Dict[str, Any] = {
+    "max_new_tokens": 48,
+    "do_sample": True,
+    "top_k": 20,
+}
+
+
+@register_method
+@dataclass
+class ILQLConfig(MethodConfig):
+    """ILQL hyperparameters; the same fields and defaults as
+    ``trlx_tpu.ops.ilql_math.ILQLConfig``. ``from_dict`` makes ``betas`` a
+    tuple and merges ``gen_kwargs`` over the eval-decode defaults (a bare
+    ``gen_kwargs:`` line gives the defaults)."""
+
+    name: str = "ILQLConfig"
+    tau: float = 0.7
+    gamma: float = 0.99
+    cql_scale: float = 0.1
+    awac_scale: float = 1.0
+    alpha: float = 0.005
+    steps_for_target_q_sync: int = 5
+    betas: Tuple[float, ...] = (4.0,)
+    two_qs: bool = True
+    gen_kwargs: Dict[str, Any] = field(
+        default_factory=lambda: dict(DEFAULT_ILQL_GEN_KWARGS)
+    )
+
+    @classmethod
+    def from_dict(cls, config: Dict[str, Any]):
+        if "betas" in config:
+            config = dict(config, betas=tuple(config["betas"]))
+        if "gen_kwargs" in config:
+            config = dict(
+                config,
+                gen_kwargs={**DEFAULT_ILQL_GEN_KWARGS, **(config["gen_kwargs"] or {})},
+            )
+        return super().from_dict(config)

@@ -1,7 +1,8 @@
 """Carry the JAX package's policy params across to the port.
 
 :func:`flax_to_torch` takes the flax param tree of
-``CausalLMWithValueHead`` or ``T5WithValueHead`` as a nested dict of numpy
+``CausalLMWithValueHead``, ``T5WithValueHead`` or ``CausalLMWithILQLHeads``
+(or a sub-tree of one) as a nested dict of numpy
 arrays (the caller does the ``np.asarray``; nothing here imports JAX) and
 returns the port's state dict. Flax names map one to one:
 
@@ -11,6 +12,10 @@ returns the port's state dict. Flax names map one to one:
 - ``.../ln_1/scale`` -> ``.../ln_1.weight``; ``.../bias`` -> ``.bias``;
 - ``transformer/wte/embedding`` -> ``transformer.wte.weight``;
 - ``v_head/fc1/kernel`` -> ``v_head.fc1.weight``;
+- ILQL: ``heads/q1_head/fc2/kernel`` -> ``heads.q1_head.fc2.weight`` (the
+  ``CausalLMWithILQLHeads`` tree), and the JAX ILQL trainer's
+  ``target_q_params`` tree ``q1_head/fc1/kernel`` -> ``q1_head.fc1.weight``
+  (the target :class:`~trlx_tpu_torch.models.heads.ILQLHeads`);
 - T5: ``t5/enc_0/SelfAttention/q/kernel`` -> ``t5.enc.0.SelfAttention.q.weight``
   (``enc_<i>``/``dec_<i>`` are module lists), ``t5/dec_0/ln_self/weight``
   -> ``t5.dec.0.ln_self.weight`` (``T5LayerNorm``'s leaf is ``weight``),

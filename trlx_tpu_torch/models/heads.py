@@ -1,11 +1,12 @@
-"""Value head and the PPO policy wrappers (counterpart of
-:mod:`trlx_tpu.models.heads`: ``MLPHead``, ``CausalLMWithValueHead`` and
-``T5WithValueHead``), and the random init of a policy from a seed."""
+"""Value head, the PPO policy wrappers and the ILQL heads (counterpart of
+:mod:`trlx_tpu.models.heads`: ``MLPHead``, ``CausalLMWithValueHead``,
+``T5WithValueHead``, ``ILQLHeads`` and ``CausalLMWithILQLHeads``), and the
+random init of a policy from a seed."""
 
 from __future__ import annotations
 
 import re
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
@@ -165,6 +166,88 @@ class T5WithValueHead(nn.Module):
             rel_bias=rel_bias,
         )
         out["values"] = self.v_head(out["hidden"])[..., 0]
+        return out
+
+
+class ILQLHeads(nn.Module):
+    """ILQL's heads over a hidden state: Q heads (``q1_head``, and
+    ``q2_head`` with ``two_qs``) mapping to vocab-size action values and
+    the scalar ``v_head``; ``with_v=False`` builds the Q heads alone (the
+    target heads). The names are the flax tree's, so
+    :func:`~trlx_tpu_torch.models.convert.flax_to_torch` carries the JAX
+    package's ``heads`` and ``target_q_params`` trees across unchanged."""
+
+    def __init__(self, config: Any, two_qs: bool = True, with_v: bool = True, device=None):
+        super().__init__()
+        from trlx_tpu_torch.models.registry import hidden_size_of
+
+        n = hidden_size_of(config)
+        kw = {"dtype": config.dtype, "param_dtype": config.param_dtype, "device": device}
+        self.n_qs = 2 if two_qs else 1
+        for i in range(self.n_qs):
+            setattr(self, f"q{i + 1}_head", MLPHead(n, config.vocab_size, **kw))
+        self.v_head = MLPHead(n, 1, **kw) if with_v else None
+
+    def q_heads(self) -> Tuple[MLPHead, ...]:
+        return tuple(getattr(self, f"q{i + 1}_head") for i in range(self.n_qs))
+
+    def q(self, action_hidden: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        return tuple(head(action_hidden) for head in self.q_heads())
+
+    def v(self, state_hidden: torch.Tensor) -> torch.Tensor:
+        return self.v_head(state_hidden)[..., 0]
+
+
+class CausalLMWithILQLHeads(nn.Module):
+    """Causal LM backbone (``transformer``) + :class:`ILQLHeads`
+    (``heads``). One forward returns the logits, the Q values at the
+    action states, the values at the states and the action states' hidden
+    (``action_hidden``, which the target heads read)."""
+
+    def __init__(self, config: Any, two_qs: bool = True, backbone_cls=GPT2Model, device=None):
+        super().__init__()
+        self.config = config
+        self.transformer = backbone_cls(config, device=device)
+        self.heads = ILQLHeads(config, two_qs, device=device)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask: Optional[torch.Tensor] = None,
+        position_ids: Optional[torch.Tensor] = None,
+        actions_ixs: Optional[torch.Tensor] = None,
+        states_ixs: Optional[torch.Tensor] = None,
+        cache=None,
+        cache_index=None,
+        last_only: bool = False,
+    ):
+        """``actions_ixs``/``states_ixs`` gather the hidden states the Q and
+        V heads read (all positions without them). ``last_only=True``
+        computes the logits and heads at the final position only (the
+        sampler's prefill) and excludes the gathers."""
+        from trlx_tpu_torch.ops.ilql_math import batch_gather
+
+        if last_only and (actions_ixs is not None or states_ixs is not None):
+            raise ValueError(
+                "last_only keeps the final position only; actions_ixs/"
+                "states_ixs gathers cannot be combined with it"
+            )
+        out = self.transformer(
+            input_ids,
+            attention_mask=attention_mask,
+            position_ids=position_ids,
+            cache=cache,
+            cache_index=cache_index,
+            compute_logits=not last_only,
+        )
+        hidden = out["hidden"]
+        if last_only:
+            hidden = hidden[:, -1:]
+            out["logits"] = self.transformer.logits(hidden)
+        action_hidden = hidden if actions_ixs is None else batch_gather(hidden, actions_ixs)
+        state_hidden = hidden if states_ixs is None else batch_gather(hidden, states_ixs)
+        out.update(qs=self.heads.q(action_hidden), vs=self.heads.v(state_hidden),
+                   action_hidden=action_hidden)
         return out
 
 

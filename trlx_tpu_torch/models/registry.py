@@ -23,6 +23,10 @@ class ModelFamily:
 
 _FAMILIES: Dict[str, ModelFamily] = {}
 
+#: the JAX package's other families (and aliases), refused by name
+UNPORTED_FAMILIES = ("gptj", "gpt-j", "gpt_neo", "gpt-neo", "gpt_neox", "neox", "gpt-neox",
+                     "gpt2_moe", "gpt2-moe")
+
 
 def register_model_family(family: ModelFamily, *aliases: str) -> ModelFamily:
     for key in (family.name, *aliases):
@@ -36,6 +40,10 @@ def get_model_family(name: str) -> ModelFamily:
         _register_builtins()
     if key in _FAMILIES:
         return _FAMILIES[key]
+    if key in UNPORTED_FAMILIES:
+        raise NotImplementedError(
+            f"model_type {name!r} is not ported yet (ROADMAP item 13, other families)"
+        )
     raise ValueError(
         f"Unknown model_type: {name!r}. Registered: {sorted(_FAMILIES)}"
     )

@@ -225,14 +225,16 @@ def make_sampler(
     init_cache_fn: Callable,
     gen_config: GenerationConfig,
     query_length: int,
+    with_values: bool = True,
 ):
     """Build ``sampler(prompt_ids, prompt_mask, generator=None,
     noise_fn=None) -> SampleOutput``, the fixed-batch rollout sampler.
 
     ``apply_fn(input_ids, attention_mask=, position_ids=, cache=,
     cache_index=, last_only=)`` is the policy forward (logits, values and
-    the in-place KV cache); ``init_cache_fn(batch, capacity)`` builds the
-    linear KV buffers of capacity Q + R. The prompt prefill computes the
+    the in-place KV cache; with ``with_values=False`` no values are read
+    and the sampler's come out as zeros); ``init_cache_fn(batch,
+    capacity)`` builds the linear KV buffers of capacity Q + R. The prompt prefill computes the
     heads for its last position only; then one token per step for R steps,
     each row's token, behaviour logprob and value chosen by
     :func:`choose_tokens` (finished rows emit ``(pad, 0, 0.0, 0.0)``).
@@ -250,6 +252,12 @@ def make_sampler(
         if gen_config.decode_segment_size > 0
         else R
     )
+
+    def last_values(out, col: int) -> torch.Tensor:
+        if with_values:
+            return out["values"][:, col].float()
+        logits = out["logits"]
+        return torch.zeros(logits.shape[0], device=logits.device)
 
     @torch.no_grad()
     def sampler(prompt_ids, prompt_mask, generator=None, noise_fn=None) -> SampleOutput:
@@ -272,7 +280,7 @@ def make_sampler(
             last_only=True,
         )
         logits_last = out["logits"][:, -1].float()
-        value_last = out["values"][:, -1].float()
+        value_last = last_values(out, -1)
         finished = (
             n_real >= gen_config.max_length if gen_config.max_length > 0
             else torch.zeros(B, dtype=torch.bool, device=dev)
@@ -309,7 +317,7 @@ def make_sampler(
                 cache_index=Q + t,
             )
             logits_last = out["logits"][:, 0].float()
-            value_last = out["values"][:, 0].float()
+            value_last = last_values(out, 0)
         return SampleOutput(
             tokens=tokens, response_mask=mask, logprobs=logprobs, values=values
         )

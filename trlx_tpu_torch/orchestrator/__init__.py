@@ -1,5 +1,6 @@
 """Orchestrators: experience collection (counterpart of
-:mod:`trlx_tpu.orchestrator`): the orchestrator registry."""
+:mod:`trlx_tpu.orchestrator`): the orchestrator registry (PPO's online
+and ILQL's offline orchestrator register on first lookup)."""
 
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ def register_orchestrator(name=None):
 def get_orchestrator(name: str) -> type:
     key = name.lower()
     if key not in _ORCHESTRATORS:
+        import trlx_tpu_torch.orchestrator.offline_orchestrator  # noqa: F401
         import trlx_tpu_torch.orchestrator.ppo_orchestrator  # noqa: F401
     if key in _ORCHESTRATORS:
         return _ORCHESTRATORS[key]

@@ -1,8 +1,9 @@
 """Trainer layer (counterpart of :mod:`trlx_tpu.trainer`): the trainer
-registry and the part of ``BaseRLTrainer`` the PPO path uses — generation
-defaults from a tokenizer, the log/eval/save cadence, the host text
-boundary, evaluation and the non-finite-loss check. Health monitoring,
-the flight recorder and the run ledger are ROADMAP item 19.
+registry and the part of ``BaseRLTrainer`` the PPO and ILQL paths use —
+generation defaults from a tokenizer, the log/eval/save cadence, the host
+text boundary, evaluation (scored by the reward function, the metric
+function, both or neither) and the non-finite-loss check. Health
+monitoring, the flight recorder and the run ledger are ROADMAP item 19.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ def register_trainer(name=None):
 def get_trainer(name: str) -> type:
     key = name.lower()
     if key not in _TRAINERS:
+        import trlx_tpu_torch.trainer.ilql_trainer  # noqa: F401
         import trlx_tpu_torch.trainer.ppo_trainer  # noqa: F401
         import trlx_tpu_torch.trainer.seq2seq_ppo_trainer  # noqa: F401
     if key in _TRAINERS:
@@ -87,7 +89,7 @@ def refuse_unported(config) -> None:
             "yet (ROADMAP item 15); the trainer collects with the fixed "
             "sampler"
         )
-    if method.group_size > 1 or method.scale_reward == "group":
+    if getattr(method, "group_size", 1) > 1 or getattr(method, "scale_reward", None) == "group":
         raise NotImplementedError(
             "grouped sampling (method.group_size > 1, scale_reward: group) "
             "and GRPO are not ported yet (ROADMAP item 12)"
@@ -96,7 +98,9 @@ def refuse_unported(config) -> None:
 
 class BaseRLTrainer:
     """Shared trainer behaviour; subclasses provide ``sample``, ``learn``,
-    ``save`` and ``load``."""
+    ``save`` and ``load``. ``logit_mask`` ([V, V] bool: token ``i`` may
+    follow token ``j`` where ``logit_mask[j, i]``) restricts ILQL's eval
+    decode."""
 
     def __init__(
         self,
@@ -104,11 +108,13 @@ class BaseRLTrainer:
         reward_fn: Optional[Callable] = None,
         metric_fn: Optional[Callable] = None,
         tokenizer=None,
+        logit_mask=None,
     ):
         self.config = config
         self.reward_fn = reward_fn
         self.metric_fn = metric_fn
         self.tokenizer = tokenizer
+        self.logit_mask = logit_mask
         self.orch = None  # back-reference installed by the orchestrator
         self.eval_pipeline = None
         self.logger = None

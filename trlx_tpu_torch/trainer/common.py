@@ -19,23 +19,30 @@ import torch
 from torch import nn
 
 
-def freeze_layers(model: nn.Module, num_layers_unfrozen: int, n_layer: int) -> None:
-    """The PPO path's ``num_layers_unfrozen``: ``k <= 0`` trains every
-    parameter; ``k > 0`` trains only the top ``k`` blocks, the final layer
-    norm and the heads (the embeddings below the branch point freeze
-    too)."""
+def freeze_layers(model: nn.Module, num_layers_unfrozen: int, n_layer: int,
+                  zero_freezes_all: bool = False) -> None:
+    """``num_layers_unfrozen`` as the JAX package's ``unfrozen_param_mask``
+    reads it. The PPO path: ``k <= 0`` trains every parameter; ``k > 0``
+    trains only the top ``k`` blocks, the final layer norm and the heads
+    (the embeddings below the branch point freeze too). ILQL's
+    (``zero_freezes_all``): a negative ``k`` trains everything, ``0``
+    freezes every block, ``k > 0`` the bottom ``n_layer - k``, and both
+    freeze ``wte`` and ``wpe``."""
     if num_layers_unfrozen > n_layer:
         raise ValueError(
             f"model.num_layers_unfrozen={num_layers_unfrozen} exceeds "
             f"n_layer={n_layer}"
         )
-    first_trainable = n_layer - num_layers_unfrozen if num_layers_unfrozen > 0 else 0
+    if num_layers_unfrozen < 0 or (num_layers_unfrozen == 0 and not zero_freezes_all):
+        model.requires_grad_(True)
+        return
+    first_trainable = n_layer - num_layers_unfrozen
     for name, p in model.named_parameters():
         m = re.search(r"(?:^|\.)h\.(\d+)\.", name)
         if m:
             p.requires_grad_(int(m.group(1)) >= first_trainable)
         elif re.search(r"(?:^|\.)(wte|wpe)\.", name):
-            p.requires_grad_(first_trainable == 0)
+            p.requires_grad_(first_trainable == 0 and not zero_freezes_all)
         else:
             p.requires_grad_(True)
 
