@@ -124,18 +124,46 @@ Phases, each fatal on failure:
    heads and generator included; every eval's logprobs finite and its
    sampled tokens within the top 20 of the shifted logits. Prints the wall
    with the checkpoint load timed apart, updates/s, eval tokens/s and the
-   peak memory from a clean start.
+   peak memory from a clean start;
 
-Each path (phases 4 to 8, each definition of phase 7 on its own) runs
-with the launch counters set to 0 just before it and read just after, and
-its peak memory is read from a clean start. Prints the card's name and
-power limit, a ``{"kernels": [...]}`` line, and as its last line
-``{"ok": true, "device": {...}}``. Exits non-zero without CUDA, or when
-any phase fails. ``--profile PATH`` additionally serves the
-same traffic, runs one training phase, a cut seq2seq run, one phase of
-each phase-7 definition and one epoch of phase 8 under ``torch.profiler``
-and writes each run's device-time summary (busy share, device time by
-kernel) as JSON to PATH.
+9. GRPO — ``trlx_tpu_torch.train`` on ``configs/grpo_sentiments.yml`` as
+   written (groups of 8: 16 prompts x 8 per 128-rollout chunk, batch 16,
+   4 epochs, no value loss, bf16 over f32 masters) from a GPT-2-small
+   checkpoint in HF layout written by the smoke, for two phases (64
+   updates; named deviations: random weights, token-id prompts and
+   reward, 64 of 10 000 updates). Gates: the loaded bits; finite stats;
+   moved parameters; every stored group of 8 holds one prompt; every group
+   whose KL-shaped returns have a population std above 1e-2 has stored
+   advantages of mean |.| < 1e-4 and population std within 1e-3 of 1; the
+   value head's gradient exactly zero after every update (its first Adam
+   moment stays 0); K1 by variant as phase 5 counts it, K2 = K3 = 12 x 64
+   ``tile``; ``load`` exact. Then a cut seq2seq GRPO run:
+   ``configs/ppo_ul2.yml`` through the ``Seq2SeqGRPOTrainer`` (groups of
+   4, one phase of 40 updates) from a UL2 checkpoint written here, with
+   the same group and value-head gates and K2 with the bias gradient 16 x
+   the updates;
+10. continuous-engine PPO — ``configs/ppo_sentiments.yml`` with
+   ``train.rollout: {engine: continuous}`` (128 slots, admit and harvest
+   32, block 16, poll 1) from the same checkpoint, two phases (64
+   updates). Gates per collect phase: 128 rows admitted, completed and
+   recycled, none pending, 0 < slot_util <= 1, each draw index once in the
+   buffer, K1 ``tile`` = 12 x (admission prefills + reference scorings)
+   and ``decode`` = 12 x decode steps; over the run phase 5's gates. Then
+   the fixed sampler under per-row RNG and the engine decode the same 128
+   prompts at one phase seed and the share of rows with identical tokens
+   is printed (a report: bf16 and another batch shape can flip a
+   near-tie), with the engine's host time per decode step.
+
+Each path (phases 4 to 10, each definition of phase 7 and each run of
+phase 9 on its own) runs with the launch counters set to 0 just before it
+and read just after, and its peak memory is read from a clean start.
+Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
+and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
+without CUDA, or when any phase fails. ``--profile PATH`` additionally
+serves the same traffic, runs one training phase, a cut seq2seq run, one
+phase of each phase-7 definition, one epoch of phase 8 and one phase each
+of phases 9 (causal) and 10 under ``torch.profiler`` and writes each run's
+device-time summary (busy share, device time by kernel) as JSON to PATH.
 """
 
 from __future__ import annotations
@@ -516,13 +544,15 @@ def phase_kernel(torch, fa, attn):
 
 
 # no backward runs at these shapes
-FORWARD_ONLY = ("decode", "ref_scoring", "ilql_eval_prefill", "ilql_eval_decode")
+FORWARD_ONLY = ("decode", "ref_scoring", "ilql_eval_prefill", "ilql_eval_decode",
+                "engine_prefill", "engine_decode")
 # the training paths' K1 shapes, timed in bf16 (backward_cases names)
 TRAINING_SHAPES = {"train": "update_forward", "prefill": "rollout_prefill",
                    "decode": "rollout_decode", "ref_scoring": "ref_scoring",
                    "ilql_update": "ilql_update_forward",
                    "ilql_eval_prefill": "ilql_eval_prefill",
-                   "ilql_eval_decode": "ilql_eval_decode"}
+                   "ilql_eval_decode": "ilql_eval_decode",
+                   "engine_prefill": "engine_admission_prefill"}
 # the backward_cases whose K2/K3 are timed in bf16: PPO's and ILQL's update
 TIMED_BACKWARD = ("train", "ilql_update")
 
@@ -597,6 +627,19 @@ def backward_cases(torch, attn):
     q, k, v = qkv(2, 128, 4096)
     bias = 2 * torch.randn(2, 1, 128, 4096, generator=gen, device=dev)
     cases.append(("long_k", 3 * q, k, v / 4, bias, False))
+    # the continuous engine (phase 10; K1 only): an admission prefill of 32
+    # prompts, 64 columns over the 112-wide paged view, causal from column
+    # 0 and left padding as one [32, 1, 64, 112] bias; and one decode step
+    # of 128 slots, each at its own column 64 + t
+    lens = torch.randint(16, 65, (128, 1), generator=gen, device=dev)
+    cols = torch.arange(112, device=dev)[None, :]
+    mask = ((cols >= 64 - lens[:32]) & (cols < 64)).long()
+    bias = attn.causal_bias(64, 112, 0, dev) + attn.padding_bias(mask)
+    cases.append(("engine_prefill", *qkv(32, 64, 112), bias, False))
+    t = torch.randint(0, 48, (128,), generator=gen, device=dev)
+    mask = ((cols >= 64 - lens) & (cols <= 64 + t[:, None])).long()
+    bias = attn.causal_bias(1, 112, 64 + t, dev) + attn.padding_bias(mask)
+    cases.append(("engine_decode", *qkv(128, 1, 112), bias, False))
     return cases
 
 
@@ -2548,6 +2591,551 @@ def phase_ilql(torch, fa):
     return ok, record
 
 
+# configs/grpo_sentiments.yml as written (phase 9) and configs/ppo_sentiments.yml
+# with train.rollout {engine: continuous} (phase 10), from one GPT-2-small
+# checkpoint in HF layout that the smoke writes; what both run differently
+# from their yml: (setting, the yml's value, the port's, why)
+GPT2_RUN_UPDATES = 64  # two phases of 128 // 16 = 8 minibatches x 4 epochs
+GPT2_RUN_DEVIATIONS = (
+    ("model.model_path", "lvwerra/gpt2-imdb", "GPT-2-small HF checkpoint, random weights",
+     "the checkpoint is not in the repo"),
+    ("model.tokenizer_path", "gpt2", "", "the tokenizer and the IMDB prompts are not in the "
+     "repo: phase 5's 128 token-id prompts (16-64 ids) and token-id reward"),
+    ("train.total_steps", 10000, GPT2_RUN_UPDATES, "two phases"),
+)
+# the cut seq2seq GRPO run of phase 9: configs/ppo_ul2.yml through the
+# Seq2SeqGRPOTrainer, one phase
+GRPO_S2S_GROUP = 4  # chunk_size 16 = 4 prompts x 4
+GRPO_S2S_UPDATES = 40  # one phase of 128 // 12 = 10 minibatches x 4 epochs
+GRPO_S2S_DEVIATIONS = (
+    ("train.trainer", "Seq2SeqPPOTrainer", "Seq2SeqGRPOTrainer", "GRPO on the seq2seq path"),
+    ("method", "PPOConfig", f"GRPOConfig, group_size {GRPO_S2S_GROUP}, vf_coef 0, "
+     "scale_reward null", "GRPO's method section"),
+    ("train.total_steps", 10000, GRPO_S2S_UPDATES, "one phase"),
+)
+
+
+def yml_config(name: str, checkpoint_dir: str, model_path: str, updates: int,
+               train=None, method=None):
+    """``configs/<name>`` as written, from the checkpoint at ``model_path``
+    without a tokenizer, cut to ``updates`` updates; ``train`` and
+    ``method`` update those sections."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", name)).to_dict()
+    cfg["model"].update(model_path=model_path, tokenizer_path="")
+    cfg["train"].update(total_steps=updates, checkpoint_dir=checkpoint_dir, **(train or {}))
+    cfg["method"].update(method or {})
+    return TRLConfig.from_dict(cfg)
+
+
+def write_gpt2_checkpoint(torch, path: str, seed: int = 7) -> dict:
+    """A GPT-2-small checkpoint in HF layout with random weights from
+    ``seed``; returns the port-named backbone state it holds."""
+    from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+
+    written = random_backbone(
+        torch, GPT2Model(GPT2Config.from_dict(GPT2_HF_CONFIG), device="cuda"), seed)
+    write_hf_checkpoint(path, GPT2_HF_CONFIG, gpt2_hf_layout(written))
+    return written
+
+
+def counted_path(torch, fa, fn, patches=()):
+    """Run ``fn()`` as one main path: the launch counters set to 0 just
+    before it and read just after, every call of the plain attention
+    counted, the peak memory read from a clean start, and ``patches``
+    ((owner, name, replacement)) in place for the run only. Returns
+    ``(fn's result, record)``."""
+    plain = [0]
+
+    def counting(f):
+        def fn_(*a, **kw):
+            plain[0] += 1
+            return f(*a, **kw)
+        return fn_
+
+    patches = list(patches) + [
+        (fa, "flash_attention_reference", counting(fa.flash_attention_reference)),
+        (fa, "flash_attention_backward_reference",
+         counting(fa.flash_attention_backward_reference))]
+    missing = object()  # a name the owner inherits: deleted again after the run
+    saved = [(owner, name, vars(owner).get(name, missing)) for owner, name, _ in patches]
+    for owner, name, value in patches:
+        setattr(owner, name, value)
+    mem_start = reset_peak(torch)
+    reset_forward_counters(fa)
+    reset_backward_counters(fa)
+    fa.FLASH_BWD_DQ_DBIAS_LAUNCHES = 0
+    t0 = time.perf_counter()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+    finally:
+        for owner, name, value in reversed(saved):
+            if value is missing:
+                delattr(owner, name)
+            else:
+                setattr(owner, name, value)
+    return out, {
+        "wall_s": time.perf_counter() - t0,
+        "launches": {"flash_fwd": fa.FLASH_FWD_LAUNCHES,
+                     "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
+                     "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES,
+                     "flash_bwd_dq_dbias": fa.FLASH_BWD_DQ_DBIAS_LAUNCHES},
+        "flash_fwd_variants": forward_variant_launches(fa),
+        "backward_variants": backward_variant_launches(fa),
+        "backward_copies": fa.FLASH_BWD_COPIES,
+        "plain_attention_calls": plain[0],
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "allocated_at_start_bytes": mem_start,
+    }
+
+
+def phase_rows(trainer) -> list:
+    """Per collect phase: collect and train seconds, rollout tokens/s,
+    updates/s."""
+    per_phase = trainer.step // len(trainer.phase_times)
+    return [dict(p, rollout_tokens_per_s=p["rollout_tokens"] / p["collect_s"],
+                 updates_per_s=per_phase / p["train_s"]) for p in trainer.phase_times]
+
+
+def restores(torch, trainer, fresh, saved_rng) -> bool:
+    """Whether ``fresh``, after ``load``, holds ``trainer``'s saved state
+    exactly: parameters, Adam moments, counters, KL state, generator."""
+    saved, loaded = trainer.opt.state_dict(), fresh.opt.state_dict()
+    return (
+        all(torch.equal(fresh.model.state_dict()[n], p)
+            for n, p in trainer.model.state_dict().items())
+        and all(torch.equal(loaded["adamw"]["state"][i][key], value)
+                for i, st in saved["adamw"]["state"].items() for key, value in st.items())
+        and (fresh.step, fresh.kl_coef, fresh.mean_kl, loaded["count"])
+        == (trainer.step, trainer.kl_coef, trainer.mean_kl, saved["count"])
+        and torch.equal(fresh.generator.get_state(), saved_rng[-1])
+    )
+
+
+def instrument(torch, cls, backbone: str, written: dict, watch):
+    """Patches (for ``counted_path``) that record a PPO-family trainer's
+    run: the update stats per phase, the evals, the generator as saved,
+    whether the loaded backbone (``model.<backbone>``) equals ``written``
+    before the first update, and each pushed rollout chunk; ``watch`` is
+    the dict they fill."""
+    from trlx_tpu_torch.pipeline.ppo_buffer import PPORolloutBuffer
+
+    watch.update(rows=[], evals=[], saved_rng=[], loaded=[], chunks=[], backbone=backbone,
+                 written=written)
+    orig = {n: getattr(cls, n) for n in ("learn", "_train_on", "evaluate", "save")}
+    push = PPORolloutBuffer.push
+
+    def learn(self):
+        watch["loaded"].append(state_equal(torch, getattr(self.model, backbone), written))
+        return orig["learn"](self)
+
+    def train_on(self, *a, **kw):
+        out = orig["_train_on"](self, *a, **kw)
+        watch["rows"].append(out[0])
+        return out
+
+    def evaluate(self):
+        out = orig["evaluate"](self)
+        watch["evals"].append(out)
+        return out
+
+    def save(self, directory=None):
+        watch["saved_rng"].append(self.generator.get_state())
+        return orig["save"](self, directory)
+
+    def record_push(self, batch):
+        watch["chunks"].append(batch)
+        return push(self, batch)
+
+    return [(cls, "learn", learn), (cls, "_train_on", train_on), (cls, "evaluate", evaluate),
+            (cls, "save", save), (PPORolloutBuffer, "push", record_push)]
+
+
+def run_gates(torch, trainer, watch, record) -> dict:
+    """What every trained path gates: the loaded bits, finite stats, moved
+    backbone tensors (against the written checkpoint), 0 ``fma`` launches,
+    input copies and plain calls."""
+    import numpy as np
+
+    finite = all(np.isfinite(v).all() for r in watch["rows"] for v in r.values()) and all(
+        math.isfinite(v) for e in watch["evals"] for v in e.values())
+    backbone = getattr(trainer.model, watch["backbone"]).state_dict()
+    changed = sum(not torch.equal(t.cpu(), watch["written"][n]) for n, t in backbone.items())
+    return {
+        "loaded_equals_written": watch["loaded"] == [True],
+        "finite": finite,
+        "params_changed": changed,
+        "no_fma_copies_or_plain": (
+            record["flash_fwd_variants"]["fma"] == 0 and record["flash_fwd_variants"]["copies"] == 0
+            and all(v["fma"] == 0 for v in record["backward_variants"].values())
+            and record["backward_copies"] == 0 and record["plain_attention_calls"] == 0),
+    }
+
+
+def group_gates(chunks, returns, G: int) -> dict:
+    """GRPO's stored rollouts, chunk by chunk: every group of ``G`` rows
+    holds one prompt; each row's advantage is one value over its response
+    (0 past it); every group whose KL-shaped returns have a population std
+    above 1e-2 has advantages of mean |.| < 1e-4 and population std within
+    1e-3 of 1."""
+    same_query = broadcast = True
+    checked = groups = 0
+    worst_mean = worst_std = 0.0
+    for batch, ret in zip(chunks, returns):
+        n = batch.query_tokens.shape[0] // G
+        q = batch.query_tokens.view(n, G, -1)
+        same_query &= bool((q == q[:, :1]).all())
+        mask = batch.response_mask.float()
+        adv = batch.rewards[:, 0]
+        broadcast &= bool((batch.rewards == adv[:, None] * mask).all())
+        adv, ret = adv.view(n, G).double(), ret.view(n, G).double()
+        sel = ret.std(1, correction=0) > 1e-2
+        groups += n
+        checked += int(sel.sum())
+        if sel.any():
+            worst_mean = max(worst_mean, adv[sel].mean(1).abs().max().item())
+            worst_std = max(worst_std, (adv[sel].std(1, correction=0) - 1).abs().max().item())
+    return {"groups": groups, "groups_checked": checked, "same_query": same_query,
+            "broadcast": broadcast, "max_abs_group_mean": worst_mean,
+            "max_abs_group_std_minus_1": worst_std,
+            "ok": same_query and broadcast and checked > 0 and worst_mean < 1e-4
+            and worst_std < 1e-3}
+
+
+def value_head_watch(cls, watch):
+    """A patch of ``cls.train_step`` counting the updates after which any
+    value-head gradient element is nonzero (GRPO trains no value head)."""
+    step = cls.train_step
+    watch["value_grad_nonzero"] = 0
+
+    def train_step(self, mb):
+        out = step(self, mb)
+        watch["value_grad_nonzero"] += any(
+            p.grad is not None and bool(p.grad.any())
+            for n, p in self.model.named_parameters() if n.startswith("v_head."))
+        return out
+
+    return [(cls, "train_step", train_step)]
+
+
+def value_head_moments_zero(trainer) -> bool:
+    return all(not trainer.opt.adamw.state[p]["exp_avg"].any()
+               for n, p in trainer.model.named_parameters()
+               if n.startswith("v_head.") and p in trainer.opt.adamw.state)
+
+
+def returns_watch(watch):
+    """A patch of ``PPOTrainer._shape_rewards`` recording each chunk's
+    KL-shaped returns (the sum of the shaped rewards, before GRPO whitens
+    them)."""
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    shape = PPOTrainer._shape_rewards
+    watch["returns"] = []
+
+    def shape_rewards(self, *a, **kw):
+        rewards, mean_kl = shape(self, *a, **kw)
+        watch["returns"].append(rewards.sum(1))
+        return rewards, mean_kl
+
+    return [(PPOTrainer, "_shape_rewards", shape_rewards)]
+
+
+def phase_grpo(torch, fa, ckpt: str, written: dict):
+    """Phase 9: GRPO on ``configs/grpo_sentiments.yml`` through
+    ``trlx_tpu_torch.train`` from the GPT-2-small checkpoint at ``ckpt``
+    (two phases, 64 updates), then the cut seq2seq GRPO run. Returns
+    ``(ok, {"causal": record, "seq2seq": record})``."""
+    import tempfile
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.trainer.grpo_trainer import GRPOTrainer
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    log("phase 9: GRPO on configs/grpo_sentiments.yml; deviations: " + json.dumps([
+        {"setting": k, "yml": y, "port": p, "why": why}
+        for k, y, p, why in GPT2_RUN_DEVIATIONS]))
+    watch = {"decode_forwards": 0}
+    apply = PPOTrainer._apply
+
+    def counted_apply(self, input_ids, *a, **kw):
+        watch["decode_forwards"] += input_ids.shape[1] <= 16  # the sampler's steps
+        return apply(self, input_ids, *a, **kw)
+
+    records, ok = {}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "grpo")
+
+        def config():
+            return yml_config("grpo_sentiments.yml", run_dir, ckpt, GPT2_RUN_UPDATES)
+
+        patches = (instrument(torch, GRPOTrainer, "transformer", written, watch)
+                   + value_head_watch(GRPOTrainer, watch) + returns_watch(watch)
+                   + [(PPOTrainer, "_apply", counted_apply)])
+        watch["decode_forwards"] = 0
+        trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
+            reward_fn=training_reward, prompts=training_prompts(), config=config()), patches)
+        G = trainer.group_size
+        fresh = GRPOTrainer(config())
+        fresh.load(run_dir)
+        restored = restores(torch, trainer, fresh, watch["saved_rng"])
+        del fresh
+    gates = run_gates(torch, trainer, watch, record)
+    groups = group_gates(watch["chunks"], watch["returns"], G)
+    tile = N_LAYER * (trainer.forwards - watch["decode_forwards"])
+    expected = {
+        "variants": {"tile": tile, "decode": N_LAYER * watch["decode_forwards"],
+                     "fma": 0, "copies": 0},
+        "backward": {k: {"tile": N_LAYER * GPT2_RUN_UPDATES, "fma": 0} for k in BWD_KERNELS},
+    }
+    record.update(updates=trainer.step, group_size=G, phases=phase_rows(trainer),
+                  evals=watch["evals"], forwards=trainer.forwards,
+                  decode_forwards=watch["decode_forwards"], groups=groups, gates=gates,
+                  value_grad_nonzero_updates=watch["value_grad_nonzero"],
+                  value_moments_zero=value_head_moments_zero(trainer), restored=restored,
+                  expected=expected)
+    causal_ok = (
+        trainer.step == GPT2_RUN_UPDATES and len(watch["rows"]) == 2 and G == 8
+        and all(v for k, v in gates.items() if k != "params_changed")
+        and gates["params_changed"] > 0 and groups["ok"]
+        and watch["value_grad_nonzero"] == 0 and record["value_moments_zero"] and restored
+        and record["flash_fwd_variants"] == expected["variants"]
+        and record["backward_variants"] == expected["backward"]
+    )
+    log("phase 9: grpo " + json.dumps(record))
+    log(f"phase 9: grpo {'ok' if causal_ok else 'FAIL'} (updates={trainer.step}, gates "
+        f"{gates}, groups {groups}, updates with a nonzero value-head gradient="
+        f"{watch['value_grad_nonzero']}, value-head Adam moments zero="
+        f"{record['value_moments_zero']}, load restores={restored}, K1 by variant "
+        f"{record['flash_fwd_variants']} vs {expected['variants']}, K2/K3 by variant "
+        f"{record['backward_variants']} vs {expected['backward']})")
+    records["causal"], ok = record, ok and causal_ok
+    del trainer
+    s2s_ok, records["seq2seq"] = run_grpo_seq2seq(torch, fa)
+    return ok and s2s_ok, records
+
+
+def run_grpo_seq2seq(torch, fa):
+    """Phase 9's cut seq2seq GRPO run: ``configs/ppo_ul2.yml`` through the
+    ``Seq2SeqGRPOTrainer`` (groups of 4, one phase of 40 updates) from a
+    UL2 checkpoint in HF layout written here. Gates: the loaded bits,
+    finite stats, moved parameters, the group and value-head gates of the
+    causal run, K2 = K3 = 24 x the updates, K2 with the bias gradient 16 x,
+    all ``tile``; no ``fma`` launch, input copy or plain call."""
+    import tempfile
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.trainer.grpo_trainer import Seq2SeqGRPOTrainer
+
+    log("phase 9: seq2seq GRPO on configs/ppo_ul2.yml; deviations: " + json.dumps([
+        {"setting": k, "yml": y, "port": p, "why": why}
+        for k, y, p, why in GRPO_S2S_DEVIATIONS]))
+    watch = {}
+    prompts, response_gt = ul2_prompts()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt, run_dir = os.path.join(tmp, "ul2"), os.path.join(tmp, "run")
+        written = write_ul2_checkpoint(torch, ckpt)
+        config = yml_config(
+            "ppo_ul2.yml", run_dir, ckpt, GRPO_S2S_UPDATES,
+            train={"trainer": "Seq2SeqGRPOTrainer"},
+            method={"name": "GRPOConfig", "group_size": GRPO_S2S_GROUP, "vf_coef": 0.0,
+                    "scale_reward": None})
+        patches = (instrument(torch, Seq2SeqGRPOTrainer, "t5", written, watch)
+                   + value_head_watch(Seq2SeqGRPOTrainer, watch) + returns_watch(watch))
+        trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
+            reward_fn=ul2_reward, prompts=prompts, response_gt=response_gt, config=config),
+            patches)
+    cfg = trainer.model_config
+    n_attn = cfg.num_layers + 2 * cfg.num_decoder_layers
+    updates = trainer.step
+    gates = run_gates(torch, trainer, watch, record)
+    groups = group_gates(watch["chunks"], watch["returns"], trainer.group_size)
+    expected = {"flash_bwd_dq": n_attn * updates, "flash_bwd_dkv": n_attn * updates,
+                "flash_bwd_dq_dbias": (cfg.num_layers + cfg.num_decoder_layers) * updates}
+    got = {k: record["launches"][k] for k in expected}
+    record.update(updates=updates, phases=phase_rows(trainer), evals=watch["evals"],
+                  groups=groups, gates=gates,
+                  value_grad_nonzero_updates=watch["value_grad_nonzero"],
+                  value_moments_zero=value_head_moments_zero(trainer), expected=expected)
+    ok = (
+        updates == GRPO_S2S_UPDATES and trainer.group_size == GRPO_S2S_GROUP
+        and all(v for k, v in gates.items() if k != "params_changed")
+        and gates["params_changed"] > 0 and groups["ok"] and watch["value_grad_nonzero"] == 0
+        and record["value_moments_zero"] and got == expected
+        and all(v["tile"] == n_attn * updates for v in record["backward_variants"].values())
+    )
+    log("phase 9: seq2seq grpo " + json.dumps(record))
+    log(f"phase 9: seq2seq grpo {'ok' if ok else 'FAIL'} (updates={updates}, gates {gates}, "
+        f"groups {groups}, updates with a nonzero value-head gradient="
+        f"{watch['value_grad_nonzero']}, K2/K3 launches {got} vs {expected})")
+    del trainer
+    return ok, record
+
+
+def phase_continuous(torch, fa, ckpt: str, written: dict):
+    """Phase 10: PPO on ``configs/ppo_sentiments.yml`` with ``train.rollout:
+    {engine: continuous}`` (128 slots, admit and harvest 32, block 16,
+    poll 1) through ``trlx_tpu_torch.train`` from the GPT-2-small
+    checkpoint at ``ckpt``, two phases (64 updates). Gates per collect
+    phase: the engine admitted, completed and recycled 128 rows, none
+    pending, 0 < slot_util <= 1, the buffer holds 128 rows with each draw
+    index once, K1 ``tile`` = 12 x (admission prefills + reference
+    scorings) and ``decode`` = 12 x decode steps during the collection;
+    over the run: finite stats, moved parameters, K1 by variant as phase 5
+    counts it, K2 = K3 = 12 x 64 ``tile``, no ``fma`` launch, input copy or
+    plain call, and ``load`` exact. Then the fixed sampler under per-row
+    RNG and the engine decode the same 128 prompts at one phase seed, and
+    the share of rows with the same tokens is printed (bf16 and another
+    batch shape can flip a near-tie: a report, not a gate). Prints the
+    engine's host time per decode step and the per-row noise's share."""
+    import tempfile
+
+    import numpy as np
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.inference import engine as engine_mod
+    from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    log("phase 10: continuous-engine PPO on configs/ppo_sentiments.yml, train.rollout "
+        "{engine: continuous}; deviations: " + json.dumps([
+            {"setting": k, "yml": y, "port": p, "why": why}
+            for k, y, p, why in GPT2_RUN_DEVIATIONS]))
+    Engine = engine_mod.ContinuousBatchingEngine
+    watch = {"decode_forwards": 0, "collects": [], "decode_host_s": 0.0, "noise_host_s": 0.0,
+             "scorings": 0}
+    orig = {"apply": PPOTrainer._apply, "score_ref": PPOTrainer.score_ref,
+            "make_experience": PPOOrchestrator.make_experience, "drive": Engine.drive,
+            "decode_step": Engine.decode_step, "row_noise": engine_mod.row_noise}
+
+    def counted_apply(self, input_ids, *a, **kw):
+        watch["decode_forwards"] += input_ids.shape[1] <= 16  # the engine's decode steps
+        return orig["apply"](self, input_ids, *a, **kw)
+
+    def score_ref(self, *a, **kw):
+        watch["scorings"] += 1
+        return orig["score_ref"](self, *a, **kw)
+
+    def drive(self, target):
+        for group in orig["drive"](self, target):
+            watch["collects"][-1]["harvested"].extend(group["rows"])
+            yield group
+
+    def decode_step(self):
+        t0 = time.perf_counter()
+        out = orig["decode_step"](self)
+        watch["decode_host_s"] += time.perf_counter() - t0
+        return out
+
+    def row_noise(*a, **kw):
+        t0 = time.perf_counter()
+        out = orig["row_noise"](*a, **kw)
+        watch["noise_host_s"] += time.perf_counter() - t0
+        return out
+
+    def make_experience(self, *a, **kw):
+        entry = {"harvested": []}
+        watch["collects"].append(entry)
+        before = forward_variant_launches(fa)
+        scorings0 = watch["scorings"]
+        stats = orig["make_experience"](self, *a, **kw)
+        after = forward_variant_launches(fa)
+        engine = self.trainer.rollout_engine_obj
+        entry.update(
+            stats={k: v for k, v in stats.items() if k.startswith("engine/")},
+            pending=engine.pending, buffer_rows=len(self.trainer.buffer),
+            launches={k: after[k] - before[k] for k in after},
+            expected={"tile": N_LAYER * (engine.stats.prefills + watch["scorings"] - scorings0),
+                      "decode": N_LAYER * engine.stats.decode_steps, "fma": 0, "copies": 0})
+        return stats
+
+    with tempfile.TemporaryDirectory() as tmp:
+        run_dir = os.path.join(tmp, "continuous")
+
+        def config():
+            return yml_config("ppo_sentiments.yml", run_dir, ckpt, GPT2_RUN_UPDATES,
+                              train={"rollout": {"engine": "continuous"}})
+
+        patches = instrument(torch, PPOTrainer, "transformer", written, watch) + [
+            (PPOTrainer, "_apply", counted_apply), (PPOTrainer, "score_ref", score_ref),
+            (PPOOrchestrator, "make_experience", make_experience), (Engine, "drive", drive),
+            (Engine, "decode_step", decode_step), (engine_mod, "row_noise", row_noise)]
+        trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
+            reward_fn=training_reward, prompts=training_prompts(), config=config()), patches)
+        fresh = PPOTrainer(config())
+        fresh.load(run_dir)
+        restored = restores(torch, trainer, fresh, watch["saved_rng"])
+        del fresh
+    engine = trainer.rollout_engine_obj
+    gates = run_gates(torch, trainer, watch, record)
+    collects = []
+    for c in watch["collects"]:
+        st = c["stats"]
+        c["ok"] = (
+            st["engine/admitted"] == st["engine/completed"] == st["engine/slot_recycles"] == 128
+            and c["pending"] == 0 and 0 < st["engine/slot_util"] <= 1
+            and c["buffer_rows"] == 128 and sorted(c["harvested"]) == list(range(128))
+            and c["launches"] == c["expected"])
+        collects.append(dict(c, harvested_in_draw_order=c["harvested"] == sorted(c["harvested"]),
+                             harvested=len(c["harvested"])))
+    steps = sum(c["stats"]["engine/decode_steps"] for c in watch["collects"])
+    expected = {
+        "variants": {"tile": N_LAYER * (trainer.forwards - watch["decode_forwards"]),
+                     "decode": N_LAYER * watch["decode_forwards"], "fma": 0, "copies": 0},
+        "backward": {k: {"tile": N_LAYER * GPT2_RUN_UPDATES, "fma": 0} for k in BWD_KERNELS},
+    }
+    record.update(
+        updates=trainer.step, phases=phase_rows(trainer), evals=watch["evals"],
+        collects=collects, gates=gates, restored=restored, forwards=trainer.forwards,
+        decode_forwards=watch["decode_forwards"], expected=expected,
+        engine={"num_slots": engine.num_slots, "admit_width": engine.admit_width,
+                "harvest_width": engine.harvest_width, "block_size": engine.block_size,
+                "poll_interval": engine.done_poll_interval},
+        decode_steps=steps,
+        host_ms_per_decode_step=1e3 * watch["decode_host_s"] / max(steps, 1),
+        row_noise_host_ms_per_step=1e3 * watch["noise_host_s"] / max(steps, 1))
+    ok = (
+        trainer.step == GPT2_RUN_UPDATES and len(watch["rows"]) == 2 and len(collects) == 2
+        and all(c["ok"] for c in collects)
+        and all(v for k, v in gates.items() if k != "params_changed")
+        and gates["params_changed"] > 0 and restored
+        and (engine.num_slots, engine.admit_width, engine.harvest_width) == (128, 32, 32)
+        and record["flash_fwd_variants"] == expected["variants"]
+        and record["backward_variants"] == expected["backward"]
+    )
+    # the two engines on the same prompts at one phase seed (not counted:
+    # the main path's counts were read above)
+    pipe = PromptPipeline(training_prompts(), trainer.query_length)
+    ids, mask = pipe.input_ids[:128], pipe.attention_mask[:128]
+    seed = 20261017
+    engine.start_phase(seed)
+    engine.submit(ids, mask)
+    by_row = {}
+    for group in engine.drive(128):
+        for j, r in enumerate(group["rows"]):
+            by_row[r] = group["tokens"][j]
+    fixed = trainer._sampler(torch.from_numpy(ids).cuda(), torch.from_numpy(mask).cuda(),
+                             rows=list(range(128)), phase_seed=seed)
+    fixed_tokens = fixed.tokens.cpu().numpy()
+    same = [bool(np.array_equal(by_row[r], fixed_tokens[r])) for r in range(128)]
+    record["fixed_vs_engine_rows_identical"] = sum(same) / 128
+    log("phase 10: continuous " + json.dumps(record))
+    log(f"phase 10: continuous {'ok' if ok else 'FAIL'} (updates={trainer.step}, collects "
+        f"{[{k: c[k] for k in ('ok', 'stats', 'launches', 'expected')} for c in collects]}, "
+        f"gates {gates}, load restores={restored}, K1 by variant "
+        f"{record['flash_fwd_variants']} vs {expected['variants']}, K2/K3 by variant "
+        f"{record['backward_variants']} vs {expected['backward']}; host ms per decode step "
+        f"{record['host_ms_per_decode_step']:.3f}, of it the per-row noise "
+        f"{record['row_noise_host_ms_per_step']:.3f}; fixed sampler (per-row RNG) vs engine, "
+        f"rows with identical tokens: {record['fixed_vs_engine_rows_identical']:.4f} (report)")
+    del trainer
+    return ok, record
+
+
 def device_summary(prof, wall: float) -> dict:
     """Summarise a torch.profiler run's device timeline: busy share of the
     wall, and device time by kernel."""
@@ -2595,10 +3183,12 @@ def profile_paths(torch, path: str) -> None:
     again, run one PPO phase (32 updates) of the training geometry, a cut
     seq2seq run (two 16-prompt chunks, 8 updates, one-chunk evals: the
     full phase's trace would hold some 10^6 events), one PPO phase (32
-    updates) of phase 7's workload at each freezing definition, and one
-    epoch (16 updates, evals at 0 and 16, the checkpoint at the end) of
-    phase 8's ILQL run (random weights: loading is not profiled); write
-    each run's device summary as JSON at ``path``."""
+    updates) of phase 7's workload at each freezing definition, one epoch
+    (16 updates, evals at 0 and 16, the checkpoint at the end) of phase
+    8's ILQL run (random weights: loading is not profiled), and one phase
+    (32 updates, the checkpoint load included) each of phase 9's GRPO run
+    and phase 10's continuous-engine run; write each run's device summary
+    as JSON at ``path``."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -2661,6 +3251,22 @@ def profile_paths(torch, path: str) -> None:
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
     summary["ilql"] = device_summary(prof, wall)
+    prompts = training_prompts()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "gpt2")
+        write_gpt2_checkpoint(torch, ckpt)
+        for name, cfg_name, train in (
+                ("grpo", "grpo_sentiments.yml", {}),
+                ("continuous_engine", "ppo_sentiments.yml",
+                 {"rollout": {"engine": "continuous"}})):
+            config = yml_config(cfg_name, os.path.join(tmp, name), ckpt, 32, train=train)
+            torch.cuda.synchronize()
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                trlx_tpu_torch.train(reward_fn=training_reward, prompts=prompts, config=config)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            summary[name] = device_summary(prof, wall)
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as fh:
         json.dump(summary, fh, indent=1)
@@ -2718,6 +3324,18 @@ def main() -> int:
     seq2seq_ok, seq2seq = phase_t5_training(torch, fa)
     bench_ok, bench = phase_bench_workload(torch, fa)
     ilql_ok, ilql = phase_ilql(torch, fa)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # one GPT-2-small checkpoint for phases 9 and 10
+        gpt2_ckpt = os.path.join(tmp, "gpt2")
+        gpt2_written = write_gpt2_checkpoint(torch, gpt2_ckpt)
+        grpo_ok, grpo = phase_grpo(torch, fa, gpt2_ckpt, gpt2_written)
+        continuous_ok, continuous = phase_continuous(torch, fa, gpt2_ckpt, gpt2_written)
+        del gpt2_written
+    # the paths of phases 9 and 10, each counted on its own
+    new_paths = {"grpo": grpo["causal"], "grpo_seq2seq": grpo["seq2seq"],
+                 "continuous_engine": continuous}
     if args.profile:
         profile_paths(torch, args.profile)
 
@@ -2737,13 +3355,15 @@ def main() -> int:
         "launches": (serving["flash_fwd_launches"] + training["launches"]["flash_fwd"]
                      + seq2seq["launches"]["flash_fwd"]
                      + sum(r["launches"]["flash_fwd"] for r in bench.values())
-                     + ilql["launches"]["flash_fwd"]),
+                     + ilql["launches"]["flash_fwd"]
+                     + sum(r["launches"]["flash_fwd"] for r in new_paths.values())),
         "launches_by_path": {"serving": serving["flash_fwd_launches"],
                              "training": training["launches"]["flash_fwd"],
                              "seq2seq_training": seq2seq["launches"]["flash_fwd"],
                              **{"bench_" + n: r["launches"]["flash_fwd"]
                                 for n, r in bench.items()},
-                             "ilql": ilql["launches"]["flash_fwd"]},
+                             "ilql": ilql["launches"]["flash_fwd"],
+                             **{n: r["launches"]["flash_fwd"] for n, r in new_paths.items()}},
         "max_abs_err": max(c["max_abs_err_o"] for c in fwd_checks),
         "ms": decode["ms"],
         "plain_ms": decode["plain_ms"],
@@ -2763,7 +3383,8 @@ def main() -> int:
                                 "seq2seq_training": seq2seq["flash_fwd_variants"],
                                 **{"bench_" + n: r["flash_fwd_variants"]
                                    for n, r in bench.items()},
-                                "ilql": ilql["flash_fwd_variants"]},
+                                "ilql": ilql["flash_fwd_variants"],
+                                **{n: r["flash_fwd_variants"] for n, r in new_paths.items()}},
         "tile_tensor_core_instructions": build["flash_fwd_tile_kernel"]["tensor_core_instructions"],
         # None, never an unmeasured 0, when a K1 kernel is missing from the report
         "k1_spill_bytes": None if None in k1_spills else sum(k1_spills),
@@ -2780,12 +3401,14 @@ def main() -> int:
             # the training paths; each path's count was read on its own
             "launches": (training["launches"][name] + seq2seq["launches"][name]
                          + sum(r["launches"][name] for r in bench.values())
-                         + ilql["launches"][name]),
+                         + ilql["launches"][name]
+                         + sum(r["launches"][name] for r in new_paths.values())),
             "launches_by_path": {"training": training["launches"][name],
                                  "seq2seq_training": seq2seq["launches"][name],
                                  **{"bench_" + n: r["launches"][name]
                                     for n, r in bench.items()},
-                                 "ilql": ilql["launches"][name]},
+                                 "ilql": ilql["launches"][name],
+                                 **{n: r["launches"][name] for n, r in new_paths.items()}},
             "max_abs_err": max(c[f"max_abs_err_{o}"] for c in bwd_checks for o in outputs),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                    "variant", "wrapper_ms")},
@@ -2799,7 +3422,9 @@ def main() -> int:
                                     "seq2seq_training": seq2seq["backward_variants"][name],
                                     **{"bench_" + n: r["backward_variants"][name]
                                        for n, r in bench.items()},
-                                    "ilql": ilql["backward_variants"][name]},
+                                    "ilql": ilql["backward_variants"][name],
+                                    **{n: r["backward_variants"][name]
+                                       for n, r in new_paths.items()}},
             **{k: build[f"{name}_tile_kernel"][k] for k in (
                 "spill_bytes", "registers", "tensor_core_instructions")},
         })
@@ -2811,7 +3436,10 @@ def main() -> int:
         "route": "cuda",
         "source": SOURCES["flash_bwd_dq"],
         "replaces": REPLACES["flash_bwd_dq"],
-        "launches": seq2seq["launches"]["flash_bwd_dq_dbias"],
+        "launches": (seq2seq["launches"]["flash_bwd_dq_dbias"]
+                     + grpo["seq2seq"]["launches"]["flash_bwd_dq_dbias"]),
+        "launches_by_path": {"seq2seq_training": seq2seq["launches"]["flash_bwd_dq_dbias"],
+                             "grpo_seq2seq": grpo["seq2seq"]["launches"]["flash_bwd_dq_dbias"]},
         "max_abs_err": max(c["max_abs_err_dbias"] for c in bwd_checks if "max_abs_err_dbias" in c),
         **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                "variant")},
@@ -2827,7 +3455,7 @@ def main() -> int:
     phases = (("build", build_ok), ("kernel", kernel_ok), ("model", model_ok),
               ("serving", serving_ok), ("training", training_ok),
               ("seq2seq_training", seq2seq_ok), ("bench_workload", bench_ok),
-              ("ilql", ilql_ok))
+              ("ilql", ilql_ok), ("grpo", grpo_ok), ("continuous_engine", continuous_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

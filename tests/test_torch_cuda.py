@@ -22,6 +22,13 @@ K2 with the bias gradient (T5's learned relative position bias) matches the
 plain backward's dbias at the T5 update's three attention shapes in both
 dtypes, counts its own launches, is refused under the causal flag, and a
 T5 update step runs every self-attention backward through it.
+At the continuous engine's shapes (``configs/ppo_sentiments.yml`` with
+``rollout.engine: continuous``), K1 at the admission prefill (A = 32, Q =
+64 over the 112-wide view, a [32, 1, 64, 112] bias) and the slot decode
+(128 slots, each at its own column); one GRPO update runs every attention
+through the kernels with the value head's gradient exactly zero, and one
+continuous-engine phase launches K1 ``tile`` per admission prefill and
+reference scoring and ``decode`` per decode step.
 """
 
 import pytest
@@ -739,3 +746,128 @@ def test_t5_update_step_runs_every_attention_backward_through_the_kernels(dev):
         "FLASH_BWD_DQ_TILE_LAUNCHES": 6, "FLASH_BWD_DKV_TILE_LAUNCHES": 6}
     assert all(torch.isfinite(v).all() for v in stats.values())
     assert not torch.equal(table, trainer.model.t5.enc_rel_bias.relative_attention_bias.weight)
+
+
+# the continuous engine's K1 shapes at configs/ppo_sentiments.yml (seq_length
+# 64, 48 new tokens: the paged view is 112 wide), H cut to 2: an admission
+# prefill of 32 left-padded prompts (causal from column 0 plus padding, the
+# response columns masked) and one decode step of 128 slots, each at its
+# own column 64 + t
+ENGINE_CASES = {"admission_prefill": (32, 64), "slot_decode": (128, 1)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", list(ENGINE_CASES))
+def test_engine_shapes_match_plain(dev, dtype, case):
+    B, Q = ENGINE_CASES[case]
+    q, k, v = _qkv(dev, B, Q, 112, dtype=dtype, seed=3)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    lens = torch.randint(16, 65, (B, 1), generator=gen, device=dev)
+    cols = torch.arange(112, device=dev)[None]
+    if Q > 1:
+        offset, last = 0, torch.full_like(lens, 63)
+    else:
+        t = torch.randint(0, 48, (B,), generator=gen, device=dev)
+        offset, last = 64 + t, (64 + t)[:, None]
+    valid = (cols >= 64 - lens) & (cols <= last)
+    bias = attn.causal_bias(Q, 112, offset, dev) + attn.padding_bias(valid.long())
+    assert bias.shape == (B, 1, Q, 112)
+    before = _fwd_counters()
+    o, lse = fa.flash_attention(q, k, v, bias, False, True)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, bias, False, True)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = TOL[dtype]
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+    assert (lse - lse_ref).abs().max().item() <= tol_lse
+    variant = "FMA" if dtype == torch.float32 else ("TILE" if Q > 16 else "DECODE")
+    assert _moved(before) == {"FLASH_FWD_LAUNCHES": 1, f"FLASH_FWD_{variant}_LAUNCHES": 1}
+
+
+def _small_engine_config(tmp_path, **method):
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    return TRLConfig.from_dict({
+        "model": {"model_type": "gpt2", "model_arch": {
+            "vocab_size": 64, "n_positions": 64, "n_embd": 128, "n_layer": 12, "n_head": 2}},
+        # 20 query columns: the prefills, scorings and updates (Q > 16) take
+        # K1's tile variant, the decode steps its decode variant
+        "train": {"seq_length": 20, "batch_size": 8, "dtype": "bfloat16", "seed": 0,
+                  "checkpoint_dir": str(tmp_path),
+                  "rollout": {"engine": "continuous", "admit_width": 4, "harvest_width": 4,
+                              "block_size": 4}},
+        "method": {"name": "PPOConfig", "num_rollouts": 8, "chunk_size": 8, **method,
+                   "gen_kwargs": {"max_new_tokens": 6, "do_sample": True,
+                                  "eos_token_id": 62, "pad_token_id": 63}},
+    })
+
+
+def _prompts(n=8):
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [[int(t) for t in rng.integers(0, 60, int(rng.integers(2, 11)))] for _ in range(n)]
+
+
+def test_grpo_update_runs_every_attention_through_the_kernels(dev, tmp_path):
+    """One grouped collection and one GRPO update of a 12-layer model on
+    the card: groups of 4 share a prompt, the stored advantages are
+    whitened per group, the update launches K1 ``tile``, K2 and K3 once
+    per layer, and the value head's gradient is exactly zero."""
+    from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.grpo_trainer import GRPOTrainer
+
+    config = _small_engine_config(tmp_path, name="GRPOConfig", group_size=4)
+    config.train.rollout = {}
+    trainer = GRPOTrainer(config)
+    orch = PPOOrchestrator(trainer, PromptPipeline(_prompts(), 20),
+                           reward_fn=lambda samples, **_: [len(set(s.split())) / 6.0
+                                                           for s in samples],
+                           chunk_size=8)
+    orch.make_experience(8)
+    buf = trainer.buffer.full
+    q = buf.query_tokens.view(2, 4, -1)
+    assert (q == q[:, :1]).all()
+    adv = buf.rewards[:, 0].view(2, 4)
+    assert adv.mean(1).abs().max().item() < 1e-4
+    counters = ("FLASH_FWD_TILE_LAUNCHES", "FLASH_FWD_DECODE_LAUNCHES", "FLASH_FWD_FMA_LAUNCHES",
+                "FLASH_BWD_DQ_TILE_LAUNCHES", "FLASH_BWD_DKV_TILE_LAUNCHES")
+    start = {c: getattr(fa, c) for c in counters}
+    stats = trainer.train_step(trainer.buffer.gather(torch.arange(8).numpy()))
+    torch.cuda.synchronize()
+    assert {c: getattr(fa, c) - n for c, n in start.items()} == {
+        "FLASH_FWD_TILE_LAUNCHES": 12, "FLASH_FWD_DECODE_LAUNCHES": 0,
+        "FLASH_FWD_FMA_LAUNCHES": 0, "FLASH_BWD_DQ_TILE_LAUNCHES": 12,
+        "FLASH_BWD_DKV_TILE_LAUNCHES": 12}
+    assert all(torch.isfinite(v).all() for v in stats.values())
+    heads = [p for n, p in trainer.model.named_parameters() if n.startswith("v_head.")]
+    assert heads and all(not p.grad.any() for p in heads)
+
+
+def test_continuous_engine_phase_runs_every_attention_through_the_kernels(dev, tmp_path):
+    """One continuous-engine collection of a 12-layer model on the card
+    (8 slots, admit and harvest 4): every row harvested once, K1 ``tile``
+    12 x (admission prefills + reference scorings), ``decode`` 12 x the
+    decode steps, no ``fma``; rewards and stats finite."""
+    from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    trainer = PPOTrainer(_small_engine_config(tmp_path))
+    orch = PPOOrchestrator(trainer, PromptPipeline(_prompts(), 20),
+                           reward_fn=lambda samples, **_: [len(s) / 20.0 for s in samples],
+                           chunk_size=8)
+    counters = ("FLASH_FWD_TILE_LAUNCHES", "FLASH_FWD_DECODE_LAUNCHES", "FLASH_FWD_FMA_LAUNCHES")
+    start = {c: getattr(fa, c) for c in counters}
+    stats = orch.make_experience(8)
+    torch.cuda.synchronize()
+    engine = trainer.rollout_engine_obj
+    st = engine.stats
+    assert st.admitted == st.completed == st.recycles == 8 and engine.pending == 0
+    scorings = 8 // engine.harvest_width
+    assert {c: getattr(fa, c) - n for c, n in start.items()} == {
+        "FLASH_FWD_TILE_LAUNCHES": 12 * (st.prefills + scorings),
+        "FLASH_FWD_DECODE_LAUNCHES": 12 * st.decode_steps, "FLASH_FWD_FMA_LAUNCHES": 0}
+    assert len(trainer.buffer) == 8 and torch.isfinite(trainer.buffer.full.rewards).all()
+    assert stats["engine/completed"] == 8.0

@@ -198,10 +198,10 @@ def test_unported_arguments_raise():
         tinit_cache(TGPT2Config(**dict(ARCH, kv_cache_dtype="int8")), 1, 8)
 
 
-# the methods the port has: PPO and ILQL (GRPO is ROADMAP item 12)
+# the methods the port has: PPO, GRPO and ILQL
 PORTED_CONFIGS = sorted(
     p for p in glob.glob(os.path.join(ROOT, "configs", "*.yml"))
-    if "PPOConfig" in open(p).read() or "ILQLConfig" in open(p).read()
+    if any(m in open(p).read() for m in ("PPOConfig", "GRPOConfig", "ILQLConfig"))
 )
 
 

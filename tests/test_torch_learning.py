@@ -7,6 +7,8 @@ training running but not learning.
   is the share of response tokens equal to a target; a random policy
   emits it about 1/14 of the time, and mean reward must rise by the same
   0.15 margin within 96 updates.
+- GRPO on the same task (``tests/test_grpo.py``'s GRPO learning test:
+  groups of 4, no value function, 48 updates): the same 0.15 margin.
 - The pretrained stand-in of ``examples/pretrained_standin.py``: a tiny
   GPT-2 pretrained offline on a two-topic corpus, saved in HF format by
   ``transformers`` and loaded through ``model.model_path``; PPO steers it
@@ -83,6 +85,26 @@ def test_reward_improves_on_the_target_token_task(tmp_path):
     assert late > early + 0.15, (early, late, means)
     # the last rollouts still have their min_new_tokens live tokens
     assert int(trainer.buffer.full.response_mask.sum(1).min()) >= 6
+
+
+def test_grpo_reward_improves_on_the_target_token_task(tmp_path):
+    import trlx_tpu_torch
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.trainer.grpo_trainer import GRPOTrainer
+
+    cfg = _target_config(tmp_path)
+    cfg["train"].update(total_steps=48, trainer="GRPOTrainer")
+    cfg["method"].update(name="GRPOConfig", group_size=4, chunk_size=16)
+    means = []
+    trainer = trlx_tpu_torch.train(
+        reward_fn=_recording(_target_reward, means), prompts=[[1, 2, 3, 4]] * 64,
+        config=TRLConfig.from_dict(cfg), device="cpu",
+    )
+    assert type(trainer) is GRPOTrainer and trainer.step == 48
+    early, late = np.mean(means[:2]), np.max(means[-4:])
+    assert late > early + 0.15, (early, late, means)
+    heads = [p for n, p in trainer.model.named_parameters() if n.startswith("v_head.")]
+    assert all(not p.grad.any() for p in heads)  # no value-function training
 
 
 def _topic_fraction(out, topic):

@@ -1,9 +1,10 @@
 """Method-config registry: string name -> RL-method config class
 (counterpart of :mod:`trlx_tpu.data.method_configs`).
 
-The JAX package registers ``PPOConfig`` and ``ILQLConfig`` from its math
-modules; the port keeps the pure-data dataclasses here, so parsing a
-config imports no model or math code.
+The JAX package registers ``PPOConfig``, ``GRPOConfig`` and
+``ILQLConfig`` from its math and trainer modules; the port keeps the
+pure-data dataclasses here, so parsing a config imports no model or math
+code.
 """
 
 from __future__ import annotations
@@ -93,6 +94,18 @@ class PPOConfig(MethodConfig):
             max_new_tokens=48, top_k=0, top_p=1.0, do_sample=True
         )
     )
+
+
+@register_method
+@dataclass
+class GRPOConfig(PPOConfig):
+    """GRPO hyperparameters (``trlx_tpu.trainer.grpo_trainer.GRPOConfig``):
+    PPO's, with rollouts sampled in groups of ``group_size`` per prompt and
+    no value loss (GAE's ``gamma``/``lam`` are unused)."""
+
+    name: str = "GRPOConfig"
+    group_size: int = 8
+    vf_coef: float = 0.0
 
 
 #: ILQL's eval-decode defaults where a config omits ``gen_kwargs``

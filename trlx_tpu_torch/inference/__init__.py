@@ -88,7 +88,9 @@ class RolloutEngineConfig:
         of the cache capacity (Q + max_new_tokens).
     :param poll_interval: fetch the engine's [B] ``done`` flags every k-th
         decode step (the flags are sticky, so the amortized poll is exact).
-    :param per_row_rng: fixed-sampler option, parsed for schema parity.
+    :param per_row_rng: per-row sampling noise in the FIXED sampler too
+        (``None`` = only under ``engine: continuous``, which always samples
+        per row): the two engines then draw one row's noise alike.
     :param prefill_chunk: chunked prefill width; ``> 0`` is refused here.
     :param prefill_chunks_per_pump: chunk budget per pump (needs
         ``prefill_chunk``).
@@ -181,6 +183,13 @@ class RolloutEngineConfig:
         if "spec_decode" in d and isinstance(d["spec_decode"], dict):
             d["spec_decode"] = SpecDecodeConfig.from_dict(d["spec_decode"])
         return cls(**d)
+
+    @property
+    def rows_per_row_rng(self) -> bool:
+        """Whether the fixed sampler samples per row under this config."""
+        if self.per_row_rng is not None:
+            return bool(self.per_row_rng)
+        return self.engine == "continuous"
 
 
 __all__ = [

@@ -141,6 +141,10 @@ class ContinuousBatchingEngine:
         #: with the step's live emissions (the streaming tap; each step it
         #: is set costs a token fetch)
         self.token_sink: Optional[Callable[[Dict[int, int]], None]] = None
+        #: ``(rows, steps) -> [B, V]`` Gumbel noise used in place of
+        #: :func:`row_noise` when set (the tests hand it the JAX package's
+        #: draws); ``rows[b]`` is slot b's draw index, None when idle
+        self.noise_fn: Optional[Callable[[List[Optional[int]], List[int]], torch.Tensor]] = None
         self.done_poll_interval = int(done_poll_interval)
         if self.done_poll_interval < 1:
             raise ValueError(
@@ -280,10 +284,13 @@ class ContinuousBatchingEngine:
         noise = None
         if cfg.do_sample:
             rows = [self._busy_rows.get(s) for s in range(B)]
-            noise = row_noise(
-                self._phase_seed, rows, self._t_host, self.vocab_size, dev,
-                self._gen,
-            )
+            if self.noise_fn is not None:
+                noise = self.noise_fn(rows, self._t_host.tolist()).to(dev)
+            else:
+                noise = row_noise(
+                    self._phase_seed, rows, self._t_host, self.vocab_size, dev,
+                    self._gen,
+                )
         token, live, logprob, value_out, finished = choose_tokens(
             cfg, st.logits_last, st.t, st.finished, st.value_last,
             st.n_real, min_new=self._min_new(st.n_real), noise=noise,

@@ -1,6 +1,6 @@
-"""PPO math: GAE, the clipped-surrogate loss, policy entropy and the KL
-controllers (counterpart of :mod:`trlx_tpu.ops.ppo_math`; the config is
-:class:`trlx_tpu_torch.data.method_configs.PPOConfig`).
+"""PPO math: GAE, the clipped-surrogate loss, policy entropy, group
+whitening and the KL controllers (counterpart of :mod:`trlx_tpu.ops.ppo_math`;
+the config is :class:`trlx_tpu_torch.data.method_configs.PPOConfig`).
 
 Means are masked by the real response mask. GAE's reversed scan over time
 is a loop over the R response positions on [B] tensors.
@@ -21,6 +21,22 @@ def policy_entropy(logits: torch.Tensor) -> torch.Tensor:
     logits = logits.float()
     p = torch.softmax(logits, dim=-1)
     return torch.logsumexp(logits, dim=-1) - (p * logits).sum(-1)
+
+
+def group_whiten(values, group_size: int):
+    """Normalise within contiguous groups of ``group_size``: (v - group
+    mean) / (group std + 1e-6), the std over N (``correction=0``, as
+    numpy's). Takes a host numpy array (the orchestrator's ``scale_reward:
+    "group"``) or a tensor (GRPO's advantages); returns the same kind,
+    flat."""
+    grouped = values.reshape(-1, group_size)
+    if isinstance(grouped, torch.Tensor):
+        mean = grouped.mean(1, keepdim=True)
+        std = grouped.std(1, keepdim=True, correction=0)
+    else:
+        mean = grouped.mean(axis=1, keepdims=True)
+        std = grouped.std(axis=1, keepdims=True)
+    return ((grouped - mean) / (std + 1e-6)).reshape(-1)
 
 
 @torch.no_grad()

@@ -10,8 +10,10 @@ the noise from per-row ``torch.Generator``\\ s seeded from (phase seed, row
 draw index, step) — each row's tokens depend on its own seed and logits,
 never on admission order or batch composition (:func:`row_noise`). The
 fixed-batch sampler draws one [B, V] block of noise per decode step from
-the caller's generator (:func:`gumbel_noise`), or takes it from an
-injected ``noise_fn`` (the tests hand it the JAX package's draws). The
+the caller's generator (:func:`gumbel_noise`); under ``per_row_rng`` it
+draws each row as the engine does, from the rows' draw indices, so the two
+engines give a row the same tokens; or it takes the noise from an injected
+``noise_fn`` (the tests hand it the JAX package's draws). The
 seq2seq sampler draws the same way: the reference's key lineage there is
 one ``split`` per step of a batch key.
 """
@@ -228,7 +230,8 @@ def make_sampler(
     with_values: bool = True,
 ):
     """Build ``sampler(prompt_ids, prompt_mask, generator=None,
-    noise_fn=None) -> SampleOutput``, the fixed-batch rollout sampler.
+    noise_fn=None, rows=None, phase_seed=0) -> SampleOutput``, the
+    fixed-batch rollout sampler.
 
     ``apply_fn(input_ids, attention_mask=, position_ids=, cache=,
     cache_index=, last_only=)`` is the policy forward (logits, values and
@@ -242,7 +245,9 @@ def make_sampler(
     each segment start, once every row is finished, the rest is emitted as
     pads without another forward (the JAX package's early exit). The
     forward after the last token, whose logits nothing reads, is not run.
-    Sampling draws each step's noise from ``generator``, or from
+    Sampling draws each step's noise from ``generator``; under
+    ``gen_config.per_row_rng`` from :func:`row_noise` of ``phase_seed``,
+    ``rows`` (the rows' draw indices) and the step; or from
     ``noise_fn(t)`` ([B, V] Gumbel draws) when given."""
     Q = query_length
     R = gen_config.max_new_tokens
@@ -260,9 +265,15 @@ def make_sampler(
         return torch.zeros(logits.shape[0], device=logits.device)
 
     @torch.no_grad()
-    def sampler(prompt_ids, prompt_mask, generator=None, noise_fn=None) -> SampleOutput:
+    def sampler(prompt_ids, prompt_mask, generator=None, noise_fn=None,
+                rows=None, phase_seed: int = 0) -> SampleOutput:
         B = prompt_ids.shape[0]
         dev = prompt_ids.device
+        per_row = gen_config.per_row_rng and gen_config.do_sample and noise_fn is None
+        if per_row:
+            if rows is None or len(rows) != B:
+                raise ValueError("per_row_rng sampling needs each row's draw index (rows)")
+            scratch = torch.Generator(device=dev)  # reseeded per row and step
         prompt_mask = prompt_mask.long()
         n_real = prompt_mask.sum(-1)
         min_new = None
@@ -295,11 +306,12 @@ def make_sampler(
             if t % seg == 0 and seg < R and bool(finished.all()):
                 break  # every later step would emit (pad, 0, 0.0, 0.0)
             noise = None
-            if gen_config.do_sample:
-                noise = (
-                    noise_fn(t) if noise_fn is not None
-                    else gumbel_noise(logits_last.shape, generator, dev)
-                )
+            if noise_fn is not None:
+                noise = noise_fn(t)
+            elif per_row:
+                noise = row_noise(phase_seed, rows, [t] * B, logits_last.shape[-1], dev, scratch)
+            elif gen_config.do_sample:
+                noise = gumbel_noise(logits_last.shape, generator, dev)
             token, live, lp, value_out, finished = choose_tokens(
                 gen_config, logits_last, t, finished, value_last, n_real,
                 min_new=min_new, noise=noise,

@@ -57,6 +57,7 @@ def register_trainer(name=None):
 def get_trainer(name: str) -> type:
     key = name.lower()
     if key not in _TRAINERS:
+        import trlx_tpu_torch.trainer.grpo_trainer  # noqa: F401
         import trlx_tpu_torch.trainer.ilql_trainer  # noqa: F401
         import trlx_tpu_torch.trainer.ppo_trainer  # noqa: F401
         import trlx_tpu_torch.trainer.seq2seq_ppo_trainer  # noqa: F401
@@ -67,8 +68,10 @@ def get_trainer(name: str) -> type:
 
 def refuse_unported(config) -> None:
     """Raise on a configured training feature the port does not have,
-    naming the ROADMAP item that brings it."""
-    train, method = config.train, config.method
+    naming the ROADMAP item that brings it (``train.rollout``'s chunked
+    prefill and speculative decoding are refused where it is parsed,
+    :class:`~trlx_tpu_torch.inference.RolloutEngineConfig`)."""
+    train = config.train
     for key, (default, item) in UNPORTED_TRAIN_KEYS.items():
         value = train.training.get(key, default)
         if key in ("async_rl", "resilience", "health"):
@@ -82,17 +85,6 @@ def refuse_unported(config) -> None:
         raise NotImplementedError(
             f"train.mesh={mesh}: the port runs on one device; multi-GPU "
             "parallelism is ROADMAP item 14"
-        )
-    if (train.rollout or {}).get("engine", "fixed") != "fixed":
-        raise NotImplementedError(
-            "train.rollout.engine: continuous in the trainer is not ported "
-            "yet (ROADMAP item 15); the trainer collects with the fixed "
-            "sampler"
-        )
-    if getattr(method, "group_size", 1) > 1 or getattr(method, "scale_reward", None) == "group":
-        raise NotImplementedError(
-            "grouped sampling (method.group_size > 1, scale_reward: group) "
-            "and GRPO are not ported yet (ROADMAP item 12)"
         )
 
 

@@ -16,7 +16,15 @@
 - ``train.logprob_chunk > 0`` (with ``ent_coef`` 0) computes the update's
   logprobs chunk by chunk of response positions under
   ``torch.utils.checkpoint``, so the [B, R, V] f32 logits never exist.
-- One update: GAE and whitening on the minibatch, the policy forward over
+- ``train.rollout.engine: continuous`` collects through the
+  continuous-batching engine (:mod:`trlx_tpu_torch.inference.engine`),
+  built on first use over the same policy module; rows then land in
+  harvest order. Under it, or ``rollout.per_row_rng: true``, the fixed
+  sampler draws each row's noise from (phase seed, row draw index, step)
+  as the engine does: one seed per collect phase, drawn from the sampling
+  generator, and a cursor over the phase's rows.
+- One update: ``_advantages_and_returns`` (GAE and whitening on the
+  minibatch; GRPO overrides it), the policy forward over
   [query; response] with the heads on the response-predicting positions
   only, ``ppo_loss``, backward (every attention through
   :class:`~trlx_tpu_torch.ops.flash_attention.FlashAttention`, whose
@@ -36,7 +44,10 @@
   (:mod:`trlx_tpu_torch.trainer.seq2seq_ppo_trainer`) overrides, as the
   reference's does: ``_setup_model``, ``_amend_gen_kwargs``,
   ``_check_response_budget``, ``_make_sampler``, ``bind_prompt_budget``,
-  ``score_ref`` and ``_forward_logprobs_values``.
+  ``score_ref``, ``_forward_logprobs_values`` and
+  ``_supports_continuous_engine``; GRPO
+  (:mod:`trlx_tpu_torch.trainer.grpo_trainer`) overrides
+  ``_shape_rewards`` and ``_advantages_and_returns``.
   ``self.phase_times`` records each phase's collect and train seconds
   and its rollout tokens.
 """
@@ -50,7 +61,9 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from trlx_tpu_torch.data.method_configs import GRPOConfig
 from trlx_tpu_torch.data.ppo_types import PPORolloutBatch, SampleOutput
+from trlx_tpu_torch.inference import RolloutEngineConfig
 from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
 from trlx_tpu_torch.models.registry import get_model_family, load_arch
 from trlx_tpu_torch.ops.ppo_math import (
@@ -101,6 +114,26 @@ class PPOTrainer(BaseRLTrainer):
         super().__init__(config, reward_fn, metric_fn, tokenizer)
         method, train = config.method, config.train
         refuse_unported(config)
+        # grouped sampling: the orchestrator repeats each drawn prompt
+        # group_size times; checked before the model is built
+        self.group_size = int(getattr(method, "group_size", 1) or 1)
+        if method.scale_reward == "group" and self.group_size < 2:
+            raise ValueError(
+                'scale_reward "group" needs method.group_size >= 2 '
+                f"(got {self.group_size})"
+            )
+        from trlx_tpu_torch.trainer.grpo_trainer import GRPOMixin
+
+        if isinstance(method, GRPOConfig) and not isinstance(self, GRPOMixin):
+            # plain PPO would silently train on ungrouped rollouts with vf_coef 0
+            raise ValueError(
+                "method GRPOConfig requires a GRPO trainer (GRPOTrainer / "
+                f"Seq2SeqGRPOTrainer); got {type(self).__name__}"
+            )
+        self.rollout_config = RolloutEngineConfig.from_dict(train.rollout)
+        self.rollout_engine = self.rollout_config.engine
+        if self.rollout_engine == "continuous":
+            self._validate_continuous_engine()
         self.device = resolve_device(device)
         if tokenizer is None and config.model.tokenizer_path:
             from transformers import AutoTokenizer
@@ -119,6 +152,10 @@ class PPOTrainer(BaseRLTrainer):
         self.apply_tokenizer_gen_defaults(gen_kwargs)
         self._amend_gen_kwargs(gen_kwargs)
         self.gen_config = GenerationConfig.from_dict(gen_kwargs)
+        if self.rollout_config.rows_per_row_rng:
+            import dataclasses
+
+            self.gen_config = dataclasses.replace(self.gen_config, per_row_rng=True)
         validate_gen_config(self.gen_config, self.model_config.vocab_size, provided=set(gen_kwargs))
         self._check_response_budget()
         self._gen_budget_cap = self.gen_config.max_new_tokens
@@ -135,6 +172,8 @@ class PPOTrainer(BaseRLTrainer):
         self.phase_times: List[Dict[str, float]] = []
         self._phase_index = -1
         self._plan = None
+        self._rollout_engine_obj = None
+        self.reset_rollout_phase()
         self._rebuild_sampler()
 
     # ------------------------------------------------------------------ #
@@ -218,6 +257,7 @@ class PPOTrainer(BaseRLTrainer):
 
     def _rebuild_sampler(self) -> None:
         self._sampler = self._make_sampler()
+        self._rollout_engine_obj = None  # built again on the new gen_config
 
     def _apply(self, *args, **kwargs):
         self.forwards += 1
@@ -257,10 +297,92 @@ class PPOTrainer(BaseRLTrainer):
         self.bind_prompt_budget(pipeline, role="eval")
 
     def sample(self, prompt_ids, prompt_mask) -> SampleOutput:
-        """Roll out a prompt batch with the current policy."""
+        """Roll out a prompt batch with the current policy (under per-row
+        RNG, as the phase's next rows)."""
+        per_row = {}
+        if self.gen_config.per_row_rng:
+            per_row = {"rows": self.take_rows(prompt_ids.shape[0]),
+                       "phase_seed": self.rollout_phase_seed()}
         return self._sampler(
             prompt_ids.to(self.device), prompt_mask.to(self.device),
-            generator=self.generator,
+            generator=self.generator, **per_row,
+        )
+
+    # ------------------------ continuous engine ------------------------ #
+
+    def _supports_continuous_engine(self) -> bool:
+        """Whether the policy has the engine's causal apply/cache contract
+        (the seq2seq trainer's does not)."""
+        return True
+
+    def _validate_continuous_engine(self) -> None:
+        if not self._supports_continuous_engine():
+            raise NotImplementedError(
+                "train.rollout engine 'continuous' is not supported by "
+                f"{type(self).__name__} (causal-LM decode path); use engine: fixed"
+            )
+        # a pp mesh axis, which the reference also refuses here, is
+        # refused earlier with the rest of multi-GPU parallelism
+        if self.group_size > 1:
+            raise NotImplementedError(
+                "train.rollout engine 'continuous' does not support grouped "
+                "sampling (method.group_size > 1 / GRPO) yet: harvest groups "
+                "complete in finish order, breaking the group-contiguity the "
+                "grouped reward shaping assumes; use engine: fixed"
+            )
+
+    def reset_rollout_phase(self) -> None:
+        """Start a fresh per-row RNG phase: the next sampler or engine call
+        draws a new phase seed and row indices restart at 0."""
+        self._rollout_phase_seed = None
+        self._rollout_row_cursor = 0
+
+    def rollout_phase_seed(self) -> int:
+        """The phase's per-row noise seed, drawn from the sampling
+        generator on first use."""
+        if self._rollout_phase_seed is None:
+            self._rollout_phase_seed = int(torch.randint(
+                2**62, (1,), generator=self.generator, device=self.generator.device
+            ))
+        return self._rollout_phase_seed
+
+    def take_rows(self, n: int) -> List[int]:
+        """Draw indices of the phase's next ``n`` rows (advances the
+        cursor): the fixed sampler's per-row noise identity."""
+        start = self._rollout_row_cursor
+        self._rollout_row_cursor += n
+        return list(range(start, start + n))
+
+    @property
+    def rollout_engine_obj(self):
+        """The continuous-batching engine, built on first use (after
+        ``bind_prompt_budget`` has settled the decode budget)."""
+        if self._rollout_engine_obj is None:
+            self._rollout_engine_obj = self._build_rollout_engine()
+        return self._rollout_engine_obj
+
+    def _build_rollout_engine(self):
+        """The engine over the trainer's own policy module (the fixed
+        sampler's per-use bf16 cast, its forwards counted) and the family's
+        KV cache: ``rollout.slots`` slots, else one per chunk rollout."""
+        from trlx_tpu_torch.inference.engine import ContinuousBatchingEngine
+
+        cfg = self.rollout_config
+        chunk = int(getattr(self.config.method, "chunk_size", 0) or self.config.train.batch_size)
+        return ContinuousBatchingEngine(
+            apply_fn=self._apply,
+            init_cache_fn=functools.partial(
+                self.family.init_cache, self.model_config, device=self.device
+            ),
+            gen_config=self.gen_config,
+            query_length=self.query_length,
+            vocab_size=self.model_config.vocab_size,
+            num_slots=cfg.slots or chunk,
+            admit_width=cfg.admit_width,
+            harvest_width=cfg.harvest_width,
+            block_size=cfg.block_size,
+            done_poll_interval=cfg.poll_interval,
+            device=self.device,
         )
 
     @torch.no_grad()
@@ -292,17 +414,33 @@ class PPOTrainer(BaseRLTrainer):
 
     @torch.no_grad()
     def compute_rewards(self, logprobs, ref_logprobs, response_mask, scores) -> torch.Tensor:
+        """The chunk's stored rewards (:meth:`_shape_rewards`); records its
+        mean sequence KL in ``mean_kl``."""
+        rewards, mean_kl = self._shape_rewards(
+            logprobs, ref_logprobs, response_mask, scores, self.kl_coef
+        )
+        self.mean_kl = float(mean_kl)
+        return rewards
+
+    def _shape_rewards(self, logprobs, ref_logprobs, response_mask, scores, kl_coef):
         """Per-token shaped rewards: -kl_coef * (logp - ref_logp), plus the
-        score at each row's last real token. Records the chunk's mean
-        sequence KL in ``mean_kl``."""
+        score at each row's last real token; returns ``(rewards, mean
+        sequence KL)``."""
         maskf = response_mask.float()
         kl = (logprobs - ref_logprobs) * maskf
-        rewards = -self.kl_coef * kl
+        rewards = -kl_coef * kl
         last = (response_mask.sum(1) - 1).clamp_min(0).long()
         rows = torch.arange(rewards.shape[0], device=rewards.device)
         rewards[rows, last] += torch.as_tensor(scores, dtype=torch.float32, device=rewards.device)
-        self.mean_kl = float(kl.sum(1).mean())
-        return rewards
+        return rewards, kl.sum(1).mean()
+
+    def _advantages_and_returns(self, mb: PPORolloutBatch):
+        """``(advantages, returns)`` for the PPO loss: GAE over the stored
+        values and rewards, advantages whitened."""
+        method = self.config.method
+        return get_advantages_and_returns(
+            mb.values, mb.rewards, mb.response_mask, method.gamma, method.lam
+        )
 
     # ------------------------------------------------------------------ #
 
@@ -328,9 +466,7 @@ class PPOTrainer(BaseRLTrainer):
         """One PPO update on a minibatch; returns its stats (device
         scalars), ``optimizer/grad_norm`` included."""
         method = self.config.method
-        advantages, returns = get_advantages_and_returns(
-            mb.values, mb.rewards, mb.response_mask, method.gamma, method.lam
-        )
+        advantages, returns = self._advantages_and_returns(mb)
         logprobs, values, entropy = self._forward_logprobs_values(mb)
         loss, stats = ppo_loss(
             logprobs, values, mb.logprobs, mb.values, advantages, returns,
@@ -424,6 +560,7 @@ class PPOTrainer(BaseRLTrainer):
         method, train = self.config.method, self.config.train
         self._phase_index += 1
         self.buffer.clear_history()
+        self.reset_rollout_phase()
         self._plan = (
             make_stream_plan(method.num_rollouts, train.batch_size, method.ppo_epochs, seed)
             if self._stream_eligible(iter_count)
@@ -502,6 +639,10 @@ class PPOTrainer(BaseRLTrainer):
             "kl_coef": float(self.kl_coef),
             "mean_kl": float(self.mean_kl),
             "generator": self.generator.get_state(),
+            # mid-phase, the per-row phase seed and cursor decide the
+            # remaining rows' noise
+            "rollout_phase_seed": self._rollout_phase_seed,
+            "rollout_row_cursor": self._rollout_row_cursor,
         }
         if self.orch is not None:
             state["orchestrator"] = self.orch.state_dict()
@@ -516,5 +657,7 @@ class PPOTrainer(BaseRLTrainer):
         self.kl_coef = float(state["kl_coef"])
         self.mean_kl = float(state["mean_kl"])
         self.generator.set_state(state["generator"])
+        self._rollout_phase_seed = state.get("rollout_phase_seed")
+        self._rollout_row_cursor = int(state.get("rollout_row_cursor", 0))
         if self.orch is not None and "orchestrator" in state:
             self.orch.load_state_dict(state["orchestrator"])

@@ -34,9 +34,11 @@ from trlx_tpu_torch.utils import logprobs_from_logits
 
 def refuse_for_seq2seq(config) -> None:
     """Raise on what the reference's seq2seq trainer refuses: layer
-    freezing, the hydra reference and continuous-engine rollouts
-    (``logprob_chunk`` is refused through ``_supports_logprob_chunk``, pp
-    with the rest of multi-GPU parallelism)."""
+    freezing and the hydra reference (``logprob_chunk`` is refused through
+    ``_supports_logprob_chunk``, continuous-engine rollouts through
+    ``_supports_continuous_engine``, pp with the rest of multi-GPU
+    parallelism), and on per-row RNG, which the seq2seq sampler (a batch
+    key chain in the reference) does not have."""
     model, train = config.model, config.train
     if model.num_layers_unfrozen > 0:
         raise NotImplementedError(
@@ -50,10 +52,10 @@ def refuse_for_seq2seq(config) -> None:
             "the hydra KL reference is not defined for the seq2seq family "
             "(the fork uses a full frozen copy); set model.ref_branch_layers: 0"
         )
-    if (train.rollout or {}).get("engine", "fixed") != "fixed":
+    if (train.rollout or {}).get("per_row_rng"):
         raise NotImplementedError(
-            "train.rollout.engine: continuous drives the causal cache "
-            "contract; seq2seq rollouts take the fixed sampler"
+            "train.rollout.per_row_rng: the seq2seq sampler draws each step's "
+            "noise from one batch stream; remove the key"
         )
 
 
@@ -83,6 +85,10 @@ class Seq2SeqPPOTrainer(PPOTrainer):
 
     def _supports_logprob_chunk(self) -> bool:
         # the encoder-decoder forward computes its own logits
+        return False
+
+    def _supports_continuous_engine(self) -> bool:
+        # the engine drives the causal cache contract
         return False
 
     def _amend_gen_kwargs(self, gen_kwargs: Dict[str, Any]) -> None:
