@@ -31,11 +31,17 @@ Phases, each fatal on failure:
    tiles with peaked logits), and ILQL's update (B=128, T=64, causal +
    right padding), in bf16 (``tile``) and f32 (``fma``); K1 also at ILQL's
    eval prefill (B=128, Q=16, K=64, left padding: the ``decode`` variant
-   at its largest Q) and eval decode step (Q=1, K=64);
+   at its largest Q) and eval decode step (Q=1, K=64); K1 at the serving
+   tier's (phase 11) chunked-prefill forward (A=8, W=128 queries against
+   the 512-key prompt view, ``tile``), the same chunk with keys 0..255 all
+   pad and holding garbage (its output must equal the call on the real
+   keys alone: masked keys carry exactly-zero weight), and the verify
+   step (B=32, Q=5 against the 576-key view, ``decode``), bf16 and f32;
    hold the autograd ``Function`` against autograd through the plain
    forward; time K1 at the five shapes of the two paths (serving prefill
    and decode, update forward, rollout prefill and decode, ILQL's update
-   forward, eval prefill and eval step; the serving two in f32 too) and
+   forward, eval prefill and eval step, the chunk and the verify step; the
+   serving four in f32 too) and
    K2, K3 (through their C entry points, arguments packed beforehand, and
    through their Python wrappers) at the PPO and ILQL update shapes
    (kernel, plain version, and a
@@ -152,17 +158,41 @@ Phases, each fatal on failure:
    the fixed sampler under per-row RNG and the engine decode the same 128
    prompts at one phase seed and the share of rows with identical tokens
    is printed (a report: bf16 and another batch shape can flip a
-   near-tie), with the engine's host time per decode step.
+   near-tie), with the engine's host time per decode step. Then one cut
+   run with the engine's serving features, ``prefill_chunk: 16`` and
+   ``spec_decode: {enabled: true, max_draft: 4}``: one collect and its
+   update pass (32 updates), held to the per-collect gates above (K1 by
+   the variant each forward's width picks: the 16-column chunks and the
+   5-column verify steps run ``decode``) and K2 = K3 = 12 x 32;
+11. serving tier — ``InferenceServer`` on phase 4's model and geometry in
+   bf16, greedy, with ``serving.prefix_cache_blocks: 128``,
+   ``rollout.prefill_chunk: 128`` (2 chunk forwards a pump) and
+   ``rollout.spec_decode`` (trie drafter, 4 drafts), serving 96 requests in
+   12 bursts of 8: 64 share one of 4 system prompts of 384 tokens, each
+   with its own 128-token turn, 32 take lengths 16..512; the same traffic
+   again through phase 4's engine (the three features off) in the same
+   call. Gates: 96/96 complete and finite; prefix hit blocks in (0, 64 x
+   24]; every pool reference released, no block leaked; fewer chunk
+   forwards than admitted groups x 4; K1 ``tile`` = 12 x chunk forwards,
+   ``decode`` = 12 x (decode + verify steps); verify steps > 0. Then 16
+   of the shared-prefix requests in f32 through K1's ``fma``, features on
+   and off: the same tokens on every row but where the first difference is
+   a near tie (top-2 logit margin < 1e-4 in the features-off run). Prints
+   both runs' tokens/s, TTFT, peak, hit rate, chunks run and skipped with
+   their FLOPs, spec accept rate, tokens per verify step, host ms per step,
+   the decode step's cache read with and without the pool overlay, and the
+   share of rows whose tokens match the features-off run.
 
-Each path (phases 4 to 10, each definition of phase 7 and each run of
+Each path (phases 4 to 11, each definition of phase 7 and each run of
 phase 9 on its own) runs with the launch counters set to 0 just before it
 and read just after, and its peak memory is read from a clean start.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
 without CUDA, or when any phase fails. ``--profile PATH`` additionally
 serves the same traffic, runs one training phase, a cut seq2seq run, one
-phase of each phase-7 definition, one epoch of phase 8 and one phase each
-of phases 9 (causal) and 10 under ``torch.profiler`` and writes each run's
+phase of each phase-7 definition, one epoch of phase 8, one phase each
+of phases 9 (causal) and 10, and phase 11's traffic with the features on
+and off under ``torch.profiler`` and writes each run's
 device-time summary (busy share, device time by kernel) as JSON to PATH.
 """
 
@@ -210,6 +240,7 @@ SOURCES = {
 }
 L2_BYTES = 50 * 2**20  # H100 SXM
 N_LAYER = 12  # GPT-2 small
+CHUNK_PAD_KEYS = 256  # phase 2's chunk case with an all-pad key range
 FWD_VARIANT_COUNTERS = {
     "tile": "FLASH_FWD_TILE_LAUNCHES",
     "decode": "FLASH_FWD_DECODE_LAUNCHES",
@@ -428,6 +459,31 @@ def kernel_cases(torch, attn):
     q, k, v = qkv(2, 128, 4096)
     bias = 2 * torch.randn(2, 1, 128, 4096, generator=gen, device=dev)
     cases.append(("long_k", 3 * q, k, v / 4, bias, False))
+    # the serving tier (phase 11). A chunked-prefill forward: 8 prompts,
+    # the third 128-column chunk (queries 256..383) against the prompt-wide
+    # 512-key view, causal + left padding as one [A,1,W,Q] bias
+    lens = torch.randint(16, 513, (8,), generator=gen, device=dev)
+    mask = (torch.arange(512, device=dev)[None, :] >= 512 - lens[:, None]).long()
+    bias = attn.causal_bias(128, 512, 256, dev) + attn.padding_bias(mask)
+    cases.append(("chunk", *qkv(8, 128, 512), bias, False))
+    # the same chunk where keys 0..255 are pad for every row and hold what
+    # a skipped chunk leaves (here: large garbage): their softmax weight
+    # must be exactly 0, so the output equals the call on keys 256.. alone
+    mask = (torch.arange(512, device=dev)[None, :] >= 256).long().expand(8, 512)
+    bias = attn.causal_bias(128, 512, 256, dev) + attn.padding_bias(mask)
+    q, k, v = qkv(8, 128, 512)
+    k[:, :CHUNK_PAD_KEYS] *= 100
+    v[:, :CHUNK_PAD_KEYS] *= 100
+    cases.append(("chunk_pad", q, k, v, bias, False))
+    # a verify step: 32 slots, the anchor and 4 drafted tokens each at
+    # per-row depths against the 576-wide view (the causal offset is each
+    # row's first target column, the mask the window's validity)
+    t = torch.randint(0, 60, (32,), generator=gen, device=dev)
+    lens = torch.randint(16, 513, (32,), generator=gen, device=dev)
+    cols = torch.arange(576, device=dev)[None, :]
+    mask = ((cols >= 512 - lens[:, None]) & ((cols < 512) | (cols <= 512 + t[:, None] + 4))).long()
+    bias = attn.causal_bias(5, 576, 512 + t, dev) + attn.padding_bias(mask)
+    cases.append(("verify", *qkv(32, 5, 576), bias, False))
     return cases
 
 
@@ -529,14 +585,25 @@ def phase_kernel(torch, fa, attn):
             err_lse = (lse - lse_ref).abs().max().item()
             tol_o, tol_lse = TOL[dtype_name]
             ok = err_o <= tol_o and err_lse <= tol_lse and math.isfinite(err_o)
+            extra = {}
+            if name == "chunk_pad":
+                # the masked key range carries no weight: the kernel on the
+                # real keys alone gives the same output
+                P = CHUNK_PAD_KEYS
+                o_real = fa.flash_attention(q, k[:, P:], v[:, P:], bias[..., P:], causal)
+                extra["max_abs_err_o_vs_real_keys"] = err_r = (
+                    o.float() - o_real.float()).abs().max().item()
+                ok = ok and err_r <= tol_o
             results.append({
                 "case": name, "dtype": dtype_name, "max_abs_err_o": err_o,
                 "max_abs_err_lse": err_lse, "tol_o": tol_o, "tol_lse": tol_lse,
-                "ok": ok,
+                "ok": ok, **extra,
             })
             log(f"phase 2: {name:15s} {dtype_name:8s} ({fa.forward_variant(dt, q.shape[1])}) "
-                f"max|dO|={err_o:.3e} max|dLSE|={err_lse:.3e} {'ok' if ok else 'FAIL'}")
-            if name in ("prefill", "decode"):
+                f"max|dO|={err_o:.3e} max|dLSE|={err_lse:.3e} "
+                + "".join(f"{k}={v:.3e} " for k, v in extra.items())
+                + ('ok' if ok else 'FAIL'))
+            if name in ("prefill", "decode", "chunk", "verify"):
                 timed[("serving_" + name, dtype_name)] = row = time_forward(
                     torch, fa, attn, q, k, v, bias, causal)
                 log_timed("serving_" + name, dtype_name, row)
@@ -3136,6 +3203,469 @@ def phase_continuous(torch, fa, ckpt: str, written: dict):
     return ok, record
 
 
+# phase 10's cut collect with the engine's serving features: chunked
+# admission prefill and speculative decoding on the trainer's engine
+CONTINUOUS_FEATURES = {"engine": "continuous", "prefill_chunk": 16,
+                       "spec_decode": {"enabled": True, "max_draft": 4}}
+CONTINUOUS_FEATURES_UPDATES = 32  # one collect (128 rollouts) and its update pass
+
+
+def run_continuous_features(torch, fa, ckpt: str, written: dict):
+    """Phase 10's cut run: ``configs/ppo_sentiments.yml`` with
+    ``train.rollout: {engine: continuous, prefill_chunk: 16, spec_decode:
+    {enabled: true, max_draft: 4}}`` from the checkpoint at ``ckpt``, one
+    collect and its update pass (32 updates). Held to phase 10's
+    per-collect gates (128 admitted = completed = recycled, none pending,
+    each draw index once, K1 by variant: the reference scorings on
+    ``tile``, the decode and verify steps and the 16-column chunk forwards
+    on the variant their width picks) and, over the run, phase 5's gates
+    with K2 = K3 = 12 x updates."""
+    import tempfile
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.inference import engine as engine_mod
+    from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    Engine = engine_mod.ContinuousBatchingEngine
+    watch = {"collects": [], "scorings": 0}
+    orig = {"score_ref": PPOTrainer.score_ref, "make_experience": PPOOrchestrator.make_experience,
+            "drive": Engine.drive}
+
+    def score_ref(self, *a, **kw):
+        watch["scorings"] += 1
+        return orig["score_ref"](self, *a, **kw)
+
+    def drive(self, target):
+        for group in orig["drive"](self, target):
+            watch["collects"][-1]["harvested"].extend(group["rows"])
+            yield group
+
+    def make_experience(self, *a, **kw):
+        entry = {"harvested": []}
+        watch["collects"].append(entry)
+        before = forward_variant_launches(fa)
+        scorings0 = watch["scorings"]
+        stats = orig["make_experience"](self, *a, **kw)
+        after = forward_variant_launches(fa)
+        engine = self.trainer.rollout_engine_obj
+        st = engine.stats
+        expected = {"tile": N_LAYER * (watch["scorings"] - scorings0),
+                    "decode": N_LAYER * st.decode_steps,  # Q = 1 and the Q = 5 verify
+                    "fma": 0, "copies": 0}
+        chunk = fa.forward_variant(torch.bfloat16, engine.prefill_chunk)
+        expected[chunk] += N_LAYER * st.prefill_chunks
+        entry.update(
+            stats={k: v for k, v in stats.items() if k.startswith("engine/")},
+            counters={"prefills": st.prefills, "prefill_chunks": st.prefill_chunks,
+                      "prefill_cols_skipped": st.prefill_cols_skipped,
+                      "decode_steps": st.decode_steps, "verify_steps": st.spec_steps,
+                      "spec_drafted": st.spec_drafted, "spec_accepted": st.spec_accepted},
+            pending=engine.pending, buffer_rows=len(self.trainer.buffer),
+            launches={k: after[k] - before[k] for k in after}, expected=expected,
+            chunk_variant=chunk)
+        return stats
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = yml_config("ppo_sentiments.yml", os.path.join(tmp, "features"), ckpt,
+                            CONTINUOUS_FEATURES_UPDATES,
+                            train={"rollout": dict(CONTINUOUS_FEATURES)})
+        patches = instrument(torch, PPOTrainer, "transformer", written, watch) + [
+            (PPOTrainer, "score_ref", score_ref),
+            (PPOOrchestrator, "make_experience", make_experience), (Engine, "drive", drive)]
+        trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
+            reward_fn=training_reward, prompts=training_prompts(), config=config), patches)
+    gates = run_gates(torch, trainer, watch, record)
+    collects = []
+    for c in watch["collects"]:
+        st = c["stats"]
+        c["ok"] = (
+            st["engine/admitted"] == st["engine/completed"] == st["engine/slot_recycles"] == 128
+            and c["pending"] == 0 and c["buffer_rows"] == 128
+            and sorted(c["harvested"]) == list(range(128)) and c["launches"] == c["expected"]
+            and c["counters"]["prefill_chunks"] > 0)
+        collects.append(dict(c, harvested=len(c["harvested"])))
+    engine = trainer.rollout_engine_obj
+    expected_bwd = {k: {"tile": N_LAYER * CONTINUOUS_FEATURES_UPDATES, "fma": 0}
+                    for k in BWD_KERNELS}
+    record.update(updates=trainer.step, phases=phase_rows(trainer), collects=collects,
+                  gates=gates, expected_backward=expected_bwd,
+                  engine={"prefill_chunk": engine.prefill_chunk,
+                          "spec_max_draft": engine.spec_max_draft})
+    ok = (
+        trainer.step == CONTINUOUS_FEATURES_UPDATES and len(collects) == 1
+        and all(c["ok"] for c in collects)
+        and all(v for k, v in gates.items() if k != "params_changed")
+        and gates["params_changed"] > 0
+        and (engine.prefill_chunk, engine.spec_max_draft) == (16, 4)
+        and record["backward_variants"] == expected_bwd
+    )
+    log("phase 10: continuous with chunked prefill and spec decode " + json.dumps(record))
+    log(f"phase 10: continuous features {'ok' if ok else 'FAIL'} (updates={trainer.step}, "
+        f"collects {[{k: c[k] for k in ('ok', 'counters', 'launches', 'expected')} for c in collects]}, "
+        f"gates {gates}, K2/K3 {record['backward_variants']} vs {expected_bwd})")
+    del trainer
+    return ok, record
+
+
+# phase 11: the serving tier on phase 4's model and geometry (greedy, as
+# deterministic requests are served), with the shared-prefix pool,
+# chunked admission prefill and speculative decoding on
+SERVING_TIER_FEATURES = {
+    "rollout": {"engine": "continuous", "prefill_chunk": 128, "prefill_chunks_per_pump": 2,
+                "spec_decode": {"enabled": True, "max_draft": 4, "drafter": "trie"}},
+    "serving": {"prefix_cache_blocks": 128},
+}
+SYSTEM_PROMPTS, SYSTEM_TOKENS, TURN_TOKENS = 4, 384, 128  # 24 + 8 blocks of 16
+SHARED_REQUESTS, OTHER_REQUESTS = 64, 32
+F32_REQUESTS = 16  # the f32 token check's cut: 4 + 12 shared-prefix requests
+NEAR_TIE = 1e-4  # top-2 logit margin under which f32 rounding may pick either
+
+
+def serving_tier_config(features: bool, dtype: str = "bfloat16"):
+    """Phase 4's serving config, greedy, in ``dtype``; with ``features``
+    the pool, chunked prefill and speculative decoding of phase 11."""
+    cfg = serving_config()
+    cfg["train"]["dtype"] = dtype
+    cfg["method"]["gen_kwargs"]["do_sample"] = False
+    if features:
+        cfg["train"]["rollout"].update(SERVING_TIER_FEATURES["rollout"])
+        cfg["train"]["serving"] = dict(SERVING_TIER_FEATURES["serving"])
+    return cfg
+
+
+def serving_tier_prompts(seed: int = 4):
+    """96 requests arriving in 12 bursts of 8 (one admission group each),
+    the bursts in a seeded order: 8 bursts of chat traffic, two per system
+    prompt, where each request is one of 4 system prompts of 384 tokens
+    followed by its own 128-token turn (512 tokens, so all pad alike: the
+    traffic a system prompt or a few-shot header gives), and 4 bursts of
+    other traffic at phase 4's real lengths of 16..512. Skipping a chunk is
+    a decision over an admission group, so what it saves depends on how
+    alike a group's requests are. Returns the prompts and whether each
+    shares a system prompt."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    systems = rng.integers(0, 50256, (SYSTEM_PROMPTS, SYSTEM_TOKENS))
+    bursts = []
+    for b in range(SHARED_REQUESTS // 8):
+        system = [int(t) for t in systems[b % SYSTEM_PROMPTS]]
+        bursts.append([(system + [int(t) for t in rng.integers(0, 50256, TURN_TOKENS)], True)
+                       for _ in range(8)])
+    for _ in range(OTHER_REQUESTS // 8):
+        bursts.append([([int(t) for t in rng.integers(0, 50256, int(rng.integers(16, 513)))],
+                        False) for _ in range(8)])
+    ordered = [req for b in rng.permutation(len(bursts)) for req in bursts[b]]
+    return [p for p, _ in ordered], [shared for _, shared in ordered]
+
+
+def serve_record(torch, server, prompts, waves=None):
+    """Serve ``prompts`` (in ``waves``, each a list of indices, when given)
+    and return the results in prompt order, the wall, and the rates."""
+    import numpy as np
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    results = [None] * len(prompts)
+    for wave in waves or [list(range(len(prompts)))]:
+        rids = server.submit([prompts[i] for i in wave])
+        done = server.wait(rids)
+        for i, rid in zip(wave, rids):
+            results[i] = done[rid]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ttft = sorted(r["timing"]["ttft_ms"] for r in results)
+    tokens = int(sum(r["length"] for r in results))
+    return results, {
+        "requests": len(results), "generated_tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p95": float(np.percentile(ttft, 95)),
+    }
+
+
+def host_watch(engine_mod, pool_cls):
+    """Patches (for ``counted_path``) that time the engine's steps (their
+    wall, device waits included), its drafting and its chunk planning, and
+    the pool's admission planning, all on the host clock; and the dict they
+    fill."""
+    Engine = engine_mod.ContinuousBatchingEngine
+    watch = {"step_s": 0.0, "steps": 0, "draft_s": 0.0, "plan_s": 0.0, "plans": 0}
+    orig = {"step": Engine._step_once, "draft": Engine._draft_now,
+            "need": Engine._plan_chunk_need, "plan": pool_cls.plan_admission}
+
+    def timed(fn, key, count=None):
+        def wrapper(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            watch[key] += time.perf_counter() - t0
+            if count:
+                watch[count] += 1
+            return out
+        return wrapper
+
+    return watch, [(Engine, "_step_once", timed(orig["step"], "step_s", "steps")),
+                   (Engine, "_draft_now", timed(orig["draft"], "draft_s")),
+                   (Engine, "_plan_chunk_need", timed(orig["need"], "plan_s")),
+                   (pool_cls, "plan_admission", timed(orig["plan"], "plan_s", "plans"))]
+
+
+def overlay_timing(torch, server) -> dict:
+    """The decode step's cache read at phase 11's shapes (32 slots, the
+    576-wide view, 12 heads of 64), per layer: the paged view gather alone
+    and with the pool overlay's second gather (``kv_cache.paged_write_read``
+    with and without ``shared_tables``), timed as ``time_ms`` times."""
+    from trlx_tpu_torch.inference import kv_cache
+
+    layer = server.engine._state.cache[0]
+    B, cap, H, D = layer["k"].shape
+    cap -= 1
+    k = torch.zeros(B, 1, H, D, dtype=layer["k"].dtype, device=layer["k"].device)
+    idx = torch.full((B,), cap, device=k.device)  # the discard sentinel
+    private = {key: layer[key] for key in ("k", "v", "block_tables")}
+    shared = dict(private, **{key: layer[key] for key in ("shared_k", "shared_v",
+                                                           "shared_tables")})
+    return {name: time_ms([lambda c=c: kv_cache.paged_write_read(c, k, k, idx, k.dtype)])
+            for name, c in (("view_gather_ms", private), ("with_overlay_ms", shared))}
+
+
+def first_difference(a, b):
+    """Index of the first differing token of two lists (None if equal)."""
+    for i, (x, y) in enumerate(zip(a, b)):
+        if x != y:
+            return i
+    return None if len(a) == len(b) else min(len(a), len(b))
+
+
+def top2_margin(torch, model, prompt, tokens) -> float:
+    """Top-2 logit margin of ``model``'s next-token choice after ``prompt``
+    and ``tokens`` (an uncached causal forward)."""
+    ids = torch.tensor([list(prompt) + list(tokens)], device="cuda")
+    with torch.no_grad():
+        logits = model(ids)["logits"][0, -1].float()
+    top = torch.topk(logits, 2).values
+    return float(top[0] - top[1])
+
+
+class OracleDrafter:
+    """A drafter that proposes what a reference run served for the same
+    prompt, aligned as the verify step reads drafts: the anchor it samples
+    is token t, and draft j is checked against token t + j, so after t
+    emitted tokens the oracle proposes the reference's tokens t+1..t+D.
+    The policy accepts them wherever it computes what the reference
+    computed, so this holds the verify step's accepted path (rather than
+    its rejections) at full width."""
+
+    def __init__(self, max_draft: int, answers: dict):
+        self.max_draft, self.answers = max_draft, answers  # prompt -> tokens
+        self._prompt, self._emitted = {}, {}
+
+    def observe_context(self, row, tokens):
+        self._prompt[row], self._emitted[row] = tuple(tokens), 0
+
+    def observe_tokens(self, row, tokens):
+        self._emitted[row] = self._emitted.get(row, 0) + len(tokens)
+
+    def draft(self, row):
+        t = self._emitted.get(row, 0)
+        return list(self.answers.get(self._prompt.get(row), ())[t + 1:t + 1 + self.max_draft])
+
+    def forget(self, row):
+        self._prompt.pop(row, None)
+        self._emitted.pop(row, None)
+
+    def reset(self):
+        self._prompt.clear()
+        self._emitted.clear()
+
+    def observe_accept(self, row, n_proposed, n_accepted):
+        pass
+
+    def set_tenant(self, row, tenant):
+        pass
+
+    def stats(self):
+        return {}
+
+
+def serve_counted(torch, fa, server, prompts, waves=None):
+    """Serve ``prompts`` as one counted path (counters zeroed before, read
+    after; the host watch in place); returns the results and the record:
+    rates, launches, peak memory above the start, the engine's sharing,
+    chunk and spec counters, host time per step."""
+    import numpy as np
+
+    from trlx_tpu_torch.inference import engine as engine_mod
+    from trlx_tpu_torch.serving.prefix_cache import PrefixBlockPool
+
+    watch, patches = host_watch(engine_mod, PrefixBlockPool)
+    (results, rates), rec = counted_path(
+        torch, fa, lambda: serve_record(torch, server, prompts, waves), patches)
+    st, engine = server.engine.stats, server.engine
+    steps = max(watch["steps"], 1)
+    rec.update(
+        rates, stats=server.stats(), decode_steps=st.decode_steps, verify_steps=st.spec_steps,
+        prefills=st.prefills, prefill_chunks=st.prefill_chunks,
+        prefill_chunks_skipped=st.prefill_cols_skipped // max(engine.prefill_chunk, 1),
+        prefix_hit_blocks=st.prefix_hit_blocks, prefix_hit_rate=st.prefix_hit_rate,
+        prefix_blocks_saved=st.prefix_blocks_saved, spec_accept_rate=st.spec_accept_rate,
+        spec_tokens_per_verify_step=st.spec_tokens_per_step,
+        spec_draft_len_p50=st.spec_draft_len_p50,
+        peak_above_start_bytes=rec["max_memory_allocated_bytes"] - rec["allocated_at_start_bytes"],
+        step_wall_ms=1e3 * watch["step_s"] / steps,
+        draft_host_ms_per_step=1e3 * watch["draft_s"] / steps,
+        plan_host_ms=1e3 * watch["plan_s"],
+        finite=all(np.isfinite(r["logprobs"]).all() and np.isfinite(r["values"]).all()
+                   for r in results),
+        min_length=min(r["length"] for r in results))
+    return results, rec
+
+
+def phase_serving_tier(torch, fa):
+    """Phase 11: ``InferenceServer`` on phase 4's model and geometry in
+    bf16, greedy, with ``serving.prefix_cache_blocks: 128``,
+    ``rollout.prefill_chunk: 128`` (2 chunks a pump) and
+    ``rollout.spec_decode`` (trie drafter, 4 drafts), serving
+    :func:`serving_tier_prompts`; then the same traffic through phase 4's
+    engine (the three features off), and, as a report, with the features on
+    and the features-off run's tokens as drafts (:class:`OracleDrafter`),
+    all in the same call. Gates: 96/96 complete with finite logprobs and
+    values; prefix hit blocks in (0, 64 x 24]; every pool reference
+    released and no block leaked; fewer chunk forwards than admitted
+    groups x 4; K1 ``tile`` = 12 x chunk forwards, ``decode`` = 12 x
+    (decode + verify steps), no ``fma`` launch, input copy or plain call;
+    verify steps > 0. Then 16 shared-prefix requests in f32 through the
+    ``fma`` K1, features off, on, and on with the oracle drafter (whose
+    drafts must mostly be accepted): tokens identical on every row, except
+    where the first difference is a near tie (top-2 logit margin < 1e-4 in
+    the features-off run). Prints the runs' tokens/s, TTFT, peak memory,
+    sharing, chunk and spec counters, host time per step and the share of
+    rows whose tokens match the features-off run."""
+    import numpy as np
+
+    from trlx_tpu_torch.inference.engine import prefill_dot_flops
+    from trlx_tpu_torch.inference.server import InferenceServer
+
+    prompts, is_shared = serving_tier_prompts()
+    server = InferenceServer(serving_tier_config(True), seed=0)
+    on, rec = serve_counted(torch, fa, server, prompts)
+    engine, pool, cfg = server.engine, server.prefix_pool, server.model_config
+    A, Q, W, cap = engine.admit_width, engine.Q, engine.prefill_chunk, engine.capacity
+    rec["flops"] = {
+        "chunk": engine._chunk_flop_cost(),
+        "chunked_group": (Q // W - 1) * engine._chunk_flop_cost()
+        + prefill_dot_flops(cfg, A, W, Q, heads=True),
+        "monolithic_group": prefill_dot_flops(cfg, A, Q, cap, heads=True),
+        "saved": engine.stats.prefill_flops_saved,
+    }
+    rec["pool"] = {"blocks": pool.pool_blocks, "free": pool.free_blocks,
+                   "nodes": len(pool._nodes),
+                   "max_refcount": max((n.refcount for n in pool._nodes.values()), default=0)}
+    released = not server._acquired and not server._published_by_row
+    rec["overlay"] = overlay_timing(torch, server)
+    del server, engine, pool
+    server = InferenceServer(serving_tier_config(False), seed=0)
+    off, rec_off = serve_counted(torch, fa, server, prompts)
+    del server
+    answers = {tuple(p): r["tokens"] for p, r in zip(prompts, off)}
+    server = InferenceServer(serving_tier_config(True), seed=0)
+    server.engine.spec_drafter = OracleDrafter(server.engine.spec_max_draft, answers)
+    oracle, rec_oracle = serve_counted(torch, fa, server, prompts)
+    del server
+    for r, results in ((rec, on), (rec_oracle, oracle)):
+        r["rows_identical_to_features_off"] = float(np.mean(
+            [a["tokens"] == b["tokens"] for a, b in zip(results, off)]))
+    rec["rows_identical_shared"] = float(np.mean(
+        [a["tokens"] == b["tokens"] for a, b, s in zip(on, off, is_shared) if s]))
+    variants = rec["flash_fwd_variants"]
+    expected = {"tile": N_LAYER * rec["prefill_chunks"],
+                "decode": N_LAYER * rec["decode_steps"], "fma": 0, "copies": 0}
+    rec["expected_variants"] = expected
+    gates = {
+        "complete": len(on) == len(prompts) and rec["min_length"] >= 1 and rec["finite"],
+        "prefix_hits": 0 < rec["prefix_hit_blocks"] <= SHARED_REQUESTS * SYSTEM_TOKENS // 16,
+        "pool_released": (rec["pool"]["max_refcount"] == 0 and released
+                          and rec["pool"]["nodes"] + rec["pool"]["free"] == rec["pool"]["blocks"]),
+        "chunks_skipped": rec["prefill_chunks"] < rec["prefills"] * (Q // W),
+        "k1_by_variant": variants == expected,
+        "no_plain_calls": rec["plain_attention_calls"] == 0,
+        "verify_steps": rec["verify_steps"] > 0,
+    }
+    side_gates = {name: (len(res) == len(prompts) and r["finite"]
+                         and r["plain_attention_calls"] == 0
+                         and r["flash_fwd_variants"]["fma"] == 0
+                         and r["flash_fwd_variants"]["copies"] == 0)
+                  for name, res, r in (("features_off", off, rec_off),
+                                       ("oracle_drafts", oracle, rec_oracle))}
+    # the f32 cut: 16 shared-prefix requests through K1's fma variant, in
+    # two waves (one request per system prompt publishes, the rest read)
+    picks = [i for i, shared in enumerate(is_shared) if shared]
+    first = {}
+    for i in picks:
+        first.setdefault(tuple(prompts[i][:SYSTEM_TOKENS]), i)
+    wave1 = list(first.values())
+    wave2 = [i for i in picks if i not in wave1][:F32_REQUESTS - len(wave1)]
+    f32_prompts = [prompts[i] for i in wave1 + wave2]
+    waves = [list(range(len(wave1))), list(range(len(wave1), len(f32_prompts)))]
+    f32 = {}
+    for name in ("features_off", "features_on", "oracle_drafts"):
+        srv = InferenceServer(serving_tier_config(name != "features_off", "float32"), seed=0)
+        if name == "oracle_drafts":
+            srv.engine.spec_drafter = OracleDrafter(srv.engine.spec_max_draft, {
+                tuple(p): r["tokens"] for p, r in zip(f32_prompts, f32["features_off"])})
+        reset_forward_counters(fa)
+        f32[name] = serve_record(torch, srv, f32_prompts, waves)[0]
+        st = srv.engine.stats
+        f32[name + "_record"] = {
+            "variants": forward_variant_launches(fa), "verify_steps": st.spec_steps,
+            "spec_accept_rate": st.spec_accept_rate,
+            "spec_tokens_per_verify_step": st.spec_tokens_per_step,
+            "prefix_hit_blocks": st.prefix_hit_blocks, "prefill_chunks": st.prefill_chunks}
+        if name == "features_off":
+            f32_model = srv.model
+        del srv
+    differing = {}
+    for name in ("features_on", "oracle_drafts"):
+        differing[name] = []
+        for i, (a, b) in enumerate(zip(f32[name], f32["features_off"])):
+            step = first_difference(a["tokens"], b["tokens"])
+            if step is not None:
+                margin = top2_margin(torch, f32_model, f32_prompts[i], b["tokens"][:step])
+                differing[name].append({"row": i, "step": step, "top2_margin": margin})
+    del f32_model
+    rec["f32"] = {"requests": len(f32_prompts), "differing_rows": differing,
+                  **{name: f32[name + "_record"]
+                     for name in ("features_off", "features_on", "oracle_drafts")}}
+    on32, oracle32 = f32["features_on_record"], f32["oracle_drafts_record"]
+    gates["f32_tokens"] = all(d["top2_margin"] < NEAR_TIE
+                              for rows in differing.values() for d in rows)
+    gates["f32_through_fma"] = all(
+        f32[n + "_record"]["variants"]["tile"] == f32[n + "_record"]["variants"]["decode"] == 0
+        and f32[n + "_record"]["variants"]["fma"] > 0
+        for n in ("features_off", "features_on", "oracle_drafts"))
+    gates["f32_shared"] = on32["prefix_hit_blocks"] > 0
+    gates["f32_oracle_drafts_accepted"] = oracle32["spec_accept_rate"] >= 0.5
+    rec["features_off"], rec["oracle_drafts"] = rec_off, rec_oracle
+    rec["gates"], rec["side_gates"] = gates, side_gates
+    ok = all(gates.values()) and all(side_gates.values())
+    log("phase 11: serving tier " + json.dumps(rec))
+    summary = {name: {k: r[k] for k in (
+        "tokens_per_s", "ttft_ms_p50", "ttft_ms_p95", "peak_above_start_bytes",
+        "prefix_hit_rate", "prefix_blocks_saved", "prefills", "prefill_chunks",
+        "prefill_chunks_skipped", "decode_steps", "verify_steps", "spec_accept_rate",
+        "spec_tokens_per_verify_step", "spec_draft_len_p50", "step_wall_ms",
+        "draft_host_ms_per_step", "plan_host_ms")} for name, r in (
+            ("features_on", rec), ("features_off", rec_off), ("oracle_drafts", rec_oracle))}
+    log(f"phase 11: serving tier {'ok' if ok else 'FAIL'} (gates {gates}, side gates "
+        f"{side_gates}; K1 by variant {variants} vs {expected}; {json.dumps(summary)}; "
+        f"FLOPs {json.dumps(rec['flops'])}; rows identical to features off (bf16, report): "
+        f"features on {rec['rows_identical_to_features_off']:.4f}, oracle drafts "
+        f"{rec_oracle['rows_identical_to_features_off']:.4f}; overlay "
+        f"{json.dumps(rec['overlay'])}; f32 {json.dumps(rec['f32'])})")
+    return ok, rec
+
+
 def device_summary(prof, wall: float) -> dict:
     """Summarise a torch.profiler run's device timeline: busy share of the
     wall, and device time by kernel."""
@@ -3187,8 +3717,9 @@ def profile_paths(torch, path: str) -> None:
     (16 updates, evals at 0 and 16, the checkpoint at the end) of phase
     8's ILQL run (random weights: loading is not profiled), and one phase
     (32 updates, the checkpoint load included) each of phase 9's GRPO run
-    and phase 10's continuous-engine run; write each run's device summary
-    as JSON at ``path``."""
+    and phase 10's continuous-engine run, and phase 11's traffic with the
+    serving features on and off; write each run's device summary as JSON
+    at ``path``."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -3267,6 +3798,13 @@ def profile_paths(torch, path: str) -> None:
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             summary[name] = device_summary(prof, wall)
+    prompts = serving_tier_prompts()[0]
+    for name, features in (("serving_tier", True), ("serving_tier_features_off", False)):
+        server = InferenceServer(serving_tier_config(features), seed=0)
+        with profile(activities=activities) as prof:
+            _, rates = serve_record(torch, server, prompts)
+        summary[name] = device_summary(prof, rates["wall_s"])
+        del server
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     with open(path, "w") as fh:
         json.dump(summary, fh, indent=1)
@@ -3332,10 +3870,15 @@ def main() -> int:
         gpt2_written = write_gpt2_checkpoint(torch, gpt2_ckpt)
         grpo_ok, grpo = phase_grpo(torch, fa, gpt2_ckpt, gpt2_written)
         continuous_ok, continuous = phase_continuous(torch, fa, gpt2_ckpt, gpt2_written)
+        features_ok, features = run_continuous_features(torch, fa, gpt2_ckpt, gpt2_written)
+        continuous_ok = continuous_ok and features_ok
         del gpt2_written
-    # the paths of phases 9 and 10, each counted on its own
+    tier_ok, tier = phase_serving_tier(torch, fa)
+    # the paths of phases 9 to 11, each counted on its own
     new_paths = {"grpo": grpo["causal"], "grpo_seq2seq": grpo["seq2seq"],
-                 "continuous_engine": continuous}
+                 "continuous_engine": continuous, "continuous_engine_features": features,
+                 "serving_tier": tier, "serving_tier_features_off": tier["features_off"],
+                 "serving_tier_oracle_drafts": tier["oracle_drafts"]}
     if args.profile:
         profile_paths(torch, args.profile)
 
@@ -3374,10 +3917,12 @@ def main() -> int:
         "prefill": entry("serving_prefill"),
         # every path shape of K1 in bf16, with the variant that ran
         "shapes": {shape: entry(shape) for shape in (
-            "serving_prefill", "serving_decode", *TRAINING_SHAPES.values(), *T5_SHAPES)},
+            "serving_prefill", "serving_decode", "serving_chunk", "serving_verify",
+            *TRAINING_SHAPES.values(), *T5_SHAPES)},
         "f32": {s: {k: timed[(s, "float32")][k] for k in (
                     "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms")}
-                for s in ("serving_prefill", "serving_decode")},
+                for s in ("serving_prefill", "serving_decode", "serving_chunk",
+                          "serving_verify")},
         "launches_by_variant": {"serving": serving["flash_fwd_variants"],
                                 "training": training["flash_fwd_variants"],
                                 "seq2seq_training": seq2seq["flash_fwd_variants"],
@@ -3455,7 +4000,8 @@ def main() -> int:
     phases = (("build", build_ok), ("kernel", kernel_ok), ("model", model_ok),
               ("serving", serving_ok), ("training", training_ok),
               ("seq2seq_training", seq2seq_ok), ("bench_workload", bench_ok),
-              ("ilql", ilql_ok), ("grpo", grpo_ok), ("continuous_engine", continuous_ok))
+              ("ilql", ilql_ok), ("grpo", grpo_ok), ("continuous_engine", continuous_ok),
+              ("serving_tier", tier_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

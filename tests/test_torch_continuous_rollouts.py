@@ -17,8 +17,15 @@ continuous``), held three ways on tiny f32 GPT-2 policies:
   order token-exact, logprobs, values and rewards at 1e-5, per-update
   stats at 2e-4, final parameters under ``assert_final_params_match``.
 
-And the refusals: grouped sampling, seq2seq, ILQL, async RL and chunked
-prefill under the continuous engine.
+- the same sampled phase with chunked admission prefill and speculative
+  decoding on in both packages' engines (``rollout.prefill_chunk``,
+  ``rollout.spec_decode``): the same checks, and the chunk and verify
+  counters of the collection equal.
+
+Each feature on its own is accepted and runs a collection. And the
+refusals: grouped sampling, seq2seq, ILQL and async RL under the
+continuous engine, ``prefill_chunks_per_pump`` without chunking and
+``spec_decode`` under the fixed engine.
 """
 
 import jax
@@ -27,10 +34,12 @@ import pytest
 import torch
 
 from _torch_ppo_phase import (
+    N_PROMPTS,
     assert_final_params_match,
     config,
     engine_noise,
     port_trainer,
+    reward_fn,
     run_jax,
     run_port_sampled,
 )
@@ -230,6 +239,73 @@ def test_phase_updates_and_final_params_match(runs):
     assert moved > 1e-4
 
 
+# ------------- one learn() phase with chunking and spec decode ------------- #
+
+FEATURE_ENGINE = dict(PHASE_ENGINE, prefill_chunk=3,
+                      spec_decode={"enabled": True, "max_draft": 3, "drafter": "ngram"})
+ENGINE_COUNTERS = ("admitted", "completed", "prefills", "prefill_chunks",
+                   "prefill_cols_skipped", "decode_steps", "spec_steps", "spec_drafted",
+                   "spec_accepted")
+
+
+@pytest.fixture(scope="module")
+def feature_runs(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("continuous_features")
+    # prompts that repeat a pair of tokens: the n-gram drafter proposes
+    # from the first step on
+    rng = np.random.default_rng(4)
+    data = ([[int(t) for t in list(rng.integers(0, 36, 2)) * 3][:int(n)]
+             for n in rng.integers(3, 7, N_PROMPTS)], reward_fn, None)
+    jax_run = run_jax(engine_config(tmp / "jax", FEATURE_ENGINE), data=data, sampled=True)
+    cfg = engine_config(tmp / "port", FEATURE_ENGINE)
+    port_run = run_port_sampled(port_trainer(cfg, jax_run["init"], data=data), jax_run)
+    # one collection a phase: the engines' counters are that collection's
+    counters = [{k: getattr(run["trainer"].rollout_engine_obj.stats, k) for k in ENGINE_COUNTERS}
+                for run in (port_run, jax_run)]
+    return jax_run, dict(port_run, counters=counters), cfg
+
+
+def test_feature_phase_rollouts_match(feature_runs):
+    jax_run, port_run, _ = feature_runs
+    for key in ("query_tokens", "query_mask", "response_tokens", "response_mask"):
+        np.testing.assert_array_equal(port_run["buffer"][key], jax_run["buffer"][key], err_msg=key)
+    for key in ("logprobs", "values", "rewards"):
+        np.testing.assert_allclose(port_run["buffer"][key], jax_run["buffer"][key],
+                                   atol=1e-5, rtol=0, err_msg=key)
+    got, want = port_run["counters"]
+    assert got == want
+    engine = port_run["trainer"].rollout_engine_obj
+    assert engine.prefill_chunk == 3 and engine.spec_max_draft == 3
+    assert got["prefill_chunks"] > 0 and got["spec_steps"] > 0 and got["completed"] == 16
+
+
+def test_feature_phase_updates_and_final_params_match(feature_runs):
+    jax_run, port_run, cfg = feature_runs
+    for key, want in jax_run["rows"].items():
+        np.testing.assert_allclose(port_run["rows"][key], np.asarray(want), atol=2e-4,
+                                   rtol=2e-4, err_msg=key)
+    noisy = port_run["noisy"]
+    assert sum(int(m.sum()) for m in noisy.values()) < 1e-2 * sum(m.numel() for m in noisy.values())
+    assert assert_final_params_match(
+        port_run["trainer"].model.state_dict(), jax_run, cfg, noisy) > 1e-4
+
+
+@pytest.mark.parametrize("feature", ["prefill_chunk", "spec_decode"])
+def test_engine_features_are_accepted_and_run(tmp_path, feature):
+    """Each feature on its own builds the trainer's engine with it and runs
+    a collection of the phase's 16 rollouts."""
+    rollout = dict(ENGINE, prefill_chunk=3) if feature == "prefill_chunk" else dict(
+        ENGINE, spec_decode={"enabled": True})
+    trainer = port_trainer(engine_config(tmp_path, rollout))
+    stats = trainer.orch.make_experience(16, 0)
+    engine = trainer.rollout_engine_obj
+    assert stats["engine/completed"] == 16 and len(trainer.buffer) == 16
+    if feature == "prefill_chunk":
+        assert engine.prefill_chunk == 3 and stats["engine/prefill_chunks"] > 0
+    else:
+        assert engine.spec_max_draft == 4 and engine.spec_drafter is not None
+
+
 # ------------------------------ refusals ----------------------------- #
 
 
@@ -241,10 +317,12 @@ REFUSALS = {
                                         "vf_coef": 0.0}}, NotImplementedError, "grouped"),
     "async_rl": ("PPOTrainer", {"train": {"async_rl": {"enabled": True}}}, NotImplementedError,
                  "async_rl"),
-    "prefill_chunk": ("PPOTrainer", {"train": {"rollout": dict(ENGINE, prefill_chunk=4)}},
-                      NotImplementedError, "prefill_chunk"),
-    "spec_decode": ("PPOTrainer", {"train": {"rollout": dict(
-        ENGINE, spec_decode={"enabled": True})}}, NotImplementedError, "spec_decode"),
+    # the reference's own refusals: a chunk budget needs chunking, and the
+    # fixed sampler has no verify step
+    "prefill_chunk": ("PPOTrainer", {"train": {"rollout": dict(
+        ENGINE, prefill_chunks_per_pump=2)}}, ValueError, "prefill_chunk"),
+    "spec_decode": ("PPOTrainer", {"train": {"rollout": {
+        "engine": "fixed", "spec_decode": {"enabled": True}}}}, ValueError, "spec_decode"),
 }
 
 

@@ -168,17 +168,52 @@ def test_sampled_tokens_do_not_depend_on_admission_schedule(servers):
 
 
 def test_unported_features_raise():
+    """The int8 shared-prefix pool is refused by name (it comes with the
+    int8 KV cache), and ``spec_decode`` under the fixed engine with the
+    reference's own ``ValueError``."""
+    from trlx_tpu_torch.inference import RolloutEngineConfig
+    from trlx_tpu_torch.inference.kv_cache import init_shared_pool, paged_write_read
+    from trlx_tpu_torch.inference.server import InferenceServer
+
+    with pytest.raises(ValueError, match="spec_decode"):
+        RolloutEngineConfig.from_dict({"engine": "fixed", "spec_decode": {"enabled": True}})
+    with pytest.raises(NotImplementedError, match="int8 shared-prefix pool"):
+        init_shared_pool(4, 4, 2, 16, torch.float32, kv_cache_dtype="int8")
+    cache = {"k": torch.zeros(1, 9, 2, 16), "v": torch.zeros(1, 9, 2, 16),
+             "block_tables": torch.zeros(1, 2, dtype=torch.int32),
+             "shared_k_scale": torch.zeros(9, 2, 1)}
+    with pytest.raises(NotImplementedError, match="int8"):
+        paged_write_read(cache, torch.zeros(1, 1, 2, 16), torch.zeros(1, 1, 2, 16), 0,
+                         torch.float32)
+    cfg = _config()
+    cfg["model"]["model_arch"]["kv_cache_dtype"] = "int8"
+    cfg["train"]["serving"] = {"prefix_cache_blocks": 4}
+    with pytest.raises(NotImplementedError, match="int8"):
+        InferenceServer(cfg, device="cpu")
+
+
+def test_serving_features_are_accepted_and_run():
+    """Chunked prefill, speculative decoding and the shared-prefix pool
+    construct and serve (their parity with the reference is
+    ``tests/test_torch_serving_tier.py``)."""
     from trlx_tpu_torch.inference import RolloutEngineConfig
     from trlx_tpu_torch.inference.server import InferenceServer
 
-    with pytest.raises(NotImplementedError, match="spec_decode"):
-        RolloutEngineConfig.from_dict({"engine": "continuous", "spec_decode": {"enabled": True}})
-    with pytest.raises(NotImplementedError, match="prefill_chunk"):
-        RolloutEngineConfig.from_dict({"prefill_chunk": 4})
+    rollout = RolloutEngineConfig.from_dict(
+        {"engine": "continuous", "prefill_chunk": 128, "spec_decode": {"enabled": True}}
+    )
+    assert rollout.prefill_chunk == 128 and rollout.spec_decode.enabled
     cfg = _config()
-    cfg["train"]["serving"] = {"prefix_cache_blocks": 4}
-    with pytest.raises(NotImplementedError, match="prefix"):
-        InferenceServer(cfg, device="cpu")
+    cfg["train"]["rollout"] = dict(ROLLOUT, engine="continuous", prefill_chunk=4,
+                                   spec_decode={"enabled": True, "max_draft": 2})
+    server = InferenceServer(cfg, device="cpu", serving={"prefix_cache_blocks": 8})
+    prompt = list(range(1, 9))
+    # the second wave reads the blocks the first published
+    results = server.generate([prompt] * 2) + server.generate([prompt] * 4)
+    assert all(r["length"] >= 1 for r in results)
+    stats = server.stats()
+    assert stats["prefix_pool/hits"] > 0 and stats["engine/prefill_chunks"] > 0
+    assert server.engine.stats.spec_steps > 0 and server.engine.spec_max_draft == 2
 
 
 def test_entry_point_refuses_missing_cuda():

@@ -55,10 +55,13 @@
 //    the group's running max. The groups merge with the usual exp(m_g - m)
 //    rescale, in a warp by shuffles, across warps through shared memory. No
 //    second launch: B*H CTAs (384 and 1536 at the path's shapes) fill the
-//    132 SMs. Q in 2..16 (no path sends it) rereads K/V once per row; a
-//    path that decodes several rows at once (speculative or chunked
-//    decode) would want them held in one CTA. Under the causal flag the
-//    visit rule leaves keys 0-63.
+//    132 SMs. Q in 2..16 rereads K/V once per row, and two paths send it:
+//    ILQL's eval prefill (B=128 Q=16 K=64: 0.121 ms against a 0.0095 ms
+//    bound) and the serving engine's speculative verify step (B=32 Q=5
+//    K=576, 12 launches a step: 0.080 ms against a 0.017 ms bound, SDPA
+//    0.043 ms; chip_smoke.py phase 2 on an H100 80GB HBM3 at 700 W).
+//    Holding a (head, batch row)'s query rows in one CTA would read its K/V
+//    once. Under the causal flag the visit rule leaves keys 0-63.
 //
 //  fma (f32, every Q): the parity path, on the CUDA cores. Register-blocked
 //    4x4 f32 FMA from shared memory, K/V tiles staged in f32. Tensor cores

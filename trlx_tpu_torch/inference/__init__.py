@@ -5,9 +5,8 @@
 - :mod:`trlx_tpu_torch.inference.server` — submit/poll serving over it.
 
 Config surface: ``train.rollout`` (:class:`RolloutEngineConfig`), parsed
-exactly as the JAX package parses it. Speculative decoding and chunked
-prefill come with a later slice: an enabled ``spec_decode`` or a
-``prefill_chunk > 0`` raises :class:`NotImplementedError` here.
+and validated exactly as the JAX package parses it, chunked prefill and
+speculative decoding included.
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ SPEC_DRAFTERS = ("trie", "ngram")
 @dataclass(frozen=True)
 class SpecDecodeConfig:
     """Parsed ``train.rollout.spec_decode`` section (same keys and
-    validation as the JAX package; enabling it is refused in this slice).
+    validation as the JAX package).
 
     :param enabled: turn drafted verify steps on.
     :param max_draft: draft-token cap per slot per verify step.
@@ -91,11 +90,14 @@ class RolloutEngineConfig:
     :param per_row_rng: per-row sampling noise in the FIXED sampler too
         (``None`` = only under ``engine: continuous``, which always samples
         per row): the two engines then draw one row's noise alike.
-    :param prefill_chunk: chunked prefill width; ``> 0`` is refused here.
-    :param prefill_chunks_per_pump: chunk budget per pump (needs
-        ``prefill_chunk``).
-    :param spec_decode: :class:`SpecDecodeConfig`; enabling it is refused
-        here.
+    :param prefill_chunk: chunked admission prefill width in prompt
+        columns (rounded by
+        :func:`~trlx_tpu_torch.inference.kv_cache.choose_prefill_chunk`);
+        0 = the monolithic prefill.
+    :param prefill_chunks_per_pump: serving-pump chunk budget (needs
+        ``prefill_chunk``); 0 = unbounded.
+    :param spec_decode: :class:`SpecDecodeConfig` (continuous engine
+        only).
     """
 
     engine: str = "fixed"
@@ -110,18 +112,6 @@ class RolloutEngineConfig:
     spec_decode: Optional[SpecDecodeConfig] = None
 
     def __post_init__(self):
-        if self.spec_decode is not None and self.spec_decode.enabled and (
-            self.engine == "continuous"
-        ):
-            raise NotImplementedError(
-                "train.rollout spec_decode is not ported yet (the verify "
-                "step comes with a later slice)"
-            )
-        if self.prefill_chunk > 0:
-            raise NotImplementedError(
-                "train.rollout prefill_chunk > 0 is not ported yet (chunked "
-                "prefill comes with a later slice)"
-            )
         if (
             self.spec_decode is not None
             and self.spec_decode.enabled

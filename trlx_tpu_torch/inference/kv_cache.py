@@ -15,7 +15,19 @@ trailing position, ``capacity``, where discarded writes land; no read ever
 gathers it. The port writes in place where the JAX package returns
 updated buffers.
 
-The shared-prefix pool comes with the serving-tier slice and raises here.
+**Cross-request prefix sharing** (the serving tier,
+:mod:`trlx_tpu_torch.serving.prefix_cache`): an engine built with a prefix
+pool gives each layer a flat pool ``shared_k``/``shared_v`` of
+``pool_blocks * block_size`` positions (plus one discard position, as the
+per-slot regions), and per-slot ``shared_tables`` (logical block ``j``
+READS from pool block ``shared_tables[b, j]`` when ``>= 0``) and, during
+admission prefill, ``publish_tables`` (prefill WRITES logical block ``j``
+into pool block ``publish_tables[b, j]`` when ``>= 0``). Private writes
+to shared columns are dropped, and the view is overlaid from the pool
+after the writes, so a publisher reads its own just-written bits. A
+shared block's bits are the donor's, which equal what the reader's own
+prefill would compute for the same leading ``(ids, mask)`` columns; the
+read side is a gather. The int8 pool comes with the int8 cache.
 """
 
 from __future__ import annotations
@@ -34,6 +46,27 @@ def choose_block_size(capacity: int, requested: int) -> int:
     while capacity % bs:
         bs -= 1
     return bs
+
+
+def choose_prefill_chunk(query_length: int, requested: int, block_size: int) -> int:
+    """Effective chunked-prefill width for ``rollout.prefill_chunk``: the
+    largest divisor of ``query_length`` that is ``<= requested`` and a
+    ``block_size`` multiple (a pool-covered block is then never split
+    across a run/skip boundary), else the largest plain divisor (skip
+    decisions are column-granular, so only the skipping's efficiency
+    depends on alignment). ``requested <= 0`` disables chunking."""
+    if requested <= 0:
+        return 0
+    hi = min(int(requested), int(query_length))
+    fallback = 1
+    for w in range(hi, 0, -1):
+        if query_length % w:
+            continue
+        if w % block_size == 0:
+            return w
+        if fallback == 1:
+            fallback = w
+    return fallback
 
 
 def identity_block_tables(n_slots: int, n_blocks: int, device=None) -> torch.Tensor:
@@ -82,6 +115,46 @@ def init_paged_cache(
     return [dict(layer, block_tables=tables) for layer in layers]
 
 
+def empty_share_tables(n_slots: int, n_blocks: int, device=None) -> torch.Tensor:
+    """[B, n_blocks] int32 all ``-1``: no block shared or published."""
+    return torch.full((n_slots, n_blocks), -1, dtype=torch.int32, device=device)
+
+
+def init_shared_pool(
+    pool_blocks: int,
+    block_size: int,
+    n_head: int,
+    head_dim: int,
+    dtype,
+    kv_cache_dtype: str = "bfloat16",
+    device=None,
+) -> Dict[str, torch.Tensor]:
+    """Per-layer shared-prefix pool buffers ``[pool_blocks * block_size +
+    1, H, Dh]`` in the private regions' layout; the last position is the
+    discard sentinel of rows that publish nothing."""
+    from trlx_tpu_torch.models.gpt2 import torch_dtype
+
+    if pool_blocks < 1:
+        raise ValueError(f"prefix pool needs >= 1 block, got {pool_blocks}")
+    if kv_cache_dtype != "bfloat16":
+        raise NotImplementedError(
+            "the int8 shared-prefix pool comes with the int8 KV cache "
+            f"(kv_cache_dtype={kv_cache_dtype!r})"
+        )
+    shape = (pool_blocks * block_size + 1, n_head, head_dim)
+    dt = torch_dtype(dtype)
+    return {
+        "shared_k": torch.zeros(shape, dtype=dt, device=device),
+        "shared_v": torch.zeros(shape, dtype=dt, device=device),
+    }
+
+
+#: cache-dict keys of the shared-prefix pool (global, never indexed by
+#: slot) and of the per-slot share metadata
+SHARED_POOL_KEYS = ("shared_k", "shared_v", "shared_k_scale", "shared_v_scale")
+SHARE_TABLE_KEYS = ("shared_tables", "publish_tables")
+
+
 def physical_positions(
     block_tables: torch.Tensor,  # [B, n_blocks] int
     positions: torch.Tensor,  # [B, T] logical positions (may be >= capacity)
@@ -107,6 +180,33 @@ def logical_view_index(block_tables: torch.Tensor, capacity: int) -> torch.Tenso
     return phys.reshape(block_tables.shape[0], capacity)
 
 
+def _publish_rows(pool: torch.Tensor, pub_pos: torch.Tensor, rows: torch.Tensor) -> None:
+    """Scatter ``rows`` [B, T, ...] into the flat shared pool at
+    ``pub_pos`` [B, T] (in place); rows without a publish assignment land
+    on the pool's discard sentinel. The host allocator never gives two
+    rows the same block, so real writes do not collide."""
+    pool[pub_pos.reshape(-1)] = rows.reshape((-1,) + rows.shape[2:]).to(pool.dtype)
+
+
+def _shared_gather(
+    shared_tables: torch.Tensor,  # [B, n_blocks] int, -1 = private
+    pool: torch.Tensor,  # [pool positions + 1, H, Dh]
+    capacity: int,
+    view_len: int = 0,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per logical position, the shared-pool value (garbage where the block
+    is private) and the [B, width] bool mask of shared positions: the
+    read-side overlay. ``view_len > 0`` narrows it to the leading
+    ``view_len`` positions (shared blocks all lie in the prompt region)."""
+    n_blocks = shared_tables.shape[-1]
+    bs = capacity // n_blocks
+    width = view_len if 0 < view_len < capacity else capacity
+    cols = torch.arange(width, device=shared_tables.device)
+    sh_blk = shared_tables.long()[:, cols // bs]  # [B, width]
+    safe = (sh_blk * bs + cols[None, :] % bs).clamp(0, pool.shape[0] - 2)
+    return pool[safe], sh_blk >= 0
+
+
 def paged_write_read(
     cache_kv: Dict[str, torch.Tensor],
     k: torch.Tensor,  # [B, T, H, Dh] new keys
@@ -122,13 +222,18 @@ def paged_write_read(
     ``cache_kv["slots"]`` (optional, [B] long) names the pool rows the B
     batch rows live in — the engine's admission prefill writes straight
     into the admitted slots of the full pool; without it row b is slot b.
-    ``view_len > 0`` narrows the returned view; writes always resolve at
-    full capacity."""
-    if "shared_tables" in cache_kv:
-        raise NotImplementedError(
-            "the shared-prefix KV pool comes with the serving-tier slice"
-        )
-    if "k_scale" in cache_kv:
+    A [B, T] ``cache_index`` names each column's logical position (the
+    verify step's drafted window parks its unused columns at
+    ``capacity``, the discard sentinel). ``view_len > 0`` narrows the
+    returned view (and the shared overlay); writes always resolve at full
+    capacity.
+
+    With ``shared_tables`` (the prefix pool), private writes to shared
+    columns are dropped, ``publish_tables`` columns are also written into
+    the pool, and shared positions of the view are read from the pool
+    after all writes. Every pool op runs on the caller's stream, so a
+    publishing prefill's scatter lands before a later group's gather."""
+    if "k_scale" in cache_kv or "shared_k_scale" in cache_kv:
         raise NotImplementedError("the int8 KV cache comes with a later slice")
     B, T = k.shape[0], k.shape[1]
     pool_k, pool_v = cache_kv["k"], cache_kv["v"]
@@ -144,10 +249,33 @@ def paged_write_read(
     else:
         positions = idx.expand(B)[:, None] + torch.arange(T, device=dev)[None, :]
     phys = physical_positions(tables, positions, capacity)
+    shared_tables = cache_kv.get("shared_tables")
+    if shared_tables is not None:
+        bs = capacity // shared_tables.shape[-1]
+        col_blk = (positions // bs).clamp(0, shared_tables.shape[-1] - 1)
+        in_range = (positions >= 0) & (positions < capacity)
+        shared_at = torch.gather(shared_tables.long(), 1, col_blk) >= 0
+        phys = torch.where(shared_at & in_range, capacity, phys)
+        publish_tables = cache_kv.get("publish_tables")
+        if publish_tables is not None:
+            sentinel = cache_kv["shared_k"].shape[0] - 1
+            pub_blk = torch.gather(publish_tables.long(), 1, col_blk)
+            pub_pos = torch.where(
+                (pub_blk >= 0) & in_range, pub_blk * bs + positions % bs, sentinel
+            )
+            _publish_rows(cache_kv["shared_k"], pub_pos, k)
+            _publish_rows(cache_kv["shared_v"], pub_pos, v)
     rows = slots[:, None]
     pool_k[rows, phys] = k.to(pool_k.dtype)
     pool_v[rows, phys] = v.to(pool_v.dtype)
     view = logical_view_index(tables, capacity)
     if 0 < view_len < capacity:
         view = view[:, :view_len]
-    return pool_k[rows, view].to(dtype), pool_v[rows, view].to(dtype)
+    k_full, v_full = pool_k[rows, view].to(dtype), pool_v[rows, view].to(dtype)
+    if shared_tables is not None:
+        out = []
+        for full, key in ((k_full, "shared_k"), (v_full, "shared_v")):
+            vals, mask = _shared_gather(shared_tables, cache_kv[key], capacity, view_len)
+            out.append(torch.where(mask[..., None, None], vals.to(dtype), full))
+        k_full, v_full = out
+    return k_full, v_full

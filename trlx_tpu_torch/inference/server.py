@@ -14,11 +14,13 @@ trainer checkpoint (``checkpoint_dir``), then a converted HF checkpoint
 then random weights from the seed. Serving is causal-only, as in the
 reference.
 
-Not yet ported (later slices): the shared-prefix pool
-(``serving.prefix_cache_blocks > 0`` raises), speculative decoding
-and chunked prefill (refused by
-:class:`~trlx_tpu_torch.inference.RolloutEngineConfig`), the health
-monitor, request tracing and the ``serve/*`` histograms.
+The serving features, as in the reference: ``serving.prefix_cache_blocks
+> 0`` builds the shared-prefix pool (:class:`PrefixBlockPool`: a plan per
+admitted request, released at completion); ``rollout.prefill_chunk`` and
+``prefill_chunks_per_pump`` chunk the admission prefill; an enabled
+``rollout.spec_decode`` drafts with the trie drafter bound to the pool (or
+the n-gram drafter). Not yet ported (later slices): the health monitor,
+request tracing and the ``serve/*`` histograms.
 """
 
 from __future__ import annotations
@@ -76,7 +78,7 @@ class InferenceServer:
             GenerationConfig,
             validate_gen_config,
         )
-        from trlx_tpu_torch.serving import ServingConfig
+        from trlx_tpu_torch.serving import PrefixBlockPool, ServingConfig, TrieDrafter
         from trlx_tpu_torch.serving.scheduler import build_scheduler
         from trlx_tpu_torch.serving.streaming import StreamRouter
         from trlx_tpu_torch.utils.checkpoint import load_checkpoint
@@ -140,11 +142,8 @@ class InferenceServer:
         self.serving_config = ServingConfig.from_dict(
             serving if serving is not None else train.serving
         )
-        if self.serving_config.prefix_cache_blocks > 0:
-            raise NotImplementedError(
-                "serving.prefix_cache_blocks > 0: the shared-prefix pool "
-                "comes with the serving-tier slice"
-            )
+        spec = rollout.spec_decode
+        spec_on = spec is not None and spec.enabled
         self.engine = ContinuousBatchingEngine(
             apply_fn=self.model,
             init_cache_fn=functools.partial(
@@ -158,14 +157,40 @@ class InferenceServer:
             harvest_width=rollout.harvest_width,
             block_size=rollout.block_size,
             done_poll_interval=rollout.poll_interval,
+            prefix_pool_blocks=self.serving_config.prefix_cache_blocks,
+            prefill_chunk=rollout.prefill_chunk,
+            prefill_chunks_per_pump=rollout.prefill_chunks_per_pump,
+            spec_max_draft=spec.max_draft if spec_on else 0,
+            spec_min_accept_ewma=spec.min_accept_ewma if spec_on else 0.0,
+            model_config=self.model_config,
             device=self.device,
         )
+        self.prefix_pool = (
+            PrefixBlockPool(
+                self.serving_config.prefix_cache_blocks,
+                self.engine.block_size,
+                self.engine.n_blocks,
+            )
+            if self.serving_config.prefix_cache_blocks > 0
+            else None
+        )
+        if spec_on and spec.drafter == "trie" and self.engine.spec_max_draft:
+            # the pool's published chains become the global draft corpus
+            # (pool=None, sharing off, keeps pure n-gram drafting)
+            self.engine.spec_drafter = TrieDrafter(
+                pool=self.prefix_pool,
+                max_draft=self.engine.spec_max_draft,
+                min_accept_ewma=spec.min_accept_ewma,
+            )
+        self.engine._admit_listener = self._on_admitted
         self.engine.start_phase(seed)
         self.scheduler = build_scheduler(self.serving_config)
         self._router = StreamRouter(maxlen=self.serving_config.stream_buffer)
         self._requests: Dict[int, Any] = {}  # request_id -> Request
         self._row_to_req: Dict[int, int] = {}  # engine row -> request_id
         self._req_row: Dict[int, int] = {}  # request_id -> engine row
+        self._acquired: Dict[int, List[int]] = {}  # rid -> pool blocks
+        self._published_by_row: Dict[int, List[int]] = {}
         self._streams: Dict[int, Any] = {}  # rid -> TokenStream
         self._results: Dict[int, Dict[str, Any]] = {}
         self._open: Dict[int, bool] = {}
@@ -260,16 +285,56 @@ class InferenceServer:
 
     # --------------------------- serving pump --------------------------- #
 
+    def _on_admitted(self, rows: List[int]) -> None:
+        """Engine admit listener: the blocks these rows published become
+        readable for later admission groups (their prefill has been
+        launched on the engine's stream, ahead of any later gather)."""
+        if self.prefix_pool is None:
+            return
+        for row in rows:
+            published = self._published_by_row.pop(row, None)
+            if published:
+                self.prefix_pool.mark_ready(published)
+
     def _engine_submit(self, batch) -> None:
-        """Move scheduler picks into the engine's admission queue."""
-        rows = self.engine.submit(
-            np.stack([req.prompt_ids for req in batch]),
-            np.stack([req.prompt_mask for req in batch]),
-            submit_times=[req.submitted_at for req in batch],
-        )
-        for row, req in zip(rows, batch):
+        """Move scheduler picks into the engine's admission queue, each
+        with its prefix-sharing plan when the pool is on."""
+        plans = []
+        if self.prefix_pool is not None:
+            eligible = self.query_length // self.engine.block_size
+            plans = [
+                self.prefix_pool.plan_admission(
+                    req.prompt_ids, req.prompt_mask, eligible_blocks=eligible
+                )
+                for req in batch
+            ]
+        try:
+            rows = self.engine.submit(
+                np.stack([req.prompt_ids for req in batch]),
+                np.stack([req.prompt_mask for req in batch]),
+                shared_maps=np.stack([p.shared_map for p in plans]) if plans else None,
+                publish_maps=np.stack([p.publish_map for p in plans]) if plans else None,
+                submit_times=[req.submitted_at for req in batch],
+            )
+        except Exception:
+            # roll the plans back, or their references and never-ready
+            # published blocks would pin the pool for good
+            for plan in plans:
+                if plan.acquired:
+                    self.prefix_pool.abandon(plan.acquired)
+            raise
+        for i, (row, req) in enumerate(zip(rows, batch)):
             self._row_to_req[row] = req.request_id
             self._req_row[req.request_id] = row
+            if self.engine.spec_drafter is not None:
+                # one tenant's unpredictable text degrades that tenant's
+                # drafting, not everyone's
+                self.engine.spec_drafter.set_tenant(row, req.tenant)
+            if plans:
+                if plans[i].acquired:
+                    self._acquired[req.request_id] = plans[i].acquired
+                if plans[i].published:
+                    self._published_by_row[row] = plans[i].published
             if req.stream:
                 s = self._streams.get(req.request_id)
                 if s is not None:
@@ -310,6 +375,13 @@ class InferenceServer:
         for j, row in enumerate(group["rows"]):
             timing = self.engine.pop_request_timing(row)
             rid = self._row_to_req.pop(row, None)
+            self._published_by_row.pop(row, None)
+            # references drop for every harvested row with a plan, also a
+            # request closed early (it would pin pool blocks otherwise)
+            if rid is not None:
+                acquired = self._acquired.pop(rid, None)
+                if acquired and self.prefix_pool is not None:
+                    self.prefix_pool.release(acquired)
             stream = self._router.pop(row)
             if stream is not None:
                 stream.close()
@@ -376,9 +448,14 @@ class InferenceServer:
         return [done[r] for r in rids]
 
     def stats(self) -> Dict[str, float]:
-        """Engine counters (cumulative) plus scheduler accounting."""
+        """Engine counters (cumulative) plus scheduler, prefix-pool and
+        drafter accounting."""
         out = self.engine.stats.to_dict()
         out["scheduler/admitted"] = float(self.scheduler.admitted)
         out["scheduler/pending"] = float(self.scheduler.pending)
         out["scheduler/throttled_rounds"] = float(self.scheduler.throttled_rounds)
+        if self.prefix_pool is not None:
+            out.update(self.prefix_pool.stats())
+        if self.engine.spec_drafter is not None:
+            out.update(self.engine.spec_drafter.stats())
         return out

@@ -1,7 +1,7 @@
 """Token selection and the fixed-batch samplers (counterpart of
 :mod:`trlx_tpu.ops.sampling`: ``GenerationConfig``, ``validate_gen_config``,
 ``suppress_eos_before_min``, ``filter_logits``, ``choose_tokens``,
-``make_sampler`` and ``make_seq2seq_sampler``).
+``accept_drafts``, ``make_sampler`` and ``make_seq2seq_sampler``).
 
 Sampling is ``argmax(filtered_logits + gumbel_noise)``, which is how
 ``jax.random.categorical`` samples, so a test that injects the JAX
@@ -172,6 +172,64 @@ def choose_tokens(
     if gen_config.max_length > 0:
         finished = finished | (n_real + t + 1 >= gen_config.max_length)
     return token, live.to(torch.int32), logprob, value_out, finished
+
+
+def accept_drafts(
+    gen_config: GenerationConfig,
+    logits_seq: torch.Tensor,  # [B, D, V] f32: column j-1 predicts token t0 + j
+    values_seq: torch.Tensor,  # [B, D] f32 value estimates at those columns
+    t0: torch.Tensor,  # [B] decode step of the anchor token
+    finished: torch.Tensor,  # [B] bool AFTER the anchor (its finished_next)
+    accepted0: torch.Tensor,  # [B] bool: the anchor token was live
+    n_real: torch.Tensor,  # [B] real prompt lengths
+    draft: torch.Tensor,  # [B, D] proposed tokens for t0+1..t0+D
+    draft_len: torch.Tensor,  # [B] valid draft columns (0..D)
+    noise: Optional[torch.Tensor] = None,  # [B, D, V] Gumbel draws at t0+1..t0+D
+    min_new=None,
+    budget: int = 0,  # R: tokens past it are never accepted
+):
+    """Longest-prefix draft acceptance, the speculative verify step's token
+    rule: at every drafted position run :func:`choose_tokens` (under the
+    row's own noise at step ``t0 + j``) and accept draft ``j`` iff every
+    earlier position was accepted and the sample equals the draft. Token
+    ``t`` of a row is a function of its noise at ``t`` and its logits at
+    ``t``, and the accepted prefix reproduces the one-token loop's inputs,
+    so accepted tokens are the tokens that loop would have sampled.
+    Returns ``(tokens, accepted, logprobs, values, n_accepted,
+    finished_next)``, [B, D] and [B]; ``accepted`` is a contiguous int32
+    prefix mask per row."""
+    B, D = draft.shape[0], draft.shape[1]
+    dev = logits_seq.device
+    acc_prev = torch.as_tensor(accepted0, device=dev).bool()
+    fin = finished
+    n_acc = torch.zeros(B, dtype=torch.long, device=dev)
+    t0 = torch.as_tensor(t0, device=dev).long()
+    draft = draft.to(dev)
+    draft_len = torch.as_tensor(draft_len, device=dev)
+    toks, accs, lps, vals = [], [], [], []
+    for j in range(1, D + 1):
+        token, live, logprob, value_out, fin_next = choose_tokens(
+            gen_config, logits_seq[:, j - 1], t0 + j, fin, values_seq[:, j - 1],
+            n_real, min_new=min_new,
+            noise=None if noise is None else noise[:, j - 1],
+        )
+        ok = (
+            acc_prev & (live == 1) & (j <= draft_len)
+            & (token.long() == draft[:, j - 1].long()) & (t0 + j < budget)
+        )
+        # finished advances only along the accepted prefix: a rejected
+        # position's eos is sampled again by a later step
+        fin = torch.where(ok, fin_next, fin)
+        n_acc = n_acc + ok.long()
+        acc_prev = ok
+        toks.append(token)
+        accs.append(ok.to(torch.int32))
+        lps.append(logprob)
+        vals.append(value_out)
+    return (
+        torch.stack(toks, 1), torch.stack(accs, 1), torch.stack(lps, 1),
+        torch.stack(vals, 1), n_acc, fin,
+    )
 
 
 def _mix64(x: int) -> int:

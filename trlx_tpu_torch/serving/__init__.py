@@ -3,12 +3,13 @@
 - :mod:`trlx_tpu_torch.serving.scheduler` — typed :class:`Request`s into
   per-tenant queues with token-bucket quotas, priority admission with
   aging, deadline/SLO-class ordering;
+- :mod:`trlx_tpu_torch.serving.prefix_cache` — host-side radix trie +
+  refcounted shared-block pool: requests with a common prompt prefix map
+  their leading KV blocks onto the same published pool blocks;
+- :mod:`trlx_tpu_torch.serving.spec_drafter` — the host-side draft
+  proposers of speculative decoding;
 - :mod:`trlx_tpu_torch.serving.streaming` — per-request bounded token
   queues fed by the engine's per-decode-step tap.
-
-The shared-prefix pool and the speculative drafters come with a later
-slice; :class:`ServingConfig` parses their keys and the server refuses
-``prefix_cache_blocks > 0`` until then.
 """
 
 from __future__ import annotations
@@ -24,6 +25,11 @@ from trlx_tpu_torch.serving.scheduler import (  # noqa: F401
     SLOClass,
     TenantConfig,
     TokenBucket,
+)
+from trlx_tpu_torch.serving.prefix_cache import PrefixBlockPool  # noqa: F401
+from trlx_tpu_torch.serving.spec_drafter import (  # noqa: F401
+    NGramDrafter,
+    TrieDrafter,
 )
 from trlx_tpu_torch.serving.streaming import (  # noqa: F401
     StreamRouter,
@@ -43,8 +49,7 @@ class ServingConfig:
         :data:`~trlx_tpu_torch.serving.scheduler.DEFAULT_SLO_CLASSES`, e.g.
         ``{"interactive": {"queue_wait_budget_ms": 200}}``.
     :param prefix_cache_blocks: shared-prefix pool size in KV blocks;
-        0 disables cross-request prefix sharing (the only value the port
-        serves so far).
+        0 disables cross-request prefix sharing.
     :param stream_buffer: per-request streamed-token queue bound.
     :param aging_half_ms: queue wait that buys one effective-priority
         point (anti-starvation aging).
@@ -74,6 +79,8 @@ class ServingConfig:
 
 __all__ = [
     "DEFAULT_SLO_CLASSES",
+    "NGramDrafter",
+    "PrefixBlockPool",
     "QoSScheduler",
     "Request",
     "SLOClass",
@@ -82,4 +89,5 @@ __all__ = [
     "TenantConfig",
     "TokenBucket",
     "TokenStream",
+    "TrieDrafter",
 ]

@@ -364,11 +364,14 @@ class PPOTrainer(BaseRLTrainer):
     def _build_rollout_engine(self):
         """The engine over the trainer's own policy module (the fixed
         sampler's per-use bf16 cast, its forwards counted) and the family's
-        KV cache: ``rollout.slots`` slots, else one per chunk rollout."""
+        KV cache: ``rollout.slots`` slots, else one per chunk rollout, with
+        the rollout section's chunked prefill and speculative decoding."""
         from trlx_tpu_torch.inference.engine import ContinuousBatchingEngine
 
         cfg = self.rollout_config
         chunk = int(getattr(self.config.method, "chunk_size", 0) or self.config.train.batch_size)
+        spec = cfg.spec_decode
+        spec_on = spec is not None and spec.enabled
         return ContinuousBatchingEngine(
             apply_fn=self._apply,
             init_cache_fn=functools.partial(
@@ -382,6 +385,13 @@ class PPOTrainer(BaseRLTrainer):
             harvest_width=cfg.harvest_width,
             block_size=cfg.block_size,
             done_poll_interval=cfg.poll_interval,
+            prefill_chunk=cfg.prefill_chunk,
+            prefill_chunks_per_pump=cfg.prefill_chunks_per_pump,
+            # the trainer has no prefix pool, so spec_decode.drafter: trie
+            # is the per-row n-gram drafter here, as in the reference
+            spec_max_draft=spec.max_draft if spec_on else 0,
+            spec_min_accept_ewma=spec.min_accept_ewma if spec_on else 0.0,
+            model_config=self.model_config,
             device=self.device,
         )
 
