@@ -8,7 +8,8 @@ Phases, each fatal on failure:
    the tensor cores, ``decode`` for bf16 with Q <= 16, ``fma`` for f32;
    ``flash_bwd.cu``: K2 dQ and K3 dK/dV, each ``tile`` for bf16 on the
    tensor cores and ``fma`` for f32, K2 in two instantiations, without and
-   with the bias gradient) with ``nvcc`` for ``sm_90a``, both
+   with the bias gradient; every kernel instantiated for head dims 64 and
+   256, each instantiation gated on its own) with ``nvcc`` for ``sm_90a``, both
    sources at once, and beside them each source's device code alone with
    ``ptxas -v`` (every run, so the report holds when the libraries were
    already built); print ``ptxas``'s registers, shared memory and spills
@@ -26,7 +27,8 @@ Phases, each fatal on failure:
    K3 against the plain backward (fed K1's own O and LSE) at the
    training shape (B=16, T=112, causal + padding bias, and with left
    padding), the rollout-prefill shape (explicit causal + padding bias),
-   ragged Q/K with a full-rank bias and a per-head bias, two long
+   ragged Q/K with a full-rank bias and a per-head bias, Q <= 16 causal
+   with rows that see only padding (the forward's whole visit), two long
    cases (16 query chunks and key tiles under the causal flag; 64 key
    tiles with peaked logits), and ILQL's update (B=128, T=64, causal +
    right padding), in bf16 (``tile``) and f32 (``fma``); K1 also at ILQL's
@@ -53,7 +55,17 @@ Phases, each fatal on failure:
    and, at the update's three, K2 (with the bias gradient for the two
    self-attentions' learned bias) and K3 in bf16 and f32, and time them in
    bf16 the same way (SDPA's backward with the bias as a grad-carrying
-   mask);
+   mask); and the head-dim-256 instantiations at GPT-J-6B's shapes (H = 16:
+   the rollout prefill B=128 Q=48 K=96 and decode step, the update B=8 T=96
+   causal, the reference scoring B=128 T=96 causal, phase 12's admission
+   prefill B=8 Q=512 K=576 and decode step B=32 K=576) and edges (ragged
+   Q/K with a padding bias, all-padding causal rows, 16 key tiles with
+   peaked logits, 16 query chunks under the causal flag, Q <= 16 causal,
+   also with rows that see only padding, a learned bias through K2's
+   dbias), K1, K2 (+dbias) and K3 in bf16 and f32, with V ~ N(0, 1) and
+   O held elementwise to a fraction of P|V| + |O| (``O_REL_TOL``) that two
+   planted faults (one 64-column V atom, or its share of key tile 0, left
+   out) must break, timed in bf16 as the head-dim-64 rows are;
 3. model — full-width GPT-2 in f32 through the kernels against the plain
    attention: the forward without a cache, prefill + decode through the
    paged cache against the plain full forward of the whole sequence, and
@@ -61,7 +73,13 @@ Phases, each fatal on failure:
    parameter group); the same for the full-width f32 T5 of
    ``configs/ppo_ul2.yml``, its relative position tables included; and in
    bf16, the update's logprobs and PPO-loss gradient with
-   ``train.logprob_chunk: 16`` against the unchunked head;
+   ``train.logprob_chunk: 16`` against the unchunked head; the same three
+   checks for a full-width f32 GPT-J cut to 2 blocks (D = 256, rotary
+   positions at every decode step, the gradient at the yml's B = 8, 48 + 48
+   columns); and a GPT-J checkpoint in HF layout at full width and 2
+   blocks (``transformer.`` names, Linear [out, in], ``lm_head.bias``)
+   written here and loaded through ``model.model_path`` by the PPO trainer
+   on ``configs/ppo_gptj.yml``, bit for bit;
 4. serving — ``InferenceServer`` on CUDA with the ``configs/ppo_sentiments.yml``
    model at full GPT-2-small width (random weights from a seed, bf16
    compute) serves 64 prompts; every request must complete with finite
@@ -181,9 +199,32 @@ Phases, each fatal on failure:
    both runs' tokens/s, TTFT, peak, hit rate, chunks run and skipped with
    their FLOPs, spec accept rate, tokens per verify step, host ms per step,
    the decode step's cache read with and without the pool overlay, and the
-   share of rows whose tokens match the features-off run.
+   share of rows whose tokens match the features-off run;
+12. GPT-J serving — ``InferenceServer`` with ``model_type: gptj`` at
+   GPT-J-6B's widths and depth (vocab 50 400, 4096 wide, 28 blocks, 16
+   heads of 256, rotary 64; random weights from a seed, bf16), phase 4's
+   64 prompts, 64 new tokens, 32 slots, admit/harvest 8: 64/64 complete and
+   finite; K1 ``tile`` = 28 x prefill forwards, ``decode`` = 28 x decode
+   steps, all through the head-dim-256 instantiations; no ``fma`` launch,
+   input copy or plain call. Prints tokens/s, TTFT p50/p95, the peak;
+13. GPT-J PPO — ``trlx_tpu_torch.train`` on ``configs/ppo_gptj.yml`` at
+   GPT-J-6B's widths and depth (bf16 over f32 masters, batch 8, 48 + 48
+   tokens with ``top_k: 0``, 128 rollouts a chunk, 4 epochs, the 2-block
+   hydra reference, the bottom 26 blocks and ``wte`` frozen) for two PPO
+   phases (128 updates) on 128 int-list prompts of 16-48 tokens; named
+   deviations: the mesh set to one device (the yml's ``tp: 4`` is ROADMAP
+   item 14), random weights, no tokenizer, 128 of 10 000 updates. Gates:
+   finite stats; the top 2 blocks, ``ln_f``, ``lm_head`` and the value head
+   moved, the bottom 26 blocks and ``wte`` bit-identical; the reference
+   holds blocks 26-27, ``wte``, ``ln_f`` and ``lm_head`` only; K1 ``tile``
+   = 28 x the non-decode forwards (28 a reference scoring: 26 trunk + 2
+   branch blocks), ``decode`` = 28 x the decode steps; K2 = K3 = 2 x 128,
+   all ``tile``; no ``fma`` launch, input copy or plain call; a fresh
+   trainer's ``load`` restores the saved state exactly. Prints the wall
+   with the checkpoint write timed apart, collect and train seconds,
+   rollout tokens/s, updates/s and the peak.
 
-Each path (phases 4 to 11, each definition of phase 7 and each run of
+Each path (phases 4 to 13, each definition of phase 7 and each run of
 phase 9 on its own) runs with the launch counters set to 0 just before it
 and read just after, and its peak memory is read from a clean start.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
@@ -193,7 +234,8 @@ serves the same traffic, runs one training phase, a cut seq2seq run, one
 phase of each phase-7 definition, one epoch of phase 8, one phase each
 of phases 9 (causal) and 10, and phase 11's traffic with the features on
 and off under ``torch.profiler`` and writes each run's
-device-time summary (busy share, device time by kernel) as JSON to PATH.
+device-time summary (busy share, device time by kernel) as JSON to PATH
+(phases 12 and 13 are not profiled).
 """
 
 from __future__ import annotations
@@ -219,6 +261,16 @@ TOL = {  # max |dO|, max |dLSE| against the plain version
     # normalises before that rounding, the kernel after the sum
     "bfloat16": (2e-2, 1e-3),
 }
+# Head dim 256 (phase 2's GPT-J cases, V ~ N(0, 1)): |dO| elementwise as a
+# fraction of P|V| + |O| (P|V| = sum_j p_j |v_j|, the plain weights times
+# |V|), which bounds what rounding can move an element. In bf16 (unit
+# roundoff u = 2^-8) the kernel and the plain version each round every
+# weight (u of P|V| each) and the output (u of |O| each), and the kernel
+# normalises after the sum (u of |O|): they differ by at most 2u P|V| +
+# 3u |O|; the bound allows 4u (P|V| + |O|). In f32 only the order of the
+# sums differs. Leaving out one 64-column V atom, or its share of one key
+# tile, is held to break this bound (relative_o_check).
+O_REL_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
 # max |dQ|, |dK|, |dV| against the plain backward fed the same O and LSE,
 # as a fraction of max(1, max |reference|):
 BWD_TOL = {
@@ -352,20 +404,22 @@ def tensor_core_instructions(fa, library: str) -> dict:
 
 # per library, the kernels phase 1 gates, each by a piece of its mangled
 # name: each in the ptxas report with no spill; the tile kernels also with
-# tensor-core instructions in their SASS. K2's tile kernel has two
-# instantiations, without the bias gradient (<false>, ILb0E) and with it
-# (<true>, ILb1E), gated apart
+# tensor-core instructions in their SASS. Every kernel is built for head
+# dims 64 (ILi64E) and 256 (ILi256E, named "_d256" here), gated apart; K2's
+# tile kernel has two instantiations per head dim, without the bias
+# gradient (Lb0E) and with it (Lb1E)
 GATED_KERNELS = {
-    "flash_fwd": {k: k for k in (
-        "flash_fwd_tile_kernel", "flash_fwd_decode_kernel", "flash_fwd_fma_kernel")},
-    "flash_bwd": {
-        "flash_bwd_dq_tile_kernel": "flash_bwd_dq_tile_kernelILb0E",
-        "flash_bwd_dq_tile_kernel_dbias": "flash_bwd_dq_tile_kernelILb1E",
-        "flash_bwd_dkv_tile_kernel": "flash_bwd_dkv_tile_kernel",
-    },
+    "flash_fwd": {f"flash_fwd_{v}_kernel{sfx}": f"flash_fwd_{v}_kernelILi{d}E"
+                  for d, sfx in ((64, ""), (256, "_d256"))
+                  for v in ("tile", "decode", "fma")},
+    "flash_bwd": {name: pattern for d, sfx in ((64, ""), (256, "_d256")) for name, pattern in (
+        (f"flash_bwd_dq_tile_kernel{sfx}", f"flash_bwd_dq_tile_kernelILi{d}ELb0E"),
+        (f"flash_bwd_dq_tile_kernel_dbias{sfx}", f"flash_bwd_dq_tile_kernelILi{d}ELb1E"),
+        (f"flash_bwd_dkv_tile_kernel{sfx}", f"flash_bwd_dkv_tile_kernelILi{d}E"))},
 }
-TILE_KERNELS = ("flash_fwd_tile_kernel", "flash_bwd_dq_tile_kernel",
-                "flash_bwd_dq_tile_kernel_dbias", "flash_bwd_dkv_tile_kernel")
+TILE_KERNELS = tuple(k + sfx for sfx in ("", "_d256") for k in (
+    "flash_fwd_tile_kernel", "flash_bwd_dq_tile_kernel", "flash_bwd_dq_tile_kernel_dbias",
+    "flash_bwd_dkv_tile_kernel"))
 
 
 def phase_build(fa) -> tuple:
@@ -624,6 +678,18 @@ TRAINING_SHAPES = {"train": "update_forward", "prefill": "rollout_prefill",
 TIMED_BACKWARD = ("train", "ilql_update")
 
 
+def small_q_masked_rows_mask(torch, B: int, K: int, dev):
+    """[B, K] padding mask for Q <= 16 under the causal flag: row 0's keys
+    0..19 are padding, so its queries see only padding, and its real keys
+    20..63 share key tile 0, which the forward's 16-row tile visits. Those
+    rows average key tile 0's keys whose only mask is the causal one, so
+    the backward must walk the forward's whole visit (64 keys), not its 16
+    query rows."""
+    mask = torch.ones(B, K, dtype=torch.long, device=dev)
+    mask[0, :20] = 0
+    return mask
+
+
 def backward_cases(torch, attn):
     """(name, q, k, v, bias, causal) at the training path's shapes (update
     forward, rollout prefill and decode) and the edge cases, in f32; inputs
@@ -683,6 +749,8 @@ def backward_cases(torch, attn):
     bias = attn.causal_bias(1, 64, 16 + t, dev) + attn.padding_bias(mask)
     cases.append(("ilql_eval_decode", *qkv(128, 1, 64), bias, False))
     cases.append(("ragged_bias", *qkv(2, 77, 141), torch.randn(2, 1, 77, 141, generator=gen, device=dev), False))
+    cases.append(("small_q_masked_rows", *qkv(2, 9, 130),
+                  attn.padding_bias(small_q_masked_rows_mask(torch, 2, 130, dev)), True))
     cases.append(("per_head_bias", *qkv(2, 130, 200), torch.randn(1, 12, 130, 200, generator=gen, device=dev), False))
     # long: 16 query chunks and 16 key tiles under the causal flag with a
     # padding bias; and 64 key tiles with peaked logits (x3 and a per-row
@@ -1053,124 +1121,20 @@ def packed_dbias_calls(torch, fa, copies):
 
 
 def phase_t5_kernels(torch, fa, attn):
-    """K1 against its plain version at the seq2seq path's six attention
-    shapes, and K2 (with the bias gradient where the update takes one) and
-    K3 against the plain backward at the update's three, in bf16 and f32;
-    times in bf16: K1 at all six, K2(+dbias) and K3 at the update's three
-    through their C entry points, beside the plain backward, SDPA's whole
-    backward (with the bias as a grad-carrying ``attn_mask`` where the
-    update differentiates it) and the bound. Returns ``(fwd_results,
-    bwd_results, fwd_timed, bwd_timed)``."""
-    import torch.nn.functional as F
-
-    fwd_results, results, fwd_timed, bwd_timed = [], [], {}, {}
+    """Phase 2 at the seq2seq path's six attention shapes
+    (:func:`hold_and_time` over :func:`t5_case`): K1 at all six, K2 (with
+    the bias gradient where the update takes a learned bias) and K3 at the
+    update's three, in bf16 and f32; timed in bf16 (SDPA's backward with
+    the bias as a grad-carrying mask where the update differentiates it).
+    Returns ``(fwd_results, bwd_results, fwd_timed, bwd_timed)``."""
+    cases = []
     for name, (B, Q, K, kind, update) in T5_SHAPES.items():
-        q32, k32, v32, bias = t5_case(torch, attn, name)
         learned = kind in ("encoder", "decoder")
-        for dtype_name in ("bfloat16", "float32"):
-            dt = getattr(torch, dtype_name)
-            q, k, v = (x.to(dt) for x in (q32, k32, v32))
-            o, lse = fa.flash_attention(q, k, v, bias, False, True)
-            o_ref, lse_ref = fa.flash_attention_reference(q, k, v, bias, False, True)
-            torch.cuda.synchronize()
-            err_o = (o.float() - o_ref.float()).abs().max().item()
-            err_lse = (lse - lse_ref).abs().max().item()
-            tol_o, tol_lse = TOL[dtype_name]
-            ok = math.isfinite(err_o) and err_o <= tol_o and err_lse <= tol_lse
-            fwd_results.append({"case": name, "dtype": dtype_name, "max_abs_err_o": err_o,
-                                "max_abs_err_lse": err_lse, "tol_o": tol_o,
-                                "tol_lse": tol_lse, "ok": ok})
-            log(f"phase 2: fwd {name:17s} {dtype_name:8s} B={B} Q={Q} K={K} "
-                f"({fa.forward_variant(dt, Q)}) max|dO|={err_o:.3e} max|dLSE|={err_lse:.3e} "
-                f"{'ok' if ok else 'FAIL'}")
-            if dtype_name == "bfloat16":
-                fwd_timed[(name, dtype_name)] = row = time_forward(
-                    torch, fa, attn, q, k, v, bias, False)
-                log_timed(name, dtype_name, row)
-            if not update:
-                continue
-            gen = torch.Generator(device="cuda")
-            gen.manual_seed(8)
-            do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
-            got = fa._launch_backward(q, k, v, bias, o, lse, do, False, dbias=learned)
-            want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, False,
-                                                         learned)
-            torch.cuda.synchronize()
-            row = {"case": name, "dtype": dtype_name, "variant": fa.backward_variant(dt)}
-            ok = True
-            for key, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
-                err = (g.float() - w.float()).abs().max().item()
-                # dbias is dS in f32 on both sides: only the order of the
-                # sums differs
-                tol = (1e-4 if key == "dbias" else BWD_TOL[dtype_name]) * max(
-                    1.0, w.float().abs().max().item())
-                row[f"max_abs_err_{key}"], row[f"tol_{key}"] = err, tol
-                ok = ok and math.isfinite(err) and err <= tol
-            row["ok"] = ok
-            results.append(row)
-            log(f"phase 2: bwd {name:17s} {dtype_name:8s} ({row['variant']}"
-                f"{', dbias' if learned else ''}) "
-                + " ".join(f"max|d{key}|={row[f'max_abs_err_{key}']:.3e}"
-                           f"(tol {row[f'tol_{key}']:.1e})"
-                           for key in ("dq", "dk", "dv", "dbias") if f"tol_{key}" in row)
-                + f" {'ok' if ok else 'FAIL'}")
-            if dtype_name != "bfloat16":
-                continue
-            tensors = [q, k, v, bias, o, lse, do]
-            nbytes = sum(t.numel() * t.element_size() for t in tensors)
-            copies = input_copies(tensors, nbytes)
-            if learned:
-                dq_calls, packed = packed_dbias_calls(torch, fa, copies)
-                _, dkv_calls, _ = packed_backward_calls(torch, fa, copies, False)
-            else:
-                dq_calls, dkv_calls, packed = packed_backward_calls(torch, fa, copies, False)
-            kernel_dq, kernel_dkv = time_ms(dq_calls), time_ms(dkv_calls)
-            rc = dq_calls[0]()
-            torch.cuda.synchronize()
-            same = rc == 0 and torch.equal(packed[0][1], got[0]) and (
-                not learned or torch.equal(packed[0][2], got[3]))
-            results.append({"case": name + "_packed_calls", "dtype": dtype_name, "ok": same,
-                            "max_abs_err_dq": 0.0, "max_abs_err_dk": 0.0,
-                            "max_abs_err_dv": 0.0})
-            log(f"phase 2: packed K2 call at {name} rc={rc}, outputs equal the wrapper's: "
-                f"{'ok' if same else 'FAIL'}")
-            del packed, dq_calls, dkv_calls
-            plain = time_ms([lambda c=c: fa.flash_attention_backward_reference(
-                *c, False, learned) for c in copies])
-            graphs = []
-            for c in copies:
-                ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in c[:3])
-                mask = c[3].to(dt).detach().requires_grad_(learned)
-                out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
-                graphs.append((out, (ql, kl, vl, mask) if learned else (ql, kl, vl),
-                               c[6].transpose(1, 2)))
-            library = time_ms([
-                lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
-                for g in graphs
-            ])
-            del copies, graphs
-            bounds = backward_bound(fa, q, k, bias, False, dtype_name)
-            if learned:  # the dbias write, f32 [B, H, Q, K]
-                extra = B * UL2_HEADS * Q * K * 4
-                flops = bounds["flash_bwd_dq"]["flops"]
-                nb = bounds["flash_bwd_dq"]["bytes"] + extra
-                t_bytes = nb / HBM_BYTES_PER_S * 1e3
-                t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-                bounds["flash_bwd_dq"] = {"bound_ms": max(t_bytes, t_ops), "bytes": nb,
-                                          "flops": flops,
-                                          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-            shape = (f"B={B} H={UL2_HEADS} Q={Q} K={K} D=64, bias {list(bias.shape)}"
-                     + (" (dbias)" if learned else ""))
-            for kname, ms in (("flash_bwd_dq", kernel_dq), ("flash_bwd_dkv", kernel_dkv)):
-                bwd_timed[(name, kname)] = {
-                    "shape": shape, "variant": fa.backward_variant(dt), "dbias": learned,
-                    "ms": ms, "plain_ms": plain, "library_ms": library, **bounds[kname],
-                }
-                log(f"phase 2: {kname} bf16 {name} {shape} ({fa.backward_variant(dt)}): "
-                    f"kernel_ms={ms} plain_ms={plain} (whole plain backward) "
-                    f"library_ms={library} (SDPA's whole backward) "
-                    f"bound_ms={bounds[kname]['bound_ms']} ({bounds[kname]['bound_by']})")
-    return fwd_results, results, fwd_timed, bwd_timed
+        cases.append((name, *t5_case(torch, attn, name), False,
+                      "dbias" if update and learned else "backward" if update else "forward"))
+    updates = [n for n, shape in T5_SHAPES.items() if shape[4]]
+    return hold_and_time(torch, fa, attn, cases, fwd_timed=tuple(T5_SHAPES),
+                         bwd_timed=updates)
 
 
 def phase_model_backward(torch, fa):
@@ -3817,6 +3781,779 @@ def profile_paths(torch, path: str) -> None:
                 f"x{row['count']:<6d} {row['name'][:90]}")
 
 
+# ---------------------------------------------------------------------------
+# GPT-J-6B (configs/ppo_gptj.yml): the head-dim-256 instantiations, the
+# model, serving (phase 12) and PPO (phase 13)
+# ---------------------------------------------------------------------------
+
+GPTJ_ARCH = {  # EleutherAI/gpt-j-6B's config.json (configs/ppo_gptj.yml's model)
+    "vocab_size": 50400, "n_positions": 2048, "n_embd": 4096, "n_layer": 28,
+    "n_head": 16, "rotary_dim": 64,
+}
+GPTJ_HF_CONFIG = {  # as its HF config.json names it
+    "model_type": "gptj", "architectures": ["GPTJForCausalLM"], **GPTJ_ARCH,
+    "n_inner": None, "layer_norm_epsilon": 1e-5, "activation_function": "gelu_new",
+    "tie_word_embeddings": False, "bos_token_id": 50256, "eos_token_id": 50256,
+}
+GPTJ_HEADS, GPTJ_D, GPTJ_EOS = 16, 256, 50256
+GPTJ_CHECK_LAYERS = 2  # phase 3's cut depth and the HF checkpoint's (full width)
+GPTJ_UPDATES = 128  # two PPO phases: 128 rollouts / batch 8 x 4 epochs each
+# what phase 13 runs differently from configs/ppo_gptj.yml: (setting, the
+# yml's value, the port's, why)
+GPTJ_DEVIATIONS = (
+    ("train.mesh", {"dp": -1, "fsdp": 1, "tp": 4}, {"dp": -1, "fsdp": 1, "tp": 1},
+     "the port runs on one device; tensor parallelism is ROADMAP item 14"),
+    ("model.model_path", "EleutherAI/gpt-j-6B", "", "the checkpoint is not in the repo: "
+     "random weights from train.seed at its widths"),
+    ("model.tokenizer_path", "gpt2", "", "no tokenizer in the repo: int-list prompts and a "
+     "host reward on the ids"),
+    ("train.total_steps", 10000, GPTJ_UPDATES, "the smoke's time limit: two PPO phases"),
+    ("train.eval_interval", 100, GPTJ_UPDATES, "one eval, at the end"),
+    ("train.checkpoint_interval", 10000, GPTJ_UPDATES, "one checkpoint, at the end"),
+)
+# K1 at GPT-J's path shapes, timed in bf16 (gptj_kernel_cases names)
+GPTJ_TIMED = ("gptj_rollout_prefill", "gptj_rollout_decode", "gptj_update",
+              "gptj_ref_scoring", "gptj_serving_prefill", "gptj_serving_decode")
+
+
+def gptj_kernel_cases(torch, attn):
+    """(name, q, k, v, bias, causal, kind) at D = 256, f32, from a fixed
+    seed; ``kind``: ``"forward"`` (K1 only), ``"backward"`` (K1, then K2 and
+    K3) or ``"dbias"`` (K2 with the bias gradient of a learned bias). The
+    paths' shapes (configs/ppo_gptj.yml: 48 prompt + 48 new tokens, 128
+    rollouts, batch 8; phase 12's serving geometry) at H = 16, and the
+    edges: ragged Q/K with a padding bias, left padding whose first causal
+    rows see only padding, 16 key tiles with peaked logits, 16 query chunks
+    and key tiles under the causal flag, Q <= 16 under the causal flag, also
+    with rows that see only padding (:func:`small_q_masked_rows_mask`)."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(30)
+
+    def qkv(B, Q, K, H=GPTJ_HEADS):
+        return [torch.randn(B, T, H, GPTJ_D, generator=gen, device=dev) for T in (Q, K, K)]
+
+    def left(B, Q, K, lo, hi, width=None):
+        """[B, K] masks of prompts of lo..hi real tokens left-padded to Q
+        columns; the columns from Q on count up to ``width``."""
+        lens = torch.randint(lo, hi + 1, (B, 1), generator=gen, device=dev)
+        cols = torch.arange(K, device=dev)[None]
+        return (cols >= Q - lens) & (cols < (Q if width is None else width))
+
+    cases = []
+    # the fixed sampler's prefill: 48 prompt columns over the 96-wide cache,
+    # causal and left padding as one [B, 1, Q, K] bias; a decode step at
+    # column 48 + t
+    bias = attn.causal_bias(48, 96, 0, dev) + attn.padding_bias(left(128, 48, 96, 16, 48).long())
+    cases.append(("gptj_rollout_prefill", *qkv(128, 48, 96), bias, False, "forward"))
+    t = int(torch.randint(0, 48, (), generator=gen, device=dev))
+    bias = attn.causal_bias(1, 96, 48 + t, dev) + attn.padding_bias(
+        left(128, 48, 96, 16, 48, width=49 + t).long())
+    cases.append(("gptj_rollout_decode", *qkv(128, 1, 96), bias, False, "forward"))
+    # the update: [query; response] of 48 + 48 under the causal flag with a
+    # [B, 1, 1, K] padding bias (first keys valid), and with PPO's left
+    # padding, whose rows before the first real token see only padding
+    keep = torch.arange(96, device=dev)[None] < 4
+    mask = (torch.rand(8, 96, generator=gen, device=dev) > 0.2) | keep
+    cases.append(("gptj_update", *qkv(8, 96, 96), attn.padding_bias(mask.long()), True,
+                  "backward"))
+    cases.append(("gptj_update_left_pad", *qkv(8, 96, 96),
+                  attn.padding_bias(left(8, 48, 96, 16, 48, width=96).long()), True, "backward"))
+    # the reference scoring: all 128 rollouts under the causal flag
+    cases.append(("gptj_ref_scoring", *qkv(128, 96, 96),
+                  attn.padding_bias(left(128, 48, 96, 16, 48, width=96).long()), True, "forward"))
+    # phase 12: an admission prefill of 8 prompts, 512 columns over the
+    # 576-wide view, and a decode step of 32 slots at per-row depths
+    bias = attn.causal_bias(512, 576, 0, dev) + attn.padding_bias(
+        left(8, 512, 576, 16, 512).long())
+    cases.append(("gptj_serving_prefill", *qkv(8, 512, 576), bias, False, "forward"))
+    depth = torch.randint(16, 576, (32,), generator=gen, device=dev)
+    mask = (torch.arange(576, device=dev)[None] <= depth[:, None]).long()
+    bias = attn.causal_bias(1, 576, depth, dev) + attn.padding_bias(mask)
+    cases.append(("gptj_serving_decode", *qkv(32, 1, 576), bias, False, "forward"))
+    # the edges, at 4 heads
+    keep = torch.arange(141, device=dev)[None] < 4
+    mask = (torch.rand(2, 141, generator=gen, device=dev) > 0.3) | keep
+    cases.append(("gptj_ragged", *qkv(2, 77, 141, 4), attn.padding_bias(mask.long()), False,
+                  "backward"))
+    q, k, v = qkv(2, 130, 1024, 4)
+    bias = 2 * torch.randn(2, 1, 130, 1024, generator=gen, device=dev)
+    cases.append(("gptj_long_k", 3 * q, k, v, bias, False, "backward"))
+    keep = torch.arange(1024, device=dev)[None] < 4
+    mask = (torch.rand(1, 1024, generator=gen, device=dev) > 0.2) | keep
+    cases.append(("gptj_long_causal", *qkv(1, 1024, 1024, 4), attn.padding_bias(mask.long()),
+                  True, "backward"))
+    cases.append(("gptj_small_q_causal", *qkv(2, 9, 130, 4), None, True, "backward"))
+    cases.append(("gptj_small_q_masked_rows", *qkv(2, 9, 130, 4),
+                  attn.padding_bias(small_q_masked_rows_mask(torch, 2, 130, dev)), True,
+                  "backward"))
+    # a learned [1, H, Q, K] bias under a padding bias: K2 with dbias
+    table = 2 * torch.randn(1, 4, 130, 130, generator=gen, device=dev)
+    cases.append(("gptj_dbias", *qkv(2, 130, 130, 4),
+                  table + attn.padding_bias(left(2, 130, 130, 64, 130).long()), False, "dbias"))
+    return cases
+
+
+def phase_gptj_kernels(torch, fa, attn):
+    """Phase 2 at D = 256 (:func:`hold_and_time` over
+    :func:`gptj_kernel_cases`): K1, K2 (with and without dbias) and K3 in
+    bf16 and f32; timed in bf16, K1 at ``GPTJ_TIMED``, K2 and K3 at the
+    update and K2 with dbias at its case."""
+    return hold_and_time(torch, fa, attn, gptj_kernel_cases(torch, attn),
+                         fwd_timed=GPTJ_TIMED, bwd_timed=("gptj_update", "gptj_dbias"),
+                         relative_o=True)
+
+
+def relative_o_check(torch, fa, q, k, v, bias, causal, o, o_ref, dtype_name) -> dict:
+    """K1's O held elementwise to ``O_REL_TOL`` of P|V| + |O_ref| (P|V|: the
+    plain weights of :func:`visited_reference` times |V|, in f32), and two
+    planted faults held to break that bound: the last 64-column V atom left
+    out of P.V, and that atom's share of key tile 0 left out. Returns the
+    row's fields: max |dO| / bound for O and for each fault, and ``ok``
+    when O's is at most 1 and each fault's above 1."""
+    qf, kf, vf = q.float(), k.float(), v.float()
+    o32, ref = o.float(), o_ref.float()
+    tol = O_REL_TOL[dtype_name] * (
+        visited_reference(torch, fa, qf, kf, vf.abs(), bias, causal)[0] + ref.abs())
+    tol = tol.clamp_min(1e-30)
+    atom = o32.clone()
+    atom[..., -64:] = 0
+    tile0 = vf.clone()
+    tile0[:, fa.KEY_TILE:] = 0
+    key_tile = o32.clone()
+    key_tile[..., -64:] -= visited_reference(torch, fa, qf, kf, tile0, bias, causal)[0][..., -64:]
+    over = {name: ((f - ref).abs() / tol).max().item()
+            for name, f in (("o", o32), ("v_atom", atom), ("v_atom_key_tile_0", key_tile))}
+    err_over = over.pop("o")
+    return {"max_err_over_tol_o": err_over, "planted_fault_err_over_tol": over,
+            "ok": err_over <= 1 and all(x > 1 for x in over.values())}
+
+
+def hold_and_time(torch, fa, attn, cases, fwd_timed, bwd_timed, relative_o=False):
+    """Hold K1 against its plain version (restricted under the causal flag
+    to the keys K1 visits) and, for a case of kind ``"backward"`` or
+    ``"dbias"``, K2 (with the bias gradient for ``"dbias"``) and K3 against
+    the plain backward fed K1's own O and LSE, in bf16 and f32, at
+    ``cases`` ((name, q, k, v, bias, causal, kind) in f32); time in bf16 K1
+    at the cases named in ``fwd_timed`` and K2, K3 at those in
+    ``bwd_timed``, through their C entry points (arguments packed
+    beforehand) and their wrappers, beside the plain version, SDPA (the
+    yardstick the port never calls; for the backward its whole backward,
+    with the bias as a grad-carrying mask where it is learned) and the
+    bound. O is held to TOL's absolute bound, or with ``relative_o`` by
+    :func:`relative_o_check`. Returns ``(fwd_results, bwd_results,
+    fwd_timed, bwd_timed)``, the timed rows keyed by (case, dtype) and
+    (case, kernel)."""
+    import torch.nn.functional as F
+
+    fwd_results, results, fwd_rows, bwd_rows = [], [], {}, {}
+    for name, q32, k32, v32, bias, causal, kind in cases:
+        B, Q, H, D = q32.shape
+        K = k32.shape[1]
+        learned = kind == "dbias"
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            q, k, v = (x.to(dt) for x in (q32, k32, v32))
+            o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+            o_ref, lse_ref = visited_reference(torch, fa, q, k, v, bias, causal)
+            torch.cuda.synchronize()
+            err_o = (o.float() - o_ref.float()).abs().max().item()
+            err_lse = (lse - lse_ref).abs().max().item()
+            tol_o, tol_lse = TOL[dtype_name]
+            row = {"case": name, "dtype": dtype_name, "max_abs_err_o": err_o,
+                   "max_abs_err_lse": err_lse, "tol_o": tol_o, "tol_lse": tol_lse}
+            if relative_o:
+                row["tol_o"] = f"{O_REL_TOL[dtype_name]:g} x (P|V| + |O|)"
+                row.update(relative_o_check(torch, fa, q, k, v, bias, causal, o, o_ref,
+                                            dtype_name))
+                ok_o = row.pop("ok")
+            else:
+                ok_o = err_o <= tol_o
+            row["ok"] = ok = math.isfinite(err_o) and ok_o and err_lse <= tol_lse
+            fwd_results.append(row)
+            detail = (f" max|dO|/bound={row['max_err_over_tol_o']:.3f}, planted faults' "
+                      + ", ".join(f"{n} {x:.3g}" for n, x in
+                                  row["planted_fault_err_over_tol"].items())
+                      if relative_o else "")
+            log(f"phase 2: fwd {name:20s} {dtype_name:8s} B={B} H={H} Q={Q} K={K} D={D}"
+                f"{' causal' if causal else ''} ({fa.forward_variant(dt, Q)}) "
+                f"max|dO|={err_o:.3e} max|dLSE|={err_lse:.3e}{detail} "
+                f"{'ok' if ok else 'FAIL'}")
+            if name in fwd_timed and dtype_name == "bfloat16":
+                fwd_rows[(name, dtype_name)] = row = time_forward(
+                    torch, fa, attn, q, k, v, bias, causal)
+                log_timed(name, dtype_name, row)
+            if kind == "forward":
+                continue
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(31)
+            do = torch.randn(q.shape, generator=gen, device="cuda").to(dt)
+            got = fa._launch_backward(q, k, v, bias, o, lse, do, causal, dbias=learned)
+            want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, causal,
+                                                         learned)
+            torch.cuda.synchronize()
+            row = {"case": name, "dtype": dtype_name, "variant": fa.backward_variant(dt)}
+            ok = True
+            for key, g, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+                err = (g.float() - w.float()).abs().max().item()
+                # dbias is dS in f32 on both sides: only the order of the sums differs
+                tol = (1e-4 if key == "dbias" else BWD_TOL[dtype_name]) * max(
+                    1.0, w.float().abs().max().item())
+                row[f"max_abs_err_{key}"], row[f"tol_{key}"] = err, tol
+                ok = ok and math.isfinite(err) and err <= tol
+            row["ok"] = ok
+            results.append(row)
+            log(f"phase 2: bwd {name:20s} {dtype_name:8s} ({row['variant']}"
+                f"{', dbias' if learned else ''}) "
+                + " ".join(f"max|d{key}|={row[f'max_abs_err_{key}']:.3e}"
+                           f"(tol {row[f'tol_{key}']:.1e})"
+                           for key in ("dq", "dk", "dv", "dbias") if f"tol_{key}" in row)
+                + f" {'ok' if ok else 'FAIL'}")
+            if dtype_name != "bfloat16" or name not in bwd_timed:
+                continue
+            tensors = [q, k, v, bias, o, lse, do]
+            nbytes = sum(t.numel() * t.element_size() for t in tensors)
+            copies = input_copies(tensors, nbytes)
+            # the packed outputs stay referenced while their calls run
+            dkv_packed = None
+            if learned:
+                dq_calls, packed = packed_dbias_calls(torch, fa, copies)
+                _, dkv_calls, dkv_packed = packed_backward_calls(torch, fa, copies, False)
+            else:
+                dq_calls, dkv_calls, packed = packed_backward_calls(torch, fa, copies, causal)
+            kernel_dq, kernel_dkv = time_ms(dq_calls), time_ms(dkv_calls)
+            rcs = [dq_calls[0](), dkv_calls[0]()]
+            torch.cuda.synchronize()
+            same = rcs == [0, 0] and torch.equal(packed[0][1], got[0]) and (
+                torch.equal(packed[0][2], got[3]) if learned
+                else all(torch.equal(a, b) for a, b in zip(packed[0][2:], got[1:])))
+            results.append({"case": name + "_packed_calls", "dtype": dtype_name, "ok": same,
+                            "max_abs_err_dq": 0.0, "max_abs_err_dk": 0.0,
+                            "max_abs_err_dv": 0.0})
+            log(f"phase 2: packed K2/K3 calls at {name} rc={rcs}, outputs equal the wrappers': "
+                f"{'ok' if same else 'FAIL'}")
+            del packed, dkv_packed, dq_calls, dkv_calls
+            wrapper = {
+                "flash_bwd_dq": time_ms([
+                    (lambda c=c: fa._launch_packed("dq", fa._backward_args(*c, False), True))
+                    if learned else (lambda c=c: fa._launch_dq(*c, causal)) for c in copies]),
+                "flash_bwd_dkv": time_ms([lambda c=c: fa._launch_dkv(*c, causal)
+                                          for c in copies]),
+            }
+            plain = time_ms([lambda c=c: fa.flash_attention_backward_reference(
+                *c, causal, learned) for c in copies])
+            # SDPA's whole backward, its forward outside the timed window;
+            # the causal and padding masks as one mask in the compute dtype,
+            # grad-carrying where the bias is learned
+            graphs = []
+            for c in copies:
+                ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_() for x in c[:3])
+                mask = c[3] + (attn.causal_bias(Q, K, 0, "cuda") if causal else 0)
+                mask = mask.to(dt).detach().requires_grad_(learned)
+                out = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=mask)
+                graphs.append((out, (ql, kl, vl, mask) if learned else (ql, kl, vl),
+                               c[6].transpose(1, 2)))
+            library = time_ms([
+                lambda g=g: torch.autograd.grad(g[0], g[1], g[2], retain_graph=True)
+                for g in graphs])
+            del copies, graphs
+            bounds = backward_bound(fa, q, k, bias, causal, dtype_name)
+            if learned:  # the dbias write, f32 [B, H, Q, K]
+                flops = bounds["flash_bwd_dq"]["flops"]
+                nb = bounds["flash_bwd_dq"]["bytes"] + B * H * Q * K * 4
+                t_bytes = nb / HBM_BYTES_PER_S * 1e3
+                t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+                bounds["flash_bwd_dq"] = {"bound_ms": max(t_bytes, t_ops), "bytes": nb,
+                                          "flops": flops,
+                                          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            shape = (f"B={B} H={H} Q={Q} K={K} D={D}" + (" causal" if causal else "")
+                     + (f", bias {list(bias.shape)}" if bias is not None else "")
+                     + (" (dbias)" if learned else ""))
+            for kname, ms in (("flash_bwd_dq", kernel_dq), ("flash_bwd_dkv", kernel_dkv)):
+                bwd_rows[(name, kname)] = row = {
+                    "shape": shape, "variant": fa.backward_variant(dt), "dbias": learned,
+                    "ms": ms, "wrapper_ms": wrapper[kname], "plain_ms": plain,
+                    "library_ms": library, **bounds[kname],
+                }
+                log(f"phase 2: {kname} bf16 {name} {shape} ({row['variant']}): "
+                    f"kernel_ms={ms} wrapper_ms={wrapper[kname]} plain_ms={plain} (whole plain "
+                    f"backward) library_ms={library} (SDPA's whole backward) "
+                    f"bound_ms={row['bound_ms']} ({row['bound_by']})")
+    return fwd_results, results, fwd_rows, bwd_rows
+
+
+def gptj_model(torch, n_layer: int, dtype: str, seed: int):
+    """A GPT-J-6B-wide policy (value head included) of ``n_layer`` blocks on
+    the card, random weights from ``seed``."""
+    from trlx_tpu_torch.models.gptj import GPTJConfig, GPTJModel
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+
+    cfg = GPTJConfig(**dict(GPTJ_ARCH, n_layer=n_layer), dtype=dtype)
+    model = CausalLMWithValueHead(cfg, GPTJModel, device="cuda")
+    init_params(model, seed)
+    return cfg, model
+
+
+def phase_gptj_model(torch, fa):
+    """Phase 3 at D = 256: a full-width f32 GPT-J of ``GPTJ_CHECK_LAYERS``
+    blocks through the kernels against the plain attention. (a) the
+    forward without a cache (left padding); (b) prefill into the paged
+    cache (rotated block tables) and greedy decode steps at each row's
+    rotary position, against the plain full forward of the whole sequence;
+    (c) the gradient of a PPO loss on one minibatch of the yml's geometry
+    (B = 8, 48 + 48 columns), max relative error per parameter group, with
+    K2 = K3 = one ``fma`` launch per block. f32 and no TF32: 1e-3 leaves
+    room for summation order only."""
+    from trlx_tpu_torch.inference.kv_cache import init_paged_cache
+    from trlx_tpu_torch.models import gptj
+    from trlx_tpu_torch.ops.ppo_math import ppo_loss
+    from trlx_tpu_torch.utils import logprobs_from_logits
+
+    dev = "cuda"
+    cfg, model = gptj_model(torch, GPTJ_CHECK_LAYERS, "float32", 40)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(41)
+    B, Q, R = 2, 96, 4
+    ids = torch.randint(0, cfg.vocab_size, (B, Q), generator=gen, device=dev)
+    mask = torch.ones_like(ids)
+    mask[0, :30] = 0  # left padding
+
+    def plain(q, k, v, bias=None, causal=False, **kw):
+        return fa.flash_attention_reference(q, k, v, bias, causal)
+
+    def run(attention, fn, *args, **kw):
+        orig = gptj.dot_product_attention
+        gptj.dot_product_attention = attention
+        try:
+            return fn(*args, **kw)
+        finally:
+            gptj.dot_product_attention = orig
+
+    def forward(attention, *args, **kw):
+        with torch.no_grad():
+            return run(attention, model, *args, **kw)
+
+    kernel = gptj.dot_product_attention
+    launched = fa.FLASH_FWD_LAUNCHES
+    out = forward(kernel, ids, attention_mask=mask)
+    ref = forward(plain, ids, attention_mask=mask)
+    real = mask.bool()
+    err_fwd = max((out[key] - ref[key])[real].abs().max().item() for key in ("logits", "values"))
+
+    cache = init_paged_cache(cfg.n_layer, B, Q + R, cfg.n_head, GPTJ_D, torch.float32,
+                             block_size=16, device=dev)
+    nb = cache[0]["block_tables"].shape[1]
+    cache[0]["block_tables"].copy_(torch.stack(
+        [torch.roll(torch.arange(nb, device=dev), -t) for t in (1, 4)]).to(torch.int32))
+    n_real = mask.sum(-1)
+    step = forward(kernel, ids, attention_mask=torch.cat([mask, mask.new_zeros(B, R)], 1),
+                   position_ids=(mask.cumsum(-1) - 1).clamp_min(0), cache=cache,
+                   cache_index=0, last_only=True)["logits"][:, -1]
+    seq, seq_mask, steps = ids, mask, [step]
+    for t in range(R - 1):
+        tok = steps[-1].argmax(-1)
+        seq = torch.cat([seq, tok[:, None]], 1)
+        seq_mask = torch.cat([seq_mask, mask.new_ones(B, 1)], 1)
+        cache_mask = (torch.arange(Q + R, device=dev)[None] <= Q + t).long() * torch.cat(
+            [mask, mask.new_ones(B, R)], 1)
+        steps.append(forward(kernel, tok[:, None], attention_mask=cache_mask,
+                             position_ids=(n_real + t)[:, None], cache=cache,
+                             cache_index=torch.full((B,), Q + t, device=dev))["logits"][:, 0])
+    full = forward(plain, seq, attention_mask=seq_mask)["logits"]
+    err_cache = max((steps[i] - full[:, Q - 1 + i]).abs().max().item() for i in range(R))
+    launched = fa.FLASH_FWD_LAUNCHES - launched
+    fwd_ok = err_fwd <= 1e-3 and err_cache <= 1e-3 and launched == cfg.n_layer * (1 + R)
+    log(f"phase 3: full-width f32 GPT-J ({cfg.n_layer} of 28 blocks, D={GPTJ_D}), kernel vs "
+        f"plain: forward max|d(logits, values)|={err_fwd:.3e}; paged prefill + {R - 1} decode "
+        f"steps vs plain full forward max|dlogits|={err_cache:.3e}; launches={launched} "
+        f"{'ok' if fwd_ok else 'FAIL'}")
+
+    # the PPO-loss gradient at the yml's geometry
+    B, Q, R = 8, 48, 48
+    lens = torch.randint(16, Q + 1, (B,), generator=gen, device=dev)
+    q_mask = (torch.arange(Q, device=dev)[None] >= Q - lens[:, None]).long()
+    q_ids = torch.randint(0, cfg.vocab_size, (B, Q), generator=gen, device=dev) * q_mask
+    r_ids = torch.randint(0, cfg.vocab_size, (B, R), generator=gen, device=dev)
+    r_len = torch.randint(1, R + 1, (B,), generator=gen, device=dev)
+    r_mask = (torch.arange(R, device=dev)[None] < r_len[:, None]).long()
+    old = [torch.randn(B, R, generator=gen, device=dev) for _ in range(4)]
+    old[0] = old[0] * 0.1 - 10.0  # behaviour logprobs
+    params = list(model.parameters())
+
+    def grads_with(attention):
+        def loss_grads():
+            logits, values = model.response_forward(
+                torch.cat([q_ids, r_ids], 1), torch.cat([q_mask, r_mask], 1), Q)
+            logprobs = logprobs_from_logits(logits, r_ids)
+            loss, _ = ppo_loss(logprobs, values.float(), *old, r_mask, 0.2, 0.2, 1.0)
+            return torch.autograd.grad(loss, params)
+        return run(attention, loss_grads)
+
+    before = backward_variant_launches(fa)
+    kgrads = grads_with(kernel)
+    after = backward_variant_launches(fa)
+    launches = {k: {v: after[k][v] - before[k][v] for v in BWD_VARIANTS} for k in BWD_KERNELS}
+    rgrads = grads_with(plain)
+    groups = {}
+    for (name, _), g, r in zip(model.named_parameters(), kgrads, rgrads):
+        group = ("value head" if name.startswith("v_head") else
+                 "embeddings" if ".wte." in name else
+                 "lm head" if ".lm_head." in name else
+                 "layer norms" if ".ln_" in name else
+                 "attention" if ".attn." in name else "mlp")
+        err, top = groups.get(group, (0.0, 0.0))
+        groups[group] = (max(err, (g - r).abs().max().item()), max(top, r.abs().max().item()))
+    rel = {k: err / max(top, 1e-30) for k, (err, top) in groups.items()}
+    grad_ok = all(math.isfinite(v) and v <= 1e-3 for v in rel.values()) and launches == {
+        k: {"tile": 0, "fma": cfg.n_layer} for k in BWD_KERNELS}
+    log("phase 3: full-width f32 GPT-J PPO-loss gradient (B=8, 48 + 48), kernels vs plain "
+        "attention: max relative error per group " + json.dumps(rel)
+        + f"; K2/K3 launches by variant {json.dumps(launches)} {'ok' if grad_ok else 'FAIL'}")
+    del model, kgrads, rgrads, params
+    return fwd_ok and grad_ok
+
+
+def gptj_hf_layout(state: dict) -> dict:
+    """The port's ``GPTJModel`` state dict in HF ``GPTJForCausalLM``'s
+    layout: the backbone under ``transformer.``, the untied head (weight
+    and bias) as ``lm_head.``; Linear weights stay [out, in]."""
+    return {(n if n.startswith("lm_head.") else "transformer." + n): t for n, t in state.items()}
+
+
+def phase_gptj_checkpoint(torch):
+    """A GPT-J checkpoint in HF layout at full width and ``GPTJ_CHECK_LAYERS``
+    blocks (random weights from a seed, ``config.json`` +
+    ``model.safetensors``), loaded through ``model.model_path`` by the PPO
+    trainer on ``configs/ppo_gptj.yml`` (its mesh set to one device): the
+    loaded backbone must equal the written tensors bit for bit."""
+    import tempfile
+
+    from trlx_tpu_torch.models.gptj import GPTJConfig, GPTJModel
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    hf_config = dict(GPTJ_HF_CONFIG, n_layer=GPTJ_CHECK_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "gptj")
+        t0 = time.perf_counter()
+        written = random_backbone(
+            torch, GPTJModel(GPTJConfig.from_dict(hf_config), device="cuda"), seed=42)
+        layout = gptj_hf_layout(written)
+        write_hf_checkpoint(ckpt, hf_config, layout)
+        write_s = time.perf_counter() - t0
+        config = yml_config("ppo_gptj.yml", os.path.join(tmp, "run"), ckpt, GPTJ_UPDATES,
+                            train={"mesh": {"dp": -1, "fsdp": 1, "tp": 1}})
+        t0 = time.perf_counter()
+        trainer = PPOTrainer(config)
+        load_s = time.perf_counter() - t0
+        equal = state_equal(torch, trainer.model.transformer, written)
+        names = sorted(layout)
+        del trainer
+    ok = equal and "lm_head.bias" in names and all(
+        n.startswith(("transformer.", "lm_head.")) for n in names)
+    log(f"phase 3: GPT-J checkpoint in HF layout ({GPTJ_CHECK_LAYERS} blocks at full width, "
+        f"{len(names)} tensors, transformer. names, Linear [out, in], lm_head.bias; written in "
+        f"{write_s:.1f} s, trainer built and loaded in {load_s:.1f} s): loaded backbone equals "
+        f"the written tensors bit for bit: {equal} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def gptj_serving_config():
+    """GPT-J-6B at full width and depth in bf16, served with phase 4's
+    engine geometry (random weights from a seed)."""
+    cfg = serving_config()
+    cfg["model"]["model_type"] = "gptj"
+    cfg["model"]["model_arch"] = dict(GPTJ_ARCH)
+    cfg["method"]["gen_kwargs"].update(eos_token_id=GPTJ_EOS, pad_token_id=GPTJ_EOS)
+    return cfg
+
+
+def phase_gptj_serving(torch, fa):
+    """Phase 12: ``InferenceServer`` on GPT-J-6B (full width, 28 blocks, bf16,
+    random weights from a seed) over the continuous engine and the paged
+    cache at H = 16, D = 256, serving phase 4's 64 prompts with 64 new
+    tokens, 32 slots, admit/harvest 8. Gates: 64/64 complete with finite
+    logprobs and values; K1 ``tile`` = 28 x prefill forwards, ``decode`` =
+    28 x decode steps; 0 ``fma`` launches, input copies and plain calls."""
+    import numpy as np
+
+    from trlx_tpu_torch.inference.server import InferenceServer
+
+    mem_start = reset_peak(torch)
+    t0 = time.perf_counter()
+    server = InferenceServer(gptj_serving_config(), seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    # building the f32 policy before its bf16 cast sets the peak; the
+    # serving path's own peak is counted_path's
+    build_peak = torch.cuda.max_memory_allocated()
+    prompts = serving_prompts()
+    (rids, results, wall), record = counted_path(torch, fa, lambda: serve(torch, server, prompts))
+    stats = server.stats()
+    n_layer = server.model_config.n_layer
+    expected_variants = {
+        "tile": n_layer * int(stats["engine/prefills"]),
+        "decode": n_layer * int(stats["engine/decode_steps"]),
+        "fma": 0, "copies": 0,
+    }
+    lengths = [results[r]["length"] for r in rids]
+    finite = all(np.isfinite(results[r]["logprobs"]).all()
+                 and np.isfinite(results[r]["values"]).all() for r in rids)
+    ttft = sorted(results[r]["timing"]["ttft_ms"] for r in rids)
+    tokens = int(sum(lengths))
+    record.update({
+        "model": "GPT-J-6B widths, 28 blocks, bf16", "build_s": build_s,
+        "requests": len(rids), "generated_tokens": tokens, "serve_wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p95": float(np.percentile(ttft, 95)),
+        "server_allocated_bytes": torch.cuda.memory_allocated(),
+        "allocated_before_server_bytes": mem_start, "build_peak_bytes": build_peak,
+        "peak_from_clean_start_bytes": max(build_peak, record["max_memory_allocated_bytes"]),
+        "expected_variants": expected_variants, "stats": stats,
+    })
+    log("phase 12: GPT-J serving " + json.dumps(record))
+    ok = (len(results) == 64 and min(lengths) >= 1 and finite and n_layer == 28
+          and record["flash_fwd_variants"] == expected_variants
+          and record["launches"]["flash_fwd"] == expected_variants["tile"]
+          + expected_variants["decode"]
+          and record["plain_attention_calls"] == 0)
+    log(f"phase 12: {'ok' if ok else 'FAIL'} (complete={len(results)}/64, min length="
+        f"{min(lengths)}, finite={finite}, K1 by variant {record['flash_fwd_variants']} vs "
+        f"{expected_variants}, plain attention calls={record['plain_attention_calls']}; "
+        f"{record['tokens_per_s']:.1f} tokens/s, TTFT p50 {record['ttft_ms_p50']:.0f} ms, "
+        f"p95 {record['ttft_ms_p95']:.0f} ms; peak {record['peak_from_clean_start_bytes']} B "
+        f"from {mem_start} B at the start, the build's {build_peak} B, serving's "
+        f"{record['max_memory_allocated_bytes']} B)")
+    del server
+    return ok, record
+
+
+def gptj_training_config(checkpoint_dir: str):
+    """``configs/ppo_gptj.yml`` with ``GPTJ_DEVIATIONS``, at GPT-J-6B's
+    widths and depth."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", "ppo_gptj.yml")).to_dict()
+    cfg["model"].update(model_path="", tokenizer_path="", model_arch=dict(GPTJ_ARCH))
+    cfg["train"].update(mesh={"dp": -1, "fsdp": 1, "tp": 1}, total_steps=GPTJ_UPDATES,
+                        eval_interval=GPTJ_UPDATES, checkpoint_interval=GPTJ_UPDATES,
+                        checkpoint_dir=checkpoint_dir)
+    cfg["method"]["gen_kwargs"].update(eos_token_id=GPTJ_EOS, pad_token_id=GPTJ_EOS)
+    return TRLConfig.from_dict(cfg)
+
+
+def gptj_prompts(seed: int = 5):
+    """128 int-list prompts, real lengths drawn from 16..48."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [[int(x) for x in rng.integers(0, 50256, int(rng.integers(16, 49)))]
+            for _ in range(128)]
+
+
+def phase_gptj_training(torch, fa):
+    """Phase 13: ``trlx_tpu_torch.train`` on ``configs/ppo_gptj.yml`` with
+    ``GPTJ_DEVIATIONS`` (GPT-J-6B widths and depth, random weights from the
+    seed, bf16 over f32 masters, the 2-block hydra reference, the bottom 26
+    blocks and ``wte`` frozen), 128 int-list prompts of 16..48 tokens, two
+    PPO phases. Gates: every stat finite; the top 2 blocks, ``ln_f``,
+    ``lm_head`` and the value head moved; the bottom 26 blocks and ``wte``
+    bit-identical after training; the reference holds blocks 26-27,
+    ``wte``, ``ln_f`` and ``lm_head`` and no other block; K1 ``tile`` = 28
+    x the forwards that are not decode steps (a reference scoring: 26
+    trunk + 2 branch blocks), ``decode`` = 28 x the decode steps; K2 = K3 =
+    2 x the updates, all ``tile``; no ``fma`` launch, input copy or plain
+    call; a fresh trainer's ``load`` restores the saved state exactly.
+    Prints the wall with the checkpoint write timed apart, the collect and
+    train seconds, rollout tokens/s, updates/s and the peak."""
+    import tempfile
+
+    import numpy as np
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    log("phase 13: configs/ppo_gptj.yml; deviations: " + json.dumps([
+        {"setting": k, "yml": y, "port": p, "why": why} for k, y, p, why in GPTJ_DEVIATIONS]))
+    watch, decode_forwards, scoring_tiles, save_s = {}, [0], [], []
+    initial, reference = {}, {}
+    orig = {n: getattr(PPOTrainer, n) for n in ("_apply", "score_ref", "save", "learn")}
+
+    def apply(self, input_ids, *a, **kw):
+        decode_forwards[0] += input_ids.shape[1] <= 16  # the sampler's steps
+        return orig["_apply"](self, input_ids, *a, **kw)
+
+    def score_ref(self, *a, **kw):
+        before = fa.FLASH_FWD_TILE_LAUNCHES
+        out = orig["score_ref"](self, *a, **kw)
+        scoring_tiles.append(fa.FLASH_FWD_TILE_LAUNCHES - before)
+        return out
+
+    def save(self, directory=None):
+        # the generator as saved (the final eval draws after it), and the
+        # write's seconds
+        watch["saved_rng"].append(self.generator.get_state())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig["save"](self, directory)
+        save_s.append(time.perf_counter() - t0)
+        return out
+
+    def learn(self):
+        # before the first update: the initial parameters, on the host, and
+        # the reference's contents against the full copy's
+        initial.update({n: p.detach().to("cpu", copy=True)
+                        for n, p in self.model.state_dict().items()})
+        reference.update(
+            names=sorted(self.ref.state_dict()),
+            parameters=sum(p.numel() for p in self.ref.parameters()),
+            full_parameters=sum(p.numel() for p in self.model.transformer.parameters()))
+        return orig["learn"](self)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = gptj_training_config(tmp)
+        # instrument's stats, evals and pushes; its learn and save are
+        # replaced by the ones above
+        patches = [p for p in instrument(torch, PPOTrainer, "transformer", {}, watch)
+                   if p[1] not in ("learn", "save")] + [
+            (PPOTrainer, "_apply", apply), (PPOTrainer, "score_ref", score_ref),
+            (PPOTrainer, "save", save), (PPOTrainer, "learn", learn)]
+        trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
+            reward_fn=training_reward, prompts=gptj_prompts(), config=config), patches)
+        n_layer, updates = trainer.model_config.n_layer, trainer.step
+        branch = trainer.branch_start
+        final = trainer.model.state_dict()
+        moved = {n: not torch.equal(final[n].cpu(), initial[n]) for n in final}
+        initial.clear()
+
+        def block(name):
+            m = re.match(r"transformer\.h\.(\d+)\.", name)
+            return int(m.group(1)) if m else None
+
+        frozen = [n for n in moved if n.startswith("transformer.wte.")
+                  or (block(n) is not None and block(n) < branch)]
+        top = [n for n in moved if n not in frozen]
+        finite = all(np.isfinite(v).all() for r in watch["rows"] for v in r.values()) and all(
+            math.isfinite(v) for e in watch["evals"] for v in e.values())
+        ref_blocks = sorted({int(n.split(".")[1]) for n in reference["names"]
+                             if n.startswith("h.")})
+        ref_parts = sorted({n.split(".")[0] for n in reference["names"]})
+        expected_variants = {
+            "tile": n_layer * (trainer.forwards - decode_forwards[0]),
+            "decode": n_layer * decode_forwards[0], "fma": 0, "copies": 0,
+        }
+        expected_bwd = {k: {"tile": 2 * updates, "fma": 0} for k in BWD_KERNELS}
+        phases = phase_rows(trainer)
+        # a fresh trainer restores the saved state (the run's gradients and
+        # rollouts freed first: two 6B trainers share the card)
+        trainer.opt.zero_grad()
+        trainer.buffer = None
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        fresh = PPOTrainer(gptj_training_config(tmp))
+        fresh.load(tmp)
+        load_s = time.perf_counter() - t0
+        restored = restores(torch, trainer, fresh, watch["saved_rng"])
+        del fresh
+    record.update({
+        "model": "GPT-J-6B widths, 28 blocks, bf16 over f32 masters",
+        "updates": updates, "phases": phases, "evals": watch["evals"],
+        "checkpoint_write_s": save_s, "wall_without_checkpoint_s":
+            record["wall_s"] - sum(save_s), "checkpoint_load_s": load_s,
+        "reference": {"blocks": ref_blocks, "parts": ref_parts,
+                      "parameters": reference["parameters"],
+                      "full_copy_parameters": reference["full_parameters"]},
+        "k1_tile_per_reference_scoring": scoring_tiles,
+        "forwards": trainer.forwards, "decode_forwards": decode_forwards[0],
+        "expected_variants": expected_variants, "expected_backward_variants": expected_bwd,
+        "frozen_tensors": len(frozen), "frozen_bit_identical": not any(moved[n] for n in frozen),
+        "top_tensors": len(top), "top_moved": all(moved[n] for n in top),
+        "finite": finite, "load_restores": restored,
+    })
+    log("phase 13: GPT-J PPO " + json.dumps(record))
+    ok = (
+        updates == GPTJ_UPDATES and len(watch["rows"]) == 2 and finite
+        and n_layer == 28 and branch == 26 and trainer.use_hydra
+        and ref_blocks == [26, 27] and ref_parts == ["h", "lm_head", "ln_f", "wte"]
+        and record["frozen_bit_identical"] and record["top_moved"]
+        and all(n == n_layer for n in scoring_tiles) and len(scoring_tiles) == 2
+        and record["flash_fwd_variants"] == expected_variants
+        and record["backward_variants"] == expected_bwd and record["backward_copies"] == 0
+        and record["plain_attention_calls"] == 0 and restored
+    )
+    log(f"phase 13: {'ok' if ok else 'FAIL'} (updates={updates}, phases={len(watch['rows'])}, "
+        f"finite={finite}; reference blocks {ref_blocks} and {ref_parts}, "
+        f"{reference['parameters']} parameters against the full copy's "
+        f"{reference['full_parameters']}; frozen {len(frozen)} tensors bit-identical: "
+        f"{record['frozen_bit_identical']}, top {len(top)} tensors moved: {record['top_moved']}; "
+        f"K1 tile per reference scoring {scoring_tiles}; K1 by variant "
+        f"{record['flash_fwd_variants']} vs {expected_variants}; K2/K3 by variant "
+        f"{record['backward_variants']} vs {expected_bwd}; backward copies "
+        f"{record['backward_copies']}; plain attention calls {record['plain_attention_calls']}; "
+        f"load restores {restored}; wall {record['wall_s']:.1f} s of which checkpoint write "
+        f"{sum(save_s):.1f} s; peak {record['max_memory_allocated_bytes']} B)")
+    del trainer, final
+    return ok, record
+
+
+def gptj_kernel_entries(build, fwd_checks, bwd_checks, fwd_timed, bwd_timed, paths) -> list:
+    """The ``kernels`` line's entries of the head-dim-256 instantiations:
+    K1 (timed at phase 12's decode step, every GPT-J path shape beside it),
+    K2 and K3 (timed at the update backward, K2 with dbias inside K2's
+    entry), their launches on phases 12 and 13 counted on their own."""
+    def fwd(shape):
+        return {k: fwd_timed[(shape, "bfloat16")][k] for k in (
+            "shape", "variant", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by")}
+
+    decode = fwd("gptj_serving_decode")
+    k1_spills = [build[k]["spill_bytes"] for k in GATED_KERNELS["flash_fwd"]
+                 if k.endswith("_d256")]
+    entries = [{
+        "name": "flash_fwd_d256", "route": "cuda", "source": SOURCES["flash_fwd"],
+        "replaces": REPLACES["flash_fwd"],
+        "launches": sum(r["launches"]["flash_fwd"] for r in paths.values()),
+        "launches_by_path": {n: r["launches"]["flash_fwd"] for n, r in paths.items()},
+        "launches_by_variant": {n: r["flash_fwd_variants"] for n, r in paths.items()},
+        "max_abs_err": max(c["max_abs_err_o"] for c in fwd_checks),
+        **{k: decode[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "timed_shape": "GPT-J serving decode bf16 " + decode["shape"],
+        "shapes": {shape: fwd(shape) for shape in GPTJ_TIMED},
+        "tile_tensor_core_instructions":
+            build["flash_fwd_tile_kernel_d256"]["tensor_core_instructions"],
+        "k1_spill_bytes": None if None in k1_spills else sum(k1_spills),
+    }]
+    for name, outputs in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
+        row = bwd_timed[("gptj_update", name)]
+        entry = {
+            "name": name + "_d256", "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": sum(r["launches"][name] for r in paths.values()),
+            "launches_by_path": {n: r["launches"][name] for n, r in paths.items()},
+            "launches_by_variant": {n: r["backward_variants"][name] for n, r in paths.items()},
+            "max_abs_err": max(c[f"max_abs_err_{o}"] for c in bwd_checks for o in outputs),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "variant", "wrapper_ms")},
+            "timed_shape": "GPT-J update bf16 " + row["shape"],
+            **{k: build[f"{name}_tile_kernel_d256"][k] for k in (
+                "spill_bytes", "registers", "tensor_core_instructions")},
+        }
+        if name == "flash_bwd_dq":  # the bias-gradient instantiation, held and timed
+            dbias = bwd_timed[("gptj_dbias", name)]
+            entry["dbias"] = {
+                **{k: dbias[k] for k in ("shape", "ms", "wrapper_ms", "plain_ms",
+                                         "library_ms", "bound_ms", "bound_by")},
+                "max_abs_err": max(c["max_abs_err_dbias"] for c in bwd_checks
+                                   if "max_abs_err_dbias" in c),
+                **{k: build["flash_bwd_dq_tile_kernel_dbias_d256"][k] for k in (
+                    "spill_bytes", "registers", "tensor_core_instructions")},
+            }
+        entries.append(entry)
+    return entries
+
+
 def main() -> int:
     import argparse
 
@@ -3849,14 +4586,18 @@ def main() -> int:
     fwd_checks, timed = phase_kernel(torch, fa, attn)
     train_fwd_checks, bwd_checks, train_timed, bwd_timed = phase_backward(torch, fa, attn)
     t5_fwd_checks, t5_bwd_checks, t5_timed, t5_bwd_timed = phase_t5_kernels(torch, fa, attn)
+    gptj_fwd_checks, gptj_bwd_checks, gptj_timed, gptj_bwd_timed = phase_gptj_kernels(
+        torch, fa, attn)
     fwd_checks += train_fwd_checks + t5_fwd_checks
     bwd_checks += t5_bwd_checks
     timed.update(train_timed)
     timed.update(t5_timed)
-    kernel_ok = all(c["ok"] for c in fwd_checks + bwd_checks) and all(
-        row["packed_ok"] for row in timed.values())
+    timed.update(gptj_timed)
+    kernel_ok = all(c["ok"] for c in fwd_checks + bwd_checks + gptj_fwd_checks
+                    + gptj_bwd_checks) and all(row["packed_ok"] for row in timed.values())
     model_ok = (phase_model(torch, fa) & phase_model_backward(torch, fa)
-                & phase_t5_model_backward(torch, fa) & phase_logprob_chunk(torch))
+                & phase_t5_model_backward(torch, fa) & phase_logprob_chunk(torch)
+                & phase_gptj_model(torch, fa) & phase_gptj_checkpoint(torch))
     serving_ok, serving = phase_serving(torch, fa)
     training_ok, training = phase_training(torch, fa)
     seq2seq_ok, seq2seq = phase_t5_training(torch, fa)
@@ -3874,6 +4615,10 @@ def main() -> int:
         continuous_ok = continuous_ok and features_ok
         del gpt2_written
     tier_ok, tier = phase_serving_tier(torch, fa)
+    gptj_serving_ok, gptj_serving = phase_gptj_serving(torch, fa)
+    gptj_training_ok, gptj_training = phase_gptj_training(torch, fa)
+    # the head-dim-256 paths (phases 12 and 13), counted on their own
+    gptj_paths = {"gptj_serving": gptj_serving, "gptj_training": gptj_training}
     # the paths of phases 9 to 11, each counted on its own
     new_paths = {"grpo": grpo["causal"], "grpo_seq2seq": grpo["seq2seq"],
                  "continuous_engine": continuous, "continuous_engine_features": features,
@@ -3995,13 +4740,16 @@ def main() -> int:
         **{k: build["flash_bwd_dq_tile_kernel_dbias"][k] for k in (
             "spill_bytes", "registers", "tensor_core_instructions")},
     })
+    kernels += gptj_kernel_entries(build, gptj_fwd_checks, gptj_bwd_checks, gptj_timed,
+                                   gptj_bwd_timed, gptj_paths)
     log(", ".join(card) if card else "nvidia-smi: no output")
     print(json.dumps({"kernels": kernels}), flush=True)
     phases = (("build", build_ok), ("kernel", kernel_ok), ("model", model_ok),
               ("serving", serving_ok), ("training", training_ok),
               ("seq2seq_training", seq2seq_ok), ("bench_workload", bench_ok),
               ("ilql", ilql_ok), ("grpo", grpo_ok), ("continuous_engine", continuous_ok),
-              ("serving_tier", tier_ok))
+              ("serving_tier", tier_ok), ("gptj_serving", gptj_serving_ok),
+              ("gptj_training", gptj_training_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

@@ -320,6 +320,9 @@ BWD_CASES = {  # B, Q, K, causal, bias kind
     "per_head": (1, 17, 130, False, "head"),
     "one_key": (2, 5, 1, False, None),
     "all_masked_rows": (2, 112, 112, True, "left_pad"),
+    # Q <= 16: row 0's queries see only padding and average the real keys
+    # 20..63 of key tile 0, the forward's whole visit
+    "small_q_masked_rows": (2, 9, 130, True, "left_pad_in_tile_0"),
     "causal_long": (2, 300, 300, True, None),
     "causal_ragged": (2, 70, 150, True, "pad"),
     # 16 query chunks and 16 key tiles; 64 key tiles with peaked logits:
@@ -330,6 +333,16 @@ BWD_CASES = {  # B, Q, K, causal, bias kind
     # ILQL's update (configs/ilql_sentiments.yml): T = 64, right padding
     "ilql_update": (4, 64, 64, True, "right_pad"),
 }
+
+
+def _left_pad_bias(dev, B, K, kind):
+    """Row 0's first 70 keys (``left_pad``: rows 0..69 see only padding) or
+    first 20 (``left_pad_in_tile_0``, for Q <= 16: its queries see only
+    padding, its real keys 20..63 lie in the visited key tile 0) are
+    padding."""
+    mask = torch.ones(B, K, dtype=torch.long, device=dev)
+    mask[0, :70 if kind == "left_pad" else 20] = 0
+    return attn.padding_bias(mask)
 
 
 def _bwd_inputs(dev, case, dtype):
@@ -344,10 +357,8 @@ def _bwd_inputs(dev, case, dtype):
     elif kind == "right_pad":  # samples of 9..K tokens, padded at the end
         n_tok = torch.randint(9, K + 1, (B, 1), generator=gen, device=dev)
         bias = attn.padding_bias((torch.arange(K, device=dev)[None] < n_tok).long())
-    elif kind == "left_pad":  # rows 0..69 of row 0 see only padding keys
-        mask = torch.ones(B, K, dtype=torch.long, device=dev)
-        mask[0, :70] = 0
-        bias = attn.padding_bias(mask)
+    elif kind in ("left_pad", "left_pad_in_tile_0"):
+        bias = _left_pad_bias(dev, B, K, kind)
     elif kind == "full":
         bias = torch.randn(B, 1, Q, K, generator=gen, device=dev)
     elif kind == "head":
@@ -871,3 +882,130 @@ def test_continuous_engine_phase_runs_every_attention_through_the_kernels(dev, t
         "FLASH_FWD_DECODE_LAUNCHES": 12 * st.decode_steps, "FLASH_FWD_FMA_LAUNCHES": 0}
     assert len(trainer.buffer) == 8 and torch.isfinite(trainer.buffer.full.rewards).all()
     assert stats["engine/completed"] == 8.0
+
+
+# Head dim 256 (GPT-J-6B: n_embd 4096 over 16 heads). K1 at the paths'
+# shapes (the rollout prefill and decode of configs/ppo_gptj.yml, B = 128,
+# 48 prompt + 48 new tokens; the update forward, B = 8, T = 96 causal; the
+# serving engine's admission prefill and decode) and at the edges: ragged
+# Q/K with a padding bias, all-padding causal rows, 16 key tiles with
+# peaked logits. H = 16 at the path shapes, 2 at the edges.
+D256_CASES = {  # B, Q, K, H, causal, bias kind
+    "rollout_prefill": (128, 48, 96, 16, False, "causal_left_pad"),
+    "rollout_decode": (128, 1, 96, 16, False, "pad"),
+    "update": (8, 96, 96, 16, True, "pad"),
+    "serving_prefill": (8, 512, 576, 16, False, "causal_left_pad"),
+    "serving_decode": (32, 1, 576, 16, False, "pad"),
+    "ragged": (2, 77, 141, 2, False, "pad"),
+    "decode_ragged": (3, 5, 70, 2, False, "full"),
+    "all_masked_rows": (2, 112, 112, 2, True, "left_pad"),
+    "small_q_masked_rows": (2, 9, 130, 2, True, "left_pad_in_tile_0"),
+    "long_k": (2, 130, 1024, 2, False, "peaked"),
+}
+
+
+def _d256_inputs(dev, case, dtype, seed=11):
+    B, Q, K, H, causal, kind = D256_CASES[case]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v = (torch.randn(B, T, H, 256, generator=gen, device=dev) for T in (Q, K, K))
+    cols = torch.arange(K, device=dev)[None]
+    if kind == "pad":  # padding with the first keys valid
+        keep = cols < 4
+        bias = attn.padding_bias(((torch.rand(B, K, generator=gen, device=dev) > 0.3) | keep).long())
+    elif kind == "causal_left_pad":  # the engine's [B, 1, Q, K] admission bias
+        lens = torch.randint(1, Q + 1, (B, 1), generator=gen, device=dev)
+        bias = attn.causal_bias(Q, K, 0, dev) + attn.padding_bias(
+            ((cols >= Q - lens) & (cols < Q)).long())
+    elif kind in ("left_pad", "left_pad_in_tile_0"):
+        bias = _left_pad_bias(dev, B, K, kind)
+    elif kind == "full":
+        bias = torch.randn(B, 1, Q, K, generator=gen, device=dev)
+    else:  # peaked: logits x3 and a per-row bias; V / 4 keeps |O| near 1
+        q, v = q * 3, v / 4
+        bias = 2 * torch.randn(B, 1, Q, K, generator=gen, device=dev)
+    do = torch.randn(B, Q, H, 256, generator=gen, device=dev)
+    return [x.to(dtype) for x in (q, k, v)], bias, causal, do.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", list(D256_CASES))
+def test_head_dim_256_forward_matches_plain(dev, dtype, case):
+    """K1 at D = 256 in the variant its dtype and Q pick, against the plain
+    version restricted to the keys K1 visits; only that variant's counter
+    moves, nothing is copied."""
+    (q, k, v), bias, causal, _ = _d256_inputs(dev, case, dtype)
+    variant = fa.forward_variant(dtype, q.shape[1])
+    before = _fwd_counters()
+    o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+    assert _moved(before) == {"FLASH_FWD_LAUNCHES": 1, f"FLASH_FWD_{variant.upper()}_LAUNCHES": 1}
+    o_ref, lse_ref = _visited_reference(q, k, v, bias, causal)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = TOL[dtype]
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    assert (o.float() - o_ref.float()).abs().max().item() <= tol_o
+    assert (lse - lse_ref).abs().max().item() <= tol_lse
+    assert torch.equal(fa.flash_attention(q, k, v, bias, causal), o)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ["update", "ragged", "all_masked_rows", "small_q_masked_rows",
+                                  "long_k", "decode_ragged"])
+def test_head_dim_256_backward_matches_plain(dev, dtype, case):
+    """K2 and K3 at D = 256 (K3 as two warpgroups, one per accumulator)
+    against the plain backward fed K1's own O and LSE."""
+    (q, k, v), bias, causal, do = _d256_inputs(dev, case, dtype)
+    o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+    before = _bwd_counters()
+    got = fa._launch_backward(q, k, v, bias, o, lse, do, causal)
+    want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, causal)
+    torch.cuda.synchronize()
+    variant = "TILE" if dtype == torch.bfloat16 else "FMA"
+    assert {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n} == {
+        "FLASH_BWD_DQ_LAUNCHES": 1, "FLASH_BWD_DKV_LAUNCHES": 1,
+        f"FLASH_BWD_DQ_{variant}_LAUNCHES": 1, f"FLASH_BWD_DKV_{variant}_LAUNCHES": 1}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert torch.isfinite(g).all(), name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= _bwd_tol(dtype, w), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_head_dim_256_dbias_matches_plain(dev, dtype):
+    """K2 with the bias gradient at D = 256 (a learned [1, H, Q, K] bias
+    under a padding bias)."""
+    (q, k, v), pad, _, do = _d256_inputs(dev, "ragged", dtype)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    bias = 2 * torch.randn(1, 2, 77, 141, generator=gen, device=dev) + pad
+    o, lse = fa.flash_attention(q, k, v, bias, False, True)
+    *got, dbias = fa._launch_backward(q, k, v, bias, o, lse, do, False, dbias=True)
+    want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, False, True)
+    torch.cuda.synchronize()
+    err = (dbias - want[3]).abs().max().item()
+    assert err <= 1e-4 * max(1.0, want[3].abs().max().item()), err
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert (g.float() - w.float()).abs().max().item() <= _bwd_tol(dtype, w), name
+
+
+def test_other_head_dims_are_refused_before_a_launch(dev):
+    """D = 96 (GPT-NeoX-20B) and 24 (the randomwalks configs) are not built:
+    the wrappers raise naming the built dims and the ROADMAP item, and the
+    C entry points refuse them."""
+    before = (_fwd_counters(), _bwd_counters())
+    for D in (24, 96, 128):
+        q, k, v = _qkv(dev, 1, 20, 30, D=D, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head dims \\(64, 256\\).*ROADMAP item 13"):
+            fa.flash_attention(q, k, v)
+        o = torch.empty_like(q)
+        lse = torch.empty(1, 2, 20, device=dev)
+        with pytest.raises(ValueError, match="head dims"):
+            fa._launch_backward(q, k, v, None, o, lse, o, False)
+        lib = fa._load()["flash_fwd"]
+        assert lib.trlx_flash_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), None,
+            fa.FORWARD_VARIANTS["tile"], 1, 1, 2, 20, 30, D, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], 0, 0, 0, 0, D ** -0.5, 0,
+            torch.cuda.current_stream().cuda_stream) == -1
+    assert (_fwd_counters(), _bwd_counters()) == before

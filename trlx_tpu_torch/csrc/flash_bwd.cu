@@ -85,17 +85,36 @@
 //    for them only uniform-register instructions run, and the next write
 //    to those registers is the next tile's or chunk's S product, after
 //    that DEPBAR and the barrier.
-//    ptxas for sm_90a (chip_smoke.py phase 1 prints it; 0 spill bytes):
-//    dQ 148 registers, 58368 B of dynamic shared memory, 3 CTAs per SM;
-//    dK/dV 204 registers, 67072 B, 2 CTAs per SM (registers bound it: at
-//    the 3-CTA cap of 168 it spilled 8-104 bytes in every arrangement
+//    ptxas for sm_90a at D = 64 (chip_smoke.py phase 1 prints it; 0 spill
+//    bytes): dQ 148 registers, 58368 B of dynamic shared memory, 3 CTAs per
+//    SM; dK/dV 204 registers, 67072 B, 2 CTAs per SM (registers bound it:
+//    at the 3-CTA cap of 168 it spilled 8-104 bytes in every arrangement
 //    tried). The training shape's 384-CTA grids then take one wave (dQ)
 //    and 1.45 waves (dK/dV) on 132 SMs.
 //
 //  fma (f32, every Q): the parity path (phase 3's full-width gradient gate
 //    holds it to 1e-3 relative, the kernel tests to 1e-4). f32 FMA from
-//    shared memory, register-blocked 4x4 per thread, tiles staged as f32;
+//    shared memory, register-blocked per thread, tiles staged as f32;
 //    tensor cores would make it TF32. No bf16 call reaches it.
+//
+// Head dims (hopper_tile.cuh kHeadDims): every kernel is a template over D,
+// built for 64 (GPT-2) and 256 (GPT-J-6B). At D = 256:
+//  - dQ tile: the dQ accumulator is 64 x 256 f32, 128 registers a thread
+//    (four 64-column chunks, one m64n64k16 product each over one K atom);
+//    Q, dO, O and the 2-stage K/V ring are 7 tiles of 32 KB, 225 KB with
+//    the alignment slack, under the 227 KB a CTA may use: one CTA per SM,
+//    up to 255 registers. S and dP take 16 k-steps each.
+//  - dK/dV tile: dK and dV together would be 256 registers a thread, which
+//    no warpgroup has, so the CTA is two warpgroups (256 threads), each
+//    holding one 64 x 256 accumulator: warpgroup 0 computes S^T and P^T and
+//    accumulates dV += P^T dO; warpgroup 1 computes S^T and P^T again, and
+//    dP^T, and accumulates dK += dS^T Q (the same products, hi + lo
+//    fragments, as at D = 64). K, V and one stage of Q, dO and O are 160
+//    KB, so Q, dO and O go through one stage; delta is taken by 4 threads
+//    a row.
+//  - fma: 16-row query tiles (dQ) or 16-key tiles and 16-row query chunks
+//    (dK/dV), and 32-key chunks (dQ), keep the padded f32 tiles at 113 KB
+//    and 82 KB; the visit rule is the forward's, whatever the CTA's tile.
 
 #include <math.h>
 
@@ -124,25 +143,34 @@ __device__ __forceinline__ float logit(float s, float scale,
 // fma: the f32 parity path
 // ---------------------------------------------------------------------------
 
-constexpr int kLD = kD + 1;    // padded row stride of the f32 tiles (banks)
 constexpr int kThreads = 256;  // 16 x 16 threads
 
-static_assert(kBK == kD, "the P/dS tiles share the Q/K/V row stride");
+// dQ: query rows per CTA for a forward tile of fwd_bq rows (the tile itself
+// at D = 64, 16 at D = 256) and keys per staged chunk (64, 32)
+template <int D>
+__host__ __device__ constexpr int dq_fma_rows(int fwd_bq) { return D == 64 ? fwd_bq : 16; }
+template <int D>
+__host__ __device__ constexpr int dq_fma_keys() { return D == 64 ? 64 : 32; }
+// dK/dV: keys per CTA and query rows per chunk (64 at D = 64, 16 at D = 256)
+template <int D>
+__host__ __device__ constexpr int dkv_fma_tile() { return D == 64 ? 64 : 16; }
 
 // Stage rows [r0, r0 + n) of a [B, T, H, D] tensor (already offset to its
-// batch row and head) into a [n][kLD] tile; rows at or past T are 0.
+// batch row and head) into a [n][D + 1] tile; rows at or past T are 0.
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           long long st, int r0, int n,
                                           int T_len) {
-  for (int i = threadIdx.x; i < n * kD; i += kThreads) {
-    const int r = i / kD, d = i % kD;
+  for (int i = threadIdx.x; i < n * D; i += kThreads) {
+    const int r = i / D, d = i % D;
     const int t = r0 + r;
-    dst[r * kLD + d] = t < T_len ? src[t * st + d] : 0.f;
+    dst[r * (D + 1) + d] = t < T_len ? src[t * st + d] : 0.f;
   }
 }
 
 // delta[r] = sum_d dO[r][d] * O[r][d] for the n staged rows, and the rows'
 // LSE (0 for rows past Q, whose P is forced to 0).
+template <int D>
 __device__ __forceinline__ void row_stats(float* Ds, float* Ls,
                                           const float* dOs, const float* Os,
                                           const float* lse_row, int q0, int n,
@@ -150,28 +178,29 @@ __device__ __forceinline__ void row_stats(float* Ds, float* Ls,
   for (int r = threadIdx.x; r < n; r += kThreads) {
     float acc = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < kD; ++d) acc = fmaf(dOs[r * kLD + d], Os[r * kLD + d], acc);
+    for (int d = 0; d < D; ++d) acc = fmaf(dOs[r * (D + 1) + d], Os[r * (D + 1) + d], acc);
     Ds[r] = acc;
     Ls[r] = q0 + r < Q ? lse_row[q0 + r] : 0.f;
   }
 }
 
-// S = Q K^T and dP = dO V^T for this thread's RQ rows x 4 keys (keys
+// S = Q K^T and dP = dO V^T for this thread's RQ rows x JK keys (keys
 // tx + 16 j of the staged tile).
-template <int RQ>
-__device__ __forceinline__ void scores(float (&s)[RQ][4], float (&dp)[RQ][4],
+template <int D, int RQ, int JK>
+__device__ __forceinline__ void scores(float (&s)[RQ][JK], float (&dp)[RQ][JK],
                                        const float* Qs, const float* dOs,
                                        const float* Ks, const float* Vs,
                                        int tx, int ty) {
+  constexpr int kLD = D + 1;
 #pragma unroll
   for (int i = 0; i < RQ; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
+    for (int j = 0; j < JK; ++j) s[i][j] = dp[i][j] = 0.f;
 #pragma unroll 4
-  for (int d = 0; d < kD; ++d) {
-    float kv[4], vv[4];
+  for (int d = 0; d < D; ++d) {
+    float kv[JK], vv[JK];
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < JK; ++j) {
       kv[j] = Ks[(tx + 16 * j) * kLD + d];
       vv[j] = Vs[(tx + 16 * j) * kLD + d];
     }
@@ -180,7 +209,7 @@ __device__ __forceinline__ void scores(float (&s)[RQ][4], float (&dp)[RQ][4],
       const float qv = Qs[(ty * RQ + i) * kLD + d];
       const float dov = dOs[(ty * RQ + i) * kLD + d];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JK; ++j) {
         s[i][j] = fmaf(qv, kv[j], s[i][j]);
         dp[i][j] = fmaf(dov, vv[j], dp[i][j]);
       }
@@ -188,10 +217,18 @@ __device__ __forceinline__ void scores(float (&s)[RQ][4], float (&dp)[RQ][4],
   }
 }
 
-// dQ: one block per (query tile of BQ rows, head, batch row); with kDbias
-// also dbias = dS for the block's rows (unscaled: the bias is added after
-// the scale), into a contiguous [B, H, Q, K] f32 tensor
-template <int BQ, bool kDbias>
+template <int D, int BQ>
+__host__ __device__ constexpr size_t dq_fma_smem() {
+  constexpr int KC = dq_fma_keys<D>();
+  constexpr int kDs = BQ * (D + 1) > BQ * (KC + 1) ? BQ * (D + 1) : BQ * (KC + 1);
+  return sizeof(float) * ((2 * BQ + 2 * KC) * (D + 1) + kDs + 2 * BQ);
+}
+
+// dQ: one block per (query tile of BQ = dq_fma_rows<D>(FwdBQ) rows, head,
+// batch row), FwdBQ being the forward's query tile (the visit rule); with
+// kDbias also dbias = dS for the block's rows (unscaled: the bias is added
+// after the scale), into a contiguous [B, H, Q, K] f32 tensor
+template <int D, int FwdBQ, bool kDbias>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                         const float* __restrict__ v, const float* __restrict__ bias,
@@ -201,14 +238,21 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
                         int H, int Q, int K, Strides sq, Strides sk, Strides sv,
                         Strides so, Strides sdo, BiasStrides sb, float scale,
                         int causal) {
+  constexpr int BQ = dq_fma_rows<D>(FwdBQ);
+  constexpr int KC = dq_fma_keys<D>();
+  constexpr int kLD = D + 1;   // padded row stride of the Q/K/V/dO/O tiles
+  constexpr int kLS = KC + 1;  // padded row stride of the dS tile
   constexpr int RQ = BQ / 16;  // query rows per thread
+  constexpr int JK = KC / 16;  // keys per thread
+  constexpr int JD = D / 16;   // dQ columns per thread
+  constexpr int kDs = BQ * kLD > BQ * kLS ? BQ * kLD : BQ * kLS;
   extern __shared__ float smem[];
   float* Qs = smem;              // [BQ][kLD]
   float* dOs = Qs + BQ * kLD;    // [BQ][kLD]
-  float* Ks = dOs + BQ * kLD;    // [kBK][kLD]
-  float* Vs = Ks + kBK * kLD;    // [kBK][kLD]
-  float* dSs = Vs + kBK * kLD;   // [BQ][kLD]; holds O until delta is taken
-  float* Ls = dSs + BQ * kLD;    // [BQ]
+  float* Ks = dOs + BQ * kLD;    // [KC][kLD]
+  float* Vs = Ks + KC * kLD;     // [KC][kLD]
+  float* dSs = Vs + KC * kLD;    // [BQ][kLS]; holds O ([BQ][kLD]) until delta is taken
+  float* Ls = dSs + kDs;         // [BQ]
   float* Ds = Ls + BQ;           // [BQ]
 
   const int tid = threadIdx.x;
@@ -222,41 +266,43 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
   const float* vb = v + b * sv.b + h * sv.h;
   const float* biasb = bias ? bias + b * sb.b + h * sb.h : nullptr;
 
-  load_tile(Qs, q + b * sq.b + h * sq.h, sq.t, q0, BQ, Q);
-  load_tile(dOs, dout + b * sdo.b + h * sdo.h, sdo.t, q0, BQ, Q);
-  load_tile(dSs, o + b * so.b + h * so.h, so.t, q0, BQ, Q);
+  load_tile<D>(Qs, q + b * sq.b + h * sq.h, sq.t, q0, BQ, Q);
+  load_tile<D>(dOs, dout + b * sdo.b + h * sdo.h, sdo.t, q0, BQ, Q);
+  load_tile<D>(dSs, o + b * so.b + h * so.h, so.t, q0, BQ, Q);
   __syncthreads();
-  row_stats(Ds, Ls, dOs, dSs, lse + (static_cast<long long>(b) * H + h) * Q,
-            q0, BQ, Q);
+  row_stats<D>(Ds, Ls, dOs, dSs, lse + (static_cast<long long>(b) * H + h) * Q,
+               q0, BQ, Q);
 
-  float acc[RQ][4];
+  float acc[RQ][JD];
 #pragma unroll
   for (int i = 0; i < RQ; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < JD; ++j) acc[i][j] = 0.f;
 
-  // causal: the key tiles the forward visited for this query tile
-  const int k_end = causal ? min(K, q0 + BQ) : K;
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // previous tile's K/dS reads (and the O reads) are done
-    load_tile(Ks, kb, sk.t, k0, kBK, K);
-    load_tile(Vs, vb, sv.t, k0, kBK, K);
+  // causal: the key tiles the forward visited for this query tile (FwdBQ
+  // is a template argument here: taken at run time, ptxas spilled 12 bytes
+  // at D = 64)
+  const int k_end = visit_end(q0, FwdBQ, K, causal);
+  for (int k0 = 0; k0 < k_end; k0 += KC) {
+    __syncthreads();  // previous chunk's K/dS reads (and the O reads) are done
+    load_tile<D>(Ks, kb, sk.t, k0, KC, k_end);
+    load_tile<D>(Vs, vb, sv.t, k0, KC, k_end);
     __syncthreads();
 
-    float s[RQ][4], dp[RQ][4];
-    scores<RQ>(s, dp, Qs, dOs, Ks, Vs, tx, ty);
+    float s[RQ][JK], dp[RQ][JK];
+    scores<D, RQ, JK>(s, dp, Qs, dOs, Ks, Vs, tx, ty);
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
       const int r = ty * RQ + i;
       const int qi = q0 + r;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JK; ++j) {
         const int kj = k0 + tx + 16 * j;
-        float p = 0.f;  // padded rows and keys past K carry no weight
-        if (qi < Q && kj < K)
+        float p = 0.f;  // padded rows and keys past the visited ones carry no weight
+        if (qi < Q && kj < k_end)
           p = expf(logit(s[i][j], scale, biasb, sb, qi, kj, causal) - Ls[r]);
         const float ds = p * (dp[i][j] - Ds[r]);
-        dSs[r * kLD + tx + 16 * j] = ds;
+        dSs[r * kLS + tx + 16 * j] = ds;
         if (kDbias && qi < Q && kj < K)
           dbias[((static_cast<long long>(b) * H + h) * Q + qi) * K + kj] = ds;
       }
@@ -264,15 +310,15 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
     __syncthreads();  // dS complete
 
 #pragma unroll 8
-    for (int c = 0; c < kBK; ++c) {
-      float kv[4];
+    for (int c = 0; c < KC; ++c) {
+      float kv[JD];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[c * kLD + tx + 16 * j];
+      for (int j = 0; j < JD; ++j) kv[j] = Ks[c * kLD + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
-        const float ds = dSs[(ty * RQ + i) * kLD + c];
+        const float ds = dSs[(ty * RQ + i) * kLS + c];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ds, kv[j], acc[i][j]);
+        for (int j = 0; j < JD; ++j) acc[i][j] = fmaf(ds, kv[j], acc[i][j]);
       }
     }
   }
@@ -281,13 +327,22 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
   for (int i = 0; i < RQ; ++i) {
     const int qi = q0 + ty * RQ + i;
     if (qi >= Q) continue;
-    float* row = dq + ((static_cast<long long>(b) * Q + qi) * H + h) * kD;
+    float* row = dq + ((static_cast<long long>(b) * Q + qi) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) row[tx + 16 * j] = acc[i][j] * scale;
+    for (int j = 0; j < JD; ++j) row[tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
-// dK, dV: one block per (64-key tile, head, batch row)
+template <int D>
+__host__ __device__ constexpr size_t dkv_fma_smem() {
+  constexpr int KT = dkv_fma_tile<D>(), QC = dkv_fma_tile<D>();
+  constexpr int kPs = QC * (D + 1) > QC * (KT + 1) ? QC * (D + 1) : QC * (KT + 1);
+  return sizeof(float) * ((2 * KT + 2 * QC) * (D + 1) + kPs + QC * (KT + 1) + 2 * QC);
+}
+
+// dK, dV: one block per (tile of KT keys, head, batch row), looping over
+// chunks of QC query rows
+template <int D>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ bias,
@@ -296,21 +351,31 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
                          float* __restrict__ dv, int H, int Q, int K, Strides sq,
                          Strides sk, Strides sv, Strides so, Strides sdo,
                          BiasStrides sb, float scale, int causal) {
-  constexpr int RQ = kBQ / 16;  // query rows per thread in the score phase
+  constexpr int KT = dkv_fma_tile<D>();  // keys per block
+  constexpr int QC = dkv_fma_tile<D>();  // query rows per chunk
+  constexpr int kLD = D + 1;             // padded row stride of Q/K/V/dO/O
+  constexpr int kLP = KT + 1;            // padded row stride of the P/dS tiles
+  constexpr int RQ = QC / 16;            // query rows per thread in the score phase
+  constexpr int JK = KT / 16;            // keys per thread (both phases)
+  constexpr int JD = D / 16;             // head-dim columns per thread
+  constexpr int kPs = QC * kLD > QC * kLP ? QC * kLD : QC * kLP;
   extern __shared__ float smem[];
-  float* Ks = smem;              // [kBK][kLD]
-  float* Vs = Ks + kBK * kLD;    // [kBK][kLD]
-  float* Qs = Vs + kBK * kLD;    // [kBQ][kLD]
-  float* dOs = Qs + kBQ * kLD;   // [kBQ][kLD]
-  float* Ps = dOs + kBQ * kLD;   // [kBQ][kLD]; holds O until delta is taken
-  float* dSs = Ps + kBQ * kLD;   // [kBQ][kLD]
-  float* Ls = dSs + kBQ * kLD;   // [kBQ]
-  float* Ds = Ls + kBQ;          // [kBQ]
+  float* Ks = smem;              // [KT][kLD]
+  float* Vs = Ks + KT * kLD;     // [KT][kLD]
+  float* Qs = Vs + KT * kLD;     // [QC][kLD]
+  float* dOs = Qs + QC * kLD;    // [QC][kLD]
+  float* Ps = dOs + QC * kLD;    // [QC][kLP]; holds O ([QC][kLD]) until delta is taken
+  float* dSs = Ps + kPs;         // [QC][kLP]
+  float* Ls = dSs + QC * kLP;    // [QC]
+  float* Ds = Ls + QC;           // [QC]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;
   const int ty = tid >> 4;
-  const int k0 = blockIdx.x * kBK;
+  const int k0 = blockIdx.x * KT;
+  // the forward's 64-key tile holding this block's keys: row qi visited it
+  // iff qi >= k_tile (both forward query tiles divide 64)
+  const int k_tile = k0 / kBK * kBK;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
 
@@ -320,62 +385,62 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
   const float* lse_row = lse + (static_cast<long long>(b) * H + h) * Q;
   const float* biasb = bias ? bias + b * sb.b + h * sb.h : nullptr;
 
-  load_tile(Ks, k + b * sk.b + h * sk.h, sk.t, k0, kBK, K);
-  load_tile(Vs, v + b * sv.b + h * sv.h, sv.t, k0, kBK, K);
+  load_tile<D>(Ks, k + b * sk.b + h * sk.h, sk.t, k0, KT, K);
+  load_tile<D>(Vs, v + b * sv.b + h * sv.h, sv.t, k0, KT, K);
 
-  // this thread accumulates keys k0 + ty*4 + i, head dims tx + 16 j
-  float dk_acc[4][4], dv_acc[4][4];
+  // this thread accumulates keys k0 + ty * JK + i, head dims tx + 16 j
+  float dk_acc[JK][JD], dv_acc[JK][JD];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < JK; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+    for (int j = 0; j < JD; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
 
-  for (int q0 = 0; q0 < Q; q0 += kBQ) {
+  for (int q0 = 0; q0 < Q; q0 += QC) {
     // causal: the chunk is live iff its last row visited this key tile
     // (block-uniform)
-    if (causal && min(q0 + kBQ, Q) - 1 < k0) continue;
+    if (causal && min(q0 + QC, Q) - 1 < k_tile) continue;
     __syncthreads();  // previous chunk's reads (and the K/V stores) are done
-    load_tile(Qs, qb, sq.t, q0, kBQ, Q);
-    load_tile(dOs, dob, sdo.t, q0, kBQ, Q);
-    load_tile(Ps, ob, so.t, q0, kBQ, Q);
+    load_tile<D>(Qs, qb, sq.t, q0, QC, Q);
+    load_tile<D>(dOs, dob, sdo.t, q0, QC, Q);
+    load_tile<D>(Ps, ob, so.t, q0, QC, Q);
     __syncthreads();
-    row_stats(Ds, Ls, dOs, Ps, lse_row, q0, kBQ, Q);
+    row_stats<D>(Ds, Ls, dOs, Ps, lse_row, q0, QC, Q);
     __syncthreads();  // delta taken: Ps is free for P
 
-    float s[RQ][4], dp[RQ][4];
-    scores<RQ>(s, dp, Qs, dOs, Ks, Vs, tx, ty);
+    float s[RQ][JK], dp[RQ][JK];
+    scores<D, RQ, JK>(s, dp, Qs, dOs, Ks, Vs, tx, ty);
 #pragma unroll
     for (int i = 0; i < RQ; ++i) {
       const int r = ty * RQ + i;
       const int qi = q0 + r;
-      const bool visits = qi < Q && (!causal || qi >= k0);
+      const bool visits = qi < Q && (!causal || qi >= k_tile);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JK; ++j) {
         const int c = tx + 16 * j;
         const int kj = k0 + c;
         float p = 0.f;
         if (visits && kj < K)
           p = expf(logit(s[i][j], scale, biasb, sb, qi, kj, causal) - Ls[r]);
-        Ps[r * kLD + c] = p;
-        dSs[r * kLD + c] = p * (dp[i][j] - Ds[r]);
+        Ps[r * kLP + c] = p;
+        dSs[r * kLP + c] = p * (dp[i][j] - Ds[r]);
       }
     }
     __syncthreads();  // P and dS complete
 
 #pragma unroll 4
-    for (int r = 0; r < kBQ; ++r) {
-      float dov[4], qv[4];
+    for (int r = 0; r < QC; ++r) {
+      float dov[JD], qv[JD];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JD; ++j) {
         dov[j] = dOs[r * kLD + tx + 16 * j];
         qv[j] = Qs[r * kLD + tx + 16 * j];
       }
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float p = Ps[r * kLD + ty * 4 + i];
-        const float ds = dSs[r * kLD + ty * 4 + i];
+      for (int i = 0; i < JK; ++i) {
+        const float p = Ps[r * kLP + ty * JK + i];
+        const float ds = dSs[r * kLP + ty * JK + i];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int j = 0; j < JD; ++j) {
           dv_acc[i][j] = fmaf(p, dov[j], dv_acc[i][j]);
           dk_acc[i][j] = fmaf(ds, qv[j], dk_acc[i][j]);
         }
@@ -384,12 +449,12 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kj = k0 + ty * 4 + i;
+  for (int i = 0; i < JK; ++i) {
+    const int kj = k0 + ty * JK + i;
     if (kj >= K) continue;
-    const long long off = ((static_cast<long long>(b) * K + kj) * H + h) * kD;
+    const long long off = ((static_cast<long long>(b) * K + kj) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < JD; ++j) {
       dk[off + tx + 16 * j] = dk_acc[i][j] * scale;
       dv[off + tx + 16 * j] = dv_acc[i][j];
     }
@@ -400,24 +465,25 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
 // tile: bf16, tensor cores (wgmma.m64n64k16)
 // ---------------------------------------------------------------------------
 
-// CTAs per SM in the launch bounds. dQ fits 168 registers (3 CTAs); dK/dV
-// holds two f32 accumulators and P, dS (hi + lo) at once and spilled at 168
-// in every arrangement tried, so it takes 2 CTAs and up to 255 registers.
-constexpr int kDqMinBlocks = 3;
-constexpr int kDkvMinBlocks = 2;
+// CTAs per SM in the launch bounds. At D = 64 dQ fits 168 registers (3
+// CTAs); dK/dV holds two f32 accumulators and P, dS (hi + lo) at once and
+// spilled at 168 in every arrangement tried, so it takes 2 CTAs and up to
+// 255 registers. At D = 256 each is one CTA per SM (shared memory bounds
+// it) with up to 255 registers a thread.
+template <int D>
+__host__ __device__ constexpr int dq_min_blocks() { return D == 64 ? 3 : 1; }
+template <int D>
+__host__ __device__ constexpr int dkv_min_blocks() { return D == 64 ? 2 : 1; }
+// dK/dV: one warpgroup at D = 64, two (one per accumulator) above
+template <int D>
+__host__ __device__ constexpr int dkv_threads() { return D == 64 ? kTileThreads : 2 * kTileThreads; }
 // dynamic shared memory: the tiles, and 1 KB of slack to align them to the
 // 1024 bytes the 128-byte swizzle repeats over
-constexpr int kDqSmem = 7 * kTileBytes + 1024;  // Q, dO, O, K[2], V[2]
-constexpr int kDkvSmem =                        // K, V, (Q, dO, O)[2], LSE, delta
-    8 * kTileBytes + 2 * kBQ * static_cast<int>(sizeof(float)) + 1024;
-
-// The dynamic shared memory from its first 1024-byte boundary: the generic
-// pointer and the shared address of the same byte.
-__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw, uint32_t& addr) {
-  const uint32_t a = smem_addr(raw);
-  const uint32_t pad = (1024u - (a & 1023u)) & 1023u;
-  addr = a + pad;
-  return raw + pad;
+template <int D>
+__host__ __device__ constexpr int dq_smem() { return 7 * tile_bytes<D>() + 1024; }  // Q, dO, O, K[2], V[2]
+template <int D>
+__host__ __device__ constexpr int dkv_smem() {  // K, V, (Q, dO, O)[2 at D = 64, 1 above], LSE, delta
+  return (D == 64 ? 8 : 5) * tile_bytes<D>() + 2 * kBQ * static_cast<int>(sizeof(float)) + 1024;
 }
 
 // sum_i x[i] y[i] over 8 bf16 pairs, added to acc in f32
@@ -460,15 +526,28 @@ __device__ __forceinline__ void zero(float (&d)[8][4]) {
     for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
 }
 
-// d = X Y^T for 64 x 64 bf16 tiles X, Y [row][d] in shared memory, issued
-// (not committed) as 4 wgmmas
+// d = X Y^T for 64 x D bf16 tiles X, Y [row][d] in shared memory, issued
+// (not committed) as D / 16 wgmmas
+template <int D>
 __device__ __forceinline__ void product(float (&d)[8][4], uint32_t x, uint32_t y) {
   zero(d);
   fence_registers(d);
   wgmma_fence();
+  const TileDesc<D> dx(x), dy(y);
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) wgmma_ss(d, dx.kstep(ks), dy.kstep(ks), ks > 0);
+}
+
+// acc[n] += A B[:, 64 n .. 64 n + 63] over the 4 k-steps of a 64-row B
+// tile [k][d] (MN-major), A as register fragments a[ks]
+template <int N>
+__device__ __forceinline__ void accumulate_mn(float (&acc)[N][8][4],
+                                              const uint32_t (&a)[4][4], uint32_t b) {
+  const TileDesc<64 * N> db(b);
 #pragma unroll
   for (int ks = 0; ks < 4; ++ks)
-    wgmma_ss(d, smem_desc(x + 32 * ks), smem_desc(y + 32 * ks), ks > 0);
+#pragma unroll
+    for (int n = 0; n < N; ++n) wgmma_rs_mn(acc[n], a[ks], db.mn(n, ks));
 }
 
 // dQ: one warpgroup per (64-row query tile, head, batch row); warp w owns
@@ -476,8 +555,8 @@ __device__ __forceinline__ void product(float (&d)[8][4], uint32_t x, uint32_t y
 // kDbias it also stores dbias = dS (f32, unscaled) from the accumulator
 // fragments into a contiguous [B, H, Q, K] tensor; without it the code is
 // PR 4's (the store is compiled out).
-template <bool kDbias>
-__global__ void __launch_bounds__(kTileThreads, kDqMinBlocks)
+template <int D, bool kDbias>
+__global__ void __launch_bounds__(kTileThreads, dq_min_blocks<D>())
 flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          const bf16* __restrict__ v, const float* __restrict__ bias,
                          const bf16* __restrict__ o, const bf16* __restrict__ dout,
@@ -486,11 +565,13 @@ flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          int H, int Q, int K, Strides sq, Strides sk, Strides sv,
                          Strides so, Strides sdo, BiasStrides sb, float scale,
                          int causal) {
+  constexpr int kTB = tile_bytes<D>();
+  constexpr int kN = D / 64;  // 64-column chunks of dQ
   extern __shared__ uint8_t smem_raw[];
   uint32_t sQ;
   const uint8_t* smem = aligned_smem(smem_raw, sQ);
-  const uint32_t sdO = sQ + kTileBytes, sO = sQ + 2 * kTileBytes;
-  const uint32_t sK0 = sQ + 3 * kTileBytes, sV0 = sQ + 5 * kTileBytes;
+  const uint32_t sdO = sQ + kTB, sO = sQ + 2 * kTB;
+  const uint32_t sK0 = sQ + 3 * kTB, sV0 = sQ + 5 * kTB;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -505,14 +586,14 @@ flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   // causal: the key tiles the forward visited for this query tile (at
   // Q <= 16 the forward's 16-row tile also ends in key tile 0); the rows of
   // one 64-row tile share their forward tile, so this is the per-row rule
-  const int k_end = causal ? min(K, q0 + kBQ) : K;
+  const int k_end = visit_end(q0, kBQ, K, causal);
   const int n_tiles = (k_end + kBK - 1) / kBK;
 
-  load_tile_async(sQ, q + b * sq.b + h * sq.h, sq.t, q0, Q);
-  load_tile_async(sdO, dout + b * sdo.b + h * sdo.h, sdo.t, q0, Q);
-  load_tile_async(sO, o + b * so.b + h * so.h, so.t, q0, Q);
-  load_tile_async(sK0, kb, sk.t, 0, K);
-  load_tile_async(sV0, vb, sv.t, 0, K);
+  load_tile_async<D>(sQ, q + b * sq.b + h * sq.h, sq.t, q0, Q);
+  load_tile_async<D>(sdO, dout + b * sdo.b + h * sdo.h, sdo.t, q0, Q);
+  load_tile_async<D>(sO, o + b * so.b + h * so.h, so.t, q0, Q);
+  load_tile_async<D>(sK0, kb, sk.t, 0, K);
+  load_tile_async<D>(sV0, vb, sv.t, 0, K);
   cp_async_commit();
 
   // this thread's rows, their LSE and their bias rows (a padded row reads
@@ -526,33 +607,34 @@ flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lse_r[hr] = qi[hr] < Q ? lse[(static_cast<long long>(b) * H + h) * Q + qi[hr]] : 0.f;
     brow[hr] = bias ? bias + b * sb.b + h * sb.h + min(qi[hr], Q - 1) * sb.q : nullptr;
   }
-  float acc[8][4];
+  float acc[kN][8][4];
   zero(acc);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t & 1;
     const int k0 = t * kBK;
     if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      load_tile_async(sK0 + (buf ^ 1) * kTileBytes, kb, sk.t, k0 + kBK, K);
-      load_tile_async(sV0 + (buf ^ 1) * kTileBytes, vb, sv.t, k0 + kBK, K);
+      load_tile_async<D>(sK0 + (buf ^ 1) * kTB, kb, sk.t, k0 + kBK, K);
+      load_tile_async<D>(sV0 + (buf ^ 1) * kTB, vb, sv.t, k0 + kBK, K);
     }
     cp_async_commit();  // possibly empty: keeps one group per iteration
     cp_async_wait<1>();  // everything up to this tile has landed
     fence_proxy_async();
     __syncthreads();
-    const uint32_t sK = sK0 + buf * kTileBytes;
-    const uint32_t sV = sV0 + buf * kTileBytes;
+    const uint32_t sK = sK0 + buf * kTB;
+    const uint32_t sV = sV0 + buf * kTB;
 
     if (t == 0) {
-      // delta of this thread's two rows: 16 columns each, summed over the quad
+      // delta of this thread's two rows: D / 4 columns each, summed over
+      // the quad
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int r = warp * 16 + g + 8 * hr;
         float d = 0.f;
 #pragma unroll
-        for (int i = 0; i < 2; ++i) {
-          const int ch = 2 * t4 + i;
-          d = dot8(smem + (sdO - sQ) + swizzle(r, ch), smem + (sO - sQ) + swizzle(r, ch), d);
+        for (int i = 0; i < D / 32; ++i) {
+          const int ch = D / 32 * t4 + i;
+          d = dot8(smem + (sdO - sQ) + tile_offset(r, ch), smem + (sO - sQ) + tile_offset(r, ch), d);
         }
         d += __shfl_xor_sync(0xffffffffu, d, 1);
         delta[hr] = d + __shfl_xor_sync(0xffffffffu, d, 2);
@@ -562,9 +644,9 @@ flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // S = Q K^T and dP = dO V^T as two wgmma groups; P is formed while
     // the second runs
     float s[8][4], dp[8][4];
-    product(s, sQ, sK);
+    product<D>(s, sQ, sK);
     wgmma_commit();
-    product(dp, sdO, sV);
+    product<D>(dp, sdO, sV);
     wgmma_commit();
     wgmma_wait<1>();
     fence_registers(s);
@@ -608,9 +690,7 @@ flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int ks = 0; ks < 4; ++ks) pack_fragment(da[ks], dp, ks);
     fence_registers(acc);
     wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_rs_mn(acc, da[ks], smem_desc(sK + 2048 * ks));
+    accumulate_mn(acc, da, sK);
     wgmma_commit_and_wait();
     fence_registers(acc);
     __syncthreads();  // this stage is read; the next iteration refills it
@@ -619,32 +699,61 @@ flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     if (qi[hr] >= Q) continue;
-    bf16* row = dq + ((static_cast<long long>(b) * Q + qi[hr]) * H + h) * kD;
+    bf16* row = dq + ((static_cast<long long>(b) * Q + qi[hr]) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(row + 8 * j + 2 * t4) =
-          pack_bf16(acc[j][2 * hr] * scale, acc[j][2 * hr + 1] * scale);
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(row + 64 * n + 8 * j + 2 * t4) =
+            pack_bf16(acc[n][j][2 * hr] * scale, acc[n][j][2 * hr + 1] * scale);
   }
 }
 
-// dK, dV: one warpgroup per (64-key tile, head, batch row); the
+// P^T of a chunk in place on the S^T = K Q^T accumulator of keys kr[2]
+// (this thread's) and the chunk's queries (accumulator columns): logit()'s
+// sum in its order, formed for every element (a padded row reads row Q -
+// 1's bias) and then selected, no branch per element. Padded rows, keys
+// past K and rows that did not visit the key tile at k_tile carry no
+// weight. LSE is read by column from sL.
+__device__ __forceinline__ void probabilities_t(float (&s)[8][4], const int (&kr)[2],
+                                                const float* const (&bcol)[2],
+                                                const float* sL, BiasStrides sb,
+                                                float scale, int causal, int q0,
+                                                int k_tile, int Q, int K, int t4) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * t4 + (e & 1);
+      const int qi = q0 + col;
+      const int kj = kr[e >> 1];
+      float x = s[j][e] * scale;
+      if (bcol[e >> 1]) x += bcol[e >> 1][min(qi, Q - 1) * sb.q];
+      if (causal && kj > qi) x += kNegInf;
+      const bool in = qi < Q && kj < K && (!causal || qi >= k_tile);
+      s[j][e] = in ? __expf(x - sL[col]) : 0.f;
+    }
+}
+
+// dK, dV at D = 64: one warpgroup per (64-key tile, head, batch row); the
 // accumulators hold keys as rows (warp w keys 16 w .. 16 w + 15, each
 // thread keys g and g + 8 of them) and the chunk's queries as columns.
-__global__ void __launch_bounds__(kTileThreads, kDkvMinBlocks)
-flash_bwd_dkv_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const float* __restrict__ bias,
-                          const bf16* __restrict__ o, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, bf16* __restrict__ dk,
-                          bf16* __restrict__ dv, int H, int Q, int K, Strides sq,
-                          Strides sk, Strides sv, Strides so, Strides sdo,
-                          BiasStrides sb, float scale, int causal) {
+__device__ __forceinline__ void dkv_tile_joint(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const float* __restrict__ bias,
+    const bf16* __restrict__ o, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int H, int Q, int K, Strides sq, Strides sk, Strides sv, Strides so,
+    Strides sdo, BiasStrides sb, float scale, int causal) {
+  constexpr int D = 64;
+  constexpr int kTB = tile_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
   uint32_t sK;
   uint8_t* smem = aligned_smem(smem_raw, sK);
-  const uint32_t sV = sK + kTileBytes;
-  const uint32_t sChunk0 = sK + 2 * kTileBytes;  // stage s: Q, dO, O at + 3 s tiles
-  float* sL = reinterpret_cast<float*>(smem + 8 * kTileBytes);  // the chunk's LSE
-  float* sD = sL + kBQ;                                         // and delta
+  const uint32_t sV = sK + kTB;
+  const uint32_t sChunk0 = sK + 2 * kTB;  // stage s: Q, dO, O at + 3 s tiles
+  float* sL = reinterpret_cast<float*>(smem + 8 * kTB);  // the chunk's LSE
+  float* sD = sL + kBQ;                                  // and delta
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -678,13 +787,13 @@ flash_bwd_dkv_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   zero(dv_acc);
 
   auto load_chunk = [&](uint32_t dst, int q0) {
-    load_tile_async(dst, qb, sq.t, q0, Q);
-    load_tile_async(dst + kTileBytes, dob, sdo.t, q0, Q);
-    load_tile_async(dst + 2 * kTileBytes, ob, so.t, q0, Q);
+    load_tile_async<D>(dst, qb, sq.t, q0, Q);
+    load_tile_async<D>(dst + kTB, dob, sdo.t, q0, Q);
+    load_tile_async<D>(dst + 2 * kTB, ob, so.t, q0, Q);
   };
   if (c_begin < n_chunks) {
-    load_tile_async(sK, k + b * sk.b + h * sk.h, sk.t, k0, K);
-    load_tile_async(sV, v + b * sv.b + h * sv.h, sv.t, k0, K);
+    load_tile_async<D>(sK, k + b * sk.b + h * sk.h, sk.t, k0, K);
+    load_tile_async<D>(sV, v + b * sv.b + h * sv.h, sv.t, k0, K);
     load_chunk(sChunk0, c_begin * kBQ);
     cp_async_commit();
   }
@@ -692,10 +801,10 @@ flash_bwd_dkv_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
   for (int c = c_begin; c < n_chunks; ++c) {
     const int buf = (c - c_begin) & 1;
     const int q0 = c * kBQ;
-    const uint32_t sQ = sChunk0 + buf * 3 * kTileBytes;
-    const uint32_t sdO = sQ + kTileBytes, sO = sQ + 2 * kTileBytes;
+    const uint32_t sQ = sChunk0 + buf * 3 * kTB;
+    const uint32_t sdO = sQ + kTB, sO = sQ + 2 * kTB;
     if (c + 1 < n_chunks)  // prefetch the next chunk into the other stage
-      load_chunk(sChunk0 + (buf ^ 1) * 3 * kTileBytes, q0 + kBQ);
+      load_chunk(sChunk0 + (buf ^ 1) * 3 * kTB, q0 + kBQ);
     cp_async_commit();  // possibly empty: keeps one group per iteration
     // row sr's LSE and delta are staged by threads 2 sr (delta) and 2 sr + 1
     // (LSE); the LSE read goes out before the wait
@@ -720,27 +829,11 @@ flash_bwd_dkv_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
     // S^T = K Q^T, then dP^T = V dO^T once P^T is formed (issuing both
     // at once took 8 more registers and no less time)
     float s[8][4], dp[8][4];
-    product(s, sK, sQ);
+    product<D>(s, sK, sQ);
     wgmma_commit_and_wait();
     fence_registers(s);
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t4 + (e & 1);
-        const int qi = q0 + col;
-        const int kj = kr[e >> 1];
-        // logit()'s sum in its order, formed for every element (a padded
-        // row reads row Q - 1's bias) and then selected: no branch per
-        // element. Padded rows, keys past K and unvisited rows carry no
-        // weight.
-        float x = s[j][e] * scale;
-        if (bcol[e >> 1]) x += bcol[e >> 1][min(qi, Q - 1) * sb.q];
-        if (causal && kj > qi) x += kNegInf;
-        const bool in = qi < Q && kj < K && (!causal || qi >= k0);
-        s[j][e] = in ? __expf(x - sL[col]) : 0.f;
-      }
-    product(dp, sV, sdO);
+    probabilities_t(s, kr, bcol, sL, sb, scale, causal, q0, k0, Q, K, t4);
+    product<D>(dp, sV, sdO);
     wgmma_commit_and_wait();
     fence_registers(dp);
 #pragma unroll
@@ -779,7 +872,7 @@ flash_bwd_dkv_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     if (kr[hr] >= K) continue;
-    const long long off = ((static_cast<long long>(b) * K + kr[hr]) * H + h) * kD;
+    const long long off = ((static_cast<long long>(b) * K + kr[hr]) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t4) =
@@ -788,6 +881,162 @@ flash_bwd_dkv_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
           pack_bf16(dv_acc[j][2 * hr], dv_acc[j][2 * hr + 1]);
     }
   }
+}
+
+// dK, dV above D = 64: two warpgroups per (64-key tile, head, batch row),
+// each with one 64 x D accumulator, keys as rows: warpgroup 0 dV += P^T dO,
+// warpgroup 1 dK += dS^T Q; both form P^T from their own S^T = K Q^T. K
+// and V are staged once; Q, dO and O go through one stage per 64-row chunk.
+template <int D>
+__device__ __forceinline__ void dkv_tile_split(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const float* __restrict__ bias,
+    const bf16* __restrict__ o, const bf16* __restrict__ dout,
+    const float* __restrict__ lse, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    int H, int Q, int K, Strides sq, Strides sk, Strides sv, Strides so,
+    Strides sdo, BiasStrides sb, float scale, int causal) {
+  constexpr int kTB = tile_bytes<D>();
+  constexpr int kN = D / 64;  // 64-column chunks of the accumulator
+  constexpr int kT = 2 * kTileThreads;
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t sK;
+  uint8_t* smem = aligned_smem(smem_raw, sK);
+  const uint32_t sV = sK + kTB, sQ = sK + 2 * kTB;
+  const uint32_t sdO = sK + 3 * kTB, sO = sK + 4 * kTB;
+  float* sL = reinterpret_cast<float*>(smem + 5 * kTB);  // the chunk's LSE
+  float* sD = sL + kBQ;                                  // and delta
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kTileThreads;  // 0: dV, 1: dK
+  const int warp = (tid % kTileThreads) >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * kBK;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int n_chunks = (Q + kBQ - 1) / kBQ;
+
+  const bf16* qb = q + b * sq.b + h * sq.h;
+  const bf16* ob = o + b * so.b + h * so.h;
+  const bf16* dob = dout + b * sdo.b + h * sdo.h;
+  const float* lse_row = lse + (static_cast<long long>(b) * H + h) * Q;
+  const float* biasb = bias ? bias + b * sb.b + h * sb.h : nullptr;
+
+  // causal: row qi visited this key tile iff qi >= k0 (block-uniform)
+  const int c_begin = causal ? min(k0 / kBQ, n_chunks) : 0;
+
+  int kr[2];
+  const float* bcol[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    kr[hr] = k0 + warp * 16 + g + 8 * hr;
+    bcol[hr] = biasb ? biasb + min(kr[hr], K - 1) * sb.k : nullptr;
+  }
+  float acc[kN][8][4];
+  zero(acc);
+
+  if (c_begin < n_chunks) {  // committed with the first chunk
+    load_tile_async<D, kT>(sK, k + b * sk.b + h * sk.h, sk.t, k0, K);
+    load_tile_async<D, kT>(sV, v + b * sv.b + h * sv.h, sv.t, k0, K);
+  }
+
+  for (int c = c_begin; c < n_chunks; ++c) {
+    const int q0 = c * kBQ;
+    load_tile_async<D, kT>(sQ, qb, sq.t, q0, Q);
+    load_tile_async<D, kT>(sdO, dob, sdo.t, q0, Q);
+    load_tile_async<D, kT>(sO, ob, so.t, q0, Q);
+    cp_async_commit();
+    // row sr's delta over 4 threads (D / 32 chunks each), its LSE by the
+    // second of them; the LSE read goes out before the wait
+    const int sr = tid >> 2, part = tid & 3;
+    const float lse_r = part == 1 && q0 + sr < Q ? lse_row[q0 + sr] : 0.f;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    float d = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 32; ++i) {
+      const int ch = D / 32 * part + i;
+      d = dot8(smem + (sdO - sK) + tile_offset(sr, ch), smem + (sO - sK) + tile_offset(sr, ch), d);
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if (part == 0)
+      sD[sr] = d;
+    else if (part == 1)
+      sL[sr] = lse_r;
+    __syncthreads();
+
+    // S^T = K Q^T and P^T, in both warpgroups
+    float s[8][4];
+    product<D>(s, sK, sQ);
+    wgmma_commit_and_wait();
+    fence_registers(s);
+    probabilities_t(s, kr, bcol, sL, sb, scale, causal, q0, k0, Q, K, t4);
+    if (wg == 0) {
+      // dV += P^T dO, P^T as hi + lo fragments
+      uint32_t p_hi[4][4], p_lo[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) split_fragment(p_hi[ks], p_lo[ks], s, ks);
+      fence_registers(acc);
+      wgmma_fence();
+      accumulate_mn(acc, p_hi, sdO);
+      accumulate_mn(acc, p_lo, sdO);
+      wgmma_commit_and_wait();
+      fence_registers(acc);
+    } else {
+      // dP^T = V dO^T, dS^T = P^T (dP^T - delta), dK += dS^T Q
+      float dp[8][4];
+      product<D>(dp, sV, sdO);
+      wgmma_commit_and_wait();
+      fence_registers(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = s[j][e] * (dp[j][e] - sD[8 * j + 2 * t4 + (e & 1)]);
+      uint32_t ds_hi[4][4], ds_lo[4][4];
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) split_fragment(ds_hi[ks], ds_lo[ks], dp, ks);
+      fence_registers(acc);
+      wgmma_fence();
+      accumulate_mn(acc, ds_hi, sQ);
+      accumulate_mn(acc, ds_lo, sQ);
+      wgmma_commit_and_wait();
+      fence_registers(acc);
+    }
+    __syncthreads();  // the stage and sL/sD are read; the next chunk refills them
+  }
+
+  bf16* out = wg == 0 ? dv : dk;
+  const float out_scale = wg == 0 ? 1.f : scale;  // dK is scaled once, at emit
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (kr[hr] >= K) continue;
+    const long long off = ((static_cast<long long>(b) * K + kr[hr]) * H + h) * D;
+#pragma unroll
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + off + 64 * n + 8 * j + 2 * t4) = pack_bf16(
+            acc[n][j][2 * hr] * out_scale, acc[n][j][2 * hr + 1] * out_scale);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(dkv_threads<D>(), dkv_min_blocks<D>())
+flash_bwd_dkv_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                          const bf16* __restrict__ v, const float* __restrict__ bias,
+                          const bf16* __restrict__ o, const bf16* __restrict__ dout,
+                          const float* __restrict__ lse, bf16* __restrict__ dk,
+                          bf16* __restrict__ dv, int H, int Q, int K, Strides sq,
+                          Strides sk, Strides sv, Strides so, Strides sdo,
+                          BiasStrides sb, float scale, int causal) {
+  if constexpr (D == 64)
+    dkv_tile_joint(q, k, v, bias, o, dout, lse, dk, dv, H, Q, K, sq, sk, sv, so,
+                   sdo, sb, scale, causal);
+  else
+    dkv_tile_split<D>(q, k, v, bias, o, dout, lse, dk, dv, H, Q, K, sq, sk, sv, so,
+                      sdo, sb, scale, causal);
 }
 
 // ---------------------------------------------------------------------------
@@ -805,7 +1054,7 @@ struct Args {
 };
 
 bool valid(int D, int B, int H, int Q, int K) {
-  return D == kD && B >= 1 && H >= 1 && Q >= 1 && K >= 1 && H <= 65535 &&
+  return built_head_dim(D) && B >= 1 && H >= 1 && Q >= 1 && K >= 1 && H <= 65535 &&
          B <= 65535;
 }
 
@@ -833,24 +1082,42 @@ cudaError_t launch(const Args& a, int tiles, int threads, size_t smem,
   return cudaGetLastError();
 }
 
-template <int BQ, bool kDbias>
+template <int D, int FwdBQ, bool kDbias>
 cudaError_t launch_dq_fma(const Args& a, void* dq, void* dbias) {
-  constexpr size_t smem = sizeof(float) * ((3 * BQ + 2 * kBK) * kLD + 2 * BQ);
-  return launch<float, flash_bwd_dq_fma_kernel<BQ, kDbias>>(
-      a, (a.Q + BQ - 1) / BQ, kThreads, smem, static_cast<float*>(dq),
+  constexpr int BQ = dq_fma_rows<D>(FwdBQ);
+  return launch<float, flash_bwd_dq_fma_kernel<D, FwdBQ, kDbias>>(
+      a, (a.Q + BQ - 1) / BQ, kThreads, dq_fma_smem<D, BQ>(), static_cast<float*>(dq),
       static_cast<float*>(dbias));
 }
 
-template <bool kDbias>
+template <int D, bool kDbias>
 cudaError_t launch_dq(const Args& a, int variant, int dtype, void* dq,
                       void* dbias, bool* refused) {
   if (variant == kFma && dtype == 0)
-    return forward_block_q(a.Q) == 16 ? launch_dq_fma<16, kDbias>(a, dq, dbias)
-                                      : launch_dq_fma<64, kDbias>(a, dq, dbias);
+    return forward_block_q(a.Q) == 16
+               ? launch_dq_fma<D, 16, kDbias>(a, dq, dbias)
+               : launch_dq_fma<D, 64, kDbias>(a, dq, dbias);
   if (variant == kTile && dtype == 1 && tile_aligned(a))
-    return launch<bf16, flash_bwd_dq_tile_kernel<kDbias>>(
-        a, (a.Q + kBQ - 1) / kBQ, kTileThreads, kDqSmem, static_cast<bf16*>(dq),
+    return launch<bf16, flash_bwd_dq_tile_kernel<D, kDbias>>(
+        a, (a.Q + kBQ - 1) / kBQ, kTileThreads, dq_smem<D>(), static_cast<bf16*>(dq),
         static_cast<float*>(dbias));
+  *refused = true;
+  return cudaSuccess;
+}
+
+template <int D>
+cudaError_t launch_dkv(const Args& a, int variant, int dtype, void* dk, void* dv,
+                       bool* refused) {
+  if (variant == kFma && dtype == 0) {
+    constexpr int KT = dkv_fma_tile<D>();
+    return launch<float, flash_bwd_dkv_fma_kernel<D>>(
+        a, (a.K + KT - 1) / KT, kThreads, dkv_fma_smem<D>(), static_cast<float*>(dk),
+        static_cast<float*>(dv));
+  }
+  if (variant == kTile && dtype == 1 && tile_aligned(a))
+    return launch<bf16, flash_bwd_dkv_tile_kernel<D>>(
+        a, (a.K + kBK - 1) / kBK, dkv_threads<D>(), dkv_smem<D>(),
+        static_cast<bf16*>(dk), static_cast<bf16*>(dv));
   *refused = true;
   return cudaSuccess;
 }
@@ -872,17 +1139,17 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
 
 // variant: 0 = fma (f32), 1 = tile (bf16), as
 // ops/flash_attention.py::backward_variant picks it; dtype: 0 = float32, 1 =
-// bfloat16. `strides` holds 19 element strides: q, k, v, o, dout as (b, t,
-// h) each (head dim contiguous), then the bias's (b, h, q, k) with 0 for a
-// broadcast dimension; the tile variant needs all five inputs 16-byte
-// aligned as `aligned16` states. bias may be null. lse is [B, H, Q] f32;
-// outputs are contiguous [B, T, H, D] in the inputs' dtype. dbias (dQ only)
-// may be null; when given it receives dS, the bias's gradient, as a
-// contiguous [B, H, Q, K] f32 tensor, and the causal flag is refused (a
-// learned bias carries its own causal mask, so every key tile is visited
-// and every element written). Each returns 0 on success, else the CUDA
-// error code of the launch, or -1 for arguments the chosen variant was not
-// built for.
+// bfloat16; D: a head dim of kHeadDims (64 or 256). `strides` holds 19
+// element strides: q, k, v, o, dout as (b, t, h) each (head dim contiguous),
+// then the bias's (b, h, q, k) with 0 for a broadcast dimension; the tile
+// variant needs all five inputs 16-byte aligned as `aligned16` states. bias
+// may be null. lse is [B, H, Q] f32; outputs are contiguous [B, T, H, D] in
+// the inputs' dtype. dbias (dQ only) may be null; when given it receives
+// dS, the bias's gradient, as a contiguous [B, H, Q, K] f32 tensor, and the
+// causal flag is refused (a learned bias carries its own causal mask, so
+// every key tile is visited and every element written). Each returns 0 on
+// success, else the CUDA error code of the launch, or -1 for arguments the
+// chosen variant was not built for.
 extern "C" int trlx_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* bias, const void* o,
                                  const void* dout, const void* lse, void* dq,
@@ -894,9 +1161,13 @@ extern "C" int trlx_flash_bwd_dq(const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, bias, o, dout, lse, B, H, Q, K, strides,
                            scale, causal, stream);
   bool refused = false;
-  const cudaError_t err =
-      dbias ? launch_dq<true>(a, variant, dtype, dq, dbias, &refused)
-            : launch_dq<false>(a, variant, dtype, dq, nullptr, &refused);
+  cudaError_t err;
+  if (D == 64)
+    err = dbias ? launch_dq<64, true>(a, variant, dtype, dq, dbias, &refused)
+                : launch_dq<64, false>(a, variant, dtype, dq, nullptr, &refused);
+  else
+    err = dbias ? launch_dq<256, true>(a, variant, dtype, dq, dbias, &refused)
+                : launch_dq<256, false>(a, variant, dtype, dq, nullptr, &refused);
   return refused ? -1 : static_cast<int>(err);
 }
 
@@ -910,17 +1181,8 @@ extern "C" int trlx_flash_bwd_dkv(const void* q, const void* k, const void* v,
   if (!valid(D, B, H, Q, K)) return -1;
   const Args a = make_args(q, k, v, bias, o, dout, lse, B, H, Q, K, strides,
                            scale, causal, stream);
-  const int tiles = (K + kBK - 1) / kBK;
-  cudaError_t err;
-  if (variant == kFma && dtype == 0)
-    err = launch<float, flash_bwd_dkv_fma_kernel>(
-        a, tiles, kThreads, sizeof(float) * ((2 * kBK + 4 * kBQ) * kLD + 2 * kBQ),
-        static_cast<float*>(dk), static_cast<float*>(dv));
-  else if (variant == kTile && dtype == 1 && tile_aligned(a))
-    err = launch<bf16, flash_bwd_dkv_tile_kernel>(a, tiles, kTileThreads,
-                                                  kDkvSmem, static_cast<bf16*>(dk),
-                                                  static_cast<bf16*>(dv));
-  else
-    return -1;
-  return static_cast<int>(err);
+  bool refused = false;
+  const cudaError_t err = D == 64 ? launch_dkv<64>(a, variant, dtype, dk, dv, &refused)
+                                  : launch_dkv<256>(a, variant, dtype, dk, dv, &refused);
+  return refused ? -1 : static_cast<int>(err);
 }

@@ -12,11 +12,12 @@
 // weight), not masked. q/k/v are read in the port's [B, T, H, D] layout
 // through strides; O is written [B, Q, H, D] contiguous, LSE [B, H, Q].
 //
-// The causal visit rule, which the backward kernels (csrc/flash_bwd.cu) and
-// the plain backward repeat: a query row sees the 64-key tiles that start
-// before the end of its query tile, and that tile has 16 rows when Q <= 16
-// and 64 rows otherwise. A left-padding row whose visible keys are all
-// masked therefore averages the keys of those tiles, as the TPU kernel does.
+// The causal visit rule, which every kernel takes from hopper_tile.cuh's
+// visit_end and the plain versions repeat: a query row sees the 64-key
+// tiles that start before the end of its query tile, and that tile has 16
+// rows when Q <= 16 and 64 rows otherwise. A left-padding row whose visible
+// keys are all masked therefore averages the keys of those tiles, as the
+// TPU kernel does.
 //
 // Three variants, chosen in Python (ops/flash_attention.py::forward_variant)
 // and passed in; a mismatched choice is refused with -1:
@@ -68,11 +69,24 @@
 //    would make it TF32 and break the f32 tolerances (1e-4 at kernel level,
 //    4.2e-7 relative on the full-width gradient). No bf16 call reaches it.
 //
-// ptxas for sm_90a (chip_smoke.py phase 1 prints it; 0 spill bytes in all):
-//   tile            121 registers, 40960 B static shared memory
-//   decode          114 registers, 1312 B static shared memory
-//   fma BQ = 16/64  48/108 registers, 41600/66560 B dynamic shared memory
-//                   (the 64-row tile opts in above 48 KB)
+// Head dims (hopper_tile.cuh kHeadDims): every variant is a template over D,
+// built for 64 (GPT-2; the shapes above) and 256 (GPT-J-6B). At D = 256:
+//  - tile: the O accumulator of 64 rows x 256 is 128 f32 registers a thread
+//    (four 64-column chunks, each its own m64n64k16 product over one V
+//    atom), the whole cap of 4 CTAs per SM, so the launch bounds ask for 2
+//    (up to 255 registers); Q and a K/V stage are 32 KB each, so K and V
+//    go through one stage (97 KB of dynamic shared memory, 2 CTAs per SM)
+//    and the other CTA's copies overlap this one's math. S = Q K^T takes
+//    16 k-steps, through the four atoms of Q and K.
+//  - decode: a key row is 512 bytes, so a whole warp (32 lanes x 16 bytes)
+//    reads one key and the dot product reduces over the warp; each warp
+//    walks every 4th key.
+//  - fma: 16-row query tiles and 32-key chunks keep the padded f32 tiles at
+//    84 KB; the causal visit rule is taken from the forward's query tile
+//    (16 or 64 rows), not from the CTA's, so it is the rule above.
+// ptxas for sm_90a: chip_smoke.py phase 1 prints registers, shared memory
+// and spills per instantiation (0 spill bytes is its gate; PERF.md keeps
+// the numbers).
 
 #include <math.h>
 
@@ -97,23 +111,41 @@ __device__ __forceinline__ float logit(float s, float scale, const float* biasb,
 // fma: the f32 parity path
 // ---------------------------------------------------------------------------
 
-constexpr int kLD = kD + 1;       // padded row stride of the Q/K/V tiles (banks)
-constexpr int kLP = kBK + 1;      // padded row stride of the P tile
 constexpr int kFmaThreads = 256;  // 16 x 16 threads
 
-template <int BQ>
+// keys per staged K/V chunk: 64 at D = 64, 32 at D = 256 (shared memory)
+template <int D>
+__host__ __device__ constexpr int fma_keys() { return D == 64 ? 64 : 32; }
+
+// query rows per CTA for a forward tile of fwd_bq rows: the tile itself at
+// D = 64, 16 at D = 256 (shared memory)
+template <int D>
+__host__ __device__ constexpr int fma_rows(int fwd_bq) { return D == 64 ? fwd_bq : 16; }
+
+template <int D, int BQ>
+__host__ __device__ constexpr size_t fma_smem() {
+  constexpr int KC = fma_keys<D>();
+  return sizeof(float) * ((BQ + 2 * KC) * (D + 1) + BQ * (KC + 1));
+}
+
+template <int D, int BQ>
 __global__ void __launch_bounds__(kFmaThreads)
 flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
                      float* __restrict__ o, float* __restrict__ lse, int H,
                      int Q, int K, Strides sq, Strides sk, Strides sv,
                      BiasStrides sb, float scale, int causal) {
+  constexpr int KC = fma_keys<D>();
+  constexpr int kLD = D + 1;   // padded row stride of the Q/K/V tiles (banks)
+  constexpr int kLP = KC + 1;  // padded row stride of the P tile
   constexpr int RQ = BQ / 16;  // query rows per thread
+  constexpr int JK = KC / 16;  // keys per thread
+  constexpr int JD = D / 16;   // output columns per thread
   extern __shared__ float smem[];
-  float* Qs = smem;              // [BQ][kLD]
-  float* Ks = Qs + BQ * kLD;     // [kBK][kLD]
-  float* Vs = Ks + kBK * kLD;    // [kBK][kLD]
-  float* Ps = Vs + kBK * kLD;    // [BQ][kLP]
+  float* Qs = smem;            // [BQ][kLD]
+  float* Ks = Qs + BQ * kLD;   // [KC][kLD]
+  float* Vs = Ks + KC * kLD;   // [KC][kLD]
+  float* Ps = Vs + KC * kLD;   // [BQ][kLP]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15;  // key / head-dim column group
@@ -127,50 +159,53 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + b * sv.b + h * sv.h;
   const float* biasb = bias ? bias + b * sb.b + h * sb.h : nullptr;
 
-  for (int i = tid; i < BQ * kD; i += kFmaThreads) {
-    const int r = i / kD, d = i % kD;
+  for (int i = tid; i < BQ * D; i += kFmaThreads) {
+    const int r = i / D, d = i % D;
     const int qi = q0 + r;
     Qs[r * kLD + d] = qi < Q ? qb[qi * sq.t + d] : 0.f;
   }
 
-  float m[RQ], l[RQ], acc[RQ][4];
+  float m[RQ], l[RQ], acc[RQ][JD];
 #pragma unroll
   for (int i = 0; i < RQ; ++i) {
     m[i] = -INFINITY;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < JD; ++j) acc[i][j] = 0.f;
   }
 
-  // causal: key tiles that start after the tile's last query are skipped
-  const int k_end = causal ? min(K, q0 + BQ) : K;
+  // causal: key tiles that start after the forward tile's last query are
+  // skipped; keys at or past k_end are left out (the forward tile is taken
+  // at run time here: as a template argument, ptxas spilled 16 bytes at
+  // D = 256)
+  const int k_end = visit_end(q0, Q <= 16 ? 16 : 64, K, causal);
 
-  for (int k0 = 0; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's K/V/P reads are done
-    for (int i = tid; i < kBK * kD; i += kFmaThreads) {
-      const int c = i / kD, d = i % kD;
+  for (int k0 = 0; k0 < k_end; k0 += KC) {
+    __syncthreads();  // the previous chunk's K/V/P reads are done
+    for (int i = tid; i < KC * D; i += kFmaThreads) {
+      const int c = i / D, d = i % D;
       const int kj = k0 + c;
-      const bool in = kj < K;
+      const bool in = kj < k_end;
       Ks[c * kLD + d] = in ? kb[kj * sk.t + d] : 0.f;
       Vs[c * kLD + d] = in ? vb[kj * sv.t + d] : 0.f;
     }
     __syncthreads();
 
-    float s[RQ][4];
+    float s[RQ][JK];
 #pragma unroll
     for (int i = 0; i < RQ; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+      for (int j = 0; j < JK; ++j) s[i][j] = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < kD; ++d) {
-      float kv[4];
+    for (int d = 0; d < D; ++d) {
+      float kv[JK];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = Ks[(tx + 16 * j) * kLD + d];
+      for (int j = 0; j < JK; ++j) kv[j] = Ks[(tx + 16 * j) * kLD + d];
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
         const float qv = Qs[(ty * RQ + i) * kLD + d];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv, kv[j], s[i][j]);
+        for (int j = 0; j < JK; ++j) s[i][j] = fmaf(qv, kv[j], s[i][j]);
       }
     }
 
@@ -181,23 +216,23 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const int qb_row = min(qi, Q - 1);  // padded rows read a valid bias row
       float row_max = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JK; ++j) {
         const int kj = k0 + tx + 16 * j;
-        // keys past K are left out, not masked
-        const float x = kj >= K ? -INFINITY
-                                : logit(s[i][j], scale, biasb, sb, qb_row, qi, kj, causal);
+        // keys past the visited ones are left out, not masked
+        const float x = kj >= k_end ? -INFINITY
+                                    : logit(s[i][j], scale, biasb, sb, qb_row, qi, kj, causal);
         s[i][j] = x;
         row_max = fmaxf(row_max, x);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
         row_max = fmaxf(row_max, __shfl_xor_sync(0xffffffffu, row_max, off));
-      // every processed tile holds at least one key < K, so m_new is finite
+      // every processed chunk holds at least one visited key, so m_new is finite
       const float m_new = fmaxf(m[i], row_max);
       const float alpha = expf(m[i] - m_new);
       float row_sum = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < JK; ++j) {
         const float p = expf(s[i][j] - m_new);
         row_sum += p;
         Ps[r * kLP + tx + 16 * j] = p;  // f32: rounding to V's dtype is exact
@@ -208,20 +243,20 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
       l[i] = l[i] * alpha + row_sum;
       m[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+      for (int j = 0; j < JD; ++j) acc[i][j] *= alpha;
     }
     __syncthreads();  // P complete
 
 #pragma unroll 8
-    for (int c = 0; c < kBK; ++c) {
-      float vv[4];
+    for (int c = 0; c < KC; ++c) {
+      float vv[JD];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = Vs[c * kLD + tx + 16 * j];
+      for (int j = 0; j < JD; ++j) vv[j] = Vs[c * kLD + tx + 16 * j];
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
         const float p = Ps[(ty * RQ + i) * kLP + c];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
+        for (int j = 0; j < JD; ++j) acc[i][j] = fmaf(p, vv[j], acc[i][j]);
       }
     }
   }
@@ -231,25 +266,25 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const int qi = q0 + ty * RQ + i;
     if (qi >= Q) continue;
     const float l_safe = fmaxf(l[i], 1e-30f);
-    float* orow = o + ((static_cast<long long>(b) * Q + qi) * H + h) * kD;
+    float* orow = o + ((static_cast<long long>(b) * Q + qi) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) orow[tx + 16 * j] = acc[i][j] / l_safe;
+    for (int j = 0; j < JD; ++j) orow[tx + 16 * j] = acc[i][j] / l_safe;
     if (lse && tx == 0)
       lse[(static_cast<long long>(b) * H + h) * Q + qi] = m[i] + logf(l_safe);
   }
 }
 
-template <int BQ>
+template <int D, int BQ>
 cudaError_t launch_fma(const void* q, const void* k, const void* v,
                        const void* bias, void* o, void* lse, int B, int H,
                        int Q, int K, Strides sq, Strides sk, Strides sv,
                        BiasStrides sb, float scale, int causal,
                        cudaStream_t stream) {
-  constexpr size_t smem = sizeof(float) * (BQ * kLD + 2 * kBK * kLD + BQ * kLP);
-  cudaError_t err = allow_smem<flash_fwd_fma_kernel<BQ>>(smem);
+  constexpr size_t smem = fma_smem<D, BQ>();
+  cudaError_t err = allow_smem<flash_fwd_fma_kernel<D, BQ>>(smem);
   if (err != cudaSuccess) return err;
   dim3 grid((Q + BQ - 1) / BQ, H, B);
-  flash_fwd_fma_kernel<BQ><<<grid, kFmaThreads, smem, stream>>>(
+  flash_fwd_fma_kernel<D, BQ><<<grid, kFmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
       static_cast<float*>(o), static_cast<float*>(lse), H, Q, K, sq, sk, sv,
@@ -261,12 +296,31 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 // tile: bf16, Q > 16, tensor cores (wgmma.m64n64k16)
 // ---------------------------------------------------------------------------
 
-constexpr int kBQ = 64;            // query rows per CTA: 4 warps x 16
-constexpr int kTileMinBlocks = 4;  // CTAs per SM: caps registers at 128
+constexpr int kBQ = 64;  // query rows per CTA: 4 warps x 16
+
+// K/V stages and CTAs per SM in the launch bounds: at D = 64 a 2-stage ring
+// and 4 CTAs (registers capped at 128); at D = 256 the O accumulator alone
+// is 128 registers, so 2 CTAs (up to 255), and one stage (the other CTA's
+// copies overlap this one's math)
+template <int D>
+__host__ __device__ constexpr int tile_stages() { return D == 64 ? 2 : 1; }
+template <int D>
+__host__ __device__ constexpr int tile_min_blocks() { return D == 64 ? 4 : 2; }
+// Q, then K and V per stage: static shared memory when it fits the 48 KB
+// static limit, else dynamic with 1 KB of alignment slack
+template <int D>
+__host__ __device__ constexpr bool tile_static_smem() {
+  return (1 + 2 * tile_stages<D>()) * tile_bytes<D>() <= 48 * 1024;
+}
+template <int D>
+__host__ __device__ constexpr size_t tile_smem() {
+  return tile_static_smem<D>() ? 0 : (1 + 2 * tile_stages<D>()) * tile_bytes<D>() + 1024;
+}
 
 // Operand layouts (hopper_tile.cuh): S = Q K^T takes Q [row][d] and K
 // [key][d] K-major from shared memory (wgmma_ss); O += P V takes P's A
-// fragment from registers and V [key][d] MN-major (wgmma_rs_mn).
+// fragment from registers and V [key][d] MN-major (wgmma_rs_mn), one
+// product per 64 columns of D.
 // Why Q comes from shared memory and P may sit in registers: with Q's
 // fragments loaded once into registers (ldmatrix before the key loop) as
 // the A operand of S = Q K^T, ptxas packed P's fragments (F2FP) into the
@@ -278,17 +332,31 @@ constexpr int kTileMinBlocks = 4;  // CTAs per SM: caps registers at 128
 // the HGMMAs and their WARPGROUP.DEPBAR, and the next write to them is the
 // next tile's S product, after that wait (cuobjdump -sass of the built
 // kernel; PERF.md section 6).
-__global__ void __launch_bounds__(kTileThreads, kTileMinBlocks)
+template <int D>
+__global__ void __launch_bounds__(kTileThreads, tile_min_blocks<D>())
 flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const float* __restrict__ bias,
                       bf16* __restrict__ o, float* __restrict__ lse, int H,
                       int Q, int K, Strides sq, Strides sk, Strides sv,
                       BiasStrides sb, float scale, int causal) {
-  // Q, K[2], V[2]; the 128-byte swizzle repeats every 1024 bytes
-  __shared__ __align__(1024) uint8_t smem[5 * kTileBytes];
-  const uint32_t sQ = smem_addr(smem);
-  const uint32_t sK0 = sQ + kTileBytes;
-  const uint32_t sV0 = sQ + 3 * kTileBytes;
+  constexpr int kTB = tile_bytes<D>();
+  constexpr int kStages = tile_stages<D>();
+  constexpr int kN = D / 64;  // 64-column chunks of O
+  // the bias of a thread's 32 (row, key) pairs is read before the wait for
+  // the tile at D = 64; at D = 256 those 32 registers would spill
+  constexpr bool kPreloadBias = D == 64;
+  // Q, K[stages], V[stages]; the 128-byte swizzle repeats every 1024 bytes.
+  // Static at D = 64 (40 KB: its address folds into the code), dynamic above
+  uint32_t sQ;
+  if constexpr (tile_static_smem<D>()) {
+    __shared__ __align__(1024) uint8_t smem[(1 + 2 * kStages) * kTB];
+    sQ = smem_addr(smem);
+  } else {
+    extern __shared__ uint8_t smem_raw[];
+    aligned_smem(smem_raw, sQ);
+  }
+  const uint32_t sK0 = sQ + kTB;
+  const uint32_t sV0 = sQ + (1 + kStages) * kTB;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -302,12 +370,12 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * sv.b + h * sv.h;
 
   // causal: key tiles that start after the tile's last query are skipped
-  const int k_end = causal ? min(K, q0 + kBQ) : K;
+  const int k_end = visit_end(q0, kBQ, K, causal);
   const int n_tiles = (k_end + kBK - 1) / kBK;
 
-  load_tile_async(sQ, qb, sq.t, q0, Q);
-  load_tile_async(sK0, kb, sk.t, 0, K);
-  load_tile_async(sV0, vb, sv.t, 0, K);
+  load_tile_async<D>(sQ, qb, sq.t, q0, Q);
+  load_tile_async<D>(sK0, kb, sk.t, 0, K);
+  load_tile_async<D>(sV0, vb, sv.t, 0, K);
   cp_async_commit();
 
   // this thread's two query rows (C fragment rows g and g + 8 of its warp)
@@ -321,35 +389,43 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     : nullptr;
   }
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float acc[kN][8][4];
+  zero(acc);
 
   for (int t = 0; t < n_tiles; ++t) {
-    const int buf = t & 1;
+    const int buf = kStages == 2 ? t & 1 : 0;
     const int k0 = t * kBK;
-    if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
-      load_tile_async(sK0 + (buf ^ 1) * kTileBytes, kb, sk.t, k0 + kBK, K);
-      load_tile_async(sV0 + (buf ^ 1) * kTileBytes, vb, sv.t, k0 + kBK, K);
+    if constexpr (kStages == 2) {
+      if (t + 1 < n_tiles) {  // prefetch the next tile into the other stage
+        load_tile_async<D>(sK0 + (buf ^ 1) * kTB, kb, sk.t, k0 + kBK, K);
+        load_tile_async<D>(sV0 + (buf ^ 1) * kTB, vb, sv.t, k0 + kBK, K);
+      }
+      cp_async_commit();  // possibly empty: keeps one group per iteration
+    } else if (t > 0) {   // one stage: refill it (the last tile's reads are done)
+      load_tile_async<D>(sK0, kb, sk.t, k0, K);
+      load_tile_async<D>(sV0, vb, sv.t, k0, K);
+      cp_async_commit();
     }
-    cp_async_commit();  // possibly empty: keeps one group per iteration
     // the bias of this thread's 32 (row, key) pairs, read before the wait
     // so that its latency overlaps the copies and the first product
     float bv[8][4];
+    if constexpr (kPreloadBias) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
-        bv[j][e] = brow[0] && kj < K ? brow[e >> 1][kj * sb.k] : 0.f;
-      }
-    cp_async_wait<1>();  // everything up to this tile has landed
+        for (int e = 0; e < 4; ++e) {
+          const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+          bv[j][e] = brow[0] && kj < K ? brow[e >> 1][kj * sb.k] : 0.f;
+        }
+    }
+    if constexpr (kStages == 2)
+      cp_async_wait<1>();  // everything up to this tile has landed
+    else
+      cp_async_wait<0>();
     fence_proxy_async();
     __syncthreads();
-    const uint32_t sK = sK0 + buf * kTileBytes;
-    const uint32_t sV = sV0 + buf * kTileBytes;
+    const uint32_t sK = sK0 + buf * kTB;
+    const uint32_t sV = sV0 + buf * kTB;
 
     // S = Q K^T for the warpgroup's 64 rows x 64 keys (each warp 16 rows)
     float s[8][4];
@@ -359,9 +435,11 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
     fence_registers(s);
     wgmma_fence();
+    {
+      const TileDesc<D> dQ(sQ), dK(sK);
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_ss(s, smem_desc(sQ + 32 * ks), smem_desc(sK + 32 * ks), ks > 0);
+      for (int ks = 0; ks < D / 16; ++ks) wgmma_ss(s, dQ.kstep(ks), dK.kstep(ks), ks > 0);
+    }
     wgmma_commit_and_wait();
     fence_registers(s);
 
@@ -373,7 +451,11 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       for (int e = 0; e < 4; ++e) {
         const int hr = e >> 1;
         const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
-        float x = s[j][e] * scale + bv[j][e];
+        float x = s[j][e] * scale;
+        if constexpr (kPreloadBias)
+          x += bv[j][e];
+        else
+          x += brow[0] && kj < K ? brow[hr][kj * sb.k] : 0.f;
         if (causal && kj > qi[hr]) x += kNegInf;
         x = kj < K ? x : -INFINITY;  // keys past K are left out, not masked
         s[j][e] = x;
@@ -406,19 +488,26 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       l[hr] = l[hr] * alpha[hr] + rs[hr];
     }
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int n = 0; n < kN; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][j][e] *= alpha[e >> 1];
 
-    // O += bf16(P) V: 4 k-steps of 16 keys, P from registers
+    // O += bf16(P) V: 4 k-steps of 16 keys, P from registers, one product
+    // per 64 columns of D
     uint32_t pa[4][4];
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) pack_fragment(pa[ks], s, ks);
     fence_registers(acc);
     wgmma_fence();
+    {
+      const TileDesc<D> dV(sV);
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_rs_mn(acc, pa[ks], smem_desc(sV + 2048 * ks));
+      for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+        for (int n = 0; n < kN; ++n) wgmma_rs_mn(acc[n], pa[ks], dV.mn(n, ks));
+    }
     wgmma_commit_and_wait();
     fence_registers(acc);
     __syncthreads();  // this stage is read; the next iteration refills it
@@ -428,23 +517,31 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int hr = 0; hr < 2; ++hr) {
     if (qi[hr] >= Q) continue;
     const float l_safe = fmaxf(l[hr], 1e-30f);
-    bf16* orow = o + ((static_cast<long long>(b) * Q + qi[hr]) * H + h) * kD;
+    bf16* orow = o + ((static_cast<long long>(b) * Q + qi[hr]) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
-      *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t4) =
-          pack_bf16(acc[j][2 * hr] / l_safe, acc[j][2 * hr + 1] / l_safe);
+    for (int n = 0; n < kN; ++n)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 64 * n + 8 * j + 2 * t4) =
+            pack_bf16(acc[n][j][2 * hr] / l_safe, acc[n][j][2 * hr + 1] / l_safe);
     if (lse && t4 == 0)
       lse[(static_cast<long long>(b) * H + h) * Q + qi[hr]] = m[hr] + logf(l_safe);
   }
 }
 
+template <int D>
 cudaError_t launch_tile(const void* q, const void* k, const void* v,
                         const void* bias, void* o, void* lse, int B, int H,
                         int Q, int K, Strides sq, Strides sk, Strides sv,
                         BiasStrides sb, float scale, int causal,
                         cudaStream_t stream) {
+  constexpr size_t smem = tile_smem<D>();
+  if constexpr (smem > 0) {
+    cudaError_t err = allow_smem<flash_fwd_tile_kernel<D>>(smem);
+    if (err != cudaSuccess) return err;
+  }
   dim3 grid((Q + kBQ - 1) / kBQ, H, B);
-  flash_fwd_tile_kernel<<<grid, kTileThreads, 0, stream>>>(
+  flash_fwd_tile_kernel<D><<<grid, kTileThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
       static_cast<bf16*>(o), static_cast<float*>(lse), H, Q, K, sq, sk, sv,
@@ -458,7 +555,16 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v,
 
 constexpr int kDecWarps = 4;
 constexpr int kDecThreads = 32 * kDecWarps;
-constexpr int kGroups = 4 * kDecWarps;  // groups of 8 lanes: one key row each
+
+// lanes that read one key row (16 bytes each): 8 at D = 64, a warp at D = 256
+template <int D>
+__host__ __device__ constexpr int row_lanes() {
+  static_assert(D % 8 == 0 && D / 8 <= 32, "a key row within one warp");
+  return D / 8;
+}
+// groups of row_lanes lanes in the CTA: each reads one key row at a time
+template <int D>
+__host__ __device__ constexpr int dec_groups() { return 32 / row_lanes<D>() * kDecWarps; }
 
 __device__ __forceinline__ void bf16x8_to_f32(const uint4& raw, float (&f)[8]) {
   const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -485,8 +591,9 @@ struct DecodeBatch {
   float bias[kDecBatch];
 };
 
-// Start the loads of the batch at key base + u * kGroups + group; keys at or
-// past k_end read as zero and are left out later.
+// Start the loads of the batch at key base + u * dec_groups + group; keys at
+// or past k_end read as zero and are left out later.
+template <int D>
 __device__ __forceinline__ void load_batch(DecodeBatch& d, const bf16* kb,
                                            const bf16* vb, Strides sk,
                                            Strides sv, const float* brow,
@@ -494,7 +601,7 @@ __device__ __forceinline__ void load_batch(DecodeBatch& d, const bf16* kb,
                                            int k_end) {
 #pragma unroll
   for (int u = 0; u < kDecBatch; ++u) {
-    const int kj = base + u * kGroups + group;
+    const int kj = base + u * dec_groups<D>() + group;
     const bool in = kj < k_end;
     d.k[u] = in ? *reinterpret_cast<const uint4*>(kb + kj * sk.t) : make_uint4(0, 0, 0, 0);
     d.v[u] = in ? *reinterpret_cast<const uint4*>(vb + kj * sv.t) : make_uint4(0, 0, 0, 0);
@@ -505,6 +612,7 @@ __device__ __forceinline__ void load_batch(DecodeBatch& d, const bf16* kb,
 // One CTA per (head, batch row, query row). The paths send one query row
 // (Q = 1); Q in 2..16 stays correct and rereads K/V once per row. The next
 // batch's loads are started before the current batch's math.
+template <int D>
 __global__ void __launch_bounds__(kDecThreads)
 flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
@@ -512,18 +620,20 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         float* __restrict__ lse, int H, int Q, int K,
                         Strides sq, Strides sk, Strides sv, BiasStrides sb,
                         float scale, int causal) {
-  constexpr int kStep = kDecBatch * kGroups;  // keys per CTA per batch
-  __shared__ __align__(16) float sQ[kD];
+  constexpr int kRowLanes = row_lanes<D>();
+  constexpr int kWarpGroups = 32 / kRowLanes;        // groups per warp
+  constexpr int kStep = kDecBatch * dec_groups<D>();  // keys per CTA per batch
+  __shared__ __align__(16) float sQ[D];
   __shared__ float sM[kDecWarps], sL[kDecWarps];
-  __shared__ __align__(16) float sAcc[kDecWarps][kD];
+  __shared__ __align__(16) float sAcc[kDecWarps][D];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int sub = lane & 7;  // D columns 8 sub .. 8 sub + 7
-  // group 4 warp + lane / 8 walks keys 4 warp + lane / 8 + 16 i; the loop
-  // steps per warp so that every lane of a warp runs the same trips and
-  // meets the full-warp shuffles
-  const int group = lane >> 3;
+  const int sub = lane % kRowLanes;  // D columns 8 sub .. 8 sub + 7
+  // group kWarpGroups warp + lane / kRowLanes walks the keys of that index
+  // plus multiples of dec_groups; the loop steps per warp so that every
+  // lane of a warp runs the same trips and meets the full-warp shuffles
+  const int group = lane / kRowLanes;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int qi = blockIdx.z;
@@ -533,27 +643,28 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * sv.b + h * sv.h + 8 * sub;
   const float* brow = bias ? bias + b * sb.b + h * sb.h + qi * sb.q : nullptr;
 
-  for (int d = tid; d < kD; d += kDecThreads) sQ[d] = __bfloat162float(qb[d]);
+  for (int d = tid; d < D; d += kDecThreads) sQ[d] = __bfloat162float(qb[d]);
 
   // causal with a 16-row query tile: the visit rule leaves key tile 0
-  const int k_end = causal ? min(K, kBK) : K;
+  const int k_end = visit_end(qi, 16, K, causal);
 
   float m = -INFINITY, l = 0.f, acc[8];
 #pragma unroll
   for (int d = 0; d < 8; ++d) acc[d] = 0.f;
 
   DecodeBatch cur;
-  load_batch(cur, kb, vb, sk, sv, brow, sb.k, 4 * warp, group, k_end);
+  load_batch<D>(cur, kb, vb, sk, sv, brow, sb.k, kWarpGroups * warp, group, k_end);
   __syncthreads();  // sQ complete
   const float4 qa = *reinterpret_cast<const float4*>(&sQ[8 * sub]);
   const float4 qc = *reinterpret_cast<const float4*>(&sQ[8 * sub + 4]);
 
-  for (int base = 4 * warp; base < k_end; base += kStep) {
+  for (int base = kWarpGroups * warp; base < k_end; base += kStep) {
     DecodeBatch nxt;
     if (base + kStep < k_end)
-      load_batch(nxt, kb, vb, sk, sv, brow, sb.k, base + kStep, group, k_end);
+      load_batch<D>(nxt, kb, vb, sk, sv, brow, sb.k, base + kStep, group, k_end);
 
-    // logits of the batch: 8-lane dot products, then scale, bias, mask
+    // logits of the batch: dot products over the row's lanes, then scale,
+    // bias, mask
     float x[kDecBatch];
 #pragma unroll
     for (int u = 0; u < kDecBatch; ++u) {
@@ -567,10 +678,10 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       s = fmaf(qc.y, kf[5], s);
       s = fmaf(qc.z, kf[6], s);
       s = fmaf(qc.w, kf[7], s);
-      s += __shfl_xor_sync(0xffffffffu, s, 1);
-      s += __shfl_xor_sync(0xffffffffu, s, 2);
-      s += __shfl_xor_sync(0xffffffffu, s, 4);
-      const int kj = base + u * kGroups + group;
+#pragma unroll
+      for (int off = 1; off < kRowLanes; off <<= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, off);
+      const int kj = base + u * dec_groups<D>() + group;
       float y = s * scale + cur.bias[u];
       if (causal && kj > qi) y += kNegInf;
       x[u] = kj < k_end ? y : -INFINITY;  // past the keys: left out
@@ -602,10 +713,9 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     cur = nxt;
   }
 
-  // merge the 4 groups of the warp (lanes 8 apart share a D slice)
+  // merge the groups of the warp (lanes kRowLanes apart share a D slice)
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int off = 8 << i;
+  for (int off = kRowLanes; off < 32; off <<= 1) {
     const float m_o = __shfl_xor_sync(0xffffffffu, m, off);
     const float l_o = __shfl_xor_sync(0xffffffffu, l, off);
     const float m_new = fmaxf(m, m_o);
@@ -618,7 +728,7 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       acc[d] = acc[d] * a + acc_o * c;
     }
   }
-  if (lane < 8) {
+  if (lane < kRowLanes) {
     if (lane == 0) {
       sM[warp] = m;
       sL[warp] = l;
@@ -629,7 +739,7 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
 
   // merge the warps; one thread per d
-  for (int d = tid; d < kD; d += kDecThreads) {
+  for (int d = tid; d < D; d += kDecThreads) {
     float m_all = -INFINITY;
 #pragma unroll
     for (int w = 0; w < kDecWarps; ++w) m_all = fmaxf(m_all, sM[w]);
@@ -641,20 +751,21 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       a_all += sAcc[w][d] * c;
     }
     const float l_safe = fmaxf(l_all, 1e-30f);
-    o[((static_cast<long long>(b) * Q + qi) * H + h) * kD + d] =
+    o[((static_cast<long long>(b) * Q + qi) * H + h) * D + d] =
         __float2bfloat16(a_all / l_safe);
     if (lse && d == 0)
       lse[(static_cast<long long>(b) * H + h) * Q + qi] = m_all + logf(l_safe);
   }
 }
 
+template <int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
                           const void* bias, void* o, void* lse, int B, int H,
                           int Q, int K, Strides sq, Strides sk, Strides sv,
                           BiasStrides sb, float scale, int causal,
                           cudaStream_t stream) {
   dim3 grid(H, B, Q);
-  flash_fwd_decode_kernel<<<grid, kDecThreads, 0, stream>>>(
+  flash_fwd_decode_kernel<D><<<grid, kDecThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
       static_cast<bf16*>(o), static_cast<float*>(lse), H, Q, K, sq, sk, sv,
@@ -662,15 +773,43 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
+// The chosen variant at head dim D; -1 for arguments it was not built for.
+template <int D>
+int launch_variant(const void* q, const void* k, const void* v, const void* bias,
+                   void* o, void* lse, int variant, int dtype, int B, int H,
+                   int Q, int K, Strides sq, Strides sk, Strides sv,
+                   BiasStrides sb, float scale, int causal, cudaStream_t st) {
+  const bool kv_aligned = aligned16(k, sk, B, K, H) && aligned16(v, sv, B, K, H);
+  cudaError_t err;
+  if (variant == kFma && dtype == 0) {
+    // CTA rows from the forward's query tile (16 rows when Q <= 16)
+    err = Q <= 16 ? launch_fma<D, fma_rows<D>(16)>(q, k, v, bias, o, lse, B, H, Q, K,
+                                                   sq, sk, sv, sb, scale, causal, st)
+                  : launch_fma<D, fma_rows<D>(64)>(q, k, v, bias, o, lse, B, H, Q, K,
+                                                   sq, sk, sv, sb, scale, causal, st);
+  } else if (variant == kTile && dtype == 1 && Q > 16 && kv_aligned &&
+             aligned16(q, sq, B, Q, H)) {
+    err = launch_tile<D>(q, k, v, bias, o, lse, B, H, Q, K, sq, sk, sv, sb,
+                         scale, causal, st);
+  } else if (variant == kDecode && dtype == 1 && Q <= 16 && kv_aligned) {
+    err = launch_decode<D>(q, k, v, bias, o, lse, B, H, Q, K, sq, sk, sv, sb,
+                           scale, causal, st);
+  } else {
+    return -1;
+  }
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 // variant: 0 = fma (f32), 1 = tile (bf16, Q > 16), 2 = decode (bf16,
 // Q <= 16), as ops/flash_attention.py::forward_variant picks it. dtype: 0 =
-// float32, 1 = bfloat16. Strides are in elements; the head dim must be
-// contiguous, and the tile and decode variants need 16-byte-aligned K and V
-// (and Q for tile) as `aligned16` states. bias may be null; lse may be null
-// (not written). Returns 0 on success, else the CUDA error code of the launch,
-// or -1 for arguments the chosen variant was not built for.
+// float32, 1 = bfloat16. D: a head dim of kHeadDims (64 or 256). Strides
+// are in elements; the head dim must be contiguous, and the tile and decode
+// variants need 16-byte-aligned K and V (and Q for tile) as `aligned16`
+// states. bias may be null; lse may be null (not written). Returns 0 on
+// success, else the CUDA error code of the launch, or -1 for arguments the
+// chosen variant was not built for.
 extern "C" int trlx_flash_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
     void* lse, int variant, int dtype, int B, int H, int Q, int K, int D,
@@ -678,27 +817,15 @@ extern "C" int trlx_flash_fwd(
     long long skh, long long svb, long long svt, long long svh, long long sbb,
     long long sbh, long long sbq, long long sbk, float scale, int causal,
     void* stream) {
-  if (D != kD || B < 1 || H < 1 || Q < 1 || K < 1 || H > 65535 || B > 65535)
+  if (!built_head_dim(D) || B < 1 || H < 1 || Q < 1 || K < 1 || H > 65535 ||
+      B > 65535)
     return -1;
   const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh};
   const BiasStrides sb{sbb, sbh, sbq, sbk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool kv_aligned = aligned16(k, sk, B, K, H) && aligned16(v, sv, B, K, H);
-  cudaError_t err;
-  if (variant == kFma && dtype == 0) {
-    err = Q <= 16 ? launch_fma<16>(q, k, v, bias, o, lse, B, H, Q, K, sq, sk,
-                                   sv, sb, scale, causal, st)
-                  : launch_fma<64>(q, k, v, bias, o, lse, B, H, Q, K, sq, sk,
-                                   sv, sb, scale, causal, st);
-  } else if (variant == kTile && dtype == 1 && Q > 16 && kv_aligned &&
-             aligned16(q, sq, B, Q, H)) {
-    err = launch_tile(q, k, v, bias, o, lse, B, H, Q, K, sq, sk, sv, sb,
-                      scale, causal, st);
-  } else if (variant == kDecode && dtype == 1 && Q <= 16 && kv_aligned) {
-    err = launch_decode(q, k, v, bias, o, lse, B, H, Q, K, sq, sk, sv, sb,
-                        scale, causal, st);
-  } else {
-    return -1;
-  }
-  return static_cast<int>(err);
+  if (D == 64)
+    return launch_variant<64>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
+                              sq, sk, sv, sb, scale, causal, st);
+  return launch_variant<256>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
+                             sq, sk, sv, sb, scale, causal, st);
 }

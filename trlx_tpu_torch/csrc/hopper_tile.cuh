@@ -1,11 +1,19 @@
 // Building blocks shared by the flash-attention kernels for Hopper (sm_90a):
 // the [B, T, H, D] stride types, 16-byte cp.async copies into a 128-byte
-// swizzled 64 x 64 bf16 tile, the wgmma shared-memory descriptor of that
+// swizzled 64 x D bf16 tile, the wgmma shared-memory descriptor of that
 // tile, and the two warpgroup products the tile kernels are built from
 // (wgmma.m64n64k16, bf16 in, f32 accumulate). csrc/flash_fwd.cu (K1's tile
 // variant) and csrc/flash_bwd.cu (K2's and K3's tile variants) include it;
 // ops/flash_attention.py hashes it with each source, so an edit rebuilds
 // both libraries.
+//
+// Head dims. Every kernel is a template over the head dim D and is built
+// for the dims in kHeadDims (GPT-2's 64, GPT-J's 256); the C entry points
+// refuse any other. A 64 x D tile is D / 64 swizzle atoms of 64 rows x 128
+// bytes (64 bf16 columns each, 8 KB), atom a holding columns 64 a .. 64 a +
+// 63: a K-major product (S = Q K^T) steps through the atoms 4 k-steps at a
+// time (kmajor_step), an MN-major one (O += P V) takes one atom per 64
+// output columns (mn_step), each with its own 64 x 64 accumulator.
 
 #pragma once
 
@@ -19,11 +27,25 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kD = 64;            // head dim the kernels are built for (GPT-2)
+constexpr int kHeadDims[] = {64, 256};  // the head dims the kernels are built for
 constexpr int kBK = 64;           // keys per tile (the visit rule's key tile)
 constexpr float kNegInf = -1e9f;  // the framework's finite mask value
 constexpr int kTileThreads = 128;         // one warpgroup
-constexpr int kTileBytes = 64 * kD * 2;   // one 64 x 64 bf16 tile, 8 KB
+constexpr int kAtomBytes = 64 * 128;      // one 64-row x 128-byte swizzle atom, 8 KB
+
+// one 64 x D bf16 tile: 8 KB at D = 64, 32 KB at D = 256
+template <int D>
+__host__ __device__ constexpr int tile_bytes() {
+  static_assert(D % 64 == 0, "a tile is whole 64-column swizzle atoms");
+  return 64 * D * 2;
+}
+
+// whether the kernels are built for head dim D (kHeadDims)
+constexpr bool built_head_dim(int D) {
+  for (int d : kHeadDims)
+    if (d == D) return true;
+  return false;
+}
 
 struct Strides {
   long long b, t, h;  // element strides of a [B, T, H, D] tensor (d stride 1)
@@ -32,6 +54,17 @@ struct Strides {
 struct BiasStrides {
   long long b, h, q, k;  // element strides; 0 = broadcast dimension
 };
+
+// The end of the keys a CTA whose query rows start at q0 visits (the causal
+// visit rule of csrc/flash_fwd.cu, which every kernel takes from here):
+// under the causal flag the 64-key tiles that start before the end of the
+// forward's query tile holding q0 (fwd_bq rows: 16 when Q <= 16, else 64),
+// else all K keys.
+__device__ __forceinline__ int visit_end(int q0, int fwd_bq, int K, int causal) {
+  if (!causal) return K;
+  const int tile_end = (q0 / fwd_bq + 1) * fwd_bq;
+  return min(K, (tile_end + kBK - 1) / kBK * kBK);
+}
 
 // The 16-byte paths read rows of 8-element chunks: a 16-byte-aligned base
 // and row strides that are multiples of 8 elements (a dimension of size 1
@@ -63,11 +96,27 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Byte offset of 16-byte chunk c (8 bf16 of D) of row r in a 64 x 64 bf16
-// tile: 128-byte rows, chunk index XOR (r mod 8). The 8 rows an ldmatrix
-// reads at one chunk land in 8 distinct bank groups.
+// The dynamic shared memory from its first 1024-byte boundary (the 128-byte
+// swizzle repeats over 1024 bytes): the generic pointer and the shared
+// address of the same byte. A kernel asks for 1 KB of slack for this.
+__device__ __forceinline__ uint8_t* aligned_smem(uint8_t* raw, uint32_t& addr) {
+  const uint32_t a = smem_addr(raw);
+  const uint32_t pad = (1024u - (a & 1023u)) & 1023u;
+  addr = a + pad;
+  return raw + pad;
+}
+
+// Byte offset of 16-byte chunk c (8 bf16 of D, c < 8) of row r in one
+// 64 x 64 bf16 swizzle atom: 128-byte rows, chunk index XOR (r mod 8). The
+// 8 rows an ldmatrix reads at one chunk land in 8 distinct bank groups.
 __device__ __forceinline__ uint32_t swizzle(int r, int c) {
   return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
+}
+
+// Byte offset of 16-byte chunk c (any c < D / 8) of row r in a 64 x D tile:
+// atom c / 8, chunk c mod 8 within it.
+__device__ __forceinline__ uint32_t tile_offset(int r, int c) {
+  return static_cast<uint32_t>((c >> 3) * kAtomBytes) + swizzle(r, c & 7);
 }
 
 // 16-byte asynchronous copy; with valid false it reads nothing and fills 0.
@@ -95,18 +144,28 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 
 // Rows [r0, r0 + 64) of a [B, T, H, D] bf16 tensor (already offset to its
-// batch row and head) into a swizzled tile; rows at or past T read as 0.
-// 512 16-byte chunks, 4 per thread of the warpgroup.
+// batch row and head) into a swizzled 64 x D tile; rows at or past T read
+// as 0. 8 D 16-byte chunks, spread over the kThreads threads that call it
+// (neighbouring threads on neighbouring chunks of a row): 4 per thread of
+// one warpgroup at D = 64, 16 at D = 256. Above D = 64 the thread's row and
+// chunk are made opaque per call: ptxas otherwise hoisted the 16 row
+// offsets of each tile out of the key loop and spilled.
+template <int D, int kThreads = kTileThreads>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src,
                                                 long long st, int r0,
                                                 int T_len) {
-  const int c = threadIdx.x & 7;
+  constexpr int kRowChunks = D / 8;
+  constexpr int kRowsPerPass = kThreads / kRowChunks;
+  static_assert(kThreads % kRowChunks == 0 && 64 % kRowsPerPass == 0,
+                "whole rows per pass");
+  int c = threadIdx.x % kRowChunks, r = threadIdx.x / kRowChunks;
+  if constexpr (D > 64) asm volatile("" : "+r"(c), "+r"(r));
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = (threadIdx.x >> 3) + 16 * i;
-    const int t = r0 + r;
+  for (int i = 0; i < 64 / kRowsPerPass; ++i) {
+    const int row = r + i * kRowsPerPass;
+    const int t = r0 + row;
     const bool valid = t < T_len;
-    cp_async16(dst + swizzle(r, c), valid ? src + t * st + c * 8 : src, valid);
+    cp_async16(dst + tile_offset(row, c), valid ? src + t * st + c * 8 : src, valid);
   }
 }
 
@@ -119,6 +178,52 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
          static_cast<uint64_t>(16 >> 4) << 16 |
          static_cast<uint64_t>(1024 >> 4) << 32 | static_cast<uint64_t>(1) << 62;
 }
+
+// The shared address a K-major operand's descriptor starts from at k-step
+// ks (16 columns of D): 32 bytes a step within an atom, the next atom every
+// 4 steps.
+__device__ __forceinline__ uint32_t kmajor_step(uint32_t tile, int ks) {
+  return tile + static_cast<uint32_t>((ks >> 2) * kAtomBytes + 32 * (ks & 3));
+}
+
+// The shared address an MN-major B operand's descriptor starts from for
+// output columns 64 n .. 64 n + 63 (atom n) at k-step ks (16 rows of the
+// tile, 2048 bytes each).
+__device__ __forceinline__ uint32_t mn_step(uint32_t tile, int n, int ks) {
+  return tile + static_cast<uint32_t>(n * kAtomBytes + 2048 * ks);
+}
+
+// A 64 x D tile's wgmma descriptors. At D = 64 each is formed from the
+// step's shared address (kmajor_step, mn_step). Above, a product takes D / 16
+// k-steps, and ptxas hoisted every step's descriptor of the tiles that stay
+// put across the key loop (Q, dO; both K/V stages) out of it, 2 registers
+// each, and spilled: there the tile's descriptor is formed once a use, made
+// opaque to the compiler, and each step adds its byte offset / 16 to the
+// start-address field right at the product (no carry: every shared address
+// is below 2^18).
+template <int D>
+struct TileDesc {
+  uint32_t addr;
+  uint64_t base;
+  __device__ __forceinline__ explicit TileDesc(uint32_t tile)
+      : addr(tile), base(smem_desc(tile)) {
+    if constexpr (D > 64) asm volatile("" : "+l"(base));
+  }
+  // K-major operand at k-step ks (16 columns of D)
+  __device__ __forceinline__ uint64_t kstep(int ks) const {
+    if constexpr (D > 64)
+      return base + static_cast<uint64_t>(((ks >> 2) * kAtomBytes + 32 * (ks & 3)) >> 4);
+    else
+      return smem_desc(kmajor_step(addr, ks));
+  }
+  // MN-major B operand, output columns 64 n .. 64 n + 63, k-step ks
+  __device__ __forceinline__ uint64_t mn(int n, int ks) const {
+    if constexpr (D > 64)
+      return base + static_cast<uint64_t>((n * kAtomBytes + 2048 * ks) >> 4);
+    else
+      return smem_desc(mn_step(addr, n, ks));
+  }
+};
 
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
@@ -149,6 +254,23 @@ __device__ __forceinline__ void fence_registers(float (&d)[8][4]) {
     for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
 }
 
+// the same for an accumulator of N 64-column chunks (a 64 x 64 N tile)
+template <int N>
+__device__ __forceinline__ void fence_registers(float (&d)[N][8][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) fence_registers(d[n]);
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N][8][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[n][j][e] = 0.f;
+}
+
 #define TRLX_WGMMA_D                                                        \
   "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
   "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "  \
@@ -169,7 +291,7 @@ __device__ __forceinline__ void fence_registers(float (&d)[8][4]) {
 // rows 16 w .. 16 w + 15).
 // Both operands from shared memory, K-major ([m][k] and [n][k], k
 // contiguous): S = Q K^T. A k-step of 16 advances both descriptors by 32
-// bytes.
+// bytes within an atom (kmajor_step).
 __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a_desc,
                                          uint64_t b_desc, int scale_d) {
   asm volatile(
@@ -184,7 +306,7 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t a_desc,
 // (row g, cols 2t, 2t+1), a1 = row g+8, a2 = cols +8, a3 = row g+8 and cols
 // +8), B from shared memory MN-major ([k][n], n contiguous; the transpose
 // bit): O += P V. A k-step of 16 rows of B advances its descriptor 2048
-// bytes. The accumulator's n-tiles 2 ks and 2 ks + 1, packed to bf16 in
+// bytes (mn_step). The accumulator's n-tiles 2 ks and 2 ks + 1, packed to bf16 in
 // that order (pack_fragment), are exactly the A fragment of k-step ks.
 __device__ __forceinline__ void wgmma_rs_mn(float (&d)[8][4],
                                             const uint32_t (&a)[4],

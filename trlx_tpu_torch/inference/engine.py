@@ -174,10 +174,11 @@ class EngineStats:
 
 def prefill_dot_flops(model_config, rows: int, width: int, view: int,
                       heads: bool = False) -> float:
-    """Dot-FLOPs (2 per multiply-add) of a GPT-2 forward of ``width``
+    """Dot-FLOPs (2 per multiply-add) of a GPT-2 or GPT-J forward (the same
+    12 E^2 projection multiply-adds a token and layer) of ``width``
     columns of ``rows`` rows attending a ``view``-wide cache: per layer the
     QKV, output and MLP projections and the two attention products; with
-    ``heads``, the tied LM head and the value head at one position a row
+    ``heads``, the LM head and the value head at one position a row
     (the prefill's ``last_only``). What the JAX package's engine reads off
     its traced program."""
     E, L = model_config.n_embd, model_config.n_layer

@@ -1,5 +1,5 @@
 """HF checkpoint directory -> the port's config and state dict (counterpart
-of the GPT-2 and T5 parts of :mod:`trlx_tpu.models.conversion`).
+of the GPT-2, GPT-J and T5 parts of :mod:`trlx_tpu.models.conversion`).
 
 The JAX package loads through ``transformers``; the port reads the
 directory itself, so it needs neither ``transformers`` nor ``safetensors``:
@@ -18,6 +18,13 @@ What the maps handle:
   safetensors file leaves ``lm_head.weight`` out), and the causal-mask
   buffers of older checkpoints (``attn.bias``, ``attn.masked_bias``) are
   not weights.
+- GPT-J: keys come with or without the ``transformer.`` prefix; HF's
+  ``nn.Linear`` is already [out, in], so nothing transposes (the JAX
+  converter does, for flax's [in, out] kernels); the head is untied and
+  has a bias (``lm_head.weight``, ``lm_head.bias``); the attention's mask
+  buffers (``attn.bias``, ``attn.masked_bias``) and the rotary table
+  (``embed_positions``) are not weights; a ``config.json`` without
+  ``rotary_dim`` rotates the whole head.
 - T5/UL2: HF's ``nn.Linear`` is already [out, in], so nothing transposes
   (the JAX converter does, for flax's [in, out] kernels); the embeddings
   are ``shared`` (safetensors leaves the tied ``*.embed_tokens`` copies
@@ -39,6 +46,7 @@ from typing import Any, Dict, Mapping, Tuple
 import torch
 
 from trlx_tpu_torch.models.gpt2 import GPT2Config, torch_dtype
+from trlx_tpu_torch.models.gptj import GPTJConfig
 from trlx_tpu_torch.models.t5 import T5Config
 
 SAFETENSORS_DTYPES = {
@@ -169,6 +177,49 @@ def convert_gpt2_state_dict(
     }
 
 
+def gptj_config_from_hf(model_path: str) -> GPTJConfig:
+    """The ``config.json`` of an HF GPT-J checkpoint directory ->
+    :class:`GPTJConfig`. The MLP is 4 x ``n_embd`` wide, as in the JAX
+    package; a checkpoint whose ``n_inner`` says otherwise is refused."""
+    d = _hf_config(model_path)
+    if d.get("n_inner") not in (None, 4 * d["n_embd"]):
+        raise ValueError(
+            f"{model_path}: n_inner={d['n_inner']}; the GPT-J MLP is built "
+            f"4 x n_embd = {4 * d['n_embd']} wide"
+        )
+    return GPTJConfig(
+        vocab_size=d["vocab_size"],
+        n_positions=d.get("n_positions", 2048),
+        n_embd=d["n_embd"],
+        n_layer=d["n_layer"],
+        n_head=d["n_head"],
+        rotary_dim=d.get("rotary_dim") or (d["n_embd"] // d["n_head"]),
+        layer_norm_epsilon=d.get("layer_norm_epsilon", 1e-5),
+    )
+
+
+def convert_gptj_state_dict(
+    state_dict: Mapping[str, torch.Tensor], config: GPTJConfig, dtype="float32"
+) -> Dict[str, torch.Tensor]:
+    """HF ``GPTJForCausalLM`` state dict -> the state dict of
+    :class:`~trlx_tpu_torch.models.gptj.GPTJModel` (no transposes: both
+    sides store [out, in]; the untied head keeps its bias)."""
+    sd = {k.removeprefix("transformer."): v for k, v in state_dict.items()}
+    names = ["wte.weight", "ln_f.weight", "ln_f.bias", "lm_head.weight", "lm_head.bias"] + [
+        f"h.{i}.{leaf}"
+        for i in range(config.n_layer)
+        for leaf in ("ln_1.weight", "ln_1.bias",
+                     *(f"attn.{p}_proj.weight" for p in ("q", "k", "v", "out")),
+                     "mlp.fc_in.weight", "mlp.fc_in.bias",
+                     "mlp.fc_out.weight", "mlp.fc_out.bias")
+    ]
+    missing = [n for n in names if n not in sd]
+    if missing:
+        raise KeyError(f"GPT-J checkpoint lacks {missing[:5]}")
+    dt = torch_dtype(dtype)
+    return {n: sd[n].to(dt).contiguous() for n in names}
+
+
 def t5_config_from_hf(model_path: str) -> T5Config:
     """The ``config.json`` of an HF T5/UL2 checkpoint directory ->
     :class:`T5Config`."""
@@ -235,6 +286,15 @@ def load_gpt2_checkpoint(
     backbone's state dict in ``dtype``, on the CPU)."""
     config = gpt2_config_from_hf(model_path)
     return config, convert_gpt2_state_dict(read_hf_weights(model_path), config, dtype)
+
+
+def load_gptj_checkpoint(
+    model_path: str, dtype="float32"
+) -> Tuple[GPTJConfig, Dict[str, torch.Tensor]]:
+    """An HF GPT-J checkpoint directory -> (:class:`GPTJConfig`, the
+    backbone's state dict in ``dtype``, on the CPU)."""
+    config = gptj_config_from_hf(model_path)
+    return config, convert_gptj_state_dict(read_hf_weights(model_path), config, dtype)
 
 
 def load_t5_checkpoint(

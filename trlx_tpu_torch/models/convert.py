@@ -11,6 +11,10 @@ returns the port's state dict. Flax names map one to one:
   [out, in], so kernels are transposed);
 - ``.../ln_1/scale`` -> ``.../ln_1.weight``; ``.../bias`` -> ``.bias``;
 - ``transformer/wte/embedding`` -> ``transformer.wte.weight``;
+- GPT-J: ``transformer/h_0/attn/q_proj/kernel`` ->
+  ``transformer.h.0.attn.q_proj.weight`` (likewise ``k_proj``, ``v_proj``,
+  ``out_proj``, ``mlp/fc_in``, ``mlp/fc_out``), and the untied head
+  ``transformer/lm_head/{kernel,bias}`` -> ``transformer.lm_head.{weight,bias}``;
 - ``v_head/fc1/kernel`` -> ``v_head.fc1.weight``;
 - ILQL: ``heads/q1_head/fc2/kernel`` -> ``heads.q1_head.fc2.weight`` (the
   ``CausalLMWithILQLHeads`` tree), and the JAX ILQL trainer's

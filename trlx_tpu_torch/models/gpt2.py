@@ -166,7 +166,83 @@ class Block(nn.Module):
         return x + self.mlp(self.ln_2(x))
 
 
-class GPT2Model(nn.Module):
+class DecoderLM(nn.Module):
+    """The decoder-only skeleton GPT-2 and GPT-J share: the hydra branch,
+    the embeddings or ``hidden_override``, the attention dispatch, the
+    block loop with its capture, ``ln_f`` and the output dict. A family
+    sets ``config``, ``first_layer``, ``wte``, ``h`` (blocks keyed by layer
+    index) and ``ln_f``, and defines ``embed(input_ids, position_ids)``,
+    ``block_args(position_ids, x)`` (what each block takes between the bias
+    and the cache: GPT-J's rotary angles) and ``logits(hidden)``; its
+    constructor takes ``branch_start`` and keeps what a branch holds."""
+
+    def block_args(self, position_ids: torch.Tensor, x: torch.Tensor) -> tuple:
+        return ()
+
+    def hydra_branch(self, branch_start: int) -> "DecoderLM":
+        """A frozen copy of what the constructor keeps for ``branch_start``
+        (blocks ``branch_start`` and up and the head's weights): the hydra
+        KL reference, the trunk blocks left out."""
+        branch = type(self)(self.config, self.wte.weight.device, branch_start)
+        kept = branch.state_dict().keys()
+        branch.load_state_dict({k: v for k, v in self.state_dict().items() if k in kept})
+        return branch.requires_grad_(False)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,  # [B, T]
+        attention_mask: Optional[torch.Tensor] = None,
+        position_ids: Optional[torch.Tensor] = None,
+        cache: Optional[Cache] = None,
+        cache_index=None,
+        start_layer: int = 0,
+        hidden_override: Optional[torch.Tensor] = None,
+        capture_hidden_at: Optional[int] = None,
+        compute_logits: bool = True,
+    ) -> Dict[str, Any]:
+        """Returns ``{"logits", "hidden", "cache"}``.
+
+        Position ids default to ``cumsum(mask) - 1`` under left padding for
+        a full forward, else ``arange(T)``. The hydra arguments:
+        ``start_layer=k`` with ``hidden_override`` runs blocks ``k`` and up
+        from that activation instead of the embeddings; ``capture_hidden_at=k``
+        returns the activation entering block ``k`` as ``"branch_hidden"``
+        and stops there (``logits`` and ``hidden`` are then ``None``). XLA
+        prunes the blocks above the capture from the JAX trunk when only the
+        capture is read; eager PyTorch would run them, so the pass ends at
+        the capture."""
+        if start_layer < self.first_layer:
+            raise ValueError(
+                f"start_layer={start_layer}: this branch holds blocks "
+                f"{self.first_layer} and up"
+            )
+        src = input_ids if hidden_override is None else hidden_override
+        T = src.shape[1]
+        if position_ids is None:
+            if attention_mask is not None and cache is None:
+                position_ids = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
+            else:
+                position_ids = torch.arange(T, device=src.device)[None]
+        if hidden_override is not None:
+            x = hidden_override.to(torch_dtype(self.config.dtype))
+        else:
+            x = self.embed(input_ids, position_ids)
+        extra = self.block_args(position_ids, x)
+        bias, causal = causal_dispatch(T, cache, cache_index, attention_mask)
+        for i in range(start_layer, self.config.n_layer):
+            if i == capture_hidden_at:
+                return {"logits": None, "hidden": None, "cache": cache, "branch_hidden": x}
+            x = self.h[str(i)](x, bias, *extra, cache[i] if cache is not None else None,
+                               cache_index, causal)
+        x = self.ln_f(x)
+        return {
+            "logits": self.logits(x) if compute_logits else None,
+            "hidden": x,
+            "cache": cache,
+        }
+
+
+class GPT2Model(DecoderLM):
     """GPT-2 transformer with the tied-embedding LM head and an explicit KV
     cache. ``cache=None``: full-sequence causal forward. ``cache`` given:
     keys/values are written at ``cache_index`` (an int, or a [B] tensor of
@@ -194,15 +270,6 @@ class GPT2Model(nn.Module):
             torch_dtype(config.dtype), **fk,
         )
 
-    def hydra_branch(self, branch_start: int) -> "GPT2Model":
-        """A frozen copy of blocks ``branch_start`` and up, ``ln_f`` and
-        ``wte``: the hydra KL reference (the trunk blocks and ``wpe`` are
-        left out)."""
-        branch = GPT2Model(self.config, self.wte.weight.device, branch_start)
-        kept = branch.state_dict().keys()
-        branch.load_state_dict({k: v for k, v in self.state_dict().items() if k in kept})
-        return branch.requires_grad_(False)
-
     def embed(self, input_ids, position_ids) -> torch.Tensor:
         # each table rounds to the compute dtype before the add. Engine rows
         # past their token budget ride along (outputs discarded) at
@@ -216,56 +283,6 @@ class GPT2Model(nn.Module):
         """Tied LM head: compute-dtype operands, f32 products and sums."""
         emb = self.wte.weight.to(torch_dtype(self.config.dtype))
         return torch.matmul(hidden.float(), emb.float().t())
-
-    def forward(
-        self,
-        input_ids: torch.Tensor,  # [B, T]
-        attention_mask: Optional[torch.Tensor] = None,
-        position_ids: Optional[torch.Tensor] = None,
-        cache: Optional[Cache] = None,
-        cache_index=None,
-        start_layer: int = 0,
-        hidden_override: Optional[torch.Tensor] = None,
-        capture_hidden_at: Optional[int] = None,
-        compute_logits: bool = True,
-    ) -> Dict[str, Any]:
-        """Returns ``{"logits", "hidden", "cache"}``.
-
-        The hydra arguments: ``start_layer=k`` with ``hidden_override``
-        runs blocks ``k`` and up from that activation instead of the
-        embeddings; ``capture_hidden_at=k`` returns the activation entering
-        block ``k`` as ``"branch_hidden"`` and stops there (``logits`` and
-        ``hidden`` are then ``None``). XLA prunes the blocks above the
-        capture from the JAX trunk when only the capture is read; eager
-        PyTorch would run them, so the pass ends at the capture."""
-        if start_layer < self.first_layer:
-            raise ValueError(
-                f"start_layer={start_layer}: this branch holds blocks "
-                f"{self.first_layer} and up"
-            )
-        if hidden_override is not None:
-            T = hidden_override.shape[1]
-            x = hidden_override.to(torch_dtype(self.config.dtype))
-        else:
-            T = input_ids.shape[1]
-            if position_ids is None:
-                if attention_mask is not None and cache is None:
-                    position_ids = (attention_mask.long().cumsum(-1) - 1).clamp_min(0)
-                else:
-                    position_ids = torch.arange(T, device=input_ids.device)[None]
-            x = self.embed(input_ids, position_ids)
-        bias, causal = causal_dispatch(T, cache, cache_index, attention_mask)
-        for i in range(start_layer, self.config.n_layer):
-            if i == capture_hidden_at:
-                return {"logits": None, "hidden": None, "cache": cache, "branch_hidden": x}
-            x = self.h[str(i)](x, bias, cache[i] if cache is not None else None,
-                               cache_index, causal)
-        x = self.ln_f(x)
-        return {
-            "logits": self.logits(x) if compute_logits else None,
-            "hidden": x,
-            "cache": cache,
-        }
 
 
 def write_cache(cache_kv, k, v, cache_index, dtype, view_len=None):

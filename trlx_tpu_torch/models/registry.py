@@ -1,7 +1,8 @@
 """Model-family registry: ``model.model_type`` -> architecture kit
-(counterpart of :mod:`trlx_tpu.models.registry`; ``gpt2``, and ``t5``
-with its alias ``ul2``, the seq2seq family), and :func:`load_arch`, the
-architecture and weights a config asks for.
+(counterpart of :mod:`trlx_tpu.models.registry`; ``gpt2``, ``gptj`` with
+its alias ``gpt-j``, and ``t5`` with its alias ``ul2``, the seq2seq
+family), and :func:`load_arch`, the architecture and weights a config asks
+for. The JAX package's other families are refused by name.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ class ModelFamily:
 _FAMILIES: Dict[str, ModelFamily] = {}
 
 #: the JAX package's other families (and aliases), refused by name
-UNPORTED_FAMILIES = ("gptj", "gpt-j", "gpt_neo", "gpt-neo", "gpt_neox", "neox", "gpt-neox",
+UNPORTED_FAMILIES = ("gpt_neo", "gpt-neo", "gpt_neox", "neox", "gpt-neox",
                      "gpt2_moe", "gpt2-moe")
 
 
@@ -76,12 +77,21 @@ def load_arch(family: ModelFamily, model, train) -> Tuple[Any, Optional[Dict[str
 
 
 def _register_builtins() -> None:
-    from trlx_tpu_torch.models.conversion import load_gpt2_checkpoint, load_t5_checkpoint
+    from trlx_tpu_torch.models.conversion import (
+        load_gpt2_checkpoint,
+        load_gptj_checkpoint,
+        load_t5_checkpoint,
+    )
     from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model, init_cache
+    from trlx_tpu_torch.models.gptj import GPTJConfig, GPTJModel, init_gptj_cache
     from trlx_tpu_torch.models.t5 import T5Config, T5Model, init_t5_cache
 
     register_model_family(
         ModelFamily("gpt2", GPT2Config, GPT2Model, init_cache, load_gpt2_checkpoint)
+    )
+    register_model_family(
+        ModelFamily("gptj", GPTJConfig, GPTJModel, init_gptj_cache, load_gptj_checkpoint),
+        "gpt-j",
     )
     register_model_family(
         ModelFamily("t5", T5Config, T5Model, init_t5_cache, load_t5_checkpoint,

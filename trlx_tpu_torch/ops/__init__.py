@@ -1,2 +1,2 @@
-"""Attention, the flash-attention kernel and sampling (counterpart of
-:mod:`trlx_tpu.ops`)."""
+"""Attention, the flash-attention kernels, rotary embeddings and sampling
+(counterpart of :mod:`trlx_tpu.ops`)."""

@@ -17,6 +17,11 @@ source and the header it includes, so an edit rebuilds; the two sources
 build in parallel) and bound through plain C functions loaded with
 ``ctypes``. Nothing is imported or built when this module is imported.
 
+The kernels are templates over the head dim, built for
+:data:`HEAD_DIMS` (64 and 256); the C entry points dispatch to the
+instantiation by D, and :func:`_check` refuses any other D before a
+launch.
+
 Dispatch is by the tensor's device, never by a fallback:
 
 - a CPU tensor takes the plain versions (:func:`flash_attention_reference`,
@@ -64,7 +69,9 @@ FLASH_BWD_DQ_DBIAS_LAUNCHES = 0
 #: variant cannot read in place), once per packing
 FLASH_BWD_COPIES = 0
 
-HEAD_DIM = 64  # the head dim the kernels are built for (GPT-2's)
+#: the head dims the kernels are built for (GPT-2's 64, GPT-J's 256;
+#: ``csrc/hopper_tile.cuh::kHeadDims``); any other is refused before a launch
+HEAD_DIMS = (64, 256)
 KEY_TILE = 64  # the forward kernel's key tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: K1's variants, by the code its C entry point takes
@@ -426,11 +433,15 @@ def _check(q, k, v, bias, name: str) -> None:
             f"v{tuple(v.shape)}"
         )
     B, _, H, D = q.shape
-    if D != HEAD_DIM or k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
+    if D not in HEAD_DIMS:
         raise ValueError(
-            f"{name}: the kernel is built for head dim {HEAD_DIM} and "
-            f"matching q/k batch and heads; got q{tuple(q.shape)} "
-            f"k{tuple(k.shape)}"
+            f"{name}: the kernels are built for head dims {HEAD_DIMS}, got "
+            f"{D} (other head dims are ROADMAP item 13)"
+        )
+    if k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
+        raise ValueError(
+            f"{name}: q and k must match in batch, heads and head dim; got "
+            f"q{tuple(q.shape)} k{tuple(k.shape)}"
         )
     if bias is not None and bias.dim() != 4:
         raise ValueError(f"{name}: bias must be rank-4, got {tuple(bias.shape)}")

@@ -10,9 +10,9 @@
 - The frozen KL reference is taken from the initial weights at
   construction: a full copy of the backbone, or with a hydra branch
   (``model.ref_branch_layers``, which follows a positive
-  ``num_layers_unfrozen`` when unset) a copy of its top blocks, ``ln_f``
-  and ``wte`` only, run from the live policy trunk's activation at the
-  branch point.
+  ``num_layers_unfrozen`` when unset) a copy of its top blocks, ``ln_f``,
+  ``wte`` and an untied head (GPT-J's ``lm_head``) only, run from the live
+  policy trunk's activation at the branch point.
 - ``train.logprob_chunk > 0`` (with ``ent_coef`` 0) computes the update's
   logprobs chunk by chunk of response positions under
   ``torch.utils.checkpoint``, so the [B, R, V] f32 logits never exist.
