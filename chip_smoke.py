@@ -8,15 +8,16 @@ Phases, each fatal on failure:
    the tensor cores, ``decode`` for bf16 with Q <= 16, ``fma`` for f32;
    ``flash_bwd.cu``: K2 dQ and K3 dK/dV, each ``tile`` for bf16 on the
    tensor cores and ``fma`` for f32, K2 in two instantiations, without and
-   with the bias gradient; every kernel instantiated for head dims 64 and
-   256, each instantiation gated on its own) with ``nvcc`` for ``sm_90a``, both
+   with the bias gradient; every kernel instantiated for head dims 64, 96
+   and 256, each instantiation gated on its own) with ``nvcc`` for ``sm_90a``, both
    sources at once, and beside them each source's device code alone with
    ``ptxas -v`` (every run, so the report holds when the libraries were
    already built); print ``ptxas``'s registers, shared memory and spills
    per kernel, and the count of tensor-core instructions (``HMMA`` or
-   ``HGMMA``) in each kernel's SASS (``cuobjdump -sass``). A spill in K1 or
-   in a backward tile kernel, one of them missing from the report, or a
-   tile kernel without tensor-core instructions fails the phase;
+   ``HGMMA``) in each kernel's SASS (``cuobjdump -sass``). A spill in any
+   K1, K2 or K3 kernel (``tile`` and ``fma``), one of them missing from
+   the report, or a tile kernel without tensor-core instructions fails the
+   phase;
 2. kernel — hold K1 against its plain PyTorch version on the card at the
    serving path's shapes (prefill, decode) and the edge cases (causal flag
    with a padding bias, ragged Q/K, per-head bias, 64 key tiles with peaked
@@ -65,7 +66,12 @@ Phases, each fatal on failure:
    dbias), K1, K2 (+dbias) and K3 in bf16 and f32, with V ~ N(0, 1) and
    O held elementwise to a fraction of P|V| + |O| (``O_REL_TOL``) that two
    planted faults (one 64-column V atom, or its share of key tile 0, left
-   out) must break, timed in bf16 as the head-dim-64 rows are;
+   out) must break, timed in bf16 as the head-dim-64 rows are; and the same
+   cases and checks for the head-dim-96 instantiations at GPT-NeoX-20B's
+   shapes (H = 64: the rollout prefill B=64 Q=48 K=96 and decode step, the
+   update B=32 T=96 causal, the reference scoring B=64 T=96 causal, phase
+   14's admission prefill B=8 Q=512 K=576 and decode step B=32 K=576), the
+   planted faults aimed at the padded atom's real columns 64..95;
 3. model — full-width GPT-2 in f32 through the kernels against the plain
    attention: the forward without a cache, prefill + decode through the
    paged cache against the plain full forward of the whole sequence, and
@@ -79,7 +85,14 @@ Phases, each fatal on failure:
    columns); and a GPT-J checkpoint in HF layout at full width and 2
    blocks (``transformer.`` names, Linear [out, in], ``lm_head.bias``)
    written here and loaded through ``model.model_path`` by the PPO trainer
-   on ``configs/ppo_gptj.yml``, bit for bit;
+   on ``configs/ppo_gptj.yml``, bit for bit; the same for GPT-NeoX: a
+   full-width f32 NeoX (6144 wide, 64 heads of 96, rotary on 24, vocab
+   50 432, parallel residual) cut to 2 blocks, the gradient at the yml's
+   B = 32, and an HF-layout checkpoint at full width and 2 blocks
+   (``gpt_neox.`` names, the fused ``query_key_value`` [3 H Dh, E],
+   ``embed_out.weight`` and the three buffers of older checkpoints)
+   loaded through ``model.model_path`` on ``configs/ppo_neox20b.yml``, bit
+   for bit;
 4. serving — ``InferenceServer`` on CUDA with the ``configs/ppo_sentiments.yml``
    model at full GPT-2-small width (random weights from a seed, bf16
    compute) serves 64 prompts; every request must complete with finite
@@ -224,7 +237,33 @@ Phases, each fatal on failure:
    with the checkpoint write timed apart, collect and train seconds,
    rollout tokens/s, updates/s and the peak.
 
-Each path (phases 4 to 13, each definition of phase 7 and each run of
+14. GPT-NeoX-20B serving — ``InferenceServer`` with ``model_type:
+   gpt_neox`` at the 20B's widths and depth (vocab 50 432, 2048 positions,
+   6144 wide, 44 blocks, 64 heads of 96, ``rotary_pct`` 0.25, parallel
+   residual; random weights from a seed), ``dtype`` and ``param_dtype``
+   bf16, so the policy is built in bf16 on the card with no f32 copy; eos
+   = pad = 0; phase 4's 64 prompts and geometry. Gates: the card near
+   empty before the build; 64/64 complete and finite; K1 ``tile`` = 44 x
+   prefill forwards, ``decode`` = 44 x decode steps, all at D = 96; no
+   ``fma`` launch, input copy or plain call. Prints tokens/s, TTFT
+   p50/p95, the build's peak and serving's;
+15. GPT-NeoX PPO — ``trlx_tpu_torch.train`` on ``configs/ppo_neox20b.yml``
+   (bf16 over f32 masters, batch 32, 48 + 48 tokens with ``top_k: 0``, 64
+   rollouts a chunk, 4 epochs, the 2-block hydra reference, running reward
+   scaling) at full width for two PPO phases (16 updates) on 128 int-list
+   prompts of 16-48 tokens; named deviations: the mesh set to one device
+   (item 14), depth 44 cut to 12 blocks (one card), random weights, no
+   tokenizer, a host reward, 16 of 6000 updates. Gates: finite stats; the
+   top 2 blocks, ``ln_f``, ``lm_head`` and the value head moved, the bottom
+   10 blocks and ``wte`` bit-identical; the reference holds blocks 10-11,
+   ``wte``, ``ln_f`` and ``lm_head`` only (1 525 850 112 parameters); K1
+   ``tile`` = 12 x the non-decode forwards, ``decode`` = 12 x the decode
+   steps; K2 = K3 = 2 x 16, all ``tile``; no ``fma`` launch, input copy
+   or plain call; a fresh trainer's ``load`` restores the saved state
+   exactly. Prints the wall with the checkpoint write timed apart, collect
+   and train seconds, rollout tokens/s, updates/s and the peak.
+
+Each path (phases 4 to 15, each definition of phase 7 and each run of
 phase 9 on its own) runs with the launch counters set to 0 just before it
 and read just after, and its peak memory is read from a clean start.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
@@ -235,7 +274,7 @@ phase of each phase-7 definition, one epoch of phase 8, one phase each
 of phases 9 (causal) and 10, and phase 11's traffic with the features on
 and off under ``torch.profiler`` and writes each run's
 device-time summary (busy share, device time by kernel) as JSON to PATH
-(phases 12 and 13 are not profiled).
+(phases 12 to 15 are not profiled).
 """
 
 from __future__ import annotations
@@ -310,7 +349,7 @@ def write_safetensors(tensors: dict, path: str) -> None:
     import torch
 
     codes = {torch.float32: "F32", torch.float16: "F16", torch.bfloat16: "BF16",
-             torch.int64: "I64"}
+             torch.int64: "I64", torch.bool: "BOOL"}
     flat = {n: tensors[n].detach().contiguous().cpu().reshape(-1) for n in sorted(tensors)}
     header, offset = {}, 0
     for name, t in flat.items():
@@ -405,19 +444,23 @@ def tensor_core_instructions(fa, library: str) -> dict:
 # per library, the kernels phase 1 gates, each by a piece of its mangled
 # name: each in the ptxas report with no spill; the tile kernels also with
 # tensor-core instructions in their SASS. Every kernel is built for head
-# dims 64 (ILi64E) and 256 (ILi256E, named "_d256" here), gated apart; K2's
-# tile kernel has two instantiations per head dim, without the bias
-# gradient (Lb0E) and with it (Lb1E)
+# dims 64 (ILi64E), 96 (ILi96E, named "_d96" here) and 256 (ILi256E,
+# "_d256"), gated apart; K2's tile kernel has two instantiations per head
+# dim, without the bias gradient (Lb0E) and with it (Lb1E); the backward's
+# f32 kernels (fma) are gated on spills as well
+HEAD_DIM_SUFFIXES = ((64, ""), (96, "_d96"), (256, "_d256"))
 GATED_KERNELS = {
     "flash_fwd": {f"flash_fwd_{v}_kernel{sfx}": f"flash_fwd_{v}_kernelILi{d}E"
-                  for d, sfx in ((64, ""), (256, "_d256"))
+                  for d, sfx in HEAD_DIM_SUFFIXES
                   for v in ("tile", "decode", "fma")},
-    "flash_bwd": {name: pattern for d, sfx in ((64, ""), (256, "_d256")) for name, pattern in (
+    "flash_bwd": {name: pattern for d, sfx in HEAD_DIM_SUFFIXES for name, pattern in (
         (f"flash_bwd_dq_tile_kernel{sfx}", f"flash_bwd_dq_tile_kernelILi{d}ELb0E"),
         (f"flash_bwd_dq_tile_kernel_dbias{sfx}", f"flash_bwd_dq_tile_kernelILi{d}ELb1E"),
-        (f"flash_bwd_dkv_tile_kernel{sfx}", f"flash_bwd_dkv_tile_kernelILi{d}E"))},
+        (f"flash_bwd_dkv_tile_kernel{sfx}", f"flash_bwd_dkv_tile_kernelILi{d}E"),
+        (f"flash_bwd_dq_fma_kernel{sfx}", f"flash_bwd_dq_fma_kernelILi{d}E"),
+        (f"flash_bwd_dkv_fma_kernel{sfx}", f"flash_bwd_dkv_fma_kernelILi{d}E"))},
 }
-TILE_KERNELS = tuple(k + sfx for sfx in ("", "_d256") for k in (
+TILE_KERNELS = tuple(k + sfx for _, sfx in HEAD_DIM_SUFFIXES for k in (
     "flash_fwd_tile_kernel", "flash_bwd_dq_tile_kernel", "flash_bwd_dq_tile_kernel_dbias",
     "flash_bwd_dkv_tile_kernel"))
 
@@ -2731,17 +2774,31 @@ def phase_rows(trainer) -> list:
                  updates_per_s=per_phase / p["train_s"]) for p in trainer.phase_times]
 
 
-def restores(torch, trainer, fresh, saved_rng) -> bool:
-    """Whether ``fresh``, after ``load``, holds ``trainer``'s saved state
-    exactly: parameters, Adam moments, counters, KL state, generator."""
-    saved, loaded = trainer.opt.state_dict(), fresh.opt.state_dict()
+def trainer_state(trainer, device=None) -> dict:
+    """``trainer``'s state as ``save`` writes it: parameters, Adam moments,
+    the update count and KL state; the tensors where they lie, or copied to
+    ``device``."""
+    def move(t):
+        return t.detach().to(device, copy=True) if device is not None else t
+
+    opt = trainer.opt.state_dict()
+    return {
+        "model": {n: move(t) for n, t in trainer.model.state_dict().items()},
+        "adam": {(i, key): move(v) for i, st in opt["adamw"]["state"].items()
+                 for key, v in st.items()},
+        "counters": (trainer.step, trainer.kl_coef, trainer.mean_kl, opt["count"]),
+    }
+
+
+def restores(torch, saved: dict, fresh, saved_rng) -> bool:
+    """Whether ``fresh``, after ``load``, holds the :func:`trainer_state`
+    ``saved`` exactly, and the generator as saved."""
+    now = trainer_state(fresh)
     return (
-        all(torch.equal(fresh.model.state_dict()[n], p)
-            for n, p in trainer.model.state_dict().items())
-        and all(torch.equal(loaded["adamw"]["state"][i][key], value)
-                for i, st in saved["adamw"]["state"].items() for key, value in st.items())
-        and (fresh.step, fresh.kl_coef, fresh.mean_kl, loaded["count"])
-        == (trainer.step, trainer.kl_coef, trainer.mean_kl, saved["count"])
+        all(set(now[part]) == set(saved[part]) and all(
+            torch.equal(now[part][k].to(t.device), t) for k, t in saved[part].items())
+            for part in ("model", "adam"))
+        and now["counters"] == saved["counters"]
         and torch.equal(fresh.generator.get_state(), saved_rng[-1])
     )
 
@@ -2912,7 +2969,7 @@ def phase_grpo(torch, fa, ckpt: str, written: dict):
         G = trainer.group_size
         fresh = GRPOTrainer(config())
         fresh.load(run_dir)
-        restored = restores(torch, trainer, fresh, watch["saved_rng"])
+        restored = restores(torch, trainer_state(trainer), fresh, watch["saved_rng"])
         del fresh
     gates = run_gates(torch, trainer, watch, record)
     groups = group_gates(watch["chunks"], watch["returns"], G)
@@ -3099,7 +3156,7 @@ def phase_continuous(torch, fa, ckpt: str, written: dict):
             reward_fn=training_reward, prompts=training_prompts(), config=config()), patches)
         fresh = PPOTrainer(config())
         fresh.load(run_dir)
-        restored = restores(torch, trainer, fresh, watch["saved_rng"])
+        restored = restores(torch, trainer_state(trainer), fresh, watch["saved_rng"])
         del fresh
     engine = trainer.rollout_engine_obj
     gates = run_gates(torch, trainer, watch, record)
@@ -3816,22 +3873,25 @@ GPTJ_TIMED = ("gptj_rollout_prefill", "gptj_rollout_decode", "gptj_update",
               "gptj_ref_scoring", "gptj_serving_prefill", "gptj_serving_decode")
 
 
-def gptj_kernel_cases(torch, attn):
-    """(name, q, k, v, bias, causal, kind) at D = 256, f32, from a fixed
-    seed; ``kind``: ``"forward"`` (K1 only), ``"backward"`` (K1, then K2 and
-    K3) or ``"dbias"`` (K2 with the bias gradient of a learned bias). The
-    paths' shapes (configs/ppo_gptj.yml: 48 prompt + 48 new tokens, 128
-    rollouts, batch 8; phase 12's serving geometry) at H = 16, and the
-    edges: ragged Q/K with a padding bias, left padding whose first causal
-    rows see only padding, 16 key tiles with peaked logits, 16 query chunks
-    and key tiles under the causal flag, Q <= 16 under the causal flag, also
-    with rows that see only padding (:func:`small_q_masked_rows_mask`)."""
+def wide_kernel_cases(torch, attn, prefix: str, D: int, H: int, rollout_batch: int,
+                      update_batch: int, seed: int):
+    """(name, q, k, v, bias, causal, kind) at head dim ``D``, f32, from a
+    fixed seed; ``kind``: ``"forward"`` (K1 only), ``"backward"`` (K1, then
+    K2 and K3) or ``"dbias"`` (K2 with the bias gradient of a learned bias).
+    The paths' shapes at ``H`` heads (48 prompt + 48 new tokens,
+    ``rollout_batch`` rollouts, ``update_batch`` rows an update; phases 12
+    and 14's serving geometry), and the edges at 4 heads: ragged Q/K with a
+    padding bias, left padding whose first causal rows see only padding, 16
+    key tiles with peaked logits, 16 query chunks and key tiles under the
+    causal flag, Q <= 16 under the causal flag, also with rows that see
+    only padding (:func:`small_q_masked_rows_mask`). Names start with
+    ``prefix``."""
     dev = "cuda"
     gen = torch.Generator(device=dev)
-    gen.manual_seed(30)
+    gen.manual_seed(seed)
 
-    def qkv(B, Q, K, H=GPTJ_HEADS):
-        return [torch.randn(B, T, H, GPTJ_D, generator=gen, device=dev) for T in (Q, K, K)]
+    def qkv(B, Q, K, heads=H):
+        return [torch.randn(B, T, heads, D, generator=gen, device=dev) for T in (Q, K, K)]
 
     def left(B, Q, K, lo, hi, width=None):
         """[B, K] masks of prompts of lo..hi real tokens left-padded to Q
@@ -3840,58 +3900,66 @@ def gptj_kernel_cases(torch, attn):
         cols = torch.arange(K, device=dev)[None]
         return (cols >= Q - lens) & (cols < (Q if width is None else width))
 
+    RB, UB = rollout_batch, update_batch
     cases = []
     # the fixed sampler's prefill: 48 prompt columns over the 96-wide cache,
     # causal and left padding as one [B, 1, Q, K] bias; a decode step at
     # column 48 + t
-    bias = attn.causal_bias(48, 96, 0, dev) + attn.padding_bias(left(128, 48, 96, 16, 48).long())
-    cases.append(("gptj_rollout_prefill", *qkv(128, 48, 96), bias, False, "forward"))
+    bias = attn.causal_bias(48, 96, 0, dev) + attn.padding_bias(left(RB, 48, 96, 16, 48).long())
+    cases.append((f"{prefix}_rollout_prefill", *qkv(RB, 48, 96), bias, False, "forward"))
     t = int(torch.randint(0, 48, (), generator=gen, device=dev))
     bias = attn.causal_bias(1, 96, 48 + t, dev) + attn.padding_bias(
-        left(128, 48, 96, 16, 48, width=49 + t).long())
-    cases.append(("gptj_rollout_decode", *qkv(128, 1, 96), bias, False, "forward"))
+        left(RB, 48, 96, 16, 48, width=49 + t).long())
+    cases.append((f"{prefix}_rollout_decode", *qkv(RB, 1, 96), bias, False, "forward"))
     # the update: [query; response] of 48 + 48 under the causal flag with a
     # [B, 1, 1, K] padding bias (first keys valid), and with PPO's left
     # padding, whose rows before the first real token see only padding
     keep = torch.arange(96, device=dev)[None] < 4
-    mask = (torch.rand(8, 96, generator=gen, device=dev) > 0.2) | keep
-    cases.append(("gptj_update", *qkv(8, 96, 96), attn.padding_bias(mask.long()), True,
+    mask = (torch.rand(UB, 96, generator=gen, device=dev) > 0.2) | keep
+    cases.append((f"{prefix}_update", *qkv(UB, 96, 96), attn.padding_bias(mask.long()), True,
                   "backward"))
-    cases.append(("gptj_update_left_pad", *qkv(8, 96, 96),
-                  attn.padding_bias(left(8, 48, 96, 16, 48, width=96).long()), True, "backward"))
-    # the reference scoring: all 128 rollouts under the causal flag
-    cases.append(("gptj_ref_scoring", *qkv(128, 96, 96),
-                  attn.padding_bias(left(128, 48, 96, 16, 48, width=96).long()), True, "forward"))
-    # phase 12: an admission prefill of 8 prompts, 512 columns over the
-    # 576-wide view, and a decode step of 32 slots at per-row depths
+    cases.append((f"{prefix}_update_left_pad", *qkv(UB, 96, 96),
+                  attn.padding_bias(left(UB, 48, 96, 16, 48, width=96).long()), True, "backward"))
+    # the reference scoring: all the rollouts under the causal flag
+    cases.append((f"{prefix}_ref_scoring", *qkv(RB, 96, 96),
+                  attn.padding_bias(left(RB, 48, 96, 16, 48, width=96).long()), True, "forward"))
+    # the serving phase: an admission prefill of 8 prompts, 512 columns over
+    # the 576-wide view, and a decode step of 32 slots at per-row depths
     bias = attn.causal_bias(512, 576, 0, dev) + attn.padding_bias(
         left(8, 512, 576, 16, 512).long())
-    cases.append(("gptj_serving_prefill", *qkv(8, 512, 576), bias, False, "forward"))
+    cases.append((f"{prefix}_serving_prefill", *qkv(8, 512, 576), bias, False, "forward"))
     depth = torch.randint(16, 576, (32,), generator=gen, device=dev)
     mask = (torch.arange(576, device=dev)[None] <= depth[:, None]).long()
     bias = attn.causal_bias(1, 576, depth, dev) + attn.padding_bias(mask)
-    cases.append(("gptj_serving_decode", *qkv(32, 1, 576), bias, False, "forward"))
+    cases.append((f"{prefix}_serving_decode", *qkv(32, 1, 576), bias, False, "forward"))
     # the edges, at 4 heads
     keep = torch.arange(141, device=dev)[None] < 4
     mask = (torch.rand(2, 141, generator=gen, device=dev) > 0.3) | keep
-    cases.append(("gptj_ragged", *qkv(2, 77, 141, 4), attn.padding_bias(mask.long()), False,
+    cases.append((f"{prefix}_ragged", *qkv(2, 77, 141, 4), attn.padding_bias(mask.long()), False,
                   "backward"))
     q, k, v = qkv(2, 130, 1024, 4)
     bias = 2 * torch.randn(2, 1, 130, 1024, generator=gen, device=dev)
-    cases.append(("gptj_long_k", 3 * q, k, v, bias, False, "backward"))
+    cases.append((f"{prefix}_long_k", 3 * q, k, v, bias, False, "backward"))
     keep = torch.arange(1024, device=dev)[None] < 4
     mask = (torch.rand(1, 1024, generator=gen, device=dev) > 0.2) | keep
-    cases.append(("gptj_long_causal", *qkv(1, 1024, 1024, 4), attn.padding_bias(mask.long()),
-                  True, "backward"))
-    cases.append(("gptj_small_q_causal", *qkv(2, 9, 130, 4), None, True, "backward"))
-    cases.append(("gptj_small_q_masked_rows", *qkv(2, 9, 130, 4),
+    cases.append((f"{prefix}_long_causal", *qkv(1, 1024, 1024, 4),
+                  attn.padding_bias(mask.long()), True, "backward"))
+    cases.append((f"{prefix}_small_q_causal", *qkv(2, 9, 130, 4), None, True, "backward"))
+    cases.append((f"{prefix}_small_q_masked_rows", *qkv(2, 9, 130, 4),
                   attn.padding_bias(small_q_masked_rows_mask(torch, 2, 130, dev)), True,
                   "backward"))
     # a learned [1, H, Q, K] bias under a padding bias: K2 with dbias
     table = 2 * torch.randn(1, 4, 130, 130, generator=gen, device=dev)
-    cases.append(("gptj_dbias", *qkv(2, 130, 130, 4),
+    cases.append((f"{prefix}_dbias", *qkv(2, 130, 130, 4),
                   table + attn.padding_bias(left(2, 130, 130, 64, 130).long()), False, "dbias"))
     return cases
+
+
+def gptj_kernel_cases(torch, attn):
+    """:func:`wide_kernel_cases` at GPT-J-6B's D = 256, H = 16
+    (configs/ppo_gptj.yml: 128 rollouts, batch 8)."""
+    return wide_kernel_cases(torch, attn, "gptj", GPTJ_D, GPTJ_HEADS, rollout_batch=128,
+                             update_batch=8, seed=30)
 
 
 def phase_gptj_kernels(torch, fa, attn):
@@ -3907,21 +3975,25 @@ def phase_gptj_kernels(torch, fa, attn):
 def relative_o_check(torch, fa, q, k, v, bias, causal, o, o_ref, dtype_name) -> dict:
     """K1's O held elementwise to ``O_REL_TOL`` of P|V| + |O_ref| (P|V|: the
     plain weights of :func:`visited_reference` times |V|, in f32), and two
-    planted faults held to break that bound: the last 64-column V atom left
-    out of P.V, and that atom's share of key tile 0 left out. Returns the
-    row's fields: max |dO| / bound for O and for each fault, and ``ok``
-    when O's is at most 1 and each fault's above 1."""
+    planted faults held to break that bound: the columns of V's last
+    64-column swizzle atom left out of P.V (192..255 at D = 256; at D = 96
+    the padded atom's real columns 64..95), and those columns' share of key
+    tile 0 left out. Returns the row's fields: max |dO| / bound for O and
+    for each fault, and ``ok`` when O's is at most 1 and each fault's above
+    1."""
     qf, kf, vf = q.float(), k.float(), v.float()
     o32, ref = o.float(), o_ref.float()
     tol = O_REL_TOL[dtype_name] * (
         visited_reference(torch, fa, qf, kf, vf.abs(), bias, causal)[0] + ref.abs())
     tol = tol.clamp_min(1e-30)
+    D = q.shape[-1]
+    last = slice((D - 1) // 64 * 64, D)  # the last atom's real columns
     atom = o32.clone()
-    atom[..., -64:] = 0
+    atom[..., last] = 0
     tile0 = vf.clone()
     tile0[:, fa.KEY_TILE:] = 0
     key_tile = o32.clone()
-    key_tile[..., -64:] -= visited_reference(torch, fa, qf, kf, tile0, bias, causal)[0][..., -64:]
+    key_tile[..., last] -= visited_reference(torch, fa, qf, kf, tile0, bias, causal)[0][..., last]
     over = {name: ((f - ref).abs() / tol).max().item()
             for name, f in (("o", o32), ("v_atom", atom), ("v_atom_key_tile_0", key_tile))}
     err_over = over.pop("o")
@@ -4095,24 +4167,40 @@ def gptj_model(torch, n_layer: int, dtype: str, seed: int):
 
 
 def phase_gptj_model(torch, fa):
-    """Phase 3 at D = 256: a full-width f32 GPT-J of ``GPTJ_CHECK_LAYERS``
-    blocks through the kernels against the plain attention. (a) the
+    """Phase 3 at D = 256: :func:`wide_model_checks` on a full-width f32
+    GPT-J of ``GPTJ_CHECK_LAYERS`` blocks, the gradient at the yml's B = 8."""
+    from trlx_tpu_torch.models import gptj
+
+    cfg, model = gptj_model(torch, GPTJ_CHECK_LAYERS, "float32", 40)
+    return wide_model_checks(torch, fa, gptj, cfg, model, "GPT-J", GPTJ_D, full_depth=28,
+                             grad_batch=8, seed=41)
+
+
+def wide_model_checks(torch, fa, family, cfg, model, label: str, D: int, full_depth: int,
+                      grad_batch: int, seed: int):
+    """Phase 3 for a rotary family at head dim ``D``: a full-width f32
+    ``model`` (blocks cut from ``full_depth``) through the kernels against
+    the plain attention (``family.dot_product_attention`` swapped). (a) the
     forward without a cache (left padding); (b) prefill into the paged
     cache (rotated block tables) and greedy decode steps at each row's
     rotary position, against the plain full forward of the whole sequence;
     (c) the gradient of a PPO loss on one minibatch of the yml's geometry
-    (B = 8, 48 + 48 columns), max relative error per parameter group, with
-    K2 = K3 = one ``fma`` launch per block. f32 and no TF32: 1e-3 leaves
-    room for summation order only."""
+    (``grad_batch`` rows, 48 + 48 columns), with K2 = K3 = one ``fma``
+    launch per block, held per parameter group (max |error| / max |value|)
+    against the gradient with the attention in f64
+    (:func:`attention_f64`): within 1e-3 or twice the plain f32 version's
+    own distance from it, whichever is larger. f32 and no TF32: at B = 8
+    the plain version lies within ~3e-6 of the f64 attention's gradient, so
+    the bound is 1e-3; at B = 32 f32 alone moves the embedding gradient by
+    ~5e-3 of its largest element (``PERF.md`` §6), and the kernels are
+    held to the precision f32 allows there."""
     from trlx_tpu_torch.inference.kv_cache import init_paged_cache
-    from trlx_tpu_torch.models import gptj
     from trlx_tpu_torch.ops.ppo_math import ppo_loss
     from trlx_tpu_torch.utils import logprobs_from_logits
 
     dev = "cuda"
-    cfg, model = gptj_model(torch, GPTJ_CHECK_LAYERS, "float32", 40)
     gen = torch.Generator(device=dev)
-    gen.manual_seed(41)
+    gen.manual_seed(seed)
     B, Q, R = 2, 96, 4
     ids = torch.randint(0, cfg.vocab_size, (B, Q), generator=gen, device=dev)
     mask = torch.ones_like(ids)
@@ -4121,26 +4209,29 @@ def phase_gptj_model(torch, fa):
     def plain(q, k, v, bias=None, causal=False, **kw):
         return fa.flash_attention_reference(q, k, v, bias, causal)
 
+    def f64(q, k, v, bias=None, causal=False, **kw):
+        return attention_f64(torch, q, k, v, bias, causal)
+
     def run(attention, fn, *args, **kw):
-        orig = gptj.dot_product_attention
-        gptj.dot_product_attention = attention
+        orig = family.dot_product_attention
+        family.dot_product_attention = attention
         try:
             return fn(*args, **kw)
         finally:
-            gptj.dot_product_attention = orig
+            family.dot_product_attention = orig
 
     def forward(attention, *args, **kw):
         with torch.no_grad():
             return run(attention, model, *args, **kw)
 
-    kernel = gptj.dot_product_attention
+    kernel = family.dot_product_attention
     launched = fa.FLASH_FWD_LAUNCHES
     out = forward(kernel, ids, attention_mask=mask)
     ref = forward(plain, ids, attention_mask=mask)
     real = mask.bool()
     err_fwd = max((out[key] - ref[key])[real].abs().max().item() for key in ("logits", "values"))
 
-    cache = init_paged_cache(cfg.n_layer, B, Q + R, cfg.n_head, GPTJ_D, torch.float32,
+    cache = init_paged_cache(cfg.n_layer, B, Q + R, cfg.n_head, D, torch.float32,
                              block_size=16, device=dev)
     nb = cache[0]["block_tables"].shape[1]
     cache[0]["block_tables"].copy_(torch.stack(
@@ -4163,13 +4254,13 @@ def phase_gptj_model(torch, fa):
     err_cache = max((steps[i] - full[:, Q - 1 + i]).abs().max().item() for i in range(R))
     launched = fa.FLASH_FWD_LAUNCHES - launched
     fwd_ok = err_fwd <= 1e-3 and err_cache <= 1e-3 and launched == cfg.n_layer * (1 + R)
-    log(f"phase 3: full-width f32 GPT-J ({cfg.n_layer} of 28 blocks, D={GPTJ_D}), kernel vs "
-        f"plain: forward max|d(logits, values)|={err_fwd:.3e}; paged prefill + {R - 1} decode "
-        f"steps vs plain full forward max|dlogits|={err_cache:.3e}; launches={launched} "
-        f"{'ok' if fwd_ok else 'FAIL'}")
+    log(f"phase 3: full-width f32 {label} ({cfg.n_layer} of {full_depth} blocks, D={D}), "
+        f"kernel vs plain: forward max|d(logits, values)|={err_fwd:.3e}; paged prefill + "
+        f"{R - 1} decode steps vs plain full forward max|dlogits|={err_cache:.3e}; "
+        f"launches={launched} {'ok' if fwd_ok else 'FAIL'}")
 
     # the PPO-loss gradient at the yml's geometry
-    B, Q, R = 8, 48, 48
+    B, Q, R = grad_batch, 48, 48
     lens = torch.randint(16, Q + 1, (B,), generator=gen, device=dev)
     q_mask = (torch.arange(Q, device=dev)[None] >= Q - lens[:, None]).long()
     q_ids = torch.randint(0, cfg.vocab_size, (B, Q), generator=gen, device=dev) * q_mask
@@ -4193,24 +4284,49 @@ def phase_gptj_model(torch, fa):
     kgrads = grads_with(kernel)
     after = backward_variant_launches(fa)
     launches = {k: {v: after[k][v] - before[k][v] for v in BWD_VARIANTS} for k in BWD_KERNELS}
-    rgrads = grads_with(plain)
-    groups = {}
-    for (name, _), g, r in zip(model.named_parameters(), kgrads, rgrads):
-        group = ("value head" if name.startswith("v_head") else
-                 "embeddings" if ".wte." in name else
-                 "lm head" if ".lm_head." in name else
-                 "layer norms" if ".ln_" in name else
-                 "attention" if ".attn." in name else "mlp")
-        err, top = groups.get(group, (0.0, 0.0))
-        groups[group] = (max(err, (g - r).abs().max().item()), max(top, r.abs().max().item()))
-    rel = {k: err / max(top, 1e-30) for k, (err, top) in groups.items()}
-    grad_ok = all(math.isfinite(v) and v <= 1e-3 for v in rel.values()) and launches == {
-        k: {"tile": 0, "fma": cfg.n_layer} for k in BWD_KERNELS}
-    log("phase 3: full-width f32 GPT-J PPO-loss gradient (B=8, 48 + 48), kernels vs plain "
-        "attention: max relative error per group " + json.dumps(rel)
+    rgrads, f64grads = grads_with(plain), grads_with(f64)
+
+    def rel(got, want):
+        """max |error| / max |value| per parameter group"""
+        groups = {}
+        for (name, _), g, r in zip(model.named_parameters(), got, want):
+            group = ("value head" if name.startswith("v_head") else
+                     "embeddings" if ".wte." in name else
+                     "lm head" if ".lm_head." in name else
+                     "layer norms" if ".ln_" in name else
+                     "attention" if ".attn." in name else "mlp")
+            err, top = groups.get(group, (0.0, 0.0))
+            groups[group] = (max(err, (g - r).abs().max().item()),
+                             max(top, r.abs().max().item()))
+        return {k: err / max(top, 1e-30) for k, (err, top) in groups.items()}
+
+    kernel_rel, plain_rel, kernel_vs_plain = (
+        rel(kgrads, f64grads), rel(rgrads, f64grads), rel(kgrads, rgrads))
+    bound = {k: max(1e-3, 2 * v) for k, v in plain_rel.items()}
+    grad_ok = all(math.isfinite(v) and v <= bound[k] for k, v in kernel_rel.items()) and (
+        launches == {k: {"tile": 0, "fma": cfg.n_layer} for k in BWD_KERNELS})
+    log(f"phase 3: full-width f32 {label} PPO-loss gradient (B={B}, 48 + 48), max relative "
+        "error per group against the f64 attention's gradient: kernels "
+        + json.dumps(kernel_rel) + ", plain f32 attention " + json.dumps(plain_rel)
+        + " (kernels vs plain " + json.dumps(kernel_vs_plain) + "), bound max(1e-3, 2 x plain)"
         + f"; K2/K3 launches by variant {json.dumps(launches)} {'ok' if grad_ok else 'FAIL'}")
-    del model, kgrads, rgrads, params
+    del model, kgrads, rgrads, f64grads, params
     return fwd_ok and grad_ok
+
+
+def attention_f64(torch, q, k, v, bias=None, causal=False):
+    """Attention in f64 (softmax(QK^T s + bias + causal mask) V, the
+    output cast back to q's dtype): phase 3's yardstick for the gradient
+    of a model around f32 attention."""
+    Q, K = q.shape[1], k.shape[1]
+    from trlx_tpu_torch.ops.attention import causal_bias
+
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * q.shape[-1] ** -0.5
+    if bias is not None:
+        logits = logits + bias.double()
+    if causal:
+        logits = logits + causal_bias(Q, K, device=q.device).double()
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v.double()).to(q.dtype)
 
 
 def gptj_hf_layout(state: dict) -> dict:
@@ -4455,7 +4571,7 @@ def phase_gptj_training(torch, fa):
         fresh = PPOTrainer(gptj_training_config(tmp))
         fresh.load(tmp)
         load_s = time.perf_counter() - t0
-        restored = restores(torch, trainer, fresh, watch["saved_rng"])
+        restored = restores(torch, trainer_state(trainer), fresh, watch["saved_rng"])
         del fresh
     record.update({
         "model": "GPT-J-6B widths, 28 blocks, bf16 over f32 masters",
@@ -4498,37 +4614,461 @@ def phase_gptj_training(torch, fa):
     return ok, record
 
 
-def gptj_kernel_entries(build, fwd_checks, bwd_checks, fwd_timed, bwd_timed, paths) -> list:
-    """The ``kernels`` line's entries of the head-dim-256 instantiations:
-    K1 (timed at phase 12's decode step, every GPT-J path shape beside it),
-    K2 and K3 (timed at the update backward, K2 with dbias inside K2's
-    entry), their launches on phases 12 and 13 counted on their own."""
+# ---------------------------------------------------------------------------
+# GPT-NeoX-20B (configs/ppo_neox20b.yml): the head-dim-96 instantiations, the
+# model, serving (phase 14) and PPO (phase 15)
+# ---------------------------------------------------------------------------
+
+NEOX_ARCH = {  # EleutherAI/gpt-neox-20b's config.json (configs/ppo_neox20b.yml's model)
+    "vocab_size": 50432, "max_position_embeddings": 2048, "hidden_size": 6144,
+    "num_hidden_layers": 44, "num_attention_heads": 64, "rotary_pct": 0.25,
+    "rotary_emb_base": 10000, "use_parallel_residual": True, "layer_norm_eps": 1e-5,
+}
+NEOX_HF_CONFIG = {  # as its HF config.json names it
+    "model_type": "gpt_neox", "architectures": ["GPTNeoXForCausalLM"], **NEOX_ARCH,
+    "intermediate_size": 24576, "hidden_act": "gelu", "tie_word_embeddings": False,
+    "bos_token_id": 0, "eos_token_id": 0,
+}
+NEOX_HEADS, NEOX_D = 64, 96
+NEOX_EOS = 0  # the 20B tokenizer's <|endoftext|>, also its pad
+NEOX_CHECK_LAYERS = 2  # phase 3's cut depth and the HF checkpoint's (full width)
+NEOX_TRAIN_LAYERS = 12  # phase 15's cut depth (44 blocks of f32 masters are 79.7 GB)
+NEOX_UPDATES = 16  # two PPO phases: 64 rollouts / batch 32 x 4 epochs each
+#: the hydra reference of phase 15: blocks 10-11, wte, ln_f and lm_head
+NEOX_REFERENCE_PARAMETERS = 1_525_850_112
+# what phase 15 runs differently from configs/ppo_neox20b.yml: (setting,
+# the yml's value, the port's, why)
+NEOX_DEVIATIONS = (
+    ("train.mesh", {"dp": -1, "fsdp": 8, "tp": 4}, {"dp": -1, "fsdp": 1, "tp": 1},
+     "the port runs on one device; fsdp and tensor parallelism are ROADMAP item 14"),
+    ("model.model_arch.num_hidden_layers", 44, NEOX_TRAIN_LAYERS, "one card: f32 masters of "
+     "44 blocks alone are 79.7 GB; 12 blocks at full width are 24.2 GB"),
+    ("model.model_path", "EleutherAI/gpt-neox-20b", "", "the checkpoint is not in the repo: "
+     "random weights from train.seed at its widths"),
+    ("model.tokenizer_path", "EleutherAI/gpt-neox-20b", "", "no tokenizer in the repo: "
+     "int-list prompts and a host reward on the ids"),
+    ("train.total_steps", 6000, NEOX_UPDATES, "the smoke's time limit: two PPO phases"),
+    ("train.eval_interval", 100, NEOX_UPDATES, "one eval, at the end"),
+    ("train.checkpoint_interval", 10000, NEOX_UPDATES, "one checkpoint, at the end"),
+)
+# K1 at NeoX's path shapes, timed in bf16 (neox_kernel_cases names)
+NEOX_TIMED = ("neox_rollout_prefill", "neox_rollout_decode", "neox_update",
+              "neox_ref_scoring", "neox_serving_prefill", "neox_serving_decode")
+# the per-layer buffers older GPT-NeoX checkpoints carry (not weights)
+NEOX_OLD_BUFFERS = ("attention.bias", "attention.masked_bias", "attention.rotary_emb.inv_freq")
+
+
+def neox_kernel_cases(torch, attn):
+    """:func:`wide_kernel_cases` at GPT-NeoX-20B's D = 96, H = 64
+    (configs/ppo_neox20b.yml: 64 rollouts, batch 32)."""
+    return wide_kernel_cases(torch, attn, "neox", NEOX_D, NEOX_HEADS, rollout_batch=64,
+                             update_batch=32, seed=50)
+
+
+def phase_neox_kernels(torch, fa, attn):
+    """Phase 2 at D = 96 (:func:`hold_and_time` over
+    :func:`neox_kernel_cases`): K1, K2 (with and without dbias) and K3 in
+    bf16 and f32, O held relative to P|V| + |O| with the planted faults
+    aimed at the padded atom's real columns 64..95; timed in bf16, K1 at
+    ``NEOX_TIMED``, K2 and K3 at the update and K2 with dbias at its
+    case."""
+    return hold_and_time(torch, fa, attn, neox_kernel_cases(torch, attn),
+                         fwd_timed=NEOX_TIMED, bwd_timed=("neox_update", "neox_dbias"),
+                         relative_o=True)
+
+
+def neox_model(torch, n_layer: int, dtype: str, seed: int):
+    """A GPT-NeoX-20B-wide policy (value head included) of ``n_layer`` blocks
+    on the card, random weights from ``seed``."""
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+    from trlx_tpu_torch.models.neox import NeoXConfig, NeoXModel
+
+    cfg = NeoXConfig(**dict(NEOX_ARCH, num_hidden_layers=n_layer), dtype=dtype)
+    model = CausalLMWithValueHead(cfg, NeoXModel, device="cuda")
+    init_params(model, seed)
+    return cfg, model
+
+
+def phase_neox_model(torch, fa):
+    """Phase 3 at D = 96: :func:`wide_model_checks` on a full-width f32
+    GPT-NeoX of ``NEOX_CHECK_LAYERS`` blocks (64 heads of 96, rotary on 24,
+    parallel residual), the gradient at the yml's B = 32."""
+    from trlx_tpu_torch.models import neox
+
+    cfg, model = neox_model(torch, NEOX_CHECK_LAYERS, "float32", 50)
+    return wide_model_checks(torch, fa, neox, cfg, model, "GPT-NeoX", NEOX_D, full_depth=44,
+                             grad_batch=32, seed=51)
+
+
+# the port's NeoXModel names -> HF GPTNeoXForCausalLM's (no transposes: both
+# store [out, in]; the fused query_key_value keeps its head-major layout)
+NEOX_HF_NAMES = (
+    (r"^h\.(\d+)\.ln_1\.", r"gpt_neox.layers.\1.input_layernorm."),
+    (r"^h\.(\d+)\.ln_2\.", r"gpt_neox.layers.\1.post_attention_layernorm."),
+    (r"^h\.(\d+)\.attn\.", r"gpt_neox.layers.\1.attention."),
+    (r"^h\.(\d+)\.mlp\.", r"gpt_neox.layers.\1.mlp."),
+    (r"^wte\.", "gpt_neox.embed_in."),
+    (r"^ln_f\.", "gpt_neox.final_layer_norm."),
+    (r"^lm_head\.", "embed_out."),
+)
+
+
+def neox_hf_layout(torch, state: dict, n_layer: int) -> dict:
+    """The port's ``NeoXModel`` state dict in HF ``GPTNeoXForCausalLM``'s
+    layout, with the three per-layer buffers of older checkpoints (the
+    causal mask ``attention.bias``, ``attention.masked_bias`` and the
+    rotary table ``attention.rotary_emb.inv_freq``), which are not weights."""
+    out = {}
+    for name, t in state.items():
+        hf = name
+        for pattern, repl in NEOX_HF_NAMES:
+            hf = re.sub(pattern, repl, hf)
+        out[hf] = t
+    positions, rd = NEOX_ARCH["max_position_embeddings"], int(NEOX_D * NEOX_ARCH["rotary_pct"])
+    for i in range(n_layer):
+        pre = f"gpt_neox.layers.{i}."
+        out[pre + "attention.bias"] = torch.tril(
+            torch.ones(positions, positions, dtype=torch.bool))[None, None]
+        out[pre + "attention.masked_bias"] = torch.tensor(-1e9)
+        out[pre + "attention.rotary_emb.inv_freq"] = 1.0 / 10000 ** (
+            torch.arange(0, rd, 2, dtype=torch.float32) / rd)
+    return out
+
+
+def phase_neox_checkpoint(torch):
+    """A GPT-NeoX checkpoint in HF layout at full width and
+    ``NEOX_CHECK_LAYERS`` blocks (random weights from a seed, ``config.json``
+    + ``model.safetensors``: ``gpt_neox.`` names, the fused
+    ``query_key_value`` [3 H Dh, E], ``embed_out.weight`` and the three
+    buffers of older checkpoints), loaded through ``model.model_path`` by
+    the PPO trainer on ``configs/ppo_neox20b.yml`` (its mesh set to one
+    device): the loaded backbone must equal the written tensors bit for
+    bit."""
+    import tempfile
+
+    from trlx_tpu_torch.models.neox import NeoXConfig, NeoXModel
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    hf_config = dict(NEOX_HF_CONFIG, num_hidden_layers=NEOX_CHECK_LAYERS)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "neox")
+        t0 = time.perf_counter()
+        written = random_backbone(
+            torch, NeoXModel(NeoXConfig.from_dict(hf_config), device="cuda"), seed=52)
+        layout = neox_hf_layout(torch, written, NEOX_CHECK_LAYERS)
+        write_hf_checkpoint(ckpt, hf_config, layout)
+        write_s = time.perf_counter() - t0
+        config = yml_config("ppo_neox20b.yml", os.path.join(tmp, "run"), ckpt, NEOX_UPDATES,
+                            train={"mesh": {"dp": -1, "fsdp": 1, "tp": 1}})
+        t0 = time.perf_counter()
+        trainer = PPOTrainer(config)
+        load_s = time.perf_counter() - t0
+        equal = state_equal(torch, trainer.model.transformer, written)
+        names = sorted(layout)
+        qkv = tuple(layout["gpt_neox.layers.0.attention.query_key_value.weight"].shape)
+        del trainer
+    buffers = [n for n in names if n.endswith(NEOX_OLD_BUFFERS)]
+    ok = (equal and "embed_out.weight" in names and len(buffers) == 3 * NEOX_CHECK_LAYERS
+          and qkv == (3 * NEOX_ARCH["hidden_size"], NEOX_ARCH["hidden_size"])
+          and all(n.startswith(("gpt_neox.", "embed_out.")) for n in names))
+    log(f"phase 3: GPT-NeoX checkpoint in HF layout ({NEOX_CHECK_LAYERS} blocks at full width, "
+        f"{len(names)} tensors, gpt_neox. names, query_key_value {list(qkv)}, embed_out, "
+        f"{len(buffers)} buffers of older checkpoints; written in {write_s:.1f} s, trainer built "
+        f"and loaded in {load_s:.1f} s): loaded backbone equals the written tensors bit for "
+        f"bit: {equal} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def neox_serving_config():
+    """GPT-NeoX-20B at full width and depth, built and served in bf16
+    (``dtype`` and ``param_dtype``), with phase 4's engine geometry (random
+    weights from a seed)."""
+    cfg = serving_config()
+    cfg["model"]["model_type"] = "gpt_neox"
+    cfg["model"]["model_arch"] = dict(NEOX_ARCH, dtype="bfloat16", param_dtype="bfloat16")
+    cfg["method"]["gen_kwargs"].update(eos_token_id=NEOX_EOS, pad_token_id=NEOX_EOS)
+    return cfg
+
+
+#: what the earlier phases may leave allocated on the card before phase
+#: 14's 61 GB build (the cached libraries' buffers, no model)
+NEOX_START_ALLOCATED_MAX = 1 << 30
+
+
+def phase_neox_serving(torch, fa):
+    """Phase 14: ``InferenceServer`` on GPT-NeoX-20B (full width, 44 blocks,
+    64 heads of 96, rotary on 24, parallel residual; random weights from a
+    seed), built in bf16 on the card directly, over the continuous engine
+    and the paged cache, serving phase 4's 64 prompts with 64 new tokens, 32
+    slots, admit/harvest 8. Gates: the card near empty before the build
+    (``NEOX_START_ALLOCATED_MAX``); every parameter bf16 but the value
+    head's last layer; 64/64 complete with finite logprobs and values; K1
+    ``tile`` = 44 x prefill forwards, ``decode`` = 44 x decode steps, all
+    at D = 96; 0 ``fma`` launches, input copies and plain calls. Prints
+    tokens/s, TTFT p50/p95, the build's peak and serving's."""
+    import numpy as np
+
+    from trlx_tpu_torch.inference.server import InferenceServer
+
+    mem_start = reset_peak(torch)
+    t0 = time.perf_counter()
+    server = InferenceServer(neox_serving_config(), seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    build_peak = torch.cuda.max_memory_allocated()
+    dtypes = {str(p.dtype) for n, p in server.model.named_parameters()
+              if not n.startswith("v_head.fc2.")}
+    weights = sum(p.numel() * p.element_size() for p in server.model.parameters())
+    prompts = serving_prompts()
+    (rids, results, wall), record = counted_path(torch, fa, lambda: serve(torch, server, prompts))
+    stats = server.stats()
+    cfg = server.model_config
+    n_layer = cfg.n_layer
+    expected_variants = {
+        "tile": n_layer * int(stats["engine/prefills"]),
+        "decode": n_layer * int(stats["engine/decode_steps"]),
+        "fma": 0, "copies": 0,
+    }
+    lengths = [results[r]["length"] for r in rids]
+    finite = all(np.isfinite(results[r]["logprobs"]).all()
+                 and np.isfinite(results[r]["values"]).all() for r in rids)
+    ttft = sorted(results[r]["timing"]["ttft_ms"] for r in rids)
+    tokens = int(sum(lengths))
+    record.update({
+        "model": "GPT-NeoX-20B widths, 44 blocks, built and served in bf16",
+        "build_s": build_s, "parameter_dtypes": sorted(dtypes), "weight_bytes": weights,
+        "requests": len(rids), "generated_tokens": tokens, "serve_wall_s": wall,
+        "tokens_per_s": tokens / wall,
+        "ttft_ms_p50": float(np.percentile(ttft, 50)),
+        "ttft_ms_p95": float(np.percentile(ttft, 95)),
+        "server_allocated_bytes": torch.cuda.memory_allocated(),
+        "allocated_before_server_bytes": mem_start, "build_peak_bytes": build_peak,
+        "peak_from_clean_start_bytes": max(build_peak, record["max_memory_allocated_bytes"]),
+        "expected_variants": expected_variants, "stats": stats,
+    })
+    log("phase 14: GPT-NeoX-20B serving " + json.dumps(record))
+    ok = (mem_start <= NEOX_START_ALLOCATED_MAX and dtypes == {"torch.bfloat16"}
+          and len(results) == 64 and min(lengths) >= 1 and finite and n_layer == 44
+          and cfg.head_dim == NEOX_D and cfg.rotary_dim == 24
+          and record["flash_fwd_variants"] == expected_variants
+          and record["launches"]["flash_fwd"] == expected_variants["tile"]
+          + expected_variants["decode"]
+          and record["plain_attention_calls"] == 0)
+    log(f"phase 14: {'ok' if ok else 'FAIL'} (allocated before the build {mem_start} B, "
+        f"parameter dtypes {sorted(dtypes)} but v_head.fc2, {weights} B of weights; "
+        f"complete={len(results)}/64, min length={min(lengths)}, finite={finite}, K1 by variant "
+        f"{record['flash_fwd_variants']} vs {expected_variants}, plain attention calls="
+        f"{record['plain_attention_calls']}; {record['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{record['ttft_ms_p50']:.0f} ms, p95 {record['ttft_ms_p95']:.0f} ms; the build's peak "
+        f"{build_peak} B in {build_s:.1f} s, serving's {record['max_memory_allocated_bytes']} B)")
+    del server
+    return ok, record
+
+
+def neox_training_config(checkpoint_dir: str):
+    """``configs/ppo_neox20b.yml`` with ``NEOX_DEVIATIONS``, at
+    GPT-NeoX-20B's widths cut to ``NEOX_TRAIN_LAYERS`` blocks."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", "ppo_neox20b.yml")).to_dict()
+    cfg["model"].update(model_path="", tokenizer_path="", model_arch=dict(
+        NEOX_ARCH, num_hidden_layers=NEOX_TRAIN_LAYERS))
+    cfg["train"].update(mesh={"dp": -1, "fsdp": 1, "tp": 1}, total_steps=NEOX_UPDATES,
+                        eval_interval=NEOX_UPDATES, checkpoint_interval=NEOX_UPDATES,
+                        checkpoint_dir=checkpoint_dir)
+    cfg["method"]["gen_kwargs"].update(eos_token_id=NEOX_EOS, pad_token_id=NEOX_EOS)
+    return TRLConfig.from_dict(cfg)
+
+
+def neox_prompts(seed: int = 6):
+    """128 int-list prompts, real lengths drawn from 16..48 (ids past the
+    20B tokenizer's <|endoftext|>, 0)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return [[int(x) for x in rng.integers(1, 50277, int(rng.integers(16, 49)))]
+            for _ in range(128)]
+
+
+def phase_neox_training(torch, fa):
+    """Phase 15: ``trlx_tpu_torch.train`` on ``configs/ppo_neox20b.yml``
+    with ``NEOX_DEVIATIONS`` (GPT-NeoX-20B widths cut to 12 blocks, random
+    weights from the seed, bf16 over f32 masters, the 2-block hydra
+    reference, the bottom 10 blocks and ``wte`` frozen), 128 int-list
+    prompts of 16..48 tokens, two PPO phases (16 updates). Gates: every
+    stat finite; the top 2 blocks, ``ln_f``, ``lm_head`` and the value head
+    moved; the bottom 10 blocks and ``wte`` bit-identical after training;
+    the reference holds blocks 10-11, ``wte``, ``ln_f`` and ``lm_head``
+    and no other block, ``NEOX_REFERENCE_PARAMETERS`` parameters; K1
+    ``tile`` = 12 x the forwards that are not decode steps (a reference
+    scoring: 10 trunk + 2 branch blocks), ``decode`` = 12 x the decode
+    steps; K2 = K3 = 2 x the updates, all ``tile``; no ``fma`` launch,
+    input copy or plain call; a fresh trainer's ``load`` restores the saved
+    state exactly (held against a host copy: two such trainers do not fit
+    the card together). Prints the wall with the checkpoint write timed
+    apart, the collect and train seconds, rollout tokens/s, updates/s and
+    the peak."""
+    import tempfile
+
+    import numpy as np
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    log("phase 15: configs/ppo_neox20b.yml; deviations: " + json.dumps([
+        {"setting": k, "yml": y, "port": p, "why": why} for k, y, p, why in NEOX_DEVIATIONS]))
+    watch, decode_forwards, scoring_tiles, save_s = {}, [0], [], []
+    initial, reference = {}, {}
+    orig = {n: getattr(PPOTrainer, n) for n in ("_apply", "score_ref", "save", "learn")}
+
+    def apply(self, input_ids, *a, **kw):
+        decode_forwards[0] += input_ids.shape[1] <= 16  # the sampler's steps
+        return orig["_apply"](self, input_ids, *a, **kw)
+
+    def score_ref(self, *a, **kw):
+        before = fa.FLASH_FWD_TILE_LAUNCHES
+        out = orig["score_ref"](self, *a, **kw)
+        scoring_tiles.append(fa.FLASH_FWD_TILE_LAUNCHES - before)
+        return out
+
+    def save(self, directory=None):
+        watch["saved_rng"].append(self.generator.get_state())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig["save"](self, directory)
+        save_s.append(time.perf_counter() - t0)
+        return out
+
+    def learn(self):
+        initial.update({n: p.detach().to("cpu", copy=True)
+                        for n, p in self.model.state_dict().items()})
+        reference.update(
+            names=sorted(self.ref.state_dict()),
+            parameters=sum(p.numel() for p in self.ref.parameters()),
+            full_parameters=sum(p.numel() for p in self.model.transformer.parameters()))
+        return orig["learn"](self)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = neox_training_config(tmp)
+        patches = [p for p in instrument(torch, PPOTrainer, "transformer", {}, watch)
+                   if p[1] not in ("learn", "save")] + [
+            (PPOTrainer, "_apply", apply), (PPOTrainer, "score_ref", score_ref),
+            (PPOTrainer, "save", save), (PPOTrainer, "learn", learn)]
+        trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
+            reward_fn=training_reward, prompts=neox_prompts(), config=config), patches)
+        n_layer, updates = trainer.model_config.n_layer, trainer.step
+        branch = trainer.branch_start
+        final = trainer.model.state_dict()
+        moved = {n: not torch.equal(final[n].cpu(), initial[n]) for n in final}
+        initial.clear()
+
+        def block(name):
+            m = re.match(r"transformer\.h\.(\d+)\.", name)
+            return int(m.group(1)) if m else None
+
+        frozen = [n for n in moved if n.startswith("transformer.wte.")
+                  or (block(n) is not None and block(n) < branch)]
+        top = [n for n in moved if n not in frozen]
+        finite = all(np.isfinite(v).all() for r in watch["rows"] for v in r.values()) and all(
+            math.isfinite(v) for e in watch["evals"] for v in e.values())
+        ref_blocks = sorted({int(n.split(".")[1]) for n in reference["names"]
+                             if n.startswith("h.")})
+        ref_parts = sorted({n.split(".")[0] for n in reference["names"]})
+        expected_variants = {
+            "tile": n_layer * (trainer.forwards - decode_forwards[0]),
+            "decode": n_layer * decode_forwards[0], "fma": 0, "copies": 0,
+        }
+        expected_bwd = {k: {"tile": 2 * updates, "fma": 0} for k in BWD_KERNELS}
+        phases = phase_rows(trainer)
+        forwards = trainer.forwards
+        # a fresh trainer restores the saved state, held against a host copy
+        # of this one's: two 12-block trainers do not fit the card together
+        saved = trainer_state(trainer, "cpu")
+        del trainer, final
+        reset_peak(torch)
+        t0 = time.perf_counter()
+        fresh = PPOTrainer(neox_training_config(tmp))
+        fresh.load(tmp)
+        load_s = time.perf_counter() - t0
+        restored = restores(torch, saved, fresh, watch["saved_rng"])
+        del fresh, saved
+    record.update({
+        "model": "GPT-NeoX-20B widths, 12 of 44 blocks, bf16 over f32 masters",
+        "updates": updates, "phases": phases, "evals": watch["evals"],
+        "checkpoint_write_s": save_s, "wall_without_checkpoint_s":
+            record["wall_s"] - sum(save_s), "checkpoint_load_s": load_s,
+        "reference": {"blocks": ref_blocks, "parts": ref_parts,
+                      "parameters": reference["parameters"],
+                      "full_copy_parameters": reference["full_parameters"]},
+        "k1_tile_per_reference_scoring": scoring_tiles,
+        "forwards": forwards, "decode_forwards": decode_forwards[0],
+        "expected_variants": expected_variants, "expected_backward_variants": expected_bwd,
+        "frozen_tensors": len(frozen), "frozen_bit_identical": not any(moved[n] for n in frozen),
+        "top_tensors": len(top), "top_moved": all(moved[n] for n in top),
+        "finite": finite, "load_restores": restored,
+    })
+    log("phase 15: GPT-NeoX PPO " + json.dumps(record))
+    ok = (
+        updates == NEOX_UPDATES and len(watch["rows"]) == 2 and finite
+        and n_layer == NEOX_TRAIN_LAYERS and branch == NEOX_TRAIN_LAYERS - 2
+        and ref_blocks == [NEOX_TRAIN_LAYERS - 2, NEOX_TRAIN_LAYERS - 1]
+        and ref_parts == ["h", "lm_head", "ln_f", "wte"]
+        and reference["parameters"] == NEOX_REFERENCE_PARAMETERS
+        and record["frozen_bit_identical"] and record["top_moved"]
+        and all(n == n_layer for n in scoring_tiles) and len(scoring_tiles) == 2
+        and record["flash_fwd_variants"] == expected_variants
+        and record["backward_variants"] == expected_bwd and record["backward_copies"] == 0
+        and record["plain_attention_calls"] == 0 and restored
+    )
+    log(f"phase 15: {'ok' if ok else 'FAIL'} (updates={updates}, phases={len(watch['rows'])}, "
+        f"finite={finite}; reference blocks {ref_blocks} and {ref_parts}, "
+        f"{reference['parameters']} parameters against the full copy's "
+        f"{reference['full_parameters']}; frozen {len(frozen)} tensors bit-identical: "
+        f"{record['frozen_bit_identical']}, top {len(top)} tensors moved: {record['top_moved']}; "
+        f"K1 tile per reference scoring {scoring_tiles}; K1 by variant "
+        f"{record['flash_fwd_variants']} vs {expected_variants}; K2/K3 by variant "
+        f"{record['backward_variants']} vs {expected_bwd}; backward copies "
+        f"{record['backward_copies']}; plain attention calls {record['plain_attention_calls']}; "
+        f"load restores {restored}; wall {record['wall_s']:.1f} s of which checkpoint write "
+        f"{sum(save_s):.1f} s; peak {record['max_memory_allocated_bytes']} B)")
+    return ok, record
+
+
+def wide_kernel_entries(prefix: str, suffix: str, label: str, timed_shapes, build, fwd_checks,
+                        bwd_checks, fwd_timed, bwd_timed, paths) -> list:
+    """The ``kernels`` line's entries of one head dim's instantiations
+    (``suffix``: "_d256", "_d96"): K1 (timed at the serving decode step,
+    every path shape of ``timed_shapes`` beside it), K2 and K3 (timed at the
+    update backward, K2 with dbias inside K2's entry), their launches on
+    ``paths`` (that head dim's serving and training phases) counted on
+    their own."""
     def fwd(shape):
         return {k: fwd_timed[(shape, "bfloat16")][k] for k in (
             "shape", "variant", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")}
 
-    decode = fwd("gptj_serving_decode")
+    decode = fwd(f"{prefix}_serving_decode")
     k1_spills = [build[k]["spill_bytes"] for k in GATED_KERNELS["flash_fwd"]
-                 if k.endswith("_d256")]
+                 if k.endswith(suffix)]
     entries = [{
-        "name": "flash_fwd_d256", "route": "cuda", "source": SOURCES["flash_fwd"],
+        "name": "flash_fwd" + suffix, "route": "cuda", "source": SOURCES["flash_fwd"],
         "replaces": REPLACES["flash_fwd"],
         "launches": sum(r["launches"]["flash_fwd"] for r in paths.values()),
         "launches_by_path": {n: r["launches"]["flash_fwd"] for n, r in paths.items()},
         "launches_by_variant": {n: r["flash_fwd_variants"] for n, r in paths.items()},
         "max_abs_err": max(c["max_abs_err_o"] for c in fwd_checks),
         **{k: decode[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "timed_shape": "GPT-J serving decode bf16 " + decode["shape"],
-        "shapes": {shape: fwd(shape) for shape in GPTJ_TIMED},
+        "timed_shape": f"{label} serving decode bf16 " + decode["shape"],
+        "shapes": {shape: fwd(shape) for shape in timed_shapes},
         "tile_tensor_core_instructions":
-            build["flash_fwd_tile_kernel_d256"]["tensor_core_instructions"],
+            build["flash_fwd_tile_kernel" + suffix]["tensor_core_instructions"],
         "k1_spill_bytes": None if None in k1_spills else sum(k1_spills),
     }]
     for name, outputs in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
-        row = bwd_timed[("gptj_update", name)]
+        row = bwd_timed[(f"{prefix}_update", name)]
         entry = {
-            "name": name + "_d256", "route": "cuda", "source": SOURCES[name],
+            "name": name + suffix, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
             "launches": sum(r["launches"][name] for r in paths.values()),
             "launches_by_path": {n: r["launches"][name] for n, r in paths.items()},
@@ -4536,18 +5076,18 @@ def gptj_kernel_entries(build, fwd_checks, bwd_checks, fwd_timed, bwd_timed, pat
             "max_abs_err": max(c[f"max_abs_err_{o}"] for c in bwd_checks for o in outputs),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                    "variant", "wrapper_ms")},
-            "timed_shape": "GPT-J update bf16 " + row["shape"],
-            **{k: build[f"{name}_tile_kernel_d256"][k] for k in (
+            "timed_shape": f"{label} update bf16 " + row["shape"],
+            **{k: build[f"{name}_tile_kernel{suffix}"][k] for k in (
                 "spill_bytes", "registers", "tensor_core_instructions")},
         }
         if name == "flash_bwd_dq":  # the bias-gradient instantiation, held and timed
-            dbias = bwd_timed[("gptj_dbias", name)]
+            dbias = bwd_timed[(f"{prefix}_dbias", name)]
             entry["dbias"] = {
                 **{k: dbias[k] for k in ("shape", "ms", "wrapper_ms", "plain_ms",
                                          "library_ms", "bound_ms", "bound_by")},
                 "max_abs_err": max(c["max_abs_err_dbias"] for c in bwd_checks
                                    if "max_abs_err_dbias" in c),
-                **{k: build["flash_bwd_dq_tile_kernel_dbias_d256"][k] for k in (
+                **{k: build["flash_bwd_dq_tile_kernel_dbias" + suffix][k] for k in (
                     "spill_bytes", "registers", "tensor_core_instructions")},
             }
         entries.append(entry)
@@ -4588,16 +5128,21 @@ def main() -> int:
     t5_fwd_checks, t5_bwd_checks, t5_timed, t5_bwd_timed = phase_t5_kernels(torch, fa, attn)
     gptj_fwd_checks, gptj_bwd_checks, gptj_timed, gptj_bwd_timed = phase_gptj_kernels(
         torch, fa, attn)
+    neox_fwd_checks, neox_bwd_checks, neox_timed, neox_bwd_timed = phase_neox_kernels(
+        torch, fa, attn)
     fwd_checks += train_fwd_checks + t5_fwd_checks
     bwd_checks += t5_bwd_checks
     timed.update(train_timed)
     timed.update(t5_timed)
     timed.update(gptj_timed)
+    timed.update(neox_timed)
     kernel_ok = all(c["ok"] for c in fwd_checks + bwd_checks + gptj_fwd_checks
-                    + gptj_bwd_checks) and all(row["packed_ok"] for row in timed.values())
+                    + gptj_bwd_checks + neox_fwd_checks + neox_bwd_checks) and all(
+        row["packed_ok"] for row in timed.values())
     model_ok = (phase_model(torch, fa) & phase_model_backward(torch, fa)
                 & phase_t5_model_backward(torch, fa) & phase_logprob_chunk(torch)
-                & phase_gptj_model(torch, fa) & phase_gptj_checkpoint(torch))
+                & phase_gptj_model(torch, fa) & phase_gptj_checkpoint(torch)
+                & phase_neox_model(torch, fa) & phase_neox_checkpoint(torch))
     serving_ok, serving = phase_serving(torch, fa)
     training_ok, training = phase_training(torch, fa)
     seq2seq_ok, seq2seq = phase_t5_training(torch, fa)
@@ -4617,8 +5162,12 @@ def main() -> int:
     tier_ok, tier = phase_serving_tier(torch, fa)
     gptj_serving_ok, gptj_serving = phase_gptj_serving(torch, fa)
     gptj_training_ok, gptj_training = phase_gptj_training(torch, fa)
-    # the head-dim-256 paths (phases 12 and 13), counted on their own
+    neox_serving_ok, neox_serving = phase_neox_serving(torch, fa)
+    neox_training_ok, neox_training = phase_neox_training(torch, fa)
+    # the head-dim-256 paths (phases 12 and 13) and the head-dim-96 paths
+    # (phases 14 and 15), counted on their own
     gptj_paths = {"gptj_serving": gptj_serving, "gptj_training": gptj_training}
+    neox_paths = {"neox_serving": neox_serving, "neox_training": neox_training}
     # the paths of phases 9 to 11, each counted on its own
     new_paths = {"grpo": grpo["causal"], "grpo_seq2seq": grpo["seq2seq"],
                  "continuous_engine": continuous, "continuous_engine_features": features,
@@ -4740,8 +5289,11 @@ def main() -> int:
         **{k: build["flash_bwd_dq_tile_kernel_dbias"][k] for k in (
             "spill_bytes", "registers", "tensor_core_instructions")},
     })
-    kernels += gptj_kernel_entries(build, gptj_fwd_checks, gptj_bwd_checks, gptj_timed,
-                                   gptj_bwd_timed, gptj_paths)
+    kernels += wide_kernel_entries("gptj", "_d256", "GPT-J", GPTJ_TIMED, build, gptj_fwd_checks,
+                                   gptj_bwd_checks, gptj_timed, gptj_bwd_timed, gptj_paths)
+    kernels += wide_kernel_entries("neox", "_d96", "GPT-NeoX-20B", NEOX_TIMED, build,
+                                   neox_fwd_checks, neox_bwd_checks, neox_timed,
+                                   neox_bwd_timed, neox_paths)
     log(", ".join(card) if card else "nvidia-smi: no output")
     print(json.dumps({"kernels": kernels}), flush=True)
     phases = (("build", build_ok), ("kernel", kernel_ok), ("model", model_ok),
@@ -4749,7 +5301,8 @@ def main() -> int:
               ("seq2seq_training", seq2seq_ok), ("bench_workload", bench_ok),
               ("ilql", ilql_ok), ("grpo", grpo_ok), ("continuous_engine", continuous_ok),
               ("serving_tier", tier_ok), ("gptj_serving", gptj_serving_ok),
-              ("gptj_training", gptj_training_ok))
+              ("gptj_training", gptj_training_ok), ("neox_serving", neox_serving_ok),
+              ("neox_training", neox_training_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

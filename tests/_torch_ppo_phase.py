@@ -230,39 +230,15 @@ def port_trainer(cfg: dict, init=None, data=None):
     return trainer
 
 
-def run_port(trainer) -> dict:
-    import torch
-
-    log = {"ref": [], "phase": [], "eval": []}
-    record(trainer, "score_ref", log["ref"])
-    record(trainer, "_train_on", log["phase"])
-    record(trainer, "evaluate", log["eval"])
-    trainer.learn()
-    buf = trainer.buffer.full
-    return {
-        "trainer": trainer,
-        "buffer": {k: getattr(buf, k).numpy() for k in BUFFER_KEYS},
-        "ref": torch.cat(log["ref"]).numpy(),
-        "rows": log["phase"][0][0],
-        "kl_seq": log["phase"][0][1],
-        "eval": log["eval"],
-    }
-
-
 #: a nonzero gradient element below this in some update has its Adam step
 #: decided by rounding (Adam's eps is 1e-8): ``assert_final_params_match``'s
 #: ``noisy``
 NOISY_GRAD = 1e-6
 
 
-def run_port_sampled(trainer, jax_run) -> dict:
-    """The port's phase under the JAX run's noise (:func:`inject_jax_noise`);
-    also records, per parameter element, its smallest nonzero gradient
-    magnitude over the updates, and returns the elements below
-    ``NOISY_GRAD`` as ``noisy``."""
-    inject_jax_noise(trainer, jax_run)
-    log = {"phase": []}
-    record(trainer, "_train_on", log["phase"])
+def _record_grad_floor(trainer) -> dict:
+    """Record, per parameter element, its smallest nonzero gradient
+    magnitude over the updates; the returned dict fills as they run."""
     floor = {}
     step = trainer.opt.step
 
@@ -274,6 +250,39 @@ def run_port_sampled(trainer, jax_run) -> dict:
         return step()
 
     trainer.opt.step = recorded_step
+    return floor
+
+
+def run_port(trainer) -> dict:
+    """The port's greedy phase; also the elements whose gradient fell below
+    ``NOISY_GRAD`` in some update, as ``noisy``."""
+    log = {"ref": [], "phase": [], "eval": []}
+    record(trainer, "score_ref", log["ref"])
+    record(trainer, "_train_on", log["phase"])
+    record(trainer, "evaluate", log["eval"])
+    floor = _record_grad_floor(trainer)
+    trainer.learn()
+    buf = trainer.buffer.full
+    return {
+        "trainer": trainer,
+        "buffer": {k: getattr(buf, k).numpy() for k in BUFFER_KEYS},
+        "ref": torch.cat(log["ref"]).numpy(),
+        "rows": log["phase"][0][0],
+        "kl_seq": log["phase"][0][1],
+        "eval": log["eval"],
+        "noisy": {name: f < NOISY_GRAD for name, f in floor.items()},
+    }
+
+
+def run_port_sampled(trainer, jax_run) -> dict:
+    """The port's phase under the JAX run's noise (:func:`inject_jax_noise`);
+    also records, per parameter element, its smallest nonzero gradient
+    magnitude over the updates, and returns the elements below
+    ``NOISY_GRAD`` as ``noisy``."""
+    inject_jax_noise(trainer, jax_run)
+    log = {"phase": []}
+    record(trainer, "_train_on", log["phase"])
+    floor = _record_grad_floor(trainer)
     trainer.learn()
     buf = trainer.buffer.full
     return {
@@ -291,7 +300,9 @@ def assert_final_params_match(got, jax_run, cfg: dict, noisy=None) -> float:
     logits, which softmax ignores), so in f32 it is rounding noise, and
     AdamW, which normalises each element, moves them by up to ``lr`` per
     update in a direction the noise decides on either side: they are held
-    to twice the summed learning rate. ``noisy`` ({name: bool mask}) names
+    to twice the summed learning rate (GPT-2's ``c_attn`` bias is [q | k |
+    v], NeoX's ``query_key_value`` bias head-major, [q | k | v] a head).
+    ``noisy`` ({name: bool mask}) names
     other elements held so, each for the same reason: a gradient so near
     zero in some update (within a few hundred ``eps`` of Adam's) that
     rounding decides that update's normalised step. Returns the largest
@@ -304,9 +315,17 @@ def assert_final_params_match(got, jax_run, cfg: dict, noisy=None) -> float:
     for name, w in want.items():
         g = got[name].numpy().copy()
         w = w.numpy().copy()
+        key_bias = None
         if name.endswith("attn.c_attn.bias"):
             C = cfg["model"]["model_arch"]["n_embd"]
-            key_bias = slice(C, 2 * C)  # c_attn's bias is [q | k | v]
+            key_bias = np.zeros(g.shape, bool)
+            key_bias[C:2 * C] = True  # c_attn's bias is [q | k | v]
+        elif name.endswith("attn.query_key_value.bias"):
+            H = cfg["model"]["model_arch"]["num_attention_heads"]
+            key_bias = np.zeros((H, 3, g.size // (3 * H)), bool)
+            key_bias[:, 1] = True  # NeoX's is head-major: [q_h | k_h | v_h] per head
+            key_bias = key_bias.reshape(g.shape)
+        if key_bias is not None:
             np.testing.assert_allclose(g[key_bias], w[key_bias], atol=tol, rtol=0)
             g[key_bias] = w[key_bias]
         if noisy is not None and name in noisy:

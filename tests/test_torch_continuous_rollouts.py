@@ -317,6 +317,10 @@ REFUSALS = {
                                         "vf_coef": 0.0}}, NotImplementedError, "grouped"),
     "async_rl": ("PPOTrainer", {"train": {"async_rl": {"enabled": True}}}, NotImplementedError,
                  "async_rl"),
+    "async_checkpoint": ("PPOTrainer", {"train": {"async_checkpoint": True}},
+                         NotImplementedError, "async_checkpoint"),
+    "telemetry": ("PPOTrainer", {"train": {"telemetry": {"ring_size": 1024}}},
+                  NotImplementedError, "telemetry"),
     # the reference's own refusals: a chunk budget needs chunking, and the
     # fixed sampler has no verify step
     "prefill_chunk": ("PPOTrainer", {"train": {"rollout": dict(

@@ -28,7 +28,12 @@ At the continuous engine's shapes (``configs/ppo_sentiments.yml`` with
 (128 slots, each at its own column); one GRPO update runs every attention
 through the kernels with the value head's gradient exactly zero, and one
 continuous-engine phase launches K1 ``tile`` per admission prefill and
-reference scoring and ``decode`` per decode step.
+reference scoring and ``decode`` per decode step. At head dims 256
+(GPT-J-6B) and 96 (GPT-NeoX-20B, its 64 x 96 tiles held as 64 x 128 in
+shared memory), K1, K2 (also with the bias gradient) and K3 at the paths'
+shapes and the edges; at 96 also through the slices of the fused
+``query_key_value`` projection, read in place, and one NeoX update step
+through the kernels; other head dims are refused before a launch.
 """
 
 import pytest
@@ -904,11 +909,11 @@ D256_CASES = {  # B, Q, K, H, causal, bias kind
 }
 
 
-def _d256_inputs(dev, case, dtype, seed=11):
-    B, Q, K, H, causal, kind = D256_CASES[case]
+def _wide_head_inputs(dev, case, dtype, seed=11, D=256):
+    B, Q, K, H, causal, kind = (D256_CASES if D == 256 else D96_CASES)[case]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    q, k, v = (torch.randn(B, T, H, 256, generator=gen, device=dev) for T in (Q, K, K))
+    q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev) for T in (Q, K, K))
     cols = torch.arange(K, device=dev)[None]
     if kind == "pad":  # padding with the first keys valid
         keep = cols < 4
@@ -924,7 +929,7 @@ def _d256_inputs(dev, case, dtype, seed=11):
     else:  # peaked: logits x3 and a per-row bias; V / 4 keeps |O| near 1
         q, v = q * 3, v / 4
         bias = 2 * torch.randn(B, 1, Q, K, generator=gen, device=dev)
-    do = torch.randn(B, Q, H, 256, generator=gen, device=dev)
+    do = torch.randn(B, Q, H, D, generator=gen, device=dev)
     return [x.to(dtype) for x in (q, k, v)], bias, causal, do.to(dtype)
 
 
@@ -934,7 +939,7 @@ def test_head_dim_256_forward_matches_plain(dev, dtype, case):
     """K1 at D = 256 in the variant its dtype and Q pick, against the plain
     version restricted to the keys K1 visits; only that variant's counter
     moves, nothing is copied."""
-    (q, k, v), bias, causal, _ = _d256_inputs(dev, case, dtype)
+    (q, k, v), bias, causal, _ = _wide_head_inputs(dev, case, dtype)
     variant = fa.forward_variant(dtype, q.shape[1])
     before = _fwd_counters()
     o, lse = fa.flash_attention(q, k, v, bias, causal, True)
@@ -954,7 +959,7 @@ def test_head_dim_256_forward_matches_plain(dev, dtype, case):
 def test_head_dim_256_backward_matches_plain(dev, dtype, case):
     """K2 and K3 at D = 256 (K3 as two warpgroups, one per accumulator)
     against the plain backward fed K1's own O and LSE."""
-    (q, k, v), bias, causal, do = _d256_inputs(dev, case, dtype)
+    (q, k, v), bias, causal, do = _wide_head_inputs(dev, case, dtype)
     o, lse = fa.flash_attention(q, k, v, bias, causal, True)
     before = _bwd_counters()
     got = fa._launch_backward(q, k, v, bias, o, lse, do, causal)
@@ -975,7 +980,7 @@ def test_head_dim_256_backward_matches_plain(dev, dtype, case):
 def test_head_dim_256_dbias_matches_plain(dev, dtype):
     """K2 with the bias gradient at D = 256 (a learned [1, H, Q, K] bias
     under a padding bias)."""
-    (q, k, v), pad, _, do = _d256_inputs(dev, "ragged", dtype)
+    (q, k, v), pad, _, do = _wide_head_inputs(dev, "ragged", dtype)
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
     bias = 2 * torch.randn(1, 2, 77, 141, generator=gen, device=dev) + pad
@@ -989,14 +994,152 @@ def test_head_dim_256_dbias_matches_plain(dev, dtype):
         assert (g.float() - w.float()).abs().max().item() <= _bwd_tol(dtype, w), name
 
 
+# Head dim 96 (GPT-NeoX-20B: hidden 6144 over 64 heads). Each 64 x 96 tile
+# is held as 64 x 128 in shared memory (two swizzle atoms, the padding
+# zero-filled). K1 at the paths' shapes (configs/ppo_neox20b.yml's rollout
+# prefill and decode, B = 64, 48 prompt + 48 new tokens; the update, B =
+# 32, T = 96 causal; the serving engine's admission prefill and decode) at
+# H = 64, and D = 256's edges at H = 2; q, k and v also as slices of the
+# fused [B, T, H, 3 x 96] projection, read in place. O is held relative to
+# P|V| + |O| (chip_smoke.py's O_REL_TOL), since V ~ N(0, 1) makes |O|
+# reach the bf16 rounding of values near 4.
+D96_CASES = {  # B, Q, K, H, causal, bias kind
+    "rollout_prefill": (64, 48, 96, 64, False, "causal_left_pad"),
+    "rollout_decode": (64, 1, 96, 64, False, "pad"),
+    "update": (32, 96, 96, 64, True, "pad"),
+    "serving_prefill": (8, 512, 576, 64, False, "causal_left_pad"),
+    "serving_decode": (32, 1, 576, 64, False, "pad"),
+    "ragged": (2, 77, 141, 2, False, "pad"),
+    "decode_ragged": (3, 5, 70, 2, False, "full"),
+    "all_masked_rows": (2, 112, 112, 2, True, "left_pad"),
+    "small_q_masked_rows": (2, 9, 130, 2, True, "left_pad_in_tile_0"),
+    "long_k": (2, 130, 1024, 2, False, "peaked"),
+}
+O_REL_TOL = {torch.float32: 1e-4, torch.bfloat16: 2 ** -6}
+
+
+def _fused(q, k, v):
+    """q, k, v as the NeoX attention forms them: slices of [B, T, H, 3 D]
+    projections (row strides of 3 H D elements, k's base D in, v's 2 D);
+    q's columns and the keys' columns each from their own, so Q may differ
+    from K."""
+    D = q.shape[-1]
+    q_rows = torch.cat([q, torch.zeros_like(q), torch.zeros_like(q)], dim=-1)
+    kv_rows = torch.cat([torch.zeros_like(k), k, v], dim=-1)
+    return q_rows[..., :D], kv_rows[..., D:2 * D], kv_rows[..., 2 * D:]
+
+
+def _assert_o_close(q, k, v, bias, causal, o, o_ref, dtype):
+    """O within O_REL_TOL of P|V| + |O_ref| elementwise (P: the plain
+    weights over the keys K1 visits)."""
+    pv = _visited_reference(q.float(), k.float(), v.float().abs(), bias, causal)[0]
+    bound = O_REL_TOL[dtype] * (pv + o_ref.float().abs())
+    assert ((o.float() - o_ref.float()).abs() <= bound).all()
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["separate", "fused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", list(D96_CASES))
+def test_head_dim_96_forward_matches_plain(dev, dtype, case, fused):
+    """K1 at D = 96 in the variant its dtype and Q pick, against the plain
+    version restricted to the keys K1 visits; only that variant's counter
+    moves, and nothing is copied, the fused projection's slices included."""
+    (q, k, v), bias, causal, _ = _wide_head_inputs(dev, case, dtype, D=96)
+    if fused:
+        q, k, v = _fused(q, k, v)
+    variant = fa.forward_variant(dtype, q.shape[1])
+    before = _fwd_counters()
+    o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+    assert _moved(before) == {"FLASH_FWD_LAUNCHES": 1, f"FLASH_FWD_{variant.upper()}_LAUNCHES": 1}
+    o_ref, lse_ref = _visited_reference(q, k, v, bias, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    _assert_o_close(q, k, v, bias, causal, o, o_ref, dtype)
+    assert (lse - lse_ref).abs().max().item() <= TOL[dtype][1]
+    assert torch.equal(fa.flash_attention(q, k, v, bias, causal), o)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["separate", "fused"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ["update", "ragged", "all_masked_rows", "small_q_masked_rows",
+                                  "long_k", "decode_ragged"])
+def test_head_dim_96_backward_matches_plain(dev, dtype, case, fused):
+    """K2 and K3 at D = 96 (K3 as two warpgroups, one per accumulator)
+    against the plain backward fed K1's own O and LSE; the fused
+    projection's slices are read in place."""
+    (q, k, v), bias, causal, do = _wide_head_inputs(dev, case, dtype, D=96)
+    if fused:
+        q, k, v = _fused(q, k, v)
+    o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+    before = _bwd_counters()
+    got = fa._launch_backward(q, k, v, bias, o, lse, do, causal)
+    want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, causal)
+    torch.cuda.synchronize()
+    variant = "TILE" if dtype == torch.bfloat16 else "FMA"
+    assert {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n} == {
+        "FLASH_BWD_DQ_LAUNCHES": 1, "FLASH_BWD_DKV_LAUNCHES": 1,
+        f"FLASH_BWD_DQ_{variant}_LAUNCHES": 1, f"FLASH_BWD_DKV_{variant}_LAUNCHES": 1}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert torch.isfinite(g).all(), name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= _bwd_tol(dtype, w), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_head_dim_96_dbias_matches_plain(dev, dtype):
+    """K2 with the bias gradient at D = 96 (a learned [1, H, Q, K] bias
+    under a padding bias)."""
+    (q, k, v), pad, _, do = _wide_head_inputs(dev, "ragged", dtype, D=96)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    bias = 2 * torch.randn(1, 2, 77, 141, generator=gen, device=dev) + pad
+    o, lse = fa.flash_attention(q, k, v, bias, False, True)
+    *got, dbias = fa._launch_backward(q, k, v, bias, o, lse, do, False, dbias=True)
+    want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, False, True)
+    torch.cuda.synchronize()
+    err = (dbias - want[3]).abs().max().item()
+    assert err <= 1e-4 * max(1.0, want[3].abs().max().item()), err
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert (g.float() - w.float()).abs().max().item() <= _bwd_tol(dtype, w), name
+
+
+def test_neox_update_step_runs_every_attention_through_the_kernels(dev):
+    """One bf16 PPO-loss backward of a small NeoX (2 heads of 96, the
+    20B's head geometry) runs every attention through K1 ``tile``, then K2
+    and K3 ``tile``, once a block, reading the fused projection's slices
+    with no copy."""
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+    from trlx_tpu_torch.models.neox import NeoXConfig, NeoXModel
+
+    cfg = NeoXConfig(vocab_size=64, max_position_embeddings=128, hidden_size=192,
+                     num_hidden_layers=2, num_attention_heads=2, dtype="bfloat16")
+    model = CausalLMWithValueHead(cfg, NeoXModel, device=dev)
+    init_params(model, 0)
+    ids = torch.randint(0, 64, (4, 40), device=dev)
+    mask = torch.ones_like(ids)
+    mask[0, :7] = 0
+    before, bwd_before = _fwd_counters(), _bwd_counters()
+    copies = (fa.FLASH_FWD_COPIES, fa.FLASH_BWD_COPIES)
+    logits, values = model.response_forward(ids, mask, 24)
+    (logits.float().logsumexp(-1).sum() + values.sum()).backward()
+    torch.cuda.synchronize()
+    assert _moved(before) == {"FLASH_FWD_LAUNCHES": 2, "FLASH_FWD_TILE_LAUNCHES": 2}
+    assert {c: getattr(fa, c) - n for c, n in bwd_before.items() if getattr(fa, c) != n} == {
+        "FLASH_BWD_DQ_LAUNCHES": 2, "FLASH_BWD_DKV_LAUNCHES": 2,
+        "FLASH_BWD_DQ_TILE_LAUNCHES": 2, "FLASH_BWD_DKV_TILE_LAUNCHES": 2}
+    assert (fa.FLASH_FWD_COPIES, fa.FLASH_BWD_COPIES) == copies
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+
+
 def test_other_head_dims_are_refused_before_a_launch(dev):
-    """D = 96 (GPT-NeoX-20B) and 24 (the randomwalks configs) are not built:
-    the wrappers raise naming the built dims and the ROADMAP item, and the
-    C entry points refuse them."""
+    """D = 24 (the randomwalks configs), 32 (the GPT-2 stand-in) and 128
+    (GPT-Neo) are not built: the wrappers raise naming the built dims and
+    the ROADMAP item, and the C entry points refuse them."""
     before = (_fwd_counters(), _bwd_counters())
-    for D in (24, 96, 128):
+    for D in (24, 32, 128):
         q, k, v = _qkv(dev, 1, 20, 30, D=D, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="head dims \\(64, 256\\).*ROADMAP item 13"):
+        with pytest.raises(ValueError, match="head dims \\(64, 96, 256\\).*ROADMAP item 13"):
             fa.flash_attention(q, k, v)
         o = torch.empty_like(q)
         lse = torch.empty(1, 2, 20, device=dev)

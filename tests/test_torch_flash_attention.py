@@ -4,7 +4,7 @@ against the JAX package's Pallas kernel in interpret mode and its
 
 Inputs come from a numpy seed and go through both packages in f32; every
 case of ``tests/test_flash_attention.py``'s forward class plus decode
-(Q = 1), and three at GPT-J's head dim 256, is one parametrised case. Tolerance: atol 1e-5 (f32; the two sum
+(Q = 1), and three each at GPT-J's head dim 256 and GPT-NeoX-20B's 96, is one parametrised case. Tolerance: atol 1e-5 (f32; the two sum
 in a different order). The CUDA kernel itself is compared with this plain
 version on the card by ``chip_smoke.py``. The tests at the end pin, on the
 CPU, what the wrapper decides before a launch: which K1 variant a dtype
@@ -72,13 +72,27 @@ def _case(name):
         mask = (np.arange(48)[None] <= depth[:, None]).astype(np.int32)
         return (rand(2, 1, 2, 256), rand(2, 48, 2, 256), rand(2, 48, 2, 256),
                 ("decode", mask, depth), False)
+    # GPT-NeoX-20B's head dim (D = 96), which K1's third instantiation serves
+    if name == "causal_padding_head_dim_96":
+        B, T, H, D = 2, 70, 2, 96
+        mask = _padding_mask(rng, B, T)
+        return rand(B, T, H, D), rand(B, T, H, D), rand(B, T, H, D), ("pad", mask), True
+    if name == "per_head_bias_head_dim_96":
+        B, Q, K, H, D = 1, 19, 77, 3, 96
+        return rand(B, Q, H, D), rand(B, K, H, D), rand(B, K, H, D), ("raw", rand(1, H, Q, K)), False
+    if name == "decode_q1_head_dim_96":
+        depth = np.array([9, 66])
+        mask = (np.arange(72)[None] <= depth[:, None]).astype(np.int32)
+        return (rand(2, 1, 4, 96), rand(2, 72, 4, 96), rand(2, 72, 4, 96),
+                ("decode", mask, depth), False)
     raise KeyError(name)
 
 
 CASES = [
     "causal_with_padding", "unequal_q_k", "per_head_bias", "padding_only",
     "decode_q1", "decode_q1_head_dim_64", "causal_padding_head_dim_256",
-    "per_head_bias_head_dim_256", "decode_q1_head_dim_256",
+    "per_head_bias_head_dim_256", "decode_q1_head_dim_256", "causal_padding_head_dim_96",
+    "per_head_bias_head_dim_96", "decode_q1_head_dim_96",
 ]
 
 

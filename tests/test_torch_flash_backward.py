@@ -5,8 +5,9 @@ interpret mode.
 - ``flash_attention_backward_reference`` takes the JAX ``_fwd``'s own O and
   LSE and a random dO, and must give the dQ/dK/dV of the JAX ``_bwd`` run in
   interpret mode with 16-wide blocks, on the three gradient cases of
-  ``tests/test_flash_attention.py::TestFlashBackward`` and two at GPT-J's
-  head dim 256.
+  ``tests/test_flash_attention.py::TestFlashBackward``, two at GPT-J's
+  head dim 256 and three at GPT-NeoX-20B's 96 (causal + padding, a
+  per-head bias, one decode row).
 - The port's ``FlashAttention`` gradients (through
   ``dot_product_attention``) must equal ``jax.grad`` of the JAX
   ``flash_attention(..., interpret=True)`` on the same loss.
@@ -20,7 +21,7 @@ interpret mode.
   refused.
 
 Inputs come from a numpy seed, in f32. Tolerance: atol 2e-5 (1e-5 at head
-dim 256) on gradients of O(1) magnitude — both sides compute in f32 and differ only in the order
+dims 256 and 96) on gradients of O(1) magnitude — both sides compute in f32 and differ only in the order
 of their sums (the JAX kernel sums per 16-wide tile, the plain version in
 one einsum). The CUDA kernels are held against this plain version on the
 card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
@@ -38,16 +39,17 @@ from trlx_tpu_torch.ops import attention as tattn
 from trlx_tpu_torch.ops import flash_attention as tfa
 
 ATOL = 2e-5
-#: the head-dim-256 cases (GPT-J's), held to 1e-5
-ATOL_256 = 1e-5
+#: the head-dim-256 and -96 cases (GPT-J's, GPT-NeoX-20B's), held to 1e-5
+ATOL_WIDE_HEADS = 1e-5
 
 
 def _atol(name):
-    return ATOL_256 if name.endswith("head_dim_256") else ATOL
+    return ATOL_WIDE_HEADS if name.endswith(("head_dim_256", "head_dim_96")) else ATOL
 
 
 CASES = ["causal_padding", "unequal_causal", "per_head_bias",
-         "causal_padding_head_dim_256", "per_head_bias_head_dim_256"]
+         "causal_padding_head_dim_256", "per_head_bias_head_dim_256",
+         "causal_padding_head_dim_96", "per_head_bias_head_dim_96", "decode_q1_head_dim_96"]
 
 
 def _case(name):
@@ -75,6 +77,18 @@ def _case(name):
     if name == "per_head_bias_head_dim_256":
         B, Q, K, H, D = 1, 19, 33, 2, 256
         return rand(B, Q, H, D), rand(B, K, H, D), rand(B, K, H, D), ("raw", rand(1, H, Q, K)), False
+    # GPT-NeoX-20B's head dim (D = 96), which K2's and K3's third instantiations serve
+    if name == "causal_padding_head_dim_96":
+        B, T, H, D = 2, 70, 2, 96
+        mask = (rng.integers(0, 2, size=(B, T)) | (np.arange(T)[None] < 4)).astype(np.int32)
+        return rand(B, T, H, D), rand(B, T, H, D), rand(B, T, H, D), ("pad", mask), True
+    if name == "per_head_bias_head_dim_96":
+        B, Q, K, H, D = 1, 19, 77, 3, 96
+        return rand(B, Q, H, D), rand(B, K, H, D), rand(B, K, H, D), ("raw", rand(1, H, Q, K)), False
+    if name == "decode_q1_head_dim_96":
+        B, K, H, D = 2, 72, 4, 96
+        mask = (rng.integers(0, 2, size=(B, K)) | (np.arange(K)[None] < 4)).astype(np.int32)
+        return rand(B, 1, H, D), rand(B, K, H, D), rand(B, K, H, D), ("pad", mask), False
     raise KeyError(name)
 
 

@@ -308,6 +308,8 @@ def test_save_load_round_trip(runs, tmp_path):
 REFUSALS = {
     "continuous_engine": ({"train": {"rollout": {"engine": "continuous"}}}, "no rollout engine"),
     "async_rl": ({"train": {"async_rl": {"enabled": True}}}, "async_rl"),
+    "async_checkpoint": ({"train": {"async_checkpoint": True}}, "async_checkpoint"),
+    "telemetry": ({"train": {"telemetry": {"ring_size": 1024}}}, "telemetry"),
     "mesh": ({"train": {"mesh": {"dp": 2, "fsdp": 1, "tp": 1}}}, "item 14"),
     "pp": ({"train": {"pp_microbatches": 4}}, "item 14"),
     "resume": ({"train": {"resume_from_checkpoint": True}}, "item 18"),

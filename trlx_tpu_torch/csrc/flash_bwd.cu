@@ -98,7 +98,21 @@
 //    tensor cores would make it TF32. No bf16 call reaches it.
 //
 // Head dims (hopper_tile.cuh kHeadDims): every kernel is a template over D,
-// built for 64 (GPT-2) and 256 (GPT-J-6B). At D = 256:
+// built for 64 (GPT-2), 96 (GPT-NeoX-20B) and 256 (GPT-J-6B); each per-D
+// constant is chosen per built D (per_head_dim). At D = 96 every tile is
+// held as 64 x 128 (hopper_tile.cuh tile_cols: two atoms, columns 96..127
+// zero-filled), so a K-major product takes 6 k-steps and an MN-major one two
+// m64n64k16 products whose padded columns are dropped at the store:
+//  - dQ tile: the dQ accumulator is 64 registers; Q, dO, O and the 2-stage
+//    K/V ring are 7 tiles of 16 KB (113 KB with the slack: 2 CTAs per SM,
+//    up to 255 registers). delta is taken over the 12 chunks of a row.
+//  - dK/dV tile: dK and dV at the padded width would be 128 registers a
+//    thread on top of P, dS and their hi + lo fragments, so the CTA runs
+//    D = 256's layout, two warpgroups, one per accumulator; K, V and one
+//    stage of Q, dO and O are 5 tiles of 16 KB (81 KB).
+//  - fma: 16-row query tiles and 16-key chunks (dQ, 31 KB of padded f32
+//    tiles), 64-key tiles and 64-row query chunks (dK/dV, 138 KB).
+// At D = 256:
 //  - dQ tile: the dQ accumulator is 64 x 256 f32, 128 registers a thread
 //    (four 64-column chunks, one m64n64k16 product each over one K atom);
 //    Q, dO, O and the 2-stage K/V ring are 7 tiles of 32 KB, 225 KB with
@@ -146,14 +160,18 @@ __device__ __forceinline__ float logit(float s, float scale,
 constexpr int kThreads = 256;  // 16 x 16 threads
 
 // dQ: query rows per CTA for a forward tile of fwd_bq rows (the tile itself
-// at D = 64, 16 at D = 256) and keys per staged chunk (64, 32)
+// at D = 64, 16 at D = 96 and 256) and keys per staged chunk (64, 16, 32).
+// At D = 96 ptxas spilled 16-48 bytes in one of the four instantiations
+// with 64 or 32 rows and 32 or 64 keys; 16 x 16 builds all four without a
+// spill (48 registers).
 template <int D>
-__host__ __device__ constexpr int dq_fma_rows(int fwd_bq) { return D == 64 ? fwd_bq : 16; }
+__host__ __device__ constexpr int dq_fma_rows(int fwd_bq) { return per_head_dim<D>(fwd_bq, 16, 16); }
 template <int D>
-__host__ __device__ constexpr int dq_fma_keys() { return D == 64 ? 64 : 32; }
-// dK/dV: keys per CTA and query rows per chunk (64 at D = 64, 16 at D = 256)
+__host__ __device__ constexpr int dq_fma_keys() { return per_head_dim<D>(64, 16, 32); }
+// dK/dV: keys per CTA and query rows per chunk (64 at D = 64 and 96, 16 at
+// D = 256)
 template <int D>
-__host__ __device__ constexpr int dkv_fma_tile() { return D == 64 ? 64 : 16; }
+__host__ __device__ constexpr int dkv_fma_tile() { return per_head_dim<D>(64, 64, 16); }
 
 // Stage rows [r0, r0 + n) of a [B, T, H, D] tensor (already offset to its
 // batch row and head) into a [n][D + 1] tile; rows at or past T are 0.
@@ -468,22 +486,31 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
 // CTAs per SM in the launch bounds. At D = 64 dQ fits 168 registers (3
 // CTAs); dK/dV holds two f32 accumulators and P, dS (hi + lo) at once and
 // spilled at 168 in every arrangement tried, so it takes 2 CTAs and up to
-// 255 registers. At D = 256 each is one CTA per SM (shared memory bounds
-// it) with up to 255 registers a thread.
+// 255 registers. At D = 96 dQ's 113 KB of shared memory allow 2 CTAs (up to
+// 255 registers) and dK/dV's two warpgroups take up to 255 registers, one
+// CTA per SM. At D = 256 each is one CTA per SM (shared memory bounds it)
+// with up to 255 registers a thread.
 template <int D>
-__host__ __device__ constexpr int dq_min_blocks() { return D == 64 ? 3 : 1; }
+__host__ __device__ constexpr int dq_min_blocks() { return per_head_dim<D>(3, 2, 1); }
 template <int D>
-__host__ __device__ constexpr int dkv_min_blocks() { return D == 64 ? 2 : 1; }
-// dK/dV: one warpgroup at D = 64, two (one per accumulator) above
+__host__ __device__ constexpr int dkv_min_blocks() { return per_head_dim<D>(2, 1, 1); }
+// dK/dV: one warpgroup holding both accumulators at D = 64, two (one per
+// accumulator) at D = 96 and 256
 template <int D>
-__host__ __device__ constexpr int dkv_threads() { return D == 64 ? kTileThreads : 2 * kTileThreads; }
+__host__ __device__ constexpr bool dkv_split() { return per_head_dim<D>(false, true, true); }
+template <int D>
+__host__ __device__ constexpr int dkv_threads() { return dkv_split<D>() ? 2 * kTileThreads : kTileThreads; }
 // dynamic shared memory: the tiles, and 1 KB of slack to align them to the
 // 1024 bytes the 128-byte swizzle repeats over
 template <int D>
 __host__ __device__ constexpr int dq_smem() { return 7 * tile_bytes<D>() + 1024; }  // Q, dO, O, K[2], V[2]
+// dK/dV's tiles: K, V and (Q, dO, O) in 2 stages at D = 64, in 1 at D = 96
+// and 256
 template <int D>
-__host__ __device__ constexpr int dkv_smem() {  // K, V, (Q, dO, O)[2 at D = 64, 1 above], LSE, delta
-  return (D == 64 ? 8 : 5) * tile_bytes<D>() + 2 * kBQ * static_cast<int>(sizeof(float)) + 1024;
+__host__ __device__ constexpr int dkv_tiles() { return per_head_dim<D>(8, 5, 5); }
+template <int D>
+__host__ __device__ constexpr int dkv_smem() {  // the tiles, LSE, delta
+  return dkv_tiles<D>() * tile_bytes<D>() + 2 * kBQ * static_cast<int>(sizeof(float)) + 1024;
 }
 
 // sum_i x[i] y[i] over 8 bf16 pairs, added to acc in f32
@@ -566,7 +593,7 @@ flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          Strides so, Strides sdo, BiasStrides sb, float scale,
                          int causal) {
   constexpr int kTB = tile_bytes<D>();
-  constexpr int kN = D / 64;  // 64-column chunks of dQ
+  constexpr int kN = tile_cols<D>() / 64;  // 64-column chunks of dQ (the last padded at D = 96)
   extern __shared__ uint8_t smem_raw[];
   uint32_t sQ;
   const uint8_t* smem = aligned_smem(smem_raw, sQ);
@@ -704,8 +731,9 @@ flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < kN; ++n)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint32_t*>(row + 64 * n + 8 * j + 2 * t4) =
-            pack_bf16(acc[n][j][2 * hr] * scale, acc[n][j][2 * hr + 1] * scale);
+        if (64 * n + 8 * j < D)  // the tile's padded columns are dropped
+          *reinterpret_cast<uint32_t*>(row + 64 * n + 8 * j + 2 * t4) =
+              pack_bf16(acc[n][j][2 * hr] * scale, acc[n][j][2 * hr + 1] * scale);
   }
 }
 
@@ -883,7 +911,7 @@ __device__ __forceinline__ void dkv_tile_joint(
   }
 }
 
-// dK, dV above D = 64: two warpgroups per (64-key tile, head, batch row),
+// dK, dV at D = 96 and 256: two warpgroups per (64-key tile, head, batch row),
 // each with one 64 x D accumulator, keys as rows: warpgroup 0 dV += P^T dO,
 // warpgroup 1 dK += dS^T Q; both form P^T from their own S^T = K Q^T. K
 // and V are staged once; Q, dO and O go through one stage per 64-row chunk.
@@ -896,7 +924,7 @@ __device__ __forceinline__ void dkv_tile_split(
     int H, int Q, int K, Strides sq, Strides sk, Strides sv, Strides so,
     Strides sdo, BiasStrides sb, float scale, int causal) {
   constexpr int kTB = tile_bytes<D>();
-  constexpr int kN = D / 64;  // 64-column chunks of the accumulator
+  constexpr int kN = tile_cols<D>() / 64;  // 64-column chunks of the accumulator
   constexpr int kT = 2 * kTileThreads;
   extern __shared__ uint8_t smem_raw[];
   uint32_t sK;
@@ -1017,8 +1045,9 @@ __device__ __forceinline__ void dkv_tile_split(
     for (int n = 0; n < kN; ++n)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint32_t*>(out + off + 64 * n + 8 * j + 2 * t4) = pack_bf16(
-            acc[n][j][2 * hr] * out_scale, acc[n][j][2 * hr + 1] * out_scale);
+        if (64 * n + 8 * j < D)  // the tile's padded columns are dropped
+          *reinterpret_cast<uint32_t*>(out + off + 64 * n + 8 * j + 2 * t4) = pack_bf16(
+              acc[n][j][2 * hr] * out_scale, acc[n][j][2 * hr + 1] * out_scale);
   }
 }
 
@@ -1031,7 +1060,7 @@ flash_bwd_dkv_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           bf16* __restrict__ dv, int H, int Q, int K, Strides sq,
                           Strides sk, Strides sv, Strides so, Strides sdo,
                           BiasStrides sb, float scale, int causal) {
-  if constexpr (D == 64)
+  if constexpr (!dkv_split<D>())
     dkv_tile_joint(q, k, v, bias, o, dout, lse, dk, dv, H, Q, K, sq, sk, sv, so,
                    sdo, sb, scale, causal);
   else
@@ -1139,7 +1168,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
 
 // variant: 0 = fma (f32), 1 = tile (bf16), as
 // ops/flash_attention.py::backward_variant picks it; dtype: 0 = float32, 1 =
-// bfloat16; D: a head dim of kHeadDims (64 or 256). `strides` holds 19
+// bfloat16; D: a head dim of kHeadDims (64, 96 or 256). `strides` holds 19
 // element strides: q, k, v, o, dout as (b, t, h) each (head dim contiguous),
 // then the bias's (b, h, q, k) with 0 for a broadcast dimension; the tile
 // variant needs all five inputs 16-byte aligned as `aligned16` states. bias
@@ -1162,12 +1191,22 @@ extern "C" int trlx_flash_bwd_dq(const void* q, const void* k, const void* v,
                            scale, causal, stream);
   bool refused = false;
   cudaError_t err;
-  if (D == 64)
-    err = dbias ? launch_dq<64, true>(a, variant, dtype, dq, dbias, &refused)
-                : launch_dq<64, false>(a, variant, dtype, dq, nullptr, &refused);
-  else
-    err = dbias ? launch_dq<256, true>(a, variant, dtype, dq, dbias, &refused)
-                : launch_dq<256, false>(a, variant, dtype, dq, nullptr, &refused);
+  switch (D) {
+    case 64:
+      err = dbias ? launch_dq<64, true>(a, variant, dtype, dq, dbias, &refused)
+                  : launch_dq<64, false>(a, variant, dtype, dq, nullptr, &refused);
+      break;
+    case 96:
+      err = dbias ? launch_dq<96, true>(a, variant, dtype, dq, dbias, &refused)
+                  : launch_dq<96, false>(a, variant, dtype, dq, nullptr, &refused);
+      break;
+    case 256:
+      err = dbias ? launch_dq<256, true>(a, variant, dtype, dq, dbias, &refused)
+                  : launch_dq<256, false>(a, variant, dtype, dq, nullptr, &refused);
+      break;
+    default:
+      return -1;
+  }
   return refused ? -1 : static_cast<int>(err);
 }
 
@@ -1182,7 +1221,19 @@ extern "C" int trlx_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const Args a = make_args(q, k, v, bias, o, dout, lse, B, H, Q, K, strides,
                            scale, causal, stream);
   bool refused = false;
-  const cudaError_t err = D == 64 ? launch_dkv<64>(a, variant, dtype, dk, dv, &refused)
-                                  : launch_dkv<256>(a, variant, dtype, dk, dv, &refused);
+  cudaError_t err;
+  switch (D) {
+    case 64:
+      err = launch_dkv<64>(a, variant, dtype, dk, dv, &refused);
+      break;
+    case 96:
+      err = launch_dkv<96>(a, variant, dtype, dk, dv, &refused);
+      break;
+    case 256:
+      err = launch_dkv<256>(a, variant, dtype, dk, dv, &refused);
+      break;
+    default:
+      return -1;
+  }
   return refused ? -1 : static_cast<int>(err);
 }

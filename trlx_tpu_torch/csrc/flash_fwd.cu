@@ -70,7 +70,24 @@
 //    4.2e-7 relative on the full-width gradient). No bf16 call reaches it.
 //
 // Head dims (hopper_tile.cuh kHeadDims): every variant is a template over D,
-// built for 64 (GPT-2; the shapes above) and 256 (GPT-J-6B). At D = 256:
+// built for 64 (GPT-2; the shapes above), 96 (GPT-NeoX-20B) and 256
+// (GPT-J-6B); each per-D constant is chosen per built D (per_head_dim). At
+// D = 96:
+//  - tile: a 64 x 96 tile is held as 64 x 128 (hopper_tile.cuh tile_cols:
+//    two atoms, columns 96..127 zero-filled). S = Q K^T takes 6 k-steps
+//    (atom 0's four, atom 1's first two); O += P V is two m64n64k16
+//    products per k-step, the second one's columns 32..63 (96..127 of O)
+//    dropped at the store. The O accumulator is 64 f32 registers a thread;
+//    Q and a 2-stage K/V ring are 5 tiles of 16 KB (81 KB of dynamic
+//    shared memory with the slack), so 2 CTAs per SM and up to 255
+//    registers, and the bias is preloaded as at D = 64. v is read in place
+//    from the fused [B, T, H, 288] projection (row strides of 288 elements,
+//    its base 384 bytes in); q and k come contiguous from the rotary.
+//  - decode: a key row is 192 bytes, 12 lanes of 16 bytes; the xor-shuffle
+//    reduction needs a power-of-two group, so 16 lanes take a key row and
+//    lanes 12..15 load nothing and add zero.
+//  - fma: as at D = 64 (64-key chunks; 91 KB of padded f32 tiles).
+// At D = 256:
 //  - tile: the O accumulator of 64 rows x 256 is 128 f32 registers a thread
 //    (four 64-column chunks, each its own m64n64k16 product over one V
 //    atom), the whole cap of 4 CTAs per SM, so the launch bounds ask for 2
@@ -113,14 +130,15 @@ __device__ __forceinline__ float logit(float s, float scale, const float* biasb,
 
 constexpr int kFmaThreads = 256;  // 16 x 16 threads
 
-// keys per staged K/V chunk: 64 at D = 64, 32 at D = 256 (shared memory)
+// keys per staged K/V chunk: 64 at D = 64 and 96, 32 at D = 256 (shared
+// memory)
 template <int D>
-__host__ __device__ constexpr int fma_keys() { return D == 64 ? 64 : 32; }
+__host__ __device__ constexpr int fma_keys() { return per_head_dim<D>(64, 64, 32); }
 
 // query rows per CTA for a forward tile of fwd_bq rows: the tile itself at
-// D = 64, 16 at D = 256 (shared memory)
+// D = 64 and 96, 16 at D = 256 (shared memory)
 template <int D>
-__host__ __device__ constexpr int fma_rows(int fwd_bq) { return D == 64 ? fwd_bq : 16; }
+__host__ __device__ constexpr int fma_rows(int fwd_bq) { return per_head_dim<D>(fwd_bq, fwd_bq, 16); }
 
 template <int D, int BQ>
 __host__ __device__ constexpr size_t fma_smem() {
@@ -299,13 +317,15 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 constexpr int kBQ = 64;  // query rows per CTA: 4 warps x 16
 
 // K/V stages and CTAs per SM in the launch bounds: at D = 64 a 2-stage ring
-// and 4 CTAs (registers capped at 128); at D = 256 the O accumulator alone
-// is 128 registers, so 2 CTAs (up to 255), and one stage (the other CTA's
+// and 4 CTAs (registers capped at 128); at D = 96 a 2-stage ring (81 KB of
+// shared memory) and 2 CTAs (up to 255 registers: the O accumulator is 64,
+// S 32 and the preloaded bias 32); at D = 256 the O accumulator alone is
+// 128 registers, so 2 CTAs (up to 255), and one stage (the other CTA's
 // copies overlap this one's math)
 template <int D>
-__host__ __device__ constexpr int tile_stages() { return D == 64 ? 2 : 1; }
+__host__ __device__ constexpr int tile_stages() { return per_head_dim<D>(2, 2, 1); }
 template <int D>
-__host__ __device__ constexpr int tile_min_blocks() { return D == 64 ? 4 : 2; }
+__host__ __device__ constexpr int tile_min_blocks() { return per_head_dim<D>(4, 2, 2); }
 // Q, then K and V per stage: static shared memory when it fits the 48 KB
 // static limit, else dynamic with 1 KB of alignment slack
 template <int D>
@@ -341,10 +361,10 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       BiasStrides sb, float scale, int causal) {
   constexpr int kTB = tile_bytes<D>();
   constexpr int kStages = tile_stages<D>();
-  constexpr int kN = D / 64;  // 64-column chunks of O
+  constexpr int kN = tile_cols<D>() / 64;  // 64-column chunks of O (the last padded at D = 96)
   // the bias of a thread's 32 (row, key) pairs is read before the wait for
-  // the tile at D = 64; at D = 256 those 32 registers would spill
-  constexpr bool kPreloadBias = D == 64;
+  // the tile at D = 64 and 96; at D = 256 those 32 registers would spill
+  constexpr bool kPreloadBias = per_head_dim<D>(true, true, false);
   // Q, K[stages], V[stages]; the 128-byte swizzle repeats every 1024 bytes.
   // Static at D = 64 (40 KB: its address folds into the code), dynamic above
   uint32_t sQ;
@@ -495,7 +515,7 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int e = 0; e < 4; ++e) acc[n][j][e] *= alpha[e >> 1];
 
     // O += bf16(P) V: 4 k-steps of 16 keys, P from registers, one product
-    // per 64 columns of D
+    // per 64 columns of the tile
     uint32_t pa[4][4];
 #pragma unroll
     for (int ks = 0; ks < 4; ++ks) pack_fragment(pa[ks], s, ks);
@@ -522,8 +542,9 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int n = 0; n < kN; ++n)
 #pragma unroll
       for (int j = 0; j < 8; ++j)
-        *reinterpret_cast<uint32_t*>(orow + 64 * n + 8 * j + 2 * t4) =
-            pack_bf16(acc[n][j][2 * hr] / l_safe, acc[n][j][2 * hr + 1] / l_safe);
+        if (64 * n + 8 * j < D)  // the tile's padded columns are dropped
+          *reinterpret_cast<uint32_t*>(orow + 64 * n + 8 * j + 2 * t4) =
+              pack_bf16(acc[n][j][2 * hr] / l_safe, acc[n][j][2 * hr + 1] / l_safe);
     if (lse && t4 == 0)
       lse[(static_cast<long long>(b) * H + h) * Q + qi[hr]] = m[hr] + logf(l_safe);
   }
@@ -556,12 +577,11 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v,
 constexpr int kDecWarps = 4;
 constexpr int kDecThreads = 32 * kDecWarps;
 
-// lanes that read one key row (16 bytes each): 8 at D = 64, a warp at D = 256
+// lanes that read one key row (16 bytes each): 8 at D = 64, 16 at D = 96
+// (12 read, 4 add zero: the shuffle reduction takes a power-of-two group),
+// a warp at D = 256
 template <int D>
-__host__ __device__ constexpr int row_lanes() {
-  static_assert(D % 8 == 0 && D / 8 <= 32, "a key row within one warp");
-  return D / 8;
-}
+__host__ __device__ constexpr int row_lanes() { return per_head_dim<D>(8, 16, 32); }
 // groups of row_lanes lanes in the CTA: each reads one key row at a time
 template <int D>
 __host__ __device__ constexpr int dec_groups() { return 32 / row_lanes<D>() * kDecWarps; }
@@ -592,19 +612,22 @@ struct DecodeBatch {
 };
 
 // Start the loads of the batch at key base + u * dec_groups + group; keys at
-// or past k_end read as zero and are left out later.
+// or past k_end, and every key for a lane past the row (in_row false),
+// read K and V as zero and are left out later.
 template <int D>
 __device__ __forceinline__ void load_batch(DecodeBatch& d, const bf16* kb,
                                            const bf16* vb, Strides sk,
                                            Strides sv, const float* brow,
                                            long long sbk, int base, int group,
-                                           int k_end) {
+                                           int k_end, bool in_row) {
 #pragma unroll
   for (int u = 0; u < kDecBatch; ++u) {
     const int kj = base + u * dec_groups<D>() + group;
     const bool in = kj < k_end;
-    d.k[u] = in ? *reinterpret_cast<const uint4*>(kb + kj * sk.t) : make_uint4(0, 0, 0, 0);
-    d.v[u] = in ? *reinterpret_cast<const uint4*>(vb + kj * sv.t) : make_uint4(0, 0, 0, 0);
+    d.k[u] = in && in_row ? *reinterpret_cast<const uint4*>(kb + kj * sk.t)
+                          : make_uint4(0, 0, 0, 0);
+    d.v[u] = in && in_row ? *reinterpret_cast<const uint4*>(vb + kj * sv.t)
+                          : make_uint4(0, 0, 0, 0);
     d.bias[u] = in && brow ? brow[kj * sbk] : 0.f;
   }
 }
@@ -621,15 +644,17 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         Strides sq, Strides sk, Strides sv, BiasStrides sb,
                         float scale, int causal) {
   constexpr int kRowLanes = row_lanes<D>();
+  constexpr int kCols = 8 * kRowLanes;                // D, padded to the row's lanes
   constexpr int kWarpGroups = 32 / kRowLanes;        // groups per warp
   constexpr int kStep = kDecBatch * dec_groups<D>();  // keys per CTA per batch
-  __shared__ __align__(16) float sQ[D];
+  __shared__ __align__(16) float sQ[kCols];
   __shared__ float sM[kDecWarps], sL[kDecWarps];
-  __shared__ __align__(16) float sAcc[kDecWarps][D];
+  __shared__ __align__(16) float sAcc[kDecWarps][kCols];
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int sub = lane % kRowLanes;  // D columns 8 sub .. 8 sub + 7
+  const bool in_row = kCols == D || 8 * sub < D;  // past the row: loads nothing
   // group kWarpGroups warp + lane / kRowLanes walks the keys of that index
   // plus multiples of dec_groups; the loop steps per warp so that every
   // lane of a warp runs the same trips and meets the full-warp shuffles
@@ -643,7 +668,7 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + b * sv.b + h * sv.h + 8 * sub;
   const float* brow = bias ? bias + b * sb.b + h * sb.h + qi * sb.q : nullptr;
 
-  for (int d = tid; d < D; d += kDecThreads) sQ[d] = __bfloat162float(qb[d]);
+  for (int d = tid; d < kCols; d += kDecThreads) sQ[d] = d < D ? __bfloat162float(qb[d]) : 0.f;
 
   // causal with a 16-row query tile: the visit rule leaves key tile 0
   const int k_end = visit_end(qi, 16, K, causal);
@@ -653,7 +678,7 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int d = 0; d < 8; ++d) acc[d] = 0.f;
 
   DecodeBatch cur;
-  load_batch<D>(cur, kb, vb, sk, sv, brow, sb.k, kWarpGroups * warp, group, k_end);
+  load_batch<D>(cur, kb, vb, sk, sv, brow, sb.k, kWarpGroups * warp, group, k_end, in_row);
   __syncthreads();  // sQ complete
   const float4 qa = *reinterpret_cast<const float4*>(&sQ[8 * sub]);
   const float4 qc = *reinterpret_cast<const float4*>(&sQ[8 * sub + 4]);
@@ -661,7 +686,7 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int base = kWarpGroups * warp; base < k_end; base += kStep) {
     DecodeBatch nxt;
     if (base + kStep < k_end)
-      load_batch<D>(nxt, kb, vb, sk, sv, brow, sb.k, base + kStep, group, k_end);
+      load_batch<D>(nxt, kb, vb, sk, sv, brow, sb.k, base + kStep, group, k_end, in_row);
 
     // logits of the batch: dot products over the row's lanes, then scale,
     // bias, mask
@@ -804,7 +829,7 @@ int launch_variant(const void* q, const void* k, const void* v, const void* bias
 
 // variant: 0 = fma (f32), 1 = tile (bf16, Q > 16), 2 = decode (bf16,
 // Q <= 16), as ops/flash_attention.py::forward_variant picks it. dtype: 0 =
-// float32, 1 = bfloat16. D: a head dim of kHeadDims (64 or 256). Strides
+// float32, 1 = bfloat16. D: a head dim of kHeadDims (64, 96 or 256). Strides
 // are in elements; the head dim must be contiguous, and the tile and decode
 // variants need 16-byte-aligned K and V (and Q for tile) as `aligned16`
 // states. bias may be null; lse may be null (not written). Returns 0 on
@@ -823,9 +848,17 @@ extern "C" int trlx_flash_fwd(
   const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh};
   const BiasStrides sb{sbb, sbh, sbq, sbk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64)
-    return launch_variant<64>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
-                              sq, sk, sv, sb, scale, causal, st);
-  return launch_variant<256>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
-                             sq, sk, sv, sb, scale, causal, st);
+  switch (D) {
+    case 64:
+      return launch_variant<64>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
+                                sq, sk, sv, sb, scale, causal, st);
+    case 96:
+      return launch_variant<96>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
+                                sq, sk, sv, sb, scale, causal, st);
+    case 256:
+      return launch_variant<256>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
+                                 sq, sk, sv, sb, scale, causal, st);
+    default:
+      return -1;
+  }
 }

@@ -8,12 +8,18 @@
 // both libraries.
 //
 // Head dims. Every kernel is a template over the head dim D and is built
-// for the dims in kHeadDims (GPT-2's 64, GPT-J's 256); the C entry points
-// refuse any other. A 64 x D tile is D / 64 swizzle atoms of 64 rows x 128
-// bytes (64 bf16 columns each, 8 KB), atom a holding columns 64 a .. 64 a +
-// 63: a K-major product (S = Q K^T) steps through the atoms 4 k-steps at a
-// time (kmajor_step), an MN-major one (O += P V) takes one atom per 64
-// output columns (mn_step), each with its own 64 x 64 accumulator.
+// for the dims in kHeadDims (GPT-2's 64, GPT-NeoX-20B's 96, GPT-J's 256);
+// the C entry points refuse any other, and a per-D constant is chosen with
+// per_head_dim, which fails to compile for a D outside kHeadDims. A 64 x D
+// tile is tile_cols<D>() / 64 swizzle atoms of 64 rows x 128 bytes (64 bf16
+// columns each, 8 KB), atom a holding columns 64 a .. 64 a + 63: a K-major
+// product (S = Q K^T) steps through the atoms 4 k-steps at a time
+// (kmajor_step), D / 16 k-steps in all, an MN-major one (O += P V) takes
+// one atom per 64 output columns (mn_step), each with its own 64 x 64
+// accumulator. At D = 96 a row is 1.5 atoms: the tile is padded to 128
+// columns (two atoms, 16 KB), columns 96..127 zero-filled by the copies and
+// read by no K-major product (6 k-steps); the MN-major products' columns
+// 96..127 are computed and dropped at the store.
 
 #pragma once
 
@@ -27,17 +33,35 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeadDims[] = {64, 256};  // the head dims the kernels are built for
+constexpr int kHeadDims[] = {64, 96, 256};  // the head dims the kernels are built for
 constexpr int kBK = 64;           // keys per tile (the visit rule's key tile)
 constexpr float kNegInf = -1e9f;  // the framework's finite mask value
 constexpr int kTileThreads = 128;         // one warpgroup
 constexpr int kAtomBytes = 64 * 128;      // one 64-row x 128-byte swizzle atom, 8 KB
 
-// one 64 x D bf16 tile: 8 KB at D = 64, 32 KB at D = 256
+// One constant per built head dim, given in kHeadDims' order; any other D
+// fails to compile, so a new head dim must choose each constant explicitly.
+template <int D, typename T>
+__host__ __device__ constexpr T per_head_dim(T at64, T at96, T at256) {
+  static_assert(D == 64 || D == 96 || D == 256, "D is not one of kHeadDims");
+  return D == 64 ? at64 : D == 96 ? at96 : at256;
+}
+static_assert(sizeof(kHeadDims) / sizeof(kHeadDims[0]) == 3 && kHeadDims[0] == 64 &&
+                  kHeadDims[1] == 96 && kHeadDims[2] == 256,
+              "per_head_dim takes its constants in kHeadDims' order");
+
+// The columns of a 64 x D tile in shared memory: D rounded up to whole
+// 64-column swizzle atoms (128 at D = 96; the padding is zero-filled)
+template <int D>
+__host__ __device__ constexpr int tile_cols() {
+  static_assert(D % 16 == 0, "whole wgmma k-steps of 16 columns");
+  return (D + 63) / 64 * 64;
+}
+
+// one 64 x D bf16 tile: 8 KB at D = 64, 16 KB at D = 96, 32 KB at D = 256
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
-  static_assert(D % 64 == 0, "a tile is whole 64-column swizzle atoms");
-  return 64 * D * 2;
+  return 64 * tile_cols<D>() * 2;
 }
 
 // whether the kernels are built for head dim D (kHeadDims)
@@ -113,7 +137,7 @@ __device__ __forceinline__ uint32_t swizzle(int r, int c) {
   return static_cast<uint32_t>(r * 128 + ((c ^ (r & 7)) << 4));
 }
 
-// Byte offset of 16-byte chunk c (any c < D / 8) of row r in a 64 x D tile:
+// Byte offset of 16-byte chunk c (any c < tile_cols / 8) of row r in a 64 x D tile:
 // atom c / 8, chunk c mod 8 within it.
 __device__ __forceinline__ uint32_t tile_offset(int r, int c) {
   return static_cast<uint32_t>((c >> 3) * kAtomBytes) + swizzle(r, c & 7);
@@ -145,26 +169,30 @@ __device__ __forceinline__ void fence_proxy_async() {
 
 // Rows [r0, r0 + 64) of a [B, T, H, D] bf16 tensor (already offset to its
 // batch row and head) into a swizzled 64 x D tile; rows at or past T read
-// as 0. 8 D 16-byte chunks, spread over the kThreads threads that call it
-// (neighbouring threads on neighbouring chunks of a row): 4 per thread of
-// one warpgroup at D = 64, 16 at D = 256. Above D = 64 the thread's row and
-// chunk are made opaque per call: ptxas otherwise hoisted the 16 row
-// offsets of each tile out of the key loop and spilled.
+// as 0. 8 tile_cols 16-byte chunks, spread over the kThreads threads that
+// call it (neighbouring threads on neighbouring chunks of a row): 4 per
+// thread of one warpgroup at D = 64, 8 at D = 96, 16 at D = 256. At D = 96
+// chunks 12..15 of a row are the padding: their copies read nothing
+// (src-size 0) and fill 0, so nothing past column 95 is read. Above D = 64
+// the thread's row and chunk are made opaque per call: ptxas otherwise
+// hoisted the 16 row offsets of each tile out of the key loop and spilled.
 template <int D, int kThreads = kTileThreads>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src,
                                                 long long st, int r0,
                                                 int T_len) {
-  constexpr int kRowChunks = D / 8;
+  constexpr int kRowChunks = tile_cols<D>() / 8;
   constexpr int kRowsPerPass = kThreads / kRowChunks;
+  constexpr bool kPadded = tile_cols<D>() != D;
   static_assert(kThreads % kRowChunks == 0 && 64 % kRowsPerPass == 0,
                 "whole rows per pass");
   int c = threadIdx.x % kRowChunks, r = threadIdx.x / kRowChunks;
   if constexpr (D > 64) asm volatile("" : "+r"(c), "+r"(r));
+  const bool in_row = !kPadded || c < D / 8;  // a chunk of the row, not padding
 #pragma unroll
   for (int i = 0; i < 64 / kRowsPerPass; ++i) {
     const int row = r + i * kRowsPerPass;
     const int t = r0 + row;
-    const bool valid = t < T_len;
+    const bool valid = in_row && t < T_len;
     cp_async16(dst + tile_offset(row, c), valid ? src + t * st + c * 8 : src, valid);
   }
 }

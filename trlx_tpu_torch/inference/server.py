@@ -90,9 +90,13 @@ class InferenceServer:
         train = config.train
         self.family = get_model_family(config.model.model_type)
         self.model_config, backbone = load_arch(self.family, config.model, train)
+        # built in param_dtype: with bfloat16 the policy is made in bf16 on
+        # the device directly (no f32 copy at any time); the value head's
+        # last layer computes in f32 and is kept in f32 in either build
         self.model = CausalLMWithValueHead(
             self.model_config, self.family.backbone_cls, device=self.device
         )
+        self.model.v_head.fc2.float()
         if params is not None:
             self.model.load_state_dict(
                 {k: torch.as_tensor(np.asarray(v)) for k, v in params.items()}
@@ -105,7 +109,8 @@ class InferenceServer:
                 self.model.transformer.load_state_dict(backbone)
         # serve a compute-dtype copy of the weights: every op casts its
         # parameters to the compute dtype per use, so casting once is
-        # exact; the value head's last layer computes in f32 and stays
+        # exact (a no-op for a bf16 build); the value head's last layer
+        # computes in f32 and stays
         compute = torch_dtype(self.model_config.dtype)
         with torch.no_grad():
             for name, p in self.model.named_parameters():

@@ -1,5 +1,6 @@
 """HF checkpoint directory -> the port's config and state dict (counterpart
-of the GPT-2, GPT-J and T5 parts of :mod:`trlx_tpu.models.conversion`).
+of the GPT-2, GPT-J, GPT-NeoX and T5 parts of
+:mod:`trlx_tpu.models.conversion`).
 
 The JAX package loads through ``transformers``; the port reads the
 directory itself, so it needs neither ``transformers`` nor ``safetensors``:
@@ -25,6 +26,16 @@ What the maps handle:
   buffers (``attn.bias``, ``attn.masked_bias``) and the rotary table
   (``embed_positions``) are not weights; a ``config.json`` without
   ``rotary_dim`` rotates the whole head.
+- GPT-NeoX: keys come with or without the ``gpt_neox.`` prefix (the head,
+  ``embed_out.weight``, has none); HF's ``nn.Linear`` is already [out, in],
+  so nothing transposes, and the fused ``query_key_value`` keeps HF's
+  head-major [H, 3 Dh] output layout; the head is untied and has no bias;
+  the per-layer buffers of older checkpoints (``attention.bias``, the
+  causal mask, ``attention.masked_bias`` and
+  ``attention.rotary_emb.inv_freq``) are not weights: the projection biases
+  are ``attention.query_key_value.bias`` and ``attention.dense.bias``. The
+  MLP is 4 x ``hidden_size`` wide, as in the JAX package; a checkpoint
+  whose ``intermediate_size`` says otherwise is refused.
 - T5/UL2: HF's ``nn.Linear`` is already [out, in], so nothing transposes
   (the JAX converter does, for flax's [in, out] kernels); the embeddings
   are ``shared`` (safetensors leaves the tied ``*.embed_tokens`` copies
@@ -47,6 +58,7 @@ import torch
 
 from trlx_tpu_torch.models.gpt2 import GPT2Config, torch_dtype
 from trlx_tpu_torch.models.gptj import GPTJConfig
+from trlx_tpu_torch.models.neox import NeoXConfig
 from trlx_tpu_torch.models.t5 import T5Config
 
 SAFETENSORS_DTYPES = {
@@ -54,6 +66,7 @@ SAFETENSORS_DTYPES = {
     "F16": torch.float16,
     "BF16": torch.bfloat16,
     "I64": torch.int64,
+    "BOOL": torch.bool,  # the causal-mask buffers of older GPT-NeoX checkpoints
 }
 
 # the weight files of an HF checkpoint directory, in the order HF prefers
@@ -220,6 +233,65 @@ def convert_gptj_state_dict(
     return {n: sd[n].to(dt).contiguous() for n in names}
 
 
+def neox_config_from_hf(model_path: str) -> NeoXConfig:
+    """The ``config.json`` of an HF GPT-NeoX checkpoint directory ->
+    :class:`NeoXConfig`. The MLP is 4 x ``hidden_size`` wide, as in the JAX
+    package (whose model ignores ``intermediate_size``); a checkpoint whose
+    ``intermediate_size`` says otherwise is refused."""
+    d = _hf_config(model_path)
+    if d.get("intermediate_size") not in (None, 4 * d["hidden_size"]):
+        raise ValueError(
+            f"{model_path}: intermediate_size={d['intermediate_size']}; the "
+            f"GPT-NeoX MLP is built 4 x hidden_size = {4 * d['hidden_size']} wide"
+        )
+    return NeoXConfig(
+        vocab_size=d["vocab_size"],
+        max_position_embeddings=d.get("max_position_embeddings", 2048),
+        hidden_size=d["hidden_size"],
+        num_hidden_layers=d["num_hidden_layers"],
+        num_attention_heads=d["num_attention_heads"],
+        rotary_pct=d.get("rotary_pct", 0.25),
+        rotary_emb_base=d.get("rotary_emb_base", 10000.0),
+        use_parallel_residual=d.get("use_parallel_residual", True),
+        layer_norm_eps=d.get("layer_norm_eps", 1e-5),
+    )
+
+
+# port name -> HF name within a GPT-NeoX layer (both sides [out, in])
+_NEOX_LAYER = {
+    "ln_1": "input_layernorm",
+    "ln_2": "post_attention_layernorm",
+    "attn.query_key_value": "attention.query_key_value",
+    "attn.dense": "attention.dense",
+    "mlp.dense_h_to_4h": "mlp.dense_h_to_4h",
+    "mlp.dense_4h_to_h": "mlp.dense_4h_to_h",
+}
+
+
+def convert_neox_state_dict(
+    state_dict: Mapping[str, torch.Tensor], config: NeoXConfig, dtype="float32"
+) -> Dict[str, torch.Tensor]:
+    """HF ``GPTNeoXForCausalLM`` state dict -> the state dict of
+    :class:`~trlx_tpu_torch.models.neox.NeoXModel` (no transposes; the
+    untied head has no bias; the attention buffers are left out)."""
+    sd = {k.removeprefix("gpt_neox."): v for k, v in state_dict.items()}
+    names = {  # port name -> HF name
+        "wte.weight": "embed_in.weight",
+        "ln_f.weight": "final_layer_norm.weight",
+        "ln_f.bias": "final_layer_norm.bias",
+        "lm_head.weight": "embed_out.weight",
+    }
+    for i in range(config.num_hidden_layers):
+        for port, hf in _NEOX_LAYER.items():
+            for leaf in ("weight", "bias"):
+                names[f"h.{i}.{port}.{leaf}"] = f"layers.{i}.{hf}.{leaf}"
+    missing = [hf for hf in names.values() if hf not in sd]
+    if missing:
+        raise KeyError(f"GPT-NeoX checkpoint lacks {missing[:5]}")
+    dt = torch_dtype(dtype)
+    return {port: sd[hf].to(dt).contiguous() for port, hf in names.items()}
+
+
 def t5_config_from_hf(model_path: str) -> T5Config:
     """The ``config.json`` of an HF T5/UL2 checkpoint directory ->
     :class:`T5Config`."""
@@ -295,6 +367,15 @@ def load_gptj_checkpoint(
     backbone's state dict in ``dtype``, on the CPU)."""
     config = gptj_config_from_hf(model_path)
     return config, convert_gptj_state_dict(read_hf_weights(model_path), config, dtype)
+
+
+def load_neox_checkpoint(
+    model_path: str, dtype="float32"
+) -> Tuple[NeoXConfig, Dict[str, torch.Tensor]]:
+    """An HF GPT-NeoX checkpoint directory -> (:class:`NeoXConfig`, the
+    backbone's state dict in ``dtype``, on the CPU)."""
+    config = neox_config_from_hf(model_path)
+    return config, convert_neox_state_dict(read_hf_weights(model_path), config, dtype)
 
 
 def load_t5_checkpoint(

@@ -15,6 +15,13 @@ returns the port's state dict. Flax names map one to one:
   ``transformer.h.0.attn.q_proj.weight`` (likewise ``k_proj``, ``v_proj``,
   ``out_proj``, ``mlp/fc_in``, ``mlp/fc_out``), and the untied head
   ``transformer/lm_head/{kernel,bias}`` -> ``transformer.lm_head.{weight,bias}``;
+- GPT-NeoX: ``transformer/h_0/attn/query_key_value/kernel`` ->
+  ``transformer.h.0.attn.query_key_value.weight`` (its head-major [H, 3 Dh]
+  output layout kept; likewise ``attn/dense``, ``mlp/dense_h_to_4h``,
+  ``mlp/dense_4h_to_h``), ``transformer/h_0/ln_2/scale`` ->
+  ``transformer.h.0.ln_2.weight``, ``transformer/ln_f/scale`` ->
+  ``transformer.ln_f.weight``, and the bias-free untied head
+  ``transformer/lm_head/kernel`` -> ``transformer.lm_head.weight``;
 - ``v_head/fc1/kernel`` -> ``v_head.fc1.weight``;
 - ILQL: ``heads/q1_head/fc2/kernel`` -> ``heads.q1_head.fc2.weight`` (the
   ``CausalLMWithILQLHeads`` tree), and the JAX ILQL trainer's

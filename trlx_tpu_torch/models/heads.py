@@ -253,8 +253,10 @@ class CausalLMWithILQLHeads(nn.Module):
 
 def init_params(model: nn.Module, seed: int) -> None:
     """Random init from ``seed``: N(0, 0.02) weights, embeddings and
-    relative position tables, zero biases, unit layer-norm scales (GPT-2's
-    ``ln_*``, T5's ``ln_*`` and ``*_ln``)."""
+    relative position tables, zero biases, unit layer-norm scales (GPT-2's,
+    GPT-J's and GPT-NeoX's ``ln_*``, T5's ``ln_*`` and ``*_ln``). The draws
+    are f32 whatever a parameter's dtype, one tensor at a time, so a model
+    built in bf16 holds exactly the f32 build's weights rounded to bf16."""
     gen = torch.Generator(device=next(model.parameters()).device)
     gen.manual_seed(int(seed))
     with torch.no_grad():
@@ -263,5 +265,7 @@ def init_params(model: nn.Module, seed: int) -> None:
                 p.zero_()
             elif re.search(r"[._]ln[._]", name):
                 p.fill_(1.0)
-            else:
+            elif p.dtype == torch.float32:
                 p.normal_(0.0, 0.02, generator=gen)
+            else:
+                p.copy_(torch.empty(p.shape, device=p.device).normal_(0.0, 0.02, generator=gen))

@@ -1,8 +1,9 @@
 """Model-family registry: ``model.model_type`` -> architecture kit
 (counterpart of :mod:`trlx_tpu.models.registry`; ``gpt2``, ``gptj`` with
-its alias ``gpt-j``, and ``t5`` with its alias ``ul2``, the seq2seq
-family), and :func:`load_arch`, the architecture and weights a config asks
-for. The JAX package's other families are refused by name.
+its alias ``gpt-j``, ``gpt_neox`` with its aliases ``neox`` and
+``gpt-neox``, and ``t5`` with its alias ``ul2``, the seq2seq family), and
+:func:`load_arch`, the architecture and weights a config asks for. The JAX
+package's other families (GPT-Neo, ``gpt2_moe``) are refused by name.
 """
 
 from __future__ import annotations
@@ -25,8 +26,7 @@ class ModelFamily:
 _FAMILIES: Dict[str, ModelFamily] = {}
 
 #: the JAX package's other families (and aliases), refused by name
-UNPORTED_FAMILIES = ("gpt_neo", "gpt-neo", "gpt_neox", "neox", "gpt-neox",
-                     "gpt2_moe", "gpt2-moe")
+UNPORTED_FAMILIES = ("gpt_neo", "gpt-neo", "gpt2_moe", "gpt2-moe")
 
 
 def register_model_family(family: ModelFamily, *aliases: str) -> ModelFamily:
@@ -80,10 +80,12 @@ def _register_builtins() -> None:
     from trlx_tpu_torch.models.conversion import (
         load_gpt2_checkpoint,
         load_gptj_checkpoint,
+        load_neox_checkpoint,
         load_t5_checkpoint,
     )
     from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model, init_cache
     from trlx_tpu_torch.models.gptj import GPTJConfig, GPTJModel, init_gptj_cache
+    from trlx_tpu_torch.models.neox import NeoXConfig, NeoXModel, init_neox_cache
     from trlx_tpu_torch.models.t5 import T5Config, T5Model, init_t5_cache
 
     register_model_family(
@@ -92,6 +94,10 @@ def _register_builtins() -> None:
     register_model_family(
         ModelFamily("gptj", GPTJConfig, GPTJModel, init_gptj_cache, load_gptj_checkpoint),
         "gpt-j",
+    )
+    register_model_family(
+        ModelFamily("gpt_neox", NeoXConfig, NeoXModel, init_neox_cache, load_neox_checkpoint),
+        "neox", "gpt-neox",
     )
     register_model_family(
         ModelFamily("t5", T5Config, T5Model, init_t5_cache, load_t5_checkpoint,

@@ -23,6 +23,8 @@ _TRAINERS: Dict[str, type] = {}
 #: the default is refused instead of silently ignored.
 UNPORTED_TRAIN_KEYS = {
     "async_rl": ({}, "17 (async actor-learner)"),
+    "async_checkpoint": (False, "8 (asynchronous checkpoint write)"),
+    "telemetry": ({}, "19 (telemetry)"),
     "resilience": ({}, "18 (the supervisor)"),
     "resume_from_checkpoint": (False, "18 (resume)"),
     "health": ({}, "19 (health monitoring)"),
