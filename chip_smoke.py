@@ -8,8 +8,9 @@ Phases, each fatal on failure:
    the tensor cores, ``decode`` for bf16 with Q <= 16, ``fma`` for f32;
    ``flash_bwd.cu``: K2 dQ and K3 dK/dV, each ``tile`` for bf16 on the
    tensor cores and ``fma`` for f32, K2 in two instantiations, without and
-   with the bias gradient; every kernel instantiated for head dims 64, 96
-   and 256, each instantiation gated on its own) with ``nvcc`` for ``sm_90a``, both
+   with the bias gradient; every kernel instantiated for head dims 16, 24,
+   32, 64, 96 and 256, each instantiation gated on its own) with ``nvcc``
+   for ``sm_90a``, both
    sources at once, and beside them each source's device code alone with
    ``ptxas -v`` (every run, so the report holds when the libraries were
    already built); print ``ptxas``'s registers, shared memory and spills
@@ -71,7 +72,19 @@ Phases, each fatal on failure:
    shapes (H = 64: the rollout prefill B=64 Q=48 K=96 and decode step, the
    update B=32 T=96 causal, the reference scoring B=64 T=96 causal, phase
    14's admission prefill B=8 Q=512 K=576 and decode step B=32 K=576), the
-   planted faults aimed at the padded atom's real columns 64..95;
+   planted faults aimed at the padded atom's real columns 64..95; and the
+   same for the small head dims, each tile padded to one 64-column atom:
+   D = 24 at the randomwalks configs' shapes (H = 6: the rollout prefill
+   B=128 Q=10 K=19, its decode step, the update B=64 T=19 causal, the
+   reference scoring B=128 T=19 causal), D = 32 at the GPT-2 stand-in's
+   (H = 4: the rollout prefill B=64 Q=8 K=20 and decode step, the update
+   B=16 T=20 causal, the served prefill B=8 Q=40 K=64 and decode step) and
+   D = 16 at the T5 stand-in's (H = 4: the encoder and decoder
+   self-attentions with their learned bias through K2's dbias, the cross
+   attention) and the learning guard's (H = 2: the update B=16 T=10
+   causal, a decode step), each with the edges above at 4 heads, the
+   planted faults aimed at the row's last 16-byte chunk (columns 16..23
+   at D = 24);
 3. model — full-width GPT-2 in f32 through the kernels against the plain
    attention: the forward without a cache, prefill + decode through the
    paged cache against the plain full forward of the whole sequence, and
@@ -263,9 +276,42 @@ Phases, each fatal on failure:
    exactly. Prints the wall with the checkpoint write timed apart, collect
    and train seconds, rollout tokens/s, updates/s and the peak.
 
-Each path (phases 4 to 15, each definition of phase 7 and each run of
-phase 9 on its own) runs with the launch counters set to 0 just before it
-and read just after, and its peak memory is read from a clean start.
+16. randomwalks PPO — ``trlx_tpu_torch.train(reward_fn=, metric_fn=,
+   prompts=, eval_prompts=)`` on ``configs/ppo_randomwalks.yml`` as written
+   (6 blocks, 144 wide, 6 heads of 24, f32, batch 64, 128 rollouts, 4
+   epochs, 200 updates, evals every 20) with a copy of
+   ``examples/randomwalks.py``'s task; then the same yml in bf16 over f32
+   masters for 32 updates (named deviations). Gates: finite stats; moved
+   parameters; ``load`` exact; K1 = 6 x the trainer's forwards, by variant
+   as each attention call's query width picks it (f32 ``fma``; bf16
+   ``tile`` over the 19-column update and scoring, ``decode`` for the
+   10-column prefill and the steps); K2 = K3 = 6 x the updates in the
+   dtype's variant; no input copy or plain call. Prints wall, collect s,
+   rollout tokens/s, updates/s, peak and ``metrics/optimality`` at the
+   first and last eval (not gated);
+17. randomwalks ILQL — ``configs/ilql_randomwalks.yml`` as written (1000
+   updates of batch 64 on the copied ``make_dataset``'s 1000 walks, greedy
+   evals every 100 under the adjacency ``logit_mask``) through
+   ``trlx_tpu_torch.train(dataset=, logit_mask=)``. Gates: the target
+   sync bit for bit after every update; finite stats; K1 ``fma`` = 6 x the
+   forwards, K2 = K3 = 6 x the updates ``fma``; no input copy or plain
+   call. Prints updates/s, eval tokens/s and the optimality;
+18. the stand-ins and the learning guard — (a) the GPT-2 stand-in of
+   ``examples/pretrained_standin.py`` (vocab 64, 128 wide, 2 blocks, 4
+   heads of 32), written as an HF checkpoint with random weights (the
+   card's machine has no ``transformers`` to pretrain it) and loaded by
+   ``model.model_path`` on the stand-in's PPO config in f32 (96 updates)
+   and bf16 (16), then served through ``InferenceServer`` in bf16 (64
+   prompts of 17-40 tokens: ``tile`` prefills, ``decode`` steps); (b) the
+   T5 stand-in (``d_model`` 64, 4 heads of ``d_kv`` 16, 2 + 2 layers, 8
+   buckets) the same two ways through the ``Seq2SeqPPOTrainer``, K2 with
+   dbias = 4 x the updates; (c) ``tests/test_torch_learning.py``'s
+   target-token task (2 heads of 16): mean reward up by its 0.15 margin
+   within 96 updates. Gates as phase 16's, with the loaded bits.
+
+Each path (phases 4 to 18, each definition of phase 7, each run of phases
+9, 16 and 18 on its own) runs with the launch counters set to 0 just
+before it and read just after, and its peak memory is read from a clean start.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
 without CUDA, or when any phase fails. ``--profile PATH`` additionally
@@ -444,11 +490,13 @@ def tensor_core_instructions(fa, library: str) -> dict:
 # per library, the kernels phase 1 gates, each by a piece of its mangled
 # name: each in the ptxas report with no spill; the tile kernels also with
 # tensor-core instructions in their SASS. Every kernel is built for head
-# dims 64 (ILi64E), 96 (ILi96E, named "_d96" here) and 256 (ILi256E,
-# "_d256"), gated apart; K2's tile kernel has two instantiations per head
-# dim, without the bias gradient (Lb0E) and with it (Lb1E); the backward's
-# f32 kernels (fma) are gated on spills as well
-HEAD_DIM_SUFFIXES = ((64, ""), (96, "_d96"), (256, "_d256"))
+# dims 64 (ILi64E), 96 (ILi96E, named "_d96" here), 256 (ILi256E,
+# "_d256"), 16, 24 and 32 ("_d16", "_d24", "_d32"), gated apart; K2's tile
+# kernel has two instantiations per head dim, without the bias gradient
+# (Lb0E) and with it (Lb1E); the backward's f32 kernels (fma) are gated on
+# spills as well
+HEAD_DIM_SUFFIXES = ((64, ""), (96, "_d96"), (256, "_d256"), (16, "_d16"), (24, "_d24"),
+                     (32, "_d32"))
 GATED_KERNELS = {
     "flash_fwd": {f"flash_fwd_{v}_kernel{sfx}": f"flash_fwd_{v}_kernelILi{d}E"
                   for d, sfx in HEAD_DIM_SUFFIXES
@@ -2441,6 +2489,37 @@ def ilql_dataset(seed: int = 3):
     return samples, rewards
 
 
+def ilql_update_watch(torch, train_step, rows, syncs, sync_ok, times):
+    """A replacement of ``ILQLTrainer.train_step`` (``train_step``, the
+    original) that times each update into ``times["update_s"]``, appends
+    its stats to ``rows`` and holds the target heads after it: ``alpha * q
+    + (1 - alpha) * previous`` bit for bit on the sync steps (appended to
+    ``syncs``), bit-identical to before on the rest; ``sync_ok[0]`` stays
+    True while every update holds."""
+    from trlx_tpu_torch.trainer.ilql_trainer import q_parameters
+
+    def watched(self, mb):
+        alpha = self.config.method.alpha
+        every = self.config.method.steps_for_target_q_sync
+        before = [t.clone() for t in q_parameters(self.target)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = train_step(self, mb)
+        torch.cuda.synchronize()
+        times["update_s"] += time.perf_counter() - t0
+        rows.append({k: float(v) for k, v in stats.items()})
+        if self.step % every == 0:
+            syncs.append(self.step)
+            want = [alpha * q + (1 - alpha) * t
+                    for q, t in zip(q_parameters(self.model.heads), before)]
+        else:
+            want = before
+        sync_ok[0] &= all(torch.equal(a, w) for a, w in zip(q_parameters(self.target), want))
+        return stats
+
+    return watched
+
+
 def phase_ilql(torch, fa):
     """Phase 8, offline ILQL: ``trlx_tpu_torch.train(dataset=...,
     model_path=...)`` on ``configs/ilql_sentiments.yml`` from a GPT-2-small
@@ -2456,7 +2535,7 @@ def phase_ilql(torch, fa):
     from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
     from trlx_tpu_torch.models.heads import CausalLMWithILQLHeads, init_params
     from trlx_tpu_torch.trainer import ilql_trainer
-    from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer, q_parameters
+    from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer
 
     log("phase 8: offline ILQL on configs/ilql_sentiments.yml; deviations: " + json.dumps([
         {"setting": k, "yml": b, "port": p, "why": why} for k, b, p, why in ILQL_DEVIATIONS]))
@@ -2482,24 +2561,7 @@ def phase_ilql(torch, fa):
         loaded.append(state_equal(torch, self.model.transformer, written))
         return orig["learn"](self)
 
-    def train_step(self, mb):
-        alpha = self.config.method.alpha
-        every = self.config.method.steps_for_target_q_sync
-        before = [t.clone() for t in q_parameters(self.target)]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats = orig["train_step"](self, mb)
-        torch.cuda.synchronize()
-        times["update_s"] += time.perf_counter() - t0
-        rows.append({k: float(v) for k, v in stats.items()})
-        after = q_parameters(self.target)
-        if self.step % every == 0:
-            syncs.append(self.step)
-            want = [alpha * q + (1 - alpha) * t for q, t in zip(q_parameters(self.model.heads), before)]
-        else:
-            want = before
-        sync_ok[0] &= all(torch.equal(a, w) for a, w in zip(after, want))
-        return stats
+    train_step = ilql_update_watch(torch, orig["train_step"], rows, syncs, sync_ok, times)
 
     def sample_apply(self, input_ids, *a, **kw):
         sampler_calls[0] += 1
@@ -3932,26 +3994,44 @@ def wide_kernel_cases(torch, attn, prefix: str, D: int, H: int, rollout_batch: i
     mask = (torch.arange(576, device=dev)[None] <= depth[:, None]).long()
     bias = attn.causal_bias(1, 576, depth, dev) + attn.padding_bias(mask)
     cases.append((f"{prefix}_serving_decode", *qkv(32, 1, 576), bias, False, "forward"))
-    # the edges, at 4 heads
+    return cases + edge_kernel_cases(torch, attn, gen, prefix, D)
+
+
+def edge_kernel_cases(torch, attn, gen, prefix: str, D: int):
+    """The edges every head dim's phase-2 cases share, at 4 heads, drawn
+    from ``gen`` (f32, kinds as :func:`wide_kernel_cases`'): ragged Q/K
+    with a padding bias, 16 key tiles with peaked logits, 16 query chunks
+    and key tiles under the causal flag, Q <= 16 under the causal flag,
+    also with rows that see only padding, a learned bias through K2's
+    dbias."""
+    dev = "cuda"
+
+    def qkv(B, Q, K):
+        return [torch.randn(B, T, 4, D, generator=gen, device=dev) for T in (Q, K, K)]
+
+    cases = []
     keep = torch.arange(141, device=dev)[None] < 4
     mask = (torch.rand(2, 141, generator=gen, device=dev) > 0.3) | keep
-    cases.append((f"{prefix}_ragged", *qkv(2, 77, 141, 4), attn.padding_bias(mask.long()), False,
+    cases.append((f"{prefix}_ragged", *qkv(2, 77, 141), attn.padding_bias(mask.long()), False,
                   "backward"))
-    q, k, v = qkv(2, 130, 1024, 4)
+    q, k, v = qkv(2, 130, 1024)
     bias = 2 * torch.randn(2, 1, 130, 1024, generator=gen, device=dev)
     cases.append((f"{prefix}_long_k", 3 * q, k, v, bias, False, "backward"))
     keep = torch.arange(1024, device=dev)[None] < 4
     mask = (torch.rand(1, 1024, generator=gen, device=dev) > 0.2) | keep
-    cases.append((f"{prefix}_long_causal", *qkv(1, 1024, 1024, 4),
+    cases.append((f"{prefix}_long_causal", *qkv(1, 1024, 1024),
                   attn.padding_bias(mask.long()), True, "backward"))
-    cases.append((f"{prefix}_small_q_causal", *qkv(2, 9, 130, 4), None, True, "backward"))
-    cases.append((f"{prefix}_small_q_masked_rows", *qkv(2, 9, 130, 4),
+    cases.append((f"{prefix}_small_q_causal", *qkv(2, 9, 130), None, True, "backward"))
+    cases.append((f"{prefix}_small_q_masked_rows", *qkv(2, 9, 130),
                   attn.padding_bias(small_q_masked_rows_mask(torch, 2, 130, dev)), True,
                   "backward"))
-    # a learned [1, H, Q, K] bias under a padding bias: K2 with dbias
+    # a learned [1, H, Q, K] bias under left padding: K2 with dbias
     table = 2 * torch.randn(1, 4, 130, 130, generator=gen, device=dev)
-    cases.append((f"{prefix}_dbias", *qkv(2, 130, 130, 4),
-                  table + attn.padding_bias(left(2, 130, 130, 64, 130).long()), False, "dbias"))
+    q, k, v = qkv(2, 130, 130)
+    lens = torch.randint(64, 131, (2, 1), generator=gen, device=dev)
+    cols = torch.arange(130, device=dev)[None]
+    pad = attn.padding_bias(((cols >= 130 - lens) & (cols < 130)).long())
+    cases.append((f"{prefix}_dbias", q, k, v, table + pad, False, "dbias"))
     return cases
 
 
@@ -3977,17 +4057,19 @@ def relative_o_check(torch, fa, q, k, v, bias, causal, o, o_ref, dtype_name) -> 
     plain weights of :func:`visited_reference` times |V|, in f32), and two
     planted faults held to break that bound: the columns of V's last
     64-column swizzle atom left out of P.V (192..255 at D = 256; at D = 96
-    the padded atom's real columns 64..95), and those columns' share of key
-    tile 0 left out. Returns the row's fields: max |dO| / bound for O and
-    for each fault, and ``ok`` when O's is at most 1 and each fault's above
-    1."""
+    the padded atom's real columns 64..95; below D = 64, where the row is
+    one padded atom, its last 16-byte chunk, columns D - 8 .. D - 1: 16..23
+    at D = 24), and those columns' share of key tile 0 left out. Returns
+    the row's fields: max |dO| / bound for O and for each fault, and
+    ``ok`` when O's is at most 1 and each fault's above 1."""
     qf, kf, vf = q.float(), k.float(), v.float()
     o32, ref = o.float(), o_ref.float()
     tol = O_REL_TOL[dtype_name] * (
         visited_reference(torch, fa, qf, kf, vf.abs(), bias, causal)[0] + ref.abs())
     tol = tol.clamp_min(1e-30)
     D = q.shape[-1]
-    last = slice((D - 1) // 64 * 64, D)  # the last atom's real columns
+    # the last atom's real columns, or below D = 64 the row's last chunk
+    last = slice((D - 1) // 64 * 64 if D >= 64 else D - 8, D)
     atom = o32.clone()
     atom[..., last] = 0
     tile0 = vf.clone()
@@ -5035,20 +5117,802 @@ def phase_neox_training(torch, fa):
     return ok, record
 
 
+# ---------------------------------------------------------------------------
+# The small head dims 16, 24 and 32: the randomwalks configs (phases 16 and
+# 17, D = 24), the pretrained stand-ins and the learning guard (phase 18,
+# D = 32 and 16)
+# ---------------------------------------------------------------------------
+
+SMALL_HEAD_DIMS = (16, 24, 32)
+
+
+def randomwalks_graph(n_nodes: int = 21, p_edge: float = 0.1, seed: int = 1002):
+    """``examples/randomwalks.py::generate_graph`` (copied: that module
+    imports the JAX package): a random directed adjacency with a ring
+    backbone, so every node reaches the goal."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    adj = rng.random((n_nodes, n_nodes)) < p_edge
+    np.fill_diagonal(adj, False)
+    for i in range(n_nodes):
+        adj[i, (i + 1) % n_nodes] = True
+    return adj
+
+
+def randomwalks_distances(adj, goal: int = 0):
+    """``examples/randomwalks.py::shortest_lengths``: BFS distances to
+    ``goal`` along the edges."""
+    import numpy as np
+
+    dist = np.full(adj.shape[0], np.inf)
+    dist[goal] = 0
+    frontier = [goal]
+    while frontier:
+        nxt = []
+        for v in frontier:
+            for u in np.nonzero(adj[:, v])[0]:
+                if dist[u] == np.inf:
+                    dist[u] = dist[v] + 1
+                    nxt.append(u)
+        frontier = nxt
+    return dist
+
+
+def randomwalks_task(n_nodes: int = 21, walk_length: int = 9, seed: int = 1002):
+    """``examples/randomwalks.py::make_task``: ``(reward_fn, metric_fn,
+    prompts, logit_mask, info)``. Node i is token i, ``n_nodes`` eos,
+    ``n_nodes + 1`` pad; a prompt is one start node; the reward is the
+    walk's optimality (shortest length over taken length, 0 for an invalid
+    edge or a walk that never reaches the goal)."""
+    import numpy as np
+
+    goal = 0
+    adj = randomwalks_graph(n_nodes, seed=seed)
+    dists = randomwalks_distances(adj, goal)
+
+    def walk_score(sample: str, query: str) -> float:
+        start = int(query.split()[-1])
+        walk = [start]
+        for tok in sample.split():
+            if int(tok) >= n_nodes:
+                break
+            walk.append(int(tok))
+        length = 0.0
+        for u, v in zip(walk[:-1], walk[1:]):
+            if not adj[u, v]:
+                return 0.0
+            length += 1
+            if v == goal:
+                return float(dists[start] / length)
+        return 0.0
+
+    def reward_fn(samples, queries, response_gt=None):
+        return [walk_score(s, q) for s, q in zip(samples, queries)]
+
+    def metric_fn(samples):
+        starts = list(range(1, n_nodes))
+        return {"optimality": [walk_score(s, str(st)) for s, st in zip(samples, starts * 10)]}
+
+    vocab = n_nodes + 2
+    logit_mask = np.zeros((vocab, vocab), dtype=bool)
+    logit_mask[:n_nodes, :n_nodes] = adj
+    return reward_fn, metric_fn, [[i] for i in range(1, n_nodes)], logit_mask, dict(
+        adj=adj, dists=dists, goal=goal, n_nodes=n_nodes, walk_length=walk_length)
+
+
+def randomwalks_dataset(info, n_walks: int = 1000, seed: int = 0):
+    """``examples/ilql_randomwalks.py::make_dataset``: random-policy walks
+    as ``(tokens, action_start)`` samples with their optimality rewards."""
+    import numpy as np
+
+    adj, dists, goal = info["adj"], info["dists"], info["goal"]
+    rng = np.random.default_rng(seed)
+    samples, rewards = [], []
+    for _ in range(n_walks):
+        start = int(rng.integers(1, info["n_nodes"]))
+        node, walk = start, [start]
+        for _ in range(info["walk_length"]):
+            node = int(rng.choice(np.nonzero(adj[node])[0]))
+            walk.append(node)
+            if node == goal:
+                break
+        samples.append((walk, 1))
+        rewards.append(float(dists[start] / (len(walk) - 1)) if walk[-1] == goal else 0.0)
+    return samples, rewards
+
+
+# examples/pretrained_standin.py's token layout (copied: the smoke imports
+# nothing of examples/), shared by both stand-ins
+STANDIN_VOCAB = 64
+STANDIN_POS = list(range(2, 30))
+STANDIN_NEG = list(range(32, 60))
+STANDIN_EOS = 61
+STANDIN_PAD = 63
+# the stand-ins' architectures (examples/pretrained_standin.py:90-94,
+# :122-127); the card's machine has no transformers to pretrain them, so
+# phase 18 writes HF-layout checkpoints of these widths with random weights
+STANDIN_GPT2_HF_CONFIG = {
+    "model_type": "gpt2", "architectures": ["GPT2LMHeadModel"], "vocab_size": STANDIN_VOCAB,
+    "n_positions": 64, "n_embd": 128, "n_layer": 2, "n_head": 4, "layer_norm_epsilon": 1e-5,
+    "activation_function": "gelu_new", "bos_token_id": STANDIN_EOS,
+    "eos_token_id": STANDIN_EOS,
+}
+STANDIN_T5_HF_CONFIG = {
+    "model_type": "t5", "architectures": ["T5ForConditionalGeneration"],
+    "vocab_size": STANDIN_VOCAB, "d_model": 64, "d_kv": 16, "d_ff": 256, "num_layers": 2,
+    "num_decoder_layers": 2, "num_heads": 4, "relative_attention_num_buckets": 8,
+    "relative_attention_max_distance": 20, "feed_forward_proj": "relu",
+    "tie_word_embeddings": True, "layer_norm_epsilon": 1e-6, "decoder_start_token_id": 0,
+    "eos_token_id": 1, "pad_token_id": 0,
+}
+
+
+def standin_prompts(rng, n: int, length: int) -> list:
+    """``examples/pretrained_standin.py::make_prompts``: half positive-topic,
+    half negative-topic prompts, shuffled."""
+    import numpy as np
+
+    pos = rng.choice(STANDIN_POS, size=(n // 2, length))
+    neg = rng.choice(STANDIN_NEG, size=(n - n // 2, length))
+    docs = np.concatenate([pos, neg]).astype(np.int64)
+    rng.shuffle(docs)
+    return [list(map(int, row)) for row in docs]
+
+
+def standin_reward(samples, queries, response_gt=None):
+    """``examples/pretrained_standin.py::sentiment_reward``: the mean over
+    response tokens of +1 (positive set), -1 (negative set), 0 (other)."""
+    pos, neg = set(STANDIN_POS), set(STANDIN_NEG)
+    scores = []
+    for s in samples:
+        toks = [int(t) for t in s.split() if t.lstrip("-").isdigit()]
+        scores.append(sum((t in pos) - (t in neg) for t in toks) / len(toks) if toks else 0.0)
+    return scores
+
+
+def standin_rl_config(model_path: str, family: str, **train_overrides) -> dict:
+    """``examples/pretrained_standin.py::_rl_config``: the stand-ins' PPO
+    config (96 updates of batch 16, 64 rollouts, 2 epochs, 8 prompt + 12
+    new tokens, f32)."""
+    causal = family == "gpt2"
+    gen_ids = ({"eos_token_id": STANDIN_EOS, "pad_token_id": STANDIN_PAD} if causal
+               else {"eos_token_id": 1, "pad_token_id": 0, "decoder_start_token_id": 0})
+    return {
+        "model": {"model_type": family, "model_path": model_path},
+        "train": {
+            "seq_length": 8, "batch_size": 16, "epochs": 12, "total_steps": 96,
+            "eval_interval": 100000, "checkpoint_interval": 1000000, "lr_init": 1.0e-3,
+            "lr_target": 1.0e-3, "mesh": {"dp": -1, "fsdp": 1, "tp": 1}, "dtype": "float32",
+            "seed": 3, **({} if causal else {"trainer": "Seq2SeqPPOTrainer"}),
+            **train_overrides,
+        },
+        "method": {
+            "name": "PPOConfig", "num_rollouts": 64, "chunk_size": 64, "ppo_epochs": 2,
+            "init_kl_coef": 0.005, "scale_reward": None,
+            "gen_kwargs": {"max_new_tokens": 12, "min_new_tokens": 12, "top_k": 0,
+                           "do_sample": True, **gen_ids},
+        },
+    }
+
+
+def target_token_config(checkpoint_dir: str) -> dict:
+    """``tests/test_torch_learning.py::_target_config`` (the learning
+    guard): a from-scratch GPT-2 of 32 wide, 2 heads of 16; reward the share
+    of 6 response tokens equal to 5."""
+    return {
+        "model": {"model_type": "gpt2", "model_arch": {
+            "vocab_size": 16, "n_positions": 16, "n_embd": 32, "n_layer": 2, "n_head": 2}},
+        "train": {"seq_length": 4, "batch_size": 16, "epochs": 12, "total_steps": 96,
+                  "eval_interval": 1000, "checkpoint_interval": 100000,
+                  "lr_init": 1.0e-3, "lr_target": 1.0e-3, "dtype": "float32", "seed": 7,
+                  "checkpoint_dir": checkpoint_dir},
+        "method": {"name": "PPOConfig", "num_rollouts": 64, "chunk_size": 64, "ppo_epochs": 2,
+                   "init_kl_coef": 0.001, "scale_reward": None,
+                   "gen_kwargs": {"max_new_tokens": 6, "min_new_tokens": 6, "top_k": 0,
+                                  "do_sample": True, "eos_token_id": 14, "pad_token_id": 15}},
+    }
+
+
+def target_token_reward(samples, queries, response_gt=None):
+    return [sum(tok == "5" for tok in s.split()) / 6 for s in samples]
+
+
+def small_kernel_cases(torch, attn, D: int, seed: int):
+    """(name, q, k, v, bias, causal, kind) at head dim ``D`` in f32 from a
+    fixed seed, as :func:`wide_kernel_cases` gives them: the shapes of the
+    paths that run D (phases 16-18), left padding whose first causal rows
+    see only padding, and :func:`edge_kernel_cases`. Names start with
+    ``d<D>_``."""
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    p = f"d{D}"
+
+    def qkv(B, Q, K, H):
+        return [torch.randn(B, T, H, D, generator=gen, device=dev) for T in (Q, K, K)]
+
+    def pad(B, K, p_pad=0.2):  # padding with the first keys valid
+        keep = torch.arange(K, device=dev)[None] < 4
+        return attn.padding_bias(((torch.rand(B, K, generator=gen, device=dev) > p_pad)
+                                  | keep).long())
+
+    def left(B, Q, K, lo, hi, width=None):
+        lens = torch.randint(lo, hi + 1, (B, 1), generator=gen, device=dev)
+        cols = torch.arange(K, device=dev)[None]
+        return (cols >= Q - lens) & (cols < (Q if width is None else width))
+
+    def decode_step(B, K):  # one query at per-row depths over a K-wide cache
+        depth = torch.randint(0, K, (B,), generator=gen, device=dev)
+        mask = (torch.arange(K, device=dev)[None] <= depth[:, None]).long()
+        return attn.causal_bias(1, K, depth, dev) + attn.padding_bias(mask)
+
+    cases = []
+    if D == 24:
+        # configs/ppo_randomwalks.yml (6 heads of 24, 128 rollouts, batch
+        # 64): the sampler's prefill of the 10 left-padded prompt columns
+        # (one real) over the 19-wide cache and a decode step, the update
+        # and the reference scoring over 10 + 9 columns (causal, the prompt
+        # padded on the left and the walk on the right)
+        bias = attn.causal_bias(10, 19, 0, dev) + attn.padding_bias(
+            left(128, 10, 19, 1, 1).long())
+        cases.append((f"{p}_rw_rollout_prefill", *qkv(128, 10, 19, 6), bias, False, "forward"))
+        cases.append((f"{p}_rw_rollout_decode", *qkv(128, 1, 19, 6), decode_step(128, 19), False,
+                      "forward"))
+        cols = torch.arange(19, device=dev)[None]
+        ends = torch.randint(11, 20, (64, 1), generator=gen, device=dev)
+        walk = attn.padding_bias(((cols >= 9) & (cols < ends)).long())
+        cases.append((f"{p}_rw_update", *qkv(64, 19, 19, 6), walk, True, "backward"))
+        ends = torch.randint(11, 20, (128, 1), generator=gen, device=dev)
+        walk = attn.padding_bias(((cols >= 9) & (cols < ends)).long())
+        cases.append((f"{p}_rw_ref_scoring", *qkv(128, 19, 19, 6), walk, True, "forward"))
+    elif D == 32:
+        # the GPT-2 stand-in (4 heads of 32, 8 prompt + 12 new tokens, 64
+        # rollouts, batch 16): the sampler's prefill and a decode step, the
+        # update; served with prompts of 17-40 tokens over a 64-wide view
+        bias = attn.causal_bias(8, 20, 0, dev) + attn.padding_bias(left(64, 8, 20, 8, 8).long())
+        cases.append((f"{p}_standin_rollout_prefill", *qkv(64, 8, 20, 4), bias, False,
+                      "forward"))
+        cases.append((f"{p}_standin_rollout_decode", *qkv(64, 1, 20, 4), decode_step(64, 20),
+                      False, "forward"))
+        cases.append((f"{p}_standin_update", *qkv(16, 20, 20, 4), pad(16, 20), True,
+                      "backward"))
+        bias = attn.causal_bias(40, 64, 0, dev) + attn.padding_bias(
+            left(8, 40, 64, 17, 40).long())
+        cases.append((f"{p}_standin_serving_prefill", *qkv(8, 40, 64, 4), bias, False,
+                      "forward"))
+        cases.append((f"{p}_standin_serving_decode", *qkv(32, 1, 64, 4), decode_step(32, 64),
+                      False, "forward"))
+    else:
+        # the T5 stand-in (4 heads of d_kv 16, 8 encoder and 12 decoder
+        # columns, batch 16): both self-attentions with their learned
+        # relative bias (K2 with dbias; the decoder's causal mask folded
+        # into it) and the cross attention; the learning guard (2 heads of
+        # 16, 4 prompt + 6 new tokens, batch 16, 64 rollouts)
+        table = torch.randn(1, 4, 8, 8, generator=gen, device=dev)
+        cases.append((f"{p}_t5s_encoder_self", *qkv(16, 8, 8, 4), table + pad(16, 8), False,
+                      "dbias"))
+        table = torch.randn(1, 4, 12, 12, generator=gen, device=dev)
+        cases.append((f"{p}_t5s_decoder_self", *qkv(16, 12, 12, 4),
+                      table + attn.causal_bias(12, 12, 0, dev), False, "dbias"))
+        cases.append((f"{p}_t5s_cross", *qkv(16, 12, 8, 4), pad(16, 8), False, "backward"))
+        cases.append((f"{p}_guard_rollout_decode", *qkv(64, 1, 10, 2), decode_step(64, 10),
+                      False, "forward"))
+        cases.append((f"{p}_guard_update", *qkv(16, 10, 10, 2), pad(16, 10), True, "backward"))
+    # left padding whose first causal rows see only padding, then the
+    # edges every head dim shares
+    cases.append((f"{p}_left_pad", *qkv(2, 112, 112, 4),
+                  attn.padding_bias(left(2, 112, 112, 16, 48, width=112).long()), True,
+                  "backward"))
+    return cases + edge_kernel_cases(torch, attn, gen, p, D)
+
+
+# per small head dim: the cases timed in bf16 (K1 at the path shapes; K2
+# and K3 at the update, K2 with dbias at the learned-bias cases), and the
+# headline shapes of the kernels line (K1, K2/K3, K2 with dbias)
+SMALL_TIMED = {
+    24: (("d24_rw_rollout_prefill", "d24_rw_rollout_decode", "d24_rw_update",
+          "d24_rw_ref_scoring"), ("d24_rw_update", "d24_dbias")),
+    32: (("d32_standin_rollout_prefill", "d32_standin_rollout_decode", "d32_standin_update",
+          "d32_standin_serving_prefill", "d32_standin_serving_decode"),
+         ("d32_standin_update", "d32_dbias")),
+    16: (("d16_t5s_encoder_self", "d16_t5s_decoder_self", "d16_t5s_cross",
+          "d16_guard_rollout_decode", "d16_guard_update"),
+         ("d16_guard_update", "d16_t5s_decoder_self", "d16_t5s_cross", "d16_dbias")),
+}
+SMALL_HEADLINES = {  # (K1, K2/K3, K2 with dbias)
+    24: ("d24_rw_rollout_decode", "d24_rw_update", "d24_dbias"),
+    32: ("d32_standin_serving_decode", "d32_standin_update", "d32_dbias"),
+    16: ("d16_guard_rollout_decode", "d16_guard_update", "d16_t5s_decoder_self"),
+}
+
+
+def phase_small_kernels(torch, fa, attn):
+    """Phase 2 at D = 16, 24 and 32 (:func:`hold_and_time` over
+    :func:`small_kernel_cases`): K1, K2 (with and without dbias) and K3 in
+    bf16 and f32, O held relative to P|V| + |O| with the planted faults
+    aimed at the row's last 16-byte chunk (columns D - 8 .. D - 1: at
+    D = 24 the columns 16..23 that the second k-step covers beside its
+    zero padding); timed in bf16 at ``SMALL_TIMED``. Returns ``{D:
+    (fwd_results, bwd_results, fwd_timed, bwd_timed)}``."""
+    return {D: hold_and_time(torch, fa, attn, small_kernel_cases(torch, attn, D, seed=60 + D),
+                             fwd_timed=SMALL_TIMED[D][0], bwd_timed=SMALL_TIMED[D][1],
+                             relative_o=True)
+            for D in SMALL_HEAD_DIMS}
+
+
+def attention_widths(cls, widths: list):
+    """A patch (for ``counted_path``) of the attention module ``cls``'s
+    forward recording each call's query width: under the wrapper's rule
+    (``forward_variant``) a bf16 call runs K1 ``tile`` above 16 columns and
+    ``decode`` up to 16, an f32 call ``fma``."""
+    forward = cls.forward
+
+    def recorded(self, x, *a, **kw):
+        widths.append(x.shape[1])
+        return forward(self, x, *a, **kw)
+
+    return [(cls, "forward", recorded)]
+
+
+def expected_k1(widths: list, dtype: str) -> dict:
+    """K1's launches by variant for attention calls of these query widths
+    in ``dtype``, no input copy."""
+    if dtype == "float32":
+        return {"tile": 0, "decode": 0, "fma": len(widths), "copies": 0}
+    tile = sum(w > 16 for w in widths)
+    return {"tile": tile, "decode": len(widths) - tile, "fma": 0, "copies": 0}
+
+
+def small_ppo_run(torch, fa, label: str, config, run, backbone: str, attention_cls,
+                  written=None):
+    """One PPO-family run of phases 16 and 18 as a main path
+    (:func:`counted_path`): ``run()`` trains; records the update stats,
+    evals, the initial and final parameters, each attention call's query
+    width, the collect phases, and whether the loaded backbone equals
+    ``written`` (when given) before the first update; then a fresh trainer
+    ``load``s the end checkpoint. Returns ``(trainer, record)`` with the
+    gates every such path shares: finite stats, moved parameters, ``load``
+    exact, K1 by variant against the widths (:func:`expected_k1`) and
+    one launch per layer a trainer forward, no input copy and no plain
+    call."""
+    import numpy as np
+
+    from trlx_tpu_torch.trainer import get_trainer
+
+    cls = get_trainer(config.train.trainer)
+    watch, widths, initial = {}, [], {}
+    orig_learn = cls.learn
+
+    def learn(self):
+        initial.update({n: p.detach().clone() for n, p in self.model.state_dict().items()})
+        if written is not None:
+            watch["loaded"].append(state_equal(torch, getattr(self.model, backbone), written))
+        return orig_learn(self)
+
+    patches = [p for p in instrument(torch, cls, backbone, written or {}, watch)
+               if p[1] != "learn"] + [(cls, "learn", learn)] + attention_widths(
+        attention_cls, widths)
+    trainer, record = counted_path(torch, fa, run, patches)
+    final = trainer.model.state_dict()
+    moved = sum(not torch.equal(final[n], initial[n]) for n in final)
+    finite = all(np.isfinite(v).all() for r in watch["rows"] for v in r.values()) and all(
+        math.isfinite(v) for e in watch["evals"] for v in e.values())
+    saved = trainer_state(trainer)
+    fresh = cls(config)
+    fresh.load(config.train.checkpoint_dir)
+    restored = restores(torch, saved, fresh, watch["saved_rng"])
+    del fresh, saved
+    dtype = config.train.dtype
+    phases = phase_rows(trainer)
+    expected_variants = expected_k1(widths, dtype)
+    record.update({
+        "path": label, "dtype": dtype, "updates": trainer.step, "phases": phases,
+        "collect_s": sum(p["collect_s"] for p in phases),
+        "train_s": sum(p["train_s"] for p in phases),
+        "updates_per_s": trainer.step / sum(p["train_s"] for p in phases),
+        "rollout_tokens_per_s": sum(p["rollout_tokens"] for p in phases) / sum(
+            p["collect_s"] for p in phases),
+        "evals": watch["evals"], "forwards": trainer.forwards, "attention_calls": len(widths),
+        "query_widths": sorted(set(widths)), "expected_variants": expected_variants,
+        "tensors_moved": moved, "tensors": len(final), "finite": finite,
+        "load_restores": restored,
+    })
+    if written is not None:
+        record["loaded_equals_written"] = watch["loaded"] == [True]
+    gates = {
+        "finite": finite, "moved": moved > 0, "load_restores": restored,
+        "k1_by_variant": record["flash_fwd_variants"] == expected_variants
+        and record["launches"]["flash_fwd"] == len(widths),
+        "no_copies_or_plain": record["backward_copies"] == 0
+        and record["plain_attention_calls"] == 0,
+        "loaded": written is None or record["loaded_equals_written"],
+    }
+    record["gates"] = gates
+    return trainer, record
+
+
+# configs/ppo_randomwalks.yml as written (phase 16), then its bf16 variant
+RW_UPDATES = 200
+RW_BF16_UPDATES = 32  # four collects of 128 rollouts: 2 minibatches x 4 epochs each
+RW_BF16_DEVIATIONS = (
+    ("train.dtype", "float32", "bfloat16 (over f32 masters)", "puts K1's bf16 variant and "
+     "K2/K3 tile at D = 24 on a path"),
+    ("train.total_steps", 200, RW_BF16_UPDATES, "four collects: the bf16 run checks the "
+     "kernels, the f32 run the yml"),
+)
+
+
+def phase_randomwalks_ppo(torch, fa):
+    """Phase 16: ``configs/ppo_randomwalks.yml`` as written (6 blocks, 144
+    wide, 6 heads of 24, f32, batch 64, 128 rollouts, 4 epochs, 200
+    updates, evals every 20 with the metric) through
+    ``trlx_tpu_torch.train(reward_fn=, metric_fn=, prompts=,
+    eval_prompts=)`` on :func:`randomwalks_task`; then the same yml in
+    bf16 over f32 masters for ``RW_BF16_UPDATES`` (``RW_BF16_DEVIATIONS``).
+    Gates: :func:`small_ppo_run`'s, with K1 = 6 x the trainer's forwards
+    and K2 = K3 = 6 x the updates in the dtype's variant. Prints wall,
+    collect s, rollout tokens/s, updates/s, peak and ``metrics/optimality``
+    at the first and last eval (reported, not gated: the reference does not
+    promise that randomwalks learns on every seed)."""
+    import tempfile
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models import gpt2
+
+    log("phase 16: configs/ppo_randomwalks.yml as written; the bf16 run's deviations: "
+        + json.dumps([{"setting": k, "yml": y, "port": p, "why": why}
+                      for k, y, p, why in RW_BF16_DEVIATIONS]))
+    reward_fn, metric_fn, prompts, _, _ = randomwalks_task()
+    ok, records = True, {}
+    for label, updates, train in (("randomwalks_ppo", RW_UPDATES, {}),
+                                  ("randomwalks_ppo_bf16", RW_BF16_UPDATES,
+                                   {"dtype": "bfloat16"})):
+        with tempfile.TemporaryDirectory() as tmp:
+            config = yml_config("ppo_randomwalks.yml", tmp, "", updates, train=train)
+            trainer, rec = small_ppo_run(
+                torch, fa, label, config, lambda: trlx_tpu_torch.train(
+                    reward_fn=reward_fn, metric_fn=metric_fn, prompts=prompts,
+                    eval_prompts=prompts, config=config),
+                "transformer", gpt2.Attention)
+        L, updates = trainer.model_config.n_layer, trainer.step
+        variant = "fma" if config.train.dtype == "float32" else "tile"
+        expected_bwd = {k: {"tile": 0, "fma": 0, variant: L * updates} for k in BWD_KERNELS}
+        rec["gates"].update({
+            "updates": updates == config.train.total_steps,
+            "head_dim": trainer.model_config.n_embd // trainer.model_config.n_head == 24,
+            "k1_per_forward": rec["launches"]["flash_fwd"] == L * trainer.forwards,
+            "k2_k3": rec["backward_variants"] == expected_bwd,
+        })
+        rec.update(expected_backward_variants=expected_bwd,
+                   optimality=[e.get("metrics/optimality") for e in rec["evals"]])
+        path_ok = all(rec["gates"].values())
+        log(f"phase 16: {label} " + json.dumps(rec))
+        log(f"phase 16: {label} {'ok' if path_ok else 'FAIL'} (gates {json.dumps(rec['gates'])}; "
+            f"updates={updates}, K1 by variant {rec['flash_fwd_variants']} vs "
+            f"{rec['expected_variants']}, K2/K3 by variant {rec['backward_variants']}; wall "
+            f"{rec['wall_s']:.1f} s, collect {rec['collect_s']:.1f} s, "
+            f"{rec['rollout_tokens_per_s']:.0f} rollout tokens/s, {rec['updates_per_s']:.2f} "
+            f"updates/s, peak {rec['max_memory_allocated_bytes']} B; optimality first "
+            f"{rec['optimality'][0]} last {rec['optimality'][-1]})")
+        ok = ok and path_ok
+        records[label] = rec
+        del trainer
+    return ok, records
+
+
+ILQL_RW_UPDATES = 1000  # configs/ilql_randomwalks.yml's total_steps
+
+
+def phase_randomwalks_ilql(torch, fa):
+    """Phase 17: ``configs/ilql_randomwalks.yml`` as written (6 blocks of
+    6 heads of 24, f32, batch 64, two Q heads, tau 0.9, alpha 0.1, a target
+    sync every 5 updates, greedy evals every 100 with the adjacency
+    ``logit_mask``) for its 1000 updates on :func:`randomwalks_dataset`'s
+    1000 walks, through ``trlx_tpu_torch.train(dataset=..., logit_mask=...,
+    metric_fn=..., eval_prompts=...)``. Gates: after every update the target
+    heads are ``alpha * q + (1 - alpha) * previous`` bit for bit on the sync
+    steps and bit-identical to before on the rest; finite stats; K1 ``fma``
+    = 6 x the trainer's forwards (updates and the eval decode's), K2 = K3
+    = 6 x the updates, all ``fma``; no input copy or plain call. Prints
+    updates/s, eval tokens/s and the optimality of each eval."""
+    import tempfile
+
+    import numpy as np
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models import gpt2
+    from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer
+
+    _, metric_fn, prompts, logit_mask, info = randomwalks_task()
+    samples, rewards = randomwalks_dataset(info)
+    rows, evals, syncs, sync_ok, widths = [], [], [], [True], []
+    times = {"update_s": 0.0, "eval_s": 0.0}
+    decoded = [0]
+    orig = {"train_step": ILQLTrainer.train_step, "evaluate": ILQLTrainer.evaluate,
+            "sample": ILQLTrainer.sample}
+
+    def evaluate(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = orig["evaluate"](self)
+        torch.cuda.synchronize()
+        times["eval_s"] += time.perf_counter() - t0
+        evals.append(out)
+        return out
+
+    def sample(self, prompt_ids, prompt_mask):
+        out = orig["sample"](self, prompt_ids, prompt_mask)
+        decoded[0] += int(out.response_mask[: len(self.eval_pipeline)].sum())
+        return out
+
+    train_step = ilql_update_watch(torch, orig["train_step"], rows, syncs, sync_ok, times)
+    patches = [(ILQLTrainer, "train_step", train_step), (ILQLTrainer, "evaluate", evaluate),
+               (ILQLTrainer, "sample", sample)] + attention_widths(gpt2.Attention, widths)
+    with tempfile.TemporaryDirectory() as tmp:
+        config = yml_config("ilql_randomwalks.yml", tmp, "", ILQL_RW_UPDATES)
+        trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
+            dataset=(samples, rewards), metric_fn=metric_fn, eval_prompts=prompts,
+            logit_mask=logit_mask, config=config), patches)
+    L, updates = trainer.model_config.n_layer, trainer.step
+    every = config.method.steps_for_target_q_sync
+    finite = all(math.isfinite(v) for r in rows for v in r.values()) and all(
+        math.isfinite(v) for e in evals for v in e.values())
+    expected_bwd = {k: {"tile": 0, "fma": L * updates} for k in BWD_KERNELS}
+    expected_variants = expected_k1(widths, "float32")
+    record.update({
+        "updates": updates, "update_s": times["update_s"],
+        "updates_per_s": updates / times["update_s"], "eval_s": times["eval_s"],
+        "eval_tokens": decoded[0], "eval_tokens_per_s": decoded[0] / times["eval_s"],
+        "evals": evals, "optimality": [e.get("metrics/optimality") for e in evals],
+        "target_syncs": len(syncs), "target_sync_bit_exact": sync_ok[0],
+        "forwards": trainer.forwards, "attention_calls": len(widths),
+        "query_widths": sorted(set(widths)),
+        "expected_variants": expected_variants, "expected_backward_variants": expected_bwd,
+        "samples": len(samples), "mean_dataset_reward": float(np.mean(rewards)),
+    })
+    gates = {
+        "updates": updates == ILQL_RW_UPDATES and len(rows) == updates,
+        "head_dim": trainer.model_config.n_embd // trainer.model_config.n_head == 24,
+        "finite": finite, "evals": len(evals) >= 2,
+        "target_sync": sync_ok[0] and syncs == list(range(every, updates + 1, every)),
+        "k1": record["flash_fwd_variants"] == expected_variants
+        and record["launches"]["flash_fwd"] == L * trainer.forwards == len(widths),
+        "k2_k3": record["backward_variants"] == expected_bwd,
+        "no_copies_or_plain": record["backward_copies"] == 0
+        and record["plain_attention_calls"] == 0,
+    }
+    record["gates"] = gates
+    ok = all(gates.values())
+    log("phase 17: configs/ilql_randomwalks.yml " + json.dumps(record))
+    log(f"phase 17: {'ok' if ok else 'FAIL'} (gates {json.dumps(gates)}; updates={updates}, "
+        f"{record['updates_per_s']:.1f} updates/s, {record['eval_tokens_per_s']:.0f} eval "
+        f"tokens/s, target syncs {len(syncs)} bit-exact {sync_ok[0]}, K1 by variant "
+        f"{record['flash_fwd_variants']} vs {expected_variants}, K2/K3 by variant "
+        f"{record['backward_variants']}; optimality first {record['optimality'][0]} last "
+        f"{record['optimality'][-1]}; wall {record['wall_s']:.1f} s, peak "
+        f"{record['max_memory_allocated_bytes']} B)")
+    del trainer
+    return ok, record
+
+
+# phase 18's bf16 runs of the stand-ins: what they run differently from
+# examples/pretrained_standin.py's config
+STANDIN_BF16_UPDATES = 16  # two collects of 64 rollouts: 4 minibatches x 2 epochs each
+STANDIN_DEVIATIONS = (
+    ("model.model_path", "a checkpoint pretrained by transformers on the topic corpus",
+     "an HF-layout checkpoint of the same widths with random weights from a seed",
+     "the card's machine has no transformers to pretrain it"),
+)
+STANDIN_BF16_DEVIATIONS = (
+    ("train.dtype", "float32", "bfloat16 (over f32 masters)", "puts the bf16 variants at "
+     "D = 32 (GPT-2) and 16 (T5, K2 with dbias) on a path"),
+    ("train.total_steps", 96, STANDIN_BF16_UPDATES, "two collects"),
+)
+STANDIN_SERVING = {"seq_length": 40, "max_new_tokens": 24, "prompts": 64, "lengths": (17, 40)}
+GUARD_MARGIN = 0.15  # tests/test_torch_learning.py's margin, within 96 updates
+
+
+def standin_serving_config(model_path: str):
+    """The GPT-2 stand-in checkpoint served in bf16 with phase 4's engine
+    geometry: 40 prompt columns and 24 new tokens (the stand-in's 64
+    positions)."""
+    cfg = serving_config()
+    cfg["model"].update(model_path=model_path, model_arch={})
+    cfg["train"].update(seq_length=STANDIN_SERVING["seq_length"])
+    cfg["method"]["gen_kwargs"].update(max_new_tokens=STANDIN_SERVING["max_new_tokens"],
+                                      eos_token_id=STANDIN_EOS, pad_token_id=STANDIN_PAD)
+    return cfg
+
+
+def phase_standins(torch, fa):
+    """Phase 18: (a) the GPT-2 stand-in (vocab 64, 128 wide, 2 blocks, 4
+    heads of 32, 64 positions) written as an HF checkpoint with random
+    weights and loaded through ``model.model_path`` on the stand-in's PPO
+    config (:func:`standin_rl_config`) in f32 and, cut, in bf16; the same
+    checkpoint served through ``InferenceServer`` in bf16 (64 prompts of
+    17-40 tokens: K1 ``tile`` prefills and ``decode`` steps); (b) the T5
+    stand-in (``d_model`` 64, 4 heads of ``d_kv`` 16, 2 + 2 layers, 8
+    buckets) through the ``Seq2SeqPPOTrainer`` the same two ways, K2 with
+    dbias = (encoder + decoder layers) x the updates, as phase 6 counts
+    it; (c) the learning guard's target-token task
+    (:func:`target_token_config`, D = 16): mean reward up by
+    ``GUARD_MARGIN`` within 96 updates, as the CPU test holds it. Every
+    trained path has :func:`small_ppo_run`'s gates and K2 = K3 = one
+    launch per attention a forward, per update. Returns ``(ok,
+    records)``."""
+    import tempfile
+
+    import numpy as np
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.inference.server import InferenceServer
+    from trlx_tpu_torch.models import gpt2, t5
+
+    log("phase 18: the pretrained stand-ins and the learning guard; deviations: " + json.dumps(
+        [{"setting": k, "example": y, "port": p, "why": why}
+         for k, y, p, why in STANDIN_DEVIATIONS + STANDIN_BF16_DEVIATIONS]))
+    ok, records = True, {}
+
+    def trained(label, family, ckpt, written, train, attention_cls, backbone, head_dim):
+        nonlocal ok
+        prompts = standin_prompts(np.random.default_rng(1), 128, 8)
+        with tempfile.TemporaryDirectory() as run_dir:
+            config = TRLConfig.from_dict(standin_rl_config(ckpt, family, checkpoint_dir=run_dir,
+                                                           **train))
+            trainer, rec = small_ppo_run(
+                torch, fa, label, config, lambda: trlx_tpu_torch.train(
+                    reward_fn=standin_reward, prompts=prompts, config=config),
+                backbone, attention_cls, written)
+        cfg, updates = trainer.model_config, trainer.step
+        if family == "gpt2":
+            per_forward, n_attn, n_learned = cfg.n_layer, cfg.n_layer, 0
+            dims = cfg.n_embd // cfg.n_head
+        else:
+            per_forward, n_learned = None, cfg.num_layers + cfg.num_decoder_layers
+            n_attn, dims = cfg.num_layers + 2 * cfg.num_decoder_layers, cfg.d_kv
+        variant = "fma" if config.train.dtype == "float32" else "tile"
+        expected_bwd = {k: {"tile": 0, "fma": 0, variant: n_attn * updates} for k in BWD_KERNELS}
+        rec["gates"].update({
+            "updates": updates == config.train.total_steps, "head_dim": dims == head_dim,
+            "k2_k3": rec["backward_variants"] == expected_bwd,
+            "dbias": rec["launches"]["flash_bwd_dq_dbias"] == n_learned * updates,
+        })
+        if per_forward:
+            rec["gates"]["k1_per_forward"] = (
+                rec["launches"]["flash_fwd"] == per_forward * trainer.forwards)
+        rec.update(expected_backward_variants=expected_bwd,
+                   expected_dbias=n_learned * updates)
+        path_ok = all(rec["gates"].values())
+        log(f"phase 18: {label} " + json.dumps(rec))
+        log(f"phase 18: {label} {'ok' if path_ok else 'FAIL'} (gates {json.dumps(rec['gates'])}; "
+            f"D={dims}, updates={updates}, K1 by variant {rec['flash_fwd_variants']} vs "
+            f"{rec['expected_variants']}, K2/K3 by variant {rec['backward_variants']}, K2 with "
+            f"dbias {rec['launches']['flash_bwd_dq_dbias']}; wall {rec['wall_s']:.1f} s, "
+            f"{rec['updates_per_s']:.1f} updates/s, peak {rec['max_memory_allocated_bytes']} B)")
+        ok = ok and path_ok
+        records[label] = rec
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the GPT-2 stand-in: PPO in f32 and bf16, then served
+        ckpt = os.path.join(tmp, "standin_gpt2")
+        written = random_backbone(torch, gpt2.GPT2Model(gpt2.GPT2Config.from_dict(
+            STANDIN_GPT2_HF_CONFIG), device="cuda"), seed=70)
+        write_hf_checkpoint(ckpt, STANDIN_GPT2_HF_CONFIG, gpt2_hf_layout(written))
+        for label, train in (("standin_gpt2_ppo", {}), ("standin_gpt2_ppo_bf16", {
+                "dtype": "bfloat16", "total_steps": STANDIN_BF16_UPDATES})):
+            trained(label, "gpt2", ckpt, written, train, gpt2.Attention, "transformer", 32)
+        rng = np.random.default_rng(8)
+        lo, hi = STANDIN_SERVING["lengths"]
+        prompts = [[int(x) for x in rng.integers(2, 60, int(rng.integers(lo, hi + 1)))]
+                   for _ in range(STANDIN_SERVING["prompts"])]
+        server = InferenceServer(standin_serving_config(ckpt), seed=0)
+        widths = []
+        (rids, results, wall), rec = counted_path(
+            torch, fa, lambda: serve(torch, server, prompts),
+            attention_widths(gpt2.Attention, widths))
+        stats, L = server.stats(), server.model_config.n_layer
+        expected_variants = expected_k1(widths, "bfloat16")
+        lengths = [results[r]["length"] for r in rids]
+        finite = all(np.isfinite(results[r]["logprobs"]).all()
+                     and np.isfinite(results[r]["values"]).all() for r in rids)
+        served = server.model.transformer.state_dict()
+        loaded = set(served) == set(written) and all(
+            torch.equal(served[n].cpu(), t.to(served[n].dtype)) for n, t in written.items())
+        rec.update({
+            "path": "standin_gpt2_serving", "requests": len(rids), "generated_tokens":
+            int(sum(lengths)), "serve_wall_s": wall, "tokens_per_s": sum(lengths) / wall,
+            "expected_variants": expected_variants, "stats": stats,
+            "attention_calls": len(widths), "query_widths": sorted(set(widths)),
+        })
+        gates = {
+            "complete": len(results) == len(prompts) and min(lengths) >= 1, "finite": finite,
+            "head_dim": server.model_config.n_embd // server.model_config.n_head == 32,
+            "k1_by_variant": rec["flash_fwd_variants"] == expected_variants,
+            "tile_per_prefill": expected_variants["tile"] == L * int(stats["engine/prefills"]),
+            "decode_per_step": expected_variants["decode"] == L * int(
+                stats["engine/decode_steps"]),
+            "tile_ran": expected_variants["tile"] > 0,
+            "no_plain": rec["plain_attention_calls"] == 0, "loaded": loaded,
+        }
+        rec["gates"] = gates
+        serving_ok = all(gates.values())
+        log("phase 18: standin_gpt2_serving " + json.dumps(rec))
+        log(f"phase 18: standin_gpt2_serving {'ok' if serving_ok else 'FAIL'} (gates "
+            f"{json.dumps(gates)}; {len(results)}/{len(prompts)} complete, K1 by variant "
+            f"{rec['flash_fwd_variants']} vs {expected_variants}; "
+            f"{rec['tokens_per_s']:.0f} tokens/s, peak {rec['max_memory_allocated_bytes']} B)")
+        ok = ok and serving_ok
+        records["standin_gpt2_serving"] = rec
+        del server
+
+        # (b) the T5 stand-in: seq2seq PPO in f32 and bf16
+        ckpt = os.path.join(tmp, "standin_t5")
+        written = random_backbone(torch, t5.T5Model(t5.T5Config.from_dict(
+            STANDIN_T5_HF_CONFIG), device="cuda"), seed=71)
+        write_hf_checkpoint(ckpt, STANDIN_T5_HF_CONFIG, t5_hf_layout(written))
+        for label, train in (("standin_t5_ppo", {}), ("standin_t5_ppo_bf16", {
+                "dtype": "bfloat16", "total_steps": STANDIN_BF16_UPDATES})):
+            trained(label, "t5", ckpt, written, train, t5.T5Attention, "t5", 16)
+
+    # (c) the learning guard's target-token task (D = 16), from scratch
+    means = []
+
+    def reward(samples, queries, response_gt=None):
+        scores = target_token_reward(samples, queries)
+        means.append(float(np.mean(scores)))
+        return scores
+
+    rng = np.random.default_rng(0)
+    prompts = [list(rng.integers(1, 13, size=rng.integers(1, 4))) for _ in range(64)]
+    with tempfile.TemporaryDirectory() as tmp:
+        config = TRLConfig.from_dict(target_token_config(tmp))
+        trainer, rec = small_ppo_run(
+            torch, fa, "learning_guard", config, lambda: trlx_tpu_torch.train(
+                reward_fn=reward, prompts=prompts, eval_prompts=prompts[:16], config=config),
+            "transformer", gpt2.Attention)
+    L, updates = trainer.model_config.n_layer, trainer.step
+    early, late = float(np.mean(means[:2])), float(np.max(means[-4:]))
+    expected_bwd = {k: {"tile": 0, "fma": L * updates} for k in BWD_KERNELS}
+    rec["gates"].update({
+        "updates": updates == 96,
+        "head_dim": trainer.model_config.n_embd // trainer.model_config.n_head == 16,
+        "k1_per_forward": rec["launches"]["flash_fwd"] == L * trainer.forwards,
+        "k2_k3": rec["backward_variants"] == expected_bwd,
+        "reward_rises": late > early + GUARD_MARGIN,
+        "min_new_tokens": int(trainer.buffer.full.response_mask.sum(1).min()) >= 6,
+    })
+    rec.update(expected_backward_variants=expected_bwd, reward_means=means,
+               early_mean_reward=early, late_max_reward=late, margin=GUARD_MARGIN)
+    guard_ok = all(rec["gates"].values())
+    log("phase 18: learning_guard " + json.dumps(rec))
+    log(f"phase 18: learning_guard {'ok' if guard_ok else 'FAIL'} (gates "
+        f"{json.dumps(rec['gates'])}; mean reward {early:.3f} -> {late:.3f}, margin "
+        f"{GUARD_MARGIN}; K1 by variant {rec['flash_fwd_variants']}, K2/K3 by variant "
+        f"{rec['backward_variants']}; wall {rec['wall_s']:.1f} s)")
+    records["learning_guard"] = rec
+    del trainer
+    return ok and guard_ok, records
+
+
 def wide_kernel_entries(prefix: str, suffix: str, label: str, timed_shapes, build, fwd_checks,
-                        bwd_checks, fwd_timed, bwd_timed, paths) -> list:
+                        bwd_checks, fwd_timed, bwd_timed, paths, headlines=None) -> list:
     """The ``kernels`` line's entries of one head dim's instantiations
-    (``suffix``: "_d256", "_d96"): K1 (timed at the serving decode step,
-    every path shape of ``timed_shapes`` beside it), K2 and K3 (timed at the
-    update backward, K2 with dbias inside K2's entry), their launches on
-    ``paths`` (that head dim's serving and training phases) counted on
-    their own."""
+    (``suffix``: "_d256", "_d96", "_d16", ...): K1 (timed at ``headlines``'
+    first shape, the serving decode step by default, every path shape of
+    ``timed_shapes`` beside it), K2 and K3 (timed at its second, the update
+    backward by default), K2 with dbias (at its third), their launches on
+    ``paths`` (the phases that run that head dim) counted on their own."""
+    k1_shape, bwd_shape, dbias_shape = headlines or (
+        f"{prefix}_serving_decode", f"{prefix}_update", f"{prefix}_dbias")
+
     def fwd(shape):
         return {k: fwd_timed[(shape, "bfloat16")][k] for k in (
             "shape", "variant", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by")}
 
-    decode = fwd(f"{prefix}_serving_decode")
+    decode = fwd(k1_shape)
     k1_spills = [build[k]["spill_bytes"] for k in GATED_KERNELS["flash_fwd"]
                  if k.endswith(suffix)]
     entries = [{
@@ -5059,14 +5923,14 @@ def wide_kernel_entries(prefix: str, suffix: str, label: str, timed_shapes, buil
         "launches_by_variant": {n: r["flash_fwd_variants"] for n, r in paths.items()},
         "max_abs_err": max(c["max_abs_err_o"] for c in fwd_checks),
         **{k: decode[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
-        "timed_shape": f"{label} serving decode bf16 " + decode["shape"],
-        "shapes": {shape: fwd(shape) for shape in timed_shapes},
+        "timed_shape": f"{label} {k1_shape} bf16 " + decode["shape"],
+        "shapes": {shape: fwd(shape) for shape in timed_shapes if shape != k1_shape},
         "tile_tensor_core_instructions":
             build["flash_fwd_tile_kernel" + suffix]["tensor_core_instructions"],
         "k1_spill_bytes": None if None in k1_spills else sum(k1_spills),
     }]
     for name, outputs in (("flash_bwd_dq", ("dq",)), ("flash_bwd_dkv", ("dk", "dv"))):
-        row = bwd_timed[(f"{prefix}_update", name)]
+        row = bwd_timed[(bwd_shape, name)]
         entry = {
             "name": name + suffix, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -5076,21 +5940,35 @@ def wide_kernel_entries(prefix: str, suffix: str, label: str, timed_shapes, buil
             "max_abs_err": max(c[f"max_abs_err_{o}"] for c in bwd_checks for o in outputs),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                    "variant", "wrapper_ms")},
-            "timed_shape": f"{label} update bf16 " + row["shape"],
+            "timed_shape": f"{label} {bwd_shape} bf16 " + row["shape"],
+            "shapes": {shape: {k: r[k] for k in (
+                "shape", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for (shape, kname), r in bwd_timed.items()
+                if kname == name and shape != bwd_shape
+                and (name == "flash_bwd_dkv" or not r["dbias"])},
             **{k: build[f"{name}_tile_kernel{suffix}"][k] for k in (
                 "spill_bytes", "registers", "tensor_core_instructions")},
         }
-        if name == "flash_bwd_dq":  # the bias-gradient instantiation, held and timed
-            dbias = bwd_timed[(f"{prefix}_dbias", name)]
-            entry["dbias"] = {
-                **{k: dbias[k] for k in ("shape", "ms", "wrapper_ms", "plain_ms",
-                                         "library_ms", "bound_ms", "bound_by")},
-                "max_abs_err": max(c["max_abs_err_dbias"] for c in bwd_checks
-                                   if "max_abs_err_dbias" in c),
-                **{k: build["flash_bwd_dq_tile_kernel_dbias" + suffix][k] for k in (
-                    "spill_bytes", "registers", "tensor_core_instructions")},
-            }
         entries.append(entry)
+    # K2's bias-gradient instantiation, held and timed on its own
+    dbias = bwd_timed[(dbias_shape, "flash_bwd_dq")]
+    entries.append({
+        "name": "flash_bwd_dq_dbias" + suffix, "route": "cuda",
+        "source": SOURCES["flash_bwd_dq"], "replaces": REPLACES["flash_bwd_dq"],
+        "launches": sum(r["launches"]["flash_bwd_dq_dbias"] for r in paths.values()),
+        "launches_by_path": {n: r["launches"]["flash_bwd_dq_dbias"] for n, r in paths.items()},
+        "max_abs_err": max(c["max_abs_err_dbias"] for c in bwd_checks
+                           if "max_abs_err_dbias" in c),
+        **{k: dbias[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                 "variant", "wrapper_ms")},
+        "timed_shape": f"{label} {dbias_shape} bf16 " + dbias["shape"],
+        "shapes": {shape: {k: r[k] for k in (
+            "shape", "ms", "wrapper_ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+            for (shape, kname), r in bwd_timed.items()
+            if kname == "flash_bwd_dq" and shape != dbias_shape and r["dbias"]},
+        **{k: build["flash_bwd_dq_tile_kernel_dbias" + suffix][k] for k in (
+            "spill_bytes", "registers", "tensor_core_instructions")},
+    })
     return entries
 
 
@@ -5130,15 +6008,19 @@ def main() -> int:
         torch, fa, attn)
     neox_fwd_checks, neox_bwd_checks, neox_timed, neox_bwd_timed = phase_neox_kernels(
         torch, fa, attn)
+    small = phase_small_kernels(torch, fa, attn)
+    small_checks = [c for D in SMALL_HEAD_DIMS for c in small[D][0] + small[D][1]]
     fwd_checks += train_fwd_checks + t5_fwd_checks
     bwd_checks += t5_bwd_checks
     timed.update(train_timed)
     timed.update(t5_timed)
     timed.update(gptj_timed)
     timed.update(neox_timed)
+    for D in SMALL_HEAD_DIMS:
+        timed.update(small[D][2])
     kernel_ok = all(c["ok"] for c in fwd_checks + bwd_checks + gptj_fwd_checks
-                    + gptj_bwd_checks + neox_fwd_checks + neox_bwd_checks) and all(
-        row["packed_ok"] for row in timed.values())
+                    + gptj_bwd_checks + neox_fwd_checks + neox_bwd_checks
+                    + small_checks) and all(row["packed_ok"] for row in timed.values())
     model_ok = (phase_model(torch, fa) & phase_model_backward(torch, fa)
                 & phase_t5_model_backward(torch, fa) & phase_logprob_chunk(torch)
                 & phase_gptj_model(torch, fa) & phase_gptj_checkpoint(torch)
@@ -5164,6 +6046,15 @@ def main() -> int:
     gptj_training_ok, gptj_training = phase_gptj_training(torch, fa)
     neox_serving_ok, neox_serving = phase_neox_serving(torch, fa)
     neox_training_ok, neox_training = phase_neox_training(torch, fa)
+    rw_ok, rw = phase_randomwalks_ppo(torch, fa)
+    rw_ilql_ok, rw_ilql = phase_randomwalks_ilql(torch, fa)
+    standins_ok, standins = phase_standins(torch, fa)
+    # the small head dims' paths (phases 16 to 18), each counted on its own
+    small_paths = {24: {**rw, "randomwalks_ilql": rw_ilql},
+                   32: {n: standins[n] for n in ("standin_gpt2_ppo", "standin_gpt2_ppo_bf16",
+                                                 "standin_gpt2_serving")},
+                   16: {n: standins[n] for n in ("standin_t5_ppo", "standin_t5_ppo_bf16",
+                                                 "learning_guard")}}
     # the head-dim-256 paths (phases 12 and 13) and the head-dim-96 paths
     # (phases 14 and 15), counted on their own
     gptj_paths = {"gptj_serving": gptj_serving, "gptj_training": gptj_training}
@@ -5294,6 +6185,11 @@ def main() -> int:
     kernels += wide_kernel_entries("neox", "_d96", "GPT-NeoX-20B", NEOX_TIMED, build,
                                    neox_fwd_checks, neox_bwd_checks, neox_timed,
                                    neox_bwd_timed, neox_paths)
+    small_labels = {24: "randomwalks", 32: "GPT-2 stand-in", 16: "T5 stand-in, learning guard"}
+    for D in SMALL_HEAD_DIMS:
+        kernels += wide_kernel_entries(f"d{D}", f"_d{D}", small_labels[D], SMALL_TIMED[D][0],
+                                       build, *small[D], small_paths[D],
+                                       headlines=SMALL_HEADLINES[D])
     log(", ".join(card) if card else "nvidia-smi: no output")
     print(json.dumps({"kernels": kernels}), flush=True)
     phases = (("build", build_ok), ("kernel", kernel_ok), ("model", model_ok),
@@ -5302,7 +6198,8 @@ def main() -> int:
               ("ilql", ilql_ok), ("grpo", grpo_ok), ("continuous_engine", continuous_ok),
               ("serving_tier", tier_ok), ("gptj_serving", gptj_serving_ok),
               ("gptj_training", gptj_training_ok), ("neox_serving", neox_serving_ok),
-              ("neox_training", neox_training_ok))
+              ("neox_training", neox_training_ok), ("randomwalks_ppo", rw_ok),
+              ("randomwalks_ilql", rw_ilql_ok), ("standins_and_guard", standins_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

@@ -33,7 +33,12 @@ reference scoring and ``decode`` per decode step. At head dims 256
 shared memory), K1, K2 (also with the bias gradient) and K3 at the paths'
 shapes and the edges; at 96 also through the slices of the fused
 ``query_key_value`` projection, read in place, and one NeoX update step
-through the kernels; other head dims are refused before a launch.
+through the kernels. At the small head dims 16, 24 and 32 (each tile held
+as one 64-column atom), K1, K2 (also with the bias gradient) and K3 at
+the randomwalks configs' shapes (H = 6), the stand-ins' and the edges,
+also through the slices of GPT-2's fused ``c_attn`` output, and one
+update step of a GPT-2 at each of those widths through the kernels;
+other head dims are refused before a launch.
 """
 
 import pytest
@@ -272,7 +277,7 @@ def test_launch_counter_and_refusals(dev):
     assert fa.FLASH_FWD_LAUNCHES == before + 1
     with pytest.raises(ValueError, match="dtype"):
         fa.flash_attention(q.half(), k.half(), v.half())
-    q32, k32, v32 = _qkv(dev, 1, 4, 8, D=32)
+    q32, k32, v32 = _qkv(dev, 1, 4, 8, D=40)
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q32, k32, v32)
     with pytest.raises(ValueError, match="LSE has no gradient"):
@@ -910,7 +915,7 @@ D256_CASES = {  # B, Q, K, H, causal, bias kind
 
 
 def _wide_head_inputs(dev, case, dtype, seed=11, D=256):
-    B, Q, K, H, causal, kind = (D256_CASES if D == 256 else D96_CASES)[case]
+    B, Q, K, H, causal, kind = {256: D256_CASES, 96: D96_CASES}.get(D, SMALL_CASES)[case]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev) for T in (Q, K, K))
@@ -1132,14 +1137,169 @@ def test_neox_update_step_runs_every_attention_through_the_kernels(dev):
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
 
 
+# The small head dims: 16 (the learning guard, the T5 stand-in's d_kv), 24
+# (configs/ppo_randomwalks.yml and ilql_randomwalks.yml: 144 wide over 6
+# heads) and 32 (the GPT-2 stand-in: 128 wide over 4 heads), each 64 x D
+# tile held as one 64-column atom. K1 at the randomwalks paths' shapes
+# (H = 6: the rollout's decode step, B = 128 over the 10-wide cache; the
+# update, B = 64, T = 10 causal; the reference scoring, B = 128), the GPT-2
+# stand-in's served prefill (40 prompt columns over a 64-wide view: the
+# ``tile`` variant) and its update (T = 20 causal), and D = 256's edges at
+# H = 2; q, k and v also as slices of GPT-2's fused [B, T, 3 H D] ``c_attn``
+# output, read in place. O is held relative to P|V| + |O|, as at 96.
+SMALL_HEAD_DIMS = (16, 24, 32)
+SMALL_CASES = {  # B, Q, K, H, causal, bias kind
+    "rollout_decode": (128, 1, 10, 6, False, "pad"),
+    "update": (64, 10, 10, 6, True, "pad"),
+    "ref_scoring": (128, 10, 10, 6, True, "pad"),
+    "standin_prefill": (8, 40, 64, 4, False, "causal_left_pad"),
+    "standin_update": (16, 20, 20, 4, True, "pad"),
+    "ragged": (2, 77, 141, 2, False, "pad"),
+    "decode_ragged": (3, 5, 70, 2, False, "full"),
+    "all_masked_rows": (2, 112, 112, 2, True, "left_pad"),
+    "small_q_masked_rows": (2, 9, 130, 2, True, "left_pad_in_tile_0"),
+    "long_k": (2, 130, 1024, 2, False, "peaked"),
+}
+SMALL_BWD_CASES = ("update", "standin_update", "ragged", "all_masked_rows",
+                   "small_q_masked_rows", "long_k", "decode_ragged")
+
+
+def _c_attn(q, k, v):
+    """q, k, v as GPT-2's attention forms them: [B, T, H, D] views of the
+    thirds of a [B, T, 3 H D] projection (row strides of 3 H D elements,
+    k's base H D in, v's 2 H D); q's rows and the keys' rows each from
+    their own projection, so Q may differ from K."""
+    HD = q.shape[2] * q.shape[3]
+    q_rows = torch.cat([q.flatten(2), torch.zeros_like(q.flatten(2)).repeat(1, 1, 2)], dim=-1)
+    kv_rows = torch.cat([torch.zeros_like(k.flatten(2)), k.flatten(2), v.flatten(2)], dim=-1)
+    return (q_rows[..., :HD].unflatten(-1, q.shape[2:]),
+            kv_rows[..., HD:2 * HD].unflatten(-1, k.shape[2:]),
+            kv_rows[..., 2 * HD:].unflatten(-1, v.shape[2:]))
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["separate", "c_attn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", list(SMALL_CASES))
+@pytest.mark.parametrize("D", SMALL_HEAD_DIMS, ids=lambda d: f"D{d}")
+def test_small_head_dim_forward_matches_plain(dev, D, case, dtype, fused):
+    """K1 at D = 16, 24 and 32 in the variant its dtype and Q pick, against
+    the plain version restricted to the keys K1 visits; only that variant's
+    counter moves, and nothing is copied, the fused projection's slices
+    included."""
+    (q, k, v), bias, causal, _ = _wide_head_inputs(dev, case, dtype, D=D)
+    if fused:
+        q, k, v = _c_attn(q, k, v)
+        assert all(fa.aligned_for_16_byte_loads(t) for t in (q, k, v))
+    variant = fa.forward_variant(dtype, q.shape[1])
+    before = _fwd_counters()
+    o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+    assert _moved(before) == {"FLASH_FWD_LAUNCHES": 1, f"FLASH_FWD_{variant.upper()}_LAUNCHES": 1}
+    o_ref, lse_ref = _visited_reference(q, k, v, bias, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    _assert_o_close(q, k, v, bias, causal, o, o_ref, dtype)
+    assert (lse - lse_ref).abs().max().item() <= TOL[dtype][1]
+    assert torch.equal(fa.flash_attention(q, k, v, bias, causal), o)
+
+
+@pytest.mark.parametrize("fused", [False, True], ids=["separate", "c_attn"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", SMALL_BWD_CASES)
+@pytest.mark.parametrize("D", SMALL_HEAD_DIMS, ids=lambda d: f"D{d}")
+def test_small_head_dim_backward_matches_plain(dev, D, case, dtype, fused):
+    """K2 and K3 at D = 16, 24 and 32 against the plain backward fed K1's
+    own O and LSE; the fused projection's slices are read in place."""
+    (q, k, v), bias, causal, do = _wide_head_inputs(dev, case, dtype, D=D)
+    if fused:
+        q, k, v = _c_attn(q, k, v)
+    o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+    before = _bwd_counters()
+    got = fa._launch_backward(q, k, v, bias, o, lse, do, causal)
+    want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, causal)
+    torch.cuda.synchronize()
+    variant = "TILE" if dtype == torch.bfloat16 else "FMA"
+    assert {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n} == {
+        "FLASH_BWD_DQ_LAUNCHES": 1, "FLASH_BWD_DKV_LAUNCHES": 1,
+        f"FLASH_BWD_DQ_{variant}_LAUNCHES": 1, f"FLASH_BWD_DKV_{variant}_LAUNCHES": 1}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert torch.isfinite(g).all(), name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= _bwd_tol(dtype, w), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("D", SMALL_HEAD_DIMS, ids=lambda d: f"D{d}")
+def test_small_head_dim_dbias_matches_plain(dev, D, dtype):
+    """K2 with the bias gradient at D = 16 (the T5 stand-in's d_kv), 24 and
+    32: a learned [1, H, Q, K] bias under a padding bias, and the T5
+    stand-in's decoder self-attention (4 heads, 12 new tokens, T5's causal
+    mask folded into the bias)."""
+    (q, k, v), pad, _, do = _wide_head_inputs(dev, "ragged", dtype, D=D)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    table = 2 * torch.randn(1, 2, 77, 141, generator=gen, device=dev)
+    q2, k2, v2, do2 = (torch.randn(3, 12, 4, D, generator=gen, device=dev).to(dtype)
+                       for _ in range(4))
+    rel = torch.randn(1, 4, 12, 12, generator=gen, device=dev)
+    cases = [((q, k, v), table + pad, do),
+             ((q2, k2, v2), rel + attn.causal_bias(12, 12, 0, dev), do2)]
+    for (q, k, v), bias, do in cases:
+        before = fa.FLASH_BWD_DQ_DBIAS_LAUNCHES
+        o, lse = fa.flash_attention(q, k, v, bias, False, True)
+        *got, dbias = fa._launch_backward(q, k, v, bias, o, lse, do, False, dbias=True)
+        want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, False, True)
+        torch.cuda.synchronize()
+        assert fa.FLASH_BWD_DQ_DBIAS_LAUNCHES == before + 1
+        err = (dbias - want[3]).abs().max().item()
+        assert err <= 1e-4 * max(1.0, want[3].abs().max().item()), err
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            assert (g.float() - w.float()).abs().max().item() <= _bwd_tol(dtype, w), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("width, heads", [(144, 6), (128, 4), (32, 2)],
+                         ids=["randomwalks_D24", "standin_D32", "guard_D16"])
+def test_small_head_dim_update_step_runs_every_attention_through_the_kernels(
+        dev, width, heads, dtype):
+    """One PPO-loss backward of a 2-block GPT-2 at the randomwalks configs'
+    width (6 heads of 24), the GPT-2 stand-in's (4 of 32) and the learning
+    guard's (2 of 16), T = 20: every attention runs K1 (``tile`` in bf16,
+    ``fma`` in f32), then K2 and K3 in the dtype's variant, once a block,
+    reading the fused ``c_attn`` slices with no copy."""
+    from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+
+    cfg = GPT2Config(vocab_size=64, n_positions=32, n_embd=width, n_layer=2, n_head=heads,
+                     dtype=str(dtype).replace("torch.", ""))
+    model = CausalLMWithValueHead(cfg, GPT2Model, device=dev)
+    init_params(model, 0)
+    ids = torch.randint(0, 64, (4, 20), device=dev)
+    mask = torch.ones_like(ids)
+    mask[0, :7] = 0
+    before, bwd_before = _fwd_counters(), _bwd_counters()
+    copies = (fa.FLASH_FWD_COPIES, fa.FLASH_BWD_COPIES)
+    logits, values = model.response_forward(ids, mask, 10)
+    (logits.float().logsumexp(-1).sum() + values.float().sum()).backward()
+    torch.cuda.synchronize()
+    fwd, bwd = ("TILE", "TILE") if dtype == torch.bfloat16 else ("FMA", "FMA")
+    assert _moved(before) == {"FLASH_FWD_LAUNCHES": 2, f"FLASH_FWD_{fwd}_LAUNCHES": 2}
+    assert {c: getattr(fa, c) - n for c, n in bwd_before.items() if getattr(fa, c) != n} == {
+        "FLASH_BWD_DQ_LAUNCHES": 2, "FLASH_BWD_DKV_LAUNCHES": 2,
+        f"FLASH_BWD_DQ_{bwd}_LAUNCHES": 2, f"FLASH_BWD_DKV_{bwd}_LAUNCHES": 2}
+    assert (fa.FLASH_FWD_COPIES, fa.FLASH_BWD_COPIES) == copies
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+
+
 def test_other_head_dims_are_refused_before_a_launch(dev):
-    """D = 24 (the randomwalks configs), 32 (the GPT-2 stand-in) and 128
-    (GPT-Neo) are not built: the wrappers raise naming the built dims and
-    the ROADMAP item, and the C entry points refuse them."""
+    """D = 128 (GPT-Neo) and an odd width such as 40 are not built: the
+    wrappers raise naming the built dims and the ROADMAP item, and the C
+    entry points refuse them."""
     before = (_fwd_counters(), _bwd_counters())
-    for D in (24, 32, 128):
+    for D in (40, 128):
         q, k, v = _qkv(dev, 1, 20, 30, D=D, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="head dims \\(64, 96, 256\\).*ROADMAP item 13"):
+        with pytest.raises(ValueError,
+                           match="head dims \\(16, 24, 32, 64, 96, 256\\).*ROADMAP item 13"):
             fa.flash_attention(q, k, v)
         o = torch.empty_like(q)
         lse = torch.empty(1, 2, 20, device=dev)

@@ -4,8 +4,10 @@ against the JAX package's Pallas kernel in interpret mode and its
 
 Inputs come from a numpy seed and go through both packages in f32; every
 case of ``tests/test_flash_attention.py``'s forward class plus decode
-(Q = 1), and three each at GPT-J's head dim 256 and GPT-NeoX-20B's 96, is one parametrised case. Tolerance: atol 1e-5 (f32; the two sum
-in a different order). The CUDA kernel itself is compared with this plain
+(Q = 1), and three each at GPT-J's head dim 256, GPT-NeoX-20B's 96 and
+the small head dims 16 (the learning guard, the T5 stand-in), 24 (the
+randomwalks configs) and 32 (the GPT-2 stand-in), is one parametrised
+case. Tolerance: atol 1e-5 (f32; the two sum in a different order). The CUDA kernel itself is compared with this plain
 version on the card by ``chip_smoke.py``. The tests at the end pin, on the
 CPU, what the wrapper decides before a launch: which K1 variant a dtype
 and query count take, which views it copies for the 16-byte loads, and
@@ -24,6 +26,8 @@ from trlx_tpu_torch.ops import attention as tattn
 from trlx_tpu_torch.ops import flash_attention as tflash
 
 ATOL = 1e-5
+#: the small head dims K1 is built for besides 64, 96 and 256
+SMALL_HEAD_DIMS = (16, 24, 32)
 
 
 def _padding_mask(rng, B, T, keep_first=4):
@@ -85,6 +89,25 @@ def _case(name):
         mask = (np.arange(72)[None] <= depth[:, None]).astype(np.int32)
         return (rand(2, 1, 4, 96), rand(2, 72, 4, 96), rand(2, 72, 4, 96),
                 ("decode", mask, depth), False)
+    # the small head dims, each a tile padded to one 64-column atom on the
+    # card: causal + padding over two key tiles, a per-head bias, one
+    # decode row at per-row depths
+    kind, _, dim = name.rpartition("_head_dim_")
+    if dim.isdigit() and int(dim) in SMALL_HEAD_DIMS:
+        D = int(dim)
+        if kind == "causal_padding":
+            B, T, H = 2, 70, 3
+            mask = _padding_mask(rng, B, T)
+            return rand(B, T, H, D), rand(B, T, H, D), rand(B, T, H, D), ("pad", mask), True
+        if kind == "per_head_bias":
+            B, Q, K, H = 1, 19, 77, 3
+            return (rand(B, Q, H, D), rand(B, K, H, D), rand(B, K, H, D),
+                    ("raw", rand(1, H, Q, K)), False)
+        if kind == "decode_q1":
+            depth = np.array([9, 66])
+            mask = (np.arange(72)[None] <= depth[:, None]).astype(np.int32)
+            return (rand(2, 1, 6, D), rand(2, 72, 6, D), rand(2, 72, 6, D),
+                    ("decode", mask, depth), False)
     raise KeyError(name)
 
 
@@ -93,6 +116,8 @@ CASES = [
     "decode_q1", "decode_q1_head_dim_64", "causal_padding_head_dim_256",
     "per_head_bias_head_dim_256", "decode_q1_head_dim_256", "causal_padding_head_dim_96",
     "per_head_bias_head_dim_96", "decode_q1_head_dim_96",
+    *(f"{kind}_head_dim_{D}" for D in SMALL_HEAD_DIMS
+      for kind in ("causal_padding", "per_head_bias", "decode_q1")),
 ]
 
 

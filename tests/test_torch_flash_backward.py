@@ -6,8 +6,10 @@ interpret mode.
   LSE and a random dO, and must give the dQ/dK/dV of the JAX ``_bwd`` run in
   interpret mode with 16-wide blocks, on the three gradient cases of
   ``tests/test_flash_attention.py::TestFlashBackward``, two at GPT-J's
-  head dim 256 and three at GPT-NeoX-20B's 96 (causal + padding, a
-  per-head bias, one decode row).
+  head dim 256 and three each at GPT-NeoX-20B's 96 and the small head
+  dims 16 (the learning guard, the T5 stand-in), 24 (the randomwalks
+  configs) and 32 (the GPT-2 stand-in): causal + padding, a per-head bias,
+  one decode row.
 - The port's ``FlashAttention`` gradients (through
   ``dot_product_attention``) must equal ``jax.grad`` of the JAX
   ``flash_attention(..., interpret=True)`` on the same loss.
@@ -16,13 +18,14 @@ interpret mode.
   where the bias broadcasts) equals ``jax.grad`` of the reference's
   ``dot_product_attention(learned_bias=True)`` (XLA's einsum path) with
   respect to the bias within 1e-5 of the largest, and the ``Function``'s
-  equals torch autograd through the plain forward. A learned bias under the
+  equals torch autograd through the plain forward, also at the T5
+  stand-in's head dim 16. A learned bias under the
   causal flag, or a bias that requires grad without ``learned_bias``, is
   refused.
 
 Inputs come from a numpy seed, in f32. Tolerance: atol 2e-5 (1e-5 at head
-dims 256 and 96) on gradients of O(1) magnitude — both sides compute in f32 and differ only in the order
-of their sums (the JAX kernel sums per 16-wide tile, the plain version in
+dims 256, 96, 32, 24 and 16) on gradients of O(1) magnitude — both
+sides compute in f32 and differ only in the order of their sums (the JAX kernel sums per 16-wide tile, the plain version in
 one einsum). The CUDA kernels are held against this plain version on the
 card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
 """
@@ -39,17 +42,22 @@ from trlx_tpu_torch.ops import attention as tattn
 from trlx_tpu_torch.ops import flash_attention as tfa
 
 ATOL = 2e-5
-#: the head-dim-256 and -96 cases (GPT-J's, GPT-NeoX-20B's), held to 1e-5
+#: the cases named by a head dim (GPT-J's 256, GPT-NeoX-20B's 96 and the
+#: small dims below), held to 1e-5
 ATOL_WIDE_HEADS = 1e-5
+#: the small head dims K2 and K3 are built for besides 64, 96 and 256
+SMALL_HEAD_DIMS = (16, 24, 32)
 
 
 def _atol(name):
-    return ATOL_WIDE_HEADS if name.endswith(("head_dim_256", "head_dim_96")) else ATOL
+    return ATOL_WIDE_HEADS if "_head_dim_" in name else ATOL
 
 
 CASES = ["causal_padding", "unequal_causal", "per_head_bias",
          "causal_padding_head_dim_256", "per_head_bias_head_dim_256",
-         "causal_padding_head_dim_96", "per_head_bias_head_dim_96", "decode_q1_head_dim_96"]
+         "causal_padding_head_dim_96", "per_head_bias_head_dim_96", "decode_q1_head_dim_96",
+         *(f"{kind}_head_dim_{D}" for D in SMALL_HEAD_DIMS
+           for kind in ("causal_padding", "per_head_bias", "decode_q1"))]
 
 
 def _case(name):
@@ -89,6 +97,22 @@ def _case(name):
         B, K, H, D = 2, 72, 4, 96
         mask = (rng.integers(0, 2, size=(B, K)) | (np.arange(K)[None] < 4)).astype(np.int32)
         return rand(B, 1, H, D), rand(B, K, H, D), rand(B, K, H, D), ("pad", mask), False
+    # the small head dims, each a tile padded to one 64-column atom on the card
+    kind, _, dim = name.rpartition("_head_dim_")
+    if dim.isdigit() and int(dim) in SMALL_HEAD_DIMS:
+        D = int(dim)
+        if kind == "causal_padding":
+            B, T, H = 2, 70, 3
+            mask = (rng.integers(0, 2, size=(B, T)) | (np.arange(T)[None] < 4)).astype(np.int32)
+            return rand(B, T, H, D), rand(B, T, H, D), rand(B, T, H, D), ("pad", mask), True
+        if kind == "per_head_bias":
+            B, Q, K, H = 1, 19, 77, 3
+            return (rand(B, Q, H, D), rand(B, K, H, D), rand(B, K, H, D),
+                    ("raw", rand(1, H, Q, K)), False)
+        if kind == "decode_q1":
+            B, K, H = 2, 72, 6
+            mask = (rng.integers(0, 2, size=(B, K)) | (np.arange(K)[None] < 4)).astype(np.int32)
+            return rand(B, 1, H, D), rand(B, K, H, D), rand(B, K, H, D), ("pad", mask), False
     raise KeyError(name)
 
 
@@ -202,6 +226,9 @@ DBIAS_CASES = {
     "per_head": (2, 24, 40, 4, 32, (1, 4, 24, 40)),
     "per_row": (2, 17, 17, 4, 32, (2, 1, 17, 17)),
     "t5_decoder": (3, 9, 9, 4, 8, "rel+pad"),
+    # the T5 stand-in's decoder self-attention (examples/pretrained_standin.py:
+    # 4 heads of d_kv 16, 12 new tokens)
+    "t5_standin_decoder": (2, 12, 12, 4, 16, "rel+pad"),
 }
 
 

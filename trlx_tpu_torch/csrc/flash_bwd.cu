@@ -98,8 +98,25 @@
 //    tensor cores would make it TF32. No bf16 call reaches it.
 //
 // Head dims (hopper_tile.cuh kHeadDims): every kernel is a template over D,
-// built for 64 (GPT-2), 96 (GPT-NeoX-20B) and 256 (GPT-J-6B); each per-D
-// constant is chosen per built D (per_head_dim). At D = 96 every tile is
+// built for 16 (the learning guard, the T5 stand-in's d_kv), 24 (the
+// randomwalks configs), 32 (the GPT-2 stand-in), 64 (GPT-2), 96
+// (GPT-NeoX-20B) and 256 (GPT-J-6B); each per-D constant is chosen per built
+// D (per_head_dim). At D = 16, 24 and 32 every kernel runs D = 64's layout
+// on one padded atom (hopper_tile.cuh tile_cols: columns D..63
+// zero-filled), so S and dP take kmajor_steps = 1, 2 and 2 k-steps (at
+// D = 24 the second covers columns 16..31, of which 24..31 are zero in
+// both operands), the MN-major products' columns D..63 are dropped at the
+// store, and delta sums over the atom's 8 chunks, the padded ones zero in
+// dO and O:
+//  - dQ tile: 7 tiles of 8 KB (57 KB), 2 CTAs per SM (3 at 64: the dbias
+//    instantiation spilled at 3's register cap);
+//  - dK/dV tile: one warpgroup holding both accumulators, 8 tiles of 8 KB,
+//    2 CTAs per SM, as at 64;
+//  - fma: as at 64 (64-row tiles and 64-key chunks; dQ at D = 24 16 x 16,
+//    as at 96), each thread owning head-dim columns tx + 16 j,
+//    j < ceil(D / 16); at D = 24 the columns past 23 of its second j are
+//    neither read nor written.
+// At D = 96 every tile is
 // held as 64 x 128 (hopper_tile.cuh tile_cols: two atoms, columns 96..127
 // zero-filled), so a K-major product takes 6 k-steps and an MN-major one two
 // m64n64k16 products whose padded columns are dropped at the store:
@@ -160,18 +177,23 @@ __device__ __forceinline__ float logit(float s, float scale,
 constexpr int kThreads = 256;  // 16 x 16 threads
 
 // dQ: query rows per CTA for a forward tile of fwd_bq rows (the tile itself
-// at D = 64, 16 at D = 96 and 256) and keys per staged chunk (64, 16, 32).
-// At D = 96 ptxas spilled 16-48 bytes in one of the four instantiations
-// with 64 or 32 rows and 32 or 64 keys; 16 x 16 builds all four without a
-// spill (48 registers).
+// at D = 16, 32 and 64, 16 at D = 24, 96 and 256) and keys per staged chunk
+// (64 at D = 16, 32 and 64, 16 at 24 and 96, 32 at 256). ptxas picks the
+// register count of these kernels itself (40-128) and spilled in one of
+// the four instantiations (16-row or 64-row forward tile, with or without
+// dbias) at D = 96 with 64 or 32 rows and 32 or 64 keys (16-48 bytes), and
+// at D = 24 with 64 rows or 64 keys (8-32 bytes); 16 x 16 builds all four
+// without a spill at both.
 template <int D>
-__host__ __device__ constexpr int dq_fma_rows(int fwd_bq) { return per_head_dim<D>(fwd_bq, 16, 16); }
+__host__ __device__ constexpr int dq_fma_rows(int fwd_bq) {
+  return per_head_dim<D>(fwd_bq, 16, fwd_bq, fwd_bq, 16, 16);
+}
 template <int D>
-__host__ __device__ constexpr int dq_fma_keys() { return per_head_dim<D>(64, 16, 32); }
-// dK/dV: keys per CTA and query rows per chunk (64 at D = 64 and 96, 16 at
+__host__ __device__ constexpr int dq_fma_keys() { return per_head_dim<D>(64, 16, 64, 64, 16, 32); }
+// dK/dV: keys per CTA and query rows per chunk (64 at D <= 96, 16 at
 // D = 256)
 template <int D>
-__host__ __device__ constexpr int dkv_fma_tile() { return per_head_dim<D>(64, 64, 16); }
+__host__ __device__ constexpr int dkv_fma_tile() { return per_head_dim<D>(64, 64, 64, 64, 64, 16); }
 
 // Stage rows [r0, r0 + n) of a [B, T, H, D] tensor (already offset to its
 // batch row and head) into a [n][D + 1] tile; rows at or past T are 0.
@@ -262,7 +284,8 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
   constexpr int kLS = KC + 1;  // padded row stride of the dS tile
   constexpr int RQ = BQ / 16;  // query rows per thread
   constexpr int JK = KC / 16;  // keys per thread
-  constexpr int JD = D / 16;   // dQ columns per thread
+  constexpr int JD = (D + 15) / 16;  // dQ columns per thread (the last partial at D = 24)
+  constexpr bool kRagged = D % 16 != 0;
   constexpr int kDs = BQ * kLD > BQ * kLS ? BQ * kLD : BQ * kLS;
   extern __shared__ float smem[];
   float* Qs = smem;              // [BQ][kLD]
@@ -331,7 +354,8 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
     for (int c = 0; c < KC; ++c) {
       float kv[JD];
 #pragma unroll
-      for (int j = 0; j < JD; ++j) kv[j] = Ks[c * kLD + tx + 16 * j];
+      for (int j = 0; j < JD; ++j)
+        kv[j] = !kRagged || tx + 16 * j < D ? Ks[c * kLD + tx + 16 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
         const float ds = dSs[(ty * RQ + i) * kLS + c];
@@ -347,7 +371,8 @@ flash_bwd_dq_fma_kernel(const float* __restrict__ q, const float* __restrict__ k
     if (qi >= Q) continue;
     float* row = dq + ((static_cast<long long>(b) * Q + qi) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < JD; ++j) row[tx + 16 * j] = acc[i][j] * scale;
+    for (int j = 0; j < JD; ++j)
+      if (!kRagged || tx + 16 * j < D) row[tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
@@ -375,7 +400,8 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
   constexpr int kLP = KT + 1;            // padded row stride of the P/dS tiles
   constexpr int RQ = QC / 16;            // query rows per thread in the score phase
   constexpr int JK = KT / 16;            // keys per thread (both phases)
-  constexpr int JD = D / 16;             // head-dim columns per thread
+  constexpr int JD = (D + 15) / 16;      // head-dim columns per thread (the last partial at 24)
+  constexpr bool kRagged = D % 16 != 0;
   constexpr int kPs = QC * kLD > QC * kLP ? QC * kLD : QC * kLP;
   extern __shared__ float smem[];
   float* Ks = smem;              // [KT][kLD]
@@ -450,8 +476,9 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
       float dov[JD], qv[JD];
 #pragma unroll
       for (int j = 0; j < JD; ++j) {
-        dov[j] = dOs[r * kLD + tx + 16 * j];
-        qv[j] = Qs[r * kLD + tx + 16 * j];
+        const bool in = !kRagged || tx + 16 * j < D;
+        dov[j] = in ? dOs[r * kLD + tx + 16 * j] : 0.f;
+        qv[j] = in ? Qs[r * kLD + tx + 16 * j] : 0.f;
       }
 #pragma unroll
       for (int i = 0; i < JK; ++i) {
@@ -473,6 +500,7 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
     const long long off = ((static_cast<long long>(b) * K + kj) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < JD; ++j) {
+      if (kRagged && tx + 16 * j >= D) continue;
       dk[off + tx + 16 * j] = dk_acc[i][j] * scale;
       dv[off + tx + 16 * j] = dv_acc[i][j];
     }
@@ -484,30 +512,33 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
 // ---------------------------------------------------------------------------
 
 // CTAs per SM in the launch bounds. At D = 64 dQ fits 168 registers (3
-// CTAs); dK/dV holds two f32 accumulators and P, dS (hi + lo) at once and
+// CTAs); at D = 16, 24 and 32 its dbias instantiation spilled 8 bytes at
+// that cap, so it takes 2 CTAs (up to 255 registers; 174-176 used); dK/dV holds two f32 accumulators and P, dS (hi + lo) at once and
 // spilled at 168 in every arrangement tried, so it takes 2 CTAs and up to
 // 255 registers. At D = 96 dQ's 113 KB of shared memory allow 2 CTAs (up to
 // 255 registers) and dK/dV's two warpgroups take up to 255 registers, one
 // CTA per SM. At D = 256 each is one CTA per SM (shared memory bounds it)
 // with up to 255 registers a thread.
 template <int D>
-__host__ __device__ constexpr int dq_min_blocks() { return per_head_dim<D>(3, 2, 1); }
+__host__ __device__ constexpr int dq_min_blocks() { return per_head_dim<D>(2, 2, 2, 3, 2, 1); }
 template <int D>
-__host__ __device__ constexpr int dkv_min_blocks() { return per_head_dim<D>(2, 1, 1); }
-// dK/dV: one warpgroup holding both accumulators at D = 64, two (one per
+__host__ __device__ constexpr int dkv_min_blocks() { return per_head_dim<D>(2, 2, 2, 2, 1, 1); }
+// dK/dV: one warpgroup holding both accumulators at D <= 64, two (one per
 // accumulator) at D = 96 and 256
 template <int D>
-__host__ __device__ constexpr bool dkv_split() { return per_head_dim<D>(false, true, true); }
+__host__ __device__ constexpr bool dkv_split() {
+  return per_head_dim<D>(false, false, false, false, true, true);
+}
 template <int D>
 __host__ __device__ constexpr int dkv_threads() { return dkv_split<D>() ? 2 * kTileThreads : kTileThreads; }
 // dynamic shared memory: the tiles, and 1 KB of slack to align them to the
 // 1024 bytes the 128-byte swizzle repeats over
 template <int D>
 __host__ __device__ constexpr int dq_smem() { return 7 * tile_bytes<D>() + 1024; }  // Q, dO, O, K[2], V[2]
-// dK/dV's tiles: K, V and (Q, dO, O) in 2 stages at D = 64, in 1 at D = 96
+// dK/dV's tiles: K, V and (Q, dO, O) in 2 stages at D <= 64, in 1 at D = 96
 // and 256
 template <int D>
-__host__ __device__ constexpr int dkv_tiles() { return per_head_dim<D>(8, 5, 5); }
+__host__ __device__ constexpr int dkv_tiles() { return per_head_dim<D>(8, 8, 8, 8, 5, 5); }
 template <int D>
 __host__ __device__ constexpr int dkv_smem() {  // the tiles, LSE, delta
   return dkv_tiles<D>() * tile_bytes<D>() + 2 * kBQ * static_cast<int>(sizeof(float)) + 1024;
@@ -554,7 +585,7 @@ __device__ __forceinline__ void zero(float (&d)[8][4]) {
 }
 
 // d = X Y^T for 64 x D bf16 tiles X, Y [row][d] in shared memory, issued
-// (not committed) as D / 16 wgmmas
+// (not committed) as kmajor_steps<D>() wgmmas
 template <int D>
 __device__ __forceinline__ void product(float (&d)[8][4], uint32_t x, uint32_t y) {
   zero(d);
@@ -562,7 +593,8 @@ __device__ __forceinline__ void product(float (&d)[8][4], uint32_t x, uint32_t y
   wgmma_fence();
   const TileDesc<D> dx(x), dy(y);
 #pragma unroll
-  for (int ks = 0; ks < D / 16; ++ks) wgmma_ss(d, dx.kstep(ks), dy.kstep(ks), ks > 0);
+  for (int ks = 0; ks < kmajor_steps<D>(); ++ks)
+    wgmma_ss(d, dx.kstep(ks), dy.kstep(ks), ks > 0);
 }
 
 // acc[n] += A B[:, 64 n .. 64 n + 63] over the 4 k-steps of a 64-row B
@@ -593,7 +625,11 @@ flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                          Strides so, Strides sdo, BiasStrides sb, float scale,
                          int causal) {
   constexpr int kTB = tile_bytes<D>();
-  constexpr int kN = tile_cols<D>() / 64;  // 64-column chunks of dQ (the last padded at D = 96)
+  constexpr int kN = tile_cols<D>() / 64;  // 64-column chunks of dQ (the last padded at D != 64, 256)
+  // delta's 16-byte chunks per thread of a row's quad: D / 32 of the real
+  // ones where that is whole; at D = 16 and 24 two each, over the whole
+  // atom, whose padded chunks are zero in dO and O
+  constexpr int kDeltaChunks = D % 32 == 0 ? D / 32 : tile_cols<D>() / 32;
   extern __shared__ uint8_t smem_raw[];
   uint32_t sQ;
   const uint8_t* smem = aligned_smem(smem_raw, sQ);
@@ -652,15 +688,15 @@ flash_bwd_dq_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t sV = sV0 + buf * kTB;
 
     if (t == 0) {
-      // delta of this thread's two rows: D / 4 columns each, summed over
-      // the quad
+      // delta of this thread's two rows: kDeltaChunks chunks each, summed
+      // over the quad
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         const int r = warp * 16 + g + 8 * hr;
         float d = 0.f;
 #pragma unroll
-        for (int i = 0; i < D / 32; ++i) {
-          const int ch = D / 32 * t4 + i;
+        for (int i = 0; i < kDeltaChunks; ++i) {
+          const int ch = kDeltaChunks * t4 + i;
           d = dot8(smem + (sdO - sQ) + tile_offset(r, ch), smem + (sO - sQ) + tile_offset(r, ch), d);
         }
         d += __shfl_xor_sync(0xffffffffu, d, 1);
@@ -763,9 +799,13 @@ __device__ __forceinline__ void probabilities_t(float (&s)[8][4], const int (&kr
     }
 }
 
-// dK, dV at D = 64: one warpgroup per (64-key tile, head, batch row); the
+// dK, dV at D <= 64: one warpgroup per (64-key tile, head, batch row); the
 // accumulators hold keys as rows (warp w keys 16 w .. 16 w + 15, each
-// thread keys g and g + 8 of them) and the chunk's queries as columns.
+// thread keys g and g + 8 of them) and the chunk's queries as columns. A
+// 64 x D tile is one atom (padded below D = 64); delta sums the atom's 8
+// chunks, the padded ones zero in dO and O, and the accumulators' columns
+// D..63 are dropped at the store.
+template <int D>
 __device__ __forceinline__ void dkv_tile_joint(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const float* __restrict__ bias,
@@ -773,7 +813,6 @@ __device__ __forceinline__ void dkv_tile_joint(
     const float* __restrict__ lse, bf16* __restrict__ dk, bf16* __restrict__ dv,
     int H, int Q, int K, Strides sq, Strides sk, Strides sv, Strides so,
     Strides sdo, BiasStrides sb, float scale, int causal) {
-  constexpr int D = 64;
   constexpr int kTB = tile_bytes<D>();
   extern __shared__ uint8_t smem_raw[];
   uint32_t sK;
@@ -903,6 +942,7 @@ __device__ __forceinline__ void dkv_tile_joint(
     const long long off = ((static_cast<long long>(b) * K + kr[hr]) * H + h) * D;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
+      if (8 * j >= D) continue;  // the tile's padded columns are dropped
       *reinterpret_cast<uint32_t*>(dk + off + 8 * j + 2 * t4) =
           pack_bf16(dk_acc[j][2 * hr] * scale, dk_acc[j][2 * hr + 1] * scale);
       *reinterpret_cast<uint32_t*>(dv + off + 8 * j + 2 * t4) =
@@ -1061,8 +1101,8 @@ flash_bwd_dkv_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
                           Strides sk, Strides sv, Strides so, Strides sdo,
                           BiasStrides sb, float scale, int causal) {
   if constexpr (!dkv_split<D>())
-    dkv_tile_joint(q, k, v, bias, o, dout, lse, dk, dv, H, Q, K, sq, sk, sv, so,
-                   sdo, sb, scale, causal);
+    dkv_tile_joint<D>(q, k, v, bias, o, dout, lse, dk, dv, H, Q, K, sq, sk, sv, so,
+                      sdo, sb, scale, causal);
   else
     dkv_tile_split<D>(q, k, v, bias, o, dout, lse, dk, dv, H, Q, K, sq, sk, sv, so,
                       sdo, sb, scale, causal);
@@ -1168,7 +1208,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
 
 // variant: 0 = fma (f32), 1 = tile (bf16), as
 // ops/flash_attention.py::backward_variant picks it; dtype: 0 = float32, 1 =
-// bfloat16; D: a head dim of kHeadDims (64, 96 or 256). `strides` holds 19
+// bfloat16; D: a head dim of kHeadDims (16, 24, 32, 64, 96 or 256). `strides` holds 19
 // element strides: q, k, v, o, dout as (b, t, h) each (head dim contiguous),
 // then the bias's (b, h, q, k) with 0 for a broadcast dimension; the tile
 // variant needs all five inputs 16-byte aligned as `aligned16` states. bias
@@ -1192,6 +1232,18 @@ extern "C" int trlx_flash_bwd_dq(const void* q, const void* k, const void* v,
   bool refused = false;
   cudaError_t err;
   switch (D) {
+    case 16:
+      err = dbias ? launch_dq<16, true>(a, variant, dtype, dq, dbias, &refused)
+                  : launch_dq<16, false>(a, variant, dtype, dq, nullptr, &refused);
+      break;
+    case 24:
+      err = dbias ? launch_dq<24, true>(a, variant, dtype, dq, dbias, &refused)
+                  : launch_dq<24, false>(a, variant, dtype, dq, nullptr, &refused);
+      break;
+    case 32:
+      err = dbias ? launch_dq<32, true>(a, variant, dtype, dq, dbias, &refused)
+                  : launch_dq<32, false>(a, variant, dtype, dq, nullptr, &refused);
+      break;
     case 64:
       err = dbias ? launch_dq<64, true>(a, variant, dtype, dq, dbias, &refused)
                   : launch_dq<64, false>(a, variant, dtype, dq, nullptr, &refused);
@@ -1223,6 +1275,15 @@ extern "C" int trlx_flash_bwd_dkv(const void* q, const void* k, const void* v,
   bool refused = false;
   cudaError_t err;
   switch (D) {
+    case 16:
+      err = launch_dkv<16>(a, variant, dtype, dk, dv, &refused);
+      break;
+    case 24:
+      err = launch_dkv<24>(a, variant, dtype, dk, dv, &refused);
+      break;
+    case 32:
+      err = launch_dkv<32>(a, variant, dtype, dk, dv, &refused);
+      break;
     case 64:
       err = launch_dkv<64>(a, variant, dtype, dk, dv, &refused);
       break;

@@ -70,9 +70,27 @@
 //    4.2e-7 relative on the full-width gradient). No bf16 call reaches it.
 //
 // Head dims (hopper_tile.cuh kHeadDims): every variant is a template over D,
-// built for 64 (GPT-2; the shapes above), 96 (GPT-NeoX-20B) and 256
-// (GPT-J-6B); each per-D constant is chosen per built D (per_head_dim). At
-// D = 96:
+// built for 16 (the learning guard, the T5 stand-in's d_kv), 24 (the
+// randomwalks configs), 32 (the GPT-2 stand-in), 64 (GPT-2; the shapes
+// above), 96 (GPT-NeoX-20B) and 256 (GPT-J-6B); each per-D constant is
+// chosen per built D (per_head_dim). At D = 16, 24 and 32 every variant
+// runs D = 64's layout on a narrower row:
+//  - tile: a 64 x D tile is held as one 64-column atom (hopper_tile.cuh
+//    tile_cols, columns D..63 zero-filled by the copies); S = Q K^T takes
+//    kmajor_steps = 1, 2 and 2 k-steps (at D = 24 the second covers columns
+//    16..31, of which 24..31 are zero in Q and K); O += P V is one
+//    m64n64k16 per k-step, its columns D..63 dropped at the store. Q and a
+//    2-stage K/V ring are 40 KB of static shared memory, 4 CTAs per SM, as
+//    at D = 64.
+//  - decode: a key row is 32, 48 or 64 bytes: 2, 4 and 4 lanes of 16-byte
+//    loads. At D = 24 the row's three chunks do not make a power-of-two
+//    group for the xor-shuffle reduction, so 4 lanes take a key row and the
+//    fourth loads nothing and adds zero (as D = 96's 16 lanes, of which 12
+//    read); a warp then covers 8 keys per load.
+//  - fma: as at D = 64 (64-key chunks, 64- or 16-row CTAs); each thread owns
+//    output columns tx + 16 j, j < ceil(D / 16), and at D = 24 the columns
+//    past 23 of its second j are neither read nor written.
+// At D = 96:
 //  - tile: a 64 x 96 tile is held as 64 x 128 (hopper_tile.cuh tile_cols:
 //    two atoms, columns 96..127 zero-filled). S = Q K^T takes 6 k-steps
 //    (atom 0's four, atom 1's first two); O += P V is two m64n64k16
@@ -130,15 +148,16 @@ __device__ __forceinline__ float logit(float s, float scale, const float* biasb,
 
 constexpr int kFmaThreads = 256;  // 16 x 16 threads
 
-// keys per staged K/V chunk: 64 at D = 64 and 96, 32 at D = 256 (shared
-// memory)
+// keys per staged K/V chunk: 64 at D <= 96, 32 at D = 256 (shared memory)
 template <int D>
-__host__ __device__ constexpr int fma_keys() { return per_head_dim<D>(64, 64, 32); }
+__host__ __device__ constexpr int fma_keys() { return per_head_dim<D>(64, 64, 64, 64, 64, 32); }
 
 // query rows per CTA for a forward tile of fwd_bq rows: the tile itself at
-// D = 64 and 96, 16 at D = 256 (shared memory)
+// D <= 96, 16 at D = 256 (shared memory)
 template <int D>
-__host__ __device__ constexpr int fma_rows(int fwd_bq) { return per_head_dim<D>(fwd_bq, fwd_bq, 16); }
+__host__ __device__ constexpr int fma_rows(int fwd_bq) {
+  return per_head_dim<D>(fwd_bq, fwd_bq, fwd_bq, fwd_bq, fwd_bq, 16);
+}
 
 template <int D, int BQ>
 __host__ __device__ constexpr size_t fma_smem() {
@@ -158,7 +177,8 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int kLP = KC + 1;  // padded row stride of the P tile
   constexpr int RQ = BQ / 16;  // query rows per thread
   constexpr int JK = KC / 16;  // keys per thread
-  constexpr int JD = D / 16;   // output columns per thread
+  constexpr int JD = (D + 15) / 16;  // output columns per thread (the last partial at D = 24)
+  constexpr bool kRagged = D % 16 != 0;
   extern __shared__ float smem[];
   float* Qs = smem;            // [BQ][kLD]
   float* Ks = Qs + BQ * kLD;   // [KC][kLD]
@@ -269,7 +289,8 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int c = 0; c < KC; ++c) {
       float vv[JD];
 #pragma unroll
-      for (int j = 0; j < JD; ++j) vv[j] = Vs[c * kLD + tx + 16 * j];
+      for (int j = 0; j < JD; ++j)
+        vv[j] = !kRagged || tx + 16 * j < D ? Vs[c * kLD + tx + 16 * j] : 0.f;
 #pragma unroll
       for (int i = 0; i < RQ; ++i) {
         const float p = Ps[(ty * RQ + i) * kLP + c];
@@ -286,7 +307,8 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float l_safe = fmaxf(l[i], 1e-30f);
     float* orow = o + ((static_cast<long long>(b) * Q + qi) * H + h) * D;
 #pragma unroll
-    for (int j = 0; j < JD; ++j) orow[tx + 16 * j] = acc[i][j] / l_safe;
+    for (int j = 0; j < JD; ++j)
+      if (!kRagged || tx + 16 * j < D) orow[tx + 16 * j] = acc[i][j] / l_safe;
     if (lse && tx == 0)
       lse[(static_cast<long long>(b) * H + h) * Q + qi] = m[i] + logf(l_safe);
   }
@@ -316,18 +338,18 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 
 constexpr int kBQ = 64;  // query rows per CTA: 4 warps x 16
 
-// K/V stages and CTAs per SM in the launch bounds: at D = 64 a 2-stage ring
+// K/V stages and CTAs per SM in the launch bounds: at D <= 64 a 2-stage ring
 // and 4 CTAs (registers capped at 128); at D = 96 a 2-stage ring (81 KB of
 // shared memory) and 2 CTAs (up to 255 registers: the O accumulator is 64,
 // S 32 and the preloaded bias 32); at D = 256 the O accumulator alone is
 // 128 registers, so 2 CTAs (up to 255), and one stage (the other CTA's
 // copies overlap this one's math)
 template <int D>
-__host__ __device__ constexpr int tile_stages() { return per_head_dim<D>(2, 2, 1); }
+__host__ __device__ constexpr int tile_stages() { return per_head_dim<D>(2, 2, 2, 2, 2, 1); }
 template <int D>
-__host__ __device__ constexpr int tile_min_blocks() { return per_head_dim<D>(4, 2, 2); }
+__host__ __device__ constexpr int tile_min_blocks() { return per_head_dim<D>(4, 4, 4, 4, 2, 2); }
 // Q, then K and V per stage: static shared memory when it fits the 48 KB
-// static limit, else dynamic with 1 KB of alignment slack
+// static limit (40 KB at D <= 64), else dynamic with 1 KB of alignment slack
 template <int D>
 __host__ __device__ constexpr bool tile_static_smem() {
   return (1 + 2 * tile_stages<D>()) * tile_bytes<D>() <= 48 * 1024;
@@ -361,12 +383,12 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       BiasStrides sb, float scale, int causal) {
   constexpr int kTB = tile_bytes<D>();
   constexpr int kStages = tile_stages<D>();
-  constexpr int kN = tile_cols<D>() / 64;  // 64-column chunks of O (the last padded at D = 96)
+  constexpr int kN = tile_cols<D>() / 64;  // 64-column chunks of O (the last padded at D != 64, 256)
   // the bias of a thread's 32 (row, key) pairs is read before the wait for
-  // the tile at D = 64 and 96; at D = 256 those 32 registers would spill
-  constexpr bool kPreloadBias = per_head_dim<D>(true, true, false);
+  // the tile at D <= 96; at D = 256 those 32 registers would spill
+  constexpr bool kPreloadBias = per_head_dim<D>(true, true, true, true, true, false);
   // Q, K[stages], V[stages]; the 128-byte swizzle repeats every 1024 bytes.
-  // Static at D = 64 (40 KB: its address folds into the code), dynamic above
+  // Static at D <= 64 (40 KB: its address folds into the code), dynamic above
   uint32_t sQ;
   if constexpr (tile_static_smem<D>()) {
     __shared__ __align__(1024) uint8_t smem[(1 + 2 * kStages) * kTB];
@@ -458,7 +480,8 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     {
       const TileDesc<D> dQ(sQ), dK(sK);
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks) wgmma_ss(s, dQ.kstep(ks), dK.kstep(ks), ks > 0);
+      for (int ks = 0; ks < kmajor_steps<D>(); ++ks)
+        wgmma_ss(s, dQ.kstep(ks), dK.kstep(ks), ks > 0);
     }
     wgmma_commit_and_wait();
     fence_registers(s);
@@ -577,11 +600,12 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v,
 constexpr int kDecWarps = 4;
 constexpr int kDecThreads = 32 * kDecWarps;
 
-// lanes that read one key row (16 bytes each): 8 at D = 64, 16 at D = 96
-// (12 read, 4 add zero: the shuffle reduction takes a power-of-two group),
-// a warp at D = 256
+// lanes that read one key row (16 bytes each): 2 at D = 16, 4 at D = 24 (3
+// read, 1 adds zero) and 32, 8 at D = 64, 16 at D = 96 (12 read, 4 add
+// zero: the shuffle reduction takes a power-of-two group), a warp at
+// D = 256
 template <int D>
-__host__ __device__ constexpr int row_lanes() { return per_head_dim<D>(8, 16, 32); }
+__host__ __device__ constexpr int row_lanes() { return per_head_dim<D>(2, 4, 4, 8, 16, 32); }
 // groups of row_lanes lanes in the CTA: each reads one key row at a time
 template <int D>
 __host__ __device__ constexpr int dec_groups() { return 32 / row_lanes<D>() * kDecWarps; }
@@ -829,7 +853,8 @@ int launch_variant(const void* q, const void* k, const void* v, const void* bias
 
 // variant: 0 = fma (f32), 1 = tile (bf16, Q > 16), 2 = decode (bf16,
 // Q <= 16), as ops/flash_attention.py::forward_variant picks it. dtype: 0 =
-// float32, 1 = bfloat16. D: a head dim of kHeadDims (64, 96 or 256). Strides
+// float32, 1 = bfloat16. D: a head dim of kHeadDims (16, 24, 32, 64, 96 or
+// 256). Strides
 // are in elements; the head dim must be contiguous, and the tile and decode
 // variants need 16-byte-aligned K and V (and Q for tile) as `aligned16`
 // states. bias may be null; lse may be null (not written). Returns 0 on
@@ -849,6 +874,15 @@ extern "C" int trlx_flash_fwd(
   const BiasStrides sb{sbb, sbh, sbq, sbk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
+    case 16:
+      return launch_variant<16>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
+                                sq, sk, sv, sb, scale, causal, st);
+    case 24:
+      return launch_variant<24>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
+                                sq, sk, sv, sb, scale, causal, st);
+    case 32:
+      return launch_variant<32>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
+                                sq, sk, sv, sb, scale, causal, st);
     case 64:
       return launch_variant<64>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
                                 sq, sk, sv, sb, scale, causal, st);

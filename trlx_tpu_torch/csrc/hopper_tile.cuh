@@ -8,18 +8,26 @@
 // both libraries.
 //
 // Head dims. Every kernel is a template over the head dim D and is built
-// for the dims in kHeadDims (GPT-2's 64, GPT-NeoX-20B's 96, GPT-J's 256);
-// the C entry points refuse any other, and a per-D constant is chosen with
-// per_head_dim, which fails to compile for a D outside kHeadDims. A 64 x D
-// tile is tile_cols<D>() / 64 swizzle atoms of 64 rows x 128 bytes (64 bf16
-// columns each, 8 KB), atom a holding columns 64 a .. 64 a + 63: a K-major
-// product (S = Q K^T) steps through the atoms 4 k-steps at a time
-// (kmajor_step), D / 16 k-steps in all, an MN-major one (O += P V) takes
-// one atom per 64 output columns (mn_step), each with its own 64 x 64
-// accumulator. At D = 96 a row is 1.5 atoms: the tile is padded to 128
-// columns (two atoms, 16 KB), columns 96..127 zero-filled by the copies and
-// read by no K-major product (6 k-steps); the MN-major products' columns
-// 96..127 are computed and dropped at the store.
+// for the dims in kHeadDims (the learning guard's and the T5 stand-in's 16,
+// the randomwalks configs' 24, the GPT-2 stand-in's 32, GPT-2's 64,
+// GPT-NeoX-20B's 96, GPT-J's 256); the C entry points refuse any other, and
+// a per-D constant is chosen with per_head_dim, which fails to compile for
+// a D outside kHeadDims. A 64 x D tile is tile_cols<D>() / 64 swizzle atoms
+// of 64 rows x 128 bytes (64 bf16 columns each, 8 KB), atom a holding
+// columns 64 a .. 64 a + 63: a K-major product (S = Q K^T) steps through
+// the atoms 4 k-steps at a time (kmajor_step), kmajor_steps<D>() k-steps in
+// all, an MN-major one (O += P V) takes one atom per 64 output columns
+// (mn_step), each with its own 64 x 64 accumulator. Where D is not a whole
+// number of atoms the tile is padded: at D = 96 to 128 columns (two atoms,
+// 16 KB), at D = 16, 24 and 32 to one atom of 64 columns. The copies
+// zero-fill the padding (cp.async src-size 0), and nothing past column D is
+// read from memory. A K-major product covers D rounded up to 16 columns (6
+// k-steps at 96, 1 at 16, 2 at 24 and 32): at D = 24 its second k-step
+// multiplies columns 24..31, zero in both operands, so no dot product
+// changes. The MN-major products' columns D..63 (of the last atom) are
+// computed and dropped at the store. At D <= 32 this spends 2x to 4x the
+// shared memory and product width the row needs; a 64- or 32-byte swizzle
+// would not pad.
 
 #pragma once
 
@@ -33,7 +41,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeadDims[] = {64, 96, 256};  // the head dims the kernels are built for
+constexpr int kHeadDims[] = {16, 24, 32, 64, 96, 256};  // the head dims the kernels are built for
 constexpr int kBK = 64;           // keys per tile (the visit rule's key tile)
 constexpr float kNegInf = -1e9f;  // the framework's finite mask value
 constexpr int kTileThreads = 128;         // one warpgroup
@@ -42,23 +50,35 @@ constexpr int kAtomBytes = 64 * 128;      // one 64-row x 128-byte swizzle atom,
 // One constant per built head dim, given in kHeadDims' order; any other D
 // fails to compile, so a new head dim must choose each constant explicitly.
 template <int D, typename T>
-__host__ __device__ constexpr T per_head_dim(T at64, T at96, T at256) {
-  static_assert(D == 64 || D == 96 || D == 256, "D is not one of kHeadDims");
-  return D == 64 ? at64 : D == 96 ? at96 : at256;
+__host__ __device__ constexpr T per_head_dim(T at16, T at24, T at32, T at64, T at96,
+                                             T at256) {
+  static_assert(D == 16 || D == 24 || D == 32 || D == 64 || D == 96 || D == 256,
+                "D is not one of kHeadDims");
+  return D == 16 ? at16 : D == 24 ? at24 : D == 32 ? at32 : D == 64 ? at64
+       : D == 96 ? at96 : at256;
 }
-static_assert(sizeof(kHeadDims) / sizeof(kHeadDims[0]) == 3 && kHeadDims[0] == 64 &&
-                  kHeadDims[1] == 96 && kHeadDims[2] == 256,
+static_assert(sizeof(kHeadDims) / sizeof(kHeadDims[0]) == 6 && kHeadDims[0] == 16 &&
+                  kHeadDims[1] == 24 && kHeadDims[2] == 32 && kHeadDims[3] == 64 &&
+                  kHeadDims[4] == 96 && kHeadDims[5] == 256,
               "per_head_dim takes its constants in kHeadDims' order");
 
 // The columns of a 64 x D tile in shared memory: D rounded up to whole
-// 64-column swizzle atoms (128 at D = 96; the padding is zero-filled)
+// 64-column swizzle atoms (64 at D = 16, 24 and 32, 128 at D = 96; the
+// padding is zero-filled). A row is whole 16-byte chunks (D % 8 == 0).
 template <int D>
 __host__ __device__ constexpr int tile_cols() {
-  static_assert(D % 16 == 0, "whole wgmma k-steps of 16 columns");
+  static_assert(D % 8 == 0, "whole 16-byte chunks of 8 bf16");
   return (D + 63) / 64 * 64;
 }
 
-// one 64 x D bf16 tile: 8 KB at D = 64, 16 KB at D = 96, 32 KB at D = 256
+// The k-steps of 16 columns a K-major product over D takes: D rounded up to
+// 16 (2 at D = 24, whose columns 24..31 are zero in both operands)
+template <int D>
+__host__ __device__ constexpr int kmajor_steps() {
+  return (D + 15) / 16;
+}
+
+// one 64 x D bf16 tile: 8 KB at D <= 64, 16 KB at D = 96, 32 KB at D = 256
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
   return 64 * tile_cols<D>() * 2;
@@ -171,11 +191,12 @@ __device__ __forceinline__ void fence_proxy_async() {
 // batch row and head) into a swizzled 64 x D tile; rows at or past T read
 // as 0. 8 tile_cols 16-byte chunks, spread over the kThreads threads that
 // call it (neighbouring threads on neighbouring chunks of a row): 4 per
-// thread of one warpgroup at D = 64, 8 at D = 96, 16 at D = 256. At D = 96
-// chunks 12..15 of a row are the padding: their copies read nothing
-// (src-size 0) and fill 0, so nothing past column 95 is read. Above D = 64
-// the thread's row and chunk are made opaque per call: ptxas otherwise
-// hoisted the 16 row offsets of each tile out of the key loop and spilled.
+// thread of one warpgroup at D <= 64, 8 at D = 96, 16 at D = 256. Chunks
+// D / 8 .. of a row are the padding (12..15 at D = 96; 2..7, 3..7 and 4..7
+// at D = 16, 24 and 32): their copies read nothing (src-size 0) and fill 0,
+// so nothing past column D - 1 is read. Above D = 64 the thread's row and
+// chunk are made opaque per call: ptxas otherwise hoisted the 16 row
+// offsets of each tile out of the key loop and spilled.
 template <int D, int kThreads = kTileThreads>
 __device__ __forceinline__ void load_tile_async(uint32_t dst, const bf16* src,
                                                 long long st, int r0,

@@ -18,12 +18,17 @@ build in parallel) and bound through plain C functions loaded with
 ``ctypes``. Nothing is imported or built when this module is imported.
 
 The kernels are templates over the head dim, built for
-:data:`HEAD_DIMS` (64, 96 and 256); the C entry points dispatch to the
-instantiation by D, and :func:`_check` refuses any other D before a
-launch. At D = 96 (GPT-NeoX-20B) the tile variants hold each 64 x 96 tile
-as 64 x 128 in shared memory, the padding zero-filled by the copies and
-never written back, and read q, k and v in place from the fused
-``query_key_value`` projection's ``[B, T, H, 288]`` view.
+:data:`HEAD_DIMS` (16, 24, 32, 64, 96 and 256); the C entry points
+dispatch to the instantiation by D, and :func:`_check` refuses any other D
+before a launch. Where D is not a whole number of 64-column swizzle atoms
+the tile variants pad the tile in shared memory, the padding zero-filled
+by the copies and never written back: at D = 96 (GPT-NeoX-20B) to 128
+columns, read in place from the fused ``query_key_value`` projection's
+``[B, T, H, 288]`` view; at D = 16, 24 and 32 (the learning guard and the
+T5 stand-in, the randomwalks configs, the GPT-2 stand-in) to one atom of
+64, read in place from GPT-2's fused ``c_attn`` output (a head of 24
+starts at a multiple of 48 bytes, inside 16-byte-aligned rows of 432
+elements).
 
 Dispatch is by the tensor's device, never by a fallback:
 
@@ -72,10 +77,11 @@ FLASH_BWD_DQ_DBIAS_LAUNCHES = 0
 #: variant cannot read in place), once per packing
 FLASH_BWD_COPIES = 0
 
-#: the head dims the kernels are built for (GPT-2's 64, GPT-NeoX-20B's 96,
-#: GPT-J's 256; ``csrc/hopper_tile.cuh::kHeadDims``); any other is refused
-#: before a launch
-HEAD_DIMS = (64, 96, 256)
+#: the head dims the kernels are built for (the learning guard's and the T5
+#: stand-in's 16, the randomwalks configs' 24, the GPT-2 stand-in's 32,
+#: GPT-2's 64, GPT-NeoX-20B's 96, GPT-J's 256;
+#: ``csrc/hopper_tile.cuh::kHeadDims``); any other is refused before a launch
+HEAD_DIMS = (16, 24, 32, 64, 96, 256)
 KEY_TILE = 64  # the forward kernel's key tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: K1's variants, by the code its C entry point takes
@@ -440,8 +446,7 @@ def _check(q, k, v, bias, name: str) -> None:
     if D not in HEAD_DIMS:
         raise ValueError(
             f"{name}: the kernels are built for head dims {HEAD_DIMS}, got "
-            f"{D} (24, 32 and 16 for the randomwalks configs and the "
-            f"pretrained stand-ins, 128 for GPT-Neo: ROADMAP item 13)"
+            f"{D} (128 for GPT-Neo: ROADMAP item 13)"
         )
     if k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
         raise ValueError(
