@@ -9,7 +9,7 @@ Phases, each fatal on failure:
    ``flash_bwd.cu``: K2 dQ and K3 dK/dV, each ``tile`` for bf16 on the
    tensor cores and ``fma`` for f32, K2 in two instantiations, without and
    with the bias gradient; every kernel instantiated for head dims 16, 24,
-   32, 64, 96 and 256, each instantiation gated on its own) with ``nvcc``
+   32, 64, 96, 128 and 256, each instantiation gated on its own) with ``nvcc``
    for ``sm_90a``, both
    sources at once, and beside them each source's device code alone with
    ``ptxas -v`` (every run, so the report holds when the libraries were
@@ -84,7 +84,15 @@ Phases, each fatal on failure:
    attention) and the learning guard's (H = 2: the update B=16 T=10
    causal, a decode step), each with the edges above at 4 heads, the
    planted faults aimed at the row's last 16-byte chunk (columns 16..23
-   at D = 24);
+   at D = 24); and the head-dim-128 instantiations at GPT-Neo 1.3B's
+   shapes (H = 16, D = 256's cases at ``configs/ppo_gptj.yml``'s geometry
+   and phase 19's, the global layers' masks) and, for its local layers,
+   the band of 256 keys plus padding with the causal flag off (the update
+   B=8 T=96, phase 19's admission prefill B=8 Q=512 K=576 and decode step
+   B=32 K=576 at per-row depths, and a long band B=2 T=512 whose last
+   query tile sees three wholly masked key tiles first), K2 and K3 at the
+   update under both masks and at the long band, the planted faults aimed
+   at the second atom, columns 64..127;
 3. model — full-width GPT-2 in f32 through the kernels against the plain
    attention: the forward without a cache, prefill + decode through the
    paged cache against the plain full forward of the whole sequence, and
@@ -105,7 +113,14 @@ Phases, each fatal on failure:
    (``gpt_neox.`` names, the fused ``query_key_value`` [3 H Dh, E],
    ``embed_out.weight`` and the three buffers of older checkpoints)
    loaded through ``model.model_path`` on ``configs/ppo_neox20b.yml``, bit
-   for bit;
+   for bit; the same for GPT-Neo: a full-width f32 GPT-Neo 1.3B (2048
+   wide, 16 heads of 128, vocab 50 257, window 256) cut to 4 blocks
+   (global, local, global, local) at B = 2, T = 512, where the band
+   truncates (the gradient over 256 + 256 columns), and an HF-layout
+   checkpoint at full width and 4 blocks (``transformer.`` names,
+   ``attn.attention.*``, the tied ``lm_head.weight`` and the two buffers
+   of older checkpoints) loaded through ``model.model_path`` on phase
+   20's config, bit for bit;
 4. serving — ``InferenceServer`` on CUDA with the ``configs/ppo_sentiments.yml``
    model at full GPT-2-small width (random weights from a seed, bf16
    compute) serves 64 prompts; every request must complete with finite
@@ -308,8 +323,24 @@ Phases, each fatal on failure:
    dbias = 4 x the updates; (c) ``tests/test_torch_learning.py``'s
    target-token task (2 heads of 16): mean reward up by its 0.15 margin
    within 96 updates. Gates as phase 16's, with the loaded bits.
+19. GPT-Neo 1.3B serving — ``InferenceServer`` with ``model_type:
+   gpt_neo`` at GPT-Neo 1.3B's widths and depth (vocab 50 257, 2048
+   positions, 2048 wide, 24 blocks of 16 heads of 128, global and local
+   in turn at window 256; random weights from a seed), built in bf16,
+   phase 4's 64 prompts and geometry (prompts past 256 tokens make the
+   band truncate in the prefill and at every decode step). Gates as phase
+   14's: K1 ``tile`` = 24 x prefill forwards, ``decode`` = 24 x decode
+   steps, all at D = 128;
+20. GPT-Neo PPO — ``trlx_tpu_torch.train`` on ``configs/ppo_gptj.yml``'s
+   geometry (batch 8, 48 + 48 tokens, 128 rollouts, 4 epochs, the 2-block
+   hydra reference) with ``model_type: gpt_neo`` and GPT-Neo 1.3B at full
+   width and depth for two PPO phases (128 updates); named deviations:
+   the model, the mesh set to one device, random weights, no tokenizer,
+   128 of 10 000 updates. Gates as phase 13's, but the reference holds
+   blocks 22-23 (a global and a local block), ``wte`` (the tied head) and
+   ``ln_f``, and ``wpe`` stays bit-identical with the frozen blocks.
 
-Each path (phases 4 to 18, each definition of phase 7, each run of phases
+Each path (phases 4 to 20, each definition of phase 7, each run of phases
 9, 16 and 18 on its own) runs with the launch counters set to 0 just
 before it and read just after, and its peak memory is read from a clean start.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
@@ -320,7 +351,7 @@ phase of each phase-7 definition, one epoch of phase 8, one phase each
 of phases 9 (causal) and 10, and phase 11's traffic with the features on
 and off under ``torch.profiler`` and writes each run's
 device-time summary (busy share, device time by kernel) as JSON to PATH
-(phases 12 to 15 are not profiled).
+(phases 12 to 20 are not profiled).
 """
 
 from __future__ import annotations
@@ -491,12 +522,12 @@ def tensor_core_instructions(fa, library: str) -> dict:
 # name: each in the ptxas report with no spill; the tile kernels also with
 # tensor-core instructions in their SASS. Every kernel is built for head
 # dims 64 (ILi64E), 96 (ILi96E, named "_d96" here), 256 (ILi256E,
-# "_d256"), 16, 24 and 32 ("_d16", "_d24", "_d32"), gated apart; K2's tile
+# "_d256"), 16, 24, 32 and 128 ("_d16", "_d24", "_d32", "_d128"), gated apart; K2's tile
 # kernel has two instantiations per head dim, without the bias gradient
 # (Lb0E) and with it (Lb1E); the backward's f32 kernels (fma) are gated on
 # spills as well
 HEAD_DIM_SUFFIXES = ((64, ""), (96, "_d96"), (256, "_d256"), (16, "_d16"), (24, "_d24"),
-                     (32, "_d32"))
+                     (32, "_d32"), (128, "_d128"))
 GATED_KERNELS = {
     "flash_fwd": {f"flash_fwd_{v}_kernel{sfx}": f"flash_fwd_{v}_kernelILi{d}E"
                   for d, sfx in HEAD_DIM_SUFFIXES
@@ -2752,15 +2783,15 @@ GRPO_S2S_DEVIATIONS = (
 
 
 def yml_config(name: str, checkpoint_dir: str, model_path: str, updates: int,
-               train=None, method=None):
+               train=None, method=None, model=None):
     """``configs/<name>`` as written, from the checkpoint at ``model_path``
-    without a tokenizer, cut to ``updates`` updates; ``train`` and
-    ``method`` update those sections."""
+    without a tokenizer, cut to ``updates`` updates; ``train``, ``method``
+    and ``model`` update those sections."""
     from trlx_tpu_torch.data.configs import TRLConfig
 
     root = os.path.dirname(os.path.abspath(__file__))
     cfg = TRLConfig.load_yaml(os.path.join(root, "configs", name)).to_dict()
-    cfg["model"].update(model_path=model_path, tokenizer_path="")
+    cfg["model"].update(model_path=model_path, tokenizer_path="", **(model or {}))
     cfg["train"].update(total_steps=updates, checkpoint_dir=checkpoint_dir, **(train or {}))
     cfg["method"].update(method or {})
     return TRLConfig.from_dict(cfg)
@@ -4259,15 +4290,16 @@ def phase_gptj_model(torch, fa):
 
 
 def wide_model_checks(torch, fa, family, cfg, model, label: str, D: int, full_depth: int,
-                      grad_batch: int, seed: int):
-    """Phase 3 for a rotary family at head dim ``D``: a full-width f32
+                      grad_batch: int, seed: int, seq: int = 96, grad_split=(48, 48)):
+    """Phase 3 for a wide family at head dim ``D``: a full-width f32
     ``model`` (blocks cut from ``full_depth``) through the kernels against
     the plain attention (``family.dot_product_attention`` swapped). (a) the
-    forward without a cache (left padding); (b) prefill into the paged
-    cache (rotated block tables) and greedy decode steps at each row's
-    rotary position, against the plain full forward of the whole sequence;
-    (c) the gradient of a PPO loss on one minibatch of the yml's geometry
-    (``grad_batch`` rows, 48 + 48 columns), with K2 = K3 = one ``fma``
+    forward without a cache (2 rows of ``seq`` columns, left padding); (b)
+    prefill into the paged cache (rotated block tables) and greedy decode
+    steps at each row's position, against the plain full forward of the
+    whole sequence; (c) the gradient of a PPO loss on one minibatch of the
+    yml's geometry (``grad_batch`` rows, ``grad_split`` query + response
+    columns), with K2 = K3 = one ``fma``
     launch per block, held per parameter group (max |error| / max |value|)
     against the gradient with the attention in f64
     (:func:`attention_f64`): within 1e-3 or twice the plain f32 version's
@@ -4283,7 +4315,7 @@ def wide_model_checks(torch, fa, family, cfg, model, label: str, D: int, full_de
     dev = "cuda"
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    B, Q, R = 2, 96, 4
+    B, Q, R = 2, seq, 4
     ids = torch.randint(0, cfg.vocab_size, (B, Q), generator=gen, device=dev)
     mask = torch.ones_like(ids)
     mask[0, :30] = 0  # left padding
@@ -4342,7 +4374,7 @@ def wide_model_checks(torch, fa, family, cfg, model, label: str, D: int, full_de
         f"launches={launched} {'ok' if fwd_ok else 'FAIL'}")
 
     # the PPO-loss gradient at the yml's geometry
-    B, Q, R = grad_batch, 48, 48
+    B, (Q, R) = grad_batch, grad_split
     lens = torch.randint(16, Q + 1, (B,), generator=gen, device=dev)
     q_mask = (torch.arange(Q, device=dev)[None] >= Q - lens[:, None]).long()
     q_ids = torch.randint(0, cfg.vocab_size, (B, Q), generator=gen, device=dev) * q_mask
@@ -4373,7 +4405,7 @@ def wide_model_checks(torch, fa, family, cfg, model, label: str, D: int, full_de
         groups = {}
         for (name, _), g, r in zip(model.named_parameters(), got, want):
             group = ("value head" if name.startswith("v_head") else
-                     "embeddings" if ".wte." in name else
+                     "embeddings" if ".wte." in name or ".wpe." in name else
                      "lm head" if ".lm_head." in name else
                      "layer norms" if ".ln_" in name else
                      "attention" if ".attn." in name else "mlp")
@@ -4387,7 +4419,7 @@ def wide_model_checks(torch, fa, family, cfg, model, label: str, D: int, full_de
     bound = {k: max(1e-3, 2 * v) for k, v in plain_rel.items()}
     grad_ok = all(math.isfinite(v) and v <= bound[k] for k, v in kernel_rel.items()) and (
         launches == {k: {"tile": 0, "fma": cfg.n_layer} for k in BWD_KERNELS})
-    log(f"phase 3: full-width f32 {label} PPO-loss gradient (B={B}, 48 + 48), max relative "
+    log(f"phase 3: full-width f32 {label} PPO-loss gradient (B={B}, {Q} + {R}), max relative "
         "error per group against the f64 attention's gradient: kernels "
         + json.dumps(kernel_rel) + ", plain f32 attention " + json.dumps(plain_rel)
         + " (kernels vs plain " + json.dumps(kernel_vs_plain) + "), bound max(1e-3, 2 x plain)"
@@ -4455,42 +4487,68 @@ def phase_gptj_checkpoint(torch):
     return ok
 
 
-def gptj_serving_config():
-    """GPT-J-6B at full width and depth in bf16, served with phase 4's
-    engine geometry (random weights from a seed)."""
+def wide_serving_config(model_type: str, arch: dict, eos: int):
+    """Phase 4's engine geometry and traffic (random weights from a seed) on
+    ``model_type`` at ``arch``, ``eos`` also the pad: phases 12, 14 and
+    19."""
     cfg = serving_config()
-    cfg["model"]["model_type"] = "gptj"
-    cfg["model"]["model_arch"] = dict(GPTJ_ARCH)
-    cfg["method"]["gen_kwargs"].update(eos_token_id=GPTJ_EOS, pad_token_id=GPTJ_EOS)
+    cfg["model"].update(model_type=model_type, model_arch=dict(arch))
+    cfg["method"]["gen_kwargs"].update(eos_token_id=eos, pad_token_id=eos)
     return cfg
 
 
-def phase_gptj_serving(torch, fa):
-    """Phase 12: ``InferenceServer`` on GPT-J-6B (full width, 28 blocks, bf16,
-    random weights from a seed) over the continuous engine and the paged
-    cache at H = 16, D = 256, serving phase 4's 64 prompts with 64 new
-    tokens, 32 slots, admit/harvest 8. Gates: 64/64 complete with finite
-    logprobs and values; K1 ``tile`` = 28 x prefill forwards, ``decode`` =
-    28 x decode steps; 0 ``fma`` launches, input copies and plain calls."""
+def wide_training_config(checkpoint_dir: str, yml: str, model: dict, updates: int, eos: int):
+    """``configs/<yml>`` for phases 13, 15 and 20, with the deviations each
+    names: random weights (no checkpoint, no tokenizer), the mesh set to
+    one device, ``updates`` updates with one eval and one checkpoint at
+    the end, ``model`` updating the model section, ``eos`` also the pad."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", yml)).to_dict()
+    cfg["model"].update(model_path="", tokenizer_path="", **model)
+    cfg["train"].update(mesh={"dp": -1, "fsdp": 1, "tp": 1}, total_steps=updates,
+                        eval_interval=updates, checkpoint_interval=updates,
+                        checkpoint_dir=checkpoint_dir)
+    cfg["method"]["gen_kwargs"].update(eos_token_id=eos, pad_token_id=eos)
+    return TRLConfig.from_dict(cfg)
+
+
+def serve_wide(torch, fa, phase: int, label: str, config: dict, depth: int, head_dim: int,
+               checks=None, start_allocated_max=None):
+    """Phases 12, 14 and 19: ``InferenceServer`` on ``config`` (a wide
+    family at full width and ``depth`` blocks, random weights from a seed)
+    over the continuous engine and the paged cache, serving phase 4's 64
+    prompts with 64 new tokens, 32 slots, admit/harvest 8. Gates: the card
+    near empty before the build when ``start_allocated_max`` is given;
+    every parameter bf16 but the value head's last layer; 64/64 complete
+    with finite logprobs and values; the depth and head dim; ``checks``
+    (``{name: fn(model config) -> bool}``); K1 ``tile`` = ``depth`` x
+    prefill forwards, ``decode`` = ``depth`` x decode steps; 0 ``fma``
+    launches, input copies and plain calls. Prints tokens/s, TTFT p50/p95,
+    the build's peak and serving's."""
     import numpy as np
 
     from trlx_tpu_torch.inference.server import InferenceServer
 
     mem_start = reset_peak(torch)
     t0 = time.perf_counter()
-    server = InferenceServer(gptj_serving_config(), seed=0)
+    server = InferenceServer(config, seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    # building the f32 policy before its bf16 cast sets the peak; the
-    # serving path's own peak is counted_path's
+    # an f32 build before its bf16 cast sets the peak there; the serving
+    # path's own peak is counted_path's
     build_peak = torch.cuda.max_memory_allocated()
+    dtypes = {str(p.dtype) for n, p in server.model.named_parameters()
+              if not n.startswith("v_head.fc2.")}
+    weights = sum(p.numel() * p.element_size() for p in server.model.parameters())
     prompts = serving_prompts()
     (rids, results, wall), record = counted_path(torch, fa, lambda: serve(torch, server, prompts))
     stats = server.stats()
-    n_layer = server.model_config.n_layer
+    cfg = server.model_config
     expected_variants = {
-        "tile": n_layer * int(stats["engine/prefills"]),
-        "decode": n_layer * int(stats["engine/decode_steps"]),
+        "tile": depth * int(stats["engine/prefills"]),
+        "decode": depth * int(stats["engine/decode_steps"]),
         "fma": 0, "copies": 0,
     }
     lengths = [results[r]["length"] for r in rids]
@@ -4498,8 +4556,10 @@ def phase_gptj_serving(torch, fa):
                  and np.isfinite(results[r]["values"]).all() for r in rids)
     ttft = sorted(results[r]["timing"]["ttft_ms"] for r in rids)
     tokens = int(sum(lengths))
+    checked = {name: bool(fn(cfg)) for name, fn in (checks or {}).items()}
     record.update({
-        "model": "GPT-J-6B widths, 28 blocks, bf16", "build_s": build_s,
+        "model": f"{label} widths, {depth} blocks, served in bf16", "build_s": build_s,
+        "parameter_dtypes": sorted(dtypes), "weight_bytes": weights,
         "requests": len(rids), "generated_tokens": tokens, "serve_wall_s": wall,
         "tokens_per_s": tokens / wall,
         "ttft_ms_p50": float(np.percentile(ttft, 50)),
@@ -4507,38 +4567,35 @@ def phase_gptj_serving(torch, fa):
         "server_allocated_bytes": torch.cuda.memory_allocated(),
         "allocated_before_server_bytes": mem_start, "build_peak_bytes": build_peak,
         "peak_from_clean_start_bytes": max(build_peak, record["max_memory_allocated_bytes"]),
-        "expected_variants": expected_variants, "stats": stats,
+        "expected_variants": expected_variants, "checks": checked, "stats": stats,
     })
-    log("phase 12: GPT-J serving " + json.dumps(record))
-    ok = (len(results) == 64 and min(lengths) >= 1 and finite and n_layer == 28
+    log(f"phase {phase}: {label} serving " + json.dumps(record))
+    ok = ((start_allocated_max is None or mem_start <= start_allocated_max)
+          and dtypes == {"torch.bfloat16"} and len(results) == 64 and min(lengths) >= 1
+          and finite and cfg.n_layer == depth and cfg.n_embd // cfg.n_head == head_dim
+          and all(checked.values())
           and record["flash_fwd_variants"] == expected_variants
           and record["launches"]["flash_fwd"] == expected_variants["tile"]
           + expected_variants["decode"]
           and record["plain_attention_calls"] == 0)
-    log(f"phase 12: {'ok' if ok else 'FAIL'} (complete={len(results)}/64, min length="
-        f"{min(lengths)}, finite={finite}, K1 by variant {record['flash_fwd_variants']} vs "
-        f"{expected_variants}, plain attention calls={record['plain_attention_calls']}; "
-        f"{record['tokens_per_s']:.1f} tokens/s, TTFT p50 {record['ttft_ms_p50']:.0f} ms, "
-        f"p95 {record['ttft_ms_p95']:.0f} ms; peak {record['peak_from_clean_start_bytes']} B "
-        f"from {mem_start} B at the start, the build's {build_peak} B, serving's "
-        f"{record['max_memory_allocated_bytes']} B)")
+    log(f"phase {phase}: {'ok' if ok else 'FAIL'} (allocated before the build {mem_start} B, "
+        f"parameter dtypes {sorted(dtypes)} but v_head.fc2, {weights} B of weights; "
+        f"{cfg.n_layer} blocks, head dim {cfg.n_embd // cfg.n_head}, checks {checked}; "
+        f"complete={len(results)}/64, min length={min(lengths)}, finite={finite}, K1 by variant "
+        f"{record['flash_fwd_variants']} vs {expected_variants}, plain attention calls="
+        f"{record['plain_attention_calls']}; {record['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{record['ttft_ms_p50']:.0f} ms, p95 {record['ttft_ms_p95']:.0f} ms; the build's peak "
+        f"{build_peak} B in {build_s:.1f} s, serving's {record['max_memory_allocated_bytes']} B)")
     del server
     return ok, record
 
 
-def gptj_training_config(checkpoint_dir: str):
-    """``configs/ppo_gptj.yml`` with ``GPTJ_DEVIATIONS``, at GPT-J-6B's
-    widths and depth."""
-    from trlx_tpu_torch.data.configs import TRLConfig
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", "ppo_gptj.yml")).to_dict()
-    cfg["model"].update(model_path="", tokenizer_path="", model_arch=dict(GPTJ_ARCH))
-    cfg["train"].update(mesh={"dp": -1, "fsdp": 1, "tp": 1}, total_steps=GPTJ_UPDATES,
-                        eval_interval=GPTJ_UPDATES, checkpoint_interval=GPTJ_UPDATES,
-                        checkpoint_dir=checkpoint_dir)
-    cfg["method"]["gen_kwargs"].update(eos_token_id=GPTJ_EOS, pad_token_id=GPTJ_EOS)
-    return TRLConfig.from_dict(cfg)
+def phase_gptj_serving(torch, fa):
+    """Phase 12: :func:`serve_wide` on GPT-J-6B (28 blocks, 16 heads of
+    256, rotary 64), built in f32 and cast to bf16."""
+    return serve_wide(torch, fa, 12, "GPT-J-6B",
+                      wide_serving_config("gptj", GPTJ_ARCH, GPTJ_EOS), depth=28,
+                      head_dim=GPTJ_D)
 
 
 def gptj_prompts(seed: int = 5):
@@ -4550,21 +4607,28 @@ def gptj_prompts(seed: int = 5):
             for _ in range(128)]
 
 
-def phase_gptj_training(torch, fa):
-    """Phase 13: ``trlx_tpu_torch.train`` on ``configs/ppo_gptj.yml`` with
-    ``GPTJ_DEVIATIONS`` (GPT-J-6B widths and depth, random weights from the
-    seed, bf16 over f32 masters, the 2-block hydra reference, the bottom 26
-    blocks and ``wte`` frozen), 128 int-list prompts of 16..48 tokens, two
-    PPO phases. Gates: every stat finite; the top 2 blocks, ``ln_f``,
-    ``lm_head`` and the value head moved; the bottom 26 blocks and ``wte``
-    bit-identical after training; the reference holds blocks 26-27,
-    ``wte``, ``ln_f`` and ``lm_head`` and no other block; K1 ``tile`` = 28
-    x the forwards that are not decode steps (a reference scoring: 26
-    trunk + 2 branch blocks), ``decode`` = 28 x the decode steps; K2 = K3 =
-    2 x the updates, all ``tile``; no ``fma`` launch, input copy or plain
-    call; a fresh trainer's ``load`` restores the saved state exactly.
-    Prints the wall with the checkpoint write timed apart, the collect and
-    train seconds, rollout tokens/s, updates/s and the peak."""
+def train_wide(torch, fa, phase: int, label: str, config_fn, prompts, deviations, depth: int,
+               updates: int, ref_parts, ref_parameters=None, host_copy_load=False,
+               checks=None):
+    """Phases 13, 15 and 20: ``trlx_tpu_torch.train`` on ``config_fn(checkpoint
+    dir)`` (a wide family's PPO yml with its ``deviations``: bf16 over f32
+    masters, the 2-block hydra reference, the blocks below it and the
+    embeddings frozen), ``prompts``, two PPO phases. Gates: ``updates``
+    updates in 2 phases; every stat finite; ``depth`` blocks, the branch at
+    ``depth - 2``; ``checks`` (``{name: fn(trainer) -> bool}``); the top 2
+    blocks, ``ln_f``, an untied head and the value head moved; the blocks
+    below and the embeddings (``wte``, ``wpe``) bit-identical after
+    training; the reference holds blocks ``depth - 2`` and up and
+    ``ref_parts`` only (``ref_parameters`` parameters, when given); K1
+    ``tile`` = ``depth`` x the forwards that are not decode steps (a
+    reference scoring: the trunk and the 2 branch blocks), ``decode`` =
+    ``depth`` x the decode steps; K2 = K3 = 2 x the updates, all ``tile``;
+    no ``fma`` launch, input copy or plain call; a fresh trainer's ``load``
+    restores the saved state exactly (with ``host_copy_load`` held against a
+    host copy of the run's state, freed first: two such trainers do not fit
+    the card together). Prints the wall with the checkpoint write timed
+    apart, the collect and train seconds, rollout tokens/s, updates/s and
+    the peak."""
     import tempfile
 
     import numpy as np
@@ -4572,8 +4636,8 @@ def phase_gptj_training(torch, fa):
     import trlx_tpu_torch
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
-    log("phase 13: configs/ppo_gptj.yml; deviations: " + json.dumps([
-        {"setting": k, "yml": y, "port": p, "why": why} for k, y, p, why in GPTJ_DEVIATIONS]))
+    log(f"phase {phase}: deviations: " + json.dumps([
+        {"setting": k, "yml": y, "port": p, "why": why} for k, y, p, why in deviations]))
     watch, decode_forwards, scoring_tiles, save_s = {}, [0], [], []
     initial, reference = {}, {}
     orig = {n: getattr(PPOTrainer, n) for n in ("_apply", "score_ref", "save", "learn")}
@@ -4610,7 +4674,7 @@ def phase_gptj_training(torch, fa):
         return orig["learn"](self)
 
     with tempfile.TemporaryDirectory() as tmp:
-        config = gptj_training_config(tmp)
+        config = config_fn(tmp)
         # instrument's stats, evals and pushes; its learn and save are
         # replaced by the ones above
         patches = [p for p in instrument(torch, PPOTrainer, "transformer", {}, watch)
@@ -4618,9 +4682,10 @@ def phase_gptj_training(torch, fa):
             (PPOTrainer, "_apply", apply), (PPOTrainer, "score_ref", score_ref),
             (PPOTrainer, "save", save), (PPOTrainer, "learn", learn)]
         trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
-            reward_fn=training_reward, prompts=gptj_prompts(), config=config), patches)
-        n_layer, updates = trainer.model_config.n_layer, trainer.step
+            reward_fn=training_reward, prompts=prompts, config=config), patches)
+        n_layer, steps = trainer.model_config.n_layer, trainer.step
         branch = trainer.branch_start
+        checked = {name: bool(fn(trainer)) for name, fn in (checks or {}).items()}
         final = trainer.model.state_dict()
         moved = {n: not torch.equal(final[n].cpu(), initial[n]) for n in final}
         initial.clear()
@@ -4629,61 +4694,69 @@ def phase_gptj_training(torch, fa):
             m = re.match(r"transformer\.h\.(\d+)\.", name)
             return int(m.group(1)) if m else None
 
-        frozen = [n for n in moved if n.startswith("transformer.wte.")
+        frozen = [n for n in moved if n.startswith(("transformer.wte.", "transformer.wpe."))
                   or (block(n) is not None and block(n) < branch)]
         top = [n for n in moved if n not in frozen]
         finite = all(np.isfinite(v).all() for r in watch["rows"] for v in r.values()) and all(
             math.isfinite(v) for e in watch["evals"] for v in e.values())
         ref_blocks = sorted({int(n.split(".")[1]) for n in reference["names"]
                              if n.startswith("h.")})
-        ref_parts = sorted({n.split(".")[0] for n in reference["names"]})
+        found_parts = sorted({n.split(".")[0] for n in reference["names"]})
         expected_variants = {
             "tile": n_layer * (trainer.forwards - decode_forwards[0]),
             "decode": n_layer * decode_forwards[0], "fma": 0, "copies": 0,
         }
-        expected_bwd = {k: {"tile": 2 * updates, "fma": 0} for k in BWD_KERNELS}
+        expected_bwd = {k: {"tile": 2 * steps, "fma": 0} for k in BWD_KERNELS}
         phases = phase_rows(trainer)
-        # a fresh trainer restores the saved state (the run's gradients and
-        # rollouts freed first: two 6B trainers share the card)
-        trainer.opt.zero_grad()
-        trainer.buffer = None
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+        forwards = trainer.forwards
+        if host_copy_load:
+            saved = trainer_state(trainer, "cpu")
+            del trainer, final
+            reset_peak(torch)
+        else:
+            # the run's gradients and rollouts freed first: two trainers
+            # share the card
+            trainer.opt.zero_grad()
+            trainer.buffer = None
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        fresh = PPOTrainer(gptj_training_config(tmp))
+        fresh = PPOTrainer(config_fn(tmp))
         fresh.load(tmp)
         load_s = time.perf_counter() - t0
-        restored = restores(torch, trainer_state(trainer), fresh, watch["saved_rng"])
+        restored = restores(torch, saved if host_copy_load else trainer_state(trainer), fresh,
+                            watch["saved_rng"])
         del fresh
     record.update({
-        "model": "GPT-J-6B widths, 28 blocks, bf16 over f32 masters",
-        "updates": updates, "phases": phases, "evals": watch["evals"],
+        "model": f"{label} widths, {n_layer} blocks, bf16 over f32 masters",
+        "updates": steps, "phases": phases, "evals": watch["evals"],
         "checkpoint_write_s": save_s, "wall_without_checkpoint_s":
             record["wall_s"] - sum(save_s), "checkpoint_load_s": load_s,
-        "reference": {"blocks": ref_blocks, "parts": ref_parts,
+        "reference": {"blocks": ref_blocks, "parts": found_parts,
                       "parameters": reference["parameters"],
                       "full_copy_parameters": reference["full_parameters"]},
         "k1_tile_per_reference_scoring": scoring_tiles,
-        "forwards": trainer.forwards, "decode_forwards": decode_forwards[0],
+        "forwards": forwards, "decode_forwards": decode_forwards[0],
         "expected_variants": expected_variants, "expected_backward_variants": expected_bwd,
         "frozen_tensors": len(frozen), "frozen_bit_identical": not any(moved[n] for n in frozen),
         "top_tensors": len(top), "top_moved": all(moved[n] for n in top),
-        "finite": finite, "load_restores": restored,
+        "finite": finite, "load_restores": restored, "checks": checked,
     })
-    log("phase 13: GPT-J PPO " + json.dumps(record))
+    log(f"phase {phase}: {label} PPO " + json.dumps(record))
     ok = (
-        updates == GPTJ_UPDATES and len(watch["rows"]) == 2 and finite
-        and n_layer == 28 and branch == 26 and trainer.use_hydra
-        and ref_blocks == [26, 27] and ref_parts == ["h", "lm_head", "ln_f", "wte"]
+        steps == updates and len(watch["rows"]) == 2 and finite
+        and n_layer == depth and branch == depth - 2 and all(checked.values())
+        and ref_blocks == [depth - 2, depth - 1] and found_parts == sorted(ref_parts)
+        and (ref_parameters is None or reference["parameters"] == ref_parameters)
         and record["frozen_bit_identical"] and record["top_moved"]
         and all(n == n_layer for n in scoring_tiles) and len(scoring_tiles) == 2
         and record["flash_fwd_variants"] == expected_variants
         and record["backward_variants"] == expected_bwd and record["backward_copies"] == 0
         and record["plain_attention_calls"] == 0 and restored
     )
-    log(f"phase 13: {'ok' if ok else 'FAIL'} (updates={updates}, phases={len(watch['rows'])}, "
-        f"finite={finite}; reference blocks {ref_blocks} and {ref_parts}, "
-        f"{reference['parameters']} parameters against the full copy's "
+    log(f"phase {phase}: {'ok' if ok else 'FAIL'} (updates={steps}, phases="
+        f"{len(watch['rows'])}, finite={finite}; checks {checked}; reference blocks {ref_blocks} "
+        f"and {found_parts}, {reference['parameters']} parameters against the full copy's "
         f"{reference['full_parameters']}; frozen {len(frozen)} tensors bit-identical: "
         f"{record['frozen_bit_identical']}, top {len(top)} tensors moved: {record['top_moved']}; "
         f"K1 tile per reference scoring {scoring_tiles}; K1 by variant "
@@ -4692,8 +4765,20 @@ def phase_gptj_training(torch, fa):
         f"{record['backward_copies']}; plain attention calls {record['plain_attention_calls']}; "
         f"load restores {restored}; wall {record['wall_s']:.1f} s of which checkpoint write "
         f"{sum(save_s):.1f} s; peak {record['max_memory_allocated_bytes']} B)")
-    del trainer, final
     return ok, record
+
+
+def phase_gptj_training(torch, fa):
+    """Phase 13: :func:`train_wide` on ``configs/ppo_gptj.yml`` with
+    ``GPTJ_DEVIATIONS`` (GPT-J-6B widths and depth, the bottom 26 blocks
+    and ``wte`` frozen), 128 int-list prompts of 16..48 tokens; the
+    reference holds blocks 26-27, ``wte``, ``ln_f`` and ``lm_head``."""
+    config_fn = functools.partial(wide_training_config, yml="ppo_gptj.yml",
+                                  model={"model_arch": dict(GPTJ_ARCH)},
+                                  updates=GPTJ_UPDATES, eos=GPTJ_EOS)
+    return train_wide(torch, fa, 13, "GPT-J-6B", config_fn, gptj_prompts(),
+                      GPTJ_DEVIATIONS, depth=28, updates=GPTJ_UPDATES,
+                      ref_parts=("h", "lm_head", "ln_f", "wte"))
 
 
 # ---------------------------------------------------------------------------
@@ -4861,106 +4946,21 @@ def phase_neox_checkpoint(torch):
     return ok
 
 
-def neox_serving_config():
-    """GPT-NeoX-20B at full width and depth, built and served in bf16
-    (``dtype`` and ``param_dtype``), with phase 4's engine geometry (random
-    weights from a seed)."""
-    cfg = serving_config()
-    cfg["model"]["model_type"] = "gpt_neox"
-    cfg["model"]["model_arch"] = dict(NEOX_ARCH, dtype="bfloat16", param_dtype="bfloat16")
-    cfg["method"]["gen_kwargs"].update(eos_token_id=NEOX_EOS, pad_token_id=NEOX_EOS)
-    return cfg
-
-
 #: what the earlier phases may leave allocated on the card before phase
 #: 14's 61 GB build (the cached libraries' buffers, no model)
 NEOX_START_ALLOCATED_MAX = 1 << 30
 
 
 def phase_neox_serving(torch, fa):
-    """Phase 14: ``InferenceServer`` on GPT-NeoX-20B (full width, 44 blocks,
-    64 heads of 96, rotary on 24, parallel residual; random weights from a
-    seed), built in bf16 on the card directly, over the continuous engine
-    and the paged cache, serving phase 4's 64 prompts with 64 new tokens, 32
-    slots, admit/harvest 8. Gates: the card near empty before the build
-    (``NEOX_START_ALLOCATED_MAX``); every parameter bf16 but the value
-    head's last layer; 64/64 complete with finite logprobs and values; K1
-    ``tile`` = 44 x prefill forwards, ``decode`` = 44 x decode steps, all
-    at D = 96; 0 ``fma`` launches, input copies and plain calls. Prints
-    tokens/s, TTFT p50/p95, the build's peak and serving's."""
-    import numpy as np
-
-    from trlx_tpu_torch.inference.server import InferenceServer
-
-    mem_start = reset_peak(torch)
-    t0 = time.perf_counter()
-    server = InferenceServer(neox_serving_config(), seed=0)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
-    build_peak = torch.cuda.max_memory_allocated()
-    dtypes = {str(p.dtype) for n, p in server.model.named_parameters()
-              if not n.startswith("v_head.fc2.")}
-    weights = sum(p.numel() * p.element_size() for p in server.model.parameters())
-    prompts = serving_prompts()
-    (rids, results, wall), record = counted_path(torch, fa, lambda: serve(torch, server, prompts))
-    stats = server.stats()
-    cfg = server.model_config
-    n_layer = cfg.n_layer
-    expected_variants = {
-        "tile": n_layer * int(stats["engine/prefills"]),
-        "decode": n_layer * int(stats["engine/decode_steps"]),
-        "fma": 0, "copies": 0,
-    }
-    lengths = [results[r]["length"] for r in rids]
-    finite = all(np.isfinite(results[r]["logprobs"]).all()
-                 and np.isfinite(results[r]["values"]).all() for r in rids)
-    ttft = sorted(results[r]["timing"]["ttft_ms"] for r in rids)
-    tokens = int(sum(lengths))
-    record.update({
-        "model": "GPT-NeoX-20B widths, 44 blocks, built and served in bf16",
-        "build_s": build_s, "parameter_dtypes": sorted(dtypes), "weight_bytes": weights,
-        "requests": len(rids), "generated_tokens": tokens, "serve_wall_s": wall,
-        "tokens_per_s": tokens / wall,
-        "ttft_ms_p50": float(np.percentile(ttft, 50)),
-        "ttft_ms_p95": float(np.percentile(ttft, 95)),
-        "server_allocated_bytes": torch.cuda.memory_allocated(),
-        "allocated_before_server_bytes": mem_start, "build_peak_bytes": build_peak,
-        "peak_from_clean_start_bytes": max(build_peak, record["max_memory_allocated_bytes"]),
-        "expected_variants": expected_variants, "stats": stats,
-    })
-    log("phase 14: GPT-NeoX-20B serving " + json.dumps(record))
-    ok = (mem_start <= NEOX_START_ALLOCATED_MAX and dtypes == {"torch.bfloat16"}
-          and len(results) == 64 and min(lengths) >= 1 and finite and n_layer == 44
-          and cfg.head_dim == NEOX_D and cfg.rotary_dim == 24
-          and record["flash_fwd_variants"] == expected_variants
-          and record["launches"]["flash_fwd"] == expected_variants["tile"]
-          + expected_variants["decode"]
-          and record["plain_attention_calls"] == 0)
-    log(f"phase 14: {'ok' if ok else 'FAIL'} (allocated before the build {mem_start} B, "
-        f"parameter dtypes {sorted(dtypes)} but v_head.fc2, {weights} B of weights; "
-        f"complete={len(results)}/64, min length={min(lengths)}, finite={finite}, K1 by variant "
-        f"{record['flash_fwd_variants']} vs {expected_variants}, plain attention calls="
-        f"{record['plain_attention_calls']}; {record['tokens_per_s']:.1f} tokens/s, TTFT p50 "
-        f"{record['ttft_ms_p50']:.0f} ms, p95 {record['ttft_ms_p95']:.0f} ms; the build's peak "
-        f"{build_peak} B in {build_s:.1f} s, serving's {record['max_memory_allocated_bytes']} B)")
-    del server
-    return ok, record
-
-
-def neox_training_config(checkpoint_dir: str):
-    """``configs/ppo_neox20b.yml`` with ``NEOX_DEVIATIONS``, at
-    GPT-NeoX-20B's widths cut to ``NEOX_TRAIN_LAYERS`` blocks."""
-    from trlx_tpu_torch.data.configs import TRLConfig
-
-    root = os.path.dirname(os.path.abspath(__file__))
-    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", "ppo_neox20b.yml")).to_dict()
-    cfg["model"].update(model_path="", tokenizer_path="", model_arch=dict(
-        NEOX_ARCH, num_hidden_layers=NEOX_TRAIN_LAYERS))
-    cfg["train"].update(mesh={"dp": -1, "fsdp": 1, "tp": 1}, total_steps=NEOX_UPDATES,
-                        eval_interval=NEOX_UPDATES, checkpoint_interval=NEOX_UPDATES,
-                        checkpoint_dir=checkpoint_dir)
-    cfg["method"]["gen_kwargs"].update(eos_token_id=NEOX_EOS, pad_token_id=NEOX_EOS)
-    return TRLConfig.from_dict(cfg)
+    """Phase 14: :func:`serve_wide` on GPT-NeoX-20B (44 blocks, 64 heads
+    of 96, rotary on 24, parallel residual), built in bf16 on the card
+    directly (``dtype`` and ``param_dtype``), the card near empty before
+    the build (``NEOX_START_ALLOCATED_MAX``)."""
+    return serve_wide(torch, fa, 14, "GPT-NeoX-20B", wide_serving_config(
+        "gpt_neox", dict(NEOX_ARCH, dtype="bfloat16", param_dtype="bfloat16"), NEOX_EOS),
+                      depth=44,
+                      head_dim=NEOX_D, checks={"rotary_dim_24": lambda c: c.rotary_dim == 24},
+                      start_allocated_max=NEOX_START_ALLOCATED_MAX)
 
 
 def neox_prompts(seed: int = 6):
@@ -4974,147 +4974,237 @@ def neox_prompts(seed: int = 6):
 
 
 def phase_neox_training(torch, fa):
-    """Phase 15: ``trlx_tpu_torch.train`` on ``configs/ppo_neox20b.yml``
-    with ``NEOX_DEVIATIONS`` (GPT-NeoX-20B widths cut to 12 blocks, random
-    weights from the seed, bf16 over f32 masters, the 2-block hydra
-    reference, the bottom 10 blocks and ``wte`` frozen), 128 int-list
-    prompts of 16..48 tokens, two PPO phases (16 updates). Gates: every
-    stat finite; the top 2 blocks, ``ln_f``, ``lm_head`` and the value head
-    moved; the bottom 10 blocks and ``wte`` bit-identical after training;
-    the reference holds blocks 10-11, ``wte``, ``ln_f`` and ``lm_head``
-    and no other block, ``NEOX_REFERENCE_PARAMETERS`` parameters; K1
-    ``tile`` = 12 x the forwards that are not decode steps (a reference
-    scoring: 10 trunk + 2 branch blocks), ``decode`` = 12 x the decode
-    steps; K2 = K3 = 2 x the updates, all ``tile``; no ``fma`` launch,
-    input copy or plain call; a fresh trainer's ``load`` restores the saved
-    state exactly (held against a host copy: two such trainers do not fit
-    the card together). Prints the wall with the checkpoint write timed
-    apart, the collect and train seconds, rollout tokens/s, updates/s and
-    the peak."""
+    """Phase 15: :func:`train_wide` on ``configs/ppo_neox20b.yml`` with
+    ``NEOX_DEVIATIONS`` (GPT-NeoX-20B widths cut to 12 blocks, the bottom
+    10 and ``wte`` frozen), 128 int-list prompts of 16..48 tokens; the
+    reference holds blocks 10-11, ``wte``, ``ln_f`` and ``lm_head``
+    (``NEOX_REFERENCE_PARAMETERS``); ``load`` held against a host copy."""
+    config_fn = functools.partial(
+        wide_training_config, yml="ppo_neox20b.yml",
+        model={"model_arch": dict(NEOX_ARCH, num_hidden_layers=NEOX_TRAIN_LAYERS)},
+        updates=NEOX_UPDATES, eos=NEOX_EOS)
+    return train_wide(torch, fa, 15, "GPT-NeoX-20B", config_fn, neox_prompts(),
+                      NEOX_DEVIATIONS, depth=NEOX_TRAIN_LAYERS, updates=NEOX_UPDATES,
+                      ref_parts=("h", "lm_head", "ln_f", "wte"),
+                      ref_parameters=NEOX_REFERENCE_PARAMETERS, host_copy_load=True)
+
+
+# ---------------------------------------------------------------------------
+# GPT-Neo 1.3B: the head-dim-128 instantiations, the model, serving (phase
+# 19) and PPO (phase 20) on configs/ppo_gptj.yml's geometry
+# ---------------------------------------------------------------------------
+
+NEO_ARCH = {  # EleutherAI/gpt-neo-1.3B's config.json
+    "vocab_size": 50257, "max_position_embeddings": 2048, "hidden_size": 2048,
+    "num_layers": 24, "num_heads": 16, "window_size": 256,
+    "attention_types": [[["global", "local"], 12]], "layer_norm_epsilon": 1e-5,
+}
+NEO_HF_CONFIG = {  # as its HF config.json names it
+    "model_type": "gpt_neo", "architectures": ["GPTNeoForCausalLM"], **NEO_ARCH,
+    "intermediate_size": None, "activation_function": "gelu_new", "embed_dropout": 0.0,
+    "resid_dropout": 0.0, "attention_dropout": 0.0, "tie_word_embeddings": True,
+    "bos_token_id": 50256, "eos_token_id": 50256,
+}
+NEO_HEADS, NEO_D, NEO_EOS, NEO_WINDOW = 16, 128, 50256, 256
+NEO_LAYERS = ("global", "local") * 12
+NEO_CHECK_LAYERS = 4  # phase 3's cut depth (global, local, global, local) and the checkpoint's
+NEO_UPDATES = 128  # two PPO phases: 128 rollouts / batch 8 x 4 epochs each
+# what phase 20 runs differently from configs/ppo_gptj.yml: (setting, the
+# yml's value, the port's, why)
+NEO_DEVIATIONS = (
+    ("model.model_type", "gptj", "gpt_neo", "this slice's family: GPT-Neo 1.3B on upstream "
+     "trlX's PPO config for the large causal families"),
+    ("model.model_arch", "EleutherAI/gpt-j-6B's", "EleutherAI/gpt-neo-1.3B's",
+     "GPT-Neo 1.3B at full width and depth: 24 blocks of 16 heads of 128, global and local "
+     "(window 256) in turn"),
+    ("train.mesh", {"dp": -1, "fsdp": 1, "tp": 4}, {"dp": -1, "fsdp": 1, "tp": 1},
+     "the port runs on one device; tensor parallelism is ROADMAP item 14"),
+    ("model.model_path", "EleutherAI/gpt-j-6B", "", "no checkpoint in the repo: random "
+     "weights from train.seed at GPT-Neo 1.3B's widths"),
+    ("model.tokenizer_path", "gpt2", "", "no tokenizer in the repo: int-list prompts and a "
+     "host reward on the ids"),
+    ("train.total_steps", 10000, NEO_UPDATES, "the smoke's time limit: two PPO phases"),
+    ("train.eval_interval", 100, NEO_UPDATES, "one eval, at the end"),
+    ("train.checkpoint_interval", 10000, NEO_UPDATES, "one checkpoint, at the end"),
+)
+# K1 at GPT-Neo's path shapes, timed in bf16 (neo_kernel_cases names)
+NEO_TIMED = ("neo_rollout_prefill", "neo_rollout_decode", "neo_update", "neo_update_local",
+             "neo_ref_scoring", "neo_serving_prefill", "neo_serving_prefill_local",
+             "neo_serving_decode", "neo_serving_decode_local", "neo_long_band")
+# the per-layer buffers older GPT-Neo checkpoints carry (not weights)
+NEO_OLD_BUFFERS = ("attn.attention.bias", "attn.attention.masked_bias")
+
+
+def neo_kernel_cases(torch, attn):
+    """:func:`wide_kernel_cases` at GPT-Neo 1.3B's D = 128, H = 16
+    (configs/ppo_gptj.yml: 128 rollouts, batch 8): the global layers'
+    attention (the causal flag, or the causal bias with a cache), and the
+    local layers' where it differs, an explicit band of ``NEO_WINDOW`` keys
+    (:func:`~trlx_tpu_torch.models.gpt_neo.local_causal_bias`) plus the
+    padding bias with the causal flag off: the update (B = 8, T = 96, K2
+    and K3 too), phase 19's admission prefill (B = 8, Q = 512 over 576
+    keys, left-padded prompts of 16..512) and decode step (B = 32, per-row
+    depths), and a long band (phase 3's B = 2, T = 512, K2 and K3 too),
+    where the last query tile's first three key tiles lie wholly before
+    the band."""
+    from trlx_tpu_torch.models.gpt_neo import local_causal_bias
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(61)
+
+    def qkv(B, Q, K):
+        return [torch.randn(B, T, NEO_HEADS, NEO_D, generator=gen, device=dev)
+                for T in (Q, K, K)]
+
+    def pad(B, K):  # padding with the first keys valid
+        keep = torch.arange(K, device=dev)[None] < 4
+        return attn.padding_bias(((torch.rand(B, K, generator=gen, device=dev) > 0.2)
+                                  | keep).long())
+
+    cases = wide_kernel_cases(torch, attn, "neo", NEO_D, NEO_HEADS, rollout_batch=128,
+                              update_batch=8, seed=60)
+    band = local_causal_bias(96, 96, NEO_WINDOW, 0, dev)
+    cases.append(("neo_update_local", *qkv(8, 96, 96), band + pad(8, 96), False, "backward"))
+    lens = torch.randint(16, 513, (8, 1), generator=gen, device=dev)
+    cols = torch.arange(576, device=dev)[None]
+    bias = local_causal_bias(512, 576, NEO_WINDOW, 0, dev) + attn.padding_bias(
+        ((cols >= 512 - lens) & (cols < 512)).long())
+    cases.append(("neo_serving_prefill_local", *qkv(8, 512, 576), bias, False, "forward"))
+    depth = torch.randint(16, 576, (32,), generator=gen, device=dev)
+    bias = local_causal_bias(1, 576, NEO_WINDOW, depth) + attn.padding_bias(
+        (cols <= depth[:, None]).long())
+    cases.append(("neo_serving_decode_local", *qkv(32, 1, 576), bias, False, "forward"))
+    band = local_causal_bias(512, 512, NEO_WINDOW, 0, dev)
+    cases.append(("neo_long_band", *qkv(2, 512, 512), band + pad(2, 512), False, "backward"))
+    return cases
+
+
+def phase_neo_kernels(torch, fa, attn):
+    """Phase 2 at D = 128 (:func:`hold_and_time` over
+    :func:`neo_kernel_cases`): K1, K2 (with and without dbias) and K3 in
+    bf16 and f32, O held relative to P|V| + |O| with the planted faults
+    aimed at the second atom, columns 64..127; timed in bf16, K1 at
+    ``NEO_TIMED``, K2 and K3 at the update under each layer type's mask
+    and at the long band, K2 with dbias at its case."""
+    return hold_and_time(torch, fa, attn, neo_kernel_cases(torch, attn), fwd_timed=NEO_TIMED,
+                         bwd_timed=("neo_update", "neo_update_local", "neo_long_band",
+                                    "neo_dbias"),
+                         relative_o=True)
+
+
+def phase_neo_model(torch, fa):
+    """Phase 3 at D = 128: :func:`wide_model_checks` on a full-width f32
+    GPT-Neo 1.3B of ``NEO_CHECK_LAYERS`` blocks (global, local, global,
+    local) at B = 2, T = 512, where the band truncates on every path: the
+    forward, the paged prefill and decode steps, and the PPO-loss gradient
+    over 256 + 256 columns."""
+    from trlx_tpu_torch.models import gpt_neo
+    from trlx_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+
+    cfg = GPTNeoConfig.from_dict(dict(NEO_ARCH, num_layers=NEO_CHECK_LAYERS, dtype="float32",
+                                      attention_types=[[["global", "local"], 2]]))
+    model = CausalLMWithValueHead(cfg, GPTNeoModel, device="cuda")
+    init_params(model, 62)
+    return wide_model_checks(torch, fa, gpt_neo, cfg, model, "GPT-Neo 1.3B", NEO_D,
+                             full_depth=24, grad_batch=2, seed=63, seq=512,
+                             grad_split=(256, 256))
+
+
+def neo_hf_layout(torch, state: dict, n_layer: int) -> dict:
+    """The port's ``GPTNeoModel`` state dict in HF ``GPTNeoForCausalLM``'s
+    layout: ``transformer.`` names, the attention's projections under
+    ``attn.attention.``, the tied head's copy ``lm_head.weight``, and the
+    two per-layer buffers of older checkpoints (the causal mask
+    ``attn.attention.bias`` and ``attn.attention.masked_bias``), which are
+    not weights; Linear weights stay [out, in]."""
+    out = {"transformer." + re.sub(r"\.attn\.", ".attn.attention.", n): t
+           for n, t in state.items()}
+    out["lm_head.weight"] = state["wte.weight"]
+    positions = NEO_ARCH["max_position_embeddings"]
+    for i in range(n_layer):
+        pre = f"transformer.h.{i}.attn.attention."
+        out[pre + "bias"] = torch.tril(
+            torch.ones(positions, positions, dtype=torch.bool))[None, None]
+        out[pre + "masked_bias"] = torch.tensor(-1e9)
+    return out
+
+
+def phase_neo_checkpoint(torch):
+    """A GPT-Neo checkpoint in HF layout at full width and
+    ``NEO_CHECK_LAYERS`` blocks (random weights from a seed, ``config.json``
+    + ``model.safetensors``: ``transformer.`` names, ``attn.attention.*``,
+    the tied ``lm_head.weight`` and the two buffers of older checkpoints),
+    loaded through ``model.model_path`` by the PPO trainer on phase 20's
+    config: the loaded backbone must equal the written tensors bit for
+    bit."""
     import tempfile
 
-    import numpy as np
-
-    import trlx_tpu_torch
+    from trlx_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
-    log("phase 15: configs/ppo_neox20b.yml; deviations: " + json.dumps([
-        {"setting": k, "yml": y, "port": p, "why": why} for k, y, p, why in NEOX_DEVIATIONS]))
-    watch, decode_forwards, scoring_tiles, save_s = {}, [0], [], []
-    initial, reference = {}, {}
-    orig = {n: getattr(PPOTrainer, n) for n in ("_apply", "score_ref", "save", "learn")}
-
-    def apply(self, input_ids, *a, **kw):
-        decode_forwards[0] += input_ids.shape[1] <= 16  # the sampler's steps
-        return orig["_apply"](self, input_ids, *a, **kw)
-
-    def score_ref(self, *a, **kw):
-        before = fa.FLASH_FWD_TILE_LAUNCHES
-        out = orig["score_ref"](self, *a, **kw)
-        scoring_tiles.append(fa.FLASH_FWD_TILE_LAUNCHES - before)
-        return out
-
-    def save(self, directory=None):
-        watch["saved_rng"].append(self.generator.get_state())
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = orig["save"](self, directory)
-        save_s.append(time.perf_counter() - t0)
-        return out
-
-    def learn(self):
-        initial.update({n: p.detach().to("cpu", copy=True)
-                        for n, p in self.model.state_dict().items()})
-        reference.update(
-            names=sorted(self.ref.state_dict()),
-            parameters=sum(p.numel() for p in self.ref.parameters()),
-            full_parameters=sum(p.numel() for p in self.model.transformer.parameters()))
-        return orig["learn"](self)
-
+    types = [[["global", "local"], NEO_CHECK_LAYERS // 2]]
+    hf_config = dict(NEO_HF_CONFIG, num_layers=NEO_CHECK_LAYERS, attention_types=types)
     with tempfile.TemporaryDirectory() as tmp:
-        config = neox_training_config(tmp)
-        patches = [p for p in instrument(torch, PPOTrainer, "transformer", {}, watch)
-                   if p[1] not in ("learn", "save")] + [
-            (PPOTrainer, "_apply", apply), (PPOTrainer, "score_ref", score_ref),
-            (PPOTrainer, "save", save), (PPOTrainer, "learn", learn)]
-        trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
-            reward_fn=training_reward, prompts=neox_prompts(), config=config), patches)
-        n_layer, updates = trainer.model_config.n_layer, trainer.step
-        branch = trainer.branch_start
-        final = trainer.model.state_dict()
-        moved = {n: not torch.equal(final[n].cpu(), initial[n]) for n in final}
-        initial.clear()
-
-        def block(name):
-            m = re.match(r"transformer\.h\.(\d+)\.", name)
-            return int(m.group(1)) if m else None
-
-        frozen = [n for n in moved if n.startswith("transformer.wte.")
-                  or (block(n) is not None and block(n) < branch)]
-        top = [n for n in moved if n not in frozen]
-        finite = all(np.isfinite(v).all() for r in watch["rows"] for v in r.values()) and all(
-            math.isfinite(v) for e in watch["evals"] for v in e.values())
-        ref_blocks = sorted({int(n.split(".")[1]) for n in reference["names"]
-                             if n.startswith("h.")})
-        ref_parts = sorted({n.split(".")[0] for n in reference["names"]})
-        expected_variants = {
-            "tile": n_layer * (trainer.forwards - decode_forwards[0]),
-            "decode": n_layer * decode_forwards[0], "fma": 0, "copies": 0,
-        }
-        expected_bwd = {k: {"tile": 2 * updates, "fma": 0} for k in BWD_KERNELS}
-        phases = phase_rows(trainer)
-        forwards = trainer.forwards
-        # a fresh trainer restores the saved state, held against a host copy
-        # of this one's: two 12-block trainers do not fit the card together
-        saved = trainer_state(trainer, "cpu")
-        del trainer, final
-        reset_peak(torch)
+        ckpt = os.path.join(tmp, "gpt_neo")
         t0 = time.perf_counter()
-        fresh = PPOTrainer(neox_training_config(tmp))
-        fresh.load(tmp)
+        written = random_backbone(
+            torch, GPTNeoModel(GPTNeoConfig.from_dict(hf_config), device="cuda"), seed=64)
+        layout = neo_hf_layout(torch, written, NEO_CHECK_LAYERS)
+        write_hf_checkpoint(ckpt, hf_config, layout)
+        write_s = time.perf_counter() - t0
+        config = yml_config("ppo_gptj.yml", os.path.join(tmp, "run"), ckpt, NEO_UPDATES,
+                            train={"mesh": {"dp": -1, "fsdp": 1, "tp": 1}},
+                            model={"model_type": "gpt_neo"})
+        t0 = time.perf_counter()
+        trainer = PPOTrainer(config)
         load_s = time.perf_counter() - t0
-        restored = restores(torch, saved, fresh, watch["saved_rng"])
-        del fresh, saved
-    record.update({
-        "model": "GPT-NeoX-20B widths, 12 of 44 blocks, bf16 over f32 masters",
-        "updates": updates, "phases": phases, "evals": watch["evals"],
-        "checkpoint_write_s": save_s, "wall_without_checkpoint_s":
-            record["wall_s"] - sum(save_s), "checkpoint_load_s": load_s,
-        "reference": {"blocks": ref_blocks, "parts": ref_parts,
-                      "parameters": reference["parameters"],
-                      "full_copy_parameters": reference["full_parameters"]},
-        "k1_tile_per_reference_scoring": scoring_tiles,
-        "forwards": forwards, "decode_forwards": decode_forwards[0],
-        "expected_variants": expected_variants, "expected_backward_variants": expected_bwd,
-        "frozen_tensors": len(frozen), "frozen_bit_identical": not any(moved[n] for n in frozen),
-        "top_tensors": len(top), "top_moved": all(moved[n] for n in top),
-        "finite": finite, "load_restores": restored,
-    })
-    log("phase 15: GPT-NeoX PPO " + json.dumps(record))
-    ok = (
-        updates == NEOX_UPDATES and len(watch["rows"]) == 2 and finite
-        and n_layer == NEOX_TRAIN_LAYERS and branch == NEOX_TRAIN_LAYERS - 2
-        and ref_blocks == [NEOX_TRAIN_LAYERS - 2, NEOX_TRAIN_LAYERS - 1]
-        and ref_parts == ["h", "lm_head", "ln_f", "wte"]
-        and reference["parameters"] == NEOX_REFERENCE_PARAMETERS
-        and record["frozen_bit_identical"] and record["top_moved"]
-        and all(n == n_layer for n in scoring_tiles) and len(scoring_tiles) == 2
-        and record["flash_fwd_variants"] == expected_variants
-        and record["backward_variants"] == expected_bwd and record["backward_copies"] == 0
-        and record["plain_attention_calls"] == 0 and restored
-    )
-    log(f"phase 15: {'ok' if ok else 'FAIL'} (updates={updates}, phases={len(watch['rows'])}, "
-        f"finite={finite}; reference blocks {ref_blocks} and {ref_parts}, "
-        f"{reference['parameters']} parameters against the full copy's "
-        f"{reference['full_parameters']}; frozen {len(frozen)} tensors bit-identical: "
-        f"{record['frozen_bit_identical']}, top {len(top)} tensors moved: {record['top_moved']}; "
-        f"K1 tile per reference scoring {scoring_tiles}; K1 by variant "
-        f"{record['flash_fwd_variants']} vs {expected_variants}; K2/K3 by variant "
-        f"{record['backward_variants']} vs {expected_bwd}; backward copies "
-        f"{record['backward_copies']}; plain attention calls {record['plain_attention_calls']}; "
-        f"load restores {restored}; wall {record['wall_s']:.1f} s of which checkpoint write "
-        f"{sum(save_s):.1f} s; peak {record['max_memory_allocated_bytes']} B)")
-    return ok, record
+        equal = state_equal(torch, trainer.model.transformer, written)
+        types_loaded = trainer.model_config.layer_types
+        names = sorted(layout)
+        del trainer
+    buffers = [n for n in names if n.endswith(NEO_OLD_BUFFERS)]
+    ok = (equal and "lm_head.weight" in names and len(buffers) == 2 * NEO_CHECK_LAYERS
+          and types_loaded == NEO_LAYERS[:NEO_CHECK_LAYERS]
+          and "transformer.h.0.attn.attention.q_proj.weight" in names
+          and all(n.startswith(("transformer.", "lm_head.")) for n in names))
+    log(f"phase 3: GPT-Neo checkpoint in HF layout ({NEO_CHECK_LAYERS} blocks at full width, "
+        f"{len(names)} tensors, transformer. names, attn.attention.*, the tied lm_head.weight, "
+        f"{len(buffers)} buffers of older checkpoints; written in {write_s:.1f} s, trainer "
+        f"built and loaded in {load_s:.1f} s; layer types {list(types_loaded)}): loaded backbone "
+        f"equals the written tensors bit for bit: {equal} {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_neo_serving(torch, fa):
+    """Phase 19: :func:`serve_wide` on GPT-Neo 1.3B (24 blocks, global and
+    local in turn, 16 heads of 128, window 256), built in bf16 on the card
+    directly."""
+    return serve_wide(torch, fa, 19, "GPT-Neo 1.3B", wide_serving_config(
+        "gpt_neo", dict(NEO_ARCH, dtype="bfloat16", param_dtype="bfloat16"), NEO_EOS),
+                      depth=24,
+                      head_dim=NEO_D,
+                      checks={"layer_types": lambda c: c.layer_types == NEO_LAYERS,
+                              "window_256": lambda c: c.window_size == NEO_WINDOW})
+
+
+def phase_neo_training(torch, fa):
+    """Phase 20: :func:`train_wide` on ``configs/ppo_gptj.yml`` with
+    ``NEO_DEVIATIONS`` (GPT-Neo 1.3B at full width and depth on upstream
+    trlX's PPO geometry for the large causal families, the bottom 22
+    blocks, ``wte`` and ``wpe`` frozen), 128 int-list prompts of 16..48 tokens; the reference holds
+    blocks 22-23 (a global and a local block), ``wte`` (the tied head) and
+    ``ln_f``."""
+    config_fn = functools.partial(
+        wide_training_config, yml="ppo_gptj.yml",
+        model={"model_type": "gpt_neo", "model_arch": dict(NEO_ARCH)},
+        updates=NEO_UPDATES, eos=NEO_EOS)
+    return train_wide(torch, fa, 20, "GPT-Neo 1.3B", config_fn, gptj_prompts(7),
+                      NEO_DEVIATIONS, depth=24, updates=NEO_UPDATES,
+                      ref_parts=("h", "ln_f", "wte"),
+                      checks={"branch_global_local": lambda t: t.model_config.layer_types[
+                          t.branch_start:] == ("global", "local")})
 
 
 # ---------------------------------------------------------------------------
@@ -6008,6 +6098,8 @@ def main() -> int:
         torch, fa, attn)
     neox_fwd_checks, neox_bwd_checks, neox_timed, neox_bwd_timed = phase_neox_kernels(
         torch, fa, attn)
+    neo_fwd_checks, neo_bwd_checks, neo_timed, neo_bwd_timed = phase_neo_kernels(
+        torch, fa, attn)
     small = phase_small_kernels(torch, fa, attn)
     small_checks = [c for D in SMALL_HEAD_DIMS for c in small[D][0] + small[D][1]]
     fwd_checks += train_fwd_checks + t5_fwd_checks
@@ -6016,15 +6108,17 @@ def main() -> int:
     timed.update(t5_timed)
     timed.update(gptj_timed)
     timed.update(neox_timed)
+    timed.update(neo_timed)
     for D in SMALL_HEAD_DIMS:
         timed.update(small[D][2])
     kernel_ok = all(c["ok"] for c in fwd_checks + bwd_checks + gptj_fwd_checks
                     + gptj_bwd_checks + neox_fwd_checks + neox_bwd_checks
-                    + small_checks) and all(row["packed_ok"] for row in timed.values())
+                    + neo_fwd_checks + neo_bwd_checks + small_checks) and all(row["packed_ok"] for row in timed.values())
     model_ok = (phase_model(torch, fa) & phase_model_backward(torch, fa)
                 & phase_t5_model_backward(torch, fa) & phase_logprob_chunk(torch)
                 & phase_gptj_model(torch, fa) & phase_gptj_checkpoint(torch)
-                & phase_neox_model(torch, fa) & phase_neox_checkpoint(torch))
+                & phase_neox_model(torch, fa) & phase_neox_checkpoint(torch)
+                & phase_neo_model(torch, fa) & phase_neo_checkpoint(torch))
     serving_ok, serving = phase_serving(torch, fa)
     training_ok, training = phase_training(torch, fa)
     seq2seq_ok, seq2seq = phase_t5_training(torch, fa)
@@ -6049,6 +6143,8 @@ def main() -> int:
     rw_ok, rw = phase_randomwalks_ppo(torch, fa)
     rw_ilql_ok, rw_ilql = phase_randomwalks_ilql(torch, fa)
     standins_ok, standins = phase_standins(torch, fa)
+    neo_serving_ok, neo_serving = phase_neo_serving(torch, fa)
+    neo_training_ok, neo_training = phase_neo_training(torch, fa)
     # the small head dims' paths (phases 16 to 18), each counted on its own
     small_paths = {24: {**rw, "randomwalks_ilql": rw_ilql},
                    32: {n: standins[n] for n in ("standin_gpt2_ppo", "standin_gpt2_ppo_bf16",
@@ -6059,6 +6155,8 @@ def main() -> int:
     # (phases 14 and 15), counted on their own
     gptj_paths = {"gptj_serving": gptj_serving, "gptj_training": gptj_training}
     neox_paths = {"neox_serving": neox_serving, "neox_training": neox_training}
+    # the head-dim-128 paths (phases 19 and 20), counted on their own
+    neo_paths = {"neo_serving": neo_serving, "neo_training": neo_training}
     # the paths of phases 9 to 11, each counted on its own
     new_paths = {"grpo": grpo["causal"], "grpo_seq2seq": grpo["seq2seq"],
                  "continuous_engine": continuous, "continuous_engine_features": features,
@@ -6185,6 +6283,9 @@ def main() -> int:
     kernels += wide_kernel_entries("neox", "_d96", "GPT-NeoX-20B", NEOX_TIMED, build,
                                    neox_fwd_checks, neox_bwd_checks, neox_timed,
                                    neox_bwd_timed, neox_paths)
+    kernels += wide_kernel_entries("neo", "_d128", "GPT-Neo 1.3B", NEO_TIMED, build,
+                                   neo_fwd_checks, neo_bwd_checks, neo_timed, neo_bwd_timed,
+                                   neo_paths)
     small_labels = {24: "randomwalks", 32: "GPT-2 stand-in", 16: "T5 stand-in, learning guard"}
     for D in SMALL_HEAD_DIMS:
         kernels += wide_kernel_entries(f"d{D}", f"_d{D}", small_labels[D], SMALL_TIMED[D][0],
@@ -6199,7 +6300,8 @@ def main() -> int:
               ("serving_tier", tier_ok), ("gptj_serving", gptj_serving_ok),
               ("gptj_training", gptj_training_ok), ("neox_serving", neox_serving_ok),
               ("neox_training", neox_training_ok), ("randomwalks_ppo", rw_ok),
-              ("randomwalks_ilql", rw_ilql_ok), ("standins_and_guard", standins_ok))
+              ("randomwalks_ilql", rw_ilql_ok), ("standins_and_guard", standins_ok),
+              ("neo_serving", neo_serving_ok), ("neo_training", neo_training_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

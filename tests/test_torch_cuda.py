@@ -33,7 +33,10 @@ reference scoring and ``decode`` per decode step. At head dims 256
 shared memory), K1, K2 (also with the bias gradient) and K3 at the paths'
 shapes and the edges; at 96 also through the slices of the fused
 ``query_key_value`` projection, read in place, and one NeoX update step
-through the kernels. At the small head dims 16, 24 and 32 (each tile held
+through the kernels. At head dim 128 (GPT-Neo), the same at its paths'
+shapes, its local layers' band bias included (a long band whose first
+key tiles are wholly masked), and one GPT-Neo update step, a global and
+a local block, through the kernels. At the small head dims 16, 24 and 32 (each tile held
 as one 64-column atom), K1, K2 (also with the bias gradient) and K3 at
 the randomwalks configs' shapes (H = 6), the stand-ins' and the edges,
 also through the slices of GPT-2's fused ``c_attn`` output, and one
@@ -915,7 +918,8 @@ D256_CASES = {  # B, Q, K, H, causal, bias kind
 
 
 def _wide_head_inputs(dev, case, dtype, seed=11, D=256):
-    B, Q, K, H, causal, kind = {256: D256_CASES, 96: D96_CASES}.get(D, SMALL_CASES)[case]
+    B, Q, K, H, causal, kind = {256: D256_CASES, 96: D96_CASES, 128: D128_CASES}.get(
+        D, SMALL_CASES)[case]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     q, k, v = (torch.randn(B, T, H, D, generator=gen, device=dev) for T in (Q, K, K))
@@ -931,6 +935,8 @@ def _wide_head_inputs(dev, case, dtype, seed=11, D=256):
         bias = _left_pad_bias(dev, B, K, kind)
     elif kind == "full":
         bias = torch.randn(B, 1, Q, K, generator=gen, device=dev)
+    elif kind.startswith("band"):  # GPT-Neo's local layers: the band plus padding
+        bias = _band_bias(dev, gen, B, Q, K, kind)
     else:  # peaked: logits x3 and a per-row bias; V / 4 keeps |O| near 1
         q, v = q * 3, v / 4
         bias = 2 * torch.randn(B, 1, Q, K, generator=gen, device=dev)
@@ -1107,6 +1113,146 @@ def test_head_dim_96_dbias_matches_plain(dev, dtype):
     assert err <= 1e-4 * max(1.0, want[3].abs().max().item()), err
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert (g.float() - w.float()).abs().max().item() <= _bwd_tol(dtype, w), name
+
+
+# Head dim 128 (GPT-Neo 1.3B: hidden 2048 over 16 heads; two whole swizzle
+# atoms a tile, nothing padded). K1 at the paths' shapes (configs/
+# ppo_gptj.yml's geometry, which phase 20 of chip_smoke.py trains: the
+# rollout prefill and decode, B = 128, 48 prompt + 48 new tokens; the
+# update, B = 8, T = 96, under the causal flag for the global layers and
+# under the band with causal off for the local ones; the serving engine's
+# admission prefill and decode under the band) at H = 16, a long band
+# (T = 512, window 256: the last query tile's first three key tiles are
+# wholly masked) and D = 256's edges at H = 2. O is held relative to
+# P|V| + |O|, as at 96.
+D128_CASES = {  # B, Q, K, H, causal, bias kind
+    "rollout_prefill": (128, 48, 96, 16, False, "causal_left_pad"),
+    "rollout_decode": (128, 1, 96, 16, False, "pad"),
+    "update": (8, 96, 96, 16, True, "pad"),
+    "update_local": (8, 96, 96, 16, False, "band_pad"),
+    "long_band": (2, 512, 512, 4, False, "band_pad"),
+    "serving_prefill_local": (8, 512, 576, 16, False, "band_left_pad"),
+    "serving_decode_local": (32, 1, 576, 16, False, "band_rows"),
+    "ragged": (2, 77, 141, 2, False, "pad"),
+    "decode_ragged": (3, 5, 70, 2, False, "full"),
+    "all_masked_rows": (2, 112, 112, 2, True, "left_pad"),
+    "small_q_masked_rows": (2, 9, 130, 2, True, "left_pad_in_tile_0"),
+    "long_k": (2, 130, 1024, 2, False, "peaked"),
+}
+GPT_NEO_WINDOW = 256  # GPT-Neo 1.3B's window_size
+
+
+def _band_bias(dev, gen, B, Q, K, kind):
+    """GPT-Neo's local band (window 256) and padding as the model forms
+    them: ``band_pad`` from column 0 with the first keys valid,
+    ``band_left_pad`` over the engine's left-padded prompt columns,
+    ``band_rows`` one query a row at per-row depths."""
+    from trlx_tpu_torch.models.gpt_neo import local_causal_bias
+
+    cols = torch.arange(K, device=dev)[None]
+    if kind == "band_rows":
+        depth = torch.randint(16, K, (B,), generator=gen, device=dev)
+        return local_causal_bias(1, K, GPT_NEO_WINDOW, depth) + attn.padding_bias(
+            (cols <= depth[:, None]).long())
+    band = local_causal_bias(Q, K, GPT_NEO_WINDOW, 0, dev)
+    if kind == "band_left_pad":
+        lens = torch.randint(1, Q + 1, (B, 1), generator=gen, device=dev)
+        return band + attn.padding_bias(((cols >= Q - lens) & (cols < Q)).long())
+    keep = cols < 4
+    return band + attn.padding_bias(((torch.rand(B, K, generator=gen, device=dev) > 0.3)
+                                     | keep).long())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", list(D128_CASES))
+def test_head_dim_128_forward_matches_plain(dev, dtype, case):
+    """K1 at D = 128 in the variant its dtype and Q pick, against the plain
+    version restricted to the keys K1 visits; only that variant's counter
+    moves, nothing is copied."""
+    (q, k, v), bias, causal, _ = _wide_head_inputs(dev, case, dtype, D=128)
+    variant = fa.forward_variant(dtype, q.shape[1])
+    before = _fwd_counters()
+    o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+    assert _moved(before) == {"FLASH_FWD_LAUNCHES": 1, f"FLASH_FWD_{variant.upper()}_LAUNCHES": 1}
+    o_ref, lse_ref = _visited_reference(q, k, v, bias, causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
+    _assert_o_close(q, k, v, bias, causal, o, o_ref, dtype)
+    assert (lse - lse_ref).abs().max().item() <= TOL[dtype][1]
+    assert torch.equal(fa.flash_attention(q, k, v, bias, causal), o)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", ["update", "update_local", "long_band", "ragged",
+                                  "all_masked_rows", "small_q_masked_rows", "long_k",
+                                  "decode_ragged"])
+def test_head_dim_128_backward_matches_plain(dev, dtype, case):
+    """K2 and K3 at D = 128 (K3 as two warpgroups, one per accumulator)
+    against the plain backward fed K1's own O and LSE, the band included."""
+    (q, k, v), bias, causal, do = _wide_head_inputs(dev, case, dtype, D=128)
+    o, lse = fa.flash_attention(q, k, v, bias, causal, True)
+    before = _bwd_counters()
+    got = fa._launch_backward(q, k, v, bias, o, lse, do, causal)
+    want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, causal)
+    torch.cuda.synchronize()
+    variant = "TILE" if dtype == torch.bfloat16 else "FMA"
+    assert {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n} == {
+        "FLASH_BWD_DQ_LAUNCHES": 1, "FLASH_BWD_DKV_LAUNCHES": 1,
+        f"FLASH_BWD_DQ_{variant}_LAUNCHES": 1, f"FLASH_BWD_DKV_{variant}_LAUNCHES": 1}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.shape == w.shape and g.dtype == dtype
+        assert torch.isfinite(g).all(), name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= _bwd_tol(dtype, w), (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_head_dim_128_dbias_matches_plain(dev, dtype):
+    """K2 with the bias gradient at D = 128 (a learned [1, H, Q, K] bias
+    under a padding bias)."""
+    (q, k, v), pad, _, do = _wide_head_inputs(dev, "ragged", dtype, D=128)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    bias = 2 * torch.randn(1, 2, 77, 141, generator=gen, device=dev) + pad
+    o, lse = fa.flash_attention(q, k, v, bias, False, True)
+    *got, dbias = fa._launch_backward(q, k, v, bias, o, lse, do, False, dbias=True)
+    want = fa.flash_attention_backward_reference(q, k, v, bias, o, lse, do, False, True)
+    torch.cuda.synchronize()
+    err = (dbias - want[3]).abs().max().item()
+    assert err <= 1e-4 * max(1.0, want[3].abs().max().item()), err
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert (g.float() - w.float()).abs().max().item() <= _bwd_tol(dtype, w), name
+
+
+def test_gpt_neo_update_step_runs_every_attention_through_the_kernels(dev):
+    """One bf16 PPO-loss backward of a small GPT-Neo (2 heads of 128, a
+    global and a local block at window 8, 40 columns) runs every attention
+    through K1 ``tile`` (the local block's under the band with the causal
+    flag off), then K2 and K3 ``tile``, once a block, with no copy."""
+    from trlx_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+
+    cfg = GPTNeoConfig(vocab_size=64, max_position_embeddings=128, hidden_size=256,
+                       num_layers=2, num_heads=2, window_size=8,
+                       attention_layers=("global", "local"), dtype="bfloat16")
+    model = CausalLMWithValueHead(cfg, GPTNeoModel, device=dev)
+    init_params(model, 0)
+    ids = torch.randint(0, 64, (4, 40), device=dev)
+    mask = torch.ones_like(ids)
+    mask[0, :7] = 0
+    before, bwd_before = _fwd_counters(), _bwd_counters()
+    copies = (fa.FLASH_FWD_COPIES, fa.FLASH_BWD_COPIES)
+    logits, values = model.response_forward(ids, mask, 24)
+    (logits.float().logsumexp(-1).sum() + values.sum()).backward()
+    torch.cuda.synchronize()
+    assert _moved(before) == {"FLASH_FWD_LAUNCHES": 2, "FLASH_FWD_TILE_LAUNCHES": 2}
+    assert {c: getattr(fa, c) - n for c, n in bwd_before.items() if getattr(fa, c) != n} == {
+        "FLASH_BWD_DQ_LAUNCHES": 2, "FLASH_BWD_DKV_LAUNCHES": 2,
+        "FLASH_BWD_DQ_TILE_LAUNCHES": 2, "FLASH_BWD_DKV_TILE_LAUNCHES": 2}
+    assert (fa.FLASH_FWD_COPIES, fa.FLASH_BWD_COPIES) == copies
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+    with torch.no_grad():  # without a mask the band is made on the model's device
+        assert torch.isfinite(model(ids)["logits"]).all()
 
 
 def test_neox_update_step_runs_every_attention_through_the_kernels(dev):
@@ -1292,14 +1438,14 @@ def test_small_head_dim_update_step_runs_every_attention_through_the_kernels(
 
 
 def test_other_head_dims_are_refused_before_a_launch(dev):
-    """D = 128 (GPT-Neo) and an odd width such as 40 are not built: the
-    wrappers raise naming the built dims and the ROADMAP item, and the C
-    entry points refuse them."""
+    """Widths the kernels are not built for, such as 40 and 80: the
+    wrappers raise naming the built dims, and the C entry points refuse
+    them."""
     before = (_fwd_counters(), _bwd_counters())
-    for D in (40, 128):
+    for D in (40, 80):
         q, k, v = _qkv(dev, 1, 20, 30, D=D, dtype=torch.bfloat16)
         with pytest.raises(ValueError,
-                           match="head dims \\(16, 24, 32, 64, 96, 256\\).*ROADMAP item 13"):
+                           match="head dims \\(16, 24, 32, 64, 96, 128, 256\\), got"):
             fa.flash_attention(q, k, v)
         o = torch.empty_like(q)
         lse = torch.empty(1, 2, 20, device=dev)

@@ -4,9 +4,13 @@ against the JAX package's Pallas kernel in interpret mode and its
 
 Inputs come from a numpy seed and go through both packages in f32; every
 case of ``tests/test_flash_attention.py``'s forward class plus decode
-(Q = 1), and three each at GPT-J's head dim 256, GPT-NeoX-20B's 96 and
+(Q = 1), three each at GPT-J's head dim 256, GPT-NeoX-20B's 96 and
 the small head dims 16 (the learning guard, the T5 stand-in), 24 (the
-randomwalks configs) and 32 (the GPT-2 stand-in), is one parametrised
+randomwalks configs) and 32 (the GPT-2 stand-in), and four at GPT-Neo's
+128 (causal + padding, a per-head bias, and its local layers' band bias,
+built by each package's ``local_causal_bias``, over 150 keys at a window
+of 20, so whole 64-key tiles and the reference's 16-key blocks are
+masked, and at one decode row per-row depths), is one parametrised
 case. Tolerance: atol 1e-5 (f32; the two sum in a different order). The CUDA kernel itself is compared with this plain
 version on the card by ``chip_smoke.py``. The tests at the end pin, on the
 CPU, what the wrapper decides before a launch: which K1 variant a dtype
@@ -19,14 +23,18 @@ import numpy as np
 import pytest
 import torch
 
+from trlx_tpu.models import gpt_neo as jneo
 from trlx_tpu.ops import attention as jattn
 from trlx_tpu.ops.flash_attention import flash_attention as jflash
 from trlx_tpu.ops.flash_attention import flash_block_fwd as jflash_block_fwd
+from trlx_tpu_torch.models import gpt_neo as tneo
 from trlx_tpu_torch.ops import attention as tattn
 from trlx_tpu_torch.ops import flash_attention as tflash
 
 ATOL = 1e-5
-#: the small head dims K1 is built for besides 64, 96 and 256
+#: the local band's window in the GPT-Neo cases
+BAND_WINDOW = 20
+#: the small head dims K1 is built for besides 64, 96, 128 and 256
 SMALL_HEAD_DIMS = (16, 24, 32)
 
 
@@ -89,6 +97,27 @@ def _case(name):
         mask = (np.arange(72)[None] <= depth[:, None]).astype(np.int32)
         return (rand(2, 1, 4, 96), rand(2, 72, 4, 96), rand(2, 72, 4, 96),
                 ("decode", mask, depth), False)
+    # GPT-Neo's head dim (D = 128): its global layers' causal flag, a
+    # per-head bias, its local layers' band (window 20 over 150 keys: the
+    # rows from 84 on mask whole 64-key tiles) with padding, and a decode
+    # row at per-row depths under the band
+    if name == "causal_padding_head_dim_128":
+        B, T, H, D = 2, 70, 2, 128
+        mask = _padding_mask(rng, B, T)
+        return rand(B, T, H, D), rand(B, T, H, D), rand(B, T, H, D), ("pad", mask), True
+    if name == "per_head_bias_head_dim_128":
+        B, Q, K, H, D = 1, 19, 77, 2, 128
+        return rand(B, Q, H, D), rand(B, K, H, D), rand(B, K, H, D), ("raw", rand(1, H, Q, K)), False
+    if name == "band_head_dim_128":
+        B, T, H, D = 2, 150, 2, 128
+        mask = _padding_mask(rng, B, T)
+        return (rand(B, T, H, D), rand(B, T, H, D), rand(B, T, H, D),
+                ("band", mask, 0, BAND_WINDOW), False)
+    if name == "decode_q1_band_head_dim_128":
+        depth = np.array([9, 140])
+        mask = (np.arange(150)[None] <= depth[:, None]).astype(np.int32)
+        return (rand(2, 1, 2, 128), rand(2, 150, 2, 128), rand(2, 150, 2, 128),
+                ("band", mask, depth, BAND_WINDOW), False)
     # the small head dims, each a tile padded to one 64-column atom on the
     # card: causal + padding over two key tiles, a per-head bias, one
     # decode row at per-row depths
@@ -115,7 +144,8 @@ CASES = [
     "causal_with_padding", "unequal_q_k", "per_head_bias", "padding_only",
     "decode_q1", "decode_q1_head_dim_64", "causal_padding_head_dim_256",
     "per_head_bias_head_dim_256", "decode_q1_head_dim_256", "causal_padding_head_dim_96",
-    "per_head_bias_head_dim_96", "decode_q1_head_dim_96",
+    "per_head_bias_head_dim_96", "decode_q1_head_dim_96", "causal_padding_head_dim_128",
+    "per_head_bias_head_dim_128", "band_head_dim_128", "decode_q1_band_head_dim_128",
     *(f"{kind}_head_dim_{D}" for D in SMALL_HEAD_DIMS
       for kind in ("causal_padding", "per_head_bias", "decode_q1")),
 ]
@@ -134,6 +164,19 @@ def _biases(spec):
             jattn.padding_bias(jnp.asarray(mask)),
             tattn.padding_bias(torch.from_numpy(mask)),
         )
+    if kind == "band":  # GPT-Neo's local band from the query offset, plus padding
+        _, mask, offset, window = spec
+        B, K = mask.shape
+        Q = 1 if np.ndim(offset) else K
+        jb = jattn.combine_biases(
+            jneo.local_causal_bias(Q, K, window, offset=jnp.asarray(offset)),
+            jattn.padding_bias(jnp.asarray(mask)),
+        )
+        tb = tattn.combine_biases(
+            tneo.local_causal_bias(Q, K, window, torch.as_tensor(offset)),
+            tattn.padding_bias(torch.from_numpy(mask)),
+        )
+        return jb, tb
     _, mask, depth = spec
     K = mask.shape[1]
     jb = jattn.combine_biases(

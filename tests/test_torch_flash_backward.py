@@ -9,7 +9,10 @@ interpret mode.
   head dim 256 and three each at GPT-NeoX-20B's 96 and the small head
   dims 16 (the learning guard, the T5 stand-in), 24 (the randomwalks
   configs) and 32 (the GPT-2 stand-in): causal + padding, a per-head bias,
-  one decode row.
+  one decode row; and three at GPT-Neo's 128: causal + padding, its local
+  layers' band bias with padding over 150 keys at a window of 20 (whole
+  64-key tiles masked), and one decode row under the band at per-row
+  depths.
 - The port's ``FlashAttention`` gradients (through
   ``dot_product_attention``) must equal ``jax.grad`` of the JAX
   ``flash_attention(..., interpret=True)`` on the same loss.
@@ -24,7 +27,7 @@ interpret mode.
   refused.
 
 Inputs come from a numpy seed, in f32. Tolerance: atol 2e-5 (1e-5 at head
-dims 256, 96, 32, 24 and 16) on gradients of O(1) magnitude — both
+dims 256, 128, 96, 32, 24 and 16) on gradients of O(1) magnitude — both
 sides compute in f32 and differ only in the order of their sums (the JAX kernel sums per 16-wide tile, the plain version in
 one einsum). The CUDA kernels are held against this plain version on the
 card by ``chip_smoke.py`` and ``tests/test_torch_cuda.py``.
@@ -36,17 +39,21 @@ import numpy as np
 import pytest
 import torch
 
+from trlx_tpu.models import gpt_neo as jneo
 from trlx_tpu.ops import attention as jattn
 from trlx_tpu.ops import flash_attention as jfa
+from trlx_tpu_torch.models import gpt_neo as tneo
 from trlx_tpu_torch.ops import attention as tattn
 from trlx_tpu_torch.ops import flash_attention as tfa
 
 ATOL = 2e-5
-#: the cases named by a head dim (GPT-J's 256, GPT-NeoX-20B's 96 and the
-#: small dims below), held to 1e-5
+#: the cases named by a head dim (GPT-J's 256, GPT-Neo's 128,
+#: GPT-NeoX-20B's 96 and the small dims below), held to 1e-5
 ATOL_WIDE_HEADS = 1e-5
-#: the small head dims K2 and K3 are built for besides 64, 96 and 256
+#: the small head dims K2 and K3 are built for besides 64, 96, 128 and 256
 SMALL_HEAD_DIMS = (16, 24, 32)
+#: the local band's window in the GPT-Neo cases
+BAND_WINDOW = 20
 
 
 def _atol(name):
@@ -57,7 +64,8 @@ CASES = ["causal_padding", "unequal_causal", "per_head_bias",
          "causal_padding_head_dim_256", "per_head_bias_head_dim_256",
          "causal_padding_head_dim_96", "per_head_bias_head_dim_96", "decode_q1_head_dim_96",
          *(f"{kind}_head_dim_{D}" for D in SMALL_HEAD_DIMS
-           for kind in ("causal_padding", "per_head_bias", "decode_q1"))]
+           for kind in ("causal_padding", "per_head_bias", "decode_q1")),
+         "causal_padding_head_dim_128", "band_head_dim_128", "decode_q1_band_head_dim_128"]
 
 
 def _case(name):
@@ -97,6 +105,23 @@ def _case(name):
         B, K, H, D = 2, 72, 4, 96
         mask = (rng.integers(0, 2, size=(B, K)) | (np.arange(K)[None] < 4)).astype(np.int32)
         return rand(B, 1, H, D), rand(B, K, H, D), rand(B, K, H, D), ("pad", mask), False
+    # GPT-Neo's head dim (D = 128): its global layers' causal flag, and its
+    # local layers' band (window 20 over 150 keys: the rows from 84 on mask
+    # whole 64-key tiles) with padding, at every row and at one decode row
+    if name == "causal_padding_head_dim_128":
+        B, T, H, D = 2, 70, 2, 128
+        mask = (rng.integers(0, 2, size=(B, T)) | (np.arange(T)[None] < 4)).astype(np.int32)
+        return rand(B, T, H, D), rand(B, T, H, D), rand(B, T, H, D), ("pad", mask), True
+    if name == "band_head_dim_128":
+        B, T, H, D = 2, 150, 2, 128
+        mask = (rng.integers(0, 2, size=(B, T)) | (np.arange(T)[None] < 4)).astype(np.int32)
+        return (rand(B, T, H, D), rand(B, T, H, D), rand(B, T, H, D),
+                ("band", mask, 0), False)
+    if name == "decode_q1_band_head_dim_128":
+        depth = np.array([9, 140])
+        mask = (np.arange(150)[None] <= depth[:, None]).astype(np.int32)
+        return (rand(2, 1, 2, 128), rand(2, 150, 2, 128), rand(2, 150, 2, 128),
+                ("band", mask, depth), False)
     # the small head dims, each a tile padded to one 64-column atom on the card
     kind, _, dim = name.rpartition("_head_dim_")
     if dim.isdigit() and int(dim) in SMALL_HEAD_DIMS:
@@ -122,7 +147,13 @@ def _biases(spec):
     if spec[0] == "raw":
         return jnp.asarray(spec[1]), torch.from_numpy(spec[1])
     mask = spec[1]
-    return jattn.padding_bias(jnp.asarray(mask)), tattn.padding_bias(torch.from_numpy(mask))
+    jb, tb = jattn.padding_bias(jnp.asarray(mask)), tattn.padding_bias(torch.from_numpy(mask))
+    if spec[0] == "band":  # GPT-Neo's local band from the query offset, plus padding
+        offset, K = spec[2], mask.shape[1]
+        Q = 1 if np.ndim(offset) else K
+        jb = jb + jneo.local_causal_bias(Q, K, BAND_WINDOW, offset=jnp.asarray(offset))
+        tb = tb + tneo.local_causal_bias(Q, K, BAND_WINDOW, torch.as_tensor(offset))
+    return jb, tb
 
 
 def _jax_fwd_bwd(q, k, v, jb, do, causal):

@@ -100,8 +100,8 @@
 // Head dims (hopper_tile.cuh kHeadDims): every kernel is a template over D,
 // built for 16 (the learning guard, the T5 stand-in's d_kv), 24 (the
 // randomwalks configs), 32 (the GPT-2 stand-in), 64 (GPT-2), 96
-// (GPT-NeoX-20B) and 256 (GPT-J-6B); each per-D constant is chosen per built
-// D (per_head_dim). At D = 16, 24 and 32 every kernel runs D = 64's layout
+// (GPT-NeoX-20B), 128 (GPT-Neo) and 256 (GPT-J-6B); each per-D constant is
+// chosen per built D (per_head_dim). At D = 16, 24 and 32 every kernel runs D = 64's layout
 // on one padded atom (hopper_tile.cuh tile_cols: columns D..63
 // zero-filled), so S and dP take kmajor_steps = 1, 2 and 2 k-steps (at
 // D = 24 the second covers columns 16..31, of which 24..31 are zero in
@@ -129,6 +129,18 @@
 //    stage of Q, dO and O are 5 tiles of 16 KB (81 KB).
 //  - fma: 16-row query tiles and 16-key chunks (dQ, 31 KB of padded f32
 //    tiles), 64-key tiles and 64-row query chunks (dK/dV, 138 KB).
+// At D = 128 (GPT-Neo) every kernel runs D = 96's layout on two whole atoms,
+// nothing padded: a K-major product takes 8 k-steps, an MN-major one two
+// m64n64k16 products stored whole.
+//  - dQ tile: one warpgroup, the dQ accumulator 64 registers; 7 tiles of
+//    16 KB (113 KB), 2 CTAs per SM, up to 255 registers; delta over the 16
+//    chunks of a row, 4 per thread of its quad.
+//  - dK/dV tile: two warpgroups, one per accumulator, as at 96 (dK and dV on
+//    one warpgroup would be 128 registers a thread before P, dS and their
+//    hi + lo fragments); K, V and one stage of Q, dO and O, 81 KB.
+//  - fma: as at 96 (dQ 16 x 16, 41 KB; dK/dV 64 x 64, 182 KB).
+// GPT-Neo's local layers send a [B, 1, Q, K] band bias with causal = 0, so
+// every key tile is visited and those before the band weigh zero.
 // At D = 256:
 //  - dQ tile: the dQ accumulator is 64 x 256 f32, 128 registers a thread
 //    (four 64-column chunks, one m64n64k16 product each over one K atom);
@@ -177,8 +189,8 @@ __device__ __forceinline__ float logit(float s, float scale,
 constexpr int kThreads = 256;  // 16 x 16 threads
 
 // dQ: query rows per CTA for a forward tile of fwd_bq rows (the tile itself
-// at D = 16, 32 and 64, 16 at D = 24, 96 and 256) and keys per staged chunk
-// (64 at D = 16, 32 and 64, 16 at 24 and 96, 32 at 256). ptxas picks the
+// at D = 16, 32 and 64, 16 at D = 24, 96, 128 and 256) and keys per staged
+// chunk (64 at D = 16, 32 and 64, 16 at 24, 96 and 128, 32 at 256). ptxas picks the
 // register count of these kernels itself (40-128) and spilled in one of
 // the four instantiations (16-row or 64-row forward tile, with or without
 // dbias) at D = 96 with 64 or 32 rows and 32 or 64 keys (16-48 bytes), and
@@ -186,14 +198,14 @@ constexpr int kThreads = 256;  // 16 x 16 threads
 // without a spill at both.
 template <int D>
 __host__ __device__ constexpr int dq_fma_rows(int fwd_bq) {
-  return per_head_dim<D>(fwd_bq, 16, fwd_bq, fwd_bq, 16, 16);
+  return per_head_dim<D>(fwd_bq, 16, fwd_bq, fwd_bq, 16, 16, 16);
 }
 template <int D>
-__host__ __device__ constexpr int dq_fma_keys() { return per_head_dim<D>(64, 16, 64, 64, 16, 32); }
-// dK/dV: keys per CTA and query rows per chunk (64 at D <= 96, 16 at
+__host__ __device__ constexpr int dq_fma_keys() { return per_head_dim<D>(64, 16, 64, 64, 16, 16, 32); }
+// dK/dV: keys per CTA and query rows per chunk (64 at D <= 128, 16 at
 // D = 256)
 template <int D>
-__host__ __device__ constexpr int dkv_fma_tile() { return per_head_dim<D>(64, 64, 64, 64, 64, 16); }
+__host__ __device__ constexpr int dkv_fma_tile() { return per_head_dim<D>(64, 64, 64, 64, 64, 64, 16); }
 
 // Stage rows [r0, r0 + n) of a [B, T, H, D] tensor (already offset to its
 // batch row and head) into a [n][D + 1] tile; rows at or past T are 0.
@@ -515,19 +527,19 @@ flash_bwd_dkv_fma_kernel(const float* __restrict__ q, const float* __restrict__ 
 // CTAs); at D = 16, 24 and 32 its dbias instantiation spilled 8 bytes at
 // that cap, so it takes 2 CTAs (up to 255 registers; 174-176 used); dK/dV holds two f32 accumulators and P, dS (hi + lo) at once and
 // spilled at 168 in every arrangement tried, so it takes 2 CTAs and up to
-// 255 registers. At D = 96 dQ's 113 KB of shared memory allow 2 CTAs (up to
-// 255 registers) and dK/dV's two warpgroups take up to 255 registers, one
-// CTA per SM. At D = 256 each is one CTA per SM (shared memory bounds it)
+// 255 registers. At D = 96 and 128 dQ's 113 KB of shared memory allow 2
+// CTAs (up to 255 registers) and dK/dV's two warpgroups take up to 255
+// registers, one CTA per SM. At D = 256 each is one CTA per SM (shared memory bounds it)
 // with up to 255 registers a thread.
 template <int D>
-__host__ __device__ constexpr int dq_min_blocks() { return per_head_dim<D>(2, 2, 2, 3, 2, 1); }
+__host__ __device__ constexpr int dq_min_blocks() { return per_head_dim<D>(2, 2, 2, 3, 2, 2, 1); }
 template <int D>
-__host__ __device__ constexpr int dkv_min_blocks() { return per_head_dim<D>(2, 2, 2, 2, 1, 1); }
+__host__ __device__ constexpr int dkv_min_blocks() { return per_head_dim<D>(2, 2, 2, 2, 1, 1, 1); }
 // dK/dV: one warpgroup holding both accumulators at D <= 64, two (one per
-// accumulator) at D = 96 and 256
+// accumulator) at D = 96, 128 and 256
 template <int D>
 __host__ __device__ constexpr bool dkv_split() {
-  return per_head_dim<D>(false, false, false, false, true, true);
+  return per_head_dim<D>(false, false, false, false, true, true, true);
 }
 template <int D>
 __host__ __device__ constexpr int dkv_threads() { return dkv_split<D>() ? 2 * kTileThreads : kTileThreads; }
@@ -535,10 +547,10 @@ __host__ __device__ constexpr int dkv_threads() { return dkv_split<D>() ? 2 * kT
 // 1024 bytes the 128-byte swizzle repeats over
 template <int D>
 __host__ __device__ constexpr int dq_smem() { return 7 * tile_bytes<D>() + 1024; }  // Q, dO, O, K[2], V[2]
-// dK/dV's tiles: K, V and (Q, dO, O) in 2 stages at D <= 64, in 1 at D = 96
-// and 256
+// dK/dV's tiles: K, V and (Q, dO, O) in 2 stages at D <= 64, in 1 at D = 96,
+// 128 and 256
 template <int D>
-__host__ __device__ constexpr int dkv_tiles() { return per_head_dim<D>(8, 8, 8, 8, 5, 5); }
+__host__ __device__ constexpr int dkv_tiles() { return per_head_dim<D>(8, 8, 8, 8, 5, 5, 5); }
 template <int D>
 __host__ __device__ constexpr int dkv_smem() {  // the tiles, LSE, delta
   return dkv_tiles<D>() * tile_bytes<D>() + 2 * kBQ * static_cast<int>(sizeof(float)) + 1024;
@@ -951,7 +963,7 @@ __device__ __forceinline__ void dkv_tile_joint(
   }
 }
 
-// dK, dV at D = 96 and 256: two warpgroups per (64-key tile, head, batch row),
+// dK, dV at D = 96, 128 and 256: two warpgroups per (64-key tile, head, batch row),
 // each with one 64 x D accumulator, keys as rows: warpgroup 0 dV += P^T dO,
 // warpgroup 1 dK += dS^T Q; both form P^T from their own S^T = K Q^T. K
 // and V are staged once; Q, dO and O go through one stage per 64-row chunk.
@@ -1208,7 +1220,7 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
 
 // variant: 0 = fma (f32), 1 = tile (bf16), as
 // ops/flash_attention.py::backward_variant picks it; dtype: 0 = float32, 1 =
-// bfloat16; D: a head dim of kHeadDims (16, 24, 32, 64, 96 or 256). `strides` holds 19
+// bfloat16; D: a head dim of kHeadDims (16, 24, 32, 64, 96, 128 or 256). `strides` holds 19
 // element strides: q, k, v, o, dout as (b, t, h) each (head dim contiguous),
 // then the bias's (b, h, q, k) with 0 for a broadcast dimension; the tile
 // variant needs all five inputs 16-byte aligned as `aligned16` states. bias
@@ -1252,6 +1264,10 @@ extern "C" int trlx_flash_bwd_dq(const void* q, const void* k, const void* v,
       err = dbias ? launch_dq<96, true>(a, variant, dtype, dq, dbias, &refused)
                   : launch_dq<96, false>(a, variant, dtype, dq, nullptr, &refused);
       break;
+    case 128:
+      err = dbias ? launch_dq<128, true>(a, variant, dtype, dq, dbias, &refused)
+                  : launch_dq<128, false>(a, variant, dtype, dq, nullptr, &refused);
+      break;
     case 256:
       err = dbias ? launch_dq<256, true>(a, variant, dtype, dq, dbias, &refused)
                   : launch_dq<256, false>(a, variant, dtype, dq, nullptr, &refused);
@@ -1289,6 +1305,9 @@ extern "C" int trlx_flash_bwd_dkv(const void* q, const void* k, const void* v,
       break;
     case 96:
       err = launch_dkv<96>(a, variant, dtype, dk, dv, &refused);
+      break;
+    case 128:
+      err = launch_dkv<128>(a, variant, dtype, dk, dv, &refused);
       break;
     case 256:
       err = launch_dkv<256>(a, variant, dtype, dk, dv, &refused);

@@ -72,7 +72,8 @@
 // Head dims (hopper_tile.cuh kHeadDims): every variant is a template over D,
 // built for 16 (the learning guard, the T5 stand-in's d_kv), 24 (the
 // randomwalks configs), 32 (the GPT-2 stand-in), 64 (GPT-2; the shapes
-// above), 96 (GPT-NeoX-20B) and 256 (GPT-J-6B); each per-D constant is
+// above), 96 (GPT-NeoX-20B), 128 (GPT-Neo) and 256 (GPT-J-6B); each per-D
+// constant is
 // chosen per built D (per_head_dim). At D = 16, 24 and 32 every variant
 // runs D = 64's layout on a narrower row:
 //  - tile: a 64 x D tile is held as one 64-column atom (hopper_tile.cuh
@@ -105,6 +106,19 @@
 //    reduction needs a power-of-two group, so 16 lanes take a key row and
 //    lanes 12..15 load nothing and add zero.
 //  - fma: as at D = 64 (64-key chunks; 91 KB of padded f32 tiles).
+// At D = 128 (GPT-Neo 1.3B and 2.7B: 16 or 20 heads of 128), D = 96's layout
+// with nothing padded:
+//  - tile: a 64 x 128 tile is two whole atoms (16 KB). S = Q K^T takes 8
+//    k-steps (4 per atom); O += P V is two m64n64k16 products per k-step,
+//    both stored whole. Q and a 2-stage K/V ring are 5 tiles of 16 KB (81 KB
+//    of dynamic shared memory), 2 CTAs per SM, up to 255 registers (O 64, S
+//    32, the preloaded bias 32). GPT-Neo's local layers send a [B, 1, Q, K]
+//    band bias with causal = 0: whole key tiles before the band are visited
+//    and weigh zero, as in the plain version.
+//  - decode: a key row is 256 bytes, 16 lanes of 16 bytes, none idle; a warp
+//    covers 2 keys per load.
+//  - fma: as at D = 64 (64-key chunks, 64- or 16-row CTAs; 113 KB of padded
+//    f32 tiles at 64 rows).
 // At D = 256:
 //  - tile: the O accumulator of 64 rows x 256 is 128 f32 registers a thread
 //    (four 64-column chunks, each its own m64n64k16 product over one V
@@ -148,15 +162,15 @@ __device__ __forceinline__ float logit(float s, float scale, const float* biasb,
 
 constexpr int kFmaThreads = 256;  // 16 x 16 threads
 
-// keys per staged K/V chunk: 64 at D <= 96, 32 at D = 256 (shared memory)
+// keys per staged K/V chunk: 64 at D <= 128, 32 at D = 256 (shared memory)
 template <int D>
-__host__ __device__ constexpr int fma_keys() { return per_head_dim<D>(64, 64, 64, 64, 64, 32); }
+__host__ __device__ constexpr int fma_keys() { return per_head_dim<D>(64, 64, 64, 64, 64, 64, 32); }
 
 // query rows per CTA for a forward tile of fwd_bq rows: the tile itself at
-// D <= 96, 16 at D = 256 (shared memory)
+// D <= 128, 16 at D = 256 (shared memory)
 template <int D>
 __host__ __device__ constexpr int fma_rows(int fwd_bq) {
-  return per_head_dim<D>(fwd_bq, fwd_bq, fwd_bq, fwd_bq, fwd_bq, 16);
+  return per_head_dim<D>(fwd_bq, fwd_bq, fwd_bq, fwd_bq, fwd_bq, fwd_bq, 16);
 }
 
 template <int D, int BQ>
@@ -339,15 +353,15 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
 constexpr int kBQ = 64;  // query rows per CTA: 4 warps x 16
 
 // K/V stages and CTAs per SM in the launch bounds: at D <= 64 a 2-stage ring
-// and 4 CTAs (registers capped at 128); at D = 96 a 2-stage ring (81 KB of
-// shared memory) and 2 CTAs (up to 255 registers: the O accumulator is 64,
-// S 32 and the preloaded bias 32); at D = 256 the O accumulator alone is
+// and 4 CTAs (registers capped at 128); at D = 96 and 128 a 2-stage ring (81
+// KB of shared memory) and 2 CTAs (up to 255 registers: the O accumulator is
+// 64, S 32 and the preloaded bias 32); at D = 256 the O accumulator alone is
 // 128 registers, so 2 CTAs (up to 255), and one stage (the other CTA's
 // copies overlap this one's math)
 template <int D>
-__host__ __device__ constexpr int tile_stages() { return per_head_dim<D>(2, 2, 2, 2, 2, 1); }
+__host__ __device__ constexpr int tile_stages() { return per_head_dim<D>(2, 2, 2, 2, 2, 2, 1); }
 template <int D>
-__host__ __device__ constexpr int tile_min_blocks() { return per_head_dim<D>(4, 4, 4, 4, 2, 2); }
+__host__ __device__ constexpr int tile_min_blocks() { return per_head_dim<D>(4, 4, 4, 4, 2, 2, 2); }
 // Q, then K and V per stage: static shared memory when it fits the 48 KB
 // static limit (40 KB at D <= 64), else dynamic with 1 KB of alignment slack
 template <int D>
@@ -385,8 +399,8 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   constexpr int kStages = tile_stages<D>();
   constexpr int kN = tile_cols<D>() / 64;  // 64-column chunks of O (the last padded at D != 64, 256)
   // the bias of a thread's 32 (row, key) pairs is read before the wait for
-  // the tile at D <= 96; at D = 256 those 32 registers would spill
-  constexpr bool kPreloadBias = per_head_dim<D>(true, true, true, true, true, false);
+  // the tile at D <= 128; at D = 256 those 32 registers would spill
+  constexpr bool kPreloadBias = per_head_dim<D>(true, true, true, true, true, true, false);
   // Q, K[stages], V[stages]; the 128-byte swizzle repeats every 1024 bytes.
   // Static at D <= 64 (40 KB: its address folds into the code), dynamic above
   uint32_t sQ;
@@ -602,10 +616,10 @@ constexpr int kDecThreads = 32 * kDecWarps;
 
 // lanes that read one key row (16 bytes each): 2 at D = 16, 4 at D = 24 (3
 // read, 1 adds zero) and 32, 8 at D = 64, 16 at D = 96 (12 read, 4 add
-// zero: the shuffle reduction takes a power-of-two group), a warp at
+// zero: the shuffle reduction takes a power-of-two group) and 128, a warp at
 // D = 256
 template <int D>
-__host__ __device__ constexpr int row_lanes() { return per_head_dim<D>(2, 4, 4, 8, 16, 32); }
+__host__ __device__ constexpr int row_lanes() { return per_head_dim<D>(2, 4, 4, 8, 16, 16, 32); }
 // groups of row_lanes lanes in the CTA: each reads one key row at a time
 template <int D>
 __host__ __device__ constexpr int dec_groups() { return 32 / row_lanes<D>() * kDecWarps; }
@@ -853,9 +867,8 @@ int launch_variant(const void* q, const void* k, const void* v, const void* bias
 
 // variant: 0 = fma (f32), 1 = tile (bf16, Q > 16), 2 = decode (bf16,
 // Q <= 16), as ops/flash_attention.py::forward_variant picks it. dtype: 0 =
-// float32, 1 = bfloat16. D: a head dim of kHeadDims (16, 24, 32, 64, 96 or
-// 256). Strides
-// are in elements; the head dim must be contiguous, and the tile and decode
+// float32, 1 = bfloat16. D: a head dim of kHeadDims (16, 24, 32, 64, 96,
+// 128 or 256). Strides are in elements; the head dim must be contiguous, and the tile and decode
 // variants need 16-byte-aligned K and V (and Q for tile) as `aligned16`
 // states. bias may be null; lse may be null (not written). Returns 0 on
 // success, else the CUDA error code of the launch, or -1 for arguments the
@@ -889,6 +902,9 @@ extern "C" int trlx_flash_fwd(
     case 96:
       return launch_variant<96>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
                                 sq, sk, sv, sb, scale, causal, st);
+    case 128:
+      return launch_variant<128>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
+                                 sq, sk, sv, sb, scale, causal, st);
     case 256:
       return launch_variant<256>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
                                  sq, sk, sv, sb, scale, causal, st);

@@ -10,7 +10,8 @@
 // Head dims. Every kernel is a template over the head dim D and is built
 // for the dims in kHeadDims (the learning guard's and the T5 stand-in's 16,
 // the randomwalks configs' 24, the GPT-2 stand-in's 32, GPT-2's 64,
-// GPT-NeoX-20B's 96, GPT-J's 256); the C entry points refuse any other, and
+// GPT-NeoX-20B's 96, GPT-Neo's 128, GPT-J's 256); the C entry points refuse
+// any other, and
 // a per-D constant is chosen with per_head_dim, which fails to compile for
 // a D outside kHeadDims. A 64 x D tile is tile_cols<D>() / 64 swizzle atoms
 // of 64 rows x 128 bytes (64 bf16 columns each, 8 KB), atom a holding
@@ -19,7 +20,8 @@
 // all, an MN-major one (O += P V) takes one atom per 64 output columns
 // (mn_step), each with its own 64 x 64 accumulator. Where D is not a whole
 // number of atoms the tile is padded: at D = 96 to 128 columns (two atoms,
-// 16 KB), at D = 16, 24 and 32 to one atom of 64 columns. The copies
+// 16 KB), at D = 16, 24 and 32 to one atom of 64 columns; D = 128 is two
+// whole atoms, as D = 64 is one, and pads nothing. The copies
 // zero-fill the padding (cp.async src-size 0), and nothing past column D is
 // read from memory. A K-major product covers D rounded up to 16 columns (6
 // k-steps at 96, 1 at 16, 2 at 24 and 32): at D = 24 its second k-step
@@ -41,7 +43,7 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kHeadDims[] = {16, 24, 32, 64, 96, 256};  // the head dims the kernels are built for
+constexpr int kHeadDims[] = {16, 24, 32, 64, 96, 128, 256};  // the head dims the kernels are built for
 constexpr int kBK = 64;           // keys per tile (the visit rule's key tile)
 constexpr float kNegInf = -1e9f;  // the framework's finite mask value
 constexpr int kTileThreads = 128;         // one warpgroup
@@ -51,15 +53,16 @@ constexpr int kAtomBytes = 64 * 128;      // one 64-row x 128-byte swizzle atom,
 // fails to compile, so a new head dim must choose each constant explicitly.
 template <int D, typename T>
 __host__ __device__ constexpr T per_head_dim(T at16, T at24, T at32, T at64, T at96,
-                                             T at256) {
-  static_assert(D == 16 || D == 24 || D == 32 || D == 64 || D == 96 || D == 256,
+                                             T at128, T at256) {
+  static_assert(D == 16 || D == 24 || D == 32 || D == 64 || D == 96 || D == 128 ||
+                    D == 256,
                 "D is not one of kHeadDims");
   return D == 16 ? at16 : D == 24 ? at24 : D == 32 ? at32 : D == 64 ? at64
-       : D == 96 ? at96 : at256;
+       : D == 96 ? at96 : D == 128 ? at128 : at256;
 }
-static_assert(sizeof(kHeadDims) / sizeof(kHeadDims[0]) == 6 && kHeadDims[0] == 16 &&
+static_assert(sizeof(kHeadDims) / sizeof(kHeadDims[0]) == 7 && kHeadDims[0] == 16 &&
                   kHeadDims[1] == 24 && kHeadDims[2] == 32 && kHeadDims[3] == 64 &&
-                  kHeadDims[4] == 96 && kHeadDims[5] == 256,
+                  kHeadDims[4] == 96 && kHeadDims[5] == 128 && kHeadDims[6] == 256,
               "per_head_dim takes its constants in kHeadDims' order");
 
 // The columns of a 64 x D tile in shared memory: D rounded up to whole
@@ -78,7 +81,7 @@ __host__ __device__ constexpr int kmajor_steps() {
   return (D + 15) / 16;
 }
 
-// one 64 x D bf16 tile: 8 KB at D <= 64, 16 KB at D = 96, 32 KB at D = 256
+// one 64 x D bf16 tile: 8 KB at D <= 64, 16 KB at D = 96 and 128, 32 KB at D = 256
 template <int D>
 __host__ __device__ constexpr int tile_bytes() {
   return 64 * tile_cols<D>() * 2;
@@ -191,7 +194,7 @@ __device__ __forceinline__ void fence_proxy_async() {
 // batch row and head) into a swizzled 64 x D tile; rows at or past T read
 // as 0. 8 tile_cols 16-byte chunks, spread over the kThreads threads that
 // call it (neighbouring threads on neighbouring chunks of a row): 4 per
-// thread of one warpgroup at D <= 64, 8 at D = 96, 16 at D = 256. Chunks
+// thread of one warpgroup at D <= 64, 8 at D = 96 and 128, 16 at D = 256. Chunks
 // D / 8 .. of a row are the padding (12..15 at D = 96; 2..7, 3..7 and 4..7
 // at D = 16, 24 and 32): their copies read nothing (src-size 0) and fill 0,
 // so nothing past column D - 1 is read. Above D = 64 the thread's row and

@@ -174,6 +174,20 @@ class RolloutEngineConfig:
             d["spec_decode"] = SpecDecodeConfig.from_dict(d["spec_decode"])
         return cls(**d)
 
+    def check_model(self, model_config: Any) -> None:
+        """Refuse what this section asks of a model that cannot do it,
+        before any engine is built: speculative decoding on a GPT-Neo with
+        local (sliding-window) layers. Its band cannot take the verify
+        step's [B, Q] cache index, in the JAX package either (ROADMAP
+        queue 3)."""
+        spec_on = self.spec_decode is not None and self.spec_decode.enabled
+        if spec_on and "local" in getattr(model_config, "layer_types", ()):
+            raise NotImplementedError(
+                "train.rollout spec_decode on a GPT-Neo with local attention "
+                "layers: the local band cannot take the verify step's [B, Q] "
+                "cache_index, in the JAX package either (ROADMAP queue 3)"
+            )
+
     @property
     def rows_per_row_rng(self) -> bool:
         """Whether the fixed sampler samples per row under this config."""

@@ -90,6 +90,8 @@ class InferenceServer:
         train = config.train
         self.family = get_model_family(config.model.model_type)
         self.model_config, backbone = load_arch(self.family, config.model, train)
+        rollout = RolloutEngineConfig.from_dict(train.rollout)
+        rollout.check_model(self.model_config)
         # built in param_dtype: with bfloat16 the policy is made in bf16 on
         # the device directly (no f32 copy at any time); the value head's
         # last layer computes in f32 and is kept in f32 in either build
@@ -140,7 +142,6 @@ class InferenceServer:
                 f"n_positions={self.model_config.n_positions}"
             )
 
-        rollout = RolloutEngineConfig.from_dict(train.rollout)
         num_slots = rollout.slots or int(
             getattr(config.method, "chunk_size", 0) or train.batch_size
         )

@@ -1,5 +1,5 @@
 """HF checkpoint directory -> the port's config and state dict (counterpart
-of the GPT-2, GPT-J, GPT-NeoX and T5 parts of
+of the GPT-2, GPT-J, GPT-Neo, GPT-NeoX and T5 parts of
 :mod:`trlx_tpu.models.conversion`).
 
 The JAX package loads through ``transformers``; the port reads the
@@ -26,6 +26,15 @@ What the maps handle:
   buffers (``attn.bias``, ``attn.masked_bias``) and the rotary table
   (``embed_positions``) are not weights; a ``config.json`` without
   ``rotary_dim`` rotates the whole head.
+- GPT-Neo: keys come with or without the ``transformer.`` prefix; the
+  attention's projections sit under ``attn.attention.`` (``q_proj``,
+  ``k_proj``, ``v_proj`` bias-free, ``out_proj`` with a bias); HF's
+  ``nn.Linear`` is already [out, in], so nothing transposes (the JAX
+  converter does, for flax's [in, out] kernels); the head is tied to
+  ``wte`` (``lm_head.weight`` is its copy, left out), and the attention's
+  mask buffers (``attn.attention.bias``, ``attn.attention.masked_bias``)
+  are not weights; ``attention_types`` expands to the per-layer global and
+  local types.
 - GPT-NeoX: keys come with or without the ``gpt_neox.`` prefix (the head,
   ``embed_out.weight``, has none); HF's ``nn.Linear`` is already [out, in],
   so nothing transposes, and the fused ``query_key_value`` keeps HF's
@@ -57,6 +66,7 @@ from typing import Any, Dict, Mapping, Tuple
 import torch
 
 from trlx_tpu_torch.models.gpt2 import GPT2Config, torch_dtype
+from trlx_tpu_torch.models.gpt_neo import GPTNeoConfig, expand_attention_types
 from trlx_tpu_torch.models.gptj import GPTJConfig
 from trlx_tpu_torch.models.neox import NeoXConfig
 from trlx_tpu_torch.models.t5 import T5Config
@@ -233,6 +243,49 @@ def convert_gptj_state_dict(
     return {n: sd[n].to(dt).contiguous() for n in names}
 
 
+def gpt_neo_config_from_hf(model_path: str) -> GPTNeoConfig:
+    """The ``config.json`` of an HF GPT-Neo checkpoint directory ->
+    :class:`GPTNeoConfig`, the fields the JAX package's reads."""
+    d = _hf_config(model_path)
+    return GPTNeoConfig(
+        vocab_size=d["vocab_size"],
+        max_position_embeddings=d.get("max_position_embeddings", 2048),
+        hidden_size=d["hidden_size"],
+        num_layers=d["num_layers"],
+        num_heads=d["num_heads"],
+        intermediate_size=d.get("intermediate_size"),
+        window_size=d.get("window_size", 256),
+        attention_layers=expand_attention_types(
+            d.get("attention_types") or [], d["num_layers"]
+        ),
+        layer_norm_epsilon=d.get("layer_norm_epsilon", 1e-5),
+    )
+
+
+def convert_gpt_neo_state_dict(
+    state_dict: Mapping[str, torch.Tensor], config: GPTNeoConfig, dtype="float32"
+) -> Dict[str, torch.Tensor]:
+    """HF ``GPTNeoForCausalLM`` state dict -> the state dict of
+    :class:`~trlx_tpu_torch.models.gpt_neo.GPTNeoModel` (no transposes: both
+    sides store [out, in]; the tied ``lm_head.weight`` and the mask buffers
+    are left out)."""
+    sd = {k.removeprefix("transformer."): v for k, v in state_dict.items()}
+    names = {n: n for n in ("wte.weight", "wpe.weight", "ln_f.weight", "ln_f.bias")}
+    for i in range(config.num_layers):
+        for leaf in ("ln_1.weight", "ln_1.bias", "ln_2.weight", "ln_2.bias",
+                     "mlp.c_fc.weight", "mlp.c_fc.bias", "mlp.c_proj.weight",
+                     "mlp.c_proj.bias"):
+            names[f"h.{i}.{leaf}"] = f"h.{i}.{leaf}"
+        for leaf in ("q_proj.weight", "k_proj.weight", "v_proj.weight",
+                     "out_proj.weight", "out_proj.bias"):
+            names[f"h.{i}.attn.{leaf}"] = f"h.{i}.attn.attention.{leaf}"
+    missing = [hf for hf in names.values() if hf not in sd]
+    if missing:
+        raise KeyError(f"GPT-Neo checkpoint lacks {missing[:5]}")
+    dt = torch_dtype(dtype)
+    return {port: sd[hf].to(dt).contiguous() for port, hf in names.items()}
+
+
 def neox_config_from_hf(model_path: str) -> NeoXConfig:
     """The ``config.json`` of an HF GPT-NeoX checkpoint directory ->
     :class:`NeoXConfig`. The MLP is 4 x ``hidden_size`` wide, as in the JAX
@@ -367,6 +420,15 @@ def load_gptj_checkpoint(
     backbone's state dict in ``dtype``, on the CPU)."""
     config = gptj_config_from_hf(model_path)
     return config, convert_gptj_state_dict(read_hf_weights(model_path), config, dtype)
+
+
+def load_gpt_neo_checkpoint(
+    model_path: str, dtype="float32"
+) -> Tuple[GPTNeoConfig, Dict[str, torch.Tensor]]:
+    """An HF GPT-Neo checkpoint directory -> (:class:`GPTNeoConfig`, the
+    backbone's state dict in ``dtype``, on the CPU)."""
+    config = gpt_neo_config_from_hf(model_path)
+    return config, convert_gpt_neo_state_dict(read_hf_weights(model_path), config, dtype)
 
 
 def load_neox_checkpoint(

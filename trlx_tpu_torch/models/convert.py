@@ -15,6 +15,11 @@ returns the port's state dict. Flax names map one to one:
   ``transformer.h.0.attn.q_proj.weight`` (likewise ``k_proj``, ``v_proj``,
   ``out_proj``, ``mlp/fc_in``, ``mlp/fc_out``), and the untied head
   ``transformer/lm_head/{kernel,bias}`` -> ``transformer.lm_head.{weight,bias}``;
+- GPT-Neo: ``transformer/h_0/attn/q_proj/kernel`` ->
+  ``transformer.h.0.attn.q_proj.weight`` (likewise ``k_proj``, ``v_proj``,
+  and ``out_proj`` with its bias; ``mlp/c_fc``, ``mlp/c_proj`` as GPT-2's),
+  ``transformer/wpe/embedding`` -> ``transformer.wpe.weight``; the head is
+  tied to ``wte``;
 - GPT-NeoX: ``transformer/h_0/attn/query_key_value/kernel`` ->
   ``transformer.h.0.attn.query_key_value.weight`` (its head-major [H, 3 Dh]
   output layout kept; likewise ``attn/dense``, ``mlp/dense_h_to_4h``,

@@ -167,17 +167,26 @@ class Block(nn.Module):
 
 
 class DecoderLM(nn.Module):
-    """The decoder-only skeleton GPT-2 and GPT-J share: the hydra branch,
-    the embeddings or ``hidden_override``, the attention dispatch, the
-    block loop with its capture, ``ln_f`` and the output dict. A family
+    """The decoder-only skeleton the causal families share: the hydra
+    branch, the embeddings or ``hidden_override``, the attention dispatch,
+    the block loop with its capture, ``ln_f`` and the output dict. A family
     sets ``config``, ``first_layer``, ``wte``, ``h`` (blocks keyed by layer
     index) and ``ln_f``, and defines ``embed(input_ids, position_ids)``,
     ``block_args(position_ids, x)`` (what each block takes between the bias
-    and the cache: GPT-J's rotary angles) and ``logits(hidden)``; its
-    constructor takes ``branch_start`` and keeps what a branch holds."""
+    and the cache: GPT-J's rotary angles), ``logits(hidden)`` and, where
+    its layers attend differently, ``attention_masks`` (GPT-Neo's local
+    layers); its constructor takes ``branch_start`` and keeps what a branch
+    holds."""
 
     def block_args(self, position_ids: torch.Tensor, x: torch.Tensor) -> tuple:
         return ()
+
+    def attention_masks(self, q_len: int, cache, cache_index, attention_mask):
+        """``layer index -> (bias, causal)`` for the blocks' attention,
+        keyed by the absolute layer index: every layer takes the shared
+        causal dispatch here."""
+        mask = causal_dispatch(q_len, cache, cache_index, attention_mask)
+        return lambda i: mask
 
     def hydra_branch(self, branch_start: int) -> "DecoderLM":
         """A frozen copy of what the constructor keeps for ``branch_start``
@@ -228,10 +237,11 @@ class DecoderLM(nn.Module):
         else:
             x = self.embed(input_ids, position_ids)
         extra = self.block_args(position_ids, x)
-        bias, causal = causal_dispatch(T, cache, cache_index, attention_mask)
+        masks = self.attention_masks(T, cache, cache_index, attention_mask)
         for i in range(start_layer, self.config.n_layer):
             if i == capture_hidden_at:
                 return {"logits": None, "hidden": None, "cache": cache, "branch_hidden": x}
+            bias, causal = masks(i)
             x = self.h[str(i)](x, bias, *extra, cache[i] if cache is not None else None,
                                cache_index, causal)
         x = self.ln_f(x)

@@ -1,9 +1,10 @@
 """Model-family registry: ``model.model_type`` -> architecture kit
 (counterpart of :mod:`trlx_tpu.models.registry`; ``gpt2``, ``gptj`` with
-its alias ``gpt-j``, ``gpt_neox`` with its aliases ``neox`` and
-``gpt-neox``, and ``t5`` with its alias ``ul2``, the seq2seq family), and
-:func:`load_arch`, the architecture and weights a config asks for. The JAX
-package's other families (GPT-Neo, ``gpt2_moe``) are refused by name.
+its alias ``gpt-j``, ``gpt_neo`` with its alias ``gpt-neo``, ``gpt_neox``
+with its aliases ``neox`` and ``gpt-neox``, and ``t5`` with its alias
+``ul2``, the seq2seq family), and :func:`load_arch`, the architecture and
+weights a config asks for. The JAX package's other family, ``gpt2_moe``,
+is refused by name.
 """
 
 from __future__ import annotations
@@ -25,8 +26,8 @@ class ModelFamily:
 
 _FAMILIES: Dict[str, ModelFamily] = {}
 
-#: the JAX package's other families (and aliases), refused by name
-UNPORTED_FAMILIES = ("gpt_neo", "gpt-neo", "gpt2_moe", "gpt2-moe")
+#: the JAX package's other family (and alias), refused by name
+UNPORTED_FAMILIES = ("gpt2_moe", "gpt2-moe")
 
 
 def register_model_family(family: ModelFamily, *aliases: str) -> ModelFamily:
@@ -79,11 +80,13 @@ def load_arch(family: ModelFamily, model, train) -> Tuple[Any, Optional[Dict[str
 def _register_builtins() -> None:
     from trlx_tpu_torch.models.conversion import (
         load_gpt2_checkpoint,
+        load_gpt_neo_checkpoint,
         load_gptj_checkpoint,
         load_neox_checkpoint,
         load_t5_checkpoint,
     )
     from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model, init_cache
+    from trlx_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel, init_gpt_neo_cache
     from trlx_tpu_torch.models.gptj import GPTJConfig, GPTJModel, init_gptj_cache
     from trlx_tpu_torch.models.neox import NeoXConfig, NeoXModel, init_neox_cache
     from trlx_tpu_torch.models.t5 import T5Config, T5Model, init_t5_cache
@@ -94,6 +97,11 @@ def _register_builtins() -> None:
     register_model_family(
         ModelFamily("gptj", GPTJConfig, GPTJModel, init_gptj_cache, load_gptj_checkpoint),
         "gpt-j",
+    )
+    register_model_family(
+        ModelFamily("gpt_neo", GPTNeoConfig, GPTNeoModel, init_gpt_neo_cache,
+                    load_gpt_neo_checkpoint),
+        "gpt-neo",
     )
     register_model_family(
         ModelFamily("gpt_neox", NeoXConfig, NeoXModel, init_neox_cache, load_neox_checkpoint),

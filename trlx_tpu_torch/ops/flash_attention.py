@@ -18,7 +18,7 @@ build in parallel) and bound through plain C functions loaded with
 ``ctypes``. Nothing is imported or built when this module is imported.
 
 The kernels are templates over the head dim, built for
-:data:`HEAD_DIMS` (16, 24, 32, 64, 96 and 256); the C entry points
+:data:`HEAD_DIMS` (16, 24, 32, 64, 96, 128 and 256); the C entry points
 dispatch to the instantiation by D, and :func:`_check` refuses any other D
 before a launch. Where D is not a whole number of 64-column swizzle atoms
 the tile variants pad the tile in shared memory, the padding zero-filled
@@ -79,9 +79,9 @@ FLASH_BWD_COPIES = 0
 
 #: the head dims the kernels are built for (the learning guard's and the T5
 #: stand-in's 16, the randomwalks configs' 24, the GPT-2 stand-in's 32,
-#: GPT-2's 64, GPT-NeoX-20B's 96, GPT-J's 256;
+#: GPT-2's 64, GPT-NeoX-20B's 96, GPT-Neo's 128, GPT-J's 256;
 #: ``csrc/hopper_tile.cuh::kHeadDims``); any other is refused before a launch
-HEAD_DIMS = (16, 24, 32, 64, 96, 256)
+HEAD_DIMS = (16, 24, 32, 64, 96, 128, 256)
 KEY_TILE = 64  # the forward kernel's key tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: K1's variants, by the code its C entry point takes
@@ -445,8 +445,7 @@ def _check(q, k, v, bias, name: str) -> None:
     B, _, H, D = q.shape
     if D not in HEAD_DIMS:
         raise ValueError(
-            f"{name}: the kernels are built for head dims {HEAD_DIMS}, got "
-            f"{D} (128 for GPT-Neo: ROADMAP item 13)"
+            f"{name}: the kernels are built for head dims {HEAD_DIMS}, got {D}"
         )
     if k.shape[0] != B or k.shape[2] != H or k.shape[3] != D:
         raise ValueError(

@@ -187,6 +187,7 @@ class PPOTrainer(BaseRLTrainer):
         config = self.config
         self.family = get_model_family(config.model.model_type)
         self.model_config, backbone = load_arch(self.family, config.model, config.train)
+        self.rollout_config.check_model(self.model_config)
         self.model = CausalLMWithValueHead(
             self.model_config, self.family.backbone_cls, device=self.device
         )
