@@ -339,9 +339,44 @@ Phases, each fatal on failure:
    128 of 10 000 updates. Gates as phase 13's, but the reference holds
    blocks 22-23 (a global and a local block), ``wte`` (the tied head) and
    ``ln_f``, and ``wpe`` stays bit-identical with the frozen blocks.
+21. sequence-parallel ring attention — ``trlx_tpu_torch/ops/
+   ring_attention.py`` at GPT-2 small's heads (12 of 64), B = 4, T = 8192,
+   causal with a padded tail of 3 keys on row 0, in bf16 and f32: (a) the
+   entry point, ``ring_attention_sharded(impl="flash")``, forward and
+   backward over ``make_mesh({"dp": -1, "sp": 1})`` on a one-rank NCCL
+   group the phase starts on a ``file://`` store and destroys (one card:
+   NCCL refuses two ranks on one GPU, so the ring passes nothing here;
+   an all-reduce over the ring's group checks the group); (b) the ``sp =
+   4`` ring's four ranks in lockstep on the card (``lockstep_ring``: each
+   rank's pass of the module runs its 2048-token step, rank by rank, and
+   the blocks rotate between steps, as the point-to-point ring's do); the
+   dense kernels (``flash_attention``, the causal flag and a padding
+   bias) on the same inputs; the naive impl against the flash one on the
+   last 2048 tokens (f32); (c) the block wrappers against their plain
+   versions at the ring's 2048 x 2048 block (B = 4, H = 12) on a past
+   block with left padding, the diagonal block and a wholly future block,
+   ``flash_block_fwd`` in bf16 and f32 (a future block: the uniform
+   average at lse = NEG_INF + log Tk), ``flash_block_bwd`` in f32 against
+   the three blocks' combined lse + 0.3 (a future block: exactly zero
+   gradients), each timed beside its bound (the live pairs of its bias;
+   f32 over the card's 67 TFLOP/s off the tensor cores), its plain
+   version and SDPA with the bias as a mask (for the backward SDPA's whole
+   f32 backward). Gates: K1 = K2 = K3 = 1 per forward and backward in
+   (a), 16 in (b), K2 and K3 ``fma``, K1 in the dtype's variant, the
+   block wrappers' own counts the same, no input copy, no plain call;
+   finite outputs and gradients; (a) against (b), the order of their
+   sums apart: outputs within ``O_REL_TOL`` of P|V| + |O| elementwise
+   (P|V| the f32 kernels' attention of |V|), gradients within ``BWD_TOL``
+   of the largest; in f32 both against the dense kernels within the same
+   bounds, and on a B = 1, H = 2 slice each ring's error against f64
+   attention at most twice the dense kernels' own; in bf16 (a), (b) and
+   the dense kernels against the f32 ring on the same rounded inputs
+   within the same bounds; the naive impl within the f32 bounds; every
+   (c) case. Prints the walls and tokens/s of (a), (b) and the dense
+   kernels and their peaks.
 
-Each path (phases 4 to 20, each definition of phase 7, each run of phases
-9, 16 and 18 on its own) runs with the launch counters set to 0 just
+Each path (phases 4 to 21, each definition of phase 7, each run of phases
+9, 16, 18 and 21 on its own) runs with the launch counters set to 0 just
 before it and read just after, and its peak memory is read from a clean start.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -400,11 +435,16 @@ REPLACES = {
     "flash_fwd": "trlx_tpu/ops/flash_attention.py:97",
     "flash_bwd_dq": "trlx_tpu/ops/flash_attention.py:211",
     "flash_bwd_dkv": "trlx_tpu/ops/flash_attention.py:265",
+    # the ring's block wrappers (phase 21), on K1 and on K2 + K3
+    "flash_block_fwd": "trlx_tpu/ops/flash_attention.py:468",
+    "flash_block_bwd": "trlx_tpu/ops/flash_attention.py:491",
 }
 SOURCES = {
     "flash_fwd": "trlx_tpu_torch/csrc/flash_fwd.cu",
     "flash_bwd_dq": "trlx_tpu_torch/csrc/flash_bwd.cu",
     "flash_bwd_dkv": "trlx_tpu_torch/csrc/flash_bwd.cu",
+    "flash_block_fwd": "trlx_tpu_torch/csrc/flash_fwd.cu",
+    "flash_block_bwd": "trlx_tpu_torch/csrc/flash_bwd.cu",
 }
 L2_BYTES = 50 * 2**20  # H100 SXM
 N_LAYER = 12  # GPT-2 small
@@ -2834,6 +2874,7 @@ def counted_path(torch, fa, fn, patches=()):
     reset_forward_counters(fa)
     reset_backward_counters(fa)
     fa.FLASH_BWD_DQ_DBIAS_LAUNCHES = 0
+    fa.FLASH_BLOCK_FWD_LAUNCHES = fa.FLASH_BLOCK_BWD_LAUNCHES = 0
     t0 = time.perf_counter()
     try:
         out = fn()
@@ -2849,7 +2890,9 @@ def counted_path(torch, fa, fn, patches=()):
         "launches": {"flash_fwd": fa.FLASH_FWD_LAUNCHES,
                      "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
                      "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES,
-                     "flash_bwd_dq_dbias": fa.FLASH_BWD_DQ_DBIAS_LAUNCHES},
+                     "flash_bwd_dq_dbias": fa.FLASH_BWD_DQ_DBIAS_LAUNCHES,
+                     "flash_block_fwd": fa.FLASH_BLOCK_FWD_LAUNCHES,
+                     "flash_block_bwd": fa.FLASH_BLOCK_BWD_LAUNCHES},
         "flash_fwd_variants": forward_variant_launches(fa),
         "backward_variants": backward_variant_launches(fa),
         "backward_copies": fa.FLASH_BWD_COPIES,
@@ -5986,6 +6029,429 @@ def phase_standins(torch, fa):
     return ok and guard_ok, records
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: sequence-parallel ring attention (trlx_tpu_torch/ops/
+# ring_attention.py) at GPT-2 small's attention width
+# ---------------------------------------------------------------------------
+
+
+def lockstep(passes) -> list:
+    """Run ring passes, one generator per rank (``ring_fwd_steps`` or
+    ``ring_bwd_steps`` of ``trlx_tpu_torch/ops/ring_attention.py``, whose
+    every step calls the module's step function), in lockstep in this one
+    process: each rank's pass runs its step, rank by rank, then what rank
+    ``r`` passes on reaches rank ``r + 1`` as a contiguous tensor, as the
+    point-to-point exchange's receive buffers hold it. Returns each pass's
+    result."""
+    n = len(passes)
+    results, incoming = [None] * n, [None] * n
+    while True:
+        outgoing = []
+        for r, steps in enumerate(passes):
+            try:
+                outgoing.append(steps.send(incoming[r]))
+            except StopIteration as stop:
+                results[r] = stop.value
+        if not outgoing:
+            return results
+        if len(outgoing) < n:
+            raise RuntimeError("lockstep: the ranks' passes ended at different steps")
+        incoming = [tuple(t.contiguous() for t in outgoing[(r - 1) % n]) for r in range(n)]
+
+
+def lockstep_ring(torch, ra, q, k, v, kv_mask, dout, n: int, causal: bool = True):
+    """The ``sp = n`` ring over whole [B, T, H, D] tensors (kv_mask [B, T],
+    ``dout`` the output's cotangent) with its ``n`` ranks in lockstep on
+    this one device: rank ``r`` holds the ``r``-th T/n block of every
+    input and does the work of the point-to-point ring's rank ``r``, in
+    the same order (:func:`lockstep`). Returns ``(out, lse, dq, dk, dv)``
+    whole: out [B, T, H, D] in q's dtype, lse [B, H, T] f32, the gradients
+    in the input dtypes."""
+    qs, ks, vs, ms, ds = (x.chunk(n, dim=1) for x in (q, k, v, kv_mask, dout))
+    fwd = lockstep([ra.ring_fwd_steps(qs[r], ks[r], vs[r], ms[r], n, r, causal)
+                    for r in range(n)])
+    bwd = lockstep([ra.ring_bwd_steps(qs[r], ks[r], vs[r], ms[r], *fwd[r], ds[r], n, r, causal)
+                    for r in range(n)])
+    out = torch.cat([o for o, _ in fwd], dim=1)
+    lse = torch.cat([lse for _, lse in fwd], dim=2)
+    return (out, lse, *(torch.cat(g, dim=1) for g in zip(*bwd)))
+
+
+RING_SHAPE = (4, 8192, 12, 64)  # B, T, H, D: GPT-2 small's heads, LONGCTX.json's longest row
+RING_SP = 4  # the lockstep ring's ranks
+RING_PAD = 3  # row 0's padded tail of keys
+RING_NAIVE_T = 2048  # the naive impl's length (it stores every step's scores)
+RING_SLICE = (1, 2)  # the f64 yardstick's rows and heads
+RING_DTYPES = ("bfloat16", "float32")
+
+
+def ring_inputs(torch, dev, seed: int = 21):
+    """q, k, v and the output's cotangent [B, T, H, D] f32 ~ N(0, 1) from a
+    seed, and kv_mask [B, T] int32 with row 0's last ``RING_PAD`` keys
+    padding."""
+    B, T, H, D = RING_SHAPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, k, v, dout = (torch.randn(B, T, H, D, generator=gen, device=dev) for _ in range(4))
+    kv_mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    kv_mask[0, T - RING_PAD:] = 0
+    return q, k, v, dout, kv_mask
+
+
+def fwd_bwd(torch, fn, q, k, v, dout):
+    """``fn(q, k, v)`` and the gradients of <out, dout> in q, k, v."""
+    q, k, v = (x.detach().requires_grad_() for x in (q, k, v))
+    out = fn(q, k, v)
+    return (out.detach(), *torch.autograd.grad(out, (q, k, v), dout))
+
+
+def timed_wall(torch, fn) -> float:
+    """Host seconds of ``fn()`` from a synchronised start to a synchronised
+    end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def o_bound_over(torch, o, ref, pv, dtype_name) -> float:
+    """max |o - ref| / (O_REL_TOL (P|V| + |ref|)), elementwise, ``pv`` the
+    attention of |V| in f32: at most 1 holds."""
+    tol = (O_REL_TOL[dtype_name] * (pv + ref.float().abs())).clamp_min(1e-30)
+    return ((o.float() - ref.float()).abs() / tol).max().item()
+
+
+def grad_bound_over(g, ref, dtype_name) -> float:
+    """max |g - ref| / (BWD_TOL max(1, max |ref|)): at most 1 holds."""
+    ref = ref.float()
+    return (g.float() - ref).abs().max().item() / (
+        BWD_TOL[dtype_name] * max(1.0, ref.abs().max().item()))
+
+
+def block_bound(q, k, bias, NEG, backward: bool, dtype_name) -> dict:
+    """The least time of a block wrapper on these inputs: each input read
+    once and each output written once (f32 bias and LSE; the backward
+    reads q, k, v, o, dO in f32 and writes dq, dk, dv in f32), over the
+    card's memory rate; 4 D FLOPs per live pair forward (S, P.V), 10 D
+    backward (S, dP, dV, dQ, dK), over the peak of the dtype they run in
+    (bf16 on the tensor cores; f32 off them, the ``fma`` variants)."""
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    # the (row, query, key) triples the [B, 1, Tq, Tk] bias leaves
+    # unmasked, over every head: the pairs the block's data needs
+    pairs = int((bias > NEG / 2).sum()) * H
+    if backward:
+        nbytes = 4 * 4 * (B * Tq * H * D + B * Tk * H * D) + bias.numel() * 4 + B * H * Tq * 4
+        flops, dtype_name = 10 * D * pairs, "float32"
+    else:
+        item = q.element_size()
+        nbytes = item * (2 * B * Tq * H * D + 2 * B * Tk * H * D) + bias.numel() * 4 + B * H * Tq * 4
+        flops = 4 * D * pairs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops, "live_pairs": pairs}
+
+
+def ring_block_cases(torch, fa, ra, q32, k32, v32, dout32, kv_mask):
+    """Phase 21 (c)'s blocks: rank 1's 2048 queries of the sp = 4 ring
+    against block 0 (past, row 0's first ``RING_PAD`` keys padding: left
+    padding), block 1 (its diagonal, causal) and block 2 (wholly future),
+    each bias as the ring builds it; and the outside (combined) o and lse
+    of those three blocks, the lse + 0.3, and the block's dO, for the
+    backward. Returns ``(q, {name: (k, v, bias)}, (o, lse, do))`` in
+    f32."""
+    Tb = RING_SHAPE[1] // RING_SP
+    blk = lambda x, i: x[:, i * Tb:(i + 1) * Tb]  # noqa: E731
+    mask = kv_mask.clone()
+    mask[0, :RING_PAD] = 0
+    q, do = blk(q32, 1), blk(dout32, 1)
+    q_pos = torch.arange(Tb, Tb * 2, device=q.device)
+    cases = {}
+    for name, src in (("past_padded", 0), ("diagonal", 1), ("future", 2)):
+        k_pos = torch.arange(src * Tb, (src + 1) * Tb, device=q.device)
+        cases[name] = (blk(k32, src), blk(v32, src),
+                       ra._block_bias(blk(mask, src), q_pos, k_pos, True))
+    out = torch.zeros(q.shape[0], q.shape[2], Tb, q.shape[3], device=q.device)
+    lse = torch.full(out.shape[:3], float("-inf"), device=q.device)
+    for k, v, bias in cases.values():
+        o_i, lse_i = fa.flash_attention_reference(q, k, v, bias, False, True)
+        out, lse = ra._combine(out, lse, o_i.transpose(1, 2), lse_i)
+    return q, cases, (out, lse + 0.3, do.transpose(1, 2))
+
+
+def phase_ring_blocks(torch, fa, ra, inputs) -> tuple:
+    """Phase 21 (c): the block wrappers against their plain versions at
+    the ring's 2048 x 2048 block (B = 4, H = 12) on ``ring_block_cases``'
+    three biases, the forward in bf16 and f32, the backward (f32) against
+    the outside lse; each timed beside its bound, its plain version and
+    SDPA with the bias as a mask (for the backward, SDPA's whole f32
+    backward). Returns ``(checks, timed)``."""
+    import torch.nn.functional as F
+
+    NEG = fa.NEG_INF
+    q32, cases, (o, lse, do) = ring_block_cases(torch, fa, ra, *inputs)
+    checks, timed = [], {}
+    for name, (k32, v32, bias) in cases.items():
+        for dtype_name in RING_DTYPES:
+            dt = getattr(torch, dtype_name)
+            q, k, v = (x.to(dt) for x in (q32, k32, v32))
+            got_o, got_lse = fa.flash_block_fwd(q, k, v, bias)
+            want_o, want_lse = fa.flash_attention_reference(q, k, v, bias, False, True)
+            torch.cuda.synchronize()
+            tol_o, tol_lse = TOL[dtype_name]
+            err_o = (got_o.transpose(1, 2).float() - want_o.float()).abs().max().item()
+            if name == "future":
+                # the uniform average at lse ~ NEG_INF + log Tk, weighed 0 by the combine
+                mean = v.float().mean(dim=1)[:, :, None]
+                err_lse = ((got_lse - (NEG + math.log(k.shape[1]))).abs().max().item()
+                           / abs(NEG))
+                ok = (err_o <= tol_o and (got_o.float() - mean).abs().max().item() <= tol_o
+                      and err_lse <= 1e-7)
+            else:
+                err_lse = (got_lse - want_lse).abs().max().item()
+                ok = err_o <= tol_o and err_lse <= tol_lse
+            checks.append({"case": f"block_fwd_{name}", "dtype": dtype_name, "ok": ok,
+                           "max_abs_err_o": err_o, "max_err_lse": err_lse})
+            log(f"phase 21: (c) flash_block_fwd {name} {dtype_name} "
+                f"{fa.forward_variant(dt, q.shape[1])}: max |dO| {err_o:.3g} (tol {tol_o}), "
+                f"|dLSE| {err_lse:.3g}{' relative' if name == 'future' else ''}: "
+                f"{'ok' if ok else 'FAIL'}")
+            if dtype_name == "bfloat16" or name == "diagonal":
+                slow = dtype_name == "float32"
+                rounds = dict(warmup=2, rounds=10, per_round=2) if slow else {}
+                mask = bias.to(dt)
+                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+                timed[("flash_block_fwd", name, dtype_name)] = {
+                    "shape": f"B={q.shape[0]} H={q.shape[2]} Tq={q.shape[1]} Tk={k.shape[1]} "
+                             f"D={q.shape[3]}, {name} bias {list(bias.shape)}",
+                    "variant": fa.forward_variant(dt, q.shape[1]),
+                    "ms": time_ms([lambda: fa.flash_block_fwd(q, k, v, bias)], **rounds),
+                    "plain_ms": time_ms([lambda: fa.flash_attention_reference(
+                        q, k, v, bias, False, True)], **rounds),
+                    "library_ms": time_ms([lambda: F.scaled_dot_product_attention(
+                        qt, kt, vt, attn_mask=mask)], **rounds),
+                    **block_bound(q, k, bias, NEG, False, dtype_name)}
+        got = fa.flash_block_bwd(q32, k32, v32, bias, o, lse, do)
+        want = fa.flash_attention_backward_reference(
+            q32, k32, v32, bias, o.transpose(1, 2), lse, do.transpose(1, 2))
+        torch.cuda.synchronize()
+        over = max(grad_bound_over(g, w, "float32") for g, w in zip(got, want))
+        errs = {f"max_abs_err_{n}": (g - w).abs().max().item()
+                for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+        zero = name != "future" or not any(g.any().item() for g in got)
+        ok = over <= 1 and zero and all(g.dtype == torch.float32 for g in got)
+        checks.append({"case": f"block_bwd_{name}", "dtype": "float32", "ok": ok, **errs,
+                       "err_over_tol": over})
+        log(f"phase 21: (c) flash_block_bwd {name} (fma, outside lse + 0.3): {json.dumps(errs)}"
+            f", max err / tol {over:.3g}{', exactly 0' if name == 'future' else ''}: "
+            f"{'ok' if ok else 'FAIL'}")
+        slow = dict(warmup=2, rounds=10, per_round=2)
+        leaves = [x.detach().requires_grad_() for x in (q32, k32, v32)]
+        sdpa = F.scaled_dot_product_attention(*(x.transpose(1, 2) for x in leaves),
+                                              attn_mask=bias)
+        sdpa_do = do.contiguous()
+        timed[("flash_block_bwd", name, "float32")] = {
+            "shape": f"B={q32.shape[0]} H={q32.shape[2]} Tq={q32.shape[1]} Tk={k32.shape[1]} "
+                     f"D={q32.shape[3]}, {name} bias {list(bias.shape)}, outside lse",
+            "variant": "fma",
+            "ms": time_ms([lambda: fa.flash_block_bwd(q32, k32, v32, bias, o, lse, do)], **slow),
+            "plain_ms": time_ms([lambda: fa.flash_attention_backward_reference(
+                q32, k32, v32, bias, o.transpose(1, 2), lse, do.transpose(1, 2))], **slow),
+            "library_ms": time_ms([lambda: torch.autograd.grad(
+                sdpa, leaves, sdpa_do, retain_graph=True)], **slow),
+            **block_bound(q32, k32, bias, NEG, True, "float32")}
+        del sdpa, leaves
+    for (kernel, name, dtype_name), row in timed.items():
+        log(f"phase 21: (c) time {kernel} {dtype_name} {row['shape']} ({row['variant']}): "
+            f"ms={row['ms']} plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
+            f"bound_ms={row['bound_ms']} ({row['bound_by']}; {row['live_pairs']} live pairs)")
+    return checks, timed
+
+
+def phase_ring(torch, fa) -> tuple:
+    """Phase 21: sequence-parallel ring attention at GPT-2 small's heads
+    (12 of 64), B = 4, T = 8192, causal with row 0's padded tail, in bf16
+    and f32: (a) the entry point, ``ring_attention_sharded(impl="flash")``
+    over ``make_mesh({"dp": -1, "sp": 1})`` on a one-rank NCCL group the
+    phase starts (a ``file://`` store in a temporary directory) and
+    destroys; (b) the ``sp = 4`` ring's ranks in lockstep on this card
+    (:func:`lockstep_ring`); the dense kernels (``flash_attention``, the
+    causal flag and a padding bias) beside them; the naive impl at T =
+    2048 against the flash one; (c) :func:`phase_ring_blocks`. Every gate
+    is fatal. Returns ``(ok, record)``."""
+    import tempfile
+
+    from trlx_tpu_torch.ops import attention as attn
+    from trlx_tpu_torch.ops import ring_attention as ra
+    from trlx_tpu_torch.parallel import distributed, make_mesh
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    B, T, H, D = RING_SHAPE
+    q32, k32, v32, dout32, kv_mask = ring_inputs(torch, dev)
+    pad = attn.padding_bias(kv_mask)
+    sb, sh = RING_SLICE
+    gates, record = {}, {"paths": {}, "walls_s": {}, "tokens_per_s": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed.initialize("cuda", init_method=f"file://{os.path.join(tmp, 'store')}",
+                               world_size=1, rank=0)
+        try:
+            mesh = make_mesh({"dp": -1, "sp": 1})
+            gates["nccl"] = torch.distributed.get_backend() == "nccl"
+
+            def ring_a(q, k, v, kv_mask=kv_mask, impl="flash"):
+                return ra.ring_attention_sharded(q, k, v, mesh, kv_mask=kv_mask, causal=True,
+                                                 impl=impl)
+
+            def dense(q, k, v):
+                return fa.flash_attention(q, k, v, pad, causal=True)
+
+            results = {}
+            for dtype_name in RING_DTYPES:
+                dt = getattr(torch, dtype_name)
+                q, k, v, dout = (x.to(dt) for x in (q32, k32, v32, dout32))
+                a, rec_a = counted_path(torch, fa, lambda: fwd_bwd(torch, ring_a, q, k, v, dout))
+                b, rec_b = counted_path(torch, fa, lambda: lockstep_ring(
+                    torch, ra, q, k, v, kv_mask, dout, RING_SP))
+                b = (b[0], *b[2:])  # out and the gradients (the lse stays)
+                d, rec_d = counted_path(torch, fa, lambda: fwd_bwd(torch, dense, q, k, v, dout))
+                walls = {
+                    "nccl_sp1": timed_wall(torch, lambda: fwd_bwd(torch, ring_a, q, k, v, dout)),
+                    "lockstep_sp4": timed_wall(torch, lambda: lockstep_ring(
+                        torch, ra, q, k, v, kv_mask, dout, RING_SP)),
+                    "dense": timed_wall(torch, lambda: fwd_bwd(torch, dense, q, k, v, dout))}
+                record["walls_s"][dtype_name] = walls
+                record["tokens_per_s"][dtype_name] = {n: B * T / w for n, w in walls.items()}
+                record["paths"][f"ring_nccl_{dtype_name}"] = rec_a
+                record["paths"][f"ring_lockstep_{dtype_name}"] = rec_b
+                record[f"dense_{dtype_name}"] = rec_d
+                k1 = fa.forward_variant(dt, T)
+                for path, rec, n in (("nccl", rec_a, 1), ("lockstep", rec_b, RING_SP ** 2)):
+                    gates[f"launches_{path}_{dtype_name}"] = (
+                        rec["launches"] == {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+                                            "flash_bwd_dq_dbias": 0, "flash_block_fwd": n,
+                                            "flash_block_bwd": n}
+                        and rec["flash_fwd_variants"] == {**{x: 0 for x in FWD_VARIANT_COUNTERS},
+                                                          k1: n, "copies": 0}
+                        and rec["backward_variants"] == {kern: {"tile": 0, "fma": n}
+                                                         for kern in BWD_KERNELS}
+                        and rec["backward_copies"] == 0 and rec["plain_attention_calls"] == 0)
+                gates[f"finite_{dtype_name}"] = all(
+                    bool(torch.isfinite(x).all()) and x.shape == q.shape for x in (*a, *b, *d))
+                results[dtype_name] = {"a": a, "b": b, "dense": d}
+                log(f"phase 21: {dtype_name}: (a) NCCL sp=1 fwd+bwd {walls['nccl_sp1']:.3f} s, "
+                    f"(b) lockstep sp=4 {walls['lockstep_sp4']:.3f} s, dense kernels "
+                    f"{walls['dense']:.3f} s ({json.dumps(record['tokens_per_s'][dtype_name])} "
+                    f"tokens/s); peak (a) {rec_a['max_memory_allocated_bytes'] / 2**30:.2f} GiB, "
+                    f"(b) {rec_b['max_memory_allocated_bytes'] / 2**30:.2f} GiB, dense "
+                    f"{rec_d['max_memory_allocated_bytes'] / 2**30:.2f} GiB; launches (a) "
+                    f"{json.dumps(rec_a['launches'])}, (b) {json.dumps(rec_b['launches'])}")
+            # bf16's yardstick: the f32 ring on the same rounded inputs and cotangent
+            rounded = [x.to(torch.bfloat16).float() for x in (q32, k32, v32, dout32)]
+            results["bfloat16"]["ref"] = fwd_bwd(torch, ring_a, *rounded)
+            del rounded
+            # the NCCL group carries a collective: the f32 ring's loss summed over the ring
+            loss = (results["float32"]["a"][0] * dout32).sum().reshape(1)
+            summed = loss.clone()
+            torch.distributed.all_reduce(summed, group=mesh.get_group("sp"))
+            gates["nccl_all_reduce"] = torch.equal(summed, loss)
+            # the naive impl against the flash one, f32, on the last 2048 tokens
+            tail = slice(T - RING_NAIVE_T, T)
+            qn, kn, vn, dn = (x[:, tail] for x in (q32, k32, v32, dout32))
+            flash_n = fwd_bwd(torch, lambda *x: ring_a(*x, kv_mask=kv_mask[:, tail]), qn, kn, vn,
+                              dn)
+            naive_n = fwd_bwd(torch, lambda *x: ring_a(*x, kv_mask=kv_mask[:, tail],
+                                                       impl="naive"), qn, kn, vn, dn)
+            pv_n = fa.flash_attention(qn, kn, vn.abs(), pad[..., tail], causal=True)
+            over = {"out": o_bound_over(torch, flash_n[0], naive_n[0], pv_n, "float32"),
+                    **{g: grad_bound_over(x, y, "float32")
+                       for g, x, y in zip(("dq", "dk", "dv"), flash_n[1:], naive_n[1:])}}
+            gates["naive_vs_flash"] = max(over.values()) <= 1
+            record["naive_vs_flash_err_over_tol"] = over
+            log(f"phase 21: naive vs flash impl, f32, T={RING_NAIVE_T}: err / tol "
+                f"{json.dumps(over)}")
+            del flash_n, naive_n, pv_n
+        finally:
+            torch.distributed.destroy_process_group()
+
+    # (a) against (b), and both against the dense kernels
+    names = ("out", "dq", "dk", "dv")
+    f32 = results["float32"]
+    for dtype_name in RING_DTYPES:
+        res = results[dtype_name]
+        # the f32 attention of |V| on the dtype's rounded inputs: P|V|
+        qr, kr, vr = (x.to(getattr(torch, dtype_name)).float() for x in (q32, k32, v32))
+        pv = fa.flash_attention(qr, kr, vr.abs(), pad, causal=True)
+        ref = res["dense" if dtype_name == "float32" else "ref"]
+        ref_name = "dense" if dtype_name == "float32" else "f32_ring"
+        pairs = {"nccl_vs_lockstep": (res["a"], res["b"]),
+                 f"nccl_vs_{ref_name}": (res["a"], ref), f"lockstep_vs_{ref_name}": (res["b"], ref)}
+        if dtype_name == "bfloat16":
+            pairs["dense_vs_f32_ring"] = (res["dense"], ref)
+        for label, (x, y) in pairs.items():
+            over = {"out": o_bound_over(torch, x[0], y[0], pv, dtype_name),
+                    **{g: grad_bound_over(gx, gy, dtype_name)
+                       for g, gx, gy in zip(names[1:], x[1:], y[1:])}}
+            gates[f"{label}_{dtype_name}"] = max(over.values()) <= 1
+            record[f"{label}_{dtype_name}_err_over_tol"] = over
+            log(f"phase 21: {dtype_name} {label.replace('_', ' ')}: err / tol {json.dumps(over)}")
+        del pv, qr, kr, vr
+    # f32: on a B = 1, H = 2 slice, each ring's error against f64 attention
+    # at most twice the dense kernels' own
+    qs, ks, vs, ds = (x[:sb, :, :sh].double() for x in (q32, k32, v32, dout32))
+    exact = fwd_bwd(torch, lambda q, k, v: attention_f64(torch, q, k, v, pad[:sb], causal=True),
+                    qs, ks, vs, ds)
+    err = {path: {n: (x[:sb, :, :sh].double() - e).abs().max().item()
+                  for n, x, e in zip(names, f32[path], exact)} for path in ("dense", "a", "b")}
+    for path in ("a", "b"):
+        gates[f"f64_slice_{path}"] = all(err[path][n] <= 2 * err["dense"][n] for n in names)
+    record["f64_slice_max_abs_err"] = err
+    log(f"phase 21: f32 against f64 attention on a B={sb}, H={sh} slice (bound: 2x the dense "
+        f"kernels' own): {json.dumps(err)}")
+    del exact, results, f32
+
+    block_checks, block_timed = phase_ring_blocks(torch, fa, ra, (q32, k32, v32, dout32, kv_mask))
+    gates["blocks"] = all(c["ok"] for c in block_checks)
+    record.update(block_checks=block_checks, block_timed=block_timed,
+                  peak_bytes=torch.cuda.max_memory_allocated(),
+                  phase_s=time.perf_counter() - t_phase)
+    ok = all(gates.values())
+    log(f"phase 21: {'ok' if ok else 'FAIL'} (gates {json.dumps(gates)}; "
+        f"{record['phase_s']:.1f} s)")
+    return ok, record
+
+
+def ring_kernel_entries(ring) -> list:
+    """The ``kernels`` line's entries of the ring's block wrappers: each
+    timed at the diagonal block (the forward in bf16, the backward in
+    f32), the other shapes beside it, launches on the ring's paths."""
+    entries = []
+    for name, head in (("flash_block_fwd", ("diagonal", "bfloat16")),
+                       ("flash_block_bwd", ("diagonal", "float32"))):
+        rows = {(b, d): r for (k, b, d), r in ring["block_timed"].items() if k == name}
+        row = rows[head]
+        errs = [v for c in ring["block_checks"] if c["case"].startswith(name[6:])
+                for key, v in c.items() if key.startswith("max_abs_err")]
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "wrapper": f"trlx_tpu_torch/ops/flash_attention.py::{name}",
+            "replaces": REPLACES[name],
+            "launches": sum(r["launches"][name] for r in ring["paths"].values()),
+            "launches_by_path": {p: r["launches"][name] for p, r in ring["paths"].items()},
+            "max_abs_err": max(errs),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                   "variant")},
+            "timed_shape": f"ring block {head[1]} " + row["shape"],
+            "shapes": {f"{b} {d}": {k: r[k] for k in (
+                "shape", "variant", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                for (b, d), r in rows.items() if (b, d) != head},
+        })
+    return entries
+
+
 def wide_kernel_entries(prefix: str, suffix: str, label: str, timed_shapes, build, fwd_checks,
                         bwd_checks, fwd_timed, bwd_timed, paths, headlines=None) -> list:
     """The ``kernels`` line's entries of one head dim's instantiations
@@ -6145,6 +6611,7 @@ def main() -> int:
     standins_ok, standins = phase_standins(torch, fa)
     neo_serving_ok, neo_serving = phase_neo_serving(torch, fa)
     neo_training_ok, neo_training = phase_neo_training(torch, fa)
+    ring_ok, ring = phase_ring(torch, fa)
     # the small head dims' paths (phases 16 to 18), each counted on its own
     small_paths = {24: {**rw, "randomwalks_ilql": rw_ilql},
                    32: {n: standins[n] for n in ("standin_gpt2_ppo", "standin_gpt2_ppo_bf16",
@@ -6161,7 +6628,10 @@ def main() -> int:
     new_paths = {"grpo": grpo["causal"], "grpo_seq2seq": grpo["seq2seq"],
                  "continuous_engine": continuous, "continuous_engine_features": features,
                  "serving_tier": tier, "serving_tier_features_off": tier["features_off"],
-                 "serving_tier_oracle_drafts": tier["oracle_drafts"]}
+                 "serving_tier_oracle_drafts": tier["oracle_drafts"],
+                 # phase 21's ring paths (the D = 64 kernels, K1 and K2/K3 by
+                 # the block wrappers), each counted on its own
+                 **ring["paths"]}
     if args.profile:
         profile_paths(torch, args.profile)
 
@@ -6291,6 +6761,7 @@ def main() -> int:
         kernels += wide_kernel_entries(f"d{D}", f"_d{D}", small_labels[D], SMALL_TIMED[D][0],
                                        build, *small[D], small_paths[D],
                                        headlines=SMALL_HEADLINES[D])
+    kernels += ring_kernel_entries(ring)
     log(", ".join(card) if card else "nvidia-smi: no output")
     print(json.dumps({"kernels": kernels}), flush=True)
     phases = (("build", build_ok), ("kernel", kernel_ok), ("model", model_ok),
@@ -6301,7 +6772,8 @@ def main() -> int:
               ("gptj_training", gptj_training_ok), ("neox_serving", neox_serving_ok),
               ("neox_training", neox_training_ok), ("randomwalks_ppo", rw_ok),
               ("randomwalks_ilql", rw_ilql_ok), ("standins_and_guard", standins_ok),
-              ("neo_serving", neo_serving_ok), ("neo_training", neo_training_ok))
+              ("neo_serving", neo_serving_ok), ("neo_training", neo_training_ok),
+              ("ring_attention", ring_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

@@ -41,8 +41,15 @@ as one 64-column atom), K1, K2 (also with the bias gradient) and K3 at
 the randomwalks configs' shapes (H = 6), the stand-ins' and the edges,
 also through the slices of GPT-2's fused ``c_attn`` output, and one
 update step of a GPT-2 at each of those widths through the kernels;
-other head dims are refused before a launch.
+other head dims are refused before a launch. The ring attention's block
+wrappers at every built head dim, in both dtypes, on a diagonal, a wholly
+future and a padded past block: ``flash_block_fwd`` (K1, causal flag off)
+against the plain forward, ``flash_block_bwd`` (K2 and K3 ``fma`` against
+an outside lse) against the plain backward; and the ring at sp = 1 on a
+one-rank NCCL mesh against the dense kernels and the naive impl.
 """
+
+import math
 
 import pytest
 import torch
@@ -1458,3 +1465,143 @@ def test_other_head_dims_are_refused_before_a_launch(dev):
             *k.stride()[:3], *v.stride()[:3], 0, 0, 0, 0, D ** -0.5, 0,
             torch.cuda.current_stream().cuda_stream) == -1
     assert (_fwd_counters(), _bwd_counters()) == before
+
+
+# ---------------------------------------------------------------------------
+# The ring attention's block wrappers, and the ring at sp = 1 through NCCL
+# ---------------------------------------------------------------------------
+
+#: one ring block's biases: the diagonal block under the causal mask with
+#: padding, a wholly future block (every pair NEG_INF) and a past block
+#: with a padded tail; (Tq, Tk), so bf16 runs K1's ``tile`` and ``decode``
+BLOCK_KINDS = {"diagonal": (80, 80), "future": (80, 80), "past_padded": (9, 80)}
+
+
+def _block_case(dev, D, dtype, kind, seed=0):
+    Tq, Tk = BLOCK_KINDS[kind]
+    B = 2
+    q, k, v = _qkv(dev, B, Tq, Tk, D=D, dtype=dtype, seed=seed)
+    mask = torch.ones(B, Tk, dtype=torch.long, device=dev)
+    mask[0, Tk - 3:] = 0
+    pad = attn.padding_bias(mask)
+    bias = pad.expand(B, 1, Tq, Tk)
+    if kind == "diagonal":
+        bias = bias + attn.causal_bias(Tq, Tk, device=dev)
+    elif kind == "future":
+        bias = torch.full((B, 1, Tq, Tk), attn.NEG_INF, device=dev)
+    return q, k, v, bias.contiguous(), pad
+
+
+@pytest.mark.parametrize("kind", list(BLOCK_KINDS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("D", fa.HEAD_DIMS, ids=lambda d: f"D{d}")
+def test_block_fwd_matches_plain(dev, D, dtype, kind):
+    """``flash_block_fwd`` runs K1 with the causal flag off in the variant
+    of its dtype and width, once, with no copy, and gives the plain
+    version's O and LSE; a wholly future block the uniform average of V
+    at lse ≈ NEG_INF + log Tk."""
+    q, k, v, bias, _ = _block_case(dev, D, dtype, kind)
+    before = {**_fwd_counters(), "FLASH_BLOCK_FWD_LAUNCHES": fa.FLASH_BLOCK_FWD_LAUNCHES}
+    o, lse = fa.flash_block_fwd(q, k, v, bias)
+    torch.cuda.synchronize()
+    variant = fa.forward_variant(dtype, q.shape[1])
+    assert _moved(before) == {"FLASH_FWD_LAUNCHES": 1, "FLASH_BLOCK_FWD_LAUNCHES": 1,
+                              f"FLASH_FWD_{variant.upper()}_LAUNCHES": 1}
+    B, Tq, H, _ = q.shape
+    assert o.shape == (B, H, Tq, D) and o.dtype == dtype and lse.shape == (B, H, Tq)
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, bias, False, True)
+    tol_o, tol_lse = TOL[dtype]
+    assert (o.transpose(1, 2).float() - o_ref.float()).abs().max().item() <= tol_o
+    if kind == "future":
+        mean = v.float().mean(dim=1)[:, :, None]  # [B, H, 1, D]
+        assert (o.float() - mean).abs().max().item() <= tol_o
+        assert torch.allclose(lse, torch.full_like(lse, attn.NEG_INF + math.log(k.shape[1])),
+                              rtol=1e-7, atol=0)
+    else:
+        assert (lse - lse_ref).abs().max().item() <= tol_lse
+
+
+@pytest.mark.parametrize("kind", list(BLOCK_KINDS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("D", fa.HEAD_DIMS, ids=lambda d: f"D{d}")
+def test_block_bwd_matches_plain_with_outside_lse(dev, D, dtype, kind):
+    """``flash_block_bwd`` upcasts to f32 and runs K2 and K3 in ``fma``
+    once each, with no copy, against an outside lse (the past block's own
+    + 0.3, so P sums to less than 1): the plain backward's gradients on
+    the CPU, in f32; a wholly future block's exactly 0."""
+    q, k, v, bias, pad = _block_case(dev, D, dtype, kind)
+    o, lse = fa.flash_attention_reference(q, k, v, pad, False, True)
+    o, lse = o.transpose(1, 2), lse + 0.3
+    do = torch.randn(o.shape, device=dev).to(dtype)
+    before = {**_bwd_counters(), "FLASH_BLOCK_BWD_LAUNCHES": fa.FLASH_BLOCK_BWD_LAUNCHES}
+    got = fa.flash_block_bwd(q, k, v, bias, o, lse, do)
+    torch.cuda.synchronize()
+    moved = {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n}
+    assert moved == {"FLASH_BWD_DQ_LAUNCHES": 1, "FLASH_BWD_DKV_LAUNCHES": 1,
+                     "FLASH_BWD_DQ_FMA_LAUNCHES": 1, "FLASH_BWD_DKV_FMA_LAUNCHES": 1,
+                     "FLASH_BLOCK_BWD_LAUNCHES": 1}
+    want = fa.flash_block_bwd(*(x.cpu() for x in (q, k, v, bias, o, lse, do)))
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        scale = max(1.0, w.abs().max().item())
+        assert (g.cpu() - w).abs().max().item() <= 1e-4 * scale, name
+        if kind == "future":
+            assert not g.any(), name
+
+
+@pytest.fixture
+def nccl_mesh(dev, tmp_path):
+    """A one-rank NCCL group (a ``file://`` store under the test's
+    directory) and ``make_mesh({"dp": -1, "sp": 1})`` over it; the group
+    is destroyed after the test."""
+    from trlx_tpu_torch.parallel import distributed, make_mesh
+
+    assert distributed.initialize("cuda", init_method=f"file://{tmp_path / 'store'}",
+                                  world_size=1, rank=0)
+    try:
+        assert torch.distributed.get_backend() == "nccl"
+        yield make_mesh({"dp": -1, "sp": 1})
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+def test_ring_at_sp_1_through_nccl_matches_dense(nccl_mesh, dtype, causal):
+    """``ring_attention_sharded`` on a one-rank NCCL mesh (its ring passes
+    nothing): one K1 launch forward and one K2 and K3 ``fma`` backward,
+    no copy, and the output and gradients of the dense kernels (the causal
+    flag and a padding bias); the naive impl agrees."""
+    from trlx_tpu_torch.ops import ring_attention as ra
+
+    dev = torch.device("cuda")
+    B, T = 2, 130
+    q, k, v = (x.requires_grad_() for x in _qkv(dev, B, T, T, dtype=dtype, seed=7))
+    mask = torch.ones(B, T, dtype=torch.int32, device=dev)
+    mask[0, T - 3:] = 0
+    do = torch.randn(B, T, 2, 64, device=dev).to(dtype)
+    before = {**_fwd_counters(), **_bwd_counters(),
+              "FLASH_BLOCK_FWD_LAUNCHES": fa.FLASH_BLOCK_FWD_LAUNCHES,
+              "FLASH_BLOCK_BWD_LAUNCHES": fa.FLASH_BLOCK_BWD_LAUNCHES}
+    out = ra.ring_attention_sharded(q, k, v, nccl_mesh, kv_mask=mask, causal=causal)
+    grads = torch.autograd.grad(out, (q, k, v), do)
+    torch.cuda.synchronize()
+    variant = fa.forward_variant(dtype, T).upper()
+    assert {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n} == {
+        "FLASH_FWD_LAUNCHES": 1, f"FLASH_FWD_{variant}_LAUNCHES": 1,
+        "FLASH_BLOCK_FWD_LAUNCHES": 1, "FLASH_BLOCK_BWD_LAUNCHES": 1,
+        "FLASH_BWD_DQ_LAUNCHES": 1, "FLASH_BWD_DKV_LAUNCHES": 1,
+        "FLASH_BWD_DQ_FMA_LAUNCHES": 1, "FLASH_BWD_DKV_FMA_LAUNCHES": 1}
+    dense = fa.flash_attention(q, k, v, attn.padding_bias(mask), causal)
+    dense_grads = torch.autograd.grad(dense, (q, k, v), do)
+    naive = ra.ring_attention_sharded(q, k, v, nccl_mesh, kv_mask=mask, causal=causal,
+                                      impl="naive")
+    naive_grads = torch.autograd.grad(naive, (q, k, v), do)
+    tol_o = TOL[dtype][0]
+    tol_g = 1e-4 if dtype == torch.float32 else 1 / 128
+    assert (out.float() - dense.float()).abs().max().item() <= tol_o
+    assert (out.float() - naive.float()).abs().max().item() <= tol_o
+    for g, d, n in zip(grads, dense_grads, naive_grads):
+        scale = max(1.0, d.float().abs().max().item())
+        assert (g.float() - d.float()).abs().max().item() <= tol_g * scale
+        assert (g.float() - n.float()).abs().max().item() <= tol_g * scale

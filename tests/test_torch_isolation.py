@@ -36,7 +36,9 @@ def _sources():
 
 def test_importing_every_module_loads_no_jax_or_reference():
     mods = _modules()
-    assert "trlx_tpu_torch.inference.engine" in mods
+    for name in ("inference.engine", "ops.ring_attention", "parallel", "parallel.mesh",
+                 "parallel.distributed"):
+        assert f"trlx_tpu_torch.{name}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"

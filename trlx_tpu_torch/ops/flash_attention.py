@@ -4,8 +4,10 @@ counters.
 
 Counterpart of :mod:`trlx_tpu.ops.flash_attention`: ``_fwd_kernel`` (K1,
 ``csrc/flash_fwd.cu``), ``_dq_kernel`` (K2) and ``_dkv_kernel`` (K3, both
-``csrc/flash_bwd.cu``), and the ``jax.custom_vjp`` around them
-(:class:`FlashAttention`). K1 has three variants, one per dtype and
+``csrc/flash_bwd.cu``), the ``jax.custom_vjp`` around them
+(:class:`FlashAttention`), and the ring attention's block wrappers
+(:func:`flash_block_fwd` on K1, :func:`flash_block_bwd` on K2 and K3
+against an outside LSE). K1 has three variants, one per dtype and
 query count (:func:`forward_variant`): ``tile`` (bf16, Q > 16, tensor
 cores), ``decode`` (bf16, Q <= 16, a GEMV on the CUDA cores) and ``fma``
 (f32, the parity path). K2 and K3 have two, one per dtype
@@ -76,6 +78,11 @@ FLASH_BWD_DQ_DBIAS_LAUNCHES = 0
 #: q/k/v/o/dO copies the backward's argument packing made (a view the
 #: variant cannot read in place), once per packing
 FLASH_BWD_COPIES = 0
+#: the ring's block wrappers' launches: K1 under :func:`flash_block_fwd`,
+#: K2 then K3 under :func:`flash_block_bwd` (one each per call; counted in
+#: the kernels' own counters as well)
+FLASH_BLOCK_FWD_LAUNCHES = 0
+FLASH_BLOCK_BWD_LAUNCHES = 0
 
 #: the head dims the kernels are built for (the learning guard's and the T5
 #: stand-in's 16, the randomwalks configs' 24, the GPT-2 stand-in's 32,
@@ -428,6 +435,61 @@ def flash_attention(
     return (o, lse) if return_lse else o
 
 
+def flash_block_fwd(
+    q: torch.Tensor,  # [B, Tq, H, D]
+    k: torch.Tensor,  # [B, Tk, H, D]
+    v: torch.Tensor,  # [B, Tk, H, D]
+    bias: Optional[torch.Tensor],  # broadcastable to [B, H, Tq, Tk]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One ring block's forward with its logsumexp (the counterpart of the
+    TPU package's ``flash_block_fwd``): K1 with the causal flag off, since a
+    ring block carries its positions in the bias. Returns ``(o, lse)``: o
+    [B, H, Tq, D] in q's dtype, softmax-normalised within the block (a
+    view of K1's [B, Tq, H, D] output), and lse [B, H, Tq] f32. The scale
+    is 1/sqrt(D), the one the ring passes; the TPU wrapper's tile sizes
+    and interpret flag have no counterpart. A wholly masked block (every
+    bias ``NEG_INF``) gives the uniform average and lse ≈ NEG_INF + log
+    Tk, which the ring's combine weighs by exactly 0. Not differentiable
+    by itself: the ring's ``Function`` calls :func:`flash_block_bwd`. A
+    CPU tensor runs the plain version, a CUDA tensor K1 (``tile``,
+    ``decode`` or ``fma`` by dtype and Tq, :func:`forward_variant`)."""
+    global FLASH_BLOCK_FWD_LAUNCHES
+    if q.device.type == "cpu":
+        o, lse = flash_attention_reference(q, k, v, bias, False, True)
+    else:
+        o, lse = _launch(q, k, v, bias, False, True)
+        FLASH_BLOCK_FWD_LAUNCHES += 1
+    return o.transpose(1, 2), lse
+
+
+def flash_block_bwd(
+    q: torch.Tensor,  # [B, Tq, H, D]
+    k: torch.Tensor,  # [B, Tk, H, D]
+    v: torch.Tensor,  # [B, Tk, H, D]
+    bias: Optional[torch.Tensor],  # broadcastable to [B, H, Tq, Tk]
+    o: torch.Tensor,  # [B, H, Tq, D], the combined output
+    lse: torch.Tensor,  # [B, H, Tq] f32, the combined logsumexp
+    do: torch.Tensor,  # [B, H, Tq, D]
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One ring block's gradients against an outside (combined) logsumexp
+    (the counterpart of the TPU package's ``flash_block_bwd``). Because
+    ``lse`` and ``o`` are the ring's global ones, P = exp(S - lse) are the
+    global softmax weights and delta = rowsum(dO * O) the global delta,
+    which is what K2 and K3 recompute in-kernel. Every input is upcast to
+    f32 first, as the TPU wrapper does, so K2 and K3 run their ``fma``
+    variant; O and dO reach them as [B, Tq, H, D] views, read in place.
+    Returns ``(dq [B, Tq, H, D], dk, dv [B, Tk, H, D])`` in f32. A CPU
+    tensor runs the plain backward, a CUDA tensor K2 then K3."""
+    global FLASH_BLOCK_BWD_LAUNCHES
+    q, k, v = (t.float() for t in (q, k, v))
+    o, do = (t.float().transpose(1, 2) for t in (o, do))
+    if q.device.type == "cpu":
+        return flash_attention_backward_reference(q, k, v, bias, o, lse, do)
+    grads = _launch_backward(q, k, v, bias, o, lse, do, False)
+    FLASH_BLOCK_BWD_LAUNCHES += 1
+    return grads
+
+
 def _check(q, k, v, bias, name: str) -> None:
     """Refuse what the kernels were not built for (before any launch)."""
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -651,6 +713,8 @@ def _launch_backward(q, k, v, bias, o, lse, do, causal, dbias: bool = False):
 
 __all__ = [
     "BACKWARD_VARIANTS",
+    "FLASH_BLOCK_BWD_LAUNCHES",
+    "FLASH_BLOCK_FWD_LAUNCHES",
     "FLASH_BWD_COPIES",
     "FLASH_BWD_DKV_FMA_LAUNCHES",
     "FLASH_BWD_DKV_LAUNCHES",
@@ -673,6 +737,8 @@ __all__ = [
     "flash_attention",
     "flash_attention_backward_reference",
     "flash_attention_reference",
+    "flash_block_bwd",
+    "flash_block_fwd",
     "forward_variant",
     "kernel_inputs",
     "sum_to_shape",

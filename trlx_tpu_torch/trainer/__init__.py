@@ -85,8 +85,11 @@ def refuse_unported(config) -> None:
     mesh = train.training.get("mesh") or {}
     if any(size not in (-1, 1) for size in mesh.values()):
         raise NotImplementedError(
-            f"train.mesh={mesh}: the port runs on one device; multi-GPU "
-            "parallelism is ROADMAP item 14"
+            f"train.mesh={mesh}: the trainers run on one device. The mesh "
+            "(trlx_tpu_torch.parallel.make_mesh) and ring attention over its sp "
+            "axis are ported; dp/fsdp/tp training (parameter partitioning and "
+            "collectives), the pipeline (pp), expert parallelism and the "
+            "sp-sharded decode cache are not (ROADMAP item 14)"
         )
 
 
