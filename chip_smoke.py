@@ -4,21 +4,23 @@
 Phases, each fatal on failure:
 
 1. build — compile the flash-attention kernels (``trlx_tpu_torch/csrc/
-   flash_fwd.cu``: K1 in three variants, ``tile`` for bf16 with Q > 16 on
-   the tensor cores, ``decode`` for bf16 with Q <= 16, ``fma`` for f32;
-   ``flash_bwd.cu``: K2 dQ and K3 dK/dV, each ``tile`` for bf16 on the
-   tensor cores and ``fma`` for f32, K2 in two instantiations, without and
-   with the bias gradient; every kernel instantiated for head dims 16, 24,
-   32, 64, 96, 128 and 256, each instantiation gated on its own) with ``nvcc``
-   for ``sm_90a``, both
+   flash_fwd.cu``: K1 in four variants, ``tile`` for bf16 with Q > 16 on
+   the tensor cores, ``decode`` for bf16 with Q <= 16, ``fma`` for f32,
+   ``split3`` for the ring's f32 blocks on the tensor cores through three
+   bf16 planes; ``flash_bwd.cu``: K2 dQ and K3 dK/dV, each ``tile`` for
+   bf16 on the tensor cores, ``fma`` for f32 and ``split3`` for the ring's
+   blocks, K2's ``tile`` in two instantiations, without and with the bias
+   gradient; every kernel instantiated for head dims 16, 24, 32, 64, 96,
+   128 and 256, each instantiation gated on its own; ``split_planes.cu``:
+   the split3 pre-pass) with ``nvcc`` for ``sm_90a``, all three
    sources at once, and beside them each source's device code alone with
    ``ptxas -v`` (every run, so the report holds when the libraries were
    already built); print ``ptxas``'s registers, shared memory and spills
-   per kernel, and the count of tensor-core instructions (``HMMA`` or
-   ``HGMMA``) in each kernel's SASS (``cuobjdump -sass``). A spill in any
-   K1, K2 or K3 kernel (``tile`` and ``fma``), one of them missing from
-   the report, or a tile kernel without tensor-core instructions fails the
-   phase;
+   per kernel, the split3 kernels' dynamic shared memory, and the count
+   of tensor-core instructions (``HMMA`` or ``HGMMA``) in each kernel's
+   SASS (``cuobjdump -sass``). A spill in any gated kernel, one of them
+   missing from the report, or a tile or split3 kernel without
+   tensor-core instructions fails the phase;
 2. kernel — hold K1 against its plain PyTorch version on the card at the
    serving path's shapes (prefill, decode) and the edge cases (causal flag
    with a padding bias, ragged Q/K, per-head bias, 64 key tiles with peaked
@@ -355,15 +357,20 @@ Phases, each fatal on failure:
    last 2048 tokens (f32); (c) the block wrappers against their plain
    versions at the ring's 2048 x 2048 block (B = 4, H = 12) on a past
    block with left padding, the diagonal block and a wholly future block,
-   ``flash_block_fwd`` in bf16 and f32 (a future block: the uniform
-   average at lse = NEG_INF + log Tk), ``flash_block_bwd`` in f32 against
-   the three blocks' combined lse + 0.3 (a future block: exactly zero
-   gradients), each timed beside its bound (the live pairs of its bias;
-   f32 over the card's 67 TFLOP/s off the tensor cores), its plain
-   version and SDPA with the bias as a mask (for the backward SDPA's whole
-   f32 backward). Gates: K1 = K2 = K3 = 1 per forward and backward in
-   (a), 16 in (b), K2 and K3 ``fma``, K1 in the dtype's variant, the
-   block wrappers' own counts the same, no input copy, no plain call;
+   ``flash_block_fwd`` in bf16 (``tile``) and f32 (``split3``; a future
+   block: the uniform average at lse = NEG_INF + log Tk),
+   ``flash_block_bwd`` (``split3``) in f32 against the three blocks'
+   combined lse + 0.3 (a future block: exactly zero gradients), each timed
+   beside its bound (the live pairs of its bias; bf16 over 989 TFLOP/s,
+   the split3 route's six bf16 plane products per f32 product over the
+   same, the f32 bound over the card's 67 TFLOP/s off the tensor cores
+   beside it), its plain version and SDPA with the bias as a mask (for the
+   backward SDPA's whole f32 backward), and the split pre-pass alone
+   (held against its plain split bit for bit).
+   Gates: K1 = K2 = K3 = 1 per forward and backward in (a), 16 in (b), K2
+   and K3 ``split3``, K1 ``split3`` in f32 and ``tile`` in bf16, the split
+   pre-pass 4 per backward and 3 per f32 forward, the block wrappers' own
+   counts the same, no ``fma`` launch, no input copy, no plain call;
    finite outputs and gradients; (a) against (b), the order of their
    sums apart: outputs within ``O_REL_TOL`` of P|V| + |O| elementwise
    (P|V| the f32 kernels' attention of |V|), gradients within ``BWD_TOL``
@@ -438,6 +445,9 @@ REPLACES = {
     # the ring's block wrappers (phase 21), on K1 and on K2 + K3
     "flash_block_fwd": "trlx_tpu/ops/flash_attention.py:468",
     "flash_block_bwd": "trlx_tpu/ops/flash_attention.py:491",
+    # the split3 pre-pass of both block wrappers' f32 operands: a helper of
+    # their f32 route, the counterpart of no TPU kernel
+    "split_planes": None,
 }
 SOURCES = {
     "flash_fwd": "trlx_tpu_torch/csrc/flash_fwd.cu",
@@ -445,6 +455,7 @@ SOURCES = {
     "flash_bwd_dkv": "trlx_tpu_torch/csrc/flash_bwd.cu",
     "flash_block_fwd": "trlx_tpu_torch/csrc/flash_fwd.cu",
     "flash_block_bwd": "trlx_tpu_torch/csrc/flash_bwd.cu",
+    "split_planes": "trlx_tpu_torch/csrc/split_planes.cu",
 }
 L2_BYTES = 50 * 2**20  # H100 SXM
 N_LAYER = 12  # GPT-2 small
@@ -456,6 +467,14 @@ FWD_VARIANT_COUNTERS = {
 }
 BWD_KERNELS = ("flash_bwd_dq", "flash_bwd_dkv")
 BWD_VARIANTS = ("tile", "fma")
+#: the split3 launches (the ring's block wrappers only) and the split
+#: pre-pass's, read apart from the dense paths' variant counts
+SPLIT3_COUNTERS = {"flash_fwd": "FLASH_FWD_SPLIT3_LAUNCHES",
+                   "flash_bwd_dq": "FLASH_BWD_DQ_SPLIT3_LAUNCHES",
+                   "flash_bwd_dkv": "FLASH_BWD_DKV_SPLIT3_LAUNCHES",
+                   "split_planes": "FLASH_SPLIT_PLANES_LAUNCHES"}
+#: the split3 route's bf16 plane products per f32 product
+SPLIT3_PRODUCTS = 6
 
 
 def write_safetensors(tensors: dict, path: str) -> None:
@@ -571,17 +590,21 @@ HEAD_DIM_SUFFIXES = ((64, ""), (96, "_d96"), (256, "_d256"), (16, "_d16"), (24, 
 GATED_KERNELS = {
     "flash_fwd": {f"flash_fwd_{v}_kernel{sfx}": f"flash_fwd_{v}_kernelILi{d}E"
                   for d, sfx in HEAD_DIM_SUFFIXES
-                  for v in ("tile", "decode", "fma")},
+                  for v in ("tile", "decode", "fma", "split3")},
     "flash_bwd": {name: pattern for d, sfx in HEAD_DIM_SUFFIXES for name, pattern in (
         (f"flash_bwd_dq_tile_kernel{sfx}", f"flash_bwd_dq_tile_kernelILi{d}ELb0E"),
         (f"flash_bwd_dq_tile_kernel_dbias{sfx}", f"flash_bwd_dq_tile_kernelILi{d}ELb1E"),
         (f"flash_bwd_dkv_tile_kernel{sfx}", f"flash_bwd_dkv_tile_kernelILi{d}E"),
         (f"flash_bwd_dq_fma_kernel{sfx}", f"flash_bwd_dq_fma_kernelILi{d}E"),
-        (f"flash_bwd_dkv_fma_kernel{sfx}", f"flash_bwd_dkv_fma_kernelILi{d}E"))},
+        (f"flash_bwd_dkv_fma_kernel{sfx}", f"flash_bwd_dkv_fma_kernelILi{d}E"),
+        (f"flash_bwd_dq_split3_kernel{sfx}", f"flash_bwd_dq_split3_kernelILi{d}E"),
+        (f"flash_bwd_dkv_split3_kernel{sfx}", f"flash_bwd_dkv_split3_kernelILi{d}E"))},
+    "split_planes": {"split_planes_kernel": "split_planes_kernel"},
 }
 TILE_KERNELS = tuple(k + sfx for _, sfx in HEAD_DIM_SUFFIXES for k in (
     "flash_fwd_tile_kernel", "flash_bwd_dq_tile_kernel", "flash_bwd_dq_tile_kernel_dbias",
-    "flash_bwd_dkv_tile_kernel"))
+    "flash_bwd_dkv_tile_kernel", "flash_fwd_split3_kernel", "flash_bwd_dq_split3_kernel",
+    "flash_bwd_dkv_split3_kernel"))
 
 
 def phase_build(fa) -> tuple:
@@ -597,7 +620,7 @@ def phase_build(fa) -> tuple:
         reports = pool.submit(fa.ptxas_reports)
         paths = fa.build()
         reports = reports.result()
-    fa._load()
+    libs = fa._load()
     seconds = time.perf_counter() - t0
     log(f"phase 1: built {', '.join(os.path.relpath(p) for p in paths.values())} "
         f"and the ptxas reports in {seconds:.1f} s")
@@ -619,6 +642,14 @@ def phase_build(fa) -> tuple:
     for kernel in TILE_KERNELS:
         record[kernel]["tensor_core_instructions"] = sum(
             n for fn, n in mma.items() if patterns[kernel] in fn)
+    # the split3 kernels' dynamic shared memory (ptxas reports static only)
+    for d, sfx in HEAD_DIM_SUFFIXES:
+        for kernel, smem in (
+                ("flash_fwd_split3_kernel", libs["flash_fwd"].trlx_flash_fwd_split3_smem(d)),
+                ("flash_bwd_dq_split3_kernel", libs["flash_bwd"].trlx_flash_bwd_split3_smem(d, 0)),
+                ("flash_bwd_dkv_split3_kernel",
+                 libs["flash_bwd"].trlx_flash_bwd_split3_smem(d, 1))):
+            record[kernel + sfx]["dynamic_smem_bytes"] = smem
     missing = [k for k, r in record.items() if r["spill_bytes"] is None]
     ok = not missing and all(r["spill_bytes"] == 0 for r in record.values()) and all(
         record[k]["tensor_core_instructions"] > 0 for k in TILE_KERNELS)
@@ -2875,6 +2906,8 @@ def counted_path(torch, fa, fn, patches=()):
     reset_backward_counters(fa)
     fa.FLASH_BWD_DQ_DBIAS_LAUNCHES = 0
     fa.FLASH_BLOCK_FWD_LAUNCHES = fa.FLASH_BLOCK_BWD_LAUNCHES = 0
+    for counter in SPLIT3_COUNTERS.values():
+        setattr(fa, counter, 0)
     t0 = time.perf_counter()
     try:
         out = fn()
@@ -2895,6 +2928,7 @@ def counted_path(torch, fa, fn, patches=()):
                      "flash_block_bwd": fa.FLASH_BLOCK_BWD_LAUNCHES},
         "flash_fwd_variants": forward_variant_launches(fa),
         "backward_variants": backward_variant_launches(fa),
+        "split3_launches": {k: getattr(fa, c) for k, c in SPLIT3_COUNTERS.items()},
         "backward_copies": fa.FLASH_BWD_COPIES,
         "plain_attention_calls": plain[0],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -6134,8 +6168,11 @@ def block_bound(q, k, bias, NEG, backward: bool, dtype_name) -> dict:
     once and each output written once (f32 bias and LSE; the backward
     reads q, k, v, o, dO in f32 and writes dq, dk, dv in f32), over the
     card's memory rate; 4 D FLOPs per live pair forward (S, P.V), 10 D
-    backward (S, dP, dV, dQ, dK), over the peak of the dtype they run in
-    (bf16 on the tensor cores; f32 off them, the ``fma`` variants)."""
+    backward (S, dP, dV, dQ, dK), over the peak of the route they take:
+    bf16 on the tensor cores at 989 TFLOP/s, and f32 (the ``split3``
+    route) as ``SPLIT3_PRODUCTS`` bf16 plane products per f32 product at
+    the same rate. ``f32_bound_ms`` beside it is the bound at the card's
+    67 TFLOP/s off the tensor cores (the ``fma`` route's)."""
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
     # the (row, query, key) triples the [B, 1, Tq, Tk] bias leaves
@@ -6149,10 +6186,15 @@ def block_bound(q, k, bias, NEG, backward: bool, dtype_name) -> dict:
         nbytes = item * (2 * B * Tq * H * D + 2 * B * Tk * H * D) + bias.numel() * 4 + B * H * Tq * 4
         flops = 4 * D * pairs
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "flops": flops, "live_pairs": pairs}
+    route_flops = flops * (SPLIT3_PRODUCTS if dtype_name == "float32" else 1)
+    t_ops = route_flops / PEAK_FLOPS["bfloat16"] * 1e3
+    out = {"bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "flops": flops, "route_flops": route_flops, "live_pairs": pairs}
+    if dtype_name == "float32":
+        t_f32 = flops / PEAK_FLOPS["float32"] * 1e3
+        out["f32_bound_ms"] = max(t_bytes, t_f32)
+    return out
 
 
 def ring_block_cases(torch, fa, ra, q32, k32, v32, dout32, kv_mask):
@@ -6188,7 +6230,9 @@ def phase_ring_blocks(torch, fa, ra, inputs) -> tuple:
     three biases, the forward in bf16 and f32, the backward (f32) against
     the outside lse; each timed beside its bound, its plain version and
     SDPA with the bias as a mask (for the backward, SDPA's whole f32
-    backward). Returns ``(checks, timed)``."""
+    backward), and the split pre-pass on one operand, held against its
+    plain split bit for bit. Returns ``(checks, timed, the pre-pass's
+    row)``."""
     import torch.nn.functional as F
 
     NEG = fa.NEG_INF
@@ -6216,24 +6260,23 @@ def phase_ring_blocks(torch, fa, ra, inputs) -> tuple:
             checks.append({"case": f"block_fwd_{name}", "dtype": dtype_name, "ok": ok,
                            "max_abs_err_o": err_o, "max_err_lse": err_lse})
             log(f"phase 21: (c) flash_block_fwd {name} {dtype_name} "
-                f"{fa.forward_variant(dt, q.shape[1])}: max |dO| {err_o:.3g} (tol {tol_o}), "
+                f"{fa.block_forward_variant(dt, q.shape[1])}: max |dO| {err_o:.3g} (tol {tol_o}), "
                 f"|dLSE| {err_lse:.3g}{' relative' if name == 'future' else ''}: "
                 f"{'ok' if ok else 'FAIL'}")
-            if dtype_name == "bfloat16" or name == "diagonal":
-                slow = dtype_name == "float32"
-                rounds = dict(warmup=2, rounds=10, per_round=2) if slow else {}
-                mask = bias.to(dt)
-                qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-                timed[("flash_block_fwd", name, dtype_name)] = {
-                    "shape": f"B={q.shape[0]} H={q.shape[2]} Tq={q.shape[1]} Tk={k.shape[1]} "
-                             f"D={q.shape[3]}, {name} bias {list(bias.shape)}",
-                    "variant": fa.forward_variant(dt, q.shape[1]),
-                    "ms": time_ms([lambda: fa.flash_block_fwd(q, k, v, bias)], **rounds),
-                    "plain_ms": time_ms([lambda: fa.flash_attention_reference(
-                        q, k, v, bias, False, True)], **rounds),
-                    "library_ms": time_ms([lambda: F.scaled_dot_product_attention(
-                        qt, kt, vt, attn_mask=mask)], **rounds),
-                    **block_bound(q, k, bias, NEG, False, dtype_name)}
+            slow = dtype_name == "float32"
+            rounds = dict(warmup=2, rounds=10, per_round=2) if slow else {}
+            mask = bias.to(dt)
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            timed[("flash_block_fwd", name, dtype_name)] = {
+                "shape": f"B={q.shape[0]} H={q.shape[2]} Tq={q.shape[1]} Tk={k.shape[1]} "
+                         f"D={q.shape[3]}, {name} bias {list(bias.shape)}",
+                "variant": fa.block_forward_variant(dt, q.shape[1]),
+                "ms": time_ms([lambda: fa.flash_block_fwd(q, k, v, bias)], **rounds),
+                "plain_ms": time_ms([lambda: fa.flash_attention_reference(
+                    q, k, v, bias, False, True)], **rounds),
+                "library_ms": time_ms([lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask)], **rounds),
+                **block_bound(q, k, bias, NEG, False, dtype_name)}
         got = fa.flash_block_bwd(q32, k32, v32, bias, o, lse, do)
         want = fa.flash_attention_backward_reference(
             q32, k32, v32, bias, o.transpose(1, 2), lse, do.transpose(1, 2))
@@ -6245,7 +6288,7 @@ def phase_ring_blocks(torch, fa, ra, inputs) -> tuple:
         ok = over <= 1 and zero and all(g.dtype == torch.float32 for g in got)
         checks.append({"case": f"block_bwd_{name}", "dtype": "float32", "ok": ok, **errs,
                        "err_over_tol": over})
-        log(f"phase 21: (c) flash_block_bwd {name} (fma, outside lse + 0.3): {json.dumps(errs)}"
+        log(f"phase 21: (c) flash_block_bwd {name} (split3, outside lse + 0.3): {json.dumps(errs)}"
             f", max err / tol {over:.3g}{', exactly 0' if name == 'future' else ''}: "
             f"{'ok' if ok else 'FAIL'}")
         slow = dict(warmup=2, rounds=10, per_round=2)
@@ -6256,7 +6299,7 @@ def phase_ring_blocks(torch, fa, ra, inputs) -> tuple:
         timed[("flash_block_bwd", name, "float32")] = {
             "shape": f"B={q32.shape[0]} H={q32.shape[2]} Tq={q32.shape[1]} Tk={k32.shape[1]} "
                      f"D={q32.shape[3]}, {name} bias {list(bias.shape)}, outside lse",
-            "variant": "fma",
+            "variant": "split3",
             "ms": time_ms([lambda: fa.flash_block_bwd(q32, k32, v32, bias, o, lse, do)], **slow),
             "plain_ms": time_ms([lambda: fa.flash_attention_backward_reference(
                 q32, k32, v32, bias, o.transpose(1, 2), lse, do.transpose(1, 2))], **slow),
@@ -6264,11 +6307,32 @@ def phase_ring_blocks(torch, fa, ra, inputs) -> tuple:
                 sdpa, leaves, sdpa_do, retain_graph=True)], **slow),
             **block_bound(q32, k32, bias, NEG, True, "float32")}
         del sdpa, leaves
+    # the split pre-pass alone, on one of the block's f32 operands (the
+    # forward runs it 3 times, the backward 4, inside the wrappers' times),
+    # held against its plain split bit for bit; bound by its bytes (4 read
+    # and 6 written an element)
+    planes, want = fa.split_planes(q32), fa.split_planes_reference(q32)
+    torch.cuda.synchronize()
+    split_err = (planes.float() - want.float()).abs().max().item()
+    checks.append({"case": "split_planes", "dtype": "float32", "ok": torch.equal(planes, want),
+                   "max_abs_err": split_err})
+    log(f"phase 21: (c) split_planes of the block's q against the plain split: "
+        f"{'bit for bit' if torch.equal(planes, want) else f'FAIL, max |d| {split_err:.3g}'}")
+    split_t_bytes = 10 * q32.numel() / HBM_BYTES_PER_S * 1e3
+    split_ms = {"shape": f"one f32 operand [B, Tq, H, D] = {list(q32.shape)}",
+                "ms": time_ms([lambda: fa.split_planes(q32)]),
+                "plain_ms": time_ms([lambda: fa.split_planes_reference(q32)]),
+                "bound_ms": split_t_bytes, "bound_by": "bytes", "library_ms": None,
+                "max_abs_err": split_err}
+    del planes, want
     for (kernel, name, dtype_name), row in timed.items():
         log(f"phase 21: (c) time {kernel} {dtype_name} {row['shape']} ({row['variant']}): "
             f"ms={row['ms']} plain_ms={row['plain_ms']} library_ms={row['library_ms']} "
-            f"bound_ms={row['bound_ms']} ({row['bound_by']}; {row['live_pairs']} live pairs)")
-    return checks, timed
+            f"bound_ms={row['bound_ms']} ({row['bound_by']}; {row['live_pairs']} live pairs)"
+            + (f" f32_bound_ms={row['f32_bound_ms']}" if "f32_bound_ms" in row else ""))
+    log(f"phase 21: (c) time split_planes, {split_ms['shape']}: ms={split_ms['ms']} "
+        f"plain_ms={split_ms['plain_ms']} bound_ms={split_ms['bound_ms']} (bytes)")
+    return checks, timed, split_ms
 
 
 def phase_ring(torch, fa) -> tuple:
@@ -6328,16 +6392,21 @@ def phase_ring(torch, fa) -> tuple:
                 record["paths"][f"ring_nccl_{dtype_name}"] = rec_a
                 record["paths"][f"ring_lockstep_{dtype_name}"] = rec_b
                 record[f"dense_{dtype_name}"] = rec_d
-                k1 = fa.forward_variant(dt, T)
+                k1 = fa.block_forward_variant(dt, T // RING_SP)
                 for path, rec, n in (("nccl", rec_a, 1), ("lockstep", rec_b, RING_SP ** 2)):
+                    split3 = rec["split3_launches"]
                     gates[f"launches_{path}_{dtype_name}"] = (
-                        rec["launches"] == {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
-                                            "flash_bwd_dq_dbias": 0, "flash_block_fwd": n,
-                                            "flash_block_bwd": n}
-                        and rec["flash_fwd_variants"] == {**{x: 0 for x in FWD_VARIANT_COUNTERS},
-                                                          k1: n, "copies": 0}
-                        and rec["backward_variants"] == {kern: {"tile": 0, "fma": n}
-                                                         for kern in BWD_KERNELS}
+                        k1 == fa.block_forward_variant(dt, T)
+                        and rec["launches"] == {"flash_fwd": n, "flash_bwd_dq": n,
+                                                "flash_bwd_dkv": n, "flash_bwd_dq_dbias": 0,
+                                                "flash_block_fwd": n, "flash_block_bwd": n}
+                        and {**rec["flash_fwd_variants"], "split3": split3["flash_fwd"]}
+                        == {**{x: 0 for x in (*FWD_VARIANT_COUNTERS, "split3")}, k1: n,
+                            "copies": 0}
+                        and {kern: {**rec["backward_variants"][kern], "split3": split3[kern]}
+                             for kern in BWD_KERNELS}
+                        == {kern: {"tile": 0, "fma": 0, "split3": n} for kern in BWD_KERNELS}
+                        and split3["split_planes"] == (4 + 3 * (dtype_name == "float32")) * n
                         and rec["backward_copies"] == 0 and rec["plain_attention_calls"] == 0)
                 gates[f"finite_{dtype_name}"] = all(
                     bool(torch.isfinite(x).all()) and x.shape == q.shape for x in (*a, *b, *d))
@@ -6413,9 +6482,10 @@ def phase_ring(torch, fa) -> tuple:
         f"kernels' own): {json.dumps(err)}")
     del exact, results, f32
 
-    block_checks, block_timed = phase_ring_blocks(torch, fa, ra, (q32, k32, v32, dout32, kv_mask))
+    block_checks, block_timed, split = phase_ring_blocks(
+        torch, fa, ra, (q32, k32, v32, dout32, kv_mask))
     gates["blocks"] = all(c["ok"] for c in block_checks)
-    record.update(block_checks=block_checks, block_timed=block_timed,
+    record.update(block_checks=block_checks, block_timed=block_timed, split_planes_ms=split,
                   peak_bytes=torch.cuda.max_memory_allocated(),
                   phase_s=time.perf_counter() - t_phase)
     ok = all(gates.values())
@@ -6427,7 +6497,10 @@ def phase_ring(torch, fa) -> tuple:
 def ring_kernel_entries(ring) -> list:
     """The ``kernels`` line's entries of the ring's block wrappers: each
     timed at the diagonal block (the forward in bf16, the backward in
-    f32), the other shapes beside it, launches on the ring's paths."""
+    f32), the other shapes beside it (with their variant: the forward's
+    f32 rows ``split3``), launches on the ring's paths and by variant; and
+    the split pre-pass's entry (its launches on those paths, timed on one
+    of the block's operands)."""
     entries = []
     for name, head in (("flash_block_fwd", ("diagonal", "bfloat16")),
                        ("flash_block_bwd", ("diagonal", "float32"))):
@@ -6441,14 +6514,36 @@ def ring_kernel_entries(ring) -> list:
             "replaces": REPLACES[name],
             "launches": sum(r["launches"][name] for r in ring["paths"].values()),
             "launches_by_path": {p: r["launches"][name] for p, r in ring["paths"].items()},
+            "launches_by_variant": {p: (
+                {**r["flash_fwd_variants"], "split3": r["split3_launches"]["flash_fwd"]}
+                if name == "flash_block_fwd" else
+                {k: {**r["backward_variants"][k], "split3": r["split3_launches"][k]}
+                 for k in BWD_KERNELS}) for p, r in ring["paths"].items()},
+            "split_planes_launches": {p: r["split3_launches"]["split_planes"]
+                                      for p, r in ring["paths"].items()},
             "max_abs_err": max(errs),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                                    "variant")},
+            **({"f32_bound_ms": row["f32_bound_ms"]} if "f32_bound_ms" in row else {}),
             "timed_shape": f"ring block {head[1]} " + row["shape"],
             "shapes": {f"{b} {d}": {k: r[k] for k in (
-                "shape", "variant", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")}
+                "shape", "variant", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                "f32_bound_ms") if k in r}
                 for (b, d), r in rows.items() if (b, d) != head},
         })
+    # the split3 pre-pass of both wrappers' f32 operands
+    split = ring["split_planes_ms"]
+    entries.append({
+        "name": "split_planes", "route": "cuda", "source": SOURCES["split_planes"],
+        "wrapper": "trlx_tpu_torch/ops/flash_attention.py::split_planes",
+        "replaces": REPLACES["split_planes"],
+        "launches": sum(r["split3_launches"]["split_planes"] for r in ring["paths"].values()),
+        "launches_by_path": {p: r["split3_launches"]["split_planes"]
+                             for p, r in ring["paths"].items()},
+        **{k: split[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+        "timed_shape": "ring block " + split["shape"],
+    })
     return entries
 
 

@@ -103,7 +103,8 @@ def test_kernel_matches_plain(dev, dtype, case):
 
 
 FWD_COUNTERS = ("FLASH_FWD_LAUNCHES", "FLASH_FWD_TILE_LAUNCHES",
-                "FLASH_FWD_DECODE_LAUNCHES", "FLASH_FWD_FMA_LAUNCHES", "FLASH_FWD_COPIES")
+                "FLASH_FWD_DECODE_LAUNCHES", "FLASH_FWD_FMA_LAUNCHES", "FLASH_FWD_COPIES",
+                "FLASH_FWD_SPLIT3_LAUNCHES", "FLASH_SPLIT_PLANES_LAUNCHES")
 
 
 def _fwd_counters():
@@ -446,7 +447,9 @@ def test_backward_through_strided_views_matches_autograd_of_plain(dev):
 
 BWD_COUNTERS = ("FLASH_BWD_DQ_LAUNCHES", "FLASH_BWD_DKV_LAUNCHES",
                 "FLASH_BWD_DQ_TILE_LAUNCHES", "FLASH_BWD_DKV_TILE_LAUNCHES",
-                "FLASH_BWD_DQ_FMA_LAUNCHES", "FLASH_BWD_DKV_FMA_LAUNCHES", "FLASH_BWD_COPIES")
+                "FLASH_BWD_DQ_FMA_LAUNCHES", "FLASH_BWD_DKV_FMA_LAUNCHES", "FLASH_BWD_COPIES",
+                "FLASH_BWD_DQ_SPLIT3_LAUNCHES", "FLASH_BWD_DKV_SPLIT3_LAUNCHES",
+                "FLASH_SPLIT_PLANES_LAUNCHES")
 
 
 def _bwd_counters():
@@ -1472,24 +1475,35 @@ def test_other_head_dims_are_refused_before_a_launch(dev):
 # ---------------------------------------------------------------------------
 
 #: one ring block's biases: the diagonal block under the causal mask with
-#: padding, a wholly future block (every pair NEG_INF) and a past block
-#: with a padded tail; (Tq, Tk), so bf16 runs K1's ``tile`` and ``decode``
-BLOCK_KINDS = {"diagonal": (80, 80), "future": (80, 80), "past_padded": (9, 80)}
+#: padding, a wholly future block (every pair NEG_INF), a past block with a
+#: padded tail, and a diagonal block whose first 3 keys are padding (left
+#: padding: batch row 0's first 3 query rows have no live key); (Tq, Tk),
+#: none a multiple of 64, so bf16 runs K1's ``tile`` and ``decode``
+BLOCK_KINDS = {"diagonal": (80, 80), "future": (80, 80), "past_padded": (9, 80),
+               "left_padded": (130, 130)}
 
 
 def _block_case(dev, D, dtype, kind, seed=0):
+    """q, k, v, the block's bias, and the bias of the backward's outside
+    lse: the padding alone (every row live), or for ``left_padded`` the
+    block's own bias, so that its rows with no live key have lse ≈
+    NEG_INF and must keep their visit."""
     Tq, Tk = BLOCK_KINDS[kind]
     B = 2
     q, k, v = _qkv(dev, B, Tq, Tk, D=D, dtype=dtype, seed=seed)
     mask = torch.ones(B, Tk, dtype=torch.long, device=dev)
-    mask[0, Tk - 3:] = 0
+    if kind == "left_padded":
+        mask[0, :3] = 0
+    else:
+        mask[0, Tk - 3:] = 0
     pad = attn.padding_bias(mask)
     bias = pad.expand(B, 1, Tq, Tk)
-    if kind == "diagonal":
+    if kind in ("diagonal", "left_padded"):
         bias = bias + attn.causal_bias(Tq, Tk, device=dev)
     elif kind == "future":
         bias = torch.full((B, 1, Tq, Tk), attn.NEG_INF, device=dev)
-    return q, k, v, bias.contiguous(), pad
+    bias = bias.contiguous()
+    return q, k, v, bias, bias if kind == "left_padded" else pad
 
 
 @pytest.mark.parametrize("kind", list(BLOCK_KINDS))
@@ -1497,16 +1511,19 @@ def _block_case(dev, D, dtype, kind, seed=0):
 @pytest.mark.parametrize("D", fa.HEAD_DIMS, ids=lambda d: f"D{d}")
 def test_block_fwd_matches_plain(dev, D, dtype, kind):
     """``flash_block_fwd`` runs K1 with the causal flag off in the variant
-    of its dtype and width, once, with no copy, and gives the plain
-    version's O and LSE; a wholly future block the uniform average of V
-    at lse ≈ NEG_INF + log Tk."""
+    of its dtype and width (``split3`` in f32, after three split
+    pre-passes; ``tile`` or ``decode`` in bf16), once, with no copy, and
+    gives the plain version's O and LSE; a wholly future block the
+    uniform average of V at lse ≈ NEG_INF + log Tk."""
     q, k, v, bias, _ = _block_case(dev, D, dtype, kind)
     before = {**_fwd_counters(), "FLASH_BLOCK_FWD_LAUNCHES": fa.FLASH_BLOCK_FWD_LAUNCHES}
     o, lse = fa.flash_block_fwd(q, k, v, bias)
     torch.cuda.synchronize()
-    variant = fa.forward_variant(dtype, q.shape[1])
+    variant = fa.block_forward_variant(dtype, q.shape[1])
+    assert variant == ("split3" if dtype == torch.float32 else fa.forward_variant(dtype, q.shape[1]))
     assert _moved(before) == {"FLASH_FWD_LAUNCHES": 1, "FLASH_BLOCK_FWD_LAUNCHES": 1,
-                              f"FLASH_FWD_{variant.upper()}_LAUNCHES": 1}
+                              f"FLASH_FWD_{variant.upper()}_LAUNCHES": 1,
+                              **({"FLASH_SPLIT_PLANES_LAUNCHES": 3} if variant == "split3" else {})}
     B, Tq, H, _ = q.shape
     assert o.shape == (B, H, Tq, D) and o.dtype == dtype and lse.shape == (B, H, Tq)
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, bias, False, True)
@@ -1525,12 +1542,14 @@ def test_block_fwd_matches_plain(dev, D, dtype, kind):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("D", fa.HEAD_DIMS, ids=lambda d: f"D{d}")
 def test_block_bwd_matches_plain_with_outside_lse(dev, D, dtype, kind):
-    """``flash_block_bwd`` upcasts to f32 and runs K2 and K3 in ``fma``
-    once each, with no copy, against an outside lse (the past block's own
-    + 0.3, so P sums to less than 1): the plain backward's gradients on
-    the CPU, in f32; a wholly future block's exactly 0."""
-    q, k, v, bias, pad = _block_case(dev, D, dtype, kind)
-    o, lse = fa.flash_attention_reference(q, k, v, pad, False, True)
+    """``flash_block_bwd`` upcasts to f32 and runs K2 and K3 in ``split3``
+    once each, after four split pre-passes, with no copy, against an
+    outside lse (the padding's own + 0.3, so P sums to less than 1; for
+    ``left_padded`` the block's own, rows with no live key included): the
+    plain backward's gradients on the CPU, in f32; a wholly future block's
+    exactly 0."""
+    q, k, v, bias, lse_bias = _block_case(dev, D, dtype, kind)
+    o, lse = fa.flash_attention_reference(q, k, v, lse_bias, False, True)
     o, lse = o.transpose(1, 2), lse + 0.3
     do = torch.randn(o.shape, device=dev).to(dtype)
     before = {**_bwd_counters(), "FLASH_BLOCK_BWD_LAUNCHES": fa.FLASH_BLOCK_BWD_LAUNCHES}
@@ -1538,8 +1557,8 @@ def test_block_bwd_matches_plain_with_outside_lse(dev, D, dtype, kind):
     torch.cuda.synchronize()
     moved = {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n}
     assert moved == {"FLASH_BWD_DQ_LAUNCHES": 1, "FLASH_BWD_DKV_LAUNCHES": 1,
-                     "FLASH_BWD_DQ_FMA_LAUNCHES": 1, "FLASH_BWD_DKV_FMA_LAUNCHES": 1,
-                     "FLASH_BLOCK_BWD_LAUNCHES": 1}
+                     "FLASH_BWD_DQ_SPLIT3_LAUNCHES": 1, "FLASH_BWD_DKV_SPLIT3_LAUNCHES": 1,
+                     "FLASH_SPLIT_PLANES_LAUNCHES": 4, "FLASH_BLOCK_BWD_LAUNCHES": 1}
     want = fa.flash_block_bwd(*(x.cpu() for x in (q, k, v, bias, o, lse, do)))
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
@@ -1547,6 +1566,78 @@ def test_block_bwd_matches_plain_with_outside_lse(dev, D, dtype, kind):
         assert (g.cpu() - w).abs().max().item() <= 1e-4 * scale, name
         if kind == "future":
             assert not g.any(), name
+
+
+def _force_visits(bias, lse_rows_live):
+    """``bias`` with one entry of every dead 64 x 64 tile raised from
+    NEG_INF to NEG_INF / 4, in a row that ``lse_rows_live`` [B, Tq] marks
+    live: the entry still weighs exactly 0, but the tile's vote now finds
+    a live pair, so the kernels visit it. Returns the new bias and the
+    number of tiles forced."""
+    forced, n = bias.clone(), 0
+    B, _, Tq, Tk = bias.shape
+    for b in range(B):
+        for q0 in range(0, Tq, 64):
+            rows = torch.nonzero(lse_rows_live[b, q0:q0 + 64]).flatten()
+            for k0 in range(0, Tk, 64):
+                if len(rows) and not (bias[b, 0, q0:q0 + 64, k0:k0 + 64] > attn.NEG_INF / 2).any():
+                    forced[b, 0, q0 + rows[0], k0] = attn.NEG_INF / 4
+                    n += 1
+    return forced, n
+
+
+@pytest.mark.parametrize("kind", list(BLOCK_KINDS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("D", fa.HEAD_DIMS, ids=lambda d: f"D{d}")
+def test_block_skip_is_exact_against_a_forced_visit(dev, D, dtype, kind):
+    """The dead-tile skip (K1, K2 and K3 ``split3``; the bf16 forward's
+    ``tile`` visits every tile) changes no bit: the block wrappers on a
+    bias with one entry of every dead tile raised to NEG_INF / 4 (a live
+    row's, so the tile is visited and still weighs 0) give O, lse, dq, dk
+    and dv equal to the run that skips. Rows with no live key (``left_padded``) keep
+    their visit in both runs; the forward's rows are live where they have
+    a live key, the backward's where the outside lse is above NEG_INF /
+    2."""
+    q, k, v, bias, lse_bias = _block_case(dev, D, dtype, kind)
+    fwd_live = (bias > attn.NEG_INF / 2).any(dim=-1)[:, 0]
+    o_ref, lse = fa.flash_attention_reference(q, k, v, lse_bias, False, True)
+    o_ref, lse = o_ref.transpose(1, 2), lse + 0.3
+    do = torch.randn(o_ref.shape, device=dev).to(dtype)
+    forced, n = _force_visits(bias, fwd_live)
+    skipped = fa.flash_block_fwd(q, k, v, bias)
+    visited = fa.flash_block_fwd(q, k, v, forced)
+    for a, b in zip(skipped, visited):
+        assert torch.equal(a, b)
+    bwd_live = (lse > attn.NEG_INF / 2).all(dim=1)
+    forced_b, n_b = _force_visits(bias, bwd_live)
+    skipped = fa.flash_block_bwd(q, k, v, bias, o_ref, lse, do)
+    visited = fa.flash_block_bwd(q, k, v, forced_b, o_ref, lse, do)
+    for a, b in zip(skipped, visited):
+        assert torch.equal(a, b)
+    torch.cuda.synchronize()
+    # the diagonal blocks and the future block have dead tiles to force
+    assert (n > 0) == (kind in ("diagonal", "left_padded")) and (n_b > 0) == (kind != "past_padded")
+
+
+def test_split_planes_matches_plain_bit_for_bit(dev):
+    """The split pre-pass (``csrc/split_planes.cu``) against the plain
+    split, bit for bit, on a strided view (a head-major tensor seen as
+    [B, T, H, D]) of values across f32's range: normal, near bf16's
+    smallest normal, subnormal, signed zero."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    x = torch.randn(2, 3, 37, 24, generator=gen, device=dev)
+    x = x * torch.exp2(torch.randint(-140, 120, x.shape, generator=gen, device=dev).float())
+    x.view(-1)[:4] = torch.tensor([0.0, -0.0, 1e-40, -3e-39], device=dev)
+    view = x.transpose(1, 2)  # [2, 37, 3, 24], strides of a [B, H, T, D] tensor
+    before = fa.FLASH_SPLIT_PLANES_LAUNCHES
+    planes = fa.split_planes(view)
+    torch.cuda.synchronize()
+    assert fa.FLASH_SPLIT_PLANES_LAUNCHES == before + 1
+    assert planes.shape == (3, 2, 37, 3, 24) and planes.dtype == torch.bfloat16
+    assert planes.is_contiguous()
+    want = fa.split_planes_reference(view.cpu())
+    assert torch.equal(planes.cpu().view(torch.int16), want.view(torch.int16))
 
 
 @pytest.fixture
@@ -1569,8 +1660,9 @@ def nccl_mesh(dev, tmp_path):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 def test_ring_at_sp_1_through_nccl_matches_dense(nccl_mesh, dtype, causal):
     """``ring_attention_sharded`` on a one-rank NCCL mesh (its ring passes
-    nothing): one K1 launch forward and one K2 and K3 ``fma`` backward,
-    no copy, and the output and gradients of the dense kernels (the causal
+    nothing): one K1 launch forward (``split3`` in f32, ``tile`` in bf16)
+    and one K2 and K3 ``split3`` backward, with the split pre-passes, no
+    copy, and the output and gradients of the dense kernels (the causal
     flag and a padding bias); the naive impl agrees."""
     from trlx_tpu_torch.ops import ring_attention as ra
 
@@ -1586,12 +1678,13 @@ def test_ring_at_sp_1_through_nccl_matches_dense(nccl_mesh, dtype, causal):
     out = ra.ring_attention_sharded(q, k, v, nccl_mesh, kv_mask=mask, causal=causal)
     grads = torch.autograd.grad(out, (q, k, v), do)
     torch.cuda.synchronize()
-    variant = fa.forward_variant(dtype, T).upper()
+    variant = fa.block_forward_variant(dtype, T).upper()
     assert {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n} == {
         "FLASH_FWD_LAUNCHES": 1, f"FLASH_FWD_{variant}_LAUNCHES": 1,
         "FLASH_BLOCK_FWD_LAUNCHES": 1, "FLASH_BLOCK_BWD_LAUNCHES": 1,
         "FLASH_BWD_DQ_LAUNCHES": 1, "FLASH_BWD_DKV_LAUNCHES": 1,
-        "FLASH_BWD_DQ_FMA_LAUNCHES": 1, "FLASH_BWD_DKV_FMA_LAUNCHES": 1}
+        "FLASH_BWD_DQ_SPLIT3_LAUNCHES": 1, "FLASH_BWD_DKV_SPLIT3_LAUNCHES": 1,
+        "FLASH_SPLIT_PLANES_LAUNCHES": 4 + 3 * (dtype == torch.float32)}
     dense = fa.flash_attention(q, k, v, attn.padding_bias(mask), causal)
     dense_grads = torch.autograd.grad(dense, (q, k, v), do)
     naive = ra.ring_attention_sharded(q, k, v, nccl_mesh, kv_mask=mask, causal=causal,

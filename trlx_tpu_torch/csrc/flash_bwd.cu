@@ -47,8 +47,10 @@
 //    key tile is visited and every element written. The write doubles the
 //    bias's bytes: at T5's encoder shape it bounds the kernel.
 //
-// Two variants, chosen in Python (ops/flash_attention.py::backward_variant)
-// and passed in; a mismatched choice is refused with -1:
+// Three variants: tile and fma, chosen in Python for dense calls
+// (ops/flash_attention.py::backward_variant) and passed in, a mismatched
+// choice refused with -1; and split3, the ring's block backward's, through
+// entry points of its own:
 //
 //  tile (bf16; the update backward B=16 T=112 H=12 causal with a [B,1,1,K]
 //    padding bias). Both kernels are bound by the bytes they must move (5-6
@@ -92,10 +94,45 @@
 //    tried). The training shape's 384-CTA grids then take one wave (dQ)
 //    and 1.45 waves (dK/dV) on 132 SMs.
 //
-//  fma (f32, every Q): the parity path (phase 3's full-width gradient gate
-//    holds it to 1e-3 relative, the kernel tests to 1e-4). f32 FMA from
-//    shared memory, register-blocked per thread, tiles staged as f32;
-//    tensor cores would make it TF32. No bf16 call reaches it.
+//  fma (f32, every Q; dense calls): the parity path (phase 3's full-width
+//    gradient gate holds it to 1e-3 relative, the kernel tests to 1e-4). f32
+//    FMA from shared memory, register-blocked per thread, tiles staged as
+//    f32; one TF32 pass on the tensor cores would break those tolerances. No
+//    bf16 call reaches it.
+//
+//  split3 (f32, the ring's block backward, flash_block_bwd, which replaces
+//    trlx_tpu/ops/flash_attention.py::flash_block_bwd :491; no causal flag):
+//    f32 on the tensor cores through three bf16 planes of q, k, v and dO
+//    (hopper_tile.cuh split3; the planes from csrc/split_planes.cu), every
+//    product the sum of six plane products at 989 / 6 = 165 TFLOP/s, where
+//    the fma variant reached about 11 % of the card's 67 TFLOP/s off the
+//    tensor cores; at the ring's blocks its operations bound it
+//    (chip_smoke.py::block_bound). The tile variant's structure:
+//    - dQ: one warpgroup per 64-row query tile; Q's and dO's planes staged
+//      once, K's and V's per key tile; S and dP as plane sums, P = exp(S -
+//      LSE) and dS = P (dP - delta) in f32 (expf), dQ += dS K with dS as
+//      three register fragments (split3_fragment), K MN-major. delta =
+//      rowsum(dO O) from the f32 O and dO, read in place (a quad of lanes
+//      a row), not from the planes.
+//    - dK/dV: two warpgroups per 64-key tile, keys as rows, as the tile
+//      variant at D >= 96 (here at every D: one warpgroup's accumulator, S^T
+//      and the three fragments of P^T or dS^T leave no room for a second
+//      accumulator); K's and V's planes staged once, Q's and dO's per
+//      64-row query chunk, LSE and delta (from the f32 tensors, 4 threads a
+//      row) through shared memory; both warpgroups form P^T, warpgroup 0
+//      accumulates dV += P^T dO, warpgroup 1 dP^T, dS^T and dK += dS^T Q.
+//    Both skip a (query tile, key tile) that is dead (hopper_tile.cuh
+//    dead_tile: no bias entry above NEG_INF / 2, every row's outside LSE
+//    above it): its P is exactly 0, so it adds nothing to dQ, dK or dV. The
+//    ring's future blocks skip every tile, its diagonal blocks the upper
+//    half. At D <= 64 a kernel's four operands are 12 plane tiles of 8 KB
+//    (dQ 2 CTAs per SM), at 96 and 128 of 16 KB (1 CTA); at D = 256 they
+//    would be 384 KB, so two slots of 96 KB take them in turn (dQ: Q and K,
+//    dO and V, K again; dK/dV: K and Q, dO and V, Q again). A CTA holds one
+//    64-column chunk of its accumulator (hopper_tile.cuh split3_chunks: at
+//    D = 96, 128 and 256 the 2, 2 and 4 CTAs of a tile each form the whole
+//    S and dP), each tile's or chunk's products summed apart and added to
+//    it in f32 (accumulate_planes).
 //
 // Head dims (hopper_tile.cuh kHeadDims): every kernel is a template over D,
 // built for 16 (the learning guard, the T5 stand-in's d_kv), 24 (the
@@ -160,6 +197,8 @@
 //    and 82 KB; the visit rule is the forward's, whatever the CTA's tile.
 
 #include <math.h>
+
+#include <initializer_list>
 
 #include "hopper_tile.cuh"
 
@@ -587,13 +626,6 @@ __device__ __forceinline__ void split_fragment(uint32_t (&hi)[4],
     const float2 h = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&hi[i]));
     lo[i] = pack_bf16(x0 - h.x, x1 - h.y);
   }
-}
-
-__device__ __forceinline__ void zero(float (&d)[8][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
 }
 
 // d = X Y^T for 64 x D bf16 tiles X, Y [row][d] in shared memory, issued
@@ -1121,6 +1153,380 @@ flash_bwd_dkv_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k
 }
 
 // ---------------------------------------------------------------------------
+// split3: f32 through three bf16 planes on the tensor cores (the ring's blocks)
+// ---------------------------------------------------------------------------
+
+// Q's and dO's planes (dQ) or K's and V's (dK/dV) stay staged across the
+// loop but at D = 256, where the four operands' planes would be 384 KB:
+// there two slots of three plane tiles (192 KB) take each operand in turn.
+template <int D>
+__host__ __device__ constexpr bool split3_resident() {
+  return per_head_dim<D>(true, true, true, true, true, true, false);
+}
+template <int D>
+__host__ __device__ constexpr int split3_slots() { return split3_resident<D>() ? 4 : 2; }
+// dQ: 97 KB at D <= 64 (2 CTAs per SM), 193 KB at D = 96, 128 and 256
+template <int D>
+__host__ __device__ constexpr int dq_split3_min_blocks() { return per_head_dim<D>(2, 2, 2, 2, 1, 1, 1); }
+template <int D>
+__host__ __device__ constexpr int dq_split3_smem() {
+  return 3 * split3_slots<D>() * tile_bytes<D>() + 1024;
+}
+template <int D>
+__host__ __device__ constexpr int dkv_split3_smem() {  // the slots, LSE, delta
+  return 3 * split3_slots<D>() * tile_bytes<D>() + 2 * kBQ * static_cast<int>(sizeof(float)) + 1024;
+}
+
+// sum over columns part, part + parts, ... of D of x[c] * y[c] (f32)
+template <int D>
+__device__ __forceinline__ float strided_dot(const float* x, const float* y, int part,
+                                             int parts) {
+  float d = 0.f;
+  for (int c = part; c < D; c += parts) d = fmaf(x[c], y[c], d);
+  return d;
+}
+
+// dQ on f32 q, k, v and dO given as their bf16 planes (q and dO [B, Q, H,
+// D], k and v [B, K, H, D], contiguous, plane p at p times the tensor's size;
+// csrc/split_planes.cu), o and dO also as f32 [B, Q, H, D] through strides
+// for delta: one warpgroup per (64-row query tile, head, batch row), as the
+// tile variant. Each key tile that is not dead (dead_tile: the bias each
+// thread reads, and every row's LSE above NEG_INF / 2) runs S and dP as the sums
+// of their plane products, P = exp(S - LSE) (expf), dS = P (dP - delta) in
+// f32, and dQ += dS K with dS as three register fragments. No causal flag.
+template <int D>
+__global__ void __launch_bounds__(kTileThreads, dq_split3_min_blocks<D>())
+flash_bwd_dq_split3_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                           const bf16* __restrict__ v, const bf16* __restrict__ dout3,
+                           const float* __restrict__ bias, const float* __restrict__ o,
+                           const float* __restrict__ dout, const float* __restrict__ lse,
+                           float* __restrict__ dq, int H, int Q, int K, Strides so,
+                           Strides sdo, BiasStrides sb, float scale) {
+  constexpr int kTB = tile_bytes<D>();
+  constexpr bool kRes = split3_resident<D>();
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t sQ;
+  aligned_smem(smem_raw, sQ);
+  // Q, dO, K, V; at D = 256 slot A (Q, then dO) and slot B (K, then V, then K)
+  const uint32_t sdO = kRes ? sQ + 3 * kTB : sQ;
+  const uint32_t sK = sQ + (kRes ? 6 : 3) * kTB;
+  const uint32_t sV = kRes ? sK + 3 * kTB : sK;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y / split3_chunks<D>();
+  const int chunk = blockIdx.y % split3_chunks<D>();  // dQ's columns 64 chunk .. + 63
+  const int b = blockIdx.z;
+  const int n_tiles = (K + kBK - 1) / kBK;
+
+  // the planes' strides: row H D, batch row T H D, plane B T H D
+  const long long st = static_cast<long long>(H) * D;
+  const long long pq = st * Q * gridDim.z, pk = st * K * gridDim.z;
+  const bf16* qb = q + b * st * Q + h * D;
+  const bf16* dob = dout3 + b * st * Q + h * D;
+  const bf16* kb = k + b * st * K + h * D;
+  const bf16* vb = v + b * st * K + h * D;
+  if constexpr (kRes) {
+    load_planes_async<D>(sQ, qb, pq, st, q0, Q);
+    load_planes_async<D>(sdO, dob, pq, st, q0, Q);
+    cp_async_commit();
+  }
+
+  // this thread's rows, their LSE, delta (over the quad) and bias rows
+  int qi[2];
+  float lse_r[2], delta[2];
+  const float* brow[2];
+  const float* lse_row = lse + (static_cast<long long>(b) * H + h) * Q;
+  bool rows_live = true;
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    qi[hr] = q0 + warp * 16 + g + 8 * hr;
+    const bool in = qi[hr] < Q;
+    lse_r[hr] = in ? lse_row[qi[hr]] : 0.f;
+    rows_live = rows_live && (!in || lse_r[hr] > 0.5f * kNegInf);
+    brow[hr] = bias ? bias + b * sb.b + h * sb.h + min(qi[hr], Q - 1) * sb.q : nullptr;
+    float d = in ? strided_dot<D>(dout + b * sdo.b + qi[hr] * sdo.t + h * sdo.h,
+                                  o + b * so.b + qi[hr] * so.t + h * so.h, t4, 4)
+                 : 0.f;
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    delta[hr] = d + __shfl_xor_sync(0xffffffffu, d, 2);
+  }
+  float acc[8][4];
+  zero(acc);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    // the bias of this thread's 32 pairs (a key past K reads key K - 1's)
+    // and the dead-tile vote on it (its barriers order the copies)
+    float bv[8][4];
+    bool live = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + 8 * j + 2 * t4 + (e & 1), hr = e >> 1;
+        bv[j][e] = brow[hr] ? brow[hr][min(kj, K - 1) * sb.k] : 0.f;
+        live |= qi[hr] < Q && live_pair(bv[j][e], kj, K);
+      }
+    if (brow[0] && dead_tile(live, rows_live)) continue;
+    if constexpr (!kRes) load_planes_async<D>(sQ, qb, pq, st, q0, Q);
+    load_planes_async<D>(sK, kb, pk, st, k0, K);
+    if constexpr (kRes) load_planes_async<D>(sV, vb, pk, st, k0, K);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+
+    // S and (with the operands staged) dP as two wgmma groups; P is formed
+    // while the second runs
+    float s[8][4], dp[8][4];
+    product3<D>(s, sQ, sK);
+    wgmma_commit();
+    if constexpr (kRes) {
+      product3<D>(dp, sdO, sV);
+      wgmma_commit();
+      wgmma_wait<1>();
+    } else {
+      wgmma_wait<0>();
+    }
+    fence_registers(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+        float x = s[j][e] * scale;
+        if constexpr (split3_keep_bias<D>())
+          x += bv[j][e];
+        else if (brow[hr])
+          x += brow[hr][min(kj, K - 1) * sb.k];
+        s[j][e] = qi[hr] < Q && kj < K ? expf(x - lse_r[hr]) : 0.f;
+      }
+    if constexpr (!kRes) {
+      __syncthreads();  // every warp's S has read Q and K
+      load_planes_async<D>(sdO, dob, pq, st, q0, Q);
+      load_planes_async<D>(sV, vb, pk, st, k0, K);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+      product3<D>(dp, sdO, sV);
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_registers(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dp[j][e] = s[j][e] * (dp[j][e] - delta[e >> 1]);
+    if constexpr (!kRes) {
+      __syncthreads();  // every warp's dP has read dO and V
+      load_planes_async<D>(sK, kb, pk, st, k0, K);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+    }
+
+    // dQ += dS K: dS (f32) as bf16 fragments of its three planes, K's
+    // planes MN-major (this CTA's chunk of them)
+    accumulate_planes(acc, dp, sK + chunk * kAtomBytes, kTB);
+    __syncthreads();  // the slots are read; the next tile refills them
+  }
+  cp_async_wait<0>();  // Q's and dO's copies, where every tile was skipped
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (qi[hr] >= Q) continue;
+    float* row = dq + ((static_cast<long long>(b) * Q + qi[hr]) * H + h) * D + 64 * chunk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (64 * chunk + 8 * j < D)  // the tile's padded columns are dropped
+        *reinterpret_cast<float2*>(row + 8 * j + 2 * t4) =
+            make_float2(acc[j][2 * hr] * scale, acc[j][2 * hr + 1] * scale);
+  }
+}
+
+// dK, dV on the planes and f32 tensors of the dQ kernel: two warpgroups per
+// (64-key tile, head, batch row, 64-column chunk of dK and dV), keys as
+// rows, as the tile variant at D >= 96 (here at every D, so that a thread
+// holds one accumulator beside its chunk's fresh sum, S^T, dP^T, the bias
+// kept from the vote and three fragments). Both form
+// P^T from their own S^T = K Q^T; warpgroup 0 accumulates dV += P^T dO,
+// warpgroup 1 dP^T = V dO^T, dS^T = P^T (dP^T - delta) and dK += dS^T Q,
+// every product as the sum of its plane products. K's and V's planes are
+// staged once (at D = 256 they take turns in two slots with Q's and dO's);
+// each 64-row query chunk that is not dead (dead_tile) stages Q's and dO's
+// and takes its LSE and delta (4 threads a row, delta from the f32 O and
+// dO, while the copies land) through shared memory.
+template <int D>
+__global__ void __launch_bounds__(2 * kTileThreads, 1)
+flash_bwd_dkv_split3_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, const bf16* __restrict__ dout3,
+                            const float* __restrict__ bias, const float* __restrict__ o,
+                            const float* __restrict__ dout, const float* __restrict__ lse,
+                            float* __restrict__ dk, float* __restrict__ dv, int H, int Q,
+                            int K, Strides so, Strides sdo, BiasStrides sb, float scale) {
+  constexpr int kTB = tile_bytes<D>();
+  constexpr int kT = 2 * kTileThreads;
+  constexpr bool kRes = split3_resident<D>();
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t sK;
+  uint8_t* smem = aligned_smem(smem_raw, sK);
+  // K, V, Q, dO; at D = 256 slot A (K, then dO) and slot B (Q, then V, then Q)
+  const uint32_t sQ = sK + (kRes ? 6 : 3) * kTB;
+  const uint32_t sV = kRes ? sK + 3 * kTB : sQ;
+  const uint32_t sdO = kRes ? sK + 9 * kTB : sK;
+  float* sL = reinterpret_cast<float*>(smem + 3 * split3_slots<D>() * kTB);  // the chunk's LSE
+  float* sD = sL + kBQ;                                                      // and delta
+
+  const int tid = threadIdx.x;
+  const int wg = tid / kTileThreads;  // 0: dV, 1: dK
+  const int warp = (tid % kTileThreads) >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int k0 = blockIdx.x * kBK;
+  const int h = blockIdx.y / split3_chunks<D>();
+  const int chunk = blockIdx.y % split3_chunks<D>();  // dK's, dV's columns 64 chunk .. + 63
+  const int b = blockIdx.z;
+  const int n_chunks = (Q + kBQ - 1) / kBQ;
+  const uint32_t cols = chunk * kAtomBytes;  // their atom in a tile
+
+  const long long st = static_cast<long long>(H) * D;
+  const long long pq = st * Q * gridDim.z, pk = st * K * gridDim.z;
+  const bf16* qb = q + b * st * Q + h * D;
+  const bf16* dob = dout3 + b * st * Q + h * D;
+  const bf16* kb = k + b * st * K + h * D;
+  const bf16* vb = v + b * st * K + h * D;
+  const float* lse_row = lse + (static_cast<long long>(b) * H + h) * Q;
+  const float* biasb = bias ? bias + b * sb.b + h * sb.h : nullptr;
+
+  int kr[2];
+  const float* bcol[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    kr[hr] = k0 + warp * 16 + g + 8 * hr;
+    bcol[hr] = biasb ? biasb + min(kr[hr], K - 1) * sb.k : nullptr;
+  }
+  float acc[8][4];
+  zero(acc);
+  if constexpr (kRes) {
+    load_planes_async<D, kT>(sK, kb, pk, st, k0, K);
+    load_planes_async<D, kT>(sV, vb, pk, st, k0, K);
+    cp_async_commit();
+  }
+
+  for (int c = 0; c < n_chunks; ++c) {
+    const int q0 = c * kBQ;
+    // row sr (4 threads a row): its LSE; the bias of this thread's 32 pairs
+    // (a query past Q reads row Q - 1's) and the dead-chunk vote on both
+    const int sr = tid >> 2, part = tid & 3;
+    const bool in = q0 + sr < Q;
+    const float lse_v = in ? lse_row[q0 + sr] : 0.f;
+    float bv[8][4];
+    bool live = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qi = q0 + 8 * j + 2 * t4 + (e & 1), hr = e >> 1;
+        bv[j][e] = bcol[hr] ? bcol[hr][min(qi, Q - 1) * sb.q] : 0.f;
+        live |= qi < Q && live_pair(bv[j][e], kr[hr], K);
+      }
+    if (bcol[0] && dead_tile(live, !in || lse_v > 0.5f * kNegInf)) continue;
+    load_planes_async<D, kT>(sQ, qb, pq, st, q0, Q);
+    if constexpr (kRes)
+      load_planes_async<D, kT>(sdO, dob, pq, st, q0, Q);
+    else
+      load_planes_async<D, kT>(sK, kb, pk, st, k0, K);
+    cp_async_commit();
+    // row sr's delta while the copies land; the last chunk's reads of sL
+    // and sD are done (its closing barrier)
+    float d = in ? strided_dot<D>(dout + b * sdo.b + (q0 + sr) * sdo.t + h * sdo.h,
+                                  o + b * so.b + (q0 + sr) * so.t + h * so.h, part, 4)
+                 : 0.f;
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    d += __shfl_xor_sync(0xffffffffu, d, 2);
+    if (part == 0)
+      sD[sr] = d;
+    else if (part == 1)
+      sL[sr] = lse_v;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();  // publishes the tiles, sL and sD
+
+    // S^T = K Q^T and P^T, in both warpgroups
+    float s[8][4];
+    product3<D>(s, sK, sQ);
+    wgmma_commit_and_wait();
+    fence_registers(s);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 8 * j + 2 * t4 + (e & 1);
+        const int qi = q0 + col, hr = e >> 1;
+        float x = s[j][e] * scale;
+        if constexpr (split3_keep_bias<D>())
+          x += bv[j][e];
+        else if (bcol[hr])
+          x += bcol[hr][min(qi, Q - 1) * sb.q];
+        s[j][e] = qi < Q && kr[hr] < K ? expf(x - sL[col]) : 0.f;
+      }
+    if constexpr (!kRes) {
+      __syncthreads();  // both warpgroups' S^T have read K and Q
+      load_planes_async<D, kT>(sdO, dob, pq, st, q0, Q);
+      load_planes_async<D, kT>(sV, vb, pk, st, k0, K);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+    }
+
+    float dp[8][4];  // dS^T (warpgroup 1)
+    if (wg == 0) {
+      accumulate_planes(acc, s, sdO + cols, kTB);  // dV += P^T dO
+    } else {
+      // dP^T = V dO^T, dS^T = P^T (dP^T - delta)
+      product3<D>(dp, sV, sdO);
+      wgmma_commit_and_wait();
+      fence_registers(dp);
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[j][e] = s[j][e] * (dp[j][e] - sD[8 * j + 2 * t4 + (e & 1)]);
+    }
+    if constexpr (!kRes) {
+      __syncthreads();  // dV and dP^T have read dO and V
+      load_planes_async<D, kT>(sQ, qb, pq, st, q0, Q);
+      cp_async_commit();
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+    }
+    if (wg == 1) accumulate_planes(acc, dp, sQ + cols, kTB);  // dK += dS^T Q
+    __syncthreads();  // the slots and sL/sD are read; the next chunk refills them
+  }
+  cp_async_wait<0>();  // K's and V's copies, where every chunk was skipped
+
+  float* out = wg == 0 ? dv : dk;
+  const float out_scale = wg == 0 ? 1.f : scale;  // dK is scaled once, at emit
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (kr[hr] >= K) continue;
+    const long long off = ((static_cast<long long>(b) * K + kr[hr]) * H + h) * D + 64 * chunk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (64 * chunk + 8 * j < D)  // the tile's padded columns are dropped
+        *reinterpret_cast<float2*>(out + off + 8 * j + 2 * t4) =
+            make_float2(acc[j][2 * hr] * out_scale, acc[j][2 * hr + 1] * out_scale);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------------
 
@@ -1216,7 +1622,112 @@ Args make_args(const void* q, const void* k, const void* v, const void* bias,
               static_cast<cudaStream_t>(stream)};
 }
 
+// the split3 kernels' arguments: the planes of q, k, v and dO (bf16,
+// contiguous), the bias, o and dO (f32, through strides) and the LSE
+struct Split3Args {
+  const void *q3, *k3, *v3, *do3, *bias, *o, *dout, *lse;
+  int B, H, Q, K;
+  Strides so, sdo;
+  BiasStrides sb;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <int D>
+cudaError_t launch_dq_split3(const Split3Args& a, void* dq) {
+  constexpr int smem = dq_split3_smem<D>();
+  cudaError_t err = allow_smem<flash_bwd_dq_split3_kernel<D>>(smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_split3_kernel<D>
+      <<<dim3((a.Q + kBQ - 1) / kBQ, a.H * split3_chunks<D>(), a.B), kTileThreads, smem,
+          a.stream>>>(
+          static_cast<const bf16*>(a.q3), static_cast<const bf16*>(a.k3),
+          static_cast<const bf16*>(a.v3), static_cast<const bf16*>(a.do3),
+          static_cast<const float*>(a.bias), static_cast<const float*>(a.o),
+          static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+          static_cast<float*>(dq), a.H, a.Q, a.K, a.so, a.sdo, a.sb, a.scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv_split3(const Split3Args& a, void* dk, void* dv) {
+  constexpr int smem = dkv_split3_smem<D>();
+  cudaError_t err = allow_smem<flash_bwd_dkv_split3_kernel<D>>(smem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_split3_kernel<D>
+      <<<dim3((a.K + kBK - 1) / kBK, a.H * split3_chunks<D>(), a.B), 2 * kTileThreads, smem,
+          a.stream>>>(
+          static_cast<const bf16*>(a.q3), static_cast<const bf16*>(a.k3),
+          static_cast<const bf16*>(a.v3), static_cast<const bf16*>(a.do3),
+          static_cast<const float*>(a.bias), static_cast<const float*>(a.o),
+          static_cast<const float*>(a.dout), static_cast<const float*>(a.lse),
+          static_cast<float*>(dk), static_cast<float*>(dv), a.H, a.Q, a.K, a.so, a.sdo, a.sb,
+          a.scale);
+  return cudaGetLastError();
+}
+
+// The split3 entry points' checks and arguments: the planes 16-byte aligned
+// (the copies read them with 16-byte loads), o and dO f32 with a
+// contiguous head dim
+bool split3_args(Split3Args* a, const void* q3, const void* k3, const void* v3,
+                 const void* do3, const void* bias, const void* o, const void* dout,
+                 const void* lse, int B, int H, int Q, int K, int D, const long long* s,
+                 float scale, void* stream) {
+  for (const void* p : {q3, k3, v3, do3})
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return false;
+  if (!valid(D, B, H, Q, K) || H > 65535 / 4 || !o || !dout || !lse) return false;
+  // s: o, dout strides (b, t, h each), then the bias's (b, h, q, k)
+  *a = Split3Args{q3, k3, v3, do3, bias, o, dout, lse, B, H, Q, K,
+                  Strides{s[0], s[1], s[2]}, Strides{s[3], s[4], s[5]},
+                  BiasStrides{s[6], s[7], s[8], s[9]}, scale,
+                  static_cast<cudaStream_t>(stream)};
+  return true;
+}
+
 }  // namespace
+
+// split3 (f32 through three bf16 planes on the tensor cores; the ring's
+// block backward, ops/flash_attention.py::flash_block_bwd): q3, k3, v3, do3
+// are the bf16 planes of q, k, v and dO (csrc/split_planes.cu: [3, B, T, H,
+// D] contiguous, 16-byte aligned); o and dout the f32 [B, Q, H, D] tensors
+// delta is taken from; `strides` holds 10 element strides: o and dout as
+// (b, t, h) each (head dim contiguous), then the bias's (b, h, q, k) with 0
+// for a broadcast dimension. bias may be null; there is no causal flag. lse
+// is [B, H, Q] f32; the outputs are contiguous f32 [B, T, H, D]. Each
+// returns 0 on success, else the CUDA error code of the launch, or -1 for
+// arguments the variant was not built for.
+extern "C" int trlx_flash_bwd_dq_split3(const void* q3, const void* k3, const void* v3,
+                                        const void* do3, const void* bias, const void* o,
+                                        const void* dout, const void* lse, void* dq, int B,
+                                        int H, int Q, int K, int D, const long long* strides,
+                                        float scale, void* stream) {
+  Split3Args a;
+  if (!split3_args(&a, q3, k3, v3, do3, bias, o, dout, lse, B, H, Q, K, D, strides, scale,
+                   stream))
+    return -1;
+  return with_head_dim(D, [&](auto d) { return launch_dq_split3<decltype(d)::value>(a, dq); });
+}
+
+extern "C" int trlx_flash_bwd_dkv_split3(const void* q3, const void* k3, const void* v3,
+                                         const void* do3, const void* bias, const void* o,
+                                         const void* dout, const void* lse, void* dk, void* dv,
+                                         int B, int H, int Q, int K, int D,
+                                         const long long* strides, float scale, void* stream) {
+  Split3Args a;
+  if (!split3_args(&a, q3, k3, v3, do3, bias, o, dout, lse, B, H, Q, K, D, strides, scale,
+                   stream))
+    return -1;
+  return with_head_dim(
+      D, [&](auto d) { return launch_dkv_split3<decltype(d)::value>(a, dk, dv); });
+}
+
+// the split3 dQ (dkv = 0) or dK/dV (dkv = 1) kernel's dynamic shared
+// memory at head dim D, in bytes (-1 for a D it is not built for)
+extern "C" int trlx_flash_bwd_split3_smem(int D, int dkv) {
+  return with_head_dim(D, [&](auto d) {
+    return dkv ? dkv_split3_smem<decltype(d)::value>() : dq_split3_smem<decltype(d)::value>();
+  });
+}
 
 // variant: 0 = fma (f32), 1 = tile (bf16), as
 // ops/flash_attention.py::backward_variant picks it; dtype: 0 = float32, 1 =

@@ -19,8 +19,9 @@
 // keys are all masked therefore averages the keys of those tiles, as the
 // TPU kernel does.
 //
-// Three variants, chosen in Python (ops/flash_attention.py::forward_variant)
-// and passed in; a mismatched choice is refused with -1:
+// Four variants, chosen in Python (ops/flash_attention.py::forward_variant
+// for dense calls, block_forward_variant for the ring's blocks) and passed
+// in; a mismatched choice is refused with -1:
 //
 //  tile (bf16, Q > 16: serving prefill B=8 Q=512 K=576, the update forward
 //    B=16 T=112 causal, the rollout prefill B=128 Q=64 K=112). At these
@@ -41,7 +42,11 @@
 //    rounded to bf16, is the A operand of O += P V. TMA and warp
 //    specialisation are left for a long-context shape: here one CTA runs
 //    only 1-9 key tiles, and q/k/v arrive as strided views (a tensor map per
-//    call costs host time).
+//    call costs host time). It takes no dead-tile vote (hopper_tile.cuh
+//    dead_tile): on an H100 a vote a key tile made the serving prefill 14 %
+//    and the ring's 2048-row bf16 blocks 7-19 % slower, the diagonal block
+//    included, whose upper half it skipped (PERF.md section 6): the
+//    softmax and P V a dead tile saves are not what bounds this kernel.
 //
 //  decode (bf16, Q <= 16: serving decode B=32 K=576, rollout and eval
 //    decode B=128 K=112, all one query row). A GEMV bound by the K/V bytes,
@@ -64,10 +69,34 @@
 //    Holding a (head, batch row)'s query rows in one CTA would read its K/V
 //    once. Under the causal flag the visit rule leaves keys 0-63.
 //
-//  fma (f32, every Q): the parity path, on the CUDA cores. Register-blocked
-//    4x4 f32 FMA from shared memory, K/V tiles staged in f32. Tensor cores
-//    would make it TF32 and break the f32 tolerances (1e-4 at kernel level,
-//    4.2e-7 relative on the full-width gradient). No bf16 call reaches it.
+//  fma (f32, every Q; dense calls): the parity path, on the CUDA cores.
+//    Register-blocked 4x4 f32 FMA from shared memory, K/V tiles staged in
+//    f32. One TF32 pass on the tensor cores would break the f32 tolerances
+//    (1e-4 at kernel level, 4.2e-7 relative on the full-width gradient). No
+//    bf16 call reaches it.
+//
+//  split3 (f32, the ring's block forward, flash_block_fwd, which replaces
+//    trlx_tpu/ops/flash_attention.py::flash_block_fwd :468): f32 on the
+//    tensor cores through three bf16 planes of each operand (hopper_tile.cuh
+//    split3): S and O += P V as the sums of six plane products each, at
+//    989 / 6 = 165 TFLOP/s against the 67 the fma variant cannot reach. At
+//    the ring's 2048 x 2048 blocks its operations bound it, 4 D FLOPs per
+//    live pair at that rate (chip_smoke.py::block_bound).
+//    Layout as the tile variant: one warpgroup per 64-row query tile, Q's
+//    planes staged once, each visited key tile's K and V planes staged by
+//    16-byte copies from the contiguous planes the split pre-pass wrote
+//    (csrc/split_planes.cu), wgmma.m64n64k16 for every plane product. The
+//    online softmax runs in f32 with expf and logf as the fma variant's; P
+//    goes into O += P V as three register fragments (split3_fragment), so
+//    nothing is rounded to bf16 that is not carried by the next plane. A
+//    key tile that weighs exactly 0 is skipped (hopper_tile.cuh dead_tile,
+//    voting on the bias values the thread then adds to its logits). No
+//    causal flag: a ring block carries its positions in the bias. Q, K and V's planes are 9 tiles: 73 KB at
+//    D <= 64 (2 CTAs per SM), 145 KB at 96 and 128; at D = 256 K and V take
+//    turns in one slot (193 KB). A CTA holds one 64-column chunk of O
+//    (hopper_tile.cuh split3_chunks: at D = 96, 128 and 256 the 2, 2 and 4
+//    CTAs of a query tile each form the whole S), each key tile's P V
+//    summed apart and added to it in f32 (accumulate_planes).
 //
 // Head dims (hopper_tile.cuh kHeadDims): every variant is a template over D,
 // built for 16 (the learning guard, the T5 stand-in's d_kv), 24 (the
@@ -143,7 +172,7 @@
 
 namespace {
 
-enum Variant { kFma = 0, kTile = 1, kDecode = 2 };
+enum Variant { kFma = 0, kTile = 1, kDecode = 2, kSplit3 = 3 };
 
 // Logit of (query row qi, key kj < K) from the raw product s. bias_row is
 // the bias row read for qi (a padded row past Q reads a valid row).
@@ -608,6 +637,195 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v,
 }
 
 // ---------------------------------------------------------------------------
+// split3: f32 through three bf16 planes on the tensor cores (the ring's blocks)
+// ---------------------------------------------------------------------------
+
+// K and V share one slot at D = 256 (Q's and one operand's planes are 192
+// KB): V is staged once S = Q K^T has read K. Elsewhere Q, K and V are 9
+// plane tiles, 73 KB at D <= 64 (2 CTAs per SM) and 145 KB at D = 96 and
+// 128 (1 CTA per SM).
+template <int D>
+__host__ __device__ constexpr bool split3_shared_kv() {
+  return per_head_dim<D>(false, false, false, false, false, false, true);
+}
+template <int D>
+__host__ __device__ constexpr int split3_min_blocks() { return per_head_dim<D>(2, 2, 2, 2, 1, 1, 1); }
+template <int D>
+__host__ __device__ constexpr size_t split3_smem() {  // the slots
+  return 3 * (split3_shared_kv<D>() ? 2 : 3) * tile_bytes<D>() + 1024;
+}
+
+// One warpgroup per (64-row query tile, head, batch row), as the tile
+// variant, on f32 q, k, v given as their three bf16 planes (pq, pk, pv
+// elements apart; csrc/split_planes.cu). Q's planes are staged once; each
+// key tile that is not dead (dead_tile, on the bias each thread reads) stages
+// K's and V's planes and runs S = sum of the plane products of Q K^T, the
+// online softmax in f32 (expf, logf: the fma variant's functions), P split
+// into three register fragments, O += sum of the plane products of P V. No
+// causal flag (the ring's blocks carry their positions in the bias). O is
+// f32.
+template <int D>
+__global__ void __launch_bounds__(kTileThreads, split3_min_blocks<D>())
+flash_fwd_split3_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const float* __restrict__ bias,
+                        float* __restrict__ o, float* __restrict__ lse, int H, int Q,
+                        int K, Strides sq, Strides sk, Strides sv, long long pq,
+                        long long pk, BiasStrides sb, float scale) {
+  constexpr int kTB = tile_bytes<D>();
+  constexpr bool kSharedKV = split3_shared_kv<D>();
+  extern __shared__ uint8_t smem_raw[];
+  uint32_t sQ;
+  aligned_smem(smem_raw, sQ);
+  const uint32_t sK = sQ + 3 * kTB;
+  const uint32_t sV = kSharedKV ? sK : sK + 3 * kTB;
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int q0 = blockIdx.x * kBQ;
+  const int h = blockIdx.y / split3_chunks<D>();
+  const int chunk = blockIdx.y % split3_chunks<D>();  // O's columns 64 chunk .. 64 chunk + 63
+  const int b = blockIdx.z;
+  const int n_tiles = (K + kBK - 1) / kBK;
+
+  const bf16* kb = k + b * sk.b + h * sk.h;
+  const bf16* vb = v + b * sv.b + h * sv.h;
+  load_planes_async<D>(sQ, q + b * sq.b + h * sq.h, pq, sq.t, q0, Q);
+  cp_async_commit();
+
+  int qi[2];
+  const float* brow[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    qi[hr] = q0 + warp * 16 + g + 8 * hr;
+    brow[hr] = bias ? bias + b * sb.b + h * sb.h + min(qi[hr], Q - 1) * sb.q : nullptr;
+  }
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[8][4];
+  zero(acc);
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    // the bias of this thread's 32 pairs and the dead-tile vote on it (its
+    // barriers also order this tile's copies after the last tile's reads)
+    float bv[8][4];
+    bool live = false;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+        bv[j][e] = brow[0] && kj < K ? brow[e >> 1][kj * sb.k] : 0.f;
+        live |= live_pair(bv[j][e], kj, K);
+      }
+    if (brow[0] && dead_tile(live, m[0] > 0.5f * kNegInf && m[1] > 0.5f * kNegInf)) continue;
+    load_planes_async<D>(sK, kb, pk, sk.t, k0, K);
+    if constexpr (!kSharedKV) load_planes_async<D>(sV, vb, pk, sv.t, k0, K);
+    cp_async_commit();
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+
+    float s[8][4];
+    product3<D>(s, sQ, sK);
+    wgmma_commit_and_wait();
+    fence_registers(s);
+    if constexpr (kSharedKV) {
+      __syncthreads();  // every warp's S has read K
+      load_planes_async<D>(sV, vb, pk, sv.t, k0, K);
+      cp_async_commit();
+    }
+
+    // logits, then the online softmax over each row's quad of lanes
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int hr = e >> 1;
+        const int kj = k0 + 8 * j + 2 * t4 + (e & 1);
+        float x = s[j][e] * scale;
+        if constexpr (split3_keep_bias<D>())
+          x += bv[j][e];
+        else
+          x += brow[0] && kj < K ? brow[hr][kj * sb.k] : 0.f;
+        x = kj < K ? x : -INFINITY;  // keys past K are left out, not masked
+        s[j][e] = x;
+        mx[hr] = fmaxf(mx[hr], x);
+      }
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+      mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+      const float m_new = fmaxf(m[hr], mx[hr]);
+      alpha[hr] = expf(m[hr] - m_new);  // 0 on the first tile visited
+      m[hr] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = expf(s[j][e] - m[e >> 1]);
+        s[j][e] = p;
+        rs[e >> 1] += p;
+      }
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 1);
+      rs[hr] += __shfl_xor_sync(0xffffffffu, rs[hr], 2);
+      l[hr] = l[hr] * alpha[hr] + rs[hr];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+
+    if constexpr (kSharedKV) {
+      cp_async_wait<0>();
+      fence_proxy_async();
+      __syncthreads();
+    }
+    // O += P V: P (f32) as bf16 fragments of its three planes, V's planes
+    // MN-major (this CTA's chunk of them)
+    accumulate_planes(acc, s, sV + chunk * kAtomBytes, kTB);
+    __syncthreads();  // the slots are read; the next tile refills them
+  }
+  cp_async_wait<0>();  // Q's copies, where every tile was skipped
+
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    if (qi[hr] >= Q) continue;
+    const float l_safe = fmaxf(l[hr], 1e-30f);
+    float* orow = o + ((static_cast<long long>(b) * Q + qi[hr]) * H + h) * D + 64 * chunk;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      if (64 * chunk + 8 * j < D)  // the tile's padded columns are dropped
+        *reinterpret_cast<float2*>(orow + 8 * j + 2 * t4) =
+            make_float2(acc[j][2 * hr] / l_safe, acc[j][2 * hr + 1] / l_safe);
+    if (lse && t4 == 0 && chunk == 0)
+      lse[(static_cast<long long>(b) * H + h) * Q + qi[hr]] = m[hr] + logf(l_safe);
+  }
+}
+
+template <int D>
+cudaError_t launch_split3(const void* q, const void* k, const void* v, const void* bias,
+                          void* o, void* lse, int B, int H, int Q, int K, Strides sq,
+                          Strides sk, Strides sv, BiasStrides sb, float scale,
+                          cudaStream_t stream) {
+  constexpr size_t smem = split3_smem<D>();
+  cudaError_t err = allow_smem<flash_fwd_split3_kernel<D>>(smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Q + kBQ - 1) / kBQ, H * split3_chunks<D>(), B);
+  flash_fwd_split3_kernel<D><<<grid, kTileThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const float*>(bias), static_cast<float*>(o), static_cast<float*>(lse), H, Q,
+      K, sq, sk, sv, static_cast<long long>(B) * Q * H * D,
+      static_cast<long long>(B) * K * H * D, sb, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // decode: bf16, Q <= 16, CUDA cores, 16-byte K/V loads
 // ---------------------------------------------------------------------------
 
@@ -857,6 +1075,11 @@ int launch_variant(const void* q, const void* k, const void* v, const void* bias
   } else if (variant == kDecode && dtype == 1 && Q <= 16 && kv_aligned) {
     err = launch_decode<D>(q, k, v, bias, o, lse, B, H, Q, K, sq, sk, sv, sb,
                            scale, causal, st);
+  } else if (variant == kSplit3 && dtype == 0 && !causal && H <= 65535 / split3_chunks<D>() &&
+             contiguous(sq, Q, H, D) &&
+             contiguous(sk, K, H, D) && contiguous(sv, K, H, D) && kv_aligned &&
+             aligned16(q, sq, B, Q, H)) {
+    err = launch_split3<D>(q, k, v, bias, o, lse, B, H, Q, K, sq, sk, sv, sb, scale, st);
   } else {
     return -1;
   }
@@ -865,12 +1088,22 @@ int launch_variant(const void* q, const void* k, const void* v, const void* bias
 
 }  // namespace
 
+// the split3 kernel's dynamic shared memory at head dim D, in bytes (-1
+// for a D it is not built for)
+extern "C" int trlx_flash_fwd_split3_smem(int D) {
+  return with_head_dim(D, [](auto d) { return split3_smem<decltype(d)::value>(); });
+}
+
 // variant: 0 = fma (f32), 1 = tile (bf16, Q > 16), 2 = decode (bf16,
-// Q <= 16), as ops/flash_attention.py::forward_variant picks it. dtype: 0 =
-// float32, 1 = bfloat16. D: a head dim of kHeadDims (16, 24, 32, 64, 96,
-// 128 or 256). Strides are in elements; the head dim must be contiguous, and the tile and decode
-// variants need 16-byte-aligned K and V (and Q for tile) as `aligned16`
-// states. bias may be null; lse may be null (not written). Returns 0 on
+// Q <= 16), as ops/flash_attention.py::forward_variant picks it, or 3 =
+// split3 (f32, no causal flag; block_forward_variant): q, k and v are then
+// the bf16 planes of the f32 tensors ([3, B, T, H, D] contiguous, from
+// csrc/split_planes.cu) with the strides of one plane, and o is f32.
+// dtype: 0 = float32, 1 = bfloat16 (the dtype of the function, f32 for
+// split3). D: a head dim of kHeadDims (16, 24, 32, 64, 96, 128 or 256).
+// Strides are in elements; the head dim must be contiguous, and the tile,
+// decode and split3 variants need 16-byte-aligned K and V (and Q for tile
+// and split3) as `aligned16` states. bias may be null; lse may be null (not written). Returns 0 on
 // success, else the CUDA error code of the launch, or -1 for arguments the
 // chosen variant was not built for.
 extern "C" int trlx_flash_fwd(
@@ -886,29 +1119,8 @@ extern "C" int trlx_flash_fwd(
   const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh};
   const BiasStrides sb{sbb, sbh, sbq, sbk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16:
-      return launch_variant<16>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
-                                sq, sk, sv, sb, scale, causal, st);
-    case 24:
-      return launch_variant<24>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
-                                sq, sk, sv, sb, scale, causal, st);
-    case 32:
-      return launch_variant<32>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
-                                sq, sk, sv, sb, scale, causal, st);
-    case 64:
-      return launch_variant<64>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
-                                sq, sk, sv, sb, scale, causal, st);
-    case 96:
-      return launch_variant<96>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
-                                sq, sk, sv, sb, scale, causal, st);
-    case 128:
-      return launch_variant<128>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
-                                 sq, sk, sv, sb, scale, causal, st);
-    case 256:
-      return launch_variant<256>(q, k, v, bias, o, lse, variant, dtype, B, H, Q, K,
-                                 sq, sk, sv, sb, scale, causal, st);
-    default:
-      return -1;
-  }
+  return with_head_dim(D, [&](auto d) {
+    return launch_variant<decltype(d)::value>(q, k, v, bias, o, lse, variant, dtype, B, H, Q,
+                                              K, sq, sk, sv, sb, scale, causal, st);
+  });
 }

@@ -2,10 +2,12 @@
 // the [B, T, H, D] stride types, 16-byte cp.async copies into a 128-byte
 // swizzled 64 x D bf16 tile, the wgmma shared-memory descriptor of that
 // tile, and the two warpgroup products the tile kernels are built from
-// (wgmma.m64n64k16, bf16 in, f32 accumulate). csrc/flash_fwd.cu (K1's tile
-// variant) and csrc/flash_bwd.cu (K2's and K3's tile variants) include it;
-// ops/flash_attention.py hashes it with each source, so an edit rebuilds
-// both libraries.
+// (wgmma.m64n64k16, bf16 in, f32 accumulate), and the three-plane split
+// that carries an f32 operand through them (split3, at the end).
+// csrc/flash_fwd.cu (K1's tile and split3 variants), csrc/flash_bwd.cu (K2's
+// and K3's tile and split3 variants) and csrc/split_planes.cu (the split's
+// pre-pass) include it; ops/flash_attention.py hashes it with each source,
+// so an edit rebuilds every library.
 //
 // Head dims. Every kernel is a template over the head dim D and is built
 // for the dims in kHeadDims (the learning guard's and the T5 stand-in's 16,
@@ -38,6 +40,7 @@
 #include <stdint.h>
 
 #include <atomic>
+#include <type_traits>
 
 namespace {
 
@@ -94,6 +97,22 @@ constexpr bool built_head_dim(int D) {
   return false;
 }
 
+// f(std::integral_constant<int, D>) at a built head dim (kHeadDims); -1 for
+// any other
+template <typename F>
+int with_head_dim(int D, F f) {
+  switch (D) {
+    case 16: return static_cast<int>(f(std::integral_constant<int, 16>()));
+    case 24: return static_cast<int>(f(std::integral_constant<int, 24>()));
+    case 32: return static_cast<int>(f(std::integral_constant<int, 32>()));
+    case 64: return static_cast<int>(f(std::integral_constant<int, 64>()));
+    case 96: return static_cast<int>(f(std::integral_constant<int, 96>()));
+    case 128: return static_cast<int>(f(std::integral_constant<int, 128>()));
+    case 256: return static_cast<int>(f(std::integral_constant<int, 256>()));
+    default: return -1;
+  }
+}
+
 struct Strides {
   long long b, t, h;  // element strides of a [B, T, H, D] tensor (d stride 1)
 };
@@ -113,12 +132,52 @@ __device__ __forceinline__ int visit_end(int q0, int fwd_bq, int K, int causal) 
   return min(K, (tile_end + kBK - 1) / kBK * kBK);
 }
 
+// The dead-tile skip of the split3 kernels. A pair (query qi, key kj) of a
+// tile is live when the key is one of the K and its additive bias is above
+// NEG_INF / 2 (live_pair). A tile with no live pair weighs exactly 0 in
+// every row that has already seen a live key: in the forward, a row whose
+// running max m is above NEG_INF / 2 takes exp(x - m) = 0 for every x of
+// the tile (x <= NEG_INF / 2 plus a logit), so m stays put, its rescale is
+// exp(0) = 1 and l and O are unchanged; in the backward, a row whose
+// (outside) LSE is above NEG_INF / 2 has P = exp(x - LSE) = 0, so dS = 0
+// and every gradient term of the tile is 0. dead_tile votes CTA-wide on the
+// bias values each thread reads for its own pairs (which the kernel then
+// adds to its logits, at D <= 64): no live pair (__syncthreads_or) and every
+// row live (__syncthreads_and); a CTA skips the tile only then, and a row
+// that has seen no live key keeps the visit. Both are barriers, and the
+// result is the same in every thread. (Taken for every tile at once before
+// the loop, with the loads in flight together, the vote read the CTA's
+// bias slab in a phase of its own and cost more than this one, on an H100.)
+__device__ __forceinline__ bool live_pair(float bias, int kj, int K) {
+  return kj < K && bias > 0.5f * kNegInf;
+}
+
+__device__ __forceinline__ bool dead_tile(bool any_live_pair, bool rows_live) {
+  return !__syncthreads_or(any_live_pair) && __syncthreads_and(rows_live);
+}
+
+// Whether a split3 kernel keeps the bias values its vote read for its
+// logits (32 registers a thread) or reads them again: kept at D <= 64,
+// where the registers are free; above, the accumulator chunk and the
+// products' descriptors leave less room
+template <int D>
+__host__ __device__ constexpr bool split3_keep_bias() {
+  return per_head_dim<D>(true, true, true, true, false, false, false);
+}
+
 // The 16-byte paths read rows of 8-element chunks: a 16-byte-aligned base
 // and row strides that are multiples of 8 elements (a dimension of size 1
 // is never stepped, so its stride does not matter).
 inline bool aligned16(const void* p, Strides s, int B, int T, int H) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (B == 1 || s.b % 8 == 0) &&
          (T == 1 || s.t % 8 == 0) && (H == 1 || s.h % 8 == 0);
+}
+
+// Whether s are the strides of a contiguous [B, T, H, D] tensor (the split3
+// planes, whose plane stride the launch takes as B T H D)
+inline bool contiguous(Strides s, int T, int H, int D) {
+  return s.h == D && s.t == static_cast<long long>(H) * D &&
+         s.b == static_cast<long long>(T) * H * D;
 }
 
 // Above 48 KB of dynamic shared memory needs the opt-in, once per device and
@@ -385,6 +444,189 @@ __device__ __forceinline__ void pack_fragment(uint32_t (&a)[4],
   a[1] = pack_bf16(d[2 * ks][2], d[2 * ks][3]);
   a[2] = pack_bf16(d[2 * ks + 1][0], d[2 * ks + 1][1]);
   a[3] = pack_bf16(d[2 * ks + 1][2], d[2 * ks + 1][3]);
+}
+
+// ---------------------------------------------------------------------------
+// split3: an f32 operand on the bf16 tensor cores as three bf16 planes
+// ---------------------------------------------------------------------------
+//
+// x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1): each residual is
+// exact in f32 and holds at most 16, then 8, significant bits, so x0 + x1 +
+// x2 is x (but where a plane falls below bf16's normal range). A product of
+// two f32 operands is the sum of the plane products x_i y_j; the kernels
+// take the six with i + j <= 2 (kPlanePairs) and drop x1 y2, x2 y1 and x2
+// y2, terms of about 2^-24 relative (all nine summed no closer to f64). Each plane product is exact on the
+// tensor cores (8-bit significands) and sums in their f32 accumulator, the
+// smallest first. That accumulator does not round to nearest: summed
+// across a block's key tiles (O, dQ) or query chunks (dK, dV) it drifted
+// 3-10x further from f64 than the fma variant's FMAs. So each tile's or
+// chunk's products sum into a fresh accumulator, which is added to the
+// running one with f32 adds (accumulate_planes). An operand's planes are three 64 x D bf16 tiles one
+// tile_bytes<D>() apart in shared memory, staged from the three contiguous
+// [B, T, H, D] bf16 planes csrc/split_planes.cu writes (plane p at p times
+// the tensor's size), with the 16-byte copies of load_tile_async. The kernels
+// are csrc/flash_fwd.cu's and csrc/flash_bwd.cu's split3 variants.
+
+constexpr int kPlanePairs = 6;
+
+// the planes of plane pair p (0 <= p < kPlanePairs), smallest terms first:
+// (1, 1), (0, 2), (2, 0), (0, 1), (1, 0), (0, 0)
+__host__ __device__ constexpr int plane_a(int p) {
+  return p == 0 ? 1 : p == 1 ? 0 : p == 2 ? 2 : p == 3 ? 0 : p == 4 ? 1 : 0;
+}
+__host__ __device__ constexpr int plane_b(int p) {
+  return p == 0 ? 1 : p == 1 ? 2 : p == 2 ? 0 : p == 3 ? 1 : 0;
+}
+
+// x as its three planes (split3_fragment's arithmetic, one value)
+__device__ __forceinline__ void split3_value(float x, bf16 (&planes)[3]) {
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    planes[p] = __float2bfloat16_rn(x);
+    x -= __bfloat162float(planes[p]);
+  }
+}
+
+// k-step ks of an f32 accumulator as three bf16 A fragments (pack_fragment's
+// layout), a[p][ks] holding plane p
+__device__ __forceinline__ void split3_fragment(uint32_t (&a)[3][4][4],
+                                                const float (&d)[8][4], int ks) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float x0 = d[2 * ks + (i >> 1)][2 * (i & 1)];
+    float x1 = d[2 * ks + (i >> 1)][2 * (i & 1) + 1];
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      a[p][ks][i] = pack_bf16(x0, x1);
+      const float2 r = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&a[p][ks][i]));
+      x0 -= r.x;
+      x1 -= r.y;
+    }
+  }
+}
+
+// Rows [r0, r0 + 64) of each of the three planes (src, src + plane, src + 2
+// plane; [B, T, H, D] bf16, already offset to the batch row and head) into
+// the three tiles at dst, dst + tile_bytes, dst + 2 tile_bytes:
+// load_tile_async's copies, the planes one after another and four rows of
+// a thread at a time (unrolled, the split3 kernels at D = 256 held the
+// addresses of 48 rows at once and spilled).
+template <int D, int kThreads = kTileThreads>
+__device__ __forceinline__ void load_planes_async(uint32_t dst, const bf16* src,
+                                                  long long plane, long long st, int r0,
+                                                  int T_len) {
+  constexpr int kRowChunks = tile_cols<D>() / 8;
+  constexpr int kRowsPerPass = kThreads / kRowChunks;
+  constexpr bool kPadded = tile_cols<D>() != D;
+  static_assert(kThreads % kRowChunks == 0 && 64 % kRowsPerPass == 0, "whole rows per pass");
+  const int c = threadIdx.x % kRowChunks, r = threadIdx.x / kRowChunks;
+  const bool in_row = !kPadded || c < D / 8;  // a chunk of the row, not padding
+#pragma unroll 1
+  for (int p = 0; p < 3; ++p) {
+#pragma unroll 4
+    for (int i = 0; i < 64 / kRowsPerPass; ++i) {
+      const int row = r + i * kRowsPerPass;
+      const int t = r0 + row;
+      const bool valid = in_row && t < T_len;
+      cp_async16(dst + p * tile_bytes<D>() + tile_offset(row, c),
+                 valid ? src + p * plane + t * st + c * 8 : src, valid);
+    }
+  }
+}
+
+// Whether the split3 products keep their loop over plane pairs rolled (one
+// pair's wgmmas a trip): at D = 256, whose 16 k-steps a pair make the six
+// pairs 96 wgmmas
+template <int D>
+__host__ __device__ constexpr bool split3_rolled() {
+  return per_head_dim<D>(false, false, false, false, false, false, true);
+}
+
+// d = X Y^T over the planes of two 64 x D operands X, Y [row][d] in shared
+// memory (K-major both): the kPlanePairs plane products, kmajor_steps<D>()
+// wgmmas each, issued (not committed); d is overwritten.
+template <int D>
+__device__ __forceinline__ void product3_pair(float (&d)[8][4], uint32_t x, uint32_t y, int p) {
+  const TileDesc<D> dx(x + plane_a(p) * tile_bytes<D>()), dy(y + plane_b(p) * tile_bytes<D>());
+#pragma unroll
+  for (int ks = 0; ks < kmajor_steps<D>(); ++ks)
+    wgmma_ss(d, dx.kstep(ks), dy.kstep(ks), p > 0 || ks > 0);
+}
+
+template <int D>
+__device__ __forceinline__ void product3(float (&d)[8][4], uint32_t x, uint32_t y) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+  fence_registers(d);
+  wgmma_fence();
+  if constexpr (split3_rolled<D>()) {
+#pragma unroll 1
+    for (int p = 0; p < kPlanePairs; ++p) product3_pair<D>(d, x, y, p);
+  } else {
+#pragma unroll
+    for (int p = 0; p < kPlanePairs; ++p) product3_pair<D>(d, x, y, p);
+  }
+}
+
+// d += A B over the planes: A as the register fragments of
+// split3_fragment, B the planes of a 64 x 64 tile [k][d] (one swizzle atom,
+// MN-major) at b, plane_bytes apart; issued, not committed
+__device__ __forceinline__ void accumulate3_mn(float (&d)[8][4], const uint32_t (&a)[3][4][4],
+                                               uint32_t b, uint32_t plane_bytes) {
+#pragma unroll
+  for (int p = 0; p < kPlanePairs; ++p) {
+    // formed at its use, as TileDesc does above D = 64: B stays put across
+    // a kernel's loop, and hoisted, its 24 descriptors would hold 48 registers
+    uint64_t desc = smem_desc(b + plane_b(p) * plane_bytes);
+    asm volatile("" : "+l"(desc));
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_rs_mn(d, a[plane_a(p)][ks], desc + (2048 * ks >> 4));
+  }
+}
+
+// The 64-column chunks of a split3 kernel's accumulator (O, dQ, dK, dV):
+// one CTA holds one chunk, and at D = 96, 128 and 256 the 2, 2 and 4 CTAs of
+// a tile each form the whole S (and dP). A chunk's accumulator and its
+// tile's fresh one (accumulate_planes) are 64 registers a thread beside S,
+// dP and the three fragments; two chunks of both spilled.
+template <int D>
+__host__ __device__ constexpr int split3_chunks() {
+  return per_head_dim<D>(1, 1, 1, 1, 2, 2, 4);
+}
+static_assert(split3_chunks<96>() == tile_cols<96>() / 64 &&
+                  split3_chunks<256>() == tile_cols<256>() / 64,
+              "one chunk a swizzle atom");
+
+__device__ __forceinline__ void zero(float (&d)[8][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
+}
+
+// acc += X B over the planes: X (f32, 64 x 64 in an accumulator's layout)
+// split into three bf16 fragments a k-step (split3_fragment), B's three
+// planes (one 64 x 64 atom [k][d], MN-major) at b, plane_bytes apart. The
+// plane products sum into a fresh accumulator, then acc adds it with f32
+// adds (round to nearest).
+__device__ __forceinline__ void accumulate_planes(float (&acc)[8][4], const float (&x)[8][4],
+                                                  uint32_t b, uint32_t plane_bytes) {
+  uint32_t f[3][4][4];
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) split3_fragment(f, x, ks);
+  float t[8][4];
+  zero(t);
+  fence_registers(t);
+  wgmma_fence();
+  accumulate3_mn(t, f, b, plane_bytes);
+  wgmma_commit_and_wait();
+  fence_registers(t);
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += t[j][e];
 }
 
 }  // namespace

@@ -7,17 +7,23 @@ Counterpart of :mod:`trlx_tpu.ops.flash_attention`: ``_fwd_kernel`` (K1,
 ``csrc/flash_bwd.cu``), the ``jax.custom_vjp`` around them
 (:class:`FlashAttention`), and the ring attention's block wrappers
 (:func:`flash_block_fwd` on K1, :func:`flash_block_bwd` on K2 and K3
-against an outside LSE). K1 has three variants, one per dtype and
-query count (:func:`forward_variant`): ``tile`` (bf16, Q > 16, tensor
-cores), ``decode`` (bf16, Q <= 16, a GEMV on the CUDA cores) and ``fma``
-(f32, the parity path). K2 and K3 have two, one per dtype
+against an outside LSE). Dense calls take K1 in one of three variants,
+by dtype and query count (:func:`forward_variant`): ``tile`` (bf16, Q >
+16, tensor cores), ``decode`` (bf16, Q <= 16, a GEMV on the CUDA cores)
+and ``fma`` (f32, the parity path); and K2 and K3 in one of two, by dtype
 (:func:`backward_variant`): ``tile`` (bf16, tensor cores) and ``fma``
-(f32). K2 also returns the bias's gradient (dS, for T5's learned
-relative position bias) when the bias requires grad. Each source is CUDA
-C++ for ``sm_90a``, compiled with ``nvcc`` at first use into ``trlx_tpu_torch/_build/`` (a file named by the hash of the
-source and the header it includes, so an edit rebuilds; the two sources
-build in parallel) and bound through plain C functions loaded with
-``ctypes``. Nothing is imported or built when this module is imported.
+(f32). The ring's block wrappers take ``split3`` in f32 (K1,
+:func:`block_forward_variant`; K2 and K3 always, the backward running in
+f32): f32 on the tensor cores through three bf16 planes of each operand,
+which the split pre-pass (:func:`split_planes`, ``csrc/split_planes.cu``)
+writes; ``split3`` skips a key tile that weighs exactly 0.
+K2 also returns the bias's gradient (dS, for T5's learned relative
+position bias) when the bias requires grad. Each source is CUDA C++ for
+``sm_90a``, compiled with ``nvcc`` at first use into
+``trlx_tpu_torch/_build/`` (a file named by the hash of the source and
+the header it includes, so an edit rebuilds; the three sources build in
+parallel) and bound through plain C functions loaded with ``ctypes``.
+Nothing is imported or built when this module is imported.
 
 The kernels are templates over the head dim, built for
 :data:`HEAD_DIMS` (16, 24, 32, 64, 96, 128 and 256); the C entry points
@@ -72,6 +78,15 @@ FLASH_BWD_DQ_TILE_LAUNCHES = 0
 FLASH_BWD_DQ_FMA_LAUNCHES = 0
 FLASH_BWD_DKV_TILE_LAUNCHES = 0
 FLASH_BWD_DKV_FMA_LAUNCHES = 0
+#: the split3 variants' launches (f32 through three bf16 planes on the
+#: tensor cores; only the ring's block wrappers launch them), counted in
+#: each kernel's total as well, and the split pre-pass's launches
+#: (``csrc/split_planes.cu``): one per f32 operand the block wrappers split,
+#: q, k and v forward, q, k, v and dO backward
+FLASH_FWD_SPLIT3_LAUNCHES = 0
+FLASH_BWD_DQ_SPLIT3_LAUNCHES = 0
+FLASH_BWD_DKV_SPLIT3_LAUNCHES = 0
+FLASH_SPLIT_PLANES_LAUNCHES = 0
 #: K2 launches that also wrote the bias gradient (counted in the two above
 #: as well)
 FLASH_BWD_DQ_DBIAS_LAUNCHES = 0
@@ -92,22 +107,25 @@ HEAD_DIMS = (16, 24, 32, 64, 96, 128, 256)
 KEY_TILE = 64  # the forward kernel's key tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: K1's variants, by the code its C entry point takes
-FORWARD_VARIANTS = {"fma": 0, "tile": 1, "decode": 2}
+FORWARD_VARIANTS = {"fma": 0, "tile": 1, "decode": 2, "split3": 3}
 #: per variant, whether it reads (q, k, v) with 16-byte loads
 _WIDE_LOADS = {
     "fma": (False, False, False),
     "tile": (True, True, True),
     "decode": (False, True, True),
 }
-#: K2's and K3's variants, by the code their C entry points take
+#: K2's and K3's variants, by the code their C entry points take; split3
+#: has entry points of its own (``trlx_flash_bwd_{dq,dkv}_split3``), which
+#: take no code
 BACKWARD_VARIANTS = {"fma": 0, "tile": 1}
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = {
     "flash_fwd": os.path.join(_PKG_DIR, "csrc", "flash_fwd.cu"),
     "flash_bwd": os.path.join(_PKG_DIR, "csrc", "flash_bwd.cu"),
+    "split_planes": os.path.join(_PKG_DIR, "csrc", "split_planes.cu"),
 }
-#: the header both sources include (hashed with each)
+#: the header every source includes (hashed with each)
 HEADER = os.path.join(_PKG_DIR, "csrc", "hopper_tile.cuh")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 #: the device code's flags; the library adds the host side's
@@ -218,15 +236,33 @@ def _load() -> Dict[str, ctypes.CDLL]:
                 + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float,
                    ctypes.c_int, ctypes.c_void_p]
             )
-        _lib.update(flash_fwd=fwd, flash_bwd=bwd)
+        # the split3 backward: q3, k3, v3, do3, bias, o, dout, lse, then dq,
+        # or dk and dv
+        for fn, outs in ((bwd.trlx_flash_bwd_dq_split3, 1), (bwd.trlx_flash_bwd_dkv_split3, 2)):
+            fn.restype = ctypes.c_int
+            fn.argtypes = (
+                [ctypes.c_void_p] * (8 + outs)
+                + [ctypes.c_int] * 5
+                + [ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, ctypes.c_void_p]
+            )
+        split = ctypes.CDLL(paths["split_planes"])
+        split.trlx_split_planes.restype = ctypes.c_int
+        split.trlx_split_planes.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
+            + [ctypes.c_void_p]
+        )
+        _lib.update(flash_fwd=fwd, flash_bwd=bwd, split_planes=split)
     return _lib
 
 
 def forward_variant(dtype: torch.dtype, Q: int) -> str:
-    """The K1 variant for ``Q`` query rows in ``dtype``: ``fma`` for f32
-    (the parity path: tensor cores would make it TF32), ``decode`` for bf16
-    with ``Q <= 16`` (the 16-row query tile of :func:`forward_block_q`) and
-    ``tile`` for bf16 with more rows (the 64-row tile)."""
+    """The K1 variant of a dense call (:func:`flash_attention` and its
+    ``Function``, every model, trainer and server) for ``Q`` query rows in
+    ``dtype``: ``fma`` for f32 (the parity path: one TF32 pass on the
+    tensor cores would break the f32 tolerances), ``decode`` for bf16 with
+    ``Q <= 16`` (the 16-row query tile of :func:`forward_block_q`) and
+    ``tile`` for bf16 with more rows (the 64-row tile). The ring's block
+    forward takes :func:`block_forward_variant` instead."""
     if dtype == torch.float32:
         return "fma"
     if dtype == torch.bfloat16:
@@ -237,10 +273,21 @@ def forward_variant(dtype: torch.dtype, Q: int) -> str:
     )
 
 
+def block_forward_variant(dtype: torch.dtype, Q: int) -> str:
+    """The K1 variant of the ring's block forward (:func:`flash_block_fwd`)
+    for ``Q`` query rows in ``dtype``: ``split3`` for f32 (the tensor cores
+    on three bf16 planes of each operand, :func:`split_planes`), else the
+    dense call's (:func:`forward_variant`: ``tile``, or ``decode`` at ``Q
+    <= 16``)."""
+    return "split3" if dtype == torch.float32 else forward_variant(dtype, Q)
+
+
 def backward_variant(dtype: torch.dtype) -> str:
-    """The K2/K3 variant for ``dtype``: ``tile`` for bf16 (the tensor
-    cores) and ``fma`` for f32 (the parity path: tensor cores would make it
-    TF32)."""
+    """The K2/K3 variant of a dense backward (:class:`FlashAttention`) for
+    ``dtype``: ``tile`` for bf16 (the tensor cores) and ``fma`` for f32 (the
+    parity path: one TF32 pass would break the f32 tolerances). The ring's
+    block backward (:func:`flash_block_bwd`) runs in f32 and always takes
+    ``split3``."""
     if dtype == torch.float32:
         return "fma"
     if dtype == torch.bfloat16:
@@ -264,6 +311,44 @@ def visited_keys(Q: int, K: int, device=None) -> torch.Tensor:
     tile_end = (torch.arange(Q, device=device) // bq + 1) * bq
     tile_start = torch.arange(K, device=device) // KEY_TILE * KEY_TILE
     return tile_start[None, :] < tile_end[:, None]
+
+
+def split_planes_reference(x: torch.Tensor) -> torch.Tensor:
+    """The plain three-plane split of an f32 tensor: ``[3, *x.shape]`` bf16
+    planes x0 = bf16(x), x1 = bf16(x - x0), x2 = bf16(x - x0 - x1), each
+    rounded to nearest even. Each residual is exact in f32 and holds at
+    most 16, then 8, significant bits, so x0 + x1 + x2 is x wherever the
+    planes stay in bf16's normal range (``csrc/hopper_tile.cuh``'s
+    split3). The pre-pass kernel is held against it bit for bit."""
+    planes, rest = [], x.float()
+    for _ in range(3):
+        plane = rest.to(torch.bfloat16)
+        planes.append(plane)
+        rest = rest - plane.float()
+    return torch.stack(planes)
+
+
+def split_planes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (f32 [B, T, H, D], any strides) as its three bf16 planes,
+    one contiguous ``[3, B, T, H, D]`` tensor: on a CUDA tensor the
+    pre-pass kernel (``csrc/split_planes.cu``, counted in
+    ``FLASH_SPLIT_PLANES_LAUNCHES``), on a CPU tensor
+    :func:`split_planes_reference`."""
+    global FLASH_SPLIT_PLANES_LAUNCHES
+    if x.dtype != torch.float32 or x.dim() != 4:
+        raise ValueError(f"split_planes: takes f32 [B, T, H, D], got {x.dtype} "
+                         f"{tuple(x.shape)}")
+    if x.device.type == "cpu":
+        return split_planes_reference(x)
+    out = torch.empty((3, *x.shape), dtype=torch.bfloat16, device=x.device)
+    lib = _load()["split_planes"]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        rc = lib.trlx_split_planes(x.data_ptr(), out.data_ptr(), *x.shape, *x.stride(), stream)
+    if rc != 0:
+        raise RuntimeError(f"split_planes kernel launch failed: CUDA error {rc}")
+    FLASH_SPLIT_PLANES_LAUNCHES += 1
+    return out
 
 
 def flash_attention_reference(
@@ -451,13 +536,19 @@ def flash_block_fwd(
     bias ``NEG_INF``) gives the uniform average and lse ≈ NEG_INF + log
     Tk, which the ring's combine weighs by exactly 0. Not differentiable
     by itself: the ring's ``Function`` calls :func:`flash_block_bwd`. A
-    CPU tensor runs the plain version, a CUDA tensor K1 (``tile``,
-    ``decode`` or ``fma`` by dtype and Tq, :func:`forward_variant`)."""
+    CPU tensor runs the plain version, a CUDA tensor K1 in the variant of
+    :func:`block_forward_variant`: f32 ``split3`` after the split pre-pass
+    of q, k and v (three launches, counted in
+    ``FLASH_SPLIT_PLANES_LAUNCHES``), bf16 ``tile`` (``decode`` at Tq <=
+    16). ``split3`` skips a key tile that weighs exactly 0
+    (``csrc/hopper_tile.cuh::dead_tile``); ``tile`` visits every
+    tile (its vote cost more than the skip saved)."""
     global FLASH_BLOCK_FWD_LAUNCHES
     if q.device.type == "cpu":
         o, lse = flash_attention_reference(q, k, v, bias, False, True)
     else:
-        o, lse = _launch(q, k, v, bias, False, True)
+        split3 = block_forward_variant(q.dtype, q.shape[1]) == "split3"
+        o, lse = _launch_split3(q, k, v, bias) if split3 else _launch(q, k, v, bias, False, True)
         FLASH_BLOCK_FWD_LAUNCHES += 1
     return o.transpose(1, 2), lse
 
@@ -476,16 +567,20 @@ def flash_block_bwd(
     ``lse`` and ``o`` are the ring's global ones, P = exp(S - lse) are the
     global softmax weights and delta = rowsum(dO * O) the global delta,
     which is what K2 and K3 recompute in-kernel. Every input is upcast to
-    f32 first, as the TPU wrapper does, so K2 and K3 run their ``fma``
-    variant; O and dO reach them as [B, Tq, H, D] views, read in place.
-    Returns ``(dq [B, Tq, H, D], dk, dv [B, Tk, H, D])`` in f32. A CPU
-    tensor runs the plain backward, a CUDA tensor K2 then K3."""
+    f32 first, as the TPU wrapper does, so K2 and K3 run their ``split3``
+    variant (f32 on the tensor cores through three bf16 planes) after the
+    split pre-pass of q, k, v and dO (four launches, counted in
+    ``FLASH_SPLIT_PLANES_LAUNCHES``); O and dO reach delta as [B, Tq, H,
+    D] views, read in place. A (query tile, key tile) whose bias leaves no
+    pair live, in rows whose lse is above NEG_INF / 2, is skipped: its P
+    is exactly 0. Returns ``(dq [B, Tq, H, D], dk, dv [B, Tk, H, D])`` in
+    f32. A CPU tensor runs the plain backward, a CUDA tensor K2 then K3."""
     global FLASH_BLOCK_BWD_LAUNCHES
     q, k, v = (t.float() for t in (q, k, v))
     o, do = (t.float().transpose(1, 2) for t in (o, do))
     if q.device.type == "cpu":
         return flash_attention_backward_reference(q, k, v, bias, o, lse, do)
-    grads = _launch_backward(q, k, v, bias, o, lse, do, False)
+    grads = _launch_split3_backward(q, k, v, bias, o, lse, do)
     FLASH_BLOCK_BWD_LAUNCHES += 1
     return grads
 
@@ -615,25 +710,94 @@ def _launch(
     return o, lse
 
 
+def _check_backward(q, k, v, bias, o, lse, do, name: str) -> None:
+    """:func:`_check`, and o, dO and the LSE against q."""
+    _check(q, k, v, bias, name)
+    B, Q, H, _ = q.shape
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, Q):
+        raise ValueError(
+            f"{name}: bad shapes o{tuple(o.shape)} "
+            f"do{tuple(do.shape)} lse{tuple(lse.shape)} for q{tuple(q.shape)}"
+        )
+    if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
+        raise ValueError(
+            f"{name}: o/do must be {q.dtype} and lse "
+            f"float32, got {o.dtype}/{do.dtype}/{lse.dtype}"
+        )
+
+
+def _launch_split3(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 ``split3`` on f32 q, k, v (the causal flag off): the split
+    pre-pass of each, then the kernel on their planes; returns ``(o [B,
+    Q, H, D] f32, lse [B, H, Q] f32)``."""
+    global FLASH_FWD_LAUNCHES, FLASH_FWD_SPLIT3_LAUNCHES
+    _check(q, k, v, bias, "flash_block_fwd")
+    B, Q, H, D = q.shape
+    K = k.shape[1]
+    q3, k3, v3 = (split_planes(t) for t in (q, k, v))
+    bias, sb = _bias_view(bias, B, H, Q, K)
+    o = torch.empty((B, Q, H, D), dtype=torch.float32, device=q.device)
+    lse = torch.empty((B, H, Q), dtype=torch.float32, device=q.device)
+    lib = _load()["flash_fwd"]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.trlx_flash_fwd(
+            q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
+            bias.data_ptr() if bias is not None else None, o.data_ptr(), lse.data_ptr(),
+            FORWARD_VARIANTS["split3"], _DTYPES[torch.float32], B, H, Q, K, D,
+            *q3.stride()[1:4], *k3.stride()[1:4], *v3.stride()[1:4], *sb,
+            float(D ** -0.5), 0, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_fwd kernel launch failed (split3 variant): CUDA error {rc}")
+    FLASH_FWD_LAUNCHES += 1
+    FLASH_FWD_SPLIT3_LAUNCHES += 1
+    return o, lse
+
+
+def _launch_split3_backward(q, k, v, bias, o, lse, do):
+    """K2 then K3 ``split3`` on f32 inputs (the causal flag off): the split
+    pre-pass of q, k, v and dO, then each kernel on their planes, with O
+    and dO read in place for delta (a view whose head dim is not
+    contiguous is copied and counted in ``FLASH_BWD_COPIES``); returns
+    ``(dq, dk, dv)`` contiguous f32."""
+    global FLASH_BWD_COPIES
+    _check_backward(q, k, v, bias, o, lse, do, "flash_block_bwd")
+    B, Q, H, D = q.shape
+    K = k.shape[1]
+    (o, do), copies = _read_in_place((o, do), (False, False))
+    FLASH_BWD_COPIES += copies
+    lse = lse.contiguous()
+    planes = [split_planes(t) for t in (q, k, v, do)]
+    bias, sb = _bias_view(bias, B, H, Q, K)
+    strides = (ctypes.c_longlong * 10)(*o.stride()[:3], *do.stride()[:3], *sb)
+    inputs = [*planes, bias, o, do, lse]
+    dq = torch.empty((B, Q, H, D), dtype=torch.float32, device=q.device)
+    dk, dv = (torch.empty((B, K, H, D), dtype=torch.float32, device=q.device) for _ in range(2))
+    lib = _load()["flash_bwd"]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        for name, outs in (("dq", (dq,)), ("dkv", (dk, dv))):
+            rc = getattr(lib, f"trlx_flash_bwd_{name}_split3")(
+                *_pointers(inputs), *(t.data_ptr() for t in outs), B, H, Q, K, D, strides,
+                float(D ** -0.5), stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"flash_bwd_{name} kernel launch failed (split3 variant): CUDA error {rc}")
+            globals()[f"FLASH_BWD_{name.upper()}_LAUNCHES"] += 1
+            globals()[f"FLASH_BWD_{name.upper()}_SPLIT3_LAUNCHES"] += 1
+    return dq, dk, dv
+
+
 def _backward_args(q, k, v, bias, o, lse, do, causal):
     """Check the backward's inputs and pack, once, the arguments both
     backward kernels take: ``(variant, inputs, common)``. A view the
     variant cannot read in place is copied here and counted in
     ``FLASH_BWD_COPIES``."""
     global FLASH_BWD_COPIES
-    _check(q, k, v, bias, "flash_attention backward")
+    _check_backward(q, k, v, bias, o, lse, do, "flash_attention backward")
     B, Q, H, D = q.shape
     K = k.shape[1]
-    if o.shape != q.shape or do.shape != q.shape or lse.shape != (B, H, Q):
-        raise ValueError(
-            f"flash_attention backward: bad shapes o{tuple(o.shape)} "
-            f"do{tuple(do.shape)} lse{tuple(lse.shape)} for q{tuple(q.shape)}"
-        )
-    if o.dtype != q.dtype or do.dtype != q.dtype or lse.dtype != torch.float32:
-        raise ValueError(
-            f"flash_attention backward: o/do must be {q.dtype} and lse "
-            f"float32, got {o.dtype}/{do.dtype}/{lse.dtype}"
-        )
     variant = backward_variant(q.dtype)
     (q, k, v, o, do), copies = backward_kernel_inputs(variant, q, k, v, o, do)
     FLASH_BWD_COPIES += copies
@@ -718,21 +882,26 @@ __all__ = [
     "FLASH_BWD_COPIES",
     "FLASH_BWD_DKV_FMA_LAUNCHES",
     "FLASH_BWD_DKV_LAUNCHES",
+    "FLASH_BWD_DKV_SPLIT3_LAUNCHES",
     "FLASH_BWD_DKV_TILE_LAUNCHES",
     "FLASH_BWD_DQ_DBIAS_LAUNCHES",
     "FLASH_BWD_DQ_FMA_LAUNCHES",
     "FLASH_BWD_DQ_LAUNCHES",
+    "FLASH_BWD_DQ_SPLIT3_LAUNCHES",
     "FLASH_BWD_DQ_TILE_LAUNCHES",
     "FLASH_FWD_COPIES",
     "FLASH_FWD_DECODE_LAUNCHES",
     "FLASH_FWD_FMA_LAUNCHES",
     "FLASH_FWD_LAUNCHES",
+    "FLASH_FWD_SPLIT3_LAUNCHES",
     "FLASH_FWD_TILE_LAUNCHES",
+    "FLASH_SPLIT_PLANES_LAUNCHES",
     "FORWARD_VARIANTS",
     "FlashAttention",
     "NEG_INF",
     "backward_kernel_inputs",
     "backward_variant",
+    "block_forward_variant",
     "build",
     "flash_attention",
     "flash_attention_backward_reference",
@@ -741,6 +910,8 @@ __all__ = [
     "flash_block_fwd",
     "forward_variant",
     "kernel_inputs",
+    "split_planes",
+    "split_planes_reference",
     "sum_to_shape",
     "visited_keys",
 ]
