@@ -94,7 +94,11 @@ Phases, each fatal on failure:
    B=32 K=576 at per-row depths, and a long band B=2 T=512 whose last
    query tile sees three wholly masked key tiles first), K2 and K3 at the
    update under both masks and at the long band, the planted faults aimed
-   at the second atom, columns 64..127;
+   at the second atom, columns 64..127; at every training-path case K1's
+   ``p_scale`` (1 on each row with a live key, 1 / the keys averaged on
+   the others) against the plain one, and on PPO's left padding the
+   autograd Function's gradient against autograd through K1's function in
+   plain ops, in f32 and bf16;
 3. model — full-width GPT-2 in f32 through the kernels against the plain
    attention: the forward without a cache, prefill + decode through the
    paged cache against the plain full forward of the whole sequence, and
@@ -381,9 +385,32 @@ Phases, each fatal on failure:
    within the same bounds; the naive impl within the f32 bounds; every
    (c) case. Prints the walls and tokens/s of (a), (b) and the dense
    kernels and their peaks.
+22. gpt2_moe — the switch-MoE GPT-2 at ``GPT2MoEConfig``'s defaults (GPT-2
+   small's widths, 12 heads of 64, 4 experts in every second block, 209M
+   parameters; random weights from a seed): (a) served as phase 4 serves
+   (the routers, the layer norms and the value head's last layer kept
+   f32, every other parameter bf16); (b) PPO on ``configs/ppo_sentiments.yml``'s geometry
+   with ``model_type: gpt2_moe`` for two phases (64 updates), the rollout
+   cast on and ``async_checkpoint: true`` with a save every 16 updates, its
+   routers drawn N(0, 1/768) so that their logits have unit variance.
+   Gates: (a) as phase 12's at D = 64; (b) finite stats, the router's
+   among them, ``moe/max_load`` in [1/4, 1] and below 1 in some update,
+   every switch block sending tokens to more than one expert and none to
+   one alone at init, and one block so after the run, moved parameters, K1 by
+   variant and K2 = K3 = 12 x 64 ``tile`` as phase 5, steps 48 and 64
+   alone on disk, ``load`` exact, one rollout copy per set of masters with
+   its routers, ``fc2`` and norms the f32 masters, the reference cast once.
+   Prints each save's return and write seconds and the end save's write
+   beside the final eval.
 
-Each path (phases 4 to 21, each definition of phase 7, each run of phases
-9, 16, 18 and 21 on its own) runs with the launch counters set to 0 just
+Phase 5 also holds one collect with ``rollout_param_cast`` on against one
+with it off, from the same seed, its layer norms perturbed: ``torch.equal``
+tokens, logprobs, values, reference logprobs and rewards. Every phase
+call's wall is logged as it ends and printed as one ``{"phase_walls":
+{...}}`` line before the ``kernels`` line.
+
+Each path (phases 4 to 22, each definition of phase 7, each run of phases
+9, 16, 18, 21 and 22 on its own) runs with the launch counters set to 0 just
 before it and read just after, and its peak memory is read from a clean start.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -399,6 +426,7 @@ device-time summary (busy share, device time by kernel) as JSON to PATH
 from __future__ import annotations
 
 import concurrent.futures
+import copy
 import functools
 import json
 import math
@@ -431,6 +459,9 @@ TOL = {  # max |dO|, max |dLSE| against the plain version
 O_REL_TOL = {"float32": 1e-4, "bfloat16": 2 ** -6}
 # max |dQ|, |dK|, |dV| against the plain backward fed the same O and LSE,
 # as a fraction of max(1, max |reference|):
+# K1's p_scale against the plain one, relative: 1 / (keys averaged) from
+# an f32 sum of ones in both
+P_SCALE_TOL = 1e-6
 BWD_TOL = {
     # f32: only the order of the sums differs
     "float32": 1e-4,
@@ -750,7 +781,7 @@ def packed_forward_calls(torch, fa, copies, causal):
         outputs.append((b, o))
         calls.append(functools.partial(
             lib.trlx_flash_fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            b.data_ptr() if b is not None else None, o.data_ptr(), None,
+            b.data_ptr() if b is not None else None, o.data_ptr(), None, None,
             fa.FORWARD_VARIANTS[fa.forward_variant(q.dtype, Q)], fa._DTYPES[q.dtype],
             B, H, Q, K, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *sb,
             float(D ** -0.5), int(bool(causal)), stream))
@@ -1001,19 +1032,20 @@ def backward_bound(fa, q, k, bias, causal, dtype_name):
     return out
 
 
-def visited_reference(torch, fa, q, k, v, bias, causal):
+def visited_reference(torch, fa, q, k, v, bias, causal, p_scale=False):
     """K1's function in plain ops: the plain forward, restricted under the
     causal flag to the keys of the tiles K1 visits. On a causal row whose
     visible keys are all padding (PPO's left padding) every visited key
     sits at NEG_INF, and K1 averages exactly those keys, as the TPU kernel
     does; the unrestricted plain forward would average all K. On every
-    other row the keys left out carry no weight either way."""
+    other row the keys left out carry no weight either way. With
+    ``p_scale`` it also returns K1's ``p_scale`` there."""
     if causal:
         Q, K = q.shape[1], k.shape[1]
         skip = torch.zeros(Q, K, device=q.device).masked_fill_(
             ~fa.visited_keys(Q, K, q.device), float("-inf"))
         bias = skip if bias is None else bias.float() + skip
-    return fa.flash_attention_reference(q, k, v, bias, causal, True)
+    return fa.flash_attention_reference(q, k, v, bias, causal, True, p_scale)
 
 
 def packed_backward_calls(torch, fa, copies, causal):
@@ -1051,20 +1083,30 @@ def phase_backward(torch, fa, attn):
             dt = getattr(torch, dtype_name)
             q, k, v = (x.to(dt) for x in (q32, k32, v32))
             o, lse = fa.flash_attention(q, k, v, bias, causal, True)
-            o_ref, lse_ref = visited_reference(torch, fa, q, k, v, bias, causal)
+            o_ref, lse_ref, p_scale_ref = visited_reference(
+                torch, fa, q, k, v, bias, causal, p_scale=True)
+            # K1's p_scale (the training forward's third output): exactly 1
+            # on rows with a live key, 1 / (keys averaged) on the others
+            _, _, p_scale = fa._launch(q, k, v, bias, causal, True, with_p_scale=True)
             torch.cuda.synchronize()
             err_o = (o.float() - o_ref.float()).abs().max().item()
             err_lse = (lse - lse_ref).abs().max().item()
+            live = lse > attn.NEG_INF / 2
+            err_p_scale = ((p_scale - p_scale_ref).abs() / p_scale_ref).max().item()
+            dead_rows = int((~live).sum())
             tol_o, tol_lse = TOL[dtype_name]
-            ok = math.isfinite(err_o) and err_o <= tol_o and err_lse <= tol_lse
+            ok = (math.isfinite(err_o) and err_o <= tol_o and err_lse <= tol_lse
+                  and bool((p_scale[live] == 1).all()) and err_p_scale <= P_SCALE_TOL)
             fwd_results.append({
                 "case": "train_path_" + name, "dtype": dtype_name,
                 "max_abs_err_o": err_o, "max_abs_err_lse": err_lse,
+                "max_rel_err_p_scale": err_p_scale, "rows_with_no_live_key": dead_rows,
                 "tol_o": tol_o, "tol_lse": tol_lse, "ok": ok,
             })
             log(f"phase 2: fwd {name:14s} {dtype_name:8s} B={q.shape[0]} Q={q.shape[1]} "
                 f"K={k.shape[1]} ({fa.forward_variant(dt, q.shape[1])}) max|dO|={err_o:.3e} "
-                f"max|dLSE|={err_lse:.3e} {'ok' if ok else 'FAIL'}")
+                f"max|dLSE|={err_lse:.3e} p_scale rel err={err_p_scale:.3e} over "
+                f"{dead_rows} rows with no live key {'ok' if ok else 'FAIL'}")
             if name in TRAINING_SHAPES and dtype_name == "bfloat16":
                 shape = TRAINING_SHAPES[name]
                 fwd_timed[(shape, dtype_name)] = row = time_forward(
@@ -1165,6 +1207,29 @@ def phase_backward(torch, fa, attn):
                     "max_abs_err_dv": errs[2]})
     log(f"phase 2: autograd Function vs autograd of the plain forward (f32, {name}): "
         f"max|d(dq, dk, dv)|={errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} {'ok' if ok else 'FAIL'}")
+    # on PPO's left padding, whose first rows see only padding, against
+    # autograd through K1's function in plain ops (visited_reference): the
+    # Function scales dO's rows by K1's p_scale, so those rows take the
+    # derivative of the weights their forward used
+    name, q32, k32, v32, bias, causal = backward_cases(torch, attn)[1]
+    assert name == "train_left_pad"
+    for dtype_name in ("float32", "bfloat16"):
+        xs32 = [x.to(getattr(torch, dtype_name)) for x in (q32, k32, v32)]
+        do = torch.randn(xs32[0].shape, generator=gen, device="cuda").to(xs32[0].dtype)
+        grads = []
+        for fn in (fa.flash_attention,
+                   lambda *a: visited_reference(torch, fa, *a)[0]):
+            xs = [x.clone().requires_grad_() for x in xs32]
+            grads.append(torch.autograd.grad(fn(*xs, bias, causal), xs, do))
+        errs = [(g.float() - r.float()).abs().max().item() for g, r in zip(*grads)]
+        tols = [BWD_TOL[dtype_name] * max(1.0, r.float().abs().max().item()) for r in grads[1]]
+        ok = all(math.isfinite(e) and e <= t for e, t in zip(errs, tols))
+        results.append({"case": "function_vs_autograd_left_pad", "dtype": dtype_name, "ok": ok,
+                        "max_abs_err_dq": errs[0], "max_abs_err_dk": errs[1],
+                        "max_abs_err_dv": errs[2]})
+        log(f"phase 2: autograd Function vs autograd of K1's plain function ({dtype_name}, "
+            f"{name}, rows with no live key): max|d(dq, dk, dv)|={errs[0]:.3e}/{errs[1]:.3e}/"
+            f"{errs[2]:.3e} {'ok' if ok else 'FAIL'}")
     return fwd_results, results, fwd_timed, timed
 
 
@@ -1713,9 +1778,10 @@ def phase_serving(torch, fa):
     return ok, record
 
 
-def training_config(checkpoint_dir: str):
+def training_config(checkpoint_dir: str, **train):
     """The ``configs/ppo_sentiments.yml`` run at full GPT-2-small width with
-    random weights, cut to two PPO phases (64 updates)."""
+    random weights, cut to two PPO phases (64 updates); ``train`` updates
+    the train section."""
     from trlx_tpu_torch.data.configs import TRLConfig
 
     root = os.path.dirname(os.path.abspath(__file__))
@@ -1730,7 +1796,7 @@ def training_config(checkpoint_dir: str):
     })
     cfg["train"].update({
         "total_steps": 64, "eval_interval": 64, "checkpoint_interval": 64,
-        "checkpoint_dir": checkpoint_dir,
+        "checkpoint_dir": checkpoint_dir, **train,
     })
     return TRLConfig.from_dict(cfg)
 
@@ -1752,6 +1818,70 @@ def training_reward(samples, queries, response_gt=None):
         sum(int(t) < 25000 for t in s.split()) / max(len(s.split()), 1)
         for s in samples
     ]
+
+
+CAST_BUFFER = ("query_tokens", "query_mask", "response_tokens", "response_mask", "logprobs",
+               "values", "rewards")
+
+
+def cast_collect_equality(torch, config_fn, prompts, reward) -> dict:
+    """One collect with ``train.rollout_param_cast`` on and one with it off,
+    from the same seed, on ``config_fn(checkpoint dir, **train)``'s policy
+    with every layer norm perturbed the same way (N(0, 0.05²) from a seed,
+    so the norms the cast keeps f32 are not 1 and 0) and the reference
+    taken again from it: ``torch.equal`` tokens, masks, behaviour
+    logprobs, values, reference logprobs and rewards. Off every counted
+    path."""
+    import gc
+    import tempfile
+
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils.loading import get_orchestrator, get_pipeline
+
+    runs = {}
+    for cast in (True, False):
+        with tempfile.TemporaryDirectory() as tmp:
+            config = config_fn(tmp, rollout_param_cast=cast)
+            trainer = PPOTrainer(config)
+            gen = torch.Generator(device="cuda").manual_seed(5)
+            with torch.no_grad():
+                for name, p in trainer.model.named_parameters():
+                    if ".ln_" in name:
+                        p.add_(0.05 * torch.randn(p.shape, generator=gen, device="cuda"))
+            trainer._setup_reference(trainer.model.transformer, trainer.model_config.n_layer)
+            pipeline = get_pipeline("PromptPipeline")(prompts, trainer.query_length)
+            get_orchestrator("PPOOrchestrator")(trainer, pipeline, reward_fn=reward,
+                                                chunk_size=config.method.chunk_size)
+            refs, score_ref = [], trainer.score_ref
+
+            def recorded(*a, **kw):
+                refs.append(score_ref(*a, **kw))
+                return refs[-1]
+
+            trainer.score_ref = recorded
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.orch.make_experience(config.method.num_rollouts, 0)
+            torch.cuda.synchronize()
+            buf = trainer.buffer.full
+            runs[cast] = {
+                "collect_s": time.perf_counter() - t0,
+                "refreshes": trainer.rollout_cast_refreshes,
+                "cast_dtype": str(trainer.rollout_cast_dtype),
+                "tensors": {**{k: getattr(buf, k) for k in CAST_BUFFER},
+                            "ref_logprobs": torch.cat(refs)},
+            }
+            trainer.orch = None
+            del trainer, buf, refs
+            gc.collect()
+    on, off = runs[True], runs[False]
+    equal = {k: bool(torch.equal(v, off["tensors"][k])) for k, v in on["tensors"].items()}
+    return {
+        "equal": equal, "all_equal": all(equal.values()),
+        "tokens": int(on["tensors"]["response_mask"].sum()),
+        "cast_on": {k: on[k] for k in ("collect_s", "refreshes", "cast_dtype")},
+        "cast_off": {k: off[k] for k in ("collect_s", "refreshes", "cast_dtype")},
+    }
 
 
 def phase_training(torch, fa):
@@ -1851,6 +1981,8 @@ def phase_training(torch, fa):
             and torch.equal(fresh.generator.get_state(), saved_rng[-1])
         )
         del fresh
+    cast_check = cast_collect_equality(torch, training_config, training_prompts(),
+                                       training_reward)
     expected = {
         "flash_fwd": N_LAYER * trainer.forwards,
         "flash_bwd_dq": N_LAYER * 64,
@@ -1889,19 +2021,24 @@ def phase_training(torch, fa):
         "backward_copies": bwd_copies,
         "plain_attention_calls": plain_calls[0],
         "params_changed": changed,
+        "rollout_cast_refreshes": trainer.rollout_cast_refreshes,
+        "cast_collect_equality": cast_check,
     }
     log("phase 5: training " + json.dumps(record))
     ok = (
         trainer.step == 64 and len(rows) == 2 and finite and changed > 0
         and restored and launches == expected and variants == expected_variants
         and bwd_variants == expected_bwd_variants and bwd_copies == 0
-        and plain_calls[0] == 0
+        and plain_calls[0] == 0 and cast_check["all_equal"]
+        and cast_check["cast_on"]["refreshes"] == 1 and cast_check["cast_off"]["refreshes"] == 0
     )
     log(f"phase 5: {'ok' if ok else 'FAIL'} (updates={trainer.step}, phases={len(rows)}, "
         f"finite={finite}, changed tensors={changed}, load restores={restored}, "
         f"launches={launches} vs {expected}, K1 by variant {variants} vs "
         f"{expected_variants}, K2/K3 by variant {bwd_variants} vs {expected_bwd_variants}, "
-        f"backward input copies={bwd_copies}, plain attention calls={plain_calls[0]})")
+        f"backward input copies={bwd_copies}, plain attention calls={plain_calls[0]}; "
+        f"a collect with the rollout cast on against off: equal {cast_check['equal']}, "
+        f"refreshes {cast_check['cast_on']['refreshes']} / {cast_check['cast_off']['refreshes']})")
     return ok, record
 
 
@@ -2442,8 +2579,9 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
     saved = load_checkpoint(run_dir, device="cpu")["model"]
     server = InferenceServer(config.to_dict(), checkpoint_dir=run_dir, seed=0)
     served = server.model.state_dict()
-    # the server casts its weights to the compute dtype (the value head's
-    # last layer stays f32): the same cast of the saved tensors, bit for bit
+    # the server casts its weights to the compute dtype (the leaves the
+    # rollout cast keeps stay f32): the same cast of the saved tensors, bit
+    # for bit
     restored = set(served) == set(saved) and all(
         torch.equal(p.cpu(), saved[n].to(p.dtype)) for n, p in served.items())
     cast = sum(p.dtype == torch_dtype(cfg.dtype) for p in served.values())
@@ -4592,13 +4730,14 @@ def wide_training_config(checkpoint_dir: str, yml: str, model: dict, updates: in
 
 
 def serve_wide(torch, fa, phase: int, label: str, config: dict, depth: int, head_dim: int,
-               checks=None, start_allocated_max=None):
+               checks=None, start_allocated_max=None, f32_leaves=("v_head.fc2.",)):
     """Phases 12, 14 and 19: ``InferenceServer`` on ``config`` (a wide
     family at full width and ``depth`` blocks, random weights from a seed)
     over the continuous engine and the paged cache, serving phase 4's 64
     prompts with 64 new tokens, 32 slots, admit/harvest 8. Gates: the card
     near empty before the build when ``start_allocated_max`` is given;
-    every parameter bf16 but the value head's last layer; 64/64 complete
+    every parameter bf16 but the value head's last layer (and any other
+    name holding one of ``f32_leaves``, which must be f32); 64/64 complete
     with finite logprobs and values; the depth and head dim; ``checks``
     (``{name: fn(model config) -> bool}``); K1 ``tile`` = ``depth`` x
     prefill forwards, ``decode`` = ``depth`` x decode steps; 0 ``fma``
@@ -4617,7 +4756,9 @@ def serve_wide(torch, fa, phase: int, label: str, config: dict, depth: int, head
     # path's own peak is counted_path's
     build_peak = torch.cuda.max_memory_allocated()
     dtypes = {str(p.dtype) for n, p in server.model.named_parameters()
-              if not n.startswith("v_head.fc2.")}
+              if not any(leaf in n for leaf in f32_leaves)}
+    f32_kept = all(p.dtype == torch.float32 for n, p in server.model.named_parameters()
+                   if any(leaf in n for leaf in f32_leaves))
     weights = sum(p.numel() * p.element_size() for p in server.model.parameters())
     prompts = serving_prompts()
     (rids, results, wall), record = counted_path(torch, fa, lambda: serve(torch, server, prompts))
@@ -4648,7 +4789,8 @@ def serve_wide(torch, fa, phase: int, label: str, config: dict, depth: int, head
     })
     log(f"phase {phase}: {label} serving " + json.dumps(record))
     ok = ((start_allocated_max is None or mem_start <= start_allocated_max)
-          and dtypes == {"torch.bfloat16"} and len(results) == 64 and min(lengths) >= 1
+          and dtypes == {"torch.bfloat16"} and f32_kept
+          and len(results) == 64 and min(lengths) >= 1
           and finite and cfg.n_layer == depth and cfg.n_embd // cfg.n_head == head_dim
           and all(checked.values())
           and record["flash_fwd_variants"] == expected_variants
@@ -4656,7 +4798,8 @@ def serve_wide(torch, fa, phase: int, label: str, config: dict, depth: int, head
           + expected_variants["decode"]
           and record["plain_attention_calls"] == 0)
     log(f"phase {phase}: {'ok' if ok else 'FAIL'} (allocated before the build {mem_start} B, "
-        f"parameter dtypes {sorted(dtypes)} but v_head.fc2, {weights} B of weights; "
+        f"parameter dtypes {sorted(dtypes)} but {list(f32_leaves)} (f32: {f32_kept}), "
+        f"{weights} B of weights; "
         f"{cfg.n_layer} blocks, head dim {cfg.n_embd // cfg.n_head}, checks {checked}; "
         f"complete={len(results)}/64, min length={min(lengths)}, finite={finite}, K1 by variant "
         f"{record['flash_fwd_variants']} vs {expected_variants}, plain attention calls="
@@ -4669,10 +4812,12 @@ def serve_wide(torch, fa, phase: int, label: str, config: dict, depth: int, head
 
 def phase_gptj_serving(torch, fa):
     """Phase 12: :func:`serve_wide` on GPT-J-6B (28 blocks, 16 heads of
-    256, rotary 64), built in f32 and cast to bf16."""
+    256, rotary 64), built in f32 and cast to bf16 but the value head's
+    last layer and the layer norms, as the trainers' rollout cast keeps
+    them."""
     return serve_wide(torch, fa, 12, "GPT-J-6B",
                       wide_serving_config("gptj", GPTJ_ARCH, GPTJ_EOS), depth=28,
-                      head_dim=GPTJ_D)
+                      head_dim=GPTJ_D, f32_leaves=("v_head.fc2.", ".ln_"))
 
 
 def gptj_prompts(seed: int = 5):
@@ -6494,6 +6639,281 @@ def phase_ring(torch, fa) -> tuple:
     return ok, record
 
 
+# ---------------------------------------------------------------------------
+# gpt2_moe (phase 22): the switch-MoE GPT-2 at GPT2MoEConfig's defaults,
+# served and trained with the asynchronous checkpoint write
+# ---------------------------------------------------------------------------
+
+MOE_UPDATES = 64  # two PPO phases of 128 // 16 = 8 minibatches x 4 epochs
+MOE_CHECKPOINT_INTERVAL = 16  # saves at 16, 32, 48 and the end (64)
+MOE_EOS = 50256
+MOE_DEVIATIONS = (
+    ("model.model_type", "gpt2", "gpt2_moe",
+     "the family under test: GPT2MoEConfig's defaults, GPT-2 small's widths (12 blocks, "
+     "12 heads of 64, vocab 50 257) with 4 experts in every second block"),
+    ("model.model_path", "lvwerra/gpt2-imdb", "",
+     "random weights from the seed: the family has no HF checkpoint"),
+    ("model.tokenizer_path", "gpt2", "", "token-id prompts and a host reward"),
+    ("train.total_steps", 10000, MOE_UPDATES, "two phases"),
+    ("train.checkpoint_interval", 10000, MOE_CHECKPOINT_INTERVAL,
+     "four saves, so the retention of two steps shows"),
+    ("train.async_checkpoint", False, True, "the asynchronous write under test"),
+)
+
+
+def switch_loads(torch, model, prompts) -> list:
+    """Per switch block of ``model``, on ``prompts`` left-padded into one
+    batch (the pads routed too, as the training forward routes them):
+    ``{"max_load": the largest expert's share of the tokens, "experts":
+    how many experts took a token}``."""
+    from trlx_tpu_torch.models.gpt2 import torch_dtype
+    from trlx_tpu_torch.models.gpt2_moe import SwitchMLP, collect_moe_losses
+
+    width = max(map(len, prompts))
+    ids = torch.zeros(len(prompts), width, dtype=torch.long)
+    mask = torch.zeros(len(prompts), width, dtype=torch.long)
+    for i, p in enumerate(prompts):
+        ids[i, width - len(p):] = torch.tensor(p)
+        mask[i, width - len(p):] = 1
+    device = next(model.parameters()).device
+    chosen = []
+
+    def hook(m, args, _):
+        x = args[0].reshape(-1, m.config.n_embd).to(torch_dtype(m.config.dtype)).float()
+        chosen.append(int(torch.argmax(x @ m.router.float(), dim=-1).unique().numel()))
+
+    layers = [m for m in model.modules() if isinstance(m, SwitchMLP)]
+    handles = [m.register_forward_hook(hook) for m in layers]
+    try:
+        with torch.no_grad(), collect_moe_losses(model) as sown:
+            model(ids.to(device), mask.to(device))
+    finally:
+        for h in handles:
+            h.remove()
+    return [{"max_load": float(d["max_load"]), "experts": n} for d, n in zip(sown, chosen)]
+
+
+def moe_training_config(checkpoint_dir: str, **train):
+    """``configs/ppo_sentiments.yml``'s geometry with ``model_type:
+    gpt2_moe`` at GPT2MoEConfig's defaults and ``MOE_DEVIATIONS``."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", "ppo_sentiments.yml")).to_dict()
+    cfg["model"].update(model_type="gpt2_moe", model_path="", tokenizer_path="",
+                        model_arch={})
+    cfg["train"].update(total_steps=MOE_UPDATES, eval_interval=MOE_UPDATES,
+                        checkpoint_interval=MOE_CHECKPOINT_INTERVAL, async_checkpoint=True,
+                        checkpoint_dir=checkpoint_dir, **train)
+    return TRLConfig.from_dict(cfg)
+
+
+def phase_moe_serving(torch, fa):
+    """Phase 22 (a): :func:`serve_wide` on gpt2_moe at GPT2MoEConfig's
+    defaults (12 blocks, 12 heads of 64: K1 at D = 64), built in f32 and
+    cast to bf16 but the value head's last layer, the routers and the
+    layer norms, as the trainers' rollout cast keeps them."""
+    return serve_wide(torch, fa, 22, "gpt2_moe",
+                      wide_serving_config("gpt2_moe", {}, MOE_EOS), depth=N_LAYER,
+                      head_dim=64, f32_leaves=("v_head.fc2.", ".router", ".ln_"),
+                      checks={"experts": lambda cfg: (cfg.n_experts, cfg.moe_every) == (4, 2)})
+
+
+def phase_moe_training(torch, fa):
+    """Phase 22 (b): ``trlx_tpu_torch.train`` on :func:`moe_training_config`
+    (bf16 over f32 masters, the full-copy reference, the rollout cast on,
+    ``async_checkpoint: true``), 128 prompts of phase 5, the routers drawn
+    N(0, 1/768) before the reference copy. Gates: 64 updates in 2 phases;
+    every stat finite, the router's (``losses/moe_aux``,
+    ``losses/router_z``, ``moe/max_load``) among them, ``moe/max_load`` in
+    [1/4, 1] and below 1 in some update; on 32 of the prompts
+    (:func:`switch_loads`) every switch block's largest share below 1 and
+    more than one expert chosen at init, and in one block after the run;
+    the parameters moved; K1 ``tile`` = 12 x the forwards that are
+    not decode steps, ``decode`` = 12 x those; K2 = K3 = 12 x 64 ``tile``;
+    no ``fma`` launch, input copy or plain call; steps 48 and 64 alone on
+    disk; a fresh trainer's ``load`` restores the last save exactly; one
+    rollout copy per set of masters (made at the two collects and the
+    final eval), its routers, ``fc2`` and norms the f32 masters themselves
+    and every other parameter bf16; the full-copy reference cast once
+    (half its f32 bytes). Prints each save's return, its join of the
+    previous write and the write's own seconds, the end save's write
+    against the final eval's seconds and what ``learn`` still waited for
+    after the eval."""
+    import tempfile
+
+    import numpy as np
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.models.gpt2_moe import SwitchMLP
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils import checkpoint as ckpt
+
+    log("phase 22: gpt2_moe PPO; deviations: " + json.dumps([
+        {"setting": k, "yml": y, "port": p, "why": why} for k, y, p, why in MOE_DEVIATIONS]))
+    watch, decode_forwards, cast_steps, saves, waits, initial = {}, [0], [], [], [], {}
+    orig = {"apply": PPOTrainer._apply, "rollout_model": PPOTrainer.rollout_model,
+            "learn": PPOTrainer.learn, "save": ckpt.CheckpointWriter.save,
+            "wait": ckpt.CheckpointWriter.wait, "reference": PPOTrainer._setup_reference}
+    loads = {}  # per switch block, at init and after the run
+
+    def setup_reference(self, backbone, n_layer):
+        # the routers drawn as the CPU test draws them, N(0, 1), scaled to
+        # the width so that the logits on the unit-variance normed
+        # features have unit variance: at the 0.02 of GPT-2's init they
+        # are near-tied and one expert takes most of a block's tokens.
+        # Before the reference copy, so the KL reference is this policy.
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(self.config.train.seed + 22)
+        with torch.no_grad():
+            for m in backbone.modules():
+                if isinstance(m, SwitchMLP):
+                    m.router.normal_(0.0, m.config.n_embd ** -0.5, generator=gen)
+        return orig["reference"](self, backbone, n_layer)
+
+    def apply(self, input_ids, *a, **kw):
+        decode_forwards[0] += input_ids.shape[1] <= 16  # the sampler's steps
+        return orig["apply"](self, input_ids, *a, **kw)
+
+    def rollout_model(self):
+        cast_steps.append(self.step)
+        return orig["rollout_model"](self)
+
+    def learn(self):
+        initial.update({n: p.detach().to("cpu", copy=True)
+                        for n, p in self.model.state_dict().items()})
+        return orig["learn"](self)
+
+    def save(self, *a, **kw):
+        out = orig["save"](self, *a, **kw)
+        saves.append(self.last_times)  # the thread adds write_s when it ends
+        return out
+
+    def wait(self):
+        t0 = time.perf_counter()
+        try:
+            return orig["wait"](self)
+        finally:
+            waits.append(time.perf_counter() - t0)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        config = moe_training_config(tmp)
+        patches = [p for p in instrument(torch, PPOTrainer, "transformer", {}, watch)
+                   if p[1] != "learn"] + [
+            (PPOTrainer, "_apply", apply), (PPOTrainer, "rollout_model", rollout_model),
+            (PPOTrainer, "learn", learn), (ckpt.CheckpointWriter, "save", save),
+            (ckpt.CheckpointWriter, "wait", wait),
+            (PPOTrainer, "_setup_reference", setup_reference)]
+        trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
+            reward_fn=training_reward, prompts=training_prompts(), config=config), patches)
+        final_wait_s = waits[-1] if waits else None
+        on_disk = ckpt.all_steps(tmp)
+        steps, n_layer = trainer.step, trainer.model_config.n_layer
+        final = trainer.model.state_dict()
+        moved = sum(not torch.equal(final[n].cpu(), initial[n]) for n in final)
+        # the routing at init and after the run, outside the counted path
+        probe = copy.deepcopy(trainer.model)
+        probe.load_state_dict(initial)
+        loads["init"] = switch_loads(torch, probe, training_prompts()[:32])
+        del probe
+        initial.clear()
+        rows = watch["rows"]
+        finite = all(np.isfinite(v).all() for r in rows for v in r.values()) and all(
+            math.isfinite(v) for e in watch["evals"] for v in e.values())
+        router = {k: [float(x) for r in rows for x in r[k]]
+                  for k in ("losses/moe_aux", "losses/router_z", "moe/max_load")}
+        loads["end"] = switch_loads(torch, trainer.model, training_prompts()[:32])
+        # every switch block spreads its tokens at init (no expert takes
+        # them all, so more than one takes some), and after the run at
+        # least one block still does; every update's max over the blocks
+        # in [1/4, 1] (the largest of 4 shares), below 1 in some update
+        spread_ok = (
+            len(loads["init"]) == n_layer // 2
+            and all(b["max_load"] < 1.0 and b["experts"] > 1 for b in loads["init"])
+            and any(b["max_load"] < 1.0 and b["experts"] > 1 for b in loads["end"]))
+        load_ok = (all(0.25 <= x <= 1.0 for x in router["moe/max_load"])
+                   and min(router["moe/max_load"]) < 1.0 and spread_ok)
+        cast = trainer._rollout_module
+        masters = dict(trainer.model.named_parameters())
+        kept = [n for n, p in cast.named_parameters()
+                if any(k in n for k in ("router", "fc2", ".ln_"))]
+        cast_ok = (cast is not None and all(
+            p is masters[n] if n in kept else p.dtype == torch.bfloat16
+            for n, p in cast.named_parameters())
+            and any(n.endswith(".router") for n in kept))
+        ref_bytes = sum(p.numel() * p.element_size() for p in trainer.ref.parameters())
+        ref_f32_bytes = sum(p.numel() * 4 for p in trainer.ref.parameters())
+        expected_variants = {
+            "tile": n_layer * (trainer.forwards - decode_forwards[0]),
+            "decode": n_layer * decode_forwards[0], "fma": 0, "copies": 0,
+        }
+        expected_bwd = {k: {"tile": n_layer * MOE_UPDATES, "fma": 0} for k in BWD_KERNELS}
+        phases, forwards = phase_rows(trainer), trainer.forwards
+        refreshes = trainer.rollout_cast_refreshes
+        trainer.opt.zero_grad()
+        trainer.buffer = None
+        fresh = PPOTrainer(moe_training_config(tmp))
+        t0 = time.perf_counter()
+        fresh.load(tmp)
+        load_s = time.perf_counter() - t0
+        restored = restores(torch, trainer_state(trainer), fresh, watch["saved_rng"])
+        del fresh
+    final_eval_s = watch["evals"][-1].get("time/generate") if watch["evals"] else None
+    record.update({
+        "model": "gpt2_moe at GPT2MoEConfig's defaults (GPT-2 small widths, 4 experts every "
+                 "2nd block), bf16 over f32 masters",
+        "parameters": sum(p.numel() for p in trainer.model.parameters()),
+        "updates": steps, "phases": phases, "evals": watch["evals"], "router": router,
+        "forwards": forwards, "decode_forwards": decode_forwards[0],
+        "expected_variants": expected_variants, "expected_backward_variants": expected_bwd,
+        "params_moved": moved, "finite": finite, "max_load_in_range": load_ok,
+        "switch_loads": loads,
+        "steps_on_disk": on_disk, "load_restores": restored, "checkpoint_load_s": load_s,
+        "saves": saves, "final_eval_s": final_eval_s, "final_join_s": final_wait_s,
+        "rollout_cast_refreshes": refreshes, "rollout_cast_steps": sorted(set(cast_steps)),
+        "rollout_cast_ok": cast_ok, "reference_bytes": ref_bytes,
+        "reference_f32_bytes": ref_f32_bytes,
+    })
+    log("phase 22: gpt2_moe PPO " + json.dumps(record))
+    ok = (
+        steps == MOE_UPDATES and len(rows) == 2 and finite and moved > 0 and load_ok
+        and all(len(v) == MOE_UPDATES for v in router.values())
+        and record["flash_fwd_variants"] == expected_variants
+        and record["backward_variants"] == expected_bwd and record["backward_copies"] == 0
+        and record["plain_attention_calls"] == 0
+        and on_disk == [MOE_UPDATES - MOE_CHECKPOINT_INTERVAL, MOE_UPDATES]
+        and len(saves) == MOE_UPDATES // MOE_CHECKPOINT_INTERVAL
+        and all("write_s" in t for t in saves) and restored
+        and refreshes == len(set(cast_steps)) == 3 and cast_ok
+        and ref_bytes < 0.51 * ref_f32_bytes
+    )
+    log(f"phase 22: gpt2_moe PPO {'ok' if ok else 'FAIL'} (updates={steps}, phases={len(rows)}, "
+        f"finite={finite}, moved tensors={moved}, max load in [1/4, 1], below 1 in some "
+        f"update, tokens spread in every switch block at init and in one after: {load_ok} "
+        f"(per block, init {[b['max_load'] for b in loads['init']]}, end "
+        f"{[b['max_load'] for b in loads['end']]}); K1 by "
+        f"variant {record['flash_fwd_variants']} vs {expected_variants}; K2/K3 by variant "
+        f"{record['backward_variants']} vs {expected_bwd}; backward copies "
+        f"{record['backward_copies']}; plain attention calls {record['plain_attention_calls']}; "
+        f"steps on disk {on_disk}; load restores {restored}; rollout copies {refreshes} at "
+        f"steps {sorted(set(cast_steps))}, f32 routers, fc2 and norms shared: {cast_ok}; "
+        f"reference {ref_bytes} B of {ref_f32_bytes} B in f32; saves returned in "
+        f"{[round(t['save_s'], 3) for t in saves]} s, wrote in "
+        f"{[round(t.get('write_s', -1), 3) for t in saves]} s; final eval {final_eval_s} s, "
+        f"then joined {final_wait_s} s; wall {record['wall_s']:.1f} s, peak "
+        f"{record['max_memory_allocated_bytes']} B)")
+    del trainer
+    return ok, record
+
+
+def phase_moe(torch, fa):
+    """Phase 22: gpt2_moe served (a) and trained (b); returns ``(ok,
+    {"serving": record, "training": record})``."""
+    serving_ok, serving = phase_moe_serving(torch, fa)
+    training_ok, training = phase_moe_training(torch, fa)
+    return serving_ok and training_ok, {"serving": serving, "training": training}
+
+
 def ring_kernel_entries(ring) -> list:
     """The ``kernels`` line's entries of the ring's block wrappers: each
     timed at the diagonal block (the forward in bf16, the backward in
@@ -6650,18 +7070,29 @@ def main() -> int:
     ).stdout.strip().splitlines()
     log(f"python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
+    walls = {}  # each phase call's wall, in call order
 
-    build_ok, build = phase_build(fa)
-    fwd_checks, timed = phase_kernel(torch, fa, attn)
-    train_fwd_checks, bwd_checks, train_timed, bwd_timed = phase_backward(torch, fa, attn)
-    t5_fwd_checks, t5_bwd_checks, t5_timed, t5_bwd_timed = phase_t5_kernels(torch, fa, attn)
-    gptj_fwd_checks, gptj_bwd_checks, gptj_timed, gptj_bwd_timed = phase_gptj_kernels(
-        torch, fa, attn)
-    neox_fwd_checks, neox_bwd_checks, neox_timed, neox_bwd_timed = phase_neox_kernels(
-        torch, fa, attn)
-    neo_fwd_checks, neo_bwd_checks, neo_timed, neo_bwd_timed = phase_neo_kernels(
-        torch, fa, attn)
-    small = phase_small_kernels(torch, fa, attn)
+    def timed_phase(name, fn, *a):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a)
+        finally:
+            walls[name] = time.perf_counter() - t0
+            log(f"phase wall: {name} {walls[name]:.1f} s")
+
+    build_ok, build = timed_phase("1 build", phase_build, fa)
+    fwd_checks, timed = timed_phase("2 kernel", phase_kernel, torch, fa, attn)
+    train_fwd_checks, bwd_checks, train_timed, bwd_timed = timed_phase(
+        "2 backward", phase_backward, torch, fa, attn)
+    t5_fwd_checks, t5_bwd_checks, t5_timed, t5_bwd_timed = timed_phase(
+        "2 t5 kernels", phase_t5_kernels, torch, fa, attn)
+    gptj_fwd_checks, gptj_bwd_checks, gptj_timed, gptj_bwd_timed = timed_phase(
+        "2 gptj kernels", phase_gptj_kernels, torch, fa, attn)
+    neox_fwd_checks, neox_bwd_checks, neox_timed, neox_bwd_timed = timed_phase(
+        "2 neox kernels", phase_neox_kernels, torch, fa, attn)
+    neo_fwd_checks, neo_bwd_checks, neo_timed, neo_bwd_timed = timed_phase(
+        "2 neo kernels", phase_neo_kernels, torch, fa, attn)
+    small = timed_phase("2 small kernels", phase_small_kernels, torch, fa, attn)
     small_checks = [c for D in SMALL_HEAD_DIMS for c in small[D][0] + small[D][1]]
     fwd_checks += train_fwd_checks + t5_fwd_checks
     bwd_checks += t5_bwd_checks
@@ -6675,38 +7106,51 @@ def main() -> int:
     kernel_ok = all(c["ok"] for c in fwd_checks + bwd_checks + gptj_fwd_checks
                     + gptj_bwd_checks + neox_fwd_checks + neox_bwd_checks
                     + neo_fwd_checks + neo_bwd_checks + small_checks) and all(row["packed_ok"] for row in timed.values())
-    model_ok = (phase_model(torch, fa) & phase_model_backward(torch, fa)
-                & phase_t5_model_backward(torch, fa) & phase_logprob_chunk(torch)
-                & phase_gptj_model(torch, fa) & phase_gptj_checkpoint(torch)
-                & phase_neox_model(torch, fa) & phase_neox_checkpoint(torch)
-                & phase_neo_model(torch, fa) & phase_neo_checkpoint(torch))
-    serving_ok, serving = phase_serving(torch, fa)
-    training_ok, training = phase_training(torch, fa)
-    seq2seq_ok, seq2seq = phase_t5_training(torch, fa)
-    bench_ok, bench = phase_bench_workload(torch, fa)
-    ilql_ok, ilql = phase_ilql(torch, fa)
+    model_ok = True
+    for name, fn, fn_args in (
+            ("3 model", phase_model, (torch, fa)),
+            ("3 model backward", phase_model_backward, (torch, fa)),
+            ("3 t5 model backward", phase_t5_model_backward, (torch, fa)),
+            ("3 logprob chunk", phase_logprob_chunk, (torch,)),
+            ("3 gptj model", phase_gptj_model, (torch, fa)),
+            ("3 gptj checkpoint", phase_gptj_checkpoint, (torch,)),
+            ("3 neox model", phase_neox_model, (torch, fa)),
+            ("3 neox checkpoint", phase_neox_checkpoint, (torch,)),
+            ("3 neo model", phase_neo_model, (torch, fa)),
+            ("3 neo checkpoint", phase_neo_checkpoint, (torch,))):
+        model_ok = timed_phase(name, fn, *fn_args) & model_ok
+    serving_ok, serving = timed_phase("4 serving", phase_serving, torch, fa)
+    training_ok, training = timed_phase("5 training", phase_training, torch, fa)
+    seq2seq_ok, seq2seq = timed_phase("6 seq2seq training", phase_t5_training, torch, fa)
+    bench_ok, bench = timed_phase("7 bench workload", phase_bench_workload, torch, fa)
+    ilql_ok, ilql = timed_phase("8 ilql", phase_ilql, torch, fa)
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         # one GPT-2-small checkpoint for phases 9 and 10
         gpt2_ckpt = os.path.join(tmp, "gpt2")
-        gpt2_written = write_gpt2_checkpoint(torch, gpt2_ckpt)
-        grpo_ok, grpo = phase_grpo(torch, fa, gpt2_ckpt, gpt2_written)
-        continuous_ok, continuous = phase_continuous(torch, fa, gpt2_ckpt, gpt2_written)
-        features_ok, features = run_continuous_features(torch, fa, gpt2_ckpt, gpt2_written)
+        gpt2_written = timed_phase("9 gpt2 checkpoint", write_gpt2_checkpoint, torch, gpt2_ckpt)
+        grpo_ok, grpo = timed_phase("9 grpo", phase_grpo, torch, fa, gpt2_ckpt, gpt2_written)
+        continuous_ok, continuous = timed_phase(
+            "10 continuous engine", phase_continuous, torch, fa, gpt2_ckpt, gpt2_written)
+        features_ok, features = timed_phase(
+            "10 engine features", run_continuous_features, torch, fa, gpt2_ckpt, gpt2_written)
         continuous_ok = continuous_ok and features_ok
         del gpt2_written
-    tier_ok, tier = phase_serving_tier(torch, fa)
-    gptj_serving_ok, gptj_serving = phase_gptj_serving(torch, fa)
-    gptj_training_ok, gptj_training = phase_gptj_training(torch, fa)
-    neox_serving_ok, neox_serving = phase_neox_serving(torch, fa)
-    neox_training_ok, neox_training = phase_neox_training(torch, fa)
-    rw_ok, rw = phase_randomwalks_ppo(torch, fa)
-    rw_ilql_ok, rw_ilql = phase_randomwalks_ilql(torch, fa)
-    standins_ok, standins = phase_standins(torch, fa)
-    neo_serving_ok, neo_serving = phase_neo_serving(torch, fa)
-    neo_training_ok, neo_training = phase_neo_training(torch, fa)
-    ring_ok, ring = phase_ring(torch, fa)
+    tier_ok, tier = timed_phase("11 serving tier", phase_serving_tier, torch, fa)
+    gptj_serving_ok, gptj_serving = timed_phase("12 gptj serving", phase_gptj_serving, torch, fa)
+    gptj_training_ok, gptj_training = timed_phase(
+        "13 gptj training", phase_gptj_training, torch, fa)
+    neox_serving_ok, neox_serving = timed_phase("14 neox serving", phase_neox_serving, torch, fa)
+    neox_training_ok, neox_training = timed_phase(
+        "15 neox training", phase_neox_training, torch, fa)
+    rw_ok, rw = timed_phase("16 randomwalks ppo", phase_randomwalks_ppo, torch, fa)
+    rw_ilql_ok, rw_ilql = timed_phase("17 randomwalks ilql", phase_randomwalks_ilql, torch, fa)
+    standins_ok, standins = timed_phase("18 standins and guard", phase_standins, torch, fa)
+    neo_serving_ok, neo_serving = timed_phase("19 neo serving", phase_neo_serving, torch, fa)
+    neo_training_ok, neo_training = timed_phase("20 neo training", phase_neo_training, torch, fa)
+    ring_ok, ring = timed_phase("21 ring attention", phase_ring, torch, fa)
+    moe_ok, moe = timed_phase("22 gpt2_moe", phase_moe, torch, fa)
     # the small head dims' paths (phases 16 to 18), each counted on its own
     small_paths = {24: {**rw, "randomwalks_ilql": rw_ilql},
                    32: {n: standins[n] for n in ("standin_gpt2_ppo", "standin_gpt2_ppo_bf16",
@@ -6724,11 +7168,13 @@ def main() -> int:
                  "continuous_engine": continuous, "continuous_engine_features": features,
                  "serving_tier": tier, "serving_tier_features_off": tier["features_off"],
                  "serving_tier_oracle_drafts": tier["oracle_drafts"],
+                 # phase 22's gpt2_moe paths (K1, K2, K3 at D = 64)
+                 "gpt2_moe_serving": moe["serving"], "gpt2_moe_training": moe["training"],
                  # phase 21's ring paths (the D = 64 kernels, K1 and K2/K3 by
                  # the block wrappers), each counted on its own
                  **ring["paths"]}
     if args.profile:
-        profile_paths(torch, args.profile)
+        timed_phase("profile", profile_paths, torch, args.profile)
 
     def entry(shape):
         return {k: timed[(shape, "bfloat16")][k] for k in (
@@ -6858,6 +7304,8 @@ def main() -> int:
                                        headlines=SMALL_HEADLINES[D])
     kernels += ring_kernel_entries(ring)
     log(", ".join(card) if card else "nvidia-smi: no output")
+    walls["total"] = sum(walls.values())
+    print(json.dumps({"phase_walls": walls}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     phases = (("build", build_ok), ("kernel", kernel_ok), ("model", model_ok),
               ("serving", serving_ok), ("training", training_ok),
@@ -6868,7 +7316,7 @@ def main() -> int:
               ("neox_training", neox_training_ok), ("randomwalks_ppo", rw_ok),
               ("randomwalks_ilql", rw_ilql_ok), ("standins_and_guard", standins_ok),
               ("neo_serving", neo_serving_ok), ("neo_training", neo_training_ok),
-              ("ring_attention", ring_ok))
+              ("ring_attention", ring_ok), ("gpt2_moe", moe_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

@@ -317,8 +317,9 @@ REFUSALS = {
                                         "vf_coef": 0.0}}, NotImplementedError, "grouped"),
     "async_rl": ("PPOTrainer", {"train": {"async_rl": {"enabled": True}}}, NotImplementedError,
                  "async_rl"),
-    "async_checkpoint": ("PPOTrainer", {"train": {"async_checkpoint": True}},
-                         NotImplementedError, "async_checkpoint"),
+    # refused until the asynchronous checkpoint write (ROADMAP item 8)
+    # landed: error None, the engine trainer builds with it
+    "async_checkpoint": ("PPOTrainer", {"train": {"async_checkpoint": True}}, None, None),
     "telemetry": ("PPOTrainer", {"train": {"telemetry": {"ring_size": 1024}}},
                   NotImplementedError, "telemetry"),
     # the reference's own refusals: a chunk budget needs chunking, and the
@@ -339,6 +340,11 @@ def test_refusals(tmp_path, name):
     cfg = engine_config(tmp_path)
     for section, values in overrides.items():
         cfg[section].update(values)
+    if error is None:
+        built = get_trainer(trainer)(TRLConfig.from_dict(cfg), device="cpu")
+        assert built.rollout_engine == "continuous"
+        assert built.config.train.training["async_checkpoint"] is True
+        return
     with pytest.raises(error, match=match):
         get_trainer(trainer)(TRLConfig.from_dict(cfg), device="cpu")
 

@@ -15,6 +15,9 @@ kernels (dQ, dK/dV) match the plain backward on the same O and LSE, bf16
 takes their ``tile`` variant and f32 their ``fma`` variant, the C entry
 points refuse a mismatched variant, a misaligned view is copied and
 counted, and a training step runs every attention backward through them.
+On left padding whose first rows see only padding, K1's ``p_scale`` matches
+the plain one and the autograd Function's gradient is autograd's through
+K1's function in plain ops.
 At ILQL's shapes: K1 at the eval prefill (Q = 16, the ``decode`` variant)
 and eval step, K2/K3 at the update (T = 64, right padding), and an ILQL
 update and eval decode run every attention through the kernels.
@@ -115,16 +118,17 @@ def _moved(before):
     return {c: getattr(fa, c) - n for c, n in before.items() if getattr(fa, c) != n}
 
 
-def _visited_reference(q, k, v, bias, causal):
+def _visited_reference(q, k, v, bias, causal, p_scale=False):
     """K1's function in plain ops: the plain forward restricted under the
     causal flag to the keys of the tiles K1 visits (as chip_smoke.py's
-    ``visited_reference``), so all-padding causal rows are held too."""
+    ``visited_reference``), so all-padding causal rows are held too; with
+    ``p_scale`` also K1's ``p_scale`` there."""
     if causal:
         Q, K = q.shape[1], k.shape[1]
         skip = torch.zeros(Q, K, device=q.device).masked_fill_(
             ~fa.visited_keys(Q, K, q.device), float("-inf"))
         bias = skip if bias is None else bias.float() + skip
-    return fa.flash_attention_reference(q, k, v, bias, causal, True)
+    return fa.flash_attention_reference(q, k, v, bias, causal, True, p_scale)
 
 
 EDGE_Q = (1, 2, 16, 17, 63, 64, 65, 112)
@@ -253,7 +257,7 @@ def test_entry_point_refuses_a_mismatched_variant(dev):
         B, Q, H, D = q.shape
         o = torch.empty(q.shape, dtype=q.dtype, device=dev)
         return lib.trlx_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), None,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), None, None,
             fa.FORWARD_VARIANTS[variant], fa._DTYPES[q.dtype], B, H, Q, k.shape[1], D,
             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], 0, 0, 0, 0,
             float(D ** -0.5), 0, stream)
@@ -428,6 +432,44 @@ def test_backward_unvisited_key_tiles_are_zero(dev):
     _, dk, dv = fa._launch_backward(q, k, v, bias, o, lse, do, causal)
     assert not dk[:, 64:].any() and not dv[:, 64:].any()
     assert dk[:, :9].abs().sum() > 0
+
+
+#: left padding whose first rows see only padding: at Q = 112 (K1 ``fma``
+#: in f32, ``tile`` in bf16) and at Q = 9 (``decode`` in bf16)
+MASKED_ROW_CASES = ["all_masked_rows", "small_q_masked_rows"]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", MASKED_ROW_CASES)
+def test_p_scale_matches_plain_on_rows_with_no_live_key(dev, dtype, case):
+    """K1's ``p_scale`` against the plain one of K1's function: exactly 1
+    on every row with a live key, 1 / (keys averaged) on the rows that see
+    only padding, whose LSE rounds to NEG_INF."""
+    q, k, v, bias, causal, _ = _bwd_inputs(dev, case, dtype)
+    _, lse, p_scale = fa._launch(q, k, v, bias, causal, True, with_p_scale=True)
+    _, want_lse, want = _visited_reference(q, k, v, bias, causal, p_scale=True)
+    dead = lse <= attn.NEG_INF / 2
+    assert dead.any() and torch.equal(dead, want_lse <= attn.NEG_INF / 2)
+    assert torch.equal(p_scale[~dead], torch.ones_like(p_scale[~dead]))
+    torch.testing.assert_close(p_scale, want, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("case", MASKED_ROW_CASES)
+def test_function_gradient_on_rows_with_no_live_key(dev, dtype, case):
+    """The autograd Function (K1, dO's rows scaled by ``p_scale``, K2 and
+    K3) against autograd through K1's function in plain ops on left
+    padding: the rows that see only padding take the derivative of the
+    weights their forward used, as every other row does."""
+    q, k, v, bias, causal, do = _bwd_inputs(dev, case, dtype)
+    grads = []
+    for fn in (fa.flash_attention, lambda *a: _visited_reference(*a)[0]):
+        xs = [x.clone().requires_grad_() for x in (q, k, v)]
+        grads.append(torch.autograd.grad(fn(*xs, bias, causal), xs, do))
+    for name, g, w in zip(("dq", "dk", "dv"), *grads):
+        assert torch.isfinite(g).all(), name
+        err = (g.float() - w.float()).abs().max().item()
+        assert err <= _bwd_tol(dtype, w), (name, err)
 
 
 def test_backward_through_strided_views_matches_autograd_of_plain(dev):
@@ -1463,7 +1505,7 @@ def test_other_head_dims_are_refused_before_a_launch(dev):
             fa._launch_backward(q, k, v, None, o, lse, o, False)
         lib = fa._load()["flash_fwd"]
         assert lib.trlx_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), None,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), None, o.data_ptr(), None, None,
             fa.FORWARD_VARIANTS["tile"], 1, 1, 2, 20, 30, D, *q.stride()[:3],
             *k.stride()[:3], *v.stride()[:3], 0, 0, 0, 0, D ** -0.5, 0,
             torch.cuda.current_stream().cuda_stream) == -1
@@ -1698,3 +1740,96 @@ def test_ring_at_sp_1_through_nccl_matches_dense(nccl_mesh, dtype, causal):
         scale = max(1.0, d.float().abs().max().item())
         assert (g.float() - d.float()).abs().max().item() <= tol_g * scale
         assert (g.float() - n.float()).abs().max().item() <= tol_g * scale
+
+
+# ------------------- the rollout cast and async checkpoints ------------------- #
+
+CAST_ARCHS = {  # head dim 64 everywhere: a built instantiation
+    "gpt2": {"vocab_size": 64, "n_positions": 64, "n_embd": 128, "n_layer": 2, "n_head": 2},
+    "gptj": {"vocab_size": 64, "n_positions": 64, "n_embd": 128, "n_layer": 2, "n_head": 2,
+             "rotary_dim": 16},
+    "gpt_neox": {"vocab_size": 64, "max_position_embeddings": 64, "hidden_size": 128,
+                 "num_hidden_layers": 2, "num_attention_heads": 2, "rotary_pct": 0.25},
+    "gpt_neo": {"vocab_size": 64, "max_position_embeddings": 64, "hidden_size": 128,
+                "num_layers": 2, "num_heads": 2, "window_size": 4,
+                "attention_layers": ["global", "local"]},
+    "gpt2_moe": {"vocab_size": 64, "n_positions": 64, "n_embd": 128, "n_layer": 2,
+                 "n_head": 2, "n_experts": 4, "moe_every": 2},
+}
+
+
+@pytest.mark.parametrize("family", list(CAST_ARCHS))
+@pytest.mark.parametrize("engine", ["fixed", "continuous"])
+def test_rollout_cast_collect_is_bit_identical_on_the_card(dev, tmp_path, family, engine):
+    """One sampled collect through the kernels with ``rollout_param_cast``
+    on and one with it off, from the same seed, the layer norms perturbed:
+    ``torch.equal`` tokens, logprobs, values, reference logprobs and
+    rewards; the copy's routers, ``fc2`` and norms are the f32 masters."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+    from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    runs = {}
+    for cast in (True, False):
+        cfg = _small_engine_config(tmp_path / str(cast)).to_dict()
+        cfg["model"].update(model_type=family, model_arch=dict(CAST_ARCHS[family]))
+        cfg["train"]["rollout_param_cast"] = cast
+        if engine == "fixed":
+            cfg["train"]["rollout"] = {"engine": "fixed"}
+        trainer = PPOTrainer(TRLConfig.from_dict(cfg))
+        gen = torch.Generator(device=dev).manual_seed(3)
+        with torch.no_grad():
+            for name, p in trainer.model.named_parameters():
+                if ".ln_" in name:
+                    p.add_(0.05 * torch.randn(p.shape, generator=gen, device=dev))
+        trainer._setup_reference(trainer.model.transformer, trainer.model_config.n_layer)
+        orch = PPOOrchestrator(trainer, PromptPipeline(_prompts(), 20),
+                               reward_fn=lambda samples, **_: [len(s) / 20.0 for s in samples],
+                               chunk_size=8)
+        refs, score_ref = [], trainer.score_ref
+        trainer.score_ref = lambda *a: refs.append(score_ref(*a)) or refs[-1]
+        orch.make_experience(8)
+        torch.cuda.synchronize()
+        buf = trainer.buffer.full
+        runs[cast] = (trainer, {k: getattr(buf, k) for k in (
+            "response_tokens", "response_mask", "logprobs", "values", "rewards")},
+            torch.cat(refs))
+    (on, got, got_ref), (off, want, want_ref) = runs[True], runs[False]
+    for key, w in want.items():
+        assert torch.equal(got[key], w), key
+    assert torch.equal(got_ref, want_ref)
+    assert on.rollout_cast_refreshes == 1 and off.rollout_cast_refreshes == 0
+    masters = dict(on.model.named_parameters())
+    for name, p in on.rollout_model().named_parameters():
+        if any(k in name for k in ("router", "fc2", ".ln_")):
+            assert p is masters[name], name
+        else:
+            assert p.dtype == torch.bfloat16 and p.is_cuda, name
+
+
+def test_async_checkpoint_snapshots_cuda_tensors_before_they_change(dev, tmp_path):
+    """An asynchronous save of CUDA state returns with the snapshot in
+    page-locked host memory; an in-place update queued right after it
+    (the next optimizer step) does not reach the file; the next save of
+    the same layout reuses the buffers; ``load`` joins the write."""
+    from trlx_tpu_torch.utils import checkpoint as ckpt
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    w = torch.randn(1024, 1024, generator=gen, device=dev)
+    moments = {"exp_avg": torch.randn(1024, 1024, generator=gen, device=dev)}
+    want = (w.clone(), moments["exp_avg"].clone())
+    writer = ckpt.CheckpointWriter()
+    writer.save(str(tmp_path), {"w": w, "opt": moments, "step": 1}, 1, async_save=True)
+    w.mul_(2.0)
+    moments["exp_avg"].add_(1.0)
+    (bufs,) = writer._buffers.values()
+    assert all(b.is_pinned() for b in bufs)
+    state = ckpt.load_checkpoint(str(tmp_path), device="cpu")
+    assert torch.equal(state["w"], want[0].cpu())
+    assert torch.equal(state["opt"]["exp_avg"], want[1].cpu()) and state["step"] == 1
+    writer.save(str(tmp_path), {"w": w, "opt": moments, "step": 2}, 2, async_save=True)
+    assert next(iter(writer._buffers.values())) is bufs
+    ckpt.wait_for_checkpoints()
+    state = ckpt.load_checkpoint(str(tmp_path), device=dev)
+    assert torch.equal(state["w"], w) and ckpt.all_steps(str(tmp_path)) == [1, 2]

@@ -25,6 +25,9 @@ interpret mode.
   stand-in's head dim 16. A learned bias under the
   causal flag, or a bias that requires grad without ``learned_bias``, is
   refused.
+- On PPO's left padding, a row with no live key takes the derivative of
+  the weights its forward used (``p_scale``), as autograd through the
+  plain forward and ``jax.grad`` of the JAX package's XLA attention do.
 
 Inputs come from a numpy seed, in f32. Tolerance: atol 2e-5 (1e-5 at head
 dims 256, 128, 96, 32, 24 and 16) on gradients of O(1) magnitude — both
@@ -225,6 +228,68 @@ def test_function_gradients_match_autograd_of_the_plain_forward(name):
         grads.append([x.grad for x in xs])
     for got, want in zip(*grads):
         torch.testing.assert_close(got, want, atol=ATOL, rtol=0)
+
+
+#: left-padded causal cases (B, T, H, D, pads per batch row): the first rows
+#: of each padded sequence see no live key; at T = 100 the forward's key
+#: tiles (64 keys) no longer cover every key
+LEFT_PAD_CASES = {"short": (2, 9, 2, 16, (3, 0)), "long": (2, 100, 2, 32, (70, 5))}
+
+
+def _left_pad_case(name):
+    B, T, H, D, pads = LEFT_PAD_CASES[name]
+    rng = np.random.default_rng(17)
+    q, k, v, w = (rng.normal(size=(B, T, H, D)).astype(np.float32) for _ in range(4))
+    mask = (np.arange(T)[None] >= np.asarray(pads)[:, None]).astype(np.int32)
+    return q, k, v, w, mask
+
+
+@pytest.mark.parametrize("name", list(LEFT_PAD_CASES))
+def test_rows_with_no_live_key_get_the_derivative_of_their_forward(name):
+    """On PPO's left padding a row whose visible keys are all padding
+    averages every key at the mask's value. Its LSE rounds to the row's max
+    at NEG_INF's magnitude, so exp(S - LSE) sums to the number of keys, not
+    1: the ``Function`` scales dO's row by K1's ``p_scale`` and its gradient
+    equals autograd through the plain forward, and ``jax.grad`` of the JAX
+    package's XLA attention (its CPU path) on the same loss."""
+    q, k, v, w, mask = _left_pad_case(name)
+    tb = tattn.padding_bias(torch.from_numpy(mask))
+    grads = []
+    for fn in (tfa.flash_attention, tfa.flash_attention_reference):
+        xs = [torch.from_numpy(x).requires_grad_() for x in (q, k, v)]
+        (fn(*xs, tb, True) * torch.from_numpy(w)).sum().backward()
+        grads.append([x.grad for x in xs])
+
+    def jloss(q, k, v):
+        o = jattn.dot_product_attention(q, k, v, jattn.padding_bias(jnp.asarray(mask)),
+                                        causal=True)
+        return (o * jnp.asarray(w)).sum()
+
+    jgrads = jax.grad(jloss, argnums=(0, 1, 2))(*(jnp.asarray(x) for x in (q, k, v)))
+    dead = (np.cumsum(mask, axis=1) == 0)  # [B, T]: rows with no live key
+    assert dead.any()
+    for got, plain, want in zip(*grads, jgrads):
+        torch.testing.assert_close(got, plain, atol=ATOL, rtol=0)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL, rtol=0)
+    # the rows with no live key carry gradient (q's rows there are not 0)
+    assert grads[0][0].numpy()[dead].std() > 0
+
+
+def test_p_scale_is_one_on_live_rows_and_the_key_count_on_dead_ones():
+    q, k, v, _, mask = _left_pad_case("short")
+    _, lse, p_scale = tfa.flash_attention_reference(
+        *(torch.from_numpy(x) for x in (q, k, v)),
+        tattn.padding_bias(torch.from_numpy(mask)), True, True, True)
+    T = q.shape[1]
+    dead = torch.from_numpy(np.cumsum(mask, axis=1) == 0)[:, None].expand_as(p_scale)
+    assert (lse[dead] == tattn.NEG_INF).all()
+    assert torch.equal(p_scale[~dead], torch.ones_like(p_scale[~dead]))
+    # row i of the padded sequence (3 pads) averages keys 0..i and the
+    # real keys after the pads: i + 1 + (T - 3) of them, each at NEG_INF
+    rows = torch.arange(3, dtype=torch.float32)
+    torch.testing.assert_close(p_scale[0, :, :3], (1 / (rows + 1 + T - 3)).expand(2, 3))
+    do = torch.ones(q.shape, dtype=torch.bfloat16)
+    assert torch.equal(tfa.scale_rows(do, torch.ones_like(p_scale)), do)
 
 
 def test_bias_gets_no_gradient_and_a_learned_bias_is_refused():

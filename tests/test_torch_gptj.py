@@ -450,9 +450,16 @@ def test_registry_builds_gptj_and_refuses_the_other_families():
         family = get_model_family(name)
         assert family.backbone_cls is GPTNeoModel and family.config_cls is GPTNeoConfig
         assert family.name == "gpt_neo" and not family.is_seq2seq
+    # gpt2_moe, refused by name until ROADMAP item 13's last family landed,
+    # now resolves under both names
+    from trlx_tpu_torch.models.gpt2_moe import GPT2MoEConfig, GPT2MoEModel
+
     for name in ("gpt2_moe", "gpt2-moe"):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 13"):
-            get_model_family(name)
+        family = get_model_family(name)
+        assert family.backbone_cls is GPT2MoEModel and family.config_cls is GPT2MoEConfig
+        assert family.name == "gpt2_moe" and family.is_moe and not family.is_seq2seq
+    with pytest.raises(ValueError, match="Unknown model_type"):
+        get_model_family("gpt3")
 
 
 def test_ppo_gptj_yml_mesh_is_refused_until_one_device(tmp_path):

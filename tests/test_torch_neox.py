@@ -476,10 +476,13 @@ def test_continuous_engine_servers_give_the_same_tokens():
 
 def test_bf16_server_build_matches_the_f32_build_and_cast():
     """``param_dtype: bfloat16`` builds the policy in bf16 directly, with the
-    value head's last layer in f32 as the f32 build's cast keeps it: the
-    same parameters, bit for bit, and the same served tokens, logprobs and
-    values as the f32 build cast to bf16."""
+    value head's last layer in f32 as the f32 build's cast keeps it (the
+    f32 build keeps its layer norms f32 too, by the trainers' rollout-cast
+    rule, at the same values): the same parameters, bit for bit, and the
+    same served tokens, logprobs and values as the f32 build cast to
+    bf16."""
     from trlx_tpu_torch.inference.server import InferenceServer
+    from trlx_tpu_torch.utils import cast_excluded
 
     servers = {}
     for param_dtype in ("float32", "bfloat16"):
@@ -490,7 +493,9 @@ def test_bf16_server_build_matches_the_f32_build_and_cast():
     assert set(f32) == set(bf16)
     for name, p in bf16.items():
         want = torch.float32 if name.startswith("v_head.fc2.") else torch.bfloat16
-        assert p.dtype == f32[name].dtype == want and torch.equal(p, f32[name]), name
+        cast = torch.float32 if cast_excluded(name) else torch.bfloat16
+        assert p.dtype == want and f32[name].dtype == cast, name
+        assert torch.equal(p.float(), f32[name].float()), name
     got = [servers[k].generate(_server_prompts()) for k in ("float32", "bfloat16")]
     for a, b in zip(*got):
         assert a["tokens"] == b["tokens"]

@@ -212,7 +212,8 @@ template <int D, int BQ>
 __global__ void __launch_bounds__(kFmaThreads)
 flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ bias,
-                     float* __restrict__ o, float* __restrict__ lse, int H,
+                     float* __restrict__ o, float* __restrict__ lse,
+                     float* __restrict__ p_scale, int H,
                      int Q, int K, Strides sq, Strides sk, Strides sv,
                      BiasStrides sb, float scale, int causal) {
   constexpr int KC = fma_keys<D>();
@@ -352,14 +353,18 @@ flash_fwd_fma_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < JD; ++j)
       if (!kRagged || tx + 16 * j < D) orow[tx + 16 * j] = acc[i][j] / l_safe;
-    if (lse && tx == 0)
-      lse[(static_cast<long long>(b) * H + h) * Q + qi] = m[i] + logf(l_safe);
+    if (tx == 0) {
+      const long long row = (static_cast<long long>(b) * H + h) * Q + qi;
+      const float row_lse = m[i] + logf(l_safe);
+      if (lse) lse[row] = row_lse;
+      if (p_scale) p_scale[row] = p_scale_of(m[i], row_lse, l_safe);
+    }
   }
 }
 
 template <int D, int BQ>
 cudaError_t launch_fma(const void* q, const void* k, const void* v,
-                       const void* bias, void* o, void* lse, int B, int H,
+                       const void* bias, void* o, void* lse, void* p_scale, int B, int H,
                        int Q, int K, Strides sq, Strides sk, Strides sv,
                        BiasStrides sb, float scale, int causal,
                        cudaStream_t stream) {
@@ -370,7 +375,8 @@ cudaError_t launch_fma(const void* q, const void* k, const void* v,
   flash_fwd_fma_kernel<D, BQ><<<grid, kFmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<const float*>(bias),
-      static_cast<float*>(o), static_cast<float*>(lse), H, Q, K, sq, sk, sv,
+      static_cast<float*>(o), static_cast<float*>(lse), static_cast<float*>(p_scale), H, Q, K,
+      sq, sk, sv,
       sb, scale, causal);
   return cudaGetLastError();
 }
@@ -421,7 +427,8 @@ template <int D>
 __global__ void __launch_bounds__(kTileThreads, tile_min_blocks<D>())
 flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const float* __restrict__ bias,
-                      bf16* __restrict__ o, float* __restrict__ lse, int H,
+                      bf16* __restrict__ o, float* __restrict__ lse,
+                      float* __restrict__ p_scale, int H,
                       int Q, int K, Strides sq, Strides sk, Strides sv,
                       BiasStrides sb, float scale, int causal) {
   constexpr int kTB = tile_bytes<D>();
@@ -611,14 +618,18 @@ flash_fwd_tile_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         if (64 * n + 8 * j < D)  // the tile's padded columns are dropped
           *reinterpret_cast<uint32_t*>(orow + 64 * n + 8 * j + 2 * t4) =
               pack_bf16(acc[n][j][2 * hr] / l_safe, acc[n][j][2 * hr + 1] / l_safe);
-    if (lse && t4 == 0)
-      lse[(static_cast<long long>(b) * H + h) * Q + qi[hr]] = m[hr] + logf(l_safe);
+    if (t4 == 0) {
+      const long long row = (static_cast<long long>(b) * H + h) * Q + qi[hr];
+      const float row_lse = m[hr] + logf(l_safe);
+      if (lse) lse[row] = row_lse;
+      if (p_scale) p_scale[row] = p_scale_of(m[hr], row_lse, l_safe);
+    }
   }
 }
 
 template <int D>
 cudaError_t launch_tile(const void* q, const void* k, const void* v,
-                        const void* bias, void* o, void* lse, int B, int H,
+                        const void* bias, void* o, void* lse, void* p_scale, int B, int H,
                         int Q, int K, Strides sq, Strides sk, Strides sv,
                         BiasStrides sb, float scale, int causal,
                         cudaStream_t stream) {
@@ -631,7 +642,8 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v,
   flash_fwd_tile_kernel<D><<<grid, kTileThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(o), static_cast<float*>(lse), H, Q, K, sq, sk, sv,
+      static_cast<bf16*>(o), static_cast<float*>(lse), static_cast<float*>(p_scale), H, Q, K,
+      sq, sk, sv,
       sb, scale, causal);
   return cudaGetLastError();
 }
@@ -896,7 +908,7 @@ __global__ void __launch_bounds__(kDecThreads)
 flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v,
                         const float* __restrict__ bias, bf16* __restrict__ o,
-                        float* __restrict__ lse, int H, int Q, int K,
+                        float* __restrict__ lse, float* __restrict__ p_scale, int H, int Q, int K,
                         Strides sq, Strides sk, Strides sv, BiasStrides sb,
                         float scale, int causal) {
   constexpr int kRowLanes = row_lanes<D>();
@@ -1034,14 +1046,18 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const float l_safe = fmaxf(l_all, 1e-30f);
     o[((static_cast<long long>(b) * Q + qi) * H + h) * D + d] =
         __float2bfloat16(a_all / l_safe);
-    if (lse && d == 0)
-      lse[(static_cast<long long>(b) * H + h) * Q + qi] = m_all + logf(l_safe);
+    if (d == 0) {
+      const long long row = (static_cast<long long>(b) * H + h) * Q + qi;
+      const float row_lse = m_all + logf(l_safe);
+      if (lse) lse[row] = row_lse;
+      if (p_scale) p_scale[row] = p_scale_of(m_all, row_lse, l_safe);
+    }
   }
 }
 
 template <int D>
 cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          const void* bias, void* o, void* lse, int B, int H,
+                          const void* bias, void* o, void* lse, void* p_scale, int B, int H,
                           int Q, int K, Strides sq, Strides sk, Strides sv,
                           BiasStrides sb, float scale, int causal,
                           cudaStream_t stream) {
@@ -1049,7 +1065,8 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
   flash_fwd_decode_kernel<D><<<grid, kDecThreads, 0, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<const float*>(bias),
-      static_cast<bf16*>(o), static_cast<float*>(lse), H, Q, K, sq, sk, sv,
+      static_cast<bf16*>(o), static_cast<float*>(lse), static_cast<float*>(p_scale), H, Q, K,
+      sq, sk, sv,
       sb, scale, causal);
   return cudaGetLastError();
 }
@@ -1057,25 +1074,26 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v,
 // The chosen variant at head dim D; -1 for arguments it was not built for.
 template <int D>
 int launch_variant(const void* q, const void* k, const void* v, const void* bias,
-                   void* o, void* lse, int variant, int dtype, int B, int H,
+                   void* o, void* lse, void* p_scale, int variant, int dtype, int B, int H,
                    int Q, int K, Strides sq, Strides sk, Strides sv,
                    BiasStrides sb, float scale, int causal, cudaStream_t st) {
   const bool kv_aligned = aligned16(k, sk, B, K, H) && aligned16(v, sv, B, K, H);
   cudaError_t err;
   if (variant == kFma && dtype == 0) {
     // CTA rows from the forward's query tile (16 rows when Q <= 16)
-    err = Q <= 16 ? launch_fma<D, fma_rows<D>(16)>(q, k, v, bias, o, lse, B, H, Q, K,
+    err = Q <= 16 ? launch_fma<D, fma_rows<D>(16)>(q, k, v, bias, o, lse, p_scale, B, H, Q, K,
                                                    sq, sk, sv, sb, scale, causal, st)
-                  : launch_fma<D, fma_rows<D>(64)>(q, k, v, bias, o, lse, B, H, Q, K,
+                  : launch_fma<D, fma_rows<D>(64)>(q, k, v, bias, o, lse, p_scale, B, H, Q, K,
                                                    sq, sk, sv, sb, scale, causal, st);
   } else if (variant == kTile && dtype == 1 && Q > 16 && kv_aligned &&
              aligned16(q, sq, B, Q, H)) {
-    err = launch_tile<D>(q, k, v, bias, o, lse, B, H, Q, K, sq, sk, sv, sb,
+    err = launch_tile<D>(q, k, v, bias, o, lse, p_scale, B, H, Q, K, sq, sk, sv, sb,
                          scale, causal, st);
   } else if (variant == kDecode && dtype == 1 && Q <= 16 && kv_aligned) {
-    err = launch_decode<D>(q, k, v, bias, o, lse, B, H, Q, K, sq, sk, sv, sb,
+    err = launch_decode<D>(q, k, v, bias, o, lse, p_scale, B, H, Q, K, sq, sk, sv, sb,
                            scale, causal, st);
-  } else if (variant == kSplit3 && dtype == 0 && !causal && H <= 65535 / split3_chunks<D>() &&
+  } else if (variant == kSplit3 && dtype == 0 && !causal && !p_scale &&
+             H <= 65535 / split3_chunks<D>() &&
              contiguous(sq, Q, H, D) &&
              contiguous(sk, K, H, D) && contiguous(sv, K, H, D) && kv_aligned &&
              aligned16(q, sq, B, Q, H)) {
@@ -1103,12 +1121,16 @@ extern "C" int trlx_flash_fwd_split3_smem(int D) {
 // split3). D: a head dim of kHeadDims (16, 24, 32, 64, 96, 128 or 256).
 // Strides are in elements; the head dim must be contiguous, and the tile,
 // decode and split3 variants need 16-byte-aligned K and V (and Q for tile
-// and split3) as `aligned16` states. bias may be null; lse may be null (not written). Returns 0 on
-// success, else the CUDA error code of the launch, or -1 for arguments the
+// and split3) as `aligned16` states. bias may be null; lse may be null (not written).
+// p_scale, [B, H, Q] f32 like lse, may be null (not written; split3 takes only
+// null): per row the factor that turns the backward's exp(S - LSE) into this
+// forward's weights (hopper_tile.cuh p_scale_of), 1 on every row with a live key.
+// Returns 0 on success, else the CUDA error code of the launch, or -1 for arguments the
 // chosen variant was not built for.
 extern "C" int trlx_flash_fwd(
     const void* q, const void* k, const void* v, const void* bias, void* o,
-    void* lse, int variant, int dtype, int B, int H, int Q, int K, int D,
+    void* lse, void* p_scale, int variant, int dtype, int B, int H, int Q, int K,
+    int D,
     long long sqb, long long sqt, long long sqh, long long skb, long long skt,
     long long skh, long long svb, long long svt, long long svh, long long sbb,
     long long sbh, long long sbq, long long sbk, float scale, int causal,
@@ -1120,7 +1142,7 @@ extern "C" int trlx_flash_fwd(
   const BiasStrides sb{sbb, sbh, sbq, sbk};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_head_dim(D, [&](auto d) {
-    return launch_variant<decltype(d)::value>(q, k, v, bias, o, lse, variant, dtype, B, H, Q,
-                                              K, sq, sk, sv, sb, scale, causal, st);
+    return launch_variant<decltype(d)::value>(q, k, v, bias, o, lse, p_scale, variant, dtype,
+                                              B, H, Q, K, sq, sk, sv, sb, scale, causal, st);
   });
 }

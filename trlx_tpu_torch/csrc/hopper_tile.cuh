@@ -156,6 +156,20 @@ __device__ __forceinline__ bool dead_tile(bool any_live_pair, bool rows_live) {
   return !__syncthreads_or(any_live_pair) && __syncthreads_and(rows_live);
 }
 
+// The factor that turns the backward's P = exp(S - LSE) into the weights the
+// forward gave a row (K1's optional p_scale output). A row with no live key
+// has its max m at NEG_INF's magnitude, where f32's spacing (64 at 1e9)
+// swallows log(l): its LSE rounds to m, and exp(S - LSE) sums to l, not 1,
+// over the keys the forward averaged. There the factor is exp(LSE - m) / l,
+// and the wrapper scales dO's row by it, which scales dP, delta, dS and P^T dO
+// alike; every other row takes exactly 1. The intrinsics keep the epilogue
+// free of the IEEE division's slow-path call, whose saved registers spilled
+// 8 bytes in K1's fma variant at D = 256 (within 2 ulp of 1 / l; __expf(0)
+// is exactly 1).
+__device__ __forceinline__ float p_scale_of(float m, float lse, float l) {
+  return m > 0.5f * kNegInf ? 1.f : __fdividef(__expf(lse - m), l);
+}
+
 // Whether a split3 kernel keeps the bias values its vote read for its
 // logits (32 registers a thread) or reads them again: kept at D <= 64,
 // where the registers are free; above, the accumulator chunk and the

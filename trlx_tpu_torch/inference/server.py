@@ -35,7 +35,7 @@ import torch
 
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.serving.scheduler import DEFAULT_TENANT
-from trlx_tpu_torch.utils import monotonic, resolve_device
+from trlx_tpu_torch.utils import compute_dtype_cast, monotonic, resolve_device
 
 
 class InferenceServer:
@@ -109,15 +109,10 @@ class InferenceServer:
             init_params(self.model, seed)
             if backbone is not None:
                 self.model.transformer.load_state_dict(backbone)
-        # serve a compute-dtype copy of the weights: every op casts its
-        # parameters to the compute dtype per use, so casting once is
-        # exact (a no-op for a bf16 build); the value head's last layer
-        # computes in f32 and stays
-        compute = torch_dtype(self.model_config.dtype)
-        with torch.no_grad():
-            for name, p in self.model.named_parameters():
-                if not name.startswith("v_head.fc2."):
-                    p.data = p.data.to(compute)
+        # serve the weights cast to the compute dtype once, by the rule the
+        # trainers' rollout cast follows (the same leaves stay f32), so a
+        # server loaded from a trainer's checkpoint gives its outputs
+        compute_dtype_cast(self.model, torch_dtype(self.model_config.dtype), in_place=True)
         self.model.eval()
 
         self.tokenizer = tokenizer

@@ -27,6 +27,9 @@ returns the port's state dict. Flax names map one to one:
   ``transformer.h.0.ln_2.weight``, ``transformer/ln_f/scale`` ->
   ``transformer.ln_f.weight``, and the bias-free untied head
   ``transformer/lm_head/kernel`` -> ``transformer.lm_head.weight``;
+- gpt2_moe: ``transformer/h_1/mlp/router`` -> ``transformer.h.1.mlp.router``
+  (likewise ``wi``, ``bi``, ``wo``, ``bo``: stacked expert tensors, kept in
+  the flax layout, not transposed);
 - ``v_head/fc1/kernel`` -> ``v_head.fc1.weight``;
 - ILQL: ``heads/q1_head/fc2/kernel`` -> ``heads.q1_head.fc2.weight`` (the
   ``CausalLMWithILQLHeads`` tree), and the JAX ILQL trainer's
@@ -50,7 +53,9 @@ import numpy as np
 import torch
 
 _LEAF = {"kernel": "weight", "scale": "weight", "embedding": "weight",
-         "weight": "weight", "bias": "bias"}
+         "weight": "weight", "bias": "bias",
+         # gpt2_moe's switch MLP: raw parameters in the flax layout
+         "router": "router", "wi": "wi", "bi": "bi", "wo": "wo", "bo": "bo"}
 
 
 def _walk(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], Any]]:

@@ -159,7 +159,10 @@ class Block(nn.Module):
         self.ln_1 = LayerNorm(config.n_embd, eps, dt, **fk)
         self.attn = Attention(config, device)
         self.ln_2 = LayerNorm(config.n_embd, eps, dt, **fk)
-        self.mlp = MLP(config, device)
+        self.mlp = self.make_mlp(config, device)
+
+    def make_mlp(self, config, device=None) -> nn.Module:
+        return MLP(config, device)
 
     def forward(self, x, bias, cache_kv=None, cache_index=None, causal=False):
         x = x + self.attn(self.ln_1(x), bias, cache_kv, cache_index, causal)
@@ -273,12 +276,17 @@ class GPT2Model(DecoderLM):
             self.wpe = nn.Embedding(config.n_positions, config.n_embd, **fk)
         # keyed by layer index, so a branch's blocks keep their names
         self.h = nn.ModuleDict(
-            {str(i): Block(config, device) for i in range(self.first_layer, config.n_layer)}
+            {str(i): self.make_block(i, device)
+             for i in range(self.first_layer, config.n_layer)}
         )
         self.ln_f = LayerNorm(
             config.n_embd, config.layer_norm_epsilon,
             torch_dtype(config.dtype), **fk,
         )
+
+    def make_block(self, i: int, device=None) -> nn.Module:
+        """Block ``i`` (the MoE family swaps some blocks' MLP)."""
+        return Block(self.config, device)
 
     def embed(self, input_ids, position_ids) -> torch.Tensor:
         # each table rounds to the compute dtype before the add. Engine rows

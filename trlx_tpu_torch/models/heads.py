@@ -253,7 +253,8 @@ class CausalLMWithILQLHeads(nn.Module):
 
 def init_params(model: nn.Module, seed: int) -> None:
     """Random init from ``seed``: N(0, 0.02) weights, embeddings and
-    relative position tables, zero biases, unit layer-norm scales (GPT-2's,
+    relative position tables, zero biases (and gpt2_moe's expert biases
+    ``bi``, ``bo``), unit layer-norm scales (GPT-2's,
     GPT-J's and GPT-NeoX's ``ln_*``, T5's ``ln_*`` and ``*_ln``). The draws
     are f32 whatever a parameter's dtype, one tensor at a time, so a model
     built in bf16 holds exactly the f32 build's weights rounded to bf16."""
@@ -261,7 +262,7 @@ def init_params(model: nn.Module, seed: int) -> None:
     gen.manual_seed(int(seed))
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith("bias"):
+            if name.endswith(("bias", ".bi", ".bo")):
                 p.zero_()
             elif re.search(r"[._]ln[._]", name):
                 p.fill_(1.0)

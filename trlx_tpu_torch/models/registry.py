@@ -1,10 +1,10 @@
 """Model-family registry: ``model.model_type`` -> architecture kit
 (counterpart of :mod:`trlx_tpu.models.registry`; ``gpt2``, ``gptj`` with
 its alias ``gpt-j``, ``gpt_neo`` with its alias ``gpt-neo``, ``gpt_neox``
-with its aliases ``neox`` and ``gpt-neox``, and ``t5`` with its alias
+with its aliases ``neox`` and ``gpt-neox``, ``gpt2_moe`` with its alias
+``gpt2-moe`` (switch-MoE GPT-2; ``is_moe``), and ``t5`` with its alias
 ``ul2``, the seq2seq family), and :func:`load_arch`, the architecture and
-weights a config asks for. The JAX package's other family, ``gpt2_moe``,
-is refused by name.
+weights a config asks for.
 """
 
 from __future__ import annotations
@@ -22,12 +22,10 @@ class ModelFamily:
     init_cache: Callable  # (config, batch, capacity, device) -> cache
     load_checkpoint: Callable  # (HF checkpoint dir, dtype) -> (config, state dict)
     is_seq2seq: bool = False
+    is_moe: bool = False  # switch-MoE: router losses join the training loss
 
 
 _FAMILIES: Dict[str, ModelFamily] = {}
-
-#: the JAX package's other family (and alias), refused by name
-UNPORTED_FAMILIES = ("gpt2_moe", "gpt2-moe")
 
 
 def register_model_family(family: ModelFamily, *aliases: str) -> ModelFamily:
@@ -42,10 +40,6 @@ def get_model_family(name: str) -> ModelFamily:
         _register_builtins()
     if key in _FAMILIES:
         return _FAMILIES[key]
-    if key in UNPORTED_FAMILIES:
-        raise NotImplementedError(
-            f"model_type {name!r} is not ported yet (ROADMAP item 13, other families)"
-        )
     raise ValueError(
         f"Unknown model_type: {name!r}. Registered: {sorted(_FAMILIES)}"
     )
@@ -86,6 +80,7 @@ def _register_builtins() -> None:
         load_t5_checkpoint,
     )
     from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model, init_cache
+    from trlx_tpu_torch.models.gpt2_moe import GPT2MoEConfig, GPT2MoEModel, no_checkpoint
     from trlx_tpu_torch.models.gpt_neo import GPTNeoConfig, GPTNeoModel, init_gpt_neo_cache
     from trlx_tpu_torch.models.gptj import GPTJConfig, GPTJModel, init_gptj_cache
     from trlx_tpu_torch.models.neox import NeoXConfig, NeoXModel, init_neox_cache
@@ -106,6 +101,11 @@ def _register_builtins() -> None:
     register_model_family(
         ModelFamily("gpt_neox", NeoXConfig, NeoXModel, init_neox_cache, load_neox_checkpoint),
         "neox", "gpt-neox",
+    )
+    register_model_family(
+        ModelFamily("gpt2_moe", GPT2MoEConfig, GPT2MoEModel, init_cache, no_checkpoint,
+                    is_moe=True),
+        "gpt2-moe",
     )
     register_model_family(
         ModelFamily("t5", T5Config, T5Model, init_t5_cache, load_t5_checkpoint,

@@ -221,7 +221,7 @@ def _load() -> Dict[str, ctypes.CDLL]:
         fwd = ctypes.CDLL(paths["flash_fwd"])
         fwd.trlx_flash_fwd.restype = ctypes.c_int
         fwd.trlx_flash_fwd.argtypes = (
-            [ctypes.c_void_p] * 6
+            [ctypes.c_void_p] * 7
             + [ctypes.c_int] * 7
             + [ctypes.c_longlong] * 13
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
@@ -358,11 +358,14 @@ def flash_attention_reference(
     bias: Optional[torch.Tensor] = None,  # broadcastable to [B, H, Q, K]
     causal: bool = False,
     return_lse: bool = False,
+    return_p_scale: bool = False,
 ):
     """The plain version: the same function as the kernel in plain tensor
     ops — logits and softmax in f32, finite ``NEG_INF`` masking, weights
     cast to V's dtype before the second product, output in q's dtype.
-    Returns ``o`` [B, Q, H, D] (and ``lse`` [B, H, Q] f32)."""
+    Returns ``o`` [B, Q, H, D] (and ``lse`` [B, H, Q] f32, and with
+    ``return_p_scale`` also K1's ``p_scale`` [B, H, Q] f32: see
+    :func:`p_scale_reference`)."""
     Q, K = q.shape[1], k.shape[1]
     if causal:
         cb = causal_bias(Q, K, device=q.device)
@@ -375,9 +378,35 @@ def flash_attention_reference(
     out = torch.einsum(
         "bhqk,bkhd->bqhd", weights.to(v.dtype).float(), v.float()
     ).to(q.dtype)
+    if return_p_scale:
+        lse = torch.logsumexp(logits, dim=-1)
+        return out, lse, p_scale_reference(logits, lse)
     if return_lse:
         return out, torch.logsumexp(logits, dim=-1)
     return out
+
+
+def p_scale_reference(logits: torch.Tensor, lse: torch.Tensor) -> torch.Tensor:
+    """Per row, the factor that turns the backward's P = exp(S - LSE) into
+    the softmax weights the forward used (K1's ``p_scale`` output,
+    ``csrc/hopper_tile.cuh::p_scale_of``): exactly 1 on a row with a live
+    key, and 1 / sum(exp(S - LSE)) on a row whose keys are all masked. There
+    the row's max sits at NEG_INF's magnitude, where f32's spacing (64 at
+    1e9) swallows log(l), so the LSE rounds to the max and exp(S - LSE) sums
+    to the number of keys averaged rather than to 1. ``logits`` [B, H, Q,
+    K] f32 with every mask added, ``lse`` their logsumexp."""
+    dead = lse <= 0.5 * NEG_INF
+    total = torch.exp(logits - lse[..., None]).sum(-1)
+    return torch.where(dead, 1.0 / total, torch.ones_like(total))
+
+
+def scale_rows(do: torch.Tensor, p_scale: torch.Tensor) -> torch.Tensor:
+    """``do`` [B, Q, H, D] with each row multiplied by ``p_scale`` [B, H,
+    Q] in f32 and rounded back to do's dtype. Every gradient of the
+    backward is linear in dO, so this gives rows with no live key the
+    derivative of the weights their forward used, and leaves every other
+    row (a factor of exactly 1) bit for bit as it was."""
+    return (do * p_scale.transpose(1, 2)[..., None]).to(do.dtype)
 
 
 def sum_to_shape(x: torch.Tensor, shape) -> torch.Tensor:
@@ -400,19 +429,24 @@ def flash_attention_backward_reference(
     do: torch.Tensor,  # [B, Q, H, D]
     causal: bool = False,
     with_dbias: bool = False,
+    kernel_tiles: bool = True,
 ):
     """The plain version of the backward kernels: the TPU kernels'
     recomputation in plain tensor ops. P = exp(S - LSE) in f32 (not
     rounded), delta = rowsum(dO * O) in f32, dP from dO and V widened to
     f32, dS = P * (dP - delta); dQ from dS cast to K's dtype, dK and dV
     from f32 P and dS; dQ and dK scaled once at the end. Under ``causal``
-    keys in the tiles the forward kernel skipped carry no weight
-    (:func:`visited_keys`), so on a row whose visible keys are all masked
-    P sums to 1 over the tiles the kernel visited. Returns ``(dq, dk,
-    dv)`` in the dtypes of q, k, v; with ``with_dbias`` also dS [B, H, Q,
-    K] f32, the bias's gradient before the sum over the dims where the
-    bias broadcasts (unscaled: the bias is added after the scale; K2's
-    output, which needs ``causal=False``)."""
+    with ``kernel_tiles`` keys in the tiles the forward kernel skipped
+    carry no weight (:func:`visited_keys`), as in K2 and K3: a row whose
+    visible keys are all masked averaged only the keys of those tiles in
+    K1. The CPU path passes ``kernel_tiles=False``, since its plain forward
+    averaged every key there. On such a row exp(S - LSE) sums to the
+    number of keys averaged, not to 1; :class:`FlashAttention` scales dO's
+    row first (:func:`scale_rows`). Returns ``(dq, dk, dv)`` in the dtypes
+    of q, k, v; with ``with_dbias`` also dS [B, H, Q, K] f32, the bias's
+    gradient before the sum over the dims where the bias broadcasts
+    (unscaled: the bias is added after the scale; K2's output, which needs
+    ``causal=False``)."""
     Q, K = q.shape[1], k.shape[1]
     scale = q.shape[-1] ** -0.5
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
@@ -421,7 +455,7 @@ def flash_attention_backward_reference(
     if causal:
         logits = logits + causal_bias(Q, K, device=q.device)
     p = torch.exp(logits - lse[..., None])
-    if causal:
+    if causal and kernel_tiles:
         p = p * visited_keys(Q, K, q.device)
     do32 = do.float()
     delta = torch.einsum("bqhd,bqhd->bhq", do32, o.float())
@@ -452,8 +486,11 @@ def _check_dbias(bias, causal) -> None:
 class FlashAttention(torch.autograd.Function):
     """Differentiable flash attention (the counterpart of ``_flash`` with
     ``_flash_fwd``/``_flash_bwd``): the forward saves q, k, v, bias, O and
-    LSE; the backward launches the dQ kernel and then the dK/dV kernel on
-    CUDA tensors, or runs the plain backward on CPU tensors. A bias that
+    LSE, and K1's ``p_scale``; the backward scales dO's rows by it
+    (:func:`scale_rows`: a row with no live key takes the derivative of
+    the weights its forward used, every other row stays as it was), then
+    launches the dQ kernel and the dK/dV kernel on CUDA tensors, or runs
+    the plain backward on CPU tensors. A bias that
     requires grad (T5's learned relative position bias, which the TPU
     package leaves on XLA's einsum path) gets its gradient from the dQ
     kernel, summed over the dims where it broadcasts; any other bias gets
@@ -462,22 +499,24 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, bias, causal):
         if q.device.type == "cpu":
-            o, lse = flash_attention_reference(q, k, v, bias, causal, True)
+            o, lse, p_scale = flash_attention_reference(q, k, v, bias, causal, True, True)
         else:
-            o, lse = _launch(q, k, v, bias, causal, True)
-        ctx.save_for_backward(q, k, v, bias, o, lse)
+            o, lse, p_scale = _launch(q, k, v, bias, causal, True, with_p_scale=True)
+        ctx.save_for_backward(q, k, v, bias, o, lse, p_scale)
         ctx.causal = causal
         return o
 
     @staticmethod
     def backward(ctx, do):
-        q, k, v, bias, o, lse = ctx.saved_tensors
+        q, k, v, bias, o, lse, p_scale = ctx.saved_tensors
         with_dbias = ctx.needs_input_grad[3]
-        backward = (
-            flash_attention_backward_reference if q.device.type == "cpu"
-            else _launch_backward
-        )
-        grads = backward(q, k, v, bias, o, lse, do, ctx.causal, with_dbias)
+        if bias is not None:  # without one every row has a live key
+            do = scale_rows(do, p_scale)
+        if q.device.type == "cpu":
+            grads = flash_attention_backward_reference(
+                q, k, v, bias, o, lse, do, ctx.causal, with_dbias, kernel_tiles=False)
+        else:
+            grads = _launch_backward(q, k, v, bias, o, lse, do, ctx.causal, with_dbias)
         dbias = sum_to_shape(grads[3], bias.shape).to(bias.dtype) if with_dbias else None
         return (*grads[:3], dbias, None)
 
@@ -503,9 +542,11 @@ def flash_attention(
 
     Fully-masked rows: with an explicit bias the kernel averages the K
     real values, as the plain version does. Under ``causal=True`` a query
-    row whose visible keys are all padding (a left-padding row, whose
-    output callers discard) averages only the keys of the tiles it
-    visits, as the TPU kernel does."""
+    row whose visible keys are all padding (a left-padding row) averages
+    only the keys of the tiles it visits, as the TPU kernel does, where
+    the plain version averages every key at the mask's value. Either way
+    the gradient is the derivative of the weights that row's forward used
+    (:func:`scale_rows`)."""
     grad_bias = bias is not None and bias.requires_grad
     if torch.is_grad_enabled() and grad_bias:
         _check_dbias(bias, causal)
@@ -670,9 +711,10 @@ def _bias_view(bias, B, H, Q, K):
     return bias, bias.stride()
 
 
-def _launch(
-    q, k, v, bias, causal, return_lse
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+def _launch(q, k, v, bias, causal, return_lse, with_p_scale: bool = False):
+    """K1 on the current stream: ``(o, lse)``, ``lse`` None unless asked
+    for; with ``with_p_scale`` also its [B, H, Q] f32 ``p_scale``
+    (:func:`p_scale_reference` is its plain version)."""
     global FLASH_FWD_LAUNCHES, FLASH_FWD_COPIES
     _check(q, k, v, bias, "flash_attention")
     B, Q, H, D = q.shape
@@ -682,10 +724,11 @@ def _launch(
     FLASH_FWD_COPIES += copies
     bias, sb = _bias_view(bias, B, H, Q, K)
     o = torch.empty((B, Q, H, D), dtype=q.dtype, device=q.device)
-    lse = (
+    lse, p_scale = (
         torch.empty((B, H, Q), dtype=torch.float32, device=q.device)
-        if return_lse
+        if wanted
         else None  # the kernel skips the write
+        for wanted in (return_lse, with_p_scale)
     )
     lib = _load()["flash_fwd"]
     with torch.cuda.device(q.device):
@@ -693,7 +736,7 @@ def _launch(
         rc = lib.trlx_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(),
             bias.data_ptr() if bias is not None else None,
-            o.data_ptr(), lse.data_ptr() if lse is not None else None,
+            o.data_ptr(), *_pointers((lse, p_scale)),
             FORWARD_VARIANTS[variant], _DTYPES[q.dtype], B, H, Q, K, D,
             q.stride(0), q.stride(1), q.stride(2),
             k.stride(0), k.stride(1), k.stride(2),
@@ -707,7 +750,7 @@ def _launch(
         )
     FLASH_FWD_LAUNCHES += 1
     globals()[f"FLASH_FWD_{variant.upper()}_LAUNCHES"] += 1
-    return o, lse
+    return (o, lse, p_scale) if with_p_scale else (o, lse)
 
 
 def _check_backward(q, k, v, bias, o, lse, do, name: str) -> None:
@@ -743,7 +786,7 @@ def _launch_split3(q, k, v, bias) -> Tuple[torch.Tensor, torch.Tensor]:
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.trlx_flash_fwd(
             q3.data_ptr(), k3.data_ptr(), v3.data_ptr(),
-            bias.data_ptr() if bias is not None else None, o.data_ptr(), lse.data_ptr(),
+            bias.data_ptr() if bias is not None else None, o.data_ptr(), lse.data_ptr(), None,
             FORWARD_VARIANTS["split3"], _DTYPES[torch.float32], B, H, Q, K, D,
             *q3.stride()[1:4], *k3.stride()[1:4], *v3.stride()[1:4], *sb,
             float(D ** -0.5), 0, stream,
@@ -910,6 +953,8 @@ __all__ = [
     "flash_block_fwd",
     "forward_variant",
     "kernel_inputs",
+    "p_scale_reference",
+    "scale_rows",
     "split_planes",
     "split_planes_reference",
     "sum_to_shape",

@@ -23,7 +23,6 @@ _TRAINERS: Dict[str, type] = {}
 #: the default is refused instead of silently ignored.
 UNPORTED_TRAIN_KEYS = {
     "async_rl": ({}, "17 (async actor-learner)"),
-    "async_checkpoint": (False, "8 (asynchronous checkpoint write)"),
     "telemetry": ({}, "19 (telemetry)"),
     "resilience": ({}, "18 (the supervisor)"),
     "resume_from_checkpoint": (False, "18 (resume)"),
@@ -88,8 +87,10 @@ def refuse_unported(config) -> None:
             f"train.mesh={mesh}: the trainers run on one device. The mesh "
             "(trlx_tpu_torch.parallel.make_mesh) and ring attention over its sp "
             "axis are ported; dp/fsdp/tp training (parameter partitioning and "
-            "collectives), the pipeline (pp), expert parallelism and the "
-            "sp-sharded decode cache are not (ROADMAP item 14)"
+            "collectives), the pipeline (pp), expert parallelism over ep (the "
+            "gpt2_moe family runs its dense switch path on one device; "
+            "ROADMAP item 14.5) and the sp-sharded decode cache are not "
+            "(ROADMAP item 14)"
         )
 
 

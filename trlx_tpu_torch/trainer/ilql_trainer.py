@@ -20,6 +20,15 @@
   V)`` at each step, masked by ``logit_mask`` on the last input token,
   through :func:`~trlx_tpu_torch.ops.sampling.make_sampler` with
   ``with_values=False`` and the trainer's ``torch.Generator``.
+- Under ``train.rollout_param_cast`` (default on) with a compute dtype
+  other than the parameters', the eval decode runs on a compute-dtype
+  copy of the policy and the target heads (:meth:`rollout_bundle`, the
+  PPO trainer's cast: bit-identical, ``fc2`` and the layer norms kept
+  f32), made on first use after the last update or ``load``.
+- A ``gpt2_moe`` policy adds the router's load-balancing penalty to each
+  update's loss and stats, as the PPO trainer does.
+- ``save`` runs on a thread under ``train.async_checkpoint``, which
+  ``learn`` joins at its end (:mod:`trlx_tpu_torch.utils.checkpoint`).
 - ``self.forwards`` counts the forwards the trainer makes (update
   forwards, the sampler's prefills and decode steps): each runs the
   attention forward once per layer.
@@ -35,14 +44,25 @@ import torch
 
 from trlx_tpu_torch.data.ilql_types import ILQLBatch
 from trlx_tpu_torch.data.method_configs import DEFAULT_ILQL_GEN_KWARGS
+from trlx_tpu_torch.models.gpt2_moe import (
+    apply_router_penalty,
+    collect_moe_losses,
+    moe_loss_summary,
+)
 from trlx_tpu_torch.models.heads import CausalLMWithILQLHeads, ILQLHeads, init_params
 from trlx_tpu_torch.models.registry import get_model_family, load_arch
 from trlx_tpu_torch.ops.ilql_math import ilql_loss, polyak_update
 from trlx_tpu_torch.ops.sampling import GenerationConfig, make_sampler, validate_gen_config
 from trlx_tpu_torch.trainer import BaseRLTrainer, refuse_unported, register_trainer
 from trlx_tpu_torch.trainer.common import freeze_layers, make_optimizer
-from trlx_tpu_torch.utils import monotonic, resolve_device, set_seed
-from trlx_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from trlx_tpu_torch.utils import (
+    compute_dtype_cast,
+    monotonic,
+    resolve_device,
+    rollout_cast_dtype,
+    set_seed,
+)
+from trlx_tpu_torch.utils.checkpoint import CheckpointWriter, load_checkpoint
 from trlx_tpu_torch.utils.logging import Logger
 
 
@@ -98,8 +118,11 @@ class ILQLTrainer(BaseRLTrainer):
                 self.tokenizer.pad_token = self.tokenizer.eos_token
 
         self._setup_model()
+        self._rollout_bundle = None
+        self.rollout_cast_refreshes = 0
         self.opt = make_optimizer(train, train.total_steps, self.model.parameters())
         self.generator = set_seed(train.seed, self.device)  # sampling noise
+        self._checkpoints = CheckpointWriter()
 
         # the eval-decode defaults under the config's keys, also when code
         # assigned method.gen_kwargs directly (bypassing from_dict's merge)
@@ -148,6 +171,26 @@ class ILQLTrainer(BaseRLTrainer):
         freeze_layers(self.model, config.model.num_layers_unfrozen, self.model_config.n_layer,
                       zero_freezes_all=True)
 
+    @property
+    def rollout_cast_dtype(self) -> Optional[torch.dtype]:
+        """The eval decode's weight dtype under ``train.rollout_param_cast``,
+        or ``None`` (off, or the compute dtype is the parameters')."""
+        return rollout_cast_dtype(self.config.train, self.model_config)
+
+    def rollout_bundle(self):
+        """``(policy, target heads)`` for the eval decode: compute-dtype
+        copies when the cast is on (made on first use after the last
+        update or ``load``; ``rollout_cast_refreshes`` counts them), else
+        the live modules."""
+        dtype = self.rollout_cast_dtype
+        if dtype is None:
+            return self.model, self.target
+        if self._rollout_bundle is None:
+            self._rollout_bundle = (compute_dtype_cast(self.model, dtype),
+                                    compute_dtype_cast(self.target, dtype))
+            self.rollout_cast_refreshes += 1
+        return self._rollout_bundle
+
     def _rebuild_sampler(self) -> None:
         """(Re)build the eval sampler from ``self.gen_config``."""
         self._sampler = make_sampler(
@@ -179,16 +222,17 @@ class ILQLTrainer(BaseRLTrainer):
         reads only V from the live heads and Q from the target heads (the
         JAX sampler's live Q heads go unread, and XLA prunes them)."""
         self.forwards += 1
-        out = self.model.transformer(
+        model, target = self.rollout_bundle()
+        out = model.transformer(
             input_ids, attention_mask=attention_mask, position_ids=position_ids,
             cache=cache, cache_index=cache_index, compute_logits=not last_only,
         )
         hidden, raw = out["hidden"], out["logits"]
         if last_only:
             hidden = hidden[:, -1:]
-            raw = self.model.transformer.logits(hidden)
+            raw = model.transformer.logits(hidden)
         logits = self.shift_logits(
-            raw, self.target.q(hidden), self.model.heads.v(hidden), input_ids, last_only
+            raw, target.q(hidden), model.heads.v(hidden), input_ids, last_only
         )
         return {"logits": logits, "cache": out["cache"]}
 
@@ -206,19 +250,27 @@ class ILQLTrainer(BaseRLTrainer):
 
     def _loss(self, mb: ILQLBatch):
         self.forwards += 1
-        out = self.model(
-            mb.input_ids, attention_mask=mb.attention_mask,
-            actions_ixs=mb.actions_ixs, states_ixs=mb.states_ixs,
-        )
+        with collect_moe_losses(self.model) as moe:
+            out = self.model(
+                mb.input_ids, attention_mask=mb.attention_mask,
+                actions_ixs=mb.actions_ixs, states_ixs=mb.states_ixs,
+            )
         with torch.no_grad():
             target_qs = self.target.q(out["action_hidden"])
-        return ilql_loss(out["logits"], out["qs"], target_qs, out["vs"], mb, self.config.method)
+        loss, stats = ilql_loss(out["logits"], out["qs"], target_qs, out["vs"], mb,
+                                self.config.method)
+        if self.family.is_moe:
+            loss, stats = apply_router_penalty(
+                loss, stats, moe_loss_summary(moe), self.model_config
+            )
+        return loss, stats
 
     def train_step(self, mb: ILQLBatch) -> Dict[str, torch.Tensor]:
         """One ILQL update on a minibatch, then the target sync when due;
         returns its stats (device scalars), ``optimizer/grad_norm``
         included."""
         method = self.config.method
+        self._rollout_bundle = None  # stale after this update
         loss, stats = self._loss(mb)
         self.opt.zero_grad()
         loss.backward()
@@ -239,6 +291,13 @@ class ILQLTrainer(BaseRLTrainer):
         n_minibatches = max(len(self.store) // train.batch_size, 1)
         total_steps = min(train.total_steps, train.epochs * n_minibatches)
         self.logger = Logger()
+        try:
+            return self._learn_body(total_steps, n_minibatches)
+        finally:
+            self._checkpoints.wait()  # the end save ran beside the final eval
+
+    def _learn_body(self, total_steps: int, n_minibatches: int) -> Dict[str, Any]:
+        train = self.config.train
         self.logger.log(self.evaluate(), step=0)
         iter_count = self.step
         final_stats: Dict[str, Any] = {}
@@ -288,11 +347,16 @@ class ILQLTrainer(BaseRLTrainer):
             "step": self.step,
             "generator": self.generator.get_state(),
         }
-        save_checkpoint(directory or self.config.train.checkpoint_dir, state, self.step)
+        self._checkpoints.save(
+            directory or self.config.train.checkpoint_dir, state, self.step,
+            async_save=bool(self.config.train.training.get("async_checkpoint", False)),
+        )
 
     def load(self, directory: str) -> None:
-        """Restore the latest checkpoint under ``directory``."""
+        """Restore the newest checkpoint under ``directory`` (after every
+        write in flight has landed)."""
         state = load_checkpoint(directory, device="cpu")
+        self._rollout_bundle = None
         self.model.load_state_dict(state["model"])
         self.target.load_state_dict(state["target"])
         self.opt.load_state_dict(state["optimizer"])

@@ -37,6 +37,24 @@
   always under ``phase_overlap: false``) the minibatch-major order. One
   loop runs either order; after each minibatch's last update the KL
   controller advances and the boundaries are checked.
+- ``train.rollout_param_cast`` (default on), when the compute dtype is
+  not the parameters' dtype: the sampler, the continuous engine and the
+  hydra trunk run on a compute-dtype copy of the policy
+  (:func:`~trlx_tpu_torch.utils.compute_dtype_cast`, :meth:`rollout_model`),
+  made on first use after the last update (so once per collect) and
+  dropped by each update and by ``load``; the frozen reference is cast
+  once, for good. Every op already rounds its weights to the compute
+  dtype per use, so the outputs are bit-identical; ``fc2``, the MoE
+  router and the layer norms keep their f32 masters. The seq2seq trainer
+  keeps its masters, as the JAX package's does.
+- A ``gpt2_moe`` policy's update adds the router's load-balancing penalty
+  (:func:`~trlx_tpu_torch.models.gpt2_moe.apply_router_penalty`) to the
+  loss and its stats, from the losses the switch layers collect in that
+  forward only; ``logprob_chunk`` is off for it, as in the JAX package.
+- ``save`` writes through :mod:`trlx_tpu_torch.utils.checkpoint`: under
+  ``train.async_checkpoint`` it returns once the state is in host memory
+  and the write runs on a thread, which ``learn`` joins at its end and
+  ``load`` before it reads; two steps are kept.
 - ``self.forwards`` counts the policy/reference forwards the trainer
   makes (rollout prefill and decode steps, reference scoring, update
   forwards): each runs the attention forward once per layer.
@@ -64,6 +82,11 @@ import torch
 from trlx_tpu_torch.data.method_configs import GRPOConfig
 from trlx_tpu_torch.data.ppo_types import PPORolloutBatch, SampleOutput
 from trlx_tpu_torch.inference import RolloutEngineConfig
+from trlx_tpu_torch.models.gpt2_moe import (
+    apply_router_penalty,
+    collect_moe_losses,
+    moe_loss_summary,
+)
 from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
 from trlx_tpu_torch.models.registry import get_model_family, load_arch
 from trlx_tpu_torch.ops.ppo_math import (
@@ -82,12 +105,14 @@ from trlx_tpu_torch.trainer import BaseRLTrainer, refuse_unported, register_trai
 from trlx_tpu_torch.trainer.common import freeze_layers, make_optimizer
 from trlx_tpu_torch.utils import (
     chunked_logprobs,
+    compute_dtype_cast,
     logprobs_from_logits,
     monotonic,
     resolve_device,
+    rollout_cast_dtype,
     set_seed,
 )
-from trlx_tpu_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+from trlx_tpu_torch.utils.checkpoint import CheckpointWriter, load_checkpoint
 from trlx_tpu_torch.utils.logging import Logger
 
 
@@ -144,9 +169,12 @@ class PPOTrainer(BaseRLTrainer):
             if self.tokenizer.pad_token_id is None:
                 self.tokenizer.pad_token = self.tokenizer.eos_token
 
+        self._rollout_module = None
+        self.rollout_cast_refreshes = 0
         self._setup_model()
         self.opt = make_optimizer(train, train.total_steps, self.model.parameters())
         self.generator = set_seed(train.seed, self.device)  # sampling noise
+        self._checkpoints = CheckpointWriter()
 
         gen_kwargs = dict(method.gen_kwargs)
         self.apply_tokenizer_gen_defaults(gen_kwargs)
@@ -216,6 +244,44 @@ class PPOTrainer(BaseRLTrainer):
             self.ref = backbone.hydra_branch(self.branch_start)
         else:
             self.ref = copy.deepcopy(backbone).requires_grad_(False)
+        if self.rollout_cast_dtype is not None:
+            # inference-only: cast once, for good (half its memory)
+            compute_dtype_cast(self.ref, self.rollout_cast_dtype, in_place=True)
+        self._rollout_module = None
+
+    # ------------------- rollout-phase weight precision ------------------ #
+
+    def _supports_rollout_cast(self) -> bool:
+        """Whether the policy's outputs are bit-identical on compute-dtype
+        weights (every op casts per use; the seq2seq trainer's T5 does not
+        qualify in the JAX package, and keeps its masters here too)."""
+        return True
+
+    @property
+    def rollout_cast_dtype(self) -> Optional[torch.dtype]:
+        """The dtype the rollout phase's weights are cast to, or ``None``
+        when ``train.rollout_param_cast`` is off, the trainer keeps its
+        masters, or the compute dtype is the parameters' dtype."""
+        if not self._supports_rollout_cast():
+            return None
+        return rollout_cast_dtype(self.config.train, self.model_config)
+
+    def rollout_model(self) -> torch.nn.Module:
+        """The policy the rollout phase runs: the compute-dtype copy when
+        the cast is on (made from the masters on first use after the last
+        update or ``load``; ``rollout_cast_refreshes`` counts them), else
+        the policy itself."""
+        if self.rollout_cast_dtype is None:
+            return self.model
+        if self._rollout_module is None:
+            self._rollout_module = compute_dtype_cast(self.model, self.rollout_cast_dtype)
+            self.rollout_cast_refreshes += 1
+        return self._rollout_module
+
+    def _drop_rollout_cast(self) -> None:
+        """The masters are about to change: the copy is stale, and through
+        the update it is dead weight at the memory peak."""
+        self._rollout_module = None
 
     def _supports_hydra(self) -> bool:
         return True
@@ -262,7 +328,7 @@ class PPOTrainer(BaseRLTrainer):
 
     def _apply(self, *args, **kwargs):
         self.forwards += 1
-        return self.model(*args, **kwargs)
+        return self.rollout_model()(*args, **kwargs)
 
     def bind_prompt_budget(self, pipeline, role: str = "train") -> None:
         """Check (and size) the decode budget against a pipeline's real
@@ -363,8 +429,8 @@ class PPOTrainer(BaseRLTrainer):
         return self._rollout_engine_obj
 
     def _build_rollout_engine(self):
-        """The engine over the trainer's own policy module (the fixed
-        sampler's per-use bf16 cast, its forwards counted) and the family's
+        """The engine over the trainer's rollout policy (the fixed
+        sampler's, :meth:`rollout_model`, its forwards counted) and the family's
         KV cache: ``rollout.slots`` slots, else one per chunk rollout, with
         the rollout section's chunked prefill and speculative decoding."""
         from trlx_tpu_torch.inference.engine import ContinuousBatchingEngine
@@ -411,7 +477,7 @@ class PPOTrainer(BaseRLTrainer):
         ids = torch.cat([q_ids, r_ids], 1)
         mask = torch.cat([q_mask, r_mask.to(q_mask.dtype)], 1)
         if self.use_hydra:
-            trunk = self.model.transformer(
+            trunk = self.rollout_model().transformer(
                 ids, attention_mask=mask, capture_hidden_at=self.branch_start
             )
             out = self.ref(
@@ -462,7 +528,9 @@ class PPOTrainer(BaseRLTrainer):
         ids = torch.cat([mb.query_tokens, mb.response_tokens], 1)
         mask = torch.cat([mb.query_mask, mb.response_mask.to(mb.query_mask.dtype)], 1)
         chunk = self.config.train.training.get("logprob_chunk", 0)
-        if chunk and not self.config.method.ent_coef:  # entropy needs full-vocab terms
+        # entropy needs full-vocab terms; an MoE forward collects its
+        # router losses once, not per recomputed chunk
+        if chunk and not self.config.method.ent_coef and not self.family.is_moe:
             hidden, values = self.model.response_hidden(ids, mask, self.query_length)
             logprobs = chunked_logprobs(
                 self.model.transformer.logits, hidden, mb.response_tokens, chunk
@@ -477,13 +545,19 @@ class PPOTrainer(BaseRLTrainer):
         """One PPO update on a minibatch; returns its stats (device
         scalars), ``optimizer/grad_norm`` included."""
         method = self.config.method
+        self._drop_rollout_cast()
         advantages, returns = self._advantages_and_returns(mb)
-        logprobs, values, entropy = self._forward_logprobs_values(mb)
+        with collect_moe_losses(self.model) as moe:
+            logprobs, values, entropy = self._forward_logprobs_values(mb)
         loss, stats = ppo_loss(
             logprobs, values, mb.logprobs, mb.values, advantages, returns,
             mb.response_mask, method.cliprange, method.cliprange_value,
             method.vf_coef, ent_coef=method.ent_coef, entropy=entropy,
         )
+        if self.family.is_moe:
+            loss, stats = apply_router_penalty(
+                loss, stats, moe_loss_summary(moe), self.model_config
+            )
         self.opt.zero_grad()
         loss.backward()
         stats["optimizer/grad_norm"] = self.opt.step()
@@ -599,7 +673,11 @@ class PPOTrainer(BaseRLTrainer):
         )
         total_steps = min(train.total_steps, train.epochs * method.ppo_epochs * n_minibatches)
         self.logger = Logger()
-        return self._learn_body(total_steps, n_minibatches)
+        try:
+            return self._learn_body(total_steps, n_minibatches)
+        finally:
+            # an asynchronous end save ran beside the final eval
+            self._checkpoints.wait()
 
     def _learn_body(self, total_steps: int, n_minibatches: int) -> Dict[str, Any]:
         train, method = self.config.train, self.config.method
@@ -642,7 +720,8 @@ class PPOTrainer(BaseRLTrainer):
 
     def save(self, directory: Optional[str] = None) -> None:
         """Checkpoint the policy, optimizer, update count, KL state,
-        sampling generator and orchestrator state as step ``self.step``."""
+        sampling generator and orchestrator state as step ``self.step``
+        (on a thread under ``train.async_checkpoint``)."""
         state = {
             "model": self.model.state_dict(),
             "optimizer": self.opt.state_dict(),
@@ -657,11 +736,16 @@ class PPOTrainer(BaseRLTrainer):
         }
         if self.orch is not None:
             state["orchestrator"] = self.orch.state_dict()
-        save_checkpoint(directory or self.config.train.checkpoint_dir, state, self.step)
+        self._checkpoints.save(
+            directory or self.config.train.checkpoint_dir, state, self.step,
+            async_save=bool(self.config.train.training.get("async_checkpoint", False)),
+        )
 
     def load(self, directory: str) -> None:
-        """Restore the latest checkpoint under ``directory``."""
+        """Restore the newest checkpoint under ``directory`` (after every
+        write in flight has landed)."""
         state = load_checkpoint(directory, device="cpu")
+        self._drop_rollout_cast()
         self.model.load_state_dict(state["model"])
         self.opt.load_state_dict(state["optimizer"])
         self.step = int(state["step"])

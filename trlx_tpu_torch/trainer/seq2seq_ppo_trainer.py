@@ -83,6 +83,12 @@ class Seq2SeqPPOTrainer(PPOTrainer):
         # the fork keeps a full frozen copy for T5 (ppo_orchestrator.py:41-43)
         return False
 
+    def _supports_rollout_cast(self) -> bool:
+        # T5 consumes some parameters in f32 (the RMSNorm scales, the
+        # relative position table), so a compute-dtype copy would not be
+        # bit-identical: keep the masters, as the JAX package does
+        return False
+
     def _supports_logprob_chunk(self) -> bool:
         # the encoder-decoder forward computes its own logits
         return False

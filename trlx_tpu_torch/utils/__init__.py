@@ -1,17 +1,20 @@
 """Small helpers shared across the port: the clock, device resolution,
-seeding, masked statistics and running reward moments (the port's own
-copies of :func:`trlx_tpu.utils.set_seed` / ``infinite_loader`` and of
-``whiten``, ``logprobs_from_logits`` and ``RunningMoments`` from
-:mod:`trlx_tpu.parallel.collectives`)."""
+seeding, the rollout phase's compute-dtype weight cast, masked statistics
+and running reward moments (the port's own copies of
+:func:`trlx_tpu.utils.set_seed` / ``infinite_loader`` /
+``compute_dtype_cast`` and of ``whiten``, ``logprobs_from_logits`` and
+``RunningMoments`` from :mod:`trlx_tpu.parallel.collectives`)."""
 
 from __future__ import annotations
 
+import copy
 import random
 import time
 from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
+from torch import nn
 
 #: the port's monotonic clock (seconds) for every host-side duration
 monotonic: Callable[[], float] = time.monotonic
@@ -39,6 +42,66 @@ def set_seed(seed: int, device=None) -> torch.Generator:
     gen = torch.Generator(device=torch.device("cpu" if device is None else device))
     gen.manual_seed(int(seed))
     return gen
+
+
+#: parameter-name components the rollout cast leaves in their storage
+#: dtype: the value/Q heads' ``fc2`` and the MoE ``router`` compute in f32
+#: (the JAX package's ``ROLLOUT_CAST_EXCLUDE``), and the port also keeps
+#: every layer norm (``ln_*``) f32, since its norms consume their
+#: parameters in f32 (the reference rounds them; ROADMAP queue 3)
+ROLLOUT_CAST_EXCLUDE = ("router", "fc2", "ln_")
+
+
+def cast_excluded(name: str) -> bool:
+    """Whether parameter ``name`` keeps its storage dtype under the cast."""
+    return any(part in ROLLOUT_CAST_EXCLUDE[:2] or part.startswith(ROLLOUT_CAST_EXCLUDE[2])
+               for part in name.split("."))
+
+
+def _cast_targets(module: nn.Module, dtype: torch.dtype):
+    """``(name, parameter)`` of each floating parameter the cast rounds."""
+    return [(n, p) for n, p in module.named_parameters()
+            if p.is_floating_point() and p.dtype != dtype and not cast_excluded(n)]
+
+
+def rollout_cast_dtype(train, model_config) -> Optional[torch.dtype]:
+    """The compute dtype the rollout phase's weights are cast to under
+    ``train.rollout_param_cast`` (default on), or ``None`` when it is off
+    or the compute dtype is already the parameters' dtype."""
+    dtype = getattr(torch, str(model_config.dtype))
+    if (not train.training.get("rollout_param_cast", True)
+            or dtype == getattr(torch, str(model_config.param_dtype))):
+        return None
+    return dtype
+
+
+@torch.no_grad()
+def compute_dtype_cast(module: nn.Module, dtype, in_place: bool = False) -> nn.Module:
+    """The rollout phase's weights in the compute dtype ``dtype``.
+
+    Every projection, embedding and head already rounds its parameters to
+    the compute dtype per use, so a module whose parameters hold those
+    rounded values gives bit-identical outputs and reads half the bytes.
+    The parameters :func:`cast_excluded` names keep their dtype.
+
+    - ``in_place=False``: a copy of ``module`` whose cast parameters are
+      new compute-dtype tensors (no gradient); every other parameter and
+      buffer is shared with ``module``, so the copy costs only the cast
+      tensors, and an excluded parameter reads the live master.
+    - ``in_place=True``: ``module``'s own parameters are replaced by their
+      cast (a frozen module, such as the KL reference: cast once, for
+      good, which also halves its memory)."""
+    dtype = dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype))
+    targets = _cast_targets(module, dtype)
+    if in_place:
+        for _, p in targets:
+            p.data = p.data.to(dtype)
+        return module
+    memo = {id(p): p for p in module.parameters()}
+    memo.update({id(b): b for b in module.buffers()})
+    memo.update({id(p): nn.Parameter(p.detach().to(dtype), requires_grad=False)
+                 for _, p in targets})
+    return copy.deepcopy(module, memo)
 
 
 def infinite_loader(factory: Callable[[int], Iterable]) -> Iterable:
