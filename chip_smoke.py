@@ -4,15 +4,17 @@
 Phases, each fatal on failure:
 
 1. build — compile the flash-attention kernels (``trlx_tpu_torch/csrc/
-   flash_fwd.cu``: K1 in four variants, ``tile`` for bf16 with Q > 16 on
-   the tensor cores, ``decode`` for bf16 with Q <= 16, ``fma`` for f32,
-   ``split3`` for the ring's f32 blocks on the tensor cores through three
-   bf16 planes; ``flash_bwd.cu``: K2 dQ and K3 dK/dV, each ``tile`` for
+   flash_fwd.cu``: K1 in five variants, ``tile`` for bf16 with Q > 16 on
+   the tensor cores, ``decode`` for bf16 with Q <= 16, ``decode_int8``
+   for the int8 KV cache's decode, ``fma`` for f32, ``split3`` for the
+   ring's f32 blocks on the tensor cores through three bf16 planes;
+   ``flash_bwd.cu``: K2 dQ and K3 dK/dV, each ``tile`` for
    bf16 on the tensor cores, ``fma`` for f32 and ``split3`` for the ring's
    blocks, K2's ``tile`` in two instantiations, without and with the bias
    gradient; every kernel instantiated for head dims 16, 24, 32, 64, 96,
    128 and 256, each instantiation gated on its own; ``split_planes.cu``:
-   the split3 pre-pass) with ``nvcc`` for ``sm_90a``, all three
+   the split3 pre-pass; ``kv_quant.cu``: the int8 cache's quantizing
+   write, for bf16 and f32 inputs) with ``nvcc`` for ``sm_90a``, all four
    sources at once, and beside them each source's device code alone with
    ``ptxas -v`` (every run, so the report holds when the libraries were
    already built); print ``ptxas``'s registers, shared memory and spills
@@ -161,12 +163,17 @@ Phases, each fatal on failure:
    out], no ``lm_head.weight``) through ``trlx_tpu_torch.train(model_path
    =...)``, at both freezing definitions, ``(0, 2)`` and ``(2, None)``,
    each for two PPO phases (64 updates) with a 2-layer hydra KL reference;
-   two named deviations (``kv_cache_dtype`` bf16 for ``"auto"``, health
-   off). Gates: the loaded backbone equals the written tensors before the
-   first update; the reference holds 2 blocks, ``wte`` and ``ln_f``
-   (52 774 656 parameters against the full copy's 124 439 808); 12 K1
-   ``tile`` launches per reference scoring, ``tile`` = 12 x the forwards
-   that are not decode steps and ``decode`` = 12 x those; K2 = K3 = 12 x
+   no deviation: ``kv_cache_dtype: "auto"`` resolves at the sampler's
+   capacity (64 + 48) by the port's ``INT8_KV_MAX_CAPACITY`` (printed),
+   and run-health monitoring is on (each definition's health events by
+   detector are printed). Gates: the loaded backbone equals the written
+   tensors before the first update; the reference holds 2 blocks, ``wte``
+   and ``ln_f`` (52 774 656 parameters against the full copy's 124 439
+   808); 12 K1 ``tile`` launches per reference scoring, ``tile`` = 12 x
+   the forwards that are not decode steps and 12 x those ``decode`` (on a
+   bf16 cache) or ``decode_int8`` with the quantizing write 12 x every
+   sampler forward (on an int8 cache); the nine ``health/*`` stats in the
+   update rows; K2 = K3 = 12 x
    the updates under ``(0, 2)`` and 2 x under ``(2, None)``, all ``tile``;
    under ``(2, None)`` the bottom 10 blocks, ``wte`` and ``wpe``
    bit-identical after training and the top 2 blocks, ``ln_f`` and the
@@ -403,13 +410,36 @@ Phases, each fatal on failure:
    Prints each save's return and write seconds and the end save's write
    beside the final eval.
 
+23. kv int8 — the int8 KV cache: (a) the quantizing write
+   (``csrc/kv_quant.cu``) against its plain version bit for bit at every
+   built head dim (a prefill and a decode step into a linear cache; a
+   paged write through rotated tables with a publish into the shared
+   pool), and K1's ``decode_int8`` against dequantization and the plain
+   attention (O and LSE within ``TOL``'s bf16 bounds, ``p_scale`` within
+   ``P_SCALE_TOL``, a row with no live key included; also reported: equal
+   to the bf16 decode on the dequantized view), both timed at the serving
+   decode (B=32 K=576) and the rollout decode (B=128 K=112) beside their
+   bytes bounds, their plain versions, the bf16 decode and SDPA on the
+   dequantized bf16 view; (b) the ``"auto"`` threshold's sweep: GPT-2
+   small's greedy fixed sampler on an int8 and a bf16 cache, 48 new
+   tokens, at B=128 with capacities 112 and 576, B=32 with 1088 and B=8
+   with 2048, 5 interleaved pairs per shape, the medians of the decode
+   forwards' tokens/s on the card's clock, and the capacity the figures
+   support beside the port's ``INT8_KV_MAX_CAPACITY`` (reported, not
+   gated: walls vary between calls); (c) phase 11's serving tier and
+   traffic with ``kv_cache_dtype: int8`` (an int8 cache and pool). Gates:
+   every (a) check; (b) finite; (c) complete and finite, prefix hits,
+   verify steps, K1 ``tile`` = 12 x chunk forwards, ``decode_int8`` = 12
+   x (decode + verify steps) and no bf16 ``decode``, the quantizing write
+   12 x every forward, no ``fma`` launch, input copy or plain call.
+
 Phase 5 also holds one collect with ``rollout_param_cast`` on against one
 with it off, from the same seed, its layer norms perturbed: ``torch.equal``
 tokens, logprobs, values, reference logprobs and rewards. Every phase
 call's wall is logged as it ends and printed as one ``{"phase_walls":
 {...}}`` line before the ``kernels`` line.
 
-Each path (phases 4 to 22, each definition of phase 7, each run of phases
+Each path (phases 4 to 23, each definition of phase 7, each run of phases
 9, 16, 18, 21 and 22 on its own) runs with the launch counters set to 0 just
 before it and read just after, and its peak memory is read from a clean start.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
@@ -479,6 +509,12 @@ REPLACES = {
     # the split3 pre-pass of both block wrappers' f32 operands: a helper of
     # their f32 route, the counterpart of no TPU kernel
     "split_planes": None,
+    # the int8 KV cache (phase 23): K1's decode over int8 K/V, and the
+    # quantizing cache write, whose JAX counterpart is XLA's fusion of
+    # quantize_kv (trlx_tpu/models/gpt2.py:264) into write_cache's stores
+    # (:307), no TPU kernel
+    "flash_fwd_decode_int8": "trlx_tpu/ops/flash_attention.py:97",
+    "kv_quant": None,
 }
 SOURCES = {
     "flash_fwd": "trlx_tpu_torch/csrc/flash_fwd.cu",
@@ -487,6 +523,8 @@ SOURCES = {
     "flash_block_fwd": "trlx_tpu_torch/csrc/flash_fwd.cu",
     "flash_block_bwd": "trlx_tpu_torch/csrc/flash_bwd.cu",
     "split_planes": "trlx_tpu_torch/csrc/split_planes.cu",
+    "flash_fwd_decode_int8": "trlx_tpu_torch/csrc/flash_fwd.cu",
+    "kv_quant": "trlx_tpu_torch/csrc/kv_quant.cu",
 }
 L2_BYTES = 50 * 2**20  # H100 SXM
 N_LAYER = 12  # GPT-2 small
@@ -619,9 +657,12 @@ def tensor_core_instructions(fa, library: str) -> dict:
 HEAD_DIM_SUFFIXES = ((64, ""), (96, "_d96"), (256, "_d256"), (16, "_d16"), (24, "_d24"),
                      (32, "_d32"), (128, "_d128"))
 GATED_KERNELS = {
-    "flash_fwd": {f"flash_fwd_{v}_kernel{sfx}": f"flash_fwd_{v}_kernelILi{d}E"
-                  for d, sfx in HEAD_DIM_SUFFIXES
-                  for v in ("tile", "decode", "fma", "split3")},
+    "flash_fwd": {**{f"flash_fwd_{v}_kernel{sfx}": f"flash_fwd_{v}_kernelILi{d}E"
+                     for d, sfx in HEAD_DIM_SUFFIXES for v in ("tile", "fma", "split3")},
+                  # decode and decode_int8: one template over its rows' reader
+                  **{f"flash_fwd_{v}_kernel{sfx}": (f"flash_fwd_decode_kernelILi{d}E", rows)
+                     for d, sfx in HEAD_DIM_SUFFIXES
+                     for v, rows in (("decode", "Bf16Rows"), ("decode_int8", "Int8Rows"))}},
     "flash_bwd": {name: pattern for d, sfx in HEAD_DIM_SUFFIXES for name, pattern in (
         (f"flash_bwd_dq_tile_kernel{sfx}", f"flash_bwd_dq_tile_kernelILi{d}ELb0E"),
         (f"flash_bwd_dq_tile_kernel_dbias{sfx}", f"flash_bwd_dq_tile_kernelILi{d}ELb1E"),
@@ -631,7 +672,15 @@ GATED_KERNELS = {
         (f"flash_bwd_dq_split3_kernel{sfx}", f"flash_bwd_dq_split3_kernelILi{d}E"),
         (f"flash_bwd_dkv_split3_kernel{sfx}", f"flash_bwd_dkv_split3_kernelILi{d}E"))},
     "split_planes": {"split_planes_kernel": "split_planes_kernel"},
+    "kv_quant": {"kv_quant_write_kernel_bf16": "kv_quant_write_kernelI13__nv_bfloat16E",
+                 "kv_quant_write_kernel_f32": "kv_quant_write_kernelIfE"},
 }
+
+
+def kernel_matches(pattern, fn: str) -> bool:
+    """Whether mangled name ``fn`` is the gated kernel ``pattern`` names: a
+    piece of the name, or a tuple of pieces it holds all of."""
+    return all(p in fn for p in ((pattern,) if isinstance(pattern, str) else pattern))
 TILE_KERNELS = tuple(k + sfx for _, sfx in HEAD_DIM_SUFFIXES for k in (
     "flash_fwd_tile_kernel", "flash_bwd_dq_tile_kernel", "flash_bwd_dq_tile_kernel_dbias",
     "flash_bwd_dkv_tile_kernel", "flash_fwd_split3_kernel", "flash_bwd_dq_split3_kernel",
@@ -662,7 +711,7 @@ def phase_build(fa) -> tuple:
             log(f"phase 1: ptxas {fn}: {json.dumps(row)}")
         patterns.update(kernels)
         for kernel, pattern in kernels.items():
-            rows = [r for fn, r in ptxas.items() if pattern in fn]
+            rows = [r for fn, r in ptxas.items() if kernel_matches(pattern, fn)]
             spills = [r.get("spill_bytes") for r in rows]
             record[kernel] = {
                 "registers": max((r.get("registers", 0) for r in rows), default=None),
@@ -672,7 +721,7 @@ def phase_build(fa) -> tuple:
     log(f"phase 1: tensor-core instructions (HMMA/HGMMA) per kernel: {json.dumps(mma)}")
     for kernel in TILE_KERNELS:
         record[kernel]["tensor_core_instructions"] = sum(
-            n for fn, n in mma.items() if patterns[kernel] in fn)
+            n for fn, n in mma.items() if kernel_matches(patterns[kernel], fn))
     # the split3 kernels' dynamic shared memory (ptxas reports static only)
     for d, sfx in HEAD_DIM_SUFFIXES:
         for kernel, smem in (
@@ -1659,6 +1708,7 @@ def reset_forward_counters(fa) -> None:
     fa.FLASH_FWD_LAUNCHES = fa.FLASH_FWD_COPIES = 0
     for counter in FWD_VARIANT_COUNTERS.values():
         setattr(fa, counter, 0)
+    reset_int8_counters(fa)
 
 
 def reset_backward_counters(fa) -> None:
@@ -2384,12 +2434,9 @@ BENCH_WORKLOAD = {
     },
 }
 # what phase 7 runs differently from bench.py: (setting, bench.py's value,
-# the port's, why)
-BENCH_DEVIATIONS = (
-    ("model.model_arch.kv_cache_dtype", "auto", "bfloat16",
-     "the int8 KV cache that 'auto' resolves to at this shape is not ported (ROADMAP queue 1)"),
-    ("train.health.enabled", True, False, "health monitoring is not ported (ROADMAP item 19)"),
-)
+# the port's, why). Empty: "auto" resolves by the port's own threshold
+# (phase 23's sweep) and run-health monitoring is on, as bench.py sets them
+BENCH_DEVIATIONS = ()
 # bench.py's two freezing definitions: (num_layers_unfrozen, ref_branch_layers)
 BENCH_DEFINITIONS = {"faithful_0_2": (0, 2), "frozen_top2_2_none": (2, None)}
 BENCH_UPDATES = 64  # two PPO phases of 128 // 16 = 8 minibatches x 4 epochs, cut from 10 000
@@ -2402,16 +2449,17 @@ GPT2_HF_CONFIG = {  # GPT-2 small, as its HF config.json names it
 
 
 def bench_config(definition, checkpoint_dir: str):
-    """``BENCH_WORKLOAD`` at one freezing definition, with the deviations
-    and cut to ``BENCH_UPDATES`` updates."""
+    """``BENCH_WORKLOAD`` at one freezing definition, cut to
+    ``BENCH_UPDATES`` updates, its health dumps under the run's
+    directory."""
     import copy
 
     from trlx_tpu_torch.data.configs import TRLConfig
 
     cfg = copy.deepcopy(BENCH_WORKLOAD)
     cfg["model"]["num_layers_unfrozen"], cfg["model"]["ref_branch_layers"] = definition
-    cfg["model"]["model_arch"]["kv_cache_dtype"] = "bfloat16"
-    cfg["train"]["health"] = {"enabled": False}
+    cfg["train"]["health"] = dict(cfg["train"]["health"],
+                                  dump_dir=os.path.join(checkpoint_dir, "health_dumps"))
     cfg["train"].update(total_steps=BENCH_UPDATES, checkpoint_dir=checkpoint_dir)
     return TRLConfig.from_dict(cfg)
 
@@ -2441,6 +2489,20 @@ def hydra_sizes(cfg, branch: int) -> tuple:
     return branch * block + wte + ln_f, cfg.n_layer * block + wte + wpe + ln_f
 
 
+def sampler_cache_dtype(trainer) -> str:
+    """The KV cache dtype the trainer's sampler allocates: the model's
+    ``kv_cache_dtype`` resolved at the sampler's capacity (prompt width
+    plus new tokens)."""
+    import warnings
+
+    from trlx_tpu_torch.models.gpt2 import resolve_kv_cache_dtype
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        return resolve_kv_cache_dtype(trainer.model_config.kv_cache_dtype,
+                                      trainer.query_length + trainer.gen_config.max_new_tokens)
+
+
 def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tmp):
     """One freezing definition of phase 7: train, gate, then serve 8 of the
     prompts from the run's checkpoint. Returns ``(ok, record)``."""
@@ -2454,6 +2516,7 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
     from trlx_tpu_torch.utils.checkpoint import load_checkpoint
 
     rows, evals, loaded, scoring_tiles, plain_calls, decode_forwards = [], [], [], [], [0], [0]
+    sampler_forwards = [0]
     orig = {
         "learn": PPOTrainer.learn, "train_on": PPOTrainer._train_on,
         "evaluate": PPOTrainer.evaluate, "apply": PPOTrainer._apply,
@@ -2473,6 +2536,7 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
 
     def apply(self, input_ids, *a, **kw):
         decode_forwards[0] += input_ids.shape[1] <= 16  # the sampler's steps
+        sampler_forwards[0] += 1  # each writes the KV cache once a layer
         return orig["apply"](self, input_ids, *a, **kw)
 
     def score_ref(self, *a, **kw):
@@ -2527,6 +2591,7 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
         "flash_bwd_dkv": fa.FLASH_BWD_DKV_LAUNCHES,
     }
     variants = forward_variant_launches(fa)
+    kv_int8 = int8_launches(fa)
     bwd_variants = backward_variant_launches(fa)
     bwd_copies = fa.FLASH_BWD_COPIES
     peak = torch.cuda.max_memory_allocated()
@@ -2540,13 +2605,30 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
     full_params = sum(n for n, _ in loaded[0]["full"]) if loaded else None
     # the blocks whose attention backpropagates: all, or the unfrozen top
     trained = definition[0] if definition[0] > 0 else n_layer
+    # "auto" at the sampler's capacity: on an int8 cache the decode steps
+    # take decode_int8 and every sampler forward writes through kv_quant
+    kv_dtype = sampler_cache_dtype(trainer)
+    int8 = kv_dtype == "int8"
     expected_variants = {
         "tile": n_layer * (trainer.forwards - decode_forwards[0]),
-        "decode": n_layer * decode_forwards[0],
+        "decode": 0 if int8 else n_layer * decode_forwards[0],
         "fma": 0, "copies": 0,
     }
-    expected = {"flash_fwd": expected_variants["tile"] + expected_variants["decode"],
+    expected_int8 = {"flash_fwd_decode_int8": n_layer * decode_forwards[0] if int8 else 0,
+                     "kv_quant": n_layer * sampler_forwards[0] if int8 else 0}
+    expected = {"flash_fwd": n_layer * trainer.forwards,
                 "flash_bwd_dq": trained * updates, "flash_bwd_dkv": trained * updates}
+    monitor = trainer.health_monitor
+    health = {
+        "enabled": monitor is not None,
+        "event_counts": dict(monitor.event_counts) if monitor else None,
+        "events": [{k: e[k] for k in ("detector", "severity", "series", "step", "phase",
+                                      "value")} for e in map(lambda ev: ev.to_dict(),
+                                                             monitor.events)] if monitor else [],
+        "health_summary": monitor.health_summary() if monitor else {},
+        "flight_dumps": list(trainer.flight_recorder.dumped) if trainer.flight_recorder else [],
+        "health_stats_in_rows": sorted({k for r in rows for k in r if k.startswith("health/")}),
+    }
     expected_bwd_variants = {k: {"tile": trained * updates, "fma": 0} for k in BWD_KERNELS}
 
     # which parameters moved, against the loaded backbone and the value
@@ -2610,6 +2692,8 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
         "forwards": trainer.forwards, "decode_forwards": decode_forwards[0],
         "launches": launches, "expected_launches": expected,
         "flash_fwd_variants": variants, "expected_variants": expected_variants,
+        "kv_cache_dtype": kv_dtype, "kv_int8_launches": kv_int8,
+        "expected_kv_int8_launches": expected_int8, "health": health,
         "backward_variants": bwd_variants, "expected_backward_variants": expected_bwd_variants,
         "backward_copies": bwd_copies, "plain_attention_calls": plain_calls[0],
         "params_moved": sum(moved.values()), "params": len(moved),
@@ -2625,9 +2709,12 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
         and len(scoring_tiles) == len(trainer.phase_times)
         and all(n == n_layer for n in scoring_tiles)
         and updates == BENCH_UPDATES and len(rows) == 2 and finite and freezing_ok
-        and launches == expected and variants == expected_variants
+        and launches == expected and variants == expected_variants and kv_int8 == expected_int8
         and bwd_variants == expected_bwd_variants and bwd_copies == 0 and plain_calls[0] == 0
         and restored and complete == 8
+        # run health on, as bench.py sets it: the monitor built, the
+        # update's health stats fetched
+        and health["enabled"] and len(health["health_stats_in_rows"]) == 9
     )
     log(f"phase 7: {name} {'ok' if ok else 'FAIL'} (loaded backbone equals the written "
         f"checkpoint: {record['loaded_equals_written']}; hydra reference {ref_params} "
@@ -2638,7 +2725,10 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
         f"{record['frozen_bit_identical']}, top {len(top)} tensors moved: {record['top_moved']}, "
         f"moved {record['params_moved']}/{len(moved)}; launches={launches} vs {expected}, K1 by "
         f"variant {variants} vs {expected_variants}, K2/K3 by variant {bwd_variants} vs "
-        f"{expected_bwd_variants}, backward input copies={bwd_copies}, plain attention "
+        f"{expected_bwd_variants}, KV cache {kv_dtype}, int8 kernels "
+        f"{kv_int8} vs {expected_int8}; health events by detector "
+        f"{health['event_counts']}, health stats {health['health_stats_in_rows']}; "
+        f"backward input copies={bwd_copies}, plain attention "
         f"calls={plain_calls[0]}; server restored the checkpoint: {restored}, served "
         f"{complete}/8; wall {wall:.2f} s, peak memory {peak} B, {mem_start} B allocated at "
         "the start)")
@@ -2659,11 +2749,18 @@ def phase_bench_workload(torch, fa):
 
     from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
 
+    from trlx_tpu_torch.models.gpt2 import INT8_KV_MAX_CAPACITY, resolve_kv_cache_dtype
+
+    capacity = BENCH_WORKLOAD["train"]["seq_length"] + BENCH_WORKLOAD["method"]["gen_kwargs"][
+        "max_new_tokens"]
     log("phase 7: bench.py's workload; deviations: " + json.dumps([
         {"setting": k, "bench.py": b, "port": p, "why": why}
         for k, b, p, why in BENCH_DEVIATIONS]) + "; one device; total_steps "
         f"{BENCH_WORKLOAD['train']['total_steps']} cut to {BENCH_UPDATES}; eval prompts: the "
-        "first 128")
+        f"first 128; kv_cache_dtype 'auto' at capacity {capacity} resolves to "
+        f"{resolve_kv_cache_dtype('auto', capacity)!r} (INT8_KV_MAX_CAPACITY = "
+        f"{INT8_KV_MAX_CAPACITY}); train.health.enabled: "
+        f"{BENCH_WORKLOAD['train']['health']['enabled']}")
     prompts = bench_prompts()
     records, ok = {}, True
     with tempfile.TemporaryDirectory() as tmp:
@@ -3067,6 +3164,7 @@ def counted_path(torch, fa, fn, patches=()):
         "flash_fwd_variants": forward_variant_launches(fa),
         "backward_variants": backward_variant_launches(fa),
         "split3_launches": {k: getattr(fa, c) for k, c in SPLIT3_COUNTERS.items()},
+        "kv_int8_launches": int8_launches(fa),
         "backward_copies": fa.FLASH_BWD_COPIES,
         "plain_attention_calls": plain[0],
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
@@ -6914,6 +7012,409 @@ def phase_moe(torch, fa):
     return serving_ok and training_ok, {"serving": serving, "training": training}
 
 
+# ----------------------------------------------------------------------- #
+# phase 23: the int8 KV cache
+# ----------------------------------------------------------------------- #
+
+#: heads of each built head dim's model (phase 2's cases): the small dims'
+#: stand-ins, GPT-2, GPT-NeoX-20B, GPT-Neo 1.3B, GPT-J-6B
+KV_INT8_HEADS = {16: 4, 24: 6, 32: 4, 64: 12, 96: 64, 128: 16, 256: 16}
+#: the two decode shapes timed at D = 64, H = 12 (B, K): serving decode
+#: (phase 4's 32 slots over a 576-wide view) and the rollout decode
+#: (bench.py's B = 128 over 64 + 48)
+KV_INT8_TIMED = {"serving_decode": (32, 576), "rollout_decode": (128, 112)}
+#: the threshold sweep's shapes (B, capacity): bench.py's rollout (64 + 48),
+#: the serving view, a long rollout and the JAX package's long-context point
+KV_INT8_SWEEP = ((128, 112), (128, 576), (32, 1088), (8, 2048))
+KV_INT8_SWEEP_NEW = 48  # decode steps per rollout (bench.py's max_new_tokens)
+KV_INT8_PAIRS = 5  # interleaved int8 / bf16 pairs per shape
+
+
+def int8_launches(fa) -> dict:
+    """The int8 cache's two kernels' launches since the last reset."""
+    from trlx_tpu_torch.ops import kv_quant
+
+    return {"flash_fwd_decode_int8": fa.FLASH_FWD_DECODE_INT8_LAUNCHES,
+            "kv_quant": kv_quant.KV_QUANT_LAUNCHES}
+
+
+def reset_int8_counters(fa) -> None:
+    from trlx_tpu_torch.ops import kv_quant
+
+    fa.FLASH_FWD_DECODE_INT8_LAUNCHES = kv_quant.KV_QUANT_LAUNCHES = 0
+
+
+def int8_decode_inputs(torch, attn, D, H, B, K, seed):
+    """One decode step's q [B, 1, H, D] bf16 and the int8 cache's K/V
+    (``quantize_kv`` of N(0, 1) bf16 values) at per-row depths with left
+    padding, the last row with no live key; the bias [B, 1, 1, K] f32."""
+    from trlx_tpu_torch.models.gpt2 import quantize_kv
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(B, 1, H, D, generator=gen, device="cuda").bfloat16()
+    k, v = (attn.QuantizedKV(*quantize_kv(
+        torch.randn(B, K, H, D, generator=gen, device="cuda").bfloat16()), torch.bfloat16)
+        for _ in range(2))
+    depth = torch.randint(0, K, (B,), generator=gen, device="cuda")
+    depth[0] = K - 1
+    cols = torch.arange(K, device="cuda")[None, :]
+    start = torch.randint(0, K // 4 + 1, (B,), generator=gen, device="cuda")
+    mask = ((cols >= start[:, None]) & (cols <= depth[:, None])).long()
+    mask[-1] = 0
+    bias = attn.causal_bias(1, K, depth, "cuda") + attn.padding_bias(mask)
+    return q, k, v, bias
+
+
+def check_int8_decode(torch, fa, attn, D, H, B, K, seed) -> dict:
+    """decode_int8 against dequantization and the plain version (O, LSE and
+    ``p_scale``, within the bf16 decode's ``TOL``), and against the bf16
+    decode on the dequantized view, bit for bit."""
+    q, k, v, bias = int8_decode_inputs(torch, attn, D, H, B, K, seed)
+    before = int8_launches(fa)["flash_fwd_decode_int8"]
+    o, lse, p_scale = fa._launch_int8(q, k, v, bias, False, True, with_p_scale=True)
+    counted = int8_launches(fa)["flash_fwd_decode_int8"] - before
+    kd, vd = k.dequantize(), v.dequantize()
+    o_ref, lse_ref, ps_ref = fa.flash_attention_reference(q, kd, vd, bias, False, True, True)
+    o_bf16 = fa.flash_attention(q, kd, vd, bias, False)
+    torch.cuda.synchronize()
+    tol_o, tol_lse = TOL["bfloat16"]
+    err_o = (o.float() - o_ref.float()).abs().max().item()
+    err_lse = (lse - lse_ref).abs().max().item()
+    err_ps = ((p_scale - ps_ref).abs() / ps_ref.abs()).max().item()
+    row = {"kernel": "flash_fwd_decode_int8", "D": D, "shape": f"B={B} H={H} Q=1 K={K} D={D}",
+           "max_abs_err": err_o,
+           "max_abs_err_lse": err_lse, "p_scale_rel_err": err_ps,
+           "equals_bf16_decode": bool(torch.equal(o, o_bf16)), "counted": counted}
+    row["ok"] = (err_o <= tol_o and err_lse <= tol_lse and err_ps <= P_SCALE_TOL
+                 and torch.isfinite(o).all().item() and counted == 1)
+    return row
+
+
+def check_quantized_write(torch, fa, D, H, seed) -> dict:
+    """The quantizing write against its plain version (on the CPU) bit for
+    bit: a 64-column prefill and a decode step into a linear cache, and a
+    paged write through rotated tables into admitted slots with a publish
+    into the shared pool (every real row; the sentinels are never read)."""
+    from trlx_tpu_torch.inference import kv_cache as kvc
+    from trlx_tpu_torch.models.gpt2 import kv_buffers
+    from trlx_tpu_torch.ops import kv_quant
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ok, launched, err = True, 0, 0.0
+
+    def compare(got, want):
+        nonlocal err
+        for x in want:
+            err = max(err, (got[x].cpu().float() - want[x].float()).abs().max().item())
+        return all(torch.equal(got[x].cpu(), want[x]) for x in want)
+
+    for B, T, start, C in ((4, 64, 0, 112), (8, 1, 100, 112)):
+        k, v = (3 * torch.randn(B, T, H, D, generator=gen, device="cuda") for _ in range(2))
+        k[0, 0, 0] = 0.0  # an all-zero (token, head)
+        k, v = k.bfloat16(), v.bfloat16()
+        got = kv_buffers(1, B, C, H, D, torch.bfloat16, "int8", device="cuda")[0]
+        want = kv_buffers(1, B, C, H, D, torch.bfloat16, "int8")[0]
+        before = kv_quant.KV_QUANT_LAUNCHES
+        kv_quant.quantized_write(k, v, kv_quant.cache_buffers(got), row_stride=C, start=start)
+        launched += kv_quant.KV_QUANT_LAUNCHES - before
+        kv_quant.quantized_write(k.cpu(), v.cpu(), kv_quant.cache_buffers(want), row_stride=C,
+                                 start=start)
+        ok = compare(got, want) and ok
+    S, cap, T, bs = 6, 32, 16, 4
+    k, v = (3 * torch.randn(2, T, H, D, generator=gen, device="cuda") for _ in range(2))
+    results = []
+    for device in ("cuda", "cpu"):
+        cache = kvc.init_paged_cache(1, S, cap, H, D, torch.bfloat16, "int8", bs, device)[0]
+        cache.update(kvc.init_shared_pool(4, bs, H, D, torch.bfloat16, "int8", device))
+        tables = kvc.rotate_block_table(cache["block_tables"], 3)[:2]
+        positions = torch.arange(T, device=device)[None].repeat(2, 1)
+        phys = kvc.physical_positions(tables, positions, cap)
+        publish = torch.tensor([[0, 3, -1, -1], [-1, -1, 1, -1]], device=device)
+        blk = torch.gather(publish, 1, (positions // bs).clamp(0, 3))
+        pub_rows = torch.where(blk >= 0, blk * bs + positions % bs, 4 * bs)
+        before = kv_quant.KV_QUANT_LAUNCHES
+        kv_quant.quantized_write(
+            k.bfloat16().to(device), v.bfloat16().to(device), kv_quant.cache_buffers(cache),
+            rows=kv_quant.rows_of(torch.tensor([5, 2], device=device), phys, cap + 1),
+            publish=kv_quant.cache_buffers(cache, "shared_"), publish_rows=pub_rows)
+        launched += kv_quant.KV_QUANT_LAUNCHES - before
+        results.append({x: t[:, :cap].cpu() if t.dim() == 4 else t[:-1].cpu()
+                        for x, t in cache.items() if x != "block_tables"})
+    ok = compare(*results) and ok
+    return {"kernel": "kv_quant", "D": D, "H": H, "ok": ok and launched == 3,
+            "launches": launched, "max_abs_err": err}
+
+
+def time_int8(torch, fa, attn, B, K, H=12, D=64) -> dict:
+    """At one decode shape: decode_int8 (its C entry point, arguments
+    packed) beside its bytes bound (int8 K and V, their bf16 scales, q, o
+    and the f32 bias), its plain version (dequantize, then the plain
+    attention), the bf16 decode on the dequantized view and SDPA there
+    (:func:`time_forward`); and the quantizing write of one step's K and V
+    into a linear cache of capacity K beside its bound and its plain
+    version."""
+    from trlx_tpu_torch.models.gpt2 import kv_buffers
+    from trlx_tpu_torch.ops import kv_quant
+
+    q, k, v, bias = int8_decode_inputs(torch, attn, D, H, B, K, seed=B * K)
+    nbytes = (2 * k.values.numel() + 2 * k.scale.numel() * 2 + 2 * q.numel() * 2
+              + bias.numel() * 4)
+    copies = input_copies([q, k.values, k.scale, v.values, v.scale, bias], nbytes)
+    lib = fa._load()["flash_fwd"]
+    stream = torch.cuda.current_stream().cuda_stream
+    calls, keep = [], []
+    for cq, kq, ks, vq, vs, cb in copies:
+        b, sb = fa._bias_view(cb, B, H, 1, K)
+        o = torch.empty_like(cq)
+        keep.append((b, o))
+        calls.append(functools.partial(
+            lib.trlx_flash_fwd_int8, cq.data_ptr(), kq.data_ptr(), vq.data_ptr(),
+            ks.data_ptr(), vs.data_ptr(), b.data_ptr(), o.data_ptr(), None, None,
+            B, H, 1, K, D, *cq.stride()[:3], *kq.stride()[:3], *vq.stride()[:3],
+            *ks.stride()[:3], *vs.stride()[:3], *sb, float(D ** -0.5), 0, stream))
+    ms = time_ms(calls)
+    rc = calls[0]()
+    torch.cuda.synchronize()
+    packed_ok = rc == 0 and torch.equal(keep[0][1], fa.flash_attention_int8(q, k, v, bias))
+    views = [(c[0], attn.QuantizedKV(c[1], c[2], torch.bfloat16),
+              attn.QuantizedKV(c[3], c[4], torch.bfloat16), c[5]) for c in copies]
+    wrapper_ms = time_ms([lambda c=c: fa.flash_attention_int8(*c) for c in views])
+    plain_ms = time_ms([lambda c=c: fa.flash_attention_int8_reference(*c) for c in views])
+    del calls, keep, copies, views
+    bf16 = time_forward(torch, fa, attn, q, k.dequantize(), v.dequantize(), bias, False)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    decode = {"shape": f"B={B} H={H} Q=1 K={K} D={D}, bias [{B}, 1, 1, {K}]",
+              "ms": ms, "wrapper_ms": wrapper_ms, "packed_ok": packed_ok, "plain_ms": plain_ms,
+              "bound_ms": t_bytes, "bound_by": "bytes", "bytes": nbytes,
+              "bf16_decode_ms": bf16["ms"], "bf16_decode_bound_ms": bf16["bound_ms"],
+              "sdpa_bf16_ms": bf16["library_ms"], "library_ms": None}
+    # the quantizing write: one step (T = 1) of K and V into row K - 1
+    kn, vn = (torch.randn(B, 1, H, D, device="cuda").bfloat16() for _ in range(2))
+    wbytes = 2 * kn.numel() * 2 + 2 * kn.numel() + 2 * B * H * 2
+    cache = kv_buffers(1, B, K, H, D, torch.bfloat16, "int8", device="cuda")[0]
+    dst = kv_quant.cache_buffers(cache)
+    wcopies = input_copies([kn, vn], 2 * kn.numel() * 2)
+    qlib = fa._load()["kv_quant"]
+    wcalls = [functools.partial(
+        qlib.trlx_kv_quant_write, a.data_ptr(), b.data_ptr(), 1, B, 1, H, D,
+        *a.stride()[:3], *b.stride()[:3], *(t.data_ptr() for t in dst), None, K, K - 1,
+        None, None, None, None, None, stream) for a, b in wcopies]
+    write_ms = time_ms(wcalls)
+    rows = torch.arange(B, device="cuda")[:, None] * K + K - 1
+    write_plain_ms = time_ms([lambda a=a, b=b: kv_quant.quantized_write_reference(
+        a, b, dst, rows) for a, b in wcopies])
+    write = {"shape": f"B={B} T=1 H={H} D={D} into a {K}-position cache",
+             "ms": write_ms, "plain_ms": write_plain_ms,
+             "bound_ms": wbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "bytes": wbytes,
+             "library_ms": None}
+    del cache, dst, wcopies, wcalls
+    return {"decode": decode, "write": write}
+
+
+def sweep_model(torch, capacity_max: int):
+    """GPT-2 small at ``configs/ppo_sentiments.yml``'s widths, random
+    weights from a seed, positions up to ``capacity_max``, its weights
+    cast to bf16 as the rollout cast keeps them."""
+    from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+    from trlx_tpu_torch.utils import compute_dtype_cast
+
+    cfg = GPT2Config(vocab_size=50257, n_positions=capacity_max, n_embd=768, n_layer=12,
+                     n_head=12, dtype="bfloat16")
+    model = CausalLMWithValueHead(cfg, GPT2Model, device="cuda")
+    init_params(model, 0)
+    random_backbone(torch, model.transformer, seed=13)
+    return cfg, compute_dtype_cast(model, torch.bfloat16)
+
+
+def sweep_rollout(torch, model, cfg, kv_dtype, ids, mask, R) -> dict:
+    """One greedy fixed-sampler rollout of R tokens on a ``kv_dtype``
+    cache; the device time of each decode forward from CUDA events around
+    it (the host loop keeps the card waiting between them, so this is the
+    step's wall on the card's clock). Returns decode tokens/s and ms."""
+    import dataclasses
+
+    from trlx_tpu_torch.models.gpt2 import init_cache
+    from trlx_tpu_torch.ops.sampling import GenerationConfig, make_sampler
+
+    gen = GenerationConfig.from_dict({"max_new_tokens": R, "min_new_tokens": R,
+                                      "do_sample": False, "eos_token_id": 50256,
+                                      "pad_token_id": 50256})
+    events = []
+
+    def apply(input_ids, *a, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = model(input_ids, *a, **kw)
+        end.record()
+        events.append((input_ids.shape[1], start, end))
+        return out
+
+    kcfg = dataclasses.replace(cfg, kv_cache_dtype=kv_dtype)
+    sampler = make_sampler(apply, lambda b, c: init_cache(kcfg, b, c, "cuda"), gen,
+                           ids.shape[1])
+    out = sampler(ids, mask)
+    torch.cuda.synchronize()
+    decode_ms = sum(s.elapsed_time(e) for w, s, e in events if w == 1)
+    steps = sum(w == 1 for w, _, _ in events)
+    return {"decode_ms": decode_ms, "steps": steps,
+            "tokens_per_s": ids.shape[0] * steps / (decode_ms / 1e3),
+            "finite": bool(torch.isfinite(out.logprobs).all())}
+
+
+def int8_sweep(torch, fa) -> dict:
+    """Phase 23 (b): int8 against bf16 decode tokens/s on GPT-2 small's
+    fixed sampler at :data:`KV_INT8_SWEEP`, :data:`KV_INT8_PAIRS`
+    interleaved pairs per shape after one warm-up each (the order flips
+    every pair), medians reported; the capacity the figures support: the
+    largest measured one up to which int8 is at least as fast at every
+    measured capacity (0 when it is slower at the smallest)."""
+    import warnings
+
+    from trlx_tpu_torch.models.gpt2 import INT8_KV_MAX_CAPACITY
+
+    cap_max = max(c for _, c in KV_INT8_SWEEP)
+    cfg, model = sweep_model(torch, cap_max)
+    rows = {}
+    R = KV_INT8_SWEEP_NEW
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # an explicit int8 past the threshold warns
+        for B, cap in KV_INT8_SWEEP:
+            gen = torch.Generator(device="cuda").manual_seed(cap)
+            Q = cap - R
+            ids = torch.randint(0, 50256, (B, Q), generator=gen, device="cuda")
+            mask = torch.ones_like(ids)
+            mask[B // 2:, : Q // 4] = 0  # half the rows left-padded
+            for dt in ("int8", "bfloat16"):
+                sweep_rollout(torch, model, cfg, dt, ids, mask, R)  # warm-up
+            runs = {"int8": [], "bfloat16": []}
+            for pair in range(KV_INT8_PAIRS):
+                for dt in (("int8", "bfloat16") if pair % 2 == 0 else ("bfloat16", "int8")):
+                    runs[dt].append(sweep_rollout(torch, model, cfg, dt, ids, mask, R))
+            med = {dt: statistics.median(r["tokens_per_s"] for r in runs[dt]) for dt in runs}
+            rows[cap] = {
+                "B": B, "capacity": cap, "prompt": Q, "new_tokens": R,
+                "int8_tokens_per_s": med["int8"], "bf16_tokens_per_s": med["bfloat16"],
+                "int8_over_bf16": med["int8"] / med["bfloat16"],
+                "int8_pairs": [r["tokens_per_s"] for r in runs["int8"]],
+                "bf16_pairs": [r["tokens_per_s"] for r in runs["bfloat16"]],
+                "finite": all(r["finite"] for rs in runs.values() for r in rs),
+            }
+            log(f"phase 23: sweep B={B} capacity={cap}: int8 {med['int8']:.1f} tokens/s, bf16 "
+                f"{med['bfloat16']:.1f} tokens/s (medians of {KV_INT8_PAIRS} interleaved pairs; "
+                f"int8/bf16 {rows[cap]['int8_over_bf16']:.4f}); int8 pairs "
+                f"{rows[cap]['int8_pairs']}, bf16 pairs {rows[cap]['bf16_pairs']}")
+    del model
+    torch.cuda.empty_cache()
+    supported = 0
+    for cap in sorted(rows):
+        if rows[cap]["int8_over_bf16"] < 1.0:
+            break
+        supported = cap
+    log(f"phase 23: the sweep supports INT8_KV_MAX_CAPACITY = {supported}; the port's "
+        f"constant is {INT8_KV_MAX_CAPACITY} "
+        f"({'equal' if supported == INT8_KV_MAX_CAPACITY else 'DIFFERENT'}; walls vary between "
+        "calls, so this is reported, not gated)")
+    return {"rows": rows, "supported": supported, "constant": INT8_KV_MAX_CAPACITY}
+
+
+def int8_serving_tier(torch, fa) -> tuple:
+    """Phase 23 (c): phase 11's serving tier (the prefix pool, chunked
+    prefill, the trie drafter) on its traffic with
+    ``kv_cache_dtype: int8``: an int8 cache and an int8 pool. Gates: every
+    request complete with finite logprobs and values, prefix hits, K1
+    ``tile`` = 12 x chunk forwards (on the dequantized view),
+    ``decode_int8`` = 12 x (decode + verify steps) and no bf16 ``decode``,
+    the quantizing write 12 x every forward, no ``fma`` launch, input copy
+    or plain call."""
+    from trlx_tpu_torch.inference.server import InferenceServer
+
+    prompts, _ = serving_tier_prompts()
+    cfg = serving_tier_config(True)
+    cfg["model"]["model_arch"]["kv_cache_dtype"] = "int8"
+    server = InferenceServer(cfg, seed=0)
+    layer = server.engine.init_state().cache[0]
+    int8_cache = layer["k"].dtype == torch.int8 and layer["shared_k"].dtype == torch.int8
+    results, rec = serve_counted(torch, fa, server, prompts)
+    del server
+    kv = rec["kv_int8_launches"]
+    expected = {"tile": N_LAYER * rec["prefill_chunks"], "decode": 0, "fma": 0, "copies": 0}
+    expected_int8 = {"flash_fwd_decode_int8": N_LAYER * rec["decode_steps"],
+                     "kv_quant": N_LAYER * (rec["prefill_chunks"] + rec["decode_steps"])}
+    gates = {
+        "int8_cache_and_pool": int8_cache,
+        "complete": len(results) == len(prompts) and rec["min_length"] >= 1 and rec["finite"],
+        "prefix_hits": rec["prefix_hit_blocks"] > 0,
+        "verify_steps": rec["verify_steps"] > 0,
+        "k1_by_variant": rec["flash_fwd_variants"] == expected,
+        "int8_kernels": kv == expected_int8,
+        "no_plain_calls": rec["plain_attention_calls"] == 0,
+    }
+    rec.update(expected_variants=expected, expected_int8_launches=expected_int8, gates=gates)
+    ok = all(gates.values())
+    log(f"phase 23: int8 serving tier {'ok' if ok else 'FAIL'} (gates {gates}; K1 by variant "
+        f"{rec['flash_fwd_variants']} vs {expected}; int8 kernels {kv} vs {expected_int8}; "
+        f"tokens/s {rec['tokens_per_s']}, TTFT p50 {rec['ttft_ms_p50']} ms, peak above start "
+        f"{rec['peak_above_start_bytes']} B, prefix hit rate {rec['prefix_hit_rate']}, decode "
+        f"steps {rec['decode_steps']}, verify steps {rec['verify_steps']})")
+    return ok, rec
+
+
+def phase_kv_int8(torch, fa, attn) -> tuple:
+    """Phase 23, the int8 KV cache: (a) both kernels against their plain
+    versions at every built head dim (:func:`check_quantized_write`, bit
+    for bit; :func:`check_int8_decode`, within ``TOL``), and both timed at
+    the serving and rollout decode shapes (:func:`time_int8`); (b) the
+    threshold sweep (:func:`int8_sweep`); (c) the int8 serving tier
+    (:func:`int8_serving_tier`). Returns ``(ok, record)``."""
+    checks = []
+    for D in fa.HEAD_DIMS:
+        H = KV_INT8_HEADS[D]
+        checks.append(check_quantized_write(torch, fa, D, H, seed=D))
+        for B, K in ((8, 576), (16, 112), (4, 65)):
+            checks.append(check_int8_decode(torch, fa, attn, D, H, B, K, seed=D * 1000 + K))
+    for c in checks:
+        log(f"phase 23: check {json.dumps(c)}")
+    timed = {name: time_int8(torch, fa, attn, B, K) for name, (B, K) in KV_INT8_TIMED.items()}
+    for name, t in timed.items():
+        log(f"phase 23: time {name} decode_int8 {json.dumps(t['decode'])}")
+        log(f"phase 23: time {name} kv_quant {json.dumps(t['write'])}")
+    checks_ok = all(c["ok"] for c in checks) and all(
+        t["decode"]["packed_ok"] for t in timed.values())
+    sweep = int8_sweep(torch, fa)
+    tier_ok, tier = int8_serving_tier(torch, fa)
+    sweep_ok = all(r["finite"] for r in sweep["rows"].values())
+    ok = checks_ok and sweep_ok and tier_ok
+    log(f"phase 23: kv int8 {'ok' if ok else 'FAIL'} (kernel checks {checks_ok}, "
+        f"{sum(c['ok'] for c in checks)}/{len(checks)}; sweep finite {sweep_ok}; serving "
+        f"tier {tier_ok})")
+    return ok, {"checks": checks, "timed": timed, "sweep": sweep, "serving_tier": tier}
+
+
+def int8_kernel_entries(kv, bench) -> list:
+    """The ``kernels`` line's entries of the int8 cache's two kernels: the
+    serving decode shape's times at the top, the rollout decode's beside
+    them; launches from the int8 serving tier's run (phase 23 (c)) and
+    from phase 7's runs (where ``"auto"`` resolves to int8 at its
+    capacity)."""
+    out = []
+    for name, part in (("flash_fwd_decode_int8", "decode"), ("kv_quant", "write")):
+        by_path = {"int8_serving_tier": kv["serving_tier"]["kv_int8_launches"][name],
+                   **{"bench_" + n: r["kv_int8_launches"][name] for n, r in bench.items()}}
+        row = kv["timed"]["serving_decode"][part]
+        out.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": sum(by_path.values()), "launches_by_path": by_path,
+            "max_abs_err": max(c["max_abs_err"] for c in kv["checks"] if c["kernel"] == name),
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+            "timed_shape": "serving decode " + row["shape"],
+            "rollout_decode": kv["timed"]["rollout_decode"][part],
+            **({"bf16_decode_ms": row["bf16_decode_ms"], "sdpa_bf16_ms": row["sdpa_bf16_ms"]}
+               if part == "decode" else {}),
+        })
+    return out
+
+
 def ring_kernel_entries(ring) -> list:
     """The ``kernels`` line's entries of the ring's block wrappers: each
     timed at the diagonal block (the forward in bf16, the backward in
@@ -7151,6 +7652,7 @@ def main() -> int:
     neo_training_ok, neo_training = timed_phase("20 neo training", phase_neo_training, torch, fa)
     ring_ok, ring = timed_phase("21 ring attention", phase_ring, torch, fa)
     moe_ok, moe = timed_phase("22 gpt2_moe", phase_moe, torch, fa)
+    kv_int8_ok, kv_int8 = timed_phase("23 kv int8", phase_kv_int8, torch, fa, attn)
     # the small head dims' paths (phases 16 to 18), each counted on its own
     small_paths = {24: {**rw, "randomwalks_ilql": rw_ilql},
                    32: {n: standins[n] for n in ("standin_gpt2_ppo", "standin_gpt2_ppo_bf16",
@@ -7170,6 +7672,9 @@ def main() -> int:
                  "serving_tier_oracle_drafts": tier["oracle_drafts"],
                  # phase 22's gpt2_moe paths (K1, K2, K3 at D = 64)
                  "gpt2_moe_serving": moe["serving"], "gpt2_moe_training": moe["training"],
+                 # phase 23's int8 serving tier (K1 tile on the dequantized
+                 # view; its decode_int8 launches are counted in K1's too)
+                 "int8_serving_tier": kv_int8["serving_tier"],
                  # phase 21's ring paths (the D = 64 kernels, K1 and K2/K3 by
                  # the block wrappers), each counted on its own
                  **ring["paths"]}
@@ -7303,6 +7808,7 @@ def main() -> int:
                                        build, *small[D], small_paths[D],
                                        headlines=SMALL_HEADLINES[D])
     kernels += ring_kernel_entries(ring)
+    kernels += int8_kernel_entries(kv_int8, bench)
     log(", ".join(card) if card else "nvidia-smi: no output")
     walls["total"] = sum(walls.values())
     print(json.dumps({"phase_walls": walls}), flush=True)
@@ -7316,7 +7822,7 @@ def main() -> int:
               ("neox_training", neox_training_ok), ("randomwalks_ppo", rw_ok),
               ("randomwalks_ilql", rw_ilql_ok), ("standins_and_guard", standins_ok),
               ("neo_serving", neo_serving_ok), ("neo_training", neo_training_ok),
-              ("ring_attention", ring_ok), ("gpt2_moe", moe_ok))
+              ("ring_attention", ring_ok), ("gpt2_moe", moe_ok), ("kv_int8", kv_int8_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

@@ -49,7 +49,16 @@ wrappers at every built head dim, in both dtypes, on a diagonal, a wholly
 future and a padded past block: ``flash_block_fwd`` (K1, causal flag off)
 against the plain forward, ``flash_block_bwd`` (K2 and K3 ``fma`` against
 an outside lse) against the plain backward; and the ring at sp = 1 on a
-one-rank NCCL mesh against the dense kernels and the naive impl.
+one-rank NCCL mesh against the dense kernels and the naive impl. The int8 KV cache: the
+quantizing write (``csrc/kv_quant.cu``) against its plain version bit for
+bit at every built head dim, into a linear cache and through paged tables
+with a publish into the shared pool; K1's ``decode_int8`` against
+dequantization and the plain attention (a row with no live key and its
+``p_scale`` included) and bit for bit against the bf16 decode on the
+dequantized view; the routes of ``dot_product_attention`` on
+``QuantizedKV``; a greedy int8 rollout through both kernels, token for
+token with the CPU's; and ``HealthMonitor.observe`` on CUDA scalars
+forcing no synchronisation.
 """
 
 import math
@@ -1833,3 +1842,213 @@ def test_async_checkpoint_snapshots_cuda_tensors_before_they_change(dev, tmp_pat
     ckpt.wait_for_checkpoints()
     state = ckpt.load_checkpoint(str(tmp_path), device=dev)
     assert torch.equal(state["w"], w) and ckpt.all_steps(str(tmp_path)) == [1, 2]
+
+
+# ------------------------- the int8 KV cache ------------------------- #
+
+
+def _int8_inputs(dev, B, T, H, D, dtype, seed):
+    """K and V [B, T, H, D] with the quantizer's edge rows: an all-zero
+    (token, head), exact .5 ties of the f32 scale, and +-absmax."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    k, v = (torch.randn(B, T, H, D, generator=gen, device=dev) * 3 for _ in range(2))
+    k[0, 0, 0] = 0.0
+    # absmax 127 / 16, so the scale is exactly 1 / 16 and every other
+    # value is a tie, (i + 1/2) scales, alternating in sign
+    ties = (torch.arange(D, device=dev) % 100 + 0.5) / 16
+    ties[0] = 127 / 16
+    k[0, -1, -1] = ties * (1 - 2 * (torch.arange(D, device=dev) % 2))
+    v[-1, 0, 0] = torch.where(torch.arange(D, device=dev) < D // 2, 4.0, -4.0)
+    return k.to(dtype), v.to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=str)
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_quantized_write_matches_plain_bit_for_bit_linear(dev, D, dtype):
+    """The quantizing write into a linear int8 cache at [start, start + T)
+    equals the plain version (``quantize_kv`` and stores on the CPU) bit
+    for bit, values and scales, and counts one launch."""
+    from trlx_tpu_torch.models.gpt2 import kv_buffers
+    from trlx_tpu_torch.ops import kv_quant
+
+    B, T, H, C = 3, 5, 2, 12
+    k, v = _int8_inputs(dev, B, T, H, D, dtype, seed=D)
+    got = kv_buffers(1, B, C, H, D, dtype, "int8", device=dev)[0]
+    want = kv_buffers(1, B, C, H, D, dtype, "int8")[0]
+    before = kv_quant.KV_QUANT_LAUNCHES
+    kv_quant.quantized_write(k, v, kv_quant.cache_buffers(got), row_stride=C, start=4)
+    assert kv_quant.KV_QUANT_LAUNCHES == before + 1
+    kv_quant.quantized_write(k.cpu(), v.cpu(), kv_quant.cache_buffers(want), row_stride=C,
+                             start=4)
+    assert kv_quant.KV_QUANT_LAUNCHES == before + 1
+    for key in ("k", "v", "k_scale", "v_scale"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    assert (want["k"][:, 4:9] != 0).any() and (want["k_scale"][:, :4] == 0).all()
+
+
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_quantized_write_matches_plain_bit_for_bit_paged(dev, D):
+    """The paged write (rotated block tables, an admitted subset of slots,
+    a column sent to the discard sentinel) and its publish into the shared
+    pool equal the plain version bit for bit on every real row; the
+    sentinels, which several columns may hit, are never read."""
+    from trlx_tpu_torch.inference import kv_cache as kvc
+    from trlx_tpu_torch.ops import kv_quant
+
+    S, cap, H, T, bs = 4, 16, 2, 8, 4
+    k, v = _int8_inputs(dev, 2, T, H, D, torch.bfloat16, seed=7 * D)
+    results = []
+    for device in (dev, torch.device("cpu")):
+        cache = kvc.init_paged_cache(1, S, cap, H, D, torch.bfloat16, "int8", bs, device)[0]
+        cache.update(kvc.init_shared_pool(3, bs, H, D, torch.bfloat16, "int8", device))
+        tables = kvc.rotate_block_table(cache["block_tables"], 1)[:2]
+        positions = torch.arange(T, device=device)[None].repeat(2, 1)
+        positions[1, -1] = cap  # the discard sentinel
+        phys = kvc.physical_positions(tables, positions, cap)
+        slots = torch.tensor([3, 1], device=device)
+        publish = torch.tensor([[0, 2, -1, -1], [-1, 1, -1, -1]], device=device)
+        pub_blk = torch.gather(publish, 1, (positions // bs).clamp(0, 3))
+        pub_rows = torch.where(pub_blk >= 0, pub_blk * bs + positions % bs, 3 * bs)
+        kv_quant.quantized_write(
+            k.to(device), v.to(device), kv_quant.cache_buffers(cache),
+            rows=kv_quant.rows_of(slots, phys, cap + 1),
+            publish=kv_quant.cache_buffers(cache, "shared_"), publish_rows=pub_rows)
+        results.append({key: t[..., :cap, :, :].cpu() if t.dim() == 4 else t[:-1].cpu()
+                        for key, t in cache.items() if key != "block_tables"})
+    got, want = results
+    for key in want:
+        assert torch.equal(got[key], want[key]), key
+
+
+def _int8_view(dev, B, K, H, D, seed):
+    from trlx_tpu_torch.models.gpt2 import quantize_kv
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    parts = []
+    for _ in range(2):
+        x = torch.randn(B, K, H, D, generator=gen, device=dev).to(torch.bfloat16)
+        values, scale = quantize_kv(x)
+        parts.append(attn.QuantizedKV(values, scale, torch.bfloat16))
+    return parts
+
+
+@pytest.mark.parametrize("K", (1, 63, 64, 65, 112, 576))
+@pytest.mark.parametrize("D", fa.HEAD_DIMS)
+def test_int8_decode_matches_plain(dev, D, K):
+    """K1's decode_int8 against dequantization followed by the plain
+    version, within the bf16 decode's tolerance, with a padding bias, the
+    causal flag, and a batch row with no live key (K1's ``p_scale`` against
+    the plain one); it counts its own launches, and its output is the bf16
+    decode's on the dequantized view, bit for bit (the math after the load
+    is the same)."""
+    B, H, Q = 3, 2, 1
+    (q,) = _qkv(dev, B, Q, 1, H=H, D=D, dtype=torch.bfloat16, seed=D + K)[:1]
+    k, v = _int8_view(dev, B, K, H, D, seed=D * K)
+    keep = torch.ones(B, K, dtype=torch.long, device=dev)
+    keep[0, : K // 2] = 0
+    keep[2] = 0  # no live key
+    tol_o, tol_lse = TOL[torch.bfloat16]
+    for name, (bias, causal) in {"none": (None, False),
+                                 "padding": (attn.padding_bias(keep), False),
+                                 "causal": (None, True)}.items():
+        before = _fwd_counters(), fa.FLASH_FWD_DECODE_INT8_LAUNCHES
+        o, lse, p_scale = fa._launch_int8(q, k, v, bias, causal, True, with_p_scale=True)
+        assert fa.FLASH_FWD_DECODE_INT8_LAUNCHES == before[1] + 1, name
+        assert _moved(before[0]) == {"FLASH_FWD_LAUNCHES": 1}, name
+        o_ref, lse_ref, ps_ref = _visited_reference(
+            q, k.dequantize(), v.dequantize(), bias, causal, p_scale=True)
+        assert (o.float() - o_ref.float()).abs().max().item() <= tol_o, name
+        assert (lse - lse_ref).abs().max().item() <= tol_lse, name
+        assert torch.allclose(p_scale, ps_ref, rtol=1e-6, atol=0), name
+        o_bf16 = fa.flash_attention(q, k.dequantize(), v.dequantize(), bias, causal)
+        assert torch.equal(o, o_bf16), name
+
+
+def test_int8_attention_routes(dev):
+    """``dot_product_attention`` on QuantizedKV: Q <= 16 in bf16 launches
+    decode_int8; a wider window, f32 and a query that requires grad run
+    K1 on the dequantized view; int8 K/V anywhere else are refused by
+    name; a view the 8-byte loads cannot read is copied and counted."""
+    B, H, D, K = 2, 2, 64, 80
+    k, v = _int8_view(dev, B, K, H, D, seed=3)
+    for Q, dtype, grad, variant in ((1, torch.bfloat16, False, "DECODE_INT8"),
+                                    (16, torch.bfloat16, False, "DECODE_INT8"),
+                                    (17, torch.bfloat16, False, "TILE"),
+                                    (1, torch.float32, False, "FMA"),
+                                    (1, torch.bfloat16, True, "DECODE")):
+        q = torch.randn(B, Q, H, D, device=dev, dtype=dtype, requires_grad=grad)
+        kk, vv = (attn.QuantizedKV(t.values, t.scale, dtype) for t in (k, v))
+        counter = f"FLASH_FWD_{variant}_LAUNCHES"
+        before = getattr(fa, counter)
+        attn.dot_product_attention(q, kk, vv)
+        assert getattr(fa, counter) == before + 1, (Q, dtype, grad)
+    q = torch.randn(B, 1, H, D, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="flash_attention_int8"):
+        fa.flash_attention(q, k.values, v.values)
+    odd = attn.QuantizedKV(torch.zeros(B, K, H, D + 8, dtype=torch.int8, device=dev)[..., 4:D + 4],
+                           k.scale, torch.bfloat16)
+    before = fa.FLASH_FWD_COPIES
+    o = attn.dot_product_attention(q, odd, v)
+    assert fa.FLASH_FWD_COPIES == before + 1 and torch.isfinite(o).all()
+
+
+def test_int8_sampler_runs_every_decode_through_the_kernels(dev):
+    """A greedy fixed-sampler rollout of a tiny bf16 GPT-2 on an int8
+    cache: one quantizing write and one decode_int8 launch per layer and
+    decode step, no plain attention, and the tokens of the same rollout
+    with the plain versions on the CPU."""
+    from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model, init_cache
+    from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
+    from trlx_tpu_torch.ops import kv_quant
+    from trlx_tpu_torch.ops.sampling import GenerationConfig, make_sampler
+
+    cfg = GPT2Config(vocab_size=64, n_positions=64, n_embd=128, n_layer=2, n_head=2,
+                     dtype="bfloat16", kv_cache_dtype="int8")
+    gen = GenerationConfig.from_dict({"max_new_tokens": 6, "min_new_tokens": 6,
+                                      "do_sample": False, "eos_token_id": 63,
+                                      "pad_token_id": 63})
+    model = CausalLMWithValueHead(cfg, GPT2Model, device="cpu")
+    init_params(model, 0)
+    ids = torch.randint(0, 60, (4, 8), generator=torch.Generator().manual_seed(1))
+    mask = torch.ones_like(ids)
+    mask[0, :3] = 0
+    outs = []
+    for device in (dev, torch.device("cpu")):
+        m, calls = model.to(device), []
+
+        def apply(*a, m=m, **kw):
+            calls.append(a[0].shape[1])
+            return m(*a, **kw)
+
+        sampler = make_sampler(apply, lambda b, c, d=device: init_cache(cfg, b, c, d), gen, 8)
+        before = kv_quant.KV_QUANT_LAUNCHES, fa.FLASH_FWD_DECODE_INT8_LAUNCHES
+        outs.append(sampler(ids.to(device), mask.to(device)))
+        moved = (kv_quant.KV_QUANT_LAUNCHES - before[0],
+                 fa.FLASH_FWD_DECODE_INT8_LAUNCHES - before[1])
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            # every forward writes once a layer; the 8-column prefill and
+            # every step are decode-variant widths
+            assert len(calls) > 1 and max(calls) <= 16
+            assert moved == (2 * len(calls), 2 * len(calls)), moved
+        else:
+            assert moved == (0, 0)
+    assert torch.equal(outs[0].tokens.cpu(), outs[1].tokens)
+
+
+def test_health_observe_forces_no_synchronisation(dev):
+    """``HealthMonitor.observe`` on a row holding CUDA scalars reads none
+    of them (no device synchronisation under the sync debug mode's
+    ``error``) and observes the host values."""
+    from trlx_tpu_torch.telemetry.health import HealthConfig, HealthMonitor
+
+    monitor = HealthMonitor(HealthConfig(enabled=True))
+    row = {"losses/total_loss": torch.tensor(1.0, device=dev),
+           "health/entropy": torch.tensor(2.0, device=dev), "optimizer/grad_norm": 0.5}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        monitor.observe(row, step=1)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert monitor.latest == {"optimizer/grad_norm": 0.5}

@@ -194,8 +194,12 @@ def test_prefill_and_decode_step_match_jax(models, layout):
 
 
 def test_unported_arguments_raise():
-    with pytest.raises(NotImplementedError, match="int8"):
-        tinit_cache(TGPT2Config(**dict(ARCH, kv_cache_dtype="int8")), 1, 8)
+    """The int8 cache is ported (tests/test_torch_kv_int8.py); a cache
+    dtype neither package has is refused by name."""
+    cache = tinit_cache(TGPT2Config(**dict(ARCH, kv_cache_dtype="int8")), 1, 8)
+    assert cache[0]["k"].dtype == torch.int8 and "k_scale" in cache[0]
+    with pytest.raises(ValueError, match="kv_cache_dtype"):
+        TGPT2Config(**dict(ARCH, kv_cache_dtype="fp8"))
 
 
 # the methods the port has: PPO, GRPO and ILQL

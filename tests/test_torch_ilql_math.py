@@ -121,12 +121,20 @@ def test_ilql_loss_stats_and_gradients_match_jax(two_qs):
 
 
 def test_ilql_health_is_refused():
+    """``health=True``, refused until run-health monitoring was ported, now
+    adds the three health stats and leaves the loss and every other stat
+    the same bits (their values against the JAX package's are
+    ``tests/test_torch_health.py``)."""
     jbatch, x = _loss_inputs(2, True)
     tbatch = TBatch(**{f: torch.from_numpy(np.array(getattr(jbatch, f))) for f in FIELDS})
-    with pytest.raises(NotImplementedError, match="item 19"):
-        tm.ilql_loss(torch.from_numpy(x["logits"]), [torch.from_numpy(q) for q in x["qs"]],
-                     [torch.from_numpy(q) for q in x["target_qs"]], torch.from_numpy(x["vs"]),
-                     tbatch, TConfig(), health=True)
+    args = (torch.from_numpy(x["logits"]), [torch.from_numpy(q) for q in x["qs"]],
+            [torch.from_numpy(q) for q in x["target_qs"]], torch.from_numpy(x["vs"]), tbatch,
+            TConfig())
+    off_loss, off = tm.ilql_loss(*args)
+    on_loss, on = tm.ilql_loss(*args, health=True)
+    assert torch.equal(on_loss, off_loss)
+    assert set(on) - set(off) == {"health/entropy", "health/q_max", "health/td_error_mean"}
+    assert all(torch.equal(on[k], v) for k, v in off.items())
 
 
 def test_polyak_update_is_bit_exact():

@@ -131,3 +131,27 @@ def test_checkpoint_loader_needs_neither_transformers_nor_safetensors(tmp_path):
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                          cwd=ROOT, env=env, timeout=300)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
+def test_chip_smoke_imports_nothing_of_jax():
+    """``chip_smoke.py`` runs on the card's machine, which has no JAX: it
+    imports neither JAX, flax nor the JAX package, in its source or when
+    imported (it times SDPA as a yardstick, so the attention rule above
+    does not apply to it)."""
+    path = os.path.join(ROOT, "chip_smoke.py")
+    tree = ast.parse(open(path).read(), filename=path)
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add((node.module or "").split(".")[0])
+    assert not roots & FORBIDDEN_ROOTS, sorted(roots & FORBIDDEN_ROOTS)
+    code = "import json, sys\nimport chip_smoke\nprint(json.dumps(sorted(sys.modules)))\n"
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=300)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert not [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS]

@@ -145,5 +145,7 @@ def test_init_paged_cache_layout():
     assert cache[0]["k"].shape == (3, 21, 2, 4)  # + the discard position
     assert cache[0]["block_tables"].shape == (3, 4)  # block size 8 -> 5
     assert cache[0]["block_tables"] is cache[1]["block_tables"]
-    with pytest.raises(NotImplementedError):
-        tkv.init_paged_cache(1, 1, 8, 1, 4, torch.float32, kv_cache_dtype="int8")
+    # an int8 cache: int8 values and bf16 scales, the discard position too
+    int8 = tkv.init_paged_cache(1, 3, 20, 2, 4, torch.float32, kv_cache_dtype="int8")[0]
+    assert int8["k"].shape == (3, 21, 2, 4) and int8["k"].dtype == torch.int8
+    assert int8["v_scale"].shape == (3, 21, 2, 1) and int8["v_scale"].dtype == torch.bfloat16

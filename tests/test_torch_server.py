@@ -125,7 +125,7 @@ def test_engine_drive_yields_the_served_tokens(servers):
     _, _, server = servers
     engine = ContinuousBatchingEngine(
         apply_fn=server.model,
-        init_cache_fn=lambda b, cap: init_cache(server.model_config, b, cap),
+        init_cache_fn=lambda b, cap, **kw: init_cache(server.model_config, b, cap, **kw),
         gen_config=server.gen_config, query_length=server.query_length,
         vocab_size=server.model_config.vocab_size, num_slots=8,
         admit_width=4, harvest_width=4, block_size=4, device="cpu",
@@ -168,28 +168,25 @@ def test_sampled_tokens_do_not_depend_on_admission_schedule(servers):
 
 
 def test_unported_features_raise():
-    """The int8 shared-prefix pool is refused by name (it comes with the
-    int8 KV cache), and ``spec_decode`` under the fixed engine with the
-    reference's own ``ValueError``."""
+    """``spec_decode`` under the fixed engine is refused with the
+    reference's own ``ValueError``. The int8 shared-prefix pool, refused
+    until the int8 KV cache was ported, now builds with its scales and
+    serves (its parity with the reference is
+    ``tests/test_torch_kv_int8.py``)."""
     from trlx_tpu_torch.inference import RolloutEngineConfig
-    from trlx_tpu_torch.inference.kv_cache import init_shared_pool, paged_write_read
+    from trlx_tpu_torch.inference.kv_cache import init_shared_pool
     from trlx_tpu_torch.inference.server import InferenceServer
 
     with pytest.raises(ValueError, match="spec_decode"):
         RolloutEngineConfig.from_dict({"engine": "fixed", "spec_decode": {"enabled": True}})
-    with pytest.raises(NotImplementedError, match="int8 shared-prefix pool"):
-        init_shared_pool(4, 4, 2, 16, torch.float32, kv_cache_dtype="int8")
-    cache = {"k": torch.zeros(1, 9, 2, 16), "v": torch.zeros(1, 9, 2, 16),
-             "block_tables": torch.zeros(1, 2, dtype=torch.int32),
-             "shared_k_scale": torch.zeros(9, 2, 1)}
-    with pytest.raises(NotImplementedError, match="int8"):
-        paged_write_read(cache, torch.zeros(1, 1, 2, 16), torch.zeros(1, 1, 2, 16), 0,
-                         torch.float32)
+    pool = init_shared_pool(4, 4, 2, 16, torch.float32, kv_cache_dtype="int8")
+    assert pool["shared_k"].dtype == torch.int8 and pool["shared_v_scale"].shape == (17, 2, 1)
     cfg = _config()
     cfg["model"]["model_arch"]["kv_cache_dtype"] = "int8"
     cfg["train"]["serving"] = {"prefix_cache_blocks": 4}
-    with pytest.raises(NotImplementedError, match="int8"):
-        InferenceServer(cfg, device="cpu")
+    server = InferenceServer(cfg, device="cpu")
+    layer = server.engine.init_state().cache[0]
+    assert layer["k"].dtype == torch.int8 and layer["shared_k_scale"].dtype == torch.bfloat16
 
 
 def test_serving_features_are_accepted_and_run():

@@ -88,8 +88,19 @@ def train(
         config.train.pipeline
     )(eval_prompts, trainer.query_length, trainer.tokenizer)
     trainer.add_eval_pipeline(eval_pipeline)
-    trainer.learn()
+    _learn(trainer)
     return trainer
+
+
+def _learn(trainer) -> None:
+    """``trainer.learn()``; a failure that escapes ``learn``'s own hook
+    (the first collect runs before it) writes the crash forensics file,
+    at most once per run (no-op with health off)."""
+    try:
+        trainer.learn()
+    except BaseException as e:
+        trainer.flight_dump_on_exception(e)
+        raise
 
 
 def _train_offline(model_path, dataset, eval_prompts, metric_fn, config, split_token,
@@ -128,5 +139,5 @@ def _train_offline(model_path, dataset, eval_prompts, metric_fn, config, split_t
     trainer.add_eval_pipeline(
         get_pipeline(config.train.pipeline)(eval_prompts, trainer.query_length, trainer.tokenizer)
     )
-    trainer.learn()
+    _learn(trainer)
     return trainer

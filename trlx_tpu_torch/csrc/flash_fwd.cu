@@ -19,9 +19,10 @@
 // keys are all masked therefore averages the keys of those tiles, as the
 // TPU kernel does.
 //
-// Four variants, chosen in Python (ops/flash_attention.py::forward_variant
-// for dense calls, block_forward_variant for the ring's blocks) and passed
-// in; a mismatched choice is refused with -1:
+// Five variants, chosen in Python (ops/flash_attention.py::forward_variant
+// for dense calls, block_forward_variant for the ring's blocks,
+// flash_attention_int8 for the int8 cache's decode) and passed in; a
+// mismatched choice is refused with -1:
 //
 //  tile (bf16, Q > 16: serving prefill B=8 Q=512 K=576, the update forward
 //    B=16 T=112 causal, the rollout prefill B=128 Q=64 K=112). At these
@@ -68,6 +69,22 @@
 //    0.043 ms; chip_smoke.py phase 2 on an H100 80GB HBM3 at 700 W).
 //    Holding a (head, batch row)'s query rows in one CTA would read its K/V
 //    once. Under the causal flag the visit rule leaves keys 0-63.
+//
+//  decode_int8 (bf16 q, the int8 KV cache's K and V, Q <= 16; entry point
+//    trlx_flash_fwd_int8, from ops/flash_attention.py::flash_attention_int8):
+//    the decode variant reading int8 K/V and their [B, K, H, 1] bf16 scales
+//    where the cache holds them. The lane layout is decode's (row_lanes<D>,
+//    8 columns a lane); a lane loads 8 bytes of int8 instead of 16 of bf16,
+//    plus its key row's scale, and widens each value to bf16(q * scale),
+//    the element of the dequantized view the plain version attends over
+//    (Int8Rows), so everything after the load is decode's math. Its bytes
+//    bound is about half decode's: 28.3 MB of int8 K/V and 0.9 MB of scales
+//    at serving decode B=32 H=12 K=576 D=64, 0.0088 ms. It takes 0.0439 ms
+//    there against decode's 0.0245 (0.0326 against 0.0225 at the rollout
+//    decode B=128 K=112; chip_smoke.py phase 23 on an H100 80GB HBM3 at
+//    700 W). With 8 bytes a lane a batch holds half decode's bytes in
+//    flight, and each value costs a conversion and a multiply more; which
+//    of the two holds it back is not measured (no ncu on that machine).
 //
 //  fma (f32, every Q; dense calls): the parity path, on the CUDA cores.
 //    Register-blocked 4x4 f32 FMA from shared memory, K/V tiles staged in
@@ -172,7 +189,7 @@
 
 namespace {
 
-enum Variant { kFma = 0, kTile = 1, kDecode = 2, kSplit3 = 3 };
+enum Variant { kFma = 0, kTile = 1, kDecode = 2, kSplit3 = 3, kDecodeInt8 = 4 };
 
 // Logit of (query row qi, key kj < K) from the raw product s. bias_row is
 // the bias row read for qi (a padded row past Q reads a valid row).
@@ -872,8 +889,62 @@ __device__ __forceinline__ float rescale(float x, float m) {
 
 constexpr int kDecBatch = 4;  // keys each group loads per batch
 
-// One batch of keys for one lane: kDecBatch key rows (16 bytes each of K
-// and V) and the bias of the CTA's query row at those keys.
+// K or V rows in bf16 (the decode variant): a lane's 8 columns are one
+// 16-byte load. Both readers hand the kernel a lane's load as a uint4, so
+// the batch of loads in flight is laid out alike in registers.
+struct Bf16Rows {
+  const bf16* p;
+  Strides s;
+  // the rows of (batch row b, head h) from column col on
+  __device__ __forceinline__ Bf16Rows at(int b, int h, int col) const {
+    return {p + b * s.b + h * s.h + col, s};
+  }
+  __device__ __forceinline__ uint4 load(int kj) const {
+    return *reinterpret_cast<const uint4*>(p + kj * s.t);
+  }
+  __device__ __forceinline__ static void widen(const uint4& r, float (&f)[8]) {
+    bf16x8_to_f32(r, f);
+  }
+};
+
+// K or V rows of the int8 cache (the decode_int8 variant): int8 values with
+// one bf16 scale per key row ([B, K, H, 1], its own strides). A lane's 8
+// columns are one 8-byte load (.x, .y of its uint4) plus its row's scale
+// (.z, as f32 bits); each value becomes q * scale as one correctly
+// rounded bf16 product (q and the scale are exact in bf16), the element the
+// plain path's dequantized bf16 view holds. The lane layout is the bf16
+// rows', so the math after widen is the decode variant's, instruction for
+// instruction. (An f32 product rounded to bf16, the same value, left
+// ptxas 12 bytes of spills at D = 256; so did the scale carried as bf16
+// bits, at every D.)
+struct Int8Rows {
+  const int8_t* p;
+  Strides s;
+  const bf16* scale;
+  Strides ss;
+  __device__ __forceinline__ Int8Rows at(int b, int h, int col) const {
+    return {p + b * s.b + h * s.h + col, s, scale + b * ss.b + h * ss.h, ss};
+  }
+  __device__ __forceinline__ uint4 load(int kj) const {
+    const uint2 q = *reinterpret_cast<const uint2*>(p + kj * s.t);
+    return make_uint4(q.x, q.y, __float_as_uint(__bfloat162float(scale[kj * ss.t])), 0u);
+  }
+  // byte i of the pair of words, sign-extended by shifts, so the loaded
+  // words stay in registers
+  __device__ __forceinline__ static void widen(const uint4& r, float (&f)[8]) {
+    const float sc = __uint_as_float(r.z);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const uint32_t word = i < 4 ? r.x : r.y;
+      const int q = static_cast<int>(word << (24 - 8 * (i & 3))) >> 24;
+      f[i] = __bfloat162float(
+          __hmul(__float2bfloat16_rn(static_cast<float>(q)), __float2bfloat16_rn(sc)));
+    }
+  }
+};
+
+// One batch of keys for one lane: kDecBatch key rows of K and V and the
+// bias of the CTA's query row at those keys.
 struct DecodeBatch {
   uint4 k[kDecBatch], v[kDecBatch];
   float bias[kDecBatch];
@@ -882,35 +953,31 @@ struct DecodeBatch {
 // Start the loads of the batch at key base + u * dec_groups + group; keys at
 // or past k_end, and every key for a lane past the row (in_row false),
 // read K and V as zero and are left out later.
-template <int D>
-__device__ __forceinline__ void load_batch(DecodeBatch& d, const bf16* kb,
-                                           const bf16* vb, Strides sk,
-                                           Strides sv, const float* brow,
+template <int D, class Rows>
+__device__ __forceinline__ void load_batch(DecodeBatch& d, const Rows& kr,
+                                           const Rows& vr, const float* brow,
                                            long long sbk, int base, int group,
                                            int k_end, bool in_row) {
 #pragma unroll
   for (int u = 0; u < kDecBatch; ++u) {
     const int kj = base + u * dec_groups<D>() + group;
     const bool in = kj < k_end;
-    d.k[u] = in && in_row ? *reinterpret_cast<const uint4*>(kb + kj * sk.t)
-                          : make_uint4(0, 0, 0, 0);
-    d.v[u] = in && in_row ? *reinterpret_cast<const uint4*>(vb + kj * sv.t)
-                          : make_uint4(0, 0, 0, 0);
+    d.k[u] = in && in_row ? kr.load(kj) : make_uint4(0, 0, 0, 0);
+    d.v[u] = in && in_row ? vr.load(kj) : make_uint4(0, 0, 0, 0);
     d.bias[u] = in && brow ? brow[kj * sbk] : 0.f;
   }
 }
 
 // One CTA per (head, batch row, query row). The paths send one query row
 // (Q = 1); Q in 2..16 stays correct and rereads K/V once per row. The next
-// batch's loads are started before the current batch's math.
-template <int D>
+// batch's loads are started before the current batch's math. Rows is
+// Bf16Rows (decode) or Int8Rows (decode_int8).
+template <int D, class Rows>
 __global__ void __launch_bounds__(kDecThreads)
-flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v,
+flash_fwd_decode_kernel(const bf16* __restrict__ q, Rows k, Rows v,
                         const float* __restrict__ bias, bf16* __restrict__ o,
                         float* __restrict__ lse, float* __restrict__ p_scale, int H, int Q, int K,
-                        Strides sq, Strides sk, Strides sv, BiasStrides sb,
-                        float scale, int causal) {
+                        Strides sq, BiasStrides sb, float scale, int causal) {
   constexpr int kRowLanes = row_lanes<D>();
   constexpr int kCols = 8 * kRowLanes;                // D, padded to the row's lanes
   constexpr int kWarpGroups = 32 / kRowLanes;        // groups per warp
@@ -932,8 +999,8 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int qi = blockIdx.z;
 
   const bf16* qb = q + b * sq.b + h * sq.h + qi * sq.t;
-  const bf16* kb = k + b * sk.b + h * sk.h + 8 * sub;
-  const bf16* vb = v + b * sv.b + h * sv.h + 8 * sub;
+  const Rows kr = k.at(b, h, 8 * sub);
+  const Rows vr = v.at(b, h, 8 * sub);
   const float* brow = bias ? bias + b * sb.b + h * sb.h + qi * sb.q : nullptr;
 
   for (int d = tid; d < kCols; d += kDecThreads) sQ[d] = d < D ? __bfloat162float(qb[d]) : 0.f;
@@ -946,7 +1013,7 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int d = 0; d < 8; ++d) acc[d] = 0.f;
 
   DecodeBatch cur;
-  load_batch<D>(cur, kb, vb, sk, sv, brow, sb.k, kWarpGroups * warp, group, k_end, in_row);
+  load_batch<D>(cur, kr, vr, brow, sb.k, kWarpGroups * warp, group, k_end, in_row);
   __syncthreads();  // sQ complete
   const float4 qa = *reinterpret_cast<const float4*>(&sQ[8 * sub]);
   const float4 qc = *reinterpret_cast<const float4*>(&sQ[8 * sub + 4]);
@@ -954,7 +1021,7 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int base = kWarpGroups * warp; base < k_end; base += kStep) {
     DecodeBatch nxt;
     if (base + kStep < k_end)
-      load_batch<D>(nxt, kb, vb, sk, sv, brow, sb.k, base + kStep, group, k_end, in_row);
+      load_batch<D>(nxt, kr, vr, brow, sb.k, base + kStep, group, k_end, in_row);
 
     // logits of the batch: dot products over the row's lanes, then scale,
     // bias, mask
@@ -962,7 +1029,7 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < kDecBatch; ++u) {
       float kf[8];
-      bf16x8_to_f32(cur.k[u], kf);
+      Rows::widen(cur.k[u], kf);
       float s = qa.x * kf[0];
       s = fmaf(qa.y, kf[1], s);
       s = fmaf(qa.z, kf[2], s);
@@ -999,13 +1066,12 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int u = 0; u < kDecBatch; ++u) {
       float vf[8];
-      bf16x8_to_f32(cur.v[u], vf);
+      Rows::widen(cur.v[u], vf);
 #pragma unroll
       for (int d = 0; d < 8; ++d) acc[d] = fmaf(p[u], vf[d], acc[d]);
     }
     cur = nxt;
   }
-
   // merge the groups of the warp (lanes kRowLanes apart share a D slice)
 #pragma unroll
   for (int off = kRowLanes; off < 32; off <<= 1) {
@@ -1055,28 +1121,53 @@ flash_fwd_decode_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int D>
-cudaError_t launch_decode(const void* q, const void* k, const void* v,
-                          const void* bias, void* o, void* lse, void* p_scale, int B, int H,
-                          int Q, int K, Strides sq, Strides sk, Strides sv,
-                          BiasStrides sb, float scale, int causal,
-                          cudaStream_t stream) {
+template <int D, class Rows>
+cudaError_t launch_decode(const void* q, Rows k, Rows v, const void* bias, void* o,
+                          void* lse, void* p_scale, int B, int H, int Q, int K, Strides sq,
+                          BiasStrides sb, float scale, int causal, cudaStream_t stream) {
   dim3 grid(H, B, Q);
-  flash_fwd_decode_kernel<D><<<grid, kDecThreads, 0, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const float*>(bias),
+  flash_fwd_decode_kernel<D, Rows><<<grid, kDecThreads, 0, stream>>>(
+      static_cast<const bf16*>(q), k, v, static_cast<const float*>(bias),
       static_cast<bf16*>(o), static_cast<float*>(lse), static_cast<float*>(p_scale), H, Q, K,
-      sq, sk, sv,
-      sb, scale, causal);
+      sq, sb, scale, causal);
   return cudaGetLastError();
 }
 
+// The int8 rows' 8-byte loads: an 8-byte-aligned base and row strides that
+// are multiples of 8 elements (bytes; a dimension of size 1 is never
+// stepped).
+inline bool aligned8(const void* p, Strides s, int B, int T, int H) {
+  return reinterpret_cast<uintptr_t>(p) % 8 == 0 && (B == 1 || s.b % 8 == 0) &&
+         (T == 1 || s.t % 8 == 0) && (H == 1 || s.h % 8 == 0);
+}
+
+// The int8 cache's K and V scales ([B, K, H, 1] bf16, through strides).
+struct Int8Scales {
+  const void* k;
+  const void* v;
+  Strides sk, sv;
+};
+
 // The chosen variant at head dim D; -1 for arguments it was not built for.
+// int8 (decode_int8 only, else null) holds the int8 cache's scales; k and v
+// are then int8.
 template <int D>
 int launch_variant(const void* q, const void* k, const void* v, const void* bias,
                    void* o, void* lse, void* p_scale, int variant, int dtype, int B, int H,
                    int Q, int K, Strides sq, Strides sk, Strides sv,
-                   BiasStrides sb, float scale, int causal, cudaStream_t st) {
+                   BiasStrides sb, float scale, int causal, const Int8Scales* int8,
+                   cudaStream_t st) {
+  if ((variant == kDecodeInt8) != (int8 != nullptr)) return -1;
+  if (variant == kDecodeInt8) {
+    if (dtype != 1 || Q > 16 || !aligned8(k, sk, B, K, H) || !aligned8(v, sv, B, K, H))
+      return -1;
+    const Int8Rows kr{static_cast<const int8_t*>(k), sk, static_cast<const bf16*>(int8->k),
+                      int8->sk};
+    const Int8Rows vr{static_cast<const int8_t*>(v), sv, static_cast<const bf16*>(int8->v),
+                      int8->sv};
+    return static_cast<int>(launch_decode<D>(q, kr, vr, bias, o, lse, p_scale, B, H, Q, K, sq,
+                                             sb, scale, causal, st));
+  }
   const bool kv_aligned = aligned16(k, sk, B, K, H) && aligned16(v, sv, B, K, H);
   cudaError_t err;
   if (variant == kFma && dtype == 0) {
@@ -1090,8 +1181,9 @@ int launch_variant(const void* q, const void* k, const void* v, const void* bias
     err = launch_tile<D>(q, k, v, bias, o, lse, p_scale, B, H, Q, K, sq, sk, sv, sb,
                          scale, causal, st);
   } else if (variant == kDecode && dtype == 1 && Q <= 16 && kv_aligned) {
-    err = launch_decode<D>(q, k, v, bias, o, lse, p_scale, B, H, Q, K, sq, sk, sv, sb,
-                           scale, causal, st);
+    const Bf16Rows kr{static_cast<const bf16*>(k), sk}, vr{static_cast<const bf16*>(v), sv};
+    err = launch_decode<D>(q, kr, vr, bias, o, lse, p_scale, B, H, Q, K, sq, sb, scale, causal,
+                           st);
   } else if (variant == kSplit3 && dtype == 0 && !causal && !p_scale &&
              H <= 65535 / split3_chunks<D>() &&
              contiguous(sq, Q, H, D) &&
@@ -1143,6 +1235,35 @@ extern "C" int trlx_flash_fwd(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return with_head_dim(D, [&](auto d) {
     return launch_variant<decltype(d)::value>(q, k, v, bias, o, lse, p_scale, variant, dtype,
-                                              B, H, Q, K, sq, sk, sv, sb, scale, causal, st);
+                                              B, H, Q, K, sq, sk, sv, sb, scale, causal,
+                                              nullptr, st);
+  });
+}
+
+// The decode_int8 variant (4): K1's decode over the int8 KV cache, bf16 q
+// and o, Q <= 16. k and v are int8 [B, K, H, D] through element strides
+// (8-byte-aligned rows, as aligned8 states); k_scale and v_scale bf16 [B,
+// K, H, 1] through their own (b, t, h) strides. Every other argument as
+// trlx_flash_fwd's. Returns 0 on success, else the CUDA error code of the
+// launch, or -1 for arguments it was not built for.
+extern "C" int trlx_flash_fwd_int8(
+    const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+    const void* bias, void* o, void* lse, void* p_scale, int B, int H, int Q, int K, int D,
+    long long sqb, long long sqt, long long sqh, long long skb, long long skt,
+    long long skh, long long svb, long long svt, long long svh, long long sksb,
+    long long skst, long long sksh, long long svsb, long long svst, long long svsh,
+    long long sbb, long long sbh, long long sbq, long long sbk, float scale, int causal,
+    void* stream) {
+  if (!built_head_dim(D) || B < 1 || H < 1 || Q < 1 || K < 1 || H > 65535 ||
+      B > 65535 || !k_scale || !v_scale)
+    return -1;
+  const Strides sq{sqb, sqt, sqh}, sk{skb, skt, skh}, sv{svb, svt, svh};
+  const Int8Scales int8{k_scale, v_scale, Strides{sksb, skst, sksh}, Strides{svsb, svst, svsh}};
+  const BiasStrides sb{sbb, sbh, sbq, sbk};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return with_head_dim(D, [&](auto d) {
+    return launch_variant<decltype(d)::value>(q, k, v, bias, o, lse, p_scale, kDecodeInt8, 1,
+                                              B, H, Q, K, sq, sk, sv, sb, scale, causal,
+                                              &int8, st);
   });
 }

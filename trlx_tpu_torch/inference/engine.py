@@ -33,8 +33,8 @@ Where the JAX package jits donated-state programs, the port runs eager
 PyTorch and updates :class:`EngineState`'s tensors in place. Admission
 prefill runs over the admitted rows only (no dummy rows — eager PyTorch
 has no fixed program shape to keep) and writes their K/V straight into
-their slots of the pool. Weight pushes and request tracing come with later
-slices.
+their slots of the pool. Weight pushes (ROADMAP item 17) and request
+tracing (item 19) are not ported yet.
 """
 
 from __future__ import annotations
@@ -196,9 +196,11 @@ class ContinuousBatchingEngine:
         attention_mask, position_ids, cache, cache_index[, last_only,
         skip_heads]) -> {"logits", "values"}`` (a
         :class:`CausalLMWithValueHead`).
-    :param init_cache_fn: ``(batch, capacity) -> linear KV buffers`` (the
-        family's ``init_cache``); the engine allocates one extra position
-        per slot (the discard sentinel) and adds the block tables.
+    :param init_cache_fn: ``(batch, capacity, extra_positions=) -> linear
+        KV buffers`` (the family's ``init_cache``); the engine asks for one
+        extra position per slot (the discard sentinel), the cache dtype
+        resolving at ``capacity``, and adds the block tables (and, on an
+        int8 cache, an int8 prefix pool).
     :param gen_config: generation parameters; the engine always samples
         per row.
     :param num_slots: decode-slot pool size B.
@@ -358,9 +360,11 @@ class ContinuousBatchingEngine:
         B, Q, R, V = self.num_slots, self.Q, self.R, self.vocab_size
         dev = self.device
         tables = identity_block_tables(B, self.n_blocks, dev)
+        # one trailing discard position per slot region; the cache dtype
+        # resolves at the capacity itself, as the JAX engine's does
         cache = [
             dict(layer, block_tables=tables)
-            for layer in self._init_cache_fn(B, self.capacity + 1)
+            for layer in self._init_cache_fn(B, self.capacity, extra_positions=1)
         ]
         if self.prefix_pool_blocks > 0:
             # one share table, read by every layer (as the block tables);
@@ -373,7 +377,8 @@ class ContinuousBatchingEngine:
                 layer.update(
                     init_shared_pool(
                         self.prefix_pool_blocks, self.block_size, kv.shape[2],
-                        kv.shape[3], kv.dtype, device=dev,
+                        kv.shape[3], kv.dtype,
+                        "int8" if "k_scale" in layer else "bfloat16", device=dev,
                     ),
                     shared_tables=shared,
                 )
@@ -424,8 +429,8 @@ class ContinuousBatchingEngine:
         implementation for the monolithic prefill and every chunk."""
         group = []
         for layer in self._state.cache:
-            g = {"k": layer["k"], "v": layer["v"],
-                 "block_tables": adm["tables"], "slots": adm["slot_t"]}
+            g = {key: layer[key] for key in ("k", "v", "k_scale", "v_scale") if key in layer}
+            g.update(block_tables=adm["tables"], slots=adm["slot_t"])
             if self.prefix_pool_blocks > 0:
                 g.update({k: layer[k] for k in SHARED_POOL_KEYS if k in layer})
                 g.update(zip(SHARE_TABLE_KEYS, (adm["shared_map"], adm["publish_map"])))

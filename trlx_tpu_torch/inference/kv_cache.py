@@ -27,7 +27,17 @@ to shared columns are dropped, and the view is overlaid from the pool
 after the writes, so a publisher reads its own just-written bits. A
 shared block's bits are the donor's, which equal what the reader's own
 prefill would compute for the same leading ``(ids, mask)`` columns; the
-read side is a gather. The int8 pool comes with the int8 cache.
+read side is a gather.
+
+``kv_cache_dtype`` is honoured as in the linear cache
+(``models/gpt2.py::kv_buffers``): an int8 cache, and its pool, hold int8
+values and per-(position, head) bf16 scales (``*_scale`` keys). One launch
+quantizes a step's K and V and stores values and scales at their physical
+rows, and at their pool rows when the step publishes
+(:func:`~trlx_tpu_torch.ops.kv_quant.quantized_write`); the view is
+gathered and overlaid as int8 values and scales, which attention reads as
+they are (:class:`~trlx_tpu_torch.ops.attention.QuantizedKV`). The int8
+paged and linear caches hold identical bits per logical position.
 """
 
 from __future__ import annotations
@@ -101,16 +111,18 @@ def init_paged_cache(
     device=None,
 ) -> List[Dict[str, torch.Tensor]]:
     """Per-layer paged KV buffers ``[B, capacity + 1, H, Dh]`` (the extra
-    position is the discard sentinel) plus ``"block_tables"``, whose
-    presence routes ``models/gpt2.py::write_cache`` onto the paged path.
-    One table tensor is shared by every layer."""
+    position is the discard sentinel; an int8 cache adds its scales
+    ``[B, capacity + 1, H, 1]``) plus ``"block_tables"``, whose presence
+    routes ``models/gpt2.py::write_cache`` onto the paged path. One table
+    tensor is shared by every layer; ``kv_cache_dtype`` resolves at
+    ``capacity``."""
     from trlx_tpu_torch.models.gpt2 import kv_buffers
 
     bs = choose_block_size(capacity, block_size)
     tables = identity_block_tables(n_slots, capacity // bs, device)
     layers = kv_buffers(
-        n_layer, n_slots, capacity + 1, n_head, head_dim, dtype,
-        kv_cache_dtype, device=device,
+        n_layer, n_slots, capacity, n_head, head_dim, dtype,
+        kv_cache_dtype, device=device, extra_positions=1,
     )
     return [dict(layer, block_tables=tables) for layer in layers]
 
@@ -130,18 +142,22 @@ def init_shared_pool(
     device=None,
 ) -> Dict[str, torch.Tensor]:
     """Per-layer shared-prefix pool buffers ``[pool_blocks * block_size +
-    1, H, Dh]`` in the private regions' layout; the last position is the
-    discard sentinel of rows that publish nothing."""
+    1, H, Dh]`` in the private regions' layout (an ``"int8"`` pool carries
+    bf16 scales ``[..., H, 1]`` as the int8 cache does); the last position
+    is the discard sentinel of rows that publish nothing."""
     from trlx_tpu_torch.models.gpt2 import torch_dtype
 
     if pool_blocks < 1:
         raise ValueError(f"prefix pool needs >= 1 block, got {pool_blocks}")
-    if kv_cache_dtype != "bfloat16":
-        raise NotImplementedError(
-            "the int8 shared-prefix pool comes with the int8 KV cache "
-            f"(kv_cache_dtype={kv_cache_dtype!r})"
-        )
     shape = (pool_blocks * block_size + 1, n_head, head_dim)
+    if kv_cache_dtype == "int8":
+        sshape = shape[:2] + (1,)
+        return {
+            "shared_k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "shared_v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "shared_k_scale": torch.zeros(sshape, dtype=torch.bfloat16, device=device),
+            "shared_v_scale": torch.zeros(sshape, dtype=torch.bfloat16, device=device),
+        }
     dt = torch_dtype(dtype)
     return {
         "shared_k": torch.zeros(shape, dtype=dt, device=device),
@@ -217,7 +233,8 @@ def paged_write_read(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write the new K/V rows through the block table (in place; the
     discard sentinel absorbs out-of-range rows), then return the logical
-    view ``(k_full, v_full)`` [B, view, H, Dh] for attention.
+    view ``(k_full, v_full)`` [B, view, H, Dh] for attention (on an int8
+    cache two :class:`~trlx_tpu_torch.ops.attention.QuantizedKV`).
 
     ``cache_kv["slots"]`` (optional, [B] long) names the pool rows the B
     batch rows live in — the engine's admission prefill writes straight
@@ -233,8 +250,6 @@ def paged_write_read(
     the pool, and shared positions of the view are read from the pool
     after all writes. Every pool op runs on the caller's stream, so a
     publishing prefill's scatter lands before a later group's gather."""
-    if "k_scale" in cache_kv or "shared_k_scale" in cache_kv:
-        raise NotImplementedError("the int8 KV cache comes with a later slice")
     B, T = k.shape[0], k.shape[1]
     pool_k, pool_v = cache_kv["k"], cache_kv["v"]
     capacity = pool_k.shape[1] - 1
@@ -250,6 +265,7 @@ def paged_write_read(
         positions = idx.expand(B)[:, None] + torch.arange(T, device=dev)[None, :]
     phys = physical_positions(tables, positions, capacity)
     shared_tables = cache_kv.get("shared_tables")
+    pub_pos = None
     if shared_tables is not None:
         bs = capacity // shared_tables.shape[-1]
         col_blk = (positions // bs).clamp(0, shared_tables.shape[-1] - 1)
@@ -263,14 +279,18 @@ def paged_write_read(
             pub_pos = torch.where(
                 (pub_blk >= 0) & in_range, pub_blk * bs + positions % bs, sentinel
             )
-            _publish_rows(cache_kv["shared_k"], pub_pos, k)
-            _publish_rows(cache_kv["shared_v"], pub_pos, v)
     rows = slots[:, None]
-    pool_k[rows, phys] = k.to(pool_k.dtype)
-    pool_v[rows, phys] = v.to(pool_v.dtype)
     view = logical_view_index(tables, capacity)
     if 0 < view_len < capacity:
         view = view[:, :view_len]
+    if "k_scale" in cache_kv:
+        return _int8_write_read(cache_kv, k, v, dtype, rows, phys, pub_pos, view, capacity,
+                                view_len)
+    if pub_pos is not None:
+        _publish_rows(cache_kv["shared_k"], pub_pos, k)
+        _publish_rows(cache_kv["shared_v"], pub_pos, v)
+    pool_k[rows, phys] = k.to(pool_k.dtype)
+    pool_v[rows, phys] = v.to(pool_v.dtype)
     k_full, v_full = pool_k[rows, view].to(dtype), pool_v[rows, view].to(dtype)
     if shared_tables is not None:
         out = []
@@ -279,3 +299,32 @@ def paged_write_read(
             out.append(torch.where(mask[..., None, None], vals.to(dtype), full))
         k_full, v_full = out
     return k_full, v_full
+
+
+def _int8_write_read(cache_kv, k, v, dtype, rows, phys, pub_pos, view, capacity, view_len):
+    """:func:`paged_write_read`'s int8 arm: one quantizing write of values
+    and scales at the physical rows (and the publish rows), then the
+    logical view of values and scales, each overlaid from the pool where a
+    block is shared (``overlay(full, pool_key, scale_key)`` of the JAX
+    package, before its dequantization, which is elementwise). Returns two
+    :class:`~trlx_tpu_torch.ops.attention.QuantizedKV`."""
+    from trlx_tpu_torch.ops.attention import QuantizedKV
+    from trlx_tpu_torch.ops.kv_quant import cache_buffers, quantized_write, rows_of
+
+    publish = cache_buffers(cache_kv, "shared_") if pub_pos is not None else None
+    quantized_write(k, v, cache_buffers(cache_kv), rows=rows_of(rows[:, 0], phys, capacity + 1),
+                    publish=publish, publish_rows=pub_pos)
+    shared_tables = cache_kv.get("shared_tables")
+    out = []
+    for key in ("k", "v"):
+        values, scale = cache_kv[key][rows, view], cache_kv[key + "_scale"][rows, view]
+        if shared_tables is not None:
+            pool_vals, mask = _shared_gather(
+                shared_tables, cache_kv["shared_" + key], capacity, view_len)
+            pool_scale, _ = _shared_gather(
+                shared_tables, cache_kv["shared_" + key + "_scale"], capacity, view_len)
+            mask = mask[..., None, None]
+            values = torch.where(mask, pool_vals, values)
+            scale = torch.where(mask, pool_scale, scale)
+        out.append(QuantizedKV(values, scale, dtype))
+    return tuple(out)

@@ -19,8 +19,10 @@ The serving features, as in the reference: ``serving.prefix_cache_blocks
 admitted request, released at completion); ``rollout.prefill_chunk`` and
 ``prefill_chunks_per_pump`` chunk the admission prefill; an enabled
 ``rollout.spec_decode`` drafts with the trie drafter bound to the pool (or
-the n-gram drafter). Not yet ported (later slices): the health monitor,
-request tracing and the ``serve/*`` histograms.
+the n-gram drafter). ``model.model_arch.kv_cache_dtype`` (``int8``, or
+``auto`` at the engine's capacity) gives an int8 cache and an int8 pool.
+Not ported yet (ROADMAP item 19): the health monitor's SLO watch, request
+tracing and the ``serve/*`` histograms.
 """
 
 from __future__ import annotations

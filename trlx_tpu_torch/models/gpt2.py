@@ -13,28 +13,34 @@ The same architecture, numerics and cache contract as the flax module:
 - the KV cache is a list over layers of ``{"k": [B, C, H, Dh], "v": ...}``
   (plus ``"block_tables"`` for the engine's paged cache,
   :mod:`trlx_tpu_torch.inference.kv_cache`). Where the JAX package
-  returns updated buffers, the port writes them in place.
+  returns updated buffers, the port writes them in place. An int8 cache
+  (``kv_cache_dtype: int8``, or ``auto`` up to
+  :data:`INT8_KV_MAX_CAPACITY`) holds int8 ``k``/``v`` and bf16
+  ``k_scale``/``v_scale`` [B, C, H, 1]: one launch quantizes and stores a
+  step's K and V (:func:`~trlx_tpu_torch.ops.kv_quant.quantized_write`),
+  and attention reads the int8 values and scales where they lie
+  (:class:`~trlx_tpu_torch.ops.attention.QuantizedKV`).
 
 Parameter names follow the flax tree (``h.{i}.attn.c_attn``, ...);
 :mod:`trlx_tpu_torch.models.convert` carries JAX params across and
 :mod:`trlx_tpu_torch.models.conversion` loads HF checkpoints. The hydra
 KL reference's arguments are the flax module's (``capture_hidden_at``,
 ``start_layer``, ``hidden_override``); :meth:`GPT2Model.hydra_branch`
-builds the frozen branch. The int8 cache comes with a later slice and
-raises until then.
+builds the frozen branch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from trlx_tpu_torch.ops.attention import causal_dispatch, dot_product_attention
+from trlx_tpu_torch.ops.attention import QuantizedKV, causal_dispatch, dot_product_attention
 
 Cache = List[Dict[str, torch.Tensor]]
 
@@ -68,7 +74,7 @@ class GPT2Config:
     layer_norm_epsilon: float = 1e-5
     dtype: str = "bfloat16"  # compute dtype
     param_dtype: str = "float32"
-    kv_cache_dtype: str = "bfloat16"  # "int8"/"auto" come with a later slice
+    kv_cache_dtype: str = "bfloat16"  # "bfloat16" | "int8" | "auto"
 
     def __post_init__(self):
         validate_kv_cache_dtype(self.kv_cache_dtype)
@@ -303,6 +309,18 @@ class GPT2Model(DecoderLM):
         return torch.matmul(hidden.float(), emb.float().t())
 
 
+def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization over the head dim (the plain version of
+    the quantizing cache write, ``csrc/kv_quant.cu``): per (batch, token,
+    head) scale = max(absmax, 1e-8) / 127 in f32, values round(x / scale)
+    half to even and clipped to [-127, 127], the scale stored rounded to
+    bf16. Returns ``(int8 values, bf16 scale[..., :1])``."""
+    x32 = x.float()
+    scale = x32.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8) / 127.0
+    q = torch.round(x32 / scale).clamp(-127, 127)
+    return q.to(torch.int8), scale.to(torch.bfloat16)
+
+
 def write_cache(cache_kv, k, v, cache_index, dtype, view_len=None):
     """Write this step's K/V into the capacity buffers at ``cache_index``
     (in place) and return ``(k, v)``, the buffers to attend over.
@@ -315,6 +333,12 @@ def write_cache(cache_kv, k, v, cache_index, dtype, view_len=None):
       [B] tensor), reads return the logical view
       (:func:`trlx_tpu_torch.inference.kv_cache.paged_write_read`).
 
+    An int8 cache (``"k_scale"`` present) quantizes the new K and V and
+    stores values and scales in one launch
+    (:func:`~trlx_tpu_torch.ops.kv_quant.quantized_write`) and returns
+    the view as two :class:`~trlx_tpu_torch.ops.attention.QuantizedKV`,
+    which dequantize to the JAX package's ``values * scale`` in ``dtype``.
+
     ``view_len`` narrows the returned view to the leading ``view_len``
     positions; writes always resolve at full capacity."""
     if "block_tables" in cache_kv:
@@ -323,15 +347,54 @@ def write_cache(cache_kv, k, v, cache_index, dtype, view_len=None):
         return paged_write_read(
             cache_kv, k, v, cache_index, dtype, view_len=view_len or 0
         )
-    if "k_scale" in cache_kv:
-        raise NotImplementedError("the int8 KV cache comes with a later slice")
     capacity, T = cache_kv["k"].shape[1], k.shape[1]
     start = min(max(int(cache_index), 0), capacity - T)
+    narrow = view_len is not None and 0 < view_len < capacity
+    if "k_scale" in cache_kv:
+        from trlx_tpu_torch.ops.kv_quant import cache_buffers, quantized_write
+
+        quantized_write(k, v, cache_buffers(cache_kv), row_stride=capacity, start=start)
+        width = view_len if narrow else capacity
+        return tuple(
+            QuantizedKV(cache_kv[key][:, :width], cache_kv[key + "_scale"][:, :width], dtype)
+            for key in ("k", "v")
+        )
     cache_kv["k"][:, start:start + T] = k.to(cache_kv["k"].dtype)
     cache_kv["v"][:, start:start + T] = v.to(cache_kv["v"].dtype)
-    if view_len is not None and 0 < view_len < capacity:
+    if narrow:
         return cache_kv["k"][:, :view_len], cache_kv["v"][:, :view_len]
     return cache_kv["k"], cache_kv["v"]
+
+
+#: The capacity up to which ``kv_cache_dtype: "auto"`` picks the int8 cache,
+#: measured on the H100 (the TPU's 512 does not carry over): 0, since int8
+#: decoded slower than bf16 at every capacity measured. chip_smoke.py phase
+#: 23's sweep on an NVIDIA H100 80GB HBM3 at 700.00 W (GPT-2 small's greedy
+#: fixed sampler, 48 new tokens, medians of 5 interleaved pairs of decode
+#: tokens/s, int8 / bf16): B=128 at capacity 112 21 887 / 23 662 (0.925),
+#: B=128 at 576 14 094 / 16 879 (0.835), B=32 at 1088 3 944 / 6 355 (0.621),
+#: B=8 at 2048 1 039 / 1 423 (0.730). The int8 decode kernel itself took
+#: 0.0439 ms against the bf16 decode's 0.0245 at B=32 K=576 (half the bytes,
+#: more work per byte), and each step adds the Python of the int8 route.
+INT8_KV_MAX_CAPACITY = 0
+
+
+def resolve_kv_cache_dtype(kv_cache_dtype: str, capacity: int) -> str:
+    """Resolve ``"auto"`` by cache capacity (int8 up to
+    :data:`INT8_KV_MAX_CAPACITY`, else bf16) and warn when an explicit
+    ``"int8"`` is asked for past it, where the int8 cache decodes slower
+    than bf16 on the card."""
+    if kv_cache_dtype == "auto":
+        return "int8" if capacity <= INT8_KV_MAX_CAPACITY else "bfloat16"
+    if kv_cache_dtype == "int8" and capacity > INT8_KV_MAX_CAPACITY:
+        warnings.warn(
+            f"kv_cache_dtype='int8' with a {capacity}-token cache: measured "
+            f"SLOWER than bfloat16 beyond {INT8_KV_MAX_CAPACITY} tokens on the "
+            "H100 (chip_smoke.py phase_kv_int8's sweep); set "
+            "kv_cache_dtype='auto' to pick the faster layout per shape, or "
+            "'bfloat16' to silence this"
+        )
+    return kv_cache_dtype
 
 
 def kv_buffers(
@@ -343,14 +406,26 @@ def kv_buffers(
     dtype,
     kv_cache_dtype: str = "bfloat16",
     device=None,
+    extra_positions: int = 0,
 ) -> Cache:
-    """Per-layer fixed-capacity KV buffers in the compute dtype."""
-    if kv_cache_dtype != "bfloat16":
-        raise NotImplementedError(
-            f"kv_cache_dtype={kv_cache_dtype!r}: the int8 KV cache (and "
-            "'auto', which resolves to it) comes with a later slice"
-        )
-    shape = (batch_size, capacity, n_head, head_dim)
+    """Per-layer fixed-capacity KV buffers, shared by every causal family:
+    in the compute dtype, or for ``"int8"`` int8 values and per (token,
+    head) bf16 scales [B, C, H, 1]; ``"auto"`` resolves by capacity
+    (:func:`resolve_kv_cache_dtype`). ``extra_positions`` trailing
+    positions past ``capacity`` (the paged cache's discard sentinel) are
+    allocated too; the dtype resolves at ``capacity``."""
+    kv_cache_dtype = resolve_kv_cache_dtype(kv_cache_dtype, capacity)
+    shape = (batch_size, capacity + extra_positions, n_head, head_dim)
+    if kv_cache_dtype == "int8":
+        sshape = shape[:3] + (1,)
+        return [
+            {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+             "v": torch.zeros(shape, dtype=torch.int8, device=device),
+             "k_scale": torch.zeros(sshape, dtype=torch.bfloat16, device=device),
+             "v_scale": torch.zeros(sshape, dtype=torch.bfloat16, device=device)}
+            for _ in range(n_layer)
+        ]
+    validate_kv_cache_dtype(kv_cache_dtype)
     dt = torch_dtype(dtype)
     return [
         {"k": torch.zeros(shape, dtype=dt, device=device),
@@ -359,9 +434,10 @@ def kv_buffers(
     ]
 
 
-def init_cache(config: GPT2Config, batch_size: int, capacity: int, device=None) -> Cache:
+def init_cache(config: GPT2Config, batch_size: int, capacity: int, device=None,
+               extra_positions: int = 0) -> Cache:
     return kv_buffers(
         config.n_layer, batch_size, capacity, config.n_head,
         config.n_embd // config.n_head, config.dtype, config.kv_cache_dtype,
-        device=device,
+        device=device, extra_positions=extra_positions,
     )

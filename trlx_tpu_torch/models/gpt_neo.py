@@ -85,7 +85,7 @@ class GPTNeoConfig:
     layer_norm_epsilon: float = 1e-5
     dtype: str = "bfloat16"  # compute dtype
     param_dtype: str = "float32"
-    kv_cache_dtype: str = "bfloat16"  # "int8"/"auto" come with a later slice
+    kv_cache_dtype: str = "bfloat16"  # "bfloat16" | "int8" | "auto"
 
     def __post_init__(self):
         validate_kv_cache_dtype(self.kv_cache_dtype)
@@ -285,8 +285,9 @@ class GPTNeoModel(DecoderLM):
 
 
 def init_gpt_neo_cache(config: GPTNeoConfig, batch_size: int, capacity: int,
-                       device=None) -> Cache:
+                       device=None, extra_positions: int = 0) -> Cache:
     return kv_buffers(
         config.num_layers, batch_size, capacity, config.num_heads, config.head_dim,
         config.dtype, config.kv_cache_dtype, device=device,
+        extra_positions=extra_positions,
     )

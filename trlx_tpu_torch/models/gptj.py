@@ -57,7 +57,7 @@ class GPTJConfig:
     layer_norm_epsilon: float = 1e-5
     dtype: str = "bfloat16"  # compute dtype
     param_dtype: str = "float32"
-    kv_cache_dtype: str = "bfloat16"  # "int8"/"auto" come with a later slice
+    kv_cache_dtype: str = "bfloat16"  # "bfloat16" | "int8" | "auto"
 
     def __post_init__(self):
         validate_kv_cache_dtype(self.kv_cache_dtype)
@@ -157,9 +157,10 @@ class GPTJModel(DecoderLM):
         return self.lm_head(hidden).float()
 
 
-def init_gptj_cache(config: GPTJConfig, batch_size: int, capacity: int, device=None) -> Cache:
+def init_gptj_cache(config: GPTJConfig, batch_size: int, capacity: int, device=None,
+                     extra_positions: int = 0) -> Cache:
     return kv_buffers(
         config.n_layer, batch_size, capacity, config.n_head,
         config.n_embd // config.n_head, config.dtype, config.kv_cache_dtype,
-        device=device,
+        device=device, extra_positions=extra_positions,
     )

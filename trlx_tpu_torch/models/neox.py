@@ -64,7 +64,7 @@ class NeoXConfig:
     layer_norm_eps: float = 1e-5
     dtype: str = "bfloat16"  # compute dtype
     param_dtype: str = "float32"
-    kv_cache_dtype: str = "bfloat16"  # "int8"/"auto" come with a later slice
+    kv_cache_dtype: str = "bfloat16"  # "bfloat16" | "int8" | "auto"
 
     def __post_init__(self):
         validate_kv_cache_dtype(self.kv_cache_dtype)
@@ -196,8 +196,10 @@ class NeoXModel(DecoderLM):
         return self.lm_head(hidden).float()
 
 
-def init_neox_cache(config: NeoXConfig, batch_size: int, capacity: int, device=None) -> Cache:
+def init_neox_cache(config: NeoXConfig, batch_size: int, capacity: int, device=None,
+                     extra_positions: int = 0) -> Cache:
     return kv_buffers(
         config.num_hidden_layers, batch_size, capacity, config.num_attention_heads,
         config.head_dim, config.dtype, config.kv_cache_dtype, device=device,
+        extra_positions=extra_positions,
     )

@@ -19,7 +19,7 @@ class ModelFamily:
     name: str
     config_cls: type
     backbone_cls: type
-    init_cache: Callable  # (config, batch, capacity, device) -> cache
+    init_cache: Callable  # (config, batch, capacity, device, extra_positions) -> cache
     load_checkpoint: Callable  # (HF checkpoint dir, dtype) -> (config, state dict)
     is_seq2seq: bool = False
     is_moe: bool = False  # switch-MoE: router losses join the training loss

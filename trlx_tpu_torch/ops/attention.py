@@ -9,16 +9,36 @@ of NaN). Dispatch: every call goes to the flash forward
 hand-written kernel on a CUDA tensor and runs its plain version on a CPU
 tensor. A learned bias (T5's relative position bias, ``learned_bias=True``)
 takes the same route: where the reference pins it to XLA's einsum for its
-gradient, the port's dQ kernel returns that gradient.
+gradient, the port's dQ kernel returns that gradient. K and V read from an
+int8 KV cache arrive as :class:`QuantizedKV` (int8 values and their
+per-(key, head) bf16 scales) and go to
+:func:`~trlx_tpu_torch.ops.flash_attention.flash_attention_int8`, which
+reads them where they lie in the decode step.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
 NEG_INF = -1e9  # large-negative mask value; avoids -inf NaN propagation
+
+
+class QuantizedKV(NamedTuple):
+    """K or V as an int8 KV cache holds it (``models/gpt2.py::quantize_kv``):
+    ``values`` int8 [B, K, H, D], ``scale`` bf16 [B, K, H, 1] (absmax / 127
+    per key and head) and ``dtype``, the compute dtype the JAX package
+    dequantizes into. What ``write_cache`` returns on an int8 cache."""
+
+    values: torch.Tensor
+    scale: torch.Tensor
+    dtype: torch.dtype
+
+    def dequantize(self) -> torch.Tensor:
+        """``values * scale`` in the compute dtype, as the JAX package's
+        ``write_cache`` reads its int8 buffers."""
+        return self.values.to(self.dtype) * self.scale.to(self.dtype)
 
 
 def causal_bias(
@@ -88,8 +108,8 @@ def causal_dispatch(q_len: int, cache, cache_index, attention_mask):
 
 def dot_product_attention(
     q: torch.Tensor,  # [B, Q, H, D]
-    k: torch.Tensor,  # [B, K, H, D]
-    v: torch.Tensor,  # [B, K, H, D]
+    k: Union[torch.Tensor, QuantizedKV],  # [B, K, H, D]
+    v: Union[torch.Tensor, QuantizedKV],  # [B, K, H, D]
     bias: Optional[torch.Tensor] = None,  # [B or 1, 1 or H, Q, K] additive
     *,
     causal: bool = False,
@@ -102,8 +122,10 @@ def dot_product_attention(
     gradient then comes from the dQ kernel (the plain backward on a CPU
     tensor). The route is the same either way: K1 forward, K2 and K3
     backward. A bias that requires grad without the declaration is
-    refused, since the reference would give it no gradient."""
-    from trlx_tpu_torch.ops.flash_attention import flash_attention
+    refused, since the reference would give it no gradient. K and V from
+    an int8 cache (:class:`QuantizedKV`, both or neither) take
+    :func:`~trlx_tpu_torch.ops.flash_attention.flash_attention_int8`."""
+    from trlx_tpu_torch.ops.flash_attention import flash_attention, flash_attention_int8
 
     if (not learned_bias and bias is not None and bias.requires_grad
             and torch.is_grad_enabled()):
@@ -111,4 +133,6 @@ def dot_product_attention(
             "dot_product_attention: the bias requires grad; pass "
             "learned_bias=True for a learned bias"
         )
+    if isinstance(k, QuantizedKV) or isinstance(v, QuantizedKV):
+        return flash_attention_int8(q, k, v, bias, causal=causal)
     return flash_attention(q, k, v, bias, causal=causal)

@@ -10,7 +10,9 @@ Counterpart of :mod:`trlx_tpu.ops.flash_attention`: ``_fwd_kernel`` (K1,
 against an outside LSE). Dense calls take K1 in one of three variants,
 by dtype and query count (:func:`forward_variant`): ``tile`` (bf16, Q >
 16, tensor cores), ``decode`` (bf16, Q <= 16, a GEMV on the CUDA cores)
-and ``fma`` (f32, the parity path); and K2 and K3 in one of two, by dtype
+and ``fma`` (f32, the parity path), and the int8 KV cache's decode takes
+``decode_int8`` (:func:`flash_attention_int8`: ``decode`` reading int8 K/V
+and their scales where the cache holds them); and K2 and K3 in one of two, by dtype
 (:func:`backward_variant`): ``tile`` (bf16, tensor cores) and ``fma``
 (f32). The ring's block wrappers take ``split3`` in f32 (K1,
 :func:`block_forward_variant`; K2 and K3 always, the backward running in
@@ -21,8 +23,10 @@ K2 also returns the bias's gradient (dS, for T5's learned relative
 position bias) when the bias requires grad. Each source is CUDA C++ for
 ``sm_90a``, compiled with ``nvcc`` at first use into
 ``trlx_tpu_torch/_build/`` (a file named by the hash of the source and
-the header it includes, so an edit rebuilds; the three sources build in
-parallel) and bound through plain C functions loaded with ``ctypes``.
+the header it includes, so an edit rebuilds; the sources build in
+parallel, the int8 cache's quantizing write, ``csrc/kv_quant.cu``, among
+them: :mod:`trlx_tpu_torch.ops.kv_quant`) and bound through plain C
+functions loaded with ``ctypes``.
 Nothing is imported or built when this module is imported.
 
 The kernels are templates over the head dim, built for
@@ -67,6 +71,9 @@ FLASH_FWD_LAUNCHES = 0
 FLASH_FWD_TILE_LAUNCHES = 0
 FLASH_FWD_DECODE_LAUNCHES = 0
 FLASH_FWD_FMA_LAUNCHES = 0
+#: K1's decode over the int8 KV cache (:func:`flash_attention_int8`),
+#: counted in ``FLASH_FWD_LAUNCHES`` as well
+FLASH_FWD_DECODE_INT8_LAUNCHES = 0
 #: q/k/v copies K1's wrapper made before a launch (a last dim that is not
 #: contiguous, or a view the 16-byte loads cannot read in place)
 FLASH_FWD_COPIES = 0
@@ -106,8 +113,9 @@ FLASH_BLOCK_BWD_LAUNCHES = 0
 HEAD_DIMS = (16, 24, 32, 64, 96, 128, 256)
 KEY_TILE = 64  # the forward kernel's key tile
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: K1's variants, by the code its C entry point takes
-FORWARD_VARIANTS = {"fma": 0, "tile": 1, "decode": 2, "split3": 3}
+#: K1's variants, by the code its C entry point takes (``decode_int8`` has
+#: an entry point of its own, ``trlx_flash_fwd_int8``)
+FORWARD_VARIANTS = {"fma": 0, "tile": 1, "decode": 2, "split3": 3, "decode_int8": 4}
 #: per variant, whether it reads (q, k, v) with 16-byte loads
 _WIDE_LOADS = {
     "fma": (False, False, False),
@@ -124,6 +132,8 @@ SOURCES = {
     "flash_fwd": os.path.join(_PKG_DIR, "csrc", "flash_fwd.cu"),
     "flash_bwd": os.path.join(_PKG_DIR, "csrc", "flash_bwd.cu"),
     "split_planes": os.path.join(_PKG_DIR, "csrc", "split_planes.cu"),
+    # the int8 KV cache's quantizing write (ops/kv_quant.py)
+    "kv_quant": os.path.join(_PKG_DIR, "csrc", "kv_quant.cu"),
 }
 #: the header every source includes (hashed with each)
 HEADER = os.path.join(_PKG_DIR, "csrc", "hopper_tile.cuh")
@@ -226,6 +236,13 @@ def _load() -> Dict[str, ctypes.CDLL]:
             + [ctypes.c_longlong] * 13
             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
         )
+        # q, k, v, k_scale, v_scale, bias, o, lse, p_scale; B, H, Q, K, D;
+        # the strides of q, k, v, the two scales and the bias
+        fwd.trlx_flash_fwd_int8.restype = ctypes.c_int
+        fwd.trlx_flash_fwd_int8.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 19
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        )
         bwd = ctypes.CDLL(paths["flash_bwd"])
         # dq and dbias, or dk and dv
         for fn in (bwd.trlx_flash_bwd_dq, bwd.trlx_flash_bwd_dkv):
@@ -251,7 +268,13 @@ def _load() -> Dict[str, ctypes.CDLL]:
             [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_longlong] * 4
             + [ctypes.c_void_p]
         )
-        _lib.update(flash_fwd=fwd, flash_bwd=bwd, split_planes=split)
+        quant = ctypes.CDLL(paths["kv_quant"])
+        quant.trlx_kv_quant_write.restype = ctypes.c_int
+        quant.trlx_kv_quant_write.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 6
+            + [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 6
+        )
+        _lib.update(flash_fwd=fwd, flash_bwd=bwd, split_planes=split, kv_quant=quant)
     return _lib
 
 
@@ -561,6 +584,40 @@ def flash_attention(
     return (o, lse) if return_lse else o
 
 
+def flash_attention_int8_reference(q, k, v, bias=None, causal=False):
+    """The plain version of K1 over the int8 cache: the view dequantized to
+    the compute dtype (:meth:`~trlx_tpu_torch.ops.attention.QuantizedKV.dequantize`,
+    the JAX package's ``values * scale``), then
+    :func:`flash_attention_reference`."""
+    return flash_attention_reference(q, k.dequantize(), v.dequantize(), bias, causal)
+
+
+def flash_attention_int8(
+    q: torch.Tensor,  # [B, Q, H, D]
+    k,  # QuantizedKV: int8 [B, K, H, D] and bf16 scales [B, K, H, 1]
+    v,
+    bias: Optional[torch.Tensor] = None,  # broadcastable to [B, H, Q, K]
+    causal: bool = False,
+) -> torch.Tensor:
+    """Attention over the int8 KV cache's K and V; returns ``o`` [B, Q, H,
+    D] in q's dtype. On a CUDA tensor in bf16 with Q <= 16 (the decode
+    step; :func:`forward_variant` gives ``decode``) it launches K1's
+    ``decode_int8`` variant, which reads the int8 values and their scales
+    where they lie. Every other call (a prefill, a chunk or verify window
+    wider than 16 columns, f32's ``fma``, a query that requires grad) runs
+    :func:`flash_attention` on the dequantized view: elementwise work the
+    JAX package also does outside its kernel. A CPU tensor runs the plain
+    versions."""
+    from trlx_tpu_torch.ops.attention import QuantizedKV
+
+    if not (isinstance(k, QuantizedKV) and isinstance(v, QuantizedKV)):
+        raise ValueError("flash_attention_int8: k and v are both QuantizedKV")
+    if (q.device.type == "cpu" or forward_variant(q.dtype, q.shape[1]) != "decode"
+            or (torch.is_grad_enabled() and q.requires_grad)):
+        return flash_attention(q, k.dequantize(), v.dequantize(), bias, causal)
+    return _launch_int8(q, k, v, bias, causal, False)[0]
+
+
 def flash_block_fwd(
     q: torch.Tensor,  # [B, Tq, H, D]
     k: torch.Tensor,  # [B, Tk, H, D]
@@ -628,6 +685,11 @@ def flash_block_bwd(
 
 def _check(q, k, v, bias, name: str) -> None:
     """Refuse what the kernels were not built for (before any launch)."""
+    if torch.int8 in (k.dtype, v.dtype):
+        raise ValueError(
+            f"{name}: K/V of dtype int8 (the int8 KV cache) go through "
+            "flash_attention_int8, whose decode_int8 variant reads them; no other route "
+            "takes them")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(
             f"{name}: q/k/v must share one dtype of "
@@ -750,6 +812,79 @@ def _launch(q, k, v, bias, causal, return_lse, with_p_scale: bool = False):
         )
     FLASH_FWD_LAUNCHES += 1
     globals()[f"FLASH_FWD_{variant.upper()}_LAUNCHES"] += 1
+    return (o, lse, p_scale) if with_p_scale else (o, lse)
+
+
+def aligned_for_8_byte_loads(t: torch.Tensor) -> bool:
+    """Whether ``decode_int8``'s 8-byte loads read the int8 values ``t`` [B,
+    K, H, D] in place: an 8-byte-aligned base, a contiguous last dim and
+    strides in multiples of 8 (``csrc/flash_fwd.cu::aligned8``)."""
+    return (
+        t.data_ptr() % 8 == 0
+        and t.stride(-1) == 1
+        and all(n == 1 or s % 8 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]))
+    )
+
+
+def _launch_int8(q, k, v, bias, causal, return_lse, with_p_scale: bool = False):
+    """K1 ``decode_int8`` on the current stream: ``(o, lse)``, ``lse`` None
+    unless asked for, and with ``with_p_scale`` also K1's ``p_scale``.
+    Values the 8-byte loads cannot read in place are copied and counted in
+    ``FLASH_FWD_COPIES``; the scales are read through their strides."""
+    global FLASH_FWD_LAUNCHES, FLASH_FWD_DECODE_INT8_LAUNCHES, FLASH_FWD_COPIES
+    B, Q, H, D = q.shape
+    K = k.values.shape[1]
+    if q.dtype != torch.bfloat16 or Q > 16 or q.device.type != "cuda" or q.dim() != 4:
+        raise ValueError(
+            f"flash_attention_int8: the decode_int8 variant takes bf16 q [B, Q <= 16, H, D] "
+            f"on a CUDA device, got {q.dtype} {tuple(q.shape)} on {q.device}")
+    if D not in HEAD_DIMS:
+        raise ValueError(
+            f"flash_attention_int8: the kernels are built for head dims {HEAD_DIMS}, got {D}")
+    for t in (k, v):
+        if (t.values.dtype != torch.int8 or t.values.shape != (B, K, H, D)
+                or t.scale.dtype != torch.bfloat16 or t.scale.shape != (B, K, H, 1)):
+            raise ValueError(
+                f"flash_attention_int8: K/V must be int8 [{B}, K, {H}, {D}] with bf16 scales "
+                f"[{B}, K, {H}, 1], got {t.values.dtype} {tuple(t.values.shape)} / "
+                f"{t.scale.dtype} {tuple(t.scale.shape)}")
+    if bias is not None and bias.dim() != 4:
+        raise ValueError(f"flash_attention_int8: bias must be rank-4, got {tuple(bias.shape)}")
+    devices = {t.device for t in (q, k.values, k.scale, v.values, v.scale, bias) if t is not None}
+    if len(devices) != 1:
+        raise ValueError(f"flash_attention_int8: inputs on several devices {devices}")
+    values = []
+    for t in (k.values, v.values):
+        if not aligned_for_8_byte_loads(t):
+            t = t.clone(memory_format=torch.contiguous_format)
+            FLASH_FWD_COPIES += 1
+        values.append(t)
+    (q,), copies = _read_in_place((q,), (False,))
+    FLASH_FWD_COPIES += copies
+    bias, sb = _bias_view(bias, B, H, Q, K)
+    o = torch.empty((B, Q, H, D), dtype=q.dtype, device=q.device)
+    lse, p_scale = (
+        torch.empty((B, H, Q), dtype=torch.float32, device=q.device) if wanted else None
+        for wanted in (return_lse, with_p_scale)
+    )
+    lib = _load()["flash_fwd"]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = lib.trlx_flash_fwd_int8(
+            q.data_ptr(), values[0].data_ptr(), values[1].data_ptr(),
+            k.scale.data_ptr(), v.scale.data_ptr(),
+            bias.data_ptr() if bias is not None else None,
+            o.data_ptr(), *_pointers((lse, p_scale)),
+            B, H, Q, K, D,
+            *q.stride()[:3], *values[0].stride()[:3], *values[1].stride()[:3],
+            *k.scale.stride()[:3], *v.scale.stride()[:3], *sb,
+            float(D ** -0.5), int(bool(causal)), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(
+            f"flash_fwd kernel launch failed (decode_int8 variant): CUDA error {rc}")
+    FLASH_FWD_LAUNCHES += 1
+    FLASH_FWD_DECODE_INT8_LAUNCHES += 1
     return (o, lse, p_scale) if with_p_scale else (o, lse)
 
 
@@ -933,6 +1068,7 @@ __all__ = [
     "FLASH_BWD_DQ_SPLIT3_LAUNCHES",
     "FLASH_BWD_DQ_TILE_LAUNCHES",
     "FLASH_FWD_COPIES",
+    "FLASH_FWD_DECODE_INT8_LAUNCHES",
     "FLASH_FWD_DECODE_LAUNCHES",
     "FLASH_FWD_FMA_LAUNCHES",
     "FLASH_FWD_LAUNCHES",
@@ -948,6 +1084,8 @@ __all__ = [
     "build",
     "flash_attention",
     "flash_attention_backward_reference",
+    "flash_attention_int8",
+    "flash_attention_int8_reference",
     "flash_attention_reference",
     "flash_block_bwd",
     "flash_block_fwd",

@@ -43,12 +43,12 @@ def ilql_loss(
     config,
     health: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The ILQL loss and its stats. ``health`` (the training-dynamics
-    stats) is ROADMAP item 19 and raises."""
-    if health:
-        raise NotImplementedError(
-            "train.health (ILQL's health stats) is not ported yet (ROADMAP item 19)"
-        )
+    """The ILQL loss and its stats. ``health`` (``train.health.enabled``)
+    adds the training-dynamics stats the run-health detectors read: the
+    policy entropy over real next-token positions (``health/entropy``), the
+    largest Q of a real action (``health/q_max``) and the mean absolute TD
+    error (``health/td_error_mean``). They are outputs only: the loss is
+    the same bits with health on or off."""
     # the action taken from state s_t is input_ids[:, 1:][actions_ixs]
     actions = torch.gather(batch.input_ids[:, 1:], 1, batch.actions_ixs.long())  # [B, A]
     terminal_mask = batch.dones[:, :-1].float() * batch.actions_mask.float()
@@ -91,6 +91,17 @@ def ilql_loss(
         "values/q_mean": (Q[0] * terminal_mask).sum() / n_nonterminal,
         "values/v_mean": (v_cur * terminal_mask).sum() / n_nonterminal,
     }
+    if health:
+        from trlx_tpu_torch.ops.ppo_math import policy_entropy
+
+        with torch.no_grad():
+            ent = policy_entropy(logits[:, :-1])
+            stats["health/entropy"] = (ent * attn).sum() / attn.sum().clamp_min(1.0)
+            # a finite fill, never -inf: the fetched value feeds EWMA state
+            stats["health/q_max"] = torch.where(
+                terminal_mask > 0, Q[0], torch.full_like(Q[0], -1e30)).max()
+            stats["health/td_error_mean"] = (
+                (Q[0] - q_target).abs() * terminal_mask).sum() / n_nonterminal
     return loss, {k: v.detach() for k, v in stats.items()}
 
 

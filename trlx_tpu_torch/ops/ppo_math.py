@@ -81,11 +81,21 @@ def ppo_loss(
     vf_coef: float,
     ent_coef: float = 0.0,
     entropy: Optional[torch.Tensor] = None,  # [B, R] per-position entropy
+    health: bool = False,
+    health_ev: bool = True,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Clipped-surrogate PPO loss; returns (scalar loss, stats) with the
     JAX package's stats keys. The log-ratio is clamped to +-30 before
     ``exp`` (far outside the clip band: a finite loss never changes).
-    ``ent_coef`` with ``entropy`` subtracts an entropy bonus."""
+    ``ent_coef`` with ``entropy`` subtracts an entropy bonus.
+
+    ``health`` (``train.health.enabled``) adds the stats the run-health
+    detectors read: ``health/entropy`` (also at ``ent_coef=0``, when the
+    caller passes the entropy), ``health/log_ratio_max|min`` over real
+    tokens, and the value function's explained variance
+    ``health/value_explained_var`` (not with ``health_ev=False``: GRPO's
+    returns carry a placeholder). They are outputs only: the loss is the
+    same bits with health on or off."""
     mask = mask.to(values.dtype)
     n = mask.sum().clamp_min(1.0)
 
@@ -126,7 +136,47 @@ def ppo_loss(
         "returns/mean": masked_mean(returns, mask),
         "advantages/mean": masked_mean(advantages, mask),
     }
+    if health:
+        with torch.no_grad():
+            stats.update(_health_stats(log_ratio, values, returns, mask, n, health_ev))
+            if entropy is not None:
+                stats["health/entropy"] = mean_entropy
     return loss, {k: v.detach() for k, v in stats.items()}
+
+
+def _health_stats(log_ratio, values, returns, mask, n, health_ev: bool) -> Dict[str, torch.Tensor]:
+    """:func:`ppo_loss`'s log-ratio extremes over real tokens (finite
+    fills, never +-inf: the fetched row feeds EWMA state) and, with
+    ``health_ev``, the value function's explained variance."""
+    real = mask > 0
+    stats = {
+        "health/log_ratio_max": torch.where(real, log_ratio, torch.full_like(log_ratio, -1e30)).max(),
+        "health/log_ratio_min": torch.where(real, log_ratio, torch.full_like(log_ratio, 1e30)).min(),
+    }
+    if health_ev:
+        ret_mean = (returns * mask).sum() / n
+        err = returns - values
+        err_mean = (err * mask).sum() / n
+        var_ret = (((returns - ret_mean) ** 2) * mask).sum() / n
+        var_err = (((err - err_mean) ** 2) * mask).sum() / n
+        stats["health/value_explained_var"] = 1.0 - var_err / var_ret.clamp_min(1e-8)
+    return stats
+
+
+def reward_health_stats(rewards: torch.Tensor, mask: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The per-sequence shaped returns' mean, std and q10/q50/q90 over the
+    batch (``health/reward_*``; a collapsed ``reward_std`` is the
+    reward-saturation detector's series). Quantiles interpolate linearly,
+    as ``jnp.quantile``; the std is over N."""
+    seq = (rewards * mask.to(rewards.dtype)).sum(1)
+    q = torch.quantile(seq, torch.tensor([0.1, 0.5, 0.9], dtype=seq.dtype, device=seq.device))
+    return {
+        "health/reward_mean": seq.mean(),
+        "health/reward_std": seq.std(correction=0),
+        "health/reward_q10": q[0],
+        "health/reward_q50": q[1],
+        "health/reward_q90": q[2],
+    }
 
 
 def adaptive_kl_update(

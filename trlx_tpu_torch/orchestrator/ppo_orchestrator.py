@@ -12,7 +12,12 @@ queries, response_gt)``, scale and clip the scores, shape the rewards
 Chunks run one after another. On the continuous engine
 (``train.rollout.engine: continuous``), the phase's prompts are submitted
 up front and each harvest group goes through the same steps as it
-completes: rows land in harvest order.
+completes: rows land in harvest order. A failure on the engine path
+degrades to the fixed sampler for the rest of the run, with an
+``engine-fallback`` health event and the phase collected again.
+
+The collect stats row feeds the trainer's run-health detectors
+(``exp/score_std`` is the reward-saturation series).
 """
 
 from __future__ import annotations
@@ -136,8 +141,41 @@ class PPOOrchestrator:
         harvest groups) into the trainer's buffer on the trainer's rollout
         engine; returns the collect stats."""
         if getattr(self.trainer, "rollout_engine", "fixed") == "continuous":
-            return self._make_experience_continuous(num_rollouts, iter_count)
+            try:
+                return self._make_experience_continuous(num_rollouts, iter_count)
+            except Exception as e:
+                from trlx_tpu_torch.telemetry.health import HealthAbort
+
+                if isinstance(e, HealthAbort):
+                    raise  # a policy decision, not an engine failure
+                self._degrade_engine(e, iter_count)
         return self._make_experience_fixed(num_rollouts, iter_count)
+
+    def _degrade_engine(self, error: BaseException, iter_count: int) -> None:
+        """Fall back from the continuous engine to the fixed sampler for
+        the rest of the run: switch the trainer's engine, emit an
+        ``engine-fallback`` health event (warning severity: degrading is
+        the alternative to the abort policy, never its trigger), and start
+        the phase's collection again, since rows the failed engine landed
+        cannot fill the phase's plan. (Under ``async_rl`` the JAX package
+        raises an ``actor-dead`` event for its supervisor instead: ROADMAP
+        item 17.)"""
+        import sys
+
+        tr = self.trainer
+        print(f"resilience: continuous rollout engine failed ({type(error).__name__}: "
+              f"{error}); falling back to the fixed sampler for the rest of the run",
+              file=sys.stderr)
+        tr.rollout_engine = "fixed"
+        tr._rollout_engine_obj = None  # drop the failed slot pool
+        tr.emit_health_event(
+            detector="engine-fallback", severity="warning", series="engine",
+            message=(f"continuous rollout engine failed ({type(error).__name__}: {error}); "
+                     "degraded to the fixed sampler"),
+            step=iter_count, phase=tr._phase_index,
+        )
+        tr.buffer.clear_history()
+        tr.reset_rollout_phase()
 
     def _make_experience_fixed(self, num_rollouts: int, iter_count: int) -> Dict[str, float]:
         tr = self.trainer
@@ -264,6 +302,13 @@ class PPOOrchestrator:
             "policy/mean_rollout_kl": float(self.trainer.mean_kl),
             **(extra or {}),
         }
+        # run health reads the row too (exp/score_std is the
+        # reward-saturation series), all but the rollout KL: the JAX
+        # package's is still a device scalar here, which its monitor skips,
+        # and the phase's update rows observe it once
+        self.trainer.observe_health(
+            {k: v for k, v in stats.items() if k != "policy/mean_rollout_kl"},
+            step=iter_count, phase=self.trainer._phase_index)
         if self.trainer.logger is not None:
             self.trainer.logger.log(stats, step=iter_count)
         return stats

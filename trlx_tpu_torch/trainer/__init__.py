@@ -2,8 +2,12 @@
 registry and the part of ``BaseRLTrainer`` the PPO and ILQL paths use —
 generation defaults from a tokenizer, the log/eval/save cadence, the host
 text boundary, evaluation (scored by the reward function, the metric
-function, both or neither) and the non-finite-loss check. Health
-monitoring, the flight recorder and the run ledger are ROADMAP item 19.
+function, both or neither), the non-finite-loss check, and run-health
+monitoring (``train.health``: the detectors of
+:mod:`~trlx_tpu_torch.telemetry.health` over every fetched stats row, their
+events on the Logger, and the crash-forensics flight recorder with
+``train.flight_dump_phase``). The run ledger and the tracer's health marker
+spans are ROADMAP item 19.
 """
 
 from __future__ import annotations
@@ -26,9 +30,7 @@ UNPORTED_TRAIN_KEYS = {
     "telemetry": ({}, "19 (telemetry)"),
     "resilience": ({}, "18 (the supervisor)"),
     "resume_from_checkpoint": (False, "18 (resume)"),
-    "health": ({}, "19 (health monitoring)"),
     "run_dir": (None, "19 (run ledger)"),
-    "flight_dump_phase": (None, "19 (flight recorder)"),
     "profile_dir": (None, "19 (profiler windows)"),
     "profile_phase": (None, "19 (profiler windows)"),
     "rollout_logging_dir": (None, "7 (rollout logging)"),
@@ -75,7 +77,7 @@ def refuse_unported(config) -> None:
     train = config.train
     for key, (default, item) in UNPORTED_TRAIN_KEYS.items():
         value = train.training.get(key, default)
-        if key in ("async_rl", "resilience", "health"):
+        if key in ("async_rl", "resilience"):
             value = {} if not (value or {}).get("enabled") else value
         if value != default:
             raise NotImplementedError(
@@ -116,6 +118,208 @@ class BaseRLTrainer:
         self.orch = None  # back-reference installed by the orchestrator
         self.eval_pipeline = None
         self.logger = None
+        self._setup_health()
+
+    # --- run health ----------------------------------------------------- #
+
+    def _setup_health(self) -> None:
+        """Parse ``train.health`` and, when enabled, build the detector
+        monitor and the flight recorder. ``_health_enabled`` also gates the
+        health stats of the update (``ops/ppo_math.py``,
+        ``ops/ilql_math.py``). Under ``async_rl`` the staleness-breach
+        detector's threshold defaults to the staleness window, as in the
+        JAX package; ``async_rl`` itself is refused until ROADMAP item 17,
+        so that default is not reached yet."""
+        from trlx_tpu_torch.telemetry.health import HealthConfig
+
+        training = self.config.train.training
+        health_dict = dict(training.get("health") or {})
+        async_dict = dict(training.get("async_rl") or {})
+        if async_dict.get("enabled") and health_dict.get("enabled"):
+            detectors = dict(health_dict.get("detectors") or {})
+            if "staleness-breach" not in detectors:
+                detectors["staleness-breach"] = {
+                    "threshold": float(async_dict.get("staleness_window", 1))}
+                health_dict["detectors"] = detectors
+        self.health_config = HealthConfig.from_dict(health_dict)
+        self._health_enabled = bool(self.health_config.enabled)
+        self._health_ev = True  # GRPO opts out (its returns carry a placeholder)
+        self.health_monitor = None
+        self.flight_recorder = None
+        if not self._health_enabled:
+            return
+        from trlx_tpu_torch.telemetry.flight_recorder import FlightRecorder
+        from trlx_tpu_torch.telemetry.health import HealthMonitor, config_fingerprint
+
+        config_dict = self.config.to_dict()
+        fingerprint = config_fingerprint(config_dict)
+        self.health_monitor = HealthMonitor(self.health_config, fingerprint)
+        self.flight_recorder = FlightRecorder(
+            capacity=self.health_config.flight_capacity,
+            directory=self.health_config.dump_dir,
+            fingerprint=fingerprint,
+            config=config_dict,
+        )
+
+    def observe_health(
+        self, row: Dict[str, Any], step: Optional[int] = None, phase: Optional[int] = None
+    ) -> None:
+        """Feed one fetched stats row to the detectors. Values still on a
+        CUDA device are skipped, never read. Each trip goes to the Logger
+        (a ``health_event`` line; stderr without one); an ``error`` trip
+        applies ``health.on_error``: ``warn``, ``dump`` (the flight
+        record, the offending row in it) or ``abort`` (dump, then
+        :class:`~trlx_tpu_torch.telemetry.health.HealthAbort`). The JAX
+        package's zero-length marker span per trip needs the tracer
+        (ROADMAP item 19)."""
+        monitor = self.health_monitor
+        if monitor is None:
+            return
+        events = monitor.observe(row, step=step, phase=phase)
+        if not events:
+            return
+        for ev in events:
+            if self.logger is not None:
+                self.logger.log_health_event(ev.to_dict(), step=ev.step)
+            else:
+                print(f"health: {ev.severity} {ev.detector}: {ev.message}", file=sys.stderr)
+        errors = [ev for ev in events if ev.severity == "error"]
+        policy = self.health_config.on_error
+        if not errors or policy == "warn":
+            return
+        recorder = self.flight_recorder
+        try:
+            # the offending row and its events land in the ring first, so
+            # the dump's last record shows the anomaly itself; a failed
+            # forensics write never ends a run the dump policy continues
+            recorder.record_phase(phase, step=errors[0].step, stats_row=row, events=events,
+                                  detector_state=monitor.state_summary())
+            for ev in errors:
+                path = recorder.dump("detector:" + ev.detector, once=True)
+                if path:
+                    print(f"health: flight record dumped to {path}", file=sys.stderr)
+        except Exception as dump_err:
+            print(f"health: flight dump FAILED ({type(dump_err).__name__}: {dump_err})",
+                  file=sys.stderr)
+        if policy == "abort":
+            from trlx_tpu_torch.telemetry.health import HealthAbort
+
+            first = errors[0]
+            raise HealthAbort(
+                f"health.on_error=abort: detector {first.detector!r} tripped at step "
+                f"{first.step} ({first.message}); flight record(s): {recorder.dumped}"
+            )
+
+    def observe_health_rows(
+        self,
+        rows: Dict[str, Any],
+        step0: Optional[int] = None,
+        phase: Optional[int] = None,
+        phase_row: Optional[Dict[str, Any]] = None,
+    ) -> Dict[str, Any]:
+        """Feed fetched per-update rows (each value an [n_updates] host
+        array) to the detectors row by row (step ``step0 + r + 1``, or the
+        monitor's own count without ``step0``), then ``phase_row`` (series
+        constant across the phase, the rollout KL) once. Returns the last
+        row with ``phase_row`` for the flight record."""
+        last: Dict[str, Any] = {}
+        if self.health_monitor is None or not rows:
+            return last
+        n_rows = len(rows[next(iter(rows))])
+        for r in range(n_rows):
+            last = {key: float(v[r]) for key, v in rows.items()}
+            self.observe_health(last, step=None if step0 is None else step0 + r + 1,
+                                phase=phase)
+        if phase_row:
+            self.observe_health(phase_row, phase=phase)
+            last = {**last, **phase_row}
+        return last
+
+    def emit_health_event(
+        self,
+        detector: str,
+        severity: str,
+        message: str,
+        series: str = "resilience",
+        value: float = 1.0,
+        step: Optional[int] = None,
+        phase: Optional[int] = None,
+    ) -> None:
+        """Record one host-originated event (a graceful degradation, such
+        as the orchestrator's engine fallback) in the monitor's log and on
+        the Logger; never applies ``health.on_error``."""
+        from trlx_tpu_torch.telemetry.health import HealthEvent
+
+        monitor = self.health_monitor
+        ev = HealthEvent(
+            detector=detector, severity=severity, series=series, value=float(value),
+            step=int(step) if step is not None else -1, phase=phase, message=message,
+            fingerprint=monitor.fingerprint if monitor is not None else "",
+        )
+        if monitor is not None:
+            monitor.events.append(ev)
+            monitor.event_counts[detector] = monitor.event_counts.get(detector, 0) + 1
+        if self.logger is not None:
+            self.logger.log_health_event(ev.to_dict(), step=step)
+        else:
+            print(f"health: {severity} {detector}: {message}", file=sys.stderr)
+
+    def record_flight_phase(
+        self,
+        phase: Optional[int],
+        step: Optional[int] = None,
+        stats_row: Optional[Dict[str, Any]] = None,
+        kl_seq: Optional[List[float]] = None,
+    ) -> None:
+        """Append one phase record to the flight ring (no-op with health
+        off) and honour ``train.flight_dump_phase``."""
+        recorder = self.flight_recorder
+        if recorder is None:
+            return
+        monitor = self.health_monitor
+        recorder.record_phase(
+            phase, step=step, stats_row=stats_row, kl_seq=kl_seq,
+            events=monitor.recent_events(phase), detector_state=monitor.state_summary(),
+        )
+        want = self.config.train.training.get("flight_dump_phase")
+        if want is not None and phase == want:
+            path = recorder.dump(f"flight_dump_phase:{phase}", once=True)
+            if path:
+                print(f"health: flight record dumped to {path}", file=sys.stderr)
+
+    def flight_dump_on_exception(self, error: BaseException) -> None:
+        """``learn``'s (and ``train``'s) exception hook: write the crash
+        forensics file, at most once per recorder (not again after an
+        abort whose detector dumped)."""
+        recorder = self.flight_recorder
+        if recorder is None:
+            return
+        try:
+            monitor = self.health_monitor
+            if monitor.events:
+                # events a crash preempted out of a phase record join the
+                # newest record (the recorder dedupes)
+                recorder.note_events(monitor.events, detector_state=monitor.state_summary())
+            path = recorder.dump_on_exception(error)
+        except Exception:
+            return  # forensics never masks the real failure
+        if path:
+            print(f"health: flight record dumped to {path}", file=sys.stderr)
+
+    def host_state_dict(self) -> Dict[str, Any]:
+        """Host state a checkpoint carries beside the tensors: the
+        detectors' EWMA baselines, warmup counts and cooldowns, which
+        decide whether the next rows trip an event."""
+        state: Dict[str, Any] = {}
+        if self.health_monitor is not None:
+            state["health_monitor"] = self.health_monitor.state_dict()
+        return state
+
+    def load_host_state_dict(self, state: Dict[str, Any]) -> None:
+        """Inverse of :meth:`host_state_dict`; missing keys are fine."""
+        monitor_state = (state or {}).get("health_monitor")
+        if monitor_state is not None and self.health_monitor is not None:
+            self.health_monitor.load_state_dict(monitor_state)
 
     def add_eval_pipeline(self, pipeline) -> None:
         self.eval_pipeline = pipeline

@@ -26,9 +26,11 @@ from trlx_tpu_torch.trainer.seq2seq_ppo_trainer import Seq2SeqPPOTrainer
 class GRPOMixin:
     """GRPO over a PPO-family trainer: grouped sampling (through
     ``self.group_size``, which the orchestrator reads), group-normalised
-    advantages stored at experience time, no value-function training.
-    (The reference also turns off a value explained-variance health stat
-    here; health monitoring is ROADMAP item 19.)"""
+    advantages stored at experience time, no value-function training. Run
+    health leaves out the value function's explained variance: the returns
+    slot carries a placeholder, so it would read as a perfect fit; the
+    ``health/reward_*`` stats describe the group-whitened advantages the
+    updates see."""
 
     def __init__(self, config, *args, **kwargs):
         method = config.method
@@ -44,6 +46,7 @@ class GRPOMixin:
                 "vf_coef would regress values onto stale rollout values"
             )
         super().__init__(config, *args, **kwargs)
+        self._health_ev = False
 
     def _shape_rewards(self, logprobs, ref_logprobs, response_mask, scores, kl_coef):
         """Group-normalised per-sequence advantages of the KL-shaped

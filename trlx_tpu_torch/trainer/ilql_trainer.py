@@ -258,7 +258,7 @@ class ILQLTrainer(BaseRLTrainer):
         with torch.no_grad():
             target_qs = self.target.q(out["action_hidden"])
         loss, stats = ilql_loss(out["logits"], out["qs"], target_qs, out["vs"], mb,
-                                self.config.method)
+                                self.config.method, health=self._health_enabled)
         if self.family.is_moe:
             loss, stats = apply_router_penalty(
                 loss, stats, moe_loss_summary(moe), self.model_config
@@ -293,6 +293,9 @@ class ILQLTrainer(BaseRLTrainer):
         self.logger = Logger()
         try:
             return self._learn_body(total_steps, n_minibatches)
+        except BaseException as e:
+            self.flight_dump_on_exception(e)  # no-op with health off
+            raise
         finally:
             self._checkpoints.wait()  # the end save ran beside the final eval
 
@@ -305,14 +308,20 @@ class ILQLTrainer(BaseRLTrainer):
             return final_stats
         # a loaded trainer continues the schedule where its step left it
         epoch0, row0 = divmod(iter_count, n_minibatches)
+        chunk = {"index": -1, "left": 0}
         for epoch in range(epoch0, train.epochs):
             order = self.store.epoch_order(train.batch_size, shuffle=True, seed=train.seed + epoch)
-            for rows in order[row0 if epoch == epoch0 else 0:]:
+            start = row0 if epoch == epoch0 else 0
+            for r, rows in enumerate(order[start:]):
+                if not chunk["left"]:
+                    self._next_health_chunk(chunk, iter_count, len(order) - start - r,
+                                            total_steps)
                 t0 = monotonic()
                 stats = self.train_step(self.store.stacked_slice(rows))
                 values = torch.stack([v.float() for v in stats.values()]).tolist()
                 step_stats = dict(zip(stats, values))
                 iter_count += 1
+                self._observe_update(step_stats, iter_count, chunk)
                 self.check_anomalies(step_stats, iter_count)
                 step_stats["time/batch"] = monotonic() - t0
                 if iter_count % train.log_interval == 0:
@@ -328,6 +337,29 @@ class ILQLTrainer(BaseRLTrainer):
                     self._eval(iter_count, final_stats)
                     return final_stats
         return final_stats
+
+    def _next_health_chunk(self, chunk, step: int, remaining: int, total_steps: int) -> None:
+        """Open the next run-health "phase": the JAX trainer's fused chunk
+        of up to 32 updates, cut at the epoch's end, ``total_steps`` and
+        the eval and save boundaries, so events and flight records carry
+        its phase ids."""
+        train = self.config.train
+        k = min(32, remaining, total_steps - step)
+        for boundary in (train.eval_interval, train.checkpoint_interval):
+            k = min(k, boundary - step % boundary)
+        chunk.update(index=chunk["index"] + 1, left=max(k, 1))
+
+    def _observe_update(self, step_stats: Dict[str, float], step: int, chunk) -> None:
+        """Feed one update's fetched row to the detectors (before the
+        non-finite check), and after a chunk's last update append its
+        flight record."""
+        chunk["left"] -= 1
+        if self.health_monitor is None:
+            return
+        row = {k: step_stats[k] for k in sorted(step_stats)}
+        self.observe_health(row, step=step, phase=chunk["index"])
+        if not chunk["left"]:
+            self.record_flight_phase(chunk["index"], step=step, stats_row=row)
 
     def _eval(self, step: int, final_stats: Dict[str, Any]) -> None:
         eval_stats = self.evaluate()
@@ -347,6 +379,9 @@ class ILQLTrainer(BaseRLTrainer):
             "step": self.step,
             "generator": self.generator.get_state(),
         }
+        host = self.host_state_dict()
+        if host:
+            state["host"] = host
         self._checkpoints.save(
             directory or self.config.train.checkpoint_dir, state, self.step,
             async_save=bool(self.config.train.training.get("async_checkpoint", False)),
@@ -362,3 +397,4 @@ class ILQLTrainer(BaseRLTrainer):
         self.opt.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
         self.generator.set_state(state["generator"])
+        self.load_host_state_dict(state.get("host"))

@@ -94,6 +94,7 @@ from trlx_tpu_torch.ops.ppo_math import (
     kl_controller_update,
     policy_entropy,
     ppo_loss,
+    reward_health_stats,
 )
 from trlx_tpu_torch.ops.sampling import (
     GenerationConfig,
@@ -538,7 +539,10 @@ class PPOTrainer(BaseRLTrainer):
             return logprobs, values.float(), None
         logits, values = self.model.response_forward(ids, mask, self.query_length)
         logprobs = logprobs_from_logits(logits, mb.response_tokens)
-        entropy = policy_entropy(logits) if self.config.method.ent_coef else None
+        # also under health at ent_coef=0: the entropy-collapse detector's
+        # series (the loss reads it only with a bonus coefficient)
+        entropy = (policy_entropy(logits)
+                   if self.config.method.ent_coef or self._health_enabled else None)
         return logprobs, values.float(), entropy
 
     def train_step(self, mb: PPORolloutBatch) -> Dict[str, torch.Tensor]:
@@ -553,6 +557,7 @@ class PPOTrainer(BaseRLTrainer):
             logprobs, values, mb.logprobs, mb.values, advantages, returns,
             mb.response_mask, method.cliprange, method.cliprange_value,
             method.vf_coef, ent_coef=method.ent_coef, entropy=entropy,
+            health=self._health_enabled, health_ev=self._health_ev,
         )
         if self.family.is_moe:
             loss, stats = apply_router_penalty(
@@ -561,6 +566,9 @@ class PPOTrainer(BaseRLTrainer):
         self.opt.zero_grad()
         loss.backward()
         stats["optimizer/grad_norm"] = self.opt.step()
+        if self._health_enabled:
+            # the shaped returns' distribution, an output of the step only
+            stats.update(reward_health_stats(mb.rewards, mb.response_mask))
         self.step += 1
         return stats
 
@@ -569,7 +577,7 @@ class PPOTrainer(BaseRLTrainer):
             self.phase_times[-1]["train_s"] = seconds
 
     def _train_on(self, order: np.ndarray, ends: np.ndarray, iter_count: int,
-                  total_steps: int, final_stats: Dict[str, Any]):
+                  total_steps: int, final_stats: Dict[str, Any], health_pass=None):
         """Run the updates of ``order`` ([n_updates, B] row indices) in
         turn. Update ``ends[k]`` is minibatch ``k``'s last in the pass;
         after it the KL controller advances, the loss stats of the updates
@@ -579,19 +587,35 @@ class PPOTrainer(BaseRLTrainer):
         ``final_stats`` holds the last logged stats. Returns ``(rows,
         kl_seq, iter_count, done)``: each stat as a host array over the
         updates run, the KL coefficient on entry and after each
-        minibatch, the update count, and whether the run ended."""
+        minibatch, the update count, and whether the run ended.
+
+        Run health (``train.health``) reads the fetched rows as the JAX
+        package's paths do, per ``health_pass``: ``"streamed"`` and
+        ``"fused"`` (a pass no eval/save boundary or cutoff splits) observe
+        every update's row, at the monitor's own count or at its update
+        number, then the phase's rollout KL once and the phase's flight
+        record; ``None`` (the stepwise path) observes each logged, saved or
+        final minibatch's last row at its update number, then the KL and
+        the flight record at the pass's end. Rows are observed before the
+        non-finite check, so a NaN row reaches the detectors first."""
         train, method = self.config.train, self.config.method
         t0 = monotonic()
         pending, fetched, kl_seq, done = [], [], [self.kl_coef], False
         start = iter_count
+        monitor = self.health_monitor
         for u, idx in enumerate(order):
             pending.append(self.train_step(self.buffer.gather(idx)))
             if u != ends[len(kl_seq) - 1]:
                 continue
-            keys = list(pending[0])
+            keys = sorted(pending[0])
             new = torch.stack(
                 [torch.stack([s[k].float() for k in keys]) for s in pending]
             ).cpu().numpy()  # [updates since the previous end, stats]
+            if monitor is not None and health_pass is not None:
+                self.observe_health_rows(
+                    dict(zip(keys, new.T)),
+                    step0=None if health_pass == "streamed" else start + len(fetched),
+                    phase=self._phase_index)
             self.check_anomalies(dict(zip(keys, new.T)), start + len(fetched))
             fetched.extend(new)
             pending = []
@@ -608,6 +632,21 @@ class PPOTrainer(BaseRLTrainer):
             step_stats["policy/mean_rollout_kl"] = self.mean_kl
             iv = self.intervals(iter_count)
             at_end = iter_count >= total_steps
+            if monitor is not None and health_pass is None and (
+                    iv["do_log"] or iv["do_save"] or at_end):
+                # the phase-constant rollout KL is observed once, at the end
+                self.observe_health(
+                    {k: v for k, v in step_stats.items() if k != "policy/mean_rollout_kl"},
+                    step=iter_count, phase=self._phase_index)
+            if monitor is not None and health_pass is not None and len(kl_seq) > len(ends):
+                kl_row = {"policy/mean_rollout_kl": self.mean_kl}
+                self.observe_health(kl_row, phase=self._phase_index)
+                self.record_flight_phase(
+                    self._phase_index,
+                    step=None if health_pass == "streamed" else iter_count,
+                    stats_row=({**dict(zip(keys, new[-1])), **kl_row}
+                               if health_pass == "streamed" else step_stats),
+                    kl_seq=kl_seq)
             if iv["do_log"]:
                 self.logger.log(step_stats, step=iter_count)
                 final_stats.clear()
@@ -620,6 +659,12 @@ class PPOTrainer(BaseRLTrainer):
                 self._finish(iter_count, final_stats)
                 done = True
                 break
+        if monitor is not None and health_pass is None and not done:
+            # the stepwise pass's end: the rollout KL once, then the record
+            self.observe_health({"policy/mean_rollout_kl": self.mean_kl},
+                                step=iter_count, phase=self._phase_index)
+            self.record_flight_phase(self._phase_index, step=iter_count,
+                                     stats_row=step_stats)
         rows = {k: np.asarray([r[i] for r in fetched], np.float32) for i, k in enumerate(keys)}
         return rows, kl_seq, iter_count, done
 
@@ -675,6 +720,11 @@ class PPOTrainer(BaseRLTrainer):
         self.logger = Logger()
         try:
             return self._learn_body(total_steps, n_minibatches)
+        except BaseException as e:
+            # crash forensics: one flight dump on the way down (no-op with
+            # health off; none again after an abort's own dump)
+            self.flight_dump_on_exception(e)
+            raise
         finally:
             # an asynchronous end save ran beside the final eval
             self._checkpoints.wait()
@@ -690,6 +740,7 @@ class PPOTrainer(BaseRLTrainer):
                 # epoch-major: minibatch k's last update is in the last epoch
                 order, n_mb = self._plan.updates(), self._plan.n_minibatches
                 ends = (E - 1) * n_mb + np.arange(n_mb)
+                health_pass = "streamed"
             else:
                 # minibatch-major: each minibatch's E updates in a row
                 order = self.buffer.minibatch_order(
@@ -697,14 +748,29 @@ class PPOTrainer(BaseRLTrainer):
                     n_minibatches=n_minibatches,
                 )
                 ends = np.arange(E - 1, len(order), E)
+                health_pass = "fused" if self._whole_pass(iter_count, total_steps,
+                                                          n_minibatches) else None
             _, _, iter_count, done = self._train_on(
-                order, ends, iter_count, total_steps, final_stats
+                order, ends, iter_count, total_steps, final_stats, health_pass
             )
             if done:
                 break
             if self.orch is not None and epoch < train.epochs - 1:
                 self._collect_phase(iter_count, seed=train.seed + epoch + 1)
         return final_stats
+
+    def _whole_pass(self, iter_count: int, total_steps: int, n_minibatches: int) -> bool:
+        """Whether a minibatch-major pass is one the JAX package runs as a
+        single fused dispatch (no eval or save boundary and no
+        ``total_steps`` cutoff inside it), which decides where run health
+        reads its rows (:meth:`_train_on`)."""
+        train, E = self.config.train, self.config.method.ppo_epochs
+        interior = [iter_count + E * k for k in range(1, n_minibatches)]
+        return (len(self.buffer) >= train.batch_size
+                and iter_count + E * n_minibatches <= total_steps
+                and not any(s % train.eval_interval == 0
+                            or (s > 0 and s % train.checkpoint_interval == 0)
+                            for s in interior))
 
     def _eval(self, step: int, final_stats: Dict[str, Any]) -> None:
         eval_stats = self.evaluate()
@@ -736,6 +802,9 @@ class PPOTrainer(BaseRLTrainer):
         }
         if self.orch is not None:
             state["orchestrator"] = self.orch.state_dict()
+        host = self.host_state_dict()
+        if host:
+            state["host"] = host
         self._checkpoints.save(
             directory or self.config.train.checkpoint_dir, state, self.step,
             async_save=bool(self.config.train.training.get("async_checkpoint", False)),
@@ -756,3 +825,4 @@ class PPOTrainer(BaseRLTrainer):
         self._rollout_row_cursor = int(state.get("rollout_row_cursor", 0))
         if self.orch is not None and "orchestrator" in state:
             self.orch.load_state_dict(state["orchestrator"])
+        self.load_host_state_dict(state.get("host"))

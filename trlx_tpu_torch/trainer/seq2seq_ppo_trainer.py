@@ -155,7 +155,9 @@ class Seq2SeqPPOTrainer(PPOTrainer):
             decoder_input_ids=dec_ids, decoder_attention_mask=dec_mask,
         )
         logprobs = logprobs_from_logits(out["logits"], mb.response_tokens)
-        entropy = policy_entropy(out["logits"]) if self.config.method.ent_coef else None
+        # also under health at ent_coef=0 (the entropy-collapse series)
+        entropy = (policy_entropy(out["logits"])
+                   if self.config.method.ent_coef or self._health_enabled else None)
         return logprobs, out["values"].float(), entropy
 
 

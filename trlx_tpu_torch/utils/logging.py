@@ -1,5 +1,6 @@
 """A JSON-lines stats logger (the stdout half of
-:class:`trlx_tpu.utils.logging.Logger`; no wandb)."""
+:class:`trlx_tpu.utils.logging.Logger`; no wandb), with its run-health
+event line."""
 
 from __future__ import annotations
 
@@ -22,4 +23,13 @@ class Logger:
         row = {"step": step, "time": monotonic() - self.start}
         row.update({k: float(v) for k, v in stats.items()})
         self.stream.write(json.dumps(row) + "\n")
+        self.stream.flush()
+
+    def log_health_event(self, event: Dict[str, Any], step: Optional[int] = None) -> None:
+        """Write one run-health event (:mod:`trlx_tpu_torch.telemetry.health`)
+        as a ``health_event`` JSON line on the stats stream, next to the
+        rows that tripped it."""
+        record = {"step": step, "time": round(monotonic() - self.start, 2),
+                  "health_event": event}
+        self.stream.write(json.dumps(record, default=float) + "\n")
         self.stream.flush()
