@@ -433,13 +433,48 @@ Phases, each fatal on failure:
    x (decode + verify steps) and no bf16 ``decode``, the quantizing write
    12 x every forward, no ``fma`` launch, input copy or plain call.
 
+24. resilience — the JAX package's six chaos scenarios
+   (``trlx_tpu/analysis/chaos_smoke.py``) on the card through
+   ``trlx_tpu_torch.train``, on ``configs/ppo_sentiments.yml``'s geometry
+   at GPT-2 small's full width (random weights from the seed, bf16; a
+   pass is 128 rollouts / batch 16 x 4 epochs = 32 updates): (a) clean,
+   resilience on, two passes, against the same run with resilience off
+   (the determinism check; a differing pair runs the plain run once more
+   to tell nondeterminism from the supervisor); (b) ``checkpoint.save``
+   failing twice under ``async_checkpoint`` (one pass), retried on the
+   writer thread, equal to (a) at update 32; (c) a checkpoint written under
+   ``num_layers_unfrozen: 2`` resumed into a fully trainable run: the
+   translated ``ValueError``, 0 retries, 0 restarts, and how long the
+   refusal took; (d) a real SIGTERM from the ``preempt`` site at the first
+   pass boundary (update 32) under ``async_checkpoint``: the drain's
+   emergency checkpoint, the supervisor's restart and the resume, every
+   parameter, Adam moment, the KL state and the generator ``torch.equal``
+   to the uninterrupted run; the time to recover (drain start to the
+   resumed attempt's first update: the emergency write, the restart, the
+   rebuild, the load and the collect before that update) and each
+   attempt's peak; the resumed attempt starts with what the first started
+   with (within ``RESILIENCE_START_MARGIN_BYTES``) and peaks at most
+   ``RESILIENCE_PEAK_RATIO`` of the uninterrupted run's peak from the
+   drain point on; the same pair for ILQL at
+   ``configs/ilql_sentiments.yml``'s width, preempted at its first chunk
+   boundary; (e) and (f) in one pass: ``rollout: {engine: continuous}``
+   with a permanent ``engine.admit`` failure (the pass runs on the fixed
+   sampler, one ``engine-fallback`` health event) and
+   ``rollout_logging_dir`` with three ``writer.write`` disk-full failures
+   (the writer degrades to synchronous writes and every row lands on
+   disk in order). After every
+   scenario the SIGTERM and SIGINT handlers are the ones from before it.
+   One JSON line per scenario; (d)'s two resumed runs are counted paths
+   (K2 = K3 ``tile`` = 12 x updates across both attempts, K1 = 12 x both
+   trainers' forwards, no ``fma``, copy or plain call).
+
 Phase 5 also holds one collect with ``rollout_param_cast`` on against one
 with it off, from the same seed, its layer norms perturbed: ``torch.equal``
 tokens, logprobs, values, reference logprobs and rewards. Every phase
 call's wall is logged as it ends and printed as one ``{"phase_walls":
 {...}}`` line before the ``kernels`` line.
 
-Each path (phases 4 to 23, each definition of phase 7, each run of phases
+Each path (phases 4 to 24, each definition of phase 7, each run of phases
 9, 16, 18, 21 and 22 on its own) runs with the launch counters set to 0 just
 before it and read just after, and its peak memory is read from a clean start.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
@@ -7391,6 +7426,437 @@ def phase_kv_int8(torch, fa, attn) -> tuple:
     return ok, {"checks": checks, "timed": timed, "sweep": sweep, "serving_tier": tier}
 
 
+# phase 24: the resilience layer's scenarios at full GPT-2-small width
+RESILIENCE_UPDATES = 64  # two passes of ppo_sentiments.yml's 128 // 16 minibatches x 4 epochs
+RESILIENCE_PASS = 32  # one pass: (b), (e) with (f), and (d)'s drain point
+RESILIENCE_ILQL_UPDATES = 16  # one epoch of phase 8's 2048 samples at batch 128
+RESILIENCE_ILQL_CHUNK = 8  # eval_interval: the JAX trainer's chunk boundary, the drain point
+RESILIENCE_RETRY = {"max_attempts": 4, "base_delay_s": 0.01, "max_delay_s": 0.05}
+RESILIENCE_PEAK_RATIO = 1.1  # the resumed attempt's peak against the uninterrupted run's
+# from the drain point on (the same work: the second pass and the end save)
+RESILIENCE_START_MARGIN_BYTES = 4 << 20  # a resumed attempt's start over the first's: less
+# than any GPT-2 small weight matrix in f32, so a leaked trainer cannot hide in it
+PREEMPT_AT_FIRST_BOUNDARY = [{"site": "preempt", "mode": "preempt", "phase": 0}]
+
+
+def resilience_ppo_config(checkpoint_dir: str, updates: int = RESILIENCE_UPDATES,
+                          model=None, **train):
+    """Phase 5's ``configs/ppo_sentiments.yml`` run cut to ``updates``;
+    ``model`` and ``train`` update those sections."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    cfg = training_config(checkpoint_dir, total_steps=updates, **train).to_dict()
+    cfg["model"].update(model or {})
+    return TRLConfig.from_dict(cfg)
+
+
+def resilience_ilql_config(checkpoint_dir: str, **train):
+    """Phase 8's ``configs/ilql_sentiments.yml`` run at GPT-2 small's width
+    with random weights, cut to one epoch with an eval (and so a chunk
+    boundary) halfway."""
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    cfg = ilql_config(checkpoint_dir).to_dict()
+    cfg["train"].update(total_steps=RESILIENCE_ILQL_UPDATES, eval_interval=RESILIENCE_ILQL_CHUNK,
+                        checkpoint_interval=RESILIENCE_ILQL_UPDATES, **train)
+    return TRLConfig.from_dict(cfg)
+
+
+def resumable_state(torch, trainer) -> dict:
+    """Host copies of what a resumed run must reproduce: every parameter,
+    Adam moment and (ILQL) target head, the sampling generator, and the
+    update, optimizer and KL counters."""
+    opt = trainer.opt.state_dict()
+    tensors = {f"model.{n}": t for n, t in trainer.model.state_dict().items()}
+    tensors.update({f"adam.{i}.{k}": v for i, st in opt["adamw"]["state"].items()
+                    for k, v in st.items()})
+    if hasattr(trainer, "target"):
+        tensors.update({f"target.{n}": t for n, t in trainer.target.state_dict().items()})
+    tensors = {k: t.detach().to("cpu", copy=True) for k, t in tensors.items()}
+    tensors["generator"] = trainer.generator.get_state()
+    return {"tensors": tensors, "counters": (trainer.step, opt["count"],
+                                             getattr(trainer, "kl_coef", None),
+                                             getattr(trainer, "mean_kl", None))}
+
+
+def state_difference(torch, got: dict, want: dict, skip=()) -> dict:
+    """Whether two :func:`resumable_state` records are equal bit for bit
+    (but for the keys in ``skip``), the keys that differ and their largest
+    difference."""
+    keys = [k for k in want["tensors"] if k not in skip]
+    differ = [k for k in keys if k not in got["tensors"]
+              or not torch.equal(got["tensors"][k], want["tensors"][k])]
+    max_diff = max((float((got["tensors"][k].double() - want["tensors"][k].double()).abs().max())
+                    for k in differ if k in got["tensors"] and k != "generator"
+                    and got["tensors"][k].shape == want["tensors"][k].shape), default=0.0)
+    equal = (not differ and set(got["tensors"]) - set(skip) == set(keys)
+             and got["counters"] == want["counters"])
+    return {"equal": equal, "tensors": len(keys), "differing": len(differ),
+            "first_differing": differ[:5], "max_abs_diff": max_diff,
+            "counters": [got["counters"], want["counters"]]}
+
+
+def supervised_path(torch, fa, cls, run, extra_patches=(), split_peak_at=None):
+    """``run()`` (a ``trlx_tpu_torch.train`` call) as one counted path with
+    the supervisor's attempts, the drain, the load and the first update
+    after it timed on the host clock (after a synchronise): returns
+    ``(trainer or the exception raised, record, timeline)``. Each attempt's
+    peak is read from its own start (the counter reset, nothing freed);
+    with ``split_peak_at``, the attempt's peak from the drain point at
+    that step on is read apart as ``peak_after_split_bytes``."""
+    from trlx_tpu_torch import api
+    from trlx_tpu_torch.resilience.preemption import PreemptionDrain
+    from trlx_tpu_torch.trainer import BaseRLTrainer
+
+    line = {"attempts": [], "drains": [], "loads": [], "first_update_after_load": None}
+    supervised, drain = api.run_supervised, BaseRLTrainer.maybe_drain
+    load, train_step = cls.load, cls.train_step
+
+    def run_supervised(attempt, config):
+        def timed(resume):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            entry = {"resume": resume, "allocated_at_start_bytes": torch.cuda.memory_allocated(),
+                     "start": time.perf_counter()}
+            line["attempts"].append(entry)
+            try:
+                return attempt(resume)
+            finally:
+                torch.cuda.synchronize()
+                peak = torch.cuda.max_memory_allocated()
+                before = entry.pop("peak_before_split_bytes", None)
+                entry.update(end=time.perf_counter(), peak_bytes=max(peak, before or 0))
+                if before is not None:
+                    entry["peak_after_split_bytes"] = peak
+        return supervised(timed, config)
+
+    def maybe_drain(self, phase=None, step=None):
+        entry = line["attempts"][-1]
+        if step == split_peak_at and "peak_before_split_bytes" not in entry:
+            torch.cuda.synchronize()
+            entry["peak_before_split_bytes"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            return drain(self, phase, step)
+        except PreemptionDrain:
+            line["drains"].append({"start": t0, "end": time.perf_counter(), "step": step,
+                                   "forwards": self.forwards})
+            raise
+
+    def timed_load(self, directory):
+        t0 = time.perf_counter()
+        out = load(self, directory)
+        torch.cuda.synchronize()
+        line["loads"].append((t0, time.perf_counter()))
+        return out
+
+    def first_update(self, mb):
+        if line["loads"] and line["first_update_after_load"] is None:
+            torch.cuda.synchronize()
+            line["first_update_after_load"] = time.perf_counter()
+        return train_step(self, mb)
+
+    def guarded():
+        try:
+            return run()
+        except Exception as e:  # the scenario's own gates judge it
+            return e
+
+    out, record = counted_path(torch, fa, guarded, patches=[
+        (api, "run_supervised", run_supervised), (BaseRLTrainer, "maybe_drain", maybe_drain),
+        (cls, "load", timed_load), (cls, "train_step", first_update), *extra_patches])
+    return out, record, line
+
+
+def recovery_times(line) -> dict:
+    """The drain-to-first-update split of a resumed run (host clock, s)."""
+    drain, resumed = line["drains"][0], line["attempts"][1]
+    load_start, load_end = line["loads"][0]
+    first = line["first_update_after_load"]
+    return {"time_to_recover_s": first - drain["start"],
+            "emergency_write_s": drain["end"] - drain["start"],
+            "restart_s": resumed["start"] - drain["end"],
+            "rebuild_s": load_start - resumed["start"], "load_s": load_end - load_start,
+            "collect_before_first_update_s": first - load_end}
+
+
+def resumed_path_gates(record, line, trainer, updates: int) -> dict:
+    """A resumed run's launches across both attempts: K2 = K3 ``tile`` = 12
+    x updates, K1 = 12 x both trainers' forwards; no ``fma``, input copy or
+    plain call."""
+    forwards = line["drains"][0]["forwards"] + trainer.forwards
+    expected = {"flash_fwd": N_LAYER * forwards, "flash_bwd_dq": N_LAYER * updates,
+                "flash_bwd_dkv": N_LAYER * updates}
+    got = {k: record["launches"][k] for k in expected}
+    bwd = {k: {"tile": N_LAYER * updates, "fma": 0} for k in BWD_KERNELS}
+    return {"launches": got, "expected_launches": expected,
+            "ok": (got == expected and record["backward_variants"] == bwd
+                   and record["flash_fwd_variants"]["fma"] == 0
+                   and record["flash_fwd_variants"]["copies"] == 0
+                   and record["backward_copies"] == 0 and record["plain_attention_calls"] == 0)}
+
+
+def attempts_summary(line) -> list:
+    return [{k: a[k] for k in ("resume", "allocated_at_start_bytes", "peak_bytes",
+                               "peak_after_split_bytes") if k in a}
+            | {"seconds": a["end"] - a["start"]} for a in line["attempts"]]
+
+
+def memory_gates(line, uninterrupted_line) -> dict:
+    """The card holds one trainer across a restart: the resumed attempt
+    starts with what the first attempt started with (within
+    ``RESILIENCE_START_MARGIN_BYTES``), and peaks at most
+    ``RESILIENCE_PEAK_RATIO`` times the uninterrupted run's peak over the
+    same work (from the drain point on)."""
+    first, resumed = line["attempts"][0], line["attempts"][1]
+    same_work = uninterrupted_line["attempts"][0]["peak_after_split_bytes"]
+    record = {"start_over_first_bytes": resumed["allocated_at_start_bytes"]
+              - first["allocated_at_start_bytes"],
+              "uninterrupted_peak_after_drain_point_bytes": same_work,
+              "resumed_peak_ratio": resumed["peak_bytes"] / same_work}
+    record["ok"] = (record["start_over_first_bytes"] <= RESILIENCE_START_MARGIN_BYTES
+                    and record["resumed_peak_ratio"] <= RESILIENCE_PEAK_RATIO)
+    return record
+
+
+def phase_resilience(torch, fa):
+    """Phase 24: the six scenarios (a)-(f) through ``trlx_tpu_torch.train``
+    at full width, each gated, with the handlers checked after each.
+    Returns ``(ok, {"paths": counted paths, "scenarios": records})``."""
+    import signal
+    import tempfile
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.resilience import chaos, preemption
+    from trlx_tpu_torch.trainer.ilql_trainer import ILQLTrainer
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils import checkpoint as ckpt
+    from trlx_tpu_torch.utils.async_writer import BackgroundJSONLWriter
+    from trlx_tpu_torch.utils.retry import reset_retry_log, retry_log
+
+    handlers = (signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT))
+    prompts = training_prompts()
+    scenarios, paths = {}, {}
+
+    def ppo(config):
+        return lambda: trlx_tpu_torch.train(reward_fn=training_reward, prompts=prompts,
+                                            config=config)
+
+    def ilql(config):
+        samples, rewards = ilql_dataset()
+        return lambda: trlx_tpu_torch.train(dataset=(samples, rewards), config=config)
+
+    def report(name, record, ok):
+        restored = (signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT)) == handlers
+        clean = not chaos.active() and preemption._guard is None
+        record.update(handlers_restored=restored, chaos_cleared=clean)
+        record["ok"] = bool(ok and restored and clean)
+        scenarios[name] = record
+        log("phase 24: resilience " + json.dumps({"scenario": name, **record}, default=str))
+        reset_retry_log()
+        return record["ok"]
+
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        def run_dir(name):
+            return os.path.join(tmp, name)
+
+        # (d)'s uninterrupted run, resilience off, synchronous saves
+        plain, plain_rec, plain_line = supervised_path(
+            torch, fa, PPOTrainer, ppo(resilience_ppo_config(run_dir("plain"))),
+            split_peak_at=RESILIENCE_PASS)
+        plain_ok = (isinstance(plain, PPOTrainer) and plain.step == RESILIENCE_UPDATES
+                    and "peak_after_split_bytes" in plain_line["attempts"][0])
+        plain_state = resumable_state(torch, plain) if plain_ok else None
+        plain_peak = plain_line["attempts"][0]["peak_bytes"]
+        del plain
+
+        # (a) clean: resilience on, no chaos; its state at update 32 for (b)
+        at_boundary = {}
+        collect = PPOTrainer._collect_phase
+
+        def snapshot_collect(self, iter_count, seed):
+            if iter_count == RESILIENCE_PASS and not at_boundary:
+                at_boundary.update(resumable_state(torch, self))
+            return collect(self, iter_count, seed)
+
+        clean, clean_rec, clean_line = supervised_path(
+            torch, fa, PPOTrainer, ppo(resilience_ppo_config(
+                run_dir("a"), resilience={"enabled": True})),
+            extra_patches=[(PPOTrainer, "_collect_phase", snapshot_collect)])
+        clean_done = isinstance(clean, PPOTrainer) and plain_ok
+        diff = state_difference(torch, resumable_state(torch, clean), plain_state) \
+            if clean_done else None
+        record = {"updates": getattr(clean, "step", None), "error": None if clean_done else
+                  repr(clean), "attempts": attempts_summary(clean_line),
+                  "chaos_events": len(chaos.events()), "retries": len(retry_log),
+                  "equal_to_resilience_off": diff, "wall_s": clean_rec["wall_s"],
+                  "resilience_off_wall_s": plain_rec["wall_s"]}
+        del clean
+        if clean_done and not diff["equal"]:
+            # tell nondeterminism from an effect of the supervisor
+            again, _, _ = supervised_path(
+                torch, fa, PPOTrainer, ppo(resilience_ppo_config(run_dir("plain_again"))))
+            record["resilience_off_repeat"] = state_difference(
+                torch, resumable_state(torch, again), plain_state)
+            del again
+        ok &= report("a_clean", record, clean_done and diff["equal"]
+                     and len(clean_line["attempts"]) == 1 and not record["retries"])
+
+        # (d) preempt / resume parity: a real SIGTERM at the first boundary
+        resumed, res_rec, res_line = supervised_path(
+            torch, fa, PPOTrainer, ppo(resilience_ppo_config(
+                run_dir("d"), async_checkpoint=True,
+                resilience={"enabled": True, "chaos": PREEMPT_AT_FIRST_BOUNDARY})))
+        done = (isinstance(resumed, PPOTrainer) and plain_ok and len(res_line["drains"]) == 1
+                and len(res_line["attempts"]) == 2 and bool(res_line["loads"]))
+        record = {"updates": getattr(resumed, "step", None),
+                  "error": None if isinstance(resumed, PPOTrainer) else repr(resumed),
+                  "attempts": attempts_summary(res_line), "drains": res_line["drains"],
+                  "uninterrupted_peak_bytes": plain_peak}
+        if done:
+            record["equal_to_uninterrupted"] = state_difference(
+                torch, resumable_state(torch, resumed), plain_state)
+            record.update(recovery_times(res_line))
+            record["memory_gates"] = memory_gates(res_line, plain_line)
+            gates = resumed_path_gates(res_rec, res_line, resumed, RESILIENCE_UPDATES)
+            record["launch_gates"] = gates
+            paths["resilience_ppo_resumed"] = res_rec
+            record["resumed_device"] = str(resumed.device)  # device=None: CUDA on restart too
+            done = (record["equal_to_uninterrupted"]["equal"] and res_line["drains"][0]["step"]
+                    == RESILIENCE_PASS and res_line["attempts"][1]["resume"] and gates["ok"]
+                    and record["memory_gates"]["ok"] and resumed.device.type == "cuda")
+        del resumed, plain_state
+        ok &= report("d_preempt_resume_ppo", record, done)
+
+        # (d) for ILQL: uninterrupted, then preempted at the first chunk
+        iplain, _, iplain_line = supervised_path(
+            torch, fa, ILQLTrainer, ilql(resilience_ilql_config(run_dir("ilql_plain"))),
+            split_peak_at=RESILIENCE_ILQL_CHUNK)
+        iplain_ok = (isinstance(iplain, ILQLTrainer) and iplain.step == RESILIENCE_ILQL_UPDATES
+                     and "peak_after_split_bytes" in iplain_line["attempts"][0])
+        iplain_state = resumable_state(torch, iplain) if iplain_ok else None
+        iplain_peak = iplain_line["attempts"][0]["peak_bytes"]
+        del iplain
+        iresumed, ires_rec, ires_line = supervised_path(
+            torch, fa, ILQLTrainer, ilql(resilience_ilql_config(
+                run_dir("ilql_d"), async_checkpoint=True,
+                resilience={"enabled": True, "chaos": PREEMPT_AT_FIRST_BOUNDARY})))
+        done = (isinstance(iresumed, ILQLTrainer) and iplain_ok
+                and len(ires_line["drains"]) == 1 and len(ires_line["attempts"]) == 2
+                and bool(ires_line["loads"]))
+        record = {"updates": getattr(iresumed, "step", None),
+                  "error": None if isinstance(iresumed, ILQLTrainer) else repr(iresumed),
+                  "attempts": attempts_summary(ires_line), "drains": ires_line["drains"],
+                  "uninterrupted_peak_bytes": iplain_peak}
+        if done:
+            record["equal_to_uninterrupted"] = state_difference(
+                torch, resumable_state(torch, iresumed), iplain_state)
+            record.update(recovery_times(ires_line))
+            record["memory_gates"] = memory_gates(ires_line, iplain_line)
+            gates = resumed_path_gates(ires_rec, ires_line, iresumed, RESILIENCE_ILQL_UPDATES)
+            record["launch_gates"] = gates
+            paths["resilience_ilql_resumed"] = ires_rec
+            done = (record["equal_to_uninterrupted"]["equal"] and ires_line["drains"][0]["step"]
+                    == RESILIENCE_ILQL_CHUNK and gates["ok"] and record["memory_gates"]["ok"])
+        del iresumed, iplain_state
+        ok &= report("d_preempt_resume_ilql", record, done)
+
+        # (b) transient checkpoint I/O: the end save fails twice, on the
+        # writer thread, and lands; the state is (a)'s at update 32
+        flaky, flaky_rec, flaky_line = supervised_path(
+            torch, fa, PPOTrainer, ppo(resilience_ppo_config(
+                run_dir("b"), RESILIENCE_PASS, async_checkpoint=True,
+                resilience={"enabled": True, "retry": RESILIENCE_RETRY, "chaos": [
+                    {"site": "checkpoint.save", "mode": "error", "count": 2}]})))
+        retries = [r["what"] for r in retry_log if "checkpoint save" in r["what"]]
+        done = isinstance(flaky, PPOTrainer) and bool(at_boundary)
+        record = {"updates": getattr(flaky, "step", None), "save_retries": len(retries),
+                  "error": None if isinstance(flaky, PPOTrainer) else repr(flaky),
+                  "attempts": attempts_summary(flaky_line),
+                  "steps_on_disk": ckpt.all_steps(run_dir("b")), "wall_s": flaky_rec["wall_s"]}
+        if done:
+            # its generator drew the final eval after the save
+            record["equal_to_clean_at_32"] = state_difference(
+                torch, resumable_state(torch, flaky), at_boundary, skip=("generator",))
+            done = (record["equal_to_clean_at_32"]["equal"] and len(retries) == 2
+                    and record["steps_on_disk"] == [RESILIENCE_PASS]
+                    and len(flaky_line["attempts"]) == 1)
+        del flaky
+        at_boundary.clear()
+        ok &= report("b_transient_checkpoint_io", record, done)
+
+        # (c) a permanent layout mismatch refuses at once
+        frozen = resilience_ppo_config(run_dir("c"), model={"num_layers_unfrozen": 2})
+        PPOTrainer(frozen).save()
+        t0 = time.perf_counter()
+        refused, refused_rec, refused_line = supervised_path(
+            torch, fa, PPOTrainer, ppo(resilience_ppo_config(
+                run_dir("c"), RESILIENCE_PASS, resume_from_checkpoint=True,
+                resilience={"enabled": True, "retry": RESILIENCE_RETRY})))
+        refusal_s = time.perf_counter() - t0
+        record = {"error": repr(refused)[:300], "refusal_s": refusal_s,
+                  "retries": len(retry_log), "attempts": attempts_summary(refused_line),
+                  "load_s": [e - s for s, e in refused_line["loads"]]}
+        ok &= report("c_permanent_mismatch", record, (
+            isinstance(refused, ValueError) and "num_layers_unfrozen" in str(refused)
+            and not retry_log and len(refused_line["attempts"]) == 1))
+        del refused
+
+        # (e) and (f) in one pass: the continuous engine fails at
+        # admission (the fixed sampler takes over) and the rollout log's
+        # disk fills three times (the writer degrades)
+        writers, submitted = [], []
+        init, submit = BackgroundJSONLWriter.__init__, BackgroundJSONLWriter.submit
+
+        def recording_init(self, *a, **kw):
+            writers.append(self)
+            init(self, *a, **kw)
+
+        def recording_submit(self, path, rows):
+            submitted.extend(rows)
+            return submit(self, path, rows)
+
+        log_dir = run_dir("rollouts")
+        degraded, _, ef_line = supervised_path(
+            torch, fa, PPOTrainer, ppo(resilience_ppo_config(
+                run_dir("ef"), RESILIENCE_PASS, rollout={"engine": "continuous"},
+                rollout_logging_dir=log_dir,
+                health={"enabled": True, "dump_dir": run_dir("ef_dumps")},
+                resilience={"enabled": True, "chaos": [
+                    {"site": "engine.admit", "mode": "permanent"},
+                    {"site": "writer.write", "mode": "disk_full", "count": 3}]})),
+            extra_patches=[(BackgroundJSONLWriter, "__init__", recording_init),
+                           (BackgroundJSONLWriter, "submit", recording_submit)])
+        done = isinstance(degraded, PPOTrainer)
+        shared = {"updates": getattr(degraded, "step", None),
+                  "attempts": attempts_summary(ef_line),
+                  "error": None if done else repr(degraded), "shares_the_pass_of": None}
+        counts = degraded.health_monitor.event_counts if done else {}
+        record = dict(shared, engine_after=getattr(degraded, "rollout_engine", None),
+                      fallback_events=counts.get("engine-fallback", 0),
+                      shares_the_pass_of="f_writer_disk_full")
+        ok &= report("e_engine_fallback", record, (
+            done and degraded.step == RESILIENCE_PASS and degraded.rollout_engine == "fixed"
+            and record["fallback_events"] == 1 and len(ef_line["attempts"]) == 1))
+        on_disk = []
+        for root, _, files in sorted(os.walk(log_dir)):
+            for name in sorted(files):
+                with open(os.path.join(root, name)) as f:
+                    on_disk += [json.loads(line) for line in f]
+        record = dict(shared, rows_submitted=len(submitted), rows_on_disk=len(on_disk),
+                      in_order=on_disk == submitted, degraded=[w.degraded for w in writers],
+                      shares_the_pass_of="e_engine_fallback")
+        ok &= report("f_writer_disk_full", record, (
+            done and on_disk == submitted and len(on_disk) == 128
+            and record["degraded"] == [True]))
+        del degraded
+    log(f"phase 24: resilience {'ok' if ok else 'FAIL'} ("
+        + ", ".join(f"{n} {'ok' if r['ok'] else 'FAIL'}" for n, r in scenarios.items()) + ")")
+    return bool(ok), {"paths": paths, "scenarios": scenarios}
+
+
 def int8_kernel_entries(kv, bench) -> list:
     """The ``kernels`` line's entries of the int8 cache's two kernels: the
     serving decode shape's times at the top, the rollout decode's beside
@@ -7653,6 +8119,7 @@ def main() -> int:
     ring_ok, ring = timed_phase("21 ring attention", phase_ring, torch, fa)
     moe_ok, moe = timed_phase("22 gpt2_moe", phase_moe, torch, fa)
     kv_int8_ok, kv_int8 = timed_phase("23 kv int8", phase_kv_int8, torch, fa, attn)
+    resilience_ok, resilience = timed_phase("24 resilience", phase_resilience, torch, fa)
     # the small head dims' paths (phases 16 to 18), each counted on its own
     small_paths = {24: {**rw, "randomwalks_ilql": rw_ilql},
                    32: {n: standins[n] for n in ("standin_gpt2_ppo", "standin_gpt2_ppo_bf16",
@@ -7677,7 +8144,9 @@ def main() -> int:
                  "int8_serving_tier": kv_int8["serving_tier"],
                  # phase 21's ring paths (the D = 64 kernels, K1 and K2/K3 by
                  # the block wrappers), each counted on its own
-                 **ring["paths"]}
+                 **ring["paths"],
+                 # phase 24's resumed runs, each across both of its attempts
+                 **resilience["paths"]}
     if args.profile:
         timed_phase("profile", profile_paths, torch, args.profile)
 
@@ -7822,7 +8291,8 @@ def main() -> int:
               ("neox_training", neox_training_ok), ("randomwalks_ppo", rw_ok),
               ("randomwalks_ilql", rw_ilql_ok), ("standins_and_guard", standins_ok),
               ("neo_serving", neo_serving_ok), ("neo_training", neo_training_ok),
-              ("ring_attention", ring_ok), ("gpt2_moe", moe_ok), ("kv_int8", kv_int8_ok))
+              ("ring_attention", ring_ok), ("gpt2_moe", moe_ok), ("kv_int8", kv_int8_ok),
+              ("resilience", resilience_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

@@ -57,8 +57,11 @@ dequantization and the plain attention (a row with no live key and its
 ``p_scale`` included) and bit for bit against the bf16 decode on the
 dequantized view; the routes of ``dot_product_attention`` on
 ``QuantizedKV``; a greedy int8 rollout through both kernels, token for
-token with the CPU's; and ``HealthMonitor.observe`` on CUDA scalars
-forcing no synchronisation.
+token with the CPU's; ``HealthMonitor.observe`` on CUDA scalars forcing
+no synchronisation; and resumable training: the sampler's CUDA generator
+through ``save`` and ``load`` draws the same tokens again, and the
+preemption drain under ``async_checkpoint`` raises only once the emergency
+step is on disk.
 """
 
 import math
@@ -2052,3 +2055,78 @@ def test_health_observe_forces_no_synchronisation(dev):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     assert monitor.latest == {"optimizer/grad_norm": 0.5}
+
+
+# ----------------------- resumable training on the card ----------------------- #
+
+
+def test_cuda_generator_resumes_the_same_sampled_tokens(dev, tmp_path):
+    """The sampler's CUDA generator goes through ``save`` and ``load``: a
+    fresh trainer that loads the checkpoint samples the same tokens,
+    logprobs and values as the trainer that wrote it samples next."""
+    import copy
+
+    from trlx_tpu_torch.pipeline.prompt_pipeline import PromptPipeline
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    config = _small_engine_config(tmp_path)
+    config.train.rollout = {}
+    trainer = PPOTrainer(copy.deepcopy(config))
+    assert trainer.generator.device.type == "cuda"
+    pipe = PromptPipeline(_prompts(), 20)
+    ids, mask = torch.from_numpy(pipe.input_ids), torch.from_numpy(pipe.attention_mask)
+    trainer.sample(ids, mask)  # the generator moves off its seed
+    trainer.save()
+    want = trainer.sample(ids, mask)
+    fresh = PPOTrainer(copy.deepcopy(config))
+    fresh.load(str(tmp_path))
+    got = fresh.sample(ids, mask)
+    torch.cuda.synchronize()
+    for key in ("tokens", "response_mask", "logprobs", "values"):
+        assert torch.equal(getattr(got, key), getattr(want, key)), key
+    assert torch.equal(fresh.generator.get_state(), trainer.generator.get_state())
+
+
+def test_drain_under_async_checkpoint_lands_before_it_raises(dev, tmp_path, monkeypatch):
+    """``maybe_drain`` after a SIGTERM under ``async_checkpoint``: the
+    emergency save returns before its bytes land (the write is slowed
+    here), and the drain joins it, so when ``PreemptionDrain`` is raised
+    the step is on disk and loads."""
+    import os
+    import signal
+    import time
+
+    from trlx_tpu_torch.resilience import preemption
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils import checkpoint as ckpt
+
+    config = _small_engine_config(tmp_path)
+    config.train.rollout = {}
+    config.train.training["async_checkpoint"] = True
+    trainer = PPOTrainer(config)
+    trainer.step = 7
+    write_once = ckpt._write_once
+
+    def slow_write(*args):
+        time.sleep(1.0)
+        return write_once(*args)
+
+    monkeypatch.setattr(ckpt, "_write_once", slow_write)
+    handlers = (signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT))
+    preemption.install_guard()
+    try:
+        trainer.maybe_drain(phase=0, step=7)  # no signal yet: returns
+        assert ckpt.all_steps(str(tmp_path)) == []
+        os.kill(os.getpid(), signal.SIGTERM)
+        with pytest.raises(preemption.PreemptionDrain) as info:
+            trainer.maybe_drain(phase=0, step=7)
+        assert info.value.step == 7 and info.value.exit_code == 75
+        assert ckpt.all_steps(str(tmp_path)) == [7]
+        assert trainer._checkpoints._thread is None
+        state = ckpt.load_checkpoint(str(tmp_path), device="cpu")
+        assert state["step"] == 7
+        assert torch.equal(state["model"]["v_head.fc2.weight"],
+                           trainer.model.state_dict()["v_head.fc2.weight"].cpu())
+    finally:
+        preemption.uninstall_guard()
+    assert (signal.getsignal(signal.SIGTERM), signal.getsignal(signal.SIGINT)) == handlers

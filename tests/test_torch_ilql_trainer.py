@@ -307,8 +307,8 @@ def test_save_load_round_trip(runs, tmp_path):
 
 #: match ``None``: a feature once refused here that the port now has (the
 #: asynchronous checkpoint write, ROADMAP item 8; the gpt2_moe family,
-#: item 13; run-health monitoring, item 19's health part): the trainer
-#: builds with it
+#: item 13; run-health monitoring, item 19's health part; resume inside
+#: ``learn``, item 6 with item 18): the trainer builds with it
 REFUSALS = {
     "continuous_engine": ({"train": {"rollout": {"engine": "continuous"}}}, "no rollout engine"),
     "async_rl": ({"train": {"async_rl": {"enabled": True}}}, "async_rl"),
@@ -316,7 +316,7 @@ REFUSALS = {
     "telemetry": ({"train": {"telemetry": {"ring_size": 1024}}}, "telemetry"),
     "mesh": ({"train": {"mesh": {"dp": 2, "fsdp": 1, "tp": 1}}}, "item 14"),
     "pp": ({"train": {"pp_microbatches": 4}}, "item 14"),
-    "resume": ({"train": {"resume_from_checkpoint": True}}, "item 18"),
+    "resume": ({"train": {"resume_from_checkpoint": True}}, None),
     "health": ({"train": {"health": {"enabled": True}}}, None),
     "moe_family": ({"model": {"model_type": "gpt2_moe"}}, None),
     "seq2seq_family": ({"model": {"model_type": "t5"}}, "causal LM"),
@@ -339,6 +339,8 @@ def test_unported_features_are_refused_by_name(tmp_path, name):
             assert type(trainer.model.transformer).__name__ == "GPT2MoEModel"
         elif name == "health":
             assert trainer.health_monitor is not None and trainer._health_enabled
+        elif name == "resume":
+            assert trainer.config.train.resume_from_checkpoint is True
         else:
             assert trainer.config.train.training["async_checkpoint"] is True
         return

@@ -3,11 +3,21 @@
 
 A ``reward_fn`` selects online PPO: build the trainer, the prompt pipeline
 and the orchestrator from the config's registry names, bind the eval
-pipeline, and run ``learn()`` once. A reward-labeled ``dataset`` selects
+pipeline, and run ``learn()``. A reward-labeled ``dataset`` selects
 offline ILQL: the trainer and orchestrator become ``ILQLTrainer`` and
 ``OfflineOrchestrator`` (recorded back in the config), the orchestrator
 packs the dataset, and the eval prompts default to the first 64 samples'
-prompts. The resilience supervisor's restarts are ROADMAP item 18.
+prompts.
+
+Each branch runs as supervised attempts
+(:func:`~trlx_tpu_torch.resilience.supervisor.run_supervised`): an attempt
+builds the trainer, the pipeline and the orchestrator from scratch, with
+``train.resume_from_checkpoint`` set as the supervisor asks, and closes
+the orchestrator's rollout writer. With ``train.resilience`` off (the
+default) it runs exactly once and installs no signal handler; on, a
+preemption drain or a retriable failure restarts it from the latest
+checkpoint, on the same ``device``. The caller's config comes back with
+``train.resume_from_checkpoint`` as it was given.
 """
 
 from __future__ import annotations
@@ -17,11 +27,13 @@ from typing import Callable, List, Optional
 
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.data.method_configs import ILQLConfig
+from trlx_tpu_torch.resilience.supervisor import run_supervised
 from trlx_tpu_torch.utils.loading import get_orchestrator, get_pipeline, get_trainer
 
 _CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 _DEFAULT_PPO_CONFIG = os.path.join(_CONFIGS, "ppo_sentiments.yml")
 _DEFAULT_ILQL_CONFIG = os.path.join(_CONFIGS, "ilql_sentiments.yml")
+_UNSET = object()
 
 
 def train(
@@ -73,23 +85,51 @@ def train(
         config.model.model_path = model_path
     if prompts is None:
         raise ValueError("online PPO requires `prompts`")
-    trainer = get_trainer(config.train.trainer)(
-        config, reward_fn=reward_fn, metric_fn=metric_fn, tokenizer=tokenizer,
-        device=device,
-    )
-    pipeline = get_pipeline(config.train.pipeline)(
-        prompts, trainer.query_length, trainer.tokenizer, response_gt=response_gt
-    )
-    get_orchestrator(config.train.orchestrator)(
-        trainer, pipeline, reward_fn=reward_fn, chunk_size=config.method.chunk_size
-    )
-    # the training prompts (and their ground truths) double as eval prompts
-    eval_pipeline = pipeline if eval_prompts is None else get_pipeline(
-        config.train.pipeline
-    )(eval_prompts, trainer.query_length, trainer.tokenizer)
-    trainer.add_eval_pipeline(eval_pipeline)
-    _learn(trainer)
-    return trainer
+
+    def attempt(resume: bool):
+        # built from scratch: a failed attempt's state is assumed poisoned
+        config.train.resume_from_checkpoint = bool(resume)
+        trainer = get_trainer(config.train.trainer)(
+            config, reward_fn=reward_fn, metric_fn=metric_fn, tokenizer=tokenizer,
+            device=device,
+        )
+        pipeline = get_pipeline(config.train.pipeline)(
+            prompts, trainer.query_length, trainer.tokenizer, response_gt=response_gt
+        )
+        orch = get_orchestrator(config.train.orchestrator)(
+            trainer, pipeline, reward_fn=reward_fn, chunk_size=config.method.chunk_size
+        )
+        # the training prompts (and their ground truths) double as eval prompts
+        eval_pipeline = pipeline if eval_prompts is None else get_pipeline(
+            config.train.pipeline
+        )(eval_prompts, trainer.query_length, trainer.tokenizer)
+        trainer.add_eval_pipeline(eval_pipeline)
+        # the rollout writer stops with the attempt; a write error a
+        # phase-end flush held back raises here, unless learn is raising
+        try:
+            _learn(trainer)
+        except BaseException:
+            orch.close(reraise=False)
+            raise
+        orch.close()
+        return trainer
+
+    return _supervised(attempt, config)
+
+
+def _supervised(attempt, config):
+    """:func:`run_supervised`, then the caller's ``resume_from_checkpoint``
+    put back: an attempt sets it, and a restart leaves it on, which would
+    make a later ``train`` with the same config resume this run."""
+    training = config.train.training
+    given = training.get("resume_from_checkpoint", _UNSET)
+    try:
+        return run_supervised(attempt, config)
+    finally:
+        if given is _UNSET:
+            training.pop("resume_from_checkpoint", None)
+        else:
+            training["resume_from_checkpoint"] = given
 
 
 def _learn(trainer) -> None:
@@ -130,14 +170,23 @@ def _train_offline(model_path, dataset, eval_prompts, metric_fn, config, split_t
             else:
                 toks, start = s
                 eval_prompts.append([int(t) for t in toks[: max(int(start), 1)]])
-    trainer = get_trainer(config.train.trainer)(
-        config, metric_fn=metric_fn, tokenizer=tokenizer, logit_mask=logit_mask, device=device,
-    )
-    get_orchestrator(config.train.orchestrator)(trainer, split_token=split_token).make_experience(
-        samples, rewards
-    )
-    trainer.add_eval_pipeline(
-        get_pipeline(config.train.pipeline)(eval_prompts, trainer.query_length, trainer.tokenizer)
-    )
-    _learn(trainer)
-    return trainer
+
+    def attempt(resume: bool):
+        # the PPO branch's supervised attempt; the offline path has no
+        # rollout log to close
+        config.train.resume_from_checkpoint = bool(resume)
+        trainer = get_trainer(config.train.trainer)(
+            config, metric_fn=metric_fn, tokenizer=tokenizer, logit_mask=logit_mask,
+            device=device,
+        )
+        get_orchestrator(config.train.orchestrator)(
+            trainer, split_token=split_token
+        ).make_experience(samples, rewards)
+        trainer.add_eval_pipeline(
+            get_pipeline(config.train.pipeline)(eval_prompts, trainer.query_length,
+                                                trainer.tokenizer)
+        )
+        _learn(trainer)
+        return trainer
+
+    return _supervised(attempt, config)

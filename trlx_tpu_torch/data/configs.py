@@ -148,6 +148,25 @@ class TrainConfig:
     serving: Dict[str, Any] = field(default_factory=dict)
     training: Dict[str, Any] = field(default_factory=dict)
 
+    # the resilience keys, read (and ``resume_from_checkpoint`` set) by
+    # their JAX package's attribute names; they live in ``training``
+
+    @property
+    def resume_from_checkpoint(self) -> bool:
+        return bool(self.training.get("resume_from_checkpoint", False))
+
+    @resume_from_checkpoint.setter
+    def resume_from_checkpoint(self, value: bool) -> None:
+        self.training["resume_from_checkpoint"] = bool(value)
+
+    @property
+    def resilience(self) -> Dict[str, Any]:
+        return dict(self.training.get("resilience") or {})
+
+    @property
+    def rollout_logging_dir(self) -> Optional[str]:
+        return self.training.get("rollout_logging_dir")
+
     @classmethod
     def from_dict(cls, config: Dict[str, Any]):
         if "opt_betas" in config:

@@ -719,7 +719,13 @@ class ContinuousBatchingEngine:
         (needs ``prefix_pool_blocks > 0``); ``release=True`` marks padding
         placeholders (force-finished on admission); ``submit_times``
         backdates the latency marks to when the request entered the
-        serving tier."""
+        serving tier. Carries the ``engine.admit`` fault-injection site
+        (:mod:`~trlx_tpu_torch.resilience.chaos`): an injected admission
+        failure drives the orchestrator's fallback to the fixed sampler
+        and the server's admission retry."""
+        from trlx_tpu_torch.resilience import chaos
+
+        chaos.check("engine.admit")
         ids = np.asarray(prompt_ids)
         mask = np.asarray(prompt_mask)
         if ids.ndim != 2 or ids.shape[1] != self.Q:

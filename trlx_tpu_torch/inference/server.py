@@ -38,6 +38,7 @@ import torch
 from trlx_tpu_torch.data.configs import TRLConfig
 from trlx_tpu_torch.serving.scheduler import DEFAULT_TENANT
 from trlx_tpu_torch.utils import compute_dtype_cast, monotonic, resolve_device
+from trlx_tpu_torch.utils.retry import retry_call
 
 
 class InferenceServer:
@@ -311,17 +312,24 @@ class InferenceServer:
                 )
                 for req in batch
             ]
+        ids = np.stack([req.prompt_ids for req in batch])
+        mask = np.stack([req.prompt_mask for req in batch])
+        # admission sits on the request path: a transient failure (the
+        # engine.admit site models one) is retried with bounded backoff
+        # instead of bouncing the requests
         try:
-            rows = self.engine.submit(
-                np.stack([req.prompt_ids for req in batch]),
-                np.stack([req.prompt_mask for req in batch]),
-                shared_maps=np.stack([p.shared_map for p in plans]) if plans else None,
-                publish_maps=np.stack([p.publish_map for p in plans]) if plans else None,
-                submit_times=[req.submitted_at for req in batch],
+            rows = retry_call(
+                lambda: self.engine.submit(
+                    ids, mask,
+                    shared_maps=np.stack([p.shared_map for p in plans]) if plans else None,
+                    publish_maps=np.stack([p.publish_map for p in plans]) if plans else None,
+                    submit_times=[req.submitted_at for req in batch],
+                ),
+                describe="inference-server admission",
             )
         except Exception:
-            # roll the plans back, or their references and never-ready
-            # published blocks would pin the pool for good
+            # a permanent failure: roll the plans back, or their references
+            # and never-ready published blocks would pin the pool for good
             for plan in plans:
                 if plan.acquired:
                     self.prefix_pool.abandon(plan.acquired)

@@ -18,10 +18,18 @@ degrades to the fixed sampler for the rest of the run, with an
 
 The collect stats row feeds the trainer's run-health detectors
 (``exp/score_std`` is the reward-saturation series).
+
+Under ``train.rollout_logging_dir`` each scored batch's rows (query,
+response, raw score) go to ``<dir>/run_<time>-<pid>/rollouts_<step>.jsonl``
+through a :class:`~trlx_tpu_torch.utils.async_writer.BackgroundJSONLWriter`,
+flushed at each phase's end (also when collection raises, without masking
+its error) and stopped by :meth:`PPOOrchestrator.close`.
 """
 
 from __future__ import annotations
 
+import os
+import time
 from typing import Any, Callable, Dict
 
 import numpy as np
@@ -67,6 +75,36 @@ class PPOOrchestrator:
         self.ref_mean = trainer.config.method.ref_mean
         self.ref_std = trainer.config.method.ref_std
         trainer.orch = self
+        # the pid keeps apart two runs that share a logging directory and
+        # start in the same second
+        self._run_id = f"{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}"
+        self._rollout_writer = None
+        if trainer.config.train.rollout_logging_dir:
+            from trlx_tpu_torch.utils.async_writer import BackgroundJSONLWriter
+
+            self._rollout_writer = BackgroundJSONLWriter()
+
+    def close(self, reraise: bool = True) -> None:
+        """Stop the rollout writer, draining what is queued; a write error
+        that an exception path's flush held back raises here (not with
+        ``reraise=False``)."""
+        if self._rollout_writer is not None:
+            writer, self._rollout_writer = self._rollout_writer, None
+            writer.close(reraise=reraise)
+
+    def _log_rollouts(self, queries, texts, scores, iter_count: int) -> None:
+        """Queue a scored batch's rows for ``train.rollout_logging_dir``,
+        under this run's own directory."""
+        if self._rollout_writer is None:
+            return
+        directory = os.path.join(self.trainer.config.train.rollout_logging_dir,
+                                 f"run_{self._run_id}")
+        os.makedirs(directory, exist_ok=True)
+        self._rollout_writer.submit(
+            os.path.join(directory, f"rollouts_{iter_count}.jsonl"),
+            [{"query": q, "response": s, "score": float(r)}
+             for q, s, r in zip(queries, texts, scores)],
+        )
 
     def _draw(self):
         self._draws += 1
@@ -139,15 +177,28 @@ class PPOOrchestrator:
     def make_experience(self, num_rollouts: int = 128, iter_count: int = 0) -> Dict[str, float]:
         """Collect at least ``num_rollouts`` rollouts (whole chunks or
         harvest groups) into the trainer's buffer on the trainer's rollout
-        engine; returns the collect stats."""
+        engine, then flush the rollout log; returns the collect stats."""
+        writer = self._rollout_writer
+        try:
+            stats = self._collect(num_rollouts, iter_count)
+        except BaseException:
+            if writer is not None:
+                writer.flush(reraise=False)  # queued rows land; this error wins
+            raise
+        if writer is not None:
+            writer.flush(reraise=True)
+        return stats
+
+    def _collect(self, num_rollouts: int, iter_count: int) -> Dict[str, float]:
         if getattr(self.trainer, "rollout_engine", "fixed") == "continuous":
             try:
                 return self._make_experience_continuous(num_rollouts, iter_count)
             except Exception as e:
+                from trlx_tpu_torch.resilience.preemption import PreemptionDrain
                 from trlx_tpu_torch.telemetry.health import HealthAbort
 
-                if isinstance(e, HealthAbort):
-                    raise  # a policy decision, not an engine failure
+                if isinstance(e, (HealthAbort, PreemptionDrain)):
+                    raise  # policy decisions, not engine failures
                 self._degrade_engine(e, iter_count)
         return self._make_experience_fixed(num_rollouts, iter_count)
 
@@ -202,6 +253,7 @@ class PPOOrchestrator:
             )
             score_time += monotonic() - t1
             all_scores.append(scores.copy())
+            self._log_rollouts(meta["prompts_text"], texts, scores, iter_count)
             scores = self._scale_scores(scores, method)
             rewards = tr.compute_rewards(
                 out.logprobs, ref_logprobs, out.response_mask, scores
@@ -259,14 +311,16 @@ class PPOOrchestrator:
             texts = tr.decode_responses(tokens, response_mask)
             generate_time += monotonic() - t1
             rows = group["rows"]
+            queries = [meta_by_row[r][0] for r in rows]
             t1 = monotonic()
             scores = np.asarray(
-                self.score(texts, [meta_by_row[r][0] for r in rows],
+                self.score(texts, queries,
                            [meta_by_row[r][1] for r in rows] if have_gt else None),
                 dtype=np.float32,
             )
             score_time += monotonic() - t1
             all_scores.append(scores.copy())
+            self._log_rollouts(queries, texts, scores, iter_count)
             scores = self._scale_scores(scores, method)
             rewards = tr.compute_rewards(logprobs, ref_logprobs, response_mask, scores)
             tr.buffer.push(PPORolloutBatch(

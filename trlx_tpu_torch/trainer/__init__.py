@@ -6,8 +6,9 @@ function, both or neither), the non-finite-loss check, and run-health
 monitoring (``train.health``: the detectors of
 :mod:`~trlx_tpu_torch.telemetry.health` over every fetched stats row, their
 events on the Logger, and the crash-forensics flight recorder with
-``train.flight_dump_phase``). The run ledger and the tracer's health marker
-spans are ROADMAP item 19.
+``train.flight_dump_phase``), and the preemption drain at phase boundaries
+(:meth:`BaseRLTrainer.maybe_drain`). The run ledger and the tracer's health
+marker spans are ROADMAP item 19.
 """
 
 from __future__ import annotations
@@ -28,12 +29,9 @@ _TRAINERS: Dict[str, type] = {}
 UNPORTED_TRAIN_KEYS = {
     "async_rl": ({}, "17 (async actor-learner)"),
     "telemetry": ({}, "19 (telemetry)"),
-    "resilience": ({}, "18 (the supervisor)"),
-    "resume_from_checkpoint": (False, "18 (resume)"),
     "run_dir": (None, "19 (run ledger)"),
     "profile_dir": (None, "19 (profiler windows)"),
     "profile_phase": (None, "19 (profiler windows)"),
-    "rollout_logging_dir": (None, "7 (rollout logging)"),
     "pp_microbatches": (2, "14 (pipeline parallelism)"),
     "pp_virtual_stages": (1, "14 (pipeline parallelism)"),
     "pp_remat": (False, "14 (pipeline parallelism)"),
@@ -77,7 +75,7 @@ def refuse_unported(config) -> None:
     train = config.train
     for key, (default, item) in UNPORTED_TRAIN_KEYS.items():
         value = train.training.get(key, default)
-        if key in ("async_rl", "resilience"):
+        if key == "async_rl":
             value = {} if not (value or {}).get("enabled") else value
         if value != default:
             raise NotImplementedError(
@@ -305,6 +303,41 @@ class BaseRLTrainer:
             return  # forensics never masks the real failure
         if path:
             print(f"health: flight record dumped to {path}", file=sys.stderr)
+
+    def maybe_drain(self, phase: Optional[int] = None, step: Optional[int] = None) -> None:
+        """The phase-boundary resilience hook: the ``slow_step`` and
+        ``preempt`` fault-injection sites, then, when a guarded SIGTERM or
+        SIGINT has arrived since the last boundary, the drain: the
+        emergency checkpoint through ``save`` (retried on transient I/O)
+        and joined, so that it is on disk even under
+        ``train.async_checkpoint``, the flight dump, then
+        :class:`~trlx_tpu_torch.resilience.preemption.PreemptionDrain`.
+        With no guard installed it costs one flag read."""
+        from trlx_tpu_torch.resilience import chaos, preemption
+        from trlx_tpu_torch.utils.checkpoint import wait_for_checkpoints
+
+        chaos.check("slow_step", phase=phase, step=step)
+        chaos.check("preempt", phase=phase, step=step)
+        if not preemption.drain_requested():
+            return
+        directory = self.config.train.checkpoint_dir
+        print(f"resilience: draining at phase boundary (step {step}) — writing emergency "
+              f"checkpoint to {directory!r}", file=sys.stderr)
+        self.save()
+        wait_for_checkpoints()  # the drain's whole point is that it landed
+        recorder = self.flight_recorder
+        if recorder is not None:
+            try:
+                path = recorder.dump("preemption", once=True)
+                if path:
+                    print(f"health: flight record dumped to {path}", file=sys.stderr)
+            except Exception:
+                pass  # forensics never block the drain
+        raise preemption.PreemptionDrain(
+            f"preempted ({preemption.received_signal()}): drained at step {step} with an "
+            f"emergency checkpoint in {directory!r}",
+            step=step, checkpoint_dir=directory,
+        )
 
     def host_state_dict(self) -> Dict[str, Any]:
         """Host state a checkpoint carries beside the tensors: the

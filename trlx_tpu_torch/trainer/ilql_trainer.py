@@ -29,6 +29,8 @@
   update's loss and stats, as the PPO trainer does.
 - ``save`` runs on a thread under ``train.async_checkpoint``, which
   ``learn`` joins at its end (:mod:`trlx_tpu_torch.utils.checkpoint`).
+  ``train.resume_from_checkpoint`` resumes the schedule inside ``learn``;
+  the preemption drain runs at the chunk boundaries.
 - ``self.forwards`` counts the forwards the trainer makes (update
   forwards, the sampler's prefills and decode steps): each runs the
   attention forward once per layer.
@@ -62,7 +64,12 @@ from trlx_tpu_torch.utils import (
     rollout_cast_dtype,
     set_seed,
 )
-from trlx_tpu_torch.utils.checkpoint import CheckpointWriter, load_checkpoint
+from trlx_tpu_torch.utils.checkpoint import (
+    CheckpointWriter,
+    has_checkpoint,
+    load_checkpoint,
+    translate_structure_errors,
+)
 from trlx_tpu_torch.utils.logging import Logger
 
 
@@ -284,10 +291,18 @@ class ILQLTrainer(BaseRLTrainer):
     def learn(self) -> Dict[str, Any]:
         """The offline loop: eval at step 0; per epoch, the minibatches of
         ``epoch_order(seed + epoch)`` one update each; eval and save on
-        their intervals; at ``total_steps`` save, then eval."""
+        their intervals; at ``total_steps`` save, then eval. Under
+        ``train.resume_from_checkpoint`` with a checkpoint on disk it first
+        loads the newest one and continues the exact schedule: epoch ``s //
+        n_minibatches``, minibatch ``s % n_minibatches`` of that epoch's
+        seeded order, with no step-0 eval (the uninterrupted run made none
+        there, and its sampling would move the generator). The preemption
+        drain runs after each chunk of the JAX trainer's fused updates."""
         train = self.config.train
         if self.store is None:
             raise ValueError("no offline data: run OfflineOrchestrator.make_experience")
+        if train.resume_from_checkpoint and has_checkpoint(train.checkpoint_dir):
+            self.load(train.checkpoint_dir)
         n_minibatches = max(len(self.store) // train.batch_size, 1)
         total_steps = min(train.total_steps, train.epochs * n_minibatches)
         self.logger = Logger()
@@ -301,8 +316,9 @@ class ILQLTrainer(BaseRLTrainer):
 
     def _learn_body(self, total_steps: int, n_minibatches: int) -> Dict[str, Any]:
         train = self.config.train
-        self.logger.log(self.evaluate(), step=0)
         iter_count = self.step
+        if iter_count == 0:
+            self.logger.log(self.evaluate(), step=0)
         final_stats: Dict[str, Any] = {}
         if iter_count >= total_steps:
             return final_stats
@@ -336,6 +352,9 @@ class ILQLTrainer(BaseRLTrainer):
                     self.save()
                     self._eval(iter_count, final_stats)
                     return final_stats
+                if not chunk["left"]:
+                    # the JAX trainer's phase boundary: its fused chunk's end
+                    self.maybe_drain(phase=chunk["index"], step=iter_count)
         return final_stats
 
     def _next_health_chunk(self, chunk, step: int, remaining: int, total_steps: int) -> None:
@@ -392,9 +411,10 @@ class ILQLTrainer(BaseRLTrainer):
         write in flight has landed)."""
         state = load_checkpoint(directory, device="cpu")
         self._rollout_bundle = None
-        self.model.load_state_dict(state["model"])
-        self.target.load_state_dict(state["target"])
-        self.opt.load_state_dict(state["optimizer"])
+        with translate_structure_errors(directory):
+            self.model.load_state_dict(state["model"])
+            self.target.load_state_dict(state["target"])
+            self.opt.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
         self.generator.set_state(state["generator"])
         self.load_host_state_dict(state.get("host"))

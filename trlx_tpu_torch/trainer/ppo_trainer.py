@@ -54,7 +54,11 @@
 - ``save`` writes through :mod:`trlx_tpu_torch.utils.checkpoint`: under
   ``train.async_checkpoint`` it returns once the state is in host memory
   and the write runs on a thread, which ``learn`` joins at its end and
-  ``load`` before it reads; two steps are kept.
+  ``load`` before it reads; two steps are kept. ``learn`` resumes from the
+  newest checkpoint under ``train.resume_from_checkpoint``, and at each
+  pass boundary, before the next collect, runs the preemption drain
+  (:meth:`~trlx_tpu_torch.trainer.BaseRLTrainer.maybe_drain`); GRPO and
+  seq2seq PPO inherit both.
 - ``self.forwards`` counts the policy/reference forwards the trainer
   makes (rollout prefill and decode steps, reference scoring, update
   forwards): each runs the attention forward once per layer.
@@ -113,7 +117,12 @@ from trlx_tpu_torch.utils import (
     rollout_cast_dtype,
     set_seed,
 )
-from trlx_tpu_torch.utils.checkpoint import CheckpointWriter, load_checkpoint
+from trlx_tpu_torch.utils.checkpoint import (
+    CheckpointWriter,
+    has_checkpoint,
+    load_checkpoint,
+    translate_structure_errors,
+)
 from trlx_tpu_torch.utils.logging import Logger
 
 
@@ -707,11 +716,28 @@ class PPOTrainer(BaseRLTrainer):
     def learn(self) -> Dict[str, Any]:
         """The PPO loop: per phase, collect ``num_rollouts`` with the
         current policy, then ``ppo_epochs`` passes of minibatch updates;
-        eval and save on their intervals, and save + eval at the end."""
+        eval and save on their intervals, and save + eval at the end.
+
+        Under ``train.resume_from_checkpoint`` with a checkpoint on disk it
+        first loads the newest one: a finished run returns ``{}`` without
+        collecting; a run resumed at update ``s`` continues the schedule
+        the uninterrupted run would follow (the checkpoint is taken on a
+        pass boundary, as the drain and the end-of-pass saves take it):
+        epoch ``s // pass_steps``, collected with that epoch's seed
+        ``train.seed + epoch``, and no step-0 eval, which the
+        uninterrupted run did not make there and whose sampling would move
+        the generator."""
         train, method = self.config.train, self.config.method
+        if train.resume_from_checkpoint and has_checkpoint(train.checkpoint_dir):
+            self.load(train.checkpoint_dir)
+            if self.step >= train.total_steps:
+                return {}  # a finished run: nothing to collect or train
         self._phase_index = -1
+        start_step = self.step
+        pass_steps = method.ppo_epochs * max(method.num_rollouts // train.batch_size, 1)
+        self._epoch0 = start_step // pass_steps
         if len(self.buffer) == 0 and self.orch is not None:
-            self._collect_phase(0, seed=train.seed)
+            self._collect_phase(start_step, seed=train.seed + self._epoch0)
         n_minibatches = (
             self._plan.n_minibatches if self._plan is not None
             else max(len(self.buffer) // train.batch_size, 1)
@@ -719,7 +745,7 @@ class PPOTrainer(BaseRLTrainer):
         total_steps = min(train.total_steps, train.epochs * method.ppo_epochs * n_minibatches)
         self.logger = Logger()
         try:
-            return self._learn_body(total_steps, n_minibatches)
+            return self._learn_body(total_steps, n_minibatches, start_step)
         except BaseException as e:
             # crash forensics: one flight dump on the way down (no-op with
             # health off; none again after an abort's own dump)
@@ -729,13 +755,17 @@ class PPOTrainer(BaseRLTrainer):
             # an asynchronous end save ran beside the final eval
             self._checkpoints.wait()
 
-    def _learn_body(self, total_steps: int, n_minibatches: int) -> Dict[str, Any]:
+    def _learn_body(self, total_steps: int, n_minibatches: int,
+                    start_step: int = 0) -> Dict[str, Any]:
         train, method = self.config.train, self.config.method
         E = method.ppo_epochs
-        self.logger.log(self.evaluate(), step=0)
-        iter_count = 0
+        if start_step == 0:
+            self.logger.log(self.evaluate(), step=0)
+        iter_count = start_step
         final_stats: Dict[str, Any] = {}
-        for epoch in range(train.epochs):
+        if iter_count >= total_steps:
+            return final_stats
+        for epoch in range(self._epoch0, train.epochs):
             if self._plan is not None:
                 # epoch-major: minibatch k's last update is in the last epoch
                 order, n_mb = self._plan.updates(), self._plan.n_minibatches
@@ -756,6 +786,10 @@ class PPOTrainer(BaseRLTrainer):
             if done:
                 break
             if self.orch is not None and epoch < train.epochs - 1:
+                # the preemption drain point: after this boundary's eval and
+                # save (the saved generator has the eval's draws), before
+                # the next phase's collection
+                self.maybe_drain(phase=self._phase_index, step=iter_count)
                 self._collect_phase(iter_count, seed=train.seed + epoch + 1)
         return final_stats
 
@@ -812,11 +846,13 @@ class PPOTrainer(BaseRLTrainer):
 
     def load(self, directory: str) -> None:
         """Restore the newest checkpoint under ``directory`` (after every
-        write in flight has landed)."""
+        write in flight has landed); a checkpoint of another freezing
+        layout raises the ``ValueError`` that names it."""
         state = load_checkpoint(directory, device="cpu")
         self._drop_rollout_cast()
-        self.model.load_state_dict(state["model"])
-        self.opt.load_state_dict(state["optimizer"])
+        with translate_structure_errors(directory):
+            self.model.load_state_dict(state["model"])
+            self.opt.load_state_dict(state["optimizer"])
         self.step = int(state["step"])
         self.kl_coef = float(state["kl_coef"])
         self.mean_kl = float(state["mean_kl"])

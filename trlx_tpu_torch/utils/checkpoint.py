@@ -13,7 +13,10 @@
   restores the old run and the directory never holds no checkpoint.
 - **Load** joins writes in flight, then prefers the newest timeline: of
   several steps, the one with the latest ``_saved_at`` (a crash between a
-  commit and the stale GC can leave a higher step of the old run).
+  commit and the stale GC can leave a higher step of the old run). The
+  file is memory-mapped (private, copy on write): its pages are the host
+  copy the callers copy into their modules, so a restore holds no second
+  copy of the state in host memory beside the file's cached pages.
 - **Asynchronous writes** (``async_save=True``): :meth:`CheckpointWriter.save`
   snapshots every tensor of the state into host memory (page-locked for
   CUDA tensors, one buffer set per state layout, reused by the next save
@@ -23,9 +26,20 @@
   free; :func:`wait_for_checkpoints` joins every writer's write in flight
   and re-raises its error, and runs at process exit.
 
-Retry and fault injection (the JAX package's ``retry_call`` and
-``chaos`` sites) and the structure-mismatch translation are ROADMAP item
-18.
+- **Retry and fault injection**: each write attempt passes the
+  ``checkpoint.save`` site (:mod:`~trlx_tpu_torch.resilience.chaos`) and
+  each read ``checkpoint.load``; a transient failure (the OSError family,
+  :func:`~trlx_tpu_torch.utils.retry.classify_io_error`) is retried with
+  bounded backoff (:func:`~trlx_tpu_torch.utils.retry.retry_call`), on the
+  writer thread under ``async_save``, where a permanent or exhausted one
+  surfaces at the next join.
+- **A layout that does not match**: a checkpoint written under another
+  freezing (``model.num_layers_unfrozen``) or moment dtype fails in
+  ``load_state_dict`` ("Missing key(s)", "Unexpected key(s)", "size
+  mismatch") or in the optimizer's ("doesn't match the size of
+  optimizer's group"); :func:`translate_structure_errors` turns each into
+  a ``ValueError`` naming those keys. It is permanent
+  (:func:`classify_checkpoint_error`) and never made from an ``OSError``.
 """
 
 from __future__ import annotations
@@ -39,9 +53,13 @@ import tempfile
 import threading
 import time
 import weakref
+from contextlib import contextmanager
 from typing import Any, Dict, List, Optional
 
 import torch
+
+from trlx_tpu_torch.resilience import chaos
+from trlx_tpu_torch.utils.retry import classify_io_error, retry_call
 
 STATE_FILE = "state.pt"
 META_FILE = "meta.json"
@@ -73,7 +91,16 @@ def _delete(directory: str, step: int) -> None:
 
 def _write(directory: str, state: Dict[str, Any], step: int, stale: List[int]) -> str:
     """Commit ``state`` as ``step``, then the retention and the last stale
-    step's deletion."""
+    step's deletion; a transient failure is retried."""
+    return retry_call(
+        lambda: _write_once(directory, state, step, stale),
+        classify=classify_io_error,
+        describe=f"checkpoint save to {directory}",
+    )
+
+
+def _write_once(directory: str, state: Dict[str, Any], step: int, stale: List[int]) -> str:
+    chaos.check("checkpoint.save", step=step)
     step_dir = os.path.join(directory, str(step))
     os.makedirs(step_dir, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".pt", dir=step_dir)
@@ -254,14 +281,83 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps, key=lambda s: (_saved_at(directory, s), s))
 
 
+def has_checkpoint(directory: str) -> bool:
+    """Whether ``directory`` holds a committed checkpoint."""
+    return bool(all_steps(directory))
+
+
+#: phrasings of a layout disagreement: the JAX package's (Orbax's) and
+#: torch's ``load_state_dict`` and optimizer ones; narrow on purpose, since
+#: broad words ("shape", "different") appear in I/O failures too
+_MISMATCH_HINTS = (
+    "structure", "mismatch", "not match", "treedef",
+    "missing key(s)", "unexpected key(s)", "doesn't match the size",
+    "different number of parameter groups",
+)
+
+
+def _structure_mismatch_error(directory: str, e: BaseException) -> Optional[ValueError]:
+    """The actionable ``ValueError`` for a layout disagreement, or None.
+
+    The optimizer's state depends on the config: a frozen run
+    (``model.num_layers_unfrozen``) keeps moments only for the trainable
+    parameters, and ``train.adam_moment_dtype`` sets their dtype, so a
+    checkpoint written under one layout does not load into another."""
+    text = f"{type(e).__name__}: {e}".lower()
+    if not any(h in text for h in _MISMATCH_HINTS):
+        return None
+    if isinstance(e, OSError):
+        # an I/O error whose message holds a hint word is still I/O
+        return None
+    return ValueError(
+        f"checkpoint under {directory} does not match the current train-state "
+        "structure. This likely means the optimizer-state layout changed between "
+        "the run that wrote the checkpoint and this configuration — e.g. "
+        "`model.num_layers_unfrozen` (frozen runs store moments only for the "
+        "trainable parameters) or `train.adam_moment_dtype` differs. Frozen-layout "
+        "changes are not restorable: restore with the original configuration, or "
+        "restart the run fresh with a new checkpoint dir. If neither key changed, "
+        f"the underlying error was: {type(e).__name__}: {e}"
+    )
+
+
+def classify_checkpoint_error(e: BaseException) -> str:
+    """``"transient"`` or ``"permanent"`` for a checkpoint failure: a
+    structure mismatch is permanent however it was raised; the rest
+    follows :func:`~trlx_tpu_torch.utils.retry.classify_io_error`."""
+    if _structure_mismatch_error("", e) is not None:
+        return "permanent"
+    return classify_io_error(e)
+
+
+@contextmanager
+def translate_structure_errors(directory: str):
+    """Re-raise a layout disagreement inside the block as the
+    ``ValueError`` naming ``model.num_layers_unfrozen`` and
+    ``train.adam_moment_dtype`` (chained to the original)."""
+    try:
+        yield
+    except Exception as e:
+        wrapped = _structure_mismatch_error(directory, e)
+        if wrapped is None:
+            raise
+        raise wrapped from e
+
+
 def load_checkpoint(directory: str, device=None) -> Dict[str, Any]:
     """The newest checkpoint's state (after every write in flight has
-    landed), its tensors on ``device``."""
+    landed), its tensors on ``device``; a transient read failure is
+    retried, a structure mismatch refused at once."""
     wait_for_checkpoints()
     step = latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoint under {directory!r}")
-    return torch.load(
-        os.path.join(directory, str(step), STATE_FILE),
-        map_location=device, weights_only=True,
-    )
+    path = os.path.join(directory, str(step), STATE_FILE)
+
+    def read():
+        chaos.check("checkpoint.load")
+        return torch.load(path, map_location=device, weights_only=True, mmap=True)
+
+    with translate_structure_errors(directory):
+        return retry_call(read, classify=classify_checkpoint_error,
+                          describe=f"checkpoint restore from {path}")
