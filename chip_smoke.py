@@ -225,8 +225,9 @@ Phases, each fatal on failure:
    32, block 16, poll 1) from the same checkpoint, two phases (64
    updates). Gates per collect phase: 128 rows admitted, completed and
    recycled, none pending, 0 < slot_util <= 1, each draw index once in the
-   buffer, K1 ``tile`` = 12 x (admission prefills + reference scorings)
-   and ``decode`` = 12 x decode steps; over the run phase 5's gates. Then
+   buffer, K1 ``tile`` = 12 x (admission prefills + reference scorings +
+   the streamed phase's epoch-1 updates that ran as rows landed) and
+   ``decode`` = 12 x decode steps; over the run phase 5's gates. Then
    the fixed sampler under per-row RNG and the engine decode the same 128
    prompts at one phase seed and the share of rows with identical tokens
    is printed (a report: bf16 and another batch shape can flip a
@@ -467,6 +468,28 @@ Phases, each fatal on failure:
    One JSON line per scenario; (d)'s two resumed runs are counted paths
    (K2 = K3 ``tile`` = 12 x updates across both attempts, K1 = 12 x both
    trainers' forwards, no ``fma``, copy or plain call).
+25. async RL — ``configs/ppo_async_sentiments.yml`` (the continuous
+   engine with 16 slots admitting and harvesting 4, ``async_rl`` at
+   ``staleness_window: 1``, health, resilience) from a GPT-2-small
+   checkpoint in HF layout written here, with phase 9's deviations: (a)
+   as written through ``trlx_tpu_torch.train``, two passes (64 updates):
+   finite stats, moved parameters, weights pushed to the engine in each
+   phase, ``async/staleness_max`` <= 1, no ``staleness-breach`` event, K1
+   by variant as phase 10 counts it, K2 = K3 = 12 x 64 ``tile``, no
+   ``fma`` launch, input copy or plain call; prints every phase's
+   ``async/*`` and ``exp/overlap_*`` stats, collect and train seconds and
+   rollout tokens/s; (b) one pass at the yml's shapes three ways,
+   ``staleness_window: 0``, ``overlap=False`` and ``phase_overlap``
+   without async: ``torch.equal`` parameters, KL sequences and stats rows,
+   no weight push; (c) one pass of phase 5's fixed-sampler geometry,
+   overlapped against serial: ``torch.equal``, its epoch-1 updates run
+   during the collection; (d) an ``engine.admit`` failure at the second
+   pass's first admission under async (``checkpoint_interval: 32``, so
+   that the boundary is saved): one ``actor-dead`` event, an
+   ``ActorDeadError`` (the engine not degraded), the supervisor's restart
+   from the update-32 checkpoint and the run's end at 64, launches
+   counted across both attempts; prints the time to recover (the failure
+   to the resumed attempt's first update).
 
 Phase 5 also holds one collect with ``rollout_param_cast`` on against one
 with it off, from the same seed, its layer norms perturbed: ``torch.equal``
@@ -2551,11 +2574,11 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
     from trlx_tpu_torch.utils.checkpoint import load_checkpoint
 
     rows, evals, loaded, scoring_tiles, plain_calls, decode_forwards = [], [], [], [], [0], [0]
-    sampler_forwards = [0]
+    sampler_forwards, overlap = [0], []
     orig = {
         "learn": PPOTrainer.learn, "train_on": PPOTrainer._train_on,
         "evaluate": PPOTrainer.evaluate, "apply": PPOTrainer._apply,
-        "score_ref": PPOTrainer.score_ref,
+        "score_ref": PPOTrainer.score_ref, "finish": PPOTrainer.finish_streamed_phase,
         "fwd": fa.flash_attention_reference, "bwd": fa.flash_attention_backward_reference,
     }
 
@@ -2590,6 +2613,13 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
         evals.append(out)
         return out
 
+    def finish(self):
+        # each streamed phase's overlap stats (the epoch-1 updates that
+        # ran while the phase collected)
+        out = orig["finish"](self)
+        overlap.append(dict(self._last_overlap_stats))
+        return out
+
     def counting(key):
         def fn(*a, **kw):
             plain_calls[0] += 1
@@ -2600,6 +2630,7 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
     config = bench_config(definition, run_dir)
     PPOTrainer.learn, PPOTrainer._train_on, PPOTrainer.evaluate = learn, train_on, evaluate
     PPOTrainer._apply, PPOTrainer.score_ref = apply, score_ref
+    PPOTrainer.finish_streamed_phase = finish
     fa.flash_attention_reference = counting("fwd")
     fa.flash_attention_backward_reference = counting("bwd")
     mem_start = reset_peak(torch)
@@ -2617,6 +2648,7 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
         PPOTrainer.learn, PPOTrainer._train_on = orig["learn"], orig["train_on"]
         PPOTrainer.evaluate, PPOTrainer._apply = orig["evaluate"], orig["apply"]
         PPOTrainer.score_ref = orig["score_ref"]
+        PPOTrainer.finish_streamed_phase = orig["finish"]
         fa.flash_attention_reference = orig["fwd"]
         fa.flash_attention_backward_reference = orig["bwd"]
     wall = time.perf_counter() - t0
@@ -2735,7 +2767,7 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
         "frozen_bit_identical": not any(moved[n] for n in frozen), "frozen_tensors": len(frozen),
         "top_moved": all(moved[n] for n in top), "top_tensors": len(top),
         "server_restored": restored, "server_cast_tensors": cast,
-        "served_complete": complete,
+        "served_complete": complete, "overlap": overlap,
     }
     log(f"phase 7: {name} " + json.dumps(record))
     ok = (
@@ -2765,8 +2797,9 @@ def run_bench_definition(torch, fa, name, definition, ckpt, written, prompts, tm
         f"{health['event_counts']}, health stats {health['health_stats_in_rows']}; "
         f"backward input copies={bwd_copies}, plain attention "
         f"calls={plain_calls[0]}; server restored the checkpoint: {restored}, served "
-        f"{complete}/8; wall {wall:.2f} s, peak memory {peak} B, {mem_start} B allocated at "
-        "the start)")
+        f"{complete}/8; exp/overlap_streamed_updates per phase "
+        f"{[o.get('exp/overlap_streamed_updates') for o in overlap]}; wall {wall:.2f} s, peak "
+        f"memory {peak} B, {mem_start} B allocated at the start)")
     del trainer
     torch.cuda.empty_cache()
     return ok, record
@@ -3275,9 +3308,9 @@ def instrument(torch, cls, backbone: str, written: dict, watch):
         watch["saved_rng"].append(self.generator.get_state())
         return orig["save"](self, directory)
 
-    def record_push(self, batch):
+    def record_push(self, batch, versions=None):
         watch["chunks"].append(batch)
-        return push(self, batch)
+        return push(self, batch, versions)
 
     return [(cls, "learn", learn), (cls, "_train_on", train_on), (cls, "evaluate", evaluate),
             (cls, "save", save), (PPORolloutBuffer, "push", record_push)]
@@ -3570,15 +3603,18 @@ def phase_continuous(torch, fa, ckpt: str, written: dict):
         entry = {"harvested": []}
         watch["collects"].append(entry)
         before = forward_variant_launches(fa)
-        scorings0 = watch["scorings"]
+        scorings0, updates0 = watch["scorings"], watch["updates"]
         stats = orig["make_experience"](self, *a, **kw)
         after = forward_variant_launches(fa)
         engine = self.trainer.rollout_engine_obj
+        # the streamed phase's epoch-1 updates that ran as rows landed
+        updates = watch["updates"] - updates0
         entry.update(
             stats={k: v for k, v in stats.items() if k.startswith("engine/")},
             pending=engine.pending, buffer_rows=len(self.trainer.buffer),
-            launches={k: after[k] - before[k] for k in after},
-            expected={"tile": N_LAYER * (engine.stats.prefills + watch["scorings"] - scorings0),
+            launches={k: after[k] - before[k] for k in after}, updates_during_collect=updates,
+            expected={"tile": N_LAYER * (engine.stats.prefills + watch["scorings"] - scorings0
+                                         + updates),
                       "decode": N_LAYER * engine.stats.decode_steps, "fma": 0, "copies": 0})
         return stats
 
@@ -3592,7 +3628,8 @@ def phase_continuous(torch, fa, ckpt: str, written: dict):
         patches = instrument(torch, PPOTrainer, "transformer", written, watch) + [
             (PPOTrainer, "_apply", counted_apply), (PPOTrainer, "score_ref", score_ref),
             (PPOOrchestrator, "make_experience", make_experience), (Engine, "drive", drive),
-            (Engine, "decode_step", decode_step), (engine_mod, "row_noise", row_noise)]
+            (Engine, "decode_step", decode_step), (engine_mod, "row_noise", row_noise)
+        ] + update_watch(PPOTrainer, watch)
         trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
             reward_fn=training_reward, prompts=training_prompts(), config=config()), patches)
         fresh = PPOTrainer(config())
@@ -3707,12 +3744,15 @@ def run_continuous_features(torch, fa, ckpt: str, written: dict):
         entry = {"harvested": []}
         watch["collects"].append(entry)
         before = forward_variant_launches(fa)
-        scorings0 = watch["scorings"]
+        scorings0, updates0 = watch["scorings"], watch["updates"]
         stats = orig["make_experience"](self, *a, **kw)
         after = forward_variant_launches(fa)
         engine = self.trainer.rollout_engine_obj
         st = engine.stats
-        expected = {"tile": N_LAYER * (watch["scorings"] - scorings0),
+        # the reference scorings and the epoch-1 updates run as rows landed
+        updates = watch["updates"] - updates0
+        entry["updates_during_collect"] = updates
+        expected = {"tile": N_LAYER * (watch["scorings"] - scorings0 + updates),
                     "decode": N_LAYER * st.decode_steps,  # Q = 1 and the Q = 5 verify
                     "fma": 0, "copies": 0}
         chunk = fa.forward_variant(torch.bfloat16, engine.prefill_chunk)
@@ -3734,7 +3774,8 @@ def run_continuous_features(torch, fa, ckpt: str, written: dict):
                             train={"rollout": dict(CONTINUOUS_FEATURES)})
         patches = instrument(torch, PPOTrainer, "transformer", written, watch) + [
             (PPOTrainer, "score_ref", score_ref),
-            (PPOOrchestrator, "make_experience", make_experience), (Engine, "drive", drive)]
+            (PPOOrchestrator, "make_experience", make_experience), (Engine, "drive", drive)
+        ] + update_watch(PPOTrainer, watch)
         trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
             reward_fn=training_reward, prompts=training_prompts(), config=config), patches)
     gates = run_gates(torch, trainer, watch, record)
@@ -7857,6 +7898,283 @@ def phase_resilience(torch, fa):
     return bool(ok), {"paths": paths, "scenarios": scenarios}
 
 
+# phase 25: the asynchronous actor-learner on configs/ppo_async_sentiments.yml
+ASYNC_YML = "ppo_async_sentiments.yml"
+ASYNC_UPDATES = 64  # two passes of 128 // 16 = 8 minibatches x 4 epochs
+ASYNC_PASS = 32
+# (b) and (c) run one pass three and two ways, (d) two passes and a replay
+ASYNC_PARITY_RUNS = {"staleness_window_0": ({"staleness_window": 0}, None),
+                     "serial_overlap_false": ({}, False),
+                     "overlap_without_async": (None, None)}
+
+
+def overlap_watch(cls, watch):
+    """A patch of ``cls.finish_streamed_phase`` keeping each phase's
+    ``exp/overlap_*`` and ``async/*`` stats (``watch["overlap"]``)."""
+    finish = cls.finish_streamed_phase
+    watch["overlap"] = []
+
+    def finish_streamed_phase(self):
+        out = finish(self)
+        watch["overlap"].append(dict(self._last_overlap_stats))
+        return out
+
+    return [(cls, "finish_streamed_phase", finish_streamed_phase)]
+
+
+def update_watch(cls, watch):
+    """A patch of ``cls.train_step`` counting the updates
+    (``watch["updates"]``): a streamed phase runs its epoch-1 updates
+    inside the collection, whose K1 ``tile`` count their forwards join."""
+    step = cls.train_step
+    watch["updates"] = 0
+
+    def train_step(self, mb):
+        watch["updates"] += 1
+        return step(self, mb)
+
+    return [(cls, "train_step", train_step)]
+
+
+def async_phase_run(torch, config, prompts, reward, overlap=None):
+    """One streamed phase of ``config`` through the phase API, off every
+    counted path: ``begin_streamed_phase`` (plan seed ``train.seed``), the
+    orchestrator's collection, ``finish_streamed_phase``. Returns the
+    parameters (on the card), the stats rows, the KL sequence, the phase's
+    stats and the engine's weight pushes (None on the fixed sampler)."""
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils.loading import get_orchestrator, get_pipeline
+
+    trainer = PPOTrainer(config)
+    pipeline = get_pipeline("PromptPipeline")(prompts, trainer.query_length)
+    orch = get_orchestrator("PPOOrchestrator")(trainer, pipeline, reward_fn=reward,
+                                              chunk_size=config.method.chunk_size)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.begin_streamed_phase(seed=config.train.seed, overlap=overlap)
+    orch.make_experience(config.method.num_rollouts, 0)
+    n_up, rows, kl_seq = trainer.finish_streamed_phase()
+    torch.cuda.synchronize()
+    engine = trainer._rollout_engine_obj
+    out = {"params": {n: p.detach().clone() for n, p in trainer.model.state_dict().items()},
+           "rows": rows, "kl_seq": kl_seq, "n_up": n_up,
+           "stats": dict(trainer._last_overlap_stats), "wall_s": time.perf_counter() - t0,
+           "engine_weight_pushes": engine.stats.weight_pushes if engine is not None else None}
+    orch.close()
+    del trainer, orch, engine
+    torch.cuda.empty_cache()
+    return out
+
+
+def runs_equal(torch, a, b) -> dict:
+    """Parameters, the KL sequence and every stats row ``torch.equal``."""
+    import numpy as np
+
+    params = [n for n, p in a["params"].items() if not torch.equal(p, b["params"][n])]
+    rows = [k for k in a["rows"] if k not in b["rows"]
+            or not np.array_equal(a["rows"][k], b["rows"][k])]
+    return {"equal": not params and not rows and a["kl_seq"] == b["kl_seq"]
+            and a["n_up"] == b["n_up"] and set(a["rows"]) == set(b["rows"]),
+            "differing_params": params[:5], "differing_rows": rows[:5],
+            "kl_seq_equal": a["kl_seq"] == b["kl_seq"]}
+
+
+def phase_async(torch, fa):
+    """Phase 25: ``configs/ppo_async_sentiments.yml`` (the continuous
+    engine, ``async_rl`` at ``staleness_window: 1``, health, resilience)
+    from a GPT-2-small checkpoint written here: (a) as written through
+    ``trlx_tpu_torch.train``, two passes (64 updates): finite stats,
+    moved parameters, weights pushed in every phase, ``async/
+    staleness_max`` <= 1, no ``staleness-breach`` event, K1 by variant as
+    phase 10 counts it, K2 = K3 = 12 x 64 ``tile``, no ``fma`` launch,
+    input copy or plain call; (b) one pass at the yml's shapes three ways,
+    ``staleness_window: 0``, ``overlap=False`` and ``phase_overlap``
+    without async: ``torch.equal`` parameters, KL sequence and stats rows,
+    no weight push; (c) one pass of phase 5's fixed-sampler geometry
+    overlapped and serial: ``torch.equal``, epoch-1 updates run during
+    collection; (d) the ``engine.admit`` fault at the second pass's first
+    admission under async: one ``actor-dead`` event, an
+    ``ActorDeadError``, the supervisor's restart from the pass-boundary
+    checkpoint (``checkpoint_interval: 32``) and the run's end, with the
+    time to recover and the launches across both attempts. Returns ``(ok,
+    {"paths": counted paths, ...})``."""
+    import math
+    import tempfile
+
+    import numpy as np
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+    from trlx_tpu_torch.resilience import chaos
+    from trlx_tpu_torch.trainer.async_rl import ActorDeadError
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    log("phase 25: async actor-learner PPO on configs/ppo_async_sentiments.yml; deviations: "
+        + json.dumps([{"setting": k, "yml": y, "port": p, "why": why}
+                      for k, y, p, why in GPT2_RUN_DEVIATIONS]))
+    prompts, out, ok = training_prompts(), {"paths": {}}, True
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "gpt2")
+        written = write_gpt2_checkpoint(torch, ckpt, seed=25)
+
+        # (a) the yml as written
+        watch = {"decode_forwards": 0}
+        apply = PPOTrainer._apply
+
+        def counted_apply(self, input_ids, *a, **kw):
+            watch["decode_forwards"] += input_ids.shape[1] <= 16  # the engine's decode steps
+            return apply(self, input_ids, *a, **kw)
+
+        run_dir = os.path.join(tmp, "a")
+        config = yml_config(ASYNC_YML, run_dir, ckpt, ASYNC_UPDATES)
+        patches = (instrument(torch, PPOTrainer, "transformer", written, watch)
+                   + overlap_watch(PPOTrainer, watch)
+                   + [(PPOTrainer, "_apply", counted_apply)])
+        trainer, record = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
+            reward_fn=training_reward, prompts=prompts, config=config), patches)
+        gates = run_gates(torch, trainer, watch, record)
+        events = dict(trainer.health_monitor.event_counts)
+        expected = {
+            "variants": {"tile": N_LAYER * (trainer.forwards - watch["decode_forwards"]),
+                         "decode": N_LAYER * watch["decode_forwards"], "fma": 0, "copies": 0},
+            "backward": {k: {"tile": N_LAYER * ASYNC_UPDATES, "fma": 0} for k in BWD_KERNELS},
+        }
+        overlap = watch["overlap"]
+        stats_ok = (len(overlap) == 2
+                    and all(p["async/weight_pushes"] > 0 and p["async/staleness_max"] <= 1
+                            and all(math.isfinite(v) for v in p.values()) for p in overlap))
+        record.update(updates=trainer.step, phases=phase_rows(trainer), evals=watch["evals"],
+                      overlap=overlap, health_events=events, gates=gates,
+                      forwards=trainer.forwards, decode_forwards=watch["decode_forwards"],
+                      expected=expected, async_config=vars(trainer.async_config),
+                      engine=trainer.rollout_engine_obj.stats.to_dict())
+        a_ok = (
+            trainer.step == ASYNC_UPDATES and len(watch["rows"]) == 2 and stats_ok
+            and trainer.async_config.enabled and trainer.async_config.staleness_window == 1
+            and all(v for k, v in gates.items() if k != "params_changed")
+            and gates["params_changed"] > 0 and "staleness-breach" not in events
+            and record["flash_fwd_variants"] == expected["variants"]
+            and record["backward_variants"] == expected["backward"])
+        log("phase 25: (a) async yml " + json.dumps(record))
+        log(f"phase 25: (a) async yml {'ok' if a_ok else 'FAIL'} (updates={trainer.step}, "
+            f"gates {gates}, per phase async/exp stats {overlap}, health events {events}, "
+            f"phases {record['phases']}, K1 by variant {record['flash_fwd_variants']} vs "
+            f"{expected['variants']}, K2/K3 by variant {record['backward_variants']} vs "
+            f"{expected['backward']})")
+        out["paths"]["async_yml"], out["a"], ok = record, record, ok and a_ok
+        del trainer
+        torch.cuda.empty_cache()
+
+        # (b) one pass at the yml's shapes, three ways
+        runs = {}
+        for name, (async_rl, overlap_arg) in ASYNC_PARITY_RUNS.items():
+            cfg = yml_config(ASYNC_YML, os.path.join(tmp, "b_" + name), ckpt, ASYNC_PASS)
+            section = cfg.train.training["async_rl"]
+            cfg.train.training["async_rl"] = (
+                {"enabled": False} if async_rl is None else dict(section, **async_rl))
+            runs[name] = async_phase_run(torch, cfg, prompts, training_reward, overlap_arg)
+        base = runs["staleness_window_0"]
+        compare = {n: runs_equal(torch, base, r) for n, r in runs.items() if r is not base}
+        pushes = {n: [r["engine_weight_pushes"], r["stats"].get("async/weight_pushes")]
+                  for n, r in runs.items()}
+        b_ok = (all(c["equal"] for c in compare.values())
+                and all(p[0] == 0 and p[1] in (0.0, None) for p in pushes.values())
+                and base["n_up"] == ASYNC_PASS
+                and runs["overlap_without_async"]["stats"]["exp/overlap_streamed_updates"] > 0)
+        b_record = {"compare_to_staleness_window_0": compare, "weight_pushes": pushes,
+                    "stats": {n: r["stats"] for n, r in runs.items()},
+                    "wall_s": {n: r["wall_s"] for n, r in runs.items()}}
+        log(f"phase 25: (b) serial parity {'ok' if b_ok else 'FAIL'} " + json.dumps(b_record))
+        out["b"], ok = b_record, ok and b_ok
+        del runs, base
+
+        # (c) phase 5's fixed sampler, overlapped against serial
+        runs = {name: async_phase_run(torch, training_config(
+                    os.path.join(tmp, "c_" + name), total_steps=ASYNC_PASS),
+                    prompts, training_reward, overlap_arg)
+                for name, overlap_arg in (("overlapped", None), ("serial", False))}
+        c_compare = runs_equal(torch, runs["overlapped"], runs["serial"])
+        streamed = runs["overlapped"]["stats"]["exp/overlap_streamed_updates"]
+        c_ok = (c_compare["equal"] and streamed > 0
+                and runs["serial"]["stats"]["exp/overlap_streamed_updates"] == 0)
+        c_record = {"compare": c_compare, "stats": {n: r["stats"] for n, r in runs.items()},
+                    "wall_s": {n: r["wall_s"] for n, r in runs.items()}}
+        log(f"phase 25: (c) fixed sampler overlap {'ok' if c_ok else 'FAIL'} "
+            + json.dumps(c_record))
+        out["c"], ok = c_record, ok and c_ok
+        del runs
+
+        # (d) a dead actor at the second pass's first admission
+        deaths, collect, dead = [], PPOTrainer._collect_phase, PPOOrchestrator._actor_dead
+
+        def arming_collect(self, iter_count, seed):
+            if iter_count == ASYNC_PASS and not deaths:
+                chaos.configure([{"site": "engine.admit", "mode": "error", "count": 1}])
+            return collect(self, iter_count, seed)
+
+        def actor_dead(self, error, iter_count):
+            tr = self.trainer
+            try:
+                dead(self, error, iter_count)
+            except ActorDeadError as e:
+                deaths.append({"error": repr(e)[:200], "iter_count": iter_count,
+                               "events": dict(tr.health_monitor.event_counts),
+                               "engine": tr.rollout_engine, "forwards": tr.forwards,
+                               "step": tr.step, "at": time.perf_counter()})
+                raise
+
+        d_config = yml_config(ASYNC_YML, os.path.join(tmp, "d"), ckpt, ASYNC_UPDATES, train={
+            "checkpoint_interval": ASYNC_PASS,  # the restart's checkpoint, at the boundary
+            "health": {"enabled": True, "dump_dir": os.path.join(tmp, "d_dumps")}})
+        resumed, d_rec, line = supervised_path(
+            torch, fa, PPOTrainer, lambda: trlx_tpu_torch.train(
+                reward_fn=training_reward, prompts=prompts, config=d_config),
+            extra_patches=[(PPOTrainer, "_collect_phase", arming_collect),
+                           (PPOOrchestrator, "_actor_dead", actor_dead)])
+        chaos.clear()
+        done = isinstance(resumed, PPOTrainer) and len(deaths) == 1
+        d_record = {"updates": getattr(resumed, "step", None), "deaths": deaths,
+                    "error": None if isinstance(resumed, PPOTrainer) else repr(resumed),
+                    "attempts": attempts_summary(line), "wall_s": d_rec["wall_s"]}
+        if done:
+            death = deaths[0]
+            forwards = death["forwards"] + resumed.forwards
+            expected = {"flash_fwd": N_LAYER * forwards, "flash_bwd_dq": N_LAYER * ASYNC_UPDATES,
+                        "flash_bwd_dkv": N_LAYER * ASYNC_UPDATES}
+            got = {k: d_rec["launches"][k] for k in expected}
+            bwd = {k: {"tile": N_LAYER * ASYNC_UPDATES, "fma": 0} for k in BWD_KERNELS}
+            load_start, load_end = line["loads"][0] if line["loads"] else (None, None)
+            first = line["first_update_after_load"]
+            d_record.update(
+                launches=got, expected_launches=expected,
+                # from the failure to the resumed attempt's first update
+                time_to_recover_s=(first - death["at"]) if first else None,
+                restart_s=line["attempts"][1]["start"] - line["attempts"][0]["end"],
+                load_s=(load_end - load_start) if line["loads"] else None,
+                collect_before_first_update_s=(first - load_end) if first and load_end
+                else None)
+            out["paths"]["async_dead_actor"] = d_rec
+            # the detectors may trip on random weights too (a kl-spike):
+            # the gate is the one actor-dead event
+            done = (resumed.step == ASYNC_UPDATES and death["events"].get("actor-dead") == 1
+                    and death["engine"] == "continuous" and death["step"] == ASYNC_PASS
+                    and len(line["attempts"]) == 2 and line["attempts"][1]["resume"]
+                    and bool(line["loads"]) and got == expected
+                    and d_rec["backward_variants"] == bwd
+                    and d_rec["flash_fwd_variants"]["fma"] == 0
+                    and d_rec["flash_fwd_variants"]["copies"] == 0
+                    and d_rec["backward_copies"] == 0 and d_rec["plain_attention_calls"] == 0
+                    and resumed.rollout_engine == "continuous")
+        log(f"phase 25: (d) dead actor {'ok' if done else 'FAIL'} "
+            + json.dumps(d_record, default=str))
+        out["d"], ok = d_record, ok and done
+        del resumed
+        torch.cuda.empty_cache()
+    log(f"phase 25: async rl {'ok' if ok else 'FAIL'} (a {a_ok}, b {b_ok}, c {c_ok}, "
+        f"d {done})")
+    return bool(ok), out
+
+
 def int8_kernel_entries(kv, bench) -> list:
     """The ``kernels`` line's entries of the int8 cache's two kernels: the
     serving decode shape's times at the top, the rollout decode's beside
@@ -8120,6 +8438,7 @@ def main() -> int:
     moe_ok, moe = timed_phase("22 gpt2_moe", phase_moe, torch, fa)
     kv_int8_ok, kv_int8 = timed_phase("23 kv int8", phase_kv_int8, torch, fa, attn)
     resilience_ok, resilience = timed_phase("24 resilience", phase_resilience, torch, fa)
+    async_ok, async_rl = timed_phase("25 async rl", phase_async, torch, fa)
     # the small head dims' paths (phases 16 to 18), each counted on its own
     small_paths = {24: {**rw, "randomwalks_ilql": rw_ilql},
                    32: {n: standins[n] for n in ("standin_gpt2_ppo", "standin_gpt2_ppo_bf16",
@@ -8146,7 +8465,9 @@ def main() -> int:
                  # the block wrappers), each counted on its own
                  **ring["paths"],
                  # phase 24's resumed runs, each across both of its attempts
-                 **resilience["paths"]}
+                 **resilience["paths"],
+                 # phase 25's yml run and its dead-actor run (both attempts)
+                 **async_rl["paths"]}
     if args.profile:
         timed_phase("profile", profile_paths, torch, args.profile)
 
@@ -8292,7 +8613,7 @@ def main() -> int:
               ("randomwalks_ilql", rw_ilql_ok), ("standins_and_guard", standins_ok),
               ("neo_serving", neo_serving_ok), ("neo_training", neo_training_ok),
               ("ring_attention", ring_ok), ("gpt2_moe", moe_ok), ("kv_int8", kv_int8_ok),
-              ("resilience", resilience_ok))
+              ("resilience", resilience_ok), ("async_rl", async_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

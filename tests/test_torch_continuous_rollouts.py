@@ -22,10 +22,11 @@ continuous``), held three ways on tiny f32 GPT-2 policies:
   ``rollout.spec_decode``): the same checks, and the chunk and verify
   counters of the collection equal.
 
-Each feature on its own is accepted and runs a collection. And the
-refusals: grouped sampling, seq2seq, ILQL and async RL under the
-continuous engine, ``prefill_chunks_per_pump`` without chunking and
-``spec_decode`` under the fixed engine.
+Each feature on its own is accepted and runs a collection, and the engine
+trainer builds with ``async_rl`` and ``async_checkpoint``. And the
+refusals: grouped sampling, seq2seq and ILQL under the continuous engine,
+``prefill_chunks_per_pump`` without chunking and ``spec_decode`` under the
+fixed engine.
 """
 
 import jax
@@ -315,10 +316,10 @@ REFUSALS = {
                          "grouped"),
     "grpo": ("GRPOTrainer", {"method": {"name": "GRPOConfig", "group_size": 2,
                                         "vf_coef": 0.0}}, NotImplementedError, "grouped"),
-    "async_rl": ("PPOTrainer", {"train": {"async_rl": {"enabled": True}}}, NotImplementedError,
-                 "async_rl"),
-    # refused until the asynchronous checkpoint write (ROADMAP item 8)
-    # landed: error None, the engine trainer builds with it
+    # refused until the asynchronous actor-learner (ROADMAP item 17) and the
+    # asynchronous checkpoint write (item 8) landed: error None, the engine
+    # trainer builds with them
+    "async_rl": ("PPOTrainer", {"train": {"async_rl": {"enabled": True}}}, None, None),
     "async_checkpoint": ("PPOTrainer", {"train": {"async_checkpoint": True}}, None, None),
     "telemetry": ("PPOTrainer", {"train": {"telemetry": {"ring_size": 1024}}},
                   NotImplementedError, "telemetry"),
@@ -343,7 +344,9 @@ def test_refusals(tmp_path, name):
     if error is None:
         built = get_trainer(trainer)(TRLConfig.from_dict(cfg), device="cpu")
         assert built.rollout_engine == "continuous"
-        assert built.config.train.training["async_checkpoint"] is True
+        for key, value in overrides["train"].items():
+            assert built.config.train.training[key] == value, key
+        assert built.async_config.enabled == (name == "async_rl")
         return
     with pytest.raises(error, match=match):
         get_trainer(trainer)(TRLConfig.from_dict(cfg), device="cpu")

@@ -555,10 +555,10 @@ def _numpy(tree):
     return jax.tree_util.tree_map(np.asarray, jax.device_get(tree))
 
 
-def _train_port(cfg: dict, offline: bool, attempts: list, configs=None):
+def _train_port(cfg: dict, offline: bool, attempts: list, configs=None, prompts=None):
     """``trlx_tpu_torch.train`` on the CPU; ``attempts`` gets the resume
     flag of each attempt the supervisor runs, ``configs`` (when given) the
-    ``TRLConfig`` the caller passed."""
+    ``TRLConfig`` the caller passed; ``prompts`` replace the canaries'."""
     import trlx_tpu_torch
     from trlx_tpu_torch import api
     from trlx_tpu_torch.data.configs import TRLConfig
@@ -576,7 +576,8 @@ def _train_port(cfg: dict, offline: bool, attempts: list, configs=None):
         if offline:
             trainer = trlx_tpu_torch.train(dataset=_dataset(), config=config, device="cpu")
         else:
-            trainer = trlx_tpu_torch.train(reward_fn=_reward, prompts=_prompts(),
+            trainer = trlx_tpu_torch.train(reward_fn=_reward,
+                                           prompts=prompts or _prompts(),
                                            config=config, device="cpu")
     finally:
         api.run_supervised = supervised
@@ -750,20 +751,71 @@ def test_finished_run_resumes_without_collecting(canaries):
             assert torch.equal(t, want[key]), key
 
 
-def test_async_sentiments_yml_is_refused_only_for_async_rl():
-    """``configs/ppo_async_sentiments.yml`` turns on ``async_rl``,
-    ``health`` and ``resilience``: only ``async_rl`` (ROADMAP item 17) is
-    still refused."""
+def test_async_sentiments_yml_is_refused_only_for_async_rl(tmp_path):
+    """``configs/ppo_async_sentiments.yml`` (``async_rl`` at
+    ``staleness_window: 1`` on the continuous engine, ``health``,
+    ``resilience``), once refused for ``async_rl`` alone, runs through
+    ``trlx_tpu_torch.train`` on the CPU under the supervisor: its model a
+    local HF-layout GPT-2 checkpoint at a tiny width (GPT-2's vocabulary
+    kept: the yml's ids are GPT-2's), cut to one pass of 32 rollouts (8
+    updates) of 8 new tokens (its ``min_new_tokens`` = ``max_new_tokens``
+    kept equal) after 8-token prompts, without a tokenizer: 32 rollouts
+    fill the 16 slots twice, so the first minibatch trains while rows are
+    still queued, and its update is pushed. One injected ``engine.admit``
+    failure kills the first attempt's actor: an ``ActorDeadError``, which
+    the supervisor retries from scratch (no checkpoint yet); the second
+    attempt trains with weights pushed mid-phase and no staleness
+    breach."""
+    import chip_smoke
     from trlx_tpu_torch.data.configs import TRLConfig
-    from trlx_tpu_torch.trainer import refuse_unported
+    from trlx_tpu_torch.models.gpt2 import GPT2Config, GPT2Model
+    from trlx_tpu_torch.trainer import ppo_trainer as tppo
+    from trlx_tpu_torch.trainer.async_rl import ActorDeadError
 
+    hf = dict(chip_smoke.GPT2_HF_CONFIG, n_positions=128, n_embd=16, n_layer=2, n_head=2)
+    backbone = GPT2Model(GPT2Config.from_dict(hf), device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        for p in backbone.parameters():
+            p.normal_(0.0, 0.02, generator=gen)
+    chip_smoke.write_hf_checkpoint(str(tmp_path / "gpt2_tiny"), hf,
+                                   chip_smoke.gpt2_hf_layout(backbone.state_dict()))
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    config = TRLConfig.load_yaml(os.path.join(root, "configs", "ppo_async_sentiments.yml"))
-    assert config.train.resilience["enabled"] and config.train.training["health"]["enabled"]
-    with pytest.raises(NotImplementedError, match=r"train\.async_rl=.*item 17"):
-        refuse_unported(config)
-    config.train.training["async_rl"] = {"enabled": False}
-    refuse_unported(config)
+    cfg = TRLConfig.load_yaml(os.path.join(root, "configs", "ppo_async_sentiments.yml")).to_dict()
+    assert cfg["train"]["async_rl"] == {"enabled": True, "staleness_window": 1,
+                                        "actor_fraction": 1.0}
+    cfg["model"].update(model_path=str(tmp_path / "gpt2_tiny"), tokenizer_path="")
+    cfg["method"]["num_rollouts"] = 32
+    cfg["method"]["gen_kwargs"].update(max_new_tokens=8, min_new_tokens=8)
+    cfg["train"].update(seq_length=8, total_steps=8, checkpoint_dir=str(tmp_path / "ckpt"))
+    cfg["train"]["resilience"] = dict(
+        cfg["train"]["resilience"],
+        chaos=[{"site": "engine.admit", "mode": "error", "count": 1}])
+    failures, finished = [], []
+    with pytest.MonkeyPatch.context() as mp:
+        learn = tppo.PPOTrainer.learn
+
+        def recorded(self):
+            try:
+                out = learn(self)
+            except ActorDeadError:
+                failures.append(dict(self.health_monitor.event_counts))
+                raise
+            finished.append(dict(self._last_overlap_stats))
+            return out
+
+        mp.setattr(tppo.PPOTrainer, "learn", recorded)
+        attempts = []
+        prompts = [[int(t) for t in np.random.default_rng(i).integers(1, 50000, size=8)]
+                   for i in range(32)]
+        trainer = _train_port(cfg, False, attempts, prompts=prompts)
+    assert attempts == [False, False]  # the first attempt died before any save
+    assert failures == [{"actor-dead": 1}]
+    assert trainer.step == 8 and trainer.rollout_engine == "continuous"
+    stats = finished[-1]
+    assert stats["async/weight_pushes"] > 0 and 0 < stats["async/staleness_max"] <= 1
+    assert not trainer.health_monitor.event_counts.get("staleness-breach")
+    assert all(torch.isfinite(p).all() for p in trainer.model.parameters())
 
 
 def test_supervised_train_keeps_cuda_as_the_default_device(tmp_path):

@@ -142,18 +142,21 @@ def test_a_server_from_a_trained_checkpoint_serves_the_rollout_copy(tmp_path):
 
 def test_one_copy_per_collect_and_a_fresh_one_after_load(tmp_path):
     trainer = port_trainer(_config(tmp_path, "gpt2", train={"epochs": 2, "total_steps": 8}))
-    steps = []
+    made_at = {}  # copy count -> the update count when it was first served
     rollout_model = trainer.rollout_model
 
     def recorded():
-        steps.append(trainer.step)
-        return rollout_model()
+        model = rollout_model()
+        made_at.setdefault(trainer.rollout_cast_refreshes, trainer.step)
+        return model
 
     trainer.rollout_model = recorded
     trainer.learn()
-    # two collects (steps 0 and 4), the step-0 eval reuses the first copy,
-    # the final eval (step 8) makes a third: one copy per set of masters
-    assert sorted(set(steps)) == [0, 4, 8] and trainer.step == 8
+    # two collects (steps 0 and 4), each a streamed phase whose behaviour
+    # snapshot is its one cast copy (the step-0 eval reuses the first, and
+    # the epoch-1 updates run beside it), and the final eval (step 8)
+    # makes a third: one copy per set of masters
+    assert made_at == {1: 0, 2: 4, 3: 8} and trainer.step == 8
     assert trainer.rollout_cast_refreshes == 3
     copy_before = trainer._rollout_module
     trainer.load(trainer.config.train.checkpoint_dir)

@@ -33,13 +33,24 @@ Where the JAX package jits donated-state programs, the port runs eager
 PyTorch and updates :class:`EngineState`'s tensors in place. Admission
 prefill runs over the admitted rows only (no dummy rows — eager PyTorch
 has no fixed program shape to keep) and writes their K/V straight into
-their slots of the pool. Weight pushes (ROADMAP item 17) and request
-tracing (item 19) are not ported yet.
+their slots of the pool.
+
+Weight pushes (the asynchronous actor-learner,
+:mod:`trlx_tpu_torch.trainer.async_rl`): :meth:`ContinuousBatchingEngine.push_weights`
+stages a ``(policy, version)`` pair, which the host loop applies only at a
+safe point: before an admission group begins, never while one is
+mid-prefill. Rows already decoding go on under the new policy (their
+recorded logprobs stay the true behaviour logprobs); each row is tagged
+with the version it was admitted under, and each harvest group carries
+those tags (``versions``). :meth:`~ContinuousBatchingEngine.min_inflight_version`
+reads the oldest version any unharvested row will carry. Request tracing
+(ROADMAP item 19) is not ported yet.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Any, Callable, Dict, Iterator, List, Optional, Set, Tuple
 
 import numpy as np
@@ -60,7 +71,7 @@ from trlx_tpu_torch.ops.sampling import (
     choose_tokens,
     row_noise,
 )
-from trlx_tpu_torch.utils import monotonic, resolve_device
+from trlx_tpu_torch.utils import monotonic, resolve_device, sched_points
 
 
 @dataclasses.dataclass
@@ -97,6 +108,7 @@ class EngineStats:
     occupancy_sum: int = 0  # sum over steps of busy slots
     num_slots: int = 0
     done_polls: int = 0  # [B]-bool device->host fetches
+    weight_pushes: int = 0  # staged policies applied at a safe point
     released: int = 0  # placeholder rows force-finished on admission
     # chunked prefill: chunk forwards RUN (the finish chunk included),
     # prompt columns whose forward was skipped, and the dot-FLOPs those
@@ -160,6 +172,7 @@ class EngineStats:
             "engine/slot_recycles": float(self.recycles),
             "engine/slot_util": round(self.slot_util, 4),
             "engine/done_polls": float(self.done_polls),
+            "engine/weight_pushes": float(self.weight_pushes),
             "engine/released": float(self.released),
             "engine/prefill_chunks": float(self.prefill_chunks),
             "engine/prefill_cols_skipped": float(self.prefill_cols_skipped),
@@ -195,7 +208,9 @@ class ContinuousBatchingEngine:
     :param apply_fn: the model forward ``apply_fn(input_ids,
         attention_mask, position_ids, cache, cache_index[, last_only,
         skip_heads]) -> {"logits", "values"}`` (a
-        :class:`CausalLMWithValueHead`).
+        :class:`CausalLMWithValueHead`). Once a weight push has been
+        applied, every call also passes ``params=`` the pushed policy
+        module.
     :param init_cache_fn: ``(batch, capacity, extra_positions=) -> linear
         KV buffers`` (the family's ``init_cache``); the engine asks for one
         extra position per slot (the discard sentinel), the cache dtype
@@ -342,6 +357,16 @@ class ContinuousBatchingEngine:
         self._steps_since_poll = 0
         self._awaiting_first: Set[int] = set()
         self._gen = torch.Generator(device=self.device)
+        # behaviour-policy versions (the asynchronous actor-learner): the
+        # policy the forwards run (None: apply_fn's own), its version, the
+        # version each slot's occupant was admitted under, and the staged
+        # (policy, version) pair, one reference swapped under _push_lock
+        # so that it is never seen torn
+        self._params = None
+        self.param_version = 0
+        self._slot_versions = np.zeros(self.num_slots, np.int64)
+        self._pending_push: Optional[Tuple[Any, int]] = None
+        self._push_lock = threading.Lock()
         #: host callback fired with the admitted rows' draw indices after a
         #: group's last prefill launch: the server marks newly published
         #: prefix blocks ready here (the engine's one stream orders those
@@ -422,6 +447,12 @@ class ContinuousBatchingEngine:
 
     # ---------------------------- device work --------------------------- #
 
+    def _forward(self, *args, **kwargs):
+        """``apply_fn`` under the applied weight push, if any."""
+        if self._params is not None:
+            kwargs["params"] = self._params
+        return self._apply_fn(*args, **kwargs)
+
     def _slice_group_cache(self, adm) -> List[Dict[str, torch.Tensor]]:
         """The admitted slots' cache: the whole pool addressed through the
         group's freshly rotated tables and slot rows (plus the group's
@@ -478,7 +509,7 @@ class ContinuousBatchingEngine:
         the fresh tables into their slots, and seed the slots."""
         A, R = adm["ids"].shape[0], self.R
         mask = adm["mask"]
-        out = self._apply_fn(
+        out = self._forward(
             adm["ids"],
             attention_mask=torch.cat([mask, mask.new_zeros(A, R)], dim=1),
             position_ids=adm["positions"],
@@ -498,7 +529,7 @@ class ContinuousBatchingEngine:
         cache = self._slice_group_cache(adm)
         for c in chunks:
             cols = slice(c * W, (c + 1) * W)
-            self._apply_fn(
+            self._forward(
                 adm["ids"][:, cols],
                 attention_mask=adm["mask"],  # Q-wide view
                 position_ids=adm["positions"][:, cols],
@@ -513,7 +544,7 @@ class ContinuousBatchingEngine:
         column lives there): its last-position logits and values seed the
         slots."""
         off = self.Q - self.prefill_chunk
-        out = self._apply_fn(
+        out = self._forward(
             adm["ids"][:, off:],
             attention_mask=adm["mask"],  # Q-wide view
             position_ids=adm["positions"][:, off:],
@@ -555,7 +586,7 @@ class ContinuousBatchingEngine:
         cache_mask = (slot_pos <= Q + st.t[:, None]).long() * torch.cat(
             [st.query_mask, st.query_mask.new_ones(B, R)], dim=1
         )
-        out = self._apply_fn(
+        out = self._forward(
             token.long()[:, None],
             attention_mask=cache_mask,
             position_ids=(st.n_real + st.t)[:, None],
@@ -610,7 +641,7 @@ class ContinuousBatchingEngine:
         cache_mask = (slot_pos <= Q + st.t[:, None] + D).long() * torch.cat(
             [st.query_mask, st.query_mask.new_ones(B, R)], dim=1
         )
-        out = self._apply_fn(
+        out = self._forward(
             inputs,
             attention_mask=cache_mask,
             position_ids=(st.n_real + st.t)[:, None] + col,
@@ -690,8 +721,13 @@ class ContinuousBatchingEngine:
 
     def start_phase(self, seed: int, row_start: int = 0) -> None:
         """Reset the pool for a new phase; ``seed`` seeds the per-row
-        sampling noise, ``row_start`` offsets the global draw index."""
+        sampling noise, ``row_start`` offsets the global draw index. The
+        phase starts on ``apply_fn``'s own policy at version 0; a pushed
+        or staged policy is dropped."""
         self._phase_seed = int(seed)
+        self.drop_weights()
+        self.param_version = 0
+        self._slot_versions[:] = 0
         self._state = self.init_state()
         self._queue = []
         self._free = list(range(self.num_slots))
@@ -708,6 +744,56 @@ class ContinuousBatchingEngine:
         self._awaiting_first = set()
         self.stats = EngineStats(num_slots=self.num_slots)
         self._req_times = {}
+
+    def push_weights(self, params, version: Optional[int] = None) -> None:
+        """Stage a refreshed behaviour policy (a module that owns its
+        tensors: the learner goes on updating its masters) tagged
+        ``version`` (default: the current one plus 1). The swap happens at
+        the host loop's next safe point, never here, so a push that lands
+        between a harvest and its refill cannot disturb the queued
+        admission group. Pushes before the safe point coalesce: only the
+        newest is applied. The staged pair is written as one reference
+        under the push lock."""
+        sched_points.yield_point("engine.push")
+        with sched_points.guard(self._push_lock, "engine.push_lock"):
+            self._pending_push = (
+                params, int(version) if version is not None else self.param_version + 1
+            )
+
+    def _apply_pending_push(self) -> None:
+        """The safe point: apply a staged push (the drafts staged for the
+        next verify step are dropped: its targets come from the new
+        policy)."""
+        sched_points.yield_point("engine.safe_point")
+        with sched_points.guard(self._push_lock, "engine.push_lock"):
+            staged, self._pending_push = self._pending_push, None
+            if staged is None:
+                return
+            self._params, self.param_version = staged
+        self._staged_drafts = None
+        self.stats.weight_pushes += 1
+
+    def drop_weights(self) -> None:
+        """Forget the applied and the staged push (the learner closed or
+        abandoned its phase): ``apply_fn``'s own policy serves again and
+        the pushed copies can be freed."""
+        with sched_points.guard(self._push_lock, "engine.push_lock"):
+            self._pending_push = None
+        self._params = None
+
+    def min_inflight_version(self) -> Optional[int]:
+        """The oldest behaviour version any not-yet-harvested row will
+        carry: the admission versions of the occupied slots (decoding or
+        awaiting harvest) and, while prompts are queued, the version they
+        will be admitted under (a staged push's, else the current one).
+        ``None`` when nothing is in flight."""
+        with sched_points.guard(self._push_lock, "engine.push_lock"):
+            staged = self._pending_push
+            current = self.param_version
+        versions = [int(self._slot_versions[s]) for s in self._busy_rows]
+        if self._queue:
+            versions.append(staged[1] if staged is not None else current)
+        return min(versions) if versions else None
 
     def submit(self, prompt_ids, prompt_mask, *, shared_maps=None, publish_maps=None,
                release: bool = False, submit_times=None) -> List[int]:
@@ -830,6 +916,7 @@ class ContinuousBatchingEngine:
             zip(slots, entries)
         ):
             self._busy_rows[slot] = row
+            self._slot_versions[slot] = self.param_version
             if release:
                 released_slots.append(slot)
             if sh_row is not None:
@@ -970,6 +1057,9 @@ class ContinuousBatchingEngine:
         remaining = budget
         while remaining > 0:
             if self._inflight_admission is None:
+                # a staged push applies only between groups: a group's
+                # whole prefill runs under one version
+                self._apply_pending_push()
                 if not (self._free and self._queue):
                     return
                 self._begin_admission()
@@ -986,6 +1076,7 @@ class ContinuousBatchingEngine:
             self._done_slots = self._done_slots[C:]
             outs = self.refill(slots)
             rows = [self._busy_rows.pop(s) for s in slots]
+            versions = [int(self._slot_versions[s]) for s in slots]
             t_done = monotonic()
             for r in rows:
                 marks = self._req_times.get(r)
@@ -1001,6 +1092,7 @@ class ContinuousBatchingEngine:
             self.stats.recycles += C
             self.stats.completed += C
             outs["rows"] = rows  # host-side draw indices, harvest order
+            outs["versions"] = versions  # each row's admission version
             yield outs
 
     def drive(self, target: int) -> Iterator[Dict[str, Any]]:
@@ -1024,6 +1116,11 @@ class ContinuousBatchingEngine:
                 yielded += len(group["rows"])
                 if yielded >= target:
                     return
+            # the safe point for a staged push: harvest bookkeeping is
+            # settled, the queued group is about to prefill (never while a
+            # group is mid-prefill: its chunks run under one version)
+            if self._inflight_admission is None:
+                self._apply_pending_push()
             self._admit()
             if not self._busy_rows:
                 raise RuntimeError(
@@ -1041,6 +1138,8 @@ class ContinuousBatchingEngine:
         if self.prefill_chunks_per_pump > 0:
             self._pump_admission(self.prefill_chunks_per_pump)
         else:
+            if self._inflight_admission is None:
+                self._apply_pending_push()
             self._admit()
         if self._busy_rows:
             self._step_once()

@@ -12,9 +12,19 @@ queries, response_gt)``, scale and clip the scores, shape the rewards
 Chunks run one after another. On the continuous engine
 (``train.rollout.engine: continuous``), the phase's prompts are submitted
 up front and each harvest group goes through the same steps as it
-completes: rows land in harvest order. A failure on the engine path
-degrades to the fixed sampler for the rest of the run, with an
-``engine-fallback`` health event and the phase collected again.
+completes: rows land in harvest order, tagged with the behaviour-policy
+version each was admitted under. After every landing, on both paths,
+``trainer.on_rollouts_landed()`` lets an open streamed phase run the
+epoch-1 minibatches whose rows now exist.
+
+A failure on the engine path degrades to the fixed sampler for the rest
+of the run, with an ``engine-fallback`` health event and the phase begun
+again (a streamed phase with the same plan seed). Under ``train.async_rl``
+an engine-layer failure (the engine's own call raised, which
+``_engine_step`` marks) is a dead actor instead: an ``actor-dead`` health
+event and :class:`~trlx_tpu_torch.trainer.async_rl.ActorDeadError`, which
+the supervisor retries; a learner-side or reward-function error
+propagates as itself.
 
 The collect stats row feeds the trainer's run-health detectors
 (``exp/score_std`` is the reward-saturation series).
@@ -29,8 +39,9 @@ its error) and stopped by :meth:`PPOOrchestrator.close`.
 from __future__ import annotations
 
 import os
+import sys
 import time
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -83,6 +94,20 @@ class PPOOrchestrator:
             from trlx_tpu_torch.utils.async_writer import BackgroundJSONLWriter
 
             self._rollout_writer = BackgroundJSONLWriter()
+        # the engine call that raised (set by _engine_step): tells a dead
+        # actor from a learner-side error raised in the same loop
+        self._engine_error: Optional[BaseException] = None
+
+    def _engine_step(self, fn, *args, **kwargs):
+        """One engine call (start_phase, submit, the next harvest group),
+        its failure marked as the engine's."""
+        try:
+            return fn(*args, **kwargs)
+        except StopIteration:
+            raise
+        except BaseException as e:
+            self._engine_error = e
+            raise
 
     def close(self, reraise: bool = True) -> None:
         """Stop the rollout writer, draining what is queued; a write error
@@ -197,22 +222,52 @@ class PPOOrchestrator:
                 from trlx_tpu_torch.resilience.preemption import PreemptionDrain
                 from trlx_tpu_torch.telemetry.health import HealthAbort
 
+                engine_failed, self._engine_error = self._engine_error is e, None
                 if isinstance(e, (HealthAbort, PreemptionDrain)):
                     raise  # policy decisions, not engine failures
+                async_cfg = getattr(self.trainer, "async_config", None)
+                if async_cfg is not None and async_cfg.enabled:
+                    # a dead actor goes to the supervisor, never to the
+                    # fixed sampler (which would change the run's whole
+                    # schedule); any other error propagates as itself, so
+                    # that a deterministic reward bug is not retried
+                    if engine_failed:
+                        self._actor_dead(e, iter_count)
+                    raise
                 self._degrade_engine(e, iter_count)
         return self._make_experience_fixed(num_rollouts, iter_count)
+
+    def _actor_dead(self, error: BaseException, iter_count: int) -> None:
+        """The async engine failed: emit an ``actor-dead`` health event and
+        raise :class:`~trlx_tpu_torch.trainer.async_rl.ActorDeadError`
+        (retriable: the supervisor restarts from the last checkpoint with
+        a fresh engine). The trainer aborts the open streamed phase as the
+        error unwinds through ``_collect_phase``."""
+        from trlx_tpu_torch.trainer.async_rl import ActorDeadError
+
+        tr = self.trainer
+        print(f"resilience: async actor died mid-phase ({type(error).__name__}: {error}); "
+              "raising for the supervisor (restart from the last good checkpoint)",
+              file=sys.stderr)
+        tr.emit_health_event(
+            detector="actor-dead", severity="error", series="async",
+            message=(f"async actor (continuous engine) died mid-phase "
+                     f"({type(error).__name__}: {error}); supervisor restart requested"),
+            step=iter_count, phase=tr.health_phase_id,
+        )
+        raise ActorDeadError(
+            f"async actor died mid-phase at iteration {iter_count} "
+            f"({type(error).__name__}: {error})"
+        ) from error
 
     def _degrade_engine(self, error: BaseException, iter_count: int) -> None:
         """Fall back from the continuous engine to the fixed sampler for
         the rest of the run: switch the trainer's engine, emit an
         ``engine-fallback`` health event (warning severity: degrading is
-        the alternative to the abort policy, never its trigger), and start
-        the phase's collection again, since rows the failed engine landed
-        cannot fill the phase's plan. (Under ``async_rl`` the JAX package
-        raises an ``actor-dead`` event for its supervisor instead: ROADMAP
-        item 17.)"""
-        import sys
-
+        the alternative to the abort policy, never its trigger), and begin
+        the phase again, since rows the failed engine landed cannot fill
+        its plan: an open streamed phase is aborted and begun again with
+        the same plan seed (its epoch-1 updates already run stay)."""
         tr = self.trainer
         print(f"resilience: continuous rollout engine failed ({type(error).__name__}: "
               f"{error}); falling back to the fixed sampler for the rest of the run",
@@ -223,10 +278,14 @@ class PPOOrchestrator:
             detector="engine-fallback", severity="warning", series="engine",
             message=(f"continuous rollout engine failed ({type(error).__name__}: {error}); "
                      "degraded to the fixed sampler"),
-            step=iter_count, phase=tr._phase_index,
+            step=iter_count, phase=tr.health_phase_id,
         )
-        tr.buffer.clear_history()
-        tr.reset_rollout_phase()
+        if getattr(tr, "_stream", None) is not None:
+            tr.abort_streamed_phase()
+            tr.begin_streamed_phase(seed=tr._last_stream_seed)
+        else:
+            tr.buffer.clear_history()
+            tr.reset_rollout_phase()
 
     def _make_experience_fixed(self, num_rollouts: int, iter_count: int) -> Dict[str, float]:
         tr = self.trainer
@@ -268,6 +327,7 @@ class PPOOrchestrator:
                 rewards=rewards,
             ))
             collected += len(batch)
+            tr.on_rollouts_landed()
         return self._finish_collect_stats(
             t0, collected, all_scores, generate_time, score_time, iter_count
         )
@@ -289,10 +349,11 @@ class PPOOrchestrator:
         target = -(-int(num_rollouts) // Hw) * Hw
         have_gt = self.pipeline.response_gt is not None
         meta_by_row = {}
-        engine.start_phase(tr.rollout_phase_seed())
+        self._engine_step(engine.start_phase, tr.rollout_phase_seed())
         while engine.pending + engine.stats.completed < target:
             batch, meta = self._expand_groups(*self._draw())
-            rows = engine.submit(batch.input_ids.numpy(), batch.attention_mask.numpy())
+            rows = self._engine_step(
+                engine.submit, batch.input_ids.numpy(), batch.attention_mask.numpy())
             q_dtype = batch.input_ids.dtype  # the fixed path's query dtype
             for i, r in enumerate(rows):
                 meta_by_row[r] = (meta["prompts_text"][i],
@@ -302,7 +363,14 @@ class PPOOrchestrator:
         dtypes = {"query_tokens": q_dtype, "query_mask": q_dtype, "tokens": torch.int32,
                   "response_mask": torch.int32, "logprobs": torch.float32,
                   "values": torch.float32}
-        for group in engine.drive(target):
+        # harvest groups pulled through _engine_step, so that the failure
+        # mark covers the engine's own raises and not the loop body's
+        groups = iter(engine.drive(target))
+        while True:
+            try:
+                group = self._engine_step(next, groups)
+            except StopIteration:
+                break
             t1 = monotonic()
             query_tokens, query_mask, tokens, response_mask, logprobs, values = (
                 torch.from_numpy(group[k]).to(device=tr.device, dtype=dt)
@@ -323,16 +391,20 @@ class PPOOrchestrator:
             self._log_rollouts(queries, texts, scores, iter_count)
             scores = self._scale_scores(scores, method)
             rewards = tr.compute_rewards(logprobs, ref_logprobs, response_mask, scores)
-            tr.buffer.push(PPORolloutBatch(
-                query_tokens=query_tokens,
-                query_mask=query_mask,
-                response_tokens=tokens,
-                response_mask=response_mask,
-                logprobs=logprobs,
-                values=values,
-                rewards=rewards,
-            ))
+            tr.buffer.push(
+                PPORolloutBatch(
+                    query_tokens=query_tokens,
+                    query_mask=query_mask,
+                    response_tokens=tokens,
+                    response_mask=response_mask,
+                    logprobs=logprobs,
+                    values=values,
+                    rewards=rewards,
+                ),
+                versions=group["versions"],
+            )
             collected += len(rows)
+            tr.on_rollouts_landed()
         return self._finish_collect_stats(
             t0, collected, all_scores, generate_time, score_time, iter_count,
             extra={"exp/dispatch_time": dispatch_time, **engine.stats.to_dict()},
@@ -362,7 +434,7 @@ class PPOOrchestrator:
         # and the phase's update rows observe it once
         self.trainer.observe_health(
             {k: v for k, v in stats.items() if k != "policy/mean_rollout_kl"},
-            step=iter_count, phase=self.trainer._phase_index)
+            step=iter_count, phase=self.trainer.health_phase_id)
         if self.trainer.logger is not None:
             self.trainer.logger.log(stats, step=iter_count)
         return stats

@@ -89,14 +89,17 @@ def failure_kind(error: BaseException) -> str:
 
     A HealthAbort is retriable: its detector has dumped the forensics, and
     ``on_error: abort`` under a supervisor means "restore the last good
-    checkpoint". (The asynchronous actor-learner's ``ActorDeadError``
-    joins the retriable set with ROADMAP item 17.) KeyboardInterrupt and
-    SystemExit are never eaten."""
+    checkpoint". The asynchronous actor-learner's ``ActorDeadError`` is
+    retriable for the same reason: the orchestrator has emitted the
+    ``actor-dead`` event, the learner's checkpoint is intact and a
+    restart builds a fresh engine. KeyboardInterrupt and SystemExit are
+    never eaten."""
     from trlx_tpu_torch.telemetry.health import HealthAbort
+    from trlx_tpu_torch.trainer.async_rl import ActorDeadError
 
     if isinstance(error, PreemptionDrain):
         return "preemption"
-    if isinstance(error, HealthAbort):
+    if isinstance(error, (HealthAbort, ActorDeadError)):
         return "retriable"
     if not isinstance(error, Exception):
         return "permanent"

@@ -27,7 +27,6 @@ _TRAINERS: Dict[str, type] = {}
 #: have yet: (default, the ROADMAP item that brings it). A value other than
 #: the default is refused instead of silently ignored.
 UNPORTED_TRAIN_KEYS = {
-    "async_rl": ({}, "17 (async actor-learner)"),
     "telemetry": ({}, "19 (telemetry)"),
     "run_dir": (None, "19 (run ledger)"),
     "profile_dir": (None, "19 (profiler windows)"),
@@ -75,8 +74,6 @@ def refuse_unported(config) -> None:
     train = config.train
     for key, (default, item) in UNPORTED_TRAIN_KEYS.items():
         value = train.training.get(key, default)
-        if key == "async_rl":
-            value = {} if not (value or {}).get("enabled") else value
         if value != default:
             raise NotImplementedError(
                 f"train.{key}={value!r} is not ported yet (ROADMAP item {item})"
@@ -126,8 +123,8 @@ class BaseRLTrainer:
         health stats of the update (``ops/ppo_math.py``,
         ``ops/ilql_math.py``). Under ``async_rl`` the staleness-breach
         detector's threshold defaults to the staleness window, as in the
-        JAX package; ``async_rl`` itself is refused until ROADMAP item 17,
-        so that default is not reached yet."""
+        JAX package; the streamed phase feeds it each phase's largest
+        staleness (``async/staleness``)."""
         from trlx_tpu_torch.telemetry.health import HealthConfig
 
         training = self.config.train.training

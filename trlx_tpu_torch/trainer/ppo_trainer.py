@@ -30,13 +30,26 @@
   :class:`~trlx_tpu_torch.ops.flash_attention.FlashAttention`, whose
   backward is the dQ and dK/dV kernels on CUDA), the global-norm clip and
   AdamW.
-- Update schedule per phase, as the JAX package chooses it: the streamed
-  phase's :class:`~trlx_tpu_torch.pipeline.ppo_buffer.StreamPlan`
-  (epoch-major) run serially after collection when no eval/checkpoint
-  boundary or ``total_steps`` cutoff falls inside the pass; else (and
-  always under ``phase_overlap: false``) the minibatch-major order. One
-  loop runs either order; after each minibatch's last update the KL
-  controller advances and the boundaries are checked.
+- Update schedule per phase, as the JAX package chooses it: the
+  **streamed phase** when no eval/checkpoint boundary or ``total_steps``
+  cutoff falls inside the pass (and ``phase_overlap`` is on, the
+  default); else the minibatch-major order, one update after another.
+  The streamed phase (:meth:`begin_streamed_phase`,
+  :meth:`on_rollouts_landed`, :meth:`finish_streamed_phase`) fixes its
+  epoch-major :class:`~trlx_tpu_torch.pipeline.ppo_buffer.StreamPlan`
+  before collection, freezes a behaviour snapshot of the policy that every
+  rollout forward of the phase runs on, and runs each epoch-1 minibatch
+  as soon as its rows have landed, on both rollout engines, while later
+  chunks still sample; epochs 2..``ppo_epochs`` follow collection. The
+  updates run where the serial schedule would put them in the data, so
+  an overlapped phase equals the serial run of its plan bit for bit. The
+  KL controller advances once per minibatch after the phase (it feeds
+  only the next collection).
+- ``train.async_rl`` (:mod:`trlx_tpu_torch.trainer.async_rl`) runs the
+  streamed phase as an actor-learner schedule on the continuous engine:
+  the version-lag guard decides when an epoch-1 minibatch may run, and
+  after each one a copy of the refreshed policy is pushed to the engine
+  mid-generation.
 - ``train.rollout_param_cast`` (default on), when the compute dtype is
   not the parameters' dtype: the sampler, the continuous engine and the
   hydra trunk run on a compute-dtype copy of the policy
@@ -105,10 +118,16 @@ from trlx_tpu_torch.ops.sampling import (
     make_sampler,
     validate_gen_config,
 )
-from trlx_tpu_torch.pipeline.ppo_buffer import PPORolloutBuffer, make_stream_plan
+from trlx_tpu_torch.pipeline.ppo_buffer import (
+    PPORolloutBuffer,
+    StreamPlan,
+    make_stream_plan,
+)
 from trlx_tpu_torch.trainer import BaseRLTrainer, refuse_unported, register_trainer
+from trlx_tpu_torch.trainer.async_rl import AsyncRLConfig, guard_allows
 from trlx_tpu_torch.trainer.common import freeze_layers, make_optimizer
 from trlx_tpu_torch.utils import (
+    behaviour_snapshot,
     chunked_logprobs,
     compute_dtype_cast,
     logprobs_from_logits,
@@ -124,6 +143,44 @@ from trlx_tpu_torch.utils.checkpoint import (
     translate_structure_errors,
 )
 from trlx_tpu_torch.utils.logging import Logger
+
+
+class _StreamedPhase:
+    """Host state of one streamed phase: the plan, the cursor over its
+    epoch-1 minibatches, their stats (device tensors until the phase
+    closes) and the clock marks the overlap stats come from."""
+
+    def __init__(self, plan: StreamPlan, overlap: bool):
+        self.plan = plan
+        self.overlap = overlap
+        self.next_mb = 0  # epoch-1 minibatches run so far
+        self.epoch1_stats: List[Dict[str, torch.Tensor]] = []
+        self.t_first_dispatch: Optional[float] = None
+        self.dispatched_during_collect = 0
+
+
+class _AsyncStreamedPhase(_StreamedPhase):
+    """The actor-learner phase's extra state: the learner's version, the
+    staleness and consumption lag of each epoch-1 minibatch, the time
+    row-ready minibatches waited behind the guard, the learner's busy
+    time and the weight-push count. The plan is the streamed phase's:
+    async decides when its updates run and what the engine decodes with,
+    never which rows they take."""
+
+    def __init__(self, plan: StreamPlan, overlap: bool):
+        super().__init__(plan, overlap)
+        self.learner_version = 0
+        self.staleness: List[int] = []  # in-flight lag after each update
+        self.consumed_lag: List[int] = []  # the rows' age when trained
+        self.weight_pushes = 0
+        self.guard_hold_ms = 0.0
+        self.t_guard_hold: Optional[float] = None
+        self.learner_busy_ms = 0.0
+        self.t_begin = monotonic()
+        # set before the closing drain: rows still in flight then (an
+        # over-submitted harvest group) never land in this plan, so they
+        # neither count as staleness nor earn a push
+        self.collect_done = False
 
 
 @register_trainer
@@ -169,6 +226,11 @@ class PPOTrainer(BaseRLTrainer):
         self.rollout_engine = self.rollout_config.engine
         if self.rollout_engine == "continuous":
             self._validate_continuous_engine()
+        # the actors are the continuous engine; on one device they share
+        # it with the learner whatever actor_fraction says
+        self.async_config = AsyncRLConfig.from_dict(train.training.get("async_rl"))
+        if self.async_config.enabled:
+            self._validate_async_rl()
         self.device = resolve_device(device)
         if tokenizer is None and config.model.tokenizer_path:
             from transformers import AutoTokenizer
@@ -180,6 +242,7 @@ class PPOTrainer(BaseRLTrainer):
                 self.tokenizer.pad_token = self.tokenizer.eos_token
 
         self._rollout_module = None
+        self._behavior_model = None  # the streamed phase's snapshot
         self.rollout_cast_refreshes = 0
         self._setup_model()
         self.opt = make_optimizer(train, train.total_steps, self.model.parameters())
@@ -209,7 +272,10 @@ class PPOTrainer(BaseRLTrainer):
         self.forwards = 0
         self.phase_times: List[Dict[str, float]] = []
         self._phase_index = -1
-        self._plan = None
+        self._health_phase = -1  # phase ids when the phase API runs outside learn
+        self._stream: Optional[_StreamedPhase] = None
+        self._last_stream_seed = 0
+        self._last_overlap_stats: Dict[str, float] = {}
         self._rollout_engine_obj = None
         self.reset_rollout_phase()
         self._rebuild_sampler()
@@ -277,10 +343,14 @@ class PPOTrainer(BaseRLTrainer):
         return rollout_cast_dtype(self.config.train, self.model_config)
 
     def rollout_model(self) -> torch.nn.Module:
-        """The policy the rollout phase runs: the compute-dtype copy when
-        the cast is on (made from the masters on first use after the last
-        update or ``load``; ``rollout_cast_refreshes`` counts them), else
-        the policy itself."""
+        """The policy the rollout phase runs: while a streamed phase is
+        open, its behaviour snapshot (the masters change under it);
+        otherwise the compute-dtype copy when the cast is on (made from
+        the masters on first use after the last update or ``load``;
+        ``rollout_cast_refreshes`` counts the copies, snapshots
+        included), else the policy itself."""
+        if self._behavior_model is not None:
+            return self._behavior_model
         if self.rollout_cast_dtype is None:
             return self.model
         if self._rollout_module is None:
@@ -336,9 +406,11 @@ class PPOTrainer(BaseRLTrainer):
         self._sampler = self._make_sampler()
         self._rollout_engine_obj = None  # built again on the new gen_config
 
-    def _apply(self, *args, **kwargs):
+    def _apply(self, *args, params=None, **kwargs):
+        """One rollout forward: of ``params`` (a policy the engine was
+        pushed), else of :meth:`rollout_model`."""
         self.forwards += 1
-        return self.rollout_model()(*args, **kwargs)
+        return (params if params is not None else self.rollout_model())(*args, **kwargs)
 
     def bind_prompt_budget(self, pipeline, role: str = "train") -> None:
         """Check (and size) the decode budget against a pipeline's real
@@ -406,6 +478,24 @@ class PPOTrainer(BaseRLTrainer):
                 "sampling (method.group_size > 1 / GRPO) yet: harvest groups "
                 "complete in finish order, breaking the group-contiguity the "
                 "grouped reward shaping assumes; use engine: fixed"
+            )
+
+    def _validate_async_rl(self) -> None:
+        """``train.async_rl`` needs the continuous engine (whose own checks
+        refuse seq2seq and grouped sampling) and ``phase_overlap``."""
+        if self.rollout_engine != "continuous":
+            raise ValueError(
+                "train.async_rl.enabled requires train.rollout.engine: "
+                "'continuous' — the asynchronous actors run the "
+                "slot-admission engine (docs/async_pipeline.md); add "
+                "rollout: {engine: continuous} or disable async_rl"
+            )
+        if not self.config.train.phase_overlap:
+            raise ValueError(
+                "train.async_rl.enabled requires train.phase_overlap: "
+                "true (the streamed landing hook is how the async "
+                "learner consumes rollouts); drop phase_overlap: false "
+                "or disable async_rl"
             )
 
     def reset_rollout_phase(self) -> None:
@@ -585,28 +675,268 @@ class PPOTrainer(BaseRLTrainer):
         if self.phase_times:  # the current phase's entry (none without an orchestrator)
             self.phase_times[-1]["train_s"] = seconds
 
+    # ------------------------- the streamed phase ------------------------ #
+
+    @property
+    def health_phase_id(self) -> int:
+        """The phase id of health events and flight records: ``learn``'s
+        phase counter, else (the phase API called outside ``learn``) the
+        count of streamed phases begun."""
+        return self._phase_index if self._phase_index >= 0 else self._health_phase
+
+    def begin_streamed_phase(self, seed: int = 0, num_rollouts: Optional[int] = None,
+                             overlap: Optional[bool] = None) -> _StreamedPhase:
+        """Open a streamed phase: fix the plan of ``num_rollouts``
+        (default ``method.num_rollouts``) from ``seed``, put the buffer in
+        stream mode, start a fresh per-row noise phase and take the
+        behaviour snapshot every rollout forward of the phase runs on.
+        ``overlap`` (default ``train.phase_overlap``) ``False`` runs the
+        same plan serially, every update at :meth:`finish_streamed_phase`;
+        under ``train.async_rl`` any other value opens the actor-learner
+        phase."""
+        if self._stream is not None:
+            raise RuntimeError(
+                "a streamed phase is already active; finish_streamed_phase "
+                "(or abort_streamed_phase after an error) before beginning "
+                "another"
+            )
+        method, train = self.config.method, self.config.train
+        total = int(num_rollouts if num_rollouts is not None else method.num_rollouts)
+        plan = make_stream_plan(total, train.batch_size, method.ppo_epochs, seed)
+        self.buffer.clear_history()
+        self.buffer.begin_stream(plan.total)
+        self._health_phase += 1
+        self._last_stream_seed = seed  # the engine fallback begins the phase again
+        self.reset_rollout_phase()
+        # the snapshot owns its tensors (with the cast off the policy
+        # itself would be the masters, which the epoch-1 updates step in
+        # place); the lazy cast copy is not needed beside it
+        self._rollout_module = None
+        self._behavior_model = behaviour_snapshot(self.model, self.rollout_cast_dtype)
+        if self.rollout_cast_dtype is not None:
+            self.rollout_cast_refreshes += 1
+        phase_cls = (_AsyncStreamedPhase
+                     if self.async_config.enabled and overlap is not False else _StreamedPhase)
+        self._stream = phase_cls(
+            plan, overlap=train.phase_overlap if overlap is None else bool(overlap))
+        return self._stream
+
+    def on_rollouts_landed(self) -> None:
+        """The orchestrator's hook after each landing: run every epoch-1
+        minibatch whose rows now exist (none outside a streamed phase or
+        in its serial mode)."""
+        st = self._stream
+        if st is None or not st.overlap:
+            return
+        self._dispatch_ready_minibatches()
+
+    def _dispatch_ready_minibatches(self, force: bool = False) -> None:
+        """Run the ready epoch-1 minibatches in plan order (``force``: all
+        the plan still owes, at the phase's close). Under async the
+        version-lag guard may hold them back while rows are in flight.
+        Their stats stay on the device; nothing here reads the device."""
+        st = self._stream
+        plan = st.plan
+        is_async = isinstance(st, _AsyncStreamedPhase)
+        landed = len(self.buffer)
+        while st.next_mb < plan.n_minibatches and (force or plan.ready(st.next_mb, landed)):
+            if is_async and not force:
+                engine = self._rollout_engine_obj
+                inflight = engine.min_inflight_version() if engine is not None else None
+                if not guard_allows(st.learner_version, inflight,
+                                    self.async_config.staleness_window):
+                    if st.t_guard_hold is None:
+                        st.t_guard_hold = monotonic()
+                    return
+            if is_async and st.t_guard_hold is not None:
+                st.guard_hold_ms += (monotonic() - st.t_guard_hold) * 1000.0
+                st.t_guard_hold = None
+            t0 = monotonic()
+            stats = self.train_step(self.buffer.gather(plan.epoch1[st.next_mb]))
+            busy_ms = (monotonic() - t0) * 1000.0
+            if st.t_first_dispatch is None:
+                st.t_first_dispatch = t0
+            st.epoch1_stats.append(stats)
+            st.next_mb += 1
+            if is_async:
+                self._after_async_update(st, plan, busy_ms)
+
+    def _after_async_update(self, st: _AsyncStreamedPhase, plan: StreamPlan,
+                            busy_ms: float) -> None:
+        """After one epoch-1 update of the actor-learner phase: record its
+        consumption lag (the learner's version minus the oldest version
+        among the minibatch's rows), advance the learner's version, record
+        the in-flight staleness after the update and, while the engine
+        still has rows pending, push it a copy of the refreshed policy
+        (applied at its next safe point). Once collection has closed, no
+        push: nothing in flight can land in this plan, and a push would
+        only perturb the next phase; that is also why the
+        ``staleness_window: 0`` phase stays bitwise serial."""
+        consumed = plan.epoch1[st.next_mb - 1]
+        st.consumed_lag.append(
+            int(st.learner_version - int(self.buffer.row_versions(consumed).min())))
+        st.learner_version += 1
+        st.learner_busy_ms += busy_ms
+        if st.collect_done:
+            st.staleness.append(0)
+            return
+        engine = self._rollout_engine_obj
+        inflight = engine.min_inflight_version() if engine is not None else None
+        st.staleness.append(0 if inflight is None
+                            else max(0, st.learner_version - int(inflight)))
+        if engine is None or not engine.pending:
+            return
+        t0 = monotonic()
+        # a copy taken now: the masters go on changing before the safe point
+        engine.push_weights(behaviour_snapshot(self.model, self.rollout_cast_dtype),
+                            version=st.learner_version)
+        st.weight_pushes += 1
+        st.learner_busy_ms += (monotonic() - t0) * 1000.0
+
+    def _sync_device(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def finish_streamed_phase(self):
+        """Close the open streamed phase: run what the plan still owes
+        (every epoch-1 minibatch in serial mode, then epochs
+        2..``ppo_epochs``), advance the KL controller once per minibatch
+        and return ``(n_updates, rows, kl_seq)``: each stat as an
+        [n_updates] host array in execution order (epoch-major) and the KL
+        coefficient on entry and after each minibatch. Records
+        ``_last_overlap_stats`` (the ``exp/overlap_*`` stats, and the
+        ``async/*`` ones under async) and feeds run health every row, then
+        the phase row (the rollout KL, and ``async/staleness``, the
+        ``staleness-breach`` series), then the phase's flight record."""
+        st = self._stream
+        if st is None:
+            raise RuntimeError("no streamed phase is active")
+        method, train = self.config.method, self.config.train
+        plan = st.plan
+        is_async = isinstance(st, _AsyncStreamedPhase)
+        if is_async:
+            st.collect_done = True
+        t_collect_end = monotonic()
+        st.dispatched_during_collect = st.next_mb
+        # the drain: what the host still waits for of epoch 1 after
+        # collection (all of it in serial mode)
+        self._dispatch_ready_minibatches(force=True)
+        self._sync_device()
+        drain_ms = (monotonic() - t_collect_end) * 1000.0
+        # the snapshot and any weights the engine was pushed are dead
+        # weight through the remaining epochs
+        self._behavior_model = None
+        if self._rollout_engine_obj is not None:
+            self._rollout_engine_obj.drop_weights()
+        residual_ms = 0.0
+        residual_stats = []
+        if plan.residual.size:
+            t0 = monotonic()
+            residual_stats = [self.train_step(self.buffer.gather(idx)) for idx in plan.residual]
+            self._sync_device()
+            residual_ms = (monotonic() - t0) * 1000.0
+        # one device-to-host copy for every stat of the phase
+        pending = st.epoch1_stats + residual_stats
+        keys = sorted(pending[0])
+        fetched = torch.stack(
+            [torch.stack([s[k].float() for k in keys]) for s in pending]).cpu().numpy()
+        rows = {k: np.asarray(fetched[:, i], np.float32) for i, k in enumerate(keys)}
+        kl_seq = [float(self.kl_coef)]
+        for _ in range(plan.n_minibatches):
+            kl_seq.append(kl_controller_update(
+                method, kl_seq[-1], self.mean_kl, train.batch_size))
+        self.kl_coef = kl_seq[-1]
+
+        window_ms = (max(0.0, (t_collect_end - st.t_first_dispatch) * 1000.0)
+                     if st.t_first_dispatch is not None else 0.0)
+        if method.ppo_epochs > 1 and residual_ms > 0.0:
+            # one epoch's serial cost, estimated from the residual epochs
+            saved_ms = max(0.0, residual_ms / (method.ppo_epochs - 1) - drain_ms)
+        else:
+            saved_ms = max(0.0, window_ms - drain_ms)
+        self._last_overlap_stats = {
+            "exp/overlap_saved_ms": saved_ms,
+            "exp/overlap_drain_ms": drain_ms,
+            "exp/overlap_window_ms": window_ms,
+            "exp/overlap_streamed_updates": float(st.dispatched_during_collect),
+            "exp/phase_residual_ms": residual_ms,
+        }
+        staleness_max: Optional[float] = None
+        if is_async:
+            st.learner_busy_ms += residual_ms
+            staleness = np.asarray(st.staleness or [0], np.float64)
+            lag = np.asarray(st.consumed_lag or [0], np.float64)
+            wall_ms = max((monotonic() - st.t_begin) * 1000.0, 1e-9)
+            staleness_max = float(staleness.max())
+            engine = self._rollout_engine_obj
+            self._last_overlap_stats.update({
+                "async/staleness_p50": float(np.percentile(staleness, 50)),
+                "async/staleness_max": staleness_max,
+                "async/consumed_lag_p50": float(np.percentile(lag, 50)),
+                "async/consumed_lag_max": float(lag.max()),
+                "async/weight_pushes": float(st.weight_pushes),
+                "async/guard_hold_ms": st.guard_hold_ms,
+                "async/learner_idle_ms": drain_ms + st.guard_hold_ms,
+                "async/learner_occupancy": min(st.learner_busy_ms / wall_ms, 1.0),
+                "async/actor_occupancy": engine.stats.slot_util if engine is not None else 0.0,
+            })
+        # closed before the detectors read the rows, so that an abort
+        # policy raising there leaves the trainer re-enterable
+        self._stream = None
+        if self.health_monitor is not None:
+            phase_id = self.health_phase_id
+            phase_row: Dict[str, Any] = {"policy/mean_rollout_kl": float(self.mean_kl)}
+            if staleness_max is not None:
+                phase_row["async/staleness"] = staleness_max
+            last_row: Dict[str, Any] = {}
+            try:
+                last_row = self.observe_health_rows(rows, phase=phase_id, phase_row=phase_row)
+            finally:
+                self.record_flight_phase(phase_id, stats_row=last_row, kl_seq=kl_seq)
+        return plan.n_updates, rows, kl_seq
+
+    def abort_streamed_phase(self) -> None:
+        """Drop an open streamed phase without running its remaining
+        updates (error recovery): the plan, the behaviour snapshot, the
+        engine's pushed and staged weights, and the buffer's partial
+        experience. Epoch-1 updates already run are not rolled back."""
+        self._stream = None
+        self._behavior_model = None
+        if self._rollout_engine_obj is not None:
+            self._rollout_engine_obj.drop_weights()
+        self.buffer.clear_history()
+
+    # ------------------------------ the loop ----------------------------- #
+
     def _train_on(self, order: np.ndarray, ends: np.ndarray, iter_count: int,
                   total_steps: int, final_stats: Dict[str, Any], health_pass=None):
-        """Run the updates of ``order`` ([n_updates, B] row indices) in
-        turn. Update ``ends[k]`` is minibatch ``k``'s last in the pass;
-        after it the KL controller advances, the loss stats of the updates
-        since the previous end are checked, the minibatch is logged with
-        the stats of that update, and eval, save and the ``total_steps``
-        cutoff are checked (a cutoff ends the run: save, then eval).
-        ``final_stats`` holds the last logged stats. Returns ``(rows,
-        kl_seq, iter_count, done)``: each stat as a host array over the
-        updates run, the KL coefficient on entry and after each
-        minibatch, the update count, and whether the run ended.
+        """Run one pass's updates and its boundaries. With a streamed
+        phase open, the pass is the phase's plan (``order`` and ``ends``
+        describe it): :meth:`finish_streamed_phase` runs what it still
+        owes, then each minibatch is logged with the stats of its last
+        update (in the last epoch). Otherwise the updates of ``order``
+        ([n_updates, B] row indices) run in turn; update ``ends[k]`` is
+        minibatch ``k``'s last in the pass, after which the KL controller
+        advances, the loss stats of the updates since the previous end are
+        checked and the minibatch is logged with the stats of that update.
+        Eval, save and the ``total_steps`` cutoff are checked after each
+        minibatch (a cutoff ends the run: save, then eval). ``final_stats``
+        holds the last logged stats. Returns ``(rows, kl_seq, iter_count,
+        done)``: each stat as a host array over the updates run, the KL
+        coefficient on entry and after each minibatch, the update count,
+        and whether the run ended.
 
-        Run health (``train.health``) reads the fetched rows as the JAX
-        package's paths do, per ``health_pass``: ``"streamed"`` and
-        ``"fused"`` (a pass no eval/save boundary or cutoff splits) observe
-        every update's row, at the monitor's own count or at its update
-        number, then the phase's rollout KL once and the phase's flight
-        record; ``None`` (the stepwise path) observes each logged, saved or
-        final minibatch's last row at its update number, then the KL and
-        the flight record at the pass's end. Rows are observed before the
+        Run health reads the fetched rows as the JAX package's paths do:
+        the streamed phase observes every row at its close; ``"fused"``
+        (a minibatch-major pass no eval/save boundary or cutoff splits)
+        observes every update's row at its update number, then the
+        phase's rollout KL once and the phase's flight record; ``None``
+        (the stepwise path) observes each logged, saved or final
+        minibatch's last row at its update number, then the KL and the
+        flight record at the pass's end. Rows are observed before the
         non-finite check, so a NaN row reaches the detectors first."""
+        if self._stream is not None:
+            return self._finish_streamed_pass(iter_count, total_steps, final_stats)
         train, method = self.config.train, self.config.method
         t0 = monotonic()
         pending, fetched, kl_seq, done = [], [], [self.kl_coef], False
@@ -621,10 +951,8 @@ class PPOTrainer(BaseRLTrainer):
                 [torch.stack([s[k].float() for k in keys]) for s in pending]
             ).cpu().numpy()  # [updates since the previous end, stats]
             if monitor is not None and health_pass is not None:
-                self.observe_health_rows(
-                    dict(zip(keys, new.T)),
-                    step0=None if health_pass == "streamed" else start + len(fetched),
-                    phase=self._phase_index)
+                self.observe_health_rows(dict(zip(keys, new.T)), step0=start + len(fetched),
+                                         phase=self._phase_index)
             self.check_anomalies(dict(zip(keys, new.T)), start + len(fetched))
             fetched.extend(new)
             pending = []
@@ -648,25 +976,12 @@ class PPOTrainer(BaseRLTrainer):
                     {k: v for k, v in step_stats.items() if k != "policy/mean_rollout_kl"},
                     step=iter_count, phase=self._phase_index)
             if monitor is not None and health_pass is not None and len(kl_seq) > len(ends):
-                kl_row = {"policy/mean_rollout_kl": self.mean_kl}
-                self.observe_health(kl_row, phase=self._phase_index)
-                self.record_flight_phase(
-                    self._phase_index,
-                    step=None if health_pass == "streamed" else iter_count,
-                    stats_row=({**dict(zip(keys, new[-1])), **kl_row}
-                               if health_pass == "streamed" else step_stats),
-                    kl_seq=kl_seq)
-            if iv["do_log"]:
-                self.logger.log(step_stats, step=iter_count)
-                final_stats.clear()
-                final_stats.update(step_stats)
-            if iv["do_eval"]:
-                self._eval(iter_count, final_stats)
-            if iv["do_save"] and not at_end:
-                self.save()
-            if at_end:
-                self._finish(iter_count, final_stats)
-                done = True
+                self.observe_health({"policy/mean_rollout_kl": self.mean_kl},
+                                    phase=self._phase_index)
+                self.record_flight_phase(self._phase_index, step=iter_count,
+                                         stats_row=step_stats, kl_seq=kl_seq)
+            done = self._boundaries(iter_count, total_steps, step_stats, final_stats)
+            if done:
                 break
         if monitor is not None and health_pass is None and not done:
             # the stepwise pass's end: the rollout KL once, then the record
@@ -677,10 +992,54 @@ class PPOTrainer(BaseRLTrainer):
         rows = {k: np.asarray([r[i] for r in fetched], np.float32) for i, k in enumerate(keys)}
         return rows, kl_seq, iter_count, done
 
+    def _finish_streamed_pass(self, iter_count: int, total_steps: int,
+                              final_stats: Dict[str, Any]):
+        """:meth:`_train_on` for an open streamed phase: close it, then
+        log each minibatch with the stats of its last update (row
+        ``(ppo_epochs - 1) * n_minibatches + k``), the phase's overlap
+        stats beside them, and check the boundaries."""
+        E = self.config.method.ppo_epochs
+        t0 = monotonic()
+        n_up, rows, kl_seq = self.finish_streamed_phase()
+        seconds = monotonic() - t0
+        self._record_train_time(seconds)
+        self.check_anomalies(rows, iter_count)
+        n_mb, done = n_up // E, False
+        for k in range(n_mb):
+            iter_count += E
+            step_stats = {key: float(v[(E - 1) * n_mb + k]) for key, v in rows.items()}
+            step_stats["time/batch"] = seconds / n_mb
+            step_stats["policy/kl_coef"] = kl_seq[k + 1]
+            step_stats["policy/mean_rollout_kl"] = self.mean_kl
+            step_stats.update(self._last_overlap_stats)
+            done = self._boundaries(iter_count, total_steps, step_stats, final_stats)
+            if done:
+                break
+        return rows, kl_seq, iter_count, done
+
+    def _boundaries(self, iter_count: int, total_steps: int, step_stats: Dict[str, Any],
+                    final_stats: Dict[str, Any]) -> bool:
+        """A minibatch's end: log, eval and save on their intervals, and
+        at ``total_steps`` the end of the run (save, then eval). Returns
+        whether the run ended."""
+        iv = self.intervals(iter_count)
+        at_end = iter_count >= total_steps
+        if iv["do_log"]:
+            self.logger.log(step_stats, step=iter_count)
+            final_stats.clear()
+            final_stats.update(step_stats)
+        if iv["do_eval"]:
+            self._eval(iter_count, final_stats)
+        if iv["do_save"] and not at_end:
+            self.save()
+        if at_end:
+            self._finish(iter_count, final_stats)
+        return at_end
+
     def _stream_eligible(self, iter_count: int) -> bool:
-        """Whether the coming pass takes the streamed phase's plan: overlap
-        on, at least one minibatch, and no eval/checkpoint boundary or
-        ``total_steps`` cutoff strictly inside the pass."""
+        """Whether the coming pass runs as a streamed phase: overlap on,
+        an orchestrator, at least one minibatch, and no eval/checkpoint
+        boundary or ``total_steps`` cutoff strictly inside the pass."""
         train, method = self.config.train, self.config.method
         n_mb = method.num_rollouts // train.batch_size
         if not train.phase_overlap or self.orch is None or n_mb < 1:
@@ -694,19 +1053,23 @@ class PPOTrainer(BaseRLTrainer):
         )
 
     def _collect_phase(self, iter_count: int, seed: int) -> None:
-        """Collect one phase of experience into the (emptied) buffer and
-        fix its update plan when the pass is eligible for one."""
-        method, train = self.config.method, self.config.train
+        """Collect one phase of experience into the (emptied) buffer:
+        through a streamed phase when the pass is eligible for one (its
+        epoch-1 updates may run during collection); a failure aborts the
+        phase, so that a retry starts clean."""
+        method = self.config.method
         self._phase_index += 1
         self.buffer.clear_history()
         self.reset_rollout_phase()
-        self._plan = (
-            make_stream_plan(method.num_rollouts, train.batch_size, method.ppo_epochs, seed)
-            if self._stream_eligible(iter_count)
-            else None
-        )
+        if self._stream_eligible(iter_count):
+            self.begin_streamed_phase(seed=seed)
         t0 = monotonic()
-        self.orch.make_experience(method.num_rollouts, iter_count)
+        try:
+            self.orch.make_experience(method.num_rollouts, iter_count)
+        except BaseException:
+            if self._stream is not None:
+                self.abort_streamed_phase()
+            raise
         self.phase_times.append({
             "phase": self._phase_index,
             "collect_s": monotonic() - t0,
@@ -726,7 +1089,7 @@ class PPOTrainer(BaseRLTrainer):
         epoch ``s // pass_steps``, collected with that epoch's seed
         ``train.seed + epoch``, and no step-0 eval, which the
         uninterrupted run did not make there and whose sampling would move
-        the generator."""
+        the generator. An error aborts an open streamed phase."""
         train, method = self.config.train, self.config.method
         if train.resume_from_checkpoint and has_checkpoint(train.checkpoint_dir):
             self.load(train.checkpoint_dir)
@@ -738,8 +1101,10 @@ class PPOTrainer(BaseRLTrainer):
         self._epoch0 = start_step // pass_steps
         if len(self.buffer) == 0 and self.orch is not None:
             self._collect_phase(start_step, seed=train.seed + self._epoch0)
+        # a streamed phase schedules its plan's rows; a non-dividing final
+        # chunk's extra rows are stored but never trained
         n_minibatches = (
-            self._plan.n_minibatches if self._plan is not None
+            self._stream.plan.n_minibatches if self._stream is not None
             else max(len(self.buffer) // train.batch_size, 1)
         )
         total_steps = min(train.total_steps, train.epochs * method.ppo_epochs * n_minibatches)
@@ -747,6 +1112,8 @@ class PPOTrainer(BaseRLTrainer):
         try:
             return self._learn_body(total_steps, n_minibatches, start_step)
         except BaseException as e:
+            if self._stream is not None:
+                self.abort_streamed_phase()
             # crash forensics: one flight dump on the way down (no-op with
             # health off; none again after an abort's own dump)
             self.flight_dump_on_exception(e)
@@ -760,15 +1127,18 @@ class PPOTrainer(BaseRLTrainer):
         train, method = self.config.train, self.config.method
         E = method.ppo_epochs
         if start_step == 0:
+            # with a streamed phase open the sampler runs its behaviour
+            # snapshot: the policy from before the phase's updates
             self.logger.log(self.evaluate(), step=0)
         iter_count = start_step
         final_stats: Dict[str, Any] = {}
         if iter_count >= total_steps:
             return final_stats
         for epoch in range(self._epoch0, train.epochs):
-            if self._plan is not None:
+            if self._stream is not None:
                 # epoch-major: minibatch k's last update is in the last epoch
-                order, n_mb = self._plan.updates(), self._plan.n_minibatches
+                plan = self._stream.plan
+                order, n_mb = plan.updates(), plan.n_minibatches
                 ends = (E - 1) * n_mb + np.arange(n_mb)
                 health_pass = "streamed"
             else:

@@ -163,11 +163,16 @@ class Seq2SeqPPOTrainer(PPOTrainer):
 
 class _Counted:
     """The policy's sampler interface, each encoder pass and decoder call
-    counted in the trainer's ``forwards``."""
+    counted in the trainer's ``forwards``; the policy is the trainer's
+    rollout model (a streamed phase's behaviour snapshot while one is
+    open)."""
 
     def __init__(self, trainer: Seq2SeqPPOTrainer):
         self.trainer = trainer
-        self.model = trainer.model
+
+    @property
+    def model(self):
+        return self.trainer.rollout_model()
 
     def encode(self, *args, **kwargs):
         self.trainer.forwards += 1

@@ -104,6 +104,28 @@ def compute_dtype_cast(module: nn.Module, dtype, in_place: bool = False) -> nn.M
     return copy.deepcopy(module, memo)
 
 
+def behaviour_snapshot(module: nn.Module, dtype=None) -> nn.Module:
+    """A frozen copy of ``module`` that owns every tensor an update can
+    change: the streamed phase's behaviour policy and each asynchronous
+    weight push. With ``dtype`` (the rollout cast) the parameters
+    :func:`compute_dtype_cast` rounds are new ``dtype`` tensors; every
+    other trainable parameter is cloned, so an optimizer step on the
+    masters leaves the copy as it was. Frozen parameters and buffers are
+    shared: no update touches them."""
+    if dtype is not None:
+        dtype = dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype))
+    cast = {id(p) for _, p in _cast_targets(module, dtype)} if dtype is not None else set()
+    memo = {id(b): b for b in module.buffers()}
+    for p in module.parameters():
+        if id(p) in cast:
+            memo[id(p)] = nn.Parameter(p.detach().to(dtype), requires_grad=False)
+        elif p.requires_grad:
+            memo[id(p)] = nn.Parameter(p.detach().clone(), requires_grad=False)
+        else:
+            memo[id(p)] = p
+    return copy.deepcopy(module, memo)
+
+
 def infinite_loader(factory: Callable[[int], Iterable]) -> Iterable:
     """Cycle ``factory(epoch)`` forever (prompt draws); raises instead of
     spinning when a pass yields nothing."""
