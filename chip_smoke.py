@@ -145,7 +145,25 @@ Phases, each fatal on failure:
    more than 16 positions, the decode variant 12 x the decode steps, no
    ``fma`` launch and no input copy), K2 and K3 12 x 64 times each, all of
    them the ``tile`` variant with no input copy, and the plain attention
-   not at all;
+   not at all. The run has the telemetry on (``train.telemetry.ring_size``,
+   ``train.run_dir``, ``train.profile_dir`` with ``train.profile_phase``
+   the second PPO phase, and ``train.health``): (a) the trainer's own
+   chrome trace of that phase is the only file in ``profile_dir``, and its
+   CUDA kernel events named ``flash_fwd_tile_kernel``,
+   ``flash_fwd_decode_kernel``, ``flash_bwd_dq_tile_kernel`` and
+   ``flash_bwd_dkv_tile_kernel`` equal the launch counters' deltas across
+   the window, none 0, with no ``fma`` launch in it; (b) no span dropped,
+   ``phase/collect`` and ``phase/train`` twice each, every ``collect/*``
+   span of the fixed path present, each phase's
+   ``exp/overlap_drain_ms`` its ``train/drain`` span's duration; (c)
+   ``run_dir`` holds ``manifest.json`` (the card named in its platform), a
+   one-line ``ledger.jsonl`` and one ``phases.jsonl`` row per phase, and
+   the telemetry CLI's ``--watch <run_dir> --no-follow`` (its ``main``, run
+   in this process) renders them; (d) the metrics registry holds the
+   ``exp/overlap_*`` and ``mem/*`` gauges. The phase prints its wall with
+   the telemetry on, the spans per phase and the profiled phase's device
+   busy share, and marks the profiled phase's times as such: the other
+   phase's collect and train seconds are the unprofiled ones;
 6. seq2seq training — ``trlx_tpu_torch.train`` with the
    ``Seq2SeqPPOTrainer`` on ``configs/ppo_ul2.yml`` at full width, from a
    UL2 checkpoint in HF layout (gated-GELU, untied head, random weights
@@ -180,7 +198,10 @@ Phases, each fatal on failure:
    value head moved; every stat finite; then an ``InferenceServer``
    restores the run's checkpoint (bit for bit, after its compute-dtype
    cast) and serves 8 of the prompts to completion with finite logprobs
-   and values.
+   and values. ``TRLX_RUN_LEDGER`` points at a file in the phase's
+   temporary directory: each definition's ``learn`` appends its manifest
+   (``status: ok``), and the telemetry CLI's ``--compare ~2 ~1`` (in this
+   process) renders the movers between the two.
 
 8. offline ILQL — ``trlx_tpu_torch.train(dataset=..., model_path=...)`` on
    ``configs/ilql_sentiments.yml`` as written (bf16 over f32 masters,
@@ -191,7 +212,8 @@ Phases, each fatal on failure:
    (token_list, action_start) samples from a seed, for 32 updates (two
    epochs of 16 minibatches) with evals at 0, 16 and 32; named
    deviations: random weights, synthetic data, no tokenizer, 32 of 1000
-   updates. Gates: the loaded backbone equals the written tensors; every
+   updates, and a ``train.run_dir``, whose ``manifest.json`` must hold
+   ``status: ok``. Gates: the loaded backbone equals the written tensors; every
    stat finite; the parameters and the Q heads moved; after every update
    the target heads are ``alpha * q + (1 - alpha) * previous`` bit for bit
    on the 6 sync steps (5, 10, .., 30) and bit-identical to before on the
@@ -1992,19 +2014,220 @@ def cast_collect_equality(torch, config_fn, prompts, reward) -> dict:
     }
 
 
+#: the phase phase 5 profiles: the second PPO phase, as the trainer counts
+#: them (the first collect is phase 0)
+PROFILED_PHASE = 1
+#: the kernels phase 5's profiled phase runs, by their name in the trace,
+#: and the launch counter each must equal there
+TRACE_KERNELS = {
+    "flash_fwd_tile_kernel": "FLASH_FWD_TILE_LAUNCHES",
+    "flash_fwd_decode_kernel": "FLASH_FWD_DECODE_LAUNCHES",
+    "flash_bwd_dq_tile_kernel": "FLASH_BWD_DQ_TILE_LAUNCHES",
+    "flash_bwd_dkv_tile_kernel": "FLASH_BWD_DKV_TILE_LAUNCHES",
+}
+#: launches that must not happen in the window: K1's f32 and int8 variants
+TRACE_ABSENT = {"flash_fwd_fma_kernel": "FLASH_FWD_FMA_LAUNCHES",
+                "flash_fwd_decode_kernel_int8": "FLASH_FWD_DECODE_INT8_LAUNCHES"}
+COLLECT_SPANS = ("collect/prompt_draw", "collect/dispatch", "collect/decode", "collect/score",
+                 "collect/land")
+
+
+def trace_kernel_name(name: str):
+    """The port kernel a CUDA kernel event's demangled name launches
+    (``..._int8`` for K1's decode over the int8 cache), or None."""
+    m = re.search(r"\b(flash_[a-z0-9_]+?_kernel)\b", name)
+    if m is None:
+        return None
+    return m.group(1) + ("_int8" if "Int8Rows" in name else "")
+
+
+#: the blocks of a ``torch.profiler`` chrome trace that ``read_chrome_trace``
+#: decodes: the device's events (kernels, copies, fills) and the session's
+_TRACE_CATS = re.compile(rb'"cat": "(kernel|gpu_memcpy|gpu_memset|Trace)"')
+#: the exporter opens each event's block with a brace two spaces in
+_TRACE_BLOCK = b"\n  {\n"
+
+
+def read_chrome_trace(path: str) -> dict:
+    """A ``torch.profiler`` chrome trace's device events (kernels, copies
+    and fills, each as written) and its window in microseconds (the
+    exporter's ``Trace`` event, which spans the profiler's session). A
+    trace of a GPT-2 phase holds some 800,000 events, a ninth of them the
+    device's, so this decodes only the blocks whose own category is one of
+    those, and of each only the fields written before its args."""
+    with open(path, "rb") as fh:
+        data = fh.read()
+    decoder = json.JSONDecoder()
+    device, window = [], 0.0
+    for m in _TRACE_CATS.finditer(data):
+        start = data.rfind(_TRACE_BLOCK, 0, m.start())
+        end = data.find(_TRACE_BLOCK, m.end())
+        block = data[start:end if end >= 0 else len(data)]
+        args = block.find(b'"args"')
+        if start < 0 or 0 <= args < m.start() - start:
+            continue  # inside an event's args: not its own category
+        # the fields read come before the args, which need no decoding
+        head = block[:args].rstrip(b", \n") + b"}" if args >= 0 else block
+        event, _ = decoder.raw_decode(head.decode().strip())
+        if event.get("ph") != "X":
+            continue
+        if event["cat"] == "Trace":
+            window = max(window, float(event["dur"]))
+        else:
+            device.append(event)
+    if not window:
+        raise ValueError(f"{path}: no Trace event; not a torch.profiler chrome trace")
+    return {"device": device, "window_us": window, "bytes": len(data)}
+
+
+def device_busy_us(events) -> float:
+    """The union of the events' ``[ts, ts + dur)`` intervals, in microseconds."""
+    busy, end = 0.0, -1.0
+    for start, stop in sorted((e["ts"], e["ts"] + e["dur"]) for e in events):
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    return busy
+
+
+def kernel_event_counts(events) -> dict:
+    """The port's kernel events by kernel (``trace_kernel_name``)."""
+    counts = {}
+    for e in events:
+        kernel = trace_kernel_name(e["name"]) if e["cat"] == "kernel" else None
+        if kernel is not None:
+            counts[kernel] = counts.get(kernel, 0) + 1
+    return counts
+
+
+def telemetry_cli(*argv: str):
+    """``python -m trlx_tpu_torch.telemetry`` run in this process (the
+    same ``main``): ``(exit status, standard output, standard error)``."""
+    import contextlib
+    import io
+
+    from trlx_tpu_torch.telemetry.__main__ import main as cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        try:
+            rc = cli(list(argv))
+        except SystemExit as e:  # argparse's refusals
+            rc = e.code
+    return rc, out.getvalue(), err.getvalue()
+
+
+def profiler_window_watch(fa, window: dict) -> dict:
+    """Replacements of ``PhaseProfiler.on_phase_start``/``on_phase_end`` that
+    read the launch counters of ``TRACE_KERNELS`` and ``TRACE_ABSENT`` into
+    ``window["start"]`` as the window opens and ``window["end"]`` just
+    before it closes (the close synchronises and stops; nothing launches in
+    between), and time the close (the stop and the trace's export) into
+    ``window["close_s"]``."""
+    from trlx_tpu_torch.telemetry.profiler import PhaseProfiler
+
+    orig = {"start": PhaseProfiler.on_phase_start, "end": PhaseProfiler.on_phase_end}
+    counters = {**TRACE_KERNELS, **TRACE_ABSENT}
+
+    def read():
+        return {name: getattr(fa, c) for name, c in counters.items()}
+
+    def on_phase_start(self, phase_index):
+        orig["start"](self, phase_index)
+        if self.active and "start" not in window:
+            window["start"] = read()
+
+    def on_phase_end(self, sync=None):
+        if self.active:
+            window["end"] = read()
+        t0 = time.perf_counter()
+        orig["end"](self, sync)
+        if "end" in window and "close_s" not in window:
+            window["close_s"] = time.perf_counter() - t0
+
+    return {"on_phase_start": (PhaseProfiler, on_phase_start, orig["start"]),
+            "on_phase_end": (PhaseProfiler, on_phase_end, orig["end"])}
+
+
+def telemetry_gates(torch, window, tracer, registry, overlap, run_dir, profile_dir) -> dict:
+    """Phase 5's telemetry checks (a)-(d) over what one ``learn`` left:
+    the profiler window's counter reads, the tracer, the metrics registry,
+    each phase's overlap stats, the run and profile directories."""
+    traces = sorted(os.listdir(profile_dir)) if os.path.isdir(profile_dir) else []
+    want_trace = f"phase_{PROFILED_PHASE}.pt.trace.json"
+    summary = {"kernel_events": {}, "close_s": window.get("close_s")}
+    if traces == [want_trace]:
+        t0 = time.perf_counter()
+        trace = read_chrome_trace(os.path.join(profile_dir, want_trace))
+        busy = device_busy_us(trace["device"])
+        summary.update(
+            kernel_events=kernel_event_counts(trace["device"]),
+            device_events=len(trace["device"]), device_busy_ms=busy / 1e3,
+            window_ms=trace["window_us"] / 1e3, device_busy_share=busy / trace["window_us"],
+            trace_bytes=trace["bytes"], read_s=time.perf_counter() - t0)
+    deltas = ({k: window["end"][k] - window["start"][k] for k in window["start"]}
+              if {"start", "end"} <= set(window) else {})
+    events = summary["kernel_events"]
+    kernels_ok = bool(deltas) and all(
+        events.get(k, 0) == deltas[k] > 0 for k in TRACE_KERNELS) and all(
+        events.get(k, 0) == deltas[k] == 0 for k in TRACE_ABSENT)
+    counts = {k: int(v["count"]) for k, v in tracer.stats().items()}
+    drains = [s.duration_ms for s in tracer.spans("train/drain")]
+    spans_ok = (tracer.dropped == 0 and counts.get("phase/collect") == 2
+                and counts.get("phase/train") == 2 and all(k in counts for k in COLLECT_SPANS)
+                and len(overlap) == 2
+                and [o["exp/overlap_drain_ms"] for o in overlap] == drains)
+    files = sorted(os.listdir(run_dir)) if os.path.isdir(run_dir) else []
+    manifest, ledger, rows, watch = {}, [], [], (None, "", "")
+    if files == ["ledger.jsonl", "manifest.json", "phases.jsonl"]:
+        with open(os.path.join(run_dir, "manifest.json")) as fh:
+            manifest = json.load(fh)
+        with open(os.path.join(run_dir, "ledger.jsonl")) as fh:
+            ledger = fh.read().splitlines()
+        with open(os.path.join(run_dir, "phases.jsonl")) as fh:
+            rows = [json.loads(line) for line in fh if line.strip()]
+        watch = telemetry_cli("--watch", run_dir, "--no-follow")
+    watch_lines = watch[1].splitlines()
+    ledger_ok = (
+        len(ledger) == 1 and [r.get("phase") for r in rows] == [0, 1]
+        and watch[0] == 0 and len(watch_lines) == 2
+        and (manifest.get("platform") or {}).get("device_kind") == torch.cuda.get_device_name(0)
+        and (manifest.get("payload") or {}).get("status") == "ok")
+    gauges = registry.snapshot()["gauges"]
+    overlap_gauges = sorted(k for k in gauges if k.startswith("exp/overlap_"))
+    mem_gauges = sorted(k for k in gauges if k.startswith("mem/"))
+    registry_ok = (len(overlap_gauges) == 4
+                   and mem_gauges == ["mem/hbm_live_bytes", "mem/hbm_peak_bytes"])
+    return {
+        "ok": kernels_ok and spans_ok and ledger_ok and registry_ok,
+        "kernels_ok": kernels_ok, "spans_ok": spans_ok, "ledger_ok": ledger_ok,
+        "registry_ok": registry_ok, "traces": traces, "trace": summary,
+        "launch_deltas": deltas, "span_counts": counts, "spans_dropped": tracer.dropped,
+        "spans_per_phase": [sum(int(v["count"]) for v in r.get("spans", {}).values())
+                            for r in rows],
+        "drain_ms": drains, "overlap_drain_ms": [o["exp/overlap_drain_ms"] for o in overlap],
+        "run_dir_files": files, "ledger_lines": len(ledger), "phase_rows": len(rows),
+        "watch": watch_lines, "watch_rc": watch[0],
+        "manifest_platform": manifest.get("platform"),
+        "overlap_gauges": overlap_gauges, "mem_gauges": mem_gauges,
+    }
+
+
 def phase_training(torch, fa):
     import tempfile
 
     import numpy as np
 
     import trlx_tpu_torch
+    from trlx_tpu_torch import telemetry
     from trlx_tpu_torch.models.heads import CausalLMWithValueHead, init_params
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
     rows, evals, saved_rng, plain_calls, decode_forwards = [], [], [], [0], [0]
+    overlap, window = [], {}
     orig = {
         "train_on": PPOTrainer._train_on, "evaluate": PPOTrainer.evaluate,
         "save": PPOTrainer.save, "apply": PPOTrainer._apply,
+        "finish": PPOTrainer.finish_streamed_phase,
         "fwd": fa.flash_attention_reference, "bwd": fa.flash_attention_backward_reference,
     }
 
@@ -2029,16 +2252,28 @@ def phase_training(torch, fa):
         saved_rng.append(self.generator.get_state())
         return orig["save"](self, directory)
 
+    def finish(self):
+        out = orig["finish"](self)
+        overlap.append(dict(self._last_overlap_stats))  # this phase's
+        return out
+
     def counting(name):
         def fn(*a, **kw):
             plain_calls[0] += 1
             return orig[name](*a, **kw)
         return fn
 
-    with tempfile.TemporaryDirectory() as tmp:
-        config = training_config(tmp)
+    profiler_patches = profiler_window_watch(fa, window)
+    with tempfile.TemporaryDirectory() as tmp, tempfile.TemporaryDirectory() as obs:
+        run_dir, profile_dir = os.path.join(obs, "run"), os.path.join(obs, "profiles")
+        config = training_config(tmp, telemetry={"ring_size": 1 << 16}, run_dir=run_dir,
+                                 profile_dir=profile_dir, profile_phase=PROFILED_PHASE,
+                                 health={"enabled": True,
+                                         "dump_dir": os.path.join(obs, "health_dumps")})
         PPOTrainer._train_on, PPOTrainer.evaluate, PPOTrainer.save = train_on, evaluate, save
-        PPOTrainer._apply = apply
+        PPOTrainer._apply, PPOTrainer.finish_streamed_phase = apply, finish
+        for name, (cls, patched, _) in profiler_patches.items():
+            setattr(cls, name, patched)
         fa.flash_attention_reference = counting("fwd")
         fa.flash_attention_backward_reference = counting("bwd")
         mem_start = reset_peak(torch)
@@ -2047,16 +2282,21 @@ def phase_training(torch, fa):
         reset_backward_counters(fa)
         t0 = time.perf_counter()
         try:
-            trainer = trlx_tpu_torch.train(
-                reward_fn=training_reward, prompts=training_prompts(), config=config
-            )
-            torch.cuda.synchronize()
+            with telemetry.scoped_tracer() as tracer, telemetry.scoped_metrics() as registry:
+                trainer = trlx_tpu_torch.train(
+                    reward_fn=training_reward, prompts=training_prompts(), config=config
+                )
+                torch.cuda.synchronize()
         finally:
             PPOTrainer._train_on, PPOTrainer.evaluate = orig["train_on"], orig["evaluate"]
             PPOTrainer.save, PPOTrainer._apply = orig["save"], orig["apply"]
+            PPOTrainer.finish_streamed_phase = orig["finish"]
+            for name, (cls, _, original) in profiler_patches.items():
+                setattr(cls, name, original)
             fa.flash_attention_reference = orig["fwd"]
             fa.flash_attention_backward_reference = orig["bwd"]
         wall = time.perf_counter() - t0
+        tele = telemetry_gates(torch, window, tracer, registry, overlap, run_dir, profile_dir)
         launches = {
             "flash_fwd": fa.FLASH_FWD_LAUNCHES,
             "flash_bwd_dq": fa.FLASH_BWD_DQ_LAUNCHES,
@@ -2106,13 +2346,16 @@ def phase_training(torch, fa):
     # every update backward runs bf16: the tile variant only
     expected_bwd_variants = {k: {"tile": N_LAYER * 64, "fma": 0} for k in BWD_KERNELS}
     per_phase = trainer.step // len(trainer.phase_times)
+    # phase PROFILED_PHASE ran under the profiler (and the wall holds its
+    # close): phase 0's numbers are the unprofiled ones
     phases = [
         dict(p, rollout_tokens_per_s=p["rollout_tokens"] / p["collect_s"],
-             updates_per_s=per_phase / p["train_s"])
-        for p in trainer.phase_times
+             updates_per_s=per_phase / p["train_s"], profiled=i == PROFILED_PHASE)
+        for i, p in enumerate(trainer.phase_times)
     ]
     record = {
         "wall_s": wall,
+        "wall_profiled": True,
         "updates": trainer.step,
         "phases": phases,
         "evals": evals,
@@ -2131,10 +2374,29 @@ def phase_training(torch, fa):
         "params_changed": changed,
         "rollout_cast_refreshes": trainer.rollout_cast_refreshes,
         "cast_collect_equality": cast_check,
+        "telemetry": tele,
     }
     log("phase 5: training " + json.dumps(record))
+    plain, profiled = phases[1 - PROFILED_PHASE], phases[PROFILED_PHASE]
+    log(f"phase 5: unprofiled phase {1 - PROFILED_PHASE}: collect {plain['collect_s']:.3f} s, "
+        f"train {plain['train_s']:.3f} s (the numbers to compare across trees); phase "
+        f"{PROFILED_PHASE} under the profiler: collect {profiled['collect_s']:.3f} s, train "
+        f"{profiled['train_s']:.3f} s; the wall holds the window's close")
+    log(f"phase 5: telemetry {'ok' if tele['ok'] else 'FAIL'} (wall with the telemetry on "
+        f"{wall:.2f} s; (a) traces {tele['traces']}, kernel events in phase {PROFILED_PHASE}'s "
+        f"trace {tele['trace']['kernel_events']} vs the launch counters' deltas "
+        f"{tele['launch_deltas']}, device busy {tele['trace'].get('device_busy_ms')} ms of "
+        f"the {tele['trace'].get('window_ms')} ms window, share "
+        f"{tele['trace'].get('device_busy_share')}, the window's close (stop and export) "
+        f"{tele['trace'].get('close_s')} s, the trace's read {tele['trace'].get('read_s')} s; "
+        f"(b) spans {tele['span_counts']}, per phase "
+        f"{tele['spans_per_phase']}, dropped {tele['spans_dropped']}, train/drain "
+        f"{tele['drain_ms']} ms vs exp/overlap_drain_ms {tele['overlap_drain_ms']}; (c) "
+        f"run_dir {tele['run_dir_files']}, ledger lines {tele['ledger_lines']}, phase rows "
+        f"{tele['phase_rows']}, --watch rc {tele['watch_rc']}: {tele['watch']}; platform "
+        f"{tele['manifest_platform']}; (d) gauges {tele['overlap_gauges'] + tele['mem_gauges']})")
     ok = (
-        trainer.step == 64 and len(rows) == 2 and finite and changed > 0
+        tele["ok"] and trainer.step == 64 and len(rows) == 2 and finite and changed > 0
         and restored and launches == expected and variants == expected_variants
         and bwd_variants == expected_bwd_variants and bwd_copies == 0
         and plain_calls[0] == 0 and cast_check["all_equal"]
@@ -2836,11 +3098,36 @@ def phase_bench_workload(torch, fa):
         written = random_backbone(
             torch, GPT2Model(GPT2Config.from_dict(GPT2_HF_CONFIG), device="cuda"), seed=7)
         write_hf_checkpoint(ckpt, GPT2_HF_CONFIG, gpt2_hf_layout(written))
-        for name, definition in BENCH_DEFINITIONS.items():
-            def_ok, records[name] = run_bench_definition(
-                torch, fa, name, definition, ckpt, written, prompts, tmp)
-            ok = ok and def_ok
-    return ok, records
+        # the run ledger: an environment variable, not a config change
+        ledger = os.path.join(tmp, "run_ledger.jsonl")
+        previous = os.environ.get("TRLX_RUN_LEDGER")
+        os.environ["TRLX_RUN_LEDGER"] = ledger
+        try:
+            for name, definition in BENCH_DEFINITIONS.items():
+                def_ok, records[name] = run_bench_definition(
+                    torch, fa, name, definition, ckpt, written, prompts, tmp)
+                ok = ok and def_ok
+            compare_rc, compare_out, compare_err = telemetry_cli("--compare", "~2", "~1")
+        finally:
+            if previous is None:
+                os.environ.pop("TRLX_RUN_LEDGER", None)
+            else:
+                os.environ["TRLX_RUN_LEDGER"] = previous
+        manifests = []
+        if os.path.exists(ledger):
+            with open(ledger) as fh:
+                manifests = [json.loads(line) for line in fh if line.strip()]
+    statuses = [m["payload"].get("status") for m in manifests]
+    movers = [line for line in compare_out.splitlines() if line.startswith("movers")]
+    ledger_ok = (statuses == ["ok"] * len(BENCH_DEFINITIONS) and compare_rc == 0
+                 and movers and not movers[0].startswith("movers: none"))
+    for name, manifest in zip(BENCH_DEFINITIONS, manifests):
+        records[name]["run_ledger_manifest"] = {"run_id": manifest["run_id"],
+                                                "status": manifest["payload"].get("status")}
+    log(f"phase 7: run ledger {'ok' if ledger_ok else 'FAIL'} (manifests "
+        f"{[m['run_id'] for m in manifests]}, status {statuses}; --compare ~2 ~1 rc "
+        f"{compare_rc}: {compare_out.splitlines()[:12]} {compare_err[-400:]})")
+    return ok and ledger_ok, records
 
 
 # configs/ilql_sentiments.yml as written, cut to two epochs of the
@@ -2858,11 +3145,13 @@ ILQL_DEVIATIONS = (
     ("train.total_steps", 1000, ILQL_UPDATES, "the smoke's time limit"),
     ("train.eval_interval", 100, 16, "three evals in the cut run"),
     ("train.checkpoint_interval", 1000, ILQL_UPDATES, "one checkpoint, at the end"),
+    ("train.run_dir", None, "a directory in the phase's temporary directory",
+     "the run ledger's manifest is gated"),
 )
 ILQL_TOP_K = 20  # the eval decode's default top_k (DEFAULT_ILQL_GEN_KWARGS)
 
 
-def ilql_config(checkpoint_dir: str):
+def ilql_config(checkpoint_dir: str, run_dir=None):
     """``configs/ilql_sentiments.yml`` as written, with the deviations
     (``model_path`` is given to ``train``; without it the weights are
     random at GPT-2 small's widths)."""
@@ -2874,7 +3163,8 @@ def ilql_config(checkpoint_dir: str):
                                             "n_head")}
     cfg["model"].update(model_path="", tokenizer_path="", model_arch=arch)
     cfg["train"].update(total_steps=ILQL_UPDATES, eval_interval=16,
-                        checkpoint_interval=ILQL_UPDATES, checkpoint_dir=checkpoint_dir)
+                        checkpoint_interval=ILQL_UPDATES, checkpoint_dir=checkpoint_dir,
+                        run_dir=run_dir)
     return TRLConfig.from_dict(cfg)
 
 
@@ -3013,7 +3303,7 @@ def phase_ilql(torch, fa):
         written = random_backbone(
             torch, GPT2Model(GPT2Config.from_dict(GPT2_HF_CONFIG), device="cuda"), seed=13)
         write_hf_checkpoint(ckpt, GPT2_HF_CONFIG, gpt2_hf_layout(written))
-        config = ilql_config(run_dir)
+        config = ilql_config(run_dir, run_dir=os.path.join(tmp, "ledger_run"))
         ILQLTrainer.learn, ILQLTrainer.train_step = learn, train_step
         ILQLTrainer.evaluate, ILQLTrainer.sample = evaluate, sample
         ILQLTrainer._sample_apply, ILQLTrainer.save = sample_apply, save
@@ -3047,6 +3337,11 @@ def phase_ilql(torch, fa):
         bwd_variants = backward_variant_launches(fa)
         bwd_copies = fa.FLASH_BWD_COPIES
         updates = trainer.step
+        manifest_path = os.path.join(tmp, "ledger_run", "manifest.json")
+        manifest = {}
+        if os.path.exists(manifest_path):
+            with open(manifest_path) as fh:
+                manifest = json.load(fh)
         finite = all(math.isfinite(v) for r in rows for v in r.values()) and all(
             math.isfinite(v) for e in evals for v in e.values())
 
@@ -3103,6 +3398,8 @@ def phase_ilql(torch, fa):
         "load_restores": restored, "eval_logprobs_finite": decoded["finite"],
         "eval_tokens_in_top_k": decoded["top_k"], "eval_live_tokens": decoded["live"],
         "stats_finite": finite,
+        "manifest": {"kind": manifest.get("kind"), "payload": manifest.get("payload"),
+                     "platform": manifest.get("platform")},
     }
     log("phase 8: ilql " + json.dumps(record))
     ok = (
@@ -3114,6 +3411,8 @@ def phase_ilql(torch, fa):
         and launches == expected and variants == expected_variants
         and bwd_variants == expected_bwd_variants and bwd_copies == 0 and plain_calls[0] == 0
         and restored and decoded["finite"] and decoded["top_k"] and decoded["live"] > 0
+        and manifest.get("kind") == "train/ILQLTrainer"
+        and (manifest.get("payload") or {}).get("status") == "ok"
     )
     log(f"phase 8: ilql {'ok' if ok else 'FAIL'} (loaded backbone equals the written checkpoint: "
         f"{record['loaded_equals_written']}; updates={updates}, stats finite={finite}, "
@@ -3126,7 +3425,8 @@ def phase_ilql(torch, fa):
         f"{ILQL_TOP_K} of the shifted logits={decoded['top_k']} ({decoded['live']} live); wall "
         f"{wall:.2f} s of which checkpoint load {times['load_s']:.2f} s, "
         f"{record['updates_per_s']} updates/s, {record['eval_tokens_per_s']} eval tokens/s, "
-        f"peak memory {peak} B, {mem_start} B allocated at the start)")
+        f"peak memory {peak} B, {mem_start} B allocated at the start; run ledger manifest "
+        f"{manifest.get('kind')} status {(manifest.get('payload') or {}).get('status')})")
     del trainer
     torch.cuda.empty_cache()
     return ok, record
@@ -4177,14 +4477,8 @@ def device_summary(prof, wall: float) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         trace = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(trace)
-        with open(trace) as fh:
-            events = json.load(fh)["traceEvents"]
-    kernels = [e for e in events
-               if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
-    busy, end = 0.0, -1.0
-    for start, stop in sorted((e["ts"], e["ts"] + e["dur"]) for e in kernels):
-        busy += max(0.0, stop - max(start, end))
-        end = max(end, stop)
+        kernels = read_chrome_trace(trace)["device"]
+    busy = device_busy_us(kernels)
     by_name = {}
     for e in kernels:
         n, total = by_name.get(e["name"], (0, 0.0))

@@ -10,7 +10,10 @@ KL reference is taken again from them, as the trainer takes it at
 construction. A sampled run (``sampled=True``) records every key the JAX
 trainer's sampler and continuous engine draw from, and
 :func:`inject_jax_noise` hands the port's the Gumbel noise of those keys,
-so sampled tokens match exactly.
+so sampled tokens match exactly. Each package's ``learn()`` runs under a
+fresh tracer and metrics registry of its own (``scoped_tracer`` /
+``scoped_metrics``), returned as ``tracer`` and ``metrics`` for the span
+and registry parity checks (:func:`span_tree`).
 """
 
 import jax
@@ -98,10 +101,15 @@ def run_jax(cfg: dict, data=None, sampled: bool = False) -> dict:
     record(trainer, "evaluate", log["eval"])
     if sampled:
         _record_keys(trainer, log)
-    trainer.learn()
+    from trlx_tpu import telemetry
+
+    with telemetry.scoped_tracer() as tracer, telemetry.scoped_metrics() as metrics:
+        trainer.learn()
     buf = jax.device_get(trainer.buffer.full)
     return {
         "trainer": trainer,
+        "tracer": tracer,
+        "metrics": metrics,
         "sample_keys": log["sample_keys"],
         "phase_keys": log["phase_keys"],
         "init": init,
@@ -254,6 +262,35 @@ def _record_grad_floor(trainer) -> dict:
     return floor
 
 
+def _port_learn(trainer):
+    """``trainer.learn()`` under a fresh tracer and registry; returns them."""
+    from trlx_tpu_torch import telemetry
+
+    with telemetry.scoped_tracer() as tracer, telemetry.scoped_metrics() as metrics:
+        trainer.learn()
+    return tracer, metrics
+
+
+def span_tree(tracer) -> dict:
+    """``{name: {"count": n, "parents": {parent name: n}}}`` over a tracer's
+    spans (a top-level span's parent is ``None``)."""
+    spans = tracer.spans()
+    names = {s.index: s.name for s in spans}
+    tree = {}
+    for s in spans:
+        entry = tree.setdefault(s.name, {"count": 0, "parents": {}})
+        entry["count"] += 1
+        parent = names.get(s.parent)
+        entry["parents"][parent] = entry["parents"].get(parent, 0) + 1
+    return tree
+
+
+def registry_names(registry) -> dict:
+    """A metrics registry's instrument names by kind."""
+    snap = registry.snapshot()
+    return {kind: sorted(snap[kind]) for kind in ("counters", "gauges", "histograms")}
+
+
 def run_port(trainer) -> dict:
     """The port's greedy phase; also the elements whose gradient fell below
     ``NOISY_GRAD`` in some update, as ``noisy``."""
@@ -262,10 +299,12 @@ def run_port(trainer) -> dict:
     record(trainer, "_train_on", log["phase"])
     record(trainer, "evaluate", log["eval"])
     floor = _record_grad_floor(trainer)
-    trainer.learn()
+    tracer, metrics = _port_learn(trainer)
     buf = trainer.buffer.full
     return {
         "trainer": trainer,
+        "tracer": tracer,
+        "metrics": metrics,
         "buffer": {k: getattr(buf, k).numpy() for k in BUFFER_KEYS},
         "ref": torch.cat(log["ref"]).numpy(),
         "rows": log["phase"][0][0],
@@ -284,10 +323,12 @@ def run_port_sampled(trainer, jax_run) -> dict:
     log = {"phase": []}
     record(trainer, "_train_on", log["phase"])
     floor = _record_grad_floor(trainer)
-    trainer.learn()
+    tracer, metrics = _port_learn(trainer)
     buf = trainer.buffer.full
     return {
         "trainer": trainer,
+        "tracer": tracer,
+        "metrics": metrics,
         "buffer": {k: getattr(buf, k).numpy() for k in BUFFER_KEYS},
         "rows": log["phase"][0][0],
         "phase_rows": [p[0] for p in log["phase"]],

@@ -40,9 +40,11 @@ from _torch_ppo_phase import (
     config,
     engine_noise,
     port_trainer,
+    registry_names,
     reward_fn,
     run_jax,
     run_port_sampled,
+    span_tree,
 )
 
 ENGINE = {"engine": "continuous", "slots": 16, "admit_width": 8, "harvest_width": 8,
@@ -240,6 +242,22 @@ def test_phase_updates_and_final_params_match(runs):
     assert moved > 1e-4
 
 
+def test_phase_span_tree_and_registry_names_match(runs):
+    """On the engine: the same spans, nested the same way (the engine's
+    ``collect/admit``, ``collect/prefill`` and ``collect/slot_recycle``
+    inside ``phase/collect``), and the same registry names, ``engine/*``
+    gauges included."""
+    jax_run, port_run, _ = runs
+    got, want = span_tree(port_run["tracer"]), span_tree(jax_run["tracer"])
+    assert got == want
+    for name in ("collect/admit", "collect/prefill", "collect/slot_recycle"):
+        assert got[name]["parents"] == {"phase/collect": got[name]["count"]}, name
+    assert port_run["tracer"].dropped == jax_run["tracer"].dropped == 0
+    names = registry_names(port_run["metrics"])
+    assert names == registry_names(jax_run["metrics"])
+    assert "engine/slot_util" in names["gauges"]
+
+
 # ------------- one learn() phase with chunking and spec decode ------------- #
 
 FEATURE_ENGINE = dict(PHASE_ENGINE, prefill_chunk=3,
@@ -321,8 +339,8 @@ REFUSALS = {
     # trainer builds with them
     "async_rl": ("PPOTrainer", {"train": {"async_rl": {"enabled": True}}}, None, None),
     "async_checkpoint": ("PPOTrainer", {"train": {"async_checkpoint": True}}, None, None),
-    "telemetry": ("PPOTrainer", {"train": {"telemetry": {"ring_size": 1024}}},
-                  NotImplementedError, "telemetry"),
+    # refused until the span tracer (ROADMAP item 19's core) landed
+    "telemetry": ("PPOTrainer", {"train": {"telemetry": {"ring_size": 1024}}}, None, None),
     # the reference's own refusals: a chunk budget needs chunking, and the
     # fixed sampler has no verify step
     "prefill_chunk": ("PPOTrainer", {"train": {"rollout": dict(
@@ -342,7 +360,12 @@ def test_refusals(tmp_path, name):
     for section, values in overrides.items():
         cfg[section].update(values)
     if error is None:
-        built = get_trainer(trainer)(TRLConfig.from_dict(cfg), device="cpu")
+        from trlx_tpu_torch import telemetry
+
+        with telemetry.scoped_tracer() as tracer:
+            built = get_trainer(trainer)(TRLConfig.from_dict(cfg), device="cpu")
+        assert tracer._records.maxlen == (1024 if name == "telemetry" else
+                                          telemetry.DEFAULT_RING_SIZE)
         assert built.rollout_engine == "continuous"
         for key, value in overrides["train"].items():
             assert built.config.train.training[key] == value, key

@@ -34,7 +34,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_ppo_phase import config, port_trainer, run_jax, run_port
+from _torch_ppo_phase import config, port_trainer, run_jax, run_port, span_tree
 from trlx_tpu.telemetry import flight_recorder as jfr
 from trlx_tpu.telemetry import health as jh
 from trlx_tpu_torch.telemetry import flight_recorder as tfr
@@ -234,6 +234,12 @@ def test_ppo_phase_events_match_jax(health_runs):
         (e.detector, e.severity, e.series, e.step, e.phase) for e in want]
     np.testing.assert_allclose([e.value for e in got], [e.value for e in want],
                                atol=2e-4, rtol=2e-4)
+    # one zero-length health/<detector> marker span per trip, in both
+    markers = {name: entry for name, entry in span_tree(port_run["tracer"]).items()
+               if name.startswith("health/")}
+    assert markers == {name: entry for name, entry in span_tree(jax_run["tracer"]).items()
+                       if name.startswith("health/")}
+    assert sum(m["count"] for m in markers.values()) == len(got)
 
 
 def test_ppo_phase_flight_dump_matches_the_jax_record(health_runs):
@@ -246,6 +252,11 @@ def test_ppo_phase_flight_dump_matches_the_jax_record(health_runs):
     assert set(got) == set(want) and got["reason"] == want["reason"] == "flight_dump_phase:0"
     assert [set(p) for p in got["phases"]] == [set(p) for p in want["phases"]]
     assert [p["phase"] for p in got["phases"]] == [p["phase"] for p in want["phases"]]
+    # the span and registry sections hold the same names
+    assert [sorted(p["spans"]) for p in got["phases"]] == [
+        sorted(p["spans"]) for p in want["phases"]]
+    assert [{k: sorted(v) for k, v in p["metrics"].items()} for p in got["phases"]] == [
+        {k: sorted(v) for k, v in p["metrics"].items()} for p in want["phases"]]
 
 
 def test_health_is_bitwise_inert(health_runs):
@@ -310,7 +321,11 @@ def test_engine_failure_degrades_to_the_fixed_sampler_with_an_event(tmp_path):
 
     orch._make_experience_continuous = broken
     trainer._phase_index = 0
-    orch.make_experience(cfg["method"]["num_rollouts"], 0)
+    from trlx_tpu_torch import telemetry
+
+    with telemetry.scoped_tracer() as tracer:
+        orch.make_experience(cfg["method"]["num_rollouts"], 0)
+    assert [s.name for s in tracer.spans("health/engine-fallback")] == ["health/engine-fallback"]
     assert trainer.rollout_engine == "fixed" and len(trainer.buffer) == 16
     (ev,) = [e for e in trainer.health_monitor.events if e.detector == "engine-fallback"]
     assert (ev.severity, ev.series, ev.step, ev.phase) == ("warning", "engine", 0, 0)

@@ -307,13 +307,14 @@ def test_save_load_round_trip(runs, tmp_path):
 
 #: match ``None``: a feature once refused here that the port now has (the
 #: asynchronous checkpoint write, ROADMAP item 8; the gpt2_moe family,
-#: item 13; run-health monitoring, item 19's health part; resume inside
-#: ``learn``, item 6 with item 18): the trainer builds with it
+#: item 13; run-health monitoring, item 19's health part; the span ring's
+#: ``train.telemetry``, item 19's core; resume inside ``learn``, item 6
+#: with item 18): the trainer builds with it
 REFUSALS = {
     "continuous_engine": ({"train": {"rollout": {"engine": "continuous"}}}, "no rollout engine"),
     "async_rl": ({"train": {"async_rl": {"enabled": True}}}, "async_rl"),
     "async_checkpoint": ({"train": {"async_checkpoint": True}}, None),
-    "telemetry": ({"train": {"telemetry": {"ring_size": 1024}}}, "telemetry"),
+    "telemetry": ({"train": {"telemetry": {"ring_size": 1024}}}, None),
     "mesh": ({"train": {"mesh": {"dp": 2, "fsdp": 1, "tp": 1}}}, "item 14"),
     "pp": ({"train": {"pp_microbatches": 4}}, "item 14"),
     "resume": ({"train": {"resume_from_checkpoint": True}}, None),
@@ -333,8 +334,13 @@ def test_unported_features_are_refused_by_name(tmp_path, name):
     for section, values in override.items():
         cfg[section].update(values)
     if match is None:
-        trainer = get_trainer("ILQLTrainer")(TRLConfig.from_dict(cfg), device="cpu")
-        if name == "moe_family":
+        from trlx_tpu_torch import telemetry
+
+        with telemetry.scoped_tracer() as tracer:
+            trainer = get_trainer("ILQLTrainer")(TRLConfig.from_dict(cfg), device="cpu")
+        if name == "telemetry":
+            assert tracer._records.maxlen == 1024  # the ring sized from the config
+        elif name == "moe_family":
             assert trainer.family.is_moe
             assert type(trainer.model.transformer).__name__ == "GPT2MoEModel"
         elif name == "health":

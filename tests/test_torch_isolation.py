@@ -57,6 +57,26 @@ def test_importing_every_module_loads_no_jax_or_reference():
     assert not bad, f"importing the port loaded {bad}"
 
 
+@pytest.mark.parametrize("module", ["tracer", "metrics", "run_ledger"])
+def test_telemetry_core_imports_no_torch(module):
+    """The tracer, the registry and the run ledger import only the standard
+    library (the ledger's platform probe imports torch when called), so a
+    span can never touch the device."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module('trlx_tpu_torch.telemetry.{module}')\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = ROOT
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=ROOT, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    heavy = [m for m in loaded if m.split(".")[0] in FORBIDDEN_ROOTS | {"torch", "numpy"}]
+    assert not heavy, f"importing telemetry.{module} loaded {heavy}"
+
+
 @pytest.mark.parametrize(
     "path", sorted(_sources()), ids=lambda p: os.path.relpath(p, ROOT)
 )

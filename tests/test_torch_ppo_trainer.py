@@ -24,7 +24,9 @@ order):
   ``lr`` per update in a direction the noise decides on either side: they
   are held to twice the summed learning rate;
 - the KL coefficient sequence and eval rewards: exact / 1e-6;
-- a ``save``/``load`` round trip restores the state exactly.
+- a ``save``/``load`` round trip restores the state exactly;
+- the span tree (per-name counts and parent names) and the metrics
+  registry's names: equal.
 
 One run of each trainer is shared by the module's tests.
 """
@@ -41,7 +43,9 @@ from _torch_ppo_phase import (
     record,
     reward_fn,
     run_jax,
+    registry_names,
     run_port,
+    span_tree,
 )
 
 
@@ -106,6 +110,21 @@ def test_eval_rewards_match(runs):
     for got, want in zip(port_run["eval"], jax_run["eval"]):
         for key in ("reward/mean", "reward/std"):
             np.testing.assert_allclose(got[key], want[key], rtol=1e-6, atol=1e-7)
+
+
+def test_span_tree_and_registry_names_match(runs):
+    """The same spans, nested the same way, and the same registry names
+    (no name of either package lacks a counterpart on this path)."""
+    jax_run, port_run, _ = runs
+    got, want = span_tree(port_run["tracer"]), span_tree(jax_run["tracer"])
+    assert got == want
+    assert got["phase/collect"]["count"] == got["phase/train"]["count"] == 1
+    assert got["train/epoch1_dispatch"]["parents"] == {"collect/land": 2}
+    assert port_run["tracer"].dropped == jax_run["tracer"].dropped == 0
+    assert registry_names(port_run["metrics"]) == registry_names(jax_run["metrics"])
+    gauges = port_run["metrics"].snapshot()["gauges"]
+    drain = port_run["tracer"].spans("train/drain")[0].duration_ms
+    assert gauges["exp/overlap_drain_ms"] == drain
 
 
 def test_save_load_round_trip(runs):

@@ -43,8 +43,16 @@ mid-prefill. Rows already decoding go on under the new policy (their
 recorded logprobs stay the true behaviour logprobs); each row is tagged
 with the version it was admitted under, and each harvest group carries
 those tags (``versions``). :meth:`~ContinuousBatchingEngine.min_inflight_version`
-reads the oldest version any unharvested row will carry. Request tracing
-(ROADMAP item 19) is not ported yet.
+reads the oldest version any unharvested row will carry.
+
+Telemetry, at the JAX engine's sites: the forced spans ``collect/admit``
+(a group's slot reservation and staging), ``collect/prefill`` (each
+monolithic prefill, chunk run or finish chunk launch) and
+``collect/slot_recycle`` (each harvest group's refill), and the
+``engine/*`` registry gauges (``slot_util`` at each paid done-poll, the
+prefix and chunk counters after each admission, the speculative rates
+after each verify step). Request tracing and the ``serve/*`` histograms
+are ROADMAP item 16's.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Set, Tuple
 import numpy as np
 import torch
 
+from trlx_tpu_torch import telemetry
 from trlx_tpu_torch.inference.kv_cache import (
     SHARE_TABLE_KEYS,
     SHARED_POOL_KEYS,
@@ -902,74 +911,76 @@ class ContinuousBatchingEngine:
 
     def _begin_admission(self) -> None:
         """Reserve slots for the next group of at most ``admit_width``
-        queued prompts and stage its arrays; the launches happen in
-        :meth:`_advance_admission`."""
-        sharing = self.prefix_pool_blocks > 0
-        nb_prompt = self.Q // self.block_size  # shareable prompt blocks
-        take = min(len(self._free), len(self._queue), self.admit_width)
-        slots = [self._free.pop(0) for _ in range(take)]
-        entries = [self._queue.pop(0) for _ in range(take)]
-        shared_map = np.full((take, self.n_blocks), -1, np.int64)
-        publish_map = np.full((take, self.n_blocks), -1, np.int64)
-        released_slots = []
-        for i, (slot, (ids, mask, row, sh_row, pub_row, release)) in enumerate(
-            zip(slots, entries)
-        ):
-            self._busy_rows[slot] = row
-            self._slot_versions[slot] = self.param_version
-            if release:
-                released_slots.append(slot)
-            if sh_row is not None:
-                shared_map[i, :len(sh_row)] = sh_row
-            if pub_row is not None:
-                publish_map[i, :len(pub_row)] = pub_row
-            if sharing and not release:
-                self.stats.prefix_lookup_blocks += nb_prompt
-                self.stats.prefix_hit_blocks += int(
-                    np.sum((shared_map[i] >= 0) & (publish_map[i] < 0))
+        queued prompts and stage its arrays, inside a ``collect/admit``
+        span; the launches happen in :meth:`_advance_admission`."""
+        with telemetry.span("collect/admit", force=True):
+            sharing = self.prefix_pool_blocks > 0
+            nb_prompt = self.Q // self.block_size  # shareable prompt blocks
+            take = min(len(self._free), len(self._queue), self.admit_width)
+            slots = [self._free.pop(0) for _ in range(take)]
+            entries = [self._queue.pop(0) for _ in range(take)]
+            shared_map = np.full((take, self.n_blocks), -1, np.int64)
+            publish_map = np.full((take, self.n_blocks), -1, np.int64)
+            released_slots = []
+            for i, (slot, (ids, mask, row, sh_row, pub_row, release)) in enumerate(
+                zip(slots, entries)
+            ):
+                self._busy_rows[slot] = row
+                self._slot_versions[slot] = self.param_version
+                if release:
+                    released_slots.append(slot)
+                if sh_row is not None:
+                    shared_map[i, :len(sh_row)] = sh_row
+                if pub_row is not None:
+                    publish_map[i, :len(pub_row)] = pub_row
+                if sharing and not release:
+                    self.stats.prefix_lookup_blocks += nb_prompt
+                    self.stats.prefix_hit_blocks += int(
+                        np.sum((shared_map[i] >= 0) & (publish_map[i] < 0))
+                    )
+                    self.stats.prefix_published_blocks += int(np.sum(publish_map[i] >= 0))
+                if self.spec_drafter is not None and not release:
+                    # seed the row's history with its real prompt tokens
+                    self.spec_drafter.observe_context(
+                        row, [int(x) for x in ids[mask.astype(bool)]]
+                    )
+            dev, nb = self.device, self.n_blocks
+            prompt_mask = np.stack([e[1] for e in entries])
+            mask = torch.as_tensor(prompt_mask, dtype=torch.long).to(dev)
+            turns = torch.as_tensor(
+                [int(self._recycle_counts[s]) for s in slots], dtype=torch.long
+            ).to(dev)
+            adm = {
+                "take": take,
+                "entries": entries,
+                "slots": slots,
+                "slot_t": torch.as_tensor(slots, dtype=torch.long).to(dev),
+                "row_t": torch.as_tensor([e[2] for e in entries], dtype=torch.long).to(dev),
+                "ids": torch.as_tensor(np.stack([e[0] for e in entries]),
+                                       dtype=torch.long).to(dev),
+                "mask": mask,
+                "positions": (mask.cumsum(-1) - 1).clamp_min(0),
+                # a recycled slot gets a rotated table
+                "tables": ((torch.arange(nb, device=dev)[None, :] + turns[:, None]) % nb).to(
+                    torch.int32
+                ),
+                "shared_map": None,
+                "publish_map": None,
+                "released_slots": released_slots,
+                "need": None,
+                "next_chunk": 0,
+                "t_admit": monotonic(),
+            }
+            if sharing:
+                adm["shared_map"] = torch.as_tensor(shared_map, dtype=torch.int32).to(dev)
+                adm["publish_map"] = torch.as_tensor(publish_map, dtype=torch.int32).to(dev)
+            if self.prefill_chunk > 0:
+                adm["need"] = self._plan_chunk_need(
+                    prompt_mask,
+                    shared_map if sharing else None,
+                    publish_map if sharing else None,
                 )
-                self.stats.prefix_published_blocks += int(np.sum(publish_map[i] >= 0))
-            if self.spec_drafter is not None and not release:
-                # seed the row's history with its real prompt tokens
-                self.spec_drafter.observe_context(
-                    row, [int(x) for x in ids[mask.astype(bool)]]
-                )
-        dev, nb = self.device, self.n_blocks
-        prompt_mask = np.stack([e[1] for e in entries])
-        mask = torch.as_tensor(prompt_mask, dtype=torch.long).to(dev)
-        turns = torch.as_tensor(
-            [int(self._recycle_counts[s]) for s in slots], dtype=torch.long
-        ).to(dev)
-        adm = {
-            "take": take,
-            "entries": entries,
-            "slots": slots,
-            "slot_t": torch.as_tensor(slots, dtype=torch.long).to(dev),
-            "row_t": torch.as_tensor([e[2] for e in entries], dtype=torch.long).to(dev),
-            "ids": torch.as_tensor(np.stack([e[0] for e in entries]), dtype=torch.long).to(dev),
-            "mask": mask,
-            "positions": (mask.cumsum(-1) - 1).clamp_min(0),
-            # a recycled slot gets a rotated table
-            "tables": ((torch.arange(nb, device=dev)[None, :] + turns[:, None]) % nb).to(
-                torch.int32
-            ),
-            "shared_map": None,
-            "publish_map": None,
-            "released_slots": released_slots,
-            "need": None,
-            "next_chunk": 0,
-            "t_admit": monotonic(),
-        }
-        if sharing:
-            adm["shared_map"] = torch.as_tensor(shared_map, dtype=torch.int32).to(dev)
-            adm["publish_map"] = torch.as_tensor(publish_map, dtype=torch.int32).to(dev)
-        if self.prefill_chunk > 0:
-            adm["need"] = self._plan_chunk_need(
-                prompt_mask,
-                shared_map if sharing else None,
-                publish_map if sharing else None,
-            )
-        self._inflight_admission = adm
+            self._inflight_admission = adm
 
     def _advance_admission(self, budget: Optional[int]) -> Tuple[bool, int]:
         """Launch the in-flight admission's next prefill work: the whole
@@ -978,7 +989,8 @@ class ContinuousBatchingEngine:
         ``(admission complete, chunk forwards launched)``."""
         adm = self._inflight_admission
         if self.prefill_chunk == 0:
-            self.prefill(adm)
+            with telemetry.span("collect/prefill", force=True, admitted=adm["take"]):
+                self.prefill(adm)
             self._finalize_admission()
             return True, 1
         n_scan = self.n_prefill_chunks - 1
@@ -992,13 +1004,19 @@ class ContinuousBatchingEngine:
             else:
                 run, hi = idx, n_scan
             if run:
-                self.prefill_chunks(adm, run)
+                with telemetry.span("collect/prefill", force=True, admitted=adm["take"],
+                                    chunks=len(run)):
+                    self.prefill_chunks(adm, run)
                 self.stats.prefill_chunks += len(run)
                 spent = len(run)
             adm["next_chunk"] = hi
             if hi < n_scan or (budget is not None and spent >= budget):
                 return False, spent
-        self.prefill_finish(adm)
+        # the finish chunk always runs: every left-padded row's last real
+        # column lives there
+        with telemetry.span("collect/prefill", force=True, admitted=adm["take"], chunks=1,
+                            finish=True):
+            self.prefill_finish(adm)
         self.stats.prefill_chunks += 1
         skipped = int(n_scan - np.count_nonzero(need[:n_scan]))
         self.stats.prefill_cols_skipped += skipped * self.prefill_chunk
@@ -1028,6 +1046,16 @@ class ContinuousBatchingEngine:
         # new occupants joined the pool: a staged draft matrix no longer
         # covers it
         self._staged_drafts = None
+        registry = telemetry.get_metrics()
+        if self.prefix_pool_blocks > 0:
+            registry.gauge("engine/prefix_hit_rate").set(self.stats.prefix_hit_rate)
+            registry.gauge("engine/prefix_blocks_saved").set(self.stats.prefix_blocks_saved)
+        if self.prefill_chunk > 0:
+            registry.gauge("engine/prefill_chunks").set(float(self.stats.prefill_chunks))
+            registry.gauge("engine/prefill_cols_skipped").set(
+                float(self.stats.prefill_cols_skipped))
+            registry.gauge("engine/prefill_flops_saved").set(
+                float(self.stats.prefill_flops_saved))
         if self._admit_listener is not None:
             self._admit_listener([e[2] for e in adm["entries"]])
 
@@ -1074,7 +1102,8 @@ class ContinuousBatchingEngine:
         while len(self._done_slots) >= C:
             slots = self._done_slots[:C]
             self._done_slots = self._done_slots[C:]
-            outs = self.refill(slots)
+            with telemetry.span("collect/slot_recycle", force=True, harvested=C):
+                outs = self.refill(slots)
             rows = [self._busy_rows.pop(s) for s in slots]
             versions = [int(self._slot_versions[s]) for s in slots]
             t_done = monotonic()
@@ -1217,6 +1246,9 @@ class ContinuousBatchingEngine:
                 }
                 if emitted:
                     self.token_sink(emitted)
+        registry = telemetry.get_metrics()
+        registry.gauge("engine/spec_accept_rate").set(self.stats.spec_accept_rate)
+        registry.gauge("engine/spec_tokens_per_step").set(self.stats.spec_tokens_per_step)
         self._staged_drafts = self._draft_now()
         self._poll_done(done)
 
@@ -1253,6 +1285,8 @@ class ContinuousBatchingEngine:
         self._steps_since_poll = 0
         done_host = done.cpu().numpy()
         self.stats.done_polls += 1
+        # occupancy timeseries: one gauge sample per paid done-poll
+        telemetry.get_metrics().gauge("engine/slot_util").set(self.stats.slot_util)
         now = monotonic()
         for row in self._awaiting_first:
             marks = self._req_times.get(row)

@@ -21,8 +21,10 @@ admitted request, released at completion); ``rollout.prefill_chunk`` and
 ``rollout.spec_decode`` drafts with the trie drafter bound to the pool (or
 the n-gram drafter). ``model.model_arch.kv_cache_dtype`` (``int8``, or
 ``auto`` at the engine's capacity) gives an int8 cache and an int8 pool.
-Not ported yet (ROADMAP item 19): the health monitor's SLO watch, request
-tracing and the ``serve/*`` histograms.
+The engine's spans and ``engine/*`` gauges land in the port's tracer and
+metrics registry (:mod:`trlx_tpu_torch.telemetry`). Not ported yet (ROADMAP
+item 16): the health monitor's SLO watch, request tracing and the
+``serve/*`` histograms, which read that tracer and registry.
 """
 
 from __future__ import annotations

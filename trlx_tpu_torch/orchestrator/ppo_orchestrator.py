@@ -27,7 +27,24 @@ the supervisor retries; a learner-side or reward-function error
 propagates as itself.
 
 The collect stats row feeds the trainer's run-health detectors
-(``exp/score_std`` is the reward-saturation series).
+(``exp/score_std`` is the reward-saturation series) and is absorbed into
+the metrics registry.
+
+Timing is span-sourced, with the JAX orchestrator's names: each path runs
+inside a forced ``phase/collect`` span (``exp/experience_time``), with
+``collect/prompt_draw``, the forced ``collect/dispatch`` (the sampler call
+on the fixed path, the phase start and every submit on the engine:
+``exp/dispatch_time``), ``collect/decode`` (the responses' fetch and
+detokenisation: ``exp/generate_time``), ``collect/score`` (the reward:
+``exp/score_time``) and ``collect/land`` (reward shaping, the push, and
+the streamed phase's epoch-1 updates the landing hook runs) inside it.
+The port's samplers run to their end inside the call, so generation's cost
+lands in ``exp/dispatch_time`` on the fixed path, and ``exp/generate_time``
+is the fetch (which waits for the reference forward queued behind the
+sampler) and the detokenisation alone. In the JAX package the sampler call
+only enqueues, and generation lands in ``exp/generate_time``; the sum of
+the two stats reads as generation in both. As there, the reference
+forward's launch is in no sub-span.
 
 Under ``train.rollout_logging_dir`` each scored batch's rows (query,
 response, raw score) go to ``<dir>/run_<time>-<pid>/rollouts_<step>.jsonl``
@@ -46,10 +63,11 @@ from typing import Any, Callable, Dict, Optional
 import numpy as np
 import torch
 
+from trlx_tpu_torch import telemetry
 from trlx_tpu_torch.data.ppo_types import PPORolloutBatch
 from trlx_tpu_torch.ops.ppo_math import group_whiten
 from trlx_tpu_torch.orchestrator import register_orchestrator
-from trlx_tpu_torch.utils import RunningMoments, infinite_loader, monotonic
+from trlx_tpu_torch.utils import RunningMoments, infinite_loader
 
 
 @register_orchestrator
@@ -290,46 +308,56 @@ class PPOOrchestrator:
     def _make_experience_fixed(self, num_rollouts: int, iter_count: int) -> Dict[str, float]:
         tr = self.trainer
         method = tr.config.method
-        t0 = monotonic()
         collected = 0
-        generate_time = score_time = 0.0
+        generate_time = dispatch_time = score_time = 0.0
         all_scores = []
-        while collected < num_rollouts:
-            batch, meta = self._expand_groups(*self._draw())
-            t1 = monotonic()
-            out = tr.sample(batch.input_ids, batch.attention_mask)
-            query_tokens = batch.input_ids.to(tr.device)
-            query_mask = batch.attention_mask.to(tr.device)
-            ref_logprobs = tr.score_ref(
-                query_tokens, query_mask, out.tokens, out.response_mask
-            )
-            texts = tr.decode_responses(out.tokens, out.response_mask)
-            generate_time += monotonic() - t1
-            t1 = monotonic()
-            scores = np.asarray(
-                self.score(texts, meta["prompts_text"], meta["response_gt"]),
-                dtype=np.float32,
-            )
-            score_time += monotonic() - t1
-            all_scores.append(scores.copy())
-            self._log_rollouts(meta["prompts_text"], texts, scores, iter_count)
-            scores = self._scale_scores(scores, method)
-            rewards = tr.compute_rewards(
-                out.logprobs, ref_logprobs, out.response_mask, scores
-            )
-            tr.buffer.push(PPORolloutBatch(
-                query_tokens=query_tokens,
-                query_mask=query_mask,
-                response_tokens=out.tokens,
-                response_mask=out.response_mask,
-                logprobs=out.logprobs,
-                values=out.values,
-                rewards=rewards,
-            ))
-            collected += len(batch)
-            tr.on_rollouts_landed()
+        with telemetry.span("phase/collect", force=True,
+                            rollouts=int(num_rollouts)) as collect_sp:
+            while collected < num_rollouts:
+                with telemetry.span("collect/prompt_draw"):
+                    batch, meta = self._draw()
+                batch, meta = self._expand_groups(batch, meta)
+                with telemetry.span("collect/dispatch", force=True) as sp:
+                    out = tr.sample(batch.input_ids, batch.attention_mask)
+                dispatch_time += sp.duration_ms / 1000.0
+                query_tokens = batch.input_ids.to(tr.device)
+                query_mask = batch.attention_mask.to(tr.device)
+                ref_logprobs = tr.score_ref(
+                    query_tokens, query_mask, out.tokens, out.response_mask
+                )
+                # the fetch waits for the sampler and the reference: where
+                # generation's cost lands on the host
+                with telemetry.span("collect/decode", force=True) as sp:
+                    texts = tr.decode_responses(out.tokens, out.response_mask)
+                generate_time += sp.duration_ms / 1000.0
+                with telemetry.span("collect/score", force=True) as sp:
+                    scores = np.asarray(
+                        self.score(texts, meta["prompts_text"], meta["response_gt"]),
+                        dtype=np.float32,
+                    )
+                score_time += sp.duration_ms / 1000.0
+                all_scores.append(scores.copy())
+                self._log_rollouts(meta["prompts_text"], texts, scores, iter_count)
+                scores = self._scale_scores(scores, method)
+                with telemetry.span("collect/land") as land_sp:
+                    rewards = tr.compute_rewards(
+                        out.logprobs, ref_logprobs, out.response_mask, scores
+                    )
+                    tr.buffer.push(PPORolloutBatch(
+                        query_tokens=query_tokens,
+                        query_mask=query_mask,
+                        response_tokens=out.tokens,
+                        response_mask=out.response_mask,
+                        logprobs=out.logprobs,
+                        values=out.values,
+                        rewards=rewards,
+                    ))
+                    collected += len(batch)
+                    land_sp.set(landed=collected)
+                    tr.on_rollouts_landed()
         return self._finish_collect_stats(
-            t0, collected, all_scores, generate_time, score_time, iter_count
+            collect_sp.duration_ms / 1000.0, collected, all_scores, generate_time,
+            dispatch_time, score_time, iter_count,
         )
 
     def _make_experience_continuous(self, num_rollouts: int, iter_count: int) -> Dict[str, float]:
@@ -340,7 +368,6 @@ class PPOOrchestrator:
         completes."""
         tr = self.trainer
         method = tr.config.method
-        t0 = monotonic()
         collected = 0
         generate_time = score_time = 0.0
         all_scores = []
@@ -349,75 +376,84 @@ class PPOOrchestrator:
         target = -(-int(num_rollouts) // Hw) * Hw
         have_gt = self.pipeline.response_gt is not None
         meta_by_row = {}
-        self._engine_step(engine.start_phase, tr.rollout_phase_seed())
-        while engine.pending + engine.stats.completed < target:
-            batch, meta = self._expand_groups(*self._draw())
-            rows = self._engine_step(
-                engine.submit, batch.input_ids.numpy(), batch.attention_mask.numpy())
-            q_dtype = batch.input_ids.dtype  # the fixed path's query dtype
-            for i, r in enumerate(rows):
-                meta_by_row[r] = (meta["prompts_text"][i],
-                                  meta["response_gt"][i] if have_gt else None)
-        dispatch_time = monotonic() - t0
-        # the harvested host arrays, on the device in the fixed path's dtypes
-        dtypes = {"query_tokens": q_dtype, "query_mask": q_dtype, "tokens": torch.int32,
-                  "response_mask": torch.int32, "logprobs": torch.float32,
-                  "values": torch.float32}
-        # harvest groups pulled through _engine_step, so that the failure
-        # mark covers the engine's own raises and not the loop body's
-        groups = iter(engine.drive(target))
-        while True:
-            try:
-                group = self._engine_step(next, groups)
-            except StopIteration:
-                break
-            t1 = monotonic()
-            query_tokens, query_mask, tokens, response_mask, logprobs, values = (
-                torch.from_numpy(group[k]).to(device=tr.device, dtype=dt)
-                for k, dt in dtypes.items())
-            ref_logprobs = tr.score_ref(query_tokens, query_mask, tokens, response_mask)
-            texts = tr.decode_responses(tokens, response_mask)
-            generate_time += monotonic() - t1
-            rows = group["rows"]
-            queries = [meta_by_row[r][0] for r in rows]
-            t1 = monotonic()
-            scores = np.asarray(
-                self.score(texts, queries,
-                           [meta_by_row[r][1] for r in rows] if have_gt else None),
-                dtype=np.float32,
-            )
-            score_time += monotonic() - t1
-            all_scores.append(scores.copy())
-            self._log_rollouts(queries, texts, scores, iter_count)
-            scores = self._scale_scores(scores, method)
-            rewards = tr.compute_rewards(logprobs, ref_logprobs, response_mask, scores)
-            tr.buffer.push(
-                PPORolloutBatch(
-                    query_tokens=query_tokens,
-                    query_mask=query_mask,
-                    response_tokens=tokens,
-                    response_mask=response_mask,
-                    logprobs=logprobs,
-                    values=values,
-                    rewards=rewards,
-                ),
-                versions=group["versions"],
-            )
-            collected += len(rows)
-            tr.on_rollouts_landed()
+        with telemetry.span("phase/collect", force=True,
+                            rollouts=int(num_rollouts)) as collect_sp:
+            with telemetry.span("collect/dispatch", force=True) as sp:
+                self._engine_step(engine.start_phase, tr.rollout_phase_seed())
+                while engine.pending + engine.stats.completed < target:
+                    with telemetry.span("collect/prompt_draw"):
+                        batch, meta = self._draw()
+                    batch, meta = self._expand_groups(batch, meta)
+                    rows = self._engine_step(
+                        engine.submit, batch.input_ids.numpy(), batch.attention_mask.numpy())
+                    q_dtype = batch.input_ids.dtype  # the fixed path's query dtype
+                    for i, r in enumerate(rows):
+                        meta_by_row[r] = (meta["prompts_text"][i],
+                                          meta["response_gt"][i] if have_gt else None)
+            dispatch_time = sp.duration_ms / 1000.0
+            # the harvested host arrays, on the device in the fixed path's dtypes
+            dtypes = {"query_tokens": q_dtype, "query_mask": q_dtype, "tokens": torch.int32,
+                      "response_mask": torch.int32, "logprobs": torch.float32,
+                      "values": torch.float32}
+            # harvest groups pulled through _engine_step, so that the failure
+            # mark covers the engine's own raises and not the loop body's
+            groups = iter(engine.drive(target))
+            while True:
+                try:
+                    group = self._engine_step(next, groups)
+                except StopIteration:
+                    break
+                query_tokens, query_mask, tokens, response_mask, logprobs, values = (
+                    torch.from_numpy(group[k]).to(device=tr.device, dtype=dt)
+                    for k, dt in dtypes.items())
+                ref_logprobs = tr.score_ref(query_tokens, query_mask, tokens, response_mask)
+                with telemetry.span("collect/decode", force=True) as sp:
+                    texts = tr.decode_responses(tokens, response_mask)
+                generate_time += sp.duration_ms / 1000.0
+                rows = group["rows"]
+                queries = [meta_by_row[r][0] for r in rows]
+                with telemetry.span("collect/score", force=True) as sp:
+                    scores = np.asarray(
+                        self.score(texts, queries,
+                                   [meta_by_row[r][1] for r in rows] if have_gt else None),
+                        dtype=np.float32,
+                    )
+                score_time += sp.duration_ms / 1000.0
+                all_scores.append(scores.copy())
+                self._log_rollouts(queries, texts, scores, iter_count)
+                scores = self._scale_scores(scores, method)
+                with telemetry.span("collect/land") as land_sp:
+                    rewards = tr.compute_rewards(logprobs, ref_logprobs, response_mask, scores)
+                    tr.buffer.push(
+                        PPORolloutBatch(
+                            query_tokens=query_tokens,
+                            query_mask=query_mask,
+                            response_tokens=tokens,
+                            response_mask=response_mask,
+                            logprobs=logprobs,
+                            values=values,
+                            rewards=rewards,
+                        ),
+                        versions=group["versions"],
+                    )
+                    collected += len(rows)
+                    land_sp.set(landed=collected)
+                    tr.on_rollouts_landed()
         return self._finish_collect_stats(
-            t0, collected, all_scores, generate_time, score_time, iter_count,
-            extra={"exp/dispatch_time": dispatch_time, **engine.stats.to_dict()},
+            collect_sp.duration_ms / 1000.0, collected, all_scores, generate_time,
+            dispatch_time, score_time, iter_count, extra=engine.stats.to_dict(),
         )
 
-    def _finish_collect_stats(self, t0, collected, all_scores, generate_time,
-                              score_time, iter_count, extra=None) -> Dict[str, float]:
+    def _finish_collect_stats(self, exp_time, collected, all_scores, generate_time,
+                              dispatch_time, score_time, iter_count,
+                              extra=None) -> Dict[str, float]:
         """The collect stats row (the same keys on both engines, the
-        engine's counters added on the continuous one), logged."""
-        exp_time = monotonic() - t0
+        engine's counters added on the continuous one), absorbed into the
+        metrics registry, observed by run health and logged."""
         scores_cat = np.concatenate(all_scores)
         stats = {
             "exp/generate_time": generate_time,
+            "exp/dispatch_time": dispatch_time,
             "exp/score_time": score_time,
             "exp/experience_time": exp_time,
             "exp/score_mean": float(scores_cat.mean()),
@@ -428,13 +464,14 @@ class PPOOrchestrator:
             "policy/mean_rollout_kl": float(self.trainer.mean_kl),
             **(extra or {}),
         }
-        # run health reads the row too (exp/score_std is the
-        # reward-saturation series), all but the rollout KL: the JAX
-        # package's is still a device scalar here, which its monitor skips,
-        # and the phase's update rows observe it once
-        self.trainer.observe_health(
-            {k: v for k, v in stats.items() if k != "policy/mean_rollout_kl"},
-            step=iter_count, phase=self.trainer.health_phase_id)
+        # the registry and run health read the row too (exp/score_std is
+        # the reward-saturation series), all but the rollout KL: the JAX
+        # package's is still a device scalar here, which its registry and
+        # monitor skip, and the phase's update rows observe it once
+        host_row = {k: v for k, v in stats.items() if k != "policy/mean_rollout_kl"}
+        telemetry.get_metrics().absorb(host_row)
+        self.trainer.observe_health(host_row, step=iter_count,
+                                    phase=self.trainer.health_phase_id)
         if self.trainer.logger is not None:
             self.trainer.logger.log(stats, step=iter_count)
         return stats

@@ -4,7 +4,9 @@
 :func:`device_memory_stats` reads ``torch.cuda.memory_stats()`` per visible
 device and :func:`snapshot` aggregates it under the JAX module's gauge
 names (``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_reserved``,
-``largest_alloc_size``, ``num_allocs``). Everything is empty on a machine
+``largest_alloc_size``, ``num_allocs``); :func:`phase_memory_stats` is
+the per-phase ``mem/*`` row the trainer logs and the metrics registry
+absorbs. Everything is empty on a machine
 without a CUDA device, so callers log unconditionally and the keys vanish
 on the CPU, as they do on the JAX package's CPU backend. Reading the
 allocator's counters is host bookkeeping: it synchronises nothing.
@@ -67,3 +69,17 @@ def snapshot() -> Dict[str, int]:
             agg[key] = sum(vals)
     return agg
 
+
+
+def phase_memory_stats(prefix: str = "mem/") -> Dict[str, float]:
+    """Loggable per-phase memory stats under the JAX package's names
+    (``mem/hbm_live_bytes``, ``mem/hbm_peak_bytes``): the allocator's live
+    and peak bytes on the most-loaded device, logged beside the phase's
+    span durations; empty on the CPU."""
+    agg = snapshot()
+    out: Dict[str, float] = {}
+    if "bytes_in_use" in agg:
+        out[f"{prefix}hbm_live_bytes"] = float(agg["bytes_in_use"])
+    if "peak_bytes_in_use" in agg:
+        out[f"{prefix}hbm_peak_bytes"] = float(agg["peak_bytes_in_use"])
+    return out

@@ -5,16 +5,15 @@ When a run dies (an uncaught exception in ``learn``, a detector hitting
 the ``dump``/``abort`` policy, or ``train.flight_dump_phase`` asking), the
 :class:`FlightRecorder` writes ONE self-contained JSON forensics file from
 a bounded ring of per-phase records: the fetched stats row, the KL
-sequence, the card's allocator gauges (:mod:`~trlx_tpu_torch.telemetry.
-device_metrics`), the detectors' EWMA state and the tripped events,
-stamped with the config fingerprint. Every field is data the phase loop
-already holds on the host.
+sequence, the span-tree aggregate of the phase (per-name stats of the
+spans closed since the previous record), the card's allocator gauges
+(:mod:`~trlx_tpu_torch.telemetry.device_metrics`), the metrics-registry
+snapshot, the detectors' EWMA state and the tripped events, stamped with
+the config fingerprint. Every field is data the phase loop already holds
+on the host.
 
-A record has the JAX recorder's keys. Its ``spans`` and ``metrics``
-sections hold what the JAX recorder writes with its tracer and metrics
-registry off (empty): the port has neither yet (ROADMAP item 19).
 :func:`inspect_dump` renders the triage view of a dump: tripped
-detectors and the last-good-phase stats diff.
+detectors, the last-good-phase stats diff and the span p50 deltas.
 """
 
 from __future__ import annotations
@@ -24,9 +23,47 @@ import os
 import time
 import traceback
 from collections import deque
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence
 
 SCHEMA_VERSION = 1
+
+
+def _span_stats_window(
+    since_index: int,
+) -> "tuple[Dict[str, Dict[str, float]], int]":
+    """Per-name span stats over the spans closed SINCE ``since_index``
+    (the previous phase record), not run-cumulative aggregates — a
+    100-phase run's final slow phase must move its record's p50s, and a
+    cumulative nearest-rank p50 would dilute one slow sample to
+    nothing. Returns (stats, new_high_watermark)."""
+    from trlx_tpu_torch import telemetry
+
+    try:
+        all_spans = telemetry.get_tracer().spans()
+    except Exception:
+        return {}, since_index
+    if all_spans and max(s.index for s in all_spans) < since_index:
+        # the tracer was cleared (indices restarted at 0): a stale
+        # watermark would filter every span forever — restart the window
+        since_index = -1
+    spans = [s for s in all_spans if s.index > since_index]
+    if not spans:
+        return {}, since_index
+    groups: Dict[str, list] = {}
+    high = since_index
+    for s in spans:
+        groups.setdefault(s.name, []).append(s.duration_ms)
+        high = max(high, s.index)
+    out: Dict[str, Dict[str, float]] = {}
+    for name, durs in sorted(groups.items()):
+        durs.sort()
+        out[name] = {
+            "count": float(len(durs)),
+            "p50_ms": telemetry.quantile(durs, 0.5),
+            "p95_ms": telemetry.quantile(durs, 0.95),
+            "total_ms": sum(durs),
+        }
+    return out, high
 
 
 def _memory_snapshot() -> Dict[str, int]:
@@ -38,15 +75,17 @@ def _memory_snapshot() -> Dict[str, int]:
         return {}
 
 
-def split_metric_label(name: str) -> "Tuple[str, str]":
-    """``(base, label)`` of a possibly-labeled metric name:
-    ``serve/queue_wait_ms[tenant=gold]`` gives ``("serve/queue_wait_ms",
-    "[tenant=gold]")``; an unlabeled name gives ``(name, "")``."""
-    if name.endswith("]"):
-        cut = name.find("[")
-        if cut > 0:
-            return name[:cut], name[cut:]
-    return name, ""
+def _metrics_snapshot() -> Dict[str, Any]:
+    """The metrics-registry namespace at this phase boundary (counters,
+    gauges, histogram summaries) — empty when the registry is disabled
+    or telemetry import fails (forensics must never add a failure
+    mode)."""
+    try:
+        from trlx_tpu_torch import telemetry
+
+        return telemetry.get_metrics().snapshot()
+    except Exception:
+        return {}
 
 
 class FlightRecorder:
@@ -79,6 +118,7 @@ class FlightRecorder:
         self._dump_reasons: set = set()
         self._exception_dumped = False
         self._seq = 0
+        self._span_watermark = -1  # spans already covered by a record
 
     def __len__(self) -> int:
         return len(self._ring)
@@ -111,16 +151,15 @@ class FlightRecorder:
         has_error = any(
             e.get("severity") == "error" for e in event_dicts
         )
+        spans, self._span_watermark = _span_stats_window(self._span_watermark)
         rec = {
             "phase": phase,
             "step": step,
             "stats": row,
             "kl_seq": [float(k) for k in (kl_seq or [])],
-            # what the JAX recorder writes with its tracer and metrics
-            # registry off: neither is ported yet (ROADMAP item 19)
-            "spans": {},
+            "spans": spans,
             "memory": _memory_snapshot(),
-            "metrics": {},
+            "metrics": _metrics_snapshot(),
             "events": event_dicts,
             "detectors": detector_state or {},
             "good": not has_error,
@@ -324,6 +363,8 @@ def inspect_dump(payload: Dict[str, Any]) -> str:
     # rows render in their own per-tenant table below — crowding them
     # into this capped list would truncate exactly the multi-tenant
     # triage the labels exist for.
+    from trlx_tpu_torch.telemetry.metrics import split_metric_label
+
     def tenant_of(name: str):
         """(base, tenant) via the one shared label parser — None tenant
         for unlabeled (or differently-labeled) names."""

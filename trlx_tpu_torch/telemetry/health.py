@@ -25,9 +25,9 @@ A tripped rule emits a :class:`HealthEvent` into the Logger (one
 ``health_event`` JSON line) and, at ``error`` severity, applies the
 ``health.on_error`` policy: ``warn`` (default), ``dump`` (write a
 flight-recorder forensics file) or ``abort`` (dump, then raise
-:class:`HealthAbort`). The JAX package also writes a zero-length
-``health/<id>`` marker span per trip; the port has no tracer yet (ROADMAP
-item 19), so it writes none.
+:class:`HealthAbort`). The trainer also writes a zero-length
+``health/<id>`` marker span per trip
+(:meth:`~trlx_tpu_torch.trainer.BaseRLTrainer.observe_health`).
 
 The detectors, their series and their defaults are the JAX package's, so
 one stream of rows trips the same events in both monitors, and either

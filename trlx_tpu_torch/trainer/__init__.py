@@ -5,10 +5,13 @@ text boundary, evaluation (scored by the reward function, the metric
 function, both or neither), the non-finite-loss check, and run-health
 monitoring (``train.health``: the detectors of
 :mod:`~trlx_tpu_torch.telemetry.health` over every fetched stats row, their
-events on the Logger, and the crash-forensics flight recorder with
-``train.flight_dump_phase``), and the preemption drain at phase boundaries
-(:meth:`BaseRLTrainer.maybe_drain`). The run ledger and the tracer's health
-marker spans are ROADMAP item 19.
+events on the Logger and as zero-length ``health/<detector>`` marker spans,
+and the crash-forensics flight recorder with ``train.flight_dump_phase``),
+the preemption drain at phase boundaries (:meth:`BaseRLTrainer.maybe_drain`),
+and the telemetry the JAX base trainer wires: the span ring sized from
+``train.telemetry`` at construction, the ``phase/eval`` span, the live
+``<run_dir>/phases.jsonl`` feed riding the flight recorder, and the run
+ledger's manifest at ``learn``'s end (:meth:`BaseRLTrainer.append_run_ledger`).
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from trlx_tpu_torch import telemetry
 from trlx_tpu_torch.utils import monotonic
 
 _TRAINERS: Dict[str, type] = {}
@@ -27,10 +31,6 @@ _TRAINERS: Dict[str, type] = {}
 #: have yet: (default, the ROADMAP item that brings it). A value other than
 #: the default is refused instead of silently ignored.
 UNPORTED_TRAIN_KEYS = {
-    "telemetry": ({}, "19 (telemetry)"),
-    "run_dir": (None, "19 (run ledger)"),
-    "profile_dir": (None, "19 (profiler windows)"),
-    "profile_phase": (None, "19 (profiler windows)"),
     "pp_microbatches": (2, "14 (pipeline parallelism)"),
     "pp_virtual_stages": (1, "14 (pipeline parallelism)"),
     "pp_remat": (False, "14 (pipeline parallelism)"),
@@ -113,14 +113,20 @@ class BaseRLTrainer:
         self.orch = None  # back-reference installed by the orchestrator
         self.eval_pipeline = None
         self.logger = None
+        self._final_stats: Dict[str, Any] = {}  # the run ledger's payload
+        # the span ring's capacity (train.telemetry.ring_size), sized
+        # before any phase emits spans
+        telemetry.configure_from_dict(config.train.training.get("telemetry"))
         self._setup_health()
 
     # --- run health ----------------------------------------------------- #
 
     def _setup_health(self) -> None:
         """Parse ``train.health`` and, when enabled, build the detector
-        monitor and the flight recorder. ``_health_enabled`` also gates the
-        health stats of the update (``ops/ppo_math.py``,
+        monitor and the flight recorder (on the main process only), and
+        with ``train.run_dir`` the live ``phases.jsonl`` feed, which rides
+        the flight recorder's phase records. ``_health_enabled`` also gates
+        the health stats of the update (``ops/ppo_math.py``,
         ``ops/ilql_math.py``). Under ``async_rl`` the staleness-breach
         detector's threshold defaults to the staleness window, as in the
         JAX package; the streamed phase feeds it each phase's largest
@@ -141,7 +147,12 @@ class BaseRLTrainer:
         self._health_ev = True  # GRPO opts out (its returns carry a placeholder)
         self.health_monitor = None
         self.flight_recorder = None
+        self._phase_log = None  # the run_dir's live --watch feed
         if not self._health_enabled:
+            return
+        from trlx_tpu_torch.parallel.distributed import is_main_process
+
+        if not is_main_process():
             return
         from trlx_tpu_torch.telemetry.flight_recorder import FlightRecorder
         from trlx_tpu_torch.telemetry.health import HealthMonitor, config_fingerprint
@@ -155,18 +166,23 @@ class BaseRLTrainer:
             fingerprint=fingerprint,
             config=config_dict,
         )
+        run_dir = self.config.train.training.get("run_dir")
+        if run_dir:
+            from trlx_tpu_torch.telemetry.run_ledger import PhaseLogWriter
+
+            self._phase_log = PhaseLogWriter(run_dir)
 
     def observe_health(
         self, row: Dict[str, Any], step: Optional[int] = None, phase: Optional[int] = None
     ) -> None:
         """Feed one fetched stats row to the detectors. Values still on a
-        CUDA device are skipped, never read. Each trip goes to the Logger
-        (a ``health_event`` line; stderr without one); an ``error`` trip
+        CUDA device are skipped, never read. Each trip is a zero-length
+        ``health/<detector>`` marker span (on the trace timeline next to
+        the phase whose stats produced it) and goes to the Logger (a
+        ``health_event`` line; stderr without one); an ``error`` trip
         applies ``health.on_error``: ``warn``, ``dump`` (the flight
         record, the offending row in it) or ``abort`` (dump, then
-        :class:`~trlx_tpu_torch.telemetry.health.HealthAbort`). The JAX
-        package's zero-length marker span per trip needs the tracer
-        (ROADMAP item 19)."""
+        :class:`~trlx_tpu_torch.telemetry.health.HealthAbort`)."""
         monitor = self.health_monitor
         if monitor is None:
             return
@@ -174,6 +190,9 @@ class BaseRLTrainer:
         if not events:
             return
         for ev in events:
+            with telemetry.span("health/" + ev.detector, severity=ev.severity,
+                                series=ev.series, step=ev.step):
+                pass
             if self.logger is not None:
                 self.logger.log_health_event(ev.to_dict(), step=ev.step)
             else:
@@ -241,8 +260,8 @@ class BaseRLTrainer:
         phase: Optional[int] = None,
     ) -> None:
         """Record one host-originated event (a graceful degradation, such
-        as the orchestrator's engine fallback) in the monitor's log and on
-        the Logger; never applies ``health.on_error``."""
+        as the orchestrator's engine fallback) in the monitor's log, as a
+        marker span and on the Logger; never applies ``health.on_error``."""
         from trlx_tpu_torch.telemetry.health import HealthEvent
 
         monitor = self.health_monitor
@@ -254,6 +273,9 @@ class BaseRLTrainer:
         if monitor is not None:
             monitor.events.append(ev)
             monitor.event_counts[detector] = monitor.event_counts.get(detector, 0) + 1
+        with telemetry.span("health/" + detector, severity=severity, series=series,
+                            step=ev.step):
+            pass
         if self.logger is not None:
             self.logger.log_health_event(ev.to_dict(), step=step)
         else:
@@ -267,15 +289,20 @@ class BaseRLTrainer:
         kl_seq: Optional[List[float]] = None,
     ) -> None:
         """Append one phase record to the flight ring (no-op with health
-        off) and honour ``train.flight_dump_phase``."""
+        off), mirror it into ``<run_dir>/phases.jsonl`` and honour
+        ``train.flight_dump_phase``."""
         recorder = self.flight_recorder
         if recorder is None:
             return
         monitor = self.health_monitor
-        recorder.record_phase(
+        rec = recorder.record_phase(
             phase, step=step, stats_row=stats_row, kl_seq=kl_seq,
             events=monitor.recent_events(phase), detector_state=monitor.state_summary(),
         )
+        if self._phase_log is not None:
+            # the live --watch feed: the record without the detectors'
+            # EWMA state (bulky and meaningless line by line)
+            self._phase_log.append({k: v for k, v in rec.items() if k != "detectors"})
         want = self.config.train.training.get("flight_dump_phase")
         if want is not None and phase == want:
             path = recorder.dump(f"flight_dump_phase:{phase}", once=True)
@@ -300,6 +327,57 @@ class BaseRLTrainer:
             return  # forensics never masks the real failure
         if path:
             print(f"health: flight record dumped to {path}", file=sys.stderr)
+
+    def append_run_ledger(self, status: str = "ok",
+                          error: Optional[BaseException] = None) -> None:
+        """``learn``'s epilogue hook: append this run's manifest (config
+        fingerprint, platform, git sha, span stats, metrics snapshot,
+        health-event counts, the final stats and ``status``) to the ledger
+        JSONL (``$TRLX_RUN_LEDGER``, else ``<run_dir>/ledger.jsonl``) and
+        write ``<run_dir>/manifest.json``. Active only when
+        ``train.run_dir`` or ``$TRLX_RUN_LEDGER`` is set, on the main
+        process; best-effort (a full disk never masks the run's real
+        outcome)."""
+        import os
+
+        run_dir = self.config.train.training.get("run_dir")
+        ledger_env = os.environ.get("TRLX_RUN_LEDGER")
+        if not run_dir and not ledger_env:
+            return
+        try:
+            from trlx_tpu_torch.parallel.distributed import is_main_process
+
+            if not is_main_process():
+                return
+            import json
+
+            from trlx_tpu_torch.telemetry.run_ledger import (
+                append_manifest,
+                build_manifest,
+                numeric_payload,
+            )
+
+            body: Dict[str, Any] = {"status": status}
+            if error is not None:
+                body["error"] = f"{type(error).__name__}: {error}"
+            body.update(numeric_payload(self._final_stats))
+            monitor = self.health_monitor
+            manifest = build_manifest(
+                kind=f"train/{type(self).__name__}",
+                config=self.config.to_dict(),
+                payload=body,
+                health_events=dict(monitor.event_counts) if monitor is not None else {},
+            )
+            ledger = ledger_env or (os.path.join(run_dir, "ledger.jsonl") if run_dir else None)
+            if ledger:
+                append_manifest(manifest, ledger)
+            if run_dir:
+                os.makedirs(run_dir, exist_ok=True)
+                with open(os.path.join(run_dir, "manifest.json"), "w", encoding="utf-8") as fh:
+                    json.dump(manifest, fh, default=float)
+        except Exception as e:
+            print(f"run_ledger: manifest append failed ({type(e).__name__}: {e})",
+                  file=sys.stderr)
 
     def maybe_drain(self, phase: Optional[int] = None, step: Optional[int] = None) -> None:
         """The phase-boundary resilience hook: the ``slow_step`` and
@@ -421,39 +499,41 @@ class BaseRLTrainer:
 
     def evaluate(self) -> Dict[str, Any]:
         """Sample the eval prompts in full-size batches, score them with
-        the reward (and metric) function, and keep a sample table."""
+        the reward (and metric) function, and keep a sample table, inside
+        a ``phase/eval`` span."""
         if self.eval_pipeline is None:
             return {}
-        t0 = monotonic()
-        all_queries, all_texts, all_gt = [], [], []
-        for batch, meta in self.eval_pipeline.create_loader(
-            self.eval_batch_size, shuffle=False, drop_last=False
-        ):
-            out = self.sample(batch.input_ids, batch.attention_mask)
-            n_real = meta["n_real"]
-            all_texts += self.decode_responses(out.tokens, out.response_mask)[:n_real]
-            all_queries += meta["prompts_text"][:n_real]
-            if meta["response_gt"] is not None:
-                all_gt += meta["response_gt"][:n_real]
-        stats: Dict[str, Any] = {"time/generate": monotonic() - t0}
-        columns = ["query", "response"]
-        table = [list(t) for t in zip(all_queries, all_texts)]
-        if self.reward_fn is not None:
-            scores = np.asarray(
-                self.reward_fn(
-                    samples=all_texts, queries=all_queries,
-                    response_gt=all_gt if all_gt else None,
-                ),
-                dtype=np.float32,
-            )
-            stats["reward/mean"] = float(scores.mean())
-            stats["reward/std"] = float(scores.std())
-            columns.append("reward")
-            table = [row + [float(s)] for row, s in zip(table, scores)]
-        if self.metric_fn is not None:
-            t1 = monotonic()
-            for k, v in self.metric_fn(all_texts).items():
-                stats[f"metrics/{k}"] = float(np.asarray(v, dtype=np.float32).mean())
-            stats["time/metric"] = monotonic() - t1
-        self._last_samples = (columns, table)
-        return stats
+        with telemetry.span("phase/eval"):
+            t0 = monotonic()
+            all_queries, all_texts, all_gt = [], [], []
+            for batch, meta in self.eval_pipeline.create_loader(
+                self.eval_batch_size, shuffle=False, drop_last=False
+            ):
+                out = self.sample(batch.input_ids, batch.attention_mask)
+                n_real = meta["n_real"]
+                all_texts += self.decode_responses(out.tokens, out.response_mask)[:n_real]
+                all_queries += meta["prompts_text"][:n_real]
+                if meta["response_gt"] is not None:
+                    all_gt += meta["response_gt"][:n_real]
+            stats: Dict[str, Any] = {"time/generate": monotonic() - t0}
+            columns = ["query", "response"]
+            table = [list(t) for t in zip(all_queries, all_texts)]
+            if self.reward_fn is not None:
+                scores = np.asarray(
+                    self.reward_fn(
+                        samples=all_texts, queries=all_queries,
+                        response_gt=all_gt if all_gt else None,
+                    ),
+                    dtype=np.float32,
+                )
+                stats["reward/mean"] = float(scores.mean())
+                stats["reward/std"] = float(scores.std())
+                columns.append("reward")
+                table = [row + [float(s)] for row, s in zip(table, scores)]
+            if self.metric_fn is not None:
+                t1 = monotonic()
+                for k, v in self.metric_fn(all_texts).items():
+                    stats[f"metrics/{k}"] = float(np.asarray(v, dtype=np.float32).mean())
+                stats["time/metric"] = monotonic() - t1
+            self._last_samples = (columns, table)
+            return stats

@@ -30,7 +30,9 @@
 - ``save`` runs on a thread under ``train.async_checkpoint``, which
   ``learn`` joins at its end (:mod:`trlx_tpu_torch.utils.checkpoint`).
   ``train.resume_from_checkpoint`` resumes the schedule inside ``learn``;
-  the preemption drain runs at the chunk boundaries.
+  the preemption drain runs at the chunk boundaries. ``learn`` appends
+  the run's manifest to the run ledger at its end (``train.run_dir`` or
+  ``$TRLX_RUN_LEDGER``), as the PPO trainer does.
 - ``self.forwards`` counts the forwards the trainer makes (update
   forwards, the sampler's prefills and decode steps): each runs the
   attention forward once per layer.
@@ -307,10 +309,14 @@ class ILQLTrainer(BaseRLTrainer):
         total_steps = min(train.total_steps, train.epochs * n_minibatches)
         self.logger = Logger()
         try:
-            return self._learn_body(total_steps, n_minibatches)
+            result = self._learn_body(total_steps, n_minibatches)
         except BaseException as e:
             self.flight_dump_on_exception(e)  # no-op with health off
+            self.append_run_ledger(status="error", error=e)
             raise
+        else:
+            self.append_run_ledger(status="ok")
+            return result
         finally:
             self._checkpoints.wait()  # the end save ran beside the final eval
 
@@ -320,6 +326,7 @@ class ILQLTrainer(BaseRLTrainer):
         if iter_count == 0:
             self.logger.log(self.evaluate(), step=0)
         final_stats: Dict[str, Any] = {}
+        self._final_stats = final_stats  # the run ledger's payload
         if iter_count >= total_steps:
             return final_stats
         # a loaded trainer continues the schedule where its step left it
@@ -342,7 +349,7 @@ class ILQLTrainer(BaseRLTrainer):
                 step_stats["time/batch"] = monotonic() - t0
                 if iter_count % train.log_interval == 0:
                     self.logger.log(step_stats, step=iter_count)
-                    final_stats = dict(step_stats)
+                    final_stats = self._final_stats = dict(step_stats)
                 iv = self.intervals(iter_count)
                 if iv["do_eval"] and iter_count < total_steps:
                     self._eval(iter_count, final_stats)

@@ -89,6 +89,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 from typing import Any, Callable, Dict, List, Optional
@@ -96,6 +97,7 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from trlx_tpu_torch import telemetry
 from trlx_tpu_torch.data.method_configs import GRPOConfig
 from trlx_tpu_torch.data.ppo_types import PPORolloutBatch, SampleOutput
 from trlx_tpu_torch.inference import RolloutEngineConfig
@@ -123,6 +125,8 @@ from trlx_tpu_torch.pipeline.ppo_buffer import (
     StreamPlan,
     make_stream_plan,
 )
+from trlx_tpu_torch.telemetry.device_metrics import phase_memory_stats
+from trlx_tpu_torch.telemetry.profiler import PhaseProfiler, start_trace, stop_trace
 from trlx_tpu_torch.trainer import BaseRLTrainer, refuse_unported, register_trainer
 from trlx_tpu_torch.trainer.async_rl import AsyncRLConfig, guard_allows
 from trlx_tpu_torch.trainer.common import freeze_layers, make_optimizer
@@ -276,6 +280,11 @@ class PPOTrainer(BaseRLTrainer):
         self._stream: Optional[_StreamedPhase] = None
         self._last_stream_seed = 0
         self._last_overlap_stats: Dict[str, float] = {}
+        # the single-phase profiler window (train.profile_phase), built
+        # again by learn; and the legacy first-updates trace's profiler
+        # (train.profile_dir alone) while it runs
+        self._phase_profiler = PhaseProfiler(None, None)
+        self._profiling = None
         self._rollout_engine_obj = None
         self.reset_rollout_phase()
         self._rebuild_sampler()
@@ -751,15 +760,19 @@ class PPOTrainer(BaseRLTrainer):
             if is_async and st.t_guard_hold is not None:
                 st.guard_hold_ms += (monotonic() - st.t_guard_hold) * 1000.0
                 st.t_guard_hold = None
-            t0 = monotonic()
-            stats = self.train_step(self.buffer.gather(plan.epoch1[st.next_mb]))
-            busy_ms = (monotonic() - t0) * 1000.0
+            # one span per epoch-1 update: during collection it nests
+            # inside phase/collect (via collect/land), which is how the
+            # trace shows what overlapped; forced, since its start is the
+            # overlap window's mark
+            with telemetry.span("train/epoch1_dispatch", force=True,
+                                minibatch=st.next_mb) as sp:
+                stats = self.train_step(self.buffer.gather(plan.epoch1[st.next_mb]))
             if st.t_first_dispatch is None:
-                st.t_first_dispatch = t0
+                st.t_first_dispatch = sp.start
             st.epoch1_stats.append(stats)
             st.next_mb += 1
             if is_async:
-                self._after_async_update(st, plan, busy_ms)
+                self._after_async_update(st, plan, sp.duration_ms)
 
     def _after_async_update(self, st: _AsyncStreamedPhase, plan: StreamPlan,
                             busy_ms: float) -> None:
@@ -786,12 +799,13 @@ class PPOTrainer(BaseRLTrainer):
                             else max(0, st.learner_version - int(inflight)))
         if engine is None or not engine.pending:
             return
-        t0 = monotonic()
-        # a copy taken now: the masters go on changing before the safe point
-        engine.push_weights(behaviour_snapshot(self.model, self.rollout_cast_dtype),
-                            version=st.learner_version)
+        with telemetry.span("async/weight_push", force=True,
+                            version=st.learner_version) as push_sp:
+            # a copy taken now: the masters go on changing before the safe point
+            engine.push_weights(behaviour_snapshot(self.model, self.rollout_cast_dtype),
+                                version=st.learner_version)
         st.weight_pushes += 1
-        st.learner_busy_ms += (monotonic() - t0) * 1000.0
+        st.learner_busy_ms += push_sp.duration_ms
 
     def _sync_device(self) -> None:
         if self.device.type == "cuda":
@@ -804,10 +818,18 @@ class PPOTrainer(BaseRLTrainer):
         and return ``(n_updates, rows, kl_seq)``: each stat as an
         [n_updates] host array in execution order (epoch-major) and the KL
         coefficient on entry and after each minibatch. Records
-        ``_last_overlap_stats`` (the ``exp/overlap_*`` stats, and the
-        ``async/*`` ones under async) and feeds run health every row, then
-        the phase row (the rollout KL, and ``async/staleness``, the
-        ``staleness-breach`` series), then the phase's flight record."""
+        ``_last_overlap_stats`` (the ``exp/overlap_*`` stats, the
+        ``mem/*`` allocator gauges, and the ``async/*`` stats under async),
+        absorbs them into the metrics registry, and feeds run health every
+        row, then the phase row (the rollout KL, and ``async/staleness``,
+        the ``staleness-breach`` series), then the phase's flight record.
+
+        Its timing is span-sourced: ``phase/train`` around everything
+        after collection, ``train/drain`` (what the host still waits for
+        of epoch 1 after collection, all of it in serial mode) and
+        ``train/residual`` (epochs 2..``ppo_epochs``), each forced, so
+        that the stats hold with the tracer off; their durations are
+        ``exp/overlap_drain_ms`` and ``exp/phase_residual_ms``."""
         st = self._stream
         if st is None:
             raise RuntimeError("no streamed phase is active")
@@ -816,30 +838,31 @@ class PPOTrainer(BaseRLTrainer):
         is_async = isinstance(st, _AsyncStreamedPhase)
         if is_async:
             st.collect_done = True
-        t_collect_end = monotonic()
-        st.dispatched_during_collect = st.next_mb
-        # the drain: what the host still waits for of epoch 1 after
-        # collection (all of it in serial mode)
-        self._dispatch_ready_minibatches(force=True)
-        self._sync_device()
-        drain_ms = (monotonic() - t_collect_end) * 1000.0
-        # the snapshot and any weights the engine was pushed are dead
-        # weight through the remaining epochs
-        self._behavior_model = None
-        if self._rollout_engine_obj is not None:
-            self._rollout_engine_obj.drop_weights()
         residual_ms = 0.0
         residual_stats = []
-        if plan.residual.size:
-            t0 = monotonic()
-            residual_stats = [self.train_step(self.buffer.gather(idx)) for idx in plan.residual]
-            self._sync_device()
-            residual_ms = (monotonic() - t0) * 1000.0
-        # one device-to-host copy for every stat of the phase
-        pending = st.epoch1_stats + residual_stats
-        keys = sorted(pending[0])
-        fetched = torch.stack(
-            [torch.stack([s[k].float() for k in keys]) for s in pending]).cpu().numpy()
+        with telemetry.span("phase/train", force=True, updates=plan.n_updates) as train_sp:
+            t_collect_end = train_sp.start
+            st.dispatched_during_collect = st.next_mb
+            with telemetry.span("train/drain", force=True) as drain_sp:
+                self._dispatch_ready_minibatches(force=True)
+                self._sync_device()
+            drain_ms = drain_sp.duration_ms
+            # the snapshot and any weights the engine was pushed are dead
+            # weight through the remaining epochs
+            self._behavior_model = None
+            if self._rollout_engine_obj is not None:
+                self._rollout_engine_obj.drop_weights()
+            if plan.residual.size:
+                with telemetry.span("train/residual", force=True) as res_sp:
+                    residual_stats = [self.train_step(self.buffer.gather(idx))
+                                      for idx in plan.residual]
+                    self._sync_device()
+                residual_ms = res_sp.duration_ms
+            # one device-to-host copy for every stat of the phase
+            pending = st.epoch1_stats + residual_stats
+            keys = sorted(pending[0])
+            fetched = torch.stack(
+                [torch.stack([s[k].float() for k in keys]) for s in pending]).cpu().numpy()
         rows = {k: np.asarray(fetched[:, i], np.float32) for i, k in enumerate(keys)}
         kl_seq = [float(self.kl_coef)]
         for _ in range(plan.n_minibatches):
@@ -861,6 +884,9 @@ class PPOTrainer(BaseRLTrainer):
             "exp/overlap_streamed_updates": float(st.dispatched_during_collect),
             "exp/phase_residual_ms": residual_ms,
         }
+        # the allocator's live and peak bytes beside the phase's timing
+        # (empty on the CPU)
+        self._last_overlap_stats.update(phase_memory_stats())
         staleness_max: Optional[float] = None
         if is_async:
             st.learner_busy_ms += residual_ms
@@ -883,6 +909,7 @@ class PPOTrainer(BaseRLTrainer):
         # closed before the detectors read the rows, so that an abort
         # policy raising there leaves the trainer re-enterable
         self._stream = None
+        telemetry.get_metrics().absorb(self._last_overlap_stats)
         if self.health_monitor is not None:
             phase_id = self.health_phase_id
             phase_row: Dict[str, Any] = {"policy/mean_rollout_kl": float(self.mean_kl)}
@@ -934,61 +961,79 @@ class PPOTrainer(BaseRLTrainer):
         (the stepwise path) observes each logged, saved or final
         minibatch's last row at its update number, then the KL and the
         flight record at the pass's end. Rows are observed before the
-        non-finite check, so a NaN row reaches the detectors first."""
+        non-finite check, so a NaN row reaches the detectors first.
+
+        A fused pass runs inside a ``phase/train`` span that closes before
+        its last minibatch's boundaries, as the JAX package's single
+        dispatch does; the profiler window closes there too (after the
+        pass on the stepwise path), and the legacy first-updates trace
+        stops at the first minibatch end at or past update 10."""
         if self._stream is not None:
             return self._finish_streamed_pass(iter_count, total_steps, final_stats)
-        train, method = self.config.train, self.config.method
-        t0 = monotonic()
-        pending, fetched, kl_seq, done = [], [], [self.kl_coef], False
-        start = iter_count
-        monitor = self.health_monitor
-        for u, idx in enumerate(order):
-            pending.append(self.train_step(self.buffer.gather(idx)))
-            if u != ends[len(kl_seq) - 1]:
-                continue
-            keys = sorted(pending[0])
-            new = torch.stack(
-                [torch.stack([s[k].float() for k in keys]) for s in pending]
-            ).cpu().numpy()  # [updates since the previous end, stats]
-            if monitor is not None and health_pass is not None:
-                self.observe_health_rows(dict(zip(keys, new.T)), step0=start + len(fetched),
-                                         phase=self._phase_index)
-            self.check_anomalies(dict(zip(keys, new.T)), start + len(fetched))
-            fetched.extend(new)
-            pending = []
-            kl_seq.append(kl_controller_update(
-                method, kl_seq[-1], self.mean_kl, train.batch_size
-            ))
-            self.kl_coef = kl_seq[-1]
-            iter_count += method.ppo_epochs
-            seconds = monotonic() - t0
-            self._record_train_time(seconds)
-            step_stats = {k: float(v) for k, v in zip(keys, new[-1])}
-            step_stats["time/batch"] = seconds / (len(kl_seq) - 1)
-            step_stats["policy/kl_coef"] = self.kl_coef
-            step_stats["policy/mean_rollout_kl"] = self.mean_kl
-            iv = self.intervals(iter_count)
-            at_end = iter_count >= total_steps
-            if monitor is not None and health_pass is None and (
-                    iv["do_log"] or iv["do_save"] or at_end):
-                # the phase-constant rollout KL is observed once, at the end
-                self.observe_health(
-                    {k: v for k, v in step_stats.items() if k != "policy/mean_rollout_kl"},
-                    step=iter_count, phase=self._phase_index)
-            if monitor is not None and health_pass is not None and len(kl_seq) > len(ends):
+        with contextlib.ExitStack() as fused_span:
+            if health_pass is not None:
+                fused_span.enter_context(
+                    telemetry.span("phase/train", force=True, updates=len(order)))
+            train, method = self.config.train, self.config.method
+            t0 = monotonic()
+            pending, fetched, kl_seq, done = [], [], [self.kl_coef], False
+            start = iter_count
+            monitor = self.health_monitor
+            for u, idx in enumerate(order):
+                pending.append(self.train_step(self.buffer.gather(idx)))
+                if u != ends[len(kl_seq) - 1]:
+                    continue
+                keys = sorted(pending[0])
+                new = torch.stack(
+                    [torch.stack([s[k].float() for k in keys]) for s in pending]
+                ).cpu().numpy()  # [updates since the previous end, stats]
+                if monitor is not None and health_pass is not None:
+                    self.observe_health_rows(dict(zip(keys, new.T)), step0=start + len(fetched),
+                                             phase=self._phase_index)
+                self.check_anomalies(dict(zip(keys, new.T)), start + len(fetched))
+                fetched.extend(new)
+                pending = []
+                kl_seq.append(kl_controller_update(
+                    method, kl_seq[-1], self.mean_kl, train.batch_size
+                ))
+                self.kl_coef = kl_seq[-1]
+                iter_count += method.ppo_epochs
+                if self._profiling is not None and iter_count >= 10:
+                    stop_trace(self._profiling, self._legacy_trace_path(), self.device)
+                    self._profiling = None
+                seconds = monotonic() - t0
+                self._record_train_time(seconds)
+                step_stats = {k: float(v) for k, v in zip(keys, new[-1])}
+                step_stats["time/batch"] = seconds / (len(kl_seq) - 1)
+                step_stats["policy/kl_coef"] = self.kl_coef
+                step_stats["policy/mean_rollout_kl"] = self.mean_kl
+                iv = self.intervals(iter_count)
+                at_end = iter_count >= total_steps
+                if monitor is not None and health_pass is None and (
+                        iv["do_log"] or iv["do_save"] or at_end):
+                    # the phase-constant rollout KL is observed once, at the end
+                    self.observe_health(
+                        {k: v for k, v in step_stats.items() if k != "policy/mean_rollout_kl"},
+                        step=iter_count, phase=self._phase_index)
+                if health_pass is not None and len(kl_seq) > len(ends):
+                    if monitor is not None:
+                        self.observe_health({"policy/mean_rollout_kl": self.mean_kl},
+                                            phase=self._phase_index)
+                        self.record_flight_phase(self._phase_index, step=iter_count,
+                                                 stats_row=step_stats, kl_seq=kl_seq)
+                    fused_span.close()
+                    self._phase_profiler.on_phase_end(self.device)
+                done = self._boundaries(iter_count, total_steps, step_stats, final_stats)
+                if done:
+                    break
+            if monitor is not None and health_pass is None and not done:
+                # the stepwise pass's end: the rollout KL once, then the record
                 self.observe_health({"policy/mean_rollout_kl": self.mean_kl},
-                                    phase=self._phase_index)
+                                    step=iter_count, phase=self._phase_index)
                 self.record_flight_phase(self._phase_index, step=iter_count,
-                                         stats_row=step_stats, kl_seq=kl_seq)
-            done = self._boundaries(iter_count, total_steps, step_stats, final_stats)
-            if done:
-                break
-        if monitor is not None and health_pass is None and not done:
-            # the stepwise pass's end: the rollout KL once, then the record
-            self.observe_health({"policy/mean_rollout_kl": self.mean_kl},
-                                step=iter_count, phase=self._phase_index)
-            self.record_flight_phase(self._phase_index, step=iter_count,
-                                     stats_row=step_stats)
+                                         stats_row=step_stats)
+        if health_pass is None:
+            self._phase_profiler.on_phase_end(self.device)
         rows = {k: np.asarray([r[i] for r in fetched], np.float32) for i, k in enumerate(keys)}
         return rows, kl_seq, iter_count, done
 
@@ -1003,6 +1048,9 @@ class PPOTrainer(BaseRLTrainer):
         n_up, rows, kl_seq = self.finish_streamed_phase()
         seconds = monotonic() - t0
         self._record_train_time(seconds)
+        # the phase's updates are done and fetched: close the window here
+        # (the boundaries below hold the end-of-run save and eval)
+        self._phase_profiler.on_phase_end(self.device)
         self.check_anomalies(rows, iter_count)
         n_mb, done = n_up // E, False
         for k in range(n_mb):
@@ -1038,11 +1086,16 @@ class PPOTrainer(BaseRLTrainer):
 
     def _stream_eligible(self, iter_count: int) -> bool:
         """Whether the coming pass runs as a streamed phase: overlap on,
-        an orchestrator, at least one minibatch, and no eval/checkpoint
+        an orchestrator, at least one minibatch, no legacy profiler trace
+        (``profile_dir`` without ``profile_phase``: the first updates'
+        trace needs the minibatch-major path; a ``profile_phase`` window
+        profiles the streamed phase itself), and no eval/checkpoint
         boundary or ``total_steps`` cutoff strictly inside the pass."""
         train, method = self.config.train, self.config.method
+        training = train.training
+        legacy_profile = training.get("profile_dir") and training.get("profile_phase") is None
         n_mb = method.num_rollouts // train.batch_size
-        if not train.phase_overlap or self.orch is None or n_mb < 1:
+        if not train.phase_overlap or self.orch is None or legacy_profile or n_mb < 1:
             return False
         pass_steps = n_mb * method.ppo_epochs
         if iter_count + pass_steps > min(train.total_steps, train.epochs * pass_steps):
@@ -1059,6 +1112,9 @@ class PPOTrainer(BaseRLTrainer):
         phase, so that a retry starts clean."""
         method = self.config.method
         self._phase_index += 1
+        # the profiler window, if it is for this phase, opens before any
+        # of the phase's device work
+        self._phase_profiler.on_phase_start(self._phase_index)
         self.buffer.clear_history()
         self.reset_rollout_phase()
         if self._stream_eligible(iter_count):
@@ -1089,18 +1145,33 @@ class PPOTrainer(BaseRLTrainer):
         epoch ``s // pass_steps``, collected with that epoch's seed
         ``train.seed + epoch``, and no step-0 eval, which the
         uninterrupted run did not make there and whose sampling would move
-        the generator. An error aborts an open streamed phase."""
+        the generator. An error aborts an open streamed phase.
+
+        ``train.profile_phase: N`` profiles phase N (counted from 0, the
+        first collect) into ``train.profile_dir``; ``profile_dir`` alone
+        traces the first updates. The run's manifest goes to the run
+        ledger at the end (``status`` ``ok`` or ``error``) when
+        ``train.run_dir`` or ``$TRLX_RUN_LEDGER`` is set."""
         train, method = self.config.train, self.config.method
         if train.resume_from_checkpoint and has_checkpoint(train.checkpoint_dir):
             self.load(train.checkpoint_dir)
             if self.step >= train.total_steps:
+                self._final_stats = {}
                 return {}  # a finished run: nothing to collect or train
+        training = train.training
+        # built before the first collection, so that phase 0 is profileable
+        self._phase_profiler = PhaseProfiler(training.get("profile_dir"),
+                                             training.get("profile_phase"), self.device)
         self._phase_index = -1
         start_step = self.step
         pass_steps = method.ppo_epochs * max(method.num_rollouts // train.batch_size, 1)
         self._epoch0 = start_step // pass_steps
         if len(self.buffer) == 0 and self.orch is not None:
-            self._collect_phase(start_step, seed=train.seed + self._epoch0)
+            try:
+                self._collect_phase(start_step, seed=train.seed + self._epoch0)
+            except BaseException:
+                self._phase_profiler.close()  # a phase-0 window is open
+                raise
         # a streamed phase schedules its plan's rows; a non-dividing final
         # chunk's extra rows are stored but never trained
         n_minibatches = (
@@ -1110,17 +1181,36 @@ class PPOTrainer(BaseRLTrainer):
         total_steps = min(train.total_steps, train.epochs * method.ppo_epochs * n_minibatches)
         self.logger = Logger()
         try:
-            return self._learn_body(total_steps, n_minibatches, start_step)
+            result = self._learn_body(total_steps, n_minibatches, start_step)
         except BaseException as e:
             if self._stream is not None:
                 self.abort_streamed_phase()
             # crash forensics: one flight dump on the way down (no-op with
             # health off; none again after an abort's own dump)
             self.flight_dump_on_exception(e)
+            # a failed run is history too: its manifest records the error
+            self.append_run_ledger(status="error", error=e)
             raise
+        else:
+            self.append_run_ledger(status="ok")
+            return result
         finally:
-            # an asynchronous end save ran beside the final eval
-            self._checkpoints.wait()
+            # every exit stops a live profiler (the phase window and the
+            # legacy trace), then joins an asynchronous end save, which ran
+            # beside the final eval
+            try:
+                self._phase_profiler.close()
+                if self._profiling is not None:
+                    prof, self._profiling = self._profiling, None
+                    stop_trace(prof, self._legacy_trace_path(), self.device)
+            finally:
+                self._checkpoints.wait()
+
+    def _legacy_trace_path(self) -> str:
+        import os
+
+        return os.path.join(self.config.train.training["profile_dir"],
+                            "first_updates.pt.trace.json")
 
     def _learn_body(self, total_steps: int, n_minibatches: int,
                     start_step: int = 0) -> Dict[str, Any]:
@@ -1132,8 +1222,14 @@ class PPOTrainer(BaseRLTrainer):
             self.logger.log(self.evaluate(), step=0)
         iter_count = start_step
         final_stats: Dict[str, Any] = {}
+        self._final_stats = final_stats  # filled in place as the run logs
         if iter_count >= total_steps:
             return final_stats
+        training = train.training
+        if training.get("profile_dir") and training.get("profile_phase") is None:
+            # the legacy trace: the first updates from here (a
+            # profile_phase window traces one whole phase instead)
+            self._profiling = start_trace(self.device)
         for epoch in range(self._epoch0, train.epochs):
             if self._stream is not None:
                 # epoch-major: minibatch k's last update is in the last epoch
@@ -1148,8 +1244,8 @@ class PPOTrainer(BaseRLTrainer):
                     n_minibatches=n_minibatches,
                 )
                 ends = np.arange(E - 1, len(order), E)
-                health_pass = "fused" if self._whole_pass(iter_count, total_steps,
-                                                          n_minibatches) else None
+                health_pass = "fused" if self._profiling is None and self._whole_pass(
+                    iter_count, total_steps, n_minibatches) else None
             _, _, iter_count, done = self._train_on(
                 order, ends, iter_count, total_steps, final_stats, health_pass
             )
@@ -1191,28 +1287,30 @@ class PPOTrainer(BaseRLTrainer):
     def save(self, directory: Optional[str] = None) -> None:
         """Checkpoint the policy, optimizer, update count, KL state,
         sampling generator and orchestrator state as step ``self.step``
-        (on a thread under ``train.async_checkpoint``)."""
-        state = {
-            "model": self.model.state_dict(),
-            "optimizer": self.opt.state_dict(),
-            "step": self.step,
-            "kl_coef": float(self.kl_coef),
-            "mean_kl": float(self.mean_kl),
-            "generator": self.generator.get_state(),
-            # mid-phase, the per-row phase seed and cursor decide the
-            # remaining rows' noise
-            "rollout_phase_seed": self._rollout_phase_seed,
-            "rollout_row_cursor": self._rollout_row_cursor,
-        }
-        if self.orch is not None:
-            state["orchestrator"] = self.orch.state_dict()
-        host = self.host_state_dict()
-        if host:
-            state["host"] = host
-        self._checkpoints.save(
-            directory or self.config.train.checkpoint_dir, state, self.step,
-            async_save=bool(self.config.train.training.get("async_checkpoint", False)),
-        )
+        (on a thread under ``train.async_checkpoint``), inside a
+        ``phase/checkpoint`` span."""
+        with telemetry.span("phase/checkpoint"):
+            state = {
+                "model": self.model.state_dict(),
+                "optimizer": self.opt.state_dict(),
+                "step": self.step,
+                "kl_coef": float(self.kl_coef),
+                "mean_kl": float(self.mean_kl),
+                "generator": self.generator.get_state(),
+                # mid-phase, the per-row phase seed and cursor decide the
+                # remaining rows' noise
+                "rollout_phase_seed": self._rollout_phase_seed,
+                "rollout_row_cursor": self._rollout_row_cursor,
+            }
+            if self.orch is not None:
+                state["orchestrator"] = self.orch.state_dict()
+            host = self.host_state_dict()
+            if host:
+                state["host"] = host
+            self._checkpoints.save(
+                directory or self.config.train.checkpoint_dir, state, self.step,
+                async_save=bool(self.config.train.training.get("async_checkpoint", False)),
+            )
 
     def load(self, directory: str) -> None:
         """Restore the newest checkpoint under ``directory`` (after every

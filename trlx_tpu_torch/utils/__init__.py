@@ -9,15 +9,15 @@ from __future__ import annotations
 
 import copy
 import random
-import time
 from typing import Callable, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-#: the port's monotonic clock (seconds) for every host-side duration
-monotonic: Callable[[], float] = time.monotonic
+# the port's one clock (seconds) for every host-side duration: the
+# tracer's, so that spans, the Logger and the engine's marks share it
+from trlx_tpu_torch.telemetry.tracer import monotonic  # noqa: F401
 
 
 def resolve_device(device: Optional[object] = None) -> torch.device:
