@@ -285,17 +285,18 @@ Phases, each fatal on failure:
    steps, all through the head-dim-256 instantiations; no ``fma`` launch,
    input copy or plain call. Prints tokens/s, TTFT p50/p95, the peak;
 13. GPT-J PPO — ``trlx_tpu_torch.train`` on ``configs/ppo_gptj.yml`` at
-   GPT-J-6B's widths and depth (bf16 over f32 masters, batch 8, 48 + 48
-   tokens with ``top_k: 0``, 128 rollouts a chunk, 4 epochs, the 2-block
-   hydra reference, the bottom 26 blocks and ``wte`` frozen) for two PPO
-   phases (128 updates) on 128 int-list prompts of 16-48 tokens; named
-   deviations: the mesh set to one device (the yml's ``tp: 4`` is ROADMAP
-   item 14), random weights, no tokenizer, 128 of 10 000 updates. Gates:
-   finite stats; the top 2 blocks, ``ln_f``, ``lm_head`` and the value head
-   moved, the bottom 26 blocks and ``wte`` bit-identical; the reference
-   holds blocks 26-27, ``wte``, ``ln_f`` and ``lm_head`` only; K1 ``tile``
-   = 28 x the non-decode forwards (28 a reference scoring: 26 trunk + 2
-   branch blocks), ``decode`` = 28 x the decode steps; K2 = K3 = 2 x 128,
+   GPT-J-6B's widths cut to 14 of its 28 blocks (phase 12 serves all 28;
+   bf16 over f32 masters, batch 8, 48 + 48 tokens with ``top_k: 0``, 128
+   rollouts a chunk, 4 epochs, the 2-block hydra reference, the bottom 12
+   blocks and ``wte`` frozen) for two PPO phases (128 updates) on 128
+   int-list prompts of 16-48 tokens; named deviations: the mesh set to one
+   device (the yml's ``tp: 4`` is ROADMAP item 14), the depth, random
+   weights, no tokenizer, 128 of 10 000 updates. Gates: finite stats; the
+   top 2 blocks, ``ln_f``, ``lm_head`` and the value head moved, the bottom
+   12 blocks and ``wte`` bit-identical; the reference holds blocks 12-13,
+   ``wte``, ``ln_f`` and ``lm_head`` only; K1 ``tile`` = 14 x the
+   non-decode forwards (14 a reference scoring: 12 trunk + 2 branch
+   blocks), ``decode`` = 14 x the decode steps; K2 = K3 = 2 x 128,
    all ``tile``; no ``fma`` launch, input copy or plain call; a fresh
    trainer's ``load`` restores the saved state exactly. Prints the wall
    with the checkpoint write timed apart, collect and train seconds,
@@ -316,12 +317,13 @@ Phases, each fatal on failure:
    rollouts a chunk, 4 epochs, the 2-block hydra reference, running reward
    scaling) at full width for two PPO phases (16 updates) on 128 int-list
    prompts of 16-48 tokens; named deviations: the mesh set to one device
-   (item 14), depth 44 cut to 12 blocks (one card), random weights, no
-   tokenizer, a host reward, 16 of 6000 updates. Gates: finite stats; the
-   top 2 blocks, ``ln_f``, ``lm_head`` and the value head moved, the bottom
-   10 blocks and ``wte`` bit-identical; the reference holds blocks 10-11,
-   ``wte``, ``ln_f`` and ``lm_head`` only (1 525 850 112 parameters); K1
-   ``tile`` = 12 x the non-decode forwards, ``decode`` = 12 x the decode
+   (item 14), depth 44 cut to 6 blocks (one card and the time limit;
+   phase 14 serves all 44), random weights, no tokenizer, a host reward,
+   16 of 6000 updates. Gates: finite stats; the top 2 blocks, ``ln_f``,
+   ``lm_head`` and the value head moved, the bottom 4 blocks and ``wte``
+   bit-identical; the reference holds blocks 4-5, ``wte``, ``ln_f`` and
+   ``lm_head`` only (1 525 850 112 parameters); K1 ``tile`` = 6 x the
+   non-decode forwards, ``decode`` = 6 x the decode
    steps; K2 = K3 = 2 x 16, all ``tile``; no ``fma`` launch, input copy
    or plain call; a fresh trainer's ``load`` restores the saved state
    exactly. Prints the wall with the checkpoint write timed apart, collect
@@ -4119,6 +4121,14 @@ SERVING_TIER_FEATURES = {
                 "spec_decode": {"enabled": True, "max_draft": 4, "drafter": "trie"}},
     "serving": {"prefix_cache_blocks": 128},
 }
+#: phase 11's two tenants (each takes every other burst of its traffic) and
+#: their SLO classes: budgets no queue wait of the run comes near, so a
+#: clean run stays at zero health events
+SERVING_TIER_TENANTS = {"gold": {"priority": 10, "slo_class": "interactive"},
+                        "bronze": {"priority": 0, "slo_class": "standard"}}
+SERVING_TIER_SLO = {"interactive": {"queue_wait_budget_ms": 30000},
+                    "standard": {"queue_wait_budget_ms": 60000}}
+SERVING_TIER_RING = 1 << 17  # train.telemetry.ring_size of the traced run
 SYSTEM_PROMPTS, SYSTEM_TOKENS, TURN_TOKENS = 4, 384, 128  # 24 + 8 blocks of 16
 SHARED_REQUESTS, OTHER_REQUESTS = 64, 32
 F32_REQUESTS = 16  # the f32 token check's cut: 4 + 12 shared-prefix requests
@@ -4131,9 +4141,12 @@ def serving_tier_config(features: bool, dtype: str = "bfloat16"):
     cfg = serving_config()
     cfg["train"]["dtype"] = dtype
     cfg["method"]["gen_kwargs"]["do_sample"] = False
+    cfg["train"]["serving"] = {"tenants": SERVING_TIER_TENANTS,
+                               "slo_classes": SERVING_TIER_SLO}
+    cfg["train"]["telemetry"] = {"ring_size": SERVING_TIER_RING}
     if features:
         cfg["train"]["rollout"].update(SERVING_TIER_FEATURES["rollout"])
-        cfg["train"]["serving"] = dict(SERVING_TIER_FEATURES["serving"])
+        cfg["train"]["serving"].update(SERVING_TIER_FEATURES["serving"])
     return cfg
 
 
@@ -4163,16 +4176,27 @@ def serving_tier_prompts(seed: int = 4):
     return [p for p, _ in ordered], [shared for _, shared in ordered]
 
 
-def serve_record(torch, server, prompts, waves=None):
-    """Serve ``prompts`` (in ``waves``, each a list of indices, when given)
-    and return the results in prompt order, the wall, and the rates."""
+def serving_tier_tenants(n: int) -> list:
+    """The tenant of each of phase 11's ``n`` requests: bursts of 8 go to
+    ``gold`` and ``bronze`` in turn."""
+    names = sorted(SERVING_TIER_TENANTS)
+    return [names[(i // 8) % len(names)] for i in range(n)]
+
+
+def serve_record(torch, server, prompts, waves=None, tenants=None):
+    """Serve ``prompts`` (in ``waves``, each a list of indices, when given;
+    request ``i`` as tenant ``tenants[i]`` when given) and return the
+    results in prompt order, the wall, and the rates."""
     import numpy as np
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     results = [None] * len(prompts)
     for wave in waves or [list(range(len(prompts)))]:
-        rids = server.submit([prompts[i] for i in wave])
+        if tenants is None:
+            rids = server.submit([prompts[i] for i in wave])
+        else:
+            rids = [server.submit([prompts[i]], tenant=tenants[i])[0] for i in wave]
         done = server.wait(rids)
         for i, rid in zip(wave, rids):
             results[i] = done[rid]
@@ -4292,7 +4316,7 @@ class OracleDrafter:
         return {}
 
 
-def serve_counted(torch, fa, server, prompts, waves=None):
+def serve_counted(torch, fa, server, prompts, waves=None, tenants=None):
     """Serve ``prompts`` as one counted path (counters zeroed before, read
     after; the host watch in place); returns the results and the record:
     rates, launches, peak memory above the start, the engine's sharing,
@@ -4304,7 +4328,7 @@ def serve_counted(torch, fa, server, prompts, waves=None):
 
     watch, patches = host_watch(engine_mod, PrefixBlockPool)
     (results, rates), rec = counted_path(
-        torch, fa, lambda: serve_record(torch, server, prompts, waves), patches)
+        torch, fa, lambda: serve_record(torch, server, prompts, waves, tenants), patches)
     st, engine = server.engine.stats, server.engine
     steps = max(watch["steps"], 1)
     rec.update(
@@ -4325,6 +4349,107 @@ def serve_counted(torch, fa, server, prompts, waves=None):
     return results, rec
 
 
+def request_trace_gates(tracer, registry, server, results, tenants, log_path) -> dict:
+    """Phase 11's telemetry checks over the traced features-on run: one
+    ``serve/request`` chain per completed request whose ``STAGES`` tile the
+    root exactly (each stage starts where the one before ended, bit for
+    bit, from the root's start to its end); no span dropped; each tenant's
+    ``serve/*`` histogram counts equal to its completions; zero health
+    events; and the telemetry CLI's ``--trace-report --json`` over the
+    exported span log (in this process) with every chain complete and a
+    zero residual up to the report's rounding (each stage and the e2e to 1
+    us: at most 3.5 us a request)."""
+    from trlx_tpu_torch import telemetry
+    from trlx_tpu_torch.telemetry.request_trace import ROOT, STAGES
+
+    spans = tracer.spans()
+    chains = {}
+    for span in spans:
+        trace_id = span.attrs.get("trace_id")
+        if trace_id is not None:
+            chains.setdefault(trace_id, []).append(span)
+    roots = [c for c in chains.values() if sum(sp.name == ROOT for sp in c) == 1]
+    tiled, worst_ns = 0, 0.0
+    for chain in roots:
+        root = next(sp for sp in chain if sp.name == ROOT)
+        stages = sorted((sp for sp in chain if sp.name in STAGES), key=lambda sp: sp.start)
+        contiguous = (bool(stages) and stages[0].start == root.start
+                      and stages[-1].end == root.end
+                      and all(a.end == b.start for a, b in zip(stages, stages[1:]))
+                      and all(sp.parent == root.index for sp in stages))
+        tiled += contiguous
+        worst_ns = max(worst_ns, abs(sum(sp.end - sp.start for sp in stages)
+                                     - (root.end - root.start)) * 1e9)
+    snap = registry.snapshot()
+    per_tenant = {}
+    for tenant in sorted(set(tenants)):
+        want = tenants.count(tenant)
+        counts = {name: snap["histograms"].get(f"{name}[tenant={tenant}]", {}).get("count", 0)
+                  for name in ("serve/queue_wait_ms", "serve/prefill_ms", "serve/ttft_ms",
+                               "serve/decode_per_token_ms", "serve/e2e_ms")}
+        counts["serve/requests_completed"] = snap["counters"].get(
+            f"serve/requests_completed[tenant={tenant}]", 0)
+        per_tenant[tenant] = {"completions": want, "counts": counts,
+                              "equal": all(int(c) == want for c in counts.values())}
+    n_events = telemetry.export_chrome_jsonl(log_path, spans,
+                                             counters=registry.gauge_series())
+    rc, out, err = telemetry_cli("--trace-report", log_path, "--json")
+    report = json.loads(out) if rc == 0 else {}
+    stage_names = sorted({sp.name for sp in spans if "trace_id" in sp.attrs})
+    rec = {
+        "requests": len(results), "chains": len(chains), "rooted_chains": len(roots),
+        "tiled_chains": tiled, "stage_sum_max_abs_diff_ns": worst_ns,
+        "spans": len(spans), "dropped": int(tracer.dropped), "span_names": stage_names,
+        "per_tenant": per_tenant, "health_events": [e.to_dict() for e in server.health_events],
+        "exported_events": n_events, "report_rc": rc, "report_err": err[-500:],
+        "report": {k: report.get(k) for k in ("n_requests", "n_complete", "max_residual_pct",
+                                              "tenants", "slo_classes")},
+        "report_max_residual_ms": max((abs(r["e2e_ms"] - r["stage_sum_ms"])
+                                       for r in report.get("requests", [])), default=1.0),
+        "report_bubbles": {k: (report.get("bubbles") or {}).get(k) for k in (
+            "median_step_ms", "total_bubble_ms", "n_spec_excluded", "spec_tokens_accepted")},
+    }
+    rec["gates"] = {
+        "one_closed_chain_per_request": len(chains) == len(roots) == len(results),
+        "stages_tile_the_root": tiled == len(results),
+        "no_span_dropped": rec["dropped"] == 0,
+        "per_tenant_counts": all(t["equal"] for t in per_tenant.values()),
+        "zero_health_events": not rec["health_events"],
+        # a zero residual up to the report's own rounding: each of the 6
+        # stages and the e2e are rounded to 1 us
+        "trace_report": (rc == 0 and report.get("n_complete") == len(results)
+                         and rec["report_max_residual_ms"] <= 0.0035),
+    }
+    return rec
+
+
+def multi_tenant_smoke_on_card(torch, tmp: str) -> dict:
+    """``python -m trlx_tpu_torch.inference --mt-smoke`` on the card, in this
+    process (its ``multi_tenant_smoke``, under a fresh tracer and metrics
+    registry), its span log exported under ``tmp``: the exit status, the
+    wall, and its JSON record and verdict lines."""
+    import contextlib
+    import io
+
+    from trlx_tpu_torch import telemetry
+    from trlx_tpu_torch.inference.__main__ import multi_tenant_smoke
+
+    out, err = io.StringIO(), io.StringIO()
+    t0 = time.perf_counter()
+    with telemetry.scoped_tracer(), telemetry.scoped_metrics(), \
+            contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = multi_tenant_smoke(device="cuda", span_log=os.path.join(tmp, "mt_spans.jsonl"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    record = json.loads(out.getvalue().strip().splitlines()[0]) if rc in (0, 1) else {}
+    keep = ("spec_off_row_parity", "gold_ranks", "bronze_ranks", "ttft_stream_ms",
+            "ttft_harvest_ms", "scheduler_throttled_rounds", "prefix_hit_rate",
+            "prefill_chunks", "request_spans", "spans_dropped", "health_events",
+            "engine/spec_accept_rate")
+    return {"rc": rc, "wall_s": wall, "record": {k: record.get(k) for k in keep},
+            "verdict": [ln for ln in err.getvalue().splitlines() if "mt-smoke" in ln]}
+
+
 def phase_serving_tier(torch, fa):
     """Phase 11: ``InferenceServer`` on phase 4's model and geometry in
     bf16, greedy, with ``serving.prefix_cache_blocks: 128``,
@@ -4333,26 +4458,46 @@ def phase_serving_tier(torch, fa):
     :func:`serving_tier_prompts`; then the same traffic through phase 4's
     engine (the three features off), and, as a report, with the features on
     and the features-off run's tokens as drafts (:class:`OracleDrafter`),
-    all in the same call. Gates: 96/96 complete with finite logprobs and
-    values; prefix hit blocks in (0, 64 x 24]; every pool reference
-    released and no block leaked; fewer chunk forwards than admitted
-    groups x 4; K1 ``tile`` = 12 x chunk forwards, ``decode`` = 12 x
-    (decode + verify steps), no ``fma`` launch, input copy or plain call;
-    verify steps > 0. Then 16 shared-prefix requests in f32 through the
+    all in the same call. The requests go to two tenants
+    (``SERVING_TIER_TENANTS``: priorities 10 and 0, SLO classes interactive
+    and standard), a burst each in turn. The features-on run is traced (the
+    tracer on, ``train.telemetry.ring_size`` = ``SERVING_TIER_RING``, a
+    fresh metrics registry), the other two are not. Gates: 96/96 complete
+    with finite logprobs and values; prefix hit blocks in (0, 64 x 24];
+    every pool reference released and no block leaked; fewer chunk
+    forwards than admitted groups x 4; K1 ``tile`` = 12 x chunk forwards,
+    ``decode`` = 12 x (decode + verify steps), no ``fma`` launch, input
+    copy or plain call, and the same launches per chunk and per step
+    traced as untraced (the oracle run has the features on, untraced);
+    verify steps > 0; :func:`request_trace_gates`; and
+    :func:`multi_tenant_smoke_on_card` exits 0. Then 16 shared-prefix requests in f32 through the
     ``fma`` K1, features off, on, and on with the oracle drafter (whose
     drafts must mostly be accepted): tokens identical on every row, except
     where the first difference is a near tie (top-2 logit margin < 1e-4 in
     the features-off run). Prints the runs' tokens/s, TTFT, peak memory,
     sharing, chunk and spec counters, host time per step and the share of
     rows whose tokens match the features-off run."""
+    import tempfile
+
     import numpy as np
 
+    from trlx_tpu_torch import telemetry
     from trlx_tpu_torch.inference.engine import prefill_dot_flops
     from trlx_tpu_torch.inference.server import InferenceServer
 
     prompts, is_shared = serving_tier_prompts()
-    server = InferenceServer(serving_tier_config(True), seed=0)
-    on, rec = serve_counted(torch, fa, server, prompts)
+    tenants = serving_tier_tenants(len(prompts))
+    untraced = functools.partial(telemetry.scoped_tracer, telemetry.Tracer(enabled=False))
+    tmp = tempfile.mkdtemp(prefix="serving_tier_")
+    with telemetry.scoped_tracer() as tracer, telemetry.scoped_metrics() as registry:
+        server = InferenceServer(serving_tier_config(True), seed=0)
+        on, rec = serve_counted(torch, fa, server, prompts, tenants=tenants)
+        rec["traced"] = True
+        rec["tracer_ring"] = tracer._records.maxlen
+        t0 = time.perf_counter()
+        rec["telemetry"] = request_trace_gates(tracer, registry, server, on, tenants,
+                                               os.path.join(tmp, "spans.jsonl"))
+        rec["telemetry"]["gates_wall_s"] = time.perf_counter() - t0
     engine, pool, cfg = server.engine, server.prefix_pool, server.model_config
     A, Q, W, cap = engine.admit_width, engine.Q, engine.prefill_chunk, engine.capacity
     rec["flops"] = {
@@ -4368,14 +4513,17 @@ def phase_serving_tier(torch, fa):
     released = not server._acquired and not server._published_by_row
     rec["overlay"] = overlay_timing(torch, server)
     del server, engine, pool
-    server = InferenceServer(serving_tier_config(False), seed=0)
-    off, rec_off = serve_counted(torch, fa, server, prompts)
+    with untraced():
+        server = InferenceServer(serving_tier_config(False), seed=0)
+        off, rec_off = serve_counted(torch, fa, server, prompts, tenants=tenants)
     del server
     answers = {tuple(p): r["tokens"] for p, r in zip(prompts, off)}
-    server = InferenceServer(serving_tier_config(True), seed=0)
-    server.engine.spec_drafter = OracleDrafter(server.engine.spec_max_draft, answers)
-    oracle, rec_oracle = serve_counted(torch, fa, server, prompts)
+    with untraced():
+        server = InferenceServer(serving_tier_config(True), seed=0)
+        server.engine.spec_drafter = OracleDrafter(server.engine.spec_max_draft, answers)
+        oracle, rec_oracle = serve_counted(torch, fa, server, prompts, tenants=tenants)
     del server
+    rec["mt_smoke"] = multi_tenant_smoke_on_card(torch, tmp)
     for r, results in ((rec, on), (rec_oracle, oracle)):
         r["rows_identical_to_features_off"] = float(np.mean(
             [a["tokens"] == b["tokens"] for a, b in zip(results, off)]))
@@ -4394,6 +4542,14 @@ def phase_serving_tier(torch, fa):
         "k1_by_variant": variants == expected,
         "no_plain_calls": rec["plain_attention_calls"] == 0,
         "verify_steps": rec["verify_steps"] > 0,
+        # K1 per chunk forward and per decode/verify step, traced (features
+        # on) and untraced (the oracle run, features on)
+        "k1_unchanged_by_tracing": all(
+            r["flash_fwd_variants"]["tile"] == N_LAYER * r["prefill_chunks"]
+            and r["flash_fwd_variants"]["decode"] == N_LAYER * r["decode_steps"]
+            and r["prefill_chunks"] > 0 and r["verify_steps"] > 0 for r in (rec, rec_oracle)),
+        **{"telemetry_" + k: v for k, v in rec["telemetry"]["gates"].items()},
+        "mt_smoke": rec["mt_smoke"]["rc"] == 0,
     }
     side_gates = {name: (len(res) == len(prompts) and r["finite"]
                          and r["plain_attention_calls"] == 0
@@ -4459,13 +4615,22 @@ def phase_serving_tier(torch, fa):
         "prefill_chunks_skipped", "decode_steps", "verify_steps", "spec_accept_rate",
         "spec_tokens_per_verify_step", "spec_draft_len_p50", "step_wall_ms",
         "draft_host_ms_per_step", "plan_host_ms")} for name, r in (
-            ("features_on", rec), ("features_off", rec_off), ("oracle_drafts", rec_oracle))}
+            ("features_on_traced", rec), ("features_off", rec_off),
+            ("oracle_drafts", rec_oracle))}
+    tele = rec["telemetry"]
     log(f"phase 11: serving tier {'ok' if ok else 'FAIL'} (gates {gates}, side gates "
         f"{side_gates}; K1 by variant {variants} vs {expected}; {json.dumps(summary)}; "
         f"FLOPs {json.dumps(rec['flops'])}; rows identical to features off (bf16, report): "
         f"features on {rec['rows_identical_to_features_off']:.4f}, oracle drafts "
         f"{rec_oracle['rows_identical_to_features_off']:.4f}; overlay "
-        f"{json.dumps(rec['overlay'])}; f32 {json.dumps(rec['f32'])})")
+        f"{json.dumps(rec['overlay'])}; f32 {json.dumps(rec['f32'])}; request traces: "
+        f"{tele['tiled_chains']}/{tele['requests']} chains tile their root (max |sum - root| "
+        f"{tele['stage_sum_max_abs_diff_ns']:.3f} ns), {tele['dropped']} spans dropped of "
+        f"{tele['spans']}, per-tenant counts {json.dumps(tele['per_tenant'])}, "
+        f"{len(tele['health_events'])} health events, trace report {json.dumps(tele['report'])} "
+        f"bubbles {json.dumps(tele['report_bubbles'])} ({tele['gates_wall_s']:.2f} s); "
+        f"mt-smoke rc {rec['mt_smoke']['rc']} in {rec['mt_smoke']['wall_s']:.2f} s "
+        f"{json.dumps(rec['mt_smoke']['record'])} {rec['mt_smoke']['verdict']})")
     return ok, rec
 
 
@@ -4631,11 +4796,14 @@ GPTJ_HF_CONFIG = {  # as its HF config.json names it
 GPTJ_HEADS, GPTJ_D, GPTJ_EOS = 16, 256, 50256
 GPTJ_CHECK_LAYERS = 2  # phase 3's cut depth and the HF checkpoint's (full width)
 GPTJ_UPDATES = 128  # two PPO phases: 128 rollouts / batch 8 x 4 epochs each
+GPTJ_TRAIN_LAYERS = 14  # phase 13's cut depth (phase 12 serves all 28)
 # what phase 13 runs differently from configs/ppo_gptj.yml: (setting, the
 # yml's value, the port's, why)
 GPTJ_DEVIATIONS = (
     ("train.mesh", {"dp": -1, "fsdp": 1, "tp": 4}, {"dp": -1, "fsdp": 1, "tp": 1},
      "the port runs on one device; tensor parallelism is ROADMAP item 14"),
+    ("model.model_arch.n_layer", 28, GPTJ_TRAIN_LAYERS, "the smoke's time limit: phase 12 "
+     "serves all 28 blocks; every width, head count and head dim stays GPT-J-6B's"),
     ("model.model_path", "EleutherAI/gpt-j-6B", "", "the checkpoint is not in the repo: "
      "random weights from train.seed at its widths"),
     ("model.tokenizer_path", "gpt2", "", "no tokenizer in the repo: int-list prompts and a "
@@ -5460,14 +5628,16 @@ def train_wide(torch, fa, phase: int, label: str, config_fn, prompts, deviations
 
 def phase_gptj_training(torch, fa):
     """Phase 13: :func:`train_wide` on ``configs/ppo_gptj.yml`` with
-    ``GPTJ_DEVIATIONS`` (GPT-J-6B widths and depth, the bottom 26 blocks
-    and ``wte`` frozen), 128 int-list prompts of 16..48 tokens; the
-    reference holds blocks 26-27, ``wte``, ``ln_f`` and ``lm_head``."""
-    config_fn = functools.partial(wide_training_config, yml="ppo_gptj.yml",
-                                  model={"model_arch": dict(GPTJ_ARCH)},
-                                  updates=GPTJ_UPDATES, eos=GPTJ_EOS)
+    ``GPTJ_DEVIATIONS`` (GPT-J-6B widths cut to ``GPTJ_TRAIN_LAYERS`` = 14
+    blocks, the bottom 12 and ``wte`` frozen), 128 int-list prompts of
+    16..48 tokens; the reference holds blocks 12-13, ``wte``, ``ln_f`` and
+    ``lm_head``."""
+    config_fn = functools.partial(
+        wide_training_config, yml="ppo_gptj.yml",
+        model={"model_arch": dict(GPTJ_ARCH, n_layer=GPTJ_TRAIN_LAYERS)},
+        updates=GPTJ_UPDATES, eos=GPTJ_EOS)
     return train_wide(torch, fa, 13, "GPT-J-6B", config_fn, gptj_prompts(),
-                      GPTJ_DEVIATIONS, depth=28, updates=GPTJ_UPDATES,
+                      GPTJ_DEVIATIONS, depth=GPTJ_TRAIN_LAYERS, updates=GPTJ_UPDATES,
                       ref_parts=("h", "lm_head", "ln_f", "wte"))
 
 
@@ -5489,9 +5659,9 @@ NEOX_HF_CONFIG = {  # as its HF config.json names it
 NEOX_HEADS, NEOX_D = 64, 96
 NEOX_EOS = 0  # the 20B tokenizer's <|endoftext|>, also its pad
 NEOX_CHECK_LAYERS = 2  # phase 3's cut depth and the HF checkpoint's (full width)
-NEOX_TRAIN_LAYERS = 12  # phase 15's cut depth (44 blocks of f32 masters are 79.7 GB)
+NEOX_TRAIN_LAYERS = 6  # phase 15's cut depth (44 blocks of f32 masters are 79.7 GB)
 NEOX_UPDATES = 16  # two PPO phases: 64 rollouts / batch 32 x 4 epochs each
-#: the hydra reference of phase 15: blocks 10-11, wte, ln_f and lm_head
+#: the hydra reference of phase 15: blocks 4-5, wte, ln_f and lm_head
 NEOX_REFERENCE_PARAMETERS = 1_525_850_112
 # what phase 15 runs differently from configs/ppo_neox20b.yml: (setting,
 # the yml's value, the port's, why)
@@ -5499,7 +5669,9 @@ NEOX_DEVIATIONS = (
     ("train.mesh", {"dp": -1, "fsdp": 8, "tp": 4}, {"dp": -1, "fsdp": 1, "tp": 1},
      "the port runs on one device; fsdp and tensor parallelism are ROADMAP item 14"),
     ("model.model_arch.num_hidden_layers", 44, NEOX_TRAIN_LAYERS, "one card: f32 masters of "
-     "44 blocks alone are 79.7 GB; 12 blocks at full width are 24.2 GB"),
+     "44 blocks alone are 79.7 GB (12 blocks at full width are 24.2 GB, 6 are 13.4 GB); and "
+     "the smoke's time limit: phase 14 serves all 44 blocks, so the 44-block memory case is "
+     "held by serving alone; every width, head count and head dim stays the 20B's"),
     ("model.model_path", "EleutherAI/gpt-neox-20b", "", "the checkpoint is not in the repo: "
      "random weights from train.seed at its widths"),
     ("model.tokenizer_path", "EleutherAI/gpt-neox-20b", "", "no tokenizer in the repo: "
@@ -5665,9 +5837,9 @@ def neox_prompts(seed: int = 6):
 
 def phase_neox_training(torch, fa):
     """Phase 15: :func:`train_wide` on ``configs/ppo_neox20b.yml`` with
-    ``NEOX_DEVIATIONS`` (GPT-NeoX-20B widths cut to 12 blocks, the bottom
-    10 and ``wte`` frozen), 128 int-list prompts of 16..48 tokens; the
-    reference holds blocks 10-11, ``wte``, ``ln_f`` and ``lm_head``
+    ``NEOX_DEVIATIONS`` (GPT-NeoX-20B widths cut to 6 blocks, the bottom
+    4 and ``wte`` frozen), 128 int-list prompts of 16..48 tokens; the
+    reference holds blocks 4-5, ``wte``, ``ln_f`` and ``lm_head``
     (``NEOX_REFERENCE_PARAMETERS``); ``load`` held against a host copy."""
     config_fn = functools.partial(
         wide_training_config, yml="ppo_neox20b.yml",

@@ -20,7 +20,8 @@ Held, each on the same inputs through both packages:
   ``render_phase_row`` and ``watch(follow=False)`` print the same lines,
   and ``append_ab_manifest`` appends the same line (or fails alike);
 - the CLI: both ``main(argv)`` in process print the same stdout with the
-  same exit codes, 2 included; the port refuses ``--trace-report`` by name;
+  same exit codes, 2 included, ``--trace-report`` over a span log the JAX
+  package wrote among them;
 - ``_stream_eligible``: the port's method and the JAX one, each called on
   a ``SimpleNamespace`` self over its own package's config, agree across
   ``phase_overlap`` x ``profile_dir`` x ``profile_phase``;
@@ -439,6 +440,22 @@ def test_cli_prints_the_same_with_the_same_exit_codes(tmp_path, capsys):
                                    "step": 8, "message": "kl"}])
     dump = recorder.dump("test-reason")
     (tmp_path / "bad.json").write_text("{")
+    # a span log with two request chains (a quota hold, decode steps),
+    # written by the JAX package's emitter and exporter
+    from trlx_tpu.telemetry.request_trace import emit_request_trace
+
+    tracer = jt.Tracer(enabled=True)
+    for rid, tenant, blocked in ((0, "gold", None), (1, "bronze", 1.2)):
+        marks = {"submitted": 1.0, "admitted": 1.5 + rid, "first_token": 1.6 + rid,
+                 "done": 1.9 + rid, "completed": 2.0 + rid}
+        emit_request_trace(
+            tracer, trace_id=f"req-cli-{rid}", request_id=rid, tenant=tenant, priority=rid,
+            slo_class="standard", streamed=False, tokens=4, marks=marks,
+            timing={"e2e_ms": (marks["completed"] - 1.0) * 1000.0}, delivered=2.1 + rid,
+            quota_blocked_at=blocked, picked_at=1.4 if blocked else None,
+            step_times=[1.6 + rid + 0.01 * i for i in range(1, 6)], step_epochs=[1] * 5)
+    spans = str(tmp_path / "spans.jsonl")
+    jt.export_chrome_jsonl(spans, tracer.spans())
     argvs = [
         ["--compare", "~2", "~1", "--ledger", ledger],
         ["--compare", "run_a", "run_b", "--ledger", ledger, "--json"],
@@ -450,6 +467,9 @@ def test_cli_prints_the_same_with_the_same_exit_codes(tmp_path, capsys):
         ["--inspect", dump, "--json"],
         ["--inspect", str(tmp_path / "bad.json")],
         ["--inspect", str(tmp_path / "missing.json")],
+        ["--trace-report", spans],
+        ["--trace-report", spans, "--json"],
+        ["--trace-report", str(tmp_path / "missing.jsonl")],
     ]
     results = {}
     for name, (*_, cli) in PACKAGES.items():
@@ -459,11 +479,11 @@ def test_cli_prints_the_same_with_the_same_exit_codes(tmp_path, capsys):
             out = capsys.readouterr()
             results[name].append((rc, out.out, out.err))
     assert results["port"] == results["jax"]
-    assert [r[0] for r in results["jax"]] == [0, 0, 2, 2, 0, 2, 0, 0, 2, 2]
+    assert [r[0] for r in results["jax"]] == [0, 0, 2, 2, 0, 2, 0, 0, 2, 2, 0, 0, 2]
+    assert "critical path per request" in results["port"][-3][1]
+    assert json.loads(results["port"][-2][1])["n_complete"] == 2
     # no subtool: the help (wrapped to each program name's width), exit 2
     assert tcli.main([]) == jcli.main([]) == 2
-    assert tcli.main(["--trace-report", str(tmp_path / "spans.jsonl")]) == 2
-    assert "ROADMAP item 16" in capsys.readouterr().err
 
 
 def test_the_module_runs_as_a_script(tmp_path):

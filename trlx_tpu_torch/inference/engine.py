@@ -51,8 +51,13 @@ monolithic prefill, chunk run or finish chunk launch) and
 ``collect/slot_recycle`` (each harvest group's refill), and the
 ``engine/*`` registry gauges (``slot_util`` at each paid done-poll, the
 prefix and chunk counters after each admission, the speculative rates
-after each verify step). Request tracing and the ``serve/*`` histograms
-are ROADMAP item 16's.
+after each verify step). Per-request marks (submit, admit, first token,
+harvest) ride each row to
+:meth:`~ContinuousBatchingEngine.pop_request_record`; with
+``trace_requests`` on, the host loop also stamps the done polls, the chunk
+windows and the speculative segments, and logs each decode step's wall and
+admission epoch: the decode-cadence slice of the serving tier's request
+traces (:mod:`trlx_tpu_torch.telemetry.request_trace`).
 """
 
 from __future__ import annotations
@@ -384,6 +389,18 @@ class ContinuousBatchingEngine:
         self.stats = EngineStats(num_slots=self.num_slots)
         # per-request latency marks (host clock), popped by the server
         self._req_times: Dict[int, Dict[str, float]] = {}
+        #: request tracing: with this on, the host loop also logs one
+        #: (step wall, admission epoch) pair per decode step and stamps the
+        #: done-poll marks, so the server can emit per-request
+        #: decode-cadence spans. Off (the default, and the trainers'
+        #: collect path) adds no host work per step.
+        self.trace_requests = False
+        # the cadence log is pruned as rows harvest (entries below every
+        # in-flight row's admit window drop; _step_base keeps the marks'
+        # absolute indices valid): a long-lived server's memory stays
+        # bounded by its in-flight window, not its lifetime
+        self._step_log: List[Tuple[float, int]] = []
+        self._step_base = 0
 
     # ------------------------------ state ------------------------------ #
 
@@ -753,6 +770,8 @@ class ContinuousBatchingEngine:
         self._awaiting_first = set()
         self.stats = EngineStats(num_slots=self.num_slots)
         self._req_times = {}
+        self._step_log = []
+        self._step_base = 0
 
     def push_weights(self, params, version: Optional[int] = None) -> None:
         """Stage a refreshed behaviour policy (a module that owns its
@@ -865,13 +884,21 @@ class ContinuousBatchingEngine:
         """Slots with neither an occupant nor a queued claim."""
         return self.num_slots - len(self._busy_rows) - len(self._queue)
 
-    def pop_request_timing(self, row: int) -> Optional[Dict[str, float]]:
-        """Latency decomposition of a HARVESTED row, in ms (popped):
+    def pop_request_record(self, row: int) -> Optional[Dict[str, Any]]:
+        """The trace record of a HARVESTED row (popped; None for an
+        unknown or unfinished row): the ``timing`` decomposition in ms,
         ``queue_wait_ms`` (submit → admission), ``prefill_ms`` (admission →
         first token on the host), ``ttft_ms``, ``decode_ms`` (first token →
-        harvest), ``e2e_ms``. The first-token mark is taken when the first
-        step after the group's prefill has been fetched to the host, so on
-        a GPU it includes the device time, not just the dispatch."""
+        harvest) and ``e2e_ms``; the raw ``marks`` (seconds on the shared
+        telemetry clock); and, under
+        :attr:`trace_requests`, the row's decode-cadence slice:
+        ``step_times`` (the host wall of each decode step while the row was
+        live) and ``step_epochs`` (the admission count at each step: an
+        epoch change mid-row means the host loop interrupted this row's
+        decode run to admit another group). The first-token mark is taken
+        when the first step after the group's prefill has been fetched to
+        the host, so on a GPU it includes the device time, not just the
+        launch."""
         marks = self._req_times.get(row)
         if not marks or "completed" not in marks:
             return None
@@ -881,13 +908,25 @@ class ContinuousBatchingEngine:
         first = marks.get("first_token", admitted)
         completed = marks["completed"]
         ms = 1000.0
-        return {
-            "queue_wait_ms": max(0.0, (admitted - submitted) * ms),
-            "prefill_ms": max(0.0, (first - admitted) * ms),
-            "ttft_ms": max(0.0, (first - submitted) * ms),
-            "decode_ms": max(0.0, (completed - first) * ms),
-            "e2e_ms": max(0.0, (completed - submitted) * ms),
+        record: Dict[str, Any] = {
+            "timing": {
+                "queue_wait_ms": max(0.0, (admitted - submitted) * ms),
+                "prefill_ms": max(0.0, (first - admitted) * ms),
+                "ttft_ms": max(0.0, (first - submitted) * ms),
+                "decode_ms": max(0.0, (completed - first) * ms),
+                "e2e_ms": max(0.0, (completed - submitted) * ms),
+            },
+            "marks": dict(marks),
         }
+        if self._step_log and "admit_step" in marks:
+            base = self._step_base
+            lo = max(0, int(marks["admit_step"]) - base)
+            hi = min(int(marks.get("done_step", base + len(self._step_log))) - base,
+                     len(self._step_log))
+            window = self._step_log[lo:hi]
+            record["step_times"] = [t for t, _ in window]
+            record["step_epochs"] = [e for _, e in window]
+        return record
 
     def _plan_chunk_need(self, prompt_mask, shared_map, publish_map) -> np.ndarray:
         """[n_prefill_chunks] bool: which prompt-column chunks any row of
@@ -969,6 +1008,8 @@ class ContinuousBatchingEngine:
                 "released_slots": released_slots,
                 "need": None,
                 "next_chunk": 0,
+                # (first prompt column, host wall) per chunk-run launch
+                "chunk_walls": [],
                 "t_admit": monotonic(),
             }
             if sharing:
@@ -1009,6 +1050,8 @@ class ContinuousBatchingEngine:
                     self.prefill_chunks(adm, run)
                 self.stats.prefill_chunks += len(run)
                 spent = len(run)
+                if self.trace_requests:
+                    adm["chunk_walls"].append((run[0] * self.prefill_chunk, monotonic()))
             adm["next_chunk"] = hi
             if hi < n_scan or (budget is not None and spent >= budget):
                 return False, spent
@@ -1018,6 +1061,8 @@ class ContinuousBatchingEngine:
                             finish=True):
             self.prefill_finish(adm)
         self.stats.prefill_chunks += 1
+        if self.trace_requests:
+            adm["chunk_walls"].append((n_scan * self.prefill_chunk, monotonic()))
         skipped = int(n_scan - np.count_nonzero(need[:n_scan]))
         self.stats.prefill_cols_skipped += skipped * self.prefill_chunk
         if skipped:
@@ -1035,11 +1080,21 @@ class ContinuousBatchingEngine:
         if adm["released_slots"]:
             self.release(adm["released_slots"])
             self.stats.released += len(adm["released_slots"])
+        # per-chunk-run offsets (first column, ms after admission; traced
+        # runs only): the serve/prefill span carries them
+        chunk_offsets = [{"col": int(col), "ms": round((t - adm["t_admit"]) * 1000.0, 3)}
+                         for col, t in adm["chunk_walls"]]
         for slot, entry in zip(adm["slots"], adm["entries"]):
             self._t_host[slot] = 0
             marks = self._req_times.get(entry[2])
             if marks is not None:
                 marks["admitted"] = adm["t_admit"]
+                if chunk_offsets:
+                    marks["prefill_chunk_offsets"] = chunk_offsets
+                if self.trace_requests:
+                    # the row's decode-cadence window starts at the current
+                    # step-log position (absolute: survives pruning)
+                    marks["admit_step"] = self._step_base + len(self._step_log)
             self._awaiting_first.add(entry[2])
         self.stats.prefills += 1
         self.stats.admitted += adm["take"]
@@ -1122,7 +1177,25 @@ class ContinuousBatchingEngine:
             self.stats.completed += C
             outs["rows"] = rows  # host-side draw indices, harvest order
             outs["versions"] = versions  # each row's admission version
+            if self.trace_requests:
+                self._prune_step_log()
             yield outs
+
+    def _prune_step_log(self) -> None:
+        """Drop cadence-log entries no un-popped request can still
+        reference (everything below the minimum in-flight ``admit_step``;
+        un-admitted rows stamp at or past the current end, so they never
+        constrain). ``_step_base`` keeps the retained marks' absolute
+        indices valid."""
+        if not self._step_log:
+            return
+        end = self._step_base + len(self._step_log)
+        floor = min((int(m["admit_step"]) for m in self._req_times.values()
+                     if "admit_step" in m), default=end)
+        drop = min(floor, end) - self._step_base
+        if drop > 0:
+            del self._step_log[:drop]
+            self._step_base += drop
 
     def drive(self, target: int) -> Iterator[Dict[str, Any]]:
         """Run admission/decode/harvest until ``target`` completed rows
@@ -1218,6 +1291,8 @@ class ContinuousBatchingEngine:
         self.stats.decode_steps += 1
         self.stats.spec_steps += 1
         self.stats.occupancy_sum += len(self._busy_rows)
+        if self.trace_requests:
+            self._step_log.append((monotonic(), self.stats.prefills))
         tok_host = toks.cpu().numpy()
         acc_host = acc.cpu().numpy()
         for slot, row in self._busy_rows.items():
@@ -1231,6 +1306,12 @@ class ContinuousBatchingEngine:
                 self.stats.spec_accepted += n_accepted
                 self.stats.spec_draft_lens.append(n_drafted)
                 self.spec_drafter.observe_accept(row, n_drafted, n_accepted)
+                marks = self._req_times.get(row) if self.trace_requests else None
+                if marks is not None:
+                    # the serve/decode span's spec_segments/accepted keep
+                    # the report's cadence estimator off multi-token steps
+                    marks["spec_segments"] = marks.get("spec_segments", 0) + 1
+                    marks["spec_accepted"] = marks.get("spec_accepted", 0) + n_accepted
             if n_cols:
                 self.spec_drafter.observe_tokens(
                     row, [int(t) for t in tok_host[slot, :n_cols]]
@@ -1256,6 +1337,11 @@ class ContinuousBatchingEngine:
         done, token, emitted_mask = self.decode_step()
         self.stats.decode_steps += 1
         self.stats.occupancy_sum += len(self._busy_rows)
+        if self.trace_requests:
+            # one (step wall, admission epoch) pair per decode step: an
+            # epoch change inside a row's window marks the admission that
+            # interrupted its decode run
+            self._step_log.append((monotonic(), self.stats.prefills))
         for slot in self._busy_rows:
             self._t_host[slot] += 1
         if self.token_sink is not None or self.spec_drafter is not None:
@@ -1293,6 +1379,14 @@ class ContinuousBatchingEngine:
             if marks is not None:
                 marks["first_token"] = now
         self._awaiting_first = set()
-        for slot in self._busy_rows:
+        for slot, row in self._busy_rows.items():
             if done_host[slot] and slot not in self._done_slots:
                 self._done_slots.append(slot)
+                if self.trace_requests:
+                    # the host-visible decode end, where the harvest-wait
+                    # stage starts (with polling every k steps it lags the
+                    # device by up to k - 1 steps)
+                    marks = self._req_times.get(row)
+                    if marks is not None:
+                        marks["done"] = now
+                        marks["done_step"] = self._step_base + len(self._step_log)

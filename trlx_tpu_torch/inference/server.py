@@ -22,9 +22,21 @@ admitted request, released at completion); ``rollout.prefill_chunk`` and
 the n-gram drafter). ``model.model_arch.kv_cache_dtype`` (``int8``, or
 ``auto`` at the engine's capacity) gives an int8 cache and an int8 pool.
 The engine's spans and ``engine/*`` gauges land in the port's tracer and
-metrics registry (:mod:`trlx_tpu_torch.telemetry`). Not ported yet (ROADMAP
-item 16): the health monitor's SLO watch, request tracing and the
-``serve/*`` histograms, which read that tracer and registry.
+metrics registry (:mod:`trlx_tpu_torch.telemetry`), and so does the serving
+tier's own telemetry, as in the reference:
+
+- every completed request feeds the ``serve/*`` latency histograms and
+  their per-tenant twins (:func:`observe_request_metrics`); the QoS
+  scheduler is built over that registry, so a tenant whose queue-wait p95
+  nears its SLO class budget is boosted; :meth:`InferenceServer.metrics`
+  is the ``serve/*`` slice of the snapshot;
+- a :class:`~trlx_tpu_torch.telemetry.health.HealthMonitor` watches each
+  harvest group (non-finite logprobs or values trip ``nan-precursor``, a
+  tenant's queue-wait p95 over its budget trips ``slo-breach``);
+- with the tracer enabled, every completed row emits its request's span
+  chain (:mod:`trlx_tpu_torch.telemetry.request_trace`) from the
+  scheduler's, the engine's and the stream's marks; disabled, nothing is
+  collected.
 """
 
 from __future__ import annotations
@@ -32,15 +44,56 @@ from __future__ import annotations
 import functools
 import itertools
 import time
-from typing import Any, Dict, List, Mapping, Optional, Sequence, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
+from trlx_tpu_torch import telemetry
 from trlx_tpu_torch.data.configs import TRLConfig
-from trlx_tpu_torch.serving.scheduler import DEFAULT_TENANT
+from trlx_tpu_torch.serving.scheduler import DEFAULT_TENANT, tenant_metric_key
+from trlx_tpu_torch.telemetry.request_trace import emit_request_trace, mint_trace_id
 from trlx_tpu_torch.utils import compute_dtype_cast, monotonic, resolve_device
 from trlx_tpu_torch.utils.retry import retry_call
+
+#: the per-request latency histograms every served request feeds: the
+#: series QoS scheduling reads and the smokes assert
+SERVE_HISTOGRAMS = (
+    "serve/queue_wait_ms",
+    "serve/prefill_ms",
+    "serve/ttft_ms",
+    "serve/decode_per_token_ms",
+    "serve/e2e_ms",
+)
+
+
+def observe_request_metrics(
+    registry,
+    timing: Dict[str, float],
+    tokens: int,
+    tenant: Optional[str] = None,
+) -> None:
+    """Feed one completed request's timing decomposition (the ``timing`` of
+    :meth:`~trlx_tpu_torch.inference.engine.ContinuousBatchingEngine.pop_request_record`)
+    into the latency histograms: queue wait, prefill, time to first token,
+    per-token decode (``decode_ms`` over the generated token count),
+    end to end. With ``tenant`` given each observation also lands in the
+    tenant-labelled twin (``serve/queue_wait_ms[tenant=acme]``), so
+    per-tenant SLOs can be asserted, not just aggregates."""
+    values = {
+        "serve/queue_wait_ms": timing.get("queue_wait_ms", 0.0),
+        "serve/prefill_ms": timing.get("prefill_ms", 0.0),
+        "serve/ttft_ms": timing.get("ttft_ms", 0.0),
+        "serve/decode_per_token_ms": timing.get("decode_ms", 0.0) / max(1, int(tokens)),
+        "serve/e2e_ms": timing.get("e2e_ms", 0.0),
+    }
+    for key, value in values.items():
+        registry.histogram(key).observe(value)
+        if tenant is not None:
+            registry.histogram(tenant_metric_key(key, tenant)).observe(value)
+    registry.counter("serve/requests_completed").inc()
+    if tenant is not None:
+        registry.counter(tenant_metric_key("serve/requests_completed", tenant)).inc()
 
 
 class InferenceServer:
@@ -86,6 +139,7 @@ class InferenceServer:
         from trlx_tpu_torch.serving import PrefixBlockPool, ServingConfig, TrieDrafter
         from trlx_tpu_torch.serving.scheduler import build_scheduler
         from trlx_tpu_torch.serving.streaming import StreamRouter
+        from trlx_tpu_torch.telemetry.health import HealthConfig, HealthMonitor
         from trlx_tpu_torch.utils.checkpoint import load_checkpoint
 
         self.device = resolve_device(device)
@@ -190,9 +244,26 @@ class InferenceServer:
             )
         self.engine._admit_listener = self._on_admitted
         self.engine.start_phase(seed)
-        self.scheduler = build_scheduler(self.serving_config)
+        # the span ring's capacity (train.telemetry.ring_size): request
+        # traces multiply span volume, so the ring is sized before traffic
+        telemetry.configure_from_dict(train.training.get("telemetry"))
+        self._registry = telemetry.get_metrics()
+        # request tracing: with the tracer enabled the engine logs the
+        # decode cadence and done marks; disabled, the host loop's
+        # per-step cost stays as it was
+        self.engine.trace_requests = telemetry.get_tracer().enabled
+        self.scheduler = build_scheduler(self.serving_config, registry=self._registry)
         self._router = StreamRouter(maxlen=self.serving_config.stream_buffer)
+        # generation-health watch: non-finite logprobs/values in a served
+        # group trip nan-precursor, a tenant's queue-wait p95 over its SLO
+        # budget trips slo-breach; zero events is healthy serving
+        self.health_monitor = HealthMonitor(HealthConfig.from_dict({"enabled": True}))
         self._requests: Dict[int, Any] = {}  # request_id -> Request
+        # Requests kept until their row harvests: pop_result may drop
+        # _requests mid-flight, but an abandoned request's span chain must
+        # still close when its row completes
+        self._trace_reqs: Dict[int, Any] = {}
+        self._plan_windows: Dict[int, Tuple[float, float]] = {}  # rid -> (t0, t1)
         self._row_to_req: Dict[int, int] = {}  # engine row -> request_id
         self._req_row: Dict[int, int] = {}  # request_id -> engine row
         self._acquired: Dict[int, List[int]] = {}  # rid -> pool blocks
@@ -201,8 +272,14 @@ class InferenceServer:
         self._results: Dict[int, Dict[str, Any]] = {}
         self._open: Dict[int, bool] = {}
         self._next_request = itertools.count()
+        self.completion_order: List[int] = []
+        self._groups_served = 0
 
     # ------------------------------ API -------------------------------- #
+
+    @property
+    def health_events(self) -> List[Any]:
+        return list(self.health_monitor.events)
 
     def _encode(self, prompt) -> List[int]:
         if isinstance(prompt, str):
@@ -245,11 +322,13 @@ class InferenceServer:
         prio = tenant_cfg.priority if priority is None else int(priority)
         slo = tenant_cfg.slo_class if slo_class is None else slo_class
         now = monotonic()
+        tracing = telemetry.get_tracer().enabled
         reqs = []
         for i, p in enumerate(prompts):
             ids, mask = self._pad_prompt(self._encode(p), i)
+            request_id = next(self._next_request)
             req = Request(
-                request_id=next(self._next_request),
+                request_id=request_id,
                 tenant=tenant,
                 prompt_ids=ids,
                 prompt_mask=mask,
@@ -262,6 +341,7 @@ class InferenceServer:
                 stream=bool(stream),
                 cost=float(int(mask.sum()) + self.engine.R),
                 submitted_at=now,
+                trace_id=mint_trace_id(request_id),
             )
             self.scheduler.validate(req)
             reqs.append(req)
@@ -270,6 +350,8 @@ class InferenceServer:
             rid = req.request_id
             self.scheduler.submit(req)
             self._requests[rid] = req
+            if tracing:
+                self._trace_reqs[rid] = req
             self._open[rid] = True
             if stream:
                 self._streams[rid] = TokenStream(
@@ -305,15 +387,18 @@ class InferenceServer:
     def _engine_submit(self, batch) -> None:
         """Move scheduler picks into the engine's admission queue, each
         with its prefix-sharing plan when the pool is on."""
+        tracing = telemetry.get_tracer().enabled
         plans = []
         if self.prefix_pool is not None:
             eligible = self.query_length // self.engine.block_size
-            plans = [
-                self.prefix_pool.plan_admission(
+            for req in batch:
+                t_plan = monotonic() if tracing else 0.0
+                plans.append(self.prefix_pool.plan_admission(
                     req.prompt_ids, req.prompt_mask, eligible_blocks=eligible
-                )
-                for req in batch
-            ]
+                ))
+                if tracing:
+                    # the request trace's prefix-plan overlay
+                    self._plan_windows[req.request_id] = (t_plan, monotonic())
         ids = np.stack([req.prompt_ids for req in batch])
         mask = np.stack([req.prompt_mask for req in batch])
         # admission sits on the request path: a transient failure (the
@@ -335,6 +420,8 @@ class InferenceServer:
             for plan in plans:
                 if plan.acquired:
                     self.prefix_pool.abandon(plan.acquired)
+            for req in batch:
+                self._plan_windows.pop(req.request_id, None)
             raise
         for i, (row, req) in enumerate(zip(rows, batch)):
             self._row_to_req[row] = req.request_id
@@ -383,10 +470,29 @@ class InferenceServer:
             self._land_group(group)
         return bool(groups) or busy_before > 0
 
+    def _observe_group(self, group) -> None:
+        """One health row per harvest group: the served logprobs and
+        values (response columns), and every measured tenant's queue-wait
+        p95 over its SLO budget."""
+        lp = np.asarray(group["logprobs"])
+        vals = np.asarray(group["values"])
+        m = np.asarray(group["response_mask"]).astype(bool)
+        picked = lp[m] if m.any() else lp.ravel()
+        row = {
+            "health/logprob_mean": float(picked.mean()),
+            "health/logprob_min": float(picked.min()),
+            "health/value_mean": float(vals[m].mean() if m.any() else 0.0),
+        }
+        row.update(self.scheduler.slo_ratio_rows())
+        self.health_monitor.observe(row, step=self._groups_served)
+        self._groups_served += 1
+
     def _land_group(self, group) -> None:
         mask = group["response_mask"]
+        self._observe_group(group)
         for j, row in enumerate(group["rows"]):
-            timing = self.engine.pop_request_timing(row)
+            record = self.engine.pop_request_record(row)
+            timing = record["timing"] if record else None
             rid = self._row_to_req.pop(row, None)
             self._published_by_row.pop(row, None)
             # references drop for every harvested row with a plan, also a
@@ -398,13 +504,19 @@ class InferenceServer:
             stream = self._router.pop(row)
             if stream is not None:
                 stream.close()
+            length = int(mask[j].sum()) if rid is not None else 0
             if rid is None or not self._open.get(rid):
-                continue  # placeholder / already-closed row
-            length = int(mask[j].sum())
+                # a placeholder, or a request closed early: its row still
+                # decoded to harvest, so its span chain closes here too
+                self._finish_trace(rid, record, stream, length, status="abandoned")
+                continue
+            req = self._requests[rid]
+            if timing is not None:
+                observe_request_metrics(self._registry, timing, length, tenant=req.tenant)
             self._results[rid] = {
                 "tokens": group["tokens"][j, :length].tolist(),
                 "length": length,
-                "tenant": self._requests[rid].tenant,
+                "tenant": req.tenant,
                 "logprobs": group["logprobs"][j, :length].tolist(),
                 "values": group["values"][j, :length].tolist(),
                 "timing": timing,
@@ -414,6 +526,42 @@ class InferenceServer:
                     self._results[rid]["tokens"], skip_special_tokens=True
                 )
             self._open[rid] = False
+            self.completion_order.append(rid)
+            self._finish_trace(rid, record, stream, length)
+
+    def _finish_trace(self, rid, record, stream, tokens: int, status: str = "ok") -> None:
+        """Close one harvested request's trace: the kept scheduler marks,
+        the engine's popped record and the stream's delivery marks become
+        the parented span chain. No-op for placeholder rows, for requests
+        submitted while tracing was off, and with the tracer disabled now."""
+        req = self._trace_reqs.pop(rid, None) if rid is not None else None
+        plan_window = self._plan_windows.pop(rid, None) if rid is not None else None
+        tracer = telemetry.get_tracer()
+        if req is None or record is None or not tracer.enabled:
+            return
+        stream_window = None
+        if stream is not None and stream.first_push_at is not None:
+            stream_window = (stream.first_push_at, stream.closed_at or stream.first_push_at)
+        emit_request_trace(
+            tracer,
+            trace_id=req.trace_id,
+            request_id=req.request_id,
+            tenant=req.tenant,
+            priority=req.priority,
+            slo_class=req.slo_class,
+            streamed=req.stream,
+            tokens=tokens,
+            marks=record["marks"],
+            timing=record["timing"],
+            delivered=monotonic(),
+            status=status,
+            quota_blocked_at=req.quota_blocked_at,
+            picked_at=req.picked_at or None,
+            step_times=record.get("step_times"),
+            step_epochs=record.get("step_epochs"),
+            plan_window=plan_window,
+            stream_window=stream_window,
+        )
 
     def flush(self) -> int:
         """Drive the serving loop until every submitted request has
@@ -471,4 +619,16 @@ class InferenceServer:
             out.update(self.prefix_pool.stats())
         if self.engine.spec_drafter is not None:
             out.update(self.engine.spec_drafter.stats())
+        return out
+
+    def metrics(self) -> Dict[str, Any]:
+        """The ``serve/*`` slice of the metrics-registry snapshot: the
+        per-request latency histograms (summaries) and counters, aggregate
+        and tenant-labelled keys."""
+        snap = self._registry.snapshot()
+        out: Dict[str, Any] = {}
+        for section in ("counters", "gauges", "histograms"):
+            for name, value in snap.get(section, {}).items():
+                if name.startswith("serve/"):
+                    out[name] = value
         return out

@@ -159,6 +159,27 @@ class NGramDrafter:
         self._starts.clear()
         self._tenant.clear()
 
+    # --------------------------- checkpointing --------------------------- #
+
+    def state_dict(self) -> Dict[str, object]:
+        """Resume-carried drafter state: the per-tenant accept EWMAs and
+        probe counters decide whether a tenant drafts at all, so a resumed
+        run must see the values the killed run had (resetting them to 1.0
+        would re-draft for a degraded tenant and diverge from the
+        uninterrupted twin). Row histories and tenant maps are
+        phase-scoped (``reset()`` drops them at every phase boundary) and
+        the counters do not steer drafting, so neither is carried."""
+        return {
+            "ewma": dict(self._ewma),
+            "suppressed": dict(self._suppressed),
+        }
+
+    def load_state_dict(self, state: Dict[str, object]) -> None:
+        self._ewma = {str(k): float(v) for k, v in state["ewma"].items()}
+        self._suppressed = {
+            str(k): int(v) for k, v in state["suppressed"].items()
+        }
+
     # ------------------------------ drafting ---------------------------- #
 
     def accept_ewma(self, tenant: str) -> float:

@@ -18,11 +18,16 @@
   bounded ring of phase records dumped as one JSON file;
 - :mod:`~trlx_tpu_torch.telemetry.run_ledger`: per-run manifests appended
   to a ledger JSONL (``train.run_dir``, ``TRLX_RUN_LEDGER``);
-  ``python -m trlx_tpu_torch.telemetry --inspect/--compare/--watch``.
+  ``python -m trlx_tpu_torch.telemetry --inspect/--compare/--watch``;
+- :mod:`~trlx_tpu_torch.telemetry.request_trace`: the serving tier's
+  per-request span chains (``serve/request`` and its disjoint stages),
+  emitted at harvest from the layers' host marks;
+- :mod:`~trlx_tpu_torch.telemetry.trace_report`: the critical-path,
+  tenant-tail and decode-bubble report over an exported span log
+  (``python -m trlx_tpu_torch.telemetry --trace-report``).
 
 Attribution (``attribution.py``, ``device_metrics.static_vs_measured``)
-is ROADMAP item 19's remainder; request tracing and ``--trace-report``
-are item 16's.
+is ROADMAP item 19's remainder.
 
 The module-level :func:`span` / :func:`get_tracer` API routes through one
 process-global tracer, enabled by default on the main process only

@@ -14,10 +14,13 @@
 - ``python -m trlx_tpu_torch.telemetry --watch <run_dir>``: tail the live
   ``phases.jsonl`` a ``train.run_dir`` run mirrors its phase records into,
   one line per phase (``--no-follow`` renders what exists and exits).
+- ``python -m trlx_tpu_torch.telemetry --trace-report <spans.jsonl>``: the
+  critical-path / tenant-tail / decode-bubble report over a span log
+  carrying request traces (:mod:`~trlx_tpu_torch.telemetry.trace_report`);
+  ``--json`` emits the machine summary.
 
-``--trace-report`` (request traces) is refused by name: it is ROADMAP item
-16's. Exit status: 0 on success, 2 on unreadable or unresolvable inputs
-(the content never affects the exit code: these are viewers, not gates).
+Exit status: 0 on success, 2 on unreadable or unresolvable inputs (the
+content never affects the exit code: these are viewers, not gates).
 """
 
 from __future__ import annotations
@@ -82,12 +85,17 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
 
     if args.trace_report:
-        print(
-            "error: --trace-report (request traces) is not ported yet "
-            "(ROADMAP item 16)",
-            file=sys.stderr,
-        )
-        return 2
+        from trlx_tpu_torch.telemetry.trace_report import render_report, report_json
+
+        try:
+            if args.json:
+                print(json.dumps(report_json(args.trace_report)))
+            else:
+                print(render_report(args.trace_report))
+        except OSError as e:
+            print(f"error: cannot read {args.trace_report}: {e}", file=sys.stderr)
+            return 2
+        return 0
 
     if args.compare:
         from trlx_tpu_torch.telemetry.run_ledger import compare_runs, resolve_run

@@ -286,6 +286,8 @@ class PPOTrainer(BaseRLTrainer):
         self._phase_profiler = PhaseProfiler(None, None)
         self._profiling = None
         self._rollout_engine_obj = None
+        # a checkpoint's drafter state, applied when the engine is built
+        self._drafter_state: Optional[Dict[str, Any]] = None
         self.reset_rollout_phase()
         self._rebuild_sampler()
 
@@ -535,6 +537,10 @@ class PPOTrainer(BaseRLTrainer):
         ``bind_prompt_budget`` has settled the decode budget)."""
         if self._rollout_engine_obj is None:
             self._rollout_engine_obj = self._build_rollout_engine()
+            drafter = self._rollout_engine_obj.spec_drafter
+            if self._drafter_state is not None and drafter is not None:
+                drafter.load_state_dict(self._drafter_state)
+            self._drafter_state = None
         return self._rollout_engine_obj
 
     def _build_rollout_engine(self):
@@ -1297,10 +1303,6 @@ class PPOTrainer(BaseRLTrainer):
                 "kl_coef": float(self.kl_coef),
                 "mean_kl": float(self.mean_kl),
                 "generator": self.generator.get_state(),
-                # mid-phase, the per-row phase seed and cursor decide the
-                # remaining rows' noise
-                "rollout_phase_seed": self._rollout_phase_seed,
-                "rollout_row_cursor": self._rollout_row_cursor,
             }
             if self.orch is not None:
                 state["orchestrator"] = self.orch.state_dict()
@@ -1311,6 +1313,37 @@ class PPOTrainer(BaseRLTrainer):
                 directory or self.config.train.checkpoint_dir, state, self.step,
                 async_save=bool(self.config.train.training.get("async_checkpoint", False)),
             )
+
+    def host_state_dict(self) -> Dict[str, Any]:
+        """The base trainer's host state, plus what the rollouts carry
+        across a checkpoint: the per-row phase seed (drawn from the
+        sampling generator; the counterpart of the JAX trainer's
+        ``rollout_phase_key``) and draw cursor, which decide every remaining
+        row's noise mid-phase (at a phase boundary they are None and 0),
+        and the continuous engine's drafter state (its accept EWMAs and
+        probe counters decide whether a row drafts at all)."""
+        state = super().host_state_dict()
+        state["rollout_phase_seed"] = self._rollout_phase_seed
+        state["rollout_row_cursor"] = int(self._rollout_row_cursor)
+        drafter = getattr(self._rollout_engine_obj, "spec_drafter", None)
+        if drafter is not None:
+            state["spec_drafter"] = drafter.state_dict()
+        elif self._drafter_state is not None:  # loaded, engine not built yet
+            state["spec_drafter"] = self._drafter_state
+        return state
+
+    def load_host_state_dict(self, state: Dict[str, Any]) -> None:
+        super().load_host_state_dict(state)
+        state = state or {}
+        self._rollout_phase_seed = state.get("rollout_phase_seed")
+        self._rollout_row_cursor = int(state.get("rollout_row_cursor", 0))
+        drafter_state = state.get("spec_drafter")
+        if drafter_state is not None and self.rollout_engine == "continuous":
+            drafter = getattr(self._rollout_engine_obj, "spec_drafter", None)
+            if drafter is not None:
+                drafter.load_state_dict(drafter_state)
+            else:  # applied when the engine is built
+                self._drafter_state = drafter_state
 
     def load(self, directory: str) -> None:
         """Restore the newest checkpoint under ``directory`` (after every
@@ -1325,8 +1358,6 @@ class PPOTrainer(BaseRLTrainer):
         self.kl_coef = float(state["kl_coef"])
         self.mean_kl = float(state["mean_kl"])
         self.generator.set_state(state["generator"])
-        self._rollout_phase_seed = state.get("rollout_phase_seed")
-        self._rollout_row_cursor = int(state.get("rollout_row_cursor", 0))
         if self.orch is not None and "orchestrator" in state:
             self.orch.load_state_dict(state["orchestrator"])
         self.load_host_state_dict(state.get("host"))
