@@ -514,6 +514,26 @@ Phases, each fatal on failure:
    from the update-32 checkpoint and the run's end at 64, launches
    counted across both attempts; prints the time to recover (the failure
    to the resumed attempt's first update).
+26. bf16 moments and the sweep — (a) phase 5's geometry
+   (``configs/ppo_sentiments.yml``'s GPT-2 small, bf16 over f32 masters)
+   for ``MOMENT_UPDATES`` updates twice from one seed (the end save
+   asynchronous), ``train.adam_moment_dtype`` float32 then bfloat16: every moment tensor
+   bf16 on the card, the moments' bytes half the f32 run's (4 B against
+   8 B a trainable parameter), finite, moved, K1 by variant and K2/K3
+   launches equal to the f32 run's with no plain call, a save, load and
+   one update ``torch.equal`` to the update without them, the card's
+   ``stochastic_round`` bit-equal to the plain CPU one on the same noise,
+   and its mean over 4096 draws within 0.15 ulp; prints each run's moment
+   bytes, peak, median update ms (the optimizer step and the whole
+   ``train_step``, CUDA events), last KL and mean score; (b) ``python -m
+   trlx_tpu_torch.sweep trlx_tpu_torch/examples/randomwalks.py --config
+   configs/sweeps/ppo_randomwalks_sweep.yml --local --seed 0`` in process
+   (``cli``, its wandb replay off): 4 trials of ``configs/ppo_randomwalks.yml`` (200 updates
+   each) with the drawn ``lr_init``, ``init_kl_coef`` and ``ppo_epochs``;
+   gates: 4 trials in the JSON, each in the yml's ranges, 200 updates, a
+   finite ``metrics/optimality``, ``best`` its argmax, K1 = 6 x the
+   trial's forwards and K2 = K3 = 6 x 200 ``fma``; prints each trial's
+   parameters, optimality and wall.
 
 Phase 5 also holds one collect with ``rollout_param_cast`` on against one
 with it off, from the same seed, its layer norms perturbed: ``torch.equal``
@@ -521,8 +541,8 @@ tokens, logprobs, values, reference logprobs and rewards. Every phase
 call's wall is logged as it ends and printed as one ``{"phase_walls":
 {...}}`` line before the ``kernels`` line.
 
-Each path (phases 4 to 24, each definition of phase 7, each run of phases
-9, 16, 18, 21 and 22 on its own) runs with the launch counters set to 0 just
+Each path (phases 4 to 26, each definition of phase 7, each run of phases
+9, 16, 18, 21, 22 and 26 on its own) runs with the launch counters set to 0 just
 before it and read just after, and its peak memory is read from a clean start.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -6078,79 +6098,15 @@ def phase_neo_training(torch, fa):
 SMALL_HEAD_DIMS = (16, 24, 32)
 
 
-def randomwalks_graph(n_nodes: int = 21, p_edge: float = 0.1, seed: int = 1002):
-    """``examples/randomwalks.py::generate_graph`` (copied: that module
-    imports the JAX package): a random directed adjacency with a ring
-    backbone, so every node reaches the goal."""
-    import numpy as np
-
-    rng = np.random.default_rng(seed)
-    adj = rng.random((n_nodes, n_nodes)) < p_edge
-    np.fill_diagonal(adj, False)
-    for i in range(n_nodes):
-        adj[i, (i + 1) % n_nodes] = True
-    return adj
-
-
-def randomwalks_distances(adj, goal: int = 0):
-    """``examples/randomwalks.py::shortest_lengths``: BFS distances to
-    ``goal`` along the edges."""
-    import numpy as np
-
-    dist = np.full(adj.shape[0], np.inf)
-    dist[goal] = 0
-    frontier = [goal]
-    while frontier:
-        nxt = []
-        for v in frontier:
-            for u in np.nonzero(adj[:, v])[0]:
-                if dist[u] == np.inf:
-                    dist[u] = dist[v] + 1
-                    nxt.append(u)
-        frontier = nxt
-    return dist
-
-
 def randomwalks_task(n_nodes: int = 21, walk_length: int = 9, seed: int = 1002):
-    """``examples/randomwalks.py::make_task``: ``(reward_fn, metric_fn,
-    prompts, logit_mask, info)``. Node i is token i, ``n_nodes`` eos,
-    ``n_nodes + 1`` pad; a prompt is one start node; the reward is the
-    walk's optimality (shortest length over taken length, 0 for an invalid
-    edge or a walk that never reaches the goal)."""
-    import numpy as np
+    """The port's ``trlx_tpu_torch/examples/randomwalks.py::make_task``:
+    ``(reward_fn, metric_fn, prompts, logit_mask, info)``. Node i is token
+    i, ``n_nodes`` eos, ``n_nodes + 1`` pad; a prompt is one start node;
+    the reward is the walk's optimality (shortest length over taken length,
+    0 for an invalid edge or a walk that never reaches the goal)."""
+    from trlx_tpu_torch.examples.randomwalks import make_task
 
-    goal = 0
-    adj = randomwalks_graph(n_nodes, seed=seed)
-    dists = randomwalks_distances(adj, goal)
-
-    def walk_score(sample: str, query: str) -> float:
-        start = int(query.split()[-1])
-        walk = [start]
-        for tok in sample.split():
-            if int(tok) >= n_nodes:
-                break
-            walk.append(int(tok))
-        length = 0.0
-        for u, v in zip(walk[:-1], walk[1:]):
-            if not adj[u, v]:
-                return 0.0
-            length += 1
-            if v == goal:
-                return float(dists[start] / length)
-        return 0.0
-
-    def reward_fn(samples, queries, response_gt=None):
-        return [walk_score(s, q) for s, q in zip(samples, queries)]
-
-    def metric_fn(samples):
-        starts = list(range(1, n_nodes))
-        return {"optimality": [walk_score(s, str(st)) for s, st in zip(samples, starts * 10)]}
-
-    vocab = n_nodes + 2
-    logit_mask = np.zeros((vocab, vocab), dtype=bool)
-    logit_mask[:n_nodes, :n_nodes] = adj
-    return reward_fn, metric_fn, [[i] for i in range(1, n_nodes)], logit_mask, dict(
-        adj=adj, dists=dists, goal=goal, n_nodes=n_nodes, walk_length=walk_length)
+    return make_task(n_nodes, walk_length, seed)
 
 
 def randomwalks_dataset(info, n_walks: int = 1000, seed: int = 0):
@@ -8641,6 +8597,332 @@ def phase_async(torch, fa):
     return bool(ok), out
 
 
+# half of one collect of configs/ppo_sentiments.yml (128 // 16 minibatches x
+# 4 epochs = 32 updates), to keep the smoke's phase walls under 1000 s
+MOMENT_UPDATES = 16
+SR_DRAWS = 4096  # tests/test_optimizer_precision.py's unbiasedness draws
+SR_VALUES = (1.0 + 2 ** -9, -3.7e-4, 0.123456, 5.0e5, -1.0 - 2 ** -10)
+SWEEP_YML = "ppo_randomwalks_sweep.yml"
+SWEEP_UPDATES = 200  # configs/ppo_randomwalks.yml's total_steps
+SWEEP_TRIALS = 4  # the sweep yml's num_samples
+
+
+def event_timer(torch, owner, name: str, events: list):
+    """A patch (for ``counted_path``) putting each call of ``owner.name``
+    between two CUDA events, appended to ``events`` (read after the run)."""
+    fn = getattr(owner, name)
+
+    def timed(self, *a, **kw):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn(self, *a, **kw)
+        end.record()
+        events.append((start, end))
+        return out
+
+    return (owner, name, timed)
+
+
+def optimizer_probe(torch, owner, events: list, memory: dict):
+    """A patch (for ``counted_path``) of ``owner.step``: each call between
+    two CUDA events, and its own transient bytes (the peak over what was
+    allocated before it); the run's peak so far is kept in
+    ``memory["peak"]`` across the reset this takes."""
+    fn = owner.step
+
+    def step(self):
+        memory["peak"] = max(memory["peak"], torch.cuda.max_memory_allocated())
+        before = memory["allocated_before_step"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        out = fn(self)
+        end.record()
+        events.append((start, end))
+        memory["step_transient"] = max(memory["step_transient"],
+                                       torch.cuda.max_memory_allocated() - before)
+        return out
+
+    return (owner, "step", step)
+
+
+def moment_tensors(opt) -> list:
+    """The Adam moments an optimizer of ``trainer/common.py`` stores."""
+    if hasattr(opt, "adamw"):
+        return [st[k] for st in opt.adamw.state.values() for k in ("exp_avg", "exp_avg_sq")]
+    return [opt.mu, opt.nu]
+
+
+def moments_run(torch, fa, moment_dtype: str, tmp: str):
+    """Phase 5's geometry for ``MOMENT_UPDATES`` updates with
+    ``train.adam_moment_dtype: moment_dtype`` as a counted path; returns
+    ``(trainer, config, record)`` with the moments' bytes, the median
+    optimizer-step and ``train_step`` ms, the collect rows and whether the
+    parameters moved."""
+    import trlx_tpu_torch
+    from trlx_tpu_torch.orchestrator.ppo_orchestrator import PPOOrchestrator
+    from trlx_tpu_torch.trainer.common import ClippedAdamW, LowPrecisionAdamW
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    # the end save through the asynchronous writer: its pinned host
+    # buffers take the moments at their dtype
+    config = training_config(tmp, total_steps=MOMENT_UPDATES, eval_interval=MOMENT_UPDATES,
+                             checkpoint_interval=MOMENT_UPDATES, async_checkpoint=True,
+                             adam_moment_dtype=moment_dtype)
+    opt_events, step_events, collects, initial = [], [], [], {}
+    memory = {"peak": 0, "step_transient": 0, "allocated_before_step": 0}
+    finish, learn = PPOOrchestrator._finish_collect_stats, PPOTrainer.learn
+
+    def record_collect(self, *a, **kw):
+        collects.append(finish(self, *a, **kw))
+        return collects[-1]
+
+    def learn_(self):
+        initial.update({n: p.detach().to("cpu", copy=True)
+                        for n, p in self.model.state_dict().items()})
+        return learn(self)
+
+    patches = [optimizer_probe(torch, ClippedAdamW, opt_events, memory),
+               optimizer_probe(torch, LowPrecisionAdamW, opt_events, memory),
+               event_timer(torch, PPOTrainer, "train_step", step_events),
+               (PPOOrchestrator, "_finish_collect_stats", record_collect),
+               (PPOTrainer, "learn", learn_)]
+    trainer, rec = counted_path(torch, fa, lambda: trlx_tpu_torch.train(
+        reward_fn=training_reward, prompts=training_prompts(), config=config), patches)
+    moments = moment_tensors(trainer.opt)
+    params = trainer.model.state_dict()
+    # the probe reset the peak at each optimizer step: the run's is the
+    # larger of the peaks before and after the last reset
+    rec["max_memory_allocated_bytes"] = max(rec["max_memory_allocated_bytes"], memory["peak"])
+    rec.update({
+        "optimizer_step_transient_bytes": memory["step_transient"],
+        "allocated_before_last_step_bytes": memory["allocated_before_step"],
+        "adam_moment_dtype": moment_dtype, "optimizer": type(trainer.opt).__name__,
+        "updates": trainer.step, "forwards": trainer.forwards,
+        "trainable_parameters": sum(p.numel() for p in trainer.opt.params),
+        "moment_bytes": sum(t.numel() * t.element_size() for t in moments),
+        "moment_dtypes": sorted({str(t.dtype) for t in moments}),
+        "moments_on_cuda": all(t.is_cuda for t in moments),
+        "optimizer_step_ms_median": statistics.median(
+            a.elapsed_time(b) for a, b in opt_events),
+        "train_step_ms_median": statistics.median(a.elapsed_time(b) for a, b in step_events),
+        "optimizer_steps_timed": len(opt_events),
+        "finite": all(bool(torch.isfinite(t).all()) for t in [*params.values(), *moments])
+        and all(math.isfinite(v) for r in collects for v in r.values()
+                if isinstance(v, float)),
+        "tensors_moved": sum(not torch.equal(p.cpu(), initial[n]) for n, p in params.items()),
+        "last_kl": float(trainer.mean_kl),
+        "last_score_mean": collects[-1]["exp/score_mean"] if collects else None,
+    })
+    return trainer, config, rec
+
+
+def stochastic_round_on_card(torch) -> dict:
+    """The card's ``stochastic_round`` against the plain CPU one on the same
+    inputs and noise (edge values first: +-0, +-max finite, a carry into
+    the exponent, +-inf), bit for bit; then the mean of ``SR_DRAWS``
+    draws of the generator's noise within 0.15 ulp of each value."""
+    from trlx_tpu_torch.trainer.common import stochastic_round
+
+    gen = torch.Generator().manual_seed(26)
+    n = 1 << 20
+    x = torch.randn(n, generator=gen) * torch.exp2(
+        torch.randint(-40, 40, (n,), generator=gen).float())
+    f32_max = torch.finfo(torch.float32).max
+    edges = torch.tensor([0.0, -0.0, f32_max, -f32_max, 1.9999999, float("inf"),
+                          float("-inf"), *SR_VALUES])
+    x[:len(edges)] = edges
+    noise = torch.randint(-(1 << 31), (1 << 31) - 1, (n,), generator=gen, dtype=torch.int32)
+    noise[2] = 0xFFFF  # max finite rounds up to inf
+    plain = stochastic_round(x, torch.bfloat16, noise=noise)
+    card = stochastic_round(x.cuda(), torch.bfloat16, noise=noise.cuda()).cpu()
+    values = torch.tensor(SR_VALUES, device="cuda")
+    draws = stochastic_round(values.expand(SR_DRAWS, -1).contiguous(), torch.bfloat16,
+                             generator=torch.Generator(device="cuda").manual_seed(0))
+    mean = draws.float().mean(0).double().cpu()
+    want = values.double().cpu()
+    err_ulp = ((mean - want).abs() / (want.abs() * 2.0 ** -8)).tolist()
+    return {"elements": n, "bit_equal": torch.equal(plain.view(torch.int16),
+                                                    card.view(torch.int16)),
+            "max_rounds_to_inf": bool(torch.isinf(card[2])),
+            "mean_error_ulp": err_ulp, "unbiased": max(err_ulp) < 0.15}
+
+
+def sweep_ranges(sweep: dict, params: dict) -> bool:
+    """Whether a trial's values lie in the sweep yml's ranges."""
+    for name, spec in sweep.items():
+        if name == "tune_config":
+            continue
+        v, values = params[name], spec["values"]
+        if spec["strategy"] in ("uniform", "loguniform"):
+            if not values[0] <= v <= values[1]:
+                return False
+        elif v not in values:
+            return False
+    return True
+
+
+def run_sweep(torch, fa) -> tuple:
+    """(b): the sweep CLI in process on the port's random-walks example,
+    the sweep yml as written, as one counted path; each trial's launches,
+    forwards, updates and wall read around its ``trlx_tpu_torch.train``."""
+    import tempfile
+
+    import numpy as np
+    import yaml
+
+    import trlx_tpu_torch
+    from trlx_tpu_torch.sweep.__main__ import cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    yml = os.path.join(root, "configs", "sweeps", SWEEP_YML)
+    with open(yml) as f:
+        sweep = yaml.safe_load(f)
+    trials, train = [], trlx_tpu_torch.train
+
+    def counters():
+        return {"flash_fwd": fa.FLASH_FWD_LAUNCHES, "variants": forward_variant_launches(fa),
+                "backward": backward_variant_launches(fa)}
+
+    def counted_train(*a, **kw):
+        before, t0 = counters(), time.perf_counter()
+        trainer = train(*a, **kw)
+        torch.cuda.synchronize()
+        after = counters()
+        trials.append({
+            "wall_s": time.perf_counter() - t0, "updates": trainer.step,
+            "forwards": trainer.forwards, "n_layer": trainer.model_config.n_layer,
+            "k1": after["flash_fwd"] - before["flash_fwd"],
+            "k1_variants": {v: after["variants"][v] - before["variants"][v]
+                            for v in after["variants"]},
+            "backward": {k: {v: after["backward"][k][v] - before["backward"][k][v]
+                             for v in BWD_VARIANTS} for k in BWD_KERNELS}})
+        return trainer
+
+    cwd, wandb_disabled = os.getcwd(), os.environ.get("WANDB_DISABLED")
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "sweep.json")
+        os.chdir(tmp)  # the trials' relative checkpoint_dir lands here
+        # the CLI's best-effort wandb replay is off: it writes offline runs
+        # and starts wandb's service, none of which the smoke reads
+        os.environ["WANDB_DISABLED"] = "1"
+        try:
+            best, rec = counted_path(torch, fa, lambda: cli([
+                os.path.join(root, "trlx_tpu_torch", "examples", "randomwalks.py"),
+                "--config", yml, "--local", "--seed", "0", "--output", out]),
+                [(trlx_tpu_torch, "train", counted_train)])
+        finally:
+            os.chdir(cwd)
+            if wandb_disabled is None:
+                del os.environ["WANDB_DISABLED"]
+            else:
+                os.environ["WANDB_DISABLED"] = wandb_disabled
+        with open(out) as f:
+            data = json.load(f)
+    metric = sweep["tune_config"]["metric"]
+    values = [t["result"].get(metric) for t in data["trials"]]
+    rows = [{"params": t["params"], metric: v, **c}
+            for t, v, c in zip(data["trials"], values, trials)]
+    finite = len(values) == SWEEP_TRIALS and all(
+        v is not None and math.isfinite(v) for v in values)
+    gates = {
+        "trials": len(data["trials"]) == len(trials) == SWEEP_TRIALS,
+        "in_ranges": all(sweep_ranges(sweep, t["params"]) for t in data["trials"]),
+        "updates": all(c["updates"] == SWEEP_UPDATES for c in trials),
+        "finite_metric": finite,
+        "best_is_argmax": finite and data["best"] == best
+        and best["params"] == data["trials"][int(np.argmax(values))]["params"],
+        "k1_per_forward": all(c["k1"] == c["n_layer"] * c["forwards"] and c["k1_variants"] == {
+            "tile": 0, "decode": 0, "fma": c["k1"], "copies": 0} for c in trials),
+        "k2_k3": all(c["backward"] == {k: {"tile": 0, "fma": c["n_layer"] * c["updates"]}
+                                       for k in BWD_KERNELS} for c in trials),
+        "no_copies_or_plain": rec["backward_copies"] == 0 and rec["plain_attention_calls"] == 0,
+    }
+    rec.update(path="sweep", trials=rows, gates=gates,
+               best={"params": best["params"], metric: best["result"].get(metric)})
+    return all(gates.values()), rec
+
+
+def phase_moments_sweep(torch, fa):
+    """Phase 26: bf16 Adam moments with stochastic rounding, then the
+    hyperparameter sweep as written (see the module docstring). Returns
+    ``(ok, {"paths": {...}, "sweep": record, ...})``."""
+    import tempfile
+
+    import numpy as np
+
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+
+    out, runs = {"paths": {}}, {}
+    for moment_dtype in ("float32", "bfloat16"):
+        with tempfile.TemporaryDirectory() as tmp:
+            trainer, config, rec = moments_run(torch, fa, moment_dtype, tmp)
+            if moment_dtype == "bfloat16":
+                # the end checkpoint, loaded into a second trainer: one more
+                # update on the same rows in each must agree bit for bit
+                mb = trainer.buffer.gather(np.arange(config.train.batch_size))
+                fresh = PPOTrainer(config)
+                fresh.load(tmp)
+                for t in (trainer, fresh):
+                    t.train_step(mb)
+                torch.cuda.synchronize()
+                rec["resume_update_equal"] = (
+                    trainer.opt.count == fresh.opt.count == MOMENT_UPDATES + 1
+                    and all(torch.equal(a, b) for a, b in zip(
+                        trainer.model.parameters(), fresh.model.parameters()))
+                    and all(torch.equal(a, b) for a, b in zip(
+                        moment_tensors(trainer.opt), moment_tensors(fresh.opt))))
+                del fresh
+            del trainer
+        runs[moment_dtype] = rec
+        out["paths"][f"moments_{moment_dtype}"] = rec
+        log(f"phase 26: (a) {moment_dtype} moments " + json.dumps(rec))
+    f32, bf16 = runs["float32"], runs["bfloat16"]
+    sr = stochastic_round_on_card(torch)
+    expected_bwd = {k: {"tile": N_LAYER * MOMENT_UPDATES, "fma": 0} for k in BWD_KERNELS}
+    gates = {
+        "bf16_on_cuda": bf16["moment_dtypes"] == ["torch.bfloat16"] and bf16["moments_on_cuda"],
+        "f32_moments": f32["moment_dtypes"] == ["torch.float32"],
+        "half_the_bytes": bf16["moment_bytes"] * 2 == f32["moment_bytes"]
+        and bf16["moment_bytes"] == 4 * bf16["trainable_parameters"]
+        and f32["trainable_parameters"] == bf16["trainable_parameters"],
+        "finite_and_moved": all(r["finite"] and r["tensors_moved"] > 0 for r in (f32, bf16)),
+        "updates": f32["updates"] == bf16["updates"] == MOMENT_UPDATES
+        and bf16["optimizer"] == "LowPrecisionAdamW" and f32["optimizer"] == "ClippedAdamW",
+        "launches_as_f32": all(bf16[k] == f32[k] for k in (
+            "launches", "flash_fwd_variants", "backward_variants"))
+        and bf16["backward_variants"] == expected_bwd
+        and bf16["launches"]["flash_fwd"] == N_LAYER * bf16["forwards"],
+        "no_copies_or_plain": all(r["plain_attention_calls"] == 0 and r["backward_copies"] == 0
+                                  and r["flash_fwd_variants"]["copies"] == 0
+                                  for r in (f32, bf16)),
+        "resume_update_equal": bf16["resume_update_equal"],
+        "stochastic_round_bit_equal": sr["bit_equal"] and sr["max_rounds_to_inf"],
+        "stochastic_round_unbiased": sr["unbiased"],
+    }
+    out.update(moments_gates=gates, stochastic_round=sr)
+    a_ok = all(gates.values())
+    log(f"phase 26: (a) bf16 moments {'ok' if a_ok else 'FAIL'} (gates {json.dumps(gates)}; "
+        f"moment bytes f32 {f32['moment_bytes']} bf16 {bf16['moment_bytes']}, peak f32 "
+        f"{f32['max_memory_allocated_bytes']} bf16 {bf16['max_memory_allocated_bytes']} B, "
+        f"optimizer step transient f32 {f32['optimizer_step_transient_bytes']} bf16 "
+        f"{bf16['optimizer_step_transient_bytes']} B, "
+        f"median optimizer step f32 {f32['optimizer_step_ms_median']:.3f} bf16 "
+        f"{bf16['optimizer_step_ms_median']:.3f} ms, median train_step f32 "
+        f"{f32['train_step_ms_median']:.3f} bf16 {bf16['train_step_ms_median']:.3f} ms, wall "
+        f"f32 {f32['wall_s']:.1f} bf16 {bf16['wall_s']:.1f} s; last KL f32 {f32['last_kl']} "
+        f"bf16 {bf16['last_kl']}, mean score f32 {f32['last_score_mean']} bf16 "
+        f"{bf16['last_score_mean']}; stochastic_round {json.dumps(sr)})")
+    b_ok, sweep = run_sweep(torch, fa)
+    out["sweep"] = sweep
+    log("phase 26: (b) sweep " + json.dumps(sweep))
+    log(f"phase 26: (b) sweep {'ok' if b_ok else 'FAIL'} (gates {json.dumps(sweep['gates'])}; "
+        f"trials " + json.dumps([{k: t[k] for k in ("params", "metrics/optimality", "wall_s")}
+                                 for t in sweep["trials"]])
+        + f"; best {json.dumps(sweep['best'])}; sweep wall {sweep['wall_s']:.1f} s)")
+    return a_ok and b_ok, out
+
+
 def int8_kernel_entries(kv, bench) -> list:
     """The ``kernels`` line's entries of the int8 cache's two kernels: the
     serving decode shape's times at the top, the rollout decode's beside
@@ -8905,8 +9187,10 @@ def main() -> int:
     kv_int8_ok, kv_int8 = timed_phase("23 kv int8", phase_kv_int8, torch, fa, attn)
     resilience_ok, resilience = timed_phase("24 resilience", phase_resilience, torch, fa)
     async_ok, async_rl = timed_phase("25 async rl", phase_async, torch, fa)
+    moments_ok, moments = timed_phase("26 bf16 moments and sweep", phase_moments_sweep, torch,
+                                      fa)
     # the small head dims' paths (phases 16 to 18), each counted on its own
-    small_paths = {24: {**rw, "randomwalks_ilql": rw_ilql},
+    small_paths = {24: {**rw, "randomwalks_ilql": rw_ilql, "sweep": moments["sweep"]},
                    32: {n: standins[n] for n in ("standin_gpt2_ppo", "standin_gpt2_ppo_bf16",
                                                  "standin_gpt2_serving")},
                    16: {n: standins[n] for n in ("standin_t5_ppo", "standin_t5_ppo_bf16",
@@ -8933,7 +9217,9 @@ def main() -> int:
                  # phase 24's resumed runs, each across both of its attempts
                  **resilience["paths"],
                  # phase 25's yml run and its dead-actor run (both attempts)
-                 **async_rl["paths"]}
+                 **async_rl["paths"],
+                 # phase 26's f32- and bf16-moment runs
+                 **moments["paths"]}
     if args.profile:
         timed_phase("profile", profile_paths, torch, args.profile)
 
@@ -9079,7 +9365,8 @@ def main() -> int:
               ("randomwalks_ilql", rw_ilql_ok), ("standins_and_guard", standins_ok),
               ("neo_serving", neo_serving_ok), ("neo_training", neo_training_ok),
               ("ring_attention", ring_ok), ("gpt2_moe", moe_ok), ("kv_int8", kv_int8_ok),
-              ("resilience", resilience_ok), ("async_rl", async_ok))
+              ("resilience", resilience_ok), ("async_rl", async_ok),
+              ("bf16_moments_and_sweep", moments_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

@@ -30,6 +30,32 @@ def _from_dict(cls, config: Dict[str, Any], training_keys: FrozenSet[str]):
     )
 
 
+def merge(base: Dict, update: Dict, updated: set) -> Dict:
+    """Recursively merge ``update`` into ``base``, recording touched keys
+    (the JAX package's ``merge``: a key ``base`` lacks is not added)."""
+    for k, v in base.items():
+        if k in update and isinstance(v, dict):
+            base[k] = merge(v, update[k], updated)
+            updated.add(k)
+        elif k in update:
+            base[k] = update[k]
+            updated.add(k)
+    return base
+
+
+def _section_keys(section) -> FrozenSet[str]:
+    """The keys a section takes: its fields and its ``training`` keys."""
+    return frozenset(f.name for f in fields(section) if f.name != "training") | getattr(
+        section, "TRAINING_KEYS", frozenset())
+
+
+def _set(section, key: str, value) -> None:
+    if key in getattr(section, "TRAINING_KEYS", ()):
+        section.training[key] = value
+    else:
+        setattr(section, key, value)
+
+
 def _to_dict(section) -> Dict[str, Any]:
     out = asdict(section)
     training = out.pop("training")
@@ -90,8 +116,9 @@ class TrainConfig:
     :param lr_init / lr_target: cosine learning-rate schedule endpoints.
     :param opt_betas / opt_eps / weight_decay: AdamW.
     :param grad_clip: global-norm gradient clip.
-    :param adam_moment_dtype: Adam moment storage (``float32`` only in the
-        port).
+    :param adam_moment_dtype: Adam moment storage: ``float32``, or
+        ``bfloat16`` with stochastic rounding (half the moments' bytes;
+        :class:`trlx_tpu_torch.trainer.common.LowPrecisionAdamW`).
     :param checkpoint_interval / eval_interval / log_interval: cadence in
         updates.
     :param pipeline / orchestrator / trainer: registry names.
@@ -206,6 +233,49 @@ class TRLConfig:
             "train": _to_dict(self.train),
             "method": self.method.to_dict(),
         }
+
+    def update(self, **kwargs) -> None:
+        """Apply flat or nested overrides, as the JAX package's ``update``;
+        raise on keys that match nothing.
+
+        Takes nested section dicts (``train={"lr_init": 1e-5}``), dotted keys
+        (``**{"train.lr_init": 1e-5}``) and bare keys (``lr_init=1e-5``, the
+        first section that has it: model, train, method). A section's
+        ``training`` keys count as its own."""
+        updates = set()
+        sections = {"model": self.model, "train": self.train, "method": self.method}
+        for k, v in kwargs.items():
+            if k in sections and isinstance(v, dict):
+                section = sections[k]
+                unknown = set(v) - _section_keys(section)
+                if unknown:
+                    raise ValueError(f"Unknown config keys in {k!r}: {sorted(unknown)}")
+                training = getattr(section, "TRAINING_KEYS", ())
+                for key, value in v.items():
+                    current = (section.training.get(key) if key in training
+                               else getattr(section, key))
+                    # a dict the section holds merges (its keys only); the
+                    # rest, and a training key not given yet, is replaced
+                    if isinstance(current, dict):
+                        merge(current, value, updates)
+                    else:
+                        _set(section, key, value)
+                updates.add(k)
+            elif "." in k:
+                section_name, _, name = k.partition(".")
+                section = sections.get(section_name)
+                if section is not None and name in _section_keys(section):
+                    _set(section, name, v)
+                    updates.add(k)
+            else:
+                for section in sections.values():
+                    if k in _section_keys(section):
+                        _set(section, k, v)
+                        updates.add(k)
+                        break
+        rest = set(kwargs) - updates
+        if rest:
+            raise ValueError(f"Unknown config keys: {sorted(rest)}")
 
     def __str__(self):
         import json
