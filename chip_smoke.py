@@ -285,18 +285,19 @@ Phases, each fatal on failure:
    steps, all through the head-dim-256 instantiations; no ``fma`` launch,
    input copy or plain call. Prints tokens/s, TTFT p50/p95, the peak;
 13. GPT-J PPO — ``trlx_tpu_torch.train`` on ``configs/ppo_gptj.yml`` at
-   GPT-J-6B's widths cut to 14 of its 28 blocks (phase 12 serves all 28;
+   GPT-J-6B's widths cut to 8 of its 28 blocks (phase 12 serves all 28;
    bf16 over f32 masters, batch 8, 48 + 48 tokens with ``top_k: 0``, 128
-   rollouts a chunk, 4 epochs, the 2-block hydra reference, the bottom 12
+   rollouts a chunk, 4 epochs, the 2-block hydra reference, the bottom 6
    blocks and ``wte`` frozen) for two PPO phases (128 updates) on 128
    int-list prompts of 16-48 tokens; named deviations: the mesh set to one
-   device (the yml's ``tp: 4`` is ROADMAP item 14), the depth, random
+   device (the yml's ``tp: 4`` needs four ranks; phase 27 runs the mesh
+   path), the depth, random
    weights, no tokenizer, 128 of 10 000 updates. Gates: finite stats; the
    top 2 blocks, ``ln_f``, ``lm_head`` and the value head moved, the bottom
-   12 blocks and ``wte`` bit-identical; the reference holds blocks 12-13,
-   ``wte``, ``ln_f`` and ``lm_head`` only; K1 ``tile`` = 14 x the
-   non-decode forwards (14 a reference scoring: 12 trunk + 2 branch
-   blocks), ``decode`` = 14 x the decode steps; K2 = K3 = 2 x 128,
+   6 blocks and ``wte`` bit-identical; the reference holds blocks 6-7,
+   ``wte``, ``ln_f`` and ``lm_head`` only; K1 ``tile`` = 8 x the
+   non-decode forwards (8 a reference scoring: 6 trunk + 2 branch
+   blocks), ``decode`` = 8 x the decode steps; K2 = K3 = 2 x 128,
    all ``tile``; no ``fma`` launch, input copy or plain call; a fresh
    trainer's ``load`` restores the saved state exactly. Prints the wall
    with the checkpoint write timed apart, collect and train seconds,
@@ -317,13 +318,14 @@ Phases, each fatal on failure:
    rollouts a chunk, 4 epochs, the 2-block hydra reference, running reward
    scaling) at full width for two PPO phases (16 updates) on 128 int-list
    prompts of 16-48 tokens; named deviations: the mesh set to one device
-   (item 14), depth 44 cut to 6 blocks (one card and the time limit;
-   phase 14 serves all 44), random weights, no tokenizer, a host reward,
+   (32 ranks; phase 27 runs the mesh path), depth 44 cut to 4 blocks (one
+   card and the time limit; phase 14 serves all 44), random weights, no
+   tokenizer, a host reward,
    16 of 6000 updates. Gates: finite stats; the top 2 blocks, ``ln_f``,
-   ``lm_head`` and the value head moved, the bottom 4 blocks and ``wte``
-   bit-identical; the reference holds blocks 4-5, ``wte``, ``ln_f`` and
-   ``lm_head`` only (1 525 850 112 parameters); K1 ``tile`` = 6 x the
-   non-decode forwards, ``decode`` = 6 x the decode
+   ``lm_head`` and the value head moved, the bottom 2 blocks and ``wte``
+   bit-identical; the reference holds blocks 2-3, ``wte``, ``ln_f`` and
+   ``lm_head`` only (1 525 850 112 parameters); K1 ``tile`` = 4 x the
+   non-decode forwards, ``decode`` = 4 x the decode
    steps; K2 = K3 = 2 x 16, all ``tile``; no ``fma`` launch, input copy
    or plain call; a fresh trainer's ``load`` restores the saved state
    exactly. Prints the wall with the checkpoint write timed apart, collect
@@ -534,6 +536,28 @@ Phases, each fatal on failure:
    finite ``metrics/optimality``, ``best`` its argmax, K1 = 6 x the
    trial's forwards and K2 = K3 = 6 x 200 ``fma``; prints each trial's
    parameters, optimality and wall.
+27. mesh training — dp/fsdp/tp (``train.mesh``) on phase 5's geometry
+   cut to one collect of 32 rows and 2 updates, no eval. World 1 in this
+   process: one fixed minibatch's update (its gradient norm, the
+   parameters after it) and a counted ``learn()``. Two ranks that share
+   the card, started at the phase's start as ``chip_smoke.py --mesh-rank
+   R --mesh-task T`` processes: an NCCL pair whose first all-reduce NCCL
+   refuses (two ranks on one device; its error printed), and a gloo pair
+   (``initialize``'s explicit ``backend``; gloo stages CUDA tensors
+   through the host) that runs ``{fsdp: 2}`` then ``{tp: 2}``. Gates per
+   mesh: every shard's initial bits equal world 1's; the fixed
+   minibatch's gradient norm within ``MESH_GRAD_NORM_RTOL`` of world 1's,
+   every parameter within 2 lr of world 1's after the update, at most
+   ``MESH_FLIP_SHARE`` of the elements lr / 2 or more apart, the two
+   updates' cosine at least ``MESH_UPDATE_COSINE`` (sums over the mesh,
+   each element once, no gather); each rank's ``learn()`` finite and
+   moving the parameters, its K1 ``tile`` = 12 x its non-decode forwards,
+   ``decode`` = 12 x its decode steps, K2 = K3 = 12 x its updates, all
+   ``tile``, no ``fma``, copy or plain call (world 1 too); each parameter
+   the JAX specs shard at most its share on each rank. Prints NCCL's
+   error and per mesh the backend, the gradient norms, the update's
+   cosine and flip share, and each rank's resident bytes of parameters
+   and moments beside world 1's.
 
 Phase 5 also holds one collect with ``rollout_param_cast`` on against one
 with it off, from the same seed, its layer norms perturbed: ``torch.equal``
@@ -541,8 +565,9 @@ tokens, logprobs, values, reference logprobs and rewards. Every phase
 call's wall is logged as it ends and printed as one ``{"phase_walls":
 {...}}`` line before the ``kernels`` line.
 
-Each path (phases 4 to 26, each definition of phase 7, each run of phases
-9, 16, 18, 21, 22 and 26 on its own) runs with the launch counters set to 0 just
+Each path (phases 4 to 27, each definition of phase 7, each run of phases
+9, 16, 18, 21, 22, 26 and 27 on its own, phase 27's ranks each in its
+process) runs with the launch counters set to 0 just
 before it and read just after, and its peak memory is read from a clean start.
 Prints the card's name and power limit, a ``{"kernels": [...]}`` line,
 and as its last line ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -4816,12 +4841,13 @@ GPTJ_HF_CONFIG = {  # as its HF config.json names it
 GPTJ_HEADS, GPTJ_D, GPTJ_EOS = 16, 256, 50256
 GPTJ_CHECK_LAYERS = 2  # phase 3's cut depth and the HF checkpoint's (full width)
 GPTJ_UPDATES = 128  # two PPO phases: 128 rollouts / batch 8 x 4 epochs each
-GPTJ_TRAIN_LAYERS = 14  # phase 13's cut depth (phase 12 serves all 28)
+GPTJ_TRAIN_LAYERS = 8  # phase 13's cut depth (phase 12 serves all 28)
 # what phase 13 runs differently from configs/ppo_gptj.yml: (setting, the
 # yml's value, the port's, why)
 GPTJ_DEVIATIONS = (
     ("train.mesh", {"dp": -1, "fsdp": 1, "tp": 4}, {"dp": -1, "fsdp": 1, "tp": 1},
-     "the port runs on one device; tensor parallelism is ROADMAP item 14"),
+     "one card: tp 4 needs four ranks (phase 27 runs the mesh path with two ranks that "
+     "share the card; four cards are ROADMAP item 14)"),
     ("model.model_arch.n_layer", 28, GPTJ_TRAIN_LAYERS, "the smoke's time limit: phase 12 "
      "serves all 28 blocks; every width, head count and head dim stays GPT-J-6B's"),
     ("model.model_path", "EleutherAI/gpt-j-6B", "", "the checkpoint is not in the repo: "
@@ -5648,9 +5674,9 @@ def train_wide(torch, fa, phase: int, label: str, config_fn, prompts, deviations
 
 def phase_gptj_training(torch, fa):
     """Phase 13: :func:`train_wide` on ``configs/ppo_gptj.yml`` with
-    ``GPTJ_DEVIATIONS`` (GPT-J-6B widths cut to ``GPTJ_TRAIN_LAYERS`` = 14
-    blocks, the bottom 12 and ``wte`` frozen), 128 int-list prompts of
-    16..48 tokens; the reference holds blocks 12-13, ``wte``, ``ln_f`` and
+    ``GPTJ_DEVIATIONS`` (GPT-J-6B widths cut to ``GPTJ_TRAIN_LAYERS`` = 8
+    blocks, the bottom 6 and ``wte`` frozen), 128 int-list prompts of
+    16..48 tokens; the reference holds blocks 6-7, ``wte``, ``ln_f`` and
     ``lm_head``."""
     config_fn = functools.partial(
         wide_training_config, yml="ppo_gptj.yml",
@@ -5679,7 +5705,7 @@ NEOX_HF_CONFIG = {  # as its HF config.json names it
 NEOX_HEADS, NEOX_D = 64, 96
 NEOX_EOS = 0  # the 20B tokenizer's <|endoftext|>, also its pad
 NEOX_CHECK_LAYERS = 2  # phase 3's cut depth and the HF checkpoint's (full width)
-NEOX_TRAIN_LAYERS = 6  # phase 15's cut depth (44 blocks of f32 masters are 79.7 GB)
+NEOX_TRAIN_LAYERS = 4  # phase 15's cut depth (44 blocks of f32 masters are 79.7 GB)
 NEOX_UPDATES = 16  # two PPO phases: 64 rollouts / batch 32 x 4 epochs each
 #: the hydra reference of phase 15: blocks 4-5, wte, ln_f and lm_head
 NEOX_REFERENCE_PARAMETERS = 1_525_850_112
@@ -5687,7 +5713,8 @@ NEOX_REFERENCE_PARAMETERS = 1_525_850_112
 # the yml's value, the port's, why)
 NEOX_DEVIATIONS = (
     ("train.mesh", {"dp": -1, "fsdp": 8, "tp": 4}, {"dp": -1, "fsdp": 1, "tp": 1},
-     "the port runs on one device; fsdp and tensor parallelism are ROADMAP item 14"),
+     "one card: fsdp 8 x tp 4 needs 32 ranks (phase 27 runs the mesh path with two ranks "
+     "that share the card; more cards are ROADMAP item 14)"),
     ("model.model_arch.num_hidden_layers", 44, NEOX_TRAIN_LAYERS, "one card: f32 masters of "
      "44 blocks alone are 79.7 GB (12 blocks at full width are 24.2 GB, 6 are 13.4 GB); and "
      "the smoke's time limit: phase 14 serves all 44 blocks, so the 44-block memory case is "
@@ -5857,9 +5884,9 @@ def neox_prompts(seed: int = 6):
 
 def phase_neox_training(torch, fa):
     """Phase 15: :func:`train_wide` on ``configs/ppo_neox20b.yml`` with
-    ``NEOX_DEVIATIONS`` (GPT-NeoX-20B widths cut to 6 blocks, the bottom
-    4 and ``wte`` frozen), 128 int-list prompts of 16..48 tokens; the
-    reference holds blocks 4-5, ``wte``, ``ln_f`` and ``lm_head``
+    ``NEOX_DEVIATIONS`` (GPT-NeoX-20B widths cut to 4 blocks, the bottom
+    2 and ``wte`` frozen), 128 int-list prompts of 16..48 tokens; the
+    reference holds blocks 2-3, ``wte``, ``ln_f`` and ``lm_head``
     (``NEOX_REFERENCE_PARAMETERS``); ``load`` held against a host copy."""
     config_fn = functools.partial(
         wide_training_config, yml="ppo_neox20b.yml",
@@ -5900,7 +5927,8 @@ NEO_DEVIATIONS = (
      "GPT-Neo 1.3B at full width and depth: 24 blocks of 16 heads of 128, global and local "
      "(window 256) in turn"),
     ("train.mesh", {"dp": -1, "fsdp": 1, "tp": 4}, {"dp": -1, "fsdp": 1, "tp": 1},
-     "the port runs on one device; tensor parallelism is ROADMAP item 14"),
+     "gpt_neo under tp is refused (its local band under tensor parallelism: ROADMAP item "
+     "14), and one card holds one rank"),
     ("model.model_path", "EleutherAI/gpt-j-6B", "", "no checkpoint in the repo: random "
      "weights from train.seed at GPT-Neo 1.3B's widths"),
     ("model.tokenizer_path", "gpt2", "", "no tokenizer in the repo: int-list prompts and a "
@@ -9076,6 +9104,377 @@ def wide_kernel_entries(prefix: str, suffix: str, label: str, timed_shapes, buil
     return entries
 
 
+# ------------------------- phase 27: mesh training ------------------------- #
+
+#: phase 27's geometry: phase 5's (``configs/ppo_sentiments.yml``, GPT-2
+#: small at full width, bf16 over f32 masters), cut to one collect of
+#: MESH_ROLLOUTS rows and one epoch: MESH_ROLLOUTS // 16 updates
+MESH_ROLLOUTS = 32
+#: the meshes two ranks run on the one card, in one pair of processes
+MESH_MESHES = {"fsdp2": {"dp": 1, "fsdp": 2, "tp": 1}, "tp2": {"dp": 1, "fsdp": 1, "tp": 2}}
+#: the fixed minibatch's gradient norm, relative, against the world-1 run:
+#: in f32 a mesh only reorders sums, which moves the norm by about f32's
+#: unit roundoff (6e-8) times the few dozen partial sums it regroups, 1e-6;
+#: bf16's unit roundoff is 2^15 times f32's
+MESH_GRAD_NORM_RTOL = 2**15 * 1e-6
+#: the update's parameters: Adam's first step moves an element by lr times
+#: m / (sqrt(v) + eps), about lr * sign(g), so two runs differ by up to 2 lr
+#: where rounding decides the sign of a gradient within bf16's noise (the
+#: CPU tests' f32 exemption, grown to bf16's noise); of the elements, at
+#: most MESH_FLIP_SHARE may differ by more than lr / 2, and the two updates'
+#: cosine must be at least MESH_UPDATE_COSINE
+MESH_FLIP_SHARE = 0.05
+MESH_UPDATE_COSINE = 0.95
+
+
+def mesh_config(checkpoint_dir: str, mesh: dict):
+    from trlx_tpu_torch.data.configs import TRLConfig
+
+    cfg = training_config(checkpoint_dir, mesh=mesh).to_dict()
+    cfg["method"].update(num_rollouts=MESH_ROLLOUTS, chunk_size=MESH_ROLLOUTS, ppo_epochs=1)
+    cfg["train"].update(total_steps=MESH_ROLLOUTS // cfg["train"]["batch_size"],
+                        eval_interval=10**6, checkpoint_interval=10**6)
+    return TRLConfig.from_dict(cfg)
+
+
+def mesh_trainer(config):
+    """The PPO trainer of ``config`` (random weights from its seed) with
+    the first MESH_ROLLOUTS training prompts as its pipeline, and no eval
+    pipeline (``learn()``'s evals would triple the decode steps)."""
+    from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
+    from trlx_tpu_torch.utils.loading import get_orchestrator, get_pipeline
+
+    trainer = PPOTrainer(config, reward_fn=training_reward)
+    pipeline = get_pipeline("PromptPipeline")(training_prompts()[:MESH_ROLLOUTS],
+                                              trainer.query_length)
+    get_orchestrator("PPOOrchestrator")(trainer, pipeline, reward_fn=training_reward,
+                                        chunk_size=MESH_ROLLOUTS)
+    return trainer
+
+
+def mesh_fixed_minibatch(torch, trainer):
+    """One fixed rollout of the first MESH_ROLLOUTS prompts through
+    ``trainer`` (world 1), scored and shaped; returns its first minibatch."""
+    import numpy as np
+
+    from trlx_tpu_torch.data.ppo_types import PPORolloutBatch
+
+    batch, _ = next(iter(trainer.orch.pipeline.create_loader(MESH_ROLLOUTS, shuffle=False)))
+    dev = trainer.device
+    q, m = batch.input_ids.to(dev), batch.attention_mask.to(dev)
+    out = trainer.sample(q, m)
+    ref = trainer.score_ref(q, m, out.tokens, out.response_mask)
+    texts = trainer.decode_responses(out.tokens, out.response_mask)
+    scores = np.asarray(training_reward(texts, None), np.float32)
+    rewards = trainer.compute_rewards(out.logprobs, ref, out.response_mask, scores)
+    B = trainer.config.train.batch_size
+    return PPORolloutBatch(q[:B], m[:B], out.tokens[:B], out.response_mask[:B],
+                           out.logprobs[:B], out.values[:B], rewards[:B])
+
+
+def mesh_learn(torch, fa, trainer):
+    """``trainer.learn()`` as a counted path, its forwards split into
+    decode steps (Q <= 16) and the rest; returns its record."""
+    import types
+
+    import numpy as np
+
+    decode, apply = [0], type(trainer)._apply
+    start = {n: p.detach().clone() for n, p in trainer.model.named_parameters()}
+    finite = []
+
+    def counted_apply(self, input_ids, *a, **kw):
+        decode[0] += input_ids.shape[1] <= 16
+        return apply(self, input_ids, *a, **kw)
+
+    train_on = trainer._train_on
+
+    def rows_on(*a, **kw):
+        out = train_on(*a, **kw)
+        finite.append(all(np.isfinite(v).all() for v in out[0].values()))
+        return out
+
+    trainer._train_on = rows_on
+    trainer._apply = types.MethodType(counted_apply, trainer)
+    trainer._rebuild_sampler()  # the sampler binds _apply when it is made
+    _, rec = counted_path(torch, fa, trainer.learn)
+    rec["forwards"], rec["decode_forwards"], rec["updates"] = (
+        trainer.forwards, decode[0], trainer.step)
+    rec["finite"] = bool(finite) and all(finite)
+    rec["moved"] = any(not torch.equal(p, start[n]) for n, p in trainer.model.named_parameters())
+    # what the local shapes predict: one launch per layer and forward, K1's
+    # decode variant at Q <= 16 and tile above, K2 = K3 = one a layer and update
+    n_layer = trainer.model_config.n_layer
+    want_fwd = {"tile": n_layer * (rec["forwards"] - rec["decode_forwards"]),
+                "decode": n_layer * rec["decode_forwards"], "fma": 0, "copies": 0}
+    got_fwd = {k: rec["flash_fwd_variants"].get(k, 0) for k in want_fwd}
+    want_bwd = {"tile": n_layer * rec["updates"], "fma": 0}
+    rec["launch_gate"] = (got_fwd == want_fwd and rec["plain_attention_calls"] == 0
+                          and all(rec["backward_variants"][k] == want_bwd for k in BWD_KERNELS))
+    rec["launch_prediction"] = {"flash_fwd": want_fwd, "backward": want_bwd}
+    return rec
+
+
+def mesh_bytes(trainer) -> dict:
+    """Resident bytes of the policy's parameters and of the optimizer's
+    moments on this rank, and whether every parameter holds at most its
+    share of the mesh (the JAX specs' axes)."""
+    params = sum(p.numel() * p.element_size() for p in trainer.model.parameters())
+    moments = sum(t.numel() * t.element_size() for st in trainer.opt.adamw.state.values()
+                  for t in st.values() if t.dim() > 0)
+    ok, sharded = True, 0
+    if trainer.shards is not None:
+        sizes = trainer.mesh.sizes
+        for name, (held, full) in trainer.shards.shard_bytes().items():
+            share = math.prod(sizes[a] for a in trainer.shards.placements[name].spec if a)
+            ok &= held * share <= full
+            sharded += share > 1
+    return {"params_bytes": params, "moment_bytes": moments, "share_ok": ok,
+            "sharded_params": sharded}
+
+
+def mesh_rank(rank: int, task_path: str) -> int:
+    """One rank of phase 27's pair (``chip_smoke.py --mesh-rank R
+    --mesh-task T``): its process group on the task's backend over a
+    ``file://`` store, both ranks on device 0. With ``probe`` one
+    all-reduce and the error it raises (NCCL refuses two ranks on one
+    device); else, per mesh, the fixed minibatch's update held against the
+    world-1 run's and a counted ``learn()``. Writes ``rank<R>.json``."""
+    import gc
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from trlx_tpu_torch.data.ppo_types import PPORolloutBatch
+    from trlx_tpu_torch.ops import flash_attention as fa
+    from trlx_tpu_torch.parallel import collectives as C
+    from trlx_tpu_torch.parallel import distributed
+
+    with open(task_path) as fh:
+        task = json.load(fh)
+    out = {"rank": rank, "backend": task["backend"]}
+    distributed.initialize("cuda", init_method=f"file://{task['store']}", world_size=2,
+                           rank=rank, backend=task["backend"])
+    try:
+        if task.get("probe"):
+            try:
+                x = torch.ones(4, device="cuda")
+                dist.all_reduce(x)
+                torch.cuda.synchronize()
+                out["all_reduce"] = float(x.sum())
+            except Exception as e:  # the refusal is the result
+                out["error"] = f"{type(e).__name__}: {e}"[:1500]
+            return 0
+        fa._load()
+        # the ranks start with the phase; world 1's files land later
+        deadline = time.perf_counter() + 300
+        while not os.path.exists(task["ready"]) and time.perf_counter() < deadline:
+            time.sleep(0.2)
+        mb = PPORolloutBatch(**torch.load(task["minibatch"], map_location="cuda"))
+        w1_init = torch.load(task["world1_init"], map_location="cuda")
+        w1_after = torch.load(task["world1_after"], map_location="cuda")
+        with open(os.path.join(task["dir"], "lr.json")) as fh:
+            lr = json.load(fh)
+        for name, mesh in MESH_MESHES.items():
+            t0 = time.perf_counter()
+            rec = out[name] = {}
+            with tempfile.TemporaryDirectory() as tmp:
+                trainer = mesh_trainer(mesh_config(tmp, mesh))
+                sh, world, dev = trainer.shards, trainer.mesh.world_group, trainer.device
+                params = dict(trainer.model.named_parameters())
+                # every shard against world 1's (no gather): the same
+                # initial bits, then the fixed minibatch's update
+                init = {n: p.detach().clone() for n, p in params.items()}
+                same = all(torch.equal(sh.local_tensor(n, w1_init[n]), t) for n, t in init.items())
+                rec["init_equal"] = bool(C.all_reduce(torch.tensor(int(same), device=dev),
+                                                      world, "min"))
+                stats = trainer.train_step(mb)
+                rec["grad_norm"] = float(stats["optimizer/grad_norm"])
+                rec.update(mesh_bytes(trainer))
+                # sums over the mesh, each element counted once
+                acc = torch.zeros(5, dtype=torch.float64, device=dev)
+                worst = torch.zeros((), device=dev)
+                for n, p in params.items():
+                    one = sh.local_tensor(n, w1_after[n])
+                    d_mesh, d_one = (p.detach() - init[n]).double(), (one - init[n]).double()
+                    diff = (p.detach() - one).abs()
+                    acc += torch.stack([(d_mesh * d_one).sum(), (d_one * d_one).sum(),
+                                        (d_mesh * d_mesh).sum(), (diff > lr / 2).sum().double(),
+                                        torch.tensor(float(diff.numel()), device=dev,
+                                                     dtype=torch.float64)]) / sh.replication(n)
+                    worst = torch.maximum(worst, diff.max())
+                dot, n1, n2, flips, total = C.all_reduce(acc, world).tolist()
+                rec["update_cosine"] = dot / math.sqrt(max(n1 * n2, 1e-300))
+                rec["flip_share"] = flips / total
+                rec["max_abs_diff"] = float(C.all_reduce(worst, world, "max"))
+                del trainer, init, params
+                gc.collect()
+                torch.cuda.empty_cache()
+                trainer = mesh_trainer(mesh_config(tmp, mesh))
+                rec["learn"] = mesh_learn(torch, fa, trainer)
+                rec["learn_bytes"] = mesh_bytes(trainer)
+                del trainer
+                gc.collect()
+                torch.cuda.empty_cache()
+            rec["wall_s"] = time.perf_counter() - t0
+    finally:
+        with open(os.path.join(task["dir"], f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        dist.destroy_process_group()
+    return 0
+
+
+def start_mesh_pair(task: dict, directory: str) -> list:
+    """Start both ranks of ``task`` as ``chip_smoke.py --mesh-rank``
+    processes; returns ``[(process, directory)]``."""
+    os.makedirs(directory, exist_ok=True)
+    task = dict(task, dir=directory, store=os.path.join(directory, "store"))
+    path = os.path.join(directory, "task.json")
+    with open(path, "w") as fh:
+        json.dump(task, fh)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    return [(subprocess.Popen([sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                               str(r), "--mesh-task", path], env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True), directory)
+            for r in range(2)]
+
+
+def finish_mesh_pair(procs: list, timeout: float) -> list:
+    """Wait for (or, past ``timeout`` s, kill) both ranks; returns ``(exit
+    code, output tail, record or None)`` per rank. Every process is
+    stopped on return."""
+    results = []
+    try:
+        for r, (p, directory) in enumerate(procs):
+            try:
+                text = p.communicate(timeout=timeout)[0]
+            except subprocess.TimeoutExpired:
+                p.kill()
+                text = p.communicate()[0] + f"\n(killed after {timeout} s)"
+            rec_path = os.path.join(directory, f"rank{r}.json")
+            rec = None
+            if os.path.exists(rec_path):
+                with open(rec_path) as fh:
+                    rec = json.load(fh)
+            results.append((p.returncode, text[-3000:], rec))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return results
+
+
+def phase_mesh(torch, fa):
+    """Phase 27: dp/fsdp/tp training. World 1 in this process: phase 5's
+    geometry, one fixed minibatch's update (the gradient norm and the
+    parameters after it) and a counted ``learn()`` of one collect and
+    MESH_ROLLOUTS // 16 updates, streamed. Then two ranks that share the
+    card: NCCL's refusal of two ranks on one device (a probe pair), and on
+    gloo, which stages CUDA tensors through the host (``initialize``'s
+    explicit ``backend``), ``{fsdp: 2}`` then ``{tp: 2}`` in one pair of
+    processes: each mesh's fixed update against world 1's, a counted
+    ``learn()`` per rank with its launches by variant against the local
+    shapes' prediction, and each rank's resident bytes. Returns ``(ok,
+    record)``; the record's ``paths`` are the world-1 run and each rank's
+    ``learn()``."""
+    import gc
+    import tempfile
+
+    t0 = time.perf_counter()
+    record = {"paths": {}}
+    ok = True
+    with tempfile.TemporaryDirectory() as tmp:
+        # the ranks import and reach the card while world 1 runs: the NCCL
+        # probe pair and the gloo pair (separate stores), both on device 0
+        files = {k: os.path.join(tmp, f"{k}.pt") for k in ("minibatch", "init", "after")}
+        ready = os.path.join(tmp, "ready")
+        probe = start_mesh_pair({"backend": "nccl", "probe": True}, os.path.join(tmp, "nccl"))
+        pair = start_mesh_pair({"backend": "gloo", "minibatch": files["minibatch"],
+                                "world1_init": files["init"], "world1_after": files["after"],
+                                "ready": ready}, os.path.join(tmp, "gloo"))
+        try:
+            trainer = mesh_trainer(mesh_config(os.path.join(tmp, "w1"), {"dp": -1}))
+            init = {n: t.clone() for n, t in trainer.model.state_dict().items()}
+            mb = mesh_fixed_minibatch(torch, trainer)
+            stats = trainer.train_step(mb)
+            after = trainer.model.state_dict()
+            world1 = {"grad_norm": float(stats["optimizer/grad_norm"]), **mesh_bytes(trainer)}
+            lr = float(trainer.config.train.lr_init)
+            torch.save({k: v.cpu() for k, v in mb.__dict__.items()}, files["minibatch"])
+            for name, state in (("init", init), ("after", after)):
+                torch.save({n: t.cpu() for n, t in state.items()}, files[name])
+            with open(os.path.join(tmp, "gloo", "lr.json"), "w") as fh:
+                json.dump(lr, fh)
+            open(ready, "w").close()
+            del trainer, init, after
+            reset_peak(torch)
+            trainer = mesh_trainer(mesh_config(os.path.join(tmp, "w1_learn"), {"dp": -1}))
+            world1["learn"] = mesh_learn(torch, fa, trainer)
+            record["paths"]["mesh_world1"] = world1["learn"]
+            del trainer
+            gc.collect()
+            torch.cuda.empty_cache()
+        finally:
+            open(ready, "w").close()
+            probe, pair = finish_mesh_pair(probe, 90), finish_mesh_pair(pair, 300)
+    log(f"phase 27: world 1 {json.dumps(world1)}")
+    ok &= world1["learn"]["launch_gate"] and world1["learn"]["finite"] \
+        and world1["learn"]["moved"]
+    record["world1"] = world1
+    nccl = [rec.get("error") if rec else f"rank exited {rc}: {text[-400:]}"
+            for rc, text, rec in probe]
+    nccl_refused = all(e for e in nccl)
+    record["nccl"] = {"refused": nccl_refused, "errors": nccl}
+    log(f"phase 27: NCCL, two ranks on one device: "
+        f"{'refused' if nccl_refused else 'ran'}: {nccl[0]}")
+    if any(rc != 0 or rec is None for rc, _, rec in pair):
+        for r, (rc, text, _) in enumerate(pair):
+            log(f"phase 27: gloo rank {r} exited {rc}:\n{text}")
+        return False, record
+    record["meshes"] = {}
+    for name in MESH_MESHES:
+        ranks = [rec[name] for _, _, rec in pair]
+        r0 = ranks[0]
+        gates = {
+            "init_equal": all(r["init_equal"] for r in ranks),
+            "grad_norm": abs(r0["grad_norm"] - world1["grad_norm"])
+            <= MESH_GRAD_NORM_RTOL * world1["grad_norm"],
+            "params_max": r0["max_abs_diff"] <= 2 * lr * 1.001,
+            "flip_share": r0["flip_share"] <= MESH_FLIP_SHARE,
+            "cosine": r0["update_cosine"] >= MESH_UPDATE_COSINE,
+            "learn_finite_moved": all(r["learn"]["finite"] and r["learn"]["moved"]
+                                      for r in ranks),
+            "launches": all(r["learn"]["launch_gate"] for r in ranks),
+            "share": all(r["share_ok"] and r["sharded_params"] > 0 for r in ranks),
+        }
+        row = {"backend": "gloo", "gates": gates,
+               "grad_norm": [r["grad_norm"] for r in ranks],
+               "grad_norm_world1": world1["grad_norm"],
+               "grad_norm_rel": abs(r0["grad_norm"] - world1["grad_norm"]) / world1["grad_norm"],
+               "update_cosine": r0["update_cosine"], "flip_share": r0["flip_share"],
+               "max_abs_diff": r0["max_abs_diff"], "lr": lr,
+               "params_bytes": [r["params_bytes"] for r in ranks],
+               "moment_bytes": [r["moment_bytes"] for r in ranks],
+               "params_bytes_world1": world1["params_bytes"],
+               "moment_bytes_world1": world1["moment_bytes"],
+               "launches": [r["learn"]["flash_fwd_variants"] for r in ranks],
+               "backward": [r["learn"]["backward_variants"] for r in ranks],
+               "launches_world1": world1["learn"]["flash_fwd_variants"],
+               "learn_wall_s": [r["learn"]["wall_s"] for r in ranks],
+               "mesh_wall_s": [r["wall_s"] for r in ranks]}
+        record["meshes"][name] = row
+        log(f"phase 27: {name} {json.dumps(row)}")
+        ok &= all(gates.values())
+        for r, rank_rec in enumerate(ranks):
+            record["paths"][f"mesh_{name}_rank{r}"] = rank_rec["learn"]
+    record["wall_s"] = time.perf_counter() - t0
+    return bool(ok), record
+
+
 def main() -> int:
     import argparse
 
@@ -9085,7 +9484,12 @@ def main() -> int:
     parser.add_argument("--profile", metavar="PATH", default=None,
                         help="also profile the serving and training paths; "
                              "write the summaries here")
+    # phase 27's rank processes (the smoke starts them itself)
+    parser.add_argument("--mesh-rank", type=int, default=None, help=argparse.SUPPRESS)
+    parser.add_argument("--mesh-task", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
+    if args.mesh_rank is not None:
+        return mesh_rank(args.mesh_rank, args.mesh_task)
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this smoke needs a GPU",
@@ -9189,6 +9593,7 @@ def main() -> int:
     async_ok, async_rl = timed_phase("25 async rl", phase_async, torch, fa)
     moments_ok, moments = timed_phase("26 bf16 moments and sweep", phase_moments_sweep, torch,
                                       fa)
+    mesh_ok, mesh = timed_phase("27 mesh training", phase_mesh, torch, fa)
     # the small head dims' paths (phases 16 to 18), each counted on its own
     small_paths = {24: {**rw, "randomwalks_ilql": rw_ilql, "sweep": moments["sweep"]},
                    32: {n: standins[n] for n in ("standin_gpt2_ppo", "standin_gpt2_ppo_bf16",
@@ -9219,7 +9624,9 @@ def main() -> int:
                  # phase 25's yml run and its dead-actor run (both attempts)
                  **async_rl["paths"],
                  # phase 26's f32- and bf16-moment runs
-                 **moments["paths"]}
+                 **moments["paths"],
+                 # phase 27's world-1 run and each rank's (on its own process)
+                 **mesh["paths"]}
     if args.profile:
         timed_phase("profile", profile_paths, torch, args.profile)
 
@@ -9366,7 +9773,7 @@ def main() -> int:
               ("neo_serving", neo_serving_ok), ("neo_training", neo_training_ok),
               ("ring_attention", ring_ok), ("gpt2_moe", moe_ok), ("kv_int8", kv_int8_ok),
               ("resilience", resilience_ok), ("async_rl", async_ok),
-              ("bf16_moments_and_sweep", moments_ok))
+              ("bf16_moments_and_sweep", moments_ok), ("mesh_training", mesh_ok))
     if not all(ok for _, ok in phases):
         failed = [n for n, ok in phases if not ok]
         print(f"chip_smoke: FAILED phases {failed}", file=sys.stderr)

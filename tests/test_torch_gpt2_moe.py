@@ -21,7 +21,7 @@ with their tolerances (f32; the frameworks sum in another order):
   continuous engine equals the per-row fixed sampler bit for bit, the
   sampler collects no router losses;
 - refusals: no MoE block (both packages), an HF checkpoint, an ``ep``
-  mesh (ROADMAP item 14.5).
+  mesh (ROADMAP item 14.6).
 
 The JAX models and both PPO runs are built once per module.
 """
@@ -392,5 +392,5 @@ def test_hf_checkpoint_and_ep_mesh_are_refused(tmp_path):
         get_trainer("PPOTrainer")(TRLConfig.from_dict(cfg), device="cpu")
     cfg = _ppo_config(tmp_path)
     cfg["train"]["mesh"] = {"dp": 1, "fsdp": 1, "tp": 1, "ep": 2}
-    with pytest.raises(NotImplementedError, match="item 14.5"):
+    with pytest.raises(NotImplementedError, match="item 14.6"):
         get_trainer("PPOTrainer")(TRLConfig.from_dict(cfg), device="cpu")

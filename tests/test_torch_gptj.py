@@ -25,8 +25,8 @@ dims, so both the rotated and the passed-through dims are held):
   leaves bit-identical with no Adam state;
 - the registry: ``gptj`` and ``gpt-j`` build, so do ``gpt_neox`` and its
   aliases and ``gpt_neo`` and its alias, the JAX package's other family
-  (``gpt2_moe``) is refused by name, and ``configs/ppo_gptj.yml``'s ``tp: 4`` mesh is refused naming
-  ROADMAP item 14.
+  (``gpt2_moe``) is refused by name, and ``configs/ppo_gptj.yml``'s ``tp: 4`` mesh is refused in one
+  process, naming the four ranks it needs.
 """
 
 import dataclasses
@@ -463,9 +463,10 @@ def test_registry_builds_gptj_and_refuses_the_other_families():
 
 
 def test_ppo_gptj_yml_mesh_is_refused_until_one_device(tmp_path):
-    """``configs/ppo_gptj.yml`` as written asks for ``tp: 4``: refused by
-    name (ROADMAP item 14); with the mesh set to one device it builds
-    (here at a tiny width, random weights, no checkpoint)."""
+    """``configs/ppo_gptj.yml`` as written asks for ``tp: 4``: in one
+    process the trainer refuses it, naming the four ranks to launch; with
+    the mesh set to one device it builds (here at a tiny width, random
+    weights, no checkpoint)."""
     from trlx_tpu_torch.data.configs import TRLConfig
     from trlx_tpu_torch.trainer.ppo_trainer import PPOTrainer
 
@@ -474,7 +475,7 @@ def test_ppo_gptj_yml_mesh_is_refused_until_one_device(tmp_path):
     cfg["model"].update(model_path="", tokenizer_path="", model_arch=arch)
     cfg["train"].update(checkpoint_dir=str(tmp_path))
     cfg["method"]["gen_kwargs"].update(max_new_tokens=4, min_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    with pytest.raises(ValueError, match="needs 4 ranks, the world has 1"):
         PPOTrainer(TRLConfig.from_dict(cfg), device="cpu")
     cfg["train"]["mesh"] = {"dp": -1, "fsdp": 1, "tp": 1}
     trainer = PPOTrainer(TRLConfig.from_dict(cfg), device="cpu")

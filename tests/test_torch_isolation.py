@@ -37,7 +37,8 @@ def _sources():
 def test_importing_every_module_loads_no_jax_or_reference():
     mods = _modules()
     for name in ("inference.engine", "ops.ring_attention", "parallel", "parallel.mesh",
-                 "parallel.distributed", "sweep", "sweep.__main__", "sweep.train_funcs",
+                 "parallel.distributed", "parallel.partition", "parallel.collectives",
+                 "parallel._mp_smoke", "sweep", "sweep.__main__", "sweep.train_funcs",
                  "sweep.wandb_report", "examples", "examples.randomwalks"):
         assert f"trlx_tpu_torch.{name}" in mods
     code = (

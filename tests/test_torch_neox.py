@@ -34,8 +34,8 @@ passed-through dims are held), inputs from numpy seeds:
   no Adam state;
 - a server built with ``param_dtype: bfloat16`` holds and serves the same
   bits as the f32 build cast to bf16;
-- ``configs/ppo_neox20b.yml``'s ``fsdp: 8, tp: 4`` mesh is refused naming
-  ROADMAP item 14.
+- ``configs/ppo_neox20b.yml``'s ``fsdp: 8, tp: 4`` mesh is refused in one
+  process, naming the 32 ranks it needs.
 """
 
 import dataclasses
@@ -556,7 +556,8 @@ def test_ppo_phase_final_params_and_frozen_leaves(ppo_runs):
 
 def test_ppo_neox20b_yml_mesh_is_refused_until_one_device(tmp_path):
     """``configs/ppo_neox20b.yml`` as written asks for ``fsdp: 8, tp: 4``:
-    refused by name (ROADMAP item 14); with the mesh set to one device it
+    in one process the trainer refuses it, naming the 32 ranks to launch;
+    with the mesh set to one device it
     builds (here at a tiny width, random weights, no checkpoint), its
     2-block hydra reference included."""
     from trlx_tpu_torch.data.configs import TRLConfig
@@ -567,7 +568,7 @@ def test_ppo_neox20b_yml_mesh_is_refused_until_one_device(tmp_path):
     cfg["model"].update(model_path="", tokenizer_path="", model_arch=dict(arch, num_hidden_layers=3))
     cfg["train"].update(checkpoint_dir=str(tmp_path))
     cfg["method"]["gen_kwargs"].update(max_new_tokens=4, min_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 14"):
+    with pytest.raises(ValueError, match="needs 32 ranks, the world has 1"):
         PPOTrainer(TRLConfig.from_dict(cfg), device="cpu")
     cfg["train"]["mesh"] = {"dp": -1, "fsdp": 1, "tp": 1}
     trainer = PPOTrainer(TRLConfig.from_dict(cfg), device="cpu")

@@ -13,7 +13,12 @@ Each branch runs as supervised attempts
 (:func:`~trlx_tpu_torch.resilience.supervisor.run_supervised`): an attempt
 builds the trainer, the pipeline and the orchestrator from scratch, with
 ``train.resume_from_checkpoint`` set as the supervisor asks, and closes
-the orchestrator's rollout writer. With ``train.resilience`` off (the
+the orchestrator's rollout writer. Under a launcher (``torchrun``: ``RANK``,
+``WORLD_SIZE``, ``LOCAL_RANK`` and the rendezvous address in the
+environment) ``train`` first starts the process group, NCCL on the card
+(one device per rank) and gloo with ``device="cpu"``, so that
+``train.mesh`` spans the launched ranks; logging, the run ledger, the
+flight recorder and the rollout JSONL are rank 0's. With ``train.resilience`` off (the
 default) it runs exactly once and installs no signal handler; on, a
 preemption drain or a retriable failure restarts it from the latest
 checkpoint, on the same ``device``. The caller's config comes back with
@@ -69,6 +74,12 @@ def train(
     :param device: ``None`` means CUDA (raises without it); ``"cpu"`` runs
         the kernels' plain versions.
     """
+    import torch
+
+    from trlx_tpu_torch.parallel.distributed import initialize
+
+    # a no-op without a launcher's environment (one process)
+    initialize("cuda" if device is None else torch.device(device).type)
     if reward_fn is None:
         if dataset is None:
             raise ValueError("Either `reward_fn` (PPO) or `dataset` (ILQL) is required")

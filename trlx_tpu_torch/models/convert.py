@@ -84,3 +84,41 @@ def flax_to_torch(params: Mapping) -> Dict[str, torch.Tensor]:
             arr = arr.T
         out[torch_name(path)] = torch.from_numpy(np.array(arr, order="C"))  # own copy
     return out
+
+
+def flax_path(name: str, leaf: str) -> str:
+    """Port parameter name -> "/"-joined flax path, the inverse of
+    :func:`torch_name` given the flax ``leaf`` (``kernel``, ``scale``,
+    ``embedding``, ... ): ``transformer.h.0.attn.c_attn.weight`` with
+    ``kernel`` -> ``transformer/h_0/attn/c_attn/kernel``."""
+    parts, out = name.split(".")[:-1], []
+    i = 0
+    while i < len(parts):
+        if parts[i] in ("h", "enc", "dec") and i + 1 < len(parts) and parts[i + 1].isdigit():
+            out.append(f"{parts[i]}_{parts[i + 1]}")
+            i += 2
+        else:
+            out.append(parts[i])
+            i += 1
+    return "/".join(out + [leaf])
+
+
+def flax_paths(module: torch.nn.Module) -> Dict[str, Tuple[str, bool]]:
+    """``{port parameter name: (flax path, transposed)}`` for every
+    parameter of ``module``: a ``Linear``'s weight is a flax ``kernel``
+    (stored transposed), an ``Embedding``'s an ``embedding``, a
+    ``LayerNorm``'s a ``scale``; any other leaf keeps its name."""
+    out: Dict[str, Tuple[str, bool]] = {}
+    for mod_name, mod in module.named_modules():
+        for pname, _ in mod.named_parameters(recurse=False):
+            name = f"{mod_name}.{pname}" if mod_name else pname
+            leaf, transposed = pname, False
+            if pname == "weight":
+                if isinstance(mod, torch.nn.Linear):
+                    leaf, transposed = "kernel", True
+                elif isinstance(mod, torch.nn.Embedding):
+                    leaf = "embedding"
+                elif isinstance(mod, torch.nn.LayerNorm):
+                    leaf = "scale"
+            out.setdefault(name, (flax_path(name, leaf), transposed))
+    return out

@@ -88,13 +88,21 @@ class GPT2Config:
 class Linear(nn.Linear):
     """``nn.Linear`` that computes in ``compute_dtype`` (flax ``Dense``
     with ``dtype``/``param_dtype``): input, weight and bias (if any) are
-    cast to the compute dtype per use."""
+    cast to the compute dtype per use. Under tensor parallelism
+    (:func:`~trlx_tpu_torch.parallel.partition.apply_tensor_parallel` sets
+    ``tp`` and ``tp_mode``) its weight is this rank's slice and ``tp``
+    runs the forward."""
+
+    tp = None  # a parallel.partition.TensorParallel
+    tp_mode: Optional[str] = None  # "col", "row" or "col_gather"
 
     def __init__(self, in_features, out_features, compute_dtype, **kw):
         super().__init__(in_features, out_features, **kw)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.linear(self, x)
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
         return F.linear(x.to(dt), self.weight.to(dt), bias)
@@ -142,10 +150,13 @@ class Attention(nn.Module):
         cfg = self.config
         B, T, _ = x.shape
         hd = cfg.n_embd // cfg.n_head
-        q, k, v = self.c_attn(x).split(cfg.n_embd, dim=-1)
-        q = q.view(B, T, cfg.n_head, hd)
-        k = k.view(B, T, cfg.n_head, hd)
-        v = v.view(B, T, cfg.n_head, hd)
+        # the head count is the projection's width over the head dim: under
+        # tensor parallelism c_attn's output is this rank's heads of each
+        # of q, k and v
+        q, k, v = self.c_attn(x).chunk(3, dim=-1)
+        q = q.view(B, T, -1, hd)
+        k = k.view(B, T, -1, hd)
+        v = v.view(B, T, -1, hd)
         if cache_kv is not None:
             # write this step's K/V at cache_index, then attend over the
             # view the bias was built for (mask width == view width)
@@ -154,7 +165,7 @@ class Attention(nn.Module):
                 cache_kv, k, v, cache_index, torch_dtype(cfg.dtype), view_len
             )
         out = dot_product_attention(q, k, v, bias, causal=causal)
-        return self.c_proj(out.reshape(B, T, cfg.n_embd))
+        return self.c_proj(out.reshape(B, T, -1))
 
 
 class Block(nn.Module):
@@ -185,7 +196,17 @@ class DecoderLM(nn.Module):
     and the cache: GPT-J's rotary angles), ``logits(hidden)`` and, where
     its layers attend differently, ``attention_masks`` (GPT-Neo's local
     layers); its constructor takes ``branch_start`` and keeps what a branch
-    holds."""
+    holds. Under tensor parallelism ``tp`` (a
+    :class:`~trlx_tpu_torch.parallel.partition.TensorParallel`) gathers the
+    token embedding's hidden shards (:meth:`embed_tokens`) and sums a tied
+    head's partial logits."""
+
+    tp = None
+
+    def embed_tokens(self, input_ids: torch.Tensor) -> torch.Tensor:
+        """``wte`` at ``input_ids``, its hidden shards gathered under tp."""
+        x = self.wte(input_ids)
+        return x if self.tp is None else self.tp.embed(x)
 
     def block_args(self, position_ids: torch.Tensor, x: torch.Tensor) -> tuple:
         return ()
@@ -301,11 +322,13 @@ class GPT2Model(DecoderLM):
         # out-of-range index is a device-side fault on a GPU
         dt = torch_dtype(self.config.dtype)
         position_ids = position_ids.clamp(0, self.config.n_positions - 1)
-        return self.wte(input_ids).to(dt) + self.wpe(position_ids).to(dt)
+        return self.embed_tokens(input_ids).to(dt) + self.wpe(position_ids).to(dt)
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
         """Tied LM head: compute-dtype operands, f32 products and sums."""
         emb = self.wte.weight.to(torch_dtype(self.config.dtype))
+        if self.tp is not None:
+            return self.tp.tied_logits(hidden, emb)
         return torch.matmul(hidden.float(), emb.float().t())
 
 
@@ -435,9 +458,11 @@ def kv_buffers(
 
 
 def init_cache(config: GPT2Config, batch_size: int, capacity: int, device=None,
-               extra_positions: int = 0) -> Cache:
+               extra_positions: int = 0, tp: int = 1) -> Cache:
+    """The linear KV cache; ``tp`` > 1 holds a tensor-parallel rank's
+    ``n_head // tp`` heads."""
     return kv_buffers(
-        config.n_layer, batch_size, capacity, config.n_head,
+        config.n_layer, batch_size, capacity, config.n_head // tp,
         config.n_embd // config.n_head, config.dtype, config.kv_cache_dtype,
         device=device, extra_positions=extra_positions,
     )

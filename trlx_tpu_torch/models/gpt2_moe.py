@@ -9,9 +9,10 @@
   block, which is otherwise GPT-2's.
 - The JAX package shards the experts over an ``ep`` mesh axis only when
   that axis is larger than one device (``moe_apply``'s ``all_to_all``
-  dispatch with a capacity); the port's trainers run on one device, so
-  the dense path is the whole family here, and ``capacity_factor`` is
-  kept for the config's sake. Expert parallelism is ROADMAP item 14.5.
+  dispatch with a capacity); the port's trainers run this family on one
+  rank, so the dense path is the whole family here, and
+  ``capacity_factor`` is kept for the config's sake. Expert parallelism
+  is ROADMAP item 14.6.
 - The load-balancing losses are collected only inside
   :func:`collect_moe_losses` (the training forwards), never in the
   sampler: ``aux_loss = E · Σ f·P`` with ``f`` the argmax fractions (no

@@ -81,9 +81,11 @@ class GPTJAttention(nn.Module):
         cfg = self.config
         B, T, _ = x.shape
         hd = cfg.n_embd // cfg.n_head
-        q = self.q_proj(x).view(B, T, cfg.n_head, hd)
-        k = self.k_proj(x).view(B, T, cfg.n_head, hd)
-        v = self.v_proj(x).view(B, T, cfg.n_head, hd)
+        # the head count is the projections' width over the head dim (a
+        # tensor-parallel rank's heads)
+        q = self.q_proj(x).view(B, T, -1, hd)
+        k = self.k_proj(x).view(B, T, -1, hd)
+        v = self.v_proj(x).view(B, T, -1, hd)
         q = apply_rotary_interleaved(q, sin, cos, cfg.rotary_dim)
         k = apply_rotary_interleaved(k, sin, cos, cfg.rotary_dim)
         if cache_kv is not None:
@@ -94,7 +96,7 @@ class GPTJAttention(nn.Module):
                 cache_kv, k, v, cache_index, torch_dtype(cfg.dtype), view_len
             )
         out = dot_product_attention(q, k, v, bias, causal=causal)
-        return self.out_proj(out.reshape(B, T, cfg.n_embd))
+        return self.out_proj(out.reshape(B, T, -1))
 
 
 class GPTJMLP(nn.Module):
@@ -144,7 +146,7 @@ class GPTJModel(DecoderLM):
         self.lm_head = Linear(config.n_embd, config.vocab_size, dt, **fk)
 
     def embed(self, input_ids, position_ids) -> torch.Tensor:
-        return self.wte(input_ids).to(torch_dtype(self.config.dtype))
+        return self.embed_tokens(input_ids).to(torch_dtype(self.config.dtype))
 
     def block_args(self, position_ids, x) -> tuple:
         """The rotary (sin, cos) every block takes: formed also when a
@@ -158,9 +160,9 @@ class GPTJModel(DecoderLM):
 
 
 def init_gptj_cache(config: GPTJConfig, batch_size: int, capacity: int, device=None,
-                     extra_positions: int = 0) -> Cache:
+                     extra_positions: int = 0, tp: int = 1) -> Cache:
     return kv_buffers(
-        config.n_layer, batch_size, capacity, config.n_head,
+        config.n_layer, batch_size, capacity, config.n_head // tp,
         config.n_embd // config.n_head, config.dtype, config.kv_cache_dtype,
         device=device, extra_positions=extra_positions,
     )

@@ -112,8 +112,9 @@ class NeoXAttention(nn.Module):
         cfg = self.config
         B, T, _ = x.shape
         hd, rd = cfg.head_dim, cfg.rotary_dim
-        # HF layout: [B, T, H, 3 Dh], q/k/v slices per head
-        qkv = self.query_key_value(x).view(B, T, cfg.num_attention_heads, 3 * hd)
+        # HF layout: [B, T, H, 3 Dh], q/k/v slices per head; head-major, so
+        # a tensor-parallel rank's contiguous column slice is whole heads
+        qkv = self.query_key_value(x).view(B, T, -1, 3 * hd)
         q, k, v = qkv[..., :hd], qkv[..., hd:2 * hd], qkv[..., 2 * hd:]
         q = apply_rotary_half(q, sin, cos, rd)
         k = apply_rotary_half(k, sin, cos, rd)
@@ -125,7 +126,7 @@ class NeoXAttention(nn.Module):
                 cache_kv, k, v, cache_index, torch_dtype(cfg.dtype), view_len
             )
         out = dot_product_attention(q, k, v, bias, causal=causal)
-        return self.dense(out.reshape(B, T, cfg.hidden_size))
+        return self.dense(out.reshape(B, T, -1))
 
 
 class NeoXMLP(nn.Module):
@@ -182,7 +183,7 @@ class NeoXModel(DecoderLM):
         self.lm_head = Linear(config.hidden_size, config.vocab_size, dt, bias=False, **fk)
 
     def embed(self, input_ids, position_ids) -> torch.Tensor:
-        return self.wte(input_ids).to(torch_dtype(self.config.dtype))
+        return self.embed_tokens(input_ids).to(torch_dtype(self.config.dtype))
 
     def block_args(self, position_ids, x) -> tuple:
         """The rotary (sin, cos) every block takes: formed also when a
@@ -197,9 +198,9 @@ class NeoXModel(DecoderLM):
 
 
 def init_neox_cache(config: NeoXConfig, batch_size: int, capacity: int, device=None,
-                     extra_positions: int = 0) -> Cache:
+                     extra_positions: int = 0, tp: int = 1) -> Cache:
     return kv_buffers(
-        config.num_hidden_layers, batch_size, capacity, config.num_attention_heads,
+        config.num_hidden_layers, batch_size, capacity, config.num_attention_heads // tp,
         config.head_dim, config.dtype, config.kv_cache_dtype, device=device,
         extra_positions=extra_positions,
     )

@@ -5,13 +5,70 @@ with its aliases ``neox`` and ``gpt-neox``, ``gpt2_moe`` with its alias
 ``gpt2-moe`` (switch-MoE GPT-2; ``is_moe``), and ``t5`` with its alias
 ``ul2``, the seq2seq family), and :func:`load_arch`, the architecture and
 weights a config asks for.
+
+Each family carries its ``partition_rules``, copied from the JAX family's
+table (``PARTITION_RULES`` in ``trlx_tpu/models/gpt2.py``,
+``GPTJ_PARTITION_RULES``, ``NEOX_PARTITION_RULES``,
+``GPT_NEO_PARTITION_RULES``, ``GPT2_MOE_PARTITION_RULES``,
+``T5_PARTITION_RULES``): ``(regex over the flax path, per-dim mesh axes)``,
+read by :mod:`trlx_tpu_torch.parallel.partition`, and ``tp_fused``, the
+parameters whose tensor-parallel slice is taken per fused segment (GPT-2's
+``c_attn`` [q | k | v]).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+#: the JAX families' partition rules: attention and MLP input projections
+#: shard their output dim over tp, output projections their input dim
+GPT2_PARTITION_RULES = (
+    (r"wte/embedding", (None, "tp")),
+    (r"attn/c_attn/kernel", (None, "tp")),
+    (r"attn/c_proj/kernel", ("tp", None)),
+    (r"mlp/c_fc/kernel", (None, "tp")),
+    (r"mlp/c_proj/kernel", ("tp", None)),
+)
+GPTJ_PARTITION_RULES = (
+    (r"wte/embedding", (None, "tp")),
+    (r"attn/(q_proj|k_proj|v_proj)/kernel", (None, "tp")),
+    (r"attn/out_proj/kernel", ("tp", None)),
+    (r"mlp/fc_in/kernel", (None, "tp")),
+    (r"mlp/fc_out/kernel", ("tp", None)),
+    (r"lm_head/kernel", (None, "tp")),
+)
+NEOX_PARTITION_RULES = (
+    (r"wte/embedding", (None, "tp")),
+    (r"attn/query_key_value/kernel", (None, "tp")),
+    (r"attn/dense/kernel", ("tp", None)),
+    (r"mlp/dense_h_to_4h/kernel", (None, "tp")),
+    (r"mlp/dense_4h_to_h/kernel", ("tp", None)),
+    (r"lm_head/kernel", (None, "tp")),
+)
+GPT_NEO_PARTITION_RULES = (
+    (r"wte/embedding", (None, "tp")),
+    (r"attn/(q_proj|k_proj|v_proj)/kernel", (None, "tp")),
+    (r"attn/out_proj/kernel", ("tp", None)),
+    (r"mlp/c_fc/kernel", (None, "tp")),
+    (r"mlp/c_proj/kernel", ("tp", None)),
+)
+GPT2_MOE_PARTITION_RULES = GPT2_PARTITION_RULES + (
+    (r"mlp/router", (None, None)),
+    (r"mlp/wi", ("ep", None, None)),
+    (r"mlp/bi", ("ep", None)),
+    (r"mlp/wo", ("ep", None, None)),
+    (r"mlp/bo", ("ep", None)),
+)
+T5_PARTITION_RULES = (
+    (r"shared/embedding", (None, "tp")),
+    (r"(SelfAttention|EncDecAttention)/(q|k|v)/kernel", (None, "tp")),
+    (r"(SelfAttention|EncDecAttention)/o/kernel", ("tp", None)),
+    (r"DenseReluDense/(wi|wi_0|wi_1)/kernel", (None, "tp")),
+    (r"DenseReluDense/wo/kernel", ("tp", None)),
+    (r"lm_head/kernel", (None, "tp")),
+)
 
 
 @dataclass(frozen=True)
@@ -23,6 +80,9 @@ class ModelFamily:
     load_checkpoint: Callable  # (HF checkpoint dir, dtype) -> (config, state dict)
     is_seq2seq: bool = False
     is_moe: bool = False  # switch-MoE: router losses join the training loss
+    partition_rules: Sequence = ()
+    #: {port name regex: segments} of fused tp-sharded parameters
+    tp_fused: Tuple[Tuple[str, int], ...] = ()
 
 
 _FAMILIES: Dict[str, ModelFamily] = {}
@@ -87,28 +147,33 @@ def _register_builtins() -> None:
     from trlx_tpu_torch.models.t5 import T5Config, T5Model, init_t5_cache
 
     register_model_family(
-        ModelFamily("gpt2", GPT2Config, GPT2Model, init_cache, load_gpt2_checkpoint)
+        ModelFamily("gpt2", GPT2Config, GPT2Model, init_cache, load_gpt2_checkpoint,
+                    partition_rules=GPT2_PARTITION_RULES,
+                    tp_fused=((r"attn\.c_attn\.", 3),))
     )
     register_model_family(
-        ModelFamily("gptj", GPTJConfig, GPTJModel, init_gptj_cache, load_gptj_checkpoint),
+        ModelFamily("gptj", GPTJConfig, GPTJModel, init_gptj_cache, load_gptj_checkpoint,
+                    partition_rules=GPTJ_PARTITION_RULES),
         "gpt-j",
     )
     register_model_family(
         ModelFamily("gpt_neo", GPTNeoConfig, GPTNeoModel, init_gpt_neo_cache,
-                    load_gpt_neo_checkpoint),
+                    load_gpt_neo_checkpoint, partition_rules=GPT_NEO_PARTITION_RULES),
         "gpt-neo",
     )
     register_model_family(
-        ModelFamily("gpt_neox", NeoXConfig, NeoXModel, init_neox_cache, load_neox_checkpoint),
+        ModelFamily("gpt_neox", NeoXConfig, NeoXModel, init_neox_cache, load_neox_checkpoint,
+                    partition_rules=NEOX_PARTITION_RULES),
         "neox", "gpt-neox",
     )
     register_model_family(
         ModelFamily("gpt2_moe", GPT2MoEConfig, GPT2MoEModel, init_cache, no_checkpoint,
-                    is_moe=True),
+                    is_moe=True, partition_rules=GPT2_MOE_PARTITION_RULES,
+                    tp_fused=((r"attn\.c_attn\.", 3),)),
         "gpt2-moe",
     )
     register_model_family(
         ModelFamily("t5", T5Config, T5Model, init_t5_cache, load_t5_checkpoint,
-                    is_seq2seq=True),
+                    is_seq2seq=True, partition_rules=T5_PARTITION_RULES),
         "ul2",
     )

@@ -4,6 +4,12 @@ the config is :class:`trlx_tpu_torch.data.method_configs.PPOConfig`).
 
 Means are masked by the real response mask. GAE's reversed scan over time
 is a loop over the R response positions on [B] tensors.
+
+Under a mesh each rank holds its rows of the minibatch and passes the data
+group (``group``): the whitening's statistics, the loss's token count and
+every stat are the global minibatch's (all-reduced sums and counts), and
+the loss is this rank's sum over the global count, so that the data
+group's gradients *sum* to the one-process gradient.
 """
 
 from __future__ import annotations
@@ -13,7 +19,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from trlx_tpu_torch.data.method_configs import PPOConfig
-from trlx_tpu_torch.utils import masked_mean, whiten
+from trlx_tpu_torch.parallel.collectives import Group, all_reduce, whiten
 
 
 def policy_entropy(logits: torch.Tensor) -> torch.Tensor:
@@ -46,11 +52,13 @@ def get_advantages_and_returns(
     mask: torch.Tensor,  # [B, R] 1 on real response tokens
     gamma: float,
     lam: float,
+    group: Group = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """GAE over the response positions. Positions past the response
     (mask 0) carry zero advantage; the next-step value is masked so an
     episode ends at its last real token. Advantages are whitened over the
-    real tokens. Returns ``(advantages, returns)``, detached."""
+    real tokens (of every rank of ``group``). Returns ``(advantages,
+    returns)``, detached."""
     mask = mask.to(values.dtype)
     values = values * mask
     rewards = rewards * mask
@@ -65,7 +73,7 @@ def get_advantages_and_returns(
         adv[:, t] = carry
     advantages = adv * mask
     returns = advantages + values
-    return whiten(advantages, mask) * mask, returns
+    return whiten(advantages, mask, group=group) * mask, returns
 
 
 def ppo_loss(
@@ -83,6 +91,7 @@ def ppo_loss(
     entropy: Optional[torch.Tensor] = None,  # [B, R] per-position entropy
     health: bool = False,
     health_ev: bool = True,
+    group: Group = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Clipped-surrogate PPO loss; returns (scalar loss, stats) with the
     JAX package's stats keys. The log-ratio is clamped to +-30 before
@@ -95,9 +104,13 @@ def ppo_loss(
     tokens, and the value function's explained variance
     ``health/value_explained_var`` (not with ``health_ev=False``: GRPO's
     returns carry a placeholder). They are outputs only: the loss is the
-    same bits with health on or off."""
+    same bits with health on or off.
+
+    ``group`` (the data group under a mesh): ``n`` is the global count of
+    real tokens, the loss this rank's sum over it, and the stats the
+    global minibatch's."""
     mask = mask.to(values.dtype)
-    n = mask.sum().clamp_min(1.0)
+    n = all_reduce(mask.sum(), group).clamp_min(1.0)
 
     values_clipped = torch.clamp(
         values, old_values - cliprange_value, old_values + cliprange_value
@@ -132,33 +145,46 @@ def ppo_loss(
         "policy/clipfrac": pg_clipfrac,
         "values/clipfrac": vf_clipfrac,
         "policy/ratio_mean": (ratio * mask).sum() / n,
-        "values/value_mean": masked_mean(values, mask),
-        "returns/mean": masked_mean(returns, mask),
-        "advantages/mean": masked_mean(advantages, mask),
+        "values/value_mean": (values * mask).sum() / n,
+        "returns/mean": (returns * mask).sum() / n,
+        "advantages/mean": (advantages * mask).sum() / n,
     }
+    stats = {k: v.detach() for k, v in stats.items()}
+    if group is not None:
+        # every stat above is a sum over this rank's tokens / the global n
+        keys = list(stats)
+        summed = all_reduce(torch.stack([stats[k].float() for k in keys]), group)
+        stats = dict(zip(keys, summed.unbind(0)))
     if health:
         with torch.no_grad():
-            stats.update(_health_stats(log_ratio, values, returns, mask, n, health_ev))
+            stats.update(_health_stats(log_ratio, values, returns, mask, n, health_ev, group))
             if entropy is not None:
-                stats["health/entropy"] = mean_entropy
-    return loss, {k: v.detach() for k, v in stats.items()}
+                stats["health/entropy"] = stats["losses/entropy"]
+    return loss, stats
 
 
-def _health_stats(log_ratio, values, returns, mask, n, health_ev: bool) -> Dict[str, torch.Tensor]:
+def _health_stats(log_ratio, values, returns, mask, n, health_ev: bool,
+                  group: Group = None) -> Dict[str, torch.Tensor]:
     """:func:`ppo_loss`'s log-ratio extremes over real tokens (finite
     fills, never +-inf: the fetched row feeds EWMA state) and, with
-    ``health_ev``, the value function's explained variance."""
+    ``health_ev``, the value function's explained variance; over every
+    rank of ``group``."""
     real = mask > 0
     stats = {
-        "health/log_ratio_max": torch.where(real, log_ratio, torch.full_like(log_ratio, -1e30)).max(),
-        "health/log_ratio_min": torch.where(real, log_ratio, torch.full_like(log_ratio, 1e30)).min(),
+        "health/log_ratio_max": all_reduce(torch.where(
+            real, log_ratio, torch.full_like(log_ratio, -1e30)).max(), group, "max"),
+        "health/log_ratio_min": all_reduce(torch.where(
+            real, log_ratio, torch.full_like(log_ratio, 1e30)).min(), group, "min"),
     }
     if health_ev:
-        ret_mean = (returns * mask).sum() / n
         err = returns - values
-        err_mean = (err * mask).sum() / n
-        var_ret = (((returns - ret_mean) ** 2) * mask).sum() / n
-        var_err = (((err - err_mean) ** 2) * mask).sum() / n
+        ret_mean, err_mean = all_reduce(
+            torch.stack([(returns * mask).sum(), (err * mask).sum()]), group).unbind(0)
+        ret_mean, err_mean = ret_mean / n, err_mean / n
+        var_ret, var_err = all_reduce(torch.stack([
+            (((returns - ret_mean) ** 2) * mask).sum(),
+            (((err - err_mean) ** 2) * mask).sum()]), group).unbind(0)
+        var_ret, var_err = var_ret / n, var_err / n
         stats["health/value_explained_var"] = 1.0 - var_err / var_ret.clamp_min(1e-8)
     return stats
 

@@ -306,7 +306,14 @@ def make_sampler(
     Sampling draws each step's noise from ``generator``; under
     ``gen_config.per_row_rng`` from :func:`row_noise` of ``phase_seed``,
     ``rows`` (the rows' draw indices) and the step; or from
-    ``noise_fn(t)`` ([B, V] Gumbel draws) when given."""
+    ``noise_fn(t)`` ([B, V] Gumbel draws) when given.
+
+    ``shard=(start, global_batch, all_finished)`` samples rows ``start ..
+    start + B`` of a global batch, as a data-parallel rank does: the
+    generator draws the global batch's noise and the rows take theirs
+    (``noise_fn`` may return the global batch's too), and the early exit
+    waits for ``all_finished(finished)``, every rank's rows, so that each
+    rank draws what a one-process run of the global batch draws."""
     Q = query_length
     R = gen_config.max_new_tokens
     cap = Q + R
@@ -324,9 +331,10 @@ def make_sampler(
 
     @torch.no_grad()
     def sampler(prompt_ids, prompt_mask, generator=None, noise_fn=None,
-                rows=None, phase_seed: int = 0) -> SampleOutput:
+                rows=None, phase_seed: int = 0, shard=None) -> SampleOutput:
         B = prompt_ids.shape[0]
         dev = prompt_ids.device
+        start, global_b, all_finished = shard or (0, B, lambda f: bool(f.all()))
         per_row = gen_config.per_row_rng and gen_config.do_sample and noise_fn is None
         if per_row:
             if rows is None or len(rows) != B:
@@ -361,7 +369,7 @@ def make_sampler(
         full_mask = torch.cat([prompt_mask, prompt_mask.new_ones(B, R)], 1)
         slots = torch.arange(cap, device=dev)[None, :]
         for t in range(R):
-            if t % seg == 0 and seg < R and bool(finished.all()):
+            if t % seg == 0 and seg < R and all_finished(finished):
                 break  # every later step would emit (pad, 0, 0.0, 0.0)
             noise = None
             if noise_fn is not None:
@@ -369,7 +377,9 @@ def make_sampler(
             elif per_row:
                 noise = row_noise(phase_seed, rows, [t] * B, logits_last.shape[-1], dev, scratch)
             elif gen_config.do_sample:
-                noise = gumbel_noise(logits_last.shape, generator, dev)
+                noise = gumbel_noise((global_b, logits_last.shape[-1]), generator, dev)
+            if noise is not None and noise.shape[0] != B:
+                noise = noise[start:start + B]
             token, live, lp, value_out, finished = choose_tokens(
                 gen_config, logits_last, t, finished, value_last, n_real,
                 min_new=min_new, noise=noise,

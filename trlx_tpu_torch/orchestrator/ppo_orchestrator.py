@@ -46,11 +46,21 @@ only enqueues, and generation lands in ``exp/generate_time``; the sum of
 the two stats reads as generation in both. As there, the reference
 forward's launch is in no sub-span.
 
+Under a mesh of more than one rank (the fixed path only) every rank
+draws the same global chunk; the trainer samples this rank's rows of it
+and scores their reference, the responses are decoded and scored on each
+data shard's first rank, and the scores, texts and rollout tensors are
+gathered to every rank (``trainer.gather_scored``,
+``trainer.gather_sample``) before the scaling, the shaping and the push:
+the store, the running moments and the KL are the global chunk's on every
+rank, as in a one-process run.
+
 Under ``train.rollout_logging_dir`` each scored batch's rows (query,
 response, raw score) go to ``<dir>/run_<time>-<pid>/rollouts_<step>.jsonl``
 through a :class:`~trlx_tpu_torch.utils.async_writer.BackgroundJSONLWriter`,
 flushed at each phase's end (also when collection raises, without masking
-its error) and stopped by :meth:`PPOOrchestrator.close`.
+its error) and stopped by :meth:`PPOOrchestrator.close`; under a mesh,
+by rank 0 alone.
 """
 
 from __future__ import annotations
@@ -108,7 +118,9 @@ class PPOOrchestrator:
         # start in the same second
         self._run_id = f"{time.strftime('%Y%m%d-%H%M%S')}-{os.getpid()}"
         self._rollout_writer = None
-        if trainer.config.train.rollout_logging_dir:
+        from trlx_tpu_torch.parallel.distributed import is_main_process
+
+        if trainer.config.train.rollout_logging_dir and is_main_process():
             from trlx_tpu_torch.utils.async_writer import BackgroundJSONLWriter
 
             self._rollout_writer = BackgroundJSONLWriter()
@@ -322,8 +334,10 @@ class PPOOrchestrator:
                 dispatch_time += sp.duration_ms / 1000.0
                 query_tokens = batch.input_ids.to(tr.device)
                 query_mask = batch.attention_mask.to(tr.device)
+                # this rank's rows under a mesh (all of them on one rank)
                 ref_logprobs = tr.score_ref(
-                    query_tokens, query_mask, out.tokens, out.response_mask
+                    tr.local_rows(query_tokens), tr.local_rows(query_mask),
+                    out.tokens, out.response_mask,
                 )
                 # the fetch waits for the sampler and the reference: where
                 # generation's cost lands on the host
@@ -331,11 +345,16 @@ class PPOOrchestrator:
                     texts = tr.decode_responses(out.tokens, out.response_mask)
                 generate_time += sp.duration_ms / 1000.0
                 with telemetry.span("collect/score", force=True) as sp:
-                    scores = np.asarray(
-                        self.score(texts, meta["prompts_text"], meta["response_gt"]),
-                        dtype=np.float32,
-                    )
+                    scores = None
+                    if tr.scores_here:
+                        scores = np.asarray(
+                            self.score(texts, tr.local_rows(meta["prompts_text"]),
+                                       tr.local_rows(meta["response_gt"])),
+                            dtype=np.float32,
+                        )
+                    scores, texts = tr.gather_scored(scores, texts)
                 score_time += sp.duration_ms / 1000.0
+                out, ref_logprobs = tr.gather_sample(out), tr.gather_rows(ref_logprobs)
                 all_scores.append(scores.copy())
                 self._log_rollouts(meta["prompts_text"], texts, scores, iter_count)
                 scores = self._scale_scores(scores, method)

@@ -1,6 +1,8 @@
-"""Parallelism layer: the device mesh and the process runtime (counterpart
-of :mod:`trlx_tpu.parallel`'s ``mesh`` and ``distributed``). Partitioning,
-collectives, the pipeline and MoE are not ported yet (ROADMAP item 14)."""
+"""Parallelism layer (counterpart of :mod:`trlx_tpu.parallel`): the device
+mesh and its process groups (``mesh``), the process runtime
+(``distributed``), parameter partitioning (``partition``) and the global
+statistics and collectives of sharded training (``collectives``). The
+pipeline and MoE are not ported yet (ROADMAP items 14.5 and 14.6)."""
 
 from trlx_tpu_torch.parallel.mesh import (
     AXIS_DP,

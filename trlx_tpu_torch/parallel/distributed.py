@@ -1,7 +1,8 @@
 """Multi-process runtime: process-group start, barriers, host-side value
 exchange (counterpart of :mod:`trlx_tpu.parallel.distributed`).
 
-One process per device. A launcher (``torchrun``) sets ``RANK``,
+One process per device (two ranks may share one only on a backend the
+caller names). A launcher (``torchrun``) sets ``RANK``,
 ``WORLD_SIZE``, ``LOCAL_RANK`` and the rendezvous address in the
 environment; :func:`initialize` reads them. The group runs NCCL for CUDA,
 and gloo only when the caller asks for the CPU: CUDA tensors never go
@@ -20,7 +21,8 @@ BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
 def initialize(device_type: str = "cuda", init_method: Optional[str] = None,
-               world_size: Optional[int] = None, rank: Optional[int] = None) -> bool:
+               world_size: Optional[int] = None, rank: Optional[int] = None,
+               backend: Optional[str] = None) -> bool:
     """Start the default process group; returns whether one is running.
 
     The rank and world size come from the arguments, else from the
@@ -29,7 +31,10 @@ def initialize(device_type: str = "cuda", init_method: Optional[str] = None,
     process that nothing launched and that passes none of them starts no
     group (a no-op), as does a second call. On ``"cuda"`` the group is
     NCCL and the process takes device ``LOCAL_RANK`` (else its rank modulo
-    the device count); on ``"cpu"`` it is gloo."""
+    the device count); on ``"cpu"`` it is gloo. ``backend`` overrides the
+    device type's backend only when the caller names one (``chip_smoke.py``
+    runs two ranks that share one card on gloo, since NCCL refuses two
+    ranks on one device); nothing chooses it on its own."""
     if device_type not in BACKENDS:
         raise ValueError(f"initialize: device_type must be one of {sorted(BACKENDS)}, "
                          f"got {device_type!r}")
@@ -44,7 +49,8 @@ def initialize(device_type: str = "cuda", init_method: Optional[str] = None,
         local = os.environ.get("LOCAL_RANK")
         torch.cuda.set_device(int(local) if local is not None
                               else rank % torch.cuda.device_count())
-    dist.init_process_group(BACKENDS[device_type], init_method=init_method or "env://",
+    dist.init_process_group(backend or BACKENDS[device_type],
+                            init_method=init_method or "env://",
                             world_size=world_size, rank=rank)
     return True
 

@@ -13,14 +13,19 @@ the TPU package's order, with one process (rank) per device:
 
 Ranks fill the mesh in row-major order, as the TPU package reshapes its
 device list, so ``sp`` neighbours are adjacent ranks. Of these axes the
-port runs ``sp`` (ring attention) and ``dp``/``fsdp`` as batch sharding of
-its inputs; the trainers still refuse any mesh larger than one device.
+port runs ``sp`` (ring attention, over a ``DeviceMesh``) and ``dp``,
+``fsdp`` and ``tp`` in the PPO-family trainers, over the process groups of
+:class:`MeshGroups`: the data group (``dp`` x ``fsdp``, dp major: each
+rank's rows of the global batch, :meth:`MeshGroups.rows`, and the rollout
+store's row gather, :meth:`MeshGroups.gather_rows`), the ``fsdp`` group
+(parameter shards), the ``tp`` group (tensor parallelism) and the world.
 """
 
 from __future__ import annotations
 
+import itertools
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -130,3 +135,120 @@ def local_shard(x: torch.Tensor, mesh, axis_name: str = AXIS_SP,
                          f"{t_shards} shards")
     b, t = B // b_shards, T // t_shards
     return x[b * b_index:b * (b_index + 1), t * coord[axis_name]:t * (coord[axis_name] + 1)]
+
+
+class MeshGroups:
+    """This rank's place in the mesh of ``sizes`` (every axis's size, as
+    :func:`mesh_sizes` gives them) and the process groups over each set of
+    axes the trainers reduce over: :meth:`group` of ``("dp", "fsdp")`` is
+    the data group, ordered dp major, so that a rank's index in it is its
+    data shard. Every rank builds every group (``new_group`` is
+    collective), in the same order; a set of axes whose size is 1 has no
+    group (``None``). Without a process group the world is one rank."""
+
+    #: the axis sets whose groups are built
+    GROUP_AXES = ((AXIS_DP,), (AXIS_FSDP,), (AXIS_TP,), BATCH_AXES)
+
+    def __init__(self, sizes: Dict[str, int]):
+        self.sizes = dict(sizes)
+        self.world = math.prod(self.sizes[a] for a in AXES)
+        running = dist.is_initialized()
+        if (dist.get_world_size() if running else 1) != self.world:
+            raise ValueError(f"mesh {self.sizes} needs {self.world} ranks, the world has "
+                             f"{dist.get_world_size() if running else 1}")
+        self.rank = dist.get_rank() if running else 0
+        self.coord = dict(zip(AXES, _unravel(self.rank, [self.sizes[a] for a in AXES])))
+        self._groups: Dict[Tuple[str, ...], object] = {}
+        for axes in self.GROUP_AXES:
+            if self.size(*axes) > 1:
+                self._groups[axes] = self._build(axes)
+        self.world_group = dist.group.WORLD if self.world > 1 else None
+
+    def _build(self, axes: Tuple[str, ...]):
+        others = [a for a in AXES if a not in axes]
+        mine = None
+        for fixed in itertools.product(*(range(self.sizes[a]) for a in others)):
+            coord = dict(zip(others, fixed))
+            ranks = []
+            for inner in itertools.product(*(range(self.sizes[a]) for a in axes)):
+                coord.update(zip(axes, inner))
+                ranks.append(_ravel([coord[a] for a in AXES], [self.sizes[a] for a in AXES]))
+            group = dist.new_group(ranks)
+            if self.rank in ranks:
+                mine = group
+        return mine
+
+    def size(self, *axes: str) -> int:
+        return math.prod(self.sizes[a] for a in axes)
+
+    def index(self, *axes: str) -> int:
+        """This rank's index in the group over ``axes`` (the first major)."""
+        return _ravel([self.coord[a] for a in axes], [self.sizes[a] for a in axes])
+
+    def group(self, *axes: str):
+        """The process group over ``axes``; ``None`` when their size is 1."""
+        return self._groups.get(tuple(axes)) if self.size(*axes) > 1 else None
+
+    @property
+    def data_size(self) -> int:
+        return self.size(*BATCH_AXES)
+
+    @property
+    def data_index(self) -> int:
+        return self.index(*BATCH_AXES)
+
+    @property
+    def data_group(self):
+        return self.group(*BATCH_AXES)
+
+    def rows(self, n: int) -> slice:
+        """This rank's rows of a global batch of ``n`` (its data shard);
+        raises when the data shards do not divide ``n``."""
+        if n % self.data_size:
+            raise ValueError(f"a batch of {n} rows does not split into {self.data_size} "
+                             "data shards (dp x fsdp)")
+        b = n // self.data_size
+        return slice(b * self.data_index, b * (self.data_index + 1))
+
+    @property
+    def is_data_leader(self) -> bool:
+        """Whether this rank is its data shard's first (every axis but dp
+        and fsdp at 0): the rank that runs the host work a shard's rows
+        need once, such as the reward function."""
+        return all(self.coord[a] == 0 for a in AXES if a not in BATCH_AXES)
+
+    def gather_data_objects(self, obj) -> list:
+        """Each data shard's leader's ``obj``, in data-shard order (every
+        rank calls it; the others' objects are dropped)."""
+        from trlx_tpu_torch.parallel.collectives import all_gather_object
+
+        objs = all_gather_object(obj, self.world_group)
+        dims = [self.sizes[a] for a in AXES]
+        leaders = []
+        for d in range(self.data_size):
+            coord = dict.fromkeys(AXES, 0)
+            coord.update(zip(BATCH_AXES, _unravel(d, [self.sizes[a] for a in BATCH_AXES])))
+            leaders.append(_ravel([coord[a] for a in AXES], dims))
+        return [objs[r] for r in leaders]
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """Every data shard's rows of ``x`` [b, ...], concatenated in shard
+        order: the global batch [b * data_size, ...] on every rank."""
+        from trlx_tpu_torch.parallel.collectives import all_gather
+
+        return all_gather(x, self.data_group, 0)
+
+
+def _unravel(index: int, dims: Sequence[int]):
+    out = []
+    for d in reversed(dims):
+        out.append(index % d)
+        index //= d
+    return tuple(reversed(out))
+
+
+def _ravel(coord: Sequence[int], dims: Sequence[int]) -> int:
+    index = 0
+    for c, d in zip(coord, dims):
+        index = index * d + c
+    return index

@@ -31,9 +31,9 @@ _TRAINERS: Dict[str, type] = {}
 #: have yet: (default, the ROADMAP item that brings it). A value other than
 #: the default is refused instead of silently ignored.
 UNPORTED_TRAIN_KEYS = {
-    "pp_microbatches": (2, "14 (pipeline parallelism)"),
-    "pp_virtual_stages": (1, "14 (pipeline parallelism)"),
-    "pp_remat": (False, "14 (pipeline parallelism)"),
+    "pp_microbatches": (2, "14.5 (pipeline parallelism)"),
+    "pp_virtual_stages": (1, "14.5 (pipeline parallelism)"),
+    "pp_remat": (False, "14.5 (pipeline parallelism)"),
 }
 
 
@@ -66,11 +66,13 @@ def get_trainer(name: str) -> type:
     raise ValueError(f"Unknown trainer: {name!r}. Registered: {sorted(_TRAINERS)}")
 
 
-def refuse_unported(config) -> None:
+def refuse_unported(config, trainer=None) -> None:
     """Raise on a configured training feature the port does not have,
     naming the ROADMAP item that brings it (``train.rollout``'s chunked
     prefill and speculative decoding are refused where it is parsed,
-    :class:`~trlx_tpu_torch.inference.RolloutEngineConfig`)."""
+    :class:`~trlx_tpu_torch.inference.RolloutEngineConfig`), and on a mesh
+    of more than one rank that ``trainer`` cannot train under
+    (:func:`refuse_mesh`)."""
     train = config.train
     for key, (default, item) in UNPORTED_TRAIN_KEYS.items():
         value = train.training.get(key, default)
@@ -78,16 +80,83 @@ def refuse_unported(config) -> None:
             raise NotImplementedError(
                 f"train.{key}={value!r} is not ported yet (ROADMAP item {item})"
             )
-    mesh = train.training.get("mesh") or {}
-    if any(size not in (-1, 1) for size in mesh.values()):
+    refuse_mesh(config, trainer)
+
+
+#: model families the PPO-family trainers shard, and the mesh axes each
+#: takes (GPT-Neo's local band is not wired for tp: ROADMAP item 14)
+MESH_FAMILIES = {"gpt2": ("dp", "fsdp", "tp"), "gptj": ("dp", "fsdp", "tp"),
+                 "gpt_neox": ("dp", "fsdp", "tp"), "gpt_neo": ("dp", "fsdp")}
+
+
+def requested_mesh(config) -> Dict[str, int]:
+    """``train.mesh`` with the defaults filled: every axis's asked size,
+    -1 (all remaining ranks) left as it is."""
+    from trlx_tpu_torch.parallel.mesh import AXES, AXIS_DP
+
+    mesh = dict(config.train.training.get("mesh") or {})
+    return {axis: int(mesh.get(axis, -1 if axis == AXIS_DP else 1)) for axis in AXES}
+
+
+def refuse_mesh(config, trainer=None) -> None:
+    """Refuse, by name and ROADMAP item, what no trainer runs under a mesh
+    of more than one rank: ``pp`` (14.5), ``ep`` (14.6), and ``sp`` in the
+    trainers (14.3), whatever the world; and, once the mesh asks for more
+    than one rank (an axis above 1, or the ``-1`` axis over a world of
+    several), ILQL and the seq2seq trainers, a family other than gpt2,
+    gptj, gpt_neox and gpt_neo (gpt2_moe: 14.6), tp for gpt_neo, the
+    continuous engine as a rollout source, ``async_rl`` (14.4) and bf16
+    Adam moments."""
+    import torch.distributed as dist
+
+    sizes = requested_mesh(config)
+    for axis, item in (("pp", "14.5 (pipeline parallelism)"),
+                       ("ep", "14.6 (expert parallelism, parallel/moe.py)"),
+                       ("sp", "14.3 (the trainers' sp-sharded decode cache)")):
+        if sizes[axis] not in (-1, 1):
+            raise NotImplementedError(
+                f"train.mesh {axis}={sizes[axis]} is not ported to the trainers yet "
+                f"(ROADMAP item {item})"
+            )
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if not any(v > 1 for v in sizes.values()) and not (-1 in sizes.values() and world > 1):
+        return
+    where = f"train.mesh={config.train.training.get('mesh')}"
+    name = type(trainer).__name__ if trainer is not None else "this trainer"
+    if not getattr(trainer, "supports_mesh", False):
         raise NotImplementedError(
-            f"train.mesh={mesh}: the trainers run on one device. The mesh "
-            "(trlx_tpu_torch.parallel.make_mesh) and ring attention over its sp "
-            "axis are ported; dp/fsdp/tp training (parameter partitioning and "
-            "collectives), the pipeline (pp), expert parallelism over ep (the "
-            "gpt2_moe family runs its dense switch path on one device; "
-            "ROADMAP item 14.5) and the sp-sharded decode cache are not "
-            "(ROADMAP item 14)"
+            f"{where}: {name} trains on one rank; dp/fsdp/tp training covers the "
+            "PPO and GRPO trainers of the causal families (ILQL, seq2seq T5 and its "
+            "GRPO under a mesh: ROADMAP item 14)"
+        )
+    family = config.model.model_type.lower().replace("-", "_")
+    family = {"neox": "gpt_neox"}.get(family, family)
+    if family not in MESH_FAMILIES:
+        raise NotImplementedError(
+            f"{where}: model_type {config.model.model_type!r} trains on one rank "
+            "(gpt2_moe's sharded path is ROADMAP item 14.6)"
+        )
+    for axis in ("dp", "fsdp", "tp"):
+        if sizes[axis] > 1 and axis not in MESH_FAMILIES[family]:
+            raise NotImplementedError(
+                f"{where}: {axis} > 1 is not wired for {family} (its local attention "
+                "band under tensor parallelism: ROADMAP item 14)"
+            )
+    rollout = dict(config.train.rollout or {})
+    if rollout.get("engine", "fixed") == "continuous":
+        raise NotImplementedError(
+            f"{where}: the continuous engine as a rollout source runs on one rank "
+            "(ROADMAP items 14 and 15); use rollout.engine: fixed"
+        )
+    if dict(config.train.training.get("async_rl") or {}).get("enabled"):
+        raise NotImplementedError(
+            f"{where}: async_rl runs on one rank (the actors' own device subset: "
+            "ROADMAP item 14.4)"
+        )
+    if config.train.adam_moment_dtype == "bfloat16":
+        raise NotImplementedError(
+            f"{where}: adam_moment_dtype bfloat16 trains on one rank: its rounding noise "
+            "is drawn over the flat global moments (ROADMAP item 14)"
         )
 
 
@@ -487,6 +556,11 @@ class BaseRLTrainer:
         tokens, lengths = tokens.cpu().numpy(), response_mask.sum(1).cpu().numpy()
         return [self._detokenize(row[: int(n)].tolist()) for row, n in zip(tokens, lengths)]
 
+    def gather_sample(self, out):
+        """The global batch's sample from this rank's rows (the PPO
+        trainers' mesh; one rank's is the whole)."""
+        return out
+
     def decode_queries(self, q_ids: torch.Tensor, q_mask: torch.Tensor) -> List[str]:
         q_ids, q_mask = q_ids.cpu().numpy(), q_mask.cpu().numpy()
         return [self._detokenize(row[m.astype(bool)].tolist()) for row, m in zip(q_ids, q_mask)]
@@ -509,7 +583,7 @@ class BaseRLTrainer:
             for batch, meta in self.eval_pipeline.create_loader(
                 self.eval_batch_size, shuffle=False, drop_last=False
             ):
-                out = self.sample(batch.input_ids, batch.attention_mask)
+                out = self.gather_sample(self.sample(batch.input_ids, batch.attention_mask))
                 n_real = meta["n_real"]
                 all_texts += self.decode_responses(out.tokens, out.response_mask)[:n_real]
                 all_queries += meta["prompts_text"][:n_real]
@@ -518,7 +592,11 @@ class BaseRLTrainer:
             stats: Dict[str, Any] = {"time/generate": monotonic() - t0}
             columns = ["query", "response"]
             table = [list(t) for t in zip(all_queries, all_texts)]
-            if self.reward_fn is not None:
+            from trlx_tpu_torch.parallel.distributed import is_main_process
+
+            # under a mesh the first rank alone scores (and logs) the eval
+            main = is_main_process()
+            if self.reward_fn is not None and main:
                 scores = np.asarray(
                     self.reward_fn(
                         samples=all_texts, queries=all_queries,
@@ -530,7 +608,7 @@ class BaseRLTrainer:
                 stats["reward/std"] = float(scores.std())
                 columns.append("reward")
                 table = [row + [float(s)] for row, s in zip(table, scores)]
-            if self.metric_fn is not None:
+            if self.metric_fn is not None and main:
                 t1 = monotonic()
                 for k, v in self.metric_fn(all_texts).items():
                     stats[f"metrics/{k}"] = float(np.asarray(v, dtype=np.float32).mean())

@@ -69,7 +69,14 @@ class ClippedAdamW:
       ``p * (1 - lr wd) - lr m_hat / (sqrt(v_hat) + eps)`` is optax's
       ``adamw`` term for term; they differ only in rounding order.
     - The learning rate of update ``n`` is :func:`cosine_lr` at ``n``.
+    - Under a mesh the parameters are this rank's shards, and
+      ``grad_sq_sum`` (``(params, grads) -> squared global norm``, the
+      trainer's :meth:`~trlx_tpu_torch.parallel.partition.ShardedModule.grad_sq_sum`)
+      sums the squares over the mesh, each element once; AdamW then runs
+      on the shards.
     """
+
+    grad_sq_sum: Optional[Callable] = None
 
     def __init__(self, params: Iterable[nn.Parameter], train, total_steps: int):
         self.params: List[nn.Parameter] = [p for p in params if p.requires_grad]
@@ -92,8 +99,12 @@ class ClippedAdamW:
     def step(self) -> torch.Tensor:
         """Clip, update, advance the schedule; returns the gradient's
         global norm before the clip (a device scalar)."""
-        grads = [p.grad for p in self.params if p.grad is not None]
-        norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+        held = [p for p in self.params if p.grad is not None]
+        grads = [p.grad for p in held]
+        if self.grad_sq_sum is not None:
+            norm = torch.sqrt(self.grad_sq_sum(held, grads))
+        else:
+            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
         keep = norm < self.grad_clip  # optax scales only when norm >= max
         for g in grads:
             g.copy_(torch.where(keep, g, g / norm * self.grad_clip))

@@ -115,7 +115,7 @@ class ILQLTrainer(BaseRLTrainer):
                 "train.async_rl is not supported by ILQLTrainer (offline "
                 "trainer; there is no actor/collect loop to run asynchronously)"
             )
-        refuse_unported(config)
+        refuse_unported(config, self)
         self.device = resolve_device(device)
         if tokenizer is None and config.model.tokenizer_path:
             from transformers import AutoTokenizer

@@ -72,6 +72,22 @@
   pass boundary, before the next collect, runs the preemption drain
   (:meth:`~trlx_tpu_torch.trainer.BaseRLTrainer.maybe_drain`); GRPO and
   seq2seq PPO inherit both.
+- ``train.mesh`` of more than one rank (one process per rank, started
+  by :func:`~trlx_tpu_torch.parallel.distributed.initialize`): dp, fsdp
+  and tp training (:meth:`_shard_models`). The policy, the value head,
+  the frozen reference and the optimizer state are sharded by the
+  family's JAX partition rules (:mod:`~trlx_tpu_torch.parallel.partition`);
+  each rank samples its rows of every global chunk (:meth:`sample`: the
+  generator draws the global chunk's noise, so a rank's rows draw what a
+  one-process run draws), scores its reference, decodes, and the reward
+  function sees each row once, on its data shard's first rank; the chunk
+  is then gathered to every rank (:meth:`gather_scored`,
+  :meth:`gather_sample`), so that reward scaling, shaping, GRPO's group
+  whitening and the store are the global ones, and every rank takes its
+  rows of each global minibatch in the same order. The loss and its
+  stats read the global token count, the data group's gradients are
+  summed, and the clip reads the global norm. A checkpoint holds the
+  one-device layout (rank 0 writes, every rank reads its shards).
 - ``self.forwards`` counts the policy/reference forwards the trainer
   makes (rollout prefill and decode steps, reference scoring, update
   forwards): each runs the attention forward once per layer.
@@ -91,6 +107,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import dataclasses
 import functools
 from typing import Any, Callable, Dict, List, Optional
 
@@ -120,6 +137,8 @@ from trlx_tpu_torch.ops.sampling import (
     make_sampler,
     validate_gen_config,
 )
+from trlx_tpu_torch.parallel import collectives
+from trlx_tpu_torch.parallel.distributed import barrier, is_main_process
 from trlx_tpu_torch.pipeline.ppo_buffer import (
     PPORolloutBuffer,
     StreamPlan,
@@ -145,6 +164,7 @@ from trlx_tpu_torch.utils.checkpoint import (
     has_checkpoint,
     load_checkpoint,
     translate_structure_errors,
+    wait_for_checkpoints,
 )
 from trlx_tpu_torch.utils.logging import Logger
 
@@ -199,6 +219,11 @@ class PPOTrainer(BaseRLTrainer):
         the plain versions of the kernels.
     """
 
+    #: trains under a mesh of more than one rank (``refuse_mesh``)
+    supports_mesh = True
+    #: the policy's and the reference's shards under a mesh
+    shards = ref_shards = None
+
     def __init__(
         self,
         config,
@@ -209,7 +234,7 @@ class PPOTrainer(BaseRLTrainer):
     ):
         super().__init__(config, reward_fn, metric_fn, tokenizer)
         method, train = config.method, config.train
-        refuse_unported(config)
+        refuse_unported(config, self)
         # grouped sampling: the orchestrator repeats each drawn prompt
         # group_size times; checked before the model is built
         self.group_size = int(getattr(method, "group_size", 1) or 1)
@@ -236,6 +261,7 @@ class PPOTrainer(BaseRLTrainer):
         if self.async_config.enabled:
             self._validate_async_rl()
         self.device = resolve_device(device)
+        self.mesh = self._make_mesh()
         if tokenizer is None and config.model.tokenizer_path:
             from transformers import AutoTokenizer
 
@@ -250,6 +276,8 @@ class PPOTrainer(BaseRLTrainer):
         self.rollout_cast_refreshes = 0
         self._setup_model()
         self.opt = make_optimizer(train, train.total_steps, self.model.parameters())
+        if self.shards is not None:
+            self.opt.grad_sq_sum = self.shards.grad_sq_sum
         self.generator = set_seed(train.seed, self.device)  # sampling noise
         self._checkpoints = CheckpointWriter()
 
@@ -258,8 +286,6 @@ class PPOTrainer(BaseRLTrainer):
         self._amend_gen_kwargs(gen_kwargs)
         self.gen_config = GenerationConfig.from_dict(gen_kwargs)
         if self.rollout_config.rows_per_row_rng:
-            import dataclasses
-
             self.gen_config = dataclasses.replace(self.gen_config, per_row_rng=True)
         validate_gen_config(self.gen_config, self.model_config.vocab_size, provided=set(gen_kwargs))
         self._check_response_budget()
@@ -311,6 +337,106 @@ class PPOTrainer(BaseRLTrainer):
             self.model.transformer.load_state_dict(backbone)
         self._setup_reference(self.model.transformer, self.model_config.n_layer)
         freeze_layers(self.model, config.model.num_layers_unfrozen, self.model_config.n_layer)
+        self._shard_models()
+
+    # ------------------------------ the mesh ----------------------------- #
+
+    def _make_mesh(self):
+        """The mesh of ``train.mesh`` over the process group's ranks: a
+        :class:`~trlx_tpu_torch.parallel.mesh.MeshGroups`, or ``None`` for
+        a world of one rank. A mesh that asks for another number of ranks
+        than the world has raises, naming the launch it needs."""
+        import math
+
+        import torch.distributed as dist
+
+        from trlx_tpu_torch.parallel.mesh import MeshGroups, mesh_sizes
+        from trlx_tpu_torch.trainer import requested_mesh
+
+        train = self.config.train
+        asked = requested_mesh(self.config)
+        fixed = math.prod(v for v in asked.values() if v != -1)
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        if (world % fixed if -1 in asked.values() else world != fixed):
+            raise ValueError(
+                f"train.mesh={train.training.get('mesh')} needs {fixed} ranks, the world "
+                f"has {world}: launch one process per rank (torchrun --nproc_per_node "
+                f"{fixed}), or set the mesh to the world"
+            )
+        sizes = mesh_sizes(train.training.get("mesh"), world)
+        return None if world == 1 else MeshGroups(sizes)
+
+    def _shard_models(self) -> None:
+        """Under a mesh: the policy's and the reference's placements from
+        the family's partition rules, their tensor-parallel forwards, and
+        each parameter cut to this rank's shard (``shards``,
+        ``ref_shards``; ``None`` on one rank)."""
+        self.shards = self.ref_shards = None
+        if self.mesh is None:
+            return
+        from trlx_tpu_torch.parallel.partition import (
+            apply_tensor_parallel,
+            make_shardings,
+            shard_params,
+        )
+
+        def shard(module):
+            placements = make_shardings(module, self.mesh.sizes, self.family.partition_rules,
+                                        self.family.tp_fused)
+            return shard_params(module, apply_tensor_parallel(module, placements, self.mesh),
+                                self.mesh)
+
+        self.shards, self.ref_shards = shard(self.model), shard(self.ref)
+
+    def _unsharded(self, shards, grad: bool = False):
+        """``shards``' fsdp-gathered context (a no-op on one rank)."""
+        return contextlib.nullcontext() if shards is None else shards.unsharded(grad=grad)
+
+    @property
+    def _copy_gather(self):
+        """The rollout copies' ``gather`` under a mesh (each policy
+        parameter cast, then fsdp-gathered), else ``None``."""
+        if self.shards is None:
+            return None
+        return lambda name, p, dtype=None: self.shards.gathered(name, p, dtype=dtype)
+
+    @property
+    def data_group(self):
+        """The data group (dp x fsdp) under a mesh, else ``None``."""
+        return None if self.mesh is None else self.mesh.data_group
+
+    def local_rows(self, x):
+        """This rank's rows of a global batch ``x`` (a tensor or a list)."""
+        return x if self.mesh is None or x is None else x[self.mesh.rows(len(x))]
+
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The global batch from every data shard's rows ``x``."""
+        return x if self.mesh is None else self.mesh.gather_rows(x)
+
+    def gather_sample(self, out: SampleOutput) -> SampleOutput:
+        return out if self.mesh is None else SampleOutput(
+            **{f: self.mesh.gather_rows(getattr(out, f))
+               for f in ("tokens", "response_mask", "logprobs", "values")})
+
+    @property
+    def scores_here(self) -> bool:
+        """Whether the reward function runs on this rank: every rank on
+        one, else the first rank of each data shard."""
+        return self.mesh is None or self.mesh.is_data_leader
+
+    def gather_scored(self, scores, texts):
+        """``(scores, texts)`` of the global chunk from each data shard's
+        scoring rank (the reward function saw each row once)."""
+        if self.mesh is None:
+            return scores, texts
+        shards = self.mesh.gather_data_objects((scores, texts))
+        return (np.concatenate([s for s, _ in shards]),
+                [t for _, ts in shards for t in ts])
+
+    def _all_finished(self, finished: torch.Tensor) -> bool:
+        """The sampler's early exit under a mesh: every rank's rows done."""
+        return bool(collectives.all_reduce(finished.all().to(torch.int64),
+                                           self.mesh.world_group, "min"))
 
     def _setup_reference(self, backbone, n_layer: int) -> None:
         """The frozen KL reference from ``backbone``'s current (initial)
@@ -362,10 +488,13 @@ class PPOTrainer(BaseRLTrainer):
         included), else the policy itself."""
         if self._behavior_model is not None:
             return self._behavior_model
-        if self.rollout_cast_dtype is None:
+        if self.rollout_cast_dtype is None and self.shards is None:
             return self.model
         if self._rollout_module is None:
-            self._rollout_module = compute_dtype_cast(self.model, self.rollout_cast_dtype)
+            # under a mesh, a copy whose fsdp shards are gathered (each cast
+            # first): the policy the rollout forwards run, tp-local
+            self._rollout_module = compute_dtype_cast(self.model, self.rollout_cast_dtype,
+                                                      gather=self._copy_gather)
             self.rollout_cast_refreshes += 1
         return self._rollout_module
 
@@ -405,10 +534,17 @@ class PPOTrainer(BaseRLTrainer):
         ``max_length`` caps prompt + generated, which only the bound
         pipeline's real prompt lengths decide (:meth:`bind_prompt_budget`)."""
 
+    @property
+    def _cache_kw(self) -> Dict[str, int]:
+        """The KV cache's tensor-parallel head split, under tp > 1."""
+        tp = 1 if self.mesh is None else self.mesh.size("tp")
+        return {"tp": tp} if tp > 1 else {}
+
     def _make_sampler(self):
         return make_sampler(
             self._apply,
-            functools.partial(self.family.init_cache, self.model_config, device=self.device),
+            functools.partial(self.family.init_cache, self.model_config, device=self.device,
+                              **self._cache_kw),
             self.gen_config,
             self.query_length,
         )
@@ -447,8 +583,6 @@ class PPOTrainer(BaseRLTrainer):
         budget = max_len - min(self._bound_min_prompts.values())
         new = min(self._gen_budget_cap, budget) if budget > 0 else self._gen_budget_cap
         if new != self.gen_config.max_new_tokens:
-            import dataclasses
-
             self.gen_config = dataclasses.replace(self.gen_config, max_new_tokens=new)
             self._rebuild_sampler()
 
@@ -458,13 +592,19 @@ class PPOTrainer(BaseRLTrainer):
 
     def sample(self, prompt_ids, prompt_mask) -> SampleOutput:
         """Roll out a prompt batch with the current policy (under per-row
-        RNG, as the phase's next rows)."""
+        RNG, as the phase's next rows). Under a mesh ``prompt_ids`` is the
+        global batch and this rank samples its rows of it, drawing their
+        noise as a one-process run of the whole batch would."""
         per_row = {}
+        B = prompt_ids.shape[0]
+        rows = slice(0, B) if self.mesh is None else self.mesh.rows(B)
         if self.gen_config.per_row_rng:
-            per_row = {"rows": self.take_rows(prompt_ids.shape[0]),
+            per_row = {"rows": self.take_rows(B)[rows],
                        "phase_seed": self.rollout_phase_seed()}
+        if self.mesh is not None:
+            per_row["shard"] = (rows.start, B, self._all_finished)
         return self._sampler(
-            prompt_ids.to(self.device), prompt_mask.to(self.device),
+            prompt_ids[rows].to(self.device), prompt_mask[rows].to(self.device),
             generator=self.generator, **per_row,
         )
 
@@ -591,17 +731,18 @@ class PPOTrainer(BaseRLTrainer):
         Q = self.query_length
         ids = torch.cat([q_ids, r_ids], 1)
         mask = torch.cat([q_mask, r_mask.to(q_mask.dtype)], 1)
-        if self.use_hydra:
-            trunk = self.rollout_model().transformer(
-                ids, attention_mask=mask, capture_hidden_at=self.branch_start
-            )
-            out = self.ref(
-                ids, attention_mask=mask, start_layer=self.branch_start,
-                hidden_override=trunk["branch_hidden"], compute_logits=False,
-            )
-        else:
-            out = self.ref(ids, attention_mask=mask, compute_logits=False)
-        logits = self.ref.logits(out["hidden"][:, Q - 1 : -1])
+        with self._unsharded(self.ref_shards):
+            if self.use_hydra:
+                trunk = self.rollout_model().transformer(
+                    ids, attention_mask=mask, capture_hidden_at=self.branch_start
+                )
+                out = self.ref(
+                    ids, attention_mask=mask, start_layer=self.branch_start,
+                    hidden_override=trunk["branch_hidden"], compute_logits=False,
+                )
+            else:
+                out = self.ref(ids, attention_mask=mask, compute_logits=False)
+            logits = self.ref.logits(out["hidden"][:, Q - 1 : -1])
         return logprobs_from_logits(logits, r_ids)
 
     @torch.no_grad()
@@ -631,7 +772,8 @@ class PPOTrainer(BaseRLTrainer):
         values and rewards, advantages whitened."""
         method = self.config.method
         return get_advantages_and_returns(
-            mb.values, mb.rewards, mb.response_mask, method.gamma, method.lam
+            mb.values, mb.rewards, mb.response_mask, method.gamma, method.lam,
+            group=self.data_group,
         )
 
     # ------------------------------------------------------------------ #
@@ -661,24 +803,35 @@ class PPOTrainer(BaseRLTrainer):
 
     def train_step(self, mb: PPORolloutBatch) -> Dict[str, torch.Tensor]:
         """One PPO update on a minibatch; returns its stats (device
-        scalars), ``optimizer/grad_norm`` included."""
+        scalars), ``optimizer/grad_norm`` included. Under a mesh ``mb`` is
+        the global minibatch: this rank trains on its rows, the policy's
+        fsdp shards gathered through the forward and the backward, and
+        the gradients summed over the data group before the step."""
         method = self.config.method
         self._drop_rollout_cast()
-        advantages, returns = self._advantages_and_returns(mb)
-        with collect_moe_losses(self.model) as moe:
-            logprobs, values, entropy = self._forward_logprobs_values(mb)
-        loss, stats = ppo_loss(
-            logprobs, values, mb.logprobs, mb.values, advantages, returns,
-            mb.response_mask, method.cliprange, method.cliprange_value,
-            method.vf_coef, ent_coef=method.ent_coef, entropy=entropy,
-            health=self._health_enabled, health_ev=self._health_ev,
-        )
-        if self.family.is_moe:
-            loss, stats = apply_router_penalty(
-                loss, stats, moe_loss_summary(moe), self.model_config
+        local = mb if self.mesh is None else PPORolloutBatch(**{
+            f.name: getattr(mb, f.name)[self.mesh.rows(mb.batch_size)]
+            for f in dataclasses.fields(mb)})
+        advantages, returns = self._advantages_and_returns(local)
+        with self._unsharded(self.shards, grad=True):
+            with collect_moe_losses(self.model) as moe:
+                logprobs, values, entropy = self._forward_logprobs_values(local)
+            loss, stats = ppo_loss(
+                logprobs, values, local.logprobs, local.values, advantages, returns,
+                local.response_mask, method.cliprange, method.cliprange_value,
+                method.vf_coef, ent_coef=method.ent_coef, entropy=entropy,
+                health=self._health_enabled, health_ev=self._health_ev,
+                group=self.data_group,
             )
-        self.opt.zero_grad()
-        loss.backward()
+            if self.family.is_moe:
+                loss, stats = apply_router_penalty(
+                    loss, stats, moe_loss_summary(moe), self.model_config
+                )
+            self.opt.zero_grad()
+            # inside the context: a chunked head recomputes on the gathered weights
+            loss.backward()
+        if self.shards is not None:
+            self.shards.sync_grads(self.opt.params)
         stats["optimizer/grad_norm"] = self.opt.step()
         if self._health_enabled:
             # the shaped returns' distribution, an output of the step only
@@ -727,7 +880,8 @@ class PPOTrainer(BaseRLTrainer):
         # itself would be the masters, which the epoch-1 updates step in
         # place); the lazy cast copy is not needed beside it
         self._rollout_module = None
-        self._behavior_model = behaviour_snapshot(self.model, self.rollout_cast_dtype)
+        self._behavior_model = behaviour_snapshot(self.model, self.rollout_cast_dtype,
+                                                  gather=self._copy_gather)
         if self.rollout_cast_dtype is not None:
             self.rollout_cast_refreshes += 1
         phase_cls = (_AsyncStreamedPhase
@@ -1185,7 +1339,7 @@ class PPOTrainer(BaseRLTrainer):
             else max(len(self.buffer) // train.batch_size, 1)
         )
         total_steps = min(train.total_steps, train.epochs * method.ppo_epochs * n_minibatches)
-        self.logger = Logger()
+        self.logger = Logger(enabled=is_main_process())
         try:
             result = self._learn_body(total_steps, n_minibatches, start_step)
         except BaseException as e:
@@ -1297,8 +1451,8 @@ class PPOTrainer(BaseRLTrainer):
         ``phase/checkpoint`` span."""
         with telemetry.span("phase/checkpoint"):
             state = {
-                "model": self.model.state_dict(),
-                "optimizer": self.opt.state_dict(),
+                "model": self._full_model_state(),
+                "optimizer": self._full_opt_state(),
                 "step": self.step,
                 "kl_coef": float(self.kl_coef),
                 "mean_kl": float(self.mean_kl),
@@ -1309,10 +1463,40 @@ class PPOTrainer(BaseRLTrainer):
             host = self.host_state_dict()
             if host:
                 state["host"] = host
+            if not is_main_process():
+                return  # rank 0 writes the one-device layout
             self._checkpoints.save(
                 directory or self.config.train.checkpoint_dir, state, self.step,
                 async_save=bool(self.config.train.training.get("async_checkpoint", False)),
             )
+
+    def _full_model_state(self) -> Dict[str, torch.Tensor]:
+        """The policy's state dict in the one-device layout."""
+        return self.model.state_dict() if self.shards is None else self.shards.full_state_dict()
+
+    def _full_opt_state(self) -> Dict[str, Any]:
+        """The optimizer's state with its moments in the one-device layout."""
+        state = self.opt.state_dict()
+        if self.shards is None:
+            return state
+        return self._map_opt_state(state, self.shards.full_tensor, "local")
+
+    def _map_opt_state(self, state: Dict[str, Any], fn, shape_of: str) -> Dict[str, Any]:
+        """``state`` (:class:`~trlx_tpu_torch.trainer.common.ClippedAdamW`'s)
+        with ``fn(name, moment)`` applied to each per-parameter moment of
+        the ``shape_of`` (``"local"`` or ``"full"``) shape."""
+        adamw = dict(state.get("adamw") or {})
+        moments = {}
+        for idx, entry in (adamw.get("state") or {}).items():
+            p = self.opt.params[int(idx)]
+            name = self.shards.names[id(p)]
+            shape = (tuple(p.shape) if shape_of == "local"
+                     else self.shards.placements[name].full_shape)
+            moments[idx] = {k: (fn(name, v) if torch.is_tensor(v) and tuple(v.shape) == shape
+                                and v.dim() > 0 else v) for k, v in entry.items()}
+        if "state" in adamw:
+            adamw["state"] = moments
+        return {**state, "adamw": adamw} if "adamw" in state else state
 
     def host_state_dict(self) -> Dict[str, Any]:
         """The base trainer's host state, plus what the rollouts carry
@@ -1349,11 +1533,19 @@ class PPOTrainer(BaseRLTrainer):
         """Restore the newest checkpoint under ``directory`` (after every
         write in flight has landed); a checkpoint of another freezing
         layout raises the ``ValueError`` that names it."""
+        if self.mesh is not None:
+            # rank 0's write has landed before any rank reads
+            wait_for_checkpoints()
+            barrier()
         state = load_checkpoint(directory, device="cpu")
         self._drop_rollout_cast()
         with translate_structure_errors(directory):
-            self.model.load_state_dict(state["model"])
-            self.opt.load_state_dict(state["optimizer"])
+            model_state, opt_state = state["model"], state["optimizer"]
+            if self.shards is not None:
+                model_state = self.shards.local_state_dict(model_state)
+                opt_state = self._map_opt_state(opt_state, self.shards.local_tensor, "full")
+            self.model.load_state_dict(model_state)
+            self.opt.load_state_dict(opt_state)
         self.step = int(state["step"])
         self.kl_coef = float(state["kl_coef"])
         self.mean_kl = float(state["mean_kl"])

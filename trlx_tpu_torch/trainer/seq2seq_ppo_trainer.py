@@ -65,6 +65,8 @@ class Seq2SeqPPOTrainer(PPOTrainer):
     """PPO on an encoder-decoder policy; the arguments are
     :class:`~trlx_tpu_torch.trainer.ppo_trainer.PPOTrainer`'s."""
 
+    supports_mesh = False  # T5 under a mesh: ROADMAP item 14
+
     def __init__(self, config, *args, **kwargs):
         refuse_for_seq2seq(config)
         super().__init__(config, *args, **kwargs)

@@ -1,19 +1,28 @@
 """Small helpers shared across the port: the clock, device resolution,
-seeding, the rollout phase's compute-dtype weight cast, masked statistics
-and running reward moments (the port's own copies of
-:func:`trlx_tpu.utils.set_seed` / ``infinite_loader`` /
-``compute_dtype_cast`` and of ``whiten``, ``logprobs_from_logits`` and
-``RunningMoments`` from :mod:`trlx_tpu.parallel.collectives`)."""
+seeding, the rollout phase's compute-dtype weight cast and the chunked
+logprobs (the port's own copies of :func:`trlx_tpu.utils.set_seed` /
+``infinite_loader`` / ``compute_dtype_cast``). ``masked_mean``, ``whiten``,
+``logprobs_from_logits`` and ``RunningMoments`` are re-exported from
+:mod:`trlx_tpu_torch.parallel.collectives`, whose functions without a
+process group are the one-process ones."""
 
 from __future__ import annotations
 
 import copy
 import random
-from typing import Callable, Iterable, Optional, Tuple
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
 from torch import nn
+
+# the one-process statistics are the collectives' with no group
+from trlx_tpu_torch.parallel.collectives import (  # noqa: F401
+    RunningMoments,
+    logprobs_from_logits,
+    masked_mean,
+    whiten,
+)
 
 # the port's one clock (seconds) for every host-side duration: the
 # tracer's, so that spans, the Logger and the engine's marks share it
@@ -76,7 +85,8 @@ def rollout_cast_dtype(train, model_config) -> Optional[torch.dtype]:
 
 
 @torch.no_grad()
-def compute_dtype_cast(module: nn.Module, dtype, in_place: bool = False) -> nn.Module:
+def compute_dtype_cast(module: nn.Module, dtype, in_place: bool = False,
+                       gather: Optional[Callable] = None) -> nn.Module:
     """The rollout phase's weights in the compute dtype ``dtype``.
 
     Every projection, embedding and head already rounds its parameters to
@@ -90,35 +100,52 @@ def compute_dtype_cast(module: nn.Module, dtype, in_place: bool = False) -> nn.M
       tensors, and an excluded parameter reads the live master.
     - ``in_place=True``: ``module``'s own parameters are replaced by their
       cast (a frozen module, such as the KL reference: cast once, for
-      good, which also halves its memory)."""
-    dtype = dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype))
-    targets = _cast_targets(module, dtype)
+      good, which also halves its memory).
+    - ``gather`` (under a mesh, ``(name, shard, dtype) -> tensor``): each
+      parameter of the copy is ``gather`` of its shard, cast (to
+      ``dtype``, or ``None`` to keep its own) before the gather; ``dtype``
+      ``None`` then makes a gathered copy without a cast."""
+    if dtype is not None and not isinstance(dtype, torch.dtype):
+        dtype = getattr(torch, str(dtype))
+    targets = _cast_targets(module, dtype) if dtype is not None else []
     if in_place:
         for _, p in targets:
             p.data = p.data.to(dtype)
         return module
+    cast = {id(p) for _, p in targets}
     memo = {id(p): p for p in module.parameters()}
     memo.update({id(b): b for b in module.buffers()})
-    memo.update({id(p): nn.Parameter(p.detach().to(dtype), requires_grad=False)
-                 for _, p in targets})
+    for name, p in module.named_parameters():
+        want = dtype if id(p) in cast else None
+        t = gather(name, p, want) if gather is not None else (
+            p.detach().to(want) if want is not None else p)
+        if t is not p:
+            memo[id(p)] = nn.Parameter(t.detach(), requires_grad=False)
     return copy.deepcopy(module, memo)
 
 
-def behaviour_snapshot(module: nn.Module, dtype=None) -> nn.Module:
+def behaviour_snapshot(module: nn.Module, dtype=None,
+                       gather: Optional[Callable] = None) -> nn.Module:
     """A frozen copy of ``module`` that owns every tensor an update can
     change: the streamed phase's behaviour policy and each asynchronous
     weight push. With ``dtype`` (the rollout cast) the parameters
     :func:`compute_dtype_cast` rounds are new ``dtype`` tensors; every
     other trainable parameter is cloned, so an optimizer step on the
     masters leaves the copy as it was. Frozen parameters and buffers are
-    shared: no update touches them."""
+    shared: no update touches them. ``gather`` (under a mesh) gathers
+    each parameter's shard, after its cast, as :func:`compute_dtype_cast`
+    does."""
     if dtype is not None:
         dtype = dtype if isinstance(dtype, torch.dtype) else getattr(torch, str(dtype))
     cast = {id(p) for _, p in _cast_targets(module, dtype)} if dtype is not None else set()
     memo = {id(b): b for b in module.buffers()}
-    for p in module.parameters():
-        if id(p) in cast:
+    for name, p in module.named_parameters():
+        want = dtype if id(p) in cast else None
+        t = gather(name, p, want) if gather is not None else p
+        if id(p) in cast and gather is None:
             memo[id(p)] = nn.Parameter(p.detach().to(dtype), requires_grad=False)
+        elif t is not p:
+            memo[id(p)] = nn.Parameter(t.detach(), requires_grad=False)
         elif p.requires_grad:
             memo[id(p)] = nn.Parameter(p.detach().clone(), requires_grad=False)
         else:
@@ -138,25 +165,6 @@ def infinite_loader(factory: Callable[[int], Iterable]) -> Iterable:
         if not yielded:
             raise ValueError("infinite_loader: underlying loader is empty")
         epoch += 1
-
-
-def masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    mask = mask.to(x.dtype)
-    return (x * mask).sum() / mask.sum().clamp_min(1.0)
-
-
-def whiten(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Masked zero-mean, unit-variance normalisation; the ``eps`` keeps a
-    constant (or fully masked) batch finite."""
-    mean = masked_mean(x, mask)
-    var = masked_mean((x - mean) ** 2, mask)
-    return (x - mean) * torch.rsqrt(var + eps)
-
-
-def logprobs_from_logits(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
-    """Log-prob of ``labels`` under ``logits`` (log-softmax, then gather)."""
-    logp = torch.log_softmax(logits, dim=-1)
-    return torch.gather(logp, -1, labels.long()[..., None])[..., 0]
 
 
 def chunked_logprobs(
@@ -186,31 +194,3 @@ def chunked_logprobs(
         checkpoint(one, hidden[:, s:s + chunk], labels[:, s:s + chunk], use_reentrant=False)
         for s in range(0, R, chunk)
     ], 1)
-
-
-class RunningMoments:
-    """Running mean/std of reward scalars across rollout chunks: host
-    floats updated per chunk with the parallel variance combination
-    (Bessel-corrected std), as the JAX package's single-host path."""
-
-    def __init__(self):
-        self.mean = 0.0
-        self.std = 1.0
-        self.var = 1.0
-        self.count = 1e-24
-
-    def update(self, xs: np.ndarray) -> Tuple[float, float]:
-        """Update from a batch; returns (batch_mean, batch_std)."""
-        xs = np.asarray(xs, dtype=np.float64)
-        xs_count = xs.size
-        xs_mean = float(xs.mean())
-        xs_var = float(xs.var())
-        delta = xs_mean - self.mean
-        tot_count = self.count + xs_count
-        new_sum = xs_var * xs_count
-        old_sum = self.var * self.count + delta**2 * self.count * xs_count / tot_count
-        self.mean += delta * xs_count / tot_count
-        self.var = (old_sum + new_sum) / tot_count
-        self.std = float(np.sqrt(self.var * tot_count / max(tot_count - 1, 1)))
-        self.count = tot_count
-        return xs_mean, float(np.sqrt(xs_var * xs_count / max(xs_count - 1, 1)))
